@@ -1,0 +1,209 @@
+"""Shared model building blocks (port of `deepof_tpu/models/common.py`).
+
+Conventions, as in the JAX package:
+  - SAME padding everywhere. Flax pads a strided conv asymmetrically
+    (low = total // 2, the rest high): conv1 (k=7, s=2) at 384 rows pads
+    2 rows above and 3 below. `ConvELU` computes that pad per call, so a
+    symmetric `padding=3` never shifts the output by a pixel;
+  - encoder/decoder convs use ELU, except prediction (`pr*`) and
+    flow-upsampling (`up_pr*`) layers, which are linear;
+  - conv weights init glorot-uniform, zero biases; feature deconvs init to
+    bilinear upsampling with an identity channel map.
+
+Tensors are NCHW inside the models.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def bilinear_upsample_kernel(kh: int, kw: int) -> np.ndarray:
+    """(kh, kw) bilinear interpolation kernel (max 1 at the center)."""
+    def axis(k):
+        f = int(np.ceil(k / 2.0))
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        return 1 - np.abs(np.arange(k) / f - c)
+
+    return np.outer(axis(kh), axis(kw))
+
+
+def bilinear_kernel_init(weight: torch.Tensor) -> None:
+    """Fill a ConvTranspose2d weight (in, out, kh, kw) with bilinear
+    upsampling, identity across channels (zero between different ones)."""
+    cin, cout, kh, kw = weight.shape
+    up = torch.as_tensor(bilinear_upsample_kernel(kh, kw), dtype=weight.dtype)
+    with torch.no_grad():
+        weight.zero_()
+        for c in range(min(cin, cout)):
+            weight[c, c] = up
+
+
+def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
+    total = max((math.ceil(size / s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvELU(nn.Module):
+    """Conv with SAME padding (flax's asymmetric rule) + optional ELU."""
+
+    def __init__(self, cin: int, features: int,
+                 kernel: tuple[int, int] = (3, 3), stride: int = 1,
+                 act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, features, kernel, stride=stride)
+        self.kernel = tuple(kernel)
+        self.stride = stride
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), s = self.kernel, self.stride
+        ph = _same_pad(x.shape[-2], kh, s)
+        pw = _same_pad(x.shape[-1], kw, s)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            x = F.conv2d(x, self.conv.weight, self.conv.bias, s,
+                         (ph[0], pw[0]))
+        else:
+            x = F.conv2d(F.pad(x, (*pw, *ph)), self.conv.weight,
+                         self.conv.bias, s)
+        return F.elu(x) if self.act else x
+
+
+class Deconv(nn.Module):
+    """Transposed conv, kernel (2*scale, 2*scale), stride=scale, output
+    exactly scale x the input; initialised to bilinear upsampling. Flax's
+    ConvTranspose kernel is the spatially flipped torch weight (see
+    `convert.py`)."""
+
+    def __init__(self, cin: int, features: int, scale: int = 2,
+                 act: bool = True):
+        super().__init__()
+        k = 2 * scale
+        self.deconv = nn.ConvTranspose2d(cin, features, k, stride=scale,
+                                         padding=scale // 2)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.deconv(x)
+        return F.elu(x) if self.act else x
+
+
+class FlowDecoder(nn.Module):
+    """Multi-scale flow decoder. Consumes encoder features coarsest-first;
+    at each level k:
+        pr_k = 3x3 linear conv -> flow_channels
+        feat = concat(skip_{k-1}, Deconv(feat), Deconv_linear(pr_k))
+    Returns flows coarsest-first.
+    """
+
+    def __init__(self, in_channels: Sequence[int],
+                 upconv_features: Sequence[int], flow_channels: int = 2):
+        super().__init__()
+        n = len(in_channels)
+        if len(upconv_features) != n - 1:
+            raise ValueError(f"{n} feature levels need {n - 1} upconv "
+                             f"widths, got {len(upconv_features)}")
+        self.n = n
+        feat = in_channels[0]
+        for k in range(n - 1):
+            setattr(self, f"pr{n - k}", ConvELU(feat, flow_channels, act=False))
+            setattr(self, f"upconv{n - k - 1}",
+                    Deconv(feat, upconv_features[k]))
+            setattr(self, f"up_pr{n - k}to{n - k - 1}",
+                    Deconv(flow_channels, flow_channels, act=False))
+            feat = in_channels[k + 1] + upconv_features[k] + flow_channels
+        self.pr1 = ConvELU(feat, flow_channels, act=False)
+
+    def forward(self, feats_coarse_first: Sequence[torch.Tensor]
+                ) -> list[torch.Tensor]:
+        n = self.n
+        flows = []
+        feat = feats_coarse_first[0]
+        for k in range(n - 1):
+            pr = getattr(self, f"pr{n - k}")(feat)
+            flows.append(pr)
+            up_feat = getattr(self, f"upconv{n - k - 1}")(feat)
+            up_pr = getattr(self, f"up_pr{n - k}to{n - k - 1}")(pr)
+            # odd skip sizes: stride-2 deconvs overshoot by one; crop
+            skip = feats_coarse_first[k + 1]
+            sh, sw = skip.shape[-2:]
+            feat = torch.cat([skip, up_feat[..., :sh, :sw],
+                              up_pr[..., :sh, :sw]], dim=1)
+        flows.append(self.pr1(feat))
+        return flows
+
+
+def scaled_width(features: int, mult: float) -> int:
+    """Channel width under a width multiplier; floor of 8."""
+    return max(int(features * mult), 8)
+
+
+def add_flownet_tail(module: nn.Module, cin: int, width_mult: float = 1.0,
+                     prefix: str = "conv") -> tuple[int, int, int]:
+    """Register the conv4_1..conv6_2 contracting tail (strides 2 at
+    4_1/5_1/6_1) on `module`, so the layer names land in the caller's
+    flat scope as in the JAX package; returns the channel counts of
+    (conv4_2, conv5_2, conv6_2)."""
+    ch = lambda n: scaled_width(n, width_mult)  # noqa: E731
+    specs = (("4_1", ch(512), 2), ("4_2", ch(512), 1), ("5_1", ch(512), 2),
+             ("5_2", ch(512), 1), ("6_1", ch(1024), 2), ("6_2", ch(1024), 1))
+    for name, feats, stride in specs:
+        setattr(module, f"{prefix}{name}", ConvELU(cin, feats, stride=stride))
+        cin = feats
+    return ch(512), ch(512), ch(1024)
+
+
+def flownet_tail(module: nn.Module, x: torch.Tensor, prefix: str = "conv"):
+    """Run the tail registered by `add_flownet_tail`; returns
+    (conv4_2, conv5_2, conv6_2)."""
+    c = lambda name, t: getattr(module, f"{prefix}{name}")(t)  # noqa: E731
+    c4_2 = c("4_2", c("4_1", x))
+    c5_2 = c("5_2", c("5_1", c4_2))
+    c6_2 = c("6_2", c("6_1", c5_2))
+    return c4_2, c5_2, c6_2
+
+
+def add_flownet_trunk(module: nn.Module, cin: int, width_mult: float = 1.0,
+                      prefix: str = "conv") -> list[int]:
+    """Register the 10-conv FlowNet-S trunk on `module`; returns the
+    channel counts of its taps [conv1, conv2, conv3_2, conv4_2, conv5_2,
+    conv6_2]."""
+    ch = lambda n: scaled_width(n, width_mult)  # noqa: E731
+    setattr(module, f"{prefix}1", ConvELU(cin, ch(64), (7, 7), 2))
+    setattr(module, f"{prefix}2", ConvELU(ch(64), ch(128), (5, 5), 2))
+    setattr(module, f"{prefix}3_1", ConvELU(ch(128), ch(256), (5, 5), 2))
+    setattr(module, f"{prefix}3_2", ConvELU(ch(256), ch(256)))
+    tail = add_flownet_tail(module, ch(256), width_mult, prefix)
+    return [ch(64), ch(128), ch(256), *tail]
+
+
+def flownet_trunk(module: nn.Module, x: torch.Tensor,
+                  prefix: str = "conv") -> list[torch.Tensor]:
+    """Run the trunk registered by `add_flownet_trunk`; returns decoder
+    taps coarsest-last: [conv1, conv2, conv3_2, conv4_2, conv5_2, conv6_2]."""
+    c = lambda name, t: getattr(module, f"{prefix}{name}")(t)  # noqa: E731
+    c1 = c("1", x)
+    c2 = c("2", c1)
+    c3_2 = c("3_2", c("3_1", c2))
+    return [c1, c2, c3_2, *flownet_tail(module, c3_2, prefix)]
+
+
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """The JAX package's init: glorot-uniform conv weights, zero biases,
+    bilinear feature deconvs. Draws from a torch.Generator seeded with
+    `seed` in module order (the numbers differ from jax.random's)."""
+    g = torch.Generator().manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, ConvELU):
+            nn.init.xavier_uniform_(m.conv.weight, generator=g)
+            nn.init.zeros_(m.conv.bias)
+        elif isinstance(m, Deconv):
+            bilinear_kernel_init(m.deconv.weight)
+            nn.init.zeros_(m.deconv.bias)
+    return model

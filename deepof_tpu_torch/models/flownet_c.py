@@ -1,0 +1,63 @@
+"""FlowNet-Correlation flow model (port of `deepof_tpu/models/flownet_c.py`).
+
+Siamese conv1..conv3 towers (one set of modules, shared weights) over
+each preprocessed frame, the multiplicative correlation cost volume
+(max displacement 20, stride 2 -> 441 maps) followed by ELU, a 1x1
+`conv_redir` (32ch) of the first tower, then the FlowNet-S tail and
+decoder with 6 pyramid heads.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.corr import correlation_nchw
+from .common import (ConvELU, FlowDecoder, add_flownet_tail, flownet_tail,
+                     scaled_width)
+from .flownet_s import FLOW_SCALES
+
+
+class FlowNetC(nn.Module):
+    flow_scales = FLOW_SCALES
+    max_downsample = 64
+
+    def __init__(self, flow_channels: int = 2, max_disp: int = 20,
+                 corr_stride: int = 2, width_mult: float = 1.0):
+        super().__init__()
+        self.flow_channels = flow_channels
+        self.max_disp = max_disp
+        self.corr_stride = corr_stride
+        self.width_mult = width_mult
+        # "auto": the CUDA kernel on the GPU, the plain version on the
+        # CPU; "reference" forces the plain version (the kernel's check)
+        self.corr_impl = "auto"
+        ch = lambda n: scaled_width(n, width_mult)  # noqa: E731
+        self.conv1 = ConvELU(3, ch(64), (7, 7), 2)
+        self.conv2 = ConvELU(ch(64), ch(128), (5, 5), 2)
+        self.conv3 = ConvELU(ch(128), ch(256), (5, 5), 2)
+        self.conv_redir = ConvELU(ch(256), ch(32), (1, 1))
+        n = 2 * (max_disp // corr_stride) + 1
+        self.conv3_1 = ConvELU(n * n + ch(32), ch(256))
+        c4_2, c5_2, c6_2 = add_flownet_tail(self, ch(256), width_mult)
+        self.decoder = FlowDecoder(
+            (c6_2, c5_2, c4_2, ch(256), ch(128), ch(64)),
+            tuple(ch(f) for f in (512, 256, 128, 64, 32)), flow_channels)
+
+    def forward(self, pair: torch.Tensor) -> list[torch.Tensor]:
+        b = pair.shape[0]
+        # both frames through the one tower in a single batch
+        frames = torch.cat([pair[:, :3], pair[:, 3:]], dim=0)
+        c1 = self.conv1(frames)
+        c2 = self.conv2(c1)
+        c3 = self.conv3(c2)
+        f1, f2 = c3[:b], c3[b:]
+        corr = F.elu(correlation_nchw(f1, f2, self.max_disp,
+                                      self.corr_stride, self.corr_impl))
+        net = torch.cat([corr, self.conv_redir(f1)], dim=1)
+        conv3_1 = self.conv3_1(net)
+        conv4_2, conv5_2, conv6_2 = flownet_tail(self, conv3_1)
+        flows = self.decoder([conv6_2, conv5_2, conv4_2, conv3_1, c2[:b],
+                              c1[:b]])
+        return flows[::-1]

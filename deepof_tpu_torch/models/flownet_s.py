@@ -1,0 +1,39 @@
+"""FlowNet-Simple flow model (port of `deepof_tpu/models/flownet_s.py`).
+
+10-conv contracting trunk, ELU activations, 6 pyramid heads with flow
+scales 20/2^k, decoder deconvs of widths 512/256/128/64/32.
+
+Input: preprocessed image pair concatenated on channels, NCHW
+(B, 6, H, W). Output: list of flow predictions finest-first.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .common import (FlowDecoder, add_flownet_trunk, flownet_trunk,
+                     scaled_width)
+
+FLOW_SCALES = (10.0, 5.0, 2.5, 1.25, 0.625, 0.3125)  # finest (pr1) first
+
+
+class FlowNetS(nn.Module):
+    flow_scales = FLOW_SCALES
+    max_downsample = 64  # six stride-2 stages
+
+    def __init__(self, flow_channels: int = 2, width_mult: float = 1.0):
+        super().__init__()
+        self.flow_channels = flow_channels
+        self.width_mult = width_mult
+        # T frames of 3 channels give 2(T-1) flow channels
+        taps = add_flownet_trunk(self, 3 * (flow_channels // 2 + 1),
+                                 width_mult)
+        self.decoder = FlowDecoder(
+            taps[::-1],
+            tuple(scaled_width(f, width_mult) for f in (512, 256, 128, 64, 32)),
+            flow_channels)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        taps = flownet_trunk(self, x)
+        return self.decoder(taps[::-1])[::-1]  # finest first

@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone: it imports no JAX, flax, optax or cv2,
+and nothing of the JAX package, and its entry points do not fall back
+to the CPU when no card is present."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "deepof_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "deepof_tpu")
+
+
+def _modules():
+    import deepof_tpu_torch
+
+    return ["deepof_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(deepof_tpu_torch.__path__,
+                                              "deepof_tpu_torch.")]
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        BLOCKED = {BLOCKED!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {ROOT!r})
+        for mod in {_modules()!r} + ["chip_smoke"]:
+            importlib.import_module(mod)
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_port_source_has_no_jax_or_reference_imports():
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    # a relative import climbing out of the package
+                    # (from ..deepof_tpu...) names the module like an
+                    # absolute one
+                    names = [node.module or ""]
+                else:
+                    continue
+                for name in names:
+                    if name.split(".")[0] in BLOCKED:
+                        offenders.append(f"{path}:{node.lineno} {name}")
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deepof_tpu_torch.core.config import ExperimentConfig
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.predict import predict_pairs
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+
+    cfg = ExperimentConfig()
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceEngine(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model("flownet_s", width_mult=0.25)
+    with pytest.raises(RuntimeError, match="cuda"):
+        predict_pairs(cfg, [], str(tmp_path))
