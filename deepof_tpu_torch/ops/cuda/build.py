@@ -3,8 +3,7 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into
 `build/deepof_tpu_torch/lib<name>-<hash>.so` at the repository root and
 loaded with ctypes. The hash covers the source and the flags, so a
-stale library is never loaded. `build_all` starts one `nvcc` per source,
-all at once, and waits for them together.
+stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -48,39 +47,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, dict]:
-    """Compile every named source that has no up-to-date library, in
-    parallel. Returns {name: {"path", "built", "seconds", "log"}}; raises
-    with the compiler's output if any build fails."""
+def build(name: str) -> dict:
+    """Compile `csrc/<name>.cu` unless its library is up to date. Returns
+    {"path", "built", "seconds", "log"}; raises with the compiler's
+    output if the build fails."""
+    path = library_path(name)
+    log = path.with_suffix(".log")
+    if path.exists():
+        return {"path": str(path), "built": False, "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
-    procs = {}
-    info: dict[str, dict] = {}
-    for name in names:
-        path = library_path(name)
-        log = path.with_suffix(".log")
-        if path.exists():
-            info[name] = {"path": str(path), "built": False, "seconds": 0.0,
-                          "log": log.read_text() if log.exists() else ""}
-            continue
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path, log)
-    failed = []
-    for name, (proc, tmp, path, log) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{out}")
-            continue
-        log.write_text(out)
-        os.replace(tmp, path)
-        info[name] = {"path": str(path), "built": True,
-                      "seconds": time.monotonic() - t0, "log": out}
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return info
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):"
+                           f"\n{proc.stdout}")
+    log.write_text(proc.stdout)
+    os.replace(tmp, path)
+    return {"path": str(path), "built": True,
+            "seconds": time.monotonic() - t0, "log": proc.stdout}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -88,7 +76,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_all([name])[name]["path"])
+            lib = ctypes.CDLL(build(name)["path"])
             lib.deepof_cuda_error_string.argtypes = [ctypes.c_int]
             lib.deepof_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -28,7 +28,6 @@ def output_stem(src, idx: int, many: bool) -> str:
 
 def predict_pairs(cfg: ExperimentConfig, pairs: list[tuple], out_dir: str,
                   mean=None, model: nn.Module | None = None,
-                  precision: str | None = None,
                   device: str | torch.device = "cuda") -> list[str]:
     """Predict native-resolution flow for (prev, next) pairs and write one
     `<stem>_flow.flo` per pair; returns the written paths in pair order.
@@ -53,7 +52,7 @@ def predict_pairs(cfg: ExperimentConfig, pairs: list[tuple], out_dir: str,
             written.append(path)
 
         for idx, (src, tgt) in enumerate(pairs):
-            buf.append((idx, src, eng.submit(src, tgt, precision=precision)))
+            buf.append((idx, src, eng.submit(src, tgt)))
             if len(buf) >= window:
                 drain_one()
         while buf:

@@ -50,8 +50,6 @@ _STOP = object()
 
 #: Latency samples retained for the p50/p99 estimate (newest window).
 _LATENCY_WINDOW = 2048
-#: Seconds of completion history behind the requests/s figure.
-_RATE_WINDOW_S = 10.0
 
 #: Precision tiers this package serves so far.
 SERVED_TIERS = ("f32",)
@@ -59,10 +57,9 @@ SERVED_TIERS = ("f32",)
 
 class ServeError(RuntimeError):
     """Structured per-request failure: machine-readable `code` +
-    message. Codes: bad_input (decode/preprocess), bad_request (a tier
-    this endpoint does not serve), dispatch_failed (the batched forward
-    raised; the whole flush fails), postprocess_failed (one request's
-    resize/rescale raised), engine_closed."""
+    message. Codes: bad_input (decode/preprocess), dispatch_failed (the
+    batched forward raised; the whole flush fails), postprocess_failed
+    (one request's resize/rescale raised), engine_closed."""
 
     def __init__(self, code: str, message: str,
                  request_id: int | str | None = None):
@@ -72,21 +69,15 @@ class ServeError(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("x", "bucket", "tier", "native_hw", "future", "t_enq", "rid")
+    __slots__ = ("x", "bucket", "native_hw", "future", "t_enq", "rid")
 
-    def __init__(self, x, bucket, tier, native_hw, future, t_enq, rid):
+    def __init__(self, x, bucket, native_hw, future, t_enq, rid):
         self.x = x
         self.bucket = bucket
-        self.tier = tier
         self.native_hw = native_hw
         self.future = future
         self.t_enq = t_enq
         self.rid = rid
-
-    @property
-    def key(self) -> tuple[tuple[int, int], str]:
-        """Requests batch together iff they share (bucket, tier)."""
-        return (self.bucket, self.tier)
 
 
 def build_serve_model(cfg: ExperimentConfig,
@@ -138,14 +129,12 @@ class InferenceEngine:
         self.max_batch = max(int(cfg.serve.max_batch), 1)
         self.timeout_s = max(float(cfg.serve.batch_timeout_ms), 0.0) / 1e3
         self.buckets = resolve_buckets(cfg)
-        self.tiers = tuple(cfg.serve.precisions) or SERVED_TIERS
-        unserved = [t for t in self.tiers if t not in SERVED_TIERS]
+        unserved = [t for t in cfg.serve.precisions if t not in SERVED_TIERS]
         if unserved:
             raise NotImplementedError(
                 f"serve.precisions {unserved} are not ported yet (ROADMAP "
                 f"Queue A item 8, serving tiers); this package serves "
                 f"{list(SERVED_TIERS)}")
-        self.default_tier = self.tiers[0]
         if mean is None:
             mean = DATASET_MEANS.get(cfg.data.dataset,
                                      DATASET_MEANS["flyingchairs"])
@@ -166,18 +155,11 @@ class InferenceEngine:
         self._requests = 0
         self._responses = 0
         self._errors = 0
-        self._server_errors = 0
         self._batches = 0
         self._dispatch_failures = 0
-        self._bucket_splits = 0
-        self._tier_splits = 0
-        self._timeout_flushes = 0
         self._occupancy_sum = 0
-        self._last_occupancy = 0
-        self._max_queue_depth = 0
         self._submitting = 0  # submit() threads currently inside put()
         self._latency_s: deque = deque(maxlen=_LATENCY_WINDOW)
-        self._done_per_s: dict[int, int] = {}
 
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-batcher")
@@ -199,36 +181,24 @@ class InferenceEngine:
                              f"array, got {getattr(img, 'shape', type(img))}")
         return img
 
-    def _resolve_tier(self, precision, rid) -> str:
-        if precision is None:
-            return self.default_tier
-        tier = str(precision)
-        if tier not in self.tiers:
-            raise ServeError("bad_request",
-                             f"precision {tier!r} not served; this endpoint "
-                             f"offers {list(self.tiers)}", rid)
-        return tier
-
-    def submit(self, prev, nxt, precision: str | None = None,
+    def submit(self, prev, nxt,
                request_id: int | str | None = None) -> Future:
         """Enqueue one (prev, next) pair: decoded BGR arrays or .npy paths.
 
         Returns a Future resolving to {"flow": (H_native, W_native, 2)
-        float32 in native pixel units, "bucket", "precision",
-        "native_hw", "latency_s", "request_id"}; failures raise ServeError
+        float32 in native pixel units, "bucket", "native_hw", "latency_s", "request_id"}; failures raise ServeError
         from .result(). Decode/preprocess errors fail here."""
         rid = request_id if request_id is not None else next(self._rid)
         fut: Future = Future()
         with self._stats_lock:
             self._requests += 1
         try:
-            tier = self._resolve_tier(precision, rid)
             src = self._decode(prev)
             tgt = self._decode(nxt)
             native_hw = (int(src.shape[0]), int(src.shape[1]))
             bucket = pick_bucket(native_hw, self.buckets)
             x = prepare_pair(src, tgt, bucket, self.mean)
-            self._enqueue(_Request(x, bucket, tier, native_hw, fut,
+            self._enqueue(_Request(x, bucket, native_hw, fut,
                                    time.monotonic(), rid))
         except ServeError as e:
             e.request_id = e.request_id or rid
@@ -240,7 +210,6 @@ class InferenceEngine:
 
     def submit_prepared(self, x: np.ndarray, bucket: tuple[int, int],
                         native_hw: tuple[int, int],
-                        precision: str | None = None,
                         request_id: int | str | None = None) -> Future:
         """Enqueue an already-preprocessed row (H, W, 6) at `bucket`."""
         rid = request_id if request_id is not None else next(self._rid)
@@ -248,10 +217,9 @@ class InferenceEngine:
         with self._stats_lock:
             self._requests += 1
         try:
-            tier = self._resolve_tier(precision, rid)
             self._enqueue(_Request(np.asarray(x, np.float32), tuple(bucket),
-                                   tier, tuple(native_hw), fut,
-                                   time.monotonic(), rid))
+                                   tuple(native_hw), fut, time.monotonic(),
+                                   rid))
         except ServeError as e:
             e.request_id = e.request_id or rid
             self._fail(fut, e)
@@ -278,15 +246,10 @@ class InferenceEngine:
         finally:
             with self._stats_lock:
                 self._submitting -= 1
-        with self._stats_lock:
-            self._max_queue_depth = max(self._max_queue_depth,
-                                        self._q.qsize())
 
     def _fail(self, fut: Future, err: ServeError) -> None:
         with self._stats_lock:
             self._errors += 1
-            if err.code not in ("bad_input", "bad_request"):
-                self._server_errors += 1
         fut.set_exception(err)
 
     # ----------------------------------------------------------- batcher
@@ -301,30 +264,20 @@ class InferenceEngine:
             if req is _STOP:
                 break
             batch = [req]
-            timed_out = False
             while len(batch) < self.max_batch:
                 rem = (batch[0].t_enq + self.timeout_s) - time.monotonic()
                 try:
                     nxt = (self._q.get(timeout=rem) if rem > 0
                            else self._q.get_nowait())
                 except queue.Empty:
-                    timed_out = True  # the oldest waited out the deadline
-                    break
+                    break  # the oldest waited out the deadline
                 if nxt is _STOP:
                     stop = True
                     break
-                if nxt.key != batch[0].key:
+                if nxt.bucket != batch[0].bucket:
                     pending = nxt  # flush now; it opens the next batch
-                    with self._stats_lock:
-                        if nxt.bucket != batch[0].bucket:
-                            self._bucket_splits += 1
-                        else:
-                            self._tier_splits += 1
                     break
                 batch.append(nxt)
-            if timed_out and len(batch) < self.max_batch:
-                with self._stats_lock:
-                    self._timeout_flushes += 1
             self._flush(batch)
         # anything still queued after _STOP was submitted post-close
         while True:
@@ -338,7 +291,7 @@ class InferenceEngine:
                     req.rid))
 
     def _flush(self, batch: list[_Request]) -> None:
-        bucket, _tier = batch[0].key
+        bucket = batch[0].bucket
         n = len(batch)
         x = np.zeros((self.max_batch, bucket[0], bucket[1],
                       batch[0].x.shape[-1]), np.float32)
@@ -364,49 +317,28 @@ class InferenceEngine:
             with self._stats_lock:
                 self._responses += 1
                 self._latency_s.append(done - r.t_enq)
-                sec = int(done)
-                self._done_per_s[sec] = self._done_per_s.get(sec, 0) + 1
-                if len(self._done_per_s) > _RATE_WINDOW_S + 5:
-                    for old in [s for s in self._done_per_s
-                                if s < sec - _RATE_WINDOW_S - 1]:
-                        del self._done_per_s[old]
             r.future.set_result({"flow": flow, "bucket": bucket,
-                                 "precision": r.tier,
                                  "native_hw": r.native_hw,
                                  "latency_s": done - r.t_enq,
                                  "request_id": r.rid})
         with self._stats_lock:
             self._batches += 1
             self._occupancy_sum += n
-            self._last_occupancy = n
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
         """The serve_* counter block."""
-        now = time.monotonic()
         with self._stats_lock:
             lat = sorted(self._latency_s)
-            recent = sum(c for s, c in self._done_per_s.items()
-                         if now - s <= _RATE_WINDOW_S)
             out = {
                 "serve_requests": self._requests,
                 "serve_responses": self._responses,
                 "serve_errors": self._errors,
-                "serve_server_errors": self._server_errors,
                 "serve_batches": self._batches,
                 "serve_dispatch_failures": self._dispatch_failures,
-                "serve_bucket_splits": self._bucket_splits,
-                "serve_tier_splits": self._tier_splits,
-                "serve_timeout_flushes": self._timeout_flushes,
-                "serve_queue_depth": self._q.qsize(),
-                "serve_max_queue_depth": self._max_queue_depth,
-                "serve_last_occupancy": self._last_occupancy,
                 "serve_occupancy_mean": (
                     round(self._occupancy_sum / self._batches, 3)
                     if self._batches else None),
-                "serve_max_batch": self.max_batch,
-                "serve_buckets": len(self.buckets),
-                "serve_device": str(self.device),
             }
         if lat:
             out["serve_latency_p50_ms"] = round(
@@ -416,7 +348,6 @@ class InferenceEngine:
         else:
             out["serve_latency_p50_ms"] = None
             out["serve_latency_p99_ms"] = None
-        out["serve_requests_per_s"] = round(recent / _RATE_WINDOW_S, 3)
         return out
 
     # ------------------------------------------------------------- close

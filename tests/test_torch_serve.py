@@ -173,11 +173,10 @@ def test_engine_errors_are_structured(tmp_path):
         with pytest.raises(ServeError) as e:
             png.result(10)
         assert e.value.code == "bad_input"
-        tier = eng.submit_prepared(np.zeros((*BUCKET, 6), np.float32), BUCKET,
-                                   BUCKET, precision="int8")
-        with pytest.raises(ServeError) as e:
-            tier.result(10)
-        assert e.value.code == "bad_request"
+        with pytest.raises(NotImplementedError, match="int8"):
+            InferenceEngine(dataclasses.replace(cfg, serve=dataclasses.replace(
+                cfg.serve, precisions=("f32", "int8"))), model=model,
+                device="cpu")
 
         def boom(x):
             raise RuntimeError("device lost")
