@@ -3,13 +3,19 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (sm_90a: H100) and the CUDA toolkit's nvcc. Builds
-every CUDA kernel from `deepof_tpu_torch/csrc` into `build/`, checks each
-against its plain PyTorch version on the card, then serves FlowNet-C at
-full width through `InferenceEngine` and checks that the main path went
-through the kernels. Each phase prints one JSON line; the last two lines
-are the kernel summary and the card's name and power limit, and the very
-last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-with no such line; so does a host without a GPU.
+every CUDA kernel from `deepof_tpu_torch/csrc` into `build/` (one nvcc
+per source, all at once), checks each against its plain PyTorch version
+on the card, then drives the port's two paths and checks that each went
+through its kernels:
+  - serving: FlowNet-C at full width through `InferenceEngine` (the
+    correlation kernel);
+  - training: FlowNet-S at full width, 384x512, batch 4, through
+    `Trainer` on `SyntheticData` (the warp and its flow gradient, six
+    levels of the pyramid loss per step).
+Each phase prints one JSON line; the last three lines are the kernel
+summary, the card's name and power limit, and {"ok": true, "device":
+{...}}. Any failure exits non-zero with no such line; so does a host
+without a GPU.
 """
 
 from __future__ import annotations
@@ -28,6 +34,17 @@ PEAK_BYTES_S = 3.35e12
 
 KERNEL_TOL = 1e-4  # kernel vs plain version, float32 (summation order)
 SERVE_TOL = 1e-3   # served raw flow vs the same model with the plain corr
+WARP_TOL = 1e-5       # warp forward vs plain version, float32
+WARP_GRAD_TOL = 1e-4  # flow gradient vs autograd of the plain version
+# one train step with the warp kernels vs the plain warp, same weights and
+# batch: the loss, relative, and each parameter's gradient, as the
+# largest difference over the largest entry of that tensor
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_STEPS = 6
+# (B, C, H, W) of the six pyramid levels of the training loss at
+# 384x512, batch 4: the warp's shapes on the main path
+WARP_LEVELS = [(4, 3, 192 >> k, 256 >> k) for k in range(6)]
 
 
 def emit(phase: str, **kw) -> None:
@@ -51,6 +68,29 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: the device-side events (kernels and
+    copies) of `iters` calls from torch.profiler, per call. A small
+    kernel's CUDA-event time (`time_ms`) is the host's launch time
+    instead."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session that recorded no device event is redone
+        with torch_profile(activities=[ProfilerActivity.CUDA],
+                           acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(t for t, _ in device_kernels(prof, iters))
+        if ms > 0:
+            return ms
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def corr_bound_ms(b, c, h, w, n) -> tuple[float, str]:
@@ -90,6 +130,146 @@ def check_corr(shape, max_disp, stride, seed):
         raise AssertionError(f"corr kernel disagrees at {shape}: max abs "
                              f"err {err} > {KERNEL_TOL}")
     return row
+
+
+def warp_bound_ms(b, c, h, w, grad: bool) -> tuple[float, str]:
+    """Each input read once, each output written once: image, flow and
+    output (forward); image, flow, cotangent and flow cotangent
+    (gradient); against the float32 operations per pixel."""
+    px = b * h * w
+    nbytes = 4.0 * px * ((2 * c + 4) if grad else (2 * c + 2))
+    flops = px * ((6 + 14 * c) if grad else (6 + 11 * c))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_warp(shape, mag, seed):
+    """Both warp kernels vs their plain versions on the card at one NCHW
+    shape, with the library yardstick F.grid_sample(border,
+    align_corners=True) and its gradient with respect to the grid. Each
+    is timed twice: its device time (`ms`, `plain_ms`, `library_ms`) and
+    the CUDA-event time of one call, host launch included (`*call_ms`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_cuda,
+                                                warp_fwd_cuda)
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    b, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(shape, device="cuda", generator=g)
+    flow = torch.randn((b, 2, h, w), device="cuda", generator=g) * mag
+    ct = torch.randn(shape, device="cuda", generator=g)
+
+    def plain_grad():
+        f = flow.detach().requires_grad_(True)
+        return torch.autograd.grad(backward_warp_reference(img, f), f, ct)[0]
+
+    got, want = warp_fwd_cuda(img, flow), backward_warp_reference(img, flow)
+    ggot, gwant = warp_flow_grad_cuda(img, flow, ct), plain_grad()
+    # library: pixel coordinates normalised to [-1, 1] at align_corners
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
+                            torch.arange(w, device="cuda"), indexing="ij")
+    norm = torch.tensor([2.0 / max(w - 1, 1), 2.0 / max(h - 1, 1)],
+                        device="cuda")
+    grid = ((torch.stack([xs + flow[:, 0], ys + flow[:, 1]], -1) * norm - 1)
+            .detach().requires_grad_(True))
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib_out = library()
+    lib_grad = torch.autograd.grad(lib_out, grid, ct, retain_graph=True)[0]
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    gerr = (ggot - gwant).abs().max().item()
+    fwd_bound, fwd_by = warp_bound_ms(b, c, h, w, grad=False)
+    grad_bound, grad_by = warp_bound_ms(b, c, h, w, grad=True)
+
+    def times(kernel, plain, lib):
+        return {**{k: device_ms(fn) for k, fn in (
+                    ("ms", kernel), ("plain_ms", plain), ("library_ms", lib))},
+                **{k: time_ms(fn) for k, fn in (
+                    ("call_ms", kernel), ("plain_call_ms", plain),
+                    ("library_call_ms", lib))}}
+
+    row = {
+        "shape": list(shape), "flow_scale": mag,
+        "fwd": {"max_abs_err": err,
+                "bitwise_equal": bool(torch.equal(got, want)),
+                **times(lambda: warp_fwd_cuda(img, flow),
+                        lambda: backward_warp_reference(img, flow), library),
+                "library_vs_plain_max_abs": (lib_out - want).abs().max()
+                .item(),
+                "bound_ms": fwd_bound, "bound_by": fwd_by},
+        "flow_grad": {"max_abs_err": gerr,
+                      **times(lambda: warp_flow_grad_cuda(img, flow, ct),
+                              plain_grad,
+                              lambda: torch.autograd.grad(
+                                  lib_out, grid, ct, retain_graph=True)),
+                      "library_vs_plain_max_abs": (
+                          lib_grad * norm).permute(0, 3, 1, 2)
+                      .sub(gwant).abs().max().item(),
+                      "bound_ms": grad_bound, "bound_by": grad_by}}
+    emit("kernels", kernel="warp", **row)
+    if not (err <= WARP_TOL and gerr <= WARP_GRAD_TOL):
+        raise AssertionError(f"warp kernels disagree at {shape} x{mag}: "
+                             f"forward {err} (limit {WARP_TOL}), flow "
+                             f"gradient {gerr} (limit {WARP_GRAD_TOL})")
+    return row
+
+
+def nonfinite_flow(shape, seed):
+    """(image, flow, cotangent) on the card, NCHW, with NaN, +-inf and
+    huge finite entries in the flow."""
+    import torch
+
+    b, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(shape, device="cuda", generator=g)
+    flow = torch.randn((b, 2, h, w), device="cuda", generator=g) * 3
+    ct = torch.randn(shape, device="cuda", generator=g)
+    nan, inf = float("nan"), float("inf")
+    for bi, ci, y, x, val in [
+            (0, 0, 2, 3, nan), (0, 1, 4, 5, inf), (1, 0, 6, 7, -inf),
+            (1, 1, 8, 9, 3e38), (0, 0, 10, 11, inf), (0, 1, 10, 11, nan),
+            (1, 0, 12, 13, -3e38), (1, 1, 1, 2, -inf),
+            # a NaN weight beside a side saturated at the left or top
+            (0, 0, 5, 6, nan), (0, 1, 5, 6, -50.0),
+            (1, 0, 9, 10, -50.0), (1, 1, 9, 10, nan)]:
+        flow[bi, ci, y, x] = val
+    return img, flow, ct
+
+
+def check_warp_nonfinite(shape=(2, 3, 16, 20), seed=10):
+    """Both warp kernels vs their plain versions on NaN, inf and huge
+    flows: the same values, NaN where the plain version gives NaN."""
+    import torch
+
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_cuda,
+                                                warp_fwd_cuda)
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    img, flow, ct = nonfinite_flow(shape, seed)
+    got = warp_fwd_cuda(img, flow)
+    ggot = warp_flow_grad_cuda(img, flow, ct)
+    f = flow.detach().requires_grad_(True)
+    want = backward_warp_reference(img, f)
+    gwant = torch.autograd.grad(want, f, ct)[0]
+    torch.cuda.synchronize()
+    same = (torch.allclose(got, want.detach(), rtol=0, atol=WARP_TOL,
+                           equal_nan=True)
+            and torch.allclose(ggot, gwant, rtol=0, atol=WARP_GRAD_TOL,
+                               equal_nan=True))
+    emit("kernels", kernel="warp_nonfinite", shape=list(shape),
+         nan_outputs=int(got.isnan().sum()),
+         nan_flow_grads=int(ggot.isnan().sum()), agree=same)
+    if not same:
+        raise AssertionError("warp kernels disagree with the plain version "
+                             "on non-finite flows")
 
 
 def serve(cfg, n_requests: int = 24, n_threads: int = 4):
@@ -181,6 +361,25 @@ def host_ms(fn, iters: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def device_kernels(prof, iters: int) -> list[tuple[float, str]]:
+    """(ms per iteration, name) of each device-side event (kernels and
+    copies), largest first: an operator's own row repeats the time of
+    the kernels it launched, and a user annotation's device row (the
+    optimizer's step) the time of the kernels inside it, so only kernel
+    and copy rows are kept."""
+    kernels = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if (dev > 0 and str(e.device_type).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)
+                and e.key != "Activity Buffer Request"):
+            kernels.append((dev / 1e3 / iters, e.key))
+    kernels.sort(reverse=True)
+    return kernels
+
+
 def profile(eng, fwd, x, pairs, iters: int = 3) -> None:
     """Where one request's time goes: host preprocess and postprocess
     per native size, one padded dispatch (copy in, forward, copy out) by
@@ -208,17 +407,7 @@ def profile(eng, fwd, x, pairs, iters: int = 3) -> None:
         for _ in range(iters):
             fwd(x)
         torch.cuda.synchronize()
-    # device-side events only (kernels and copies): an operator's own
-    # row repeats the time of the kernels it launched
-    kernels = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if (dev > 0 and str(e.device_type).endswith("CUDA")
-                and e.key != "Activity Buffer Request"):
-            kernels.append((dev / 1e3 / iters, e.key))
-    kernels.sort(reverse=True)
+    kernels = device_kernels(prof, iters)
     busy = sum(t for t, _ in kernels)
     corr = sum(t for t, k in kernels if "corr_fwd" in k)
     emit("profile", bucket=list(bucket), batch=int(x.shape[0]), host=host,
@@ -229,6 +418,144 @@ def profile(eng, fwd, x, pairs, iters: int = 3) -> None:
          top=[{"ms": t, "name": k[:90]} for t, k in kernels[:10]])
 
 
+def loss_and_grads(model, batch, mean, loss_cfg):
+    """One forward and backward at the model's current weights, no
+    update: (loss, [gradient of each parameter])."""
+    from deepof_tpu_torch.train.step import model_losses
+
+    model.zero_grad(set_to_none=True)
+    total, _ = model_losses(model, batch, mean, loss_cfg)
+    total.backward()
+    return total.item(), [p.grad.detach().clone()
+                          for p in model.parameters()]
+
+
+def plain_warp_loss_and_grads(model, batch, mean, loss_cfg):
+    """`loss_and_grads` with the loss's warp swapped for its plain
+    version (autograd of `backward_warp_reference`) for this one call, as
+    `serve` swaps the correlation: no setting of the package routes a
+    card tensor around the kernels."""
+    from deepof_tpu_torch.losses import photometric
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    def plain_warp(image, flow, impl="auto"):
+        return backward_warp_reference(
+            image.permute(0, 3, 1, 2).contiguous(),
+            flow.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
+
+    kernel_warp = photometric.backward_warp
+    photometric.backward_warp = plain_warp
+    try:
+        return loss_and_grads(model, batch, mean, loss_cfg)
+    finally:
+        photometric.backward_warp = kernel_warp
+
+
+def train(cfg):
+    """Full-width FlowNet-S training through Trainer on the card: one
+    warm-up step, TRAIN_STEPS counted and timed steps, then one step's
+    loss and gradients with the warp kernels against the plain warp."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.train.loop import Trainer
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    trainer = Trainer(cfg, device="cuda")
+    trainer.fit(1)  # cuDNN algorithm choice, allocator, kernel load
+    cw.fwd_launches.reset()
+    cw.grad_launches.reset()
+    steps = trainer.fit(TRAIN_STEPS)
+    launches = (cw.fwd_launches.count, cw.grad_launches.count)
+    levels = len(steps[0]["scale_total"])
+
+    # the same weights and batch through the plain warp; cuDNN's
+    # weight-gradient algorithms use atomics unless deterministic
+    batch = batch_to_device(next(trainer.batches(1))[0], trainer.device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        lk, gk = loss_and_grads(trainer.model, batch, trainer.dataset.mean,
+                                cfg.loss)
+        before = (cw.fwd_launches.count, cw.grad_launches.count)
+        lp, gp = plain_warp_loss_and_grads(
+            trainer.model, batch, trainer.dataset.mean, cfg.loss)
+        if (cw.fwd_launches.count, cw.grad_launches.count) != before:
+            raise AssertionError("the plain-warp step launched a warp kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(gk, gp))
+    totals = [m["total"] for m in steps]
+    row = {"model": cfg.model, "width_mult": cfg.width_mult,
+           "image_size": list(cfg.data.image_size),
+           "batch": cfg.data.batch_size, "steps": TRAIN_STEPS,
+           "params": sum(p.numel() for p in trainer.model.parameters()),
+           "totals": totals, "grad_norms": [m["grad_norm"] for m in steps],
+           "updates_skipped": sum(m["update_skipped"] for m in steps),
+           "step_ms_median": float(np.median([m["step_ms"] for m in steps])),
+           "step_ms": [m["step_ms"] for m in steps],
+           "data_ms_median": float(np.median([m["data_ms"] for m in steps])),
+           "warp_fwd_launches": launches[0],
+           "warp_flow_grad_launches": launches[1],
+           "pyramid_levels": levels,
+           "kernel_vs_plain_loss_rel": loss_rel,
+           "kernel_vs_plain_grad_max_rel": grad_rel}
+    emit("train", **row)
+    if not all(np.isfinite(totals)) or row["updates_skipped"]:
+        raise AssertionError(f"non-finite training losses: {totals}")
+    want = levels * TRAIN_STEPS
+    if launches != (want, want):
+        raise AssertionError(f"warp kernels launched {launches} times in "
+                             f"{TRAIN_STEPS} steps of {levels} levels; "
+                             f"want {want} each")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL):
+        raise AssertionError(
+            f"train step with the warp kernels vs the plain warp: loss rel "
+            f"{loss_rel} (limit {TRAIN_LOSS_RTOL}), gradient max rel "
+            f"{grad_rel} (limit {TRAIN_GRAD_RTOL})")
+    train_profile(trainer)
+    return row
+
+
+def train_profile(trainer, iters: int = 3) -> None:
+    """Where a training step's time goes: the step on a batch already on
+    the card (host clock around a synchronised step), device busy time by
+    kernel from torch.profiler, the warp kernels' share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    batches = [batch_to_device(b, trainer.device)
+               for b, _ in trainer.batches(iters)]
+    step = trainer.train_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        step(trainer.state, b)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / iters
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       acc_events=True) as prof:
+        for b in batches:
+            step(trainer.state, b)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, iters)
+    busy = sum(t for t, _ in kernels)
+    warp = sum(t for t, k in kernels if "warp_" in k)
+    emit("train_profile", batch=trainer.cfg.data.batch_size,
+         step_ms=step_ms,
+         pairs_per_s=trainer.cfg.data.batch_size / (step_ms / 1e3),
+         device_time_visible=busy > 0, device_busy_ms=busy,
+         idle_share_of_step=(1 - busy / step_ms) if busy else None,
+         warp_ms=warp, warp_share_of_busy=(warp / busy) if busy else None,
+         top=[{"ms": t, "name": k[:90]} for t, k in kernels[:10]])
+
+
 def main() -> int:
     import torch
 
@@ -236,7 +563,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from deepof_tpu_torch.core.config import ExperimentConfig
+    from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
     from deepof_tpu_torch.ops.cuda import build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -252,7 +579,7 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     t0 = time.monotonic()
-    info = {name: build.build(name) for name in build.SOURCES}
+    info = build.build_all()
     emit("build", seconds=time.monotonic() - t0,
          libraries={k: v["path"] for k, v in info.items()},
          ptxas={k: [ln for ln in v["log"].splitlines() if "registers" in ln
@@ -264,8 +591,37 @@ def main() -> int:
                       cfg.corr_stride, seed=0)
     check_corr((3, 40, 13, 17), 4, 1, seed=1)  # ragged
 
-    serve_row, corr_launches = serve(cfg)
+    warp_rows = [check_warp(shape, 5.0, seed=2 + i)
+                 for i, shape in enumerate(WARP_LEVELS)]
+    check_warp((3, 5, 13, 70), 3.0, seed=8)  # ragged
+    check_warp((4, 3, 48, 64), 200.0, seed=9)  # saturates at the border
+    check_warp_nonfinite()
 
+    serve_row, corr_launches = serve(cfg)
+    train_row = train(ExperimentConfig(data=DataConfig(dataset="synthetic")))
+
+    def warp_entry(name, key, launches):
+        rows = [r[key] for r in warp_rows]
+        finest = rows[0]
+        return {
+            "name": name, "route": "cuda",
+            "source": "deepof_tpu_torch/csrc/warp.cu",
+            "replaces": replaces[name], "launches": launches,
+            "launches_per_step": launches / TRAIN_STEPS,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": finest["ms"], "plain_ms": finest["plain_ms"],
+            "bound_ms": finest["bound_ms"], "bound_by": finest["bound_by"],
+            "library_ms": finest["library_ms"],
+            "library": "F.grid_sample(bilinear, border, align_corners=True)"
+                       + ("" if key == "fwd" else ", autograd.grad wrt grid"),
+            "shape": warp_rows[0]["shape"],
+            "call_ms": finest["call_ms"],
+            "per_level": [{"shape": w["shape"], **{k: r[k] for k in (
+                "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}}
+                for w, r in zip(warp_rows, rows)]}
+
+    replaces = {"warp_fwd": "deepof_tpu/ops/pallas/warp.py:85",
+                "warp_flow_grad": "deepof_tpu/ops/pallas/warp.py:111"}
     print(json.dumps({"kernels": [{
         "name": "corr",
         "route": "cuda",
@@ -281,7 +637,10 @@ def main() -> int:
         "bound_by": full["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes a correlation "
-                        "cost volume"}]}), flush=True)
+                        "cost volume"},
+        warp_entry("warp_fwd", "fwd", train_row["warp_fwd_launches"]),
+        warp_entry("warp_flow_grad", "flow_grad",
+                   train_row["warp_flow_grad_launches"])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,10 +1,13 @@
 """Experiment configuration: the subset of `deepof_tpu/core/config.py`
-that the PyTorch serving path reads.
+that the PyTorch serving and training paths read.
 
 Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
+Values that change the result and that this package cannot honour yet
+are not ignored: `check_trainable` raises on them, naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -17,15 +20,67 @@ from typing import Any
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Unsupervised pyramid-loss hyper-parameters (the JAX package's
+    `LossConfig`, every field and default)."""
+
+    epsilon: float = 1e-4
+    alpha_c: float = 0.25
+    alpha_s: float = 0.37
+    lambda_smooth: float = 1.0
+    # per-scale loss weights, finest (pr1) first
+    weights: tuple[float, ...] = (16.0, 8.0, 4.0, 2.0, 1.0, 1.0)
+    smoothness: str = "canonical"  # canonical | depthwise (not ported)
+    smoothness_order: int = 1  # 1: first differences, 2: second
+    edge_aware: bool = False
+    edge_aware_photo: bool = False
+    smooth_scaled_flow: bool = True
+    border_ratio: float = 0.1
+    # A TPU routing switch in the JAX package ("xla" | "pallas" |
+    # "auto"). Here every one of the three takes the CUDA kernel for a
+    # CUDA tensor (or raises) and the plain version for a CPU tensor.
+    warp_impl: str = "auto"
+    gather_dtype: str = "float32"  # float32 | bfloat16 (not ported)
+    photometric: str = "charbonnier"  # charbonnier | census (not ported)
+    census_window: int = 7
+    occlusion: bool = False
+    occ_alpha: float = 0.01
+    occ_beta: float = 0.5
+    occ_penalty: float = 1.0
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Adam + stepwise learning-rate decay (the JAX `OptimConfig`)."""
+
+    learning_rate: float = 1.6e-5
+    decay_factor: float = 0.5
+    epochs_per_decay: int = 18
+    beta1: float = 0.9
+    beta2: float = 0.999
+    adam_eps: float = 1e-8
+    grad_clip_norm: float | None = None
+    grad_accum: int = 1  # > 1 not ported
+
+
+@dataclass(frozen=True)
 class DataConfig:
     dataset: str = "flyingchairs"  # flyingchairs | sintel | ucf101 | synthetic
     image_size: tuple[int, int] = (384, 512)  # (H, W) network input
+    gt_size: tuple[int, int] = (384, 512)  # native ground-truth resolution
+    batch_size: int = 4
     time_step: int = 2  # frames per sample
+    # host-side augmentation streams (not ported)
+    augment_geo: bool = False
+    augment_photo: bool = False
+    crop_size: tuple[int, int] | None = None
 
 
 @dataclass(frozen=True)
 class TrainConfig:
+    num_epochs: int = 110
     seed: int = 0
+    compute_dtype: str = "float32"  # float32 | bfloat16 (not ported)
     # eval protocol: finest flow is multiplied by `eval_amplifier`,
     # clipped to `eval_clip`, and resized to the native resolution
     eval_amplifier: float = 2.0
@@ -48,6 +103,13 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class ResilienceConfig:
+    # skip an update whose loss or gradient norm is not finite: the
+    # parameters, the Adam moments and the step stay as they were
+    skip_nonfinite: bool = True
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "flyingchairs_flownet_s"
     model: str = "flownet_s"  # flownet_s | flownet_c in this package
@@ -55,8 +117,11 @@ class ExperimentConfig:
     # FlowNet-C correlation geometry (FlowNet paper: 441 displacements)
     corr_max_disp: int = 20
     corr_stride: int = 2
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
@@ -96,3 +161,61 @@ def config_from_dict(d: dict) -> ExperimentConfig:
         warnings.warn(f"config_from_dict: ignored keys not read by "
                       f"deepof_tpu_torch: {ignored}", stacklevel=2)
     return cfg
+
+
+#: values of `LossConfig.warp_impl` (see the field's comment)
+WARP_IMPLS = ("auto", "xla", "pallas")
+
+
+def _raise_unported(todo: list[tuple[str, str]]) -> None:
+    """todo: (setting, ROADMAP Queue A item that ports it)."""
+    if todo:
+        raise NotImplementedError(
+            "not ported to deepof_tpu_torch yet: " + "; ".join(
+                f"{what}: ROADMAP Queue A item {item}" for what, item in todo))
+
+
+def check_loss(cfg: LossConfig) -> None:
+    """Raise on loss settings this package does not honour yet."""
+    todo = []
+    if cfg.gather_dtype != "float32":
+        todo.append((f"loss.gather_dtype={cfg.gather_dtype!r}",
+                     "8 (bf16 paths)"))
+    if cfg.photometric != "charbonnier":
+        todo.append((f"loss.photometric={cfg.photometric!r}",
+                     "9 (loss variants)"))
+    if cfg.smoothness != "canonical":
+        todo.append((f"loss.smoothness={cfg.smoothness!r}",
+                     "9 (loss variants)"))
+    for name in ("edge_aware", "edge_aware_photo", "occlusion"):
+        if getattr(cfg, name):
+            todo.append((f"loss.{name}=True", "9 (loss variants)"))
+    _raise_unported(todo)
+    if cfg.warp_impl not in WARP_IMPLS:
+        raise ValueError(f"unknown loss.warp_impl {cfg.warp_impl!r}; "
+                         f"one of {WARP_IMPLS}")
+    if cfg.smoothness_order not in (1, 2):
+        raise ValueError(
+            f"unknown loss.smoothness_order {cfg.smoothness_order!r}")
+
+
+def check_trainable(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, on every
+    setting that the training path cannot honour yet."""
+    todo = []
+    if cfg.model != "flownet_s":
+        todo.append((f"model={cfg.model!r}",
+                     "7 (FlowNet-C/CS training, the correlation backward)"))
+    if cfg.train.compute_dtype != "float32":
+        todo.append((f"train.compute_dtype={cfg.train.compute_dtype!r}",
+                     "8 (bf16 paths)"))
+    if cfg.optim.grad_accum > 1:
+        todo.append((f"optim.grad_accum={cfg.optim.grad_accum}",
+                     "6 (training loop)"))
+    if cfg.data.time_step != 2:
+        todo.append((f"data.time_step={cfg.data.time_step}",
+                     "9 (multi-frame volume loss)"))
+    if cfg.data.augment_geo or cfg.data.augment_photo:
+        todo.append(("data.augment_geo/augment_photo", "9 (augmentation)"))
+    _raise_unported(todo)
+    check_loss(cfg.loss)

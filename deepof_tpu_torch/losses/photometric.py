@@ -1,0 +1,124 @@
+"""Two-frame photometric + smoothness loss at one pyramid scale (port of
+the default branch of `deepof_tpu/losses/photometric.py::loss_interp`:
+Charbonnier photometric term, canonical smoothness of order 1 or 2, an
+optional border mask on the smoothness term, no occlusion). Tensors are
+NHWC, as in the JAX package. Loss dict keys mirror the reference:
+total / Charbonnier_reconstruct / U_loss / V_loss, plus smooth = U + V.
+
+Kept exactly, for numeric parity (F5):
+  - the Charbonnier normaliser is the count of border-mask-interior
+    *image* elements, B * C * interior, reused for the smoothness terms;
+  - masks multiply the difference *before* the Charbonnier power, so a
+    masked pixel still adds (eps^2)^alpha;
+  - the photometric difference is scaled by 255 before the power;
+  - a level whose border mask has no interior (h <= 2 at ratio 0.1)
+    contributes exactly 0 to both terms.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from ..core.config import LossConfig
+from ..ops.smoothness import (forward_diff_x, forward_diff_y, second_diff_x,
+                              second_diff_y)
+from ..ops.warp import backward_warp
+
+LossDict = dict[str, Any]
+
+
+def charbonnier(x: torch.Tensor, eps: float, alpha: float) -> torch.Tensor:
+    """(x^2 + eps^2)^alpha, the generalised Charbonnier penalty."""
+    return torch.pow(x.square() + eps * eps, alpha)
+
+
+def _border_width(h: int, ratio: float, min_width: int = 0) -> int:
+    return max(int(math.ceil(h * ratio)), min_width)
+
+
+def border_mask(h: int, w: int, ratio: float = 0.1, min_width: int = 0,
+                device: torch.device | str = "cpu") -> torch.Tensor:
+    """(H, W) float mask: 0 in a ceil(ratio*H)-wide border, 1 inside. The
+    width derives from H only, as in the reference."""
+    bw = _border_width(h, ratio, min_width)
+    m = torch.zeros((h, w), device=device)
+    m[bw:h - bw, bw:w - bw] = 1.0
+    return m
+
+
+def smoothness_mask_x(h: int, w: int,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """(H, W) mask zeroing the last column (x-gradient invalid there)."""
+    m = torch.ones((h, w), device=device)
+    m[:, -1] = 0.0
+    return m
+
+
+def smoothness_mask_y(h: int, w: int,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """(H, W) mask zeroing the last row (y-gradient invalid there)."""
+    m = torch.ones((h, w), device=device)
+    m[-1, :] = 0.0
+    return m
+
+
+def _smoothness_diffs(cfg: LossConfig, h: int, w: int,
+                      device: torch.device | str = "cpu"):
+    """(diff_x, diff_y, mask_x, mask_y) for the configured prior order;
+    masks are (1, H, W, 1). Order 2 invalidates both edge columns/rows."""
+    mx = smoothness_mask_x(h, w, device)
+    my = smoothness_mask_y(h, w, device)
+    if cfg.smoothness_order == 2:
+        mx = mx * mx.flip(1)
+        my = my * my.flip(0)
+        return second_diff_x, second_diff_y, mx[None, :, :, None], \
+            my[None, :, :, None]
+    if cfg.smoothness_order == 1:
+        return forward_diff_x, forward_diff_y, mx[None, :, :, None], \
+            my[None, :, :, None]
+    raise ValueError(f"unknown smoothness_order {cfg.smoothness_order!r}")
+
+
+def loss_interp(flow: torch.Tensor, inputs: torch.Tensor,
+                outputs: torch.Tensor, flow_scale: float, cfg: LossConfig,
+                smooth_border_mask: bool = False
+                ) -> tuple[LossDict, torch.Tensor]:
+    """flow: (B, h, w, 2) raw head output; inputs/outputs: (B, h, w, C)
+    LRN-normalised previous/next frames resized to this scale. Returns
+    (loss dict, reconstructed previous frame). `cfg` is taken as checked
+    (`core.config.check_loss`, which `pyramid_loss` runs)."""
+    b, h, w, c = inputs.shape
+    scaled = flow * flow_scale
+    recon = backward_warp(outputs, scaled, impl=cfg.warp_impl)
+
+    bmask = border_mask(h, w, cfg.border_ratio, device=inputs.device)
+    bw = _border_width(h, cfg.border_ratio)
+    n_interior = max(h - 2 * bw, 0) * max(w - 2 * bw, 0)  # sum of bmask
+    level_on = 1.0 if n_interior > 0 else 0.0
+    num_valid = max(b * c * n_interior, 1.0)
+
+    pmask = bmask[None, :, :, None]
+    diff = 255.0 * (recon - inputs)
+    photo = (charbonnier(diff, cfg.epsilon, cfg.alpha_c) * pmask).sum() \
+        / num_valid
+
+    sflow = scaled if cfg.smooth_scaled_flow else flow
+    diff_x, diff_y, mx, my = _smoothness_diffs(cfg, h, w, inputs.device)
+    # x-difference of U masked at the last column, y-difference of V at
+    # the last row; optionally the border mask too, before the power
+    du = diff_x(sflow[..., 0:1]) * mx
+    dv = diff_y(sflow[..., 1:2]) * my
+    if smooth_border_mask:
+        du = du * pmask
+        dv = dv * pmask
+    u_loss = charbonnier(du, cfg.epsilon, cfg.alpha_s).sum() / num_valid
+    v_loss = charbonnier(dv, cfg.epsilon, cfg.alpha_s).sum() / num_valid
+    u_loss = u_loss * level_on
+    v_loss = v_loss * level_on
+    total = photo + cfg.lambda_smooth * (u_loss + v_loss)
+    return ({"total": total, "Charbonnier_reconstruct": photo,
+             "U_loss": u_loss, "V_loss": v_loss, "smooth": u_loss + v_loss},
+            recon)

@@ -1,0 +1,68 @@
+"""Multi-scale pyramid loss (port of `deepof_tpu/losses/pyramid.py`,
+two-frame, without the backward-flow pyramid of the occlusion option).
+
+  - preprocessing: BGR dataset-mean subtraction and /255 scaling, and the
+    LRN copy used only inside the photometric loss;
+  - resizing the LRN images to every pyramid level;
+  - per-level `loss_interp` and the weighted total, weights finest first.
+
+The resize is `jax.image.resize(..., "bilinear")`, whose default is
+`antialias=True`: every downsampled level is antialiased. PyTorch's
+bilinear interpolation with half-pixel centres and `antialias=True` is
+the same filter (hazard F2 in ROADMAP.md). This is not the serving
+resize (`data/datasets.py::_resize`, no antialiasing, as cv2 does).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.config import LossConfig, check_loss
+from ..ops.lrn import local_response_normalization
+from .photometric import LossDict, loss_interp
+
+
+def preprocess(images: torch.Tensor, mean) -> torch.Tensor:
+    """(images - BGR mean) / 255, the network input scaling (NHWC)."""
+    return (images - torch.as_tensor(mean, dtype=images.dtype,
+                                     device=images.device)) / 255.0
+
+
+def lrn_normalize(scaled: torch.Tensor) -> torch.Tensor:
+    """LRN copy of preprocessed images for the photometric loss."""
+    return local_response_normalization(scaled, depth_radius=4, beta=0.7)
+
+
+def _resize(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, h, w, C), bilinear with antialiasing."""
+    if img.shape[1] == h and img.shape[2] == w:
+        return img
+    out = F.interpolate(img.permute(0, 3, 1, 2), size=(h, w),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
+
+
+def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
+                 inputs_norm: torch.Tensor, outputs_norm: torch.Tensor,
+                 cfg: LossConfig, smooth_border_mask: bool = False
+                 ) -> tuple[torch.Tensor, list[LossDict], torch.Tensor]:
+    """flow_pyramid: [(flow_k (B, h, w, 2), flow_scale_k)] finest first.
+
+    Returns (weighted total, per-level loss dicts finest first, finest
+    reconstruction). Raises on loss settings not ported yet."""
+    check_loss(cfg)
+    losses: list[LossDict] = []
+    recon_finest = None
+    total = torch.zeros((), device=inputs_norm.device)
+    for k, (flow, scale) in enumerate(flow_pyramid):
+        h, w = flow.shape[1:3]
+        ld, recon = loss_interp(flow, _resize(inputs_norm, h, w),
+                                _resize(outputs_norm, h, w), scale, cfg,
+                                smooth_border_mask)
+        losses.append(ld)
+        if k == 0:
+            recon_finest = recon
+        weight = cfg.weights[k] if k < len(cfg.weights) else cfg.weights[-1]
+        total = total + weight * ld["total"]
+    return total, losses, recon_finest

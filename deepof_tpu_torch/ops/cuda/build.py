@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "deepof_tpu_torch"
-SOURCES = ("corr",)
+SOURCES = ("corr", "warp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -69,6 +69,15 @@ def build(name: str) -> dict:
     os.replace(tmp, path)
     return {"path": str(path), "built": True,
             "seconds": time.monotonic() - t0, "log": proc.stdout}
+
+
+def build_all() -> dict[str, dict]:
+    """Build every source at once, one nvcc process each; returns
+    {name: build(name)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
 def load(name: str) -> ctypes.CDLL:

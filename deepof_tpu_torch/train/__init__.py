@@ -1,1 +1,1 @@
-"""Evaluation protocol (host side)."""
+"""Training (step, optimizer state, loop) and the evaluation protocol."""

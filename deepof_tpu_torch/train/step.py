@@ -1,0 +1,99 @@
+"""Objective and train step (port of the two-frame flow branch of
+`deepof_tpu/train/step.py`).
+
+`model_losses` preprocesses the pair, runs the model and the pyramid
+loss. `make_train_step` builds `step(state, batch) -> metrics`: forward,
+backward, global gradient norm, and the Adam update, which is skipped
+when the loss or the gradient norm is not finite (`skip_nonfinite`).
+
+The model works in NCHW; the loss keeps the JAX package's NHWC, through
+permuted views of the same memory.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+
+from ..core.config import ExperimentConfig, LossConfig, check_trainable
+from ..losses.pyramid import lrn_normalize, preprocess, pyramid_loss
+from .state import TrainState, global_norm
+
+Mean = tuple[float, float, float]
+
+#: per-level loss components reported as `scale_<key>` stacks, finest first
+SCALE_KEYS = ("total", "Charbonnier_reconstruct", "U_loss", "V_loss",
+              "smooth")
+_IMAGE_KEYS = ("source", "target", "net_source", "net_target")
+
+
+def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
+                 loss_cfg: LossConfig, smooth_border_mask: bool = False
+                 ) -> tuple[torch.Tensor, dict[str, Any]]:
+    """Forward + objective for a two-frame flow model. batch: NHWC
+    float images "source" and "target" (and optionally the augmented
+    "net_source"/"net_target" that feed the network). Returns (total,
+    aux with the per-level loss dicts, finest scaled flow, finest
+    reconstruction)."""
+    if "volume" in batch:
+        raise NotImplementedError(
+            "multi-frame volume batches are not ported to deepof_tpu_torch "
+            "yet: ROADMAP Queue A item 9 (multi-frame volume loss)")
+    src = preprocess(batch["source"], mean)
+    tgt = preprocess(batch["target"], mean)
+    net_src = (preprocess(batch["net_source"], mean)
+               if "net_source" in batch else src)
+    net_tgt = (preprocess(batch["net_target"], mean)
+               if "net_target" in batch else tgt)
+    pair = torch.cat([net_src, net_tgt], dim=-1).permute(0, 3, 1, 2)
+    flows = [f.float().permute(0, 2, 3, 1)
+             for f in model(pair.contiguous())]
+    total, losses, recon = pyramid_loss(
+        list(zip(flows, model.flow_scales)), lrn_normalize(src),
+        lrn_normalize(tgt), loss_cfg, smooth_border_mask)
+    return total, {"losses": losses, "recon": recon,
+                   "flow": flows[0] * model.flow_scales[0]}
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """The images of a batch (numpy arrays or tensors) as float32
+    tensors on `device`."""
+    return {k: torch.as_tensor(batch[k], dtype=torch.float32, device=device)
+            for k in _IMAGE_KEYS if k in batch}
+
+
+def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
+                    smooth_border_mask: bool = False
+                    ) -> Callable[[TrainState, dict], dict]:
+    """(state, batch) -> metrics: total, grad_norm, update_skipped and the
+    five scale_* lists, as Python floats. `state` is updated in place.
+    The batch may hold numpy arrays or tensors; it moves to the model's
+    device."""
+    check_trainable(cfg)
+    device = next(model.parameters()).device
+
+    def step(state: TrainState, batch: dict) -> dict:
+        state.optimizer.zero_grad(set_to_none=True)
+        total, aux = model_losses(model, batch_to_device(batch, device),
+                                  mean, cfg.loss, smooth_border_mask)
+        total.backward()
+        grad_norm = global_norm([p.grad for p in model.parameters()
+                                 if p.grad is not None])
+        scales = torch.stack([torch.stack([d[k] for d in aux["losses"]])
+                              for k in SCALE_KEYS])
+        # one device-to-host read for every metric
+        head = torch.stack([total, grad_norm]).detach().tolist()
+        rows = scales.detach().tolist()
+        finite = math.isfinite(head[0]) and math.isfinite(head[1])
+        skipped = cfg.resilience.skip_nonfinite and not finite
+        if not skipped:
+            state.apply_gradients(head[1])
+        metrics = {"total": head[0], "grad_norm": head[1],
+                   "update_skipped": float(skipped)}
+        metrics.update({f"scale_{k}": row for k, row in zip(SCALE_KEYS,
+                                                            rows)})
+        return metrics
+
+    return step

@@ -1,4 +1,5 @@
-"""Tests of the PyTorch port's CUDA kernels, on the card.
+"""Tests of the PyTorch port's CUDA kernels (correlation, warp and its
+flow gradient), on the card.
 
 They skip on a host without a CUDA device. This file imports no JAX, so
 it runs on a machine that has only PyTorch:
@@ -52,3 +53,101 @@ def test_corr_kernel_refuses_what_it_does_not_take(cuda):
         correlation_cuda(t.transpose(2, 3), t.transpose(2, 3), 2, 1)
     with pytest.raises(ValueError, match="vs"):
         correlation_cuda(t, t[:, :2].contiguous(), 2, 1)
+
+
+# (B, C, H, W), flow magnitude: training pyramid levels, a ragged shape
+# and huge flows that saturate at the border
+WARP_CASES = [((4, 3, 192, 256), 5.0), ((4, 3, 24, 32), 5.0),
+              ((4, 3, 6, 8), 5.0), ((3, 5, 13, 70), 3.0),
+              ((2, 3, 48, 64), 200.0)]
+
+
+def _warp_inputs(cuda, shape, mag, seed=0):
+    rs = np.random.RandomState(seed)
+    b, c, h, w = shape
+    img = torch.from_numpy(rs.rand(b, c, h, w).astype(np.float32)).to(cuda)
+    flow = torch.from_numpy((rs.randn(b, 2, h, w) * mag).astype(
+        np.float32)).to(cuda)
+    ct = torch.from_numpy(rs.randn(b, c, h, w).astype(np.float32)).to(cuda)
+    return img, flow, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mag", WARP_CASES)
+def test_warp_kernels_match_reference(cuda, shape, mag):
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (backward_warp_nchw,
+                                           backward_warp_reference)
+
+    img, flow, ct = _warp_inputs(cuda, shape, mag)
+    before = (cw.fwd_launches.count, cw.grad_launches.count)
+    f = flow.clone().requires_grad_(True)
+    got = backward_warp_nchw(img, f)  # "auto": the kernels
+    got.backward(ct)
+    assert (cw.fwd_launches.count, cw.grad_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    ref = flow.clone().requires_grad_(True)
+    want = backward_warp_reference(img, ref)
+    want.backward(ct)
+    # float32; the kernel fuses multiply-adds where autograd rounds each
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(f.grad, ref.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_warp_kernels_survive_nonfinite_flows(cuda):
+    """NaN, inf and huge flows: no fault, finite outputs where the flow
+    is finite, and the plain version's values everywhere else too (NaN
+    where it gives NaN, as the JAX package's XLA path does)."""
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_cuda,
+                                                warp_fwd_cuda)
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    img, flow, ct = _warp_inputs(cuda, (2, 3, 16, 20), 3.0, seed=1)
+    nan, inf = float("nan"), float("inf")
+    flow[0, 0, 2, 3] = nan
+    flow[0, 1, 4, 5] = inf
+    flow[1, 0, 6, 7] = -inf
+    flow[1, 1, 8, 9] = 3e38
+    flow[0, 0, 10, 11], flow[0, 1, 10, 11] = inf, nan
+    flow[1, 0, 12, 13], flow[1, 1, 1, 2] = -3e38, -inf
+    # a NaN weight beside a side saturated at the left or top, whose
+    # gradient is exactly 0 in the plain version
+    flow[0, 0, 5, 6], flow[0, 1, 5, 6] = nan, -50.0
+    flow[1, 0, 9, 10], flow[1, 1, 9, 10] = -50.0, nan
+    out = warp_fwd_cuda(img, flow)
+    grad = warp_flow_grad_cuda(img, flow, ct)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(flow).all(1)  # (B, H, W)
+    assert torch.isfinite(out.permute(0, 2, 3, 1)[~bad]).all()
+    assert torch.isfinite(grad.permute(0, 2, 3, 1)[~bad]).all()
+
+    f = flow.clone().requires_grad_(True)
+    want = backward_warp_reference(img, f)
+    want.backward(ct)
+    assert out.isnan().any() and grad.isnan().any()
+    torch.testing.assert_close(out, want.detach(), atol=1e-5, rtol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(grad, f.grad, atol=1e-4, rtol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_warp_kernels_refuse_what_they_do_not_take(cuda):
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_cuda,
+                                                warp_fwd_cuda)
+
+    img = torch.zeros(1, 3, 5, 6, device=cuda)
+    flow = torch.zeros(1, 2, 5, 6, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        warp_fwd_cuda(img.bfloat16(), flow)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_fwd_cuda(img.transpose(2, 3), flow)
+    with pytest.raises(ValueError, match="is on cpu"):
+        warp_fwd_cuda(img.cpu(), flow)
+    with pytest.raises(ValueError, match="does not match"):
+        warp_fwd_cuda(img, flow[..., :5].contiguous())
+    with pytest.raises(ValueError, match="2 channels"):
+        warp_fwd_cuda(img, img)
+    with pytest.raises(ValueError, match="cotangent"):
+        warp_flow_grad_cuda(img, flow, img[:, :2].contiguous())

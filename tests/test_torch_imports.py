@@ -79,10 +79,11 @@ def test_port_source_has_no_jax_or_reference_imports():
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
-    from deepof_tpu_torch.core.config import ExperimentConfig
+    from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
     from deepof_tpu_torch.models.registry import build_model
     from deepof_tpu_torch.predict import predict_pairs
     from deepof_tpu_torch.serve.engine import InferenceEngine
+    from deepof_tpu_torch.train.loop import Trainer
 
     cfg = ExperimentConfig()
     with pytest.raises(RuntimeError, match="cuda"):
@@ -91,3 +92,5 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         build_model("flownet_s", width_mult=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         predict_pairs(cfg, [], str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg.replace(data=DataConfig(dataset="synthetic")))
