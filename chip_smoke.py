@@ -102,7 +102,10 @@ def corr_bound_ms(b, c, h, w, n) -> tuple[float, str]:
 
 
 def check_corr(shape, max_disp, stride, seed):
-    """Kernel vs correlation_reference on the card at one NCHW shape."""
+    """Kernel vs correlation_reference on the card at one NCHW shape. The
+    kernel and the plain version are timed twice: device time (`ms`,
+    `plain_ms`, torch.profiler) and the CUDA-event time of one call, host
+    launch included (`call_ms`, `plain_call_ms`)."""
     import torch
 
     from deepof_tpu_torch.ops.corr import correlation_reference
@@ -118,12 +121,17 @@ def check_corr(shape, max_disp, stride, seed):
     b, c, h, w = shape
     n = 2 * (max_disp // stride) + 1
     bound, bound_by = corr_bound_ms(b, c, h, w, n)
+
+    def kernel():
+        return correlation_cuda(f1, f2, max_disp, stride)
+
+    def plain():
+        return correlation_reference(f1, f2, max_disp, stride)
+
     row = {"shape": list(shape), "max_disp": max_disp, "stride": stride,
-           "max_abs_err": err,
-           "kernel_ms": time_ms(lambda: correlation_cuda(f1, f2, max_disp,
-                                                         stride)),
-           "plain_ms": time_ms(lambda: correlation_reference(
-               f1, f2, max_disp, stride), warmup=1, iters=5),
+           "max_abs_err": err, "ms": device_ms(kernel),
+           "call_ms": time_ms(kernel), "plain_ms": device_ms(plain, iters=3),
+           "plain_call_ms": time_ms(plain, warmup=1, iters=5),
            "bound_ms": bound, "bound_by": bound_by}
     emit("kernels", kernel="corr", **row)
     if not err <= KERNEL_TOL:
@@ -272,6 +280,22 @@ def check_warp_nonfinite(shape=(2, 3, 16, 20), seed=10):
                              "on non-finite flows")
 
 
+def plain_corr_forward(fwd, x):
+    """`fwd(x)` with FlowNet-C's correlation swapped for its plain version
+    (`correlation_reference`) for this one call, as
+    `plain_warp_loss_and_grads` swaps the loss's warp: no setting of the
+    package routes a card tensor around the kernel."""
+    from deepof_tpu_torch.models import flownet_c
+    from deepof_tpu_torch.ops.corr import correlation_reference
+
+    kernel_corr = flownet_c.correlation_nchw
+    flownet_c.correlation_nchw = correlation_reference
+    try:
+        return fwd(x)
+    finally:
+        flownet_c.correlation_nchw = kernel_corr
+
+
 def serve(cfg, n_requests: int = 24, n_threads: int = 4):
     """Full-width FlowNet-C through InferenceEngine on the card."""
     import numpy as np
@@ -327,11 +351,11 @@ def serve(cfg, n_requests: int = 24, n_threads: int = 4):
         fwd = make_raw_forward(eng.model)
         with torch.inference_mode():
             got = fwd(x)
-            eng.model.corr_impl = "reference"
-            try:
-                want = fwd(x)
-            finally:
-                eng.model.corr_impl = "auto"
+            before = launches.count
+            want = plain_corr_forward(fwd, x)
+        if launches.count != before:
+            raise AssertionError("the plain-corr dispatch launched the corr "
+                                 "kernel")
         err = float(np.abs(got - want).max())
         lat = sorted(1e3 * r["latency_s"] for r in responses)
         row = {"requests": n_requests, "dispatches": dispatches,
@@ -582,8 +606,10 @@ def main() -> int:
     info = build.build_all()
     emit("build", seconds=time.monotonic() - t0,
          libraries={k: v["path"] for k, v in info.items()},
-         ptxas={k: [ln for ln in v["log"].splitlines() if "registers" in ln
-                    or "spill" in ln] for k, v in info.items()})
+         ptxas={k: [ln.strip() for ln in v["log"].splitlines()
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill"))]
+                for k, v in info.items()})
 
     cfg = ExperimentConfig(model="flownet_c")  # full width, paper geometry
     b, (h, w) = cfg.serve.max_batch, cfg.data.image_size
@@ -630,8 +656,8 @@ def main() -> int:
         "launches": corr_launches,
         "launches_per_dispatch": corr_launches / serve_row["dispatches"],
         "max_abs_err": full["max_abs_err"],
-        "ms": full["kernel_ms"],
-        "kernel_ms": full["kernel_ms"],
+        "ms": full["ms"],
+        "call_ms": full["call_ms"],
         "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],

@@ -13,106 +13,261 @@
 //
 // What bounds it: at the FlowNet-C serving shape (8x256x48x64, n=21) one
 // call is 2.77 G multiply-adds on 94 MB of inputs and output, about 30
-// FMAs per byte, so it is bound by float32 FMA throughput (exact f32:
-// no tensor cores), not by memory.
+// FMAs per byte, so it is bound by float32 FMA throughput (exact f32: no
+// tensor cores), not by device memory. The limit in practice is the rate
+// at which an SM reads shared memory (32 floats a clock against 128 FMAs),
+// so the design keeps the operands in registers.
 //
-// Design: one block per (batch row b, output row y, tile of TILE_X
-// columns, chunk of G displacement rows x JT displacement columns).
-// Threads run over x, so every global load of a channel plane is
-// coalesced. Channels are walked in chunks of CC: the block stages the
-// f1 row tile and the G f2 rows y+dy_i (with the halo the JT column
-// offsets need, zero-filled out of bounds) in shared memory, then every
-// thread accumulates its G*JT displacements in float32 registers. So f2
-// is read from device memory once per chunk of displacements, from
-// shared memory for each displacement, and never once per displacement
-// from device memory. Speed (register tiling over x, wgmma, TMA) is later
-// work: this is the simple, correct form.
+// Design: one block per (batch row b, output row y, tile of TX columns,
+// group of GI displacement rows, group of displacement columns). Channels
+// are walked in chunks of CC: the block stages the f1 row tile and the GI
+// f2 rows y+dy_i, with the halo its displacement columns need, zero-filled
+// outside the image, in shared memory. Each thread owns one displacement
+// row i, RJ consecutive displacement columns j and RX consecutive columns
+// x, and for each channel loads its RX f1 values and the RX+(RJ-1)*stride
+// f2 values its window covers into registers and does RX*RJ FMAs from
+// them: 28 shared-memory loads for 56 FMAs at stride 2. The window is
+// indexed with compile-time offsets, so the kernel is a template on the
+// stride (1 to 4); other strides take a generic instance that reads each
+// f2 value from shared memory. f2 is read from device memory once per
+// block, not once per displacement chunk, and each lane issues a batch of
+// staging loads before it stores any: with one load at a time the kernel
+// waits on L2 latency, not bandwidth.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE_X = 64;  // threads per block, one output column each
-constexpr int CC = 16;      // channels staged per shared-memory chunk
-constexpr int G = 3;        // displacement rows per block
-constexpr int JT = 7;       // displacement columns per block
+constexpr int TX = 64;        // output columns per block
+constexpr int RX = 8;         // consecutive columns per thread
+constexpr int RJ = 7;         // consecutive displacement columns per thread
+constexpr int XT = TX / RX;   // threads across one tile
+constexpr int GI = 7;         // displacement rows per block, at most
+constexpr int CC = 16;        // channels staged per chunk, at most
+constexpr int MAX_THREADS = 256;
+constexpr int SMEM_TARGET = 64 * 1024;  // CC is lowered to stay under this
 
-__global__ void __launch_bounds__(TILE_X)
+struct Geometry {
+  int C, H, W, n, stride, pad;
+  int gi_n;     // displacement rows per block
+  int jcb;      // chunks of RJ displacement columns per block
+  int igroups;  // blocks over the displacement rows
+  int jgroups;  // blocks over the displacement columns
+  int ww;       // staged f2 columns per row
+  int wwp;      // their row stride in shared memory, 1 mod 8: the four
+                // (row, column chunk) pairs of a warp read other banks
+  int cc;       // channels per staged chunk
+  int ncompute; // threads that own outputs: XT * gi_n * jcb
+};
+
+// The widest f2 window a block stages: at most MAX_THREADS / (XT * GI)
+// chunks of RJ displacement columns (fewer rows per block only come with
+// a single chunk).
+constexpr int MAX_JCB = MAX_THREADS / (XT * GI);
+constexpr int RB = 4;  // rows a warp stages at once
+
+// Columns a lane stages per row for stride S, 0 (any width) for the
+// generic instance.
+__host__ __device__ constexpr int stage_cols(int S) {
+  return S > 0 ? (TX + (MAX_JCB * RJ - 1) * S + 31) / 32 : 0;
+}
+
+// Stages one chunk of cc channels: cc f1 rows of TX columns into f1s,
+// then cc * gi_n f2 rows of ww columns into f2s, zero outside the image.
+// Rows go over warps and columns over lanes (coalesced). With NC > 0 a
+// lane issues the loads of RB rows x NC columns before its first store,
+// so a chunk costs a few L2 round trips, not one per row and column.
+template <int NC>
+__device__ __forceinline__ void stage_chunk(
+    const float* f1b, const float* f2b, float* f1s, float* f2s,
+    const Geometry& g, size_t plane, int c0, int cc, int y, int x0, int xw0,
+    int i0, int s) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nrows = cc * (1 + g.gi_n);
+  for (int r0 = warp * RB; r0 < nrows; r0 += nwarps * RB) {
+    const float* src[RB];  // null: a row of zeros
+    float* dst[RB];
+    int xb[RB], width[RB];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int r = r0 + k;
+      src[k] = nullptr;
+      dst[k] = f1s;
+      xb[k] = 0;
+      width[k] = 0;
+      if (r < cc) {
+        src[k] = f1b + static_cast<size_t>(c0 + r) * plane;
+        dst[k] = f1s + r * TX;
+        xb[k] = x0;
+        width[k] = TX;
+      } else if (r < nrows) {
+        const int rr = r - cc;
+        const int c = rr / g.gi_n;
+        const int i = i0 + rr - c * g.gi_n;
+        const int yy = y + i * s - g.pad;
+        if (i < g.n && yy >= 0 && yy < g.H)
+          src[k] = f2b + static_cast<size_t>(c0 + c) * plane
+                   + static_cast<size_t>(yy) * g.W;
+        dst[k] = f2s + rr * g.wwp;
+        xb[k] = xw0;
+        width[k] = g.ww;
+      }
+    }
+    if constexpr (NC > 0) {
+      float val[RB][NC];
+#pragma unroll
+      for (int k = 0; k < RB; ++k)
+#pragma unroll
+        for (int m = 0; m < NC; ++m) {
+          const int col = lane + 32 * m, xx = xb[k] + col;
+          val[k][m] = src[k] && col < width[k] && xx >= 0 && xx < g.W
+                          ? src[k][xx] : 0.f;
+        }
+#pragma unroll
+      for (int k = 0; k < RB; ++k)
+#pragma unroll
+        for (int m = 0; m < NC; ++m)
+          if (lane + 32 * m < width[k]) dst[k][lane + 32 * m] = val[k][m];
+    } else {
+#pragma unroll
+      for (int k = 0; k < RB; ++k)
+        for (int col = lane; col < width[k]; col += 32) {
+          const int xx = xb[k] + col;
+          dst[k][col] = src[k] && xx >= 0 && xx < g.W ? src[k][xx] : 0.f;
+        }
+    }
+  }
+}
+
+template <int S>  // the stride; 0: any stride, read from the geometry
+__global__ void __launch_bounds__(MAX_THREADS)
 corr_fwd_f32_kernel(const float* __restrict__ f1,
                     const float* __restrict__ f2,
-                    float* __restrict__ out,
-                    int C, int H, int W, int n, int stride, int pad,
-                    int ichunks, int jchunks) {
-  extern __shared__ float smem[];
-  const int txw = TILE_X + (JT - 1) * stride;  // f2 window width
-  float* f1s = smem;                // [CC][TILE_X]
-  float* f2s = smem + CC * TILE_X;  // [CC][G][txw]
+                    float* __restrict__ out, const Geometry g) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = S > 0 ? S : g.stride;
+  float* f1s = smem;              // [cc][TX]
+  float* f2s = smem + g.cc * TX;  // [cc][gi_n][wwp]
 
-  const int tx = threadIdx.x;
-  const int x0 = blockIdx.x * TILE_X;
-  const int x = x0 + tx;
-  const int y = blockIdx.y;
   int z = blockIdx.z;
-  const int jc = z % jchunks;
-  z /= jchunks;
-  const int ic = z % ichunks;
-  const int b = z / ichunks;
-  const int i0 = ic * G;
-  const int j0 = jc * JT;
-  const int xw0 = x0 + j0 * stride - pad;  // column of f2s[.][.][0]
+  const int jg = z % g.jgroups;
+  z /= g.jgroups;
+  const int ig = z % g.igroups;
+  const int b = z / g.igroups;
+  const int y = blockIdx.y;
+  const int x0 = blockIdx.x * TX;
+  const int i0 = ig * g.gi_n;
+  const int jb = jg * g.jcb * RJ;        // the block's first column j
+  const int xw0 = x0 + jb * s - g.pad;   // image column of staged column 0
 
-  const size_t plane = static_cast<size_t>(H) * W;
-  const float* f1b = f1 + static_cast<size_t>(b) * C * plane;
-  const float* f2b = f2 + static_cast<size_t>(b) * C * plane;
+  const int tid = threadIdx.x;
+  // threads over x fastest, then displacement-column chunk, then row
+  const bool owns = tid < g.ncompute;
+  const int xr = tid % XT;
+  const int jc = (tid / XT) % g.jcb;
+  const int gi = tid / XT / g.jcb;
 
-  float acc[G][JT];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int jj = 0; jj < JT; ++jj) acc[gi][jj] = 0.f;
+  // rows of the group inside the image; none: the outputs are all zero
+  bool any_row = false;
+  for (int k = 0; k < g.gi_n; ++k) {
+    const int i = i0 + k, yy = y + i * s - g.pad;
+    any_row |= i < g.n && yy >= 0 && yy < g.H;
+  }
 
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    const int cc = min(CC, C - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int idx = tx; idx < cc * TILE_X; idx += TILE_X) {
-      const int c = idx / TILE_X;
-      const int xx = x0 + idx % TILE_X;
-      f1s[idx] = xx < W ? f1b[(c0 + c) * plane + static_cast<size_t>(y) * W + xx]
-                        : 0.f;
-    }
-    for (int idx = tx; idx < cc * G * txw; idx += TILE_X) {
-      const int c = idx / (G * txw);
-      const int r = idx % (G * txw);
-      const int i = i0 + r / txw;
-      const int yy = y + i * stride - pad;
-      const int xx = xw0 + r % txw;
-      const bool ok = i < n && yy >= 0 && yy < H && xx >= 0 && xx < W;
-      f2s[idx] = ok ? f2b[(c0 + c) * plane + static_cast<size_t>(yy) * W + xx]
-                    : 0.f;
-    }
-    __syncthreads();
-    for (int c = 0; c < cc; ++c) {
-      const float a = f1s[c * TILE_X + tx];
-      const float* row = f2s + c * G * txw + tx;
+  const size_t plane = static_cast<size_t>(g.H) * g.W;
+  float acc[RX][RJ];
 #pragma unroll
-      for (int gi = 0; gi < G; ++gi)
+  for (int r = 0; r < RX; ++r)
 #pragma unroll
-        for (int jj = 0; jj < JT; ++jj)
-          acc[gi][jj] = fmaf(a, row[gi * txw + jj * stride], acc[gi][jj]);
+    for (int q = 0; q < RJ; ++q) acc[r][q] = 0.f;
+
+  if (any_row) {  // uniform over the block: __syncthreads is safe
+    const float* f1b = f1 + static_cast<size_t>(b) * g.C * plane
+                       + static_cast<size_t>(y) * g.W;
+    const float* f2b = f2 + static_cast<size_t>(b) * g.C * plane;
+    const int vstep = g.gi_n * g.wwp;
+    for (int c0 = 0; c0 < g.C; c0 += g.cc) {
+      const int cc = min(g.cc, g.C - c0);
+      __syncthreads();  // the previous chunk's reads are done
+      stage_chunk<stage_cols(S)>(f1b, f2b, f1s, f2s, g, plane, c0, cc, y,
+                                 x0, xw0, i0, s);
+      __syncthreads();
+      if (owns) {
+        const float* ap = f1s + xr * RX;
+        const float* vp = f2s + gi * g.wwp + xr * RX + jc * RJ * s;
+        for (int c = 0; c < cc; ++c, ap += TX, vp += vstep) {
+          const float4 a0 = *reinterpret_cast<const float4*>(ap);
+          const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
+          const float a[RX] = {a0.x, a0.y, a0.z, a0.w,
+                               a1.x, a1.y, a1.z, a1.w};
+          if constexpr (S > 0) {
+            constexpr int NV = RX + (RJ - 1) * S;
+            float v[NV];
+#pragma unroll
+            for (int t = 0; t < NV; ++t) v[t] = vp[t];
+#pragma unroll
+            for (int r = 0; r < RX; ++r)
+#pragma unroll
+              for (int q = 0; q < RJ; ++q)
+                acc[r][q] = fmaf(a[r], v[r + q * S], acc[r][q]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < RJ; ++q) {
+              const float* vq = vp + q * s;
+#pragma unroll
+              for (int r = 0; r < RX; ++r)
+                acc[r][q] = fmaf(a[r], vq[r], acc[r][q]);
+            }
+          }
+        }
+      }
     }
   }
 
-  if (x >= W) return;
-  const float inv_c = 1.f / static_cast<float>(C);
-  float* outb = out + static_cast<size_t>(b) * n * n * plane
-                + static_cast<size_t>(y) * W + x;
+  const int i = i0 + gi;
+  const int xs = x0 + xr * RX;
+  if (!owns || i >= g.n || xs >= g.W) return;
+  const float inv_c = 1.f / static_cast<float>(g.C);
+  float* ob = out + (static_cast<size_t>(b) * g.n + i) * g.n * plane
+              + static_cast<size_t>(y) * g.W + xs;
+  // W % 4 == 0 makes every row start and xs 16-byte aligned
+  const bool vec = g.W % 4 == 0 && xs + RX <= g.W;
 #pragma unroll
-  for (int gi = 0; gi < G; ++gi)
+  for (int q = 0; q < RJ; ++q) {
+    const int j = jb + jc * RJ + q;
+    if (j >= g.n) continue;
+    float* o = ob + static_cast<size_t>(j) * plane;
+    if (vec) {
+      reinterpret_cast<float4*>(o)[0] =
+          make_float4(acc[0][q] * inv_c, acc[1][q] * inv_c,
+                      acc[2][q] * inv_c, acc[3][q] * inv_c);
+      reinterpret_cast<float4*>(o)[1] =
+          make_float4(acc[4][q] * inv_c, acc[5][q] * inv_c,
+                      acc[6][q] * inv_c, acc[7][q] * inv_c);
+    } else {
 #pragma unroll
-    for (int jj = 0; jj < JT; ++jj) {
-      const int i = i0 + gi, j = j0 + jj;
-      if (i < n && j < n) outb[(i * n + j) * plane] = acc[gi][jj] * inv_c;
+      for (int r = 0; r < RX; ++r)
+        if (xs + r < g.W) o[r] = acc[r][q] * inv_c;
     }
+  }
+}
+
+template <int S>
+cudaError_t launch(const float* f1, const float* f2, float* out, int B,
+                   const Geometry& g, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        corr_fwd_f32_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((g.W + TX - 1) / TX, g.H,
+                  static_cast<unsigned>(B * g.igroups * g.jgroups));
+  const int threads = (g.ncompute + 31) / 32 * 32;
+  corr_fwd_f32_kernel<S><<<grid, threads, smem, stream>>>(f1, f2, out, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -127,28 +282,72 @@ int deepof_corr_fwd_f32(const void* f1, const void* f2, void* out, int B,
                         void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || stride <= 0 || max_disp < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  Geometry g{};
+  g.C = C;
+  g.H = H;
+  g.W = W;
+  g.stride = stride;
   const int k = max_disp / stride;
-  const int n = 2 * k + 1;
-  const int pad = k * stride;
-  const int ichunks = (n + G - 1) / G;
-  const int jchunks = (n + JT - 1) / JT;
-  const long long zdim = static_cast<long long>(B) * ichunks * jchunks;
+  g.n = 2 * k + 1;
+  g.pad = k * stride;
+  const int jchunks = (g.n + RJ - 1) / RJ;
+  g.gi_n = g.n < GI ? g.n : GI;
+  g.jcb = jchunks < MAX_THREADS / (XT * g.gi_n) ? jchunks
+                                                : MAX_THREADS / (XT * g.gi_n);
+  // channels per chunk from the window's width: CC, fewer for a wide
+  // window, and one channel with fewer rows or columns per block if even
+  // that does not fit
+  long long per_c = 0;
+  for (;;) {
+    const long long ww = TX + (static_cast<long long>(g.jcb) * RJ - 1) *
+                                  stride;
+    const long long wwp = ww + (9 - ww % 8) % 8;  // == 1 (mod 8)
+    per_c = static_cast<long long>(sizeof(float)) * (TX + g.gi_n * wwp);
+    if (per_c <= smem_max) {
+      g.ww = static_cast<int>(ww);
+      g.wwp = static_cast<int>(wwp);
+      const long long fit = SMEM_TARGET / per_c;
+      g.cc = static_cast<int>(fit < 1 ? 1 : fit < CC ? fit : CC);
+      if (g.cc > C) g.cc = C;
+      break;
+    }
+    if (g.jcb > 1) {
+      --g.jcb;
+    } else if (g.gi_n > 1) {
+      --g.gi_n;
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  g.igroups = (g.n + g.gi_n - 1) / g.gi_n;
+  g.jgroups = (jchunks + g.jcb - 1) / g.jcb;
+  g.ncompute = XT * g.gi_n * g.jcb;
+  const long long zdim = static_cast<long long>(B) * g.igroups * g.jgroups;
   if (zdim > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int txw = TILE_X + (JT - 1) * stride;
-  const size_t smem = sizeof(float) * CC * (TILE_X + G * txw);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        corr_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = static_cast<size_t>(per_c) * g.cc;
+
+  const float* a = static_cast<const float*>(f1);
+  const float* v = static_cast<const float*>(f2);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int instance =
+      stride <= 4 && g.ww <= 32 * stage_cols(stride) ? stride : 0;
+  switch (instance) {
+    case 1: e = launch<1>(a, v, o, B, g, smem, st); break;
+    case 2: e = launch<2>(a, v, o, B, g, smem, st); break;
+    case 3: e = launch<3>(a, v, o, B, g, smem, st); break;
+    case 4: e = launch<4>(a, v, o, B, g, smem, st); break;
+    default: e = launch<0>(a, v, o, B, g, smem, st); break;
   }
-  dim3 grid((W + TILE_X - 1) / TILE_X, H, static_cast<unsigned>(zdim));
-  corr_fwd_f32_kernel<<<grid, TILE_X, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(f1), static_cast<const float*>(f2),
-      static_cast<float*>(out), C, H, W, n, stride, pad, ichunks, jchunks);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 const char* deepof_cuda_error_string(int code) {

@@ -30,10 +30,7 @@ class FlowNetC(nn.Module):
         self.max_disp = max_disp
         self.corr_stride = corr_stride
         self.width_mult = width_mult
-        # "auto": the CUDA kernel on the GPU, the plain version on the
-        # CPU; "reference" forces the plain version (the kernel's check)
-        self.corr_impl = "auto"
-        ch = lambda n: scaled_width(n, width_mult)  # noqa: E731
+        ch =lambda n: scaled_width(n, width_mult)  # noqa: E731
         self.conv1 = ConvELU(3, ch(64), (7, 7), 2)
         self.conv2 = ConvELU(ch(64), ch(128), (5, 5), 2)
         self.conv3 = ConvELU(ch(128), ch(256), (5, 5), 2)
@@ -54,7 +51,7 @@ class FlowNetC(nn.Module):
         c3 = self.conv3(c2)
         f1, f2 = c3[:b], c3[b:]
         corr = F.elu(correlation_nchw(f1, f2, self.max_disp,
-                                      self.corr_stride, self.corr_impl))
+                                      self.corr_stride))
         net = torch.cat([corr, self.conv_redir(f1)], dim=1)
         conv3_1 = self.conv3_1(net)
         conv4_2, conv5_2, conv6_2 = flownet_tail(self, conv3_1)

@@ -43,13 +43,13 @@ def correlation_nchw(f1: torch.Tensor, f2: torch.Tensor, max_disp: int = 20,
                      stride: int = 2, impl: str = "auto") -> torch.Tensor:
     """(B, C, H, W) x2 -> (B, (2K+1)**2, H, W).
 
-    impl: "auto" launches the CUDA kernel for a CUDA tensor (or raises)
-    and runs the plain version for a CPU tensor; "reference" runs the
-    plain version on any device (the kernel's yardstick)."""
-    if impl == "reference" or (impl == "auto" and f1.device.type == "cpu"):
-        return correlation_reference(f1, f2, max_disp, stride)
+    impl: only "auto", which launches the CUDA kernel for a CUDA tensor
+    (or raises) and runs the plain version for a CPU tensor. No value
+    routes a CUDA tensor around the kernel."""
     if impl != "auto":
-        raise ValueError(f"correlation impl {impl!r}: 'auto' or 'reference'")
+        raise ValueError(f"correlation impl {impl!r}: only 'auto'")
+    if f1.device.type == "cpu":
+        return correlation_reference(f1, f2, max_disp, stride)
     from .cuda.corr import correlation_cuda
 
     return correlation_cuda(f1, f2, max_disp, stride)

@@ -1,8 +1,9 @@
 """Wrapper of the CUDA correlation kernel (`csrc/corr.cu`).
 
 Replaces `deepof_tpu/ops/pallas/corr.py::_corr_kernel`. The kernel is
-bound by float32 FMA throughput and reads f2 from shared memory, not
-once per displacement from device memory (see the note in the source).
+bound by float32 FMA throughput: each thread keeps a tile of 8 columns x
+7 displacements in registers and does 56 FMAs for every 28 values it
+reads from shared memory (see the note in the source).
 
 This slice's kernel takes float32 only. The JAX kernel also takes bf16
 (accumulating in f32 and returning bf16, `ops/pallas/corr.py:104-106`);

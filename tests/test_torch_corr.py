@@ -78,6 +78,21 @@ def test_corr_impl_rejects_unknown():
         correlation_nchw(t, t, 1, 1, impl="xla")
 
 
+def test_corr_impl_has_no_reference_route():
+    """No setting sends a tensor around the kernel: the plain version is
+    what "auto" runs on a CPU tensor, never a value of its own."""
+    from deepof_tpu_torch.ops.cuda.corr import launches
+
+    t = torch.zeros(1, 4, 3, 3)
+    before = launches.count
+    with pytest.raises(ValueError, match="only 'auto'"):
+        correlation_nchw(t, t, 1, 1, impl="reference")
+    with pytest.raises(ValueError, match="only 'auto'"):
+        correlation(t.permute(0, 2, 3, 1), t.permute(0, 2, 3, 1), 1, 1,
+                    impl="reference")
+    assert launches.count == before
+
+
 def test_corr_cuda_wrapper_rejects_cpu_tensors():
     """The kernel wrapper never runs the plain version: a CPU tensor is
     refused, not computed."""

@@ -13,9 +13,20 @@ import torch
 
 from deepof_tpu_torch.ops.corr import correlation_nchw, correlation_reference
 
-# (B, C, H, W), max_disp, stride: plain, ragged with stride 2, ragged odd
+# (B, C, H, W), max_disp, stride. The kernel's tiles (csrc/corr.cu): 64
+# columns a block, 8 a thread, 7 displacement columns a thread, up to 7
+# displacement rows a block, 16 channels a chunk; one template instance
+# for each stride 1-4 and a generic one. So: W not a multiple of 8 (17,
+# 23, 33, 70, 130); n not a multiple of 7 (5, 9) and n = 1; C not a
+# multiple of 16 (40, 17, 12); H under the pad (5 < 20), where whole
+# blocks write zeros; n = 41, which splits the displacement columns over
+# two blocks; strides 1-6; and the serving shape.
 CASES = [((2, 8, 12, 16), 2, 1), ((2, 8, 11, 16), 4, 2),
-         ((3, 40, 13, 17), 4, 1), ((1, 20, 9, 70), 6, 3)]
+         ((3, 40, 13, 17), 4, 1), ((1, 20, 9, 70), 6, 3),
+         ((2, 8, 10, 20), 0, 1), ((2, 12, 5, 33), 20, 2),
+         ((3, 17, 11, 64), 12, 3), ((2, 24, 9, 36), 8, 4),
+         ((2, 20, 9, 23), 10, 5), ((1, 6, 8, 16), 12, 6),
+         ((1, 40, 7, 130), 20, 1), ((8, 256, 48, 64), 20, 2)]
 
 
 @pytest.fixture
