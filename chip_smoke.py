@@ -10,17 +10,22 @@ through its kernels:
   - serving: FlowNet-C at full width through `InferenceEngine` (the
     correlation kernel);
   - training: FlowNet-S at full width, 384x512, batch 4, through
-    `Trainer` on `SyntheticData` (the warp and its flow gradient, six
-    levels of the pyramid loss per step).
+    `Trainer` on `SyntheticData` (the warp and its flow gradient, one
+    launch each for the six levels of the pyramid loss per step).
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
 {...}}. Any failure exits non-zero with no such line; so does a host
 without a GPU.
+
+One check alone, on the card (each builds what it needs):
+    python3 -c "import chip_smoke as cs; cs.check_warp_levels()"
+    python3 -c "import chip_smoke as cs; cs.step_kernels()"
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import threading
@@ -45,6 +50,12 @@ TRAIN_STEPS = 6
 # (B, C, H, W) of the six pyramid levels of the training loss at
 # 384x512, batch 4: the warp's shapes on the main path
 WARP_LEVELS = [(4, 3, 192 >> k, 256 >> k) for k in range(6)]
+# calls per device-time reading of a warp kernel (2-7 us each), and
+# readings per kernel, taken in turns with the library call
+WARP_ITERS = 200
+WARP_ROUNDS = 3
+# aten ops that make a copy; none may run inside the warp's autograd ops
+COPY_OPS = ("aten::copy_", "aten::contiguous", "aten::clone")
 
 
 def emit(phase: str, **kw) -> None:
@@ -140,24 +151,47 @@ def check_corr(shape, max_disp, stride, seed):
     return row
 
 
-def warp_bound_ms(b, c, h, w, grad: bool) -> tuple[float, str]:
+def warp_bound_ms(levels, grad: bool) -> tuple[float, str]:
     """Each input read once, each output written once: image, flow and
     output (forward); image, flow, cotangent and flow cotangent
-    (gradient); against the float32 operations per pixel."""
-    px = b * h * w
-    nbytes = 4.0 * px * ((2 * c + 4) if grad else (2 * c + 2))
-    flops = px * ((6 + 14 * c) if grad else (6 + 11 * c))
+    (gradient); against the float32 operations per pixel; summed over
+    the levels [(B, C, H, W)] of one launch."""
+    nbytes = flops = 0.0
+    for b, c, h, w in levels:
+        px = b * h * w
+        nbytes += 4.0 * px * ((2 * c + 4) if grad else (2 * c + 2))
+        flops += px * ((6 + 14 * c) if grad else (6 + 11 * c))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def check_warp(shape, mag, seed):
-    """Both warp kernels vs their plain versions on the card at one NCHW
-    shape, with the library yardstick F.grid_sample(border,
-    align_corners=True) and its gradient with respect to the grid. Each
-    is timed twice: its device time (`ms`, `plain_ms`, `library_ms`) and
-    the CUDA-event time of one call, host launch included (`*call_ms`)."""
+def grid_sample_grid(flow):
+    """The flow (B, 2, H, W) as F.grid_sample's grid (B, H, W, 2): pixel
+    coordinates normalised to [-1, 1] at align_corners, with the
+    normalising factor (2 / (W-1), 2 / (H-1)) that maps its gradient back
+    to pixels."""
+    import torch
+
+    b, _, h, w = flow.shape
+    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device),
+                            torch.arange(w, device=flow.device),
+                            indexing="ij")
+    norm = torch.tensor([2.0 / max(w - 1, 1), 2.0 / max(h - 1, 1)],
+                        device=flow.device)
+    grid = ((torch.stack([xs + flow[:, 0], ys + flow[:, 1]], -1) * norm - 1)
+            .detach().requires_grad_(True))
+    return grid, norm
+
+
+def check_warp(shape, mag, seed, rounds=WARP_ROUNDS):
+    """Both warp kernels (one level per launch) vs their plain versions
+    on the card at one NCHW shape, with the library yardstick
+    F.grid_sample(border, align_corners=True) and its gradient with
+    respect to the grid. Each is timed twice: its device time (`ms`,
+    `plain_ms`, `library_ms`; kernel and library `rounds` times each, in
+    turns, `*_runs`, the median reported) and the CUDA-event time of one
+    call, host launch included (`*call_ms`)."""
     import torch
     import torch.nn.functional as F
 
@@ -177,13 +211,7 @@ def check_warp(shape, mag, seed):
 
     got, want = warp_fwd_cuda(img, flow), backward_warp_reference(img, flow)
     ggot, gwant = warp_flow_grad_cuda(img, flow, ct), plain_grad()
-    # library: pixel coordinates normalised to [-1, 1] at align_corners
-    ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
-                            torch.arange(w, device="cuda"), indexing="ij")
-    norm = torch.tensor([2.0 / max(w - 1, 1), 2.0 / max(h - 1, 1)],
-                        device="cuda")
-    grid = ((torch.stack([xs + flow[:, 0], ys + flow[:, 1]], -1) * norm - 1)
-            .detach().requires_grad_(True))
+    grid, norm = grid_sample_grid(flow)
 
     def library():
         return F.grid_sample(img, grid, mode="bilinear",
@@ -194,12 +222,17 @@ def check_warp(shape, mag, seed):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     gerr = (ggot - gwant).abs().max().item()
-    fwd_bound, fwd_by = warp_bound_ms(b, c, h, w, grad=False)
-    grad_bound, grad_by = warp_bound_ms(b, c, h, w, grad=True)
+    fwd_bound, fwd_by = warp_bound_ms([shape], grad=False)
+    grad_bound, grad_by = warp_bound_ms([shape], grad=True)
 
     def times(kernel, plain, lib):
-        return {**{k: device_ms(fn) for k, fn in (
-                    ("ms", kernel), ("plain_ms", plain), ("library_ms", lib))},
+        runs = {"ms_runs": [], "library_ms_runs": []}
+        for _ in range(rounds):
+            runs["ms_runs"].append(device_ms(kernel, WARP_ITERS))
+            runs["library_ms_runs"].append(device_ms(lib, WARP_ITERS))
+        return {"ms": statistics.median(runs["ms_runs"]),
+                "library_ms": statistics.median(runs["library_ms_runs"]),
+                **runs, "plain_ms": device_ms(plain),
                 **{k: time_ms(fn) for k, fn in (
                     ("call_ms", kernel), ("plain_call_ms", plain),
                     ("library_call_ms", lib))}}
@@ -278,6 +311,138 @@ def check_warp_nonfinite(shape=(2, 3, 16, 20), seed=10):
     if not same:
         raise AssertionError("warp kernels disagree with the plain version "
                              "on non-finite flows")
+
+
+def check_warp_levels(mag=5.0, seed=20):
+    """The six main-path levels through one launch per direction, in the
+    loss's layouts (images and cotangents as views of NHWC memory, planar
+    flows): each level against the plain version; the two launches'
+    device time (WARP_ROUNDS readings of WARP_ITERS calls each) beside
+    the sums of the six per-level bounds and of the six grid_sample calls
+    (forward, and backward with respect to the grid), taken in turns; the
+    same launches on a smooth flow (a 2.3 px shift plus 0.3 px of noise,
+    where neighbouring pixels gather from the same rows); and
+    the device kernels of one autograd forward and backward of
+    `BackwardWarpLevels` on those views: the two warp kernels, no copy."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_levels_cuda,
+                                                warp_fwd_levels_cuda)
+    from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
+                                           backward_warp_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images, flows, cts = [], [], []
+    for b, c, h, w in WARP_LEVELS:
+        images.append(torch.rand((b, h, w, c), device="cuda", generator=g)
+                      .permute(0, 3, 1, 2))
+        flows.append(torch.randn((b, 2, h, w), device="cuda", generator=g)
+                     * mag)
+        cts.append(torch.randn((b, h, w, c), device="cuda", generator=g)
+                   .permute(0, 3, 1, 2))
+    outs = warp_fwd_levels_cuda(images, flows)
+    grads = warp_flow_grad_levels_cuda(images, flows, cts)
+    levels = []
+    for img, fl, ct, out, grad in zip(images, flows, cts, outs, grads):
+        f = fl.detach().requires_grad_(True)
+        want = backward_warp_reference(img, f)
+        gwant = torch.autograd.grad(want, f, ct)[0]
+        levels.append({"shape": list(img.shape),
+                       "bitwise_equal": bool(torch.equal(out, want)),
+                       "max_abs_err": (out - want).abs().max().item(),
+                       "flow_grad_max_abs_err": (grad - gwant).abs().max()
+                       .item()})
+    grids = [grid_sample_grid(fl)[0] for fl in flows]
+
+    def library():
+        return [F.grid_sample(i, gr, mode="bilinear", padding_mode="border",
+                              align_corners=True)
+                for i, gr in zip(images, grids)]
+
+    lib_outs = library()
+
+    def library_grad():
+        return torch.autograd.grad(lib_outs, grids, cts, retain_graph=True)
+
+    def plain():
+        return [backward_warp_reference(i, f) for i, f in zip(images, flows)]
+
+    def plain_grad():
+        fs = [f.detach().requires_grad_(True) for f in flows]
+        return torch.autograd.grad(
+            [backward_warp_reference(i, f) for i, f in zip(images, fs)], fs,
+            cts)
+
+    def fwd():
+        return warp_fwd_levels_cuda(images, flows)
+
+    def bwd():
+        return warp_flow_grad_levels_cuda(images, flows, cts)
+
+    smooth = [torch.full_like(f, 2.3)
+              + 0.3 * torch.randn(f.shape, device="cuda", generator=g)
+              for f in flows]
+
+    def fwd_smooth():
+        return warp_fwd_levels_cuda(images, smooth)
+
+    def bwd_smooth():
+        return warp_flow_grad_levels_cuda(images, smooth, cts)
+
+    runs = {k: [] for k in ("fwd", "library_fwd", "grad", "library_grad",
+                            "fwd_smooth", "grad_smooth")}
+    for _ in range(WARP_ROUNDS):
+        for k, fn in (("fwd", fwd), ("library_fwd", library),
+                      ("grad", bwd), ("library_grad", library_grad),
+                      ("fwd_smooth", fwd_smooth),
+                      ("grad_smooth", bwd_smooth)):
+            runs[k].append(device_ms(fn, WARP_ITERS))
+
+    fs = [f.detach().requires_grad_(True) for f in flows]
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        o = BackwardWarpLevels.apply(len(images), *images, *fs)
+        torch.autograd.grad(o, fs, cts)
+        torch.cuda.synchronize()
+    autograd_kernels = device_kernel_counts(prof)
+
+    def direction(key, kernel, plain_fn, lib_key, grad):
+        bound, bound_by = warp_bound_ms(WARP_LEVELS, grad)
+        return {"ms": statistics.median(runs[key]), "ms_runs": runs[key],
+                "library_ms": statistics.median(runs[lib_key]),
+                "library_ms_runs": runs[lib_key],
+                "smooth_flow_ms": statistics.median(runs[key + "_smooth"]),
+                "smooth_flow_ms_runs": runs[key + "_smooth"],
+                "plain_ms": device_ms(plain_fn),
+                "call_ms": time_ms(kernel),
+                "bound_ms": bound, "bound_by": bound_by}
+
+    row = {"levels": levels,
+           "fwd": {**direction("fwd", fwd, plain, "library_fwd", False),
+                   "bitwise_equal": all(r["bitwise_equal"] for r in levels),
+                   "max_abs_err": max(r["max_abs_err"] for r in levels)},
+           "flow_grad": {**direction("grad", bwd, plain_grad, "library_grad",
+                                     True),
+                         "max_abs_err": max(r["flow_grad_max_abs_err"]
+                                            for r in levels)},
+           "library": "six F.grid_sample(bilinear, border, "
+                      "align_corners=True) calls; their autograd.grad wrt "
+                      "the grids",
+           "autograd_device_kernels": autograd_kernels}
+    emit("kernels", kernel="warp_levels", **row)
+    if not (row["fwd"]["bitwise_equal"]
+            and row["flow_grad"]["max_abs_err"] <= WARP_GRAD_TOL):
+        raise AssertionError(f"fused warp launch disagrees with the plain "
+                             f"version: {levels}")
+    if (len(autograd_kernels) != 2 or sum(autograd_kernels.values()) != 2
+            or not all("warp_" in k for k in autograd_kernels)):
+        raise AssertionError(f"one autograd forward and backward of the "
+                             f"six levels ran {autograd_kernels}; want one "
+                             f"warp kernel each way and no copy")
+    return row
 
 
 def plain_corr_forward(fwd, x):
@@ -385,13 +550,12 @@ def host_ms(fn, iters: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def device_kernels(prof, iters: int) -> list[tuple[float, str]]:
-    """(ms per iteration, name) of each device-side event (kernels and
-    copies), largest first: an operator's own row repeats the time of
-    the kernels it launched, and a user annotation's device row (the
-    optimizer's step) the time of the kernels inside it, so only kernel
-    and copy rows are kept."""
-    kernels = []
+def _device_rows(prof):
+    """(device us, row) of each device-side event row (kernels and
+    copies): an operator's own row repeats the time of the kernels it
+    launched, and a user annotation's device row (the optimizer's step)
+    the time of the kernels inside it, so only kernel and copy rows are
+    kept."""
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
@@ -399,9 +563,45 @@ def device_kernels(prof, iters: int) -> list[tuple[float, str]]:
         if (dev > 0 and str(e.device_type).endswith("CUDA")
                 and not getattr(e, "is_user_annotation", False)
                 and e.key != "Activity Buffer Request"):
-            kernels.append((dev / 1e3 / iters, e.key))
-    kernels.sort(reverse=True)
-    return kernels
+            yield dev, e
+
+
+def device_kernels(prof, iters: int) -> list[tuple[float, str]]:
+    """(ms per iteration, name) of each device-side event, largest
+    first."""
+    return sorted(((dev / 1e3 / iters, e.key) for dev, e in
+                   _device_rows(prof)), reverse=True)
+
+
+def device_kernel_counts(prof) -> dict[str, int]:
+    """{name: launches} of each device-side event in the session."""
+    return {e.key: e.count for _, e in _device_rows(prof)}
+
+
+def kernels_per_step(counts: dict[str, int], iters: int) -> dict:
+    """Device kernels per step from `device_kernel_counts` over `iters`
+    steps: all of them, the copies among them, and the warp kernels."""
+    def per_step(pick):
+        return sum(n for k, n in counts.items() if pick(k)) / iters
+
+    return {"device_kernels_per_step": per_step(lambda k: True),
+            "copy_kernels_per_step": per_step(lambda k: "copy" in k.lower()),
+            "warp_kernels_per_step": per_step(lambda k: "warp_" in k)}
+
+
+def warp_op_children(prof) -> dict[str, list[str]]:
+    """{warp autograd op (BackwardWarpLevels and its backward): the names
+    of every op run inside it}, over the session."""
+    def below(ev):
+        for c in ev.cpu_children:
+            yield c.name
+            yield from below(c)
+
+    found: dict[str, set] = {}
+    for e in prof.events():
+        if e.name in ("BackwardWarpLevels", "BackwardWarpLevelsBackward"):
+            found.setdefault(e.name, set()).update(below(e))
+    return {k: sorted(v) for k, v in found.items()}
 
 
 def profile(eng, fwd, x, pairs, iters: int = 3) -> None:
@@ -459,26 +659,28 @@ def plain_warp_loss_and_grads(model, batch, mean, loss_cfg):
     version (autograd of `backward_warp_reference`) for this one call, as
     `serve` swaps the correlation: no setting of the package routes a
     card tensor around the kernels."""
-    from deepof_tpu_torch.losses import photometric
+    from deepof_tpu_torch.losses import pyramid
     from deepof_tpu_torch.ops.warp import backward_warp_reference
 
-    def plain_warp(image, flow, impl="auto"):
-        return backward_warp_reference(
-            image.permute(0, 3, 1, 2).contiguous(),
-            flow.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
+    def plain_warp_levels(images, flows, impl="auto"):
+        return [backward_warp_reference(i.permute(0, 3, 1, 2),
+                                        f.permute(0, 3, 1, 2))
+                .permute(0, 2, 3, 1) for i, f in zip(images, flows)]
 
-    kernel_warp = photometric.backward_warp
-    photometric.backward_warp = plain_warp
+    kernel_warp = pyramid.backward_warp_levels
+    pyramid.backward_warp_levels = plain_warp_levels
     try:
         return loss_and_grads(model, batch, mean, loss_cfg)
     finally:
-        photometric.backward_warp = kernel_warp
+        pyramid.backward_warp_levels = kernel_warp
 
 
 def train(cfg):
     """Full-width FlowNet-S training through Trainer on the card: one
     warm-up step, TRAIN_STEPS counted and timed steps, then one step's
-    loss and gradients with the warp kernels against the plain warp."""
+    loss and gradients with the warp kernels against the plain warp. The
+    loss warps its six levels in one launch per direction, so each kernel
+    launches once a step."""
     import numpy as np
     import torch
 
@@ -529,11 +731,10 @@ def train(cfg):
     emit("train", **row)
     if not all(np.isfinite(totals)) or row["updates_skipped"]:
         raise AssertionError(f"non-finite training losses: {totals}")
-    want = levels * TRAIN_STEPS
-    if launches != (want, want):
+    if launches != (TRAIN_STEPS, TRAIN_STEPS):
         raise AssertionError(f"warp kernels launched {launches} times in "
                              f"{TRAIN_STEPS} steps of {levels} levels; "
-                             f"want {want} each")
+                             f"want one a step each")
     if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL):
         raise AssertionError(
             f"train step with the warp kernels vs the plain warp: loss rel "
@@ -543,10 +744,9 @@ def train(cfg):
     return row
 
 
-def train_profile(trainer, iters: int = 3) -> None:
-    """Where a training step's time goes: the step on a batch already on
-    the card (host clock around a synchronised step), device busy time by
-    kernel from torch.profiler, the warp kernels' share of it."""
+def profile_steps(trainer, iters: int):
+    """(ms per step on the host clock, torch.profiler session of `iters`
+    more steps), each on a batch already on the card."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -568,16 +768,66 @@ def train_profile(trainer, iters: int = 3) -> None:
         for b in batches:
             step(trainer.state, b)
         torch.cuda.synchronize()
+    return step_ms, prof
+
+
+def step_kernels(repo: str | None = None, iters: int = 3) -> dict:
+    """Device kernels per full-width FlowNet-S training step (the `train`
+    phase's configuration), by name, with the `deepof_tpu_torch` package
+    of the checkout at `repo` (default: this one). To compare two
+    checkouts, one process each, in one call on the card:
+
+        python3 -c "import chip_smoke as cs; cs.step_kernels('other/')"
+    """
+    import torch
+
+    if repo is not None:
+        sys.path.insert(0, repo)
+    from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
+    from deepof_tpu_torch.train.loop import Trainer
+
+    # full float32, as `main` runs the train phase
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    trainer = Trainer(ExperimentConfig(data=DataConfig(dataset="synthetic")),
+                      device="cuda")
+    trainer.fit(1)
+    step_ms, prof = profile_steps(trainer, iters)
+    counts = device_kernel_counts(prof)
+    row = {"repo": repo or ".", "step_ms": step_ms,
+           "device_busy_ms": sum(t for t, _ in device_kernels(prof, iters)),
+           **kernels_per_step(counts, iters),
+           "top_by_count": {k[:120]: n / iters for k, n in sorted(
+               counts.items(), key=lambda kv: -kv[1])[:40]}}
+    emit("step_kernels", **row)
+    return row
+
+
+def train_profile(trainer, iters: int = 3) -> None:
+    """Where a training step's time goes: the step on a batch already on
+    the card (host clock around a synchronised step), device busy time by
+    kernel from torch.profiler, the warp kernels' share of it, the device
+    kernels per step (copies among them), and the ops run inside the
+    warp's autograd ops (no copy may be among them)."""
+    step_ms, prof = profile_steps(trainer, iters)
     kernels = device_kernels(prof, iters)
     busy = sum(t for t, _ in kernels)
     warp = sum(t for t, k in kernels if "warp_" in k)
+    warp_ops = warp_op_children(prof)
+    copies = sorted({n for names in warp_ops.values() for n in names
+                     if n in COPY_OPS})
     emit("train_profile", batch=trainer.cfg.data.batch_size,
          step_ms=step_ms,
          pairs_per_s=trainer.cfg.data.batch_size / (step_ms / 1e3),
          device_time_visible=busy > 0, device_busy_ms=busy,
          idle_share_of_step=(1 - busy / step_ms) if busy else None,
          warp_ms=warp, warp_share_of_busy=(warp / busy) if busy else None,
+         **kernels_per_step(device_kernel_counts(prof), iters),
+         warp_op_children=warp_ops,
          top=[{"ms": t, "name": k[:90]} for t, k in kernels[:10]])
+    if copies:
+        raise AssertionError(f"the warp's autograd ops made copies: {copies}")
 
 
 def main() -> int:
@@ -619,31 +869,39 @@ def main() -> int:
 
     warp_rows = [check_warp(shape, 5.0, seed=2 + i)
                  for i, shape in enumerate(WARP_LEVELS)]
-    check_warp((3, 5, 13, 70), 3.0, seed=8)  # ragged
-    check_warp((4, 3, 48, 64), 200.0, seed=9)  # saturates at the border
+    check_warp((3, 5, 13, 70), 3.0, seed=8, rounds=1)  # ragged
+    # saturates at the border
+    check_warp((4, 3, 48, 64), 200.0, seed=9, rounds=1)
     check_warp_nonfinite()
+    fused = check_warp_levels()
 
     serve_row, corr_launches = serve(cfg)
     train_row = train(ExperimentConfig(data=DataConfig(dataset="synthetic")))
 
     def warp_entry(name, key, launches):
+        # the one launch over the six main-path levels, with the one-level
+        # launches of each level beside it
         rows = [r[key] for r in warp_rows]
-        finest = rows[0]
+        one = fused[key]
         return {
             "name": name, "route": "cuda",
             "source": "deepof_tpu_torch/csrc/warp.cu",
             "replaces": replaces[name], "launches": launches,
             "launches_per_step": launches / TRAIN_STEPS,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": finest["ms"], "plain_ms": finest["plain_ms"],
-            "bound_ms": finest["bound_ms"], "bound_by": finest["bound_by"],
-            "library_ms": finest["library_ms"],
-            "library": "F.grid_sample(bilinear, border, align_corners=True)"
+            "max_abs_err": one["max_abs_err"],
+            "ms": one["ms"], "ms_runs": one["ms_runs"],
+            "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+            "library_ms": one["library_ms"],
+            "library_ms_runs": one["library_ms_runs"],
+            "library": "six F.grid_sample(bilinear, border, "
+                       "align_corners=True) calls"
                        + ("" if key == "fwd" else ", autograd.grad wrt grid"),
-            "shape": warp_rows[0]["shape"],
-            "call_ms": finest["call_ms"],
+            "shape": [list(s) for s in WARP_LEVELS],
+            "call_ms": one["call_ms"],
             "per_level": [{"shape": w["shape"], **{k: r[k] for k in (
-                "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}}
+                "ms", "ms_runs", "call_ms", "plain_ms", "library_ms",
+                "library_ms_runs", "bound_ms")}}
                 for w, r in zip(warp_rows, rows)]}
 
     replaces = {"warp_fwd": "deepof_tpu/ops/pallas/warp.py:85",

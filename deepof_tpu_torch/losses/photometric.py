@@ -84,15 +84,23 @@ def _smoothness_diffs(cfg: LossConfig, h: int, w: int,
 
 def loss_interp(flow: torch.Tensor, inputs: torch.Tensor,
                 outputs: torch.Tensor, flow_scale: float, cfg: LossConfig,
-                smooth_border_mask: bool = False
+                smooth_border_mask: bool = False,
+                scaled: torch.Tensor | None = None,
+                recon: torch.Tensor | None = None
                 ) -> tuple[LossDict, torch.Tensor]:
     """flow: (B, h, w, 2) raw head output; inputs/outputs: (B, h, w, C)
     LRN-normalised previous/next frames resized to this scale. Returns
     (loss dict, reconstructed previous frame). `cfg` is taken as checked
-    (`core.config.check_loss`, which `pyramid_loss` runs)."""
+    (`core.config.check_loss`, which `pyramid_loss` runs).
+
+    `scaled` (flow * flow_scale) and `recon` (`outputs` warped by it) are
+    computed here unless given: `pyramid_loss` warps every level in one
+    launch and passes both."""
     b, h, w, c = inputs.shape
-    scaled = flow * flow_scale
-    recon = backward_warp(outputs, scaled, impl=cfg.warp_impl)
+    if scaled is None:
+        scaled = flow * flow_scale
+    if recon is None:
+        recon = backward_warp(outputs, scaled, impl=cfg.warp_impl)
 
     bmask = border_mask(h, w, cfg.border_ratio, device=inputs.device)
     bw = _border_width(h, cfg.border_ratio)

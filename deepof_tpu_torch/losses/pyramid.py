@@ -4,6 +4,9 @@ two-frame, without the backward-flow pyramid of the occlusion option).
   - preprocessing: BGR dataset-mean subtraction and /255 scaling, and the
     LRN copy used only inside the photometric loss;
   - resizing the LRN images to every pyramid level;
+  - the warp of every level's resized next frame by its scaled flow, in
+    one call (`backward_warp_levels`: one launch of each kernel on the
+    card);
   - per-level `loss_interp` and the weighted total, weights finest first.
 
 The resize is `jax.image.resize(..., "bilinear")`, whose default is
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from ..core.config import LossConfig, check_loss
 from ..ops.lrn import local_response_normalization
+from ..ops.warp import backward_warp_levels
 from .photometric import LossDict, loss_interp
 
 
@@ -52,17 +56,19 @@ def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
     Returns (weighted total, per-level loss dicts finest first, finest
     reconstruction). Raises on loss settings not ported yet."""
     check_loss(cfg)
+    sizes = [flow.shape[1:3] for flow, _ in flow_pyramid]
+    scaled = [flow * scale for flow, scale in flow_pyramid]
+    targets = [_resize(outputs_norm, h, w) for h, w in sizes]
+    # every level in one launch of each warp kernel
+    recons = backward_warp_levels(targets, scaled, impl=cfg.warp_impl)
     losses: list[LossDict] = []
-    recon_finest = None
     total = torch.zeros((), device=inputs_norm.device)
     for k, (flow, scale) in enumerate(flow_pyramid):
-        h, w = flow.shape[1:3]
-        ld, recon = loss_interp(flow, _resize(inputs_norm, h, w),
-                                _resize(outputs_norm, h, w), scale, cfg,
-                                smooth_border_mask)
+        h, w = sizes[k]
+        ld, _ = loss_interp(flow, _resize(inputs_norm, h, w), targets[k],
+                            scale, cfg, smooth_border_mask, scaled=scaled[k],
+                            recon=recons[k])
         losses.append(ld)
-        if k == 0:
-            recon_finest = recon
         weight = cfg.weights[k] if k < len(cfg.weights) else cfg.weights[-1]
         total = total + weight * ld["total"]
-    return total, losses, recon_finest
+    return total, losses, recons[0]

@@ -10,11 +10,14 @@ Semantics, as in the JAX package:
     image;
   - the four neighbours are blended bilinearly.
 
-`backward_warp` keeps the JAX package's NHWC layout; the loss calls it,
-and it hands NCHW tensors to `backward_warp_nchw`. That core runs one
-`torch.autograd.Function`: on a CUDA tensor its forward launches the warp
-kernel and its backward the flow-gradient kernel (`ops/cuda/warp.py`); on
-a CPU tensor both run the plain version, `backward_warp_reference`.
+`backward_warp_levels` keeps the JAX package's NHWC layout and warps
+every level of the pyramid loss at once; `backward_warp` (NHWC) and
+`backward_warp_nchw` are its one-level case. All run one
+`torch.autograd.Function`, `BackwardWarpLevels`: on CUDA tensors its
+forward launches the warp kernel once for all levels and its backward the
+flow-gradient kernel once (`ops/cuda/warp.py`), on strided views without
+a layout copy; on CPU tensors both run the plain version,
+`backward_warp_reference`, level by level.
 
 Neighbours are named as in the kernel source (`csrc/warp.cu`):
 Ia = (y0, x0), Ib = (y0, x1), Ic = (y1, x0), Id = (y1, x1).
@@ -77,9 +80,16 @@ def _reference_grads(image, flow, g, want_image: bool):
     return (grads[0], grads[1]) if want_image else (None, grads[0])
 
 
-class BackwardWarp(torch.autograd.Function):
-    """The warp with its flow gradient: the CUDA kernels on a CUDA
-    tensor, the plain version on a CPU tensor.
+class BackwardWarpLevels(torch.autograd.Function):
+    """The warp of up to eight levels with its flow gradients: one launch
+    of each CUDA kernel for all levels on CUDA tensors, the plain version
+    level by level on CPU tensors.
+
+    `apply(n, image_1, ..., image_n, flow_1, ..., flow_n)` -> the n warped
+    images, each (B, C, H_k, W_k) in its image's layout. The tensors are
+    saved and handed to the kernels as given, strided views included: no
+    layout copy. A level whose output gets no cotangent is given zeros,
+    and its flow gradient still comes back.
 
     The image cotangent, when asked for, is autograd of the plain version
     on any device: the JAX package computes it in XLA, not in Pallas
@@ -87,47 +97,87 @@ class BackwardWarp(torch.autograd.Function):
     never asked for."""
 
     @staticmethod
-    def forward(ctx, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(image, flow)
-        if image.device.type == "cpu":
-            return backward_warp_reference(image, flow)
-        from .cuda.warp import warp_fwd_cuda
+    def forward(ctx, n: int, *tensors: torch.Tensor):
+        images, flows = tensors[:n], tensors[n:]
+        ctx.n = n
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*tensors)
+        if _on_cpu(tensors):
+            return tuple(backward_warp_reference(i, f)
+                         for i, f in zip(images, flows))
+        from .cuda.warp import warp_fwd_levels_cuda
 
-        return warp_fwd_cuda(image, flow)
+        return tuple(warp_fwd_levels_cuda(images, flows))
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        image, flow = ctx.saved_tensors
-        want_image, want_flow = ctx.needs_input_grad[:2]
-        if image.device.type == "cpu":
-            return _reference_grads(image, flow, g, want_image)
-        g = g.contiguous()
-        d_flow = None
-        if want_flow:
-            from .cuda.warp import warp_flow_grad_cuda
+    def backward(ctx, *gs):
+        n = ctx.n
+        saved = ctx.saved_tensors
+        images, flows = saved[:n], saved[n:]
+        want_image = ctx.needs_input_grad[1:n + 1]
+        want_flow = ctx.needs_input_grad[n + 1:]
+        gs = [torch.zeros_like(i) if g is None else g
+              for g, i in zip(gs, images)]
+        cpu = _on_cpu(saved)
+        d_image, d_flow = [None] * n, [None] * n
+        for k in range(n):
+            if want_image[k] or (cpu and want_flow[k]):
+                d_image[k], df = _reference_grads(images[k], flows[k], gs[k],
+                                                  want_image[k])
+                if cpu and want_flow[k]:
+                    d_flow[k] = df
+        levels = [k for k in range(n) if want_flow[k]]
+        if not cpu and levels:
+            from .cuda.warp import warp_flow_grad_levels_cuda
 
-            d_flow = warp_flow_grad_cuda(image, flow, g)
-        d_image = (_reference_grads(image, flow, g, True)[0] if want_image
-                   else None)
-        return d_image, d_flow
+            grads = warp_flow_grad_levels_cuda(
+                [images[k] for k in levels], [flows[k] for k in levels],
+                [gs[k] for k in levels])
+            for k, g in zip(levels, grads):
+                d_flow[k] = g
+        return (None, *d_image, *d_flow)
+
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in WARP_IMPLS:
+        raise ValueError(f"unknown warp impl {impl!r}: one of {WARP_IMPLS}")
 
 
 def backward_warp_nchw(image: torch.Tensor, flow: torch.Tensor,
                        impl: str = "auto") -> torch.Tensor:
-    """image (B, C, H, W), flow (B, 2, H, W) -> (B, C, H, W).
+    """image (B, C, H, W), flow (B, 2, H, W) -> (B, C, H, W): one level of
+    `BackwardWarpLevels`.
 
     impl: "auto", "xla" or "pallas" (the JAX package's TPU routes) all
     launch the CUDA kernels for a CUDA tensor (or raise) and run the
     plain version for a CPU tensor."""
-    if impl not in WARP_IMPLS:
-        raise ValueError(f"unknown warp impl {impl!r}: one of {WARP_IMPLS}")
-    return BackwardWarp.apply(image, flow)
+    _check_impl(impl)
+    return BackwardWarpLevels.apply(1, image, flow)[0]
+
+
+def backward_warp_levels(images: list[torch.Tensor],
+                         flows: list[torch.Tensor],
+                         impl: str = "auto") -> list[torch.Tensor]:
+    """Warp each image (B, H_k, W_k, C) backward by its flow
+    (B, H_k, W_k, 2), which already includes any flow scale; returns the
+    warped images, (B, H_k, W_k, C) each. On CUDA tensors all levels (at
+    most 8, sharing B and C) take one launch of each kernel, and they
+    reach it as permuted views, without a copy. `impl` as in
+    `backward_warp_nchw`."""
+    _check_impl(impl)
+    outs = BackwardWarpLevels.apply(
+        len(images), *(i.permute(0, 3, 1, 2) for i in images),
+        *(f.permute(0, 3, 1, 2) for f in flows))
+    return [o.permute(0, 2, 3, 1) for o in outs]
 
 
 def backward_warp(image: torch.Tensor, flow: torch.Tensor,
                   impl: str = "auto") -> torch.Tensor:
     """Warp `image` (B, H, W, C) backward by `flow` (B, H, W, 2), which
-    already includes any flow scale; returns (B, H, W, C)."""
-    out = backward_warp_nchw(image.permute(0, 3, 1, 2).contiguous(),
-                             flow.permute(0, 3, 1, 2).contiguous(), impl)
-    return out.permute(0, 2, 3, 1)
+    already includes any flow scale; returns (B, H, W, C). The one-level
+    case of `backward_warp_levels`."""
+    return backward_warp_levels([image], [flow], impl)[0]

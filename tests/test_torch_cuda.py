@@ -1,10 +1,12 @@
 """Tests of the PyTorch port's CUDA kernels (correlation, warp and its
-flow gradient), on the card.
+flow gradient, one level and a list of levels per launch), on the card.
 
 They skip on a host without a CUDA device. This file imports no JAX, so
 it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Add `-k corr` or `-k warp` for one kernel's cases.
 """
 
 import numpy as np
@@ -146,19 +148,129 @@ def test_warp_kernels_survive_nonfinite_flows(cuda):
 @pytest.mark.cuda
 def test_warp_kernels_refuse_what_they_do_not_take(cuda):
     from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_cuda,
-                                                warp_fwd_cuda)
+                                                warp_flow_grad_levels_cuda,
+                                                warp_fwd_cuda,
+                                                warp_fwd_levels_cuda)
 
     img = torch.zeros(1, 3, 5, 6, device=cuda)
     flow = torch.zeros(1, 2, 5, 6, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         warp_fwd_cuda(img.bfloat16(), flow)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(TypeError, match="float32"):
+        warp_flow_grad_cuda(img, flow, img.bfloat16())
+    with pytest.raises(ValueError, match="does not match"):
         warp_fwd_cuda(img.transpose(2, 3), flow)
     with pytest.raises(ValueError, match="is on cpu"):
         warp_fwd_cuda(img.cpu(), flow)
+    with pytest.raises(ValueError, match="is on cpu"):  # mixed devices
+        warp_fwd_levels_cuda([img, img.cpu()], [flow, flow])
     with pytest.raises(ValueError, match="does not match"):
         warp_fwd_cuda(img, flow[..., :5].contiguous())
     with pytest.raises(ValueError, match="2 channels"):
         warp_fwd_cuda(img, img)
     with pytest.raises(ValueError, match="cotangent"):
         warp_flow_grad_cuda(img, flow, img[:, :2].contiguous())
+    with pytest.raises(ValueError, match="1 to 8"):
+        warp_fwd_levels_cuda([img] * 9, [flow] * 9)
+    with pytest.raises(ValueError, match="does not share"):  # B
+        warp_fwd_levels_cuda([img, img.expand(2, 3, 5, 6)],
+                             [flow, flow.expand(2, 2, 5, 6)])
+    with pytest.raises(ValueError, match="does not share"):  # C
+        warp_flow_grad_levels_cuda([img, img[:, :2]], [flow, flow],
+                                   [img, img[:, :2]])
+
+
+def _levels(cuda, shapes, c, layout, mag, seed):
+    """Images and cotangents (B, C, H, W) in `layout` ("nhwc": views of
+    NHWC memory, as the loss hands them over; "nchw": contiguous), planar
+    flows, one per (B, H, W)."""
+    rs = np.random.RandomState(seed)
+    images, flows, cts = [], [], []
+    for b, h, w in shapes:
+        img = torch.from_numpy(rs.rand(b, h, w, c).astype(np.float32))
+        ct = torch.from_numpy(rs.randn(b, h, w, c).astype(np.float32))
+        if layout == "nhwc":
+            img, ct = img.permute(0, 3, 1, 2), ct.permute(0, 3, 1, 2)
+        else:
+            img = img.permute(0, 3, 1, 2).contiguous()
+            ct = ct.permute(0, 3, 1, 2).contiguous()
+        images.append(img.to(cuda))
+        cts.append(ct.to(cuda))
+        flows.append(torch.from_numpy((rs.randn(b, 2, h, w) * mag).astype(
+            np.float32)).to(cuda))
+    return images, flows, cts
+
+
+# (B, H, W) level sets, C, layout, flow magnitude: the six main-path
+# levels of the training loss in its layout and contiguous, ragged sets
+# (W = 1, 3, 70, 129; H = 1), eight levels, C = 1 and 5, and flows that
+# saturate at the border
+MAIN_LEVELS = [(4, 192 >> k, 256 >> k) for k in range(6)]
+LEVEL_CASES = [
+    (MAIN_LEVELS, 3, "nhwc", 5.0), (MAIN_LEVELS, 3, "nchw", 5.0),
+    ([(2, 1, 1), (2, 1, 3), (2, 5, 70), (2, 1, 129)], 3, "nhwc", 3.0),
+    ([(3, 13, 70), (3, 7, 35), (3, 4, 17)], 5, "nhwc", 3.0),
+    ([(2, 9, 300 - 37 * k) for k in range(8)], 1, "nchw", 3.0),
+    ([(2, 48, 64), (2, 24, 32)], 3, "nhwc", 200.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,c,layout,mag", LEVEL_CASES)
+def test_warp_levels_match_reference(cuda, shapes, c, layout, mag):
+    """One launch per direction for all levels: the forward bitwise equal
+    to the plain version at every level, the flow gradient within 1e-4
+    of autograd of the plain version (float32; the gradient kernel
+    fuses multiply-adds where autograd rounds each)."""
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
+                                           backward_warp_reference)
+
+    images, flows, cts = _levels(cuda, shapes, c, layout, mag,
+                                 seed=len(shapes))
+    fused = [f.clone().requires_grad_(True) for f in flows]
+    before = (cw.fwd_launches.count, cw.grad_launches.count)
+    outs = BackwardWarpLevels.apply(len(images), *images, *fused)
+    sum((o * g).sum() for o, g in zip(outs, cts)).backward()
+    assert (cw.fwd_launches.count, cw.grad_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    for k, (img, flow, ct) in enumerate(zip(images, flows, cts)):
+        # the image's layout (a size-1 dimension's stride is free)
+        assert [s for s, n in zip(outs[k].stride(), img.shape) if n > 1] \
+            == [s for s, n in zip(img.stride(), img.shape) if n > 1]
+        ref = flow.clone().requires_grad_(True)
+        want = backward_warp_reference(img, ref)
+        want.backward(ct)
+        assert torch.equal(outs[k], want), f"level {k} {tuple(img.shape)}"
+        torch.testing.assert_close(fused[k].grad, ref.grad, atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_warp_levels_survive_nonfinite_flows(cuda):
+    """NaN, inf and huge flows in one level of a fused launch: the plain
+    version's values at every level, NaN where it gives NaN."""
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_levels_cuda,
+                                                warp_fwd_levels_cuda)
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    images, flows, cts = _levels(cuda, [(2, 16, 20), (2, 8, 10)], 3, "nhwc",
+                                 3.0, seed=1)
+    nan, inf = float("nan"), float("inf")
+    flow = flows[0]
+    flow[0, 0, 2, 3], flow[0, 1, 4, 5], flow[1, 0, 6, 7] = nan, inf, -inf
+    flow[1, 1, 8, 9], flow[1, 0, 12, 13] = 3e38, -3e38
+    flow[0, 0, 5, 6], flow[0, 1, 5, 6] = nan, -50.0
+    flow[1, 0, 9, 10], flow[1, 1, 9, 10] = -50.0, nan
+    outs = warp_fwd_levels_cuda(images, flows)
+    grads = warp_flow_grad_levels_cuda(images, flows, cts)
+    torch.cuda.synchronize()
+    assert outs[0].isnan().any()
+    for img, fl, ct, out, grad in zip(images, flows, cts, outs, grads):
+        f = fl.clone().requires_grad_(True)
+        want = backward_warp_reference(img, f)
+        want.backward(ct)
+        torch.testing.assert_close(out, want.detach(), atol=0, rtol=0,
+                                   equal_nan=True)
+        torch.testing.assert_close(grad, f.grad, atol=1e-4, rtol=0,
+                                   equal_nan=True)

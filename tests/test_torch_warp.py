@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from deepof_tpu.ops.pallas.warp import backward_warp_pallas
 from deepof_tpu.ops.warp import backward_warp as jax_warp
 from deepof_tpu_torch.ops.cuda import warp as cuda_warp
-from deepof_tpu_torch.ops.warp import (BackwardWarp, backward_warp,
+from deepof_tpu_torch.ops.warp import (BackwardWarpLevels, backward_warp,
                                        backward_warp_nchw,
                                        backward_warp_reference)
 from test_warp import warp_oracle
@@ -101,7 +101,7 @@ def test_function_on_cpu_runs_the_plain_version():
     tf = torch.from_numpy(flow).permute(0, 3, 1, 2).contiguous()
     before = (cuda_warp.fwd_launches.count, cuda_warp.grad_launches.count)
     tf.requires_grad_(True)
-    out = BackwardWarp.apply(ti, tf)
+    out = BackwardWarpLevels.apply(1, ti, tf)[0]
     assert torch.equal(out, backward_warp_reference(ti, tf.detach()))
     out.square().sum().backward()
     ref = tf.detach().clone().requires_grad_(True)
