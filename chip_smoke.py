@@ -5,13 +5,21 @@
 Needs one NVIDIA GPU (sm_90a: H100) and the CUDA toolkit's nvcc. Builds
 every CUDA kernel from `deepof_tpu_torch/csrc` into `build/` (one nvcc
 per source, all at once), checks each against its plain PyTorch version
-on the card, then drives the port's two paths and checks that each went
-through its kernels:
+on the card, then drives the port's paths and checks that each went
+through its kernels (the launch counts are set to 0 before each path and
+read after it):
   - serving: FlowNet-C at full width through `InferenceEngine` (the
     correlation kernel);
-  - training: FlowNet-S at full width, 384x512, batch 4, through
-    `Trainer` on `SyntheticData` (the warp and its flow gradient, one
-    launch each for the six levels of the pyramid loss per step).
+  - training: FlowNet-S at full width, 384x512, batch 4, f32: steps of
+    `Trainer.train_step` on batches drawn in sequence (phase `train`,
+    the warp and its flow gradient, one launch each per step), then the
+    command line (`deepof_tpu_torch.cli.main`, the same configuration):
+    `train` for 12 steps with evals and checkpoints at 6 and 12
+    (`cli_train`), its resume to 16 (`cli_resume`), `Trainer.fit` under
+    torch.profiler (`fit_profile`), `train` on a FlyingChairs tree of 12
+    PPM/.flo pairs (`cli_flyingchairs`), and `eval` and `predict` on the
+    `cli_train` run (`cli_eval_predict`). Runs live in a temporary
+    directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
 {...}}. Any failure exits non-zero with no such line; so does a host
@@ -20,14 +28,21 @@ without a GPU.
 One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; cs.check_warp_levels()"
     python3 -c "import chip_smoke as cs; cs.step_kernels()"
+    python3 -c "import chip_smoke as cs; cs.fit_variants()"
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -675,12 +690,50 @@ def plain_warp_loss_and_grads(model, batch, mean, loss_cfg):
         pyramid.backward_warp_levels = kernel_warp
 
 
+def draw_batches(trainer, n: int):
+    """The host batches of the next n steps from the trainer's step, drawn
+    from the stream `Trainer.fit` draws (batch i of a fit from step s:
+    derive_batch_rng(data_stream_seed(seed, s), i)), without its healer,
+    pipeline or prefetcher, with the seconds each draw took."""
+    import numpy as np
+
+    from deepof_tpu_torch.data.pipeline import derive_batch_rng
+    from deepof_tpu_torch.train import loop
+
+    step = int(trainer.state.step)
+    if hasattr(loop, "data_stream_seed"):
+        seed = loop.data_stream_seed(trainer.cfg.train.seed, step)
+    else:  # a checkout from before the command line
+        seed = np.array([trainer.cfg.train.seed, step], np.uint32)
+    for i in range(n):
+        t0 = time.perf_counter()
+        batch = trainer.dataset.sample_train(trainer.cfg.data.batch_size,
+                                             rng=derive_batch_rng(seed, i))
+        yield batch, time.perf_counter() - t0
+
+
+def steps_in_sequence(trainer, n: int) -> list[dict]:
+    """n train steps, each on a batch drawn just before it and copied to
+    the card inside the step (no prefetcher): each step's metrics, with
+    the draw (`data_ms`) and the step, copy and metric read-back included
+    (`step_ms`), on the host clock."""
+    trainer.model.train()
+    out = []
+    for batch, data_s in draw_batches(trainer, n):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(trainer.state, batch)
+        metrics["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        metrics["data_ms"] = 1e3 * data_s
+        out.append(metrics)
+    return out
+
+
 def train(cfg):
-    """Full-width FlowNet-S training through Trainer on the card: one
-    warm-up step, TRAIN_STEPS counted and timed steps, then one step's
-    loss and gradients with the warp kernels against the plain warp. The
-    loss warps its six levels in one launch per direction, so each kernel
-    launches once a step."""
+    """Full-width FlowNet-S training steps on the card, batches drawn in
+    sequence: one warm-up step, TRAIN_STEPS counted and timed steps, then
+    one step's loss and gradients with the warp kernels against the plain
+    warp. The loss warps its six levels in one launch per direction, so
+    each kernel launches once a step."""
     import numpy as np
     import torch
 
@@ -689,16 +742,17 @@ def train(cfg):
     from deepof_tpu_torch.train.step import batch_to_device
 
     trainer = Trainer(cfg, device="cuda")
-    trainer.fit(1)  # cuDNN algorithm choice, allocator, kernel load
+    steps_in_sequence(trainer, 1)  # cuDNN algorithm choice, allocator
     cw.fwd_launches.reset()
     cw.grad_launches.reset()
-    steps = trainer.fit(TRAIN_STEPS)
+    steps = steps_in_sequence(trainer, TRAIN_STEPS)
     launches = (cw.fwd_launches.count, cw.grad_launches.count)
     levels = len(steps[0]["scale_total"])
 
     # the same weights and batch through the plain warp; cuDNN's
     # weight-gradient algorithms use atomics unless deterministic
-    batch = batch_to_device(next(trainer.batches(1))[0], trainer.device)
+    batch = batch_to_device(next(draw_batches(trainer, 1))[0],
+                            trainer.device)
     torch.backends.cudnn.deterministic = True
     try:
         lk, gk = loss_and_grads(trainer.model, batch, trainer.dataset.mean,
@@ -754,7 +808,7 @@ def profile_steps(trainer, iters: int):
     from deepof_tpu_torch.train.step import batch_to_device
 
     batches = [batch_to_device(b, trainer.device)
-               for b, _ in trainer.batches(iters)]
+               for b, _ in draw_batches(trainer, iters)]
     step = trainer.train_step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -783,17 +837,24 @@ def step_kernels(repo: str | None = None, iters: int = 3) -> dict:
 
     if repo is not None:
         sys.path.insert(0, repo)
-    from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              TrainConfig)
     from deepof_tpu_torch.train.loop import Trainer
 
     # full float32, as `main` runs the train phase
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    trainer = Trainer(ExperimentConfig(data=DataConfig(dataset="synthetic")),
-                      device="cuda")
-    trainer.fit(1)
-    step_ms, prof = profile_steps(trainer, iters)
+    with tempfile.TemporaryDirectory(dir=work_root()) as log_dir:
+        # a checkout from before the training log has no train.log_dir
+        train_cfg = (TrainConfig(log_dir=log_dir) if "log_dir" in {
+            f.name for f in dataclasses.fields(TrainConfig)}
+            else TrainConfig())
+        trainer = Trainer(ExperimentConfig(
+            data=DataConfig(dataset="synthetic"), train=train_cfg),
+            device="cuda")
+        steps_in_sequence(trainer, 1)
+        step_ms, prof = profile_steps(trainer, iters)
     counts = device_kernel_counts(prof)
     row = {"repo": repo or ".", "step_ms": step_ms,
            "device_busy_ms": sum(t for t, _ in device_kernels(prof, iters)),
@@ -830,6 +891,445 @@ def train_profile(trainer, iters: int = 3) -> None:
         raise AssertionError(f"the warp's autograd ops made copies: {copies}")
 
 
+def work_root() -> str:
+    """`build/` of this checkout (ignored by git): where the runs of the
+    training phases write their logs and checkpoints."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+# the full-width training configuration of the command-line phases
+# (FlowNet-S, 384x512, batch 4, f32; the flyingchairs preset's model is
+# not ported, so --model flownet_s)
+CLI_TRAIN = ["--model", "flownet_s", "--set", "data.dataset=synthetic",
+             "--set", "data.image_size=[384,512]",
+             "--set", "data.gt_size=[384,512]",
+             "--set", "train.log_every=2", "--set", "train.eval_every=6",
+             "--set", "train.ckpt_every_steps=6",
+             "--set", "train.eval_batch_size=4"]
+CLI_STEPS, RESUME_STEPS = 12, 4
+# a resumed run's logged loss vs the replay of its checkpoint and stream
+# outside the loop: cuDNN's weight gradients sum in another order in each
+# run, and the photometric loss's gradient amplifies that from update to
+# update (6e-6 after 2 steps, 1.4e-4 after 4 on the H100); a batch of
+# another stream moves the loss by percents
+RESUME_RTOL = 1e-3
+FIT_PROFILE_STEPS = 6
+# FlyingChairs fixture: pairs, train/val split, and the SyntheticData
+# validation split the synthetic runs evaluate on
+CHAIRS_PAIRS, CHAIRS_VAL = 12, 4
+SYNTHETIC_VAL = 16
+
+
+def run_cli(argv: list[str], log_path: str) -> dict:
+    """`deepof_tpu_torch.cli.main(argv)` with its standard output (one
+    line per metrics record) sent to `log_path`; its last line, the JSON
+    summary, parsed."""
+    from deepof_tpu_torch import cli
+
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    with open(log_path) as f:
+        return json.loads(f.read().strip().splitlines()[-1])
+
+
+def read_records(log_dir: str) -> list[dict]:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def eval_calls(num_val: int, bs: int) -> int:
+    """Batched forwards of one `evaluate_aee` sweep: the full batches, and
+    valid / gcd(valid, bs) tiles for a short last one."""
+    full, valid = divmod(num_val, bs)
+    return full + (valid // math.gcd(valid, bs) if valid else 0)
+
+
+def warp_counts() -> tuple[int, int]:
+    from deepof_tpu_torch.ops.cuda import warp as cw
+
+    return cw.fwd_launches.count, cw.grad_launches.count
+
+
+def reset_warp_counts() -> None:
+    from deepof_tpu_torch.ops.cuda import warp as cw
+
+    cw.fwd_launches.reset()
+    cw.grad_launches.reset()
+
+
+def fit_row(summary: dict, batch: int) -> dict:
+    """The loop's own numbers of one fit, from its summary: the median
+    host-clock step over its timed steps (eval and checkpoint saves
+    left out) and pairs/s from it, the main thread's median time in the
+    train-step call, the producer's draw and staging time per batch, the
+    wait for a staged batch, starved steps, the staging queue's peak, and
+    the checkpoint saves' seconds."""
+    step_ms = summary["step_ms_median"]
+    return {"step_ms_median": step_ms,
+            "pairs_per_s": batch / (step_ms / 1e3),
+            "pairs_per_s_cumulative": summary["items_per_sec_per_chip"],
+            "step_call_ms_median": summary["phase_dispatch_ms_median"],
+            "draw_ms": 1e3 * summary["data_assemble_s_mean"],
+            "put_ms_median": summary.get("phase_put_ms_median", 0.0),
+            "input_wait_ms_median": summary["phase_assemble_ms_median"],
+            "input_wait_s_total": summary["phase_assemble_s"],
+            "starved_steps": summary.get("starved", 0),
+            "max_staged_depth": summary["data_max_staged_depth"],
+            "ckpt_saves": summary["ckpt_saves"],
+            "ckpt_save_s_total": summary["ckpt_save_s_total"],
+            "ckpt_save_s_max": summary["ckpt_save_s_max"]}
+
+
+def check_run(log_dir: str, train_steps: list[int], eval_steps: list[int],
+              ckpt_steps: list[int]) -> list[dict]:
+    """The records and checkpoints of a command-line run: train records at
+    `train_steps` and eval records at `eval_steps`, all finite, and the
+    checkpoints at `ckpt_steps` verified against their manifests."""
+    import numpy as np
+
+    from deepof_tpu_torch.resilience.verify import verify_run
+
+    records = read_records(log_dir)
+    train = [r for r in records if r["kind"] == "train"]
+    evals = [r for r in records if r["kind"] == "eval"]
+    got = ([r["step"] for r in train], [r["step"] for r in evals])
+    if got != (train_steps, eval_steps):
+        raise AssertionError(f"train/eval records at steps {got}; want "
+                             f"{(train_steps, eval_steps)}")
+    values = ([r["loss"] for r in train] + [r["grad_norm"] for r in train]
+              + [r[k] for r in evals for k in ("aee", "aae", "val_loss")])
+    if not all(v is not None and np.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite losses or eval metrics: {values}")
+    report = verify_run(log_dir)
+    if not (report["ok"] and set(ckpt_steps) <= set(report["valid_steps"])):
+        raise AssertionError(f"checkpoints at {ckpt_steps} do not all "
+                             f"verify: {report}")
+    return records
+
+
+def cli_train(work: str) -> dict:
+    """`train` on the command line at full width: 12 steps, a train record
+    every 2, evals and checkpoints at 6 and 12. Each warp kernel launches
+    once per train step, and the forward once more per eval forward."""
+    log_dir = os.path.join(work, "cli_train")
+    reset_warp_counts()
+    summary = run_cli(["train", *CLI_TRAIN, "--steps", str(CLI_STEPS),
+                       "--log-dir", log_dir],
+                      os.path.join(work, "cli_train.log"))
+    launches = warp_counts()
+    records = check_run(log_dir, list(range(2, CLI_STEPS + 1, 2)), [6, 12],
+                        [6, 12])
+    evals = 2 * eval_calls(SYNTHETIC_VAL, 4)
+    row = {"steps": CLI_STEPS, **fit_row(summary, 4),
+           "warp_fwd_launches": launches[0],
+           "warp_flow_grad_launches": launches[1], "eval_forwards": evals,
+           "losses": [r["loss"] for r in records if r["kind"] == "train"],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"]}
+    emit("cli_train", **row)
+    if launches != (CLI_STEPS + evals, CLI_STEPS):
+        raise AssertionError(f"cli train: warp kernels launched {launches} "
+                             f"times in {CLI_STEPS} steps and {evals} eval "
+                             f"forwards; want {(CLI_STEPS + evals, CLI_STEPS)}")
+    return row
+
+
+def replay_resume(log_dir: str, steps: int) -> list[float]:
+    """The losses of the first `steps` steps a resume of the run in
+    `log_dir` should take: its newest checkpoint restored into a trainer
+    of the configuration `config` resolves for `CLI_TRAIN`, then
+    `train_step` on the batches of the resumed stream (`draw_batches`),
+    outside the loop."""
+    import io
+
+    from deepof_tpu_torch import cli
+    from deepof_tpu_torch.core.config import config_from_dict
+    from deepof_tpu_torch.train.checkpoint import CheckpointManager
+    from deepof_tpu_torch.train.loop import Trainer
+
+    with tempfile.TemporaryDirectory(dir=work_root()) as scratch:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["config", *CLI_TRAIN, "--log-dir", scratch])
+        trainer = Trainer(config_from_dict(json.loads(out.getvalue())),
+                          device="cuda")
+        if CheckpointManager(os.path.join(log_dir, "ckpt"), create=False
+                             ).restore(trainer.state) is None:
+            raise AssertionError(f"no checkpoint restores from {log_dir}")
+        trainer.model.train()
+        return [trainer.train_step(trainer.state, b)["total"]
+                for b, _ in draw_batches(trainer, steps)]
+
+
+def cli_resume(work: str) -> dict:
+    """The `cli_train` command again with --steps 4: it resumes from the
+    step-12 checkpoint and ends at 16 (an epoch end: a train record and
+    an eval). Its logged losses at steps 14 and 16 must be those of the
+    step-12 checkpoint stepped on derive_batch_rng(data_stream_seed(0,
+    12), i) outside the loop (`replay_resume`), to RESUME_RTOL."""
+    import numpy as np
+
+    log_dir = os.path.join(work, "cli_train")
+    want = replay_resume(log_dir, RESUME_STEPS)
+    reset_warp_counts()
+    summary = run_cli(["train", *CLI_TRAIN, "--steps", str(RESUME_STEPS),
+                       "--log-dir", log_dir],
+                      os.path.join(work, "cli_resume.log"))
+    launches = warp_counts()
+    end = CLI_STEPS + RESUME_STEPS
+    # step 16 also ends the first epoch (64 synthetic pairs / batch 4):
+    # a train record and an eval there
+    records = check_run(log_dir, list(range(2, end + 1, 2)), [6, 12, end],
+                        [CLI_STEPS, end])
+    resumed = [r for r in records if r["kind"] == "info"
+               and r["message"] == f"resumed from step {CLI_STEPS}"]
+    logged = {r["step"]: r["loss"] for r in records if r["kind"] == "train"
+              and r["step"] > CLI_STEPS}
+    replayed = {CLI_STEPS + 1 + i: v for i, v in enumerate(want)
+                if CLI_STEPS + 1 + i in logged}
+    rel = {s: abs(logged[s] - v) / abs(v) for s, v in replayed.items()}
+    row = {"resumed_from": CLI_STEPS if resumed else None, "end_step": end,
+           **fit_row(summary, 4), "warp_fwd_launches": launches[0],
+           "warp_flow_grad_launches": launches[1],
+           "logged_losses": logged, "replayed_losses": replayed,
+           "replay_loss_rel": rel}
+    emit("cli_resume", **row)
+    if not (resumed and len(rel) == RESUME_STEPS // 2
+            and all(np.isfinite(v) and v <= RESUME_RTOL
+                    for v in rel.values())):
+        raise AssertionError(f"resume: 'resumed from step {CLI_STEPS}' "
+                             f"logged {bool(resumed)}; logged losses "
+                             f"{logged} vs the replay of the resumed stream "
+                             f"{replayed} (limit rel {RESUME_RTOL})")
+    want = (RESUME_STEPS + eval_calls(SYNTHETIC_VAL, 4), RESUME_STEPS)
+    if launches != want:
+        raise AssertionError(f"resume: warp kernels launched {launches} "
+                             f"times; want {want}")
+    return row
+
+
+def fit_profile(work: str) -> dict:
+    """Where a step of `Trainer.fit` goes, prefetcher on (default depth 2):
+    FIT_PROFILE_STEPS steps under torch.profiler, started and stopped
+    between the loop's own steps (after 2 warm steps; the trainer's
+    `train_step` is wrapped to do so), against the host clock of the same
+    steps; then `train_profile`'s step on a batch already on the card, on
+    the same trainer. Device busy counts the compute stream's work; the
+    prefetcher's host-to-device copies run on their own stream and are
+    given apart."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from deepof_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(fit_profile_cfg(work), device="cuda")
+    prof = torch_profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+    start, stop = 2, 2 + FIT_PROFILE_STEPS
+    window = {"calls": 0}
+    step = trainer.train_step
+
+    def windowed_step(state, batch):
+        metrics = step(state, batch)
+        window["calls"] += 1
+        if window["calls"] == start:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif window["calls"] == stop:
+            torch.cuda.synchronize()
+            window["s"] = time.perf_counter() - window["t0"]
+            prof.stop()
+        return metrics
+
+    trainer.train_step = windowed_step
+    try:
+        summary = trainer.fit(max_steps=stop + 1)
+    finally:
+        trainer.train_step = step
+    rows = list(_device_rows(prof))
+    h2d = sum(dev for dev, e in rows if "HtoD" in e.key) / 1e3
+    busy = sum(dev for dev, e in rows if "HtoD" not in e.key) / 1e3
+    step_ms = 1e3 * window["s"] / FIT_PROFILE_STEPS
+    busy_per_step = busy / FIT_PROFILE_STEPS
+    on_card_ms, card_prof = profile_steps(trainer, 3)
+    on_card_busy = sum(t for t, _ in device_kernels(card_prof, 3))
+    row = {"steps": FIT_PROFILE_STEPS,
+           "prefetch_depth": trainer.cfg.data.prefetch,
+           "num_workers": trainer.cfg.data.num_workers,
+           "step_ms": step_ms, "pairs_per_s": 4 / (step_ms / 1e3),
+           "device_time_visible": busy > 0,
+           "device_busy_ms_per_step": busy_per_step,
+           "idle_share_of_step": 1 - busy_per_step / step_ms,
+           "h2d_copy_ms_per_step": h2d / FIT_PROFILE_STEPS,
+           "fit": fit_row(summary, 4),
+           "on_card_batch": {"step_ms": on_card_ms,
+                             "device_busy_ms": on_card_busy,
+                             "idle_share_of_step": 1 - on_card_busy
+                             / on_card_ms}}
+    emit("fit_profile", **row)
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time in fit")
+    return row
+
+
+def fit_profile_cfg(work: str):
+    """`fit_profile`'s configuration: the full-width training default, no
+    eval, no train record before the end."""
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              TrainConfig)
+
+    return ExperimentConfig(
+        data=DataConfig(dataset="synthetic"),
+        train=TrainConfig(log_dir=os.path.join(work, "fit_profile"),
+                          log_every=1000, eval_every=0, nan_guard=False))
+
+
+def fit_variants(steps: int = 2 + FIT_PROFILE_STEPS + 1) -> dict:
+    """`fit_profile`'s fit (profiler off) as it is and in three variants,
+    each with `fit_row`'s numbers: the interpreter's thread switch
+    interval cut from 5 ms to 0.2 ms (if the producer and the main thread
+    hand the GIL over between bytecodes, each waits less for it), two
+    pipeline worker threads drawing, and PyTorch's CPU ops on one thread
+    (the draw's resizes otherwise use every core beside the main thread).
+    On demand, on the card:
+
+        python3 -c "import chip_smoke as cs; cs.fit_variants()"
+    """
+    import torch
+
+    from deepof_tpu_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    interval, threads = sys.getswitchinterval(), torch.get_num_threads()
+    rows = {}
+    with tempfile.TemporaryDirectory(dir=work_root()) as work:
+        cfg = fit_profile_cfg(work)
+        trainer = Trainer(cfg, device="cuda")
+        for name, workers, switch, n_threads in (
+                ("default", 0, interval, threads),
+                ("switch_interval_0.2ms", 0, 2e-4, threads),
+                ("num_workers_2", 2, interval, threads),
+                ("torch_threads_1", 0, interval, 1)):
+            trainer.cfg = cfg.replace(data=dataclasses.replace(
+                cfg.data, num_workers=workers))
+            sys.setswitchinterval(switch)
+            torch.set_num_threads(n_threads)
+            try:
+                rows[name] = fit_row(trainer.fit(max_steps=steps), 4)
+            finally:
+                sys.setswitchinterval(interval)
+                torch.set_num_threads(threads)
+                trainer.cfg = cfg
+    emit("fit_variants", **rows)
+    return rows
+
+
+def write_chairs(root: str, seed: int = 0) -> None:
+    """CHAIRS_PAIRS FlyingChairs pairs in the dataset's layout: 384x512
+    binary PPM frames (the second a shifted copy of a smooth first) and
+    their .flo flows, with a split file marking the last CHAIRS_VAL val."""
+    import numpy as np
+
+    from deepof_tpu_torch.io.flo import write_flo
+    from deepof_tpu_torch.io.ppm import write_ppm_bgr
+
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:384, 0:512].astype(np.float32)
+    for i in range(1, CHAIRS_PAIRS + 1):
+        sid = os.path.join(root, f"{i:05d}")
+        fy, fx, ph = rs.rand(3) * [0.05, 0.05, 6.28]
+        img = 127 + 100 * np.sin(fy * yy + fx * xx + ph)[..., None] * \
+            rs.rand(3)
+        u, v = rs.randint(-4, 5, 2)
+        write_ppm_bgr(sid + "_img1.ppm", img.astype(np.uint8))
+        write_ppm_bgr(sid + "_img2.ppm",
+                      np.roll(img, (v, u), (0, 1)).astype(np.uint8))
+        write_flo(sid + "_flow.flo", np.broadcast_to(
+            np.asarray([u, v], np.float32), (384, 512, 2)))
+    with open(os.path.join(root, "FlyingChairs_train_val.txt"), "w") as f:
+        f.write("\n".join(["1"] * (CHAIRS_PAIRS - CHAIRS_VAL)
+                          + ["2"] * CHAIRS_VAL) + "\n")
+
+
+def cli_flyingchairs(work: str) -> dict:
+    """`train --preset flyingchairs` on a FlyingChairs tree, 4 steps at
+    384x512: two epochs of 2 steps, so a train and an eval record at
+    each epoch end, and the warp kernels once per step (the forward once
+    more per eval forward)."""
+    data_dir = os.path.join(work, "chairs")
+    log_dir = os.path.join(work, "cli_flyingchairs")
+    write_chairs(data_dir)
+    reset_warp_counts()
+    summary = run_cli(["train", "--preset", "flyingchairs", "--model",
+                       "flownet_s", "--data-path", data_dir,
+                       "--set", "data.image_size=[384,512]",
+                       "--steps", "4", "--set", "train.eval_every=4",
+                       "--log-dir", log_dir],
+                      os.path.join(work, "cli_flyingchairs.log"))
+    launches = warp_counts()
+    records = check_run(log_dir, [2, 4], [2, 4], [4])
+    evals = 2 * eval_calls(CHAIRS_VAL, 8)
+    row = {"pairs": CHAIRS_PAIRS, "val": CHAIRS_VAL,
+           **fit_row(summary, 4), "warp_fwd_launches": launches[0],
+           "warp_flow_grad_launches": launches[1],
+           "decode_cache_misses": [r["decode_cache_misses"] for r in records
+                                   if r["kind"] == "train"][-1],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"]}
+    emit("cli_flyingchairs", **row)
+    if launches != (4 + evals, 4):
+        raise AssertionError(f"flyingchairs: warp kernels launched "
+                             f"{launches} times; want {(4 + evals, 4)}")
+    return row
+
+
+def cli_eval_predict(work: str) -> dict:
+    """`eval` on the `cli_train` run (its newest checkpoint, step 16):
+    finite aee, aae and val_loss, the warp forward once per eval forward;
+    then `predict` on 2 .npy pairs at 384x512: 2 .flo files of that size."""
+    import numpy as np
+
+    from deepof_tpu_torch.io.flo import read_flo
+
+    log_dir = os.path.join(work, "cli_train")
+    reset_warp_counts()
+    ev = run_cli(["eval", *CLI_TRAIN, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval.log"))
+    launches = warp_counts()
+    rs = np.random.RandomState(1)
+    pairs = []
+    for i in range(2):
+        paths = [os.path.join(work, f"pair{i}_{k}.npy") for k in "ab"]
+        for p in paths:
+            np.save(p, rs.randint(0, 256, (384, 512, 3), np.uint8))
+        pairs.append(":".join(paths))
+    out = run_cli(["predict", *CLI_TRAIN, "--log-dir", log_dir, "--out",
+                   os.path.join(work, "flows"), "--pairs", *pairs],
+                  os.path.join(work, "cli_predict.log"))
+    flows = [read_flo(p) for p in out["written"]]
+    row = {"eval": {k: ev[k] for k in ("aee", "aae", "val_loss")},
+           "eval_warp_fwd_launches": launches[0],
+           "predicted": [list(f.shape) for f in flows],
+           "predicted_abs_max": [float(np.abs(f).max()) for f in flows]}
+    emit("cli_eval_predict", **row)
+    if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
+        raise AssertionError(f"eval: non-finite metrics {ev}")
+    if launches[0] != eval_calls(SYNTHETIC_VAL, 4):
+        raise AssertionError(f"eval: warp forward launched {launches[0]} "
+                             "times")
+    if [f.shape for f in flows] != [(384, 512, 2)] * 2 or not all(
+            np.isfinite(f).all() for f in flows):
+        raise AssertionError(f"predict wrote {[f.shape for f in flows]}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -837,7 +1337,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              TrainConfig)
     from deepof_tpu_torch.ops.cuda import build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -876,9 +1377,27 @@ def main() -> int:
     fused = check_warp_levels()
 
     serve_row, corr_launches = serve(cfg)
-    train_row = train(ExperimentConfig(data=DataConfig(dataset="synthetic")))
+    work = tempfile.mkdtemp(prefix="chip_smoke-", dir=work_root())
+    try:
+        train_row = train(ExperimentConfig(
+            data=DataConfig(dataset="synthetic"),
+            train=TrainConfig(log_dir=os.path.join(work, "train"))))
+        cli_row = cli_train(work)
+        resume_row = cli_resume(work)
+        fit_profile(work)
+        chairs_row = cli_flyingchairs(work)
+        eval_row = cli_eval_predict(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # launches of each warp kernel on each training path, counted from 0
+    # just before it; the final line's `launches` are the command line's
+    paths = {"train": train_row, "cli_train": cli_row,
+             "cli_resume": resume_row, "cli_flyingchairs": chairs_row}
+    by_path = {key: {p: r[f"warp_{key}_launches"] for p, r in paths.items()}
+               for key in ("fwd", "flow_grad")}
+    by_path["fwd"]["cli_eval"] = eval_row["eval_warp_fwd_launches"]
 
-    def warp_entry(name, key, launches):
+    def warp_entry(name, key):
         # the one launch over the six main-path levels, with the one-level
         # launches of each level beside it
         rows = [r[key] for r in warp_rows]
@@ -886,8 +1405,10 @@ def main() -> int:
         return {
             "name": name, "route": "cuda",
             "source": "deepof_tpu_torch/csrc/warp.cu",
-            "replaces": replaces[name], "launches": launches,
-            "launches_per_step": launches / TRAIN_STEPS,
+            "replaces": replaces[name],
+            "launches": by_path[key]["cli_train"],
+            "launches_by_path": by_path[key],
+            "launches_per_step": by_path[key]["train"] / TRAIN_STEPS,
             "max_abs_err": one["max_abs_err"],
             "ms": one["ms"], "ms_runs": one["ms_runs"],
             "plain_ms": one["plain_ms"],
@@ -922,9 +1443,8 @@ def main() -> int:
         "library_ms": None,
         "library_note": "no single PyTorch call computes a correlation "
                         "cost volume"},
-        warp_entry("warp_fwd", "fwd", train_row["warp_fwd_launches"]),
-        warp_entry("warp_flow_grad", "flow_grad",
-                   train_row["warp_flow_grad_launches"])]}), flush=True)
+        warp_entry("warp_fwd", "fwd"),
+        warp_entry("warp_flow_grad", "flow_grad")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,182 @@
+"""Command-line entry point (port of the `train`, `eval`, `predict` and
+`config` verbs of `deepof_tpu/cli.py`).
+
+Usage:
+    python -m deepof_tpu_torch train --preset flyingchairs --model flownet_s \
+        --data-path /data/fc --log-dir /runs/fc1
+    python -m deepof_tpu_torch eval --model flownet_s --data-path /data/fc \
+        --log-dir /runs/fc1                       # newest checkpoint
+    python -m deepof_tpu_torch predict --model flownet_s --log-dir /runs/fc1 \
+        --pairs a.ppm:b.ppm --out /tmp/flows
+    python -m deepof_tpu_torch config --preset sintel
+
+The flags mean what they mean in the JAX package: `--preset`, `--model`,
+`--data-path`, `--log-dir`, `--set section.field=value` (any config
+field), `--synthetic` (the synthetic dataset at 64x64, batch 8),
+`--epochs`, `--max-steps`/`--steps`, `--pairs prev:next`, `--out`. A
+train run in a log dir that holds checkpoints resumes from the newest
+one. `--device {cuda,cpu}` (default cuda) is this package's own; it
+takes the place of JAX_PLATFORMS. Without a card, cuda raises: nothing
+falls back to the CPU. The JAX package's other flags raise, naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import dataclasses
+import json
+
+from .core.config import (PRESETS, ExperimentConfig, get_config,
+                          raise_unported)
+
+#: The JAX package's flags this package does not take yet -> the ROADMAP
+#: Queue A item that ports them.
+_UNPORTED_FLAGS = {
+    "--recipe": "9 (recipes)",
+    "--elastic": "10 (elastic training)",
+    "--multihost": "10 (parallelism)",
+    "--profile": "11 (observability tail)",
+    "--profile-steps": "11 (observability tail)",
+    "--trace": "11 (observability tail)",
+    "--dump-visuals": "6 (visuals need a PNG writer)",
+}
+
+
+def _add_unported(p: argparse.ArgumentParser, flag: str,
+                  takes_value: bool = False) -> None:
+    kw = {} if takes_value else {"action": "store_true"}
+    p.add_argument(flag, default=None, **kw,
+                   help=f"not ported (ROADMAP Queue A item "
+                        f"{_UNPORTED_FLAGS[flag]})")
+
+
+def _parse_value(raw: str):
+    if raw.lower() in ("true", "false"):  # accept lowercase bools
+        return raw.lower() == "true"
+    if raw.lower() in ("none", "null"):
+        return None
+    try:
+        return ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+
+
+def _apply_override(cfg: ExperimentConfig, dotted: str,
+                    raw: str) -> ExperimentConfig:
+    """Set a dotted config path (`field`, `section.field` or deeper) on
+    the frozen config tree, returning a new config."""
+    value = _parse_value(raw)
+
+    def rec(node, parts: list[str]):
+        name, rest = parts[0], parts[1:]
+        if not (dataclasses.is_dataclass(node) and hasattr(node, name)):
+            raise SystemExit(f"unknown config field {dotted!r}")
+        new = rec(getattr(node, name), rest) if rest else value
+        return dataclasses.replace(node, **{name: new})
+
+    return rec(cfg, dotted.split("."))
+
+
+def _build_cfg(args) -> ExperimentConfig:
+    cfg = get_config(args.preset)
+    if args.model:
+        cfg = cfg.replace(model=args.model)
+    if args.data_path:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                   data_path=args.data_path))
+    if args.log_dir:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    log_dir=args.log_dir))
+    if args.synthetic:
+        # before --set, so explicit overrides win over the smoke defaults
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, dataset="synthetic", image_size=(64, 64),
+            gt_size=(64, 64), batch_size=8, crop_size=None, time_step=2),
+            train=dataclasses.replace(cfg.train, eval_batch_size=8,
+                                      eval_amplifier=1.0))
+    for item in args.set or []:
+        if "=" not in item:
+            raise SystemExit(f"bad --set {item!r}: use section.field=value")
+        dotted, raw = item.split("=", 1)
+        cfg = _apply_override(cfg, dotted, raw)
+    return cfg
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--preset", default="flyingchairs", choices=sorted(PRESETS))
+    p.add_argument("--model", default=None)
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--set", action="append", metavar="SECTION.FIELD=VALUE")
+    p.add_argument("--synthetic", action="store_true",
+                   help="the synthetic dataset at 64x64, batch 8 (smoke "
+                        "runs; no data on disk)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the model runs (default cuda, which raises "
+                        "without a card)")
+    _add_unported(p, "--multihost")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="deepof_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_train = sub.add_parser("train", help="train a model")
+    _add_common(p_train)
+    p_train.add_argument("--epochs", type=int, default=None)
+    p_train.add_argument("--max-steps", "--steps", dest="max_steps",
+                         type=int, default=None)
+    for flag in ("--recipe", "--elastic", "--profile-steps"):
+        _add_unported(p_train, flag, takes_value=True)
+    for flag in ("--profile", "--trace"):
+        _add_unported(p_train, flag)
+
+    p_eval = sub.add_parser("eval", help="evaluate the newest checkpoint")
+    _add_common(p_eval)
+    _add_unported(p_eval, "--dump-visuals")
+
+    p_pred = sub.add_parser(
+        "predict", help="run the newest checkpoint on image pairs; write "
+                        ".flo files")
+    _add_common(p_pred)
+    p_pred.add_argument("--pairs", nargs="+", required=True,
+                        metavar="PREV:NEXT",
+                        help=".npy or .ppm path pairs, colon-separated")
+    p_pred.add_argument("--out", required=True, help="output directory")
+
+    p_cfg = sub.add_parser("config", help="print the resolved config")
+    _add_common(p_cfg)
+
+    args = parser.parse_args(argv)
+    raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
+                     if getattr(args, flag[2:].replace("-", "_"), None)])
+    cfg = _build_cfg(args)
+    if args.cmd == "config":
+        print(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+        return 0
+
+    if args.cmd == "predict":
+        from .predict import predict_pairs, restore_params
+
+        pairs = []
+        for item in args.pairs:
+            if ":" not in item:
+                raise SystemExit(f"bad --pairs {item!r}: use prev.ppm:next.ppm")
+            pairs.append(tuple(item.split(":", 1)))
+        model = restore_params(cfg, device=args.device)
+        written = predict_pairs(cfg, pairs, args.out, model=model,
+                                device=args.device)
+        print(json.dumps({"written": written}))
+        return 0
+
+    from .train.loop import Trainer
+
+    trainer = Trainer(cfg, device=args.device)
+    if args.cmd == "train":
+        out = trainer.fit(num_epochs=args.epochs, max_steps=args.max_steps)
+    else:  # eval
+        out = trainer.evaluate()
+    print(json.dumps({k: float(v) for k, v in out.items()}))
+    return 0

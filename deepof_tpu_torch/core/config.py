@@ -1,13 +1,16 @@
 """Experiment configuration: the subset of `deepof_tpu/core/config.py`
-that the PyTorch serving and training paths read.
+that the PyTorch serving and training paths read, with its presets.
 
 Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
-Values that change the result and that this package cannot honour yet
-are not ignored: `check_trainable` raises on them, naming the ROADMAP
-item that ports them.
+Those are settings of the mesh, observability, compilation and the
+serving fleet, and of datasets that raise here (Sintel). Settings that
+change what the training path computes are carried, and where this
+package cannot honour a value yet, `check_trainable` raises on it,
+naming the ROADMAP item that ports it (`train.vgg16_npz`, `recipe`,
+`resilience.faults` among them).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ class OptimConfig:
 @dataclass(frozen=True)
 class DataConfig:
     dataset: str = "flyingchairs"  # flyingchairs | sintel | ucf101 | synthetic
+    data_path: str = ""
     image_size: tuple[int, int] = (384, 512)  # (H, W) network input
     gt_size: tuple[int, int] = (384, 512)  # native ground-truth resolution
     batch_size: int = 4
@@ -74,17 +78,43 @@ class DataConfig:
     augment_geo: bool = False
     augment_photo: bool = False
     crop_size: tuple[int, int] | None = None
+    # batches staged on the device ahead of the step (data/prefetch.py)
+    prefetch: int = 2
+    # input-pipeline worker threads (data/pipeline.py); 0 = draw inline
+    # on the prefetch thread, -1 = auto. The stream is bit-identical for
+    # any value.
+    num_workers: int = 0
+    # batches the workers may run ahead of delivery; 0 = 2 x num_workers
+    reorder_depth: int = 0
+    # byte-bounded LRU of decoded native-resolution images
+    cache_decoded: bool = True
+    cache_bytes: int = 4 << 30
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     num_epochs: int = 110
+    log_every: int = 500
+    eval_every: int = 5000  # steps; 0 = only at epoch end
+    ckpt_every_epochs: int = 18
+    ckpt_every_steps: int = 0  # 0 = epoch cadence only
+    keep_ckpts: int = 3
     seed: int = 0
-    compute_dtype: str = "float32"  # float32 | bfloat16 (not ported)
+    log_dir: str = "/tmp/deepof_tpu"
     # eval protocol: finest flow is multiplied by `eval_amplifier`,
     # clipped to `eval_clip`, and resized to the native resolution
     eval_amplifier: float = 2.0
     eval_clip: tuple[float, float] = (-300.0, 250.0)
+    eval_batch_size: int = 8
+    # roll back to the last checkpoint on divergence; never save a
+    # non-finite state
+    nan_guard: bool = True
+    dump_visuals: bool = False  # needs a PNG writer (not ported)
+    # another run's log_dir: on a fresh start, copy its parameters of
+    # matching name and shape
+    init_from: str = ""
+    vgg16_npz: str = ""  # VGG16 trunk init (not ported)
+    compute_dtype: str = "float32"  # float32 | bfloat16 (not ported)
 
 
 @dataclass(frozen=True)
@@ -103,10 +133,64 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class FaultConfig:
+    """The fault-injection schedule of the JAX package
+    (`deepof_tpu/resilience/faults.py::FaultConfig`), carried so that a
+    schedule is refused (`check_trainable`) and not dropped."""
+
+    enabled: bool = False
+    seed: int = 0
+    decode_p: float = 0.0
+    decode_at: tuple[int, ...] = ()
+    assemble_p: float = 0.0
+    assemble_at: tuple[int, ...] = ()
+    fetch_p: float = 0.0
+    fetch_at: tuple[int, ...] = ()
+    ckpt_save_at: tuple[int, ...] = ()
+    ckpt_restore_at: tuple[int, ...] = ()
+    dispatch_at: tuple[int, ...] = ()
+    ckpt_truncate_at: tuple[int, ...] = ()
+    ckpt_corrupt_at: tuple[int, ...] = ()
+    replica_crash_at: tuple[int, ...] = ()
+    replica_wedge_at: tuple[int, ...] = ()
+    replica_degrade_at: tuple[int, ...] = ()
+    replica_fault_after: int = 8
+    host_loss_at: tuple[int, ...] = ()
+    host_wedge_at: tuple[int, ...] = ()
+    preempt_notice_at: tuple[int, ...] = ()
+    host_fault_step: int = 0
+    fail_attempts: int = 1
+
+
+@dataclass(frozen=True)
 class ResilienceConfig:
+    # bounded retries per sample draw, then quarantine and a
+    # deterministic substitute (resilience/healing.py)
+    data_retries: int = 2
+    data_backoff_s: float = 0.05
+    data_substitutes: int = 3
+    # re-attempts of a failed batch assembly on a pipeline worker
+    pipeline_retries: int = 1
     # skip an update whose loss or gradient norm is not finite: the
     # parameters, the Adam moments and the step stay as they were
     skip_nonfinite: bool = True
+    # roll back to the last checkpoint after this many skips in a row
+    max_consecutive_skips: int = 5
+    # check each checkpoint against its manifest on restore, and fall
+    # back to the newest one that verifies
+    verify_checkpoints: bool = True
+    faults: FaultConfig = field(default_factory=FaultConfig)
+
+
+@dataclass(frozen=True)
+class RecipeConfig:
+    """The staged training recipe of the JAX package (`RecipeConfig`, the
+    fields that make a run staged), carried so that a recipe is refused
+    (`check_trainable`) and not dropped; `stages` holds the JAX stage
+    dicts as they are."""
+
+    enabled: bool = False
+    stages: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -123,9 +207,84 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    recipe: RecipeConfig = field(default_factory=RecipeConfig)
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+
+# --- Presets: the JAX package's reference baselines, as they are ---
+
+FLYINGCHAIRS = ExperimentConfig(
+    name="flyingchairs_inception",
+    model="inception_v3",
+    loss=LossConfig(epsilon=1e-4, alpha_c=0.25, alpha_s=0.37,
+                    lambda_smooth=1.0, weights=(16, 8, 4, 2, 1, 1)),
+    optim=OptimConfig(learning_rate=1.6e-5, epochs_per_decay=18),
+    data=DataConfig(dataset="flyingchairs", image_size=(320, 448),
+                    gt_size=(384, 512), batch_size=4),
+    train=TrainConfig(num_epochs=110, ckpt_every_epochs=18,
+                      eval_amplifier=2.0, eval_clip=(-300.0, 250.0)),
+)
+
+FLYINGCHAIRS_VGG = ExperimentConfig(
+    name="flyingchairs_vgg",
+    model="vgg16",
+    loss=LossConfig(epsilon=1e-4, alpha_c=0.25, alpha_s=0.37,
+                    lambda_smooth=1.0, weights=(16, 8, 4, 2, 1),
+                    smoothness="depthwise"),
+    optim=OptimConfig(learning_rate=1.6e-5, epochs_per_decay=18),
+    data=DataConfig(dataset="flyingchairs", image_size=(320, 448),
+                    gt_size=(384, 512), batch_size=8,
+                    augment_geo=True, augment_photo=True),
+    train=TrainConfig(num_epochs=110, eval_amplifier=2.0,
+                      eval_clip=(-204.4790, 201.3478)),
+)
+
+SINTEL = ExperimentConfig(
+    name="sintel_inception_multiframe",
+    model="inception_v3",
+    loss=LossConfig(epsilon=1e-4, alpha_c=0.3, alpha_s=0.3,
+                    lambda_smooth=0.0, weights=(16, 8, 4, 4, 2, 1)),
+    optim=OptimConfig(learning_rate=1.6e-5, epochs_per_decay=60),
+    data=DataConfig(dataset="sintel", image_size=(256, 512),
+                    gt_size=(436, 1024), crop_size=(224, 480), batch_size=4,
+                    time_step=10),
+    train=TrainConfig(num_epochs=400, ckpt_every_epochs=30,
+                      eval_amplifier=3.0, eval_clip=(-420.621, 426.311)),
+)
+
+UCF101 = ExperimentConfig(
+    name="ucf101_st_single",
+    model="st_single",
+    loss=LossConfig(epsilon=1e-4, alpha_c=0.25, alpha_s=0.37,
+                    lambda_smooth=0.8, weights=(16, 8, 4, 2, 1)),
+    optim=OptimConfig(learning_rate=1.6e-4, epochs_per_decay=50),
+    data=DataConfig(dataset="ucf101", image_size=(320, 384),
+                    gt_size=(320, 384), batch_size=8),
+    train=TrainConfig(num_epochs=1000, eval_amplifier=1.0,
+                      eval_clip=(-1e9, 1e9)),
+)
+
+# gen-1 per-model loss-weight alternates, selectable through
+# LossConfig.weights overrides
+GEN1_LOSS_WEIGHTS = {
+    "vgg16": (7.0, 5.0, 3.0, 3.0, 1.0),
+    "flownet_s": (9.0, 7.0, 5.0, 3.0, 3.0, 1.0),
+    "inception_v3": (9.0, 7.0, 5.0, 3.0, 3.0, 1.0),
+}
+
+PRESETS: dict[str, ExperimentConfig] = {
+    "flyingchairs": FLYINGCHAIRS,
+    "flyingchairs_vgg": FLYINGCHAIRS_VGG,
+    "sintel": SINTEL,
+    "ucf101": UCF101,
+}
+
+
+def get_config(name: str, **overrides: Any) -> ExperimentConfig:
+    cfg = PRESETS[name]
+    return cfg.replace(**overrides) if overrides else cfg
 
 
 def _tupleize(value: Any) -> Any:
@@ -167,7 +326,7 @@ def config_from_dict(d: dict) -> ExperimentConfig:
 WARP_IMPLS = ("auto", "xla", "pallas")
 
 
-def _raise_unported(todo: list[tuple[str, str]]) -> None:
+def raise_unported(todo: list[tuple[str, str]]) -> None:
     """todo: (setting, ROADMAP Queue A item that ports it)."""
     if todo:
         raise NotImplementedError(
@@ -190,7 +349,7 @@ def check_loss(cfg: LossConfig) -> None:
     for name in ("edge_aware", "edge_aware_photo", "occlusion"):
         if getattr(cfg, name):
             todo.append((f"loss.{name}=True", "9 (loss variants)"))
-    _raise_unported(todo)
+    raise_unported(todo)
     if cfg.warp_impl not in WARP_IMPLS:
         raise ValueError(f"unknown loss.warp_impl {cfg.warp_impl!r}; "
                          f"one of {WARP_IMPLS}")
@@ -203,9 +362,11 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, on every
     setting that the training path cannot honour yet."""
     todo = []
-    if cfg.model != "flownet_s":
+    if cfg.model in ("flownet_c", "flownet_cs"):
         todo.append((f"model={cfg.model!r}",
                      "7 (FlowNet-C/CS training, the correlation backward)"))
+    elif cfg.model != "flownet_s":
+        todo.append((f"model={cfg.model!r}", "9 (other backbones)"))
     if cfg.train.compute_dtype != "float32":
         todo.append((f"train.compute_dtype={cfg.train.compute_dtype!r}",
                      "8 (bf16 paths)"))
@@ -217,5 +378,14 @@ def check_trainable(cfg: ExperimentConfig) -> None:
                      "9 (multi-frame volume loss)"))
     if cfg.data.augment_geo or cfg.data.augment_photo:
         todo.append(("data.augment_geo/augment_photo", "9 (augmentation)"))
-    _raise_unported(todo)
+    if cfg.train.vgg16_npz:
+        todo.append(("train.vgg16_npz", "9 (other backbones)"))
+    if cfg.recipe != RecipeConfig():
+        todo.append(("recipe", "9 (recipes)"))
+    if cfg.resilience.faults != FaultConfig():
+        todo.append(("resilience.faults", "6 (fault injection)"))
+    if cfg.train.dump_visuals:
+        todo.append(("train.dump_visuals=True",
+                     "6 (visuals need a PNG writer)"))
+    raise_unported(todo)
     check_loss(cfg.loss)

@@ -1,5 +1,5 @@
-"""Dataset constants, the host-side resize and the procedural dataset
-(subset of `deepof_tpu/data/datasets.py`).
+"""Dataset constants, the host-side resize, the FlyingChairs loader and
+the procedural dataset (subset of `deepof_tpu/data/datasets.py`).
 
 The JAX package resizes with cv2's INTER_LINEAR. This package has no
 cv2: `_resize` is PyTorch's bilinear interpolation with half-pixel
@@ -10,17 +10,26 @@ PyTorch's bicubic filter in place of cv2's INTER_CUBIC (the same
 a = -0.75 kernel with half-pixel centres; they agree to ~1e-4 grey
 levels).
 
-Still to port (ROADMAP Queue A item 5): the FlyingChairs, Sintel and
-UCF-101 loaders; `build_dataset` raises for them.
+FlyingChairs frames are binary PPMs, read in numpy (`io/ppm.py`, BGR as
+cv2.imread gives them); flows are `.flo` files (`io/flo.py`). Still to
+port (ROADMAP Queue A item 5): the Sintel and UCF-101 loaders, which
+need a PNG/JPEG decoder; `build_dataset` raises for them.
 """
 
 from __future__ import annotations
+
+import collections
+import os
+import re
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.config import DataConfig
+from ..io.flo import read_flo
+from ..io.ppm import read_ppm_bgr
 
 FLYINGCHAIRS_MEAN = (97.533, 99.238, 97.056)  # BGR
 SINTEL_MEAN = (70.1433, 83.1915, 92.8827)
@@ -54,6 +63,132 @@ def _bicubic(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     out = F.interpolate(t.permute(2, 0, 1)[None], size=tuple(hw),
                         mode="bicubic", align_corners=False)
     return out[0].permute(1, 2, 0).contiguous().numpy()
+
+
+class _DecodedCache:
+    """Byte-bounded LRU of decoded native-resolution images.
+
+    Thread-safe: the input pipeline's workers share one cache. Misses
+    decode outside the lock, so workers never serialize on a decode; two
+    threads missing the same path decode it twice (the same result, the
+    last insert wins, the bytes counted once)."""
+
+    def __init__(self, enabled: bool, reader, max_bytes: int = 4 << 30):
+        self._enabled = enabled
+        self._reader = reader
+        self._max_bytes = max_bytes
+        self._bytes = 0
+        self._store: collections.OrderedDict[str, np.ndarray] = (
+            collections.OrderedDict())
+        self._lock = threading.Lock()
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
+
+    def __call__(self, path: str) -> np.ndarray:
+        if not self._enabled:
+            return self._reader(path)
+        with self._lock:
+            hit = self._store.pop(path, None)
+            if hit is not None:
+                self._hits += 1
+                self._store[path] = hit  # re-insert as most recent
+                return hit
+            self._misses += 1
+        decoded = self._reader(path)  # off-lock: decode is the slow part
+        with self._lock:
+            prev = self._store.pop(path, None)  # racing double-decode
+            if prev is None:
+                self._bytes += decoded.nbytes
+            while self._bytes > self._max_bytes and self._store:
+                _, old = self._store.popitem(last=False)
+                self._bytes -= old.nbytes
+                self._evictions += 1
+            self._store[path] = decoded
+        return decoded
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"hits": self._hits, "misses": self._misses,
+                    "evictions": self._evictions, "bytes": self._bytes,
+                    "entries": len(self._store)}
+
+
+class FlyingChairsData:
+    """FlyingChairs pairs under `cfg.data_path`: `XXXXX_img1.ppm`,
+    `XXXXX_img2.ppm`, `XXXXX_flow.flo`.
+
+    Images are resized to `cfg.image_size`; the ground-truth flow stays
+    at its native resolution. The split is `FlyingChairs_train_val.txt`
+    (one marker per sample, 1 = train, 2 = val) in the data directory or
+    its parent; without it, the last min(640, 10%) samples (at least
+    one) are val. Batches are sequential (`iteration`) or random
+    (`rng`)."""
+
+    mean = FLYINGCHAIRS_MEAN
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        root = cfg.data_path
+        ids = sorted(m.group(1) for f in os.listdir(root)
+                     if (m := re.match(r"(\d+)_img1\.ppm$", f)))
+        if not ids:
+            raise FileNotFoundError(f"no *_img1.ppm under {root}")
+        split_file = os.path.join(root, "FlyingChairs_train_val.txt")
+        if not os.path.exists(split_file):
+            split_file = os.path.join(os.path.dirname(root),
+                                      "FlyingChairs_train_val.txt")
+        if os.path.exists(split_file):
+            markers = np.loadtxt(split_file, dtype=int)[: len(ids)]
+        else:  # no split file: the last 640 (capped at 10%, min 1) are val
+            n_val = min(640, max(1, len(ids) // 10))
+            markers = np.ones(len(ids), dtype=int)
+            markers[-n_val:] = 2
+        self.train_ids = [i for i, m in zip(ids, markers) if m == 1]
+        self.val_ids = [i for i, m in zip(ids, markers) if m == 2]
+        self.num_train, self.num_val = len(self.train_ids), len(self.val_ids)
+        self._root = root
+        self._cache = _DecodedCache(cfg.cache_decoded, read_ppm_bgr,
+                                    max_bytes=cfg.cache_bytes)
+
+    def _load(self, sid: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        p = os.path.join(self._root, sid)
+        src = _resize(self._cache(p + "_img1.ppm"), self.cfg.image_size)
+        tgt = _resize(self._cache(p + "_img2.ppm"), self.cfg.image_size)
+        return src, tgt, read_flo(p + "_flow.flo")
+
+    def _batch(self, sids: list[str]) -> dict:
+        srcs, tgts, flows = zip(*(self._load(s) for s in sids))
+        return {
+            "source": np.stack(srcs).astype(np.float32),
+            "target": np.stack(tgts).astype(np.float32),
+            "flow": np.stack(flows).astype(np.float32),
+        }
+
+    def sample_train(self, batch_size, iteration=None, rng=None):
+        if iteration is not None:  # sequential
+            # wraps like sample_val, so a batch is never short
+            if not self.num_train:
+                raise ValueError(
+                    f"empty FlyingChairs train split under {self._root} "
+                    "(split file marks every pair as val)")
+            start = (iteration * batch_size) % self.num_train
+            sids = [self.train_ids[(start + k) % self.num_train]
+                    for k in range(batch_size)]
+        else:
+            rng = rng or np.random
+            sids = [self.train_ids[i]
+                    for i in rng.randint(0, self.num_train, batch_size)]
+        return self._batch(sids)
+
+    def sample_val(self, batch_size, batch_id):
+        start = (batch_id * batch_size) % max(self.num_val, 1)
+        sids = [self.val_ids[(start + k) % self.num_val]
+                for k in range(batch_size)]
+        return self._batch(sids)
+
+    def cache_stats(self) -> dict:
+        return self._cache.stats()
 
 
 class SyntheticData:
@@ -161,11 +296,14 @@ class SyntheticData:
 
 
 def build_dataset(cfg: DataConfig):
-    """The dataset `cfg.dataset` names; only "synthetic" is ported."""
+    """The dataset `cfg.dataset` names ("synthetic" or "flyingchairs")."""
     if cfg.dataset == "synthetic":
         return SyntheticData(cfg)
-    if cfg.dataset in ("flyingchairs", "sintel", "ucf101"):
+    if cfg.dataset == "flyingchairs":
+        return FlyingChairsData(cfg)
+    if cfg.dataset in ("sintel", "ucf101"):
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} is not ported to deepof_tpu_torch "
-            "yet: ROADMAP Queue A item 5 (data path)")
+            "yet: ROADMAP Queue A item 5 (data path: the Sintel and "
+            "UCF-101 loaders need a PNG/JPEG decoder)")
     raise KeyError(f"unknown dataset {cfg.dataset!r}")

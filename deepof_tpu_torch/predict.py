@@ -1,8 +1,11 @@
 """Inference over image pairs through the serving engine, writing `.flo`
-files (port of `predict_pairs` in `deepof_tpu/predict.py`).
+files (port of `restore_params` and `predict_pairs` in
+`deepof_tpu/predict.py`).
 
-This package has no image decoder and no PNG writer: pairs are decoded
-BGR arrays or `.npy` paths, and the output is the Middlebury `.flo` only.
+The parameters come from the newest checkpoint of a run that verifies
+(`restore_params`). This package has no PNG/JPEG decoder and no PNG
+writer: pairs are decoded BGR arrays, `.npy` or binary `.ppm` paths, and
+the output is the Middlebury `.flo` only.
 """
 
 from __future__ import annotations
@@ -15,7 +18,35 @@ from torch import nn
 
 from .core.config import ExperimentConfig
 from .io.flo import write_flo
-from .serve.engine import InferenceEngine
+from .serve.engine import InferenceEngine, build_serve_model
+
+
+def restore_params(cfg: ExperimentConfig,
+                   device: str | torch.device = "cuda") -> nn.Module:
+    """The serving model of `cfg` with the parameters of the newest
+    checkpoint under `<train.log_dir>/ckpt` that verifies and loads (a
+    candidate that fails warns, and the next older one is tried). Raises
+    RuntimeError when checkpoints exist but none restores, and
+    FileNotFoundError when there is none."""
+    from .train.checkpoint import CheckpointManager
+    from .train.schedule import step_decay_schedule
+    from .train.state import create_train_state
+
+    model = build_serve_model(cfg, device)
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    ckpt_dir = os.path.join(cfg.train.log_dir, "ckpt")
+    mgr = CheckpointManager(ckpt_dir, create=False,
+                            verify=cfg.resilience.verify_checkpoints)
+    if mgr.restore(state) is None:
+        candidates = mgr.all_steps()
+        if candidates:
+            raise RuntimeError(
+                f"checkpoints exist under {ckpt_dir} (steps {candidates}) "
+                "but none restored: all candidates failed verification or "
+                "the read itself")
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return model
 
 
 def output_stem(src, idx: int, many: bool) -> str:

@@ -44,6 +44,7 @@ from torch import nn
 from ..core.config import ExperimentConfig
 from ..core.device import resolve_device
 from ..data.datasets import DATASET_MEANS
+from ..io.ppm import read_ppm_bgr
 from .buckets import flow_to_native, pick_bucket, prepare_pair, resolve_buckets
 
 _STOP = object()
@@ -167,14 +168,17 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ submit
     def _decode(self, img) -> np.ndarray:
-        """Decoded BGR array (validated) or a `.npy` path holding one.
-        This package has no image decoder."""
+        """Decoded BGR array (validated), or a `.npy` path holding one, or
+        a binary `.ppm` path. This package has no PNG/JPEG decoder."""
         if isinstance(img, (str, os.PathLike)):
-            if not str(img).endswith(".npy"):
+            if str(img).endswith(".npy"):
+                img = np.load(img, allow_pickle=False)
+            elif str(img).endswith(".ppm"):
+                img = read_ppm_bgr(img)
+            else:
                 raise ServeError("bad_input",
-                                 f"{img!r}: only decoded BGR arrays and .npy "
-                                 "paths are accepted")
-            img = np.load(img, allow_pickle=False)
+                                 f"{img!r}: only decoded BGR arrays, .npy "
+                                 "and .ppm paths are accepted")
         if not isinstance(img, np.ndarray) or img.ndim != 3 \
                 or img.shape[-1] != 3:
             raise ServeError("bad_input", "image must be an (H, W, 3) BGR "
@@ -183,7 +187,8 @@ class InferenceEngine:
 
     def submit(self, prev, nxt,
                request_id: int | str | None = None) -> Future:
-        """Enqueue one (prev, next) pair: decoded BGR arrays or .npy paths.
+        """Enqueue one (prev, next) pair: decoded BGR arrays, .npy or .ppm
+        paths.
 
         Returns a Future resolving to {"flow": (H_native, W_native, 2)
         float32 in native pixel units, "bucket", "native_hw", "latency_s", "request_id"}; failures raise ServeError

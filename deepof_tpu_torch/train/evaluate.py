@@ -1,19 +1,24 @@
-"""Evaluation protocol, host side (subset of `deepof_tpu/train/evaluate.py`).
+"""Evaluation protocol (subset of `deepof_tpu/train/evaluate.py`: the
+AEE protocol; the UCF-101 accuracy and the visual dumps are not ported).
 
 The finest prediction (already multiplied by its flow scale) is
 multiplied by `train.eval_amplifier`, clipped to `train.eval_clip` and
-bilinearly resized to the native resolution. The resize is PyTorch's
-bilinear interpolation (half-pixel centres, no antialiasing), which
-samples as cv2's INTER_LINEAR does.
+bilinearly resized to the native resolution, then compared with the
+ground truth by mean endpoint and angular error. The resize is
+PyTorch's bilinear interpolation (half-pixel centres, no antialiasing),
+which samples as cv2's INTER_LINEAR does.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.config import ExperimentConfig
+from ..utils.metrics import flow_aae, flow_epe
 
 
 def postprocess_flow(flow: np.ndarray, cfg: ExperimentConfig,
@@ -27,3 +32,77 @@ def postprocess_flow(flow: np.ndarray, cfg: ExperimentConfig,
     out = F.interpolate(t.permute(0, 3, 1, 2), size=tuple(gt_hw),
                         mode="bilinear", align_corners=False, antialias=False)
     return out.permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def _wmean(pairs: list[tuple[float, int]]) -> float:
+    """Row-weighted mean of per-batch (value, valid_rows) pairs."""
+    vals, ws = zip(*pairs)
+    return float(np.average(vals, weights=ws))
+
+
+def evaluate_aee(eval_fn, model, dataset, cfg: ExperimentConfig
+                 ) -> dict[str, float]:
+    """The AEE protocol over the full validation split, each val sample
+    counted once for any `train.eval_batch_size`.
+
+    Batches are ceil-divided; the final, short one (v unseen rows) is
+    evaluated by tiling its rows cyclically across L = v / gcd(v, bs)
+    full-shape calls, so every row appears exactly bs / gcd times and
+    the mean of the L batch-mean losses is the uniform mean over the v
+    rows: `val_loss` is exact for any batch size (the loss is
+    row-separable). `eval_fn(model, batch)` only ever sees the full
+    batch shape."""
+    bs = cfg.train.eval_batch_size
+    n_val = max(dataset.num_val, 1)
+    epes, aaes, totals = [], [], []
+    # running aggregates: the val split at native resolution is large
+    p_sum = g_sum = 0.0
+    p_n = g_n = 0
+    p_max = g_max = 0.0
+    for bid in range(-(-n_val // bs)):
+        batch = dataset.sample_val(bs, bid)
+        valid = min(bs, n_val - bid * bs)
+        if valid < bs:
+            # replace sample_val's wrap-to-head padding (rows of other
+            # batches) with the cyclic self-tiling of the docstring
+            vrows = {k: np.asarray(v)[:valid] for k, v in batch.items()}
+            tile_totals = []
+            out = None
+            for j in range(valid // math.gcd(valid, bs)):
+                idx = np.arange(j * bs, (j + 1) * bs) % valid
+                o = eval_fn(model, {k: v[idx] for k, v in vrows.items()})
+                if j == 0:
+                    out = o  # rows 0..valid-1 are the unseen rows in order
+                tile_totals.append(o["total"])
+            batch_total = float(np.mean(tile_totals))
+        else:
+            out = eval_fn(model, batch)
+            batch_total = out["total"]
+        gt = batch["flow"][:valid]
+        pred = postprocess_flow(out["flow"][:valid], cfg, gt.shape[1:3])
+        # AEE per flow pair, row-weighted so a short final batch counts
+        # per sample
+        for p in range(0, gt.shape[-1], 2):
+            epes.append((float(flow_epe(pred[..., p:p + 2],
+                                        gt[..., p:p + 2])), valid))
+            aaes.append((float(flow_aae(pred[..., p:p + 2],
+                                        gt[..., p:p + 2])), valid))
+        totals.append((batch_total, valid))
+        pa, ga = np.abs(pred), np.abs(gt)
+        p_sum += float(pa.sum())
+        p_n += pa.size
+        p_max = max(p_max, float(pa.max()))
+        g_sum += float(ga.sum())
+        g_n += ga.size
+        g_max = max(g_max, float(ga.max()))
+
+    # flow-statistics report
+    return {
+        "aee": _wmean(epes),
+        "aae": _wmean(aaes),
+        "val_loss": _wmean(totals),
+        "pred_abs_mean": p_sum / max(p_n, 1),
+        "pred_abs_max": p_max,
+        "gt_abs_mean": g_sum / max(g_n, 1),
+        "gt_abs_max": g_max,
+    }

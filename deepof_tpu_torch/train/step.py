@@ -5,6 +5,8 @@
 loss. `make_train_step` builds `step(state, batch) -> metrics`: forward,
 backward, global gradient norm, and the Adam update, which is skipped
 when the loss or the gradient norm is not finite (`skip_nonfinite`).
+`make_eval_fn` builds `eval_fn(model, batch)`: the same objective
+without gradients, with the finest flow and reconstruction.
 
 The model works in NCHW; the loss keeps the JAX package's NHWC, through
 permuted views of the same memory.
@@ -26,7 +28,9 @@ Mean = tuple[float, float, float]
 #: per-level loss components reported as `scale_<key>` stacks, finest first
 SCALE_KEYS = ("total", "Charbonnier_reconstruct", "U_loss", "V_loss",
               "smooth")
-_IMAGE_KEYS = ("source", "target", "net_source", "net_target")
+#: the batch entries the step reads (what `batch_to_device` and the
+#: prefetcher move to the device; other entries stay on the host)
+IMAGE_KEYS = ("source", "target", "net_source", "net_target")
 
 
 def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
@@ -59,9 +63,10 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
     """The images of a batch (numpy arrays or tensors) as float32
-    tensors on `device`."""
+    tensors on `device`. A float32 tensor already there is passed as it
+    is (the prefetcher's staged batches): no second copy."""
     return {k: torch.as_tensor(batch[k], dtype=torch.float32, device=device)
-            for k in _IMAGE_KEYS if k in batch}
+            for k in IMAGE_KEYS if k in batch}
 
 
 def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
@@ -97,3 +102,30 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
         return metrics
 
     return step
+
+
+def make_eval_fn(cfg: ExperimentConfig, mean: Mean,
+                 smooth_border_mask: bool = False
+                 ) -> Callable[[Any, dict], dict]:
+    """(model, batch) -> {"total": float, "flow": (B, h, w, 2) numpy,
+    "recon": (B, h, w, 3) numpy}: the objective, the finest flow
+    (already multiplied by its flow scale) and the finest
+    reconstruction, under `torch.no_grad()` with the model in eval mode
+    (its mode is restored after)."""
+
+    def eval_fn(model, batch: dict) -> dict:
+        device = next(model.parameters()).device
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                total, aux = model_losses(model,
+                                          batch_to_device(batch, device),
+                                          mean, cfg.loss, smooth_border_mask)
+                return {"total": total.item(),
+                        "flow": aux["flow"].cpu().numpy(),
+                        "recon": aux["recon"].cpu().numpy()}
+        finally:
+            model.train(was_training)
+
+    return eval_fn

@@ -1,0 +1,129 @@
+"""The PyTorch port's command line, on the CPU at width 0.25 and batch 2
+(the --synthetic smoke size otherwise): train, resume, eval, predict and
+config, and the JAX package's flags that the port does not take yet."""
+
+import dataclasses
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+from deepof_tpu_torch import cli
+from deepof_tpu_torch.core.config import config_from_dict, get_config
+from deepof_tpu_torch.data.pipeline import derive_batch_rng
+from deepof_tpu_torch.io.flo import read_flo
+from deepof_tpu_torch.io.ppm import write_ppm_bgr
+from deepof_tpu_torch.resilience.verify import verify_run
+
+SMOKE = ["--synthetic", "--model", "flownet_s", "--device", "cpu",
+         "--set", "width_mult=0.25", "--set", "data.batch_size=2"]
+
+
+def _run(capsys, *argv):
+    assert cli.main(list(argv)) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _records(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory):
+    """A 3-step run, resumed to step 5."""
+    log_dir = str(tmp_path_factory.mktemp("cli"))
+    assert cli.main(["train", *SMOKE, "--steps", "3",
+                     "--log-dir", log_dir]) == 0
+    assert cli.main(["train", *SMOKE, "--steps", "2",
+                     "--log-dir", log_dir]) == 0
+    return log_dir
+
+
+def test_train_then_resume(run_dir):
+    infos = [r["message"] for r in _records(run_dir) if r["kind"] == "info"]
+    assert "resumed from step 3" in infos
+    report = verify_run(run_dir)
+    assert report["ok"] and report["valid_steps"] == [0, 3, 5]
+
+
+def test_resumed_stream_is_drawn_from_the_resume_step(run_dir, tmp_path,
+                                                      monkeypatch):
+    """A fit from step s draws batch i from derive_batch_rng([seed, s],
+    i): the CLI's resume continues the stream of the JAX loop."""
+    from deepof_tpu_torch.data.datasets import SyntheticData
+
+    log_dir = str(tmp_path / "run")
+    shutil.copytree(run_dir, log_dir)
+    drawn = []
+    sample = SyntheticData.sample_train
+
+    def recording(self, batch_size, iteration=None, rng=None, **kw):
+        drawn.append(rng.get_state()[1][:4].copy())
+        return sample(self, batch_size, iteration, rng, **kw)
+
+    monkeypatch.setattr(SyntheticData, "sample_train", recording)
+    assert cli.main(["train", *SMOKE, "--steps", "1", "--set",
+                     "data.prefetch=1", "--log-dir", log_dir]) == 0
+    np.testing.assert_array_equal(
+        drawn[0], derive_batch_rng(np.array([0, 5], np.uint32),
+                                   0).get_state()[1][:4])
+
+
+def test_eval_reports_finite_metrics(run_dir, capsys):
+    out = _run(capsys, "eval", *SMOKE, "--log-dir", run_dir)
+    for k in ("aee", "aae", "val_loss"):
+        assert np.isfinite(out[k]), k
+
+
+def test_predict_writes_flo_at_native_size(run_dir, tmp_path, capsys):
+    rs = np.random.RandomState(0)
+    pairs = []
+    for i, hw in enumerate([(48, 80), (64, 64)]):
+        a, b = (rs.randint(0, 256, (*hw, 3), np.uint8) for _ in range(2))
+        np.save(tmp_path / f"a{i}.npy", a)
+        write_ppm_bgr(tmp_path / f"b{i}.ppm", b)
+        pairs.append(f"{tmp_path}/a{i}.npy:{tmp_path}/b{i}.ppm")
+    out = _run(capsys, "predict", *SMOKE, "--log-dir", run_dir,
+               "--out", str(tmp_path / "out"), "--pairs", *pairs)
+    assert [os.path.basename(p) for p in out["written"]] == [
+        "0000_a0_flow.flo", "0001_a1_flow.flo"]
+    for path, hw in zip(out["written"], [(48, 80), (64, 64)]):
+        flow = read_flo(path)
+        assert flow.shape == (*hw, 2) and np.isfinite(flow).all()
+
+
+def test_predict_without_a_checkpoint_raises(tmp_path):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        cli.main(["predict", *SMOKE, "--log-dir", str(tmp_path),
+                  "--out", str(tmp_path / "o"), "--pairs", "a.npy:b.npy"])
+
+
+def test_config_prints_a_dict_that_reads_back(capsys):
+    assert cli.main(["config", "--preset", "sintel", "--set",
+                     "train.log_every=7"]) == 0
+    cfg = config_from_dict(json.loads(capsys.readouterr().out))
+    want = get_config("sintel")
+    assert cfg == want.replace(train=dataclasses.replace(want.train,
+                                                         log_every=7))
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["train", "--recipe", "r.json"], "item 9"),
+    (["train", "--elastic", "4"], "item 10"),
+    (["train", "--multihost"], "item 10"),
+    (["train", "--profile"], "item 11"),
+    (["train", "--profile-steps", "2:4"], "item 11"),
+    (["train", "--trace"], "item 11"),
+    (["eval", "--dump-visuals"], "item 6")])
+def test_jax_only_flags_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(argv + ["--device", "cpu"])
+
+
+def test_unported_model_raises_naming_its_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cli.main(["train", "--synthetic", "--device", "cpu",
+                  "--log-dir", str(tmp_path)])  # the preset's inception_v3

@@ -274,3 +274,64 @@ def test_warp_levels_survive_nonfinite_flows(cuda):
                                    equal_nan=True)
         torch.testing.assert_close(grad, f.grad, atol=1e-4, rtol=0,
                                    equal_nan=True)
+
+
+def _numbered_batches(shape=(2, 48, 80, 3)):
+    """next_batch for a Prefetcher: batch i holds i in every entry of its
+    images, and the host arrays handed out are kept for comparison."""
+    handed = []
+
+    def next_batch():
+        i = len(handed)
+        b = {"source": np.full(shape, i, np.float32),
+             "target": np.full(shape, -i, np.float32),
+             "flow": np.full((*shape[:3], 2), i, np.float32)}
+        handed.append(b)
+        return b
+
+    return next_batch, handed
+
+
+@pytest.mark.cuda
+def test_prefetcher_stages_batches_on_the_card(cuda, monkeypatch):
+    from deepof_tpu_torch.data.prefetch import Prefetcher
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    recorded = []
+    record = torch.Tensor.record_stream
+
+    def recording(t, stream):
+        recorded.append((t.data_ptr(), stream))
+        return record(t, stream)
+
+    monkeypatch.setattr(torch.Tensor, "record_stream", recording)
+    next_batch, handed = _numbered_batches()
+    puts = []
+    pre = Prefetcher(next_batch, depth=2, device=cuda,
+                     phase_cb=lambda name, s: puts.append(name))
+    side = torch.cuda.Stream()
+    held = []
+    try:
+        for i in range(12):  # many more batches than pinned slots
+            with torch.cuda.stream(side):
+                b = pre.get()
+                # read at once on the stream that waited on the copy
+                assert torch.equal(b["source"], torch.full_like(
+                    b["source"], i))
+            held.append(b)
+            assert b["source"].is_cuda and b["target"].is_cuda
+            assert isinstance(b["flow"], np.ndarray)  # not a step input
+            assert (b["source"].data_ptr(), side) in recorded
+            assert (b["target"].data_ptr(), side) in recorded
+            dev = batch_to_device(b, cuda)
+            assert dev["source"] is b["source"]  # no second copy
+    finally:
+        pre.close()
+    torch.cuda.synchronize()
+    # no pinned slot was overwritten while its copy was in flight: every
+    # batch held on the card is the host batch it was staged from
+    for b, h in zip(held, handed):
+        for k in ("source", "target"):
+            np.testing.assert_array_equal(b[k].cpu().numpy(), h[k])
+    assert puts and set(puts) == {"put"}
+    assert 1 <= pre.stats()["max_staged_depth"] <= 2

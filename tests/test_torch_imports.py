@@ -79,6 +79,7 @@ def test_port_source_has_no_jax_or_reference_imports():
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
+    from deepof_tpu_torch import cli
     from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
     from deepof_tpu_torch.models.registry import build_model
     from deepof_tpu_torch.predict import predict_pairs
@@ -94,3 +95,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         predict_pairs(cfg, [], str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(cfg.replace(data=DataConfig(dataset="synthetic")))
+    for verb in ("train", "eval"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main([verb, "--synthetic", "--model", "flownet_s",
+                      "--log-dir", str(tmp_path / verb)])
+    assert not (tmp_path / "train").exists()  # nothing written first

@@ -29,6 +29,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -51,8 +52,10 @@ from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
                                           LossConfig, OptimConfig,
                                           ResilienceConfig,
                                           TrainConfig, check_trainable)
-from deepof_tpu_torch.data.datasets import SyntheticData, build_dataset
+from deepof_tpu_torch.data.datasets import (FlyingChairsData, SyntheticData,
+                                            build_dataset)
 from deepof_tpu_torch.data.pipeline import derive_batch_rng
+from deepof_tpu_torch.io.ppm import write_ppm_bgr
 from deepof_tpu_torch.models.registry import build_model
 from deepof_tpu_torch.train.loop import Trainer
 from deepof_tpu_torch.train.schedule import step_decay_schedule
@@ -216,23 +219,35 @@ def test_nonfinite_batch_is_skipped():
     assert state.step == 2
 
 
-def test_trainer_fits_on_cpu():
+def test_trainer_fits_on_cpu(tmp_path):
     cfg = ExperimentConfig(
         width_mult=0.25,
-        data=DataConfig(dataset="synthetic", image_size=HW, batch_size=2))
+        data=DataConfig(dataset="synthetic", image_size=HW, batch_size=2),
+        train=TrainConfig(log_every=1, log_dir=str(tmp_path)))
     trainer = Trainer(cfg, device="cpu")
     assert trainer.steps_per_epoch == 32  # 64 procedural pairs / 2
-    metrics = trainer.fit(2)
-    assert len(metrics) == 2 and trainer.state.step == 2
-    for m in metrics:
-        assert np.isfinite(m["total"]) and m["update_skipped"] == 0.0
-        assert len(m["scale_total"]) == 6
-        assert m["step_ms"] > 0 and m["data_ms"] > 0
-    # batch i of a fit from step s is drawn from derive_batch_rng([seed, s], i)
-    batch, _ = next(trainer.batches(1))
+    # batch i of a fit from step s is drawn from derive_batch_rng([seed, s],
+    # i): record what the fit's sampler draws
+    drawn = []
+    draw = trainer._next_train_batch
+
+    def recording_draw(it, rng):
+        drawn.append(draw(it, rng))
+        return drawn[-1]
+
+    trainer._next_train_batch = recording_draw
+    summary = trainer.fit(max_steps=2)
+    assert trainer.state.step == 2
+    assert summary["steps_per_sec"] > 0 and summary["phase_dispatch_s"] > 0
+    records = [json.loads(ln) for ln in open(tmp_path / "metrics.jsonl")]
+    train = [r for r in records if r["kind"] == "train"]
+    assert [r["step"] for r in train] == [1, 2]
+    for r in train:
+        assert np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        assert len(r["loss_total_by_scale"]) == 6
     want = trainer.dataset.sample_train(
-        2, rng=derive_batch_rng(np.array([0, 2], np.uint32), 0))
-    np.testing.assert_array_equal(batch["source"], want["source"])
+        2, rng=derive_batch_rng(np.array([0, 0], np.uint32), 1))
+    np.testing.assert_array_equal(drawn[1]["source"], want["source"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -245,11 +260,17 @@ def test_unported_settings_raise(kw):
         check_trainable(ExperimentConfig(**kw))
 
 
-def test_only_the_synthetic_dataset_is_built():
+def test_only_the_synthetic_dataset_is_built(tmp_path):
     assert isinstance(build_dataset(DataConfig(dataset="synthetic")),
                       SyntheticData)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_dataset(DataConfig(dataset="flyingchairs"))
+    # flyingchairs builds (on a tree with one pair); sintel and ucf101 raise
+    write_ppm_bgr(tmp_path / "00001_img1.ppm", np.zeros((4, 6, 3), np.uint8))
+    assert isinstance(build_dataset(DataConfig(dataset="flyingchairs",
+                                               data_path=str(tmp_path))),
+                      FlyingChairsData)
+    for name in ("sintel", "ucf101"):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            build_dataset(DataConfig(dataset=name))
     with pytest.raises(NotImplementedError, match="affine"):
         SyntheticData(DataConfig(), style="affine")
     assert ExperimentConfig(resilience=ResilienceConfig(
