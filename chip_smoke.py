@@ -10,6 +10,9 @@ through its kernels (the launch counts are set to 0 before each path and
 read after it):
   - serving: FlowNet-C at full width through `InferenceEngine` (the
     correlation kernel);
+  - the correlation's backward kernels against their plain version at
+    the training shape, ragged, at stride 4 and at max_disp 0
+    (`check_corr_bwd`);
   - training: FlowNet-S at full width, 384x512, batch 4, f32: steps of
     `Trainer.train_step` on batches drawn in sequence (phase `train`,
     the warp and its flow gradient, one launch each per step), then the
@@ -18,14 +21,20 @@ read after it):
     (`cli_train`), its resume to 16 (`cli_resume`), `Trainer.fit` under
     torch.profiler (`fit_profile`), `train` on a FlyingChairs tree of 12
     PPM/.flo pairs (`cli_flyingchairs`), and `eval` and `predict` on the
-    `cli_train` run (`cli_eval_predict`). Runs live in a temporary
-    directory under `build/`, removed at the end.
+    `cli_train` run (`cli_eval_predict`);
+  - training FlowNet-C and FlowNet-CS at full width, the same size, on
+    card-resident batches, each step against the plain correlation
+    (`train_flownet_c`, `train_flownet_cs`: the correlation forward and
+    both backward kernels once a step), and FlowNet-C from the command
+    line: `train`, `eval` and `predict` (`cli_train_flownet_c`).
+Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
 {...}}. Any failure exits non-zero with no such line; so does a host
 without a GPU.
 
 One check alone, on the card (each builds what it needs):
+    python3 -c "import chip_smoke as cs; cs.check_corr_bwd((4, 256, 48, 64), 20, 2, 0)"
     python3 -c "import chip_smoke as cs; cs.check_warp_levels()"
     python3 -c "import chip_smoke as cs; cs.step_kernels()"
     python3 -c "import chip_smoke as cs; cs.fit_variants()"
@@ -101,6 +110,13 @@ def device_ms(fn, iters: int = 20) -> float:
     copies) of `iters` calls from torch.profiler, per call. A small
     kernel's CUDA-event time (`time_ms`) is the host's launch time
     instead."""
+    return device_ms_by_name(fn, ("",), iters)[""]
+
+
+def device_ms_by_name(fn, names, iters: int = 20) -> dict[str, float]:
+    """{name: device time per call of the device-side events whose name
+    contains it} over `iters` calls of `fn`, from torch.profiler ("":
+    all of them)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -113,16 +129,27 @@ def device_ms(fn, iters: int = 20) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ms = sum(t for t, _ in device_kernels(prof, iters))
-        if ms > 0:
-            return ms
-    raise AssertionError("torch.profiler recorded no device time")
+        rows = device_kernels(prof, iters)
+        out = {n: sum(t for t, k in rows if n in k) for n in names}
+        if all(v > 0 for v in out.values()):
+            return out
+    raise AssertionError(f"torch.profiler recorded no device time for "
+                         f"{names}")
 
 
-def corr_bound_ms(b, c, h, w, n) -> tuple[float, str]:
-    flops = 2.0 * b * h * w * n * n * c
-    nbytes = 4.0 * (2 * b * c * h * w + b * n * n * h * w)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+def corr_bound_ms(b, c, h, w, max_disp, stride) -> tuple[float, str]:
+    """The bound of the correlation and of each of its backward kernels
+    (the same work): one FMA a channel for each pixel and displacement
+    whose shifted pixel lies inside the image (the others meet the zero
+    padding and need none), against the bytes of two C-channel maps and
+    one (2K+1)**2-channel map, each moved once."""
+    k = max_disp // stride
+    n = 2 * k + 1
+    offs = [(i - k) * stride for i in range(n)]
+    rows = sum(max(h - abs(d), 0) for d in offs)
+    cols = sum(max(w - abs(d), 0) for d in offs)
+    t_ops = 2.0 * b * rows * cols * c / PEAK_F32_FLOPS
+    t_bytes = 4.0 * (2 * b * c * h * w + b * n * n * h * w) / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -144,9 +171,7 @@ def check_corr(shape, max_disp, stride, seed):
     want = correlation_reference(f1, f2, max_disp, stride)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    b, c, h, w = shape
-    n = 2 * (max_disp // stride) + 1
-    bound, bound_by = corr_bound_ms(b, c, h, w, n)
+    bound, bound_by = corr_bound_ms(*shape, max_disp, stride)
 
     def kernel():
         return correlation_cuda(f1, f2, max_disp, stride)
@@ -163,6 +188,63 @@ def check_corr(shape, max_disp, stride, seed):
     if not err <= KERNEL_TOL:
         raise AssertionError(f"corr kernel disagrees at {shape}: max abs "
                              f"err {err} > {KERNEL_TOL}")
+    return row
+
+
+def check_corr_bwd(shape, max_disp, stride, seed, timed=True):
+    """Both backward kernels (`correlation_bwd_cuda`) vs
+    correlation_backward_reference on the card at one NCHW shape: the max
+    abs error of each gradient relative to its largest entry, within
+    KERNEL_TOL, and two calls bitwise equal (no atomics). With `timed`,
+    each kernel's device time (torch.profiler, by kernel name), the
+    CUDA-event time of one wrapper call (both launches), and the plain
+    backward's device and call times (both gradients at once)."""
+    import torch
+
+    from deepof_tpu_torch.ops.corr import correlation_backward_reference
+    from deepof_tpu_torch.ops.cuda.corr import correlation_bwd_cuda
+
+    b, c, h, w = shape
+    n = 2 * (max_disp // stride) + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f1 = torch.randn(shape, device="cuda", generator=gen)
+    f2 = torch.randn(shape, device="cuda", generator=gen)
+    g = torch.randn((b, n * n, h, w), device="cuda", generator=gen)
+
+    def kernel():
+        return correlation_bwd_cuda(f1, f2, g, max_disp, stride)
+
+    def plain():
+        return correlation_backward_reference(f1, f2, g, max_disp, stride)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    row = {"shape": list(shape), "max_disp": max_disp, "stride": stride,
+           "bitwise_repeatable": all(torch.equal(a, r)
+                                     for a, r in zip(got, again))}
+    for name, a, r in zip(("corr_bwd_f1", "corr_bwd_f2"), got, want):
+        scale = r.abs().max().item()
+        row[name] = {"max_abs_err": (a - r).abs().max().item(),
+                     "max_abs_grad": scale,
+                     "rel_err": (a - r).abs().max().item() / max(scale,
+                                                                 1e-30)}
+    if timed:
+        per_kernel = device_ms_by_name(kernel, ("corr_bwd_f1", "corr_bwd_f2"))
+        row.update({"call_ms": time_ms(kernel),
+                    "plain_ms": device_ms(plain, iters=3),
+                    "plain_call_ms": time_ms(plain, warmup=1, iters=5),
+                    **dict(zip(("bound_ms", "bound_by"),
+                               corr_bound_ms(*shape, max_disp, stride)))})
+        for name in ("corr_bwd_f1", "corr_bwd_f2"):
+            row[name]["ms"] = per_kernel[name]
+    emit("kernels", kernel="corr_bwd", **row)
+    bad = [k for k in ("corr_bwd_f1", "corr_bwd_f2")
+           if not row[k]["rel_err"] <= KERNEL_TOL]
+    if bad or not row["bitwise_repeatable"]:
+        raise AssertionError(f"corr backward kernels at {shape}, {max_disp} "
+                             f"/ {stride}: {bad} off the plain backward by "
+                             f"more than {KERNEL_TOL} of the largest entry, "
+                             f"or two calls differ: {row}")
     return row
 
 
@@ -891,6 +973,329 @@ def train_profile(trainer, iters: int = 3) -> None:
         raise AssertionError(f"the warp's autograd ops made copies: {copies}")
 
 
+def kernel_counts() -> dict[str, int]:
+    """The launch counts of the correlation kernels (forward and the two
+    backward kernels) and of the two warp kernels."""
+    from deepof_tpu_torch.ops.cuda import corr as cc
+    from deepof_tpu_torch.ops.cuda import warp as cw
+
+    return {c.name: c.count for c in (
+        cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches,
+        cw.fwd_launches, cw.grad_launches)}
+
+
+def reset_kernel_counts() -> None:
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    for c in (cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches):
+        c.reset()
+    reset_warp_counts()
+
+
+def swapped_corr_loss_and_grads(model, batch, mean, loss_cfg,
+                                kernel_backward: bool):
+    """`loss_and_grads` with FlowNet-C's correlation forward swapped for
+    `correlation_reference` for this one call, and its backward for the
+    kernels (`correlation_bwd_cuda`, `kernel_backward`) or for
+    `correlation_backward_reference`, as `serve` swaps the forward: no
+    setting of the package routes a card tensor around the kernels.
+    FlowNet-CS's base stage is a FlowNetC, so the swap covers it too."""
+    import torch
+
+    from deepof_tpu_torch.models import flownet_c
+    from deepof_tpu_torch.ops.corr import (correlation_backward_reference,
+                                           correlation_reference)
+    from deepof_tpu_torch.ops.cuda.corr import correlation_bwd_cuda
+
+    backward = (correlation_bwd_cuda if kernel_backward
+                else correlation_backward_reference)
+
+    class SwappedCorrelation(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, f1, f2, max_disp, stride):
+            ctx.geometry = (max_disp, stride)
+            ctx.save_for_backward(f1, f2)
+            return correlation_reference(f1, f2, max_disp, stride)
+
+        @staticmethod
+        def backward(ctx, g):
+            f1, f2 = ctx.saved_tensors
+            return (*backward(f1, f2, g.contiguous(), *ctx.geometry),
+                    None, None)
+
+    kernel_corr = flownet_c.correlation_nchw
+    flownet_c.correlation_nchw = (
+        lambda f1, f2, max_disp, stride: SwappedCorrelation.apply(
+            f1, f2, max_disp, stride))
+    try:
+        return loss_and_grads(model, batch, mean, loss_cfg)
+    finally:
+        flownet_c.correlation_nchw = kernel_corr
+
+
+def plain_corr_comparison(trainer, batch) -> dict:
+    """One forward and backward of `trainer`'s model on `batch` (on the
+    card), cuDNN deterministic, three ways: with the correlation kernels
+    (`kernel`), with the plain forward and the backward kernels
+    (`plain_fwd`), and with the plain forward and backward (`plain`).
+    `kernel` vs `plain` is the check; `kernel` vs `plain_fwd` differs
+    only in the forward kernel and `plain_fwd` vs `plain` only in the
+    backward kernels, so the two say which side carries a gap. For each
+    pair: the loss's and the gradient norm's relative differences, and
+    the largest difference of one parameter's gradient over that
+    tensor's largest entry, with its name. Raises if a swapped step
+    launched a correlation kernel that it swapped out."""
+    import torch
+
+    args = (trainer.model, batch, trainer.dataset.mean, trainer.cfg.loss)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    keys = ("corr", "corr_bwd_f1", "corr_bwd_f2")
+    runs, launched = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, step in (
+                ("kernel", loss_and_grads),
+                ("plain_fwd", lambda *a: swapped_corr_loss_and_grads(
+                    *a, kernel_backward=True)),
+                ("plain", lambda *a: swapped_corr_loss_and_grads(
+                    *a, kernel_backward=False))):
+            before = kernel_counts()
+            runs[name] = step(*args)
+            after = kernel_counts()
+            launched[name] = [after[k] - before[k] for k in keys]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if (0 in launched["kernel"] or launched["plain"] != [0, 0, 0]
+            or launched["plain_fwd"] != [0, *launched["kernel"][1:]]):
+        raise AssertionError(f"corr kernel launches {launched} in the "
+                             f"kernel, plain-forward and plain steps")
+
+    def norm(grads):
+        return float(torch.sqrt(sum(g.square().sum() for g in grads)))
+
+    def compare(a, b):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        rel = [((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+               .item() for x, y in zip(ga, gb)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        return {"loss_rel": abs(la - lb) / abs(lb),
+                "grad_norm_rel": abs(norm(ga) - norm(gb)) / norm(gb),
+                "grad_max_rel": rel[worst], "grad_max_rel_at": names[worst]}
+
+    loss, grads = runs["kernel"]
+    return {"loss": loss, "grad_norm": norm(grads),
+            "kernel_vs_plain_corr": compare("kernel", "plain"),
+            "fwd_kernel_only": compare("kernel", "plain_fwd"),
+            "bwd_kernels_only": compare("plain_fwd", "plain")}
+
+
+def plain_corr_spread(model: str = "flownet_cs", batches: int = 8) -> dict:
+    """`plain_corr_comparison` on `batches` batches of a fresh full-width
+    trainer, batch by batch. On demand, on the card:
+
+        python3 -c "import chip_smoke as cs; cs.plain_corr_spread()"
+    """
+    import torch
+
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              TrainConfig)
+    from deepof_tpu_torch.train.loop import Trainer
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(dir=work_root()) as log_dir:
+        trainer = Trainer(ExperimentConfig(
+            model=model, data=DataConfig(dataset="synthetic"),
+            train=TrainConfig(log_dir=log_dir)), device="cuda")
+        rows = [plain_corr_comparison(trainer,
+                                      batch_to_device(b, trainer.device))
+                for b, _ in draw_batches(trainer, batches)]
+    emit("plain_corr_spread", model=model, batches=rows)
+    return {"model": model, "batches": rows}
+
+
+# steps timed on a card-resident batch (then as many again under the
+# profiler) by the FlowNet-C and FlowNet-CS training phases, after one
+# warm-up step; their warp launches a step (the loss, and FlowNet-CS's
+# refinement input)
+CORR_TRAIN_STEPS = 3
+CORR_MODEL_WARPS = {"flownet_c": 1, "flownet_cs": 2}
+# a train step with the correlation kernels vs the plain correlation,
+# same weights and batch: F6's limits (tests/test_torch_train.py). The
+# step with the plain forward and the backward kernels vs the plain step
+# (only the backward kernels differ) holds each parameter's gradient at
+# TRAIN_GRAD_RTOL of its largest entry.
+CORR_TRAIN_LOSS_RTOL = 1e-4
+CORR_TRAIN_GRAD_NORM_RTOL = 3e-3
+
+
+def train_corr_model(model: str, work: str) -> dict:
+    """Full-width FlowNet-C or FlowNet-CS training on the card (384x512,
+    batch 4, f32, paper geometry): one warm-up step, then
+    CORR_TRAIN_STEPS steps on card-resident batches timed on the host
+    clock and as many under torch.profiler (`profile_steps`): step ms,
+    pairs/s, device busy and idle share, the correlation kernels' share,
+    and each kernel's launches a step (corr, corr_bwd_f1 and corr_bwd_f2
+    once; the warps once for FlowNet-C, twice for FlowNet-CS). Then one
+    step against the plain correlation, forward and backward, on the
+    same weights and batch, and split into the forward's and the
+    backward's share (`plain_corr_comparison`)."""
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              TrainConfig)
+    from deepof_tpu_torch.train.loop import Trainer
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    cfg = ExperimentConfig(
+        model=model, data=DataConfig(dataset="synthetic"),
+        train=TrainConfig(log_dir=os.path.join(work, f"train_{model}")))
+    trainer = Trainer(cfg, device="cuda")
+    steps_in_sequence(trainer, 1)  # cuDNN algorithm choice, allocator
+    reset_kernel_counts()
+    step_ms, prof = profile_steps(trainer, CORR_TRAIN_STEPS)
+    counts = kernel_counts()
+    per_step = {k: v / (2 * CORR_TRAIN_STEPS) for k, v in counts.items()}
+    kernels = device_kernels(prof, CORR_TRAIN_STEPS)
+    busy = sum(t for t, _ in kernels)
+    by_kernel = {name: sum(t for t, k in kernels if key in k)
+                 for name, key in (("corr", "corr_fwd"),
+                                   ("corr_bwd_f1", "corr_bwd_f1"),
+                                   ("corr_bwd_f2", "corr_bwd_f2"),
+                                   ("warp", "warp_"))}
+
+    batch, _ = next(draw_batches(trainer, 1))
+    vs_plain = plain_corr_comparison(trainer, batch_to_device(batch,
+                                                              trainer.device))
+    row = {"model": model, "image_size": list(cfg.data.image_size),
+           "batch": cfg.data.batch_size,
+           "corr_geometry": [trainer.model.max_disp,
+                             trainer.model.corr_stride],
+           "params": sum(p.numel() for p in trainer.model.parameters()),
+           "steps": CORR_TRAIN_STEPS, "step_ms": step_ms,
+           "pairs_per_s": cfg.data.batch_size / (step_ms / 1e3),
+           "device_time_visible": busy > 0, "device_busy_ms": busy,
+           "idle_share_of_step": (1 - busy / step_ms) if busy else None,
+           "kernel_ms_per_step": by_kernel,
+           "corr_share_of_busy": (sum(v for k, v in by_kernel.items()
+                                      if k != "warp") / busy)
+           if busy else None,
+           "launches_per_step": per_step, "launches": counts,
+           **kernels_per_step(device_kernel_counts(prof), CORR_TRAIN_STEPS),
+           **vs_plain,
+           "top": [{"ms": t, "name": k[:90]} for t, k in kernels[:10]]}
+    emit(f"train_{model}", **row)
+    if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+        raise AssertionError(f"{model}: non-finite loss {row['loss']} or "
+                             f"gradient norm {row['grad_norm']}")
+    warps = CORR_MODEL_WARPS[model]
+    want = {"corr": 1, "corr_bwd_f1": 1, "corr_bwd_f2": 1,
+            "warp_fwd": warps, "warp_flow_grad": warps}
+    if per_step != want:
+        raise AssertionError(f"{model}: kernel launches a step {per_step}; "
+                             f"want {want}")
+    both = vs_plain["kernel_vs_plain_corr"]
+    if not (both["loss_rel"] <= CORR_TRAIN_LOSS_RTOL
+            and both["grad_norm_rel"] <= CORR_TRAIN_GRAD_NORM_RTOL):
+        raise AssertionError(
+            f"{model}: train step with the corr kernels vs the plain corr: "
+            f"{both} (limits: loss {CORR_TRAIN_LOSS_RTOL}, gradient norm "
+            f"{CORR_TRAIN_GRAD_NORM_RTOL})")
+    bwd_only = vs_plain["bwd_kernels_only"]
+    if not (bwd_only["loss_rel"] == 0
+            and bwd_only["grad_max_rel"] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(
+            f"{model}: train step with the corr backward kernels vs the "
+            f"plain backward (plain forward in both): {bwd_only} (limits: "
+            f"loss equal, each gradient {TRAIN_GRAD_RTOL})")
+    if busy <= 0:
+        raise AssertionError(f"{model}: torch.profiler recorded no device "
+                             "time")
+    return row
+
+
+# `train --model flownet_c --synthetic` at full width: 384x512, batch 4,
+# a train record every 2 steps, an eval and a checkpoint at step 8
+CLI_TRAIN_C = ["--model", "flownet_c", "--synthetic",
+               "--set", "data.image_size=[384,512]",
+               "--set", "data.gt_size=[384,512]",
+               "--set", "data.batch_size=4",
+               "--set", "train.eval_batch_size=4",
+               "--set", "train.log_every=2", "--set", "train.eval_every=8",
+               "--set", "train.ckpt_every_steps=8"]
+CLI_C_STEPS = 8
+
+
+def cli_train_flownet_c(work: str) -> dict:
+    """FlowNet-C from the command line at full width: `train` for
+    CLI_C_STEPS steps (an eval and a checkpoint at the last), then `eval`
+    and `predict` from its checkpoint. Each path's kernel launches are
+    counted from 0: in `train`, corr once per step and per eval forward,
+    each backward kernel once per step; in `eval`, corr once per eval
+    forward; in `predict`, once per dispatch. Finite loss, AEE and AAE,
+    and two native-size .flo files."""
+    import numpy as np
+
+    from deepof_tpu_torch.io.flo import read_flo
+
+    log_dir = os.path.join(work, "cli_train_flownet_c")
+    reset_kernel_counts()
+    summary = run_cli(["train", *CLI_TRAIN_C, "--steps", str(CLI_C_STEPS),
+                       "--log-dir", log_dir],
+                      os.path.join(work, "cli_train_flownet_c.log"))
+    train = kernel_counts()
+    records = check_run(log_dir, list(range(2, CLI_C_STEPS + 1, 2)),
+                        [CLI_C_STEPS], [CLI_C_STEPS])
+    evals = eval_calls(SYNTHETIC_VAL, 4)
+    reset_kernel_counts()
+    ev = run_cli(["eval", *CLI_TRAIN_C, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval_flownet_c.log"))
+    evaluate = kernel_counts()
+    rs = np.random.RandomState(2)
+    pairs = []
+    for i in range(2):
+        paths = [os.path.join(work, f"c_pair{i}_{k}.npy") for k in "ab"]
+        for p in paths:
+            np.save(p, rs.randint(0, 256, (384, 512, 3), np.uint8))
+        pairs.append(":".join(paths))
+    reset_kernel_counts()
+    out = run_cli(["predict", *CLI_TRAIN_C, "--log-dir", log_dir, "--out",
+                   os.path.join(work, "flows_c"), "--pairs", *pairs],
+                  os.path.join(work, "cli_predict_flownet_c.log"))
+    predict = kernel_counts()
+    flows = [read_flo(p) for p in out["written"]]
+    row = {"steps": CLI_C_STEPS, **fit_row(summary, 4),
+           "launches": {"train": train, "eval": evaluate,
+                        "predict": predict},
+           "eval_forwards": evals,
+           "losses": [r["loss"] for r in records if r["kind"] == "train"],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"],
+           "eval_cli": {k: ev[k] for k in ("aee", "aae", "val_loss")},
+           "predicted": [list(f.shape) for f in flows]}
+    emit("cli_train_flownet_c", **row)
+    want_train = {"corr": CLI_C_STEPS + evals, "corr_bwd_f1": CLI_C_STEPS,
+                  "corr_bwd_f2": CLI_C_STEPS,
+                  "warp_fwd": CLI_C_STEPS + evals,
+                  "warp_flow_grad": CLI_C_STEPS}
+    if train != want_train:
+        raise AssertionError(f"cli train flownet_c: launches {train}; want "
+                             f"{want_train}")
+    if (evaluate["corr"] != evals or evaluate["corr_bwd_f1"]
+            or not 1 <= predict["corr"] <= len(pairs)
+            or predict["corr_bwd_f1"]):
+        raise AssertionError(f"cli eval/predict flownet_c: launches "
+                             f"{evaluate} / {predict}")
+    if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
+        raise AssertionError(f"eval flownet_c: non-finite metrics {ev}")
+    if [f.shape for f in flows] != [(384, 512, 2)] * 2 or not all(
+            np.isfinite(f).all() for f in flows):
+        raise AssertionError(f"predict flownet_c wrote "
+                             f"{[f.shape for f in flows]}")
+    return row
+
+
 def work_root() -> str:
     """`build/` of this checkout (ignored by git): where the runs of the
     training phases write their logs and checkpoints."""
@@ -1347,8 +1752,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    emit("device", name=name, nvidia_smi=smi, torch=torch.__version__,
+    card = torch.cuda.get_device_name(0)
+    emit("device", name=card, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
@@ -1367,6 +1772,15 @@ def main() -> int:
     full = check_corr((b, 256, h // 8, w // 8), cfg.corr_max_disp,
                       cfg.corr_stride, seed=0)
     check_corr((3, 40, 13, 17), 4, 1, seed=1)  # ragged
+    # the forward and backward at the training shape (batch 4); the
+    # backward also ragged, at stride 4 and at max_disp 0
+    train_fwd = check_corr((cfg.data.batch_size, 256, h // 8, w // 8),
+                           cfg.corr_max_disp, cfg.corr_stride, seed=10)
+    bwd = check_corr_bwd((cfg.data.batch_size, 256, h // 8, w // 8),
+                         cfg.corr_max_disp, cfg.corr_stride, seed=11)
+    check_corr_bwd((3, 40, 13, 17), 4, 1, seed=12, timed=False)
+    check_corr_bwd((2, 24, 9, 36), 8, 4, seed=13, timed=False)
+    check_corr_bwd((2, 3, 10, 20), 0, 1, seed=14, timed=False)
 
     warp_rows = [check_warp(shape, 5.0, seed=2 + i)
                  for i, shape in enumerate(WARP_LEVELS)]
@@ -1387,6 +1801,9 @@ def main() -> int:
         fit_profile(work)
         chairs_row = cli_flyingchairs(work)
         eval_row = cli_eval_predict(work)
+        corr_train = {m: train_corr_model(m, work)
+                      for m in ("flownet_c", "flownet_cs")}
+        cli_c_row = cli_train_flownet_c(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -1396,6 +1813,39 @@ def main() -> int:
     by_path = {key: {p: r[f"warp_{key}_launches"] for p, r in paths.items()}
                for key in ("fwd", "flow_grad")}
     by_path["fwd"]["cli_eval"] = eval_row["eval_warp_fwd_launches"]
+    # and of the correlation kernels (with the warps on FlowNet-C/CS
+    # training): the serving run, the FlowNet-C and FlowNet-CS training
+    # phases, and the FlowNet-C command line's train, eval and predict
+    corr_paths = {f"train_{m}": r["launches"] for m, r in corr_train.items()}
+    corr_paths.update({f"cli_{k}_flownet_c": v
+                       for k, v in cli_c_row["launches"].items()})
+    for key, counter in (("fwd", "warp_fwd"),
+                         ("flow_grad", "warp_flow_grad")):
+        by_path[key].update({p: c[counter] for p, c in corr_paths.items()})
+    corr_by_path = {k: {p: c[k] for p, c in corr_paths.items()}
+                    for k in ("corr", "corr_bwd_f1", "corr_bwd_f2")}
+    corr_by_path["corr"]["serve"] = corr_launches
+    main_path = cli_c_row["launches"]["train"]
+
+    def corr_bwd_entry(name):
+        return {"name": name, "route": "cuda",
+                "source": "deepof_tpu_torch/csrc/corr_bwd.cu",
+                "replaces": "deepof_tpu/ops/pallas/corr.py:167",
+                "launches": main_path[name],
+                "launches_by_path": corr_by_path[name],
+                "launches_per_step": corr_train["flownet_c"][
+                    "launches_per_step"][name],
+                "max_abs_err": bwd[name]["max_abs_err"],
+                "rel_err": bwd[name]["rel_err"],
+                "bitwise_repeatable": bwd["bitwise_repeatable"],
+                "ms": bwd[name]["ms"], "call_ms": bwd["call_ms"],
+                "plain_ms": bwd["plain_ms"],
+                "plain_note": "correlation_backward_reference, both "
+                              "gradients in one call",
+                "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+                "shape": bwd["shape"], "library_ms": None,
+                "library_note": "no single PyTorch call computes the "
+                                "gradient of a correlation cost volume"}
 
     def warp_entry(name, key):
         # the one launch over the six main-path levels, with the one-level
@@ -1432,22 +1882,33 @@ def main() -> int:
         "route": "cuda",
         "source": "deepof_tpu_torch/csrc/corr.cu",
         "replaces": "deepof_tpu/ops/pallas/corr.py:46",
-        "launches": corr_launches,
-        "launches_per_dispatch": corr_launches / serve_row["dispatches"],
-        "max_abs_err": full["max_abs_err"],
-        "ms": full["ms"],
-        "call_ms": full["call_ms"],
-        "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"],
-        "bound_by": full["bound_by"],
+        # the main path's shape (training, batch 4) at the top level, the
+        # serving shape (batch 8) with its own launches nested
+        "launches": main_path["corr"],
+        "launches_by_path": corr_by_path["corr"],
+        "launches_per_step": corr_train["flownet_c"]["launches_per_step"][
+            "corr"],
+        "shape": train_fwd["shape"],
+        "max_abs_err": train_fwd["max_abs_err"],
+        "ms": train_fwd["ms"],
+        "call_ms": train_fwd["call_ms"],
+        "plain_ms": train_fwd["plain_ms"],
+        "bound_ms": train_fwd["bound_ms"],
+        "bound_by": train_fwd["bound_by"],
+        "serve_shape": {
+            "launches": corr_launches,
+            "launches_per_dispatch": corr_launches / serve_row["dispatches"],
+            **{k: full[k] for k in ("shape", "max_abs_err", "ms", "call_ms",
+                                    "plain_ms", "bound_ms", "bound_by")}},
         "library_ms": None,
         "library_note": "no single PyTorch call computes a correlation "
                         "cost volume"},
+        corr_bwd_entry("corr_bwd_f1"), corr_bwd_entry("corr_bwd_f2"),
         warp_entry("warp_fwd", "fwd"),
         warp_entry("warp_flow_grad", "flow_grad")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -196,7 +196,7 @@ class RecipeConfig:
 @dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "flyingchairs_flownet_s"
-    model: str = "flownet_s"  # flownet_s | flownet_c in this package
+    model: str = "flownet_s"  # flownet_s | flownet_c | flownet_cs here
     width_mult: float = 1.0
     # FlowNet-C correlation geometry (FlowNet paper: 441 displacements)
     corr_max_disp: int = 20
@@ -362,10 +362,7 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, on every
     setting that the training path cannot honour yet."""
     todo = []
-    if cfg.model in ("flownet_c", "flownet_cs"):
-        todo.append((f"model={cfg.model!r}",
-                     "7 (FlowNet-C/CS training, the correlation backward)"))
-    elif cfg.model != "flownet_s":
+    if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs"):
         todo.append((f"model={cfg.model!r}", "9 (other backbones)"))
     if cfg.train.compute_dtype != "float32":
         todo.append((f"train.compute_dtype={cfg.train.compute_dtype!r}",

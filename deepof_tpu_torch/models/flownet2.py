@@ -1,0 +1,76 @@
+"""FlowNet-CS, stacked flow refinement (port of `FlowNetCS` and
+`refinement_inputs` in `deepof_tpu/models/flownet2.py`; FlowNet 2.0,
+arXiv:1612.01925 §3).
+
+A FlowNet-C base estimate is upsampled to input resolution, frame 2 is
+warped backward by it (`ops/warp.py`, the loss's warp: on the card the
+CUDA warp and flow-gradient kernels), and a FlowNet-S refinement stage
+reads [img1, img2, warped img2, flow, brightness error], 12 channels, to
+predict the pyramid. The whole stack trains end to end: the gradient
+reaches the base stage through the warp's flow input. 2-frame only.
+
+Parameters are scoped `base` (the FlowNetC) and `refine` (the
+FlowNetS), as in the flax module, so `convert.load_flax_params` loads a
+JAX FlowNetCS tree unchanged. Not ported yet: `FlowNetRefine`, the
+standalone stage that serving's warm start feeds with a prior flow
+(ROADMAP Queue A item 8). Tensors are NCHW.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.warp import backward_warp_nchw
+from .flownet_c import FlowNetC
+from .flownet_s import FLOW_SCALES, FlowNetS
+
+
+def refinement_inputs(img1: torch.Tensor, img2: torch.Tensor,
+                      flow: torch.Tensor) -> torch.Tensor:
+    """The stacked refinement input, NCHW: [img1, img2, warp(img2, flow),
+    flow, brightness error], (B, 12, H, W) float32. `flow` (B, 2, H, W)
+    is at input resolution in input pixels (its scale applied); the error
+    is sqrt(sum over channels of (img1 - warped)^2 + 1e-12)."""
+    warped = backward_warp_nchw(img2.float(), flow)
+    err = torch.sqrt(torch.sum(torch.square(img1.float() - warped), dim=1,
+                               keepdim=True) + 1e-12)
+    return torch.cat([img1, img2, warped, flow, err], dim=1)
+
+
+def upsample_flow(flow: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """The base stage's finest flow (B, 2, h, w), in its own pixels, at
+    input resolution `hw` in input pixels: bilinear x2 with half-pixel
+    centres, vectors times 2. `jax.image.resize` antialiases only when it
+    shrinks, so this matches it (F2)."""
+    return F.interpolate(flow, size=hw, mode="bilinear",
+                         align_corners=False) * 2.0
+
+
+class FlowNetCS(nn.Module):
+    flow_scales = FLOW_SCALES
+    max_downsample = 64
+
+    def __init__(self, flow_channels: int = 2, max_disp: int = 20,
+                 corr_stride: int = 2):
+        super().__init__()
+        if flow_channels != 2:
+            raise ValueError(
+                "FlowNetCS is a 2-frame model (6 input channels, 2 flow "
+                f"channels); got {flow_channels} flow channels")
+        self.flow_channels = flow_channels
+        self.max_disp = max_disp
+        self.corr_stride = corr_stride
+        self.base = FlowNetC(flow_channels=2, max_disp=max_disp,
+                             corr_stride=corr_stride)
+        self.refine = FlowNetS(flow_channels=2, in_channels=12)
+
+    def forward(self, pair: torch.Tensor) -> list[torch.Tensor]:
+        if pair.shape[1] != 6:
+            raise ValueError("FlowNetCS is a 2-frame model (6 input "
+                             f"channels); got input {pair.shape[1]}ch")
+        # the finest base level lives at half resolution
+        flow = self.base(pair)[0].float() * self.flow_scales[0]
+        flow = upsample_flow(flow, tuple(pair.shape[-2:]))
+        return self.refine(refinement_inputs(pair[:, :3], pair[:, 3:], flow))

@@ -22,13 +22,17 @@ class FlowNetS(nn.Module):
     flow_scales = FLOW_SCALES
     max_downsample = 64  # six stride-2 stages
 
-    def __init__(self, flow_channels: int = 2, width_mult: float = 1.0):
+    def __init__(self, flow_channels: int = 2, width_mult: float = 1.0,
+                 in_channels: int | None = None):
         super().__init__()
         self.flow_channels = flow_channels
         self.width_mult = width_mult
-        # T frames of 3 channels give 2(T-1) flow channels
-        taps = add_flownet_trunk(self, 3 * (flow_channels // 2 + 1),
-                                 width_mult)
+        # T frames of 3 channels give 2(T-1) flow channels; flax infers
+        # the width from the input, so a stage over another input (the
+        # FlowNet-CS refinement stage's 12 channels) names it
+        if in_channels is None:
+            in_channels = 3 * (flow_channels // 2 + 1)
+        taps = add_flownet_trunk(self, in_channels, width_mult)
         self.decoder = FlowDecoder(
             taps[::-1],
             tuple(scaled_width(f, width_mult) for f in (512, 256, 128, 64, 32)),

@@ -1,8 +1,8 @@
 """Model registry (port of `deepof_tpu/models/registry.py`).
 
-Ported so far: flownet_s and flownet_c. The other names of the JAX
-registry raise NotImplementedError naming the ROADMAP queue that ports
-them.
+Ported so far: flownet_s, flownet_c and flownet_cs. The other names of
+the JAX registry raise NotImplementedError naming the ROADMAP queue that
+ports them.
 """
 
 from __future__ import annotations
@@ -14,19 +14,20 @@ from torch import nn
 
 from ..core.device import resolve_device
 from .common import init_weights
+from .flownet2 import FlowNetCS
 from .flownet_c import FlowNetC
 from .flownet_s import FlowNetS
 
 MODELS = {
     "flownet_s": FlowNetS,
     "flownet_c": FlowNetC,
+    "flownet_cs": FlowNetCS,
 }
 
 #: JAX registry names not ported yet -> where ROADMAP.md plans them.
 NOT_PORTED = {
     "vgg16": "ROADMAP Queue A item 9 (other backbones)",
     "inception_v3": "ROADMAP Queue A item 9 (other backbones)",
-    "flownet_cs": "ROADMAP Queue A item 7 (FlowNet-C/CS training)",
     "st_single": "ROADMAP Queue A item 9 (other backbones)",
     "st_baseline": "ROADMAP Queue A item 9 (other backbones)",
     "ucf101_spatial": "ROADMAP Queue A item 9 (other backbones)",

@@ -1,11 +1,19 @@
-"""Wrapper of the CUDA correlation kernel (`csrc/corr.cu`).
+"""Wrappers of the CUDA correlation kernels: the forward (`csrc/corr.cu`)
+and its two backward kernels (`csrc/corr_bwd.cu`).
 
-Replaces `deepof_tpu/ops/pallas/corr.py::_corr_kernel`. The kernel is
-bound by float32 FMA throughput: each thread keeps a tile of 8 columns x
-7 displacements in registers and does 56 FMAs for every 28 values it
-reads from shared memory (see the note in the source).
+`correlation_cuda` replaces `deepof_tpu/ops/pallas/corr.py::_corr_kernel`.
+The kernel is bound by float32 FMA throughput: each thread keeps a tile
+of 8 columns x 7 displacements in registers and does 56 FMAs for every 28
+values it reads from shared memory (see the note in the source).
+`correlation_bwd_cuda` replaces the custom VJP `_bwd` of the same file
+(an XLA scan): one gather kernel for each feature map's gradient.
 
-This slice's kernel takes float32 only. The JAX kernel also takes bf16
+`correlation_cuda` returns a tensor without a gradient: autograd goes
+through `ops/corr.py::Correlation`, which calls both wrappers, and
+`correlation_cuda` raises when it is handed a tensor that requires grad
+with grad mode on, so no caller can drop the gradient silently.
+
+These kernels take float32 only. The JAX kernel also takes bf16
 (accumulating in f32 and returning bf16, `ops/pallas/corr.py:104-106`);
 that path comes with the bf16 serving tier. Until then a bf16 CUDA
 tensor raises here rather than being converted.
@@ -23,44 +31,62 @@ import torch
 from .build import LaunchCounter, check, load
 
 launches = LaunchCounter("corr")
+bwd_f1_launches = LaunchCounter("corr_bwd_f1")
+bwd_f2_launches = LaunchCounter("corr_bwd_f2")
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load("corr")
-    fn = lib.deepof_corr_fwd_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+def _lib(name: str, fns: tuple[str, ...]) -> ctypes.CDLL:
+    lib = load(name)
+    for fn_name in fns:
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _check(what: str, max_disp: int, stride: int,
+           tensors: tuple[tuple[str, torch.Tensor], ...]) -> None:
+    """Contiguous (B, C, H, W) float32 tensors on one CUDA device and a
+    valid geometry, or raise."""
+    for name, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} is {t.dtype}; this kernel "
+                            "takes float32 only")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"(B, C, H, W) tensor, got {tuple(t.shape)}")
+    f1, f2 = tensors[0][1], tensors[1][1]
+    if f1.shape != f2.shape or any(t.device != f1.device
+                                   for _, t in tensors):
+        raise ValueError(f"{what}: " + " vs ".join(
+            f"{n} {tuple(t.shape)} on {t.device}" for n, t in tensors))
+    if stride <= 0 or max_disp < 0:
+        raise ValueError(f"{what}: max_disp={max_disp}, stride={stride}")
 
 
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
                      stride: int) -> torch.Tensor:
     """(B, C, H, W) float32 x2 on one CUDA device ->
-    (B, (2K+1)**2, H, W) float32, K = max_disp // stride."""
-    for name, t in (("f1", f1), ("f2", f2)):
-        if t.device.type != "cuda":
-            raise ValueError(f"correlation_cuda: {name} is on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"correlation_cuda: {name} is {t.dtype}; this "
-                            "kernel takes float32 only")
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"correlation_cuda: {name} must be a contiguous "
-                             f"(B, C, H, W) tensor, got {tuple(t.shape)}")
-    if f1.shape != f2.shape or f1.device != f2.device:
-        raise ValueError(f"correlation_cuda: f1 {tuple(f1.shape)} on "
-                         f"{f1.device} vs f2 {tuple(f2.shape)} on {f2.device}")
-    if stride <= 0 or max_disp < 0:
-        raise ValueError(f"correlation_cuda: max_disp={max_disp}, "
-                         f"stride={stride}")
+    (B, (2K+1)**2, H, W) float32, K = max_disp // stride. The result has
+    no gradient: with grad mode on, an input that requires grad raises
+    (call `ops/corr.py::correlation_nchw`, which differentiates)."""
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        raise RuntimeError(
+            "correlation_cuda: an input requires grad, and this kernel's "
+            "result has none; differentiate through "
+            "ops/corr.py::correlation_nchw (the Correlation Function)")
+    _check("correlation_cuda", max_disp, stride, (("f1", f1), ("f2", f2)))
     b, c, h, w = f1.shape
     n = 2 * (max_disp // stride) + 1
     out = torch.empty((b, n * n, h, w), device=f1.device, dtype=torch.float32)
-    lib = _lib()
+    lib = _lib("corr", ("deepof_corr_fwd_f32",))
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.deepof_corr_fwd_f32(f1.data_ptr(), f2.data_ptr(),
@@ -69,3 +95,36 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
     check(lib, rc, "corr kernel launch")
     launches.add()
     return out
+
+
+def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                         max_disp: int, stride: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (df1, df2) of `correlation_cuda(f1, f2, max_disp,
+    stride)` for its cotangent g (B, (2K+1)**2, H, W): one launch of
+    `corr_bwd_f1` and one of `corr_bwd_f2`. All float32, contiguous, on
+    one CUDA device."""
+    _check("correlation_bwd_cuda", max_disp, stride,
+           (("f1", f1), ("f2", f2), ("g", g)))
+    b, c, h, w = f1.shape
+    n = 2 * (max_disp // stride) + 1
+    if g.shape != (b, n * n, h, w):
+        raise ValueError(f"correlation_bwd_cuda: g {tuple(g.shape)}; want "
+                         f"{(b, n * n, h, w)} for max_disp={max_disp}, "
+                         f"stride={stride}")
+    df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+    lib = _lib("corr_bwd",
+               ("deepof_corr_bwd_f1_f32", "deepof_corr_bwd_f2_f32"))
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.deepof_corr_bwd_f1_f32(f2.data_ptr(), g.data_ptr(),
+                                        df1.data_ptr(), b, c, h, w, max_disp,
+                                        stride, stream)
+        check(lib, rc, "corr_bwd_f1 kernel launch")
+        bwd_f1_launches.add()
+        rc = lib.deepof_corr_bwd_f2_f32(f1.data_ptr(), g.data_ptr(),
+                                        df2.data_ptr(), b, c, h, w, max_disp,
+                                        stride, stream)
+        check(lib, rc, "corr_bwd_f2 kernel launch")
+        bwd_f2_launches.add()
+    return df1, df2

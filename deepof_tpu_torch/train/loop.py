@@ -95,7 +95,8 @@ class Trainer:
                         else build_dataset(cfg.data))
         self.model = build_model(
             cfg.model, flow_channels=2 * (cfg.data.time_step - 1),
-            width_mult=cfg.width_mult, seed=cfg.train.seed,
+            width_mult=cfg.width_mult, corr_max_disp=cfg.corr_max_disp,
+            corr_stride=cfg.corr_stride, seed=cfg.train.seed,
             device=self.device)
         self.logger = MetricsLogger(cfg.train.log_dir)
         self.steps_per_epoch = max(

@@ -1,6 +1,7 @@
 """The PyTorch port's command line, on the CPU at width 0.25 and batch 2
 (the --synthetic smoke size otherwise): train, resume, eval, predict and
-config, and the JAX package's flags that the port does not take yet."""
+config, FlowNet-C at a correlation geometry set on the command line, and
+the JAX package's flags that the port does not take yet."""
 
 import dataclasses
 import json
@@ -16,6 +17,7 @@ from deepof_tpu_torch.data.pipeline import derive_batch_rng
 from deepof_tpu_torch.io.flo import read_flo
 from deepof_tpu_torch.io.ppm import write_ppm_bgr
 from deepof_tpu_torch.resilience.verify import verify_run
+from deepof_tpu_torch.train.checkpoint import CheckpointManager
 
 SMOKE = ["--synthetic", "--model", "flownet_s", "--device", "cpu",
          "--set", "width_mult=0.25", "--set", "data.batch_size=2"]
@@ -99,6 +101,28 @@ def test_predict_without_a_checkpoint_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         cli.main(["predict", *SMOKE, "--log-dir", str(tmp_path),
                   "--out", str(tmp_path / "o"), "--pairs", "a.npy:b.npy"])
+
+
+def test_flownet_c_trains_and_evaluates_at_its_set_geometry(tmp_path,
+                                                            capsys):
+    log_dir = str(tmp_path)
+    argv = ["--synthetic", "--model", "flownet_c", "--device", "cpu",
+            "--set", "width_mult=0.25", "--set", "data.batch_size=2",
+            "--set", "corr_max_disp=4", "--set", "corr_stride=1",
+            "--log-dir", log_dir]
+    _run(capsys, "train", *argv, "--steps", "2", "--set",
+         "train.log_every=1")
+    train = [r for r in _records(log_dir) if r["kind"] == "train"]
+    assert train[-1]["step"] == 2
+    assert all(np.isfinite(r["loss"]) for r in train)
+    out = _run(capsys, "eval", *argv)
+    for k in ("aee", "aae", "val_loss"):
+        assert np.isfinite(out[k]), k
+    # the checkpoint's model reads a cost volume of (2 * 4 + 1)**2 maps:
+    # conv3_1 takes 81 + 8 (conv_redir) channels
+    sd = CheckpointManager(os.path.join(log_dir, "ckpt"),
+                           create=False).restore_raw(subtree="model")
+    assert sd["conv3_1.conv.weight"].shape[1] == 81 + 8
 
 
 def test_config_prints_a_dict_that_reads_back(capsys):

@@ -1,19 +1,21 @@
-"""Tests of the PyTorch port's CUDA kernels (correlation, warp and its
-flow gradient, one level and a list of levels per launch), on the card.
+"""Tests of the PyTorch port's CUDA kernels (correlation and its two
+backward kernels, warp and its flow gradient, one level and a list of
+levels per launch), on the card.
 
 They skip on a host without a CUDA device. This file imports no JAX, so
 it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Add `-k corr` or `-k warp` for one kernel's cases.
+Add `-k corr`, `-k corr_bwd` or `-k warp` for one kernel's cases.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from deepof_tpu_torch.ops.corr import correlation_nchw, correlation_reference
+from deepof_tpu_torch.ops.corr import (correlation_backward_reference,
+                                       correlation_nchw, correlation_reference)
 
 # (B, C, H, W), max_disp, stride. The kernel's tiles (csrc/corr.cu): 64
 # columns a block, 8 a thread, 7 displacement columns a thread, up to 7
@@ -66,6 +68,65 @@ def test_corr_kernel_refuses_what_it_does_not_take(cuda):
         correlation_cuda(t.transpose(2, 3), t.transpose(2, 3), 2, 1)
     with pytest.raises(ValueError, match="vs"):
         correlation_cuda(t, t[:, :2].contiguous(), 2, 1)
+
+
+# (B, C, H, W), max_disp, stride of the backward kernels (csrc/corr_bwd.cu:
+# 32 x 8 pixels a block, 8 channels a thread, one template instance for
+# each stride 1-4 and a generic one): strides 1-5, C not a multiple of 8
+# (40, 17, 12, 3), W not a multiple of 32, H under the pad (5 < 20),
+# max_disp = 0 (n = 1), and the training shape (batch 4).
+CORR_BWD_CASES = [((2, 8, 12, 16), 2, 1), ((3, 40, 13, 17), 4, 1),
+                  ((2, 12, 11, 16), 4, 2), ((3, 17, 11, 64), 12, 3),
+                  ((2, 24, 9, 36), 8, 4), ((2, 20, 9, 23), 10, 5),
+                  ((2, 3, 10, 20), 0, 1), ((2, 12, 5, 33), 20, 2),
+                  ((4, 256, 48, 64), 20, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_disp,stride", CORR_BWD_CASES)
+def test_corr_bwd_kernels_match_reference(cuda, shape, max_disp, stride):
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    rs = np.random.RandomState(1)
+    b, c, h, w = shape
+    n = 2 * (max_disp // stride) + 1
+    f1, f2 = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
+              .requires_grad_(True) for _ in range(2))
+    g = torch.from_numpy(rs.randn(b, n * n, h, w).astype(np.float32)).to(cuda)
+    counters = (cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches)
+    before = [k.count for k in counters]
+    correlation_nchw(f1, f2, max_disp, stride).backward(g)  # the kernels
+    assert [k.count - b0 for k, b0 in zip(counters, before)] == [1, 1, 1]
+    want = correlation_backward_reference(f1.detach(), f2.detach(), g,
+                                          max_disp, stride)
+    # float32 sums of up to n*n*C terms in another order: 1e-5 of the
+    # largest gradient entry
+    for got, w in zip((f1.grad, f2.grad), want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(got, w, atol=1e-5 * scale, rtol=0)
+    # a fixed summation order and no atomics: the same bits every call
+    again = cc.correlation_bwd_cuda(f1.detach(), f2.detach(), g, max_disp,
+                                    stride)
+    assert torch.equal(again[0], f1.grad) and torch.equal(again[1], f2.grad)
+
+
+@pytest.mark.cuda
+def test_corr_kernels_refuse_what_they_do_not_take(cuda):
+    from deepof_tpu_torch.ops.cuda.corr import (correlation_bwd_cuda,
+                                                correlation_cuda)
+
+    t = torch.zeros(1, 4, 5, 6, device=cuda)
+    g = torch.zeros(1, 9, 5, 6, device=cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        correlation_cuda(t.clone().requires_grad_(True), t, 2, 2)
+    with torch.no_grad():  # no graph: the kernel may run
+        correlation_cuda(t.clone().requires_grad_(True), t, 2, 2)
+    with pytest.raises(TypeError, match="float32"):
+        correlation_bwd_cuda(t, t, g.bfloat16(), 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation_bwd_cuda(t, t, g.transpose(2, 3), 2, 2)
+    with pytest.raises(ValueError, match="want"):
+        correlation_bwd_cuda(t, t, g, 2, 1)  # n = 5: g needs 25 maps
 
 
 # (B, C, H, W), flow magnitude: training pyramid levels, a ragged shape

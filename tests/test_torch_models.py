@@ -1,5 +1,5 @@
 """The PyTorch port's FlowNet-S and FlowNet-C against the flax models,
-through the weight converter.
+through the weight converter, and FlowNet-CS's parameter count.
 
 Every flax parameter is replaced with RandomState normals first: the
 bilinear deconv init is symmetric and would hide a missing kernel flip.
@@ -55,7 +55,9 @@ def test_pyramid_matches_flax(name):
                                    err_msg=f"{name} level {level}")
 
 
-@pytest.mark.parametrize("name", sorted(SMALL))
+# FlowNet-CS is full width only (no width_mult); its pyramid is compared
+# in test_torch_flownet2.py
+@pytest.mark.parametrize("name", [*sorted(SMALL), "flownet_cs"])
 def test_full_width_param_count_matches_flax(name):
     jm = jax_build_model(name)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),

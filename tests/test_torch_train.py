@@ -114,8 +114,9 @@ def _batches(n, bs=2):
             for i in range(n)]
 
 
-def _jax_steps(params, batches, clip, loss, optim):
-    jm = jax_build_model("flownet_s", width_mult=0.25)
+def _jax_steps(params, batches, clip, loss, optim, model="flownet_s",
+               **model_kw):
+    jm = jax_build_model(model, width_mult=0.25, **model_kw)
     tx = jax_optimizer(JaxOptimConfig(grad_clip_norm=clip, **optim),
                        jax_schedule(JaxOptimConfig(**optim), 1))
 
@@ -154,10 +155,10 @@ def _port_trainer_parts(params, clip, loss=None, optim=OPTIM):
     return model, state, make_train_step(model, cfg, (0.0, 0.0, 0.0))
 
 
-def _flax_params(seed=0):
-    jm = jax_build_model("flownet_s", width_mult=0.25)
-    params = jm.init(jax.random.PRNGKey(seed),
-                     jnp.zeros((1, *HW, 6)))["params"]
+def _flax_params(seed=0, model="flownet_s", **model_kw):
+    jm = jax_build_model(model, width_mult=0.25, **model_kw)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(seed),
+                              jnp.zeros((1, *HW, 6)))["params"]
     return jax.tree_util.tree_map(np.asarray, params)
 
 
@@ -195,6 +196,39 @@ def test_three_train_steps_match_jax(loss, clip, optim):
                 np.testing.assert_allclose(g, w.numpy(), rtol=0,
                                            atol=tol * scale, err_msg=name)
     assert state.step == 3
+
+
+def test_flownet_c_trainer_steps_match_jax(tmp_path):
+    """A FlowNet-C `Trainer` at geometry 4 / 1 builds its model at that
+    geometry (the JAX loop passes it on; F8) and its steps are the JAX
+    steps, at F6's limits for the default loss (module docstring)."""
+    geometry = {"corr_max_disp": 4, "corr_stride": 1}
+    cfg = ExperimentConfig(
+        model="flownet_c", width_mult=0.25, **geometry,
+        data=DataConfig(dataset="synthetic", image_size=HW, batch_size=2),
+        train=TrainConfig(log_dir=str(tmp_path)))
+    trainer = Trainer(cfg, device="cpu")
+    assert (trainer.model.max_disp, trainer.model.corr_stride) == (4, 1)
+    params = _flax_params(model="flownet_c", **geometry)
+    load_flax_params(trainer.model, params)
+    batches = _batches(2)
+    want, want_grads = _jax_steps(params, batches, None, {}, {},
+                                  model="flownet_c", **geometry)
+    for i, b in enumerate(batches):
+        got = trainer.train_step(trainer.state, b)
+        assert got["update_skipped"] == 0.0
+        for k, w in want[i].items():
+            rtol = 3e-3 if k == "grad_norm" else 1e-4
+            np.testing.assert_allclose(np.asarray(got[k]), w, rtol=rtol,
+                                       atol=1e-7, err_msg=f"step {i} {k}")
+        if i == 0:
+            grads = dict(trainer.model.named_parameters())
+            for name, w in state_dict_from_flax(want_grads).items():
+                scale = float(np.abs(w.numpy()).max())
+                np.testing.assert_allclose(grads[name].grad.numpy(),
+                                           w.numpy(), rtol=0,
+                                           atol=2e-2 * scale, err_msg=name)
+    assert trainer.state.step == 2
 
 
 def test_nonfinite_batch_is_skipped():
@@ -251,7 +285,7 @@ def test_trainer_fits_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"model": "flownet_c"}, {"train": TrainConfig(compute_dtype="bfloat16")},
+    {"model": "vgg16"}, {"train": TrainConfig(compute_dtype="bfloat16")},
     {"optim": OptimConfig(grad_accum=2)},
     {"data": DataConfig(time_step=3)},
     {"data": DataConfig(augment_geo=True)}])
