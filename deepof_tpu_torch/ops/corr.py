@@ -24,21 +24,26 @@ def correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
                           max_disp: int = 20, stride: int = 2) -> torch.Tensor:
     """Plain PyTorch version: (B, C, H, W) x2 -> (B, n*n, H, W).
 
-    A loop over the n*n offsets into a zero-padded f2; the channel mean
-    is taken in float32 and the result returned in the input dtype."""
+    A loop over the channels, ascending, that adds f1 times the n*n
+    shifted windows of a zero-padded f2 into one float32 sum, then scales
+    it by the float32 1/C once: the kernel's order (`csrc/corr.cu`). On
+    the card `addcmul_` is one fused multiply-add, so the two agree bit
+    for bit, which the train step needs: its photometric gradient
+    amplifies a rounding difference in the cost volume (ROADMAP F6).
+    Returns the input dtype."""
     b, c, h, w = f1.shape
     k = max_disp // stride
     n = 2 * k + 1
     pad = k * stride
     a = f1.float()
     f2p = F.pad(f2.float(), (pad, pad, pad, pad))
-    out = torch.empty((b, n * n, h, w), dtype=torch.float32, device=f1.device)
-    for i in range(n):
-        dy = i * stride
-        for j in range(n):
-            dx = j * stride
-            out[:, i * n + j] = (a * f2p[:, :, dy:dy + h, dx:dx + w]).mean(1)
-    return out.to(f1.dtype)
+    acc = torch.zeros((b, n, n, h, w), dtype=torch.float32, device=f1.device)
+    for ch in range(c):
+        # [b, i, j, y, x] = f2p[b, ch, i*stride + y, j*stride + x]
+        windows = f2p[:, ch].unfold(1, h, stride).unfold(2, w, stride)
+        acc.addcmul_(a[:, ch, None, None], windows)
+    inv_c = torch.tensor(c, dtype=torch.float32).reciprocal().item()
+    return acc.mul_(inv_c).reshape(b, n * n, h, w).to(f1.dtype)
 
 
 def correlation_backward_reference(f1: torch.Tensor, f2: torch.Tensor,

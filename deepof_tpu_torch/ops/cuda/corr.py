@@ -4,9 +4,19 @@ and its two backward kernels (`csrc/corr_bwd.cu`).
 `correlation_cuda` replaces `deepof_tpu/ops/pallas/corr.py::_corr_kernel`.
 The kernel is bound by float32 FMA throughput: each thread keeps a tile
 of 8 columns x 7 displacements in registers and does 56 FMAs for every 28
-values it reads from shared memory (see the note in the source).
+values it reads from shared memory (see the note in the source). Each
+output sums the channels ascending with fused multiply-adds and is
+scaled by 1/C once, as `correlation_reference` does: the same bits.
 `correlation_bwd_cuda` replaces the custom VJP `_bwd` of the same file
-(an XLA scan): one gather kernel for each feature map's gradient.
+(an XLA scan): one gather kernel for each feature map's gradient, on the
+forward's recipe. A block stages, for each displacement row, the feature
+row of 64 channels over its 64 columns plus the halo, and the g values
+its columns read, in shared memory; a thread keeps 8 columns x 8
+channels of sums in registers and does 448 FMAs for every 14 float4 g
+loads and 160 feature loads it makes from shared memory (see the note in
+the source). Each output is summed by one thread over the displacements
+in the plain version's order, with no atomics: two calls give the same
+bits, and for a power-of-two channel count the plain backward's bits.
 
 `correlation_cuda` returns a tensor without a gradient: autograd goes
 through `ops/corr.py::Correlation`, which calls both wrappers, and

@@ -52,8 +52,9 @@ def test_corr_kernel_matches_reference(cuda, shape, max_disp, stride):
     got = correlation_nchw(f1, f2, max_disp, stride)  # "auto": the kernel
     assert launches.count == before + 1
     want = correlation_reference(f1, f2, max_disp, stride)
-    # float32, sums over channels in another order
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    # the same float32 fused multiply-adds over the channels, ascending,
+    # and the same float32 1/C: the same bits at every C
+    assert torch.equal(got, want)
     assert torch.equal(got, correlation_cuda(f1, f2, max_disp, stride))
 
 
@@ -71,14 +72,20 @@ def test_corr_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # (B, C, H, W), max_disp, stride of the backward kernels (csrc/corr_bwd.cu:
-# 32 x 8 pixels a block, 8 channels a thread, one template instance for
-# each stride 1-4 and a generic one): strides 1-5, C not a multiple of 8
-# (40, 17, 12, 3), W not a multiple of 32, H under the pad (5 < 20),
-# max_disp = 0 (n = 1), and the training shape (batch 4).
+# 64 columns x 64 channels a block, 8 columns x 8 channels a thread, the
+# displacement columns staged 21 at a time and walked 7 at a time; one
+# template instance for each stride 1-4 and a generic one): strides 1-5,
+# C not a multiple of 8 or 64 (40, 17, 12, 3, 33, 264), W not a multiple
+# of 64 and across tiles (16, 17, 23, 33, 36, 65, 130), H and W under the
+# pad (5 < 20, W 9 < 20), n = 41 (two staged blocks of displacement
+# columns), max_disp = 0 (n = 1), and the training shape (batch 4).
 CORR_BWD_CASES = [((2, 8, 12, 16), 2, 1), ((3, 40, 13, 17), 4, 1),
                   ((2, 12, 11, 16), 4, 2), ((3, 17, 11, 64), 12, 3),
                   ((2, 24, 9, 36), 8, 4), ((2, 20, 9, 23), 10, 5),
                   ((2, 3, 10, 20), 0, 1), ((2, 12, 5, 33), 20, 2),
+                  ((2, 33, 7, 65), 8, 2), ((1, 264, 6, 130), 20, 2),
+                  ((2, 16, 5, 9), 20, 2), ((1, 64, 9, 70), 20, 1),
+                  ((2, 128, 8, 65), 0, 1), ((2, 64, 12, 130), 12, 4),
                   ((4, 256, 48, 64), 20, 2)]
 
 
@@ -99,11 +106,15 @@ def test_corr_bwd_kernels_match_reference(cuda, shape, max_disp, stride):
     assert [k.count - b0 for k, b0 in zip(counters, before)] == [1, 1, 1]
     want = correlation_backward_reference(f1.detach(), f2.detach(), g,
                                           max_disp, stride)
-    # float32 sums of up to n*n*C terms in another order: 1e-5 of the
-    # largest gradient entry
+    # float32 sums of up to n*n*C terms in the plain version's order, but
+    # scaled by 1/C at the end where the plain version divides g by C
+    # first: 1e-5 of the largest gradient entry, and the same bits where
+    # C is a power of two (the scaling is exact)
     for got, w in zip((f1.grad, f2.grad), want):
         scale = float(w.abs().max())
         torch.testing.assert_close(got, w, atol=1e-5 * scale, rtol=0)
+        if c & (c - 1) == 0:
+            assert torch.equal(got, w)
     # a fixed summation order and no atomics: the same bits every call
     again = cc.correlation_bwd_cuda(f1.detach(), f2.detach(), g, max_disp,
                                     stride)

@@ -1,23 +1,31 @@
 """The PyTorch port's training loop alone (width 0.25, 64x64, batch 2, on
 the CPU, the "blobs" synthetic data): the divergence ladder, the loss sequence
-across prefetch depths and worker counts, and the step timer's medians.
-The fit against the JAX package's is in `test_torch_fit.py`.
+across prefetch depths and worker counts, the draw on a second thread,
+and the step timer's medians. The fit against the JAX package's is in
+`test_torch_fit.py`.
 
 Tolerance: the loss sequence is compared exactly. The same batches reach
-the same CPU computation from the same seeded weights.
+the same CPU computation from the same seeded weights, on one intra-op
+thread: a CPU step's bits follow how its reductions and convolutions are
+split over OpenMP threads (3, 5, 6 or 7 threads give other bits than 8),
+so fits that must agree to the bit run with one thread, whatever the
+count a region gets on a loaded host. The draws are compared exactly.
 """
 
 import dataclasses
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
+import torch
 
 from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
                                           ResilienceConfig, TrainConfig)
 from deepof_tpu_torch.data.datasets import SyntheticData
-from deepof_tpu_torch.train.loop import Trainer
+from deepof_tpu_torch.data.pipeline import derive_batch_rng
+from deepof_tpu_torch.train.loop import Trainer, data_stream_seed
 
 STEPS = 4
 
@@ -42,7 +50,17 @@ def _losses(log_dir):
 
 
 @pytest.fixture(scope="module")
-def default_losses(tmp_path_factory):
+def one_thread():
+    """PyTorch's intra-op threads set to one for the fits that must agree
+    to the bit, and set back after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def default_losses(one_thread, tmp_path_factory):
     """The train losses of a fit at the default prefetch depth (2) and
     worker count (0)."""
     log_dir = tmp_path_factory.mktemp("default")
@@ -57,6 +75,35 @@ def test_loss_sequence_is_the_same_for_any_prefetch_and_workers(
                   num_workers=num_workers)).fit(max_steps=STEPS)
     assert len(default_losses) == STEPS
     assert _losses(tmp_path) == default_losses
+
+
+@pytest.mark.parametrize("style", ["blobs", "noise"])
+def test_draw_on_a_second_thread_equals_the_draw_alone(tmp_path, style):
+    """Batch i of a fit is `sample_train(rng=derive_batch_rng(seed, i))`
+    on the prefetch thread while the main thread steps: drawn on a second
+    thread during train steps, it has the bits of the same draw alone
+    ("noise" resizes with PyTorch on the drawing thread)."""
+    cfg = _cfg(tmp_path)
+    data = SyntheticData(cfg.data, style=style)
+    seed = data_stream_seed(cfg.train.seed, 0)
+
+    def draws():
+        return [data.sample_train(2, rng=derive_batch_rng(seed, i))
+                for i in range(6)]
+
+    alone = draws()
+    trainer = Trainer(cfg, dataset=data, device="cpu")
+    beside: list[dict] = []
+    thread = threading.Thread(target=lambda: beside.extend(draws()))
+    thread.start()
+    for batch in alone[:2]:
+        trainer.train_step(trainer.state, batch)
+    thread.join()
+    assert len(beside) == len(alone)
+    for a, b in zip(alone, beside):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert np.array_equal(a[k], b[k]), k
 
 
 def _ladder_trainer(log_dir, poisoned):
