@@ -27,7 +27,14 @@ read after it):
     card-resident batches, each step against the plain correlation
     (`train_flownet_c`, `train_flownet_cs`: the correlation forward and
     both backward kernels once a step), and FlowNet-C from the command
-    line: `train`, `eval` and `predict` (`cli_train_flownet_c`).
+    line: `train`, `eval` and `predict` (`cli_train_flownet_c`);
+  - bf16 compute (`train.compute_dtype=bfloat16`): the correlation
+    forward and backward kernels' bf16 paths, bit for bit the float32
+    kernels rounded, at the training shape and small cases; FlowNet-C
+    training in bf16 against the plain correlation, beside a float32
+    trainer (`train_flownet_c_bf16`), and its `train` and `eval` from the
+    command line (`cli_train_flownet_c_bf16`): the bf16 kernels once a
+    step and the float32 correlation kernels never.
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -58,9 +65,11 @@ import threading
 import time
 
 # Data-sheet peaks of one H100 SXM (dense): float32 outside the tensor
-# cores, and HBM3 bandwidth. The bound of a kernel is the larger of its
-# operations over the first and its bytes over the second.
+# cores, bf16 on the tensor cores, and HBM3 bandwidth. The bound of a
+# kernel is the larger of its operations over the peak for its inputs'
+# type and its bytes over the bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 KERNEL_TOL = 1e-4  # kernel vs plain version, float32 (summation order)
@@ -139,43 +148,76 @@ def device_ms_by_name(fn, names, iters: int = 20) -> dict[str, float]:
                          f"{names}")
 
 
-def corr_bound_ms(b, c, h, w, max_disp, stride) -> tuple[float, str]:
+def corr_bound_ms(b, c, h, w, max_disp, stride,
+                  elem_bytes: int = 4) -> tuple[float, str]:
     """The bound of the correlation and of each of its backward kernels
     (the same work): one FMA a channel for each pixel and displacement
     whose shifted pixel lies inside the image (the others meet the zero
-    padding and need none), against the bytes of two C-channel maps and
-    one (2K+1)**2-channel map, each moved once."""
+    padding and need none), at the peak for the inputs' type (float32,
+    or bf16 on the tensor cores: the kernels' own float32 FMAs on bf16
+    data are their design, not the function's need), against the bytes
+    of two C-channel maps and one (2K+1)**2-channel map of `elem_bytes`
+    each (4 float32, 2 bf16), each moved once."""
     k = max_disp // stride
     n = 2 * k + 1
     offs = [(i - k) * stride for i in range(n)]
     rows = sum(max(h - abs(d), 0) for d in offs)
     cols = sum(max(w - abs(d), 0) for d in offs)
-    t_ops = 2.0 * b * rows * cols * c / PEAK_F32_FLOPS
-    t_bytes = 4.0 * (2 * b * c * h * w + b * n * n * h * w) / PEAK_BYTES_S
+    peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    t_ops = 2.0 * b * rows * cols * c / peak
+    t_bytes = (elem_bytes * (2 * b * c * h * w + b * n * n * h * w)
+               / PEAK_BYTES_S)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def check_corr(shape, max_disp, stride, seed, bitwise=False):
-    """Kernel vs correlation_reference on the card at one NCHW shape: with
-    `bitwise`, `torch.equal` (C = 256: the same sums in the same order,
-    and 1/C exact); otherwise within KERNEL_TOL. The kernel and the plain
-    version are timed twice: device time (`ms`, `plain_ms`,
-    torch.profiler) and the CUDA-event time of one call, host launch
-    included (`call_ms`, `plain_call_ms`)."""
+# the kernels' dtypes: (torch dtype name, launch-counter suffix)
+DTYPES = {"float32": "", "bfloat16": "_bf16"}
+CORR_KERNELS = ("corr", "corr_bwd_f1", "corr_bwd_f2")
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of `want`, an ulp being that
+    of max(|want|, 2**-12 * max |want|): near a sum that cancels to ~0,
+    a float32 difference of the order of the terms' rounding is many ulps
+    of the small result, and the floor keeps those out of the count."""
+    import torch
+
+    w = want.float().abs()
+    floor = w.max().clamp_min(1e-30) * 2.0 ** -12
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(w, floor))) - 7)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def check_corr(shape, max_disp, stride, seed, bitwise=False,
+               dtype="float32"):
+    """Kernel vs correlation_reference on the card at one NCHW shape, in
+    `dtype` (float32 or bfloat16): with `bitwise`, `torch.equal` (C = 256:
+    the same sums in the same order, and 1/C exact); otherwise within
+    KERNEL_TOL (float32) or one bf16 ulp (`bf16_ulps`). A bf16 call must
+    also be bit for bit the float32 kernel on the upcast inputs, rounded
+    to bf16. The kernel and the plain version are timed twice: device
+    time (`ms`, `plain_ms`, torch.profiler) and the CUDA-event time of
+    one call, host launch included (`call_ms`, `plain_call_ms`); with
+    the registers and spills of the kernel's template instances of this
+    dtype (nvcc's `-Xptxas -v`)."""
     import torch
 
     from deepof_tpu_torch.ops.corr import correlation_reference
+    from deepof_tpu_torch.ops.cuda import build
     from deepof_tpu_torch.ops.cuda.corr import correlation_cuda
 
+    bf16 = dtype == "bfloat16"
     g = torch.Generator(device="cuda").manual_seed(seed)
-    f1 = torch.randn(shape, device="cuda", generator=g)
-    f2 = torch.randn(shape, device="cuda", generator=g)
+    f1 = torch.randn(shape, device="cuda", generator=g).to(getattr(torch,
+                                                                   dtype))
+    f2 = torch.randn(shape, device="cuda", generator=g).to(f1.dtype)
     got = correlation_cuda(f1, f2, max_disp, stride)
     want = correlation_reference(f1, f2, max_disp, stride)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    bound, bound_by = corr_bound_ms(*shape, max_disp, stride)
+    err = (got.float() - want.float()).abs().max().item()
+    bound, bound_by = corr_bound_ms(*shape, max_disp, stride,
+                                    f1.element_size())
 
     def kernel():
         return correlation_cuda(f1, f2, max_disp, stride)
@@ -184,25 +226,39 @@ def check_corr(shape, max_disp, stride, seed, bitwise=False):
         return correlation_reference(f1, f2, max_disp, stride)
 
     row = {"shape": list(shape), "max_disp": max_disp, "stride": stride,
-           "max_abs_err": err, "bitwise_equal": bool(torch.equal(got, want)),
+           "dtype": dtype, "max_abs_err": err,
+           "bitwise_equal": bool(torch.equal(got, want)),
            "ms": device_ms(kernel),
            "call_ms": time_ms(kernel), "plain_ms": device_ms(plain, iters=3),
            "plain_call_ms": time_ms(plain, warmup=1, iters=5),
-           "bound_ms": bound, "bound_by": bound_by}
-    emit("kernels", kernel="corr", **row)
-    if not (row["bitwise_equal"] if bitwise else err <= KERNEL_TOL):
+           "bound_ms": bound, "bound_by": bound_by,
+           "ptxas": ptxas_usage(build.build("corr")["log"], "corr_fwd",
+                                bf16)}
+    if bf16:
+        rounded = correlation_cuda(f1.float(), f2.float(), max_disp,
+                                   stride).bfloat16()
+        row.update(max_ulps=bf16_ulps(got, want),
+                   equals_f32_kernel_rounded=bool(torch.equal(got, rounded)))
+    name = "corr" + DTYPES[dtype]
+    emit("kernels", kernel=name, **row)
+    close = (row["max_ulps"] <= 1 if bf16 else err <= KERNEL_TOL)
+    if not ((row["bitwise_equal"] if bitwise else close)
+            and row.get("equals_f32_kernel_rounded", True)):
         raise AssertionError(
-            f"corr kernel disagrees at {shape}: max abs err {err} ("
-            + ("not bitwise equal" if bitwise else f"limit {KERNEL_TOL}")
-            + ")")
+            f"{name} kernel disagrees at {shape}: max abs err {err} ("
+            + ("not bitwise equal" if bitwise else
+               "limit one bf16 ulp" if bf16 else f"limit {KERNEL_TOL}")
+            + f"), or not the float32 kernel rounded: {row}")
     return row
 
 
-def ptxas_usage(log: str, kernel: str) -> dict[str, dict]:
+def ptxas_usage(log: str, kernel: str,
+                bf16: bool = False) -> dict[str, dict]:
     """{"stride <S>" or "any stride": {"registers", "spill_stores",
     "spill_loads"}} of each template instance of `kernel` (a template
-    on the stride; 0 is the generic instance), read from nvcc's
-    `-Xptxas -v` output."""
+    on the stride, 0 being the generic instance, and on the element
+    type: the bf16 instances with `bf16`, else the float32 ones), read
+    from nvcc's `-Xptxas -v` output."""
     out: dict[str, dict] = {}
     entry = None
     for line in log.splitlines():
@@ -211,7 +267,8 @@ def ptxas_usage(log: str, kernel: str) -> dict[str, dict]:
         if m:
             entry = m.group(1)
             continue
-        if entry is None or kernel not in entry:
+        if (entry is None or kernel not in entry
+                or ("nv_bfloat16" in entry) != bf16):
             continue
         stride = int(re.search(r"ILi(\d+)E", entry).group(1))
         key = f"stride {stride}" if stride else "any stride"
@@ -227,7 +284,7 @@ def ptxas_usage(log: str, kernel: str) -> dict[str, dict]:
 
 
 def check_corr_bwd(shape, max_disp, stride, seed, timed=True,
-                   bitwise=False):
+                   bitwise=False, dtype="float32"):
     """Both backward kernels (`correlation_bwd_cuda`) vs
     correlation_backward_reference on the card at one NCHW shape: with
     `bitwise`, both gradients `torch.equal` to the plain backward (the
@@ -238,19 +295,22 @@ def check_corr_bwd(shape, max_disp, stride, seed, timed=True,
     WARP_ROUNDS readings, `ms_runs`, the median reported), the CUDA-event
     time of one wrapper call (both launches), the plain backward's device
     and call times (both gradients at once), and each kernel's registers
-    and spills by template instance (nvcc's `-Xptxas -v`)."""
+    and spills by template instance (nvcc's `-Xptxas -v`). In bfloat16
+    (`dtype`), each gradient must also be bit for bit the float32
+    kernel's on the upcast inputs, rounded to bf16, and the non-bitwise
+    limit is one bf16 ulp (`bf16_ulps`) in place of KERNEL_TOL."""
     import torch
 
     from deepof_tpu_torch.ops.corr import correlation_backward_reference
     from deepof_tpu_torch.ops.cuda import build
     from deepof_tpu_torch.ops.cuda.corr import correlation_bwd_cuda
 
+    bf16 = dtype == "bfloat16"
     b, c, h, w = shape
     n = 2 * (max_disp // stride) + 1
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    f1 = torch.randn(shape, device="cuda", generator=gen)
-    f2 = torch.randn(shape, device="cuda", generator=gen)
-    g = torch.randn((b, n * n, h, w), device="cuda", generator=gen)
+    f1, f2, g = (torch.randn(s, device="cuda", generator=gen).to(
+        getattr(torch, dtype)) for s in (shape, shape, (b, n * n, h, w)))
 
     def kernel():
         return correlation_bwd_cuda(f1, f2, g, max_disp, stride)
@@ -259,17 +319,25 @@ def check_corr_bwd(shape, max_disp, stride, seed, timed=True,
         return correlation_backward_reference(f1, f2, g, max_disp, stride)
 
     got, again, want = kernel(), kernel(), plain()
+    rounded = ([t.bfloat16() for t in correlation_bwd_cuda(
+        f1.float(), f2.float(), g.float(), max_disp, stride)]
+        if bf16 else want)
     torch.cuda.synchronize()
     row = {"shape": list(shape), "max_disp": max_disp, "stride": stride,
+           "dtype": dtype,
            "bitwise_repeatable": all(torch.equal(a, r)
                                      for a, r in zip(got, again))}
-    for name, a, r in zip(("corr_bwd_f1", "corr_bwd_f2"), got, want):
-        scale = r.abs().max().item()
-        row[name] = {"max_abs_err": (a - r).abs().max().item(),
-                     "max_abs_grad": scale,
-                     "rel_err": (a - r).abs().max().item() / max(scale,
-                                                                 1e-30),
+    for name, a, r, r32 in zip(("corr_bwd_f1", "corr_bwd_f2"), got, want,
+                               rounded):
+        scale = r.float().abs().max().item()
+        diff = (a.float() - r.float()).abs().max().item()
+        row[name] = {"max_abs_err": diff, "max_abs_grad": scale,
+                     "rel_err": diff / max(scale, 1e-30),
                      "bitwise_equal": bool(torch.equal(a, r))}
+        if bf16:
+            row[name].update(max_ulps=bf16_ulps(a, r),
+                             equals_f32_kernel_rounded=bool(
+                                 torch.equal(a, r32)))
     if timed:
         runs = [device_ms_by_name(kernel, ("corr_bwd_f1", "corr_bwd_f2"))
                 for _ in range(WARP_ROUNDS)]
@@ -277,23 +345,31 @@ def check_corr_bwd(shape, max_disp, stride, seed, timed=True,
                     "plain_ms": device_ms(plain, iters=3),
                     "plain_call_ms": time_ms(plain, warmup=1, iters=5),
                     **dict(zip(("bound_ms", "bound_by"),
-                               corr_bound_ms(*shape, max_disp, stride)))})
+                               corr_bound_ms(*shape, max_disp, stride,
+                                             f1.element_size())))})
         log = build.build("corr_bwd")["log"]
         for name in ("corr_bwd_f1", "corr_bwd_f2"):
             row[name]["ms_runs"] = [r[name] for r in runs]
             row[name]["ms"] = statistics.median(row[name]["ms_runs"])
-            row[name]["ptxas"] = ptxas_usage(log, name)
-    emit("kernels", kernel="corr_bwd", **row)
+            row[name]["ptxas"] = ptxas_usage(log, name, bf16)
+    emit("kernels", kernel="corr_bwd" + DTYPES[dtype], **row)
     names = ("corr_bwd_f1", "corr_bwd_f2")
-    bad = [k for k in names if not (row[k]["bitwise_equal"] if bitwise
-                                    else row[k]["rel_err"] <= KERNEL_TOL)]
+
+    def close(r):
+        return r["max_ulps"] <= 1 if bf16 else r["rel_err"] <= KERNEL_TOL
+
+    bad = [k for k in names
+           if not ((row[k]["bitwise_equal"] if bitwise else close(row[k]))
+                   and row[k].get("equals_f32_kernel_rounded", True))]
     if bad or not row["bitwise_repeatable"]:
         raise AssertionError(
-            f"corr backward kernels at {shape}, {max_disp} / {stride}: "
-            f"{bad} off the plain backward ("
+            f"corr backward kernels ({dtype}) at {shape}, {max_disp} / "
+            f"{stride}: {bad} off the plain backward ("
             + ("not bitwise equal" if bitwise else
+               "by more than one bf16 ulp" if bf16 else
                f"by more than {KERNEL_TOL} of the largest entry")
-            + f"), or two calls differ: {row}")
+            + f"), or not the float32 kernels rounded, or two calls "
+            f"differ: {row}")
     return row
 
 
@@ -788,13 +864,17 @@ def profile(eng, fwd, x, pairs, iters: int = 3) -> None:
          top=[{"ms": t, "name": k[:90]} for t, k in kernels[:10]])
 
 
-def loss_and_grads(model, batch, mean, loss_cfg):
+def loss_and_grads(model, batch, mean, loss_cfg, compute_dtype=None):
     """One forward and backward at the model's current weights, no
-    update: (loss, [gradient of each parameter])."""
+    update, with the network's pair in `compute_dtype` (default float32)
+    as the train step casts it: (loss, [gradient of each parameter])."""
+    import torch
+
     from deepof_tpu_torch.train.step import model_losses
 
     model.zero_grad(set_to_none=True)
-    total, _ = model_losses(model, batch, mean, loss_cfg)
+    total, _ = model_losses(model, batch, mean, loss_cfg,
+                            compute_dtype=compute_dtype or torch.float32)
     total.backward()
     return total.item(), [p.grad.detach().clone()
                           for p in model.parameters()]
@@ -1022,26 +1102,39 @@ def train_profile(trainer, iters: int = 3) -> None:
         raise AssertionError(f"the warp's autograd ops made copies: {copies}")
 
 
+def corr_counters() -> list:
+    """The launch counters of the correlation kernels: the forward and the
+    two backward kernels, float32 and bf16."""
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    return [cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches,
+            cc.bf16_launches, cc.bwd_f1_bf16_launches,
+            cc.bwd_f2_bf16_launches]
+
+
 def kernel_counts() -> dict[str, int]:
     """The launch counts of the correlation kernels (forward and the two
-    backward kernels) and of the two warp kernels."""
-    from deepof_tpu_torch.ops.cuda import corr as cc
+    backward kernels, float32 and bf16) and of the two warp kernels."""
     from deepof_tpu_torch.ops.cuda import warp as cw
 
     return {c.name: c.count for c in (
-        cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches,
-        cw.fwd_launches, cw.grad_launches)}
+        *corr_counters(), cw.fwd_launches, cw.grad_launches)}
+
+
+def want_counts(**counts) -> dict[str, int]:
+    """`kernel_counts()`'s keys, 0 but where `counts` says."""
+    want = dict.fromkeys(kernel_counts(), 0)
+    want.update(counts)
+    return want
 
 
 def reset_kernel_counts() -> None:
-    from deepof_tpu_torch.ops.cuda import corr as cc
-
-    for c in (cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches):
+    for c in corr_counters():
         c.reset()
     reset_warp_counts()
 
 
-def swapped_corr_loss_and_grads(model, batch, mean, loss_cfg,
+def swapped_corr_loss_and_grads(model, batch, mean, loss_cfg, compute_dtype,
                                 kernel_backward: bool):
     """`loss_and_grads` with FlowNet-C's correlation forward swapped for
     `correlation_reference` for this one call, and its backward for the
@@ -1077,29 +1170,38 @@ def swapped_corr_loss_and_grads(model, batch, mean, loss_cfg,
         lambda f1, f2, max_disp, stride: SwappedCorrelation.apply(
             f1, f2, max_disp, stride))
     try:
-        return loss_and_grads(model, batch, mean, loss_cfg)
+        return loss_and_grads(model, batch, mean, loss_cfg, compute_dtype)
     finally:
         flownet_c.correlation_nchw = kernel_corr
 
 
 def plain_corr_comparison(trainer, batch) -> dict:
     """One forward and backward of `trainer`'s model on `batch` (on the
-    card), cuDNN deterministic, three ways: with the correlation kernels
-    (`kernel`), with the plain forward and the backward kernels
-    (`plain_fwd`), and with the plain forward and backward (`plain`).
-    `kernel` vs `plain` is the check; `kernel` vs `plain_fwd` differs
-    only in the forward kernel and `plain_fwd` vs `plain` only in the
-    backward kernels, so the two say which side carries a gap (the
-    kernels compute the plain versions' bits, so none should). For each
-    pair: the loss's and the gradient norm's relative differences, and
-    the largest difference of one parameter's gradient over that
-    tensor's largest entry, with its name. Raises if a swapped step
-    launched a correlation kernel that it swapped out."""
+    card), in the trainer's compute dtype, cuDNN deterministic, four
+    ways: with the correlation kernels (`kernel`), with the plain forward
+    and the backward kernels (`plain_fwd`), and twice with the plain
+    forward and backward (`plain`, `plain_again`). `kernel` vs `plain`
+    is the check; `kernel` vs `plain_fwd` differs only in the forward
+    kernel and `plain_fwd` vs `plain` only in the backward kernels, so
+    the two say which side carries a gap (the kernels compute the plain
+    versions' bits, so none should); `plain_again` vs `plain`
+    (`plain_repeat`) is the spread of the step itself. For each pair:
+    the loss's and the gradient norm's relative differences, and the
+    largest difference of one parameter's gradient over that tensor's
+    largest entry, with its name. Raises if a swapped step launched a
+    correlation kernel that it swapped out, or the kernel step launched
+    one of the other dtype."""
     import torch
 
-    args = (trainer.model, batch, trainer.dataset.mean, trainer.cfg.loss)
+    from deepof_tpu_torch.train.step import compute_dtype
+
+    dtype = compute_dtype(trainer.cfg)
+    args = (trainer.model, batch, trainer.dataset.mean, trainer.cfg.loss,
+            dtype)
     names = [n for n, _ in trainer.model.named_parameters()]
-    keys = ("corr", "corr_bwd_f1", "corr_bwd_f2")
+    suffix = DTYPES[trainer.cfg.train.compute_dtype]
+    keys = [k + suffix for k in CORR_KERNELS]
+    others = [c.name for c in corr_counters() if c.name not in keys]
     runs, launched = {}, {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -1108,14 +1210,21 @@ def plain_corr_comparison(trainer, batch) -> dict:
                 ("plain_fwd", lambda *a: swapped_corr_loss_and_grads(
                     *a, kernel_backward=True)),
                 ("plain", lambda *a: swapped_corr_loss_and_grads(
+                    *a, kernel_backward=False)),
+                ("plain_again", lambda *a: swapped_corr_loss_and_grads(
                     *a, kernel_backward=False))):
             before = kernel_counts()
             runs[name] = step(*args)
             after = kernel_counts()
             launched[name] = [after[k] - before[k] for k in keys]
+            if any(after[k] != before[k] for k in others):
+                raise AssertionError(f"{name} step ({dtype}) launched a "
+                                     f"correlation kernel of another dtype: "
+                                     f"{before} -> {after}")
     finally:
         torch.backends.cudnn.deterministic = False
     if (0 in launched["kernel"] or launched["plain"] != [0, 0, 0]
+            or launched["plain_again"] != [0, 0, 0]
             or launched["plain_fwd"] != [0, *launched["kernel"][1:]]):
         raise AssertionError(f"corr kernel launches {launched} in the "
                              f"kernel, plain-forward and plain steps")
@@ -1136,7 +1245,8 @@ def plain_corr_comparison(trainer, batch) -> dict:
     return {"loss": loss, "grad_norm": norm(grads),
             "kernel_vs_plain_corr": compare("kernel", "plain"),
             "fwd_kernel_only": compare("kernel", "plain_fwd"),
-            "bwd_kernels_only": compare("plain_fwd", "plain")}
+            "bwd_kernels_only": compare("plain_fwd", "plain"),
+            "plain_repeat": compare("plain_again", "plain")}
 
 
 def plain_corr_spread(model: str = "flownet_cs", batches: int = 8) -> dict:
@@ -1173,33 +1283,33 @@ CORR_TRAIN_STEPS = 3
 CORR_MODEL_WARPS = {"flownet_c": 1, "flownet_cs": 2}
 
 
-def train_corr_model(model: str, work: str) -> dict:
-    """Full-width FlowNet-C or FlowNet-CS training on the card (384x512,
-    batch 4, f32, paper geometry): one warm-up step, then
-    CORR_TRAIN_STEPS steps on card-resident batches timed on the host
-    clock and as many under torch.profiler (`profile_steps`): step ms,
-    pairs/s, device busy and idle share, the correlation kernels' share,
-    and each kernel's launches a step (corr, corr_bwd_f1 and corr_bwd_f2
-    once; the warps once for FlowNet-C, twice for FlowNet-CS). Then one
-    step against the plain correlation, forward and backward, on the
-    same weights and batch, and split into the forward's and the
-    backward's share (`plain_corr_comparison`)."""
-    import numpy as np
-
+def corr_trainer(model: str, work: str, compute_dtype: str = "float32"):
+    """A full-width Trainer on the card (384x512, batch 4, paper
+    geometry, synthetic data) in `compute_dtype`, after one warm-up step
+    (cuDNN algorithm choice, allocator): (trainer, that step's metrics)."""
     from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
                                               TrainConfig)
     from deepof_tpu_torch.train.loop import Trainer
-    from deepof_tpu_torch.train.step import batch_to_device
 
     cfg = ExperimentConfig(
         model=model, data=DataConfig(dataset="synthetic"),
-        train=TrainConfig(log_dir=os.path.join(work, f"train_{model}")))
+        train=TrainConfig(log_dir=os.path.join(
+            work, f"train_{model}{DTYPES[compute_dtype]}"),
+            compute_dtype=compute_dtype))
     trainer = Trainer(cfg, device="cuda")
-    steps_in_sequence(trainer, 1)  # cuDNN algorithm choice, allocator
+    return trainer, steps_in_sequence(trainer, 1)[0]
+
+
+def step_figures(trainer) -> dict:
+    """CORR_TRAIN_STEPS steps on card-resident batches timed on the host
+    clock and as many under torch.profiler (`profile_steps`): step ms,
+    pairs/s, device busy and idle share, the correlation kernels' and the
+    warps' device ms a step and the correlation kernels' share of busy,
+    each kernel's launches a step (counted from 0 here), device kernels a
+    step and the top 10 device kernels."""
     reset_kernel_counts()
     step_ms, prof = profile_steps(trainer, CORR_TRAIN_STEPS)
     counts = kernel_counts()
-    per_step = {k: v / (2 * CORR_TRAIN_STEPS) for k, v in counts.items()}
     kernels = device_kernels(prof, CORR_TRAIN_STEPS)
     busy = sum(t for t, _ in kernels)
     by_kernel = {name: sum(t for t, k in kernels if key in k)
@@ -1207,51 +1317,127 @@ def train_corr_model(model: str, work: str) -> dict:
                                    ("corr_bwd_f1", "corr_bwd_f1"),
                                    ("corr_bwd_f2", "corr_bwd_f2"),
                                    ("warp", "warp_"))}
+    batch = trainer.cfg.data.batch_size
+    return {"steps": CORR_TRAIN_STEPS, "step_ms": step_ms,
+            "pairs_per_s": batch / (step_ms / 1e3),
+            "device_time_visible": busy > 0, "device_busy_ms": busy,
+            "idle_share_of_step": (1 - busy / step_ms) if busy else None,
+            "kernel_ms_per_step": by_kernel,
+            "corr_share_of_busy": (sum(v for k, v in by_kernel.items()
+                                       if k != "warp") / busy)
+            if busy else None,
+            "launches_per_step": {k: v / (2 * CORR_TRAIN_STEPS)
+                                  for k, v in counts.items()},
+            "launches": counts,
+            **kernels_per_step(device_kernel_counts(prof), CORR_TRAIN_STEPS),
+            "top": [{"ms": t, "name": k[:90]} for t, k in kernels[:10]]}
 
-    batch, _ = next(draw_batches(trainer, 1))
-    vs_plain = plain_corr_comparison(trainer, batch_to_device(batch,
-                                                              trainer.device))
-    row = {"model": model, "image_size": list(cfg.data.image_size),
-           "batch": cfg.data.batch_size,
+
+def cost_volume_dtype(trainer, batch) -> str:
+    """The dtype of the cost volume of one forward of `trainer`'s model on
+    `batch`, its pair cast as the train step casts it (no gradient)."""
+    import torch
+
+    from deepof_tpu_torch.models import flownet_c
+    from deepof_tpu_torch.train.step import compute_dtype, model_losses
+
+    seen = []
+    kernel_corr = flownet_c.correlation_nchw
+
+    def recorded(*args):
+        out = kernel_corr(*args)
+        seen.append(str(out.dtype))
+        return out
+
+    flownet_c.correlation_nchw = recorded
+    try:
+        with torch.no_grad():
+            model_losses(trainer.model, batch, trainer.dataset.mean,
+                         trainer.cfg.loss,
+                         compute_dtype=compute_dtype(trainer.cfg))
+    finally:
+        flownet_c.correlation_nchw = kernel_corr
+    if len(set(seen)) != 1:
+        raise AssertionError(f"cost volumes of one forward: {seen}")
+    return seen[0].replace("torch.", "")
+
+
+def train_corr_model(model: str, work: str,
+                     compute_dtype: str = "float32") -> dict:
+    """Full-width FlowNet-C or FlowNet-CS training on the card (384x512,
+    batch 4, paper geometry) in `compute_dtype` (`train.compute_dtype`):
+    one warm-up step, then `step_figures` (corr, corr_bwd_f1 and
+    corr_bwd_f2 of the dtype once a step and those of the other dtype
+    never; the warps once for FlowNet-C, twice for FlowNet-CS). Then one
+    step against the plain correlation, forward and backward, on the
+    same weights and batch, split into the forward's and the backward's
+    share, with the plain step's own spread (`plain_corr_comparison`).
+    In bfloat16 also: the cost volume's dtype, a float32 trainer of the
+    same seed measured by `step_figures` in the same phase (`f32`), and
+    the two warm-up steps' losses, from the same weights and batch."""
+    import numpy as np
+
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    trainer, first = corr_trainer(model, work, compute_dtype)
+    fig = step_figures(trainer)
+    batch = batch_to_device(next(draw_batches(trainer, 1))[0],
+                            trainer.device)
+    vs_plain = plain_corr_comparison(trainer, batch)
+    phase = f"train_{model}{DTYPES[compute_dtype]}"
+    row = {"model": model, "compute_dtype": compute_dtype,
+           "image_size": list(trainer.cfg.data.image_size),
+           "batch": trainer.cfg.data.batch_size,
            "corr_geometry": [trainer.model.max_disp,
                              trainer.model.corr_stride],
            "params": sum(p.numel() for p in trainer.model.parameters()),
-           "steps": CORR_TRAIN_STEPS, "step_ms": step_ms,
-           "pairs_per_s": cfg.data.batch_size / (step_ms / 1e3),
-           "device_time_visible": busy > 0, "device_busy_ms": busy,
-           "idle_share_of_step": (1 - busy / step_ms) if busy else None,
-           "kernel_ms_per_step": by_kernel,
-           "corr_share_of_busy": (sum(v for k, v in by_kernel.items()
-                                      if k != "warp") / busy)
-           if busy else None,
-           "launches_per_step": per_step, "launches": counts,
-           **kernels_per_step(device_kernel_counts(prof), CORR_TRAIN_STEPS),
-           **vs_plain,
-           "top": [{"ms": t, "name": k[:90]} for t, k in kernels[:10]]}
-    emit(f"train_{model}", **row)
+           "param_dtypes": sorted({str(p.dtype) for p in
+                                   trainer.model.parameters()}),
+           **fig, **vs_plain}
+    if compute_dtype != "float32":
+        row["cost_volume_dtype"] = cost_volume_dtype(trainer, batch)
+        del trainer, batch
+        f32, f32_first = corr_trainer(model, work)
+        row["f32"] = step_figures(f32)
+        del f32
+        row["first_step_loss"] = first["total"]
+        row["first_step_loss_f32"] = f32_first["total"]
+        row["first_step_loss_rel_to_f32"] = (
+            abs(first["total"] - f32_first["total"])
+            / abs(f32_first["total"]))
+    emit(phase, **row)
     if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
-        raise AssertionError(f"{model}: non-finite loss {row['loss']} or "
+        raise AssertionError(f"{phase}: non-finite loss {row['loss']} or "
                              f"gradient norm {row['grad_norm']}")
     warps = CORR_MODEL_WARPS[model]
-    want = {"corr": 1, "corr_bwd_f1": 1, "corr_bwd_f2": 1,
-            "warp_fwd": warps, "warp_flow_grad": warps}
-    if per_step != want:
-        raise AssertionError(f"{model}: kernel launches a step {per_step}; "
-                             f"want {want}")
+    want = want_counts(warp_fwd=warps, warp_flow_grad=warps,
+                       **{k + DTYPES[compute_dtype]: 1
+                          for k in CORR_KERNELS})
+    if fig["launches_per_step"] != want:
+        raise AssertionError(f"{phase}: kernel launches a step "
+                             f"{fig['launches_per_step']}; want {want}")
+    if row["param_dtypes"] != ["torch.float32"] or row.get(
+            "cost_volume_dtype", compute_dtype) != compute_dtype:
+        raise AssertionError(f"{phase}: parameters {row['param_dtypes']}, "
+                             f"cost volume {row.get('cost_volume_dtype')}")
     # the kernels compute the plain versions' bits, so the loss is equal
     # and each gradient differs only by the step's other reductions
     # (cuDNN and atomics): the gate of each pair, the forward's and the
-    # backward's share as much as the whole
+    # backward's share as much as the whole. Two plain steps must meet
+    # the same gate, or the gate would measure the step and not the
+    # kernels
+    spread = vs_plain["plain_repeat"]
     for pair in ("kernel_vs_plain_corr", "fwd_kernel_only",
-                 "bwd_kernels_only"):
+                 "bwd_kernels_only", "plain_repeat"):
         gap = vs_plain[pair]
         if not (gap["loss_rel"] == 0
                 and gap["grad_max_rel"] <= TRAIN_GRAD_RTOL):
             raise AssertionError(
-                f"{model}: train step, {pair}: {gap} (limits: loss equal, "
-                f"each gradient {TRAIN_GRAD_RTOL} of its largest entry)")
-    if busy <= 0:
-        raise AssertionError(f"{model}: torch.profiler recorded no device "
+                f"{phase}: train step, {pair}: {gap} (limits: loss equal, "
+                f"each gradient {TRAIN_GRAD_RTOL} of its largest entry; "
+                f"two plain steps: {spread})")
+    if fig["device_busy_ms"] <= 0:
+        raise AssertionError(f"{phase}: torch.profiler recorded no device "
                              "time")
     return row
 
@@ -1316,16 +1502,17 @@ def cli_train_flownet_c(work: str) -> dict:
            "eval_cli": {k: ev[k] for k in ("aee", "aae", "val_loss")},
            "predicted": [list(f.shape) for f in flows]}
     emit("cli_train_flownet_c", **row)
-    want_train = {"corr": CLI_C_STEPS + evals, "corr_bwd_f1": CLI_C_STEPS,
-                  "corr_bwd_f2": CLI_C_STEPS,
-                  "warp_fwd": CLI_C_STEPS + evals,
-                  "warp_flow_grad": CLI_C_STEPS}
+    want_train = want_counts(corr=CLI_C_STEPS + evals,
+                             corr_bwd_f1=CLI_C_STEPS,
+                             corr_bwd_f2=CLI_C_STEPS,
+                             warp_fwd=CLI_C_STEPS + evals,
+                             warp_flow_grad=CLI_C_STEPS)
     if train != want_train:
         raise AssertionError(f"cli train flownet_c: launches {train}; want "
                              f"{want_train}")
-    if (evaluate["corr"] != evals or evaluate["corr_bwd_f1"]
+    if (evaluate != want_counts(corr=evals, warp_fwd=evals)
             or not 1 <= predict["corr"] <= len(pairs)
-            or predict["corr_bwd_f1"]):
+            or predict != want_counts(corr=predict["corr"])):
         raise AssertionError(f"cli eval/predict flownet_c: launches "
                              f"{evaluate} / {predict}")
     if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
@@ -1334,6 +1521,72 @@ def cli_train_flownet_c(work: str) -> dict:
             np.isfinite(f).all() for f in flows):
         raise AssertionError(f"predict flownet_c wrote "
                              f"{[f.shape for f in flows]}")
+    return row
+
+
+# `train --model flownet_c --set train.compute_dtype=bfloat16` at full
+# width: CLI_TRAIN_C with an eval and a checkpoint at step CLI_C_BF16_STEPS
+CLI_C_BF16_STEPS = 4
+CLI_TRAIN_C_BF16 = [*CLI_TRAIN_C, "--set", "train.compute_dtype=bfloat16",
+                    "--set", f"train.eval_every={CLI_C_BF16_STEPS}",
+                    "--set", f"train.ckpt_every_steps={CLI_C_BF16_STEPS}"]
+
+
+def cli_train_flownet_c_bf16(work: str) -> dict:
+    """FlowNet-C from the command line at full width in bf16 compute:
+    `train` for CLI_C_BF16_STEPS steps (an eval and a checkpoint at the
+    last), then `eval` on the run. Each path's kernel launches are
+    counted from 0: in `train`, corr_bf16 once per step and per eval
+    forward, each bf16 backward kernel once per step; in `eval`,
+    corr_bf16 once per eval forward; the float32 correlation kernels
+    never (the warps stay float32). Finite losses and eval metrics, and a
+    checkpoint of float32 tensors only (parameters and Adam's moments)."""
+    import numpy as np
+
+    from deepof_tpu_torch.train.checkpoint import CheckpointManager
+
+    log_dir = os.path.join(work, "cli_train_flownet_c_bf16")
+    steps = CLI_C_BF16_STEPS
+    reset_kernel_counts()
+    summary = run_cli(["train", *CLI_TRAIN_C_BF16, "--steps", str(steps),
+                       "--log-dir", log_dir],
+                      os.path.join(work, "cli_train_flownet_c_bf16.log"))
+    train = kernel_counts()
+    records = check_run(log_dir, list(range(2, steps + 1, 2)), [steps],
+                        [steps])
+    ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"), create=False)
+    optim = ckpt.restore_raw(subtree="optimizer")
+    tensors = list(ckpt.restore_raw(subtree="model").values()) + [
+        t for st in optim["state"].values() for t in st.values()
+        if t.is_floating_point()]
+    ckpt_dtypes = sorted({str(t.dtype) for t in tensors})
+    evals = eval_calls(SYNTHETIC_VAL, 4)
+    reset_kernel_counts()
+    ev = run_cli(["eval", *CLI_TRAIN_C_BF16, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval_flownet_c_bf16.log"))
+    evaluate = kernel_counts()
+    row = {"steps": steps, **fit_row(summary, 4),
+           "launches": {"train": train, "eval": evaluate},
+           "eval_forwards": evals,
+           "losses": [r["loss"] for r in records if r["kind"] == "train"],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"],
+           "eval_cli": {k: ev[k] for k in ("aee", "aae", "val_loss")},
+           "checkpoint_tensors": len(tensors),
+           "checkpoint_dtypes": ckpt_dtypes}
+    emit("cli_train_flownet_c_bf16", **row)
+    want_train = want_counts(corr_bf16=steps + evals,
+                             corr_bwd_f1_bf16=steps, corr_bwd_f2_bf16=steps,
+                             warp_fwd=steps + evals, warp_flow_grad=steps)
+    want_eval = want_counts(corr_bf16=evals, warp_fwd=evals)
+    if train != want_train or evaluate != want_eval:
+        raise AssertionError(f"cli flownet_c bf16: launches {train} / "
+                             f"{evaluate}; want {want_train} / {want_eval}")
+    if ckpt_dtypes != ["torch.float32"]:
+        raise AssertionError(f"cli flownet_c bf16: checkpoint tensors of "
+                             f"{ckpt_dtypes}")
+    if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
+        raise AssertionError(f"eval flownet_c bf16: non-finite metrics {ev}")
     return row
 
 
@@ -1802,6 +2055,7 @@ def main() -> int:
     t0 = time.monotonic()
     info = build.build_all()
     emit("build", seconds=time.monotonic() - t0,
+         seconds_by_source={k: v["seconds"] for k, v in info.items()},
          libraries={k: v["path"] for k, v in info.items()},
          ptxas={k: [ln.strip() for ln in v["log"].splitlines()
                     if any(w in ln for w in ("entry function", "registers",
@@ -1824,6 +2078,20 @@ def main() -> int:
     check_corr_bwd((3, 40, 13, 17), 4, 1, seed=12, timed=False)
     check_corr_bwd((2, 24, 9, 36), 8, 4, seed=13, timed=False)
     check_corr_bwd((2, 3, 10, 20), 0, 1, seed=14, timed=False)
+    # their bf16 paths (train.compute_dtype=bfloat16) at the training
+    # shape and the same small cases
+    train_shape = (cfg.data.batch_size, 256, h // 8, w // 8)
+    fwd_bf16 = check_corr(train_shape, cfg.corr_max_disp, cfg.corr_stride,
+                          seed=15, bitwise=True, dtype="bfloat16")
+    check_corr((3, 40, 13, 17), 4, 1, seed=16, dtype="bfloat16")
+    bwd_bf16 = check_corr_bwd(train_shape, cfg.corr_max_disp,
+                              cfg.corr_stride, seed=17, bitwise=True,
+                              dtype="bfloat16")
+    for i, (shape, disp, stride) in enumerate((
+            ((3, 40, 13, 17), 4, 1), ((2, 24, 9, 36), 8, 4),
+            ((2, 3, 10, 20), 0, 1))):
+        check_corr_bwd(shape, disp, stride, seed=18 + i, timed=False,
+                       dtype="bfloat16")
 
     warp_rows = [check_warp(shape, 5.0, seed=2 + i)
                  for i, shape in enumerate(WARP_LEVELS)]
@@ -1847,6 +2115,8 @@ def main() -> int:
         corr_train = {m: train_corr_model(m, work)
                       for m in ("flownet_c", "flownet_cs")}
         cli_c_row = cli_train_flownet_c(work)
+        bf16_train = train_corr_model("flownet_c", work, "bfloat16")
+        cli_bf16_row = cli_train_flownet_c_bf16(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -1862,36 +2132,67 @@ def main() -> int:
     corr_paths = {f"train_{m}": r["launches"] for m, r in corr_train.items()}
     corr_paths.update({f"cli_{k}_flownet_c": v
                        for k, v in cli_c_row["launches"].items()})
+    corr_paths["train_flownet_c_bf16"] = bf16_train["launches"]
+    corr_paths.update({f"cli_{k}_flownet_c_bf16": v
+                       for k, v in cli_bf16_row["launches"].items()})
     for key, counter in (("fwd", "warp_fwd"),
                          ("flow_grad", "warp_flow_grad")):
         by_path[key].update({p: c[counter] for p, c in corr_paths.items()})
-    corr_by_path = {k: {p: c[k] for p, c in corr_paths.items()}
-                    for k in ("corr", "corr_bwd_f1", "corr_bwd_f2")}
+    corr_by_path = {c.name: {p: n[c.name] for p, n in corr_paths.items()}
+                    for c in corr_counters()}
     corr_by_path["corr"]["serve"] = corr_launches
     main_path = cli_c_row["launches"]["train"]
+    # the bf16 kernels' main path: FlowNet-C's `train` in bf16 compute
+    bf16_path = cli_bf16_row["launches"]["train"]
 
-    def corr_bwd_entry(name):
-        return {"name": name, "route": "cuda",
-                "source": "deepof_tpu_torch/csrc/corr_bwd.cu",
-                "replaces": "deepof_tpu/ops/pallas/corr.py:167",
-                "launches": main_path[name],
-                "launches_by_path": corr_by_path[name],
-                "launches_per_step": corr_train["flownet_c"][
-                    "launches_per_step"][name],
-                "max_abs_err": bwd[name]["max_abs_err"],
-                "rel_err": bwd[name]["rel_err"],
-                "bitwise_equal": bwd[name]["bitwise_equal"],
-                "bitwise_repeatable": bwd["bitwise_repeatable"],
-                "ms": bwd[name]["ms"], "ms_runs": bwd[name]["ms_runs"],
-                "call_ms": bwd["call_ms"],
-                "ptxas": bwd[name]["ptxas"],
-                "plain_ms": bwd["plain_ms"],
-                "plain_note": "correlation_backward_reference, both "
-                              "gradients in one call",
-                "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-                "shape": bwd["shape"], "library_ms": None,
-                "library_note": "no single PyTorch call computes the "
-                                "gradient of a correlation cost volume"}
+    sources = {"corr": ("deepof_tpu_torch/csrc/corr.cu",
+                        "deepof_tpu/ops/pallas/corr.py:46"),
+               "corr_bwd_f1": ("deepof_tpu_torch/csrc/corr_bwd.cu",
+                               "deepof_tpu/ops/pallas/corr.py:167")}
+    sources["corr_bwd_f2"] = sources["corr_bwd_f1"]
+    checks = {"float32": (train_fwd, bwd), "bfloat16": (fwd_bf16, bwd_bf16)}
+
+    def corr_entry(kernel, dtype):
+        # the main path's shape (training, batch 4): FlowNet-C's `train`
+        # on the command line in `dtype`, with its per-step launches from
+        # the training phase of that dtype; float32's serving shape
+        # (batch 8) with its own launches nested
+        name = kernel + DTYPES[dtype]
+        fwd_row, bwd_row = checks[dtype]
+        row = fwd_row if kernel == "corr" else bwd_row
+        one = row if kernel == "corr" else row[kernel]
+        bf16 = dtype == "bfloat16"
+        path = bf16_path if bf16 else main_path
+        steps = bf16_train if bf16 else corr_train["flownet_c"]
+        entry = {"name": name, "route": "cuda",
+                 "source": sources[kernel][0],
+                 "replaces": sources[kernel][1], "dtype": dtype,
+                 "launches": path[name],
+                 "launches_by_path": corr_by_path[name],
+                 "launches_per_step": steps["launches_per_step"][name],
+                 "shape": row["shape"],
+                 **{k: one[k] for k in (
+                     "max_abs_err", "rel_err", "max_ulps", "bitwise_equal",
+                     "equals_f32_kernel_rounded", "ms", "ms_runs", "ptxas")
+                    if k in one},
+                 **{k: row[k] for k in (
+                     "bitwise_repeatable", "call_ms", "plain_ms",
+                     "bound_ms", "bound_by") if k in row},
+                 "library_ms": None,
+                 "library_note": "no single PyTorch call computes a "
+                                 "correlation cost volume or its gradient"}
+        if kernel != "corr":
+            entry["plain_note"] = ("correlation_backward_reference, both "
+                                   "gradients in one call")
+        elif not bf16:
+            entry["serve_shape"] = {
+                "launches": corr_launches,
+                "launches_per_dispatch": (corr_launches
+                                          / serve_row["dispatches"]),
+                **{k: full[k] for k in ("shape", "max_abs_err", "ms",
+                                        "call_ms", "plain_ms", "bound_ms",
+                                        "bound_by")}}
+        return entry
 
     def warp_entry(name, key):
         # the one launch over the six main-path levels, with the one-level
@@ -1923,33 +2224,8 @@ def main() -> int:
 
     replaces = {"warp_fwd": "deepof_tpu/ops/pallas/warp.py:85",
                 "warp_flow_grad": "deepof_tpu/ops/pallas/warp.py:111"}
-    print(json.dumps({"kernels": [{
-        "name": "corr",
-        "route": "cuda",
-        "source": "deepof_tpu_torch/csrc/corr.cu",
-        "replaces": "deepof_tpu/ops/pallas/corr.py:46",
-        # the main path's shape (training, batch 4) at the top level, the
-        # serving shape (batch 8) with its own launches nested
-        "launches": main_path["corr"],
-        "launches_by_path": corr_by_path["corr"],
-        "launches_per_step": corr_train["flownet_c"]["launches_per_step"][
-            "corr"],
-        "shape": train_fwd["shape"],
-        "max_abs_err": train_fwd["max_abs_err"],
-        "ms": train_fwd["ms"],
-        "call_ms": train_fwd["call_ms"],
-        "plain_ms": train_fwd["plain_ms"],
-        "bound_ms": train_fwd["bound_ms"],
-        "bound_by": train_fwd["bound_by"],
-        "serve_shape": {
-            "launches": corr_launches,
-            "launches_per_dispatch": corr_launches / serve_row["dispatches"],
-            **{k: full[k] for k in ("shape", "max_abs_err", "ms", "call_ms",
-                                    "plain_ms", "bound_ms", "bound_by")}},
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes a correlation "
-                        "cost volume"},
-        corr_bwd_entry("corr_bwd_f1"), corr_bwd_entry("corr_bwd_f2"),
+    print(json.dumps({"kernels": [
+        *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),
         warp_entry("warp_flow_grad", "flow_grad")]}), flush=True)
     print(smi, flush=True)

@@ -43,7 +43,7 @@ class LossConfig:
     # "auto"). Here every one of the three takes the CUDA kernel for a
     # CUDA tensor (or raises) and the plain version for a CPU tensor.
     warp_impl: str = "auto"
-    gather_dtype: str = "float32"  # float32 | bfloat16 (not ported)
+    gather_dtype: str = "float32"  # float32 | bfloat16 (bfloat16 not ported)
     photometric: str = "charbonnier"  # charbonnier | census (not ported)
     census_window: int = 7
     occlusion: bool = False
@@ -114,7 +114,9 @@ class TrainConfig:
     # matching name and shape
     init_from: str = ""
     vgg16_npz: str = ""  # VGG16 trunk init (not ported)
-    compute_dtype: str = "float32"  # float32 | bfloat16 (not ported)
+    # float32 | bfloat16: the model's convs, deconvs and cost volume
+    # compute in it; parameters, gradients, Adam and checkpoints stay f32
+    compute_dtype: str = "float32"
 
 
 @dataclass(frozen=True)
@@ -324,6 +326,8 @@ def config_from_dict(d: dict) -> ExperimentConfig:
 
 #: values of `LossConfig.warp_impl` (see the field's comment)
 WARP_IMPLS = ("auto", "xla", "pallas")
+#: values of `TrainConfig.compute_dtype`
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def raise_unported(todo: list[tuple[str, str]]) -> None:
@@ -339,7 +343,8 @@ def check_loss(cfg: LossConfig) -> None:
     todo = []
     if cfg.gather_dtype != "float32":
         todo.append((f"loss.gather_dtype={cfg.gather_dtype!r}",
-                     "8 (bf16 paths)"))
+                     "8 (the next slice: the warp kernels' bf16 paths, "
+                     "with the serving tiers)"))
     if cfg.photometric != "charbonnier":
         todo.append((f"loss.photometric={cfg.photometric!r}",
                      "9 (loss variants)"))
@@ -364,9 +369,6 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     todo = []
     if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs"):
         todo.append((f"model={cfg.model!r}", "9 (other backbones)"))
-    if cfg.train.compute_dtype != "float32":
-        todo.append((f"train.compute_dtype={cfg.train.compute_dtype!r}",
-                     "8 (bf16 paths)"))
     if cfg.optim.grad_accum > 1:
         todo.append((f"optim.grad_accum={cfg.optim.grad_accum}",
                      "6 (training loop)"))
@@ -385,4 +387,8 @@ def check_trainable(cfg: ExperimentConfig) -> None:
         todo.append(("train.dump_visuals=True",
                      "6 (visuals need a PNG writer)"))
     raise_unported(todo)
+    if cfg.train.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown train.compute_dtype "
+                         f"{cfg.train.compute_dtype!r}; one of "
+                         f"{COMPUTE_DTYPES}")
     check_loss(cfg.loss)

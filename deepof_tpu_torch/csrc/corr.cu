@@ -1,4 +1,5 @@
-// FlowNet-C correlation (cost volume) forward, float32, for sm_90a.
+// FlowNet-C correlation (cost volume) forward, float32 or bf16, for
+// sm_90a.
 //
 // Replaces deepof_tpu/ops/pallas/corr.py::_corr_kernel (the Pallas TPU
 // kernel behind correlation_pallas). Same function:
@@ -33,10 +34,26 @@
 // block, not once per displacement chunk, and each lane issues a batch of
 // staging loads before it stores any: with one load at a time the kernel
 // waits on L2 latency, not bandwidth.
+//
+// Element type: the kernel is also a template on the type T of the
+// inputs and output in device memory, float or __nv_bfloat16. Staging
+// converts T to float on its way into the same float32 shared-memory
+// tiles, so the tiles, the register tile, the FMA order and the 1/C
+// scaling do not depend on T; a bf16 output is the float32 result
+// rounded once to nearest even (torch's .to(torch.bfloat16)). So
+// bf16(x) == f32(x.float()).bfloat16(), bit for bit, at every shape. The
+// JAX kernel does the same: it upcasts, accumulates in float32 and
+// returns the input dtype.
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
+
 namespace {
+
+using deepof::store1;
+using deepof::store4;
+using deepof::to_float;
 
 constexpr int TX = 64;        // output columns per block
 constexpr int RX = 8;         // consecutive columns per thread
@@ -77,9 +94,9 @@ __host__ __device__ constexpr int stage_cols(int S) {
 // Rows go over warps and columns over lanes (coalesced). With NC > 0 a
 // lane issues the loads of RB rows x NC columns before its first store,
 // so a chunk costs a few L2 round trips, not one per row and column.
-template <int NC>
+template <int NC, typename T>
 __device__ __forceinline__ void stage_chunk(
-    const float* f1b, const float* f2b, float* f1s, float* f2s,
+    const T* f1b, const T* f2b, float* f1s, float* f2s,
     const Geometry& g, size_t plane, int c0, int cc, int y, int x0, int xw0,
     int i0, int s) {
   const int lane = threadIdx.x & 31;
@@ -87,7 +104,7 @@ __device__ __forceinline__ void stage_chunk(
   const int nwarps = blockDim.x >> 5;
   const int nrows = cc * (1 + g.gi_n);
   for (int r0 = warp * RB; r0 < nrows; r0 += nwarps * RB) {
-    const float* src[RB];  // null: a row of zeros
+    const T* src[RB];  // null: a row of zeros
     float* dst[RB];
     int xb[RB], width[RB];
 #pragma unroll
@@ -123,7 +140,7 @@ __device__ __forceinline__ void stage_chunk(
         for (int m = 0; m < NC; ++m) {
           const int col = lane + 32 * m, xx = xb[k] + col;
           val[k][m] = src[k] && col < width[k] && xx >= 0 && xx < g.W
-                          ? src[k][xx] : 0.f;
+                          ? to_float(src[k][xx]) : 0.f;
         }
 #pragma unroll
       for (int k = 0; k < RB; ++k)
@@ -135,17 +152,19 @@ __device__ __forceinline__ void stage_chunk(
       for (int k = 0; k < RB; ++k)
         for (int col = lane; col < width[k]; col += 32) {
           const int xx = xb[k] + col;
-          dst[k][col] = src[k] && xx >= 0 && xx < g.W ? src[k][xx] : 0.f;
+          dst[k][col] = src[k] && xx >= 0 && xx < g.W ? to_float(src[k][xx])
+                                                      : 0.f;
         }
     }
   }
 }
 
-template <int S>  // the stride; 0: any stride, read from the geometry
+// S: the stride; 0: any stride, read from the geometry. T: the element
+// type of f1, f2 and out.
+template <int S, typename T>
 __global__ void __launch_bounds__(MAX_THREADS)
-corr_fwd_f32_kernel(const float* __restrict__ f1,
-                    const float* __restrict__ f2,
-                    float* __restrict__ out, const Geometry g) {
+corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                T* __restrict__ out, const Geometry g) {
   extern __shared__ __align__(16) float smem[];
   const int s = S > 0 ? S : g.stride;
   float* f1s = smem;              // [cc][TX]
@@ -184,9 +203,9 @@ corr_fwd_f32_kernel(const float* __restrict__ f1,
     for (int q = 0; q < RJ; ++q) acc[r][q] = 0.f;
 
   if (any_row) {  // uniform over the block: __syncthreads is safe
-    const float* f1b = f1 + static_cast<size_t>(b) * g.C * plane
-                       + static_cast<size_t>(y) * g.W;
-    const float* f2b = f2 + static_cast<size_t>(b) * g.C * plane;
+    const T* f1b = f1 + static_cast<size_t>(b) * g.C * plane
+                   + static_cast<size_t>(y) * g.W;
+    const T* f2b = f2 + static_cast<size_t>(b) * g.C * plane;
     const int vstep = g.gi_n * g.wwp;
     for (int c0 = 0; c0 < g.C; c0 += g.cc) {
       const int cc = min(g.cc, g.C - c0);
@@ -230,56 +249,47 @@ corr_fwd_f32_kernel(const float* __restrict__ f1,
   const int xs = x0 + xr * RX;
   if (!owns || i >= g.n || xs >= g.W) return;
   const float inv_c = 1.f / static_cast<float>(g.C);
-  float* ob = out + (static_cast<size_t>(b) * g.n + i) * g.n * plane
-              + static_cast<size_t>(y) * g.W + xs;
-  // W % 4 == 0 makes every row start and xs 16-byte aligned
+  T* ob = out + (static_cast<size_t>(b) * g.n + i) * g.n * plane
+          + static_cast<size_t>(y) * g.W + xs;
+  // W % 4 == 0 makes every row start and xs 4-element aligned
   const bool vec = g.W % 4 == 0 && xs + RX <= g.W;
 #pragma unroll
   for (int q = 0; q < RJ; ++q) {
     const int j = jb + jc * RJ + q;
     if (j >= g.n) continue;
-    float* o = ob + static_cast<size_t>(j) * plane;
+    T* o = ob + static_cast<size_t>(j) * plane;
     if (vec) {
-      reinterpret_cast<float4*>(o)[0] =
-          make_float4(acc[0][q] * inv_c, acc[1][q] * inv_c,
-                      acc[2][q] * inv_c, acc[3][q] * inv_c);
-      reinterpret_cast<float4*>(o)[1] =
-          make_float4(acc[4][q] * inv_c, acc[5][q] * inv_c,
-                      acc[6][q] * inv_c, acc[7][q] * inv_c);
+      store4(o, acc[0][q] * inv_c, acc[1][q] * inv_c, acc[2][q] * inv_c,
+             acc[3][q] * inv_c);
+      store4(o + 4, acc[4][q] * inv_c, acc[5][q] * inv_c, acc[6][q] * inv_c,
+             acc[7][q] * inv_c);
     } else {
 #pragma unroll
       for (int r = 0; r < RX; ++r)
-        if (xs + r < g.W) o[r] = acc[r][q] * inv_c;
+        if (xs + r < g.W) store1(o + r, acc[r][q] * inv_c);
     }
   }
 }
 
-template <int S>
-cudaError_t launch(const float* f1, const float* f2, float* out, int B,
+template <int S, typename T>
+cudaError_t launch(const T* f1, const T* f2, T* out, int B,
                    const Geometry& g, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        corr_fwd_f32_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        corr_fwd_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((g.W + TX - 1) / TX, g.H,
                   static_cast<unsigned>(B * g.igroups * g.jgroups));
   const int threads = (g.ncompute + 31) / 32 * 32;
-  corr_fwd_f32_kernel<S><<<grid, threads, smem, stream>>>(f1, f2, out, g);
+  corr_fwd_kernel<S, T><<<grid, threads, smem, stream>>>(f1, f2, out, g);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// f1, f2: (B, C, H, W) float32 contiguous on the current device; out:
-// (B, n*n, H, W) float32. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
-int deepof_corr_fwd_f32(const void* f1, const void* f2, void* out, int B,
-                        int C, int H, int W, int max_disp, int stride,
-                        void* stream) {
+template <typename T>
+int corr_fwd(const void* f1, const void* f2, void* out, int B, int C, int H,
+             int W, int max_disp, int stride, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || stride <= 0 || max_disp < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, smem_max = 0;
@@ -334,9 +344,9 @@ int deepof_corr_fwd_f32(const void* f1, const void* f2, void* out, int B,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = static_cast<size_t>(per_c) * g.cc;
 
-  const float* a = static_cast<const float*>(f1);
-  const float* v = static_cast<const float*>(f2);
-  float* o = static_cast<float*>(out);
+  const T* a = static_cast<const T*>(f1);
+  const T* v = static_cast<const T*>(f2);
+  T* o = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int instance =
       stride <= 4 && g.ww <= 32 * stage_cols(stride) ? stride : 0;
@@ -348,6 +358,27 @@ int deepof_corr_fwd_f32(const void* f1, const void* f2, void* out, int B,
     default: e = launch<0>(a, v, o, B, g, smem, st); break;
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+extern "C" {
+
+// f1, f2: (B, C, H, W) contiguous on the current device; out: (B, n*n,
+// H, W) of the same type, float32 (_f32) or bf16 (_bf16). Launches on
+// `stream` and returns cudaGetLastError() (0 on success); it does not
+// synchronise.
+int deepof_corr_fwd_f32(const void* f1, const void* f2, void* out, int B,
+                        int C, int H, int W, int max_disp, int stride,
+                        void* stream) {
+  return corr_fwd<float>(f1, f2, out, B, C, H, W, max_disp, stride, stream);
+}
+
+int deepof_corr_fwd_bf16(const void* f1, const void* f2, void* out, int B,
+                         int C, int H, int W, int max_disp, int stride,
+                         void* stream) {
+  return corr_fwd<__nv_bfloat16>(f1, f2, out, B, C, H, W, max_disp, stride,
+                                 stream);
 }
 
 const char* deepof_cuda_error_string(int code) {

@@ -1,5 +1,5 @@
-// FlowNet-C correlation backward, float32, for sm_90a: the gradients of
-// the cost volume with respect to both feature maps.
+// FlowNet-C correlation backward, float32 or bf16, for sm_90a: the
+// gradients of the cost volume with respect to both feature maps.
 //
 // Replaces the custom VJP of deepof_tpu/ops/pallas/corr.py::_bwd, an XLA
 // scan over the (2K+1)^2 displacements (the TPU kernel's backward; it is
@@ -60,10 +60,23 @@
 // zero padding does, and a displacement column past n adds nothing. For
 // a power-of-two C, scaling by 1/C at the end is exact, and the result
 // equals the plain version's (g/C first) bit for bit.
+//
+// Element type: both kernels are also templates on the type T of the
+// feature maps, g and the gradients in device memory, float or
+// __nv_bfloat16. Staging converts T to float into the same float32
+// shared-memory rows, so the tiles, the FMA order and the 1/C scaling do
+// not depend on T, and a bf16 gradient is the float32 one rounded once
+// to nearest even: bf16(x) == f32(x.float()).bfloat16(), bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
+
 namespace {
+
+using deepof::store1;
+using deepof::store4;
+using deepof::to_float;
 
 constexpr int TX = 64;            // output columns per block
 constexpr int RX = 8;             // consecutive columns per thread
@@ -96,8 +109,8 @@ __host__ __device__ constexpr int stage_cols(int S) {
 // last displacement column). Rows go over warps, columns over lanes
 // (coalesced); with NC > 0 a lane issues the loads of RB rows x NC
 // columns before its first store.
-template <int NC, bool WRT_F1>
-__device__ __forceinline__ void stage(const float* fb, const float* gb,
+template <int NC, bool WRT_F1, typename T>
+__device__ __forceinline__ void stage(const T* fb, const T* gb,
                                       float* gs, float* fs,
                                       const Geometry& g, size_t plane,
                                       int cb0, int i, int j0, int nj, int y,
@@ -107,7 +120,7 @@ __device__ __forceinline__ void stage(const float* fb, const float* gb,
   const int nrows = g.jbe + CB;
   const int grow = WRT_F1 ? y : yy;  // the row of g the outputs read
   for (int r0 = warp * RB; r0 < nrows; r0 += (THREADS / 32) * RB) {
-    const float* src[RB];  // null: a row of zeros
+    const T* src[RB];  // null: a row of zeros
     float* dst[RB];
     int xb[RB], width[RB];
 #pragma unroll
@@ -144,7 +157,7 @@ __device__ __forceinline__ void stage(const float* fb, const float* gb,
         for (int m = 0; m < NC; ++m) {
           const int col = lane + 32 * m, xx = xb[k] + col;
           val[k][m] = src[k] && col < width[k] && xx >= 0 && xx < g.W
-                          ? src[k][xx] : 0.f;
+                          ? to_float(src[k][xx]) : 0.f;
         }
 #pragma unroll
       for (int k = 0; k < RB; ++k)
@@ -156,7 +169,8 @@ __device__ __forceinline__ void stage(const float* fb, const float* gb,
       for (int k = 0; k < RB; ++k)
         for (int col = lane; col < width[k]; col += 32) {
           const int xx = xb[k] + col;
-          dst[k][col] = src[k] && xx >= 0 && xx < g.W ? src[k][xx] : 0.f;
+          dst[k][col] = src[k] && xx >= 0 && xx < g.W ? to_float(src[k][xx])
+                                                      : 0.f;
         }
     }
   }
@@ -164,10 +178,10 @@ __device__ __forceinline__ void stage(const float* fb, const float* gb,
 
 // df1 (WRT_F1) or df2 (!WRT_F1) at this thread's RX columns and CT
 // channels. `feat` is f2 for df1 and f1 for df2.
-template <int S, bool WRT_F1>
-__device__ __forceinline__ void corr_bwd(const float* __restrict__ feat,
-                                         const float* __restrict__ g,
-                                         float* __restrict__ out,
+template <int S, bool WRT_F1, typename T>
+__device__ __forceinline__ void corr_bwd(const T* __restrict__ feat,
+                                         const T* __restrict__ g,
+                                         T* __restrict__ out,
                                          const Geometry& geo) {
   extern __shared__ __align__(16) float smem[];
   float* gs = smem;                  // [jbe][TX]
@@ -181,8 +195,8 @@ __device__ __forceinline__ void corr_bwd(const float* __restrict__ feat,
   const int xr = (lane & 3) + 4 * (threadIdx.x >> 5);  // column thread
   const int cg = lane >> 2;  // channel group: channels cg + NCG * k
   const size_t plane = static_cast<size_t>(geo.H) * geo.W;
-  const float* fb = feat + (static_cast<size_t>(b) * geo.C + cb0) * plane;
-  const float* gb = g + static_cast<size_t>(b) * geo.n * geo.n * plane;
+  const T* fb = feat + (static_cast<size_t>(b) * geo.C + cb0) * plane;
+  const T* gb = g + static_cast<size_t>(b) * geo.n * geo.n * plane;
 
   float acc[CT][RX];
 #pragma unroll
@@ -260,45 +274,44 @@ __device__ __forceinline__ void corr_bwd(const float* __restrict__ feat,
   const int xs = x0 + xr * RX;
   if (xs >= geo.W) return;
   const float inv_c = 1.f / static_cast<float>(geo.C);
-  // W % 4 == 0 makes every row start and xs 16-byte aligned
+  // W % 4 == 0 makes every row start and xs 4-element aligned
   const bool vec = geo.W % 4 == 0 && xs + RX <= geo.W;
 #pragma unroll
   for (int k = 0; k < CT; ++k) {
     const int c = cb0 + cg + NCG * k;
     if (c >= geo.C) continue;
-    float* o = out + (static_cast<size_t>(b) * geo.C + c) * plane
-               + static_cast<size_t>(y) * geo.W + xs;
+    T* o = out + (static_cast<size_t>(b) * geo.C + c) * plane
+           + static_cast<size_t>(y) * geo.W + xs;
     if (vec) {
 #pragma unroll
       for (int h = 0; h < RX / 4; ++h)
-        reinterpret_cast<float4*>(o)[h] =
-            make_float4(acc[k][4 * h] * inv_c, acc[k][4 * h + 1] * inv_c,
-                        acc[k][4 * h + 2] * inv_c, acc[k][4 * h + 3] * inv_c);
+        store4(o + 4 * h, acc[k][4 * h] * inv_c, acc[k][4 * h + 1] * inv_c,
+               acc[k][4 * h + 2] * inv_c, acc[k][4 * h + 3] * inv_c);
     } else {
 #pragma unroll
       for (int r = 0; r < RX; ++r)
-        if (xs + r < geo.W) o[r] = acc[k][r] * inv_c;
+        if (xs + r < geo.W) store1(o + r, acc[k][r] * inv_c);
     }
   }
 }
 
-template <int S>
+template <int S, typename T>
 __global__ void __launch_bounds__(THREADS)
-corr_bwd_f1_kernel(const float* __restrict__ f2, const float* __restrict__ g,
-                   float* __restrict__ df1, const Geometry geo) {
+corr_bwd_f1_kernel(const T* __restrict__ f2, const T* __restrict__ g,
+                   T* __restrict__ df1, const Geometry geo) {
   corr_bwd<S, true>(f2, g, df1, geo);
 }
 
-template <int S>
+template <int S, typename T>
 __global__ void __launch_bounds__(THREADS)
-corr_bwd_f2_kernel(const float* __restrict__ f1, const float* __restrict__ g,
-                   float* __restrict__ df2, const Geometry geo) {
+corr_bwd_f2_kernel(const T* __restrict__ f1, const T* __restrict__ g,
+                   T* __restrict__ df2, const Geometry geo) {
   corr_bwd<S, false>(f1, g, df2, geo);
 }
 
-template <typename K>
+template <typename K, typename T>
 cudaError_t launch_kernel(K kernel, dim3 grid, size_t smem, cudaStream_t st,
-                          const float* f, const float* g, float* o,
+                          const T* f, const T* g, T* o,
                           const Geometry& geo) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -310,15 +323,16 @@ cudaError_t launch_kernel(K kernel, dim3 grid, size_t smem, cudaStream_t st,
   return cudaGetLastError();
 }
 
-template <int S>
+template <int S, typename T>
 cudaError_t launch_stride(bool wrt_f1, dim3 grid, size_t smem,
-                          cudaStream_t st, const float* f, const float* g,
-                          float* o, const Geometry& geo) {
+                          cudaStream_t st, const T* f, const T* g, T* o,
+                          const Geometry& geo) {
   return wrt_f1
-      ? launch_kernel(corr_bwd_f1_kernel<S>, grid, smem, st, f, g, o, geo)
-      : launch_kernel(corr_bwd_f2_kernel<S>, grid, smem, st, f, g, o, geo);
+      ? launch_kernel(corr_bwd_f1_kernel<S, T>, grid, smem, st, f, g, o, geo)
+      : launch_kernel(corr_bwd_f2_kernel<S, T>, grid, smem, st, f, g, o, geo);
 }
 
+template <typename T>
 int launch(bool wrt_f1, const void* feat, const void* g, void* out, int B,
            int C, int H, int W, int max_disp, int stride, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || stride <= 0 || max_disp < 0)
@@ -353,9 +367,9 @@ int launch(bool wrt_f1, const void* feat, const void* g, void* out, int B,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid((W + TX - 1) / TX, H, static_cast<unsigned>(zdim));
   const size_t smem = static_cast<size_t>(smem_ll);
-  const float* f = static_cast<const float*>(feat);
-  const float* gg = static_cast<const float*>(g);
-  float* o = static_cast<float*>(out);
+  const T* f = static_cast<const T*>(feat);
+  const T* gg = static_cast<const T*>(g);
+  T* o = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (stride) {
     case 1: e = launch_stride<1>(wrt_f1, grid, smem, st, f, gg, o, geo); break;
@@ -372,19 +386,36 @@ int launch(bool wrt_f1, const void* feat, const void* g, void* out, int B,
 extern "C" {
 
 // f2, g -> df1 and f1, g -> df2. Feature maps and gradients (B, C, H, W),
-// g (B, n*n, H, W), all float32 contiguous on the current device. Each
-// launches one kernel on `stream` and returns cudaGetLastError() (0 on
-// success); neither synchronises.
+// g (B, n*n, H, W), all contiguous on the current device and of one
+// type: float32 (_f32) or bf16 (_bf16). Each launches one kernel on
+// `stream` and returns cudaGetLastError() (0 on success); neither
+// synchronises.
 int deepof_corr_bwd_f1_f32(const void* f2, const void* g, void* df1, int B,
                            int C, int H, int W, int max_disp, int stride,
                            void* stream) {
-  return launch(true, f2, g, df1, B, C, H, W, max_disp, stride, stream);
+  return launch<float>(true, f2, g, df1, B, C, H, W, max_disp, stride,
+                       stream);
 }
 
 int deepof_corr_bwd_f2_f32(const void* f1, const void* g, void* df2, int B,
                            int C, int H, int W, int max_disp, int stride,
                            void* stream) {
-  return launch(false, f1, g, df2, B, C, H, W, max_disp, stride, stream);
+  return launch<float>(false, f1, g, df2, B, C, H, W, max_disp, stride,
+                       stream);
+}
+
+int deepof_corr_bwd_f1_bf16(const void* f2, const void* g, void* df1, int B,
+                            int C, int H, int W, int max_disp, int stride,
+                            void* stream) {
+  return launch<__nv_bfloat16>(true, f2, g, df1, B, C, H, W, max_disp,
+                               stride, stream);
+}
+
+int deepof_corr_bwd_f2_bf16(const void* f1, const void* g, void* df2, int B,
+                            int C, int H, int W, int max_disp, int stride,
+                            void* stream) {
+  return launch<__nv_bfloat16>(false, f1, g, df2, B, C, H, W, max_disp,
+                               stride, stream);
 }
 
 const char* deepof_cuda_error_string(int code) {

@@ -8,7 +8,11 @@ Conventions, as in the JAX package:
   - encoder/decoder convs use ELU, except prediction (`pr*`) and
     flow-upsampling (`up_pr*`) layers, which are linear;
   - conv weights init glorot-uniform, zero biases; feature deconvs init to
-    bilinear upsampling with an identity channel map.
+    bilinear upsampling with an identity channel map;
+  - `dtype` (`train.compute_dtype`): each conv and deconv casts its
+    input, weight and bias to it and computes in it, as flax's
+    `nn.Conv(dtype=...)` does; the parameters stay float32, and their
+    gradients come back float32 through the cast.
 
 Tensors are NCHW inside the models.
 """
@@ -51,46 +55,52 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 class ConvELU(nn.Module):
-    """Conv with SAME padding (flax's asymmetric rule) + optional ELU."""
+    """Conv with SAME padding (flax's asymmetric rule) + optional ELU, in
+    `dtype`."""
 
     def __init__(self, cin: int, features: int,
                  kernel: tuple[int, int] = (3, 3), stride: int = 1,
-                 act: bool = True):
+                 act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, stride=stride)
         self.kernel = tuple(kernel)
         self.stride = stride
         self.act = act
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kh, kw), s = self.kernel, self.stride
         ph = _same_pad(x.shape[-2], kh, s)
         pw = _same_pad(x.shape[-1], kw, s)
+        x = x.to(self.dtype)
+        weight = self.conv.weight.to(self.dtype)
+        bias = self.conv.bias.to(self.dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            x = F.conv2d(x, self.conv.weight, self.conv.bias, s,
-                         (ph[0], pw[0]))
+            x = F.conv2d(x, weight, bias, s, (ph[0], pw[0]))
         else:
-            x = F.conv2d(F.pad(x, (*pw, *ph)), self.conv.weight,
-                         self.conv.bias, s)
+            x = F.conv2d(F.pad(x, (*pw, *ph)), weight, bias, s)
         return F.elu(x) if self.act else x
 
 
 class Deconv(nn.Module):
     """Transposed conv, kernel (2*scale, 2*scale), stride=scale, output
-    exactly scale x the input; initialised to bilinear upsampling. Flax's
-    ConvTranspose kernel is the spatially flipped torch weight (see
-    `convert.py`)."""
+    exactly scale x the input; initialised to bilinear upsampling; in
+    `dtype`. Flax's ConvTranspose kernel is the spatially flipped torch
+    weight (see `convert.py`)."""
 
     def __init__(self, cin: int, features: int, scale: int = 2,
-                 act: bool = True):
+                 act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         k = 2 * scale
         self.deconv = nn.ConvTranspose2d(cin, features, k, stride=scale,
                                          padding=scale // 2)
         self.act = act
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.deconv(x)
+        d = self.deconv
+        x = F.conv_transpose2d(x.to(self.dtype), d.weight.to(self.dtype),
+                               d.bias.to(self.dtype), d.stride, d.padding)
         return F.elu(x) if self.act else x
 
 
@@ -103,7 +113,8 @@ class FlowDecoder(nn.Module):
     """
 
     def __init__(self, in_channels: Sequence[int],
-                 upconv_features: Sequence[int], flow_channels: int = 2):
+                 upconv_features: Sequence[int], flow_channels: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n = len(in_channels)
         if len(upconv_features) != n - 1:
@@ -112,13 +123,15 @@ class FlowDecoder(nn.Module):
         self.n = n
         feat = in_channels[0]
         for k in range(n - 1):
-            setattr(self, f"pr{n - k}", ConvELU(feat, flow_channels, act=False))
+            setattr(self, f"pr{n - k}", ConvELU(feat, flow_channels,
+                                                act=False, dtype=dtype))
             setattr(self, f"upconv{n - k - 1}",
-                    Deconv(feat, upconv_features[k]))
+                    Deconv(feat, upconv_features[k], dtype=dtype))
             setattr(self, f"up_pr{n - k}to{n - k - 1}",
-                    Deconv(flow_channels, flow_channels, act=False))
+                    Deconv(flow_channels, flow_channels, act=False,
+                           dtype=dtype))
             feat = in_channels[k + 1] + upconv_features[k] + flow_channels
-        self.pr1 = ConvELU(feat, flow_channels, act=False)
+        self.pr1 = ConvELU(feat, flow_channels, act=False, dtype=dtype)
 
     def forward(self, feats_coarse_first: Sequence[torch.Tensor]
                 ) -> list[torch.Tensor]:
@@ -145,7 +158,9 @@ def scaled_width(features: int, mult: float) -> int:
 
 
 def add_flownet_tail(module: nn.Module, cin: int, width_mult: float = 1.0,
-                     prefix: str = "conv") -> tuple[int, int, int]:
+                     prefix: str = "conv",
+                     dtype: torch.dtype = torch.float32
+                     ) -> tuple[int, int, int]:
     """Register the conv4_1..conv6_2 contracting tail (strides 2 at
     4_1/5_1/6_1) on `module`, so the layer names land in the caller's
     flat scope as in the JAX package; returns the channel counts of
@@ -154,7 +169,8 @@ def add_flownet_tail(module: nn.Module, cin: int, width_mult: float = 1.0,
     specs = (("4_1", ch(512), 2), ("4_2", ch(512), 1), ("5_1", ch(512), 2),
              ("5_2", ch(512), 1), ("6_1", ch(1024), 2), ("6_2", ch(1024), 1))
     for name, feats, stride in specs:
-        setattr(module, f"{prefix}{name}", ConvELU(cin, feats, stride=stride))
+        setattr(module, f"{prefix}{name}",
+                ConvELU(cin, feats, stride=stride, dtype=dtype))
         cin = feats
     return ch(512), ch(512), ch(1024)
 
@@ -170,16 +186,20 @@ def flownet_tail(module: nn.Module, x: torch.Tensor, prefix: str = "conv"):
 
 
 def add_flownet_trunk(module: nn.Module, cin: int, width_mult: float = 1.0,
-                      prefix: str = "conv") -> list[int]:
+                      prefix: str = "conv",
+                      dtype: torch.dtype = torch.float32) -> list[int]:
     """Register the 10-conv FlowNet-S trunk on `module`; returns the
     channel counts of its taps [conv1, conv2, conv3_2, conv4_2, conv5_2,
     conv6_2]."""
     ch = lambda n: scaled_width(n, width_mult)  # noqa: E731
-    setattr(module, f"{prefix}1", ConvELU(cin, ch(64), (7, 7), 2))
-    setattr(module, f"{prefix}2", ConvELU(ch(64), ch(128), (5, 5), 2))
-    setattr(module, f"{prefix}3_1", ConvELU(ch(128), ch(256), (5, 5), 2))
-    setattr(module, f"{prefix}3_2", ConvELU(ch(256), ch(256)))
-    tail = add_flownet_tail(module, ch(256), width_mult, prefix)
+    for name, cout, kernel, stride in (("1", ch(64), (7, 7), 2),
+                                       ("2", ch(128), (5, 5), 2),
+                                       ("3_1", ch(256), (5, 5), 2),
+                                       ("3_2", ch(256), (3, 3), 1)):
+        setattr(module, f"{prefix}{name}",
+                ConvELU(cin, cout, kernel, stride, dtype=dtype))
+        cin = cout
+    tail = add_flownet_tail(module, ch(256), width_mult, prefix, dtype)
     return [ch(64), ch(128), ch(256), *tail]
 
 

@@ -28,15 +28,22 @@ from .flownet_s import FLOW_SCALES, FlowNetS
 
 
 def refinement_inputs(img1: torch.Tensor, img2: torch.Tensor,
-                      flow: torch.Tensor) -> torch.Tensor:
+                      flow: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The stacked refinement input, NCHW: [img1, img2, warp(img2, flow),
-    flow, brightness error], (B, 12, H, W) float32. `flow` (B, 2, H, W)
-    is at input resolution in input pixels (its scale applied); the error
-    is sqrt(sum over channels of (img1 - warped)^2 + 1e-12)."""
+    flow, brightness error], (B, 12, H, W). `flow` (B, 2, H, W) is at
+    input resolution in input pixels (its scale applied); the error is
+    sqrt(sum over channels of (img1 - warped)^2 + 1e-12). The warp and
+    the error are computed in float32 from the upcast images; the
+    warped image, the flow and the error are then cast to `dtype`, and
+    `torch.cat` promotes as `jnp.concatenate` does: bf16 images (the
+    training input under `train.compute_dtype`) give a bf16 stack,
+    float32 images (eval) a float32 one."""
     warped = backward_warp_nchw(img2.float(), flow)
     err = torch.sqrt(torch.sum(torch.square(img1.float() - warped), dim=1,
                                keepdim=True) + 1e-12)
-    return torch.cat([img1, img2, warped, flow, err], dim=1)
+    return torch.cat([img1, img2, warped.to(dtype), flow.to(dtype),
+                      err.to(dtype)], dim=1)
 
 
 def upsample_flow(flow: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
@@ -53,7 +60,7 @@ class FlowNetCS(nn.Module):
     max_downsample = 64
 
     def __init__(self, flow_channels: int = 2, max_disp: int = 20,
-                 corr_stride: int = 2):
+                 corr_stride: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
         if flow_channels != 2:
             raise ValueError(
@@ -62,15 +69,18 @@ class FlowNetCS(nn.Module):
         self.flow_channels = flow_channels
         self.max_disp = max_disp
         self.corr_stride = corr_stride
+        self.dtype = dtype
         self.base = FlowNetC(flow_channels=2, max_disp=max_disp,
-                             corr_stride=corr_stride)
-        self.refine = FlowNetS(flow_channels=2, in_channels=12)
+                             corr_stride=corr_stride, dtype=dtype)
+        self.refine = FlowNetS(flow_channels=2, in_channels=12, dtype=dtype)
 
     def forward(self, pair: torch.Tensor) -> list[torch.Tensor]:
         if pair.shape[1] != 6:
             raise ValueError("FlowNetCS is a 2-frame model (6 input "
                              f"channels); got input {pair.shape[1]}ch")
-        # the finest base level lives at half resolution
+        # the finest base level lives at half resolution; it is upsampled
+        # in float32
         flow = self.base(pair)[0].float() * self.flow_scales[0]
         flow = upsample_flow(flow, tuple(pair.shape[-2:]))
-        return self.refine(refinement_inputs(pair[:, :3], pair[:, 3:], flow))
+        return self.refine(refinement_inputs(pair[:, :3], pair[:, 3:], flow,
+                                             self.dtype))

@@ -4,7 +4,8 @@ Siamese conv1..conv3 towers (one set of modules, shared weights) over
 each preprocessed frame, the multiplicative correlation cost volume
 (max displacement 20, stride 2 -> 441 maps) followed by ELU, a 1x1
 `conv_redir` (32ch) of the first tower, then the FlowNet-S tail and
-decoder with 6 pyramid heads.
+decoder with 6 pyramid heads. Every block computes in `dtype`, and so
+does the cost volume and its ELU: the towers hand it `dtype` features.
 """
 
 from __future__ import annotations
@@ -24,23 +25,27 @@ class FlowNetC(nn.Module):
     max_downsample = 64
 
     def __init__(self, flow_channels: int = 2, max_disp: int = 20,
-                 corr_stride: int = 2, width_mult: float = 1.0):
+                 corr_stride: int = 2, width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.flow_channels = flow_channels
         self.max_disp = max_disp
         self.corr_stride = corr_stride
         self.width_mult = width_mult
-        ch =lambda n: scaled_width(n, width_mult)  # noqa: E731
-        self.conv1 = ConvELU(3, ch(64), (7, 7), 2)
-        self.conv2 = ConvELU(ch(64), ch(128), (5, 5), 2)
-        self.conv3 = ConvELU(ch(128), ch(256), (5, 5), 2)
-        self.conv_redir = ConvELU(ch(256), ch(32), (1, 1))
+        self.dtype = dtype
+        ch = lambda n: scaled_width(n, width_mult)  # noqa: E731
+        self.conv1 = ConvELU(3, ch(64), (7, 7), 2, dtype=dtype)
+        self.conv2 = ConvELU(ch(64), ch(128), (5, 5), 2, dtype=dtype)
+        self.conv3 = ConvELU(ch(128), ch(256), (5, 5), 2, dtype=dtype)
+        self.conv_redir = ConvELU(ch(256), ch(32), (1, 1), dtype=dtype)
         n = 2 * (max_disp // corr_stride) + 1
-        self.conv3_1 = ConvELU(n * n + ch(32), ch(256))
-        c4_2, c5_2, c6_2 = add_flownet_tail(self, ch(256), width_mult)
+        self.conv3_1 = ConvELU(n * n + ch(32), ch(256), dtype=dtype)
+        c4_2, c5_2, c6_2 = add_flownet_tail(self, ch(256), width_mult,
+                                            dtype=dtype)
         self.decoder = FlowDecoder(
             (c6_2, c5_2, c4_2, ch(256), ch(128), ch(64)),
-            tuple(ch(f) for f in (512, 256, 128, 64, 32)), flow_channels)
+            tuple(ch(f) for f in (512, 256, 128, 64, 32)), flow_channels,
+            dtype)
 
     def forward(self, pair: torch.Tensor) -> list[torch.Tensor]:
         b = pair.shape[0]

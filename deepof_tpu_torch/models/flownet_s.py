@@ -4,7 +4,8 @@
 scales 20/2^k, decoder deconvs of widths 512/256/128/64/32.
 
 Input: preprocessed image pair concatenated on channels, NCHW
-(B, 6, H, W). Output: list of flow predictions finest-first.
+(B, 6, H, W). Output: list of flow predictions finest-first, in `dtype`
+(the convolutions' compute dtype; parameters stay float32).
 """
 
 from __future__ import annotations
@@ -23,20 +24,22 @@ class FlowNetS(nn.Module):
     max_downsample = 64  # six stride-2 stages
 
     def __init__(self, flow_channels: int = 2, width_mult: float = 1.0,
-                 in_channels: int | None = None):
+                 in_channels: int | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.flow_channels = flow_channels
         self.width_mult = width_mult
+        self.dtype = dtype
         # T frames of 3 channels give 2(T-1) flow channels; flax infers
         # the width from the input, so a stage over another input (the
         # FlowNet-CS refinement stage's 12 channels) names it
         if in_channels is None:
             in_channels = 3 * (flow_channels // 2 + 1)
-        taps = add_flownet_trunk(self, in_channels, width_mult)
+        taps = add_flownet_trunk(self, in_channels, width_mult, dtype=dtype)
         self.decoder = FlowDecoder(
             taps[::-1],
             tuple(scaled_width(f, width_mult) for f in (512, 256, 128, 64, 32)),
-            flow_channels)
+            flow_channels, dtype)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         taps = flownet_trunk(self, x)

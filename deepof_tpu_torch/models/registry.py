@@ -50,9 +50,11 @@ def _fields(cls) -> set[str]:
 def build_model(name: str, flow_channels: int = 2, width_mult: float = 1.0,
                 corr_max_disp: int = 20, corr_stride: int = 2,
                 seed: int = 0, device: str | torch.device = "cuda",
-                **kw) -> nn.Module:
+                dtype: torch.dtype = torch.float32, **kw) -> nn.Module:
     """The named model, initialised from `seed` as the JAX package
-    initialises it, on `device` (default CUDA; raises without a card)."""
+    initialises it, on `device` (default CUDA; raises without a card).
+    Its convolutions and cost volume compute in `dtype`; its parameters
+    are float32 whatever `dtype` is."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported to deepof_tpu_torch yet: "
@@ -74,5 +76,5 @@ def build_model(name: str, flow_channels: int = 2, width_mult: float = 1.0,
             raise ValueError(
                 f"model {name!r} does not support {knob} (={value}); "
                 f"models honoring it: {supported}")
-    model = cls(flow_channels=flow_channels, **kw)
+    model = cls(flow_channels=flow_channels, dtype=dtype, **kw)
     return init_weights(model, seed).to(dev)

@@ -12,6 +12,9 @@ Both go through the `torch.autograd.Function` `Correlation` on every
 device: a CUDA tensor goes to the hand-written kernels (`ops/cuda/corr.py`,
 the forward and its two backward kernels), a CPU tensor to the plain
 versions, `correlation_reference` and `correlation_backward_reference`.
+Float32 and bfloat16 pass through on both devices: each path
+accumulates in float32 and returns the input dtype, as the JAX kernel
+does, and the gradients take the inputs' dtypes.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ def correlation_backward_reference(f1: torch.Tensor, f2: torch.Tensor,
     The counterpart of the JAX custom VJP (`deepof_tpu/ops/pallas/corr.py`
     `_bwd`): a loop over the n*n offsets that adds g/C times the shifted
     f2 into df1, and g/C times f1 into the shifted window of a zero-padded
-    df2. Accumulates in float32; returns the input dtype."""
+    df2. Upcasts f1, f2 and g (bf16 under `train.compute_dtype`) to
+    float32, accumulates in float32 and returns the inputs' dtypes."""
     b, c, h, w = f1.shape
     k = max_disp // stride
     n = 2 * k + 1
@@ -80,8 +84,10 @@ def correlation_backward_reference(f1: torch.Tensor, f2: torch.Tensor,
 
 class Correlation(torch.autograd.Function):
     """The cost volume with its gradient in both feature maps:
-    `apply(f1, f2, max_disp, stride)`, NCHW. On CUDA tensors the forward
-    and backward kernels run, on CPU tensors the plain versions."""
+    `apply(f1, f2, max_disp, stride)`, NCHW, float32 or bfloat16: the
+    cost volume has the inputs' dtype, and so do their gradients. On CUDA
+    tensors the forward and backward kernels run, on CPU tensors the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, f1, f2, max_disp: int, stride: int):

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into
 `build/deepof_tpu_torch/lib<name>-<hash>.so` at the repository root and
-loaded with ctypes. The hash covers the source and the flags, so a
-stale library is never loaded.
+loaded with ctypes. The hash covers the source, the headers of `csrc/`
+that it includes (`#include "<name>.cuh"`) and the flags, so a stale
+library is never loaded.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,7 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(source)
+    for header in sorted(set(re.findall(rb'#include "(\w+\.cuh)"',
+                                        source))):
+        h.update((CSRC / header.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

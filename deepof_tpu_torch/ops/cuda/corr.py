@@ -23,10 +23,15 @@ through `ops/corr.py::Correlation`, which calls both wrappers, and
 `correlation_cuda` raises when it is handed a tensor that requires grad
 with grad mode on, so no caller can drop the gradient silently.
 
-These kernels take float32 only. The JAX kernel also takes bf16
-(accumulating in f32 and returning bf16, `ops/pallas/corr.py:104-106`);
-that path comes with the bf16 serving tier. Until then a bf16 CUDA
-tensor raises here rather than being converted.
+Each kernel takes float32 or bf16, with every tensor of a call of one
+type, and returns that type: the JAX kernel accumulates in float32 and
+returns the input dtype (`ops/pallas/corr.py:104-106`). Training under
+`train.compute_dtype="bfloat16"` hands them bf16 feature maps. A bf16
+instance stages bf16 into the same float32 tiles and rounds its float32
+result once, so it gives the float32 kernel's bits on the upcast inputs,
+rounded to bf16. Each (kernel, dtype) has its own launch counter:
+`corr`, `corr_bwd_f1`, `corr_bwd_f2` and `corr_bf16`,
+`corr_bwd_f1_bf16`, `corr_bwd_f2_bf16`. Mixed dtypes raise.
 
 The wrapper never falls back to the plain version: a failed build or
 launch raises.
@@ -43,6 +48,16 @@ from .build import LaunchCounter, check, load
 launches = LaunchCounter("corr")
 bwd_f1_launches = LaunchCounter("corr_bwd_f1")
 bwd_f2_launches = LaunchCounter("corr_bwd_f2")
+bf16_launches = LaunchCounter("corr_bf16")
+bwd_f1_bf16_launches = LaunchCounter("corr_bwd_f1_bf16")
+bwd_f2_bf16_launches = LaunchCounter("corr_bwd_f2_bf16")
+
+#: dtype -> (entry-point suffix, forward, corr_bwd_f1, corr_bwd_f2 counters)
+_BY_DTYPE = {
+    torch.float32: ("f32", launches, bwd_f1_launches, bwd_f2_launches),
+    torch.bfloat16: ("bf16", bf16_launches, bwd_f1_bf16_launches,
+                     bwd_f2_bf16_launches),
+}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -60,15 +75,20 @@ def _lib(name: str, fns: tuple[str, ...]) -> ctypes.CDLL:
 
 
 def _check(what: str, max_disp: int, stride: int,
-           tensors: tuple[tuple[str, torch.Tensor], ...]) -> None:
-    """Contiguous (B, C, H, W) float32 tensors on one CUDA device and a
-    valid geometry, or raise."""
+           tensors: tuple[tuple[str, torch.Tensor], ...]) -> tuple:
+    """Contiguous (B, C, H, W) tensors of one dtype, float32 or
+    bfloat16, on one CUDA device and a valid geometry, or raise. Returns
+    that dtype's `_BY_DTYPE` entry."""
+    dtype = tensors[0][1].dtype
     for name, t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} is {t.dtype}; this kernel "
-                            "takes float32 only")
+        if t.dtype not in _BY_DTYPE:
+            raise TypeError(f"{what}: {name} is {t.dtype}; these kernels "
+                            "take float32 or bfloat16")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: mixed dtypes: " + ", ".join(
+                f"{n} {x.dtype}" for n, x in tensors))
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"(B, C, H, W) tensor, got {tuple(t.shape)}")
@@ -79,12 +99,13 @@ def _check(what: str, max_disp: int, stride: int,
             f"{n} {tuple(t.shape)} on {t.device}" for n, t in tensors))
     if stride <= 0 or max_disp < 0:
         raise ValueError(f"{what}: max_disp={max_disp}, stride={stride}")
+    return _BY_DTYPE[dtype]
 
 
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
                      stride: int) -> torch.Tensor:
-    """(B, C, H, W) float32 x2 on one CUDA device ->
-    (B, (2K+1)**2, H, W) float32, K = max_disp // stride. The result has
+    """(B, C, H, W) x2, float32 or bfloat16, on one CUDA device ->
+    (B, (2K+1)**2, H, W) of their dtype, K = max_disp // stride. The result has
     no gradient: with grad mode on, an input that requires grad raises
     (call `ops/corr.py::correlation_nchw`, which differentiates)."""
     if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
@@ -92,18 +113,19 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
             "correlation_cuda: an input requires grad, and this kernel's "
             "result has none; differentiate through "
             "ops/corr.py::correlation_nchw (the Correlation Function)")
-    _check("correlation_cuda", max_disp, stride, (("f1", f1), ("f2", f2)))
+    suffix, counter, _, _ = _check("correlation_cuda", max_disp, stride,
+                                   (("f1", f1), ("f2", f2)))
     b, c, h, w = f1.shape
     n = 2 * (max_disp // stride) + 1
-    out = torch.empty((b, n * n, h, w), device=f1.device, dtype=torch.float32)
-    lib = _lib("corr", ("deepof_corr_fwd_f32",))
+    out = torch.empty((b, n * n, h, w), device=f1.device, dtype=f1.dtype)
+    lib = _lib("corr", ("deepof_corr_fwd_f32", "deepof_corr_fwd_bf16"))
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.deepof_corr_fwd_f32(f1.data_ptr(), f2.data_ptr(),
-                                     out.data_ptr(), b, c, h, w, max_disp,
-                                     stride, stream)
-    check(lib, rc, "corr kernel launch")
-    launches.add()
+        rc = getattr(lib, f"deepof_corr_fwd_{suffix}")(
+            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w,
+            max_disp, stride, stream)
+    check(lib, rc, f"{counter.name} kernel launch")
+    counter.add()
     return out
 
 
@@ -112,10 +134,12 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradients (df1, df2) of `correlation_cuda(f1, f2, max_disp,
     stride)` for its cotangent g (B, (2K+1)**2, H, W): one launch of
-    `corr_bwd_f1` and one of `corr_bwd_f2`. All float32, contiguous, on
-    one CUDA device."""
-    _check("correlation_bwd_cuda", max_disp, stride,
-           (("f1", f1), ("f2", f2), ("g", g)))
+    `corr_bwd_f1` and one of `corr_bwd_f2`. All contiguous, on one CUDA
+    device, and of one dtype, float32 or bfloat16, which the gradients
+    take too."""
+    suffix, _, f1_counter, f2_counter = _check(
+        "correlation_bwd_cuda", max_disp, stride,
+        (("f1", f1), ("f2", f2), ("g", g)))
     b, c, h, w = f1.shape
     n = 2 * (max_disp // stride) + 1
     if g.shape != (b, n * n, h, w):
@@ -123,18 +147,16 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
                          f"{(b, n * n, h, w)} for max_disp={max_disp}, "
                          f"stride={stride}")
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
-    lib = _lib("corr_bwd",
-               ("deepof_corr_bwd_f1_f32", "deepof_corr_bwd_f2_f32"))
+    lib = _lib("corr_bwd", tuple(f"deepof_corr_bwd_{k}_{t}"
+                                 for k in ("f1", "f2")
+                                 for t in ("f32", "bf16")))
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.deepof_corr_bwd_f1_f32(f2.data_ptr(), g.data_ptr(),
-                                        df1.data_ptr(), b, c, h, w, max_disp,
-                                        stride, stream)
-        check(lib, rc, "corr_bwd_f1 kernel launch")
-        bwd_f1_launches.add()
-        rc = lib.deepof_corr_bwd_f2_f32(f1.data_ptr(), g.data_ptr(),
-                                        df2.data_ptr(), b, c, h, w, max_disp,
-                                        stride, stream)
-        check(lib, rc, "corr_bwd_f2 kernel launch")
-        bwd_f2_launches.add()
+        for which, feat, out, counter in (("f1", f2, df1, f1_counter),
+                                          ("f2", f1, df2, f2_counter)):
+            rc = getattr(lib, f"deepof_corr_bwd_{which}_{suffix}")(
+                feat.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, h, w,
+                max_disp, stride, stream)
+            check(lib, rc, f"{counter.name} kernel launch")
+            counter.add()
     return df1, df2

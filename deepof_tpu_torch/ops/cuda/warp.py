@@ -11,8 +11,10 @@ of the image for the forward, of the flow for the gradient).
 same launch.
 
 They take float32 only. The JAX package also warps a bf16 image
-(`loss.gather_dtype="bfloat16"`); that path comes with the bf16 work, and
+(`loss.gather_dtype="bfloat16"`); that path comes with that setting, and
 until then a bf16 CUDA tensor raises here rather than being converted.
+Training under `train.compute_dtype="bfloat16"` warps in float32, as the
+JAX package does: the flows are cast back to float32 before the loss.
 
 The wrappers never fall back to the plain version: a failed build or
 launch raises.

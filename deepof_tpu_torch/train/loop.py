@@ -57,7 +57,7 @@ from .evaluate import evaluate_aee
 from .metrics_log import MetricsLogger, StepTimer
 from .schedule import step_decay_schedule
 from .state import create_train_state
-from .step import make_eval_fn, make_train_step
+from .step import compute_dtype, make_eval_fn, make_train_step
 
 # A prefetch.get() wait above this counts as a `starved` step (the card
 # had no staged batch); below it is queue hand-off noise.
@@ -97,7 +97,7 @@ class Trainer:
             cfg.model, flow_channels=2 * (cfg.data.time_step - 1),
             width_mult=cfg.width_mult, corr_max_disp=cfg.corr_max_disp,
             corr_stride=cfg.corr_stride, seed=cfg.train.seed,
-            device=self.device)
+            device=self.device, dtype=compute_dtype(cfg))
         self.logger = MetricsLogger(cfg.train.log_dir)
         self.steps_per_epoch = max(
             self.dataset.num_train // cfg.data.batch_size, 1)

@@ -9,7 +9,10 @@ when the loss or the gradient norm is not finite (`skip_nonfinite`).
 without gradients, with the finest flow and reconstruction.
 
 The model works in NCHW; the loss keeps the JAX package's NHWC, through
-permuted views of the same memory.
+permuted views of the same memory. Under `train.compute_dtype=
+"bfloat16"` the train step casts the network's input pair to bf16 and
+the model's flows back to float32 before the loss, as the JAX step does;
+the loss, the gradients, their norm and Adam stay float32.
 """
 
 from __future__ import annotations
@@ -33,14 +36,22 @@ SCALE_KEYS = ("total", "Charbonnier_reconstruct", "U_loss", "V_loss",
 IMAGE_KEYS = ("source", "target", "net_source", "net_target")
 
 
+def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
+    """The torch dtype of `cfg.train.compute_dtype` (one of
+    `core.config.COMPUTE_DTYPES`, which are torch's names)."""
+    return getattr(torch, cfg.train.compute_dtype)
+
+
 def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
-                 loss_cfg: LossConfig, smooth_border_mask: bool = False
+                 loss_cfg: LossConfig, smooth_border_mask: bool = False,
+                 compute_dtype: torch.dtype = torch.float32
                  ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Forward + objective for a two-frame flow model. batch: NHWC
     float images "source" and "target" (and optionally the augmented
-    "net_source"/"net_target" that feed the network). Returns (total,
-    aux with the per-level loss dicts, finest scaled flow, finest
-    reconstruction)."""
+    "net_source"/"net_target" that feed the network). The network's
+    pair is cast to `compute_dtype`, its flows back to float32. Returns
+    (total, aux with the per-level loss dicts, finest scaled flow,
+    finest reconstruction)."""
     if "volume" in batch:
         raise NotImplementedError(
             "multi-frame volume batches are not ported to deepof_tpu_torch "
@@ -53,7 +64,7 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
                if "net_target" in batch else tgt)
     pair = torch.cat([net_src, net_tgt], dim=-1).permute(0, 3, 1, 2)
     flows = [f.float().permute(0, 2, 3, 1)
-             for f in model(pair.contiguous())]
+             for f in model(pair.to(compute_dtype).contiguous())]
     total, losses, recon = pyramid_loss(
         list(zip(flows, model.flow_scales)), lrn_normalize(src),
         lrn_normalize(tgt), loss_cfg, smooth_border_mask)
@@ -78,11 +89,12 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     device."""
     check_trainable(cfg)
     device = next(model.parameters()).device
+    dtype = compute_dtype(cfg)
 
     def step(state: TrainState, batch: dict) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
         total, aux = model_losses(model, batch_to_device(batch, device),
-                                  mean, cfg.loss, smooth_border_mask)
+                                  mean, cfg.loss, smooth_border_mask, dtype)
         total.backward()
         grad_norm = global_norm([p.grad for p in model.parameters()
                                  if p.grad is not None])
@@ -111,7 +123,8 @@ def make_eval_fn(cfg: ExperimentConfig, mean: Mean,
     "recon": (B, h, w, 3) numpy}: the objective, the finest flow
     (already multiplied by its flow scale) and the finest
     reconstruction, under `torch.no_grad()` with the model in eval mode
-    (its mode is restored after)."""
+    (its mode is restored after). The pair goes in float32, as in the
+    JAX package's eval; a bf16 model's convolutions cast it."""
 
     def eval_fn(model, batch: dict) -> dict:
         device = next(model.parameters()).device

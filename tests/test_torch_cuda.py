@@ -1,13 +1,14 @@
 """Tests of the PyTorch port's CUDA kernels (correlation and its two
-backward kernels, warp and its flow gradient, one level and a list of
-levels per launch), on the card.
+backward kernels, in float32 and bf16; warp and its flow gradient, one
+level and a list of levels per launch), on the card.
 
 They skip on a host without a CUDA device. This file imports no JAX, so
 it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Add `-k corr`, `-k corr_bwd` or `-k warp` for one kernel's cases.
+Add `-k corr`, `-k corr_bwd`, `-k bf16` or `-k warp` for one kernel's
+cases.
 """
 
 import numpy as np
@@ -63,8 +64,10 @@ def test_corr_kernel_refuses_what_it_does_not_take(cuda):
     from deepof_tpu_torch.ops.cuda.corr import correlation_cuda
 
     t = torch.zeros(1, 4, 5, 6, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        correlation_cuda(t.bfloat16(), t.bfloat16(), 2, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        correlation_cuda(t.half(), t.half(), 2, 1)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        correlation_cuda(t, t.bfloat16(), 2, 1)
     with pytest.raises(ValueError, match="contiguous"):
         correlation_cuda(t.transpose(2, 3), t.transpose(2, 3), 2, 1)
     with pytest.raises(ValueError, match="vs"):
@@ -132,12 +135,77 @@ def test_corr_kernels_refuse_what_they_do_not_take(cuda):
         correlation_cuda(t.clone().requires_grad_(True), t, 2, 2)
     with torch.no_grad():  # no graph: the kernel may run
         correlation_cuda(t.clone().requires_grad_(True), t, 2, 2)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="mixed dtypes"):
         correlation_bwd_cuda(t, t, g.bfloat16(), 2, 2)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        correlation_bwd_cuda(t.bfloat16(), t, g.bfloat16(), 2, 2)
     with pytest.raises(ValueError, match="contiguous"):
         correlation_bwd_cuda(t, t, g.transpose(2, 3), 2, 2)
     with pytest.raises(ValueError, match="want"):
         correlation_bwd_cuda(t, t, g, 2, 1)  # n = 5: g needs 25 maps
+
+
+def _bf16(rs, *shape, device):
+    return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        device).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_disp,stride", CASES)
+def test_corr_bf16_kernel_is_the_f32_kernel_rounded(cuda, shape, max_disp,
+                                                    stride):
+    """The bf16 forward stages bf16 into the float32 kernel's tiles and
+    rounds its float32 result once: bit for bit the float32 kernel on the
+    upcast inputs, rounded to bf16, and so the plain version's bits
+    wherever the float32 kernel gives them (at every C)."""
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    rs = np.random.RandomState(2)
+    f1, f2 = (_bf16(rs, *shape, device=cuda) for _ in range(2))
+    counters = (cc.bf16_launches, cc.launches)
+    before = [k.count for k in counters]
+    got = correlation_nchw(f1, f2, max_disp, stride)  # "auto": the kernel
+    assert [k.count - b0 for k, b0 in zip(counters, before)] == [1, 0]
+    assert got.dtype == torch.bfloat16
+    f32 = cc.correlation_cuda(f1.float(), f2.float(), max_disp, stride)
+    assert torch.equal(got, f32.bfloat16())
+    assert torch.equal(got, correlation_reference(f1, f2, max_disp, stride))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_disp,stride", CORR_BWD_CASES)
+def test_corr_bwd_bf16_kernels_are_the_f32_kernels_rounded(cuda, shape,
+                                                           max_disp, stride):
+    """Both bf16 backward kernels: bit for bit the float32 kernels on the
+    upcast inputs, rounded to bf16; the plain backward's bits where C is
+    a power of two (as for float32); the same bits every call."""
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    rs = np.random.RandomState(3)
+    b, c, h, w = shape
+    n = 2 * (max_disp // stride) + 1
+    f1, f2 = (_bf16(rs, *shape, device=cuda).requires_grad_(True)
+              for _ in range(2))
+    g = _bf16(rs, b, n * n, h, w, device=cuda)
+    counters = (cc.bf16_launches, cc.bwd_f1_bf16_launches,
+                cc.bwd_f2_bf16_launches, cc.launches, cc.bwd_f1_launches,
+                cc.bwd_f2_launches)
+    before = [k.count for k in counters]
+    correlation_nchw(f1, f2, max_disp, stride).backward(g)  # the kernels
+    assert [k.count - b0 for k, b0 in zip(counters, before)] == [
+        1, 1, 1, 0, 0, 0]
+    got = (f1.grad, f2.grad)
+    a1, a2 = f1.detach(), f2.detach()
+    f32 = cc.correlation_bwd_cuda(a1.float(), a2.float(), g.float(),
+                                  max_disp, stride)
+    plain = correlation_backward_reference(a1, a2, g, max_disp, stride)
+    for x, w32, p in zip(got, f32, plain):
+        assert x.dtype == p.dtype == torch.bfloat16
+        assert torch.equal(x, w32.bfloat16())
+        if c & (c - 1) == 0:
+            assert torch.equal(x, p)
+    again = cc.correlation_bwd_cuda(a1, a2, g, max_disp, stride)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
 
 
 # (B, C, H, W), flow magnitude: training pyramid levels, a ragged shape

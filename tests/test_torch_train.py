@@ -285,7 +285,7 @@ def test_trainer_fits_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"model": "vgg16"}, {"train": TrainConfig(compute_dtype="bfloat16")},
+    {"model": "vgg16"}, {"loss": LossConfig(gather_dtype="bfloat16")},
     {"optim": OptimConfig(grad_accum=2)},
     {"data": DataConfig(time_step=3)},
     {"data": DataConfig(augment_geo=True)}])
