@@ -9,7 +9,12 @@ on the card, then drives the port's paths and checks that each went
 through its kernels (the launch counts are set to 0 before each path and
 read after it):
   - serving: FlowNet-C at full width through `InferenceEngine` (the
-    correlation kernel);
+    correlation kernel); the same in the three precision tiers f32, bf16
+    and int8 of one engine (`serve_tiers`: the float32 correlation once a
+    dispatch in each); and video streams through `submit_next` with the
+    temporal warm start (`serve_stream`: the correlation once a cold
+    dispatch, the warp once a warm one, at input resolution), with the
+    warp at that shape against its plain version (`check_warp`);
   - the correlation forward against its plain version at the serving
     and training shapes (bitwise equal) and ragged (`check_corr`), and
     its backward kernels at the training shape (bitwise equal), ragged,
@@ -406,14 +411,34 @@ def grid_sample_grid(flow):
     return grid, norm
 
 
-def check_warp(shape, mag, seed, rounds=WARP_ROUNDS):
+def warm_path_flow(b, h, w, mag, g):
+    """A flow (B, 2, H, W) like the warm start's warp input: a smooth
+    prior on the head grid (H/2, W/2), `mag` pixels there, upsampled x2
+    to input resolution by `upsample_flow` (vectors doubled)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepof_tpu_torch.models.flownet2 import upsample_flow
+
+    coarse = torch.randn((b, 2, h // 32, w // 32), device="cuda",
+                         generator=g) * mag
+    prior = F.interpolate(coarse, size=(h // 2, w // 2), mode="bilinear",
+                          align_corners=False)
+    return upsample_flow(prior, (h, w))
+
+
+def check_warp(shape, mag, seed, rounds=WARP_ROUNDS, bitwise=False,
+               smooth=False):
     """Both warp kernels (one level per launch) vs their plain versions
     on the card at one NCHW shape, with the library yardstick
     F.grid_sample(border, align_corners=True) and its gradient with
-    respect to the grid. Each is timed twice: its device time (`ms`,
-    `plain_ms`, `library_ms`; kernel and library `rounds` times each, in
-    turns, `*_runs`, the median reported) and the CUDA-event time of one
-    call, host launch included (`*call_ms`)."""
+    respect to the grid. The flow is normal, `mag` pixels, or with
+    `smooth` the warm start's kind (`warm_path_flow`); with `bitwise` the
+    forward must equal the plain version bit for bit (F6). Each is timed
+    twice: its device time (`ms`, `plain_ms`, `library_ms`; kernel and
+    library `rounds` times each, in turns, `*_runs`, the median reported)
+    and the CUDA-event time of one call, host launch included
+    (`*call_ms`)."""
     import torch
     import torch.nn.functional as F
 
@@ -424,7 +449,8 @@ def check_warp(shape, mag, seed, rounds=WARP_ROUNDS):
     b, c, h, w = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     img = torch.rand(shape, device="cuda", generator=g)
-    flow = torch.randn((b, 2, h, w), device="cuda", generator=g) * mag
+    flow = (warm_path_flow(b, h, w, mag, g) if smooth else
+            torch.randn((b, 2, h, w), device="cuda", generator=g) * mag)
     ct = torch.randn(shape, device="cuda", generator=g)
 
     def plain_grad():
@@ -460,7 +486,8 @@ def check_warp(shape, mag, seed, rounds=WARP_ROUNDS):
                     ("library_call_ms", lib))}}
 
     row = {
-        "shape": list(shape), "flow_scale": mag,
+        "shape": list(shape), "flow_scale": mag, "smooth_flow": smooth,
+        "flow_abs_max": flow.abs().max().item(),
         "fwd": {"max_abs_err": err,
                 "bitwise_equal": bool(torch.equal(got, want)),
                 **times(lambda: warp_fwd_cuda(img, flow),
@@ -478,9 +505,11 @@ def check_warp(shape, mag, seed, rounds=WARP_ROUNDS):
                       .sub(gwant).abs().max().item(),
                       "bound_ms": grad_bound, "bound_by": grad_by}}
     emit("kernels", kernel="warp", **row)
-    if not (err <= WARP_TOL and gerr <= WARP_GRAD_TOL):
+    fwd_ok = row["fwd"]["bitwise_equal"] if bitwise else err <= WARP_TOL
+    if not (fwd_ok and gerr <= WARP_GRAD_TOL):
         raise AssertionError(f"warp kernels disagree at {shape} x{mag}: "
-                             f"forward {err} (limit {WARP_TOL}), flow "
+                             f"forward {err} (limit "
+                             f"{'bitwise' if bitwise else WARP_TOL}), flow "
                              f"gradient {gerr} (limit {WARP_GRAD_TOL})")
     return row
 
@@ -862,6 +891,362 @@ def profile(eng, fwd, x, pairs, iters: int = 3) -> None:
          corr_share_of_busy=(corr / busy) if busy else None,
          idle_share_of_dispatch=(1 - busy / dispatch_ms) if busy else None,
          top=[{"ms": t, "name": k[:90]} for t, k in kernels[:10]])
+
+
+# the precision tiers and the video streams of the serving slice
+SERVE_TIERS = ("f32", "bf16", "int8")
+STREAM_SESSIONS = 4
+STREAM_FRAMES = 12
+STREAM_SHIFT = (2, 3)  # (dy, dx) pixels a step of the synthetic video
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the bitwise gates of the
+    serving phases (their timings run under the defaults)."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def p50_p99(ms: list[float]) -> dict:
+    ms = sorted(ms)
+    if not ms:
+        return {"p50_ms": None, "p99_ms": None}
+    return {"p50_ms": ms[int(0.50 * (len(ms) - 1))],
+            "p99_ms": ms[int(0.99 * (len(ms) - 1))]}
+
+
+def epe(a, b) -> float:
+    import numpy as np
+
+    return float(np.mean(np.sqrt(np.sum((a - b) ** 2, axis=-1))))
+
+
+def run_clients(n: int, work) -> float:
+    """`work(k)` on `n` threads at once; the wall-clock seconds."""
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish in 600 s")
+    return time.perf_counter() - t0
+
+
+def count_dispatches(eng) -> dict:
+    """Wrap `eng._forward` to count its dispatches by (tier, mode) in the
+    returned dict (the engine's own stats count them all together)."""
+    inner = eng._forward
+    counts: dict = {}
+
+    def counting(key, x, prior=None):
+        counts[key[1:]] = counts.get(key[1:], 0) + 1
+        return inner(key, x, prior)
+
+    eng._forward = counting
+    return counts
+
+
+def serve_tiers(cfg, n_requests: int = 24, n_threads: int = 4) -> dict:
+    """Full-width FlowNet-C through one engine serving f32, bf16 and int8:
+    per tier, `n_requests` pairs at native 384x512 from `n_threads`
+    threads (latency, requests/s, correlation launches against the
+    dispatches, counted from 0 for each tier), the padded dispatch's time
+    (CUDA events, and device busy from torch.profiler), its weight bytes
+    and the device memory the tier adds, and its raw flow against the f32
+    tier's on the same 8 pairs. Gates: finite flows of the native shape;
+    the float32 correlation launched once a dispatch and nothing else
+    (no `corr_bf16`: the bf16 tier computes in float32); each quantized
+    tier differs from f32; a second dispatch gives the same bits (cuDNN
+    deterministic); the int8 tier holds int8 weights on the card."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.serve.buckets import prepare_pair
+    from deepof_tpu_torch.serve.engine import (InferenceEngine,
+                                               build_serve_model)
+    from deepof_tpu_torch.serve.quant import (Int8Layer, params_nbytes,
+                                              quantize_model)
+
+    cfg = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, precisions=SERVE_TIERS))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = build_serve_model(cfg, "cuda")
+    memory = {"f32": {"params_nbytes": params_nbytes(model),
+                      "allocated_before": before,
+                      "allocated_after": torch.cuda.memory_allocated()}}
+    for tier in SERVE_TIERS[1:]:
+        before = torch.cuda.memory_allocated()
+        tier_model = quantize_model(model, tier)
+        torch.cuda.synchronize()
+        memory[tier] = {"params_nbytes": params_nbytes(tier_model),
+                        "allocated_before": before,
+                        "allocated_after": torch.cuda.memory_allocated()}
+        del tier_model
+    rs = np.random.RandomState(cfg.train.seed + 1)
+    h, w = cfg.data.image_size
+    pairs = [tuple(rs.randint(0, 256, (h, w, 3), dtype=np.uint8)
+                   for _ in range(2)) for _ in range(n_requests)]
+    rows, raw = {}, {}
+    with InferenceEngine(cfg, model=model, device="cuda") as eng:
+        warmed = eng.warm()
+        dispatches = count_dispatches(eng)
+        bucket = eng.buckets[0]
+        x = np.stack([prepare_pair(*pairs[i], bucket, eng.mean)
+                      for i in range(eng.max_batch)])
+        for tier in SERVE_TIERS:
+            results: list = [None] * n_requests
+
+            def client(k: int) -> None:
+                for i in range(k, n_requests, n_threads):
+                    results[i] = eng.submit(*pairs[i], precision=tier)
+
+            # one untimed request per thread first, as `serve` takes one
+            # warm-up dispatch outside its timed run
+            for f in [eng.submit(*pairs[k], precision=tier)
+                      for k in range(n_threads)]:
+                f.result(timeout=600)
+            reset_kernel_counts()
+            dispatches.clear()
+            t0 = time.perf_counter()
+            run_clients(n_threads, client)
+            responses = [f.result(timeout=600) for f in results]
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            n_disp = dispatches.get((tier, "cold"), 0)
+            for (src, _), r in zip(pairs, responses):
+                if (r["flow"].shape != (*src.shape[:2], 2)
+                        or not np.isfinite(r["flow"]).all()
+                        or r["precision"] != tier):
+                    raise AssertionError(f"{tier}: bad response")
+            if n_disp == 0 or counts != want_counts(corr=n_disp):
+                raise AssertionError(f"{tier}: {n_disp} dispatches launched "
+                                     f"{counts}; want the float32 corr "
+                                     "once a dispatch and nothing else")
+
+            def fwd(key=(bucket, tier, "cold")):
+                return eng._forward(key, x)
+
+            with cudnn_deterministic():
+                raw[tier] = fwd()
+                repeat = bool(np.array_equal(fwd(), raw[tier]))
+            rows[tier] = {
+                "requests": n_requests, "dispatches": n_disp,
+                "corr_launches": counts["corr"],
+                "corr_bf16_launches": counts["corr_bf16"],
+                **p50_p99([1e3 * r["latency_s"] for r in responses]),
+                "requests_per_s": n_requests / wall,
+                "dispatch_ms": time_ms(fwd, warmup=2, iters=10),
+                "device_busy_ms": device_ms(fwd, iters=3),
+                **memory[tier],
+                "repeat_bitwise": repeat}
+        int8 = eng.tier_models["int8"]
+        layers = [m for m in int8.modules() if isinstance(m, Int8Layer)]
+        int8_ok = bool(layers) and all(
+            m.q.dtype == torch.int8 and m.q.is_cuda for m in layers) and not [
+            t for t in (*int8.parameters(), *int8.buffers())
+            if t.is_floating_point() and t.dim() > 1]
+        stats = eng.stats()
+    for tier in SERVE_TIERS:
+        rows[tier].update(
+            epe_vs_f32=epe(raw[tier], raw["f32"]),
+            max_abs_vs_f32=float(np.abs(raw[tier] - raw["f32"]).max()),
+            raw_flow_abs_max=float(np.abs(raw[tier]).max()),
+            raw_flow_abs_mean=float(np.abs(raw[tier]).mean()))
+    row = {"tiers": rows, "warm": warmed["buckets"],
+           "int8_weights_int8_on_card": int8_ok,
+           "serve_tier_splits": stats["serve_tier_splits"],
+           "serve_requests_by_tier": stats["serve_requests_by_tier"],
+           "card": torch.cuda.get_device_name(0)}
+    emit("serve_tiers", **row)
+    bad = [t for t, r in rows.items() if not r["repeat_bitwise"]]
+    bad += [t for t in SERVE_TIERS[1:] if rows[t]["max_abs_vs_f32"] == 0]
+    if bad or not int8_ok:
+        raise AssertionError(f"serve_tiers: tiers {bad} not repeatable or "
+                             f"equal to f32; int8 weights int8: {int8_ok}")
+    return row
+
+
+def video(seed: int, frames: int, hw=(384, 512)) -> list:
+    """A coherent synthetic video: one smooth texture with fine grain,
+    moved by STREAM_SHIFT pixels a frame; BGR uint8 frames of `hw`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    rs = np.random.RandomState(seed)
+    dy, dx = STREAM_SHIFT
+    h, w = hw[0] + dy * frames, hw[1] + dx * frames
+    coarse = torch.from_numpy(rs.rand(1, 3, h // 16 + 2, w // 16 + 2)
+                              .astype(np.float32))
+    smooth = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                           align_corners=False)[0].permute(1, 2, 0).numpy()
+    tex = np.clip(200 * smooth + rs.randint(0, 56, (h, w, 3)), 0, 255)
+    tex = tex.astype(np.uint8)
+    return [np.ascontiguousarray(
+        tex[dy * (frames - k):dy * (frames - k) + hw[0],
+            dx * (frames - k):dx * (frames - k) + hw[1]])
+        for k in range(frames)]
+
+
+def dispatch_profile(fn, iters: int = 3) -> dict:
+    """The device busy time of one call of `fn` and its eight largest
+    device kernels, from torch.profiler over `iters` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, iters)
+    return {"device_busy_ms": sum(t for t, _ in kernels),
+            "top": [{"ms": t, "name": k[:90]} for t, k in kernels[:8]]}
+
+
+def serve_stream(cfg, sessions: int = STREAM_SESSIONS,
+                 frames: int = STREAM_FRAMES) -> dict:
+    """Full-width FlowNet-C with `serve.session.warm_start`: `sessions`
+    video sessions of `frames` frames (`video`), one closed-loop client
+    thread each, through `submit_next`. Reports cold and warm step
+    latency apart, the device time of a cold and of a warm padded
+    dispatch, the session counters, the kernel launches (counted from 0
+    for the walk) against the dispatches of each mode, and each warm
+    step's EPE against the cold (pairwise) flow of the same frames.
+    Gates: the warp kernel once a warm dispatch and the correlation once
+    a cold one, nothing else; finite flows; a warm dispatch with the warp
+    kernel equals the same dispatch with the plain warp, bit for bit
+    (cuDNN deterministic; the stage's gate set to 1 for it, so the
+    stage's output, which reads the warped frame, counts: at the served
+    gate 0 it is multiplied out); a walk with warm_start off equals the
+    pairwise walk bit for bit; close() leaves no sweeper thread."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.models import flownet2
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+    from deepof_tpu_torch.serve.buckets import prepare_pair
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+
+    warm_cfg = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, session=dataclasses.replace(cfg.serve.session,
+                                               warm_start=True)))
+    videos = [video(cfg.train.seed + 10 + s, frames, cfg.data.image_size)
+              for s in range(sessions)]
+    results = [[None] * frames for _ in range(sessions)]
+    with InferenceEngine(warm_cfg, device="cuda") as eng:
+        model = eng.model
+        eng.warm()
+        dispatches = count_dispatches(eng)
+
+        def client(s: int) -> None:
+            for f in range(frames):
+                results[s][f] = eng.submit_next(
+                    f"video{s}", videos[s][f]).result(timeout=600)
+
+        reset_kernel_counts()
+        wall = run_clients(sessions, client)
+        counts = kernel_counts()
+        n_warm = dispatches.get(("f32", "warm"), 0)
+        n_cold = dispatches.get(("f32", "cold"), 0)
+        stats = eng.stats()
+        if not (n_warm and n_cold and counts == want_counts(
+                corr=n_cold, warp_fwd=n_warm)):
+            raise AssertionError(f"stream: {n_cold} cold and {n_warm} warm "
+                                 f"dispatches launched {counts}")
+        steps = [(s, f, results[s][f]) for s in range(sessions)
+                 for f in range(1, frames)]
+        if not all(np.isfinite(r["flow"]).all() for _, _, r in steps):
+            raise AssertionError("stream: a non-finite flow")
+        warm_epe = [epe(r["flow"], eng.submit(
+            videos[s][f - 1], videos[s][f]).result(timeout=600)["flow"])
+            for s, f, r in steps if r["warm"]]
+
+        bucket = eng.buckets[0]
+        x = np.stack([prepare_pair(videos[i % sessions][i // sessions],
+                                   videos[i % sessions][i // sessions + 1],
+                                   bucket, eng.mean)
+                      for i in range(eng.max_batch)])
+        prior = eng._forward((bucket, "f32", "cold"), x)
+
+        def cold():
+            return eng._forward((bucket, "f32", "cold"), x)
+
+        def warm():
+            return eng._forward((bucket, "f32", "warm"), x, prior)
+
+        times = {f"{k}_dispatch": {"ms": time_ms(fn, warmup=2, iters=10),
+                                   **dispatch_profile(fn)}
+                 for k, fn in (("cold", cold), ("warm", warm))}
+        refine = eng.refine_models["f32"]
+        kernel_warp = flownet2.backward_warp_nchw
+        with torch.no_grad(), cudnn_deterministic():
+            refine.gate.fill_(1.0)
+            try:
+                got = warm()
+                flownet2.backward_warp_nchw = backward_warp_reference
+                want = warm()
+            finally:
+                flownet2.backward_warp_nchw = kernel_warp
+                refine.gate.fill_(0.0)
+        warm_plain_equal = bool(np.array_equal(got, want))
+    cold_cfg = dataclasses.replace(warm_cfg, serve=dataclasses.replace(
+        warm_cfg.serve, session=dataclasses.replace(
+            warm_cfg.serve.session, warm_start=False)))
+    walk = videos[0][:6]
+    with InferenceEngine(cold_cfg, model=model, device="cuda") as eng, \
+            cudnn_deterministic():
+        eng.submit_next("v", walk[0]).result(timeout=600)
+        streamed = [eng.submit_next("v", f).result(timeout=600)["flow"]
+                    for f in walk[1:]]
+        pairwise = [eng.submit(a, b).result(timeout=600)["flow"]
+                    for a, b in zip(walk, walk[1:])]
+    cold_walk_equal = all(np.array_equal(a, b)
+                          for a, b in zip(streamed, pairwise))
+    sweepers = [t.name for t in threading.enumerate()
+                if t.name == "serve-session-sweeper"]
+    lat = {mode: [1e3 * r["latency_s"] for _, _, r in steps
+                  if r["warm"] == (mode == "warm")]
+           for mode in ("cold", "warm")}
+    row = {"sessions": sessions, "frames": frames,
+           "shift_px": list(STREAM_SHIFT), "wall_s": wall,
+           "steps_per_s": len(steps) / wall,
+           "cold_steps": {"n": len(lat["cold"]), **p50_p99(lat["cold"])},
+           "warm_steps": {"n": len(lat["warm"]), **p50_p99(lat["warm"])},
+           **times, "dispatches": {"cold": n_cold, "warm": n_warm},
+           "corr_launches": counts["corr"],
+           "warp_fwd_launches": counts["warp_fwd"],
+           "warm_epe_vs_cold": warm_epe,
+           "warm_epe_vs_cold_mean": float(np.mean(warm_epe)),
+           "warm_equals_plain_warp": warm_plain_equal,
+           "cold_walk_equals_pairwise": cold_walk_equal,
+           "sweepers_after_close": sweepers,
+           **{k: v for k, v in stats.items()
+              if k.startswith("serve_sessions_")
+              or k in ("serve_warm_splits", "serve_session_latency_p50_ms",
+                       "serve_session_latency_p99_ms")},
+           "card": torch.cuda.get_device_name(0)}
+    emit("serve_stream", **row)
+    if not (warm_plain_equal and cold_walk_equal and not sweepers
+            and np.isfinite(warm_epe).all()):
+        raise AssertionError(f"serve_stream gates: warm == plain warp "
+                             f"{warm_plain_equal}, cold walk == pairwise "
+                             f"{cold_walk_equal}, sweepers {sweepers}")
+    return row
 
 
 def loss_and_grads(model, batch, mean, loss_cfg, compute_dtype=None):
@@ -2102,6 +2487,13 @@ def main() -> int:
     fused = check_warp_levels()
 
     serve_row, corr_launches = serve(cfg)
+    # the warm start's warp: one level at input resolution, batch 8, on
+    # flows like the warm path's and on huge ones
+    serve_warp = check_warp((b, 3, h, w), 4.0, seed=30, bitwise=True,
+                            smooth=True)
+    check_warp((b, 3, h, w), 200.0, seed=31, rounds=1, bitwise=True)
+    tiers_row = serve_tiers(cfg)
+    stream_row = serve_stream(cfg)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=work_root())
     try:
         train_row = train(ExperimentConfig(
@@ -2141,6 +2533,13 @@ def main() -> int:
     corr_by_path = {c.name: {p: n[c.name] for p, n in corr_paths.items()}
                     for c in corr_counters()}
     corr_by_path["corr"]["serve"] = corr_launches
+    corr_by_path["corr"].update({f"serve_tiers_{t}": r["corr_launches"]
+                                 for t, r in tiers_row["tiers"].items()})
+    corr_by_path["corr_bf16"].update({
+        f"serve_tiers_{t}": r["corr_bf16_launches"]
+        for t, r in tiers_row["tiers"].items()})
+    corr_by_path["corr"]["serve_stream"] = stream_row["corr_launches"]
+    by_path["fwd"]["serve_stream"] = stream_row["warp_fwd_launches"]
     main_path = cli_c_row["launches"]["train"]
     # the bf16 kernels' main path: FlowNet-C's `train` in bf16 compute
     bf16_path = cli_bf16_row["launches"]["train"]
@@ -2189,6 +2588,13 @@ def main() -> int:
                 "launches": corr_launches,
                 "launches_per_dispatch": (corr_launches
                                           / serve_row["dispatches"]),
+                "launches_by_tier": {
+                    t: {"launches": r["corr_launches"],
+                        "dispatches": r["dispatches"]}
+                    for t, r in tiers_row["tiers"].items()},
+                "launches_in_stream": {
+                    "launches": stream_row["corr_launches"],
+                    "cold_dispatches": stream_row["dispatches"]["cold"]},
                 **{k: full[k] for k in ("shape", "max_abs_err", "ms",
                                         "call_ms", "plain_ms", "bound_ms",
                                         "bound_by")}}
@@ -2220,7 +2626,16 @@ def main() -> int:
             "per_level": [{"shape": w["shape"], **{k: r[k] for k in (
                 "ms", "ms_runs", "call_ms", "plain_ms", "library_ms",
                 "library_ms_runs", "bound_ms")}}
-                for w, r in zip(warp_rows, rows)]}
+                for w, r in zip(warp_rows, rows)],
+            **({"serve_shape": {
+                "shape": serve_warp["shape"],
+                "launches": stream_row["warp_fwd_launches"],
+                "warm_dispatches": stream_row["dispatches"]["warm"],
+                "bitwise_equal": serve_warp["fwd"]["bitwise_equal"],
+                **{k: serve_warp["fwd"][k] for k in (
+                    "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")}}}
+               if key == "fwd" else {})}
 
     replaces = {"warp_fwd": "deepof_tpu/ops/pallas/warp.py:85",
                 "warp_flow_grad": "deepof_tpu/ops/pallas/warp.py:111"}

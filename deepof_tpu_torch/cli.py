@@ -7,13 +7,15 @@ Usage:
     python -m deepof_tpu_torch eval --model flownet_s --data-path /data/fc \
         --log-dir /runs/fc1                       # newest checkpoint
     python -m deepof_tpu_torch predict --model flownet_s --log-dir /runs/fc1 \
-        --pairs a.ppm:b.ppm --out /tmp/flows
+        --pairs a.ppm:b.ppm --out /tmp/flows \
+        --set "serve.precisions=('f32','int8')" --precision int8
     python -m deepof_tpu_torch config --preset sintel
 
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
 `--data-path`, `--log-dir`, `--set section.field=value` (any config
 field), `--synthetic` (the synthetic dataset at 64x64, batch 8),
-`--epochs`, `--max-steps`/`--steps`, `--pairs prev:next`, `--out`. A
+`--epochs`, `--max-steps`/`--steps`, `--pairs prev:next`, `--out`,
+`--precision` (a tier of `serve.precisions`). A
 train run in a log dir that holds checkpoints resumes from the newest
 one. `--device {cuda,cpu}` (default cuda) is this package's own; it
 takes the place of JAX_PLATFORMS. Without a card, cuda raises: nothing
@@ -145,6 +147,10 @@ def main(argv=None) -> int:
                         metavar="PREV:NEXT",
                         help=".npy or .ppm path pairs, colon-separated")
     p_pred.add_argument("--out", required=True, help="output directory")
+    p_pred.add_argument("--precision", default=None,
+                        choices=("f32", "bf16", "int8"),
+                        help="serving precision tier, one of "
+                             "serve.precisions (default: its first)")
 
     p_cfg = sub.add_parser("config", help="print the resolved config")
     _add_common(p_cfg)
@@ -160,6 +166,12 @@ def main(argv=None) -> int:
     if args.cmd == "predict":
         from .predict import predict_pairs, restore_params
 
+        from .serve.quant import resolve_precisions
+
+        tiers = resolve_precisions(cfg)
+        if args.precision is not None and args.precision not in tiers:
+            raise SystemExit(f"--precision {args.precision} is not in "
+                             f"serve.precisions {list(tiers)}")
         pairs = []
         for item in args.pairs:
             if ":" not in item:
@@ -167,7 +179,8 @@ def main(argv=None) -> int:
             pairs.append(tuple(item.split(":", 1)))
         model = restore_params(cfg, device=args.device)
         written = predict_pairs(cfg, pairs, args.out, model=model,
-                                device=args.device)
+                                device=args.device,
+                                precision=args.precision)
         print(json.dumps({"written": written}))
         return 0
 

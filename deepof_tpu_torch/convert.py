@@ -9,7 +9,12 @@ torch `X.conv.{weight,bias}`, a flax `X/ConvTranspose_0/{kernel,bias}` is
   - ConvTranspose kernels are flipped spatially and laid out
     (in, out, kh, kw): flax's ConvTranspose (transpose_kernel=False) is
     the torch ConvTranspose2d with the spatially flipped weight;
-  - biases pass through unchanged.
+  - biases pass through unchanged;
+  - a scalar parameter of a module's own (`FlowNetRefine`'s `gate`) keeps
+    its flax path as its torch name (`gate`, `<scope>.gate`).
+
+A FlowNet-CS tree's `refine` subtree, `{"refine": params["refine"]}`,
+loads into `FlowNetRefine(residual=False)` unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 from torch import nn
 
 _LAYERS = {"Conv_0": "conv", "ConvTranspose_0": "deconv"}
+#: scalar parameters declared by a module itself, not by a layer
+_SCALARS = ("gate",)
 
 
 def _leaves(tree: Mapping, path: tuple[str, ...] = ()):
@@ -36,6 +43,12 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     bad = []
     for path, leaf in _leaves(params):
+        if path[-1] in _SCALARS and np.ndim(leaf) == 0:
+            out[".".join(path)] = torch.tensor(np.float32(leaf))
+            continue
+        if len(path) < 2:
+            bad.append("/".join(path))
+            continue
         *scope, layer, kind = path
         if layer not in _LAYERS or kind not in ("kernel", "bias"):
             bad.append("/".join(path))
@@ -51,7 +64,7 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     if bad:
         raise ValueError(f"state_dict_from_flax: unrecognised flax params "
                          f"(expected <scope>/Conv_0|ConvTranspose_0/"
-                         f"kernel|bias): {bad}")
+                         f"kernel|bias, or a scalar {_SCALARS}): {bad}")
     return out
 
 

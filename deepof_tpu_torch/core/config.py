@@ -43,7 +43,7 @@ class LossConfig:
     # "auto"). Here every one of the three takes the CUDA kernel for a
     # CUDA tensor (or raises) and the plain version for a CPU tensor.
     warp_impl: str = "auto"
-    gather_dtype: str = "float32"  # float32 | bfloat16 (bfloat16 not ported)
+    gather_dtype: str = "float32"  # float32 | bfloat16 (bfloat16 not ported, F11)
     photometric: str = "charbonnier"  # charbonnier | census (not ported)
     census_window: int = 7
     occlusion: bool = False
@@ -120,6 +120,28 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class SessionConfig:
+    """Streaming video sessions (`serve/session.py`), the JAX package's
+    `SessionConfig`, every field and default: a bounded per-session cache
+    of the last frame's preprocessed half-row, so `submit_next` forms the
+    (prev, next) pair from one new frame."""
+
+    # LRU bound on live sessions; the oldest past it is evicted with a
+    # tombstone (its next use is a structured `session_expired`)
+    max_sessions: int = 256
+    # idle TTL, enforced on access and by the sweeper; <= 0 disables it
+    ttl_s: float = 120.0
+    # sweeper-thread cadence; <= 0: TTL only on access
+    sweep_s: float = 5.0
+    # a step with a prior flow goes through the refinement-only stage
+    # (`models/flownet2.py::FlowNetRefine`) instead of the cold network
+    warm_start: bool = False
+    # width of that stage relative to the served model's (flownet_cs
+    # reuses its own full-width refinement stage and ignores this)
+    warm_width: float = 0.5
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     # Dynamic micro-batcher: up to max_batch pairs per forward; a partial
     # batch flushes when the oldest pending request has waited
@@ -128,10 +150,12 @@ class ServeConfig:
     batch_timeout_ms: float = 10.0
     # (H, W) network-input buckets; () = one bucket at data.image_size.
     buckets: tuple[tuple[int, int], ...] = ()
-    # Weight-precision tiers. Only "f32" is served by this package so far.
+    # Weight-precision tiers (`serve/quant.py`): an ordered subset of
+    # ("f32", "bf16", "int8"); the first is the default tier.
     precisions: tuple[str, ...] = ("f32",)
     # submit() blocks when this many requests are pending. 0 = unbounded.
     queue_depth: int = 256
+    session: SessionConfig = field(default_factory=SessionConfig)
 
 
 @dataclass(frozen=True)
@@ -342,9 +366,11 @@ def check_loss(cfg: LossConfig) -> None:
     """Raise on loss settings this package does not honour yet."""
     todo = []
     if cfg.gather_dtype != "float32":
+        # a loss option, not a kernel: the warp kernels take float32
+        # only, in the JAX package too; its routes round differently
+        # (ROADMAP F11)
         todo.append((f"loss.gather_dtype={cfg.gather_dtype!r}",
-                     "8 (the next slice: the warp kernels' bf16 paths, "
-                     "with the serving tiers)"))
+                     "9 (loss variants)"))
     if cfg.photometric != "charbonnier":
         todo.append((f"loss.photometric={cfg.photometric!r}",
                      "9 (loss variants)"))

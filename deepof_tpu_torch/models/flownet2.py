@@ -11,9 +11,12 @@ reaches the base stage through the warp's flow input. 2-frame only.
 
 Parameters are scoped `base` (the FlowNetC) and `refine` (the
 FlowNetS), as in the flax module, so `convert.load_flax_params` loads a
-JAX FlowNetCS tree unchanged. Not ported yet: `FlowNetRefine`, the
-standalone stage that serving's warm start feeds with a prior flow
-(ROADMAP Queue A item 8). Tensors are NCHW.
+JAX FlowNetCS tree unchanged.
+
+`FlowNetRefine` is the refinement stage standalone: it takes a prior flow
+from the caller instead of running a base network. Serving's temporal
+warm start (`serve/engine.py::submit_next`) feeds it the previous video
+frame's flow. Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -84,3 +87,75 @@ class FlowNetCS(nn.Module):
         flow = upsample_flow(flow, tuple(pair.shape[-2:]))
         return self.refine(refinement_inputs(pair[:, :3], pair[:, 3:], flow,
                                              self.dtype))
+
+
+class FlowNetRefine(nn.Module):
+    """The FlowNet-CS refinement stage standalone (the JAX package's
+    `FlowNetRefine`): (pair (B, 6, H, W), prior (B, 2, h, w)) -> refined
+    pyramid, finest first, no base network.
+
+    `prior` is a previous dispatch's raw finest output,
+    `flows[0] * flow_scales[0]`, on the finest head grid. It is upsampled
+    x2 to input resolution for the warp, as FlowNetCS upsamples its base
+    estimate. The inner FlowNetS is scoped `refine`, so:
+
+      residual=False: the stage predicts the flow directly (FlowNetCS
+          semantics); a FlowNet-CS model's `refine` weights load as they
+          are;
+      residual=True: each level is `gate * stage + prior` at that level,
+          with the scalar `gate` initialised to zero. At the finest level
+          the prior is used on its own grid; at the coarser ones it is
+          resized with antialiasing (`jax.image.resize` antialiases when
+          it shrinks, F2) and its vectors rescaled to the level's pixels.
+    """
+
+    flow_scales = FLOW_SCALES
+    max_downsample = 64
+
+    def __init__(self, flow_channels: int = 2, width_mult: float = 1.0,
+                 residual: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if flow_channels != 2:
+            raise ValueError(
+                "FlowNetRefine is a 2-frame stage (6 input channels, 2 flow "
+                f"channels); got {flow_channels} flow channels")
+        self.flow_channels = flow_channels
+        self.width_mult = width_mult
+        self.residual = residual
+        self.dtype = dtype
+        self.refine = FlowNetS(flow_channels=2, width_mult=width_mult,
+                               in_channels=12, dtype=dtype)
+        if residual:
+            self.gate = nn.Parameter(torch.zeros(()))
+
+    def forward(self, pair: torch.Tensor,
+                prior: torch.Tensor) -> list[torch.Tensor]:
+        if pair.shape[1] != 6:
+            raise ValueError("FlowNetRefine is a 2-frame stage (6 input "
+                             f"channels); got input {pair.shape[1]}ch")
+        if prior.dim() != 4 or prior.shape[1] != 2 \
+                or prior.shape[0] != pair.shape[0]:
+            raise ValueError(f"prior flow must be (B, 2, h, w); got "
+                             f"{tuple(prior.shape)} for pair "
+                             f"{tuple(pair.shape)}")
+        ph, pw = prior.shape[-2:]
+        prior = prior.float()
+        flow = upsample_flow(prior, tuple(pair.shape[-2:]))
+        flows = self.refine(refinement_inputs(pair[:, :3], pair[:, 3:], flow,
+                                              self.dtype))
+        if not self.residual:
+            return flows
+        gate = self.gate.float()
+        out = []
+        for k, f in enumerate(flows):
+            hk, wk = f.shape[-2:]
+            if (hk, wk) == (ph, pw):
+                p = prior / self.flow_scales[k]
+            else:
+                p = F.interpolate(prior, size=(hk, wk), mode="bilinear",
+                                  align_corners=False, antialias=True)
+                p = p * (torch.tensor([wk / pw, hk / ph],
+                                      device=p.device).view(1, 2, 1, 1)
+                         / self.flow_scales[k])
+            out.append(gate * f.float() + p)
+        return out

@@ -10,9 +10,13 @@ of the image for the forward, of the flow for the gradient).
 `warp_fwd_cuda` and `warp_flow_grad_cuda` are the one-level case of the
 same launch.
 
-They take float32 only. The JAX package also warps a bf16 image
-(`loss.gather_dtype="bfloat16"`); that path comes with that setting, and
-until then a bf16 CUDA tensor raises here rather than being converted.
+They take float32 only, as the Pallas kernels do: the JAX wrapper casts
+every operand to float32 before the call (`ops/pallas/warp.py:80`), both
+kernels write float32 (`:166,195`), and the VJP hands the flow-gradient
+kernel a float32 cotangent (`:274`). Under `loss.gather_dtype=
+"bfloat16"` a bf16 image reaches only that wrapper's final cast (`:198`)
+and XLA's gather, so that setting is a loss option (ROADMAP F11), not a
+kernel path; a bf16 CUDA tensor raises here rather than being converted.
 Training under `train.compute_dtype="bfloat16"` warps in float32, as the
 JAX package does: the flows are cast back to float32 before the loss.
 

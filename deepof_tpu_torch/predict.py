@@ -59,13 +59,16 @@ def output_stem(src, idx: int, many: bool) -> str:
 
 def predict_pairs(cfg: ExperimentConfig, pairs: list[tuple], out_dir: str,
                   mean=None, model: nn.Module | None = None,
-                  device: str | torch.device = "cuda") -> list[str]:
+                  device: str | torch.device = "cuda",
+                  precision: str | None = None) -> list[str]:
     """Predict native-resolution flow for (prev, next) pairs and write one
     `<stem>_flow.flo` per pair; returns the written paths in pair order.
 
     The pairs go through the micro-batching engine, so they execute in
     batches of up to `serve.max_batch`. model: optional nn.Module with
-    its weights; None builds `cfg.model` from `cfg.train.seed`."""
+    its weights; None builds `cfg.model` from `cfg.train.seed`.
+    precision: the serving tier of every pair, one of
+    `serve.precisions` (None: its first)."""
     os.makedirs(out_dir, exist_ok=True)
     written: list[str] = []
     many = len(pairs) > 1
@@ -83,7 +86,7 @@ def predict_pairs(cfg: ExperimentConfig, pairs: list[tuple], out_dir: str,
             written.append(path)
 
         for idx, (src, tgt) in enumerate(pairs):
-            buf.append((idx, src, eng.submit(src, tgt)))
+            buf.append((idx, src, eng.submit(src, tgt, precision)))
             if len(buf) >= window:
                 drain_one()
         while buf:

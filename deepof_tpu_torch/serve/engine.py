@@ -1,5 +1,6 @@
 """InferenceEngine: a dynamic micro-batching flow-inference engine (port
-of the cold float32 path of `deepof_tpu/serve/engine.py`).
+of `deepof_tpu/serve/engine.py`: precision tiers, streaming sessions and
+temporal warm start).
 
   submit() threads enqueue preprocessed requests -> a single batcher
   thread coalesces the queue into one batched forward per flush (up to
@@ -18,12 +19,23 @@ Design decisions kept from the JAX engine:
   - A failure inside the batched forward fails that flush's requests
     (`dispatch_failed`) and the batcher keeps serving; a per-request
     postprocess failure fails only that request.
+  - Precision tiers (`serve/quant.py`): one module per tier of
+    `serve.precisions`, built once at construction; a request names its
+    tier (`precision=`) or gets the first. A tier the engine does not
+    serve fails that request with `bad_request`.
+  - A request's key is (bucket, tier, mode), mode "cold" (the served
+    model) or "warm" (the refinement stage); a flush never mixes keys.
+  - Streaming sessions (`serve/session.py`, `submit_next`): the first
+    frame primes, each later frame pairs with the cached previous one.
+    With `serve.session.warm_start`, a step whose session holds a prior
+    flow (the previous step's raw output) runs `FlowNetRefine` on
+    (pair, prior) instead of the cold model; on the card that is the
+    warp kernel once a dispatch and no correlation.
 
-The model runs under `torch.inference_mode()` on the engine's device
-(CUDA unless the caller passes another). Still to port (ROADMAP): the
-bf16/int8 tiers, streaming sessions and warm start, quality scoring,
-the executable ledger and artifacts, deadlines and degradation, and the
-HTTP server.
+The models run under `torch.inference_mode()` on the engine's device
+(CUDA unless the caller passes another). Still to port (ROADMAP): quality
+scoring, the executable ledger and artifacts, deadlines and degradation,
+and the HTTP server.
 """
 
 from __future__ import annotations
@@ -45,22 +57,28 @@ from ..core.config import ExperimentConfig
 from ..core.device import resolve_device
 from ..data.datasets import DATASET_MEANS
 from ..io.ppm import read_ppm_bgr
-from .buckets import flow_to_native, pick_bucket, prepare_pair, resolve_buckets
+from .buckets import (flow_to_native, pick_bucket, prepare_frame,
+                      prepare_pair, resolve_buckets)
+from .quant import quantize_model, resolve_precisions
+from .session import SessionExpired, SessionStore
 
 _STOP = object()
 
 #: Latency samples retained for the p50/p99 estimate (newest window).
 _LATENCY_WINDOW = 2048
 
-#: Precision tiers this package serves so far.
-SERVED_TIERS = ("f32",)
+#: Serving is pair-based: every dispatch takes 6 input channels.
+PAIR_CHANNELS = 6
 
 
 class ServeError(RuntimeError):
     """Structured per-request failure: machine-readable `code` +
-    message. Codes: bad_input (decode/preprocess), dispatch_failed (the
-    batched forward raised; the whole flush fails), postprocess_failed
-    (one request's resize/rescale raised), engine_closed."""
+    message. Codes: bad_input (decode/preprocess), bad_request (a
+    precision the engine does not serve), session_expired (the session
+    was evicted or idled past its TTL; resend the frame to re-prime),
+    dispatch_failed (the batched forward raised; the whole flush fails),
+    postprocess_failed (one request's resize/rescale raised),
+    engine_closed."""
 
     def __init__(self, code: str, message: str,
                  request_id: int | str | None = None):
@@ -70,15 +88,29 @@ class ServeError(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("x", "bucket", "native_hw", "future", "t_enq", "rid")
+    __slots__ = ("x", "bucket", "tier", "native_hw", "future", "t_enq",
+                 "rid", "mode", "prior", "session", "frame_index", "epoch")
 
-    def __init__(self, x, bucket, native_hw, future, t_enq, rid):
+    def __init__(self, x, bucket, tier, native_hw, future, t_enq, rid,
+                 mode="cold", prior=None, session=None, frame_index=None,
+                 epoch=None):
         self.x = x
         self.bucket = bucket
+        self.tier = tier
         self.native_hw = native_hw
         self.future = future
         self.t_enq = t_enq
         self.rid = rid
+        self.mode = mode                # "cold" | "warm"
+        self.prior = prior              # the session's flow (warm only)
+        self.session = session          # session id, None off-session
+        self.frame_index = frame_index
+        self.epoch = epoch              # the session's prime generation
+
+    @property
+    def key(self) -> tuple[tuple[int, int], str, str]:
+        """Requests batch together iff they share (bucket, tier, mode)."""
+        return (self.bucket, self.tier, self.mode)
 
 
 def build_serve_model(cfg: ExperimentConfig,
@@ -95,20 +127,64 @@ def build_serve_model(cfg: ExperimentConfig,
                        device=device)
 
 
-def make_raw_forward(model: nn.Module) -> Callable[[np.ndarray], np.ndarray]:
+def _nchw(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(device).permute(0, 3, 1, 2).contiguous()
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(iter((*model.parameters(), *model.buffers()))).device
+
+
+def make_raw_forward(model: nn.Module) -> Callable[..., np.ndarray]:
     """pairs (B, H, W, 6) float32 numpy -> finest scaled flow (B, h, w, 2)
-    float32 numpy, run on the model's device under inference_mode."""
-    device = next(model.parameters()).device
+    float32 numpy, run on the model's device under inference_mode. Extra
+    NHWC arrays go to the model after the pairs: the refinement stage's
+    prior (B, h, w, 2) (`make_refine_forward`)."""
+    device = _device(model)
     scale = model.flow_scales[0]
 
-    def fwd(x: np.ndarray) -> np.ndarray:
+    def fwd(*arrays: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-            t = t.to(device).permute(0, 3, 1, 2).contiguous()
-            flow = model(t)[0] * scale
+            flow = model(*(_nchw(a, device) for a in arrays))[0] * scale
             return flow.permute(0, 2, 3, 1).float().cpu().numpy()
 
     return fwd
+
+
+#: (pairs, prior) -> the refinement stage's finest scaled flow: the warm
+#: twin of `make_raw_forward`, the same function.
+make_refine_forward = make_raw_forward
+
+
+def build_refine_model(cfg: ExperimentConfig, model: nn.Module,
+                       device: str | torch.device = "cuda") -> nn.Module:
+    """The warm start's refinement stage for a config, on `device`:
+    flownet_cs reuses the served model's own refinement stage
+    (`FlowNetRefine(residual=False)` with `model.refine`'s weights); every
+    other model gets a gated residual stage at `width_mult *
+    serve.session.warm_width`, initialised by `refine_init_params` (the
+    gate at 0: the identity on its prior, up to rounding)."""
+    from ..models.flownet2 import FlowNetRefine
+
+    if cfg.model == "flownet_cs":
+        refine = FlowNetRefine(width_mult=1.0, residual=False)
+        refine.refine.load_state_dict(model.refine.state_dict())
+    else:
+        refine = refine_init_params(cfg, FlowNetRefine(
+            width_mult=cfg.width_mult * float(cfg.serve.session.warm_width),
+            residual=True))
+    return refine.to(resolve_device(device)).eval()
+
+
+def refine_init_params(cfg: ExperimentConfig,
+                       refine: nn.Module) -> nn.Module:
+    """Initialise a CPU refinement stage in place from `cfg.train.seed`
+    (a CPU `torch.Generator`, so every engine of a config gets the same
+    bits on any device); returns it."""
+    from ..models.common import init_weights
+
+    return init_weights(refine, cfg.train.seed)
 
 
 class InferenceEngine:
@@ -121,29 +197,49 @@ class InferenceEngine:
     mean: optional BGR dataset mean override (DATASET_MEANS default).
     device: where the model runs; "cuda" by default, which raises on a
         host without a card.
+    refine: optional warm-start refinement stage with its weights (tests
+        load the JAX stage's); None builds `build_refine_model`. Read only
+        under `serve.session.warm_start`.
     """
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module | None = None,
-                 mean=None, device: str | torch.device = "cuda"):
+                 mean=None, device: str | torch.device = "cuda",
+                 refine: nn.Module | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max(int(cfg.serve.max_batch), 1)
         self.timeout_s = max(float(cfg.serve.batch_timeout_ms), 0.0) / 1e3
         self.buckets = resolve_buckets(cfg)
-        unserved = [t for t in cfg.serve.precisions if t not in SERVED_TIERS]
-        if unserved:
-            raise NotImplementedError(
-                f"serve.precisions {unserved} are not ported yet (ROADMAP "
-                f"Queue A item 8, serving tiers); this package serves "
-                f"{list(SERVED_TIERS)}")
+        self.tiers = resolve_precisions(cfg)
+        self.default_tier = self.tiers[0]
+        self.warm_start = bool(cfg.serve.session.warm_start)
         if mean is None:
             mean = DATASET_MEANS.get(cfg.data.dataset,
                                      DATASET_MEANS["flyingchairs"])
         self.mean = mean
         if model is None:
             model = build_serve_model(cfg, self.device)
-        self.model = model.to(self.device).eval()
-        self._forward = make_raw_forward(self.model)
+        model = model.to(self.device).eval()
+        # one module per tier, built now: a tier that cannot be built
+        # fails the engine, not a request
+        self.tier_models = {t: quantize_model(model, t) for t in self.tiers}
+        self.model = self.tier_models[self.default_tier]
+        self._cold = {t: make_raw_forward(m)
+                      for t, m in self.tier_models.items()}
+        self.refine_models: dict[str, nn.Module] = {}
+        self._warm: dict[str, Callable] = {}
+        # the cold output grid of each bucket: the prior's grid
+        self._head_hw: dict[tuple[int, int], tuple[int, int]] = {}
+        if self.warm_start:
+            if refine is None:
+                refine = build_refine_model(cfg, model, self.device)
+            refine = refine.to(self.device).eval()
+            self.refine_models = {t: quantize_model(refine, t)
+                                  for t in self.tiers}
+            self._warm = {t: make_refine_forward(m)
+                          for t, m in self.refine_models.items()}
+            self._check_warm_grids()
+        del model, refine
 
         depth = max(int(cfg.serve.queue_depth), 0)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -158,15 +254,63 @@ class InferenceEngine:
         self._errors = 0
         self._batches = 0
         self._dispatch_failures = 0
+        self._bucket_splits = 0
+        self._tier_splits = 0
+        self._warm_splits = 0   # same (bucket, tier), cold | warm edge
+        self._warm_steps = 0
+        self._cold_fallbacks = 0  # warm_start steps with no prior yet
+        self._requests_by_tier = dict.fromkeys(self.tiers, 0)
+        self._responses_by_tier = dict.fromkeys(self.tiers, 0)
         self._occupancy_sum = 0
         self._submitting = 0  # submit() threads currently inside put()
         self._latency_s: deque = deque(maxlen=_LATENCY_WINDOW)
+        self._session_latency_s: deque = deque(maxlen=_LATENCY_WINDOW)
+        sc = cfg.serve.session
+        self.sessions = SessionStore(max_sessions=sc.max_sessions,
+                                     ttl_s=sc.ttl_s, sweep_s=sc.sweep_s)
 
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-batcher")
         self._thread.start()
 
+    def _check_warm_grids(self) -> None:
+        """The refinement stage's finest output must land on the cold
+        output's grid, or a session's prior would change shape after its
+        first warm step: checked for each bucket with a one-row forward
+        of each, default tier."""
+        for bucket in self.buckets:
+            x = np.zeros((1, *bucket, PAIR_CHANNELS), np.float32)
+            cold_hw = self._cold[self.default_tier](x).shape[1:3]
+            prior = np.zeros((1, *cold_hw, 2), np.float32)
+            warm_hw = self._warm[self.default_tier](x, prior).shape[1:3]
+            if warm_hw != cold_hw:
+                raise ValueError(
+                    f"warm_start unsupported for model {self.cfg.model!r} at "
+                    f"bucket {bucket}: the refinement head grid {warm_hw} "
+                    f"differs from the cold head grid {cold_hw}")
+            self._head_hw[bucket] = tuple(cold_hw)
+
+    def _forward(self, key: tuple[tuple[int, int], str, str],
+                 x: np.ndarray, prior: np.ndarray | None = None
+                 ) -> np.ndarray:
+        _, tier, mode = key
+        if mode == "warm":
+            return self._warm[tier](x, prior)
+        return self._cold[tier](x)
+
     # ------------------------------------------------------------ submit
+    def _resolve_tier(self, precision, rid) -> str:
+        """The request's tier: `precision`, or the default for None; a
+        tier this engine does not serve is a structured bad_request."""
+        if precision is None:
+            return self.default_tier
+        tier = str(precision)
+        if tier not in self.tiers:
+            raise ServeError("bad_request",
+                             f"precision {tier!r} not served; this engine "
+                             f"offers {list(self.tiers)}", rid)
+        return tier
+
     def _decode(self, img) -> np.ndarray:
         """Decoded BGR array (validated), or a `.npy` path holding one, or
         a binary `.ppm` path. This package has no PNG/JPEG decoder."""
@@ -185,25 +329,30 @@ class InferenceEngine:
                              f"array, got {getattr(img, 'shape', type(img))}")
         return img
 
-    def submit(self, prev, nxt,
+    def submit(self, prev, nxt, precision: str | None = None,
                request_id: int | str | None = None) -> Future:
         """Enqueue one (prev, next) pair: decoded BGR arrays, .npy or .ppm
-        paths.
+        paths. precision: a tier of `serve.precisions`; None gives the
+        first.
 
         Returns a Future resolving to {"flow": (H_native, W_native, 2)
-        float32 in native pixel units, "bucket", "native_hw", "latency_s", "request_id"}; failures raise ServeError
-        from .result(). Decode/preprocess errors fail here."""
+        float32 in native pixel units, "bucket", "precision", "native_hw",
+        "latency_s", "request_id"}; failures raise ServeError from
+        .result(). Decode/preprocess errors fail here."""
         rid = request_id if request_id is not None else next(self._rid)
         fut: Future = Future()
         with self._stats_lock:
             self._requests += 1
         try:
+            tier = self._resolve_tier(precision, rid)
             src = self._decode(prev)
             tgt = self._decode(nxt)
             native_hw = (int(src.shape[0]), int(src.shape[1]))
             bucket = pick_bucket(native_hw, self.buckets)
             x = prepare_pair(src, tgt, bucket, self.mean)
-            self._enqueue(_Request(x, bucket, native_hw, fut,
+            with self._stats_lock:
+                self._requests_by_tier[tier] += 1
+            self._enqueue(_Request(x, bucket, tier, native_hw, fut,
                                    time.monotonic(), rid))
         except ServeError as e:
             e.request_id = e.request_id or rid
@@ -215,6 +364,7 @@ class InferenceEngine:
 
     def submit_prepared(self, x: np.ndarray, bucket: tuple[int, int],
                         native_hw: tuple[int, int],
+                        precision: str | None = None,
                         request_id: int | str | None = None) -> Future:
         """Enqueue an already-preprocessed row (H, W, 6) at `bucket`."""
         rid = request_id if request_id is not None else next(self._rid)
@@ -222,12 +372,83 @@ class InferenceEngine:
         with self._stats_lock:
             self._requests += 1
         try:
+            tier = self._resolve_tier(precision, rid)
+            with self._stats_lock:
+                self._requests_by_tier[tier] += 1
             self._enqueue(_Request(np.asarray(x, np.float32), tuple(bucket),
-                                   tuple(native_hw), fut, time.monotonic(),
-                                   rid))
+                                   tier, tuple(native_hw), fut,
+                                   time.monotonic(), rid))
         except ServeError as e:
             e.request_id = e.request_id or rid
             self._fail(fut, e)
+        return fut
+
+    def submit_next(self, session: str, frame,
+                    precision: str | None = None,
+                    request_id: int | str | None = None) -> Future:
+        """Advance a streaming session by one frame (`serve/session.py`).
+
+        The session's first frame primes it: the future resolves at once
+        with {"primed": True, "session", "bucket", "native_hw", "frames",
+        "request_id"}, and nothing dispatches. Each later frame pairs with
+        the cached previous one and resolves as `submit` does, plus
+        {"session", "frame_index"}, and "warm" (whether the refinement
+        stage served it) when `serve.session.warm_start` is on.
+
+        A frame for an expired or evicted session fails with a structured
+        `session_expired` (resend it to re-prime, counted as resumed); a
+        frame of another bucket re-primes in place (rebucketed); a frame
+        that fails to decode fails alone and does not advance the
+        session."""
+        rid = request_id if request_id is not None else next(self._rid)
+        fut: Future = Future()
+        counted = False  # one serve_requests tick for a step or a failure
+        try:
+            tier = self._resolve_tier(precision, rid)
+            img = self._decode(frame)
+            native_hw = (int(img.shape[0]), int(img.shape[1]))
+            bucket = pick_bucket(native_hw, self.buckets)
+            row = prepare_frame(img, bucket, self.mean)
+            try:
+                out = self.sessions.advance(str(session), row, bucket,
+                                            native_hw, tier)
+            except SessionExpired as e:
+                raise ServeError("session_expired",
+                                 f"session {e.sid!r} {e.reason}: resend the "
+                                 f"frame to re-prime", rid) from None
+            if out[0] == "primed":
+                s = out[1]
+                fut.set_result({"primed": True, "session": s.sid,
+                                "bucket": bucket, "native_hw": native_hw,
+                                "frames": s.frames, "request_id": rid})
+                return fut
+            _, prev_row, prior, epoch, s = out
+            # a step with a prior takes the refinement stage; without one
+            # (the first step, or after a re-prime) the cold model
+            mode = "warm" if self.warm_start and prior is not None else "cold"
+            with self._stats_lock:
+                self._requests += 1
+                self._requests_by_tier[tier] += 1
+                if mode == "warm":
+                    self._warm_steps += 1
+                elif self.warm_start:
+                    self._cold_fallbacks += 1
+            counted = True
+            self._enqueue(_Request(
+                np.concatenate([prev_row, row], axis=-1), bucket, tier,
+                native_hw, fut, time.monotonic(), rid, mode=mode,
+                prior=prior if mode == "warm" else None, session=s.sid,
+                frame_index=s.frames - 1, epoch=epoch))
+            return fut
+        except ServeError as e:
+            e.request_id = e.request_id or rid
+            err = e
+        except Exception as e:  # noqa: BLE001 - decode errors are per-request
+            err = ServeError("bad_input", f"{type(e).__name__}: {e}", rid)
+        if not counted:
+            with self._stats_lock:
+                self._requests += 1
+        self._fail(fut, err)
         return fut
 
     def _enqueue(self, req: _Request) -> None:
@@ -279,8 +500,15 @@ class InferenceEngine:
                 if nxt is _STOP:
                     stop = True
                     break
-                if nxt.bucket != batch[0].bucket:
+                if nxt.key != batch[0].key:
                     pending = nxt  # flush now; it opens the next batch
+                    with self._stats_lock:
+                        if nxt.bucket != batch[0].bucket:
+                            self._bucket_splits += 1
+                        elif nxt.tier != batch[0].tier:
+                            self._tier_splits += 1
+                        else:
+                            self._warm_splits += 1
                     break
                 batch.append(nxt)
             self._flush(batch)
@@ -296,14 +524,22 @@ class InferenceEngine:
                     req.rid))
 
     def _flush(self, batch: list[_Request]) -> None:
-        bucket = batch[0].bucket
+        key = batch[0].key
+        bucket, tier, mode = key
         n = len(batch)
         x = np.zeros((self.max_batch, bucket[0], bucket[1],
                       batch[0].x.shape[-1]), np.float32)
         for i, r in enumerate(batch):
             x[i] = r.x
+        prior = None
+        if mode == "warm":
+            # the priors beside the rows, zero past the occupancy as x
+            prior = np.zeros((self.max_batch, *batch[0].prior.shape),
+                             np.float32)
+            for i, r in enumerate(batch):
+                prior[i] = r.prior
         try:
-            out = self._forward(x)
+            out = self._forward(key, x, prior)
         except Exception as e:  # noqa: BLE001 - the flush fails, not the engine
             with self._stats_lock:
                 self._dispatch_failures += 1
@@ -318,41 +554,88 @@ class InferenceEngine:
                 self._fail(r.future, ServeError(
                     "postprocess_failed", f"{type(e).__name__}: {e}", r.rid))
                 continue
+            if r.session is not None and self.warm_start:
+                # this step's raw output becomes the session's prior,
+                # before the result: a closed-loop client's next frame
+                # sees it. The copy detaches it from the batch buffer.
+                self.sessions.set_flow(r.session,
+                                       np.ascontiguousarray(out[i]),
+                                       bucket, r.epoch)
             done = time.monotonic()
             with self._stats_lock:
                 self._responses += 1
+                self._responses_by_tier[tier] += 1
                 self._latency_s.append(done - r.t_enq)
-            r.future.set_result({"flow": flow, "bucket": bucket,
-                                 "native_hw": r.native_hw,
-                                 "latency_s": done - r.t_enq,
-                                 "request_id": r.rid})
+                if r.session is not None:
+                    self._session_latency_s.append(done - r.t_enq)
+            result = {"flow": flow, "bucket": bucket, "precision": tier,
+                      "native_hw": r.native_hw, "latency_s": done - r.t_enq,
+                      "request_id": r.rid}
+            if r.session is not None:
+                result["session"] = r.session
+                result["frame_index"] = r.frame_index
+                if self.warm_start:
+                    result["warm"] = mode == "warm"
+            r.future.set_result(result)
         with self._stats_lock:
             self._batches += 1
             self._occupancy_sum += n
 
+    # ------------------------------------------------------------ warm
+    def warm(self) -> dict:
+        """One padded dispatch of zeros for each (bucket, tier, mode) of
+        the engine, so the kernels are built and cuDNN has chosen its
+        algorithms before the first request. Returns {"buckets":
+        [{"bucket", "tier", "mode", "seconds"}]}."""
+        modes = ("cold", "warm") if self.warm_start else ("cold",)
+        out = []
+        for bucket in self.buckets:
+            x = np.zeros((self.max_batch, *bucket, PAIR_CHANNELS), np.float32)
+            for tier in self.tiers:
+                for mode in modes:
+                    prior = (np.zeros((self.max_batch,
+                                       *self._head_hw[bucket], 2),
+                                      np.float32) if mode == "warm" else None)
+                    t0 = time.perf_counter()
+                    self._forward((bucket, tier, mode), x, prior)
+                    out.append({"bucket": list(bucket), "tier": tier,
+                                "mode": mode,
+                                "seconds": time.perf_counter() - t0})
+        return {"buckets": out}
+
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
-        """The serve_* counter block."""
+        """The serve_* counter block, with the serve_sessions_* block of
+        the session store."""
         with self._stats_lock:
             lat = sorted(self._latency_s)
+            session_lat = sorted(self._session_latency_s)
             out = {
                 "serve_requests": self._requests,
                 "serve_responses": self._responses,
                 "serve_errors": self._errors,
                 "serve_batches": self._batches,
                 "serve_dispatch_failures": self._dispatch_failures,
+                "serve_bucket_splits": self._bucket_splits,
+                "serve_tier_splits": self._tier_splits,
+                "serve_warm_splits": self._warm_splits,
+                "serve_tiers": len(self.tiers),
+                "serve_requests_by_tier": dict(self._requests_by_tier),
+                "serve_responses_by_tier": dict(self._responses_by_tier),
                 "serve_occupancy_mean": (
                     round(self._occupancy_sum / self._batches, 3)
                     if self._batches else None),
+                "serve_sessions_warm_start": self.warm_start,
+                "serve_sessions_warm_steps": self._warm_steps,
+                "serve_sessions_cold_fallbacks": self._cold_fallbacks,
             }
-        if lat:
-            out["serve_latency_p50_ms"] = round(
-                1e3 * lat[int(0.50 * (len(lat) - 1))], 3)
-            out["serve_latency_p99_ms"] = round(
-                1e3 * lat[int(0.99 * (len(lat) - 1))], 3)
-        else:
-            out["serve_latency_p50_ms"] = None
-            out["serve_latency_p99_ms"] = None
+        for name, samples in (("serve_latency", lat),
+                              ("serve_session_latency", session_lat)):
+            for q in (50, 99):
+                out[f"{name}_p{q}_ms"] = (
+                    round(1e3 * samples[int(q / 100 * (len(samples) - 1))],
+                          3) if samples else None)
+        out.update(self.sessions.stats())
         return out
 
     # ------------------------------------------------------------- close
@@ -363,6 +646,7 @@ class InferenceEngine:
             if self._closed:
                 return
             self._closed = True
+        self.sessions.close()  # stop the TTL sweeper
         self._q.put(_STOP)
         self._thread.join(timeout=60.0)
         # submitters that passed the closed check before it flipped may

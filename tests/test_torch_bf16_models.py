@@ -129,8 +129,10 @@ def test_unknown_compute_dtype_raises():
 
 
 def test_bf16_gather_still_raises_naming_the_next_slice():
+    # a loss option, queued with the loss variants (ROADMAP Queue A
+    # item 9, F11): the warp kernels take float32 only
     with pytest.raises(NotImplementedError,
-                       match="gather_dtype='bfloat16'.*next slice"):
+                       match=r"gather_dtype='bfloat16'.*9 \(loss variants\)"):
         check_trainable(ExperimentConfig(
             loss=LossConfig(gather_dtype="bfloat16")))
 

@@ -97,6 +97,28 @@ def test_predict_writes_flo_at_native_size(run_dir, tmp_path, capsys):
         assert flow.shape == (*hw, 2) and np.isfinite(flow).all()
 
 
+def test_predict_at_a_precision_tier_writes_flo(run_dir, tmp_path, capsys):
+    rs = np.random.RandomState(1)
+    a, b = (rs.randint(0, 256, (48, 80, 3), np.uint8) for _ in range(2))
+    np.save(tmp_path / "a.npy", a)
+    np.save(tmp_path / "b.npy", b)
+    pair = f"{tmp_path}/a.npy:{tmp_path}/b.npy"
+    tiers = ["--set", "serve.precisions=('f32','bf16','int8')"]
+    flows = {}
+    for tier in ("f32", "bf16", "int8"):
+        out = _run(capsys, "predict", *SMOKE, *tiers, "--precision", tier,
+                   "--log-dir", run_dir, "--out", str(tmp_path / tier),
+                   "--pairs", pair)
+        flows[tier] = read_flo(out["written"][0])
+        assert flows[tier].shape == (48, 80, 2)
+        assert np.isfinite(flows[tier]).all()
+    assert not np.array_equal(flows["int8"], flows["f32"])
+    assert not np.array_equal(flows["bf16"], flows["f32"])
+    with pytest.raises(SystemExit, match="not in serve.precisions"):
+        cli.main(["predict", *SMOKE, "--precision", "int8", "--log-dir",
+                  run_dir, "--out", str(tmp_path / "x"), "--pairs", pair])
+
+
 def test_predict_without_a_checkpoint_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         cli.main(["predict", *SMOKE, "--log-dir", str(tmp_path),

@@ -1,6 +1,8 @@
 """Tests of the PyTorch port's CUDA kernels (correlation and its two
 backward kernels, in float32 and bf16; warp and its flow gradient, one
-level and a list of levels per launch), on the card.
+level and a list of levels per launch), and of the serving path that
+reaches them (a warm-start dispatch; the int8 tier's weights), on the
+card.
 
 They skip on a host without a CUDA device. This file imports no JAX, so
 it runs on a machine that has only PyTorch:
@@ -8,7 +10,7 @@ it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Add `-k corr`, `-k corr_bwd`, `-k bf16` or `-k warp` for one kernel's
-cases.
+cases, `-k "warm or int8"` for the serving cases.
 """
 
 import numpy as np
@@ -475,3 +477,75 @@ def test_prefetcher_stages_batches_on_the_card(cuda, monkeypatch):
             np.testing.assert_array_equal(b[k].cpu().numpy(), h[k])
     assert puts and set(puts) == {"put"}
     assert 1 <= pre.stats()["max_staged_depth"] <= 2
+
+
+def _serving_cfg(**serve_kw):
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              ServeConfig)
+
+    return ExperimentConfig(
+        model="flownet_c", width_mult=0.25, corr_max_disp=4, corr_stride=1,
+        data=DataConfig(image_size=(64, 128)),
+        serve=ServeConfig(max_batch=4, **serve_kw))
+
+
+@pytest.mark.cuda
+def test_warm_dispatch_launches_the_warp_once_and_no_corr(cuda, monkeypatch):
+    """A warm dispatch: one warp launch at input resolution, no
+    correlation; its output equals the same dispatch with the plain warp
+    swapped in, bit for bit (the gate set to 1, so the stage's own output,
+    which reads the warped frame, counts; cuDNN deterministic)."""
+    from deepof_tpu_torch.core.config import SessionConfig
+    from deepof_tpu_torch.models import flownet2
+    from deepof_tpu_torch.ops.cuda import corr as cc
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    rs = np.random.RandomState(0)
+    x = rs.rand(4, 64, 128, 6).astype(np.float32) - 0.5
+    prior = (rs.randn(4, 32, 64, 2) * 3).astype(np.float32)
+    key = ((64, 128), "f32", "warm")
+    cfg = _serving_cfg(session=SessionConfig(warm_start=True))
+    with InferenceEngine(cfg, device=cuda) as eng:
+        eng.refine_models["f32"].gate.data.fill_(1.0)
+        eng.warm()
+        warps, corrs = cw.fwd_launches.count, cc.launches.count
+        got = eng._forward(key, x, prior)
+        assert cw.fwd_launches.count == warps + 1
+        assert cc.launches.count == corrs
+        monkeypatch.setattr(flownet2, "backward_warp_nchw",
+                            backward_warp_reference)
+        want = eng._forward(key, x, prior)
+        assert cw.fwd_launches.count == warps + 1
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_tier_holds_int8_weights_on_the_card(cuda):
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+    from deepof_tpu_torch.serve.quant import Int8Layer
+
+    with InferenceEngine(_serving_cfg(precisions=("int8", "bf16")),
+                         device=cuda) as eng:
+        int8 = eng.tier_models["int8"]
+        layers = [m for m in int8.modules() if isinstance(m, Int8Layer)]
+        assert layers
+        for m in layers:
+            assert m.q.dtype == torch.int8 and m.q.is_cuda
+            assert m.scale.dtype == torch.float32 and m.scale.is_cuda
+        assert not [n for n, t in (*int8.named_parameters(),
+                                   *int8.named_buffers())
+                    if t.is_floating_point() and t.dim() > 1]
+        assert all(p.dtype == torch.bfloat16 and p.is_cuda
+                   for p in eng.tier_models["bf16"].parameters())
+        rs = np.random.RandomState(1)
+        row = rs.rand(64, 128, 6).astype(np.float32) - 0.5
+        flows = {t: eng.submit_prepared(row, (64, 128), (64, 128),
+                                        precision=t).result(120)["flow"]
+                 for t in ("int8", "bf16")}
+    assert all(np.isfinite(f).all() for f in flows.values())
+    assert not np.array_equal(flows["int8"], flows["bf16"])

@@ -173,12 +173,12 @@ def test_engine_errors_are_structured(tmp_path):
         with pytest.raises(ServeError) as e:
             png.result(10)
         assert e.value.code == "bad_input"
-        with pytest.raises(NotImplementedError, match="int8"):
+        with pytest.raises(ValueError, match="fp4"):
             InferenceEngine(dataclasses.replace(cfg, serve=dataclasses.replace(
-                cfg.serve, precisions=("f32", "int8"))), model=model,
+                cfg.serve, precisions=("f32", "fp4"))), model=model,
                 device="cpu")
 
-        def boom(x):
+        def boom(*args, **kwargs):
             raise RuntimeError("device lost")
 
         eng._forward = boom
@@ -217,3 +217,43 @@ def test_predict_pairs_writes_flo(tmp_path):
     for p in written:
         flow = read_flo(p)
         assert flow.shape == (48, 96, 2) and np.isfinite(flow).all()
+
+
+def test_engine_batches_per_tier_and_refuses_an_unserved_one(tmp_path):
+    """Rows of two tiers never share a flush (serve_tier_splits); each
+    response is its tier's forward of the row, bit for bit; a tier the
+    engine does not serve fails that request alone with bad_request."""
+    from deepof_tpu_torch.serve.engine import make_raw_forward
+    from deepof_tpu_torch.serve.quant import quantize_model
+
+    cfg = _port_cfg(_jax_cfg(tmp_path))
+    cfg = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, precisions=("int8", "f32")))
+    _, model = _models(None)
+    rs = np.random.RandomState(6)
+    rows = [prepare_pair(_img(rs, BUCKET), _img(rs, BUCKET), BUCKET,
+                         (0, 0, 0)) for _ in range(4)]
+    tiers = ["f32", "int8", None, "f32"]
+    with InferenceEngine(cfg, model=model, device="cpu") as eng:
+        futs = [eng.submit_prepared(r, BUCKET, BUCKET, precision=t)
+                for r, t in zip(rows, tiers)]
+        bad = eng.submit_prepared(rows[0], BUCKET, BUCKET, precision="bf16")
+        got = [f.result(60) for f in futs]
+        with pytest.raises(ServeError) as e:
+            bad.result(60)
+        stats = eng.stats()
+    assert e.value.code == "bad_request" and "bf16" in str(e.value)
+    assert [g["precision"] for g in got] == ["f32", "int8", "int8", "f32"]
+    assert stats["serve_tier_splits"] >= 1 and stats["serve_tiers"] == 2
+    assert stats["serve_requests_by_tier"] == {"int8": 2, "f32": 2}
+    assert stats["serve_responses_by_tier"] == {"int8": 2, "f32": 2}
+    assert stats["serve_errors"] == 1
+    raw = {t: make_raw_forward(quantize_model(model, t))(
+        np.stack([rows[0]] * 4)) for t in ("f32", "int8")}
+    assert not np.array_equal(raw["f32"], raw["int8"])
+    for r, g in zip(rows, got):
+        tier_model = quantize_model(model, g["precision"])
+        want = make_raw_forward(tier_model)(np.stack([r] + [np.zeros_like(r)]
+                                                     * 3))[0]
+        np.testing.assert_array_equal(
+            g["flow"], flow_to_native(want, cfg, BUCKET, BUCKET))
