@@ -39,7 +39,18 @@ read after it):
     training in bf16 against the plain correlation, beside a float32
     trainer (`train_flownet_c_bf16`), and its `train` and `eval` from the
     command line (`cli_train_flownet_c_bf16`): the bf16 kernels once a
-    step and the float32 correlation kernels never.
+    step and the float32 correlation kernels never;
+  - FlowNet-CS steps repeated bit for bit under cuDNN deterministic,
+    with the fixed-weight flow upsample and, for comparison, with
+    `F.interpolate`'s (`repeat_flownet_cs`);
+  - training on MPI-Sintel T-frame volumes (`cli_sintel`): a Sintel tree
+    of PNG frames and .flo flows at 436x1024 written here, `train
+    --preset sintel --model flownet_s` for 8 steps at full width (T = 10,
+    224x480 crops, batch 4: 36 folded frame pairs in the loss's one
+    launch of each warp kernel) with visuals, in the cached decode route
+    and, where the native decoder has a PNG codec, the streaming one;
+    `eval --dump-visuals`; both warp kernels at that volume shape bit
+    for bit against their plain versions (`check_warp_volume`).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -49,6 +60,7 @@ without a GPU.
 One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; cs.check_corr_bwd((4, 256, 48, 64), 20, 2, 0, bitwise=True)"
     python3 -c "import chip_smoke as cs; cs.check_warp_levels()"
+    python3 -c "import chip_smoke as cs; cs.check_warp_volume()"
     python3 -c "import chip_smoke as cs; cs.step_kernels()"
     python3 -c "import chip_smoke as cs; cs.fit_variants()"
 """
@@ -567,23 +579,8 @@ def check_warp_nonfinite(shape=(2, 3, 16, 20), seed=10):
 def check_warp_levels(mag=5.0, seed=20):
     """The six main-path levels through one launch per direction, in the
     loss's layouts (images and cotangents as views of NHWC memory, planar
-    flows): each level against the plain version; the two launches'
-    device time (WARP_ROUNDS readings of WARP_ITERS calls each) beside
-    the sums of the six per-level bounds and of the six grid_sample calls
-    (forward, and backward with respect to the grid), taken in turns; the
-    same launches on a smooth flow (a 2.3 px shift plus 0.3 px of noise,
-    where neighbouring pixels gather from the same rows); and
-    the device kernels of one autograd forward and backward of
-    `BackwardWarpLevels` on those views: the two warp kernels, no copy."""
+    flows), on normal flows of `mag` px: `warp_levels_row`."""
     import torch
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_levels_cuda,
-                                                warp_fwd_levels_cuda)
-    from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
-                                           backward_warp_reference)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     images, flows, cts = [], [], []
@@ -594,18 +591,46 @@ def check_warp_levels(mag=5.0, seed=20):
                      * mag)
         cts.append(torch.randn((b, h, w, c), device="cuda", generator=g)
                    .permute(0, 3, 1, 2))
+    return warp_levels_row("warp_levels", images, flows, cts, g)
+
+
+def warp_levels_row(kernel, images, flows, cts, g):
+    """Levels (NCHW views) through one launch per direction: each level
+    bit for bit its plain versions (`backward_warp_reference`,
+    `warp_flow_grad_reference`); the two launches' device time
+    (WARP_ROUNDS readings of WARP_ITERS calls each) beside the sums of
+    the per-level bounds and of one grid_sample call a level (forward,
+    and backward with respect to the grid), taken in turns; the same
+    launches on a smooth flow (a 2.3 px shift plus 0.3 px of noise, where
+    neighbouring pixels gather from the same rows); and the device
+    kernels of one autograd forward and backward of `BackwardWarpLevels`
+    on those views: the two warp kernels, no copy."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_levels_cuda,
+                                                warp_fwd_levels_cuda)
+    from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
+                                           backward_warp_reference,
+                                           warp_flow_grad_reference)
+
+    shapes = [tuple(i.shape) for i in images]
     outs = warp_fwd_levels_cuda(images, flows)
     grads = warp_flow_grad_levels_cuda(images, flows, cts)
     levels = []
     for img, fl, ct, out, grad in zip(images, flows, cts, outs, grads):
-        f = fl.detach().requires_grad_(True)
-        want = backward_warp_reference(img, f)
-        gwant = torch.autograd.grad(want, f, ct)[0]
+        want = backward_warp_reference(img, fl)
+        gwant = warp_flow_grad_reference(img, fl, ct)
         levels.append({"shape": list(img.shape),
                        "bitwise_equal": bool(torch.equal(out, want)),
                        "max_abs_err": (out - want).abs().max().item(),
+                       "flow_grad_bitwise_equal": bool(torch.equal(grad,
+                                                                   gwant)),
                        "flow_grad_max_abs_err": (grad - gwant).abs().max()
-                       .item()})
+                       .item(),
+                       "flow_abs_max": fl.abs().max().item()})
     grids = [grid_sample_grid(fl)[0] for fl in flows]
 
     def library():
@@ -622,10 +647,8 @@ def check_warp_levels(mag=5.0, seed=20):
         return [backward_warp_reference(i, f) for i, f in zip(images, flows)]
 
     def plain_grad():
-        fs = [f.detach().requires_grad_(True) for f in flows]
-        return torch.autograd.grad(
-            [backward_warp_reference(i, f) for i, f in zip(images, fs)], fs,
-            cts)
+        return [warp_flow_grad_reference(i, f, c)
+                for i, f, c in zip(images, flows, cts)]
 
     def fwd():
         return warp_fwd_levels_cuda(images, flows)
@@ -660,15 +683,15 @@ def check_warp_levels(mag=5.0, seed=20):
         torch.cuda.synchronize()
     autograd_kernels = device_kernel_counts(prof)
 
-    def direction(key, kernel, plain_fn, lib_key, grad):
-        bound, bound_by = warp_bound_ms(WARP_LEVELS, grad)
+    def direction(key, kernel_fn, plain_fn, lib_key, grad):
+        bound, bound_by = warp_bound_ms(shapes, grad)
         return {"ms": statistics.median(runs[key]), "ms_runs": runs[key],
                 "library_ms": statistics.median(runs[lib_key]),
                 "library_ms_runs": runs[lib_key],
                 "smooth_flow_ms": statistics.median(runs[key + "_smooth"]),
                 "smooth_flow_ms_runs": runs[key + "_smooth"],
                 "plain_ms": device_ms(plain_fn),
-                "call_ms": time_ms(kernel),
+                "call_ms": time_ms(kernel_fn),
                 "bound_ms": bound, "bound_by": bound_by}
 
     row = {"levels": levels,
@@ -677,22 +700,63 @@ def check_warp_levels(mag=5.0, seed=20):
                    "max_abs_err": max(r["max_abs_err"] for r in levels)},
            "flow_grad": {**direction("grad", bwd, plain_grad, "library_grad",
                                      True),
+                         "bitwise_equal": all(r["flow_grad_bitwise_equal"]
+                                              for r in levels),
                          "max_abs_err": max(r["flow_grad_max_abs_err"]
                                             for r in levels)},
-           "library": "six F.grid_sample(bilinear, border, "
+           "library": f"{len(images)} F.grid_sample(bilinear, border, "
                       "align_corners=True) calls; their autograd.grad wrt "
                       "the grids",
+           "plain": "backward_warp_reference and warp_flow_grad_reference "
+                    "level by level",
            "autograd_device_kernels": autograd_kernels}
-    emit("kernels", kernel="warp_levels", **row)
-    if not (row["fwd"]["bitwise_equal"]
-            and row["flow_grad"]["max_abs_err"] <= WARP_GRAD_TOL):
-        raise AssertionError(f"fused warp launch disagrees with the plain "
-                             f"version: {levels}")
+    emit("kernels", kernel=kernel, **row)
+    if not (row["fwd"]["bitwise_equal"] and row["flow_grad"]["bitwise_equal"]):
+        raise AssertionError(f"{kernel}: fused warp launch disagrees with "
+                             f"the plain versions: {levels}")
     if (len(autograd_kernels) != 2 or sum(autograd_kernels.values()) != 2
             or not all("warp_" in k for k in autograd_kernels)):
-        raise AssertionError(f"one autograd forward and backward of the "
-                             f"six levels ran {autograd_kernels}; want one "
-                             f"warp kernel each way and no copy")
+        raise AssertionError(f"{kernel}: one autograd forward and backward "
+                             f"of the levels ran {autograd_kernels}; want "
+                             f"one warp kernel each way and no copy")
+    return row
+
+
+def check_warp_volume(seed=21):
+    """Both warp kernels at the Sintel volume loss's shape: the `sintel`
+    preset's crop (224x480, batch 4, T = 10), six levels of B(T-1) = 36
+    folded pairs, one launch per direction (`warp_levels_row`). The
+    images are a random volume, LRN-normalised, resized to each level and
+    folded as the loss folds them; the flows are an untrained full-width
+    FlowNet-S's on that volume, scaled; the cotangents normal."""
+    import torch
+
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.losses.pyramid import _resize, lrn_normalize
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.ops.warp import fold_pairs
+
+    cfg = get_config("sintel")
+    b, t = cfg.data.batch_size, cfg.data.time_step
+    h, w = cfg.data.crop_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    vol = torch.rand((b, h, w, 3 * t), device="cuda", generator=g) - 0.35
+    model = build_model("flownet_s", flow_channels=2 * (t - 1), seed=seed,
+                        device="cuda")
+    with torch.no_grad():
+        flows = [f.permute(0, 2, 3, 1) * s for f, s in zip(
+            model(vol.permute(0, 3, 1, 2).contiguous()), model.flow_scales)]
+    del model
+    norm = lrn_normalize(vol)
+    images, fl = [], []
+    for f in flows:
+        nxt, flw = fold_pairs(_resize(norm, *f.shape[1:3]), f)
+        images.append(nxt.permute(0, 3, 1, 2))
+        fl.append(flw.permute(0, 3, 1, 2))
+    cts = [torch.randn(i.shape, device="cuda", generator=g) for i in images]
+    row = warp_levels_row("warp_volume", images, fl, cts, g)
+    row["volume"] = {"batch": b, "time_step": t, "crop": [h, w],
+                     "folded_pairs": b * (t - 1)}
     return row
 
 
@@ -958,8 +1022,10 @@ def count_dispatches(eng) -> dict:
 def serve_tiers(cfg, n_requests: int = 24, n_threads: int = 4) -> dict:
     """Full-width FlowNet-C through one engine serving f32, bf16 and int8:
     per tier, `n_requests` pairs at native 384x512 from `n_threads`
-    threads (latency, requests/s, correlation launches against the
-    dispatches, counted from 0 for each tier), the padded dispatch's time
+    threads after one untimed request a thread (latency, requests/s,
+    correlation launches against the dispatches, counted from 0 for each
+    tier; the first tier also right after `warm()`, before any request,
+    `first_tier_without_untimed_round`: the check on F14), the padded dispatch's time
     (CUDA events, and device busy from torch.profiler), its weight bytes
     and the device memory the tier adds, and its raw flow against the f32
     tier's on the same 8 pairs. Gates: finite flows of the native shape;
@@ -1003,24 +1069,32 @@ def serve_tiers(cfg, n_requests: int = 24, n_threads: int = 4) -> dict:
         bucket = eng.buckets[0]
         x = np.stack([prepare_pair(*pairs[i], bucket, eng.mean)
                       for i in range(eng.max_batch)])
-        for tier in SERVE_TIERS:
+        def timed_round(tier):
             results: list = [None] * n_requests
 
             def client(k: int) -> None:
                 for i in range(k, n_requests, n_threads):
                     results[i] = eng.submit(*pairs[i], precision=tier)
 
-            # one untimed request per thread first, as `serve` takes one
-            # warm-up dispatch outside its timed run
-            for f in [eng.submit(*pairs[k], precision=tier)
-                      for k in range(n_threads)]:
-                f.result(timeout=600)
             reset_kernel_counts()
             dispatches.clear()
             t0 = time.perf_counter()
             run_clients(n_threads, client)
             responses = [f.result(timeout=600) for f in results]
-            wall = time.perf_counter() - t0
+            return responses, time.perf_counter() - t0
+
+        # F14: the first tier once right after warm(), with no untimed
+        # request through the batcher before it
+        responses, wall = timed_round(SERVE_TIERS[0])
+        first_round = {**p50_p99([1e3 * r["latency_s"] for r in responses]),
+                       "requests_per_s": n_requests / wall}
+        for tier in SERVE_TIERS:
+            # one untimed request per thread first, as `serve` takes one
+            # warm-up dispatch outside its timed run
+            for f in [eng.submit(*pairs[k], precision=tier)
+                      for k in range(n_threads)]:
+                f.result(timeout=600)
+            responses, wall = timed_round(tier)
             counts = kernel_counts()
             n_disp = dispatches.get((tier, "cold"), 0)
             for (src, _), r in zip(pairs, responses):
@@ -1063,6 +1137,8 @@ def serve_tiers(cfg, n_requests: int = 24, n_threads: int = 4) -> dict:
             raw_flow_abs_max=float(np.abs(raw[tier]).max()),
             raw_flow_abs_mean=float(np.abs(raw[tier]).mean()))
     row = {"tiers": rows, "warm": warmed["buckets"],
+           "first_tier_without_untimed_round": {
+               "tier": SERVE_TIERS[0], **first_round},
            "int8_weights_int8_on_card": int8_ok,
            "serve_tier_splits": stats["serve_tier_splits"],
            "serve_requests_by_tier": stats["serve_requests_by_tier"],
@@ -1827,6 +1903,85 @@ def train_corr_model(model: str, work: str,
     return row
 
 
+REPEAT_STEPS = 3
+
+
+def repeat_flownet_cs(work: str) -> dict:
+    """F15: REPEAT_STEPS plain FlowNet-CS steps (forward and backward, no
+    update, one batch, the same weights), full width, under cuDNN
+    deterministic, each against the first: the loss, and each gradient
+    bit for bit (the parameters whose gradients differ, with the largest
+    difference). First with the x2 flow upsample as `F.interpolate` (the
+    port before F15's fix), then with `models/flownet2.py::upsample_flow`.
+    Then the ops that `torch.use_deterministic_algorithms(True,
+    warn_only=True)` warns about in one step of each (that mode also
+    swaps some ops for deterministic versions, so it names ops; the
+    repeat without it is the check)."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+
+    from deepof_tpu_torch.models import flownet2
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    trainer, _ = corr_trainer("flownet_cs", work)
+    batch = batch_to_device(next(draw_batches(trainer, 1))[0],
+                            trainer.device)
+    args = (trainer.model, batch, trainer.dataset.mean, trainer.cfg.loss)
+    names = [n for n, _ in trainer.model.named_parameters()]
+
+    def interpolate_upsample(flow, hw):
+        return F.interpolate(flow, size=hw, mode="bilinear",
+                             align_corners=False) * 2.0
+
+    def repeat():
+        (l0, g0), *rest = [loss_and_grads(*args)
+                           for _ in range(REPEAT_STEPS)]
+        diff = {}
+        for _, gs in rest:
+            for n, a, b in zip(names, g0, gs):
+                d = (a - b).abs().max().item()
+                if d > 0:
+                    diff[n] = max(d, diff.get(n, 0.0))
+        return {"steps": REPEAT_STEPS,
+                "loss_equal": all(lk == l0 for lk, _ in rest),
+                "grads_bitwise_equal": not diff,
+                "grads_differing": len(diff),
+                "largest_diffs": dict(sorted(diff.items(),
+                                             key=lambda kv: -kv[1])[:5])}
+
+    def warned():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                loss_and_grads(*args)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        return sorted({str(w.message)[:200] for w in caught
+                       if "determinis" in str(w.message)})
+
+    fixed = flownet2.upsample_flow
+    row = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, fn in (("interpolate_upsample", interpolate_upsample),
+                        ("fixed_weight_upsample", fixed)):
+            flownet2.upsample_flow = fn
+            row[key] = {**repeat(), "deterministic_mode_warns": warned()}
+    finally:
+        flownet2.upsample_flow = fixed
+        torch.backends.cudnn.deterministic = False
+    del trainer
+    emit("repeat_flownet_cs", **row)
+    got = row["fixed_weight_upsample"]
+    if not (got["loss_equal"] and got["grads_bitwise_equal"]):
+        raise AssertionError(f"repeat_flownet_cs: FlowNet-CS steps are not "
+                             f"bitwise repeatable: {row}")
+    return row
+
+
 # `train --model flownet_c --synthetic` at full width: 384x512, batch 4,
 # a train record every 2 steps, an eval and a checkpoint at step 8
 CLI_TRAIN_C = ["--model", "flownet_c", "--synthetic",
@@ -1876,7 +2031,7 @@ def cli_train_flownet_c(work: str) -> dict:
                    os.path.join(work, "flows_c"), "--pairs", *pairs],
                   os.path.join(work, "cli_predict_flownet_c.log"))
     predict = kernel_counts()
-    flows = [read_flo(p) for p in out["written"]]
+    flows = [read_flo(p) for p in out["written"] if p.endswith(".flo")]
     row = {"steps": CLI_C_STEPS, **fit_row(summary, 4),
            "launches": {"train": train, "eval": evaluate,
                         "predict": predict},
@@ -2196,68 +2351,82 @@ def cli_resume(work: str) -> dict:
     return row
 
 
+class StepWindow:
+    """A train step wrapped so that torch.profiler (device events) and the
+    host clock cover the steps after call `start` returns up to the
+    return of call `stop`: steps start+1 .. stop of a fit, the loop's own
+    work between them included. `row(batch)` gives their step ms, device
+    busy (the compute stream's kernels; the prefetcher's host-to-device
+    copies run on their own stream and are given apart) and idle share."""
+
+    def __init__(self, step, start: int, stop: int):
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        self.step, self.start, self.stop = step, start, stop
+        self.prof = torch_profile(activities=[ProfilerActivity.CUDA],
+                                  acc_events=True)
+        self.calls = 0
+
+    def __call__(self, state, batch):
+        import torch
+
+        metrics = self.step(state, batch)
+        self.calls += 1
+        if self.calls == self.start:
+            torch.cuda.synchronize()
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif self.calls == self.stop:
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - self.t0
+            self.prof.stop()
+        return metrics
+
+    def row(self, batch: int) -> dict:
+        n = self.stop - self.start
+        rows = list(_device_rows(self.prof))
+        h2d = sum(dev for dev, e in rows if "HtoD" in e.key) / 1e3
+        busy = sum(dev for dev, e in rows if "HtoD" not in e.key) / 1e3 / n
+        step_ms = 1e3 * self.seconds / n
+        if busy <= 0:
+            raise AssertionError("torch.profiler recorded no device time in "
+                                 "the fit's steps")
+        return {"steps": n, "step_ms": step_ms,
+                "pairs_per_s": batch / (step_ms / 1e3),
+                "device_time_visible": busy > 0,
+                "device_busy_ms_per_step": busy,
+                "idle_share_of_step": 1 - busy / step_ms,
+                "h2d_copy_ms_per_step": h2d / n}
+
+
 def fit_profile(work: str) -> dict:
     """Where a step of `Trainer.fit` goes, prefetcher on (default depth 2):
-    FIT_PROFILE_STEPS steps under torch.profiler, started and stopped
-    between the loop's own steps (after 2 warm steps; the trainer's
-    `train_step` is wrapped to do so), against the host clock of the same
-    steps; then `train_profile`'s step on a batch already on the card, on
-    the same trainer. Device busy counts the compute stream's work; the
-    prefetcher's host-to-device copies run on their own stream and are
-    given apart."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
+    FIT_PROFILE_STEPS steps under torch.profiler after 2 warm steps
+    (`StepWindow`), against the host clock of the same steps; then
+    `train_profile`'s step on a batch already on the card, on the same
+    trainer."""
     from deepof_tpu_torch.train.loop import Trainer
 
     trainer = Trainer(fit_profile_cfg(work), device="cuda")
-    prof = torch_profile(activities=[ProfilerActivity.CUDA], acc_events=True)
-    start, stop = 2, 2 + FIT_PROFILE_STEPS
-    window = {"calls": 0}
     step = trainer.train_step
-
-    def windowed_step(state, batch):
-        metrics = step(state, batch)
-        window["calls"] += 1
-        if window["calls"] == start:
-            torch.cuda.synchronize()
-            prof.start()
-            window["t0"] = time.perf_counter()
-        elif window["calls"] == stop:
-            torch.cuda.synchronize()
-            window["s"] = time.perf_counter() - window["t0"]
-            prof.stop()
-        return metrics
-
-    trainer.train_step = windowed_step
+    window = StepWindow(step, 2, 2 + FIT_PROFILE_STEPS)
+    trainer.train_step = window
     try:
-        summary = trainer.fit(max_steps=stop + 1)
+        summary = trainer.fit(max_steps=window.stop + 1)
     finally:
         trainer.train_step = step
-    rows = list(_device_rows(prof))
-    h2d = sum(dev for dev, e in rows if "HtoD" in e.key) / 1e3
-    busy = sum(dev for dev, e in rows if "HtoD" not in e.key) / 1e3
-    step_ms = 1e3 * window["s"] / FIT_PROFILE_STEPS
-    busy_per_step = busy / FIT_PROFILE_STEPS
     on_card_ms, card_prof = profile_steps(trainer, 3)
     on_card_busy = sum(t for t, _ in device_kernels(card_prof, 3))
-    row = {"steps": FIT_PROFILE_STEPS,
+    row = {**window.row(4),
            "prefetch_depth": trainer.cfg.data.prefetch,
            "num_workers": trainer.cfg.data.num_workers,
-           "step_ms": step_ms, "pairs_per_s": 4 / (step_ms / 1e3),
-           "device_time_visible": busy > 0,
-           "device_busy_ms_per_step": busy_per_step,
-           "idle_share_of_step": 1 - busy_per_step / step_ms,
-           "h2d_copy_ms_per_step": h2d / FIT_PROFILE_STEPS,
            "fit": fit_row(summary, 4),
            "on_card_batch": {"step_ms": on_card_ms,
                              "device_busy_ms": on_card_busy,
                              "idle_share_of_step": 1 - on_card_busy
                              / on_card_ms}}
     emit("fit_profile", **row)
-    if busy <= 0:
-        raise AssertionError("torch.profiler recorded no device time in fit")
     return row
 
 
@@ -2314,6 +2483,13 @@ def fit_variants(steps: int = 2 + FIT_PROFILE_STEPS + 1) -> dict:
     return rows
 
 
+# the Sintel tree of `cli_sintel`: three clips at Sintel's 436x1024,
+# frames per clip; bamboo_2 is long enough (2T frames at T = 10) for
+# the second val window that the loader gives it
+SINTEL_CLIPS = {"alley_1": 14, "bamboo_2": 20, "market_2": 14}
+SINTEL_HW = (436, 1024)
+
+
 def write_chairs(root: str, seed: int = 0) -> None:
     """CHAIRS_PAIRS FlyingChairs pairs in the dataset's layout: 384x512
     binary PPM frames (the second a shifted copy of a smooth first) and
@@ -2340,6 +2516,48 @@ def write_chairs(root: str, seed: int = 0) -> None:
     with open(os.path.join(root, "FlyingChairs_train_val.txt"), "w") as f:
         f.write("\n".join(["1"] * (CHAIRS_PAIRS - CHAIRS_VAL)
                           + ["2"] * CHAIRS_VAL) + "\n")
+
+
+def write_sintel(root: str, clips=SINTEL_CLIPS, hw=SINTEL_HW,
+                 seed: int = 0) -> dict:
+    """An MPI-Sintel tree in the dataset's layout, clips {name: frames}:
+    `training/final/<clip>/frame_XXXX.png` (written with `io/png.py`) and
+    `training/flow/<clip>/frame_XXXX.flo` at `hw`. Each clip is a smooth random texture moving
+    by a whole (u, v) pixels a frame, so every flow is the uniform
+    (-u, -v): frame t+1 at p + flow is frame t at p. Returns {clip:
+    (u, v)}."""
+    import numpy as np
+
+    from deepof_tpu_torch.io.flo import write_flo
+    from deepof_tpu_torch.io.png import write_png
+
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    pad = 3 * max(clips.values())
+    yy, xx = np.mgrid[0:h + 2 * pad, 0:w + 2 * pad].astype(np.float32)
+    shifts = {}
+    for clip, frames in clips.items():
+        img_dir = os.path.join(root, "training", "final", clip)
+        flo_dir = os.path.join(root, "training", "flow", clip)
+        os.makedirs(img_dir)
+        os.makedirs(flo_dir)
+        canvas = np.full(yy.shape + (3,), 127.0, np.float32)
+        for _ in range(3):
+            fy, fx, ph = rs.rand(3) * [0.08, 0.08, 6.28]
+            canvas += 40 * np.sin(fy * yy + fx * xx + ph)[..., None] * \
+                rs.rand(3)
+        canvas = np.clip(canvas, 0, 255).astype(np.uint8)
+        u, v = (int(x) for x in rs.randint(-3, 4, 2))
+        shifts[clip] = (u, v)
+        flow = np.broadcast_to(np.asarray([-u, -v], np.float32), (h, w, 2))
+        for t in range(frames):
+            y0, x0 = pad + t * v, pad + t * u
+            write_png(os.path.join(img_dir, f"frame_{t + 1:04d}.png"),
+                      canvas[y0:y0 + h, x0:x0 + w])
+            if t + 1 < frames:
+                write_flo(os.path.join(flo_dir, f"frame_{t + 1:04d}.flo"),
+                          flow)
+    return shifts
 
 
 def cli_flyingchairs(work: str) -> dict:
@@ -2374,13 +2592,190 @@ def cli_flyingchairs(work: str) -> dict:
     return row
 
 
+# `train --preset sintel --model flownet_s` on the Sintel tree: 8 steps
+# at the preset's full geometry (T = 10, 224x480 crops of 256x512
+# frames, batch 4; 436x1024 ground truth), visuals at each eval; the
+# profiled steps of the fit (StepWindow) skip the evals at steps 4 and 8
+SINTEL_STEPS = 8
+SINTEL_WINDOW = (5, 8)
+
+
+def sintel_argv(data_dir: str, log_dir: str, streaming: bool) -> list:
+    return (["--preset", "sintel", "--model", "flownet_s", "--data-path",
+             data_dir, "--log-dir", log_dir]
+            + (["--set", "data.cache_decoded=false"] if streaming else []))
+
+
+def sintel_draw_breakdown(ds, batch: int) -> dict:
+    """Where a cached-route Sintel draw's host time goes, on this
+    machine: the decode of every frame at its own size into the cache
+    (ms a frame), then, with the cache warm, one `sample_train` of
+    `batch` windows (ms) and its parts done alone: the frames' resizes
+    to the network size and the `.flo` reads (ms a batch)."""
+    import numpy as np
+
+    from deepof_tpu_torch.data.datasets import _resize
+    from deepof_tpu_torch.io.flo import read_flo
+
+    frames = sorted({p for w in ds.windows for p in w})
+    t0 = time.perf_counter()
+    for p in frames:
+        ds._cache(p)
+    decode = time.perf_counter() - t0
+    rs = np.random.RandomState(0)
+    idxs = [ds.train_idx[i] for i in rs.randint(0, ds.num_train, batch)]
+    t0 = time.perf_counter()
+    ds.sample_train(batch, rng=rs)
+    draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in idxs:
+        for p in ds.windows[i]:
+            _resize(ds._cache(p), ds.cfg.image_size)
+    resize = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in idxs:
+        for p in ds.flow_windows[i]:
+            read_flo(p)
+    flo = time.perf_counter() - t0
+    return {"decode_ms_per_frame": 1e3 * decode / len(frames),
+            "frames": len(frames), "warm_draw_ms": 1e3 * draw,
+            "resize_ms_per_batch": 1e3 * resize,
+            "flo_read_ms_per_batch": 1e3 * flo,
+            "flo_bytes_per_batch": sum(os.path.getsize(p) for i in idxs
+                                       for p in ds.flow_windows[i])}
+
+
+def cli_sintel(work: str) -> dict:
+    """This slice's main path: `train --preset sintel --model flownet_s
+    --data-path <tree> --max-steps 8 --set train.dump_visuals=true` on a
+    Sintel tree written here (`write_sintel`), with the frames decoded in
+    the cached route and, when the native decoder has a PNG codec, again
+    in the streaming route (`data.cache_decoded=false`); then `eval
+    --dump-visuals` on the cached run. Each route: the step in `fit`,
+    pairs/s, the idle share of the profiled steps, the draw's ms per
+    batch, finite losses and AEE at 436x1024, the warp kernels once per
+    step (and the forward once per eval forward: one a sweep of the 4
+    val windows), and PNG visuals that decode back; and where the cached
+    route's draw goes (`sintel_draw_breakdown`)."""
+    import numpy as np
+
+    from deepof_tpu_torch import native
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.data.datasets import SintelData
+    from deepof_tpu_torch.io.png import read_png_bgr
+    from deepof_tpu_torch.train import loop
+
+    data_dir = os.path.join(work, "sintel")
+    t0 = time.monotonic()
+    write_sintel(data_dir)
+    fixture_s = time.monotonic() - t0
+    codecs = sorted(native.codecs())
+    preset = get_config("sintel")
+    batch, gt_hw = preset.data.batch_size, preset.data.gt_size
+    routes = ["cached"] + (["streaming"] if "png" in codecs else [])
+    row = {"fixture": {"clips": SINTEL_CLIPS, "hw": list(SINTEL_HW),
+                       "seconds": fixture_s},
+           "codecs": codecs, "native_library": native.library_path(),
+           "routes": {}}
+    if "png" not in codecs:
+        row["streaming_not_run"] = (
+            "the native decoder built without a PNG codec (no libpng on "
+            "this machine), so data.cache_decoded=false has no batch "
+            "decoder for PNG frames: it reads them one by one with "
+            "io/png.py, the cached route's reader, and is not run")
+    make_step = loop.make_train_step
+    for route in routes:
+        streaming = route == "streaming"
+        log_dir = os.path.join(work, f"cli_sintel_{route}")
+        argv = sintel_argv(data_dir, log_dir, streaming)
+        cfg = dataclasses.replace(preset.data, data_path=data_dir,
+                                  cache_decoded=not streaming)
+        ds = SintelData(cfg)
+        windows = []
+
+        def windowed(*a, **kw):
+            windows.append(StepWindow(make_step(*a, **kw), *SINTEL_WINDOW))
+            return windows[-1]
+
+        loop.make_train_step = windowed
+        reset_warp_counts()
+        try:
+            summary = run_cli(["train", *argv, "--max-steps",
+                               str(SINTEL_STEPS), "--set",
+                               "train.dump_visuals=true"],
+                              os.path.join(work, f"cli_sintel_{route}.log"))
+        finally:
+            loop.make_train_step = make_step
+        launches = warp_counts()
+        spe = ds.num_train // batch  # steps per epoch: an eval at each end
+        ends = list(range(spe, SINTEL_STEPS + 1, spe))
+        records = check_run(log_dir, ends, ends, [SINTEL_STEPS])
+        evals = len(ends) * eval_calls(ds.num_val,
+                                       preset.train.eval_batch_size)
+        visuals = sorted(os.listdir(os.path.join(log_dir, "visuals")))
+        row["routes"][route] = {
+            "decode_route": ds.decode_route, "windows": len(ds.windows),
+            "num_train": ds.num_train, "num_val": ds.num_val,
+            "val_idx": ds.val_idx, "steps": SINTEL_STEPS,
+            **fit_row(summary, batch),
+            "profiled": windows[0].row(batch),
+            "warp_fwd_launches": launches[0],
+            "warp_flow_grad_launches": launches[1], "eval_forwards": evals,
+            "losses": [r["loss"] for r in records if r["kind"] == "train"],
+            "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                      for r in records if r["kind"] == "eval"],
+            "visuals": visuals}
+        if not streaming:
+            row["routes"][route]["draw_breakdown"] = sintel_draw_breakdown(
+                ds, batch)
+        if launches != (SINTEL_STEPS + evals, SINTEL_STEPS):
+            raise AssertionError(f"cli_sintel {route}: warp kernels launched "
+                                 f"{launches} times in {SINTEL_STEPS} steps "
+                                 f"and {evals} eval forwards; want "
+                                 f"{(SINTEL_STEPS + evals, SINTEL_STEPS)}")
+        want = {f"val0_s{i}_{k}.png" for i in range(min(ds.num_val, 8))
+                for k in ("flow", "gt", "recon")}
+        if set(visuals) != want:
+            raise AssertionError(f"cli_sintel {route}: visuals {visuals}")
+    # eval --dump-visuals on the cached run's checkpoint
+    log_dir = os.path.join(work, "cli_sintel_cached")
+    vis = os.path.join(log_dir, "visuals")
+    shutil.rmtree(vis)
+    reset_warp_counts()
+    ev = run_cli(["eval", *sintel_argv(data_dir, log_dir, False),
+                  "--dump-visuals"], os.path.join(work, "cli_sintel_eval.log"))
+    eval_launches = warp_counts()
+    shapes = {n: list(read_png_bgr(os.path.join(vis, n)).shape)
+              for n in sorted(os.listdir(vis))}
+    row["eval"] = {**{k: ev[k] for k in ("aee", "aae", "val_loss",
+                                         "gt_abs_mean", "pred_abs_mean")},
+                   "warp_fwd_launches": eval_launches[0],
+                   "visual_shapes": shapes}
+    emit("cli_sintel", **row)
+    h, w = preset.data.image_size
+    # flows at the ground truth's size; the reconstruction at the finest
+    # flow's, half the network input
+    want_shapes = {"flow": [*gt_hw, 3], "gt": [*gt_hw, 3],
+                   "recon": [-(-h // 2), -(-w // 2), 3]}
+    if not (np.isfinite([ev[k] for k in ("aee", "aae", "val_loss")]).all()
+            and eval_launches == (eval_calls(ds.num_val,
+                                             preset.train.eval_batch_size), 0)
+            and shapes and all(s == want_shapes[n.rsplit("_", 1)[1][:-4]]
+                               for n, s in shapes.items())):
+        raise AssertionError(f"cli_sintel eval: {row['eval']}")
+    return row
+
+
 def cli_eval_predict(work: str) -> dict:
     """`eval` on the `cli_train` run (its newest checkpoint, step 16):
     finite aee, aae and val_loss, the warp forward once per eval forward;
-    then `predict` on 2 .npy pairs at 384x512: 2 .flo files of that size."""
+    then `predict` on a .npy pair and a PNG pair at 384x512: 2 .flo files
+    of that size, each with its flow-colour PNG."""
     import numpy as np
 
     from deepof_tpu_torch.io.flo import read_flo
+    from deepof_tpu_torch.io.png import read_png_bgr, write_png
+    from deepof_tpu_torch.utils.flowviz import flow_to_color
 
     log_dir = os.path.join(work, "cli_train")
     reset_warp_counts()
@@ -2389,20 +2784,33 @@ def cli_eval_predict(work: str) -> dict:
     launches = warp_counts()
     rs = np.random.RandomState(1)
     pairs = []
-    for i in range(2):
-        paths = [os.path.join(work, f"pair{i}_{k}.npy") for k in "ab"]
+    for i, ext in enumerate(("npy", "png")):
+        paths = [os.path.join(work, f"pair{i}_{k}.{ext}") for k in "ab"]
         for p in paths:
-            np.save(p, rs.randint(0, 256, (384, 512, 3), np.uint8))
+            img = rs.randint(0, 256, (384, 512, 3), np.uint8)
+            if ext == "npy":
+                np.save(p, img)
+            else:
+                write_png(p, img)
         pairs.append(":".join(paths))
     out = run_cli(["predict", *CLI_TRAIN, "--log-dir", log_dir, "--out",
                    os.path.join(work, "flows"), "--pairs", *pairs],
                   os.path.join(work, "cli_predict.log"))
-    flows = [read_flo(p) for p in out["written"]]
+    flo_paths = [p for p in out["written"] if p.endswith(".flo")]
+    flows = [read_flo(p) for p in flo_paths]
+    colours_ok = [np.array_equal(read_png_bgr(p[:-4] + ".png"),
+                                 flow_to_color(f))
+                  for p, f in zip(flo_paths, flows)]
     row = {"eval": {k: ev[k] for k in ("aee", "aae", "val_loss")},
            "eval_warp_fwd_launches": launches[0],
+           "written": [os.path.basename(p) for p in out["written"]],
            "predicted": [list(f.shape) for f in flows],
-           "predicted_abs_max": [float(np.abs(f).max()) for f in flows]}
+           "predicted_abs_max": [float(np.abs(f).max()) for f in flows],
+           "flow_png_equals_colours": colours_ok}
     emit("cli_eval_predict", **row)
+    if len(out["written"]) != 4 or not all(colours_ok):
+        raise AssertionError(f"predict wrote {out['written']}; flow PNGs "
+                             f"equal to their flows' colours: {colours_ok}")
     if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
         raise AssertionError(f"eval: non-finite metrics {ev}")
     if launches[0] != eval_calls(SYNTHETIC_VAL, 4):
@@ -2485,6 +2893,8 @@ def main() -> int:
     check_warp((4, 3, 48, 64), 200.0, seed=9, rounds=1)
     check_warp_nonfinite()
     fused = check_warp_levels()
+    # the six levels of the Sintel volume loss: 36 folded pairs
+    volume = check_warp_volume()
 
     serve_row, corr_launches = serve(cfg)
     # the warm start's warp: one level at input resolution, batch 8, on
@@ -2509,6 +2919,8 @@ def main() -> int:
         cli_c_row = cli_train_flownet_c(work)
         bf16_train = train_corr_model("flownet_c", work, "bfloat16")
         cli_bf16_row = cli_train_flownet_c_bf16(work)
+        repeat_flownet_cs(work)
+        sintel_row = cli_sintel(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -2540,6 +2952,12 @@ def main() -> int:
         for t, r in tiers_row["tiers"].items()})
     corr_by_path["corr"]["serve_stream"] = stream_row["corr_launches"]
     by_path["fwd"]["serve_stream"] = stream_row["warp_fwd_launches"]
+    # this slice's path: the Sintel volumes from the command line
+    for route, r in sintel_row["routes"].items():
+        by_path["fwd"][f"cli_sintel_{route}"] = r["warp_fwd_launches"]
+        by_path["flow_grad"][f"cli_sintel_{route}"] = \
+            r["warp_flow_grad_launches"]
+    by_path["fwd"]["cli_sintel_eval"] = sintel_row["eval"]["warp_fwd_launches"]
     main_path = cli_c_row["launches"]["train"]
     # the bf16 kernels' main path: FlowNet-C's `train` in bf16 compute
     bf16_path = cli_bf16_row["launches"]["train"]
@@ -2627,6 +3045,15 @@ def main() -> int:
                 "ms", "ms_runs", "call_ms", "plain_ms", "library_ms",
                 "library_ms_runs", "bound_ms")}}
                 for w, r in zip(warp_rows, rows)],
+            "volume_shape": {
+                "shape": [r["shape"] for r in volume["levels"]],
+                "launches": by_path[key]["cli_sintel_cached"],
+                "steps": SINTEL_STEPS,
+                "bitwise_equal": volume[key]["bitwise_equal"],
+                **{k: volume[key][k] for k in (
+                    "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by",
+                    "smooth_flow_ms")}},
             **({"serve_shape": {
                 "shape": serve_warp["shape"],
                 "launches": stream_row["warp_fwd_launches"],

@@ -7,20 +7,22 @@ Usage:
     python -m deepof_tpu_torch eval --model flownet_s --data-path /data/fc \
         --log-dir /runs/fc1                       # newest checkpoint
     python -m deepof_tpu_torch predict --model flownet_s --log-dir /runs/fc1 \
-        --pairs a.ppm:b.ppm --out /tmp/flows \
+        --pairs a.png:b.png --out /tmp/flows \
         --set "serve.precisions=('f32','int8')" --precision int8
+    python -m deepof_tpu_torch train --preset sintel --model flownet_s \
+        --data-path /data/MPI-Sintel --set train.dump_visuals=true
     python -m deepof_tpu_torch config --preset sintel
 
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
 `--data-path`, `--log-dir`, `--set section.field=value` (any config
 field), `--synthetic` (the synthetic dataset at 64x64, batch 8),
-`--epochs`, `--max-steps`/`--steps`, `--pairs prev:next`, `--out`,
-`--precision` (a tier of `serve.precisions`). A
-train run in a log dir that holds checkpoints resumes from the newest
-one. `--device {cuda,cpu}` (default cuda) is this package's own; it
-takes the place of JAX_PLATFORMS. Without a card, cuda raises: nothing
-falls back to the CPU. The JAX package's other flags raise, naming the
-ROADMAP item that ports them.
+`--epochs`, `--max-steps`/`--steps`, `--dump-visuals` (eval),
+`--pairs prev:next`, `--out`, `--no-png` (predict), `--precision` (a
+tier of `serve.precisions`). A train run in a log dir that holds
+checkpoints resumes from the newest one. `--device {cuda,cpu}` (default
+cuda) is this package's own; it takes the place of JAX_PLATFORMS.
+Without a card, cuda raises: nothing falls back to the CPU. The JAX
+package's other flags raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ _UNPORTED_FLAGS = {
     "--profile": "11 (observability tail)",
     "--profile-steps": "11 (observability tail)",
     "--trace": "11 (observability tail)",
-    "--dump-visuals": "6 (visuals need a PNG writer)",
 }
 
 
@@ -137,7 +138,10 @@ def main(argv=None) -> int:
 
     p_eval = sub.add_parser("eval", help="evaluate the newest checkpoint")
     _add_common(p_eval)
-    _add_unported(p_eval, "--dump-visuals")
+    p_eval.add_argument("--dump-visuals", action="store_true",
+                        help="write the first val batch's flow colours, "
+                             "reconstruction and ground truth as PNGs "
+                             "under <log-dir>/visuals")
 
     p_pred = sub.add_parser(
         "predict", help="run the newest checkpoint on image pairs; write "
@@ -145,8 +149,11 @@ def main(argv=None) -> int:
     _add_common(p_pred)
     p_pred.add_argument("--pairs", nargs="+", required=True,
                         metavar="PREV:NEXT",
-                        help=".npy or .ppm path pairs, colon-separated")
+                        help="image path pairs (PNG, JPEG, PPM or a .npy "
+                             "BGR array), colon-separated")
     p_pred.add_argument("--out", required=True, help="output directory")
+    p_pred.add_argument("--no-png", action="store_true",
+                        help="write only the .flo, not its flow-colour PNG")
     p_pred.add_argument("--precision", default=None,
                         choices=("f32", "bf16", "int8"),
                         help="serving precision tier, one of "
@@ -180,7 +187,8 @@ def main(argv=None) -> int:
         model = restore_params(cfg, device=args.device)
         written = predict_pairs(cfg, pairs, args.out, model=model,
                                 device=args.device,
-                                precision=args.precision)
+                                precision=args.precision,
+                                write_png=not args.no_png)
         print(json.dumps({"written": written}))
         return 0
 
@@ -190,6 +198,6 @@ def main(argv=None) -> int:
     if args.cmd == "train":
         out = trainer.fit(num_epochs=args.epochs, max_steps=args.max_steps)
     else:  # eval
-        out = trainer.evaluate()
+        out = trainer.evaluate(dump=args.dump_visuals)
     print(json.dumps({k: float(v) for k, v in out.items()}))
     return 0

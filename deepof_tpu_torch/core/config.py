@@ -6,11 +6,10 @@ written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
 Those are settings of the mesh, observability, compilation and the
-serving fleet, and of datasets that raise here (Sintel). Settings that
-change what the training path computes are carried, and where this
-package cannot honour a value yet, `check_trainable` raises on it,
-naming the ROADMAP item that ports it (`train.vgg16_npz`, `recipe`,
-`resilience.faults` among them).
+serving fleet. Settings that change what the training path computes are
+carried, and where this package cannot honour a value yet,
+`check_trainable` raises on it, naming the ROADMAP item that ports it
+(`train.vgg16_npz`, `recipe`, `resilience.faults` among them).
 """
 
 from __future__ import annotations
@@ -73,7 +72,13 @@ class DataConfig:
     image_size: tuple[int, int] = (384, 512)  # (H, W) network input
     gt_size: tuple[int, int] = (384, 512)  # native ground-truth resolution
     batch_size: int = 4
-    time_step: int = 2  # frames per sample
+    time_step: int = 2  # frames per sample; Sintel volumes use 10
+    sintel_pass: str = "final"  # clean | final
+    # Gen-1 Sintel pair-mode split: path to Sintel_train_val.txt, one
+    # line per consecutive frame pair over sorted clips x sorted frames
+    # ("1" = train, "2" = val). Requires time_step=2; None keeps the
+    # window-membership split.
+    sintel_pair_split_file: str | None = None
     # host-side augmentation streams (not ported)
     augment_geo: bool = False
     augment_photo: bool = False
@@ -109,7 +114,9 @@ class TrainConfig:
     # roll back to the last checkpoint on divergence; never save a
     # non-finite state
     nan_guard: bool = True
-    dump_visuals: bool = False  # needs a PNG writer (not ported)
+    # write flow-colour, reconstruction and ground-truth PNGs of the
+    # first val batch of each eval under <log_dir>/visuals
+    dump_visuals: bool = False
     # another run's log_dir: on a fresh start, copy its parameters of
     # matching name and shape
     init_from: str = ""
@@ -398,9 +405,6 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     if cfg.optim.grad_accum > 1:
         todo.append((f"optim.grad_accum={cfg.optim.grad_accum}",
                      "6 (training loop)"))
-    if cfg.data.time_step != 2:
-        todo.append((f"data.time_step={cfg.data.time_step}",
-                     "9 (multi-frame volume loss)"))
     if cfg.data.augment_geo or cfg.data.augment_photo:
         todo.append(("data.augment_geo/augment_photo", "9 (augmentation)"))
     if cfg.train.vgg16_npz:
@@ -409,10 +413,16 @@ def check_trainable(cfg: ExperimentConfig) -> None:
         todo.append(("recipe", "9 (recipes)"))
     if cfg.resilience.faults != FaultConfig():
         todo.append(("resilience.faults", "6 (fault injection)"))
-    if cfg.train.dump_visuals:
-        todo.append(("train.dump_visuals=True",
-                     "6 (visuals need a PNG writer)"))
     raise_unported(todo)
+    if cfg.data.time_step != 2 and cfg.model in ("flownet_c", "flownet_cs"):
+        # the JAX package breaks there too: FlowNetC's siamese conv1 is
+        # built for one 3-channel frame (flax ScopeParamShapeError at
+        # init), FlowNetCS raises ValueError
+        raise ValueError(
+            f"model {cfg.model!r} is a two-frame model (one 3-channel frame "
+            f"a branch); data.time_step={cfg.data.time_step} gives a "
+            f"{3 * cfg.data.time_step}-channel volume. Multi-frame volumes "
+            "train flownet_s")
     if cfg.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown train.compute_dtype "
                          f"{cfg.train.compute_dtype!r}; one of "

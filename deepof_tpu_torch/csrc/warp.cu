@@ -27,10 +27,11 @@
 // The gradient is zero through floor and through the clipped indices,
 // the a.e. derivative XLA's autodiff gives; it needs no scatter.
 //
-// The forward rounds every product and sum where the plain PyTorch
-// version (ops/warp.py::backward_warp_reference) does, in the same order,
-// and contracts nothing into a fused multiply-add, so the two agree
-// bitwise. That matters: the loss's Charbonnier gradient goes as
+// Both kernels round every product and sum where their plain PyTorch
+// versions (ops/warp.py::backward_warp_reference and
+// ::warp_flow_grad_reference, channels summed in ascending order) do, in
+// the same order, and contract nothing into a fused multiply-add, so
+// each agrees with its plain version bitwise. That matters: the loss's Charbonnier gradient goes as
 // |x|^-0.5 of x = 255 (warped - source), a difference of nearly equal
 // numbers at some pixels, and amplifies any rounding difference of the
 // warped image into the model's gradients.
@@ -205,13 +206,19 @@ __device__ __forceinline__ float blend(const float (&q)[4], const Tap& tp) {
                    __fmul_rn(__fmul_rn(q[3], tp.wx), tp.wy));
 }
 
-// the flow cotangent's terms of one channel, accumulated (the gradient
-// may contract into fused multiply-adds)
+// the flow cotangent's terms of one channel, added to du and dv; each
+// product and sum rounded on its own (no fused multiply-add), in the
+// order of the plain version (ops/warp.py::warp_flow_grad_reference)
 __device__ __forceinline__ void accumulate(const float (&q)[4], float g,
                                            const Tap& tp, float& du,
                                            float& dv) {
-  du += g * ((1.f - tp.wy) * (q[1] - q[0]) + tp.wy * (q[3] - q[2]));
-  dv += g * ((1.f - tp.wx) * (q[2] - q[0]) + tp.wx * (q[3] - q[1]));
+  const float omx = __fsub_rn(1.f, tp.wx), omy = __fsub_rn(1.f, tp.wy);
+  du = __fadd_rn(du, __fmul_rn(g, __fadd_rn(
+                         __fmul_rn(omy, __fsub_rn(q[1], q[0])),
+                         __fmul_rn(tp.wy, __fsub_rn(q[3], q[2])))));
+  dv = __fadd_rn(dv, __fmul_rn(g, __fadd_rn(
+                         __fmul_rn(omx, __fsub_rn(q[2], q[0])),
+                         __fmul_rn(tp.wx, __fsub_rn(q[3], q[1])))));
 }
 
 // kC = 3: the training loss's images, every gather of the thread loaded

@@ -1,5 +1,6 @@
-"""Dataset constants, the host-side resize, the FlyingChairs loader and
-the procedural dataset (subset of `deepof_tpu/data/datasets.py`).
+"""Dataset constants, the host-side resize, the FlyingChairs and
+MPI-Sintel loaders and the procedural dataset (subset of
+`deepof_tpu/data/datasets.py`).
 
 The JAX package resizes with cv2's INTER_LINEAR. This package has no
 cv2: `_resize` is PyTorch's bilinear interpolation with half-pixel
@@ -10,10 +11,18 @@ PyTorch's bicubic filter in place of cv2's INTER_CUBIC (the same
 a = -0.75 kernel with half-pixel centres; they agree to ~1e-4 grey
 levels).
 
-FlyingChairs frames are binary PPMs, read in numpy (`io/ppm.py`, BGR as
-cv2.imread gives them); flows are `.flo` files (`io/flo.py`). Still to
-port (ROADMAP Queue A item 5): the Sintel and UCF-101 loaders, which
-need a PNG/JPEG decoder; `build_dataset` raises for them.
+Decoding, two routes as in the JAX package:
+  - cached (`data.cache_decoded=True`): each frame is decoded at its own
+    size into a byte-bounded LRU, then `_resize`d. FlyingChairs' PPMs
+    are read in numpy (`io/ppm.py`); other frames by the native decoder
+    (`deepof_tpu_torch.native`, the JAX package's C++ copied), or, for a
+    PNG when that build has no PNG codec, by `io/png.py`;
+  - streaming (`data.cache_decoded=False`): a whole batch is decoded by
+    the native decoder's thread pool with its fused bilinear resize
+    (`resize_bilinear_bgr`), and the `.flo` files read there too.
+A failed decode raises. Flows are `.flo` files (`io/flo.py`). Still to
+port: the UCF-101 loader (ROADMAP Queue A item 9, with the two-stream
+models that read it); `build_dataset` raises for it.
 """
 
 from __future__ import annotations
@@ -27,8 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import native
 from ..core.config import DataConfig
 from ..io.flo import read_flo
+from ..io.png import SIGNATURE as PNG_SIGNATURE
+from ..io.png import read_png_bgr
 from ..io.ppm import read_ppm_bgr
 
 FLYINGCHAIRS_MEAN = (97.533, 99.238, 97.056)  # BGR
@@ -41,6 +53,21 @@ DATASET_MEANS = {
     "ucf101": UCF101_MEAN,
     "synthetic": (0.0, 0.0, 0.0),
 }
+
+
+def _imread_bgr(path: str) -> np.ndarray:
+    """A PPM, PNG or JPEG file at its own size -> (H, W, 3) uint8 BGR,
+    as cv2.imread(path, IMREAD_COLOR) gives it: the native decoder when
+    its build has the file's codec, `io/png.py` for a PNG when it has no
+    PNG codec; OSError naming the codecs otherwise."""
+    if native.image_supported(path):
+        return native.imread_bgr(path)
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head == PNG_SIGNATURE:
+        return read_png_bgr(path)
+    raise OSError(f"{path}: no decoder for this file; the native decoder "
+                  f"has {sorted(native.codecs())}")
 
 
 def _resize(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
@@ -123,7 +150,8 @@ class FlyingChairsData:
     (one marker per sample, 1 = train, 2 = val) in the data directory or
     its parent; without it, the last min(640, 10%) samples (at least
     one) are val. Batches are sequential (`iteration`) or random
-    (`rng`)."""
+    (`rng`). With `cfg.cache_decoded` False a batch is decoded whole by
+    the native decoder (streaming mode)."""
 
     mean = FLYINGCHAIRS_MEAN
 
@@ -150,6 +178,7 @@ class FlyingChairsData:
         self._root = root
         self._cache = _DecodedCache(cfg.cache_decoded, read_ppm_bgr,
                                     max_bytes=cfg.cache_bytes)
+        self._flo_hw: tuple[int, int] | None = None  # streaming probe
 
     def _load(self, sid: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         p = os.path.join(self._root, sid)
@@ -157,7 +186,23 @@ class FlyingChairsData:
         tgt = _resize(self._cache(p + "_img2.ppm"), self.cfg.image_size)
         return src, tgt, read_flo(p + "_flow.flo")
 
+    def _native_batch(self, sids: list[str]) -> dict:
+        """Streaming mode: the batch's PPMs decoded and resized, and its
+        `.flo` files read, on the native decoder's thread pool."""
+        paths = [os.path.join(self._root, s) for s in sids]
+        if self._flo_hw is None:
+            self._flo_hw = native.flo_dims(paths[0] + "_flow.flo")
+        imgs = native.decode_image_batch(
+            [p + sfx for sfx in ("_img1.ppm", "_img2.ppm") for p in paths],
+            self.cfg.image_size)
+        flows = native.read_flo_batch([p + "_flow.flo" for p in paths],
+                                      self._flo_hw)
+        n = len(paths)
+        return {"source": imgs[:n], "target": imgs[n:], "flow": flows}
+
     def _batch(self, sids: list[str]) -> dict:
+        if not self.cfg.cache_decoded:
+            return self._native_batch(sids)
         srcs, tgts, flows = zip(*(self._load(s) for s in sids))
         return {
             "source": np.stack(srcs).astype(np.float32),
@@ -186,6 +231,160 @@ class FlyingChairsData:
         sids = [self.val_ids[(start + k) % self.num_val]
                 for k in range(batch_size)]
         return self._batch(sids)
+
+    def cache_stats(self) -> dict:
+        return self._cache.stats()
+
+
+class SintelData:
+    """MPI-Sintel T-frame sliding-window volumes.
+
+    Layout: `training/<pass>/<clip>/frame_XXXX.png` and
+    `training/flow/<clip>/frame_XXXX.flo` under `cfg.data_path`. Every
+    window of `time_step` consecutive frames of a clip is a sample. A
+    batch is {"volume": (B, H, W, 3T) float32, the frames stacked
+    frame-major, BGR within each, "flow": (B, H_gt, W_gt, 2(T-1)), the
+    T-1 flows at their native resolution, (u, v) per pair}. Train draws
+    are randomly cropped to `cfg.crop_size`; val draws are not.
+
+    Val is the first window of each clip in sorted-clip order, plus one
+    more `bamboo_2` window that starts at frame `time_step`; with
+    `cfg.sintel_pair_split_file` (time_step 2 only) the k-th line labels
+    the k-th consecutive pair instead ("1" train, "2" val).
+
+    `decode_route` names how frames are decoded: "native" (own size,
+    cached, then `_resize`), "python-png" (the same with `io/png.py`,
+    when the native build has no PNG codec) or, with
+    `cfg.cache_decoded` False and a PNG codec, "native-batch" (a whole
+    batch on the decoder's thread pool with its fused resize)."""
+
+    mean = SINTEL_MEAN
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        self.t = cfg.time_step
+        if cfg.sintel_pair_split_file is not None and self.t != 2:
+            raise ValueError(
+                "data.sintel_pair_split_file is the gen-1 PAIR split "
+                "(`version1/loader/sintelLoader.py:38-70`) and requires "
+                f"time_step=2; got time_step={self.t}")
+        img_root = os.path.join(cfg.data_path, "training", cfg.sintel_pass)
+        flow_root = os.path.join(cfg.data_path, "training", "flow")
+        self.windows: list[list[str]] = []  # absolute frame paths
+        self.flow_windows: list[list[str]] = []
+        val: list[int] = []
+        for clip in sorted(os.listdir(img_root)):
+            frames = sorted(os.path.join(img_root, clip, f)
+                            for f in os.listdir(os.path.join(img_root, clip))
+                            if f.endswith(".png"))
+            flows = sorted(os.path.join(flow_root, clip, f)
+                           for f in os.listdir(os.path.join(flow_root, clip))
+                           if f.endswith(".flo"))
+            clip_start = len(self.windows)
+            n_windows = len(frames) - self.t + 1
+            for k in range(n_windows):
+                self.windows.append(frames[k:k + self.t])
+                self.flow_windows.append(flows[k:k + self.t - 1])
+            if n_windows > 0:
+                val.append(clip_start)
+            if clip == "bamboo_2" and n_windows > self.t:
+                val.append(clip_start + self.t)
+        if cfg.sintel_pair_split_file is not None:
+            with open(cfg.sintel_pair_split_file) as sf:
+                labels = [ln.strip()[:1] for ln in sf if ln.strip()]
+            if len(labels) != len(self.windows):
+                raise ValueError(
+                    f"pair split file {cfg.sintel_pair_split_file!r} has "
+                    f"{len(labels)} entries but the dataset has "
+                    f"{len(self.windows)} consecutive pairs")
+            bad = sorted(set(labels) - {"1", "2"})
+            if bad:
+                raise ValueError(
+                    f"pair split file {cfg.sintel_pair_split_file!r} has "
+                    f"entries {bad}; expected '1' (train) or '2' (val)")
+            val = [i for i, c in enumerate(labels) if c == "2"]
+        self.val_idx = val
+        val_set = set(val)
+        self.train_idx = [i for i in range(len(self.windows))
+                          if i not in val_set]
+        self.num_train, self.num_val = len(self.train_idx), len(self.val_idx)
+        has_png = "png" in native.codecs()
+        if not has_png:
+            self.decode_route = "python-png"
+        elif cfg.cache_decoded:
+            self.decode_route = "native"
+        else:
+            self.decode_route = "native-batch"
+        self._cache = _DecodedCache(
+            cfg.cache_decoded, native.imread_bgr if has_png else read_png_bgr,
+            max_bytes=cfg.cache_bytes)
+        self._flo_hw: tuple[int, int] | None = None  # streaming probe
+
+    def _crop_origin(self, rng: np.random.RandomState, h: int, w: int
+                     ) -> tuple[int, int]:
+        ch, cw = self.cfg.crop_size
+        y = rng.randint(0, h - ch + 1)
+        x = rng.randint(0, w - cw + 1)
+        return y, x
+
+    def _window(self, i: int, crop_rng) -> tuple[np.ndarray, np.ndarray]:
+        imgs = [_resize(self._cache(p), self.cfg.image_size)
+                for p in self.windows[i]]
+        vol = np.concatenate(imgs, axis=-1).astype(np.float32)  # (H,W,3T)
+        if crop_rng is not None and self.cfg.crop_size is not None:
+            y, x = self._crop_origin(crop_rng, *vol.shape[:2])
+            ch, cw = self.cfg.crop_size
+            vol = vol[y:y + ch, x:x + cw]
+        flows = np.concatenate([read_flo(p) for p in self.flow_windows[i]],
+                               axis=-1).astype(np.float32)
+        return vol, flows
+
+    def _native_batch(self, idxs, crop_rng) -> dict:
+        """Streaming mode: the batch's frames decoded with the fused
+        resize and its `.flo` files read on the native decoder's thread
+        pool; the crops draw from `crop_rng` in `_window`'s order."""
+        t, b = self.t, len(idxs)
+        h, w = self.cfg.image_size
+        imgs = native.decode_image_batch(
+            [p for i in idxs for p in self.windows[i]], (h, w))
+        flow_paths = [p for i in idxs for p in self.flow_windows[i]]
+        if self._flo_hw is None:
+            self._flo_hw = native.flo_dims(flow_paths[0])
+        fh, fw = self._flo_hw
+        flo = native.read_flo_batch(flow_paths, (fh, fw))
+        # each window's T frames stacked on channels, frame-major
+        vols = (imgs.reshape(b, t, h, w, 3).transpose(0, 2, 3, 1, 4)
+                .reshape(b, h, w, 3 * t))
+        if crop_rng is not None and self.cfg.crop_size is not None:
+            ch, cw = self.cfg.crop_size
+            out = np.empty((b, ch, cw, 3 * t), np.float32)
+            for k in range(b):
+                y, x = self._crop_origin(crop_rng, h, w)
+                out[k] = vols[k, y:y + ch, x:x + cw]
+            vols = out
+        flows = (flo.reshape(b, t - 1, fh, fw, 2).transpose(0, 2, 3, 1, 4)
+                 .reshape(b, fh, fw, 2 * (t - 1)))
+        return {"volume": vols, "flow": flows}
+
+    def _batch(self, idxs, crop_rng=None) -> dict:
+        if self.decode_route == "native-batch":
+            return self._native_batch(idxs, crop_rng)
+        vols, flows = zip(*(self._window(i, crop_rng) for i in idxs))
+        return {"volume": np.stack(vols), "flow": np.stack(flows)}
+
+    def sample_train(self, batch_size, iteration=None, rng=None):
+        # windows have no sequential mode: `iteration` seeds the draw
+        if rng is None:
+            rng = np.random.RandomState(iteration)  # None: OS entropy
+        idxs = [self.train_idx[i]
+                for i in rng.randint(0, self.num_train, batch_size)]
+        return self._batch(idxs, crop_rng=rng)
+
+    def sample_val(self, batch_size, batch_id):
+        start = (batch_id * batch_size) % max(self.num_val, 1)
+        idxs = [self.val_idx[(start + k) % self.num_val]
+                for k in range(batch_size)]
+        return self._batch(idxs)
 
     def cache_stats(self) -> dict:
         return self._cache.stats()
@@ -296,14 +495,17 @@ class SyntheticData:
 
 
 def build_dataset(cfg: DataConfig):
-    """The dataset `cfg.dataset` names ("synthetic" or "flyingchairs")."""
+    """The dataset `cfg.dataset` names ("synthetic", "flyingchairs" or
+    "sintel")."""
     if cfg.dataset == "synthetic":
         return SyntheticData(cfg)
     if cfg.dataset == "flyingchairs":
         return FlyingChairsData(cfg)
-    if cfg.dataset in ("sintel", "ucf101"):
+    if cfg.dataset == "sintel":
+        return SintelData(cfg)
+    if cfg.dataset == "ucf101":
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported to deepof_tpu_torch "
-            "yet: ROADMAP Queue A item 5 (data path: the Sintel and "
-            "UCF-101 loaders need a PNG/JPEG decoder)")
+            "dataset 'ucf101' is not ported to deepof_tpu_torch yet: "
+            "ROADMAP Queue A item 9 (the UCF-101 loader, with the "
+            "two-stream models and evaluate_ucf101 that read it)")
     raise KeyError(f"unknown dataset {cfg.dataset!r}")

@@ -1,9 +1,10 @@
-"""Two-frame photometric + smoothness loss at one pyramid scale (port of
-the default branch of `deepof_tpu/losses/photometric.py::loss_interp`:
+"""Photometric + smoothness loss at one pyramid scale (port of the
+default branch of `deepof_tpu/losses/photometric.py::loss_interp`:
 Charbonnier photometric term, canonical smoothness of order 1 or 2, an
-optional border mask on the smoothness term, no occlusion). Tensors are
-NHWC, as in the JAX package. Loss dict keys mirror the reference:
-total / Charbonnier_reconstruct / U_loss / V_loss, plus smooth = U + V.
+optional border mask on the smoothness term, no occlusion; and of
+`loss_interp_multi`, its T-frame volume form). Tensors are NHWC, as in
+the JAX package. Loss dict keys mirror the reference: total /
+Charbonnier_reconstruct / U_loss / V_loss, plus smooth = U + V.
 
 Kept exactly, for numeric parity (F5):
   - the Charbonnier normaliser is the count of border-mask-interior
@@ -25,7 +26,7 @@ import torch
 from ..core.config import LossConfig
 from ..ops.smoothness import (forward_diff_x, forward_diff_y, second_diff_x,
                               second_diff_y)
-from ..ops.warp import backward_warp
+from ..ops.warp import backward_warp, backward_warp_volume
 
 LossDict = dict[str, Any]
 
@@ -126,6 +127,88 @@ def loss_interp(flow: torch.Tensor, inputs: torch.Tensor,
     v_loss = charbonnier(dv, cfg.epsilon, cfg.alpha_s).sum() / num_valid
     u_loss = u_loss * level_on
     v_loss = v_loss * level_on
+    total = photo + cfg.lambda_smooth * (u_loss + v_loss)
+    return ({"total": total, "Charbonnier_reconstruct": photo,
+             "U_loss": u_loss, "V_loss": v_loss, "smooth": u_loss + v_loss},
+            recon)
+
+
+def check_loss_multi(cfg: LossConfig) -> None:
+    """Raise on the settings the volume loss cannot honour, as the JAX
+    package's `loss_interp_multi` does (`photometric.py:345-365`), and
+    on census, which is not ported."""
+    if cfg.edge_aware_photo:
+        raise ValueError(
+            "loss.edge_aware_photo is two-frame only (the reference's "
+            "needImageGradients exists only in the vgg 2-frame variant); "
+            "the multi-frame volume loss would silently skip it")
+    if cfg.edge_aware:
+        raise ValueError(
+            "loss.edge_aware is two-frame depthwise only "
+            "(`version1/model/warpflow.py:93-157`); the multi-frame volume "
+            "loss would silently skip the Sobel smoothness weighting")
+    if cfg.occlusion:
+        raise ValueError(
+            "loss.occlusion=true is unsupported by the multi-frame volume "
+            "loss (no backward flows per pair); the masking would be "
+            "silently skipped")
+    if cfg.smoothness != "canonical":
+        raise ValueError(
+            f"loss.smoothness={cfg.smoothness!r} is unsupported by the "
+            "multi-frame volume loss, whose per-pair smoothness shape is "
+            "fixed by the reference (`sintelWrapFlow.py:565-600`); use "
+            "'canonical'")
+    if cfg.photometric == "census":
+        raise NotImplementedError(
+            "loss.photometric='census' in the multi-frame volume loss is "
+            "not ported to deepof_tpu_torch yet: ROADMAP Queue A item 9 "
+            "(loss variants)")
+
+
+def loss_interp_multi(flows: torch.Tensor, volume: torch.Tensor,
+                      flow_scale: float, cfg: LossConfig,
+                      scaled: torch.Tensor | None = None,
+                      recon: torch.Tensor | None = None
+                      ) -> tuple[LossDict, torch.Tensor]:
+    """T-frame volume loss at one scale. flows: (B, h, w, 2(T-1)) raw
+    head output, (u, v) per pair; volume: (B, h, w, 3T) LRN-normalised
+    frames, stacked frame-major. Frame t is reconstructed from frame t+1
+    with flow pair t; the Charbonnier photometric term covers all T-1
+    reconstructions, and each pair's U (x-difference) and V
+    (y-difference) smoothness has the border mask applied before the
+    power. Every term is normalised by B * 3 * (T-1) * interior.
+    Returns (loss dict, reconstructions (B, h, w, 3(T-1))). `cfg` is
+    taken as checked (`check_loss_multi`).
+
+    `scaled` (flows * flow_scale) and `recon` (the volume warped by it)
+    are computed here unless given: `pyramid_loss_multi` warps every
+    level in one launch and passes both."""
+    b, h, w, c3t = volume.shape
+    t = c3t // 3
+    if scaled is None:
+        scaled = flows * flow_scale
+    if recon is None:
+        recon = backward_warp_volume(volume, scaled, impl=cfg.warp_impl)
+
+    bmask = border_mask(h, w, cfg.border_ratio, device=volume.device)
+    bw = _border_width(h, cfg.border_ratio)
+    n_interior = max(h - 2 * bw, 0) * max(w - 2 * bw, 0)  # sum of bmask
+    level_on = 1.0 if n_interior > 0 else 0.0
+    num_valid = max(b * 3 * (t - 1) * n_interior, 1.0)
+    bflow = bmask[None, :, :, None]
+
+    diff = 255.0 * (recon - volume[..., :3 * (t - 1)])
+    photo = (charbonnier(diff, cfg.epsilon, cfg.alpha_c) * bflow).sum() \
+        / num_valid
+
+    sflow = scaled if cfg.smooth_scaled_flow else flows
+    diff_x, diff_y, mx, my = _smoothness_diffs(cfg, h, w, volume.device)
+    du = diff_x(sflow[..., 0::2]) * mx * bflow  # (B, h, w, T-1)
+    dv = diff_y(sflow[..., 1::2]) * my * bflow
+    u_loss = charbonnier(du, cfg.epsilon, cfg.alpha_s).sum() / num_valid \
+        * level_on
+    v_loss = charbonnier(dv, cfg.epsilon, cfg.alpha_s).sum() / num_valid \
+        * level_on
     total = photo + cfg.lambda_smooth * (u_loss + v_loss)
     return ({"total": total, "Charbonnier_reconstruct": photo,
              "U_loss": u_loss, "V_loss": v_loss, "smooth": u_loss + v_loss},

@@ -1,12 +1,14 @@
 """Multi-scale pyramid loss (port of `deepof_tpu/losses/pyramid.py`,
-two-frame, without the backward-flow pyramid of the occlusion option).
+without the backward-flow pyramid of the occlusion option): the
+two-frame `pyramid_loss` and the T-frame volume `pyramid_loss_multi`.
 
   - preprocessing: BGR dataset-mean subtraction and /255 scaling, and the
     LRN copy used only inside the photometric loss;
   - resizing the LRN images to every pyramid level;
   - the warp of every level's resized next frame by its scaled flow, in
     one call (`backward_warp_levels`: one launch of each kernel on the
-    card);
+    card); for a volume, of every level's T-1 next frames, folded into
+    the batch (`ops/warp.py::fold_pairs`), in that same one call;
   - per-level `loss_interp` and the weighted total, weights finest first.
 
 The resize is `jax.image.resize(..., "bilinear")`, whose default is
@@ -23,8 +25,9 @@ import torch.nn.functional as F
 
 from ..core.config import LossConfig, check_loss
 from ..ops.lrn import local_response_normalization
-from ..ops.warp import backward_warp_levels
-from .photometric import LossDict, loss_interp
+from ..ops.warp import backward_warp_levels, fold_pairs, unfold_pairs
+from .photometric import (LossDict, check_loss_multi, loss_interp,
+                          loss_interp_multi)
 
 
 def preprocess(images: torch.Tensor, mean) -> torch.Tensor:
@@ -72,3 +75,37 @@ def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
         weight = cfg.weights[k] if k < len(cfg.weights) else cfg.weights[-1]
         total = total + weight * ld["total"]
     return total, losses, recons[0]
+
+
+def pyramid_loss_multi(flow_pyramid: list[tuple[torch.Tensor, float]],
+                       volume_norm: torch.Tensor, cfg: LossConfig
+                       ) -> tuple[torch.Tensor, list[LossDict], torch.Tensor]:
+    """The T-frame volume pyramid loss. flow_pyramid: [(flows_k
+    (B, h, w, 2(T-1)), flow_scale_k)] finest first; volume_norm:
+    (B, H, W, 3T) LRN-normalised frames, resized (with antialiasing) to
+    each level. Every level's T-1 frame pairs are warped in one call of
+    `backward_warp_levels`. Returns (weighted total, per-level loss
+    dicts finest first, finest reconstructions (B, h, w, 3(T-1)))."""
+    check_loss_multi(cfg)  # the JAX package's ValueErrors first
+    check_loss(cfg)
+    b = volume_norm.shape[0]
+    vols = [_resize(volume_norm, *flow.shape[1:3])
+            for flow, _ in flow_pyramid]
+    scaled = [flow * scale for flow, scale in flow_pyramid]
+    folded = [fold_pairs(v, s) for v, s in zip(vols, scaled)]
+    recons = backward_warp_levels([nxt for nxt, _ in folded],
+                                  [flw for _, flw in folded],
+                                  impl=cfg.warp_impl)
+    losses: list[LossDict] = []
+    total = torch.zeros((), device=volume_norm.device)
+    recon_finest = None
+    for k, (flow, scale) in enumerate(flow_pyramid):
+        recon = unfold_pairs(recons[k], b)
+        ld, _ = loss_interp_multi(flow, vols[k], scale, cfg,
+                                  scaled=scaled[k], recon=recon)
+        losses.append(ld)
+        if k == 0:
+            recon_finest = recon
+        weight = cfg.weights[k] if k < len(cfg.weights) else cfg.weights[-1]
+        total = total + weight * ld["total"]
+    return total, losses, recon_finest

@@ -49,11 +49,31 @@ def refinement_inputs(img1: torch.Tensor, img2: torch.Tensor,
                       err.to(dtype)], dim=1)
 
 
+def _up2(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bilinear x2 along `dim` with half-pixel centres and the edge
+    clamped: output 2i is 0.75 x[i] + 0.25 x[i-1], output 2i+1 is
+    0.75 x[i] + 0.25 x[i+1]. Slices, concatenations and elementwise
+    products only, so its backward adds in a fixed order."""
+    n = x.shape[dim]
+    prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    return torch.stack([0.75 * x + 0.25 * prev, 0.75 * x + 0.25 * nxt],
+                       dim + 1).flatten(dim, dim + 1)
+
+
 def upsample_flow(flow: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """The base stage's finest flow (B, 2, h, w), in its own pixels, at
-    input resolution `hw` in input pixels: bilinear x2 with half-pixel
+    input resolution `hw` in input pixels: bilinear with half-pixel
     centres, vectors times 2. `jax.image.resize` antialiases only when it
-    shrinks, so this matches it (F2)."""
+    shrinks, so this matches it (F2).
+
+    At exactly twice the size (every even input) the upsample is written
+    out with fixed weights (`_up2`): `F.interpolate`'s CUDA backward adds
+    with atomics, so a FlowNet-CS step through it is not bitwise
+    repeatable (F15)."""
+    h, w = flow.shape[-2:]
+    if tuple(hw) == (2 * h, 2 * w):
+        return _up2(_up2(flow, 2), 3) * 2.0
     return F.interpolate(flow, size=hw, mode="bilinear",
                          align_corners=False) * 2.0
 

@@ -16,8 +16,10 @@ every level of the pyramid loss at once; `backward_warp` (NHWC) and
 `torch.autograd.Function`, `BackwardWarpLevels`: on CUDA tensors its
 forward launches the warp kernel once for all levels and its backward the
 flow-gradient kernel once (`ops/cuda/warp.py`), on strided views without
-a layout copy; on CPU tensors both run the plain version,
-`backward_warp_reference`, level by level.
+a layout copy; on CPU tensors both run the plain versions,
+`backward_warp_reference` and `warp_flow_grad_reference`, level by level.
+`backward_warp_volume` folds the T-1 frame pairs of a volume into the
+batch, so a volume of any length is one level.
 
 Neighbours are named as in the kernel source (`csrc/warp.cu`):
 Ia = (y0, x0), Ib = (y0, x1), Ic = (y1, x0), Id = (y1, x1).
@@ -28,6 +30,38 @@ from __future__ import annotations
 import torch
 
 from ..core.config import WARP_IMPLS
+
+
+def _taps(image: torch.Tensor, flow: torch.Tensor):
+    """The bilinear taps of the plain version: (ia, ib, ic, id) gathered
+    in float32, (B, C, H, W) each, the weights wx, wy (B, 1, H, W),
+    zeroed on a saturated side, and the saturation masks left, top
+    (B, H, W)."""
+    b, c, h, w = image.shape
+    u, v = flow[:, 0], flow[:, 1]  # (B, H, W)
+    fu, fv = torch.floor(u), torch.floor(v)
+    wx, wy = u - fu, v - fv
+    # clamp in float before the int conversion: a huge, infinite or NaN
+    # flow keeps a valid index and the clipped index does not change
+    fx = fu.nan_to_num(0.0).clamp(-(w + 1), w + 1).to(torch.int64)
+    fy = fv.nan_to_num(0.0).clamp(-(h + 1), h + 1).to(torch.int64)
+    xs = torch.arange(w, device=image.device)[None, None, :] + fx
+    ys = torch.arange(h, device=image.device)[None, :, None] + fy
+    x0 = xs.clamp(0, w - 1)
+    y0 = ys.clamp(0, h - 1)
+    left, top = xs < 0, ys < 0
+    wx = torch.where(left, torch.zeros_like(wx), wx)[:, None]
+    wy = torch.where(top, torch.zeros_like(wy), wy)[:, None]
+
+    img = image.float()
+    img_x = torch.cat([img[..., 1:], img[..., -1:]], dim=3)
+    img_y = torch.cat([img[:, :, 1:], img[:, :, -1:]], dim=2)
+    img_xy = torch.cat([img_x[:, :, 1:], img_x[:, :, -1:]], dim=2)
+    patch = torch.cat([img, img_x, img_y, img_xy], dim=1)  # (B, 4C, H, W)
+    idx = (y0 * w + x0).reshape(b, 1, h * w).expand(b, 4 * c, h * w)
+    g = patch.reshape(b, 4 * c, h * w).gather(2, idx).reshape(b, 4 * c, h, w)
+    ia, ib, ic, id_ = g[:, :c], g[:, c:2 * c], g[:, 2 * c:3 * c], g[:, 3 * c:]
+    return (ia, ib, ic, id_), wx, wy, left, top
 
 
 def backward_warp_reference(image: torch.Tensor,
@@ -41,49 +75,54 @@ def backward_warp_reference(image: torch.Tensor,
     weight at left/top saturation gives the independently clipped value
     and its (zero) flow gradient there. Differentiable by autograd in
     both arguments (zero through floor and the clipped indices)."""
-    b, c, h, w = image.shape
-    u, v = flow[:, 0], flow[:, 1]  # (B, H, W)
-    fu, fv = torch.floor(u), torch.floor(v)
-    wx, wy = u - fu, v - fv
-    # clamp in float before the int conversion: a huge, infinite or NaN
-    # flow keeps a valid index and the clipped index does not change
-    fx = fu.nan_to_num(0.0).clamp(-(w + 1), w + 1).to(torch.int64)
-    fy = fv.nan_to_num(0.0).clamp(-(h + 1), h + 1).to(torch.int64)
-    xs = torch.arange(w, device=image.device)[None, None, :] + fx
-    ys = torch.arange(h, device=image.device)[None, :, None] + fy
-    x0 = xs.clamp(0, w - 1)
-    y0 = ys.clamp(0, h - 1)
-    wx = torch.where(xs < 0, torch.zeros_like(wx), wx)[:, None]
-    wy = torch.where(ys < 0, torch.zeros_like(wy), wy)[:, None]
-
-    img = image.float()
-    img_x = torch.cat([img[..., 1:], img[..., -1:]], dim=3)
-    img_y = torch.cat([img[:, :, 1:], img[:, :, -1:]], dim=2)
-    img_xy = torch.cat([img_x[:, :, 1:], img_x[:, :, -1:]], dim=2)
-    patch = torch.cat([img, img_x, img_y, img_xy], dim=1)  # (B, 4C, H, W)
-    idx = (y0 * w + x0).reshape(b, 1, h * w).expand(b, 4 * c, h * w)
-    g = patch.reshape(b, 4 * c, h * w).gather(2, idx).reshape(b, 4 * c, h, w)
-    ia, ib, ic, id_ = g[:, :c], g[:, c:2 * c], g[:, 2 * c:3 * c], g[:, 3 * c:]
+    (ia, ib, ic, id_), wx, wy, _, _ = _taps(image, flow)
     out = (ia * (1 - wx) * (1 - wy) + ic * (1 - wx) * wy
            + ib * wx * (1 - wy) + id_ * wx * wy)
     return out.to(image.dtype)
 
 
-def _reference_grads(image, flow, g, want_image: bool):
-    """(d image, d flow) of `backward_warp_reference` by autograd."""
+def warp_flow_grad_reference(image: torch.Tensor, flow: torch.Tensor,
+                             g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the flow cotangent: image and cotangent
+    g (B, C, H, W), flow (B, 2, H, W) -> (B, 2, H, W) float32,
+
+      du = sum_c g_c ((1-wy)(Ib-Ia) + wy(Id-Ic))
+      dv = sum_c g_c ((1-wx)(Ic-Ia) + wx(Id-Ib)),
+
+    summed over the channels in ascending order, each product and sum
+    rounded on its own, and exactly 0 on a saturated side: the flow
+    gradient of `backward_warp_reference` (what autograd gives, up to
+    rounding), in the flow-gradient kernel's order of operations, so the
+    two agree bit for bit (F6)."""
+    (ia, ib, ic, id_), wx, wy, left, top = _taps(image, flow)
+    gf = g.float()
+    omx, omy = 1 - wx[:, 0], 1 - wy[:, 0]
+    wx, wy = wx[:, 0], wy[:, 0]
+    du = torch.zeros_like(omx)
+    dv = torch.zeros_like(omx)
+    for c in range(image.shape[1]):
+        du = du + gf[:, c] * (omy * (ib[:, c] - ia[:, c])
+                              + wy * (id_[:, c] - ic[:, c]))
+        dv = dv + gf[:, c] * (omx * (ic[:, c] - ia[:, c])
+                              + wx * (id_[:, c] - ib[:, c]))
+    zero = torch.zeros_like(du)
+    return torch.stack([torch.where(left, zero, du),
+                        torch.where(top, zero, dv)], dim=1)
+
+
+def _image_grad(image, flow, g):
+    """The image cotangent of `backward_warp_reference`, by autograd."""
     with torch.enable_grad():
-        im = image.detach().requires_grad_(want_image)
-        fl = flow.detach().requires_grad_(True)
-        out = backward_warp_reference(im, fl)
-        wrt = (im, fl) if want_image else (fl,)
-        grads = torch.autograd.grad(out, wrt, g)
-    return (grads[0], grads[1]) if want_image else (None, grads[0])
+        im = image.detach().requires_grad_(True)
+        out = backward_warp_reference(im, flow.detach())
+        return torch.autograd.grad(out, im, g)[0]
 
 
 class BackwardWarpLevels(torch.autograd.Function):
     """The warp of up to eight levels with its flow gradients: one launch
     of each CUDA kernel for all levels on CUDA tensors, the plain version
-    level by level on CPU tensors.
+    level by level on CPU tensors (`backward_warp_reference` and
+    `warp_flow_grad_reference`).
 
     `apply(n, image_1, ..., image_n, flow_1, ..., flow_n)` -> the n warped
     images, each (B, C, H_k, W_k) in its image's layout. The tensors are
@@ -121,11 +160,11 @@ class BackwardWarpLevels(torch.autograd.Function):
         cpu = _on_cpu(saved)
         d_image, d_flow = [None] * n, [None] * n
         for k in range(n):
-            if want_image[k] or (cpu and want_flow[k]):
-                d_image[k], df = _reference_grads(images[k], flows[k], gs[k],
-                                                  want_image[k])
-                if cpu and want_flow[k]:
-                    d_flow[k] = df
+            if want_image[k]:
+                d_image[k] = _image_grad(images[k], flows[k], gs[k])
+            if cpu and want_flow[k]:
+                d_flow[k] = warp_flow_grad_reference(images[k], flows[k],
+                                                     gs[k])
         levels = [k for k in range(n) if want_flow[k]]
         if not cpu and levels:
             from .cuda.warp import warp_flow_grad_levels_cuda
@@ -181,3 +220,36 @@ def backward_warp(image: torch.Tensor, flow: torch.Tensor,
     already includes any flow scale; returns (B, H, W, C). The one-level
     case of `backward_warp_levels`."""
     return backward_warp_levels([image], [flow], impl)[0]
+
+
+def fold_pairs(volume: torch.Tensor, flows: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """volume (B, H, W, 3T), flows (B, H, W, 2(T-1)) -> the next frames
+    (B(T-1), H, W, 3) and their flows (B(T-1), H, W, 2), pair t of row b
+    at b(T-1) + t, as the JAX package folds them
+    (`deepof_tpu/ops/warp.py:143-148`)."""
+    b, h, w, c3t = volume.shape
+    t = c3t // 3
+    nxt = (volume.reshape(b, h, w, t, 3)[..., 1:, :].permute(0, 3, 1, 2, 4)
+           .reshape(b * (t - 1), h, w, 3))
+    flw = (flows.reshape(b, h, w, t - 1, 2).permute(0, 3, 1, 2, 4)
+           .reshape(b * (t - 1), h, w, 2))
+    return nxt, flw
+
+
+def unfold_pairs(recon: torch.Tensor, b: int) -> torch.Tensor:
+    """(B(T-1), H, W, 3) warped frames -> (B, H, W, 3(T-1)), pair-major."""
+    n, h, w, c = recon.shape
+    return (recon.reshape(b, n // b, h, w, c).permute(0, 2, 3, 1, 4)
+            .reshape(b, h, w, n // b * c))
+
+
+def backward_warp_volume(volume: torch.Tensor, flows: torch.Tensor,
+                         impl: str = "auto") -> torch.Tensor:
+    """Multi-frame warp: volume (B, H, W, 3T) channel-stacked frames,
+    flows (B, H, W, 2(T-1)), already scaled -> (B, H, W, 3(T-1)): frame
+    t reconstructed from frame t+1 by flow pair t. The pairs fold into
+    the batch, so all T-1 take one launch of each kernel. `impl` as in
+    `backward_warp_nchw`."""
+    nxt, flw = fold_pairs(volume, flows)
+    return unfold_pairs(backward_warp(nxt, flw, impl), volume.shape[0])

@@ -1,11 +1,10 @@
 """Inference over image pairs through the serving engine, writing `.flo`
-files (port of `restore_params` and `predict_pairs` in
-`deepof_tpu/predict.py`).
+files and their flow-colour PNGs (port of `restore_params`,
+`write_outputs` and `predict_pairs` in `deepof_tpu/predict.py`).
 
 The parameters come from the newest checkpoint of a run that verifies
-(`restore_params`). This package has no PNG/JPEG decoder and no PNG
-writer: pairs are decoded BGR arrays, `.npy` or binary `.ppm` paths, and
-the output is the Middlebury `.flo` only.
+(`restore_params`). Pairs are decoded BGR arrays or image paths (PNG,
+JPEG, PPM, or `.npy` arrays), decoded by the engine.
 """
 
 from __future__ import annotations
@@ -17,8 +16,10 @@ import torch
 from torch import nn
 
 from .core.config import ExperimentConfig
+from .io import png
 from .io.flo import write_flo
 from .serve.engine import InferenceEngine, build_serve_model
+from .utils.flowviz import flow_to_color
 
 
 def restore_params(cfg: ExperimentConfig,
@@ -49,6 +50,19 @@ def restore_params(cfg: ExperimentConfig,
     return model
 
 
+def write_outputs(out_dir: str, stem: str, flow, write_png: bool = True
+                  ) -> list[str]:
+    """Write one native-resolution flow as `<stem>_flow.flo` and, unless
+    `write_png` is False, its flow colours as `<stem>_flow.png`;
+    returns the written paths."""
+    written = [os.path.join(out_dir, f"{stem}_flow.flo")]
+    write_flo(written[0], flow)
+    if write_png:
+        written.append(os.path.join(out_dir, f"{stem}_flow.png"))
+        png.write_png(written[1], flow_to_color(flow))
+    return written
+
+
 def output_stem(src, idx: int, many: bool) -> str:
     if not isinstance(src, (str, os.PathLike)):
         return f"{idx:04d}"
@@ -60,9 +74,11 @@ def output_stem(src, idx: int, many: bool) -> str:
 def predict_pairs(cfg: ExperimentConfig, pairs: list[tuple], out_dir: str,
                   mean=None, model: nn.Module | None = None,
                   device: str | torch.device = "cuda",
-                  precision: str | None = None) -> list[str]:
-    """Predict native-resolution flow for (prev, next) pairs and write one
-    `<stem>_flow.flo` per pair; returns the written paths in pair order.
+                  precision: str | None = None,
+                  write_png: bool = True) -> list[str]:
+    """Predict native-resolution flow for (prev, next) pairs and write
+    `<stem>_flow.flo` and, with `write_png`, `<stem>_flow.png` per pair;
+    returns the written paths in pair order.
 
     The pairs go through the micro-batching engine, so they execute in
     batches of up to `serve.max_batch`. model: optional nn.Module with
@@ -80,10 +96,9 @@ def predict_pairs(cfg: ExperimentConfig, pairs: list[tuple], out_dir: str,
 
         def drain_one() -> None:
             idx, src, fut = buf.popleft()
-            path = os.path.join(out_dir,
-                                f"{output_stem(src, idx, many)}_flow.flo")
-            write_flo(path, fut.result()["flow"])
-            written.append(path)
+            written.extend(write_outputs(out_dir,
+                                         output_stem(src, idx, many),
+                                         fut.result()["flow"], write_png))
 
         for idx, (src, tgt) in enumerate(pairs):
             buf.append((idx, src, eng.submit(src, tgt, precision)))

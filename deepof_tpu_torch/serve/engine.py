@@ -55,8 +55,7 @@ from torch import nn
 
 from ..core.config import ExperimentConfig
 from ..core.device import resolve_device
-from ..data.datasets import DATASET_MEANS
-from ..io.ppm import read_ppm_bgr
+from ..data.datasets import DATASET_MEANS, _imread_bgr
 from .buckets import (flow_to_native, pick_bucket, prepare_frame,
                       prepare_pair, resolve_buckets)
 from .quant import quantize_model, resolve_precisions
@@ -313,16 +312,17 @@ class InferenceEngine:
 
     def _decode(self, img) -> np.ndarray:
         """Decoded BGR array (validated), or a `.npy` path holding one, or
-        a binary `.ppm` path. This package has no PNG/JPEG decoder."""
+        a PNG, JPEG or PPM path (the native decoder; a PNG without its
+        PNG codec through `io/png.py`). A file this build cannot decode
+        is a bad_input naming the decoder's codecs."""
         if isinstance(img, (str, os.PathLike)):
             if str(img).endswith(".npy"):
                 img = np.load(img, allow_pickle=False)
-            elif str(img).endswith(".ppm"):
-                img = read_ppm_bgr(img)
             else:
-                raise ServeError("bad_input",
-                                 f"{img!r}: only decoded BGR arrays, .npy "
-                                 "and .ppm paths are accepted")
+                try:
+                    img = _imread_bgr(str(img))
+                except (OSError, ValueError) as e:
+                    raise ServeError("bad_input", str(e)) from e
         if not isinstance(img, np.ndarray) or img.ndim != 3 \
                 or img.shape[-1] != 3:
             raise ServeError("bad_input", "image must be an (H, W, 3) BGR "
@@ -331,9 +331,9 @@ class InferenceEngine:
 
     def submit(self, prev, nxt, precision: str | None = None,
                request_id: int | str | None = None) -> Future:
-        """Enqueue one (prev, next) pair: decoded BGR arrays, .npy or .ppm
-        paths. precision: a tier of `serve.precisions`; None gives the
-        first.
+        """Enqueue one (prev, next) pair: decoded BGR arrays, .npy paths,
+        or PNG, JPEG or PPM paths. precision: a tier of
+        `serve.precisions`; None gives the first.
 
         Returns a Future resolving to {"flow": (H_native, W_native, 2)
         float32 in native pixel units, "bucket", "precision", "native_hw",
@@ -583,10 +583,15 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ warm
     def warm(self) -> dict:
-        """One padded dispatch of zeros for each (bucket, tier, mode) of
-        the engine, so the kernels are built and cuDNN has chosen its
-        algorithms before the first request. Returns {"buckets":
-        [{"bucket", "tier", "mode", "seconds"}]}."""
+        """The postprocess path once on a dummy flow, then one padded
+        dispatch of zeros for each (bucket, tier, mode) of the engine, so
+        the kernels are built and cuDNN has chosen its algorithms before
+        the first request. Returns {"buckets": [{"bucket", "tier",
+        "mode", "seconds"}]}."""
+        # the first request would otherwise pay the postprocess path's
+        # first call (the resize's kernels, its imports) in the batcher
+        flow_to_native(np.zeros((2, 2, 2), np.float32), self.cfg, (2, 2),
+                       (2, 2))
         modes = ("cold", "warm") if self.warm_start else ("cold",)
         out = []
         for bucket in self.buckets:

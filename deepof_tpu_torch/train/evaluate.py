@@ -1,23 +1,31 @@
 """Evaluation protocol (subset of `deepof_tpu/train/evaluate.py`: the
-AEE protocol; the UCF-101 accuracy and the visual dumps are not ported).
+AEE protocol and the visual dumps; the UCF-101 accuracy is not ported).
 
 The finest prediction (already multiplied by its flow scale) is
 multiplied by `train.eval_amplifier`, clipped to `train.eval_clip` and
 bilinearly resized to the native resolution, then compared with the
 ground truth by mean endpoint and angular error. The resize is
 PyTorch's bilinear interpolation (half-pixel centres, no antialiasing),
-which samples as cv2's INTER_LINEAR does.
+which samples as cv2's INTER_LINEAR does. A T-frame volume's flows are
+scored pair by pair, over all T-1 pairs, at the native size.
+
+`dump_visuals` writes what the JAX package writes with cv2.imwrite, under
+the same names: flow colours (`utils/flowviz.py`), the reconstruction and
+the ground truth's colours, as PNGs (`io/png.py`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.config import ExperimentConfig
+from ..io.png import write_png
+from ..utils.flowviz import flow_to_color
 from ..utils.metrics import flow_aae, flow_epe
 
 
@@ -34,14 +42,35 @@ def postprocess_flow(flow: np.ndarray, cfg: ExperimentConfig,
     return out.permute(0, 2, 3, 1).contiguous().numpy()
 
 
+def dump_visuals(out_dir: str, tag: str, flow: np.ndarray,
+                 recon: np.ndarray | None = None,
+                 gt: np.ndarray | None = None,
+                 max_samples: int = 8) -> None:
+    """Write `<tag>_s<i>_flow.png` (the first pair's flow colours),
+    `_gt.png` and `_recon.png` (the first reconstructed frame, x255,
+    clipped) for up to `max_samples` samples. The colour images hold
+    `flow_to_color`'s RGB where cv2.imwrite would read BGR, as the JAX
+    package's files do."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(min(flow.shape[0], max_samples)):
+        write_png(os.path.join(out_dir, f"{tag}_s{i}_flow.png"),
+                  flow_to_color(flow[i, :, :, :2]))
+        if gt is not None:
+            write_png(os.path.join(out_dir, f"{tag}_s{i}_gt.png"),
+                      flow_to_color(gt[i, :, :, :2]))
+        if recon is not None:
+            img = np.clip(recon[i, :, :, :3] * 255.0, 0, 255).astype(np.uint8)
+            write_png(os.path.join(out_dir, f"{tag}_s{i}_recon.png"), img)
+
+
 def _wmean(pairs: list[tuple[float, int]]) -> float:
     """Row-weighted mean of per-batch (value, valid_rows) pairs."""
     vals, ws = zip(*pairs)
     return float(np.average(vals, weights=ws))
 
 
-def evaluate_aee(eval_fn, model, dataset, cfg: ExperimentConfig
-                 ) -> dict[str, float]:
+def evaluate_aee(eval_fn, model, dataset, cfg: ExperimentConfig,
+                 dump_dir: str | None = None) -> dict[str, float]:
     """The AEE protocol over the full validation split, each val sample
     counted once for any `train.eval_batch_size`.
 
@@ -51,7 +80,8 @@ def evaluate_aee(eval_fn, model, dataset, cfg: ExperimentConfig
     the mean of the L batch-mean losses is the uniform mean over the v
     rows: `val_loss` is exact for any batch size (the loss is
     row-separable). `eval_fn(model, batch)` only ever sees the full
-    batch shape."""
+    batch shape. With `dump_dir`, the first batch's visuals are written
+    there (`dump_visuals`, tag "val0")."""
     bs = cfg.train.eval_batch_size
     n_val = max(dataset.num_val, 1)
     epes, aaes, totals = [], [], []
@@ -95,6 +125,8 @@ def evaluate_aee(eval_fn, model, dataset, cfg: ExperimentConfig
         g_sum += float(ga.sum())
         g_n += ga.size
         g_max = max(g_max, float(ga.max()))
+        if dump_dir and bid == 0:
+            dump_visuals(dump_dir, f"val{bid}", pred, out.get("recon"), gt)
 
     # flow-statistics report
     return {

@@ -150,8 +150,13 @@ class Trainer:
     def _next_train_batch(self, it: int, rng: np.random.RandomState) -> dict:
         return self.dataset.sample_train(self.cfg.data.batch_size, rng=rng)
 
-    def evaluate(self) -> dict[str, float]:
-        return evaluate_aee(self.eval_fn, self.model, self.dataset, self.cfg)
+    def evaluate(self, dump: bool = False) -> dict[str, float]:
+        """The AEE protocol; with `dump`, the first val batch's visuals
+        go to <log_dir>/visuals."""
+        dump_dir = (os.path.join(self.cfg.train.log_dir, "visuals")
+                    if dump else None)
+        return evaluate_aee(self.eval_fn, self.model, self.dataset, self.cfg,
+                            dump_dir)
 
     def fit(self, num_epochs: int | None = None,
             max_steps: int | None = None) -> dict[str, float]:
@@ -293,7 +298,7 @@ class Trainer:
                     consecutive_rollbacks = 0  # a finite step recovered
 
                 if eval_due:
-                    last_eval = self.evaluate()
+                    last_eval = self.evaluate(dump=cfg.train.dump_visuals)
                     self.logger.log("eval", gstep, epoch=epoch, **last_eval)
                     timer.pause()  # eval time is not training throughput
                 if ckpt_due:

@@ -1,10 +1,12 @@
-"""Objective and train step (port of the two-frame flow branch of
-`deepof_tpu/train/step.py`).
+"""Objective and train step (port of the flow branches of
+`deepof_tpu/train/step.py`: two-frame pairs and T-frame volumes).
 
-`model_losses` preprocesses the pair, runs the model and the pyramid
-loss. `make_train_step` builds `step(state, batch) -> metrics`: forward,
-backward, global gradient norm, and the Adam update, which is skipped
-when the loss or the gradient norm is not finite (`skip_nonfinite`).
+`model_losses` preprocesses the pair (or the volume), runs the model and
+the pyramid loss (`pyramid_loss`, or `pyramid_loss_multi` for a batch
+with a "volume"). `make_train_step` builds `step(state, batch) ->
+metrics`: forward, backward, global gradient norm, and the Adam update,
+which is skipped when the loss or the gradient norm is not finite
+(`skip_nonfinite`).
 `make_eval_fn` builds `eval_fn(model, batch)`: the same objective
 without gradients, with the finest flow and reconstruction.
 
@@ -23,7 +25,8 @@ from typing import Any, Callable
 import torch
 
 from ..core.config import ExperimentConfig, LossConfig, check_trainable
-from ..losses.pyramid import lrn_normalize, preprocess, pyramid_loss
+from ..losses.pyramid import (lrn_normalize, preprocess, pyramid_loss,
+                              pyramid_loss_multi)
 from .state import TrainState, global_norm
 
 Mean = tuple[float, float, float]
@@ -33,7 +36,7 @@ SCALE_KEYS = ("total", "Charbonnier_reconstruct", "U_loss", "V_loss",
               "smooth")
 #: the batch entries the step reads (what `batch_to_device` and the
 #: prefetcher move to the device; other entries stay on the host)
-IMAGE_KEYS = ("source", "target", "net_source", "net_target")
+IMAGE_KEYS = ("source", "target", "net_source", "net_target", "volume")
 
 
 def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
@@ -46,16 +49,23 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
                  loss_cfg: LossConfig, smooth_border_mask: bool = False,
                  compute_dtype: torch.dtype = torch.float32
                  ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Forward + objective for a two-frame flow model. batch: NHWC
-    float images "source" and "target" (and optionally the augmented
-    "net_source"/"net_target" that feed the network). The network's
-    pair is cast to `compute_dtype`, its flows back to float32. Returns
-    (total, aux with the per-level loss dicts, finest scaled flow,
-    finest reconstruction)."""
+    """Forward + objective for a flow model. batch: NHWC float images
+    "source" and "target" (and optionally the augmented "net_source"/
+    "net_target" that feed the network), or a T-frame "volume"
+    (B, H, W, 3T). The network's input is cast to `compute_dtype`, its
+    flows back to float32. Returns (total, aux with the per-level loss
+    dicts, finest scaled flow, finest reconstruction)."""
     if "volume" in batch:
-        raise NotImplementedError(
-            "multi-frame volume batches are not ported to deepof_tpu_torch "
-            "yet: ROADMAP Queue A item 9 (multi-frame volume loss)")
+        vol = batch["volume"]
+        # the BGR mean of each of the T frames, stacked frame-major
+        scaled = preprocess(vol, tuple(mean) * (vol.shape[-1] // 3))
+        flows = [f.float().permute(0, 2, 3, 1) for f in model(
+            scaled.permute(0, 3, 1, 2).to(compute_dtype).contiguous())]
+        total, losses, recon = pyramid_loss_multi(
+            list(zip(flows, model.flow_scales)), lrn_normalize(scaled),
+            loss_cfg)
+        return total, {"losses": losses, "recon": recon,
+                       "flow": flows[0] * model.flow_scales[0]}
     src = preprocess(batch["source"], mean)
     tgt = preprocess(batch["target"], mean)
     net_src = (preprocess(batch["net_source"], mean)

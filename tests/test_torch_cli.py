@@ -15,9 +15,11 @@ from deepof_tpu_torch import cli
 from deepof_tpu_torch.core.config import config_from_dict, get_config
 from deepof_tpu_torch.data.pipeline import derive_batch_rng
 from deepof_tpu_torch.io.flo import read_flo
+from deepof_tpu_torch.io.png import read_png_bgr
 from deepof_tpu_torch.io.ppm import write_ppm_bgr
 from deepof_tpu_torch.resilience.verify import verify_run
 from deepof_tpu_torch.train.checkpoint import CheckpointManager
+from deepof_tpu_torch.utils.flowviz import flow_to_color
 
 SMOKE = ["--synthetic", "--model", "flownet_s", "--device", "cpu",
          "--set", "width_mult=0.25", "--set", "data.batch_size=2"]
@@ -91,10 +93,14 @@ def test_predict_writes_flo_at_native_size(run_dir, tmp_path, capsys):
     out = _run(capsys, "predict", *SMOKE, "--log-dir", run_dir,
                "--out", str(tmp_path / "out"), "--pairs", *pairs)
     assert [os.path.basename(p) for p in out["written"]] == [
-        "0000_a0_flow.flo", "0001_a1_flow.flo"]
-    for path, hw in zip(out["written"], [(48, 80), (64, 64)]):
-        flow = read_flo(path)
+        "0000_a0_flow.flo", "0000_a0_flow.png", "0001_a1_flow.flo",
+        "0001_a1_flow.png"]
+    for i, hw in enumerate([(48, 80), (64, 64)]):
+        flow = read_flo(out["written"][2 * i])
         assert flow.shape == (*hw, 2) and np.isfinite(flow).all()
+        # the flow's colours beside it, as the JAX package writes them
+        np.testing.assert_array_equal(read_png_bgr(out["written"][2 * i + 1]),
+                                      flow_to_color(flow))
 
 
 def test_predict_at_a_precision_tier_writes_flo(run_dir, tmp_path, capsys):
@@ -163,7 +169,8 @@ def test_config_prints_a_dict_that_reads_back(capsys):
     (["train", "--profile"], "item 11"),
     (["train", "--profile-steps", "2:4"], "item 11"),
     (["train", "--trace"], "item 11"),
-    (["eval", "--dump-visuals"], "item 6")])
+    (["train", "--synthetic", "--model", "flownet_s", "--set",
+      "optim.grad_accum=2"], "item 6")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv + ["--device", "cpu"])

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port's CUDA kernels (correlation and its two
 backward kernels, in float32 and bf16; warp and its flow gradient, one
-level and a list of levels per launch), and of the serving path that
+level and a list of levels per launch, and the T-frame volume loss's
+folded pairs), and of the serving path that
 reaches them (a warm-start dispatch; the int8 tier's weights), on the
 card.
 
@@ -360,13 +361,14 @@ LEVEL_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("shapes,c,layout,mag", LEVEL_CASES)
 def test_warp_levels_match_reference(cuda, shapes, c, layout, mag):
-    """One launch per direction for all levels: the forward bitwise equal
-    to the plain version at every level, the flow gradient within 1e-4
-    of autograd of the plain version (float32; the gradient kernel
-    fuses multiply-adds where autograd rounds each)."""
+    """One launch per direction for all levels: the forward and the flow
+    gradient bitwise equal to their plain versions at every level, and
+    the flow gradient within 1e-4 of autograd of the plain forward
+    (float32; autograd rounds in another order)."""
     from deepof_tpu_torch.ops.cuda import warp as cw
     from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
-                                           backward_warp_reference)
+                                           backward_warp_reference,
+                                           warp_flow_grad_reference)
 
     images, flows, cts = _levels(cuda, shapes, c, layout, mag,
                                  seed=len(shapes))
@@ -384,8 +386,70 @@ def test_warp_levels_match_reference(cuda, shapes, c, layout, mag):
         want = backward_warp_reference(img, ref)
         want.backward(ct)
         assert torch.equal(outs[k], want), f"level {k} {tuple(img.shape)}"
+        assert torch.equal(fused[k].grad,
+                           warp_flow_grad_reference(img, flow, ct)), \
+            f"level {k} {tuple(img.shape)}"
         torch.testing.assert_close(fused[k].grad, ref.grad, atol=1e-4,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,crop", [(4, 10, (224, 480)), (2, 3, (56, 120)),
+                                      (1, 2, (44, 70))])
+def test_volume_loss_launches_each_warp_kernel_once(cuda, b, t, crop):
+    """`pyramid_loss_multi` on a T-frame volume (the sintel preset's
+    batch 4, T = 10 and crop 224x480, and small ones): one launch of
+    each warp kernel for all six levels and B(T-1) folded pairs; each
+    level's warped pairs and flow gradients bitwise equal to the plain
+    versions on the same folded tensors."""
+    from deepof_tpu_torch.core.config import LossConfig
+    from deepof_tpu_torch.losses import pyramid
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           warp_flow_grad_reference)
+
+    rs = np.random.RandomState(t)
+    h, w = crop
+    flows, scales = [], []
+    for k in range(6):
+        h, w = -(-h // 2), -(-w // 2)
+        flows.append(torch.from_numpy((rs.randn(b, h, w, 2 * (t - 1))
+                                       * 0.5).astype(np.float32)).to(cuda)
+                     .requires_grad_(True))
+        scales.append(10.0 / 2 ** k)
+    vol = torch.from_numpy(rs.rand(b, *crop, 3 * t).astype(np.float32)).to(
+        cuda)
+    seen = []  # per level: [image, flow, output, cotangent, flow grad]
+    inner = pyramid.backward_warp_levels
+
+    def recorded(images, fl, impl="auto"):
+        outs = inner(images, fl, impl)
+        for k, (i, f, o) in enumerate(zip(images, fl, outs)):
+            seen.append([i, f.detach(), o.detach()])
+            o.register_hook(lambda g, k=k: seen[k].append(g))
+            f.register_hook(lambda g, k=k: seen[k].append(g))
+        return outs
+
+    pyramid.backward_warp_levels = recorded
+    try:
+        before = (cw.fwd_launches.count, cw.grad_launches.count)
+        total, _, _ = pyramid.pyramid_loss_multi(
+            list(zip(flows, scales)), pyramid.lrn_normalize(vol),
+            LossConfig())
+        total.backward()
+        assert (cw.fwd_launches.count, cw.grad_launches.count) == (
+            before[0] + 1, before[1] + 1)
+    finally:
+        pyramid.backward_warp_levels = inner
+    assert len(seen) == 6
+    for img, fl, out, ct, dflow in seen:
+        assert img.shape[0] == fl.shape[0] == b * (t - 1)
+        i, f = img.permute(0, 3, 1, 2), fl.permute(0, 3, 1, 2)
+        assert torch.equal(out.permute(0, 3, 1, 2),
+                           backward_warp_reference(i, f))
+        assert torch.equal(dflow.permute(0, 3, 1, 2),
+                           warp_flow_grad_reference(
+                               i, f, ct.permute(0, 3, 1, 2)))
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The PyTorch port stands alone: it imports no JAX, flax, optax or cv2,
+"""The PyTorch port stands alone: it imports no JAX, flax, optax, cv2 or PIL,
 and nothing of the JAX package, and its entry points do not fall back
 to the CPU when no card is present."""
 
@@ -14,7 +14,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "deepof_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "deepof_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "deepof_tpu")
 
 
 def _modules():

@@ -211,7 +211,7 @@ def test_predict_pairs_writes_flo(tmp_path):
         np.save(b, _img(rs, (48, 96)))
         paths.append((str(a), str(b)))
     written = predict_pairs(cfg, paths, str(tmp_path / "out"), model=model,
-                            device="cpu")
+                            device="cpu", write_png=False)  # --no-png
     assert [p.rsplit("/", 1)[1] for p in written] == [
         "0000_a0_flow.flo", "0001_a1_flow.flo", "0002_a2_flow.flo"]
     for p in written:

@@ -21,7 +21,8 @@ from deepof_tpu.ops.warp import backward_warp as jax_warp
 from deepof_tpu_torch.ops.cuda import warp as cuda_warp
 from deepof_tpu_torch.ops.warp import (BackwardWarpLevels, backward_warp,
                                        backward_warp_nchw,
-                                       backward_warp_reference)
+                                       backward_warp_reference,
+                                       warp_flow_grad_reference)
 from test_warp import warp_oracle
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -104,9 +105,13 @@ def test_function_on_cpu_runs_the_plain_version():
     out = BackwardWarpLevels.apply(1, ti, tf)[0]
     assert torch.equal(out, backward_warp_reference(ti, tf.detach()))
     out.square().sum().backward()
+    # the flow gradient is the plain flow-gradient version, bit for bit,
+    # and autograd of the plain forward up to rounding
+    assert torch.equal(tf.grad, warp_flow_grad_reference(
+        ti, tf.detach(), 2 * out.detach()))
     ref = tf.detach().clone().requires_grad_(True)
     backward_warp_reference(ti, ref).square().sum().backward()
-    assert torch.equal(tf.grad, ref.grad)
+    torch.testing.assert_close(tf.grad, ref.grad, rtol=1e-6, atol=1e-6)
     # every TPU route name takes the same path on a CPU tensor
     for impl in ("auto", "xla", "pallas"):
         assert torch.equal(backward_warp_nchw(ti, tf.detach(), impl), out)

@@ -19,7 +19,8 @@ from deepof_tpu_torch.ops.cuda import warp as cw
 from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
                                        backward_warp_levels,
                                        backward_warp_nchw,
-                                       backward_warp_reference)
+                                       backward_warp_reference,
+                                       warp_flow_grad_reference)
 
 # (B, H, W) level sets, finest first: the training loss at 384x512,
 # batch 4; ragged widths and one-row levels; eight levels, the most one
@@ -121,7 +122,7 @@ def _levels(c, layout, seed=0, b=2):
                                       (5, "nhwc")])
 def test_levels_equal_one_level_calls(c, layout):
     """Values and flow gradients of the fused call against one call per
-    level and against autograd of the plain version, with level 2's
+    level and against the plain versions, with level 2's
     output left out of the loss (its cotangent is None, its flow
     gradient zero)."""
     images, flows, cts = _levels(c, layout, seed=c)
@@ -142,7 +143,12 @@ def test_levels_equal_one_level_calls(c, layout):
         (out * ct).sum().backward()
         (want * ct).sum().backward()
         assert torch.equal(fused[k].grad, single.grad)
-        assert torch.equal(fused[k].grad, plain.grad)
+        # the plain flow-gradient version bit for bit, and autograd of
+        # the plain forward up to rounding
+        assert torch.equal(fused[k].grad,
+                           warp_flow_grad_reference(img, flow, ct))
+        torch.testing.assert_close(fused[k].grad, plain.grad, rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_levels_hand_the_views_over_without_a_copy():
