@@ -45,12 +45,23 @@ read after it):
     `F.interpolate`'s (`repeat_flownet_cs`);
   - training on MPI-Sintel T-frame volumes (`cli_sintel`): a Sintel tree
     of PNG frames and .flo flows at 436x1024 written here, `train
-    --preset sintel --model flownet_s` for 8 steps at full width (T = 10,
+    --preset sintel --model flownet_s` for 4 steps at full width (T = 10,
     224x480 crops, batch 4: 36 folded frame pairs in the loss's one
     launch of each warp kernel) with visuals, in the cached decode route
     and, where the native decoder has a PNG codec, the streaming one;
     `eval --dump-visuals`; both warp kernels at that volume shape bit
-    for bit against their plain versions (`check_warp_volume`).
+    for bit against their plain versions (`check_warp_volume`);
+  - the rest of the training job (FlowNet-C at full width, 384x512,
+    batch 4, f32, cuDNN deterministic): `train --set
+    optim.grad_accum=2 --trace` for 8 micro-steps at 2 steps a call, at
+    1, and at 2 under remat (`cli_train_job`: the correlation forward
+    twice a micro-step under remat; losses, evals and final checkpoints
+    equal bit for bit; the trace's spans, the heartbeat's device memory,
+    model TFLOP/s and the nominal MFU), and a run in a process of its
+    own with injected faults, preempted by a SIGTERM, then resumed past
+    a corrupted checkpoint (`cli_preempt_faults`: equal bit for bit to
+    an uninterrupted run with the same faults). Their launches are the
+    float32 kernels' `launches` in the final line.
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -63,10 +74,12 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; cs.check_warp_volume()"
     python3 -c "import chip_smoke as cs; cs.step_kernels()"
     python3 -c "import chip_smoke as cs; cs.fit_variants()"
+    python3 -c "import chip_smoke as cs, tempfile; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_job(w); cs.cli_preempt_faults(w)"
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -110,8 +123,13 @@ WARP_ROUNDS = 3
 COPY_OPS = ("aten::copy_", "aten::contiguous", "aten::clone")
 
 
+# the script's start, for the seconds each phase line is printed at
+START = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "at_s": time.monotonic() - START,
+                      **kw}), flush=True)
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -2130,6 +2148,367 @@ def cli_train_flownet_c_bf16(work: str) -> dict:
     return row
 
 
+# the rest of the training loop at full width (FlowNet-C, 384x512, batch
+# 4, f32): gradient accumulation 2, the span trace, a train record every
+# step, evals and checkpoints at 4 and 8; run at 2 steps a call, at 1,
+# and at 2 under remat (`cli_train_job`)
+JOB_STEPS = 8
+CLI_TRAIN_JOB = ["--model", "flownet_c", "--synthetic",
+                 "--set", "data.image_size=[384,512]",
+                 "--set", "data.gt_size=[384,512]",
+                 "--set", "data.batch_size=4",
+                 "--set", "train.eval_batch_size=4",
+                 "--set", "train.log_every=1", "--set", "train.eval_every=4",
+                 "--set", "train.ckpt_every_steps=4",
+                 "--set", "optim.grad_accum=2", "--trace"]
+JOB_RUNS = {"k2": ["--set", "train.steps_per_call=2"],
+            "k1": ["--set", "train.steps_per_call=1"],
+            "k2_remat": ["--set", "train.steps_per_call=2",
+                         "--set", "train.remat=true"]}
+# spans of the main thread (one a call: input_wait, dispatch; one a step:
+# fetch; one an eval, one a cadence checkpoint) and of the data threads
+MAIN_SPANS = ("input_wait", "dispatch", "fetch", "eval", "ckpt")
+DATA_SPANS = ("put", "assemble")
+
+
+def checkpoint_tensors(log_dir: str) -> dict:
+    """Every tensor of the newest checkpoint under `log_dir`: the model's,
+    Adam's moments and counts, and the gradient accumulator's."""
+    import torch
+
+    from deepof_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"), create=False)
+    out = {f"model.{k}": v for k, v in ckpt.restore_raw("model").items()}
+    for i, st in ckpt.restore_raw("optimizer")["state"].items():
+        out.update({f"adam.{i}.{k}": torch.as_tensor(v)
+                    for k, v in st.items()})
+    out.update({f"acc.{i}": t
+                for i, t in enumerate(ckpt.restore_raw("acc") or ())})
+    return out
+
+
+def tensors_equal(a: dict, b: dict) -> list[str]:
+    """The names whose tensors differ (or exist on one side only)."""
+    import torch
+
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def span_counts(log_dir: str) -> dict[str, int]:
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return dict(collections.Counter(e["name"] for e in events
+                                    if e["ph"] == "X"))
+
+
+def cli_train_job(work: str, extra: tuple = ()) -> dict:
+    """`train --model flownet_c --set optim.grad_accum=2 --trace` at full
+    width for JOB_STEPS micro-steps, under cuDNN's deterministic
+    algorithms: at 2 steps a call, at 1, and at 2 under remat. Each run's
+    launches are counted from 0: the correlation forward once a
+    micro-step (twice under remat) and once an eval forward, each
+    backward kernel once a micro-step, the warp forward once a micro-step
+    and an eval forward, its flow gradient once a micro-step. The K = 2
+    run's records fall at the stride ends 2, 4, 6, 8; its trace has the
+    loop's spans, its final heartbeat the card's memory; its records the
+    model TFLOP/s and the nominal MFU. The three runs' losses at 2, 4, 6
+    and 8, their evals and their final checkpoints' tensors are equal bit
+    for bit. `extra` is appended to every command (a CPU rehearsal's
+    device and sizes)."""
+    evals = 2 * eval_calls(SYNTHETIC_VAL, 4)
+    t0 = time.monotonic()
+    runs = {}
+    with cudnn_deterministic():
+        for name, flags in JOB_RUNS.items():
+            log_dir = os.path.join(work, f"cli_train_job_{name}")
+            reset_kernel_counts()
+            summary = run_cli(["train", *CLI_TRAIN_JOB, *flags, *extra,
+                               "--steps", str(JOB_STEPS), "--log-dir",
+                               log_dir],
+                              os.path.join(work, f"cli_train_job_{name}.log"))
+            launches = kernel_counts()
+            k = 1 if name == "k1" else 2
+            records = check_run(log_dir, list(range(k, JOB_STEPS + 1, k)),
+                                [4, JOB_STEPS], [4, JOB_STEPS])
+            with open(os.path.join(log_dir, "heartbeat.json")) as f:
+                hb = json.load(f)
+            runs[name] = {
+                "k": k, "log_dir": log_dir, "summary": summary,
+                "launches": launches, "heartbeat": hb,
+                "spans": span_counts(log_dir),
+                "losses": {r["step"]: r["loss"] for r in records
+                           if r["kind"] == "train"},
+                "evals": [{key: r[key] for key in ("step", "aee", "aae",
+                                                   "val_loss")}
+                          for r in records if r["kind"] == "eval"]}
+    k2, k1, remat = runs["k2"], runs["k1"], runs["k2_remat"]
+    common = sorted(k2["losses"])
+    tensors = {name: checkpoint_tensors(r["log_dir"])
+               for name, r in runs.items()}
+    ckpt_diff = {name: tensors_equal(tensors["k2"], tensors[name])
+                 for name in ("k1", "k2_remat")}
+    row = {"steps": JOB_STEPS, "grad_accum": 2, "eval_forwards": evals,
+           "runs": {name: {
+               "steps_per_call": r["k"],
+               **fit_row(r["summary"], 4),
+               "launches": r["launches"],
+               "record_steps": sorted(r["losses"]),
+               "losses": [r["losses"][s] for s in common],
+               "heartbeat_step_time_median_s":
+                   r["heartbeat"]["step_time_median_s"],
+               "heartbeat_per_step_over_fit_median": (
+                   r["heartbeat"]["step_time_median_s"] / r["k"]
+                   / (r["summary"]["step_ms_median"] / 1e3)),
+               "model_tflops": r["summary"].get("model_tflops"),
+               "mfu_nominal": r["summary"].get("mfu_nominal"),
+               "pipeline_depth": r["summary"]["pipeline_depth"]}
+               for name, r in runs.items()},
+           "spans_k2": k2["spans"],
+           "heartbeat_k2": {key: k2["heartbeat"].get(key) for key in (
+               "step", "beats", "step_time_median_s", "wedges",
+               "dev_mem_bytes_in_use", "dev_mem_peak_bytes", "rss_bytes")},
+           "seconds": time.monotonic() - t0,
+           "checkpoint_tensors": len(tensors["k2"]),
+           "checkpoint_differs": ckpt_diff,
+           "evals_k2": k2["evals"]}
+    emit("cli_train_job", **row)
+    steps = JOB_STEPS
+    for name, r in runs.items():
+        corr = steps * (2 if name == "k2_remat" else 1) + evals
+        want = want_counts(corr=corr, corr_bwd_f1=steps, corr_bwd_f2=steps,
+                           warp_fwd=steps + evals, warp_flow_grad=steps)
+        if r["launches"] != want:
+            raise AssertionError(f"cli_train_job {name}: launches "
+                                 f"{r['launches']}; want {want}")
+    for name in ("k1", "k2_remat"):
+        got = [runs[name]["losses"][s] for s in common]
+        want = [k2["losses"][s] for s in common]
+        if got != want or runs[name]["evals"] != k2["evals"]:
+            raise AssertionError(
+                f"cli_train_job: {name} losses {got} / evals "
+                f"{runs[name]['evals']} are not the K = 2 run's {want} / "
+                f"{k2['evals']} bit for bit")
+        if ckpt_diff[name]:
+            raise AssertionError(f"cli_train_job: {name}'s final checkpoint "
+                                 f"differs from K = 2's in "
+                                 f"{ckpt_diff[name][:10]}")
+    calls = steps // 2
+    want_spans = {"input_wait": calls, "dispatch": calls, "fetch": steps,
+                  "eval": 2, "ckpt": 2}
+    if ({s: k2["spans"].get(s) for s in MAIN_SPANS} != want_spans
+            or not all(k2["spans"].get(s, 0) >= calls for s in DATA_SPANS)
+            or set(k2["spans"]) != set(MAIN_SPANS + DATA_SPANS)):
+        raise AssertionError(f"cli_train_job: trace spans {k2['spans']}; "
+                             f"want {want_spans} and >= {calls} of "
+                             f"{DATA_SPANS}")
+    import torch
+
+    hb = k2["heartbeat"]
+    if (hb["step"] != steps or hb["wedges"]
+            or (torch.cuda.is_available()
+                and (hb["dev_mem_bytes_in_use"] is None
+                     or hb["dev_mem_peak_bytes"] is None))):
+        raise AssertionError(f"cli_train_job: final heartbeat {hb}")
+    for name, r in runs.items():
+        tf = r["summary"].get("model_tflops")
+        if not (tf and tf > 0 and r["summary"].get("mfu_nominal", 0) > 0):
+            raise AssertionError(f"cli_train_job {name}: no model_tflops / "
+                                 f"mfu_nominal in the summary")
+    return row
+
+
+# a preempted run with injected faults at full width (FlowNet-C, 384x512,
+# batch 4, f32, gradient accumulation 2): a poisoned dispatch at index 3
+# (the call from loop step 3 to 4, so step 4 is skipped), a decode fault
+# at micro-batch 2, and the first cadence checkpoint corrupted after it
+# commits: it is written at loop step 4 and named by the applied steps,
+# 3; no eval (the epoch is 16 steps)
+PREEMPT_STEPS = 12
+PREEMPT_SIGNAL_AT = 5
+CLI_PREEMPT = ["--model", "flownet_c", "--synthetic",
+               "--set", "data.image_size=[384,512]",
+               "--set", "data.gt_size=[384,512]",
+               "--set", "data.batch_size=4",
+               "--set", "train.log_every=1", "--set", "train.eval_every=0",
+               "--set", "train.ckpt_every_steps=4",
+               "--set", "train.keep_ckpts=5",
+               "--set", "optim.grad_accum=2",
+               "--set", "obs.heartbeat_period_s=0.05",
+               "--set", "resilience.faults.enabled=true",
+               "--set", "resilience.faults.dispatch_at=[3]",
+               "--set", "resilience.faults.decode_at=[2]",
+               "--set", "resilience.faults.ckpt_corrupt_at=[3]"]
+PREEMPT_SKIPPED = 4  # the poisoned step
+PREEMPT_CORRUPT = 3  # the corrupted checkpoint
+# the command line in a process of its own, with main()'s settings: TF32
+# off and cuDNN's deterministic algorithms
+CLI_SUBPROCESS = (
+    "import sys, torch\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.deterministic = True\n"
+    "from deepof_tpu_torch import cli\n"
+    "sys.exit(cli.main(sys.argv[1:]))\n")
+
+
+def heartbeat_step(log_dir: str) -> int:
+    try:
+        with open(os.path.join(log_dir, "heartbeat.json")) as f:
+            return int(json.load(f)["step"])
+    except (OSError, ValueError, KeyError):
+        return -1
+
+
+def preempted_run(log_dir: str, log_path: str, extra: tuple) -> dict:
+    """`train` with CLI_PREEMPT for PREEMPT_STEPS steps in a process of
+    its own, sent one SIGTERM once its heartbeat shows step >=
+    PREEMPT_SIGNAL_AT: its exit code, summary and records."""
+    import signal
+
+    argv = ["train", *CLI_PREEMPT, *extra, "--steps", str(PREEMPT_STEPS),
+            "--log-dir", log_dir]
+    with open(log_path, "w") as out, open(log_path + ".err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI_SUBPROCESS, *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+            stderr=err)
+        try:
+            deadline = time.monotonic() + 600
+            while heartbeat_step(log_dir) < PREEMPT_SIGNAL_AT:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"cli_preempt_faults: the run ended (rc "
+                        f"{proc.returncode}) or stalled before step "
+                        f"{PREEMPT_SIGNAL_AT}; see {log_path}(.err)")
+                time.sleep(0.01)
+            signalled_at = heartbeat_step(log_dir)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        last = f.read().strip().splitlines()[-1]
+    return {"rc": rc, "signalled_at": signalled_at,
+            "summary": json.loads(last) if rc == 0 else None,
+            "records": read_records(log_dir)}
+
+
+def cli_preempt_faults(work: str, extra: tuple = ()) -> dict:
+    """A full-width FlowNet-C run (CLI_PREEMPT) in a process of its own,
+    preempted by a SIGTERM at step >= 5: it exits 0 after a final
+    checkpoint that verifies (named by its applied steps: its stop step
+    less the skipped one); the poisoned step was skipped in place (one
+    skipped update) and the decode fault retried. Then its resume, with
+    the restore of every checkpoint after the corrupted one failing too
+    (`ckpt_restore_at`): it falls back past the corrupted checkpoint to
+    step 0 and trains to PREEMPT_STEPS. The
+    preempted run's losses up to its stop and the resume's losses equal
+    those of an uninterrupted run with the same faults, bit for bit.
+    The uninterrupted run's launches are counted: each kernel once a
+    step (a skipped step computes before it skips)."""
+    from deepof_tpu_torch.resilience.verify import verify_run
+    from deepof_tpu_torch.train.checkpoint import CheckpointManager
+
+    run_dir = os.path.join(work, "cli_preempt")
+    t0 = time.monotonic()
+    stage_s = {}
+    with cudnn_deterministic():
+        pre = preempted_run(run_dir, os.path.join(work, "cli_preempt.log"),
+                            extra)
+        stage_s["preempted"] = time.monotonic() - t0
+        if pre["rc"] != 0:
+            raise AssertionError(f"cli_preempt_faults: the preempted run "
+                                 f"exited {pre['rc']}")
+        stopped = [r for r in pre["records"] if r["kind"] == "warn"
+                   and "signal 15 received" in r["message"]]
+        stop = stopped[0]["step"] if stopped else None
+        report = verify_run(run_dir)
+        newer = [st for st in CheckpointManager(
+            os.path.join(run_dir, "ckpt"), create=False).all_steps()
+            if st > PREEMPT_CORRUPT]
+        resume = run_cli(["train", *CLI_PREEMPT, *extra, "--set",
+                          f"resilience.faults.ckpt_restore_at={newer}",
+                          "--steps", str(PREEMPT_STEPS), "--log-dir",
+                          run_dir],
+                         os.path.join(work, "cli_preempt_resume.log"))
+        resume_records = read_records(run_dir)[len(pre["records"]):]
+        stage_s["resume"] = time.monotonic() - t0 - sum(stage_s.values())
+        ref_dir = os.path.join(work, "cli_preempt_ref")
+        reset_kernel_counts()
+        ref = run_cli(["train", *CLI_PREEMPT, *extra, "--steps",
+                       str(PREEMPT_STEPS), "--log-dir", ref_dir],
+                      os.path.join(work, "cli_preempt_ref.log"))
+        launches = kernel_counts()
+        stage_s["uninterrupted"] = (time.monotonic() - t0
+                                    - sum(stage_s.values()))
+    ref_records = read_records(ref_dir)
+
+    def losses(records):
+        return {r["step"]: r["loss"] for r in records
+                if r["kind"] == "train"}
+
+    want = losses(ref_records)
+    got_pre, got_resume = losses(pre["records"]), losses(resume_records)
+    resumed_from = [r["step"] for r in resume_records if r["kind"] == "info"
+                    and r.get("message", "").startswith("resumed from")]
+    summary = pre["summary"]
+    keys = ("skipped_updates", "data_sample_retries", "fault_dispatch",
+            "fault_decode", "fault_ckpt_corrupt", "ckpt_saves",
+            "step_ms_median")
+    final = None if stop is None else stop - 1  # one skipped update
+    row = {"seconds": time.monotonic() - t0, "stage_seconds": stage_s,
+           "signalled_at_step": pre["signalled_at"], "stopped_at": stop,
+           "final_checkpoint": final,
+           "final_checkpoint_verified": final in report["valid_steps"],
+           "valid_steps": report["valid_steps"],
+           "corrupt_steps": report["corrupt_steps"],
+           "preempted": {k: summary.get(k) for k in keys},
+           "resume": {"restore_faults_at": newer,
+                      "resumed_from": resumed_from,
+                      **{k: resume.get(k) for k in (
+                          "fault_ckpt_restore", "ckpt_verify_failures",
+                          "ckpt_restore_failures", "ckpt_restore_fallbacks",
+                          "skipped_updates", "step_ms_median")}},
+           "uninterrupted": {k: ref.get(k) for k in keys},
+           "launches": launches,
+           "losses_preempted": got_pre, "losses_uninterrupted": want,
+           "preempted_equal": got_pre == {s: want.get(s) for s in got_pre},
+           "resume_equal": got_resume == want}
+    emit("cli_preempt_faults", **row)
+    if not (stop is not None and PREEMPT_SIGNAL_AT <= stop < PREEMPT_STEPS
+            and row["final_checkpoint_verified"]
+            and report["corrupt_steps"] == [PREEMPT_CORRUPT]):
+        raise AssertionError(f"cli_preempt_faults: stopped at {stop}, "
+                             f"checkpoints {report}")
+    for name, s in (("preempted", summary), ("uninterrupted", ref)):
+        if not (s["skipped_updates"] == 1 and s["data_sample_retries"] >= 1
+                and s["fault_dispatch"] == 1 and s["fault_decode"] == 1
+                and s["fault_ckpt_corrupt"] == 1):
+            raise AssertionError(f"cli_preempt_faults: {name} run's fault "
+                                 f"counters {row[name]}")
+    if not (resumed_from == [0] and resume["ckpt_verify_failures"] >= 1
+            and resume["fault_ckpt_restore"] == len(newer)):
+        raise AssertionError(f"cli_preempt_faults: the resume {row['resume']}"
+                             f" did not fall back past step "
+                             f"{PREEMPT_CORRUPT} to step 0")
+    steps = PREEMPT_STEPS
+    if launches != want_counts(corr=steps, corr_bwd_f1=steps,
+                               corr_bwd_f2=steps, warp_fwd=steps,
+                               warp_flow_grad=steps):
+        raise AssertionError(f"cli_preempt_faults: launches {launches}")
+    if sorted(want) != [s for s in range(1, steps + 1)
+                        if s != PREEMPT_SKIPPED] or not (
+            row["preempted_equal"] and row["resume_equal"]):
+        raise AssertionError("cli_preempt_faults: the preempted and resumed "
+                             "losses are not the uninterrupted run's bit for "
+                             "bit")
+    return row
+
+
 def work_root() -> str:
     """`build/` of this checkout (ignored by git): where the runs of the
     training phases write their logs and checkpoints."""
@@ -2592,12 +2971,13 @@ def cli_flyingchairs(work: str) -> dict:
     return row
 
 
-# `train --preset sintel --model flownet_s` on the Sintel tree: 8 steps
-# at the preset's full geometry (T = 10, 224x480 crops of 256x512
-# frames, batch 4; 436x1024 ground truth), visuals at each eval; the
-# profiled steps of the fit (StepWindow) skip the evals at steps 4 and 8
-SINTEL_STEPS = 8
-SINTEL_WINDOW = (5, 8)
+# `train --preset sintel --model flownet_s` on the Sintel tree: 4 steps
+# (one epoch) at the preset's full geometry (T = 10,
+# 224x480 crops of 256x512 frames, batch 4; 436x1024 ground truth),
+# visuals at the eval; the profiled steps of the fit (StepWindow) are
+# steps 2-4, before the eval at the epoch's end
+SINTEL_STEPS = 4
+SINTEL_WINDOW = (1, 4)
 
 
 def sintel_argv(data_dir: str, log_dir: str, streaming: bool) -> list:
@@ -2647,7 +3027,7 @@ def sintel_draw_breakdown(ds, batch: int) -> dict:
 
 def cli_sintel(work: str) -> dict:
     """This slice's main path: `train --preset sintel --model flownet_s
-    --data-path <tree> --max-steps 8 --set train.dump_visuals=true` on a
+    --data-path <tree> --max-steps 4 --set train.dump_visuals=true` on a
     Sintel tree written here (`write_sintel`), with the frames decoded in
     the cached route and, when the native decoder has a PNG codec, again
     in the streaming route (`data.cache_decoded=false`); then `eval
@@ -2921,6 +3301,8 @@ def main() -> int:
         cli_bf16_row = cli_train_flownet_c_bf16(work)
         repeat_flownet_cs(work)
         sintel_row = cli_sintel(work)
+        job_row = cli_train_job(work)
+        preempt_row = cli_preempt_faults(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -2939,6 +3321,11 @@ def main() -> int:
     corr_paths["train_flownet_c_bf16"] = bf16_train["launches"]
     corr_paths.update({f"cli_{k}_flownet_c_bf16": v
                        for k, v in cli_bf16_row["launches"].items()})
+    # the training job's paths: at 2 steps a call, at 1 and under
+    # remat, and the uninterrupted run of the preemption phase
+    corr_paths.update({f"cli_train_job_{name}": r["launches"]
+                       for name, r in job_row["runs"].items()})
+    corr_paths["cli_preempt_faults"] = preempt_row["launches"]
     for key, counter in (("fwd", "warp_fwd"),
                          ("flow_grad", "warp_flow_grad")):
         by_path[key].update({p: c[counter] for p, c in corr_paths.items()})
@@ -2958,7 +3345,8 @@ def main() -> int:
         by_path["flow_grad"][f"cli_sintel_{route}"] = \
             r["warp_flow_grad_launches"]
     by_path["fwd"]["cli_sintel_eval"] = sintel_row["eval"]["warp_fwd_launches"]
-    main_path = cli_c_row["launches"]["train"]
+    # the float32 kernels' main path: the training job (K = 2)
+    main_path = job_row["runs"]["k2"]["launches"]
     # the bf16 kernels' main path: FlowNet-C's `train` in bf16 compute
     bf16_path = cli_bf16_row["launches"]["train"]
 
@@ -3027,7 +3415,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "deepof_tpu_torch/csrc/warp.cu",
             "replaces": replaces[name],
-            "launches": by_path[key]["cli_train"],
+            "launches": by_path[key]["cli_train_job_k2"],
             "launches_by_path": by_path[key],
             "launches_per_step": by_path[key]["train"] / TRAIN_STEPS,
             "max_abs_err": one["max_abs_err"],
@@ -3066,6 +3454,9 @@ def main() -> int:
 
     replaces = {"warp_fwd": "deepof_tpu/ops/pallas/warp.py:85",
                 "warp_flow_grad": "deepof_tpu/ops/pallas/warp.py:111"}
+    emit("total", seconds=time.monotonic() - START,
+         phase_seconds={"cli_train_job": job_row["seconds"],
+                        "cli_preempt_faults": preempt_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),

@@ -16,13 +16,18 @@ Usage:
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
 `--data-path`, `--log-dir`, `--set section.field=value` (any config
 field), `--synthetic` (the synthetic dataset at 64x64, batch 8),
-`--epochs`, `--max-steps`/`--steps`, `--dump-visuals` (eval),
-`--pairs prev:next`, `--out`, `--no-png` (predict), `--precision` (a
-tier of `serve.precisions`). A train run in a log dir that holds
-checkpoints resumes from the newest one. `--device {cuda,cpu}` (default
-cuda) is this package's own; it takes the place of JAX_PLATFORMS.
-Without a card, cuda raises: nothing falls back to the CPU. The JAX
-package's other flags raise, naming the ROADMAP item that ports them.
+`--epochs`, `--max-steps`/`--steps`, `--trace` (`obs.trace`: a span
+timeline in <log-dir>/trace.json), `--profile` and `--profile-steps a:b`
+(a `torch.profiler` Chrome trace of the run or of steps [a, b) under
+<log-dir>/profile/), `--dump-visuals` (eval), `--pairs prev:next`,
+`--out`, `--no-png` (predict), `--precision` (a tier of
+`serve.precisions`). A train run in a log dir that holds checkpoints
+resumes from the newest one; `train` latches a SIGTERM from its start,
+and a SIGTERM stops it after a clean final checkpoint. `--device
+{cuda,cpu}` (default cuda) is this package's own; it takes the place of
+JAX_PLATFORMS. Without a card, cuda raises: nothing falls back to the
+CPU. The JAX package's other flags raise, naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -41,9 +46,6 @@ _UNPORTED_FLAGS = {
     "--recipe": "9 (recipes)",
     "--elastic": "10 (elastic training)",
     "--multihost": "10 (parallelism)",
-    "--profile": "11 (observability tail)",
-    "--profile-steps": "11 (observability tail)",
-    "--trace": "11 (observability tail)",
 }
 
 
@@ -131,10 +133,14 @@ def main(argv=None) -> int:
     p_train.add_argument("--epochs", type=int, default=None)
     p_train.add_argument("--max-steps", "--steps", dest="max_steps",
                          type=int, default=None)
-    for flag in ("--recipe", "--elastic", "--profile-steps"):
+    for flag in ("--recipe", "--elastic"):
         _add_unported(p_train, flag, takes_value=True)
-    for flag in ("--profile", "--trace"):
-        _add_unported(p_train, flag)
+    p_train.add_argument("--profile", action="store_true",
+                         help="torch.profiler trace of the whole run")
+    p_train.add_argument("--profile-steps", default=None, metavar="A:B",
+                         help="torch.profiler trace of steps [A, B) only")
+    p_train.add_argument("--trace", action="store_true",
+                         help="span timeline (obs.trace=true)")
 
     p_eval = sub.add_parser("eval", help="evaluate the newest checkpoint")
     _add_common(p_eval)
@@ -166,6 +172,8 @@ def main(argv=None) -> int:
     raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
                      if getattr(args, flag[2:].replace("-", "_"), None)])
     cfg = _build_cfg(args)
+    if getattr(args, "trace", False):
+        cfg = cfg.replace(obs=dataclasses.replace(cfg.obs, trace=True))
     if args.cmd == "config":
         print(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
         return 0
@@ -192,9 +200,26 @@ def main(argv=None) -> int:
         print(json.dumps({"written": written}))
         return 0
 
-    from .train.loop import Trainer
+    from .train.loop import Trainer, install_preemption_latch
 
-    trainer = Trainer(cfg, device=args.device)
+    profile_steps = None
+    if getattr(args, "profile_steps", None):
+        try:
+            a, b = (int(x) for x in args.profile_steps.split(":"))
+        except ValueError:
+            raise SystemExit(f"bad --profile-steps {args.profile_steps!r}: "
+                             "use A:B (start:stop global steps)")
+        if not 0 <= a < b:
+            raise SystemExit(f"bad --profile-steps {args.profile_steps!r}: "
+                             "need 0 <= A < B")
+        profile_steps = (a, b)
+    if args.cmd == "train":
+        # before Trainer(): a SIGTERM during the model and kernel build is
+        # kept, and fit() turns it into a save-and-stop
+        install_preemption_latch()
+    trainer = Trainer(cfg, device=args.device,
+                      profile=getattr(args, "profile", False),
+                      profile_steps=profile_steps)
     if args.cmd == "train":
         out = trainer.fit(num_epochs=args.epochs, max_steps=args.max_steps)
     else:  # eval

@@ -5,11 +5,12 @@ Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
-Those are settings of the mesh, observability, compilation and the
-serving fleet. Settings that change what the training path computes are
-carried, and where this package cannot honour a value yet,
-`check_trainable` raises on it, naming the ROADMAP item that ports it
-(`train.vgg16_npz`, `recipe`, `resilience.faults` among them).
+Those are settings of the mesh, elastic training, the compile cache,
+the ledger, incident, SLO and quality observability, and the serving
+fleet: none of them changes a training result. Settings that change
+what the training path computes are carried, and where this package
+cannot honour a value yet, `check_trainable` raises on it, naming the
+ROADMAP item that ports it (`train.vgg16_npz` and `recipe` among them).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import typing
 import warnings
 from dataclasses import dataclass, field
 from typing import Any
+
+from ..resilience.faults import FaultConfig
 
 
 @dataclass(frozen=True)
@@ -62,7 +65,10 @@ class OptimConfig:
     beta2: float = 0.999
     adam_eps: float = 1e-8
     grad_clip_norm: float | None = None
-    grad_accum: int = 1  # > 1 not ported
+    # micro-batches per optimizer update (optax.MultiSteps semantics:
+    # the running mean of the micro-gradients, clipped and applied at
+    # every grad_accum-th applied micro-step; train/state.py)
+    grad_accum: int = 1
 
 
 @dataclass(frozen=True)
@@ -124,6 +130,20 @@ class TrainConfig:
     # float32 | bfloat16: the model's convs, deconvs and cost volume
     # compute in it; parameters, gradients, Adam and checkpoints stay f32
     compute_dtype: str = "float32"
+    # recompute the model forward in backward instead of keeping its
+    # activations (torch.utils.checkpoint around the model only; the
+    # loss and its warps stay outside). Same bits, more device work.
+    remat: bool = False
+    # train steps per call of the train step, over K stacked batches; the
+    # log, eval and checkpoint cadences fire once per K-step stride, at
+    # its end step
+    steps_per_call: int = 1
+    # The JAX loop's bound on metric fetches in flight behind the
+    # dispatch. Carried, not honoured: this package reads a step's
+    # metrics at the end of that step, the JAX loop's pipeline_depth=0,
+    # which gives the same result on a run that does not diverge (the fit
+    # summary records the depth it ran at; ROADMAP Queue A item 6).
+    pipeline_depth: int = 2
 
 
 @dataclass(frozen=True)
@@ -166,36 +186,6 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
-class FaultConfig:
-    """The fault-injection schedule of the JAX package
-    (`deepof_tpu/resilience/faults.py::FaultConfig`), carried so that a
-    schedule is refused (`check_trainable`) and not dropped."""
-
-    enabled: bool = False
-    seed: int = 0
-    decode_p: float = 0.0
-    decode_at: tuple[int, ...] = ()
-    assemble_p: float = 0.0
-    assemble_at: tuple[int, ...] = ()
-    fetch_p: float = 0.0
-    fetch_at: tuple[int, ...] = ()
-    ckpt_save_at: tuple[int, ...] = ()
-    ckpt_restore_at: tuple[int, ...] = ()
-    dispatch_at: tuple[int, ...] = ()
-    ckpt_truncate_at: tuple[int, ...] = ()
-    ckpt_corrupt_at: tuple[int, ...] = ()
-    replica_crash_at: tuple[int, ...] = ()
-    replica_wedge_at: tuple[int, ...] = ()
-    replica_degrade_at: tuple[int, ...] = ()
-    replica_fault_after: int = 8
-    host_loss_at: tuple[int, ...] = ()
-    host_wedge_at: tuple[int, ...] = ()
-    preempt_notice_at: tuple[int, ...] = ()
-    host_fault_step: int = 0
-    fail_attempts: int = 1
-
-
-@dataclass(frozen=True)
 class ResilienceConfig:
     # bounded retries per sample draw, then quarantine and a
     # deterministic substitute (resilience/healing.py)
@@ -204,6 +194,8 @@ class ResilienceConfig:
     data_substitutes: int = 3
     # re-attempts of a failed batch assembly on a pipeline worker
     pipeline_retries: int = 1
+    # re-attempts of a failed read of a step's metrics to the host
+    fetch_retries: int = 2
     # skip an update whose loss or gradient norm is not finite: the
     # parameters, the Adam moments and the step stay as they were
     skip_nonfinite: bool = True
@@ -213,6 +205,29 @@ class ResilienceConfig:
     # back to the newest one that verifies
     verify_checkpoints: bool = True
     faults: FaultConfig = field(default_factory=FaultConfig)
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """The training half of the JAX package's `ObsConfig` (`obs/`): the
+    span trace, the heartbeat with its wedge watchdog, and the FLOPs
+    telemetry. Its ledger, incident, SLO, quality and metrics-port keys
+    are not read (ROADMAP Queue A items 8 and 11)."""
+
+    # write a Chrome trace-event timeline to <log_dir>/trace.json
+    trace: bool = False
+    # spans kept (the newest win)
+    trace_ring: int = 16384
+    # <log_dir>/heartbeat.json rewritten every heartbeat_period_s
+    heartbeat: bool = True
+    heartbeat_period_s: float = 5.0
+    # a wedge: no step within watchdog_factor x the median recent step
+    # time, and at least watchdog_min_s; thread stacks go to the log
+    watchdog_factor: float = 20.0
+    watchdog_min_s: float = 60.0
+    # count the FLOPs of the first step (FlopCounterMode): train records
+    # then carry model_tflops and mfu_nominal
+    flops: bool = True
 
 
 @dataclass(frozen=True)
@@ -241,6 +256,7 @@ class ExperimentConfig:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     recipe: RecipeConfig = field(default_factory=RecipeConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -402,17 +418,12 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     todo = []
     if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs"):
         todo.append((f"model={cfg.model!r}", "9 (other backbones)"))
-    if cfg.optim.grad_accum > 1:
-        todo.append((f"optim.grad_accum={cfg.optim.grad_accum}",
-                     "6 (training loop)"))
     if cfg.data.augment_geo or cfg.data.augment_photo:
         todo.append(("data.augment_geo/augment_photo", "9 (augmentation)"))
     if cfg.train.vgg16_npz:
         todo.append(("train.vgg16_npz", "9 (other backbones)"))
     if cfg.recipe != RecipeConfig():
         todo.append(("recipe", "9 (recipes)"))
-    if cfg.resilience.faults != FaultConfig():
-        todo.append(("resilience.faults", "6 (fault injection)"))
     raise_unported(todo)
     if cfg.data.time_step != 2 and cfg.model in ("flownet_c", "flownet_cs"):
         # the JAX package breaks there too: FlowNetC's siamese conv1 is

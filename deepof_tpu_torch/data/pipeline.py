@@ -24,6 +24,7 @@ from typing import Callable
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from ..resilience.healing import retry_bounded
 
 
@@ -118,12 +119,17 @@ class InputPipeline:
         with self._cv:
             self._retry_count += 1
 
+    def _make_traced(self, i: int) -> dict:
+        with obs_trace.span("assemble", index=i):
+            return self._make(i)
+
     def _assemble(self, i: int) -> dict:
-        """`make_batch(i)` on the retry ladder, counted; an error is kept
-        to surface on `get()` and re-raised."""
+        """`make_batch(i)` on the retry ladder (an ``assemble`` span an
+        attempt), counted; an error is kept to surface on `get()` and
+        re-raised."""
         t0 = time.perf_counter()
         try:
-            batch = retry_bounded(lambda: self._make(i),
+            batch = retry_bounded(lambda: self._make_traced(i),
                                   retries=self._retries,
                                   backoff_s=self._backoff,
                                   on_retry=self._count_retry)

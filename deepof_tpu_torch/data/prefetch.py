@@ -15,14 +15,17 @@ On a CUDA device each batch is staged in PyTorch's terms of what
      the producer waits on the event of the copy that last read it;
   2. each is copied to the card with `non_blocking=True` on a side
      stream, and an event is recorded behind the copies.
-Steps 1-2 are the `put` phase (`phase_cb("put", seconds)`); the copy
-itself runs on while the producer draws the next batch. `get()` makes
+Steps 1-2 are the `put` phase (`phase_cb("put", seconds)`, a ``put``
+span of `obs/trace.py`); the copy itself runs on while the producer
+draws the next batch. `get()` makes
 the caller's current stream wait on the batch's event and calls
 `record_stream` on each device tensor, so the caching allocator does not
 hand its memory to another tensor while the step that reads it is still
 queued. Other entries stay host arrays.
 
-On the CPU the batches pass through as they are: no pinning, no stream.
+On the CPU the `put` phase makes the entries the step reads float32
+tensors over the same memory (`torch.as_tensor`, no copy for float32
+arrays): no pinning, no stream.
 """
 
 from __future__ import annotations
@@ -35,11 +38,22 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from ..train.step import IMAGE_KEYS
 
 #: Pinned host slots in the ring: the slot being filled and the one whose
 #: copy may still be in flight.
 PINNED_SLOTS = 2
+
+
+def _as_tensors(batch: dict) -> dict:
+    """The CPU `put`: the batch's IMAGE_KEYS as float32 tensors."""
+    out = dict(batch)
+    for k in IMAGE_KEYS:
+        if k in batch:
+            out[k] = torch.as_tensor(np.ascontiguousarray(batch[k],
+                                                          np.float32))
+    return out
 
 
 class Prefetcher:
@@ -108,11 +122,12 @@ class Prefetcher:
                         for _ in range(PINNED_SLOTS)]
             while not self._stop.is_set():
                 item = self._next()
-                if self._cuda:
-                    t0 = time.perf_counter()
-                    item = self._stage(item, ring, stream)
-                    if self._phase_cb is not None:
-                        self._phase_cb("put", time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                with obs_trace.span("put"):
+                    item = (self._stage(item, ring, stream) if self._cuda
+                            else _as_tensors(item))
+                if self._phase_cb is not None:
+                    self._phase_cb("put", time.perf_counter() - t0)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.1)

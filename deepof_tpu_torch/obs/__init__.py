@@ -1,0 +1,14 @@
+"""Observability of the training loop (port of the training half of
+`deepof_tpu/obs/`):
+
+  trace.py      ring-buffered span tracer writing a Chrome trace-event
+                timeline (a copy; stdlib-only);
+  heartbeat.py  heartbeat.json rewritten in the background, and the
+                wedge watchdog (a copy, with its device memory from
+                telemetry.py);
+  telemetry.py  process RSS, CUDA memory, and FLOPs per optimizer step
+                counted by `torch.utils.flop_counter.FlopCounterMode`.
+
+The ledger, the incident recorder, export, aggregate and quality are
+not ported (ROADMAP Queue A items 8 and 11).
+"""

@@ -1,6 +1,5 @@
 """Self-healing sample assembly: retry, then quarantine and substitute
-(copy of `deepof_tpu/resilience/healing.py`, without the fault
-injector, which is not ported: ROADMAP Queue A item 6).
+(port of `deepof_tpu/resilience/healing.py`).
 
   transient   bounded retries with exponential backoff. The batch rng is
               re-derived per attempt (`make_rng(index, round)` is pure),
@@ -65,18 +64,22 @@ class HealingSampler:
     retries: extra attempts per round after the first.
     backoff_s: initial sleep before a retry; doubles per retry.
     substitutes: quarantine-and-redraw rounds after round 0 fails.
+    injector: optional `resilience.faults.FaultInjector`, consulted at
+        its ``decode`` site once per attempt, inside the retry ladder, so
+        an injected fault takes the real faults' recovery path.
     log: optional str sink (warn records).
     """
 
     def __init__(self, make_rng: Callable, sample: Callable,
                  retries: int = 2, backoff_s: float = 0.05,
-                 substitutes: int = 3,
+                 substitutes: int = 3, injector=None,
                  log: Callable[[str], None] | None = None):
         self._make_rng = make_rng
         self._sample = sample
         self._retries = max(int(retries), 0)
         self._backoff = max(float(backoff_s), 0.0)
         self._substitutes = max(int(substitutes), 0)
+        self._inj = injector
         self._log = log
         # pipeline workers call concurrently: counters under a lock
         self._lock = threading.Lock()
@@ -89,12 +92,18 @@ class HealingSampler:
         with self._lock:
             self._sample_retries += 1
 
+    def _draw(self, index: int, rnd: int) -> dict:
+        """One attempt: the injector's decode site, then the draw."""
+        if self._inj is not None:
+            self._inj.check("decode", index)
+        return self._sample(index, self._make_rng(index, rnd))
+
     def __call__(self, index: int) -> dict:
         last: BaseException | None = None
         for rnd in range(self._substitutes + 1):
             try:
                 batch = retry_bounded(
-                    lambda: self._sample(index, self._make_rng(index, rnd)),
+                    lambda: self._draw(index, rnd),
                     retries=self._retries, backoff_s=self._backoff,
                     on_retry=self._count_retry)
             except RETRYABLE as e:

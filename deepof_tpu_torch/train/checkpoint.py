@@ -4,18 +4,32 @@ of `deepof_tpu/train/checkpoint.py` on `torch.save`).
 Layout, as in the JAX package: one directory per step under the
 checkpoint directory (`<log_dir>/ckpt/step_0000000012/`), holding
 `state.pt` = {"step", "model" (state_dict), "optimizer" (Adam
-state_dict)}, and a sibling manifest (`resilience/verify.py`: size and
-CRC32 of every file, a digest of the state's structure, the config
-digest). A save writes into a temporary directory, renames it into
-place, then writes the manifest, so a step directory without a manifest
-is one whose save was cut between the two (restored unverified, as a
-legacy checkpoint would be) and a torn write never has the final name.
+state_dict), "updates", "mini_step", "acc" (the gradient accumulator
+under `optim.grad_accum` > 1, else None)}, and a sibling manifest
+(`resilience/verify.py`: size and CRC32 of every file, a digest of the
+state's structure, the config digest). A save writes into a temporary
+directory, renames it into place, then writes the manifest, so a step
+directory without a manifest is one whose save was cut between the two
+(restored unverified, as a legacy checkpoint would be) and a torn write
+never has the final name.
+
+A run saved in the middle of an accumulation resumes to the same bits.
+The accumulator is part of the structure digest only when grad_accum >
+1: a checkpoint written before the port carried it (no "updates",
+"mini_step" or "acc") restores into a grad_accum = 1 run with updates =
+step and mini_step = 0, which is what they were; into a grad_accum > 1
+run it fails the structure check and is not restored, as a plain Adam
+state does not restore into the JAX package's MultiSteps state.
 
 `restore` verifies each candidate, newest first, and falls back to the
 newest one that verifies and loads; a failed save degrades to a logged
-warning with the previous checkpoint kept. Saves are synchronous: at
-full width (38,777,706 float32 parameters and two Adam moments) a
-checkpoint is ~465 MB.
+warning with the previous checkpoint kept. A fault injector
+(`resilience/faults.py`) may fail a save (``ckpt_save``) or a restore
+(``ckpt_restore``) and damage a committed checkpoint after its manifest
+is written (``ckpt_truncate`` / ``ckpt_corrupt``), as in the JAX
+package. Saves are synchronous: at full width (38,777,706 float32
+parameters and two Adam moments) a checkpoint is ~465 MB, a quarter more
+with the accumulator.
 """
 
 from __future__ import annotations
@@ -35,16 +49,21 @@ from .state import TrainState
 PAYLOAD = "state.pt"
 
 
-def _structure_digest(model_sd: dict, optim_sd: dict) -> dict:
-    """Tensor names, shapes and dtypes of the model, and the optimizer's
+def _structure_digest(model_sd: dict, optim_sd: dict,
+                      acc: list | None = None) -> dict:
+    """Tensor names, shapes and dtypes of the model, the optimizer's
     parameter count (its moments exist only after a first update, so
-    they are not part of the structure)."""
+    they are not part of the structure), and the gradient accumulator's
+    shapes when there is one."""
     crc = 0
     for name, t in model_sd.items():
         crc = zlib.crc32(f"{name}:{tuple(t.shape)}:{t.dtype};".encode(), crc)
     n_opt = sum(len(g["params"]) for g in optim_sd["param_groups"])
     crc = zlib.crc32(f"optimizer:{n_opt};".encode(), crc)
-    return {"num_leaves": len(model_sd) + n_opt, "crc32": crc}
+    n_acc = len(acc) if acc is not None else 0
+    for i, t in enumerate(acc or ()):
+        crc = zlib.crc32(f"acc{i}:{tuple(t.shape)}:{t.dtype};".encode(), crc)
+    return {"num_leaves": len(model_sd) + n_opt + n_acc, "crc32": crc}
 
 
 class CheckpointManager:
@@ -58,12 +77,14 @@ class CheckpointManager:
         and for restore provenance; `warnings.warn` without them.
     config_digest: recorded in each manifest; restore warns on a
         mismatch and proceeds (fine-tunes legitimately cross configs).
+    injector: optional `resilience.faults.FaultInjector`.
     """
 
     def __init__(self, directory: str, keep: int = 3, create: bool = True,
                  verify: bool = True, log=None, info_log=None,
-                 config_digest: str | None = None):
+                 config_digest: str | None = None, injector=None):
         self.directory = os.path.abspath(directory)
+        self._inj = injector
         self.keep = keep
         self._verify = verify
         self._log = log
@@ -123,6 +144,8 @@ class CheckpointManager:
         model_sd = state.model.state_dict()
         optim_sd = state.optimizer.state_dict()
         try:
+            if self._inj is not None:
+                self._inj.check("ckpt_save", step)
             if os.path.exists(path):
                 self._rm(step)
             # prune before the write, always keeping the newest committed
@@ -132,7 +155,8 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
             torch.save({"step": step, "model": model_sd,
-                        "optimizer": optim_sd},
+                        "optimizer": optim_sd, "updates": state.updates,
+                        "mini_step": state.mini_step, "acc": state.acc},
                        os.path.join(tmp, PAYLOAD))
             os.replace(tmp, path)
         except (OSError, RuntimeError) as e:
@@ -145,11 +169,17 @@ class CheckpointManager:
         self._saves += 1
         try:
             ckpt_verify.write_manifest(path, ckpt_verify.build_manifest(
-                path, step, structure=_structure_digest(model_sd, optim_sd),
+                path, step,
+                structure=_structure_digest(model_sd, optim_sd, state.acc),
                 cfg_digest=self._config_digest))
         except OSError as e:
             self._warn(step, f"checkpoint manifest write failed at step "
                              f"{step}: {e}; checkpoint restores unverified")
+        if self._inj is not None:
+            # after the manifest, so the damage is detectable, as real
+            # corruption would be
+            for act in self._inj.tamper_checkpoint(step, path):
+                self._warn(step, f"fault injection: {act}")
         seconds = time.perf_counter() - t0
         self._save_s_total += seconds
         self._save_s_max = max(self._save_s_max, seconds)
@@ -185,12 +215,13 @@ class CheckpointManager:
 
     def restore(self, state: TrainState) -> TrainState | None:
         """Load the newest checkpoint that verifies and reads into
-        `state` (model, Adam state and step, in place) and return it;
-        None if none does. A candidate that fails verification or whose
-        read raises is skipped with a warning."""
+        `state` (model, Adam state, step, update count and accumulator,
+        in place) and return it; None if none does. A candidate that
+        fails verification or whose read raises is skipped with a
+        warning."""
         candidates = list(reversed(self.all_steps()))
         expect = _structure_digest(state.model.state_dict(),
-                                   state.optimizer.state_dict())
+                                   state.optimizer.state_dict(), state.acc)
         device = next(state.model.parameters()).device
         for i, s in enumerate(candidates):
             fallback = ("trying an older checkpoint"
@@ -203,15 +234,22 @@ class CheckpointManager:
                               f"({'; '.join(problems[:3])}); {fallback}")
                 continue
             try:
+                if self._inj is not None:
+                    self._inj.check("ckpt_restore", s)
                 payload = self._load(s, device)
                 got = _structure_digest(payload["model"],
-                                        payload["optimizer"])
+                                        payload["optimizer"],
+                                        payload.get("acc"))
                 if got != expect:
                     raise ValueError(f"state structure {got} != restore "
                                      f"template {expect}")
                 state.model.load_state_dict(payload["model"])
                 state.optimizer.load_state_dict(payload["optimizer"])
                 state.step = int(payload["step"])
+                state.updates = int(payload.get("updates", state.step))
+                state.mini_step = int(payload.get("mini_step", 0))
+                for a, t in zip(state.acc or (), payload.get("acc") or ()):
+                    a.copy_(t)
             except (OSError, RuntimeError, ValueError, KeyError, EOFError,
                     pickle.UnpicklingError) as e:
                 self._restore_failures += 1

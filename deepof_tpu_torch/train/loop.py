@@ -8,37 +8,67 @@ checkpoint that verifies, and refuses to start from scratch when
 checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
 
   - batches come through the self-healing sampler, the input pipeline
-    and the prefetcher. Batch i of a fit that starts at step s is
+    and the prefetcher. Micro-batch i of a fit that starts at step s is
     `dataset.sample_train(batch_size, rng=derive_batch_rng([seed, s],
     i))`, the JAX loop's stream on one process, bit-identical for any
-    `data.num_workers` and `data.prefetch`;
-  - a train record every `train.log_every` steps and at each epoch end;
-    an eval record (`evaluate_aee`) every `train.eval_every` steps and at
-    each epoch end; a checkpoint every `train.ckpt_every_epochs` epochs
-    and every `train.ckpt_every_steps` steps;
-  - the divergence ladder: the step skips a non-finite update in place;
-    `resilience.max_consecutive_skips` skips in a row roll the state
-    back to the last checkpoint (`train.nan_guard`), and the third
+    `data.num_workers`, `data.prefetch` and `train.steps_per_call`;
+  - one call of the train step runs K = `train.steps_per_call` steps
+    over K stacked micro-batches (call c draws micro-batches cK ..
+    cK+K-1, a pure function of c). The cadences are tested once per
+    call: a train record when the call's stride crosses a multiple of
+    `train.log_every` (and at each epoch end), an eval record
+    (`evaluate_aee`) at `train.eval_every` and epoch ends, a checkpoint
+    at `train.ckpt_every_steps` and every `train.ckpt_every_epochs`
+    epochs, each at the stride's end step; records carry the last inner
+    step's values and the skips summed over the K. A `max_steps` that is
+    not a multiple of K ends at the next stride's end, as in JAX;
+  - the divergence ladder: the step skips a non-finite micro-step in
+    place; `resilience.max_consecutive_skips` skips in a row roll the
+    state back to the last checkpoint (`train.nan_guard`), and the third
     rollback in a row raises FloatingPointError;
   - a final checkpoint, only of a state whose last loss was finite or
-    whose non-finite update was skipped.
+    whose non-finite update was skipped. Checkpoints are named by the
+    state's step, which counts applied micro-steps (the JAX state's
+    step): after a skipped step it lags the loop's;
+  - the first SIGTERM ends the loop at the next call boundary and goes
+    down that final path (a SIGTERM latched by
+    `install_preemption_latch` before `fit` stops it before its first
+    step); a second one takes the default action; the previous handler
+    is restored on exit;
+  - the fault injector's sites (`resilience.faults`): ``decode`` in the
+    sampler, ``assemble`` per call on the pipeline, ``dispatch`` (one
+    NaN in the call's first micro-batch when a step of its window is
+    scheduled), ``fetch`` in the metrics read, and the checkpoint
+    sites; its counters join the records and the summary as `fault_*`;
+  - observability (`obs/`): spans `input_wait`, `dispatch`, `eval`,
+    `ckpt` and `rollback` on the main thread, `put` on the prefetch
+    thread, `assemble` on the pipeline workers and `fetch` in the read
+    (`obs.trace` -> `<log_dir>/trace.json`); `heartbeat.json` with the
+    wedge watchdog (`obs.heartbeat`); device memory, RSS, and with
+    `obs.flops` the model TFLOP/s and `mfu_nominal` in train records;
+    `--profile` / `--profile-steps` through `ProfilerSession`.
 The summary holds the eval metrics, rates, median step and phase times,
-phase totals and counters, and the checkpoint saves' seconds.
+phase totals and counters, the checkpoint saves' seconds, the telemetry
+and `pipeline_depth`, the depth the loop ran at.
 
-The JAX loop sees metric values only at log, eval and checkpoint
-boundaries; this package's step reads them back every step, so the skip
-streak counts every step. Not ported (ROADMAP): the recipe engine,
-elastic training, multi-host meshes, `steps_per_call`, fault injection,
-the heartbeat, trace, ledger and incident recorder, and the SIGTERM
-latch.
+`train.pipeline_depth`: the JAX loop reads metric values only at log,
+eval and checkpoint boundaries, up to `pipeline_depth` calls behind the
+dispatch. This package's step reads them back at the end of every step
+(its skip decision is taken on the host), the JAX loop's depth 0; on a
+run that does not diverge that gives the same result, and the skip
+streak counts every step. Not ported (ROADMAP): the `AsyncFetcher`
+(with the device-side skip it needs), the recipe engine, elastic
+training, multi-host meshes, and the ledger and incident recorder.
 
 The Trainer leaves the global TF32 switches of PyTorch as it finds them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import signal
 import time
 
 import numpy as np
@@ -50,14 +80,28 @@ from ..data.datasets import build_dataset
 from ..data.pipeline import InputPipeline, derive_batch_rng
 from ..data.prefetch import Prefetcher
 from ..models.registry import build_model
+from ..obs import trace as obs_trace
+from ..obs.heartbeat import Heartbeat
+from ..obs.telemetry import (NOMINAL_BF16_TFLOPS, count_flops,
+                             device_memory_summary, process_rss_bytes)
+from ..resilience.faults import build_injector
 from ..resilience.healing import HealingSampler
 from ..resilience.verify import config_digest
 from .checkpoint import CheckpointManager, transfer_params
 from .evaluate import evaluate_aee
-from .metrics_log import MetricsLogger, StepTimer
+from .metrics_log import (MetricsLogger, MetricsReader, ProfilerSession,
+                          StepTimer)
 from .schedule import step_decay_schedule
 from .state import create_train_state
 from .step import compute_dtype, make_eval_fn, make_train_step
+
+# Early-preemption latch: building the model and the kernels can take a
+# while, and a SIGTERM landing before fit() installs its own handler would
+# take the default action and kill the process with no checkpoint. The
+# command line installs this latch first; fit() turns a latched signal
+# into a save-and-stop before its first step. A second signal restores
+# the default action and re-raises, so a wedged start stays killable.
+_EARLY_SIGTERM: dict = {"sig": None, "handler": None}
 
 # A prefetch.get() wait above this counts as a `starved` step (the card
 # had no staged batch); below it is queue hand-off noise.
@@ -73,9 +117,59 @@ SCALE_RECORD_FIELDS: tuple[tuple[str, str], ...] = (
 
 
 def per_scale_last(v) -> list[float]:
-    """A per-scale vector (finest first) as a JSON-ready list, to 6
-    significant figures."""
-    return [float(f"{float(x):.6g}") for x in np.atleast_1d(np.asarray(v))]
+    """The last inner step's per-scale vector (finest first) as a
+    JSON-ready list, to 6 significant figures; `v` has a leading K axis
+    under steps_per_call > 1."""
+    a = np.asarray(v)
+    if a.ndim == 2:
+        a = a[-1]
+    return [float(f"{float(x):.6g}") for x in np.atleast_1d(a)]
+
+
+def _scalar_last(v) -> float:
+    """The last inner step's value of a metric (a list under
+    steps_per_call > 1)."""
+    a = np.asarray(v)
+    return float(a) if a.ndim == 0 else float(a[-1])
+
+
+def _poison_batch(batch: dict) -> dict:
+    """The dispatch fault's action: one NaN in the first float input
+    (its first element: the first micro-batch of a stacked call), on a
+    copy, so the draw's own arrays stay as they were."""
+    out = dict(batch)
+    for key in ("volume", "source", *batch):
+        v = out.get(key)
+        if torch.is_tensor(v) and v.is_floating_point():
+            v = v.clone()
+        elif isinstance(v, np.ndarray) and np.issubdtype(v.dtype,
+                                                         np.floating):
+            v = v.copy()
+        else:
+            continue
+        v[(0,) * v.ndim] = float("nan")
+        out[key] = v
+        return out
+    return out
+
+
+def install_preemption_latch() -> None:
+    """Latch a SIGTERM that lands before fit() (see `_EARLY_SIGTERM`)."""
+
+    def _latch(signum, frame):
+        if _EARLY_SIGTERM["sig"] is not None:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+            return
+        _EARLY_SIGTERM["sig"] = signum
+
+    # remembered so fit() does not re-install it on exit: after training
+    # a SIGTERM must kill the process, not set a flag nobody reads
+    _EARLY_SIGTERM["handler"] = _latch
+    try:
+        signal.signal(signal.SIGTERM, _latch)
+    except ValueError:  # not the main thread
+        pass
 
 
 def data_stream_seed(seed: int, start_step: int) -> np.ndarray:
@@ -87,7 +181,9 @@ def data_stream_seed(seed: int, start_step: int) -> np.ndarray:
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, dataset=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 profile: bool = False,
+                 profile_steps: tuple[int, int] | None = None):
         check_trainable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -99,19 +195,32 @@ class Trainer:
             corr_stride=cfg.corr_stride, seed=cfg.train.seed,
             device=self.device, dtype=compute_dtype(cfg))
         self.logger = MetricsLogger(cfg.train.log_dir)
+        self.profiler = ProfilerSession(cfg.train.log_dir, enabled=profile,
+                                        steps=profile_steps,
+                                        device=self.device)
+        # FLOPs of one optimizer step, counted at the first call of a fit
+        # (obs.flops); None until then
+        self._flops_per_step: float | None = None
         self.steps_per_epoch = max(
             self.dataset.num_train // cfg.data.batch_size, 1)
         self.schedule = step_decay_schedule(cfg.optim, self.steps_per_epoch)
         self.state = create_train_state(self.model, cfg.optim, self.schedule)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.log("info", 0, message=f"model parameters: {n_params:,}")
+        # one injector for the data path, the metrics read and the
+        # checkpoints; None when injection is off
+        self._inj = build_injector(cfg.resilience.faults)
+        if self._inj is not None:
+            self.logger.log("warn", 0, message="fault injection ENABLED "
+                                               f"({cfg.resilience.faults})")
         self.ckpt = CheckpointManager(
             os.path.join(cfg.train.log_dir, "ckpt"),
             keep=cfg.train.keep_ckpts,
             verify=cfg.resilience.verify_checkpoints,
             log=lambda s, m: self.logger.log("warn", s, message=m),
             info_log=lambda s, m: self.logger.log("info", s, message=m),
-            config_digest=config_digest(dataclasses.asdict(cfg)))
+            config_digest=config_digest(dataclasses.asdict(cfg)),
+            injector=self._inj)
 
         # cross-config transfer init; fresh starts only
         if cfg.train.init_from and self.ckpt.latest_step() is None:
@@ -144,8 +253,18 @@ class Trainer:
                 f"({cfg.train.log_dir!r})` gives per-checkpoint status; move "
                 "the ckpt directory aside to start fresh")
 
-        self.train_step = make_train_step(self.model, cfg, self.dataset.mean)
+        # the step's metrics read; fit() gives each fit its own, timed
+        self._reader = self._new_reader()
+        self.train_step = make_train_step(
+            self.model, cfg, self.dataset.mean,
+            read=lambda t: self._reader.read(t))
         self.eval_fn = make_eval_fn(cfg, self.dataset.mean)
+
+    def _new_reader(self, timer: StepTimer | None = None) -> MetricsReader:
+        return MetricsReader(timer=timer,
+                             retries=self.cfg.resilience.fetch_retries,
+                             backoff_s=self.cfg.resilience.data_backoff_s,
+                             injector=self._inj)
 
     def _next_train_batch(self, it: int, rng: np.random.RandomState) -> dict:
         return self.dataset.sample_train(self.cfg.data.batch_size, rng=rng)
@@ -160,10 +279,62 @@ class Trainer:
 
     def fit(self, num_epochs: int | None = None,
             max_steps: int | None = None) -> dict[str, float]:
+        with contextlib.ExitStack() as stack:
+            return self._fit(stack, num_epochs, max_steps)
+
+    def _fit(self, stack: contextlib.ExitStack, num_epochs: int | None,
+             max_steps: int | None) -> dict[str, float]:
+        """`fit`'s body; `stack` tears down what it starts, in reverse:
+        the heartbeat, the input pipeline and prefetcher, the tracer, and
+        last the SIGTERM handler."""
         cfg = self.cfg
         self.model.train()
         start_step = self.state.step
         seed_arr = data_stream_seed(cfg.train.seed, start_step)
+        inj = self._inj
+        k = max(cfg.train.steps_per_call, 1)
+
+        # The first SIGTERM ends the loop at the next call boundary and
+        # the normal final path writes the checkpoint; a second takes the
+        # default action, so a wedged run stays killable. Installed only
+        # on the main thread (signal.signal raises ValueError elsewhere).
+        stop_sig: dict[str, int | None] = {"sig": None}
+
+        def _on_sigterm(signum, frame):
+            if stop_sig["sig"] is not None:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            stop_sig["sig"] = signum
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            pass
+        else:
+            # restored last, after the final checkpoint. A previous
+            # handler set outside Python (None) cannot be re-installed,
+            # and the early latch is not: after training a SIGTERM must
+            # kill the process
+            restore = prev_handler
+            if restore is None or restore is _EARLY_SIGTERM["handler"]:
+                restore = signal.SIG_DFL
+            stack.callback(signal.signal, signal.SIGTERM, restore)
+        if _EARLY_SIGTERM["sig"] is not None:
+            # latched before fit(): save and stop before the first step
+            stop_sig["sig"] = _EARLY_SIGTERM["sig"]
+            _EARLY_SIGTERM["sig"] = None
+
+        # the tracer goes in before the pipeline: its workers start
+        # assembling at construction, and those spans belong on the
+        # timeline; uninstalled and flushed on the way out
+        tracer = None
+        if cfg.obs.trace:
+            tracer = obs_trace.Tracer(
+                path=os.path.join(cfg.train.log_dir, "trace.json"),
+                ring_size=cfg.obs.trace_ring, role="trainer", index=0)
+            stack.enter_context(obs_trace.installed(tracer))
+
         # warn records from the healer (worker threads) stamp the loop's
         # current step
         cur_step = {"s": start_step}
@@ -173,36 +344,78 @@ class Trainer:
             retries=cfg.resilience.data_retries,
             backoff_s=cfg.resilience.data_backoff_s,
             substitutes=cfg.resilience.data_substitutes,
+            injector=inj,
             log=lambda m: self.logger.log("warn", cur_step["s"], message=m))
+
+        def assemble(call_idx: int) -> dict:
+            """The input of call `call_idx`, a pure function of it:
+            micro-batches call_idx*K .. call_idx*K+K-1 (stacked on a
+            leading axis when K > 1). The ``assemble`` fault site sits
+            above the sampler, so an injected fault takes the pipeline's
+            retry."""
+            if inj is not None:
+                inj.check("assemble", call_idx)
+            if k == 1:
+                return healer(call_idx)
+            bs = [healer(i) for i in range(call_idx * k, call_idx * k + k)]
+            return {key: np.stack([np.asarray(b[key]) for b in bs])
+                    for key in bs[0]}
+
         timer = StepTimer(cfg.data.batch_size)
-        pipeline = InputPipeline(healer, num_workers=cfg.data.num_workers,
+        self._reader = reader = self._new_reader(timer)
+        pipeline = InputPipeline(assemble, num_workers=cfg.data.num_workers,
                                  reorder_depth=cfg.data.reorder_depth,
                                  retries=cfg.resilience.pipeline_retries,
                                  backoff_s=cfg.resilience.data_backoff_s)
-        try:
-            prefetch = Prefetcher(pipeline.get, depth=cfg.data.prefetch,
-                                  device=self.device, phase_cb=timer.phase)
-        except BaseException:
-            pipeline.close()  # its workers started at construction
-            raise
+        stack.callback(pipeline.close)  # its workers started already
+        prefetch = Prefetcher(pipeline.get, depth=cfg.data.prefetch,
+                              device=self.device, phase_cb=timer.phase)
+        # pipeline BEFORE prefetch: the prefetch thread may be blocked in
+        # pipeline.get(), which only closing the pipeline releases
+        # (closing it twice is harmless)
+        stack.callback(prefetch.close)
+        stack.callback(pipeline.close)
 
         def resilience_stats() -> dict:
+            """One merge of the data-path, metrics-read, checkpoint and
+            fault counters for the heartbeat, the train records and the
+            summary."""
             return {**{f"data_{k}": v for k, v in pipeline.stats().items()},
                     **{f"data_{k}": v for k, v in prefetch.stats().items()},
                     **{f"data_{k}": v for k, v in healer.stats().items()},
-                    **{f"ckpt_{k}": v for k, v in self.ckpt.stats().items()}}
+                    **{f"pipeline_{k}": v for k, v in reader.stats().items()},
+                    **{f"ckpt_{k}": v for k, v in self.ckpt.stats().items()},
+                    **({f"fault_{k}": v for k, v in inj.stats().items()}
+                       if inj is not None else {})}
+
+        heartbeat = None
+        if cfg.obs.heartbeat:
+            heartbeat = Heartbeat(
+                os.path.join(cfg.train.log_dir, "heartbeat.json"),
+                period_s=cfg.obs.heartbeat_period_s,
+                watchdog_factor=cfg.obs.watchdog_factor,
+                watchdog_min_s=cfg.obs.watchdog_min_s,
+                sample=lambda: {**timer.rates(), **timer.counters(),
+                                **resilience_stats()},
+                log=lambda s, m: self.logger.log("warn", s, message=m),
+                tracer=tracer, device=self.device)
+            stack.callback(heartbeat.close)  # writes the final state
+
+        def touch(flush: bool = False) -> None:
+            if heartbeat is not None:
+                heartbeat.touch(flush=flush)
 
         max_skips = max(cfg.resilience.max_consecutive_skips, 1)
         skip_streak = 0
         last_eval: dict[str, float] = {}
 
         def on_metrics(gs: int, ep: int, log_due: bool, m: dict) -> bool:
-            """The divergence ladder and the train record for step gs.
-            Returns True when the state must roll back: a non-finite loss
-            whose update was not skipped, or a streak of skipped
-            updates."""
+            """The divergence ladder and the train record for the call
+            that ended at step gs. Returns True when the state must roll
+            back: a non-finite loss whose update was not skipped, or a
+            streak of skipped updates."""
             nonlocal skip_streak
-            skipped = int(round(m["update_skipped"]))
+            skipped = int(round(float(np.sum(m["update_skipped"]))))
             if skipped:
                 timer.count("skipped_updates", skipped)
                 skip_streak += skipped
@@ -212,7 +425,8 @@ class Trainer:
                             f"update(s) skipped in place (state unchanged; "
                             f"streak {skip_streak}/"
                             f"{cfg.resilience.max_consecutive_skips})")
-            nonfinite = cfg.train.nan_guard and not np.isfinite(m["total"])
+            nonfinite = cfg.train.nan_guard and not np.isfinite(
+                m["total"]).all()
             if nonfinite and not skipped:
                 return True  # never log a diverged record
             if skipped and cfg.train.nan_guard and skip_streak >= max_skips:
@@ -223,123 +437,187 @@ class Trainer:
                 return False
             cache = getattr(self.dataset, "cache_stats", None)
             self.logger.log(
-                "train", gs, epoch=ep, loss=m["total"],
-                lr=float(self.schedule(gs - 1)), grad_norm=m["grad_norm"],
+                "train", gs, epoch=ep, loss=_scalar_last(m["total"]),
+                lr=float(self.schedule(gs - 1)),
+                grad_norm=_scalar_last(m["grad_norm"]),
                 **{f: per_scale_last(m[src])
                    for f, src in SCALE_RECORD_FIELDS},
                 **timer.rates(), **timer.phases(), **timer.counters(),
                 **resilience_stats(),
                 **({f"decode_cache_{k}": v for k, v in cache().items()
                     if k in ("hits", "misses", "evictions")}
-                   if cache is not None else {}))
+                   if cache is not None else {}),
+                **self._telemetry(timer))
             return False
 
         def crossed(prev: int, new: int, every: int) -> bool:
             return every > 0 and prev // every != new // every
 
-        try:
-            total_steps = ((num_epochs or cfg.train.num_epochs)
-                           * self.steps_per_epoch)
-            if max_steps is not None:
-                total_steps = min(total_steps, start_step + max_steps)
-            if cfg.train.nan_guard and self.ckpt.latest_step() is None:
-                self.ckpt.save(self.state)  # rollback target before step 1
-            ckpt_mark = timer.mark()
-            gstep = start_step
-            consecutive_rollbacks = 0
-            metrics = None
-            while gstep < total_steps:
-                t0 = time.perf_counter()
+        total_steps = ((num_epochs or cfg.train.num_epochs)
+                       * self.steps_per_epoch)
+        if max_steps is not None:
+            total_steps = min(total_steps, start_step + max_steps)
+        if cfg.train.nan_guard and self.ckpt.latest_step() is None:
+            self.ckpt.save(self.state)  # rollback target before step 1
+        ckpt_mark = timer.mark()
+        self.profiler.maybe_start()
+        stack.callback(self.profiler.maybe_stop)  # on an error too
+        gstep = start_step
+        consecutive_rollbacks = 0
+        metrics = None
+        first_call = True
+        while gstep < total_steps and stop_sig["sig"] is None:
+            self.profiler.observe(gstep, k)  # --profile-steps window
+            t0 = time.perf_counter()
+            with obs_trace.span("input_wait"):
                 batch = prefetch.get()
-                wait = time.perf_counter() - t0
-                timer.phase("assemble", wait)
-                if wait > STARVED_WAIT_S:
-                    timer.count("starved")
-                t0 = time.perf_counter()
-                metrics = self.train_step(self.state, batch)
-                timer.phase("dispatch", time.perf_counter() - t0)
-                if gstep == start_step:
+            wait = time.perf_counter() - t0
+            timer.phase("assemble", wait)
+            if wait > STARVED_WAIT_S:
+                timer.count("starved")
+            if inj is not None:
+                # the whole window [gstep, gstep + K) is checked, so a
+                # scheduled step inside a stride still fires
+                hits = [s for s in range(gstep, gstep + k)
+                        if inj.hit("dispatch", s)]
+                if hits:
+                    batch = _poison_batch(batch)
                     self.logger.log(
-                        "info", gstep + 1,
-                        message=f"first step: "
-                                f"{time.perf_counter() - t0:.1f}s")
-                timer.tick()
-                prev, gstep = gstep, gstep + 1
-                cur_step["s"] = gstep
-                epoch = gstep // self.steps_per_epoch
-                end_of_epoch = crossed(prev, gstep, self.steps_per_epoch)
-                log_due = (crossed(prev, gstep, cfg.train.log_every)
-                           or end_of_epoch)
-                eval_due = end_of_epoch or crossed(prev, gstep,
-                                                   cfg.train.eval_every)
-                ckpt_due = ((end_of_epoch
-                             and epoch % cfg.train.ckpt_every_epochs == 0)
-                            or crossed(prev, gstep,
-                                       cfg.train.ckpt_every_steps))
-
-                if on_metrics(gstep, epoch, log_due, metrics):
-                    skip_streak = 0  # the rollback rewinds the run
-                    timer.count("rollbacks")
-                    self._rollback(gstep)
-                    gstep = self.state.step
-                    # discarded steps do not count toward throughput;
-                    # boundaries up to the divergence re-fire as gstep
-                    # crosses them again
-                    timer.rewind(ckpt_mark)
-                    consecutive_rollbacks += 1
-                    if consecutive_rollbacks >= 3:
-                        raise FloatingPointError(
-                            f"loss diverged to NaN {consecutive_rollbacks} "
-                            f"consecutive times around step {gstep}; "
-                            "rollback is not recovering — aborting")
-                    continue
-                if not (cfg.train.nan_guard
-                        and not np.isfinite(metrics["total"])):
-                    consecutive_rollbacks = 0  # a finite step recovered
-
-                if eval_due:
-                    last_eval = self.evaluate(dump=cfg.train.dump_visuals)
-                    self.logger.log("eval", gstep, epoch=epoch, **last_eval)
-                    timer.pause()  # eval time is not training throughput
-                if ckpt_due:
-                    if self.ckpt.save(self.state) is not None:
-                        # a failed save keeps the previous mark: a
-                        # rollback restores the last checkpoint written
-                        ckpt_mark = timer.mark()
-                    timer.pause()
-            if healer.quarantine_log:
+                        "warn", gstep,
+                        message=f"fault injection: dispatch batch at "
+                                f"step(s) {hits} poisoned with NaN")
+            t0 = time.perf_counter()
+            with obs_trace.span("dispatch", step=gstep + k):
+                if first_call and cfg.obs.flops:
+                    # counted around this call itself: no extra step,
+                    # update or random draw
+                    metrics, flops = count_flops(
+                        lambda: self.train_step(self.state, batch))
+                    self._flops_per_step = flops / k or None
+                else:
+                    metrics = self.train_step(self.state, batch)
+            timer.phase("dispatch", time.perf_counter() - t0)
+            if first_call:
                 self.logger.log(
-                    "info", gstep,
-                    message=f"{len(healer.quarantine_log)} sample draw(s) "
-                            "quarantined and substituted this run: "
-                            + "; ".join(
-                                f"batch {ev['index']} round {ev['round']} "
-                                f"({ev['error']})"
-                                for ev in healer.quarantine_log[:20]))
-            # never save a state whose last steps diverged: a non-finite
-            # final loss is fine only if its update was skipped in place
-            if (metrics is None or not cfg.train.nan_guard
-                    or np.isfinite(metrics["total"])
-                    or metrics["update_skipped"]):
-                self.ckpt.save(self.state)
-            else:
+                    "info", gstep + k,
+                    message=f"first step: {time.perf_counter() - t0:.1f}s",
+                    flops_per_step=self._flops_per_step)
+                first_call = False
+            timer.tick(k)
+            prev, gstep = gstep, gstep + k
+            cur_step["s"] = gstep
+            if heartbeat is not None:
+                heartbeat.beat(gstep)
+            epoch = gstep // self.steps_per_epoch
+            end_of_epoch = crossed(prev, gstep, self.steps_per_epoch)
+            log_due = (crossed(prev, gstep, cfg.train.log_every)
+                       or end_of_epoch)
+            eval_due = end_of_epoch or crossed(prev, gstep,
+                                               cfg.train.eval_every)
+            ckpt_due = ((end_of_epoch
+                         and epoch % cfg.train.ckpt_every_epochs == 0)
+                        or crossed(prev, gstep, cfg.train.ckpt_every_steps))
+
+            if on_metrics(gstep, epoch, log_due, metrics):
+                skip_streak = 0  # the rollback rewinds the run
+                timer.count("rollbacks")
                 self._rollback(gstep)
+                gstep = self.state.step
+                # discarded steps do not count toward throughput;
+                # boundaries up to the divergence re-fire as gstep
+                # crosses them again
                 timer.rewind(ckpt_mark)
-                self.logger.log(
-                    "warn", gstep,
-                    message="non-finite loss at final step; state rolled "
-                            "back to the last good checkpoint instead of "
-                            "saving the diverged state")
-        finally:
-            # pipeline BEFORE prefetch: the prefetch thread may be blocked
-            # in pipeline.get(), which only closing the pipeline releases
-            pipeline.close()
-            prefetch.close()
+                touch()  # the restore took time
+                consecutive_rollbacks += 1
+                if consecutive_rollbacks >= 3:
+                    raise FloatingPointError(
+                        f"loss diverged to NaN {consecutive_rollbacks} "
+                        f"consecutive times around step {gstep}; "
+                        "rollback is not recovering — aborting")
+                continue
+            if not (cfg.train.nan_guard
+                    and not np.isfinite(metrics["total"]).all()):
+                consecutive_rollbacks = 0  # a finite step recovered
+
+            if eval_due:
+                # written from this thread before the sweep, whose host
+                # work may starve the heartbeat's own thread
+                touch(flush=True)
+                with obs_trace.span("eval", step=gstep):
+                    last_eval = self.evaluate(dump=cfg.train.dump_visuals)
+                self.logger.log("eval", gstep, epoch=epoch, **last_eval)
+                timer.pause()  # eval time is not training throughput
+                touch()  # a long sweep is not a wedge
+            if ckpt_due:
+                with obs_trace.span("ckpt", step=gstep):
+                    saved = self.ckpt.save(self.state)
+                if saved is not None:
+                    # a failed save keeps the previous mark: a rollback
+                    # restores the last checkpoint written
+                    ckpt_mark = timer.mark()
+                timer.pause()
+                touch()
+        self.profiler.maybe_stop()
+        if healer.quarantine_log:
+            self.logger.log(
+                "info", gstep,
+                message=f"{len(healer.quarantine_log)} sample draw(s) "
+                        "quarantined and substituted this run: "
+                        + "; ".join(
+                            f"batch {ev['index']} round {ev['round']} "
+                            f"({ev['error']})"
+                            for ev in healer.quarantine_log[:20]))
+        if stop_sig["sig"] is not None:
+            self.logger.log(
+                "warn", gstep,
+                message=f"signal {stop_sig['sig']} received; stopping "
+                        "after a clean final checkpoint (auto-resume "
+                        "continues from here)")
+        # never save a state whose last steps diverged: a non-finite
+        # final loss is fine only if its update was skipped in place
+        final_ok = metrics is None or not cfg.train.nan_guard
+        if not final_ok:
+            total = np.atleast_1d(np.asarray(metrics["total"], np.float64))
+            skipped = np.atleast_1d(np.asarray(metrics["update_skipped"]))
+            bad = ~np.isfinite(total)
+            final_ok = bool(np.all(skipped[bad] >= 0.5))
+        if final_ok:
+            self.ckpt.save(self.state)
+        else:
+            self._rollback(gstep)
+            timer.rewind(ckpt_mark)
+            self.logger.log(
+                "warn", gstep,
+                message="non-finite loss at final step; state rolled "
+                        "back to the last good checkpoint instead of "
+                        "saving the diverged state")
         return {**last_eval, **timer.rates(), **timer.medians(),
-                **timer.phases(), **timer.counters(), **resilience_stats()}
+                **timer.phases(), **timer.counters(), **resilience_stats(),
+                **{k: v for k, v in self._telemetry(timer).items()
+                   if v is not None},
+                "pipeline_depth": 0}
+
+    def _telemetry(self, timer: StepTimer) -> dict:
+        """Device memory, RSS and model FLOP rate for a train record
+        (`obs/telemetry.py`). The keys are the same on every device:
+        what the CPU cannot report is null in metrics.jsonl."""
+        out = device_memory_summary(self.device)
+        out["rss_bytes"] = process_rss_bytes()
+        if self._flops_per_step:
+            sps = timer.rates()["steps_per_sec"]
+            if sps > 0:
+                tfs = self._flops_per_step * sps / 1e12
+                # significant figures: a CPU run's 1e-5 TFLOP/s must not
+                # round to 0.0
+                out["model_tflops"] = float(f"{tfs:.4g}")
+                out["mfu_nominal"] = float(
+                    f"{tfs / NOMINAL_BF16_TFLOPS:.4g}")
+        return out
 
     def _rollback(self, step: int) -> None:
-        if self.ckpt.restore(self.state) is None:
+        with obs_trace.span("rollback", step=step):
+            restored = self.ckpt.restore(self.state)
+        if restored is None:
             raise FloatingPointError(
                 f"divergence at step {step} and no restorable checkpoint "
                 f"under {self.ckpt.directory} to roll back to (none written "

@@ -1,14 +1,20 @@
-"""Structured metrics log and step timing (port of `MetricsLogger` and
-`StepTimer` from `deepof_tpu/train/metrics_log.py`).
+"""Structured metrics log, step timing, the metrics read and the
+profiler window (port of `deepof_tpu/train/metrics_log.py`).
 
 Every record is one JSON line in `<log_dir>/metrics.jsonl`, mirrored to
 stdout. `StepTimer` reports steps/s and pairs/s over training time only,
 per-phase host seconds and event counters.
 
-The JAX loop drains metric values on a background `AsyncFetcher` (or
-inline through `SyncFetcher`), because its steps return device arrays.
-This package's step reads its metrics back as host floats, so `fit`
-runs its metrics callback inline and neither fetcher is ported.
+`MetricsReader` is the JAX package's `SyncFetcher` (its
+`pipeline_depth=0`): the host read of a step's metrics, inline, on the
+bounded retry ladder with the ``fetch`` fault site. The step calls it at
+the end of each step, because its skip decision needs the values on the
+host. The JAX loop's `AsyncFetcher`, which drains reads behind the next
+dispatch, needs a skip decided on the device; it is not ported (ROADMAP
+Queue A item 6).
+
+`ProfilerSession` is the JAX package's `jax.profiler` window on
+`torch.profiler`: a Chrome trace under `<log_dir>/profile/`.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import threading
 import time
 
 import numpy as np
+import torch
+
+from ..obs import trace as obs_trace
+from ..resilience.healing import retry_bounded
 
 
 def _scalarize(v):
@@ -82,8 +92,9 @@ class StepTimer:
     `rollbacks`).
 
     `medians()` gives the median host-clock time of a timed step (tick
-    to tick) and of each phase, over the latest RECENT of each; steps a
-    rollback discards still count there, since they took that time.
+    to tick, over the steps of a call) and of each phase, over the
+    latest RECENT of each; steps a rollback discards still count there,
+    since they took that time.
     """
 
     #: samples per median (the latest ones)
@@ -123,13 +134,14 @@ class StepTimer:
         return {f"phase_{k}_s": round(v, 4)
                 for k, v in sorted(dict(self._phases).items())}
 
-    def tick(self) -> None:
-        """Record a completed step."""
+    def tick(self, n: int = 1) -> None:
+        """Record n completed steps (a call of steps_per_call = n); the
+        median samples the interval per step."""
         now = time.perf_counter()
         if self._last is not None:
             self._elapsed += now - self._last
-            self._steps += 1
-            self._sample("step", now - self._last)
+            self._steps += n
+            self._sample("step", (now - self._last) / n)
         self._last = now
 
     def medians(self) -> dict[str, float]:
@@ -160,3 +172,119 @@ class StepTimer:
         those steps)."""
         self._elapsed, self._steps = mark
         self._last = None
+
+
+class MetricsReader:
+    """The host read of a step's metrics (the JAX package's `SyncFetcher`):
+    `read(tensor) -> list`, under a ``fetch`` span, timed as the `fetch`
+    phase, on the bounded retry ladder (`resilience/healing.py`): a
+    failed read, or an injected ``fetch`` fault, is tried again up to
+    `retries` times. The fault site's index is the read's sequence
+    number: one read a step, so the JAX loop's fetch index at
+    `train.log_every = 1` and `steps_per_call = 1`."""
+
+    def __init__(self, timer: StepTimer | None = None, retries: int = 0,
+                 backoff_s: float = 0.05, injector=None):
+        self._timer = timer
+        self._retries = max(int(retries), 0)
+        self._backoff = max(float(backoff_s), 0.0)
+        self._inj = injector
+        self._retry_count = 0
+        self._fetches = 0
+        self._fetch_s = 0.0
+
+    def _count_retry(self) -> None:
+        self._retry_count += 1
+
+    def read(self, t: torch.Tensor) -> list:
+        seq = self._fetches
+
+        def once() -> list:
+            if self._inj is not None:
+                self._inj.check("fetch", seq)
+            return t.tolist()
+
+        t0 = time.perf_counter()
+        with obs_trace.span("fetch"):
+            host = retry_bounded(once, retries=self._retries,
+                                 backoff_s=self._backoff,
+                                 on_retry=self._count_retry)
+        dt = time.perf_counter() - t0
+        self._fetches += 1
+        self._fetch_s += dt
+        if self._timer is not None:
+            self._timer.phase("fetch", dt)
+        return host
+
+    def stats(self) -> dict[str, float]:
+        return {"fetches": self._fetches, "fetch_s": round(self._fetch_s, 4),
+                "fetch_retries": self._retry_count,
+                "max_in_flight": 1 if self._fetches else 0}
+
+
+class ProfilerSession:
+    """Optional `torch.profiler` capture (the JAX package's
+    `ProfilerSession` on `jax.profiler`), written as a Chrome trace to
+    `<log_dir>/profile/trace.json` (CPU and, on a CUDA device, CUDA
+    activity).
+
+    Two modes:
+      - whole run (`enabled=True`, `steps=None`): from loop entry to
+        teardown, the first step (kernel builds, cuDNN's search) included;
+      - a step window (`steps=(a, b)`, `--profile-steps a:b`): the loop
+        reports progress through `observe(gstep, k)`; the capture starts
+        at the first call whose steps [gstep, gstep + k) reach into
+        [a, b), and stops once gstep >= b. One window a session.
+    """
+
+    def __init__(self, log_dir: str, enabled: bool = False,
+                 steps: tuple[int, int] | None = None,
+                 device: torch.device | str = "cpu"):
+        self.log_dir = os.path.join(log_dir, "profile")
+        if steps is not None:
+            start, stop = int(steps[0]), int(steps[1])
+            if not 0 <= start < stop:
+                raise ValueError(
+                    f"profile step window must be 0 <= start < stop, "
+                    f"got {steps}")
+            steps = (start, stop)
+        self.steps = steps
+        self.enabled = enabled or steps is not None
+        self._cuda = torch.device(device).type == "cuda"
+        self._prof = None
+        self._done = False
+
+    def maybe_start(self) -> None:
+        """Loop entry: the whole-run mode starts here."""
+        if self.enabled and self.steps is None and self._prof is None:
+            self._start()
+
+    def observe(self, gstep: int, steps_per_call: int = 1) -> None:
+        """Once per loop iteration, before the call that runs steps
+        [gstep, gstep + steps_per_call)."""
+        if not self.enabled or self.steps is None or self._done:
+            return
+        start, stop = self.steps
+        if self._prof is not None:
+            if gstep >= stop:
+                self._stop()
+                self._done = True
+        elif gstep < stop and gstep + max(steps_per_call, 1) > start:
+            self._start()
+
+    def maybe_stop(self) -> None:
+        if self._prof is not None:
+            self._stop()
+
+    def _start(self) -> None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self._cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.start()
+
+    def _stop(self) -> None:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))

@@ -1,12 +1,33 @@
-"""Train state: the model, its optimizer and the count of applied updates
-(port of `deepof_tpu/train/state.py`).
+"""Train state: the model, its optimizer, the gradient accumulator and
+the counts of applied micro-steps and of emitted updates (port of
+`deepof_tpu/train/state.py`).
 
 Adam matches optax's `adam`: torch's update is lr * m_hat / (sqrt(v_hat)
-+ eps), as optax's with eps_root = 0. The learning rate of update k is
-`schedule(k)`, where k counts *applied* updates, as optax's count does: a
-skipped update neither advances it nor touches the moments. Gradient
-clipping matches `optax.clip_by_global_norm`: g * max / |g| only when
-|g| > max (`clip_grad_norm_` divides by |g| + 1e-6 and is not used).
++ eps), as optax's with eps_root = 0. Gradient clipping matches
+`optax.clip_by_global_norm`: g / |g| * max unless |g| < max
+(`clip_grad_norm_` divides by |g| + 1e-6 and is not used).
+
+`optim.grad_accum = k > 1` has the semantics of `optax.MultiSteps`
+around `chain(clip, adam)`:
+  - the accumulator is optax's running mean of the micro-gradients,
+    acc + (g - acc) / (mini_step + 1), in a buffer of its own: each
+    micro-step's gradient comes fresh in `.grad` and folds in only when
+    the step applies it (a finite one; torch's idiom of calling
+    `backward()` without `zero_grad` would sum, and fold a non-finite
+    micro-gradient in before the host sees it);
+  - every k-th applied micro-step emits one update from the mean: the
+    clip acts on the mean's global norm, and Adam steps;
+  - two counters: `step` counts applied micro-steps (the global step
+    of the cadences and the checkpoint names, the JAX `TrainState.step`)
+    and `updates` counts emitted updates (Adam's count, MultiSteps'
+    `gradient_step`). Emitted update j takes the learning rate
+    `schedule(j * k)`, so the decay boundaries stay at the same number
+    of data batches as without accumulation;
+  - a skipped micro-step (`train/step.py`) calls nothing here, so the
+    accumulator, `mini_step`, Adam's moments and count and `step` all
+    stay as they were, as the JAX step keeps its whole state.
+At k = 1 every applied step emits its own gradient and `updates` equals
+`step`.
 """
 
 from __future__ import annotations
@@ -23,10 +44,6 @@ from ..core.config import OptimConfig
 def make_optimizer(cfg: OptimConfig, params) -> torch.optim.Adam:
     """Adam with the configured betas and eps; the learning rate is set
     from the schedule before every update (`TrainState.apply_gradients`)."""
-    if cfg.grad_accum > 1:
-        raise NotImplementedError(
-            f"optim.grad_accum={cfg.grad_accum} is not ported to "
-            "deepof_tpu_torch yet: ROADMAP Queue A item 6 (training loop)")
     return torch.optim.Adam(params, lr=cfg.learning_rate,
                             betas=(cfg.beta1, cfg.beta2), eps=cfg.adam_eps)
 
@@ -40,30 +57,57 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
 @dataclass
 class TrainState:
     """Updated in place by `apply_gradients` (PyTorch's idiom; the JAX
-    state is an immutable pytree)."""
+    state is an immutable pytree). `acc` is the accumulator, one float32
+    tensor per parameter, present only when grad_accum > 1."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     grad_clip_norm: float | None = None
+    grad_accum: int = 1
     step: int = 0
+    updates: int = 0
+    mini_step: int = 0
+    acc: list[torch.Tensor] | None = None
 
     def apply_gradients(self, grad_norm: float) -> None:
-        """One Adam update from the gradients in `.grad`, whose global
-        norm is `grad_norm`."""
-        if self.grad_clip_norm and grad_norm > self.grad_clip_norm:
-            scale = self.grad_clip_norm / grad_norm
-            for p in self.model.parameters():
-                if p.grad is not None:
-                    p.grad.mul_(scale)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step)
-        self.optimizer.step()
+        """Apply one micro-step from the gradients in `.grad`, whose
+        global norm is `grad_norm`: fold them into the accumulator and,
+        on every grad_accum-th applied micro-step (every one at 1), emit
+        an Adam update."""
+        params = list(self.model.parameters())
         self.step += 1
+        if self.grad_accum > 1:
+            n = self.mini_step + 1
+            for a, p in zip(self.acc, params):
+                g = p.grad if p.grad is not None else torch.zeros_like(a)
+                a.add_((g - a) / n)
+            if n < self.grad_accum:
+                self.mini_step = n
+                return
+            # emit the mean; MultiSteps restarts the mean from zeros
+            for a, p in zip(self.acc, params):
+                p.grad = a.clone()
+                a.zero_()
+            self.mini_step = 0
+            grad_norm = global_norm([p.grad for p in params]).item()
+        if self.grad_clip_norm and not grad_norm < self.grad_clip_norm:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(grad_norm).mul_(self.grad_clip_norm)
+        lr = self.schedule(self.updates * self.grad_accum)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.updates += 1
 
 
 def create_train_state(model: nn.Module, cfg: OptimConfig,
                        schedule: Callable[[int], float]) -> TrainState:
+    accum = max(cfg.grad_accum, 1)
+    acc = ([torch.zeros_like(p) for p in model.parameters()]
+           if accum > 1 else None)
     return TrainState(model=model,
                       optimizer=make_optimizer(cfg, model.parameters()),
-                      schedule=schedule, grad_clip_norm=cfg.grad_clip_norm)
+                      schedule=schedule, grad_clip_norm=cfg.grad_clip_norm,
+                      grad_accum=accum, acc=acc)

@@ -4,9 +4,18 @@
 `model_losses` preprocesses the pair (or the volume), runs the model and
 the pyramid loss (`pyramid_loss`, or `pyramid_loss_multi` for a batch
 with a "volume"). `make_train_step` builds `step(state, batch) ->
-metrics`: forward, backward, global gradient norm, and the Adam update,
-which is skipped when the loss or the gradient norm is not finite
-(`skip_nonfinite`).
+metrics`: forward, backward, global gradient norm, and the micro-step
+(`TrainState.apply_gradients`: the accumulator under `optim.grad_accum`,
+the Adam update), which is skipped when the loss or the gradient norm is
+not finite (`skip_nonfinite`). Under `train.steps_per_call = K > 1` the
+step takes K stacked batches ([K, B, ...] entries) and runs K steps in
+sequence, each with its own skip, returning metrics with a leading K
+axis as the JAX step's `lax.scan` does; it is a loop over the same
+operations, so it gives the bits of K single calls. Under `train.remat`
+the model forward runs under `torch.utils.checkpoint` (non-reentrant),
+where the JAX step puts `jax.checkpoint`: the loss and its warps stay
+outside, and the forward runs again in backward (the correlation kernel
+twice a step).
 `make_eval_fn` builds `eval_fn(model, batch)`: the same objective
 without gradients, with the finest flow and reconstruction.
 
@@ -23,6 +32,7 @@ import math
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ExperimentConfig, LossConfig, check_trainable
 from ..losses.pyramid import (lrn_normalize, preprocess, pyramid_loss,
@@ -47,19 +57,27 @@ def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
 
 def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
                  loss_cfg: LossConfig, smooth_border_mask: bool = False,
-                 compute_dtype: torch.dtype = torch.float32
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False
                  ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Forward + objective for a flow model. batch: NHWC float images
     "source" and "target" (and optionally the augmented "net_source"/
     "net_target" that feed the network), or a T-frame "volume"
     (B, H, W, 3T). The network's input is cast to `compute_dtype`, its
-    flows back to float32. Returns (total, aux with the per-level loss
-    dicts, finest scaled flow, finest reconstruction)."""
+    flows back to float32. `remat` recomputes the model forward in
+    backward. Returns (total, aux with the per-level loss dicts, finest
+    scaled flow, finest reconstruction)."""
+
+    def fwd(x):
+        if remat:
+            return checkpoint(model, x, use_reentrant=False)
+        return model(x)
+
     if "volume" in batch:
         vol = batch["volume"]
         # the BGR mean of each of the T frames, stacked frame-major
         scaled = preprocess(vol, tuple(mean) * (vol.shape[-1] // 3))
-        flows = [f.float().permute(0, 2, 3, 1) for f in model(
+        flows = [f.float().permute(0, 2, 3, 1) for f in fwd(
             scaled.permute(0, 3, 1, 2).to(compute_dtype).contiguous())]
         total, losses, recon = pyramid_loss_multi(
             list(zip(flows, model.flow_scales)), lrn_normalize(scaled),
@@ -74,7 +92,7 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
                if "net_target" in batch else tgt)
     pair = torch.cat([net_src, net_tgt], dim=-1).permute(0, 3, 1, 2)
     flows = [f.float().permute(0, 2, 3, 1)
-             for f in model(pair.to(compute_dtype).contiguous())]
+             for f in fwd(pair.to(compute_dtype).contiguous())]
     total, losses, recon = pyramid_loss(
         list(zip(flows, model.flow_scales)), lrn_normalize(src),
         lrn_normalize(tgt), loss_cfg, smooth_border_mask)
@@ -91,28 +109,37 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
-                    smooth_border_mask: bool = False
+                    smooth_border_mask: bool = False,
+                    read: Callable[[torch.Tensor], list] | None = None
                     ) -> Callable[[TrainState, dict], dict]:
     """(state, batch) -> metrics: total, grad_norm, update_skipped and the
-    five scale_* lists, as Python floats. `state` is updated in place.
-    The batch may hold numpy arrays or tensors; it moves to the model's
-    device."""
+    five scale_* lists, as Python floats; under steps_per_call = K > 1 a
+    batch of [K, B, ...] entries and metrics of K values each. `state`
+    is updated in place. The batch may hold numpy arrays or tensors; it
+    moves to the model's device. `read` takes a step's metrics to the
+    host as a list (default `Tensor.tolist`; the loop passes
+    `MetricsReader.read`, its retried and traced read)."""
     check_trainable(cfg)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg)
+    read = read if read is not None else torch.Tensor.tolist
 
     def step(state: TrainState, batch: dict) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
         total, aux = model_losses(model, batch_to_device(batch, device),
-                                  mean, cfg.loss, smooth_border_mask, dtype)
+                                  mean, cfg.loss, smooth_border_mask, dtype,
+                                  remat=cfg.train.remat)
         total.backward()
         grad_norm = global_norm([p.grad for p in model.parameters()
                                  if p.grad is not None])
         scales = torch.stack([torch.stack([d[k] for d in aux["losses"]])
                               for k in SCALE_KEYS])
         # one device-to-host read for every metric
-        head = torch.stack([total, grad_norm]).detach().tolist()
-        rows = scales.detach().tolist()
+        flat = read(torch.cat([torch.stack([total, grad_norm]),
+                               scales.flatten()]).detach())
+        head, n = flat[:2], scales.shape[1]
+        rows = [flat[2 + i * n:2 + (i + 1) * n]
+                for i in range(len(SCALE_KEYS))]
         finite = math.isfinite(head[0]) and math.isfinite(head[1])
         skipped = cfg.resilience.skip_nonfinite and not finite
         if not skipped:
@@ -123,7 +150,16 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
                                                             rows)})
         return metrics
 
-    return step
+    k = max(cfg.train.steps_per_call, 1)
+    if k == 1:
+        return step
+
+    def multi_step(state: TrainState, batches: dict) -> dict:
+        rows = [step(state, {key: v[i] for key, v in batches.items()})
+                for i in range(k)]
+        return {key: [r[key] for r in rows] for key in rows[0]}
+
+    return multi_step
 
 
 def make_eval_fn(cfg: ExperimentConfig, mean: Mean,

@@ -49,11 +49,13 @@ def _records(log_dir):
 
 
 def _flip_byte(ckpt_dir, step):
+    """Flip the payload's first byte (the archive's first header): a
+    byte in raw tensor data would load unnoticed, and where that data
+    lies depends on what the payload holds."""
     path = os.path.join(ckpt_dir, f"step_{step:010d}", PAYLOAD)
     with open(path, "r+b") as f:
-        f.seek(os.path.getsize(path) // 2)
         b = f.read(1)
-        f.seek(-1, os.SEEK_CUR)
+        f.seek(0)
         f.write(bytes([b[0] ^ 0xFF]))
 
 

@@ -166,11 +166,14 @@ def test_config_prints_a_dict_that_reads_back(capsys):
     (["train", "--recipe", "r.json"], "item 9"),
     (["train", "--elastic", "4"], "item 10"),
     (["train", "--multihost"], "item 10"),
-    (["train", "--profile"], "item 11"),
-    (["train", "--profile-steps", "2:4"], "item 11"),
-    (["train", "--trace"], "item 11"),
+    (["train", "--synthetic", "--model", "flownet_s", "--recipe",
+      "r.json"], "item 9"),
+    (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2"],
+     "item 10"),
     (["train", "--synthetic", "--model", "flownet_s", "--set",
-      "optim.grad_accum=2"], "item 6")])
+      "loss.occlusion=true"], "item 9"),
+    (["train", "--synthetic", "--model", "flownet_s", "--set",
+      "data.augment_photo=true"], "item 9")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv + ["--device", "cpu"])

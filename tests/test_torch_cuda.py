@@ -613,3 +613,95 @@ def test_int8_tier_holds_int8_weights_on_the_card(cuda):
                  for t in ("int8", "bf16")}
     assert all(np.isfinite(f).all() for f in flows.values())
     assert not np.array_equal(flows["int8"], flows["bf16"])
+
+
+def _flownet_c_steps(cuda, k, remat=False, grad_accum=2):
+    """A FlowNet-C (width 0.5, 20 / 2) train step on the card at
+    steps_per_call k, with its state, from fixed weights."""
+    from deepof_tpu_torch.core.config import (ExperimentConfig, OptimConfig,
+                                              TrainConfig)
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    cfg = ExperimentConfig(
+        model="flownet_c", width_mult=0.5,
+        optim=OptimConfig(learning_rate=1e-4, grad_accum=grad_accum),
+        train=TrainConfig(steps_per_call=k, remat=remat))
+    model = build_model("flownet_c", width_mult=0.5, seed=3, device=cuda)
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    return state, make_train_step(model, cfg, (0.0, 0.0, 0.0))
+
+
+def _train_pairs(n, hw=(128, 192)):
+    rs = np.random.RandomState(7)
+    return [{k: rs.rand(2, *hw, 3).astype(np.float32) * 255
+             for k in ("source", "target")} for _ in range(n)]
+
+
+@pytest.fixture
+def deterministic():
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.allow_tf32) = before
+
+
+@pytest.mark.cuda
+def test_k_step_call_equals_single_calls_on_the_card(cuda, deterministic):
+    """steps_per_call = 2 over stacked batches against two single calls,
+    FlowNet-C through the correlation and warp kernels, gradient
+    accumulation 2: the same metrics and weights, bit for bit."""
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    pairs = _train_pairs(4)
+    one, one_step = _flownet_c_steps(cuda, 1)
+    before = cc.launches.count
+    want = [one_step(one, b) for b in pairs]
+    assert cc.launches.count == before + 4
+    two, two_step = _flownet_c_steps(cuda, 2)
+    got = [two_step(two, {key: np.stack([a[key], b[key]]) for key in a})
+           for a, b in (pairs[0:2], pairs[2:4])]
+    for key in want[0]:
+        assert [v for call in got for v in call[key]] == \
+            [w[key] for w in want], key
+    assert (two.step, two.updates) == (one.step, one.updates) == (4, 2)
+    for name, t in two.model.state_dict().items():
+        assert torch.equal(t, one.model.state_dict()[name]), name
+
+
+@pytest.mark.cuda
+def test_remat_runs_the_corr_kernel_twice_with_the_same_bits(cuda,
+                                                             deterministic):
+    from deepof_tpu_torch.ops.cuda import corr as cc
+
+    pair = _train_pairs(1)[0]
+    runs = []
+    for remat in (False, True):
+        state, step = _flownet_c_steps(cuda, 1, remat=remat, grad_accum=1)
+        counts = [c.count for c in (cc.launches, cc.bwd_f1_launches,
+                                    cc.bwd_f2_launches)]
+        metrics = step(state, pair)
+        runs.append((metrics, [c.count - n for c, n in zip(
+            (cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches), counts)],
+            [p.grad.clone() for p in state.model.parameters()]))
+    (m0, n0, g0), (m1, n1, g1) = runs
+    assert n0 == [1, 1, 1] and n1 == [2, 1, 1]
+    assert m0 == m1
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_device_memory_summary_reads_the_card(cuda):
+    from deepof_tpu_torch.obs.telemetry import device_memory_summary
+
+    x = torch.empty(1 << 20, device=cuda)
+    got = device_memory_summary(cuda)
+    assert got["dev_mem_bytes_in_use"] >= x.numel() * 4
+    assert got["dev_mem_peak_bytes"] >= got["dev_mem_bytes_in_use"]

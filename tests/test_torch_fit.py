@@ -164,8 +164,7 @@ def test_fit_checkpoints_match_jax(runs):
 @pytest.mark.parametrize("section,value,item", [
     ("recipe", {"enabled": True, "stages": [{"name": "a", "steps": 2}]},
      "item 9"),
-    ("resilience", {"faults": {"enabled": True, "decode_at": [1]}},
-     "item 6"),
+    ("loss", {"occlusion": True}, "item 9"),
     ("train", {"vgg16_npz": "vgg16_weights.npz"}, "item 9")])
 def test_jax_settings_the_port_cannot_honour_raise(tmp_path, section,
                                                    value, item):

@@ -51,6 +51,25 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert res.stdout.strip().endswith("OK")
 
 
+@pytest.mark.parametrize("module", [
+    "deepof_tpu_torch.obs.trace", "deepof_tpu_torch.obs.heartbeat",
+    "deepof_tpu_torch.obs.telemetry", "deepof_tpu_torch.resilience.faults"])
+def test_the_observability_and_fault_modules_are_covered(module):
+    """The training loop's observability and fault modules are copies or
+    ports of JAX-package modules: each is among the modules imported with
+    JAX and the JAX package blocked above, and its source names no
+    blocked import."""
+    assert module in _modules()
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names if n.split(".")[0] in BLOCKED]
+
+
 def test_port_source_has_no_jax_or_reference_imports():
     offenders = []
     for dirpath, _, files in os.walk(PKG):
