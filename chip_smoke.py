@@ -61,7 +61,20 @@ read after it):
     own with injected faults, preempted by a SIGTERM, then resumed past
     a corrupted checkpoint (`cli_preempt_faults`: equal bit for bit to
     an uninterrupted run with the same faults). Their launches are the
-    float32 kernels' `launches` in the final line.
+    float32 kernels' `launches` in the final line. Since port slice 13
+    the training job also runs at `train.pipeline_depth=0` beside the
+    default 2 (the metrics fetched on the fetcher's thread; the same bits
+    at both depths), with each depth's idle share (`job_idle`) and the
+    optimizer's device time (`optimizer_ms`);
+  - serving over HTTP (`serve/server.py`): `serve_http`, the server on a
+    thread of this process over full-width FlowNet-C in f32 and bf16 with
+    warm-start sessions (32 requests from 4 threads against
+    `engine.submit`, `flo` and `png` replies, lapsed deadlines (504), the
+    brownout fold, a 12-frame stream and its DELETE, /healthz and
+    /metrics; the correlation once a cold dispatch, the warp once a warm
+    one), and `cli_serve`, `python -m deepof_tpu_torch serve` on the
+    training job's checkpoint in a process of its own (one request,
+    SIGTERM, exit 0) and its offline mode against `predict`.
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -75,6 +88,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; cs.step_kernels()"
     python3 -c "import chip_smoke as cs; cs.fit_variants()"
     python3 -c "import chip_smoke as cs, tempfile; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_job(w); cs.cli_preempt_faults(w)"
+    python3 -c "import chip_smoke as cs; from deepof_tpu_torch.core.config import ExperimentConfig; cs.serve_http(ExperimentConfig(model='flownet_c'))"
 """
 
 from __future__ import annotations
@@ -1402,6 +1416,14 @@ def draw_batches(trainer, n: int):
         yield batch, time.perf_counter() - t0
 
 
+def host_metrics(m: dict) -> dict:
+    """A train step's metrics on the host: the step returns them as
+    tensors on the card (it decides its update there), here floats and
+    lists; numbers pass as they are."""
+    return {k: v.tolist() if hasattr(v, "tolist") else v
+            for k, v in m.items()}
+
+
 def steps_in_sequence(trainer, n: int) -> list[dict]:
     """n train steps, each on a batch drawn just before it and copied to
     the card inside the step (no prefetcher): each step's metrics, with
@@ -1411,7 +1433,7 @@ def steps_in_sequence(trainer, n: int) -> list[dict]:
     out = []
     for batch, data_s in draw_batches(trainer, n):
         t0 = time.perf_counter()
-        metrics = trainer.train_step(trainer.state, batch)
+        metrics = host_metrics(trainer.train_step(trainer.state, batch))
         metrics["step_ms"] = 1e3 * (time.perf_counter() - t0)
         metrics["data_ms"] = 1e3 * data_s
         out.append(metrics)
@@ -1579,6 +1601,303 @@ def train_profile(trainer, iters: int = 3) -> None:
          top=[{"ms": t, "name": k[:90]} for t, k in kernels[:10]])
     if copies:
         raise AssertionError(f"the warp's autograd ops made copies: {copies}")
+
+
+HTTP_REQUESTS = 32
+HTTP_THREADS = 4
+HTTP_DEADLINED = 4
+HTTP_DEGRADED = 2
+HTTP_STREAM_FRAMES = 12
+HTTP_TOL = 1e-5  # of the largest entry: a row's bits may follow its slot
+
+
+def http_call(address, method: str, path: str, body=None,
+              headers=None) -> tuple[int, str, object, float]:
+    """One request on a connection of its own: (status, content type,
+    parsed JSON or bytes, client-clock ms)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(*address, timeout=600)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 headers or {})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    ms = 1e3 * (time.perf_counter() - t0)
+    ctype = resp.getheader("Content-Type")
+    if ctype == "application/json":
+        data = json.loads(data)
+    return resp.status, ctype, data, ms
+
+
+def b64_png(img) -> str:
+    import base64
+
+    from deepof_tpu_torch.io.png import png_bytes
+
+    return base64.b64encode(png_bytes(img)).decode()
+
+
+def serve_http(cfg) -> dict:
+    """The HTTP server of `serve/server.py` in this process (on a thread,
+    port 0) over full-width FlowNet-C at the 384x512 bucket, batch 8, in
+    the f32 and bf16 tiers, with warm-start sessions:
+      - HTTP_REQUESTS `POST /v1/flow` from HTTP_THREADS client threads,
+        PNG pairs at the bucket's size (base64, written by `io/png.py`):
+        each flow equal to `engine.submit` of the same arrays, or within
+        HTTP_TOL of its largest entry (cuDNN deterministic);
+      - one request in `flo` format and one in `png`;
+      - HTTP_DEADLINED requests with `X-Deadline-Ms: 1`: 504, counted in
+        deadline_* and not in serve_server_errors;
+      - HTTP_DEGRADED requests with `X-Degrade-Level: 1`: served in bf16,
+        counted in degrade_tier_downgrades;
+      - a stream of HTTP_STREAM_FRAMES frames on `/v1/flow/stream`: 202,
+        then 200s, warm from the second pair; then its DELETE;
+      - `/healthz`, and `/metrics` through `parse_prometheus`;
+    with the client-clock p50/p99 beside the engine's histogram p50/p99,
+    and the launches counted from 0 over the requests: the correlation
+    once a cold dispatch (f32 and bf16: the float32 kernel), the warp
+    once a warm dispatch."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.io.flo import FLO_TAG
+    from deepof_tpu_torch.obs.export import parse_prometheus
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+    from deepof_tpu_torch.serve.server import build_server
+
+    cfg = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, precisions=("f32", "bf16"), host="127.0.0.1", port=0,
+        session=dataclasses.replace(cfg.serve.session, warm_start=True)))
+    h, w = cfg.data.image_size
+    rs = np.random.RandomState(40)
+    pairs = [(rs.randint(0, 256, (h, w, 3), dtype=np.uint8),
+              rs.randint(0, 256, (h, w, 3), dtype=np.uint8))
+             for _ in range(HTTP_REQUESTS)]
+    bodies = [{"prev": b64_png(a), "next": b64_png(b)} for a, b in pairs]
+    frames = video(41, HTTP_STREAM_FRAMES, (h, w))
+    t0 = time.monotonic()
+    with InferenceEngine(cfg, device="cuda") as eng, cudnn_deterministic():
+        eng.warm()
+        dispatches = count_dispatches(eng)
+        httpd = build_server(cfg, eng)
+        server_thread = threading.Thread(target=httpd.serve_forever,
+                                         daemon=True, name="serve-http")
+        server_thread.start()
+        address = httpd.server_address[:2]
+        try:
+            reset_kernel_counts()
+            results: list = [None] * HTTP_REQUESTS
+
+            def client(k: int) -> None:
+                for i in range(k, HTTP_REQUESTS, HTTP_THREADS):
+                    results[i] = http_call(address, "POST", "/v1/flow",
+                                           bodies[i])
+
+            wall = run_clients(HTTP_THREADS, client)
+            fmt = {f: http_call(address, "POST", "/v1/flow",
+                                {**bodies[0], "format": f})
+                   for f in ("flo", "png")}
+            late = [http_call(address, "POST", "/v1/flow", bodies[i],
+                              {"X-Deadline-Ms": "1"})
+                    for i in range(HTTP_DEADLINED)]
+            degraded = [http_call(address, "POST", "/v1/flow", bodies[i],
+                                  {"X-Degrade-Level": "1"})
+                        for i in range(HTTP_DEGRADED)]
+            stream = [http_call(address, "POST", "/v1/flow/stream",
+                                {"session": "clip", "frame": b64_png(f)})
+                      for f in frames]
+            deleted = http_call(address, "DELETE", "/v1/flow/stream/clip")
+            counts = kernel_counts()
+            dispatches = dict(dispatches)  # the reference's go uncounted
+            health = http_call(address, "GET", "/healthz")
+            metrics = http_call(address, "GET", "/metrics")
+            stats = eng.stats()
+            # the in-process reference: the same arrays through submit
+            want = [f.result(timeout=600)["flow"] for f in
+                    [eng.submit(a, b) for a, b in pairs]]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    got = [np.frombuffer(base64.b64decode(r[2]["flow_b64"]), "<f4")
+           .reshape(r[2]["shape"]) for r in results]
+    diffs = [float(np.abs(g - x).max() / max(np.abs(x).max(), 1e-30))
+             for g, x in zip(got, want)]
+    client_ms = [r[3] for r in results]
+    parsed = parse_prometheus(metrics[2].decode())
+    n_cold = sum(v for (t, m), v in dispatches.items() if m == "cold")
+    n_warm = sum(v for (t, m), v in dispatches.items() if m == "warm")
+    flo = fmt["flo"][2]
+    row = {"requests": HTTP_REQUESTS, "threads": HTTP_THREADS,
+           "wall_s": wall, "requests_per_s": HTTP_REQUESTS / wall,
+           "client": p50_p99(client_ms),
+           "engine_hist_p50_ms": stats["serve_latency_p50_ms"],
+           "engine_hist_p99_ms": stats["serve_latency_p99_ms"],
+           "max_rel_diff_vs_submit": max(diffs),
+           "bitwise_equal_to_submit": sum(d == 0.0 for d in diffs),
+           "flo": [fmt["flo"][0], fmt["flo"][1], len(flo)],
+           "png": [fmt["png"][0], fmt["png"][1], len(fmt["png"][2])],
+           "deadline_statuses": [r[0] for r in late],
+           "degraded": [[r[0], r[2].get("precision")] for r in degraded],
+           "stream_statuses": [r[0] for r in stream],
+           "stream_warm": [r[2].get("warm") for r in stream],
+           "stream_client_ms": p50_p99([r[3] for r in stream[2:]]),
+           "delete_status": deleted[0],
+           "dispatches": {f"{t}_{m}": v for (t, m), v in dispatches.items()},
+           "launches": counts,
+           "healthz_status": health[0], "metrics_samples": len(parsed),
+           **{k: stats[k] for k in (
+               "deadline_requests", "deadline_enqueue_expired",
+               "deadline_flush_expired", "deadline_wait_expired",
+               "degrade_tier_downgrades", "serve_server_errors",
+               "serve_errors", "serve_responses_by_tier",
+               "serve_session_latency_p50_ms",
+               "serve_session_latency_p99_ms")},
+           "seconds": time.monotonic() - t0,
+           "card": torch.cuda.get_device_name(0)}
+    emit("serve_http", **row)
+    expired = sum(stats[k] for k in ("deadline_enqueue_expired",
+                                     "deadline_flush_expired",
+                                     "deadline_wait_expired"))
+    checks = {
+        "flows": all(r[0] == 200 for r in results)
+        and max(diffs) <= HTTP_TOL,
+        "formats": fmt["flo"][:2] == (200, "application/octet-stream")
+        and np.frombuffer(flo[:4], "<f4")[0] == np.float32(FLO_TAG)
+        and fmt["png"][:2] == (200, "image/png"),
+        "deadlines": [r[0] for r in late] == [504] * HTTP_DEADLINED
+        and all(r[2]["error"] == "deadline_exceeded" for r in late)
+        and stats["deadline_requests"] == HTTP_DEADLINED and expired
+        >= HTTP_DEADLINED and stats["serve_server_errors"] == 0,
+        "degrade": [r[2].get("precision") for r in degraded]
+        == ["bf16"] * HTTP_DEGRADED
+        and stats["degrade_tier_downgrades"] == HTTP_DEGRADED,
+        "stream": [r[0] for r in stream]
+        == [202] + [200] * (HTTP_STREAM_FRAMES - 1)
+        and [r[2].get("warm") for r in stream[1:]]
+        == [False] + [True] * (HTTP_STREAM_FRAMES - 2)
+        and deleted[0] == 200,
+        "health": health[0] == 200 and metrics[0] == 200
+        and parsed.get("deepof_serve_responses")
+        == stats["serve_responses"],
+        "launches": n_cold > 0 and n_warm == HTTP_STREAM_FRAMES - 2
+        and counts == want_counts(corr=n_cold, warp_fwd=n_warm)}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_http: {checks}")
+    return row
+
+
+SERVE_FRAMES = 5
+SERVE_HW = (384, 512)  # the frames' size: the bucket's
+
+
+# the served run's configuration: `cli_train_job`'s (its checkpoint holds
+# the accumulator of optim.grad_accum=2, which the restore's template
+# must have too)
+SERVE_RUN = ["--model", "flownet_c", "--synthetic",
+             "--set", f"data.image_size=[{SERVE_HW[0]},{SERVE_HW[1]}]",
+             "--set", "optim.grad_accum=2"]
+
+
+def serve_argv(log_dir: str, extra: tuple = ()) -> list:
+    return ["serve", *SERVE_RUN, *extra, "--log-dir", log_dir]
+
+
+def cli_serve(work: str, log_dir: str, extra: tuple = ()) -> dict:
+    """`python -m deepof_tpu_torch serve --model flownet_c` on the
+    checkpoint of a run in `log_dir` (full width): in a process of its
+    own, its "serving" line awaited, one pair posted, a SIGTERM, and exit
+    code 0 within `serve.fleet.drain_timeout_s` (10 s) of it, with
+    serve_* keys in its heartbeat.json. Then offline mode in this
+    process: `serve --input` over a directory of SERVE_FRAMES PNG frames
+    at the bucket's size writes SERVE_FRAMES - 1 `.flo` files, each equal
+    to `predict`'s for the same pair (cuDNN deterministic)."""
+    import signal
+
+    import numpy as np
+
+    from deepof_tpu_torch.io.flo import read_flo
+    from deepof_tpu_torch.io.png import write_png
+
+    t0 = time.monotonic()
+    log_path = os.path.join(work, "cli_serve.log")
+    argv = serve_argv(log_dir, ("--set", "serve.port=0",
+                                "--set", "obs.heartbeat_period_s=0.2",
+                                *extra))
+    frames = video(42, SERVE_FRAMES, SERVE_HW)
+    with open(log_path + ".err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI_SUBPROCESS, *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            line = {}
+            while "serving" not in line:
+                text = proc.stdout.readline()
+                if not text:
+                    raise AssertionError(f"cli_serve: the server exited "
+                                         f"(rc {proc.wait()}) before "
+                                         f"serving; see {log_path}.err")
+                if text.startswith("{"):
+                    line = json.loads(text)
+            started_s = time.monotonic() - t0
+            host, port = line["serving"][len("http://"):].split(":")
+            reply = http_call((host, int(port)), "POST", "/v1/flow",
+                              {"prev": b64_png(frames[0]),
+                               "next": b64_png(frames[1])})
+            time.sleep(0.5)  # a heartbeat after the response
+            t_term = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            drain_s = time.monotonic() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(os.path.join(log_dir, "heartbeat.json")) as f:
+        hb = json.load(f)
+    frame_dir = os.path.join(work, "cli_serve_frames")
+    os.makedirs(frame_dir, exist_ok=True)
+    for i, fr in enumerate(frames):
+        write_png(os.path.join(frame_dir, f"f{i:03d}.png"), fr)
+    names = sorted(os.listdir(frame_dir))
+    out_off = os.path.join(work, "cli_serve_offline")
+    out_pred = os.path.join(work, "cli_serve_predict")
+    with cudnn_deterministic():
+        offline = run_cli(serve_argv(log_dir, extra) + [
+            "--input", frame_dir, "--out", out_off, "--no-png"],
+            os.path.join(work, "cli_serve_offline.log"))
+        run_cli(["predict", *SERVE_RUN, *extra,
+                 "--log-dir", log_dir, "--out", out_pred, "--no-png",
+                 "--pairs", *[f"{os.path.join(frame_dir, a)}:"
+                              f"{os.path.join(frame_dir, b)}"
+                              for a, b in zip(names, names[1:])]],
+                os.path.join(work, "cli_serve_predict.log"))
+    flos = sorted(os.listdir(out_off))
+    equal = (flos == sorted(os.listdir(out_pred))
+             and all(np.array_equal(read_flo(os.path.join(out_off, n)),
+                                    read_flo(os.path.join(out_pred, n)))
+                     for n in flos))
+    row = {"serving_line": line, "started_s": started_s,
+           "status": reply[0], "client_ms": reply[3], "rc": rc,
+           "drain_s": drain_s,
+           "heartbeat": {k: hb.get(k) for k in (
+               "serve_requests", "serve_responses", "serve_errors",
+               "serve_latency_p50_ms", "wedged", "dev_mem_bytes_in_use")},
+           "offline": offline, "offline_flo": flos,
+           "offline_equals_predict": equal,
+           "seconds": time.monotonic() - t0}
+    emit("cli_serve", **row)
+    if not (reply[0] == 200 and rc == 0 and drain_s <= 10.0
+            and hb.get("serve_responses") == 1 and not hb.get("wedged")
+            and offline["pairs"] == SERVE_FRAMES - 1
+            and offline["errors"] == 0
+            and len(flos) == SERVE_FRAMES - 1 and equal):
+        raise AssertionError(f"cli_serve: {row}")
+    return row
 
 
 def corr_counters() -> list:
@@ -2164,9 +2483,14 @@ CLI_TRAIN_JOB = ["--model", "flownet_c", "--synthetic",
 JOB_RUNS = {"k2": ["--set", "train.steps_per_call=2"],
             "k1": ["--set", "train.steps_per_call=1"],
             "k2_remat": ["--set", "train.steps_per_call=2",
-                         "--set", "train.remat=true"]}
-# spans of the main thread (one a call: input_wait, dispatch; one a step:
-# fetch; one an eval, one a cadence checkpoint) and of the data threads
+                         "--set", "train.remat=true"],
+            "k2_depth0": ["--set", "train.steps_per_call=2",
+                          "--set", "train.pipeline_depth=0"]}
+# the metric fetches' depth of each run (the default is 2)
+JOB_DEPTH = {"k2": 2, "k1": 2, "k2_remat": 2, "k2_depth0": 0}
+# spans of the main thread (one a call: input_wait, dispatch; one a call
+# due for a record, at log_every 1 every call: fetch, on the fetcher's
+# thread; one an eval, one a cadence checkpoint) and of the data threads
 MAIN_SPANS = ("input_wait", "dispatch", "fetch", "eval", "ckpt")
 DATA_SPANS = ("put", "assemble")
 
@@ -2206,17 +2530,22 @@ def span_counts(log_dir: str) -> dict[str, int]:
 def cli_train_job(work: str, extra: tuple = ()) -> dict:
     """`train --model flownet_c --set optim.grad_accum=2 --trace` at full
     width for JOB_STEPS micro-steps, under cuDNN's deterministic
-    algorithms: at 2 steps a call, at 1, and at 2 under remat. Each run's
+    algorithms: at 2 steps a call, at 1, at 2 under remat, and at 2 with
+    `train.pipeline_depth=0` (the others run at the default depth 2: the
+    metrics fetched on the fetcher's thread, up to 2 calls behind the
+    dispatch; at most 2 in flight, at 0 one). Each run's
     launches are counted from 0: the correlation forward once a
     micro-step (twice under remat) and once an eval forward, each
     backward kernel once a micro-step, the warp forward once a micro-step
     and an eval forward, its flow gradient once a micro-step. The K = 2
     run's records fall at the stride ends 2, 4, 6, 8; its trace has the
     loop's spans, its final heartbeat the card's memory; its records the
-    model TFLOP/s and the nominal MFU. The three runs' losses at 2, 4, 6
+    model TFLOP/s and the nominal MFU. The four runs' losses at 2, 4, 6
     and 8, their evals and their final checkpoints' tensors are equal bit
-    for bit. `extra` is appended to every command (a CPU rehearsal's
-    device and sizes)."""
+    for bit. Beside them, each depth's idle share of the card in the same
+    job's fit (`job_idle`) and the optimizer's device time a micro-step
+    (`optimizer_ms`). `extra` is appended to every command (a CPU
+    rehearsal's device and sizes)."""
     evals = 2 * eval_calls(SYNTHETIC_VAL, 4)
     t0 = time.monotonic()
     runs = {}
@@ -2248,7 +2577,7 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
     tensors = {name: checkpoint_tensors(r["log_dir"])
                for name, r in runs.items()}
     ckpt_diff = {name: tensors_equal(tensors["k2"], tensors[name])
-                 for name in ("k1", "k2_remat")}
+                 for name in ("k1", "k2_remat", "k2_depth0")}
     row = {"steps": JOB_STEPS, "grad_accum": 2, "eval_forwards": evals,
            "runs": {name: {
                "steps_per_call": r["k"],
@@ -2263,13 +2592,18 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
                    / (r["summary"]["step_ms_median"] / 1e3)),
                "model_tflops": r["summary"].get("model_tflops"),
                "mfu_nominal": r["summary"].get("mfu_nominal"),
-               "pipeline_depth": r["summary"]["pipeline_depth"]}
+               **{k: r["summary"][k] for k in (
+                   "pipeline_depth", "pipeline_max_in_flight",
+                   "pipeline_fetches", "pipeline_fetch_s")}}
                for name, r in runs.items()},
            "spans_k2": k2["spans"],
            "heartbeat_k2": {key: k2["heartbeat"].get(key) for key in (
                "step", "beats", "step_time_median_s", "wedges",
                "dev_mem_bytes_in_use", "dev_mem_peak_bytes", "rss_bytes")},
            "seconds": time.monotonic() - t0,
+           "idle_by_depth": {d: job_idle(work, d, extra)
+                             for d in (2, 0)} if not extra else None,
+           "optimizer": optimizer_ms() if not extra else None,
            "checkpoint_tensors": len(tensors["k2"]),
            "checkpoint_differs": ckpt_diff,
            "evals_k2": k2["evals"]}
@@ -2282,7 +2616,16 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
         if r["launches"] != want:
             raise AssertionError(f"cli_train_job {name}: launches "
                                  f"{r['launches']}; want {want}")
-    for name in ("k1", "k2_remat"):
+    for name, r in runs.items():
+        fetcher = {k: v for k, v in r["summary"].items()
+                   if k.startswith("pipeline_")}
+        # one fetch a call (log_every 1); at most `depth` in flight
+        if (fetcher["pipeline_depth"] != JOB_DEPTH[name]
+                or not 1 <= fetcher["pipeline_max_in_flight"]
+                <= max(JOB_DEPTH[name], 1)
+                or fetcher["pipeline_fetches"] != JOB_STEPS // r["k"]):
+            raise AssertionError(f"cli_train_job {name}: fetcher {fetcher}")
+    for name in ("k1", "k2_remat", "k2_depth0"):
         got = [runs[name]["losses"][s] for s in common]
         want = [k2["losses"][s] for s in common]
         if got != want or runs[name]["evals"] != k2["evals"]:
@@ -2295,7 +2638,7 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
                                  f"differs from K = 2's in "
                                  f"{ckpt_diff[name][:10]}")
     calls = steps // 2
-    want_spans = {"input_wait": calls, "dispatch": calls, "fetch": steps,
+    want_spans = {"input_wait": calls, "dispatch": calls, "fetch": calls,
                   "eval": 2, "ckpt": 2}
     if ({s: k2["spans"].get(s) for s in MAIN_SPANS} != want_spans
             or not all(k2["spans"].get(s, 0) >= calls for s in DATA_SPANS)
@@ -2317,6 +2660,75 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
             raise AssertionError(f"cli_train_job {name}: no model_tflops / "
                                  f"mfu_nominal in the summary")
     return row
+
+
+def job_idle(work: str, depth: int, extra: tuple = ()) -> dict:
+    """The card's idle share in the training job's fit at a fetch depth:
+    `cli_train_job`'s configuration at K = 2 with no eval and no cadence
+    checkpoint, 14 micro-steps, calls 3 to 6 (8 micro-steps) under
+    torch.profiler and the host clock (`StepWindow`)."""
+    import io
+
+    from deepof_tpu_torch import cli
+    from deepof_tpu_torch.core.config import config_from_dict
+    from deepof_tpu_torch.train.loop import Trainer
+
+    log_dir = os.path.join(work, f"job_idle_depth{depth}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["config", *[a for a in CLI_TRAIN_JOB if a != "--trace"],
+                  *JOB_RUNS["k2"], *extra,
+                  "--set", f"train.pipeline_depth={depth}",
+                  "--set", "train.eval_every=0",
+                  "--set", "train.ckpt_every_steps=0",
+                  "--log-dir", log_dir])
+    cfg = config_from_dict(json.loads(out.getvalue()))
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = Trainer(cfg, device="cuda")
+        step = trainer.train_step
+        window = StepWindow(step, 2, 6)
+        trainer.train_step = window
+        summary = trainer.fit(max_steps=14)
+    row = window.row(cfg.data.batch_size)
+    return {"depth": depth, "idle_share": row["idle_share_of_step"],
+            "call_ms": row["step_ms"],
+            "device_busy_ms_per_call": row["device_busy_ms_per_step"],
+            "step_ms_median": summary["step_ms_median"],
+            "step_call_ms_median": summary["phase_dispatch_ms_median"],
+            "pipeline_max_in_flight": summary["pipeline_max_in_flight"]}
+
+
+def optimizer_ms() -> dict:
+    """The optimizer's time a micro-step on full-width FlowNet-C's 39.3 M
+    parameters (`TrainState.apply_gradients`: the accumulator, the clip's
+    absence, Adam and the device-side commit), at grad_accum 1 and 2:
+    device ms (torch.profiler) and the call by CUDA events."""
+    import torch
+
+    from deepof_tpu_torch.core.config import OptimConfig
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state, global_norm
+
+    model = build_model("flownet_c", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+    grads = [p.grad for p in model.parameters()]
+    norm = global_norm(grads)
+    finite = torch.isfinite(norm)
+    out = {"params": sum(p.numel() for p in model.parameters())}
+    for k in (1, 2):
+        cfg = OptimConfig(grad_accum=k)
+        state = create_train_state(model, cfg, step_decay_schedule(cfg, 1))
+
+        def apply():
+            state.apply_gradients(norm, finite)
+
+        out[f"grad_accum_{k}"] = {"device_ms": device_ms(apply, iters=10),
+                                  "call_ms": time_ms(apply, warmup=2,
+                                                     iters=10)}
+    return out
 
 
 # a preempted run with injected faults at full width (FlowNet-C, 384x512,
@@ -2679,7 +3091,7 @@ def replay_resume(log_dir: str, steps: int) -> list[float]:
                              ).restore(trainer.state) is None:
             raise AssertionError(f"no checkpoint restores from {log_dir}")
         trainer.model.train()
-        return [trainer.train_step(trainer.state, b)["total"]
+        return [host_metrics(trainer.train_step(trainer.state, b))["total"]
                 for b, _ in draw_batches(trainer, steps)]
 
 
@@ -3284,6 +3696,7 @@ def main() -> int:
     check_warp((b, 3, h, w), 200.0, seed=31, rounds=1, bitwise=True)
     tiers_row = serve_tiers(cfg)
     stream_row = serve_stream(cfg)
+    http_row = serve_http(cfg)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=work_root())
     try:
         train_row = train(ExperimentConfig(
@@ -3303,6 +3716,8 @@ def main() -> int:
         sintel_row = cli_sintel(work)
         job_row = cli_train_job(work)
         preempt_row = cli_preempt_faults(work)
+        serve_cli_row = cli_serve(work, os.path.join(work,
+                                                     "cli_train_job_k2"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -3339,6 +3754,9 @@ def main() -> int:
         for t, r in tiers_row["tiers"].items()})
     corr_by_path["corr"]["serve_stream"] = stream_row["corr_launches"]
     by_path["fwd"]["serve_stream"] = stream_row["warp_fwd_launches"]
+    # this slice's serving path: POST /v1/flow and /v1/flow/stream
+    corr_by_path["corr"]["serve_http"] = http_row["launches"]["corr"]
+    by_path["fwd"]["serve_http"] = http_row["launches"]["warp_fwd"]
     # this slice's path: the Sintel volumes from the command line
     for route, r in sintel_row["routes"].items():
         by_path["fwd"][f"cli_sintel_{route}"] = r["warp_fwd_launches"]
@@ -3401,6 +3819,9 @@ def main() -> int:
                 "launches_in_stream": {
                     "launches": stream_row["corr_launches"],
                     "cold_dispatches": stream_row["dispatches"]["cold"]},
+                "launches_over_http": {
+                    "launches": http_row["launches"]["corr"],
+                    "dispatches": http_row["dispatches"]},
                 **{k: full[k] for k in ("shape", "max_abs_err", "ms",
                                         "call_ms", "plain_ms", "bound_ms",
                                         "bound_by")}}
@@ -3446,6 +3867,7 @@ def main() -> int:
                 "shape": serve_warp["shape"],
                 "launches": stream_row["warp_fwd_launches"],
                 "warm_dispatches": stream_row["dispatches"]["warm"],
+                "launches_over_http": http_row["launches"]["warp_fwd"],
                 "bitwise_equal": serve_warp["fwd"]["bitwise_equal"],
                 **{k: serve_warp["fwd"][k] for k in (
                     "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",
@@ -3456,7 +3878,9 @@ def main() -> int:
                 "warp_flow_grad": "deepof_tpu/ops/pallas/warp.py:111"}
     emit("total", seconds=time.monotonic() - START,
          phase_seconds={"cli_train_job": job_row["seconds"],
-                        "cli_preempt_faults": preempt_row["seconds"]})
+                        "cli_preempt_faults": preempt_row["seconds"],
+                        "serve_http": http_row["seconds"],
+                        "cli_serve": serve_cli_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),

@@ -1,5 +1,5 @@
-"""Command-line entry point (port of the `train`, `eval`, `predict` and
-`config` verbs of `deepof_tpu/cli.py`).
+"""Command-line entry point (port of the `train`, `eval`, `predict`,
+`serve` and `config` verbs of `deepof_tpu/cli.py`).
 
 Usage:
     python -m deepof_tpu_torch train --preset flyingchairs --model flownet_s \
@@ -11,6 +11,9 @@ Usage:
         --set "serve.precisions=('f32','int8')" --precision int8
     python -m deepof_tpu_torch train --preset sintel --model flownet_s \
         --data-path /data/MPI-Sintel --set train.dump_visuals=true
+    python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1
+    python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
+        --input /data/frames --out /tmp/flows     # offline: a directory
     python -m deepof_tpu_torch config --preset sintel
 
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
@@ -20,14 +23,19 @@ field), `--synthetic` (the synthetic dataset at 64x64, batch 8),
 timeline in <log-dir>/trace.json), `--profile` and `--profile-steps a:b`
 (a `torch.profiler` Chrome trace of the run or of steps [a, b) under
 <log-dir>/profile/), `--dump-visuals` (eval), `--pairs prev:next`,
-`--out`, `--no-png` (predict), `--precision` (a tier of
-`serve.precisions`). A train run in a log dir that holds checkpoints
-resumes from the newest one; `train` latches a SIGTERM from its start,
-and a SIGTERM stops it after a clean final checkpoint. `--device
-{cuda,cpu}` (default cuda) is this package's own; it takes the place of
-JAX_PLATFORMS. Without a card, cuda raises: nothing falls back to the
-CPU. The JAX package's other flags raise, naming the ROADMAP item that
-ports them.
+`--out`, `--no-png` (predict, serve), `--precision` (a tier of
+`serve.precisions`), and for `serve` `--input` (offline mode: the
+consecutive pairs of a directory of frames, written to `--out`; without
+it, the HTTP server of `serve/server.py` on serve.host:serve.port),
+`--session-ttl` and `--session-max` (`serve.session.ttl_s` and
+`max_sessions`). `serve` restores the newest checkpoint of `--log-dir`
+(none under `--set serve.fake_exec_ms=...`). A train run in a log dir
+that holds checkpoints resumes from the newest one; `train` latches a
+SIGTERM from its start, and a SIGTERM stops it after a clean final
+checkpoint. `--device {cuda,cpu}` (default cuda) is this package's own;
+it takes the place of JAX_PLATFORMS. Without a card, cuda raises:
+nothing falls back to the CPU. The JAX package's other flags raise,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -46,6 +54,11 @@ _UNPORTED_FLAGS = {
     "--recipe": "9 (recipes)",
     "--elastic": "10 (elastic training)",
     "--multihost": "10 (parallelism)",
+    "--replicas": "8 (the fleet)",
+    "--autoscale": "8 (the fleet)",
+    "--min-replicas": "8 (the fleet)",
+    "--max-replicas": "8 (the fleet)",
+    "--artifacts": "8 (artifacts)",
 }
 
 
@@ -165,6 +178,29 @@ def main(argv=None) -> int:
                         help="serving precision tier, one of "
                              "serve.precisions (default: its first)")
 
+    p_srv = sub.add_parser(
+        "serve", help="serve the newest checkpoint: an HTTP server (POST "
+                      "/v1/flow, POST /v1/flow/stream, GET /healthz, GET "
+                      "/metrics), or with --input a directory of frames "
+                      "to --out")
+    _add_common(p_srv)
+    p_srv.add_argument("--input", default=None,
+                       help="offline mode: a directory of frames "
+                            "(consecutive sorted pairs)")
+    p_srv.add_argument("--out", default=None,
+                       help="offline mode: where the .flo/.png go")
+    p_srv.add_argument("--no-png", action="store_true")
+    p_srv.add_argument("--session-ttl", type=float, default=None,
+                       metavar="SECONDS",
+                       help="--set serve.session.ttl_s=SECONDS")
+    p_srv.add_argument("--session-max", type=int, default=None,
+                       metavar="N",
+                       help="--set serve.session.max_sessions=N")
+    for flag in ("--replicas", "--min-replicas", "--max-replicas",
+                 "--artifacts"):
+        _add_unported(p_srv, flag, takes_value=True)
+    _add_unported(p_srv, "--autoscale")
+
     p_cfg = sub.add_parser("config", help="print the resolved config")
     _add_common(p_cfg)
 
@@ -177,6 +213,9 @@ def main(argv=None) -> int:
     if args.cmd == "config":
         print(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
         return 0
+
+    if args.cmd == "serve":
+        return _serve(cfg, args)
 
     if args.cmd == "predict":
         from .predict import predict_pairs, restore_params
@@ -226,3 +265,30 @@ def main(argv=None) -> int:
         out = trainer.evaluate(dump=args.dump_visuals)
     print(json.dumps({k: float(v) for k, v in out.items()}))
     return 0
+
+
+def _serve(cfg: ExperimentConfig, args) -> int:
+    """The `serve` verb: offline mode with --input and --out, else the
+    HTTP server until SIGTERM."""
+    from .core.config import check_servable
+
+    session = cfg.serve.session
+    if args.session_ttl is not None:
+        session = dataclasses.replace(session, ttl_s=args.session_ttl)
+    if args.session_max is not None:
+        session = dataclasses.replace(session, max_sessions=args.session_max)
+    cfg = cfg.replace(serve=dataclasses.replace(cfg.serve, session=session))
+    check_servable(cfg)
+    if (args.input is None) != (args.out is None):
+        raise SystemExit("serve: offline mode needs both --input and --out "
+                         "(neither = the HTTP server)")
+    if args.input is not None:
+        from .serve.server import run_offline
+
+        print(json.dumps(run_offline(cfg, args.input, args.out,
+                                     write_png=not args.no_png,
+                                     device=args.device)))
+        return 0
+    from .serve.server import run_server
+
+    return run_server(cfg, device=args.device)

@@ -5,12 +5,13 @@ Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
-Those are settings of the mesh, elastic training, the compile cache,
-the ledger, incident, SLO and quality observability, and the serving
-fleet: none of them changes a training result. Settings that change
-what the training path computes are carried, and where this package
-cannot honour a value yet, `check_trainable` raises on it, naming the
-ROADMAP item that ports it (`train.vgg16_npz` and `recipe` among them).
+Those are settings of the mesh, elastic training, the compile cache, the
+ledger, incident and quality observability, and the serving fleet's
+router and brownout controller: none of them changes a result. Settings
+that change what the training path computes are carried, and where this
+package cannot honour a value yet, `check_trainable` raises on it,
+naming the ROADMAP item that ports it (`train.vgg16_npz` and `recipe`
+among them).
 """
 
 from __future__ import annotations
@@ -138,11 +139,10 @@ class TrainConfig:
     # log, eval and checkpoint cadences fire once per K-step stride, at
     # its end step
     steps_per_call: int = 1
-    # The JAX loop's bound on metric fetches in flight behind the
-    # dispatch. Carried, not honoured: this package reads a step's
-    # metrics at the end of that step, the JAX loop's pipeline_depth=0,
-    # which gives the same result on a run that does not diverge (the fit
-    # summary records the depth it ran at; ROADMAP Queue A item 6).
+    # Metric fetches in flight behind the dispatch (train/metrics_log.py
+    # AsyncFetcher): the loop submits a call's metrics when a record,
+    # eval or checkpoint is due and keeps dispatching; submit blocks at
+    # this many fetches not yet done. 0 = fetch inline (SyncFetcher).
     pipeline_depth: int = 2
 
 
@@ -169,6 +169,22 @@ class SessionConfig:
 
 
 @dataclass(frozen=True)
+class FleetConfig:
+    """The serving fleet's settings that this package reads (the JAX
+    package's `FleetConfig`; its other keys are dropped with the
+    warning). The fleet itself is not ported: `check_servable` refuses
+    `replicas > 1` and `autoscale`."""
+
+    # replica processes behind a router; 0 / 1 = one serving process
+    replicas: int = 0
+    # scale the replica pool from live load (not ported)
+    autoscale: bool = False
+    # graceful stop: after SIGTERM stops admission, wait this long for
+    # the requests in flight to be answered
+    drain_timeout_s: float = 10.0
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     # Dynamic micro-batcher: up to max_batch pairs per forward; a partial
     # batch flushes when the oldest pending request has waited
@@ -182,7 +198,21 @@ class ServeConfig:
     precisions: tuple[str, ...] = ("f32",)
     # submit() blocks when this many requests are pending. 0 = unbounded.
     queue_depth: int = 256
+    # the HTTP server (`serve/server.py`): its address (port 0 = any free
+    # port), and the longest a handler waits for a response
+    host: str = "127.0.0.1"
+    port: int = 8191
+    request_timeout_s: float = 30.0
+    # offline mode's decode workers (data/pipeline.py); 0 = inline
+    workers: int = 0
+    # a timed stand-in for the model (`serve/engine.py::
+    # make_fake_forward`), in ms a dispatch: None serves the model
+    fake_exec_ms: float | None = None
+    # the JAX package's executable artifact store (not ported; must stay
+    # empty)
+    artifacts_dir: str = ""
     session: SessionConfig = field(default_factory=SessionConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
 
 
 @dataclass(frozen=True)
@@ -212,7 +242,8 @@ class ObsConfig:
     """The training half of the JAX package's `ObsConfig` (`obs/`): the
     span trace, the heartbeat with its wedge watchdog, and the FLOPs
     telemetry. Its ledger, incident, SLO, quality and metrics-port keys
-    are not read (ROADMAP Queue A items 8 and 11)."""
+    are not read (ROADMAP Queue A items 8 and 11); its SLO keys are
+    (`serve/engine.py`)."""
 
     # write a Chrome trace-event timeline to <log_dir>/trace.json
     trace: bool = False
@@ -228,6 +259,12 @@ class ObsConfig:
     # count the FLOPs of the first step (FlopCounterMode): train records
     # then carry model_tflops and mfu_nominal
     flops: bool = True
+    # the serving SLO (obs/export.py): requests slower than this (rounded
+    # up to a histogram bucket bound) breach it, and breaches plus
+    # server-side failures burn the error budget; 0 disables it
+    slo_latency_ms: float = 0.0
+    # the allowed bad fraction; burn = bad fraction / budget
+    slo_error_budget: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -383,6 +420,20 @@ def raise_unported(todo: list[tuple[str, str]]) -> None:
         raise NotImplementedError(
             "not ported to deepof_tpu_torch yet: " + "; ".join(
                 f"{what}: ROADMAP Queue A item {item}" for what, item in todo))
+
+
+def check_servable(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, on serving
+    settings that would change what runs and are not ported."""
+    todo = []
+    if cfg.serve.fleet.replicas > 1:
+        todo.append((f"serve.fleet.replicas={cfg.serve.fleet.replicas}",
+                     "8 (the fleet)"))
+    if cfg.serve.fleet.autoscale:
+        todo.append(("serve.fleet.autoscale=True", "8 (the fleet)"))
+    if cfg.serve.artifacts_dir:
+        todo.append(("serve.artifacts_dir", "8 (artifacts)"))
+    raise_unported(todo)
 
 
 def check_loss(cfg: LossConfig) -> None:

@@ -40,8 +40,8 @@ from .. import native
 from ..core.config import DataConfig
 from ..io.flo import read_flo
 from ..io.png import SIGNATURE as PNG_SIGNATURE
-from ..io.png import read_png_bgr
-from ..io.ppm import read_ppm_bgr
+from ..io.png import parse_png_bgr, read_png_bgr
+from ..io.ppm import parse_ppm_bgr, read_ppm_bgr
 
 FLYINGCHAIRS_MEAN = (97.533, 99.238, 97.056)  # BGR
 SINTEL_MEAN = (70.1433, 83.1915, 92.8827)
@@ -68,6 +68,30 @@ def _imread_bgr(path: str) -> np.ndarray:
         return read_png_bgr(path)
     raise OSError(f"{path}: no decoder for this file; the native decoder "
                   f"has {sorted(native.codecs())}")
+
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """An encoded PPM, PNG or JPEG held in memory -> (H, W, 3) uint8 BGR,
+    as cv2.imdecode(buf, IMREAD_COLOR) gives it: the native decoder when
+    its build has the codec, `io/png.py` / `io/ppm.py` for a PNG / PPM
+    otherwise. Raises ValueError on corrupt bytes, and on a codec no
+    route decodes, naming the native decoder's codecs (the card's
+    machine links PPM only, so a JPEG there is refused, not guessed)."""
+    kind = native.sniff(data)
+    if kind is None:
+        raise ValueError(f"not a PPM, PNG or JPEG image ({len(data)} "
+                         f"bytes)")
+    if kind in native.codecs():
+        try:
+            return native.imdecode_bgr(data)
+        except OSError as e:
+            raise ValueError(str(e)) from e
+    if kind == "png":
+        return parse_png_bgr(data)
+    if kind == "ppm":
+        return parse_ppm_bgr(data)
+    raise ValueError(f"no {kind} decoder in this build: the native "
+                     f"decoder has {sorted(native.codecs())}")
 
 
 def _resize(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:

@@ -5,13 +5,13 @@ the port's counterpart of `cv2.imwrite` and of `cv2.imread` for PNG.
 an (H, W) / (H, W, 1) uint8 grey one (stored as 8-bit grey). Each row is
 written with filter type 2 (Up), zlib level 6.
 
-`read_png_bgr` reads 8-bit, non-interlaced grey, grey + alpha, RGB and
-RGBA files with any of the five row filters, and returns (H, W, 3) uint8
-BGR as `cv2.imread(path, cv2.IMREAD_COLOR)` does: grey repeated into the
-three channels, alpha dropped. Other PNGs (palette, 16-bit, interlaced)
-raise ValueError. The native decoder (`deepof_tpu_torch.native`) is the
-fast route; the loaders read with this module only when that build has
-no PNG codec.
+`read_png_bgr` (a file) and `parse_png_bgr` (its bytes) read 8-bit,
+non-interlaced grey, grey + alpha, RGB and RGBA files with any of the
+five row filters, and return (H, W, 3) uint8 BGR as `cv2.imread(path,
+cv2.IMREAD_COLOR)` does: grey repeated into the three channels, alpha
+dropped. Other PNGs (palette, 16-bit, interlaced) raise ValueError. The
+native decoder (`deepof_tpu_torch.native`) is the fast route; the
+loaders read with this module only when that build has no PNG codec.
 """
 
 from __future__ import annotations
@@ -121,7 +121,12 @@ def read_png_bgr(path: str | os.PathLike) -> np.ndarray:
     -> (H, W, 3) uint8 BGR. Raises ValueError on any other PNG, a bad
     signature or CRC, or truncated data."""
     with open(path, "rb") as f:
-        data = f.read()
+        return parse_png_bgr(f.read(), path)
+
+
+def parse_png_bgr(data: bytes, path="<bytes>") -> np.ndarray:
+    """`read_png_bgr` of a PNG file's bytes (an HTTP request's image);
+    `path` names it in errors."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []

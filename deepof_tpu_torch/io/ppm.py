@@ -43,7 +43,12 @@ def read_ppm_bgr(path: str | os.PathLike) -> np.ndarray:
     """Read a binary P6 PPM -> (H, W, 3) uint8, BGR. Raises ValueError on
     a bad header, a 16-bit file or truncated samples."""
     with open(path, "rb") as f:
-        data = f.read()
+        return parse_ppm_bgr(f.read(), path)
+
+
+def parse_ppm_bgr(data: bytes, path="<bytes>") -> np.ndarray:
+    """`read_ppm_bgr` of a PPM file's bytes; `path` names it in
+    errors."""
     if data[:2] != b"P6":
         raise ValueError(f"{path}: not a binary PPM (P6) file")
     (w, h, maxval), off = _header(data, path)

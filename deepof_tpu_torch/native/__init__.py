@@ -106,6 +106,11 @@ def _load() -> ctypes.CDLL:
         lib.deepof_decode_image_u8.argtypes = [ctypes.c_char_p, u8_p,
                                                ctypes.c_int, ctypes.c_int]
         lib.deepof_image_supported.argtypes = [ctypes.c_char_p]
+        lib.deepof_image_dims_mem.argtypes = [ctypes.c_char_p,
+                                              ctypes.c_size_t, i32_p, i32_p]
+        lib.deepof_decode_mem_u8.argtypes = [ctypes.c_char_p,
+                                             ctypes.c_size_t, u8_p,
+                                             ctypes.c_int, ctypes.c_int]
         lib.deepof_decode_image_batch.argtypes = [c_char_pp, ctypes.c_int,
                                                   f32_p, ctypes.c_int,
                                                   ctypes.c_int]
@@ -114,6 +119,7 @@ def _load() -> ctypes.CDLL:
                                               ctypes.c_int, ctypes.c_int]
         for fn in ("deepof_codecs", "deepof_image_dims",
                    "deepof_decode_image_u8", "deepof_image_supported",
+                   "deepof_image_dims_mem", "deepof_decode_mem_u8",
                    "deepof_decode_image_batch", "deepof_flo_dims",
                    "deepof_read_flo_batch"):
             getattr(lib, fn).restype = ctypes.c_int
@@ -164,6 +170,38 @@ def imread_bgr(path: str) -> np.ndarray:
             os.fsencode(path),
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w):
         raise OSError(f"native image decode failed: {path}")
+    return out
+
+
+#: leading bytes of each codec's files -> the codec's name
+MAGIC = ((b"P6", "ppm"), (b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"))
+
+
+def sniff(data: bytes) -> str | None:
+    """The codec of an encoded image from its leading bytes, or None."""
+    for magic, name in MAGIC:
+        if data[:len(magic)] == magic:
+            return name
+    return None
+
+
+def imdecode_bgr(data: bytes) -> np.ndarray:
+    """Decode a PPM / PNG / JPEG held in memory at its own size ->
+    (H, W, 3) uint8 BGR, as cv2.imdecode(buf, IMREAD_COLOR) does.
+    Raises OSError when the bytes are corrupt or of a codec this build
+    lacks."""
+    lib = _load()
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if lib.deepof_image_dims_mem(data, len(data), ctypes.byref(h),
+                                 ctypes.byref(w)):
+        raise OSError(f"native image probe failed on {len(data)} bytes "
+                      f"(corrupt, or a codec outside {sorted(codecs())})")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.deepof_decode_mem_u8(
+            data, len(data),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h.value,
+            w.value):
+        raise OSError(f"native image decode failed on {len(data)} bytes")
     return out
 
 

@@ -7,7 +7,9 @@
 // because it has no cv2: the codecs this build linked
 // (`deepof_codecs`), an image's own size (`deepof_image_dims`) and a
 // decode at that size to uint8 BGR (`deepof_decode_image_u8`), the
-// counterpart of cv2.imread(path, IMREAD_COLOR).
+// counterpart of cv2.imread(path, IMREAD_COLOR); and the last two for an
+// encoded image in memory (`deepof_image_dims_mem`,
+// `deepof_decode_mem_u8`), the counterpart of cv2.imdecode.
 //
 // A whole batch decodes in parallel outside the GIL; Python binds via
 // ctypes (deepof_tpu_torch/native/__init__.py), which builds this file
@@ -579,6 +581,79 @@ int deepof_decode_image_u8(const char* path, uint8_t* out, int h, int w) {
     if (fw != w || fh != h) return 1;
     const size_t n = static_cast<size_t>(h) * w;
     for (size_t i = 0; i < n; ++i) {
+      out[i * 3 + 0] = buf[i * 3 + 2];
+      out[i * 3 + 1] = buf[i * 3 + 1];
+      out[i * 3 + 2] = buf[i * 3 + 0];
+    }
+    return 0;
+  } catch (...) {
+    return 2;
+  }
+}
+
+// The same two calls on an encoded image held in memory (an HTTP
+// request's bytes), through a read-only FILE* over the buffer
+// (fmemopen), so every codec reads it as it reads a file.
+int deepof_image_dims_mem(const uint8_t* data, size_t n, int* h, int* w) {
+  try {
+    if (n < 2) return 1;
+    FILE* f = fmemopen(const_cast<uint8_t*>(data), n, "rb");
+    if (!f) return 1;
+    bool ok = false;
+    switch (sniff_format(data)) {
+      case ImgFormat::kPpm:
+        ok = read_ppm_dims(f, w, h);
+        break;
+#ifdef DEEPOF_HAVE_PNG
+      case ImgFormat::kPng:
+        ok = png_stream_dims(f, w, h);
+        break;
+#endif
+#ifdef DEEPOF_HAVE_JPEG
+      case ImgFormat::kJpeg:
+        ok = jpeg_stream_dims(f, w, h);
+        break;
+#endif
+      default:
+        break;
+    }
+    fclose(f);
+    return ok ? 0 : 1;
+  } catch (...) {
+    return 2;
+  }
+}
+
+int deepof_decode_mem_u8(const uint8_t* data, size_t n, uint8_t* out, int h,
+                         int w) {
+  try {
+    if (n < 2) return 1;
+    FILE* f = fmemopen(const_cast<uint8_t*>(data), n, "rb");
+    if (!f) return 1;
+    std::vector<uint8_t> buf;
+    int fw = 0, fh = 0;
+    bool ok = false;
+    switch (sniff_format(data)) {
+      case ImgFormat::kPpm:
+        ok = decode_ppm_stream(f, &buf, &fw, &fh);
+        break;
+#ifdef DEEPOF_HAVE_PNG
+      case ImgFormat::kPng:
+        ok = decode_png_stream(f, &buf, &fw, &fh);
+        break;
+#endif
+#ifdef DEEPOF_HAVE_JPEG
+      case ImgFormat::kJpeg:
+        ok = decode_jpeg_stream(f, &buf, &fw, &fh);
+        break;
+#endif
+      default:
+        break;
+    }
+    fclose(f);
+    if (!ok || fw != w || fh != h) return 1;
+    const size_t px = static_cast<size_t>(h) * w;
+    for (size_t i = 0; i < px; ++i) {
       out[i * 3 + 0] = buf[i * 3 + 2];
       out[i * 3 + 1] = buf[i * 3 + 1];
       out[i * 3 + 2] = buf[i * 3 + 0];

@@ -7,8 +7,10 @@
                 wedge watchdog (a copy, with its device memory from
                 telemetry.py);
   telemetry.py  process RSS, CUDA memory, and FLOPs per optimizer step
-                counted by `torch.utils.flop_counter.FlopCounterMode`.
+                counted by `torch.utils.flop_counter.FlopCounterMode`;
+  export.py     fixed-bucket latency histograms, Prometheus text and the
+                SLO arithmetic of the serving engine (a copy).
 
-The ledger, the incident recorder, export, aggregate and quality are
-not ported (ROADMAP Queue A items 8 and 11).
+The ledger, the incident recorder, aggregate and quality are not ported
+(ROADMAP Queue A item 11).
 """

@@ -1,1 +1,2 @@
-"""Micro-batching inference engine and shape buckets."""
+"""Micro-batching inference engine, shape buckets, precision tiers,
+video sessions, and the HTTP server and offline mode over them."""

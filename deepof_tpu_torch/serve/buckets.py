@@ -43,6 +43,21 @@ def pick_bucket(native_hw: tuple[int, int],
     return buckets[-1]
 
 
+def next_smaller_bucket(bucket: tuple[int, int],
+                        buckets: tuple[tuple[int, int], ...]
+                        ) -> tuple[int, int]:
+    """One rung down the ladder from `bucket` (the brownout fold at
+    level 2): the next-smaller-area bucket, or `bucket` itself when it
+    is the smallest or not on the ladder. Any bucket serves any native
+    size (the flow is rescaled to native pixels), so only accuracy
+    drops."""
+    bucket = tuple(bucket)
+    if bucket not in buckets:
+        return bucket
+    idx = buckets.index(bucket)
+    return buckets[idx - 1] if idx > 0 else bucket
+
+
 def prepare_frame(img_raw: np.ndarray, bucket: tuple[int, int],
                   mean) -> np.ndarray:
     """One decoded BGR frame -> (H, W, 3) float32 at the bucket

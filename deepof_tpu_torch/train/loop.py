@@ -22,10 +22,20 @@ checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
     epochs, each at the stride's end step; records carry the last inner
     step's values and the skips summed over the K. A `max_steps` that is
     not a multiple of K ends at the next stride's end, as in JAX;
-  - the divergence ladder: the step skips a non-finite micro-step in
-    place; `resilience.max_consecutive_skips` skips in a row roll the
-    state back to the last checkpoint (`train.nan_guard`), and the third
-    rollback in a row raises FloatingPointError;
+  - metric fetches at the JAX loop's cadence: a call's metrics are
+    submitted to the fetcher only when a record, an eval or a checkpoint
+    is due, and the fetcher is drained before eval, before a checkpoint,
+    on a rollback event and at the end (within 120 s). At
+    `train.pipeline_depth` = d > 0 (the JAX default, 2) an
+    `AsyncFetcher` takes them to the host on its own thread, up to d
+    fetches behind the dispatch, so the host queues the next calls while
+    the card computes; at 0 a `SyncFetcher` reads inline;
+  - the divergence ladder, in the fetch's callback as in JAX: the step
+    skips a non-finite micro-step in place, on the device;
+    `resilience.max_consecutive_skips` skips in a row (counted over the
+    fetched calls) roll the state back to the last checkpoint
+    (`train.nan_guard`), and the third rollback in a row raises
+    FloatingPointError;
   - a final checkpoint, only of a state whose last loss was finite or
     whose non-finite update was skipped. Checkpoints are named by the
     state's step, which counts applied micro-steps (the JAX state's
@@ -38,27 +48,23 @@ checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
   - the fault injector's sites (`resilience.faults`): ``decode`` in the
     sampler, ``assemble`` per call on the pipeline, ``dispatch`` (one
     NaN in the call's first micro-batch when a step of its window is
-    scheduled), ``fetch`` in the metrics read, and the checkpoint
+    scheduled), ``fetch`` in the metrics fetch, and the checkpoint
     sites; its counters join the records and the summary as `fault_*`;
   - observability (`obs/`): spans `input_wait`, `dispatch`, `eval`,
     `ckpt` and `rollback` on the main thread, `put` on the prefetch
-    thread, `assemble` on the pipeline workers and `fetch` in the read
+    thread, `assemble` on the pipeline workers and `fetch` on the fetcher
     (`obs.trace` -> `<log_dir>/trace.json`); `heartbeat.json` with the
     wedge watchdog (`obs.heartbeat`); device memory, RSS, and with
     `obs.flops` the model TFLOP/s and `mfu_nominal` in train records;
     `--profile` / `--profile-steps` through `ProfilerSession`.
 The summary holds the eval metrics, rates, median step and phase times,
-phase totals and counters, the checkpoint saves' seconds, the telemetry
-and `pipeline_depth`, the depth the loop ran at.
-
-`train.pipeline_depth`: the JAX loop reads metric values only at log,
-eval and checkpoint boundaries, up to `pipeline_depth` calls behind the
-dispatch. This package's step reads them back at the end of every step
-(its skip decision is taken on the host), the JAX loop's depth 0; on a
-run that does not diverge that gives the same result, and the skip
-streak counts every step. Not ported (ROADMAP): the `AsyncFetcher`
-(with the device-side skip it needs), the recipe engine, elastic
-training, multi-host meshes, and the ledger and incident recorder.
+phase totals and counters, the checkpoint saves' seconds, the telemetry,
+the fetcher's `pipeline_*` counters (fetches, fetch seconds, retries,
+the most in flight) and `pipeline_depth`, the depth the loop ran at.
+Depth 0 and depth d > 0 run the same step and give the same bits; only
+the time the host waits differs. Not ported (ROADMAP): the recipe
+engine, elastic training, multi-host meshes, and the ledger and
+incident recorder.
 
 The Trainer leaves the global TF32 switches of PyTorch as it finds them.
 """
@@ -89,8 +95,8 @@ from ..resilience.healing import HealingSampler
 from ..resilience.verify import config_digest
 from .checkpoint import CheckpointManager, transfer_params
 from .evaluate import evaluate_aee
-from .metrics_log import (MetricsLogger, MetricsReader, ProfilerSession,
-                          StepTimer)
+from .metrics_log import (AsyncFetcher, MetricsLogger, ProfilerSession,
+                          StepTimer, SyncFetcher)
 from .schedule import step_decay_schedule
 from .state import create_train_state
 from .step import compute_dtype, make_eval_fn, make_train_step
@@ -131,6 +137,11 @@ def _scalar_last(v) -> float:
     steps_per_call > 1)."""
     a = np.asarray(v)
     return float(a) if a.ndim == 0 else float(a[-1])
+
+
+def _host(v) -> np.ndarray:
+    """A metric (a tensor on any device, or a number) as numpy."""
+    return np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
 
 
 def _poison_batch(batch: dict) -> dict:
@@ -253,18 +264,9 @@ class Trainer:
                 f"({cfg.train.log_dir!r})` gives per-checkpoint status; move "
                 "the ckpt directory aside to start fresh")
 
-        # the step's metrics read; fit() gives each fit its own, timed
-        self._reader = self._new_reader()
-        self.train_step = make_train_step(
-            self.model, cfg, self.dataset.mean,
-            read=lambda t: self._reader.read(t))
+        self.train_step = make_train_step(self.model, cfg,
+                                          self.dataset.mean)
         self.eval_fn = make_eval_fn(cfg, self.dataset.mean)
-
-    def _new_reader(self, timer: StepTimer | None = None) -> MetricsReader:
-        return MetricsReader(timer=timer,
-                             retries=self.cfg.resilience.fetch_retries,
-                             backoff_s=self.cfg.resilience.data_backoff_s,
-                             injector=self._inj)
 
     def _next_train_batch(self, it: int, rng: np.random.RandomState) -> dict:
         return self.dataset.sample_train(self.cfg.data.batch_size, rng=rng)
@@ -362,7 +364,6 @@ class Trainer:
                     for key in bs[0]}
 
         timer = StepTimer(cfg.data.batch_size)
-        self._reader = reader = self._new_reader(timer)
         pipeline = InputPipeline(assemble, num_workers=cfg.data.num_workers,
                                  reorder_depth=cfg.data.reorder_depth,
                                  retries=cfg.resilience.pipeline_retries,
@@ -375,6 +376,15 @@ class Trainer:
         # (closing it twice is harmless)
         stack.callback(prefetch.close)
         stack.callback(pipeline.close)
+        # metric fetches: at depth > 0 drained on a consumer thread, up to
+        # `depth` calls behind the dispatch; at 0 inline
+        depth = max(cfg.train.pipeline_depth, 0)
+        fetch_kw = dict(timer=timer, retries=cfg.resilience.fetch_retries,
+                        backoff_s=cfg.resilience.data_backoff_s,
+                        injector=inj)
+        fetcher = (AsyncFetcher(depth=depth, **fetch_kw) if depth > 0
+                   else SyncFetcher(**fetch_kw))
+        stack.callback(fetcher.close)
 
         def resilience_stats() -> dict:
             """One merge of the data-path, metrics-read, checkpoint and
@@ -383,7 +393,7 @@ class Trainer:
             return {**{f"data_{k}": v for k, v in pipeline.stats().items()},
                     **{f"data_{k}": v for k, v in prefetch.stats().items()},
                     **{f"data_{k}": v for k, v in healer.stats().items()},
-                    **{f"pipeline_{k}": v for k, v in reader.stats().items()},
+                    **{f"pipeline_{k}": v for k, v in fetcher.stats().items()},
                     **{f"ckpt_{k}": v for k, v in self.ckpt.stats().items()},
                     **({f"fault_{k}": v for k, v in inj.stats().items()}
                        if inj is not None else {})}
@@ -406,35 +416,46 @@ class Trainer:
                 heartbeat.touch(flush=flush)
 
         max_skips = max(cfg.resilience.max_consecutive_skips, 1)
-        skip_streak = 0
+        # the callback's verdicts for the main loop: a rollback due at a
+        # step (nan_event) and a fetched finite step (streak)
+        nan_event: dict = {"m": None}
+        streak = {"ok": False}
+        skip_state = {"streak": 0}
         last_eval: dict[str, float] = {}
 
-        def on_metrics(gs: int, ep: int, log_due: bool, m: dict) -> bool:
-            """The divergence ladder and the train record for the call
-            that ended at step gs. Returns True when the state must roll
-            back: a non-finite loss whose update was not skipped, or a
-            streak of skipped updates."""
-            nonlocal skip_streak
+        def on_metrics(tag, m: dict) -> None:
+            """The fetched metrics of the call that ended at step gs (on
+            the fetcher's thread, or inline at depth 0): the divergence
+            ladder and the train record. A non-finite loss whose update
+            was not skipped, or a streak of skipped updates (counted over
+            the fetched calls, as in JAX), sets the rollback event."""
+            gs, ep, log_due = tag
             skipped = int(round(float(np.sum(m["update_skipped"]))))
             if skipped:
                 timer.count("skipped_updates", skipped)
-                skip_streak += skipped
+                skip_state["streak"] += skipped
                 self.logger.log(
                     "warn", gs,
                     message=f"non-finite grads at step {gs}: {skipped} "
                             f"update(s) skipped in place (state unchanged; "
-                            f"streak {skip_streak}/"
+                            f"streak {skip_state['streak']}/"
                             f"{cfg.resilience.max_consecutive_skips})")
             nonfinite = cfg.train.nan_guard and not np.isfinite(
                 m["total"]).all()
             if nonfinite and not skipped:
-                return True  # never log a diverged record
-            if skipped and cfg.train.nan_guard and skip_streak >= max_skips:
-                return True  # escalate skip -> rollback
+                nan_event["m"] = (gs, m)
+                return  # never log a diverged record
+            if (skipped and cfg.train.nan_guard
+                    and skip_state["streak"] >= max_skips):
+                nan_event["m"] = (gs, m)  # escalate skip -> rollback
+                return
             if not skipped:
-                skip_streak = 0
-            if nonfinite or not log_due:
-                return False
+                skip_state["streak"] = 0
+            if nonfinite:
+                return
+            streak["ok"] = True
+            if not log_due:
+                return
             cache = getattr(self.dataset, "cache_stats", None)
             self.logger.log(
                 "train", gs, epoch=ep, loss=_scalar_last(m["total"]),
@@ -448,7 +469,6 @@ class Trainer:
                     if k in ("hits", "misses", "evictions")}
                    if cache is not None else {}),
                 **self._telemetry(timer))
-            return False
 
         def crossed(prev: int, new: int, every: int) -> bool:
             return every > 0 and prev // every != new // every
@@ -496,6 +516,9 @@ class Trainer:
                     self._flops_per_step = flops / k or None
                 else:
                     metrics = self.train_step(self.state, batch)
+            if first_call and self.device.type == "cuda":
+                # the first call builds kernels: timed to its end
+                torch.cuda.synchronize(self.device)
             timer.phase("dispatch", time.perf_counter() - t0)
             if first_call:
                 self.logger.log(
@@ -518,10 +541,25 @@ class Trainer:
                          and epoch % cfg.train.ckpt_every_epochs == 0)
                         or crossed(prev, gstep, cfg.train.ckpt_every_steps))
 
-            if on_metrics(gstep, epoch, log_due, metrics):
-                skip_streak = 0  # the rollback rewinds the run
+            # one fetch serves the ladder and the record; it drains
+            # behind the next dispatch
+            if log_due or eval_due or ckpt_due:
+                fetcher.submit((gstep, epoch, log_due), metrics, on_metrics)
+            # eval and checkpoints see every fetched metric first, so a
+            # diverged state is never evaluated or saved
+            if eval_due or ckpt_due or nan_event["m"] is not None:
+                fetcher.drain()
+            if nan_event["m"] is not None:
+                # an event may land between the check above and here:
+                # drain again, so every fetch in flight lands before the
+                # rewind
+                fetcher.drain()
+                nan_step, _ = nan_event["m"]
+                nan_event["m"] = None
+                streak["ok"] = False
+                skip_state["streak"] = 0  # the rollback rewinds the run
                 timer.count("rollbacks")
-                self._rollback(gstep)
+                self._rollback(nan_step)
                 gstep = self.state.step
                 # discarded steps do not count toward throughput;
                 # boundaries up to the divergence re-fire as gstep
@@ -535,8 +573,8 @@ class Trainer:
                         f"consecutive times around step {gstep}; "
                         "rollback is not recovering — aborting")
                 continue
-            if not (cfg.train.nan_guard
-                    and not np.isfinite(metrics["total"]).all()):
+            if streak["ok"]:
+                streak["ok"] = False
                 consecutive_rollbacks = 0  # a finite step recovered
 
             if eval_due:
@@ -573,17 +611,26 @@ class Trainer:
                 message=f"signal {stop_sig['sig']} received; stopping "
                         "after a clean final checkpoint (auto-resume "
                         "continues from here)")
+        # every fetch in flight lands before the final save, bounded: a
+        # read wedged on a hung card must not keep the run from ending
+        drained = fetcher.drain(timeout=120.0)
+        if not drained:
+            self.logger.log(
+                "warn", gstep,
+                message="metrics fetch still in flight after 120s at the "
+                        "end of the fit (hung device?); the final state "
+                        "cannot be checked for NaN: no final save")
         # never save a state whose last steps diverged: a non-finite
         # final loss is fine only if its update was skipped in place
-        final_ok = metrics is None or not cfg.train.nan_guard
-        if not final_ok:
-            total = np.atleast_1d(np.asarray(metrics["total"], np.float64))
-            skipped = np.atleast_1d(np.asarray(metrics["update_skipped"]))
+        final_ok = drained and nan_event["m"] is None
+        if final_ok and cfg.train.nan_guard and metrics is not None:
+            total = np.atleast_1d(_host(metrics["total"]))
             bad = ~np.isfinite(total)
-            final_ok = bool(np.all(skipped[bad] >= 0.5))
+            final_ok = bool(np.all(np.atleast_1d(
+                _host(metrics["update_skipped"]))[bad] >= 0.5))
         if final_ok:
             self.ckpt.save(self.state)
-        else:
+        elif drained:
             self._rollback(gstep)
             timer.rewind(ckpt_mark)
             self.logger.log(
@@ -595,7 +642,7 @@ class Trainer:
                 **timer.phases(), **timer.counters(), **resilience_stats(),
                 **{k: v for k, v in self._telemetry(timer).items()
                    if v is not None},
-                "pipeline_depth": 0}
+                "pipeline_depth": depth}
 
     def _telemetry(self, timer: StepTimer) -> dict:
         """Device memory, RSS and model FLOP rate for a train record

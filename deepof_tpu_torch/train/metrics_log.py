@@ -5,13 +5,14 @@ Every record is one JSON line in `<log_dir>/metrics.jsonl`, mirrored to
 stdout. `StepTimer` reports steps/s and pairs/s over training time only,
 per-phase host seconds and event counters.
 
-`MetricsReader` is the JAX package's `SyncFetcher` (its
-`pipeline_depth=0`): the host read of a step's metrics, inline, on the
-bounded retry ladder with the ``fetch`` fault site. The step calls it at
-the end of each step, because its skip decision needs the values on the
-host. The JAX loop's `AsyncFetcher`, which drains reads behind the next
-dispatch, needs a skip decided on the device; it is not ported (ROADMAP
-Queue A item 6).
+`AsyncFetcher` and `SyncFetcher` are the JAX package's: the loop submits
+a call's metrics when a record, an eval or a checkpoint is due, and the
+fetcher takes them to the host (at `train.pipeline_depth` > 0 on a
+consumer thread, up to that many fetches behind the dispatch; at 0
+inline) and runs the loop's callback on them, on the bounded retry
+ladder with the ``fetch`` fault site. `HostStager` is the card's side
+of a fetch: a pinned ring and a CUDA event, so a fetch waits for its own
+step only.
 
 `ProfilerSession` is the JAX package's `jax.profiler` window on
 `torch.profiler`: a Chrome trace under `<log_dir>/profile/`.
@@ -23,6 +24,7 @@ import collections
 import json
 import math
 import os
+import queue
 import statistics
 import threading
 import time
@@ -86,8 +88,9 @@ class StepTimer:
 
     `phase(name, dt)` accumulates host seconds per loop phase:
     `assemble` (waiting on the prefetcher), `put` (staging a batch on
-    the device, on the prefetch thread), `dispatch` (the step, metric
-    read-back included). `count(name)` accumulates event counters
+    the device, on the prefetch thread), `dispatch` (the main thread's
+    call of the step), `fetch` (the metrics' host read, on the
+    fetcher). `count(name)` accumulates event counters
     (`starved`: steps whose input wait exceeded 1 ms; `skipped_updates`,
     `rollbacks`).
 
@@ -174,17 +177,215 @@ class StepTimer:
         self._last = None
 
 
-class MetricsReader:
-    """The host read of a step's metrics (the JAX package's `SyncFetcher`):
-    `read(tensor) -> list`, under a ``fetch`` span, timed as the `fetch`
-    phase, on the bounded retry ladder (`resilience/healing.py`): a
-    failed read, or an injected ``fetch`` fault, is tried again up to
-    `retries` times. The fault site's index is the read's sequence
-    number: one read a step, so the JAX loop's fetch index at
-    `train.log_every = 1` and `steps_per_call = 1`."""
+def _fetch_with_retry(fetch, tree, seq: int, retries: int, backoff_s: float,
+                      injector, count_retry):
+    """The host read of a fetch on the bounded retry ladder
+    (`resilience/healing.py`): a failed read, or an injected ``fetch``
+    fault, is tried again up to `retries` times. `seq` is the fault
+    site's index: the fetch's place in submit order."""
 
-    def __init__(self, timer: StepTimer | None = None, retries: int = 0,
+    def once():
+        if injector is not None:
+            injector.check("fetch", seq)
+        return fetch(tree)
+
+    return retry_bounded(once, retries=retries, backoff_s=backoff_s,
+                         on_retry=count_retry)
+
+
+class HostStager:
+    """Takes a dict of metric tensors (or numbers) to the host as a dict
+    of numpy arrays, in two halves: `stage` on the thread that launched
+    the step, `read` on any thread.
+
+    `stage` concatenates the values into one float32 vector; on the card
+    it copies that vector (`non_blocking`) into a pinned host buffer on
+    the current stream and records a CUDA event behind the copy, so the
+    copy waits for the step that made the values and for nothing
+    launched after it. `read` waits on that event alone and splits the
+    buffer. The pinned buffers are a ring of `slots` (pinned allocation
+    costs milliseconds): a buffer is reused `slots` stagings later, so a
+    caller keeps at most `slots - 1` stagings unread."""
+
+    def __init__(self, slots: int = 1):
+        self._slots = max(int(slots), 1)
+        self._bufs: list[torch.Tensor | None] = [None] * self._slots
+        self._next = 0
+
+    def stage(self, tree: dict):
+        keys = list(tree)
+        vals = [torch.as_tensor(tree[k]).detach() for k in keys]
+        shapes = [tuple(v.shape) for v in vals]
+        flat = torch.cat([v.reshape(-1).to(torch.float32) for v in vals])
+        if flat.device.type != "cuda":
+            return keys, shapes, flat, None
+        i, self._next = self._next, (self._next + 1) % self._slots
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < flat.numel():
+            buf = self._bufs[i] = torch.empty(flat.numel(),
+                                              dtype=torch.float32,
+                                              pin_memory=True)
+        host = buf[:flat.numel()]
+        host.copy_(flat, non_blocking=True)
+        # a blocking event: the reader sleeps in its wait, and spins no
+        # core the launching thread and the prefetcher need
+        event = torch.cuda.Event(blocking=True)
+        event.record()
+        return keys, shapes, host, event
+
+    @staticmethod
+    def read(staged) -> dict:
+        keys, shapes, host, event = staged
+        if event is not None:
+            event.synchronize()
+        arr = host.numpy().copy()  # the pinned buffer is reused
+        out, pos = {}, 0
+        for key, shape in zip(keys, shapes):
+            n = int(np.prod(shape, dtype=np.int64))
+            out[key] = arr[pos:pos + n].reshape(shape)
+            pos += n
+        return out
+
+
+class AsyncFetcher:
+    """Bounded-depth background drain of a step's metrics (the JAX
+    package's `AsyncFetcher`).
+
+    The main loop `submit()`s (tag, metrics, callback) and keeps
+    dispatching; a consumer thread takes the values to the host and runs
+    the callback with them. `submit()` blocks while `depth` submitted
+    fetches are not yet done (counted under a condition variable, so
+    admission and the `max_in_flight` witness are race-free): the host
+    runs at most `depth` fetches ahead of the card. The default fetch is
+    `HostStager`'s: staged on the submitting thread right after
+    admission, read on the consumer thread, which waits for that step
+    only. A `fetch_fn` replaces it (applied to the tree on the consumer
+    thread). The queue itself is unbounded, so `close()` can always
+    enqueue its stop sentinel, even past a consumer wedged in a read.
+
+    A fetch or callback error is raised again on the next submit() or
+    drain(). `stats()`: completed fetches, their seconds, retries and the
+    largest number in flight."""
+
+    _STOP = object()
+
+    def __init__(self, depth: int = 2, fetch_fn=None,
+                 timer: StepTimer | None = None, retries: int = 0,
                  backoff_s: float = 0.05, injector=None):
+        self._depth = max(int(depth), 1)
+        self._stager = (HostStager(self._depth + 1) if fetch_fn is None
+                        else None)
+        self._fetch = (fetch_fn if fetch_fn is not None
+                       else HostStager.read)
+        self._timer = timer
+        self._retries = max(int(retries), 0)
+        self._backoff = max(float(backoff_s), 0.0)
+        self._inj = injector
+        self._retry_count = 0
+        self._seq = 0  # fetches consumed, = submit order (FIFO queue)
+        self._q: queue.Queue = queue.Queue()  # unbounded; _cv is the bound
+        self._exc: BaseException | None = None
+        self._cv = threading.Condition()
+        self._in_flight = 0
+        self._max_in_flight = 0
+        self._fetches = 0
+        self._fetch_s = 0.0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="metrics-fetcher")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is self._STOP:
+                self._q.task_done()
+                return
+            tag, tree, callback = item
+            try:
+                seq, self._seq = self._seq, self._seq + 1
+                t0 = time.perf_counter()
+                with obs_trace.span("fetch"):
+                    host = _fetch_with_retry(self._fetch, tree, seq,
+                                             self._retries, self._backoff,
+                                             self._inj, self._count_retry)
+                dt = time.perf_counter() - t0
+                with self._cv:
+                    self._fetches += 1
+                    self._fetch_s += dt
+                if self._timer is not None:
+                    self._timer.phase("fetch", dt)
+                callback(tag, host)
+            except BaseException as e:  # noqa: BLE001 - raised on submit/drain
+                self._exc = e
+            finally:
+                with self._cv:
+                    self._in_flight -= 1
+                    self._cv.notify()
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def submit(self, tag, tree, callback) -> None:
+        """Enqueue a fetch; blocks while `depth` fetches are in flight."""
+        self._raise_pending()
+        with self._cv:
+            while self._in_flight >= self._depth:
+                self._cv.wait()
+            self._in_flight += 1
+            self._max_in_flight = max(self._max_in_flight, self._in_flight)
+        if self._stager is not None:
+            # after admission: the ring slot this takes is free
+            tree = self._stager.stage(tree)
+        self._q.put((tag, tree, callback))
+
+    def drain(self, timeout: float | None = None) -> bool:
+        """Block until every submitted fetch has completed and its
+        callback has run (before eval, a checkpoint and a rollback). With
+        a timeout (the end of a fit), give up after `timeout` seconds and
+        return False."""
+        if timeout is None:
+            self._q.join()
+        else:
+            deadline = time.monotonic() + timeout
+            with self._q.all_tasks_done:
+                while self._q.unfinished_tasks:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                    self._q.all_tasks_done.wait(remaining)
+        self._raise_pending()
+        return True
+
+    def _count_retry(self) -> None:
+        self._retry_count += 1  # GIL-atomic; read by stats()
+
+    def stats(self) -> dict[str, float]:
+        with self._cv:
+            return {"fetches": self._fetches,
+                    "fetch_s": round(self._fetch_s, 4),
+                    "fetch_retries": self._retry_count,
+                    "max_in_flight": self._max_in_flight}
+
+    def close(self) -> None:
+        """Never blocks on a wedged consumer: the daemon thread is left
+        after the join's timeout."""
+        self._q.put(self._STOP)
+        self._thread.join(timeout=5.0)
+
+
+class SyncFetcher:
+    """Depth 0 (`train.pipeline_depth = 0`): the fetch and the callback
+    inline on the caller's thread, with `AsyncFetcher`'s interface, so
+    the loop has one code path."""
+
+    def __init__(self, fetch_fn=None, timer: StepTimer | None = None,
+                 retries: int = 0, backoff_s: float = 0.05, injector=None):
+        stager = HostStager()
+        self._fetch = (fetch_fn if fetch_fn is not None
+                       else lambda tree: stager.read(stager.stage(tree)))
         self._timer = timer
         self._retries = max(int(retries), 0)
         self._backoff = max(float(backoff_s), 0.0)
@@ -196,30 +397,29 @@ class MetricsReader:
     def _count_retry(self) -> None:
         self._retry_count += 1
 
-    def read(self, t: torch.Tensor) -> list:
-        seq = self._fetches
-
-        def once() -> list:
-            if self._inj is not None:
-                self._inj.check("fetch", seq)
-            return t.tolist()
-
+    def submit(self, tag, tree, callback) -> None:
         t0 = time.perf_counter()
         with obs_trace.span("fetch"):
-            host = retry_bounded(once, retries=self._retries,
-                                 backoff_s=self._backoff,
-                                 on_retry=self._count_retry)
+            host = _fetch_with_retry(self._fetch, tree, self._fetches,
+                                     self._retries, self._backoff,
+                                     self._inj, self._count_retry)
         dt = time.perf_counter() - t0
         self._fetches += 1
         self._fetch_s += dt
         if self._timer is not None:
             self._timer.phase("fetch", dt)
-        return host
+        callback(tag, host)
+
+    def drain(self, timeout: float | None = None) -> bool:
+        return True
 
     def stats(self) -> dict[str, float]:
         return {"fetches": self._fetches, "fetch_s": round(self._fetch_s, 4),
                 "fetch_retries": self._retry_count,
                 "max_in_flight": 1 if self._fetches else 0}
+
+    def close(self) -> None:
+        pass
 
 
 class ProfilerSession:

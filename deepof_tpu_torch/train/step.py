@@ -6,11 +6,13 @@ the pyramid loss (`pyramid_loss`, or `pyramid_loss_multi` for a batch
 with a "volume"). `make_train_step` builds `step(state, batch) ->
 metrics`: forward, backward, global gradient norm, and the micro-step
 (`TrainState.apply_gradients`: the accumulator under `optim.grad_accum`,
-the Adam update), which is skipped when the loss or the gradient norm is
-not finite (`skip_nonfinite`). Under `train.steps_per_call = K > 1` the
-step takes K stacked batches ([K, B, ...] entries) and runs K steps in
-sequence, each with its own skip, returning metrics with a leading K
-axis as the JAX step's `lax.scan` does; it is a loop over the same
+the Adam update), which is skipped on the device when the loss or the
+gradient norm is not finite (`skip_nonfinite`), as the JAX step's
+`jnp.where` skips it: the metrics stay on the device. Under
+`train.steps_per_call = K > 1` the step takes K stacked batches
+([K, B, ...] entries) and runs K steps in sequence, each with its own
+skip, returning metrics with a leading K axis as the JAX step's
+`lax.scan` does; it is a loop over the same
 operations, so it gives the bits of K single calls. Under `train.remat`
 the model forward runs under `torch.utils.checkpoint` (non-reentrant),
 where the JAX step puts `jax.checkpoint`: the loss and its warps stay
@@ -28,7 +30,6 @@ the loss, the gradients, their norm and Adam stay float32.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Callable
 
 import torch
@@ -109,20 +110,21 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
-                    smooth_border_mask: bool = False,
-                    read: Callable[[torch.Tensor], list] | None = None
+                    smooth_border_mask: bool = False
                     ) -> Callable[[TrainState, dict], dict]:
     """(state, batch) -> metrics: total, grad_norm, update_skipped and the
-    five scale_* lists, as Python floats; under steps_per_call = K > 1 a
-    batch of [K, B, ...] entries and metrics of K values each. `state`
-    is updated in place. The batch may hold numpy arrays or tensors; it
-    moves to the model's device. `read` takes a step's metrics to the
-    host as a list (default `Tensor.tolist`; the loop passes
-    `MetricsReader.read`, its retried and traced read)."""
+    five scale_* stacks (one value a pyramid level, finest first), as
+    tensors on the model's device; under steps_per_call = K > 1 a batch
+    of [K, B, ...] entries and metrics stacked over K. `state` is
+    updated in place. The step reads nothing back: the skip and the
+    update are decided on the device (`TrainState.apply_gradients`), and
+    the loop's fetcher (`train/metrics_log.py`) takes the metrics to the
+    host when a record is due. The batch may hold numpy arrays or
+    tensors; it moves to the model's device."""
     check_trainable(cfg)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg)
-    read = read if read is not None else torch.Tensor.tolist
+    skip = cfg.resilience.skip_nonfinite
 
     def step(state: TrainState, batch: dict) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
@@ -130,24 +132,18 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
                                   mean, cfg.loss, smooth_border_mask, dtype,
                                   remat=cfg.train.remat)
         total.backward()
+        total = total.detach()
         grad_norm = global_norm([p.grad for p in model.parameters()
                                  if p.grad is not None])
-        scales = torch.stack([torch.stack([d[k] for d in aux["losses"]])
-                              for k in SCALE_KEYS])
-        # one device-to-host read for every metric
-        flat = read(torch.cat([torch.stack([total, grad_norm]),
-                               scales.flatten()]).detach())
-        head, n = flat[:2], scales.shape[1]
-        rows = [flat[2 + i * n:2 + (i + 1) * n]
-                for i in range(len(SCALE_KEYS))]
-        finite = math.isfinite(head[0]) and math.isfinite(head[1])
-        skipped = cfg.resilience.skip_nonfinite and not finite
-        if not skipped:
-            state.apply_gradients(head[1])
-        metrics = {"total": head[0], "grad_norm": head[1],
-                   "update_skipped": float(skipped)}
-        metrics.update({f"scale_{k}": row for k, row in zip(SCALE_KEYS,
-                                                            rows)})
+        finite = (torch.isfinite(total) & torch.isfinite(grad_norm)
+                  if skip else None)
+        state.apply_gradients(grad_norm, finite)
+        metrics = {"total": total, "grad_norm": grad_norm,
+                   "update_skipped": (torch.zeros_like(total)
+                                      if finite is None
+                                      else (~finite).float())}
+        metrics.update({f"scale_{k}": torch.stack(
+            [d[k] for d in aux["losses"]]).detach() for k in SCALE_KEYS})
         return metrics
 
     k = max(cfg.train.steps_per_call, 1)
@@ -157,7 +153,7 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     def multi_step(state: TrainState, batches: dict) -> dict:
         rows = [step(state, {key: v[i] for key, v in batches.items()})
                 for i in range(k)]
-        return {key: [r[key] for r in rows] for key in rows[0]}
+        return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
 
     return multi_step
 

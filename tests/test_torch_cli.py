@@ -173,7 +173,12 @@ def test_config_prints_a_dict_that_reads_back(capsys):
     (["train", "--synthetic", "--model", "flownet_s", "--set",
       "loss.occlusion=true"], "item 9"),
     (["train", "--synthetic", "--model", "flownet_s", "--set",
-      "data.augment_photo=true"], "item 9")])
+      "data.augment_photo=true"], "item 9"),
+    (["serve", "--replicas", "2"], "item 8"),
+    (["serve", "--autoscale"], "item 8"),
+    (["serve", "--min-replicas", "1", "--max-replicas", "3"], "item 8"),
+    (["serve", "--artifacts", "/x"], "item 8"),
+    (["serve", "--set", "serve.fleet.replicas=2"], "item 8")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv + ["--device", "cpu"])

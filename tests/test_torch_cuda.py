@@ -11,8 +11,11 @@ it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Add `-k corr`, `-k corr_bwd`, `-k bf16` or `-k warp` for one kernel's
-cases, `-k "warm or int8"` for the serving cases.
+cases, `-k "warm or int8"` for the serving cases, `-k "pinned_ring or
+device_side_skip"` for the metric fetch and the skip on the card.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -635,6 +638,11 @@ def _flownet_c_steps(cuda, k, remat=False, grad_accum=2):
     return state, make_train_step(model, cfg, (0.0, 0.0, 0.0))
 
 
+def _host(metrics: dict) -> dict:
+    """A step's metrics (tensors on the card) as floats and lists."""
+    return {k: v.tolist() for k, v in metrics.items()}
+
+
 def _train_pairs(n, hw=(128, 192)):
     rs = np.random.RandomState(7)
     return [{k: rs.rand(2, *hw, 3).astype(np.float32) * 255
@@ -662,10 +670,11 @@ def test_k_step_call_equals_single_calls_on_the_card(cuda, deterministic):
     pairs = _train_pairs(4)
     one, one_step = _flownet_c_steps(cuda, 1)
     before = cc.launches.count
-    want = [one_step(one, b) for b in pairs]
+    want = [_host(one_step(one, b)) for b in pairs]
     assert cc.launches.count == before + 4
     two, two_step = _flownet_c_steps(cuda, 2)
-    got = [two_step(two, {key: np.stack([a[key], b[key]]) for key in a})
+    got = [_host(two_step(two, {key: np.stack([a[key], b[key]])
+                                for key in a}))
            for a, b in (pairs[0:2], pairs[2:4])]
     for key in want[0]:
         assert [v for call in got for v in call[key]] == \
@@ -686,7 +695,7 @@ def test_remat_runs_the_corr_kernel_twice_with_the_same_bits(cuda,
         state, step = _flownet_c_steps(cuda, 1, remat=remat, grad_accum=1)
         counts = [c.count for c in (cc.launches, cc.bwd_f1_launches,
                                     cc.bwd_f2_launches)]
-        metrics = step(state, pair)
+        metrics = _host(step(state, pair))
         runs.append((metrics, [c.count - n for c, n in zip(
             (cc.launches, cc.bwd_f1_launches, cc.bwd_f2_launches), counts)],
             [p.grad.clone() for p in state.model.parameters()]))
@@ -705,3 +714,66 @@ def test_device_memory_summary_reads_the_card(cuda):
     got = device_memory_summary(cuda)
     assert got["dev_mem_bytes_in_use"] >= x.numel() * 4
     assert got["dev_mem_peak_bytes"] >= got["dev_mem_bytes_in_use"]
+
+
+@pytest.mark.cuda
+def test_the_pinned_ring_fetch_waits_for_its_own_step_only(cuda):
+    """`HostStager`: step i's values, staged behind step i, read while
+    step i + 1 (a long sleep of the stream, then a write of the same
+    tensor) is still queued: the read returns step i's values and does
+    not wait for step i + 1."""
+    from deepof_tpu_torch.train.metrics_log import AsyncFetcher, HostStager
+
+    stager = HostStager(slots=3)
+    x = torch.zeros(6, device=cuda)
+    torch.cuda.synchronize()
+    x.fill_(1.0)
+    staged = stager.stage({"total": x[0], "scale_total": x})
+    torch.cuda._sleep(int(2e9))  # ~1 s of the stream: step i + 1
+    x.fill_(2.0)
+    t0 = time.perf_counter()
+    host = stager.read(staged)
+    waited = time.perf_counter() - t0
+    assert float(host["total"]) == 1.0
+    assert host["scale_total"].tolist() == [1.0] * 6
+    assert waited < 0.5, waited
+    torch.cuda.synchronize()
+    # the fetcher's consumer thread reads through the same ring
+    got = []
+    f = AsyncFetcher(depth=2)
+    for i in range(5):
+        x.fill_(float(i))
+        f.submit(i, {"total": x[0]}, lambda tag, m: got.append(
+            (tag, float(m["total"]))))
+    assert f.drain(timeout=60)
+    f.close()
+    assert got == [(i, float(i)) for i in range(5)]
+
+
+@pytest.mark.cuda
+def test_the_device_side_skip_leaves_the_state_as_it_was(cuda):
+    """A NaN batch on the card under grad_accum 2: after one finite
+    micro-step, the poisoned one changes no tensor of the state (the
+    parameters, the accumulator, Adam's moments, the counters), bit for
+    bit, and reads nothing back."""
+    state, step = _flownet_c_steps(cuda, 1)
+    pairs = _train_pairs(2)
+    step(state, pairs[0])
+
+    def snapshot():
+        return ([p.detach().clone() for p in state.model.parameters()]
+                + [a.clone() for a in state.acc]
+                + [t.clone() for s in state.optimizer.state.values()
+                   for t in s.values()] + [state.counts.clone()])
+
+    before = snapshot()
+    bad = {k: v.copy() for k, v in pairs[1].items()}
+    bad["source"][0, 0, 0, 0] = np.nan
+    metrics = step(state, bad)
+    assert metrics["update_skipped"].is_cuda
+    assert float(metrics["update_skipped"]) == 1.0
+    after = snapshot()
+    assert len(after) == len(before)
+    for a, b in zip(after, before):
+        assert torch.equal(a, b)
+    assert (state.step, state.updates, state.mini_step) == (1, 0, 1)

@@ -53,14 +53,23 @@ def test_port_imports_with_jax_and_reference_blocked():
 
 @pytest.mark.parametrize("module", [
     "deepof_tpu_torch.obs.trace", "deepof_tpu_torch.obs.heartbeat",
-    "deepof_tpu_torch.obs.telemetry", "deepof_tpu_torch.resilience.faults"])
+    "deepof_tpu_torch.obs.telemetry", "deepof_tpu_torch.resilience.faults",
+    "deepof_tpu_torch.obs.export", "deepof_tpu_torch.serve.server",
+    "deepof_tpu_torch.serve.engine", "deepof_tpu_torch.serve.buckets",
+    "deepof_tpu_torch.train.metrics_log", "deepof_tpu_torch.train.state",
+    "deepof_tpu_torch.train.schedule", "deepof_tpu_torch.train.step",
+    "deepof_tpu_torch.train.loop", "deepof_tpu_torch.io.png",
+    "deepof_tpu_torch.io.ppm", "deepof_tpu_torch.native",
+    "deepof_tpu_torch.core.config", "deepof_tpu_torch.cli"])
 def test_the_observability_and_fault_modules_are_covered(module):
-    """The training loop's observability and fault modules are copies or
-    ports of JAX-package modules: each is among the modules imported with
-    JAX and the JAX package blocked above, and its source names no
-    blocked import."""
+    """The training loop's observability and fault modules, the serving
+    plane and the fetchers are copies or ports of JAX-package modules:
+    each is among the modules imported with JAX and the JAX package
+    blocked above, and its source names no blocked import."""
     assert module in _modules()
     path = os.path.join(ROOT, *module.split(".")) + ".py"
+    if not os.path.exists(path):  # a package
+        path = os.path.join(ROOT, *module.split("."), "__init__.py")
     with open(path) as fh:
         tree = ast.parse(fh.read(), path)
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -119,3 +128,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
             cli.main([verb, "--synthetic", "--model", "flownet_s",
                       "--log-dir", str(tmp_path / verb)])
     assert not (tmp_path / "train").exists()  # nothing written first
+
+
+def test_serve_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deepof_tpu_torch import cli
+    from deepof_tpu_torch.core.config import ExperimentConfig, ServeConfig
+    from deepof_tpu_torch.serve.server import run_offline, run_server
+
+    cfg = ExperimentConfig(serve=ServeConfig(fake_exec_ms=1.0, port=0))
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for i in range(2):
+        (frames / f"f{i}.ppm").write_bytes(b"P6\n2 2\n255\n" + bytes(12))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_server(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_offline(cfg, str(frames), str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["serve", "--set", "serve.fake_exec_ms=1.0", "--set",
+                  "serve.port=0", "--log-dir", str(tmp_path / "srv")])

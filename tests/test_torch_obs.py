@@ -291,7 +291,7 @@ def test_trace_and_profile_flags_write_their_files(tmp_path, capsys):
                      "--trace", "--profile-steps", "1:2",
                      "--log-dir", str(log_dir)]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
-        "pipeline_depth"] == 0
+        "pipeline_depth"] == 2  # the default, as in JAX
     assert _spans(log_dir)["dispatch"] == 3
     with open(log_dir / "profile" / "trace.json") as f:
         events = json.load(f)["traceEvents"]

@@ -164,7 +164,7 @@ def fits(tmp_path_factory):
         mp.setattr(jax_loop, "create_train_state", _create_state_jitted)
         jt = JaxTrainer(jcfg, dataset=JaxSynthetic(jcfg.data, style="blobs"),
                         mesh=local_mesh(1))
-    jt.fit(max_steps=MAX_STEPS)
+    jax_summary = jt.fit(max_steps=MAX_STEPS)
     import warnings
 
     with warnings.catch_warnings():
@@ -176,7 +176,7 @@ def fits(tmp_path_factory):
                  device="cpu")
     summary = pt.fit(max_steps=MAX_STEPS)
     return {"root": root, "steps": (pt.state.step, int(jt.state.step)),
-            "summary": summary}
+            "summary": summary, "jax_summary": jax_summary}
 
 
 def test_k2_fit_takes_the_jax_loops_steps(fits):
@@ -188,7 +188,8 @@ def test_k2_fit_takes_the_jax_loops_steps(fits):
     assert _ckpt_steps(root / "port") == _ckpt_steps(root / "jax") \
         == [0, 4, 6]
     assert fits["steps"] == (6, 6)
-    assert fits["summary"]["pipeline_depth"] == 0
+    # the JAX loop's default depth, 2, in both
+    assert fits["summary"]["pipeline_depth"] == 2
 
 
 def test_k2_fit_records_carry_the_last_inner_step(fits):
@@ -196,4 +197,7 @@ def test_k2_fit_records_carry_the_last_inner_step(fits):
         train = [r for r in map(json.loads, f) if r["kind"] == "train"]
     for r in train:
         assert np.isfinite(r["loss"]) and len(r["loss_total_by_scale"]) == 6
-    assert fits["summary"]["pipeline_fetches"] == 6  # one read a step
+    # one fetch a call that is due for a record, eval or checkpoint (the
+    # calls ending at 4 and 6), as in the JAX loop
+    assert fits["summary"]["pipeline_fetches"] == \
+        fits["jax_summary"]["pipeline_fetches"] == 2
