@@ -74,7 +74,18 @@ read after it):
     /metrics; the correlation once a cold dispatch, the warp once a warm
     one), and `cli_serve`, `python -m deepof_tpu_torch serve` on the
     training job's checkpoint in a process of its own (one request,
-    SIGTERM, exit 0) and its offline mode against `predict`.
+    SIGTERM, exit 0) and its offline mode against `predict`;
+  - the serving fleet on the training job's checkpoint (each
+    replica-<i>/ckpt linked to it), every replica a process of its own
+    on the card: `serve_fleet` (`serve` alone, then `serve --replicas
+    2` under the same load: requests/s and client p50/p99, warm-start
+    streams, every flow against `engine.submit` in this process, the
+    replicas' own launch counts, no CUDA context in the supervisor, a
+    SIGTERM drain; then a crash drill: a replica SIGKILLed mid-load,
+    failover, one eviction and one respawn, its spawn-to-ready seconds
+    and the card's memory) and `serve_autoscale` (`--autoscale` with two
+    buckets and two tiers and the brownout controller: a burst, the
+    level up to >= L1, a scale-up, calm, L0 and one retirement).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -89,6 +100,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; cs.fit_variants()"
     python3 -c "import chip_smoke as cs, tempfile; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_job(w); cs.cli_preempt_faults(w)"
     python3 -c "import chip_smoke as cs; from deepof_tpu_torch.core.config import ExperimentConfig; cs.serve_http(ExperimentConfig(model='flownet_c'))"
+    python3 -c "import os, tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = os.path.join(w, 'run'); cs.run_cli(['train', *cs.SERVE_RUN, '--steps', '2', '--log-dir', r], os.path.join(w, 't.log')); cs.serve_fleet(w, r); cs.serve_autoscale(w, r)"
 """
 
 from __future__ import annotations
@@ -1900,6 +1912,527 @@ def cli_serve(work: str, log_dir: str, extra: tuple = ()) -> dict:
     return row
 
 
+# the fleet phases: FlowNet-C at full width from `python -m
+# deepof_tpu_torch serve --replicas 2` (and `--autoscale`) on the served
+# run's checkpoint, each replica a process of its own on the card
+FLEET_REQUESTS = 64   # per load, from FLEET_THREADS client threads
+FLEET_THREADS = 8
+FLEET_PAIRS = 16      # distinct PNG pairs, cycled
+FLEET_SESSIONS = 2
+FLEET_FRAMES = 6
+FLEET_SPILL = 2       # serve.fleet.spill_in_flight: the load spreads
+FLEET_FAULT_AFTER = 8  # replica_fault_after of the crash drill
+FLEET_SLOTS = 4       # replica-<i>/ckpt links made for i < this
+FLEET_AFTER_SCALE_S = 2.0  # the burst goes on this long past scale-up
+FLEET_FLAGS = ("--set", "serve.port=0",
+               "--set", "obs.heartbeat_period_s=0.5",
+               "--set", "serve.fleet.poll_s=0.2",
+               "--set", "serve.session.warm_start=true")
+
+
+def gpu_memory_mib() -> int:
+    """The card's memory in use, MiB, as nvidia-smi reads it (every
+    process's, the CUDA contexts included)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def gpu_compute_pids() -> list[int]:
+    """The pids nvidia-smi lists as holding a CUDA context on the card,
+    one a context (in a container they may be another namespace's)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def link_checkpoints(fleet_dir: str, run_dir: str) -> None:
+    """A replica restores from `<its log_dir>/ckpt`, as the JAX fleet's
+    does (ROADMAP F16): link the served run's checkpoints there for every
+    slot the fleet may spawn."""
+    for i in range(FLEET_SLOTS):
+        d = os.path.join(fleet_dir, f"replica-{i}")
+        os.makedirs(d, exist_ok=True)
+        os.symlink(os.path.abspath(os.path.join(run_dir, "ckpt")),
+                   os.path.join(d, "ckpt"))
+
+
+def start_serving(argv: list, log_path: str):
+    """`python -m deepof_tpu_torch <argv>` in a process of its own, as a
+    user runs it; returns it with its parsed "serving" line."""
+    err = open(log_path + ".err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepof_tpu_torch", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    line: dict = {}
+    while "serving" not in line:
+        text = proc.stdout.readline()
+        if not text:
+            raise AssertionError(f"{argv[:2]}: exited (rc {proc.wait()}) "
+                                 f"before serving; see {log_path}.err")
+        if text.startswith("{"):
+            line = json.loads(text)
+    host, port = line["serving"][len("http://"):].split(":")
+    return proc, line, (host, int(port))
+
+
+def stop_serving(proc, pids=()) -> tuple[int, float]:
+    """SIGTERM, the exit code and the seconds to it; then SIGKILL
+    whatever of it, or of `pids`, is still alive."""
+    import signal
+
+    t0 = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.monotonic() - t0
+    for pid in pids:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    return rc, seconds
+
+
+def healthz(address) -> dict:
+    return http_call(address, "GET", "/healthz")[2]
+
+
+def wait_health(address, ok, what: str, timeout_s: float = 240.0,
+                seen: list | None = None) -> dict:
+    """Poll /healthz until `ok(stats)`; the stats. Each poll's stats go to
+    `seen` when it is given."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        h = healthz(address)
+        if seen is not None:
+            seen.append(h)
+        if ok(h):
+            return h
+        if time.monotonic() > deadline:
+            state = {k: h.get(k) for k in ("fleet_states", "fleet_ready",
+                                           "degrade_level", "fleet_retired")}
+            raise AssertionError(f"no {what} within {timeout_s} s: {state}")
+        time.sleep(0.2)
+
+
+def fleet_load(address, bodies: list, n: int = FLEET_REQUESTS,
+               threads: int = FLEET_THREADS) -> dict:
+    """`n` POST /v1/flow from `threads` client threads, the bodies
+    cycled: every reply (status, JSON or error text, client ms), the wall
+    seconds and requests/s."""
+    replies: list = [None] * n
+
+    def client(k: int) -> None:
+        for i in range(k, n, threads):
+            try:
+                replies[i] = http_call(address, "POST", "/v1/flow",
+                                       bodies[i % len(bodies)])
+            except Exception as e:  # noqa: BLE001 - a drop is a failure
+                replies[i] = (-1, None, f"{type(e).__name__}: {e}", 0.0)
+
+    wall = run_clients(threads, client)
+    ok = [r for r in replies if r[0] == 200]
+    return {"replies": replies, "wall_s": wall, "ok": len(ok),
+            "requests_per_s": n / wall,
+            "client": p50_p99([r[3] for r in ok]),
+            "statuses": dict(collections.Counter(r[0] for r in replies))}
+
+
+def replica_records(fleet_dir: str) -> dict[int, list[dict]]:
+    """Each replica directory's kind="serve" records (one a replica
+    process that exited by SIGTERM)."""
+    out = {}
+    for name in sorted(os.listdir(fleet_dir)):
+        path = os.path.join(fleet_dir, name, "metrics.jsonl")
+        if name.startswith("replica-") and os.path.exists(path):
+            out[int(name.split("-")[1])] = [
+                r for r in read_records(os.path.join(fleet_dir, name))
+                if r.get("kind") == "serve"]
+    return out
+
+
+def launches_match_dispatches(rec: dict) -> bool:
+    """FlowNet-C serving: one correlation launch a cold dispatch and one
+    warp launch a warm one, so the two add up to the replica's
+    dispatches; no bf16 correlation (the bf16 tier computes in float32)
+    and no backward kernel."""
+    k = rec["kernel_launches"]
+    return (k["corr"] + k["warp_fwd"] == rec["serve_batches"]
+            and all(v == 0 for n, v in k.items()
+                    if n not in ("corr", "warp_fwd")))
+
+
+def serve_fleet(work: str, run_dir: str, extra: tuple = (),
+                device: str = "cuda") -> dict:
+    """`serve --replicas 2 --model flownet_c` on the served run's
+    checkpoint (SERVE_RUN: full width, the 384x512 bucket, max_batch 8,
+    f32, warm-start sessions), each replica-<i>/ckpt linked to the run's
+    (F16), against `serve` alone under the same load:
+      - `serve` alone: FLEET_REQUESTS POST /v1/flow from FLEET_THREADS
+        client threads (requests/s, client p50/p99), SIGTERM, exit 0;
+      - the fleet (spill at FLEET_SPILL in flight, so the load spreads):
+        the same load, then FLEET_SESSIONS streams of FLEET_FRAMES frames
+        through /v1/flow/stream; nvidia-smi counts one more CUDA context
+        a replica and none for the supervisor;
+        SIGTERM: exit 0 within serve.fleet.drain_timeout_s and no replica
+        left; each replica's final record: it served, and its correlation
+        and warp launches add up to its dispatches, the warps at most the
+        warm steps (a warm dispatch may carry both sessions'); every flow within HTTP_TOL of `engine.submit` /
+        `submit_next` in this process on the same weights;
+      - the crash drill, a fleet with `replica_crash` at replica 1 after
+        FLEET_FAULT_AFTER responses: the same load answered >= 99% (every
+        failure structured), one eviction and one respawn, the respawn's
+        spawn-to-ready seconds, and the card's memory before the kill and
+        after the respawn."""
+    import base64
+
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import config_from_dict
+    from deepof_tpu_torch.predict import restore_params
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+
+    t0 = time.monotonic()
+    h, w = SERVE_HW
+    rs = np.random.RandomState(50)
+    pairs = [(rs.randint(0, 256, (h, w, 3), dtype=np.uint8),
+              rs.randint(0, 256, (h, w, 3), dtype=np.uint8))
+             for _ in range(FLEET_PAIRS)]
+    bodies = [{"prev": b64_png(a), "next": b64_png(b)} for a, b in pairs]
+    clips = [video(51 + s, FLEET_FRAMES, SERVE_HW)
+             for s in range(FLEET_SESSIONS)]
+    clip_frames = [[b64_png(f) for f in clip] for clip in clips]
+    base = [*SERVE_RUN, *FLEET_FLAGS, *extra]
+    row: dict = {}
+    # contexts on the card before the fleet: this process's
+    apps_before = gpu_compute_pids() if device == "cuda" else []
+
+    # -- `serve` alone
+    proc, line, address = start_serving(
+        ["serve", *base, "--log-dir", run_dir],
+        os.path.join(work, "serve_single.log"))
+    try:
+        single = fleet_load(address, bodies)
+    finally:
+        rc, drain_s = stop_serving(proc)
+    single_rec = [r for r in read_records(run_dir)
+                  if r.get("kind") == "serve"][-1]
+    row["single"] = {k: single[k] for k in (
+        "requests_per_s", "client", "statuses", "wall_s")}
+    row["single"].update(rc=rc, drain_s=drain_s,
+                         kernel_launches=single_rec["kernel_launches"],
+                         serve_batches=single_rec["serve_batches"])
+
+    # -- the fleet
+    fleet_dir = os.path.join(work, "serve_fleet")
+    link_checkpoints(fleet_dir, run_dir)
+    argv = ["serve", "--replicas", "2", *base, "--set",
+            f"serve.fleet.spill_in_flight={FLEET_SPILL}",
+            "--log-dir", fleet_dir]
+    proc, line, address = start_serving(argv, os.path.join(
+        work, "serve_fleet.log"))
+    pids: list = []
+    try:
+        ready = wait_health(address, lambda s: s.get("fleet_ready") == 2,
+                            "two replicas ready")
+        pids = [r["pid"] for r in ready["replicas"]]
+        apps = gpu_compute_pids() if device == "cuda" else []
+        load = fleet_load(address, bodies)
+        streams: list = [None] * FLEET_SESSIONS
+
+        def stream(k: int) -> None:
+            streams[k] = [http_call(address, "POST", "/v1/flow/stream",
+                                    {"session": f"clip{k}", "frame": f})
+                          for f in clip_frames[k]]
+
+        run_clients(FLEET_SESSIONS, stream)
+        health = healthz(address)
+    finally:
+        rc, drain_s = stop_serving(proc, pids)
+    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+    recs = {i: r[-1] for i, r in replica_records(fleet_dir).items()}
+    summary = [r for r in read_records(fleet_dir)
+               if r.get("kind") == "serve"][-1]
+    # the in-process reference on the same weights and configuration
+    with open(os.path.join(fleet_dir, "replica-0", "config.json")) as f:
+        rcfg = config_from_dict(json.load(f))
+    with InferenceEngine(rcfg, model=restore_params(rcfg, device=device),
+                         device=device) as eng:
+        want = [f.result(timeout=600)["flow"] for f in
+                [eng.submit(a, b) for a, b in pairs]]
+        want_stream = [[eng.submit_next(f"clip{k}", fr).result(timeout=600)
+                        for fr in clip] for k, clip in enumerate(clips)]
+
+    def rel(reply, ref) -> float:
+        got = np.frombuffer(base64.b64decode(reply[2]["flow_b64"]),
+                            "<f4").reshape(reply[2]["shape"])
+        return float(np.abs(got - ref).max()
+                     / max(np.abs(ref).max(), 1e-30))
+
+    diffs = [rel(r, want[i % FLEET_PAIRS])
+             for i, r in enumerate(load["replies"]) if r[0] == 200]
+    stream_diffs = [rel(r, ref["flow"]) for s, ws in zip(streams,
+                                                          want_stream)
+                    for r, ref in zip(s, ws) if r[0] == 200]
+    warm_steps = sum(bool(r[2].get("warm")) for s in streams for r in s
+                     if r[0] == 200)
+    row["fleet"] = {k: load[k] for k in ("requests_per_s", "client",
+                                         "statuses", "wall_s")}
+    row["fleet"].update(
+        rc=rc, drain_s=drain_s, replicas_left=left,
+        spawn_to_ready_s=[r["ready_s"] for r in ready["replicas"]],
+        routed=health["fleet_routed"],
+        nvidia_smi_compute_pids={"before": apps_before, "fleet": apps},
+        parent_pid=proc.pid, replica_pids=pids,
+        replicas={i: {k: r.get(k) for k in (
+            "kernel_launches", "serve_batches", "serve_responses",
+            "serve_sessions_warm_steps", "serve_latency_p50_ms",
+            "serve_latency_p99_ms")} for i, r in recs.items()},
+        stream_statuses=[[r[0] for r in s] for s in streams],
+        warm_steps=warm_steps,
+        max_rel_diff_vs_submit=max(diffs),
+        max_rel_diff_vs_submit_next=max(stream_diffs),
+        evictions=summary["fleet_evictions"])
+    row["speedup_requests_per_s"] = (load["requests_per_s"]
+                                     / single["requests_per_s"])
+
+    # -- the crash drill
+    drill_dir = os.path.join(work, "serve_fleet_drill")
+    link_checkpoints(drill_dir, run_dir)
+    argv = ["serve", "--replicas", "2", *base, "--set",
+            f"serve.fleet.spill_in_flight={FLEET_SPILL}",
+            "--set", "resilience.faults.enabled=true",
+            "--set", "resilience.faults.replica_crash_at=[1]",
+            "--set", f"resilience.faults.replica_fault_after="
+                     f"{FLEET_FAULT_AFTER}", "--log-dir", drill_dir]
+    proc, line, address = start_serving(argv, os.path.join(
+        work, "serve_fleet_drill.log"))
+    pids = []
+    try:
+        ready = wait_health(address, lambda s: s.get("fleet_ready") == 2,
+                            "two replicas ready")
+        pids = [r["pid"] for r in ready["replicas"]]
+        mem_before = gpu_memory_mib() if device == "cuda" else None
+        drill = fleet_load(address, bodies)
+        back = wait_health(
+            address, lambda s: s.get("fleet_ready") == 2
+            and s.get("fleet_respawns", 0) >= 1, "respawn ready")
+        pids += [r["pid"] for r in back["replicas"]]
+        mem_after = gpu_memory_mib() if device == "cuda" else None
+    finally:
+        rc, drain_s = stop_serving(proc, pids)
+    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+    summary = [r for r in read_records(drill_dir)
+               if r.get("kind") == "serve"][-1]
+    failures = [r for r in drill["replies"] if r[0] != 200]
+    respawned = next(r for r in back["replicas"] if r["replica"] == 1)
+    row["drill"] = {k: drill[k] for k in ("requests_per_s", "client",
+                                          "statuses", "ok")}
+    row["drill"].update(
+        rc=rc, drain_s=drain_s, replicas_left=left,
+        failures=[[r[0], str(r[2])[:120]] for r in failures],
+        respawn_ready_s=respawned["ready_s"],
+        respawn_incarnation=respawned["incarnation"],
+        memory_mib_before_kill=mem_before,
+        memory_mib_after_respawn=mem_after,
+        **{k: summary[k] for k in (
+            "fleet_evictions", "fleet_crashes", "fleet_respawns",
+            "fleet_failovers", "fleet_retries", "fleet_broken")})
+    row["seconds"] = time.monotonic() - t0
+    emit("serve_fleet", **row)
+    served = {i: r for i, r in recs.items() if r["serve_responses"]}
+    f = row["fleet"]
+    checks = {
+        "single": single["ok"] == FLEET_REQUESTS and row["single"]["rc"] == 0
+        and launches_match_dispatches(single_rec),
+        "fleet_flows": load["ok"] == FLEET_REQUESTS
+        and f["max_rel_diff_vs_submit"] <= HTTP_TOL,
+        "streams": all([r[0] for r in s] == [202] + [200] * (
+            FLEET_FRAMES - 1) for s in streams)
+        and warm_steps == FLEET_SESSIONS * (FLEET_FRAMES - 2)
+        and f["max_rel_diff_vs_submit_next"] <= HTTP_TOL,
+        "replicas_served": sorted(served) == [0, 1],
+        # a warm dispatch may carry both sessions' steps
+        "launches": all(launches_match_dispatches(r) and r[
+            "kernel_launches"]["corr"] > 0 for r in served.values())
+        and 0 < sum(r["kernel_launches"]["warp_fwd"] for r in recs.values())
+        <= sum(r["serve_sessions_warm_steps"] for r in recs.values())
+        == warm_steps,
+        # one context a replica, none in the supervisor (nvidia-smi's
+        # pids may be another namespace's, so they are counted)
+        "no_cuda_in_parent": device != "cuda"
+        or (len(apps) == len(apps_before) + 2
+            and proc.pid not in apps),
+        "drain": f["rc"] == 0 and f["drain_s"] <= 10.0 and not f[
+            "replicas_left"] and f["evictions"] == 0,
+        "drill": drill["ok"] >= math.ceil(0.99 * FLEET_REQUESTS)
+        and all(r[0] > 0 and isinstance(r[2], dict) and "error" in r[2]
+                for r in failures)
+        and summary["fleet_evictions"] == 1
+        and summary["fleet_crashes"] == 1
+        and summary["fleet_respawns"] == 1
+        and row["drill"]["rc"] == 0 and not row["drill"]["replicas_left"]
+        and (mem_before is None or abs(mem_after - mem_before) <= 512)}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_fleet: {checks}")
+    return row
+
+
+def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
+                    device: str = "cuda") -> dict:
+    """`serve --autoscale --min-replicas 1 --max-replicas 2` on the served
+    run's checkpoint with the tiers (f32, bf16), the buckets 384x512 and
+    192x256, the brownout controller on, and short windows:
+      - a burst of FLEET_THREADS closed-loop clients saturates the one
+        replica (router occupancy 1 at serve.fleet.max_in_flight 8): the
+        brownout level climbs to >= L1 (default-tier requests served at
+        bf16) and the autoscaler scales up; the burst runs until the new
+        replica is ready (its spawn-to-ready seconds), and
+        FLEET_AFTER_SCALE_S past it;
+      - calm: the level walks back to L0 and the autoscaler retires one
+        replica (counted as retired, not as an eviction);
+      - SIGTERM: exit 0, no replica left; each replica's final record: its
+        correlation and warp launches add up to its dispatches, the bf16
+        tier's dispatches ran the float32 correlation kernel (the tier
+        computes in float32 with rounded weights) and no bf16 kernel."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    h, w = SERVE_HW
+    rs = np.random.RandomState(60)
+    bodies = [{"prev": b64_png(rs.randint(0, 256, (h, w, 3),
+                                          dtype=np.uint8)),
+               "next": b64_png(rs.randint(0, 256, (h, w, 3),
+                                          dtype=np.uint8))}
+              for _ in range(4)]
+    fleet_dir = os.path.join(work, "serve_autoscale")
+    link_checkpoints(fleet_dir, run_dir)
+    windows = {"serve.fleet.max_in_flight": 8,
+               "serve.fleet.autoscale_period_s": 0.25,
+               "serve.fleet.autoscale_up_after_s": 1.0,
+               "serve.fleet.autoscale_up_cooldown_s": 60.0,
+               "serve.fleet.autoscale_down_after_s": 2.0,
+               "serve.fleet.autoscale_down_cooldown_s": 3.0,
+               "serve.degrade.enabled": "true",
+               "serve.degrade.period_s": 0.1,
+               "serve.degrade.escalate_after_s": 0.3,
+               "serve.degrade.escalate_cooldown_s": 0.5,
+               "serve.degrade.recover_after_s": 1.0,
+               "serve.degrade.recover_cooldown_s": 0.5}
+    argv = ["serve", "--autoscale", "--min-replicas", "1",
+            "--max-replicas", "2", *SERVE_RUN, *FLEET_FLAGS,
+            "--set", "serve.precisions=('f32','bf16')",
+            "--set", f"serve.buckets=[[{h},{w}],[{h // 2},{w // 2}]]",
+            *[x for k, v in windows.items() for x in ("--set", f"{k}={v}")],
+            *extra, "--log-dir", fleet_dir]
+    proc, line, address = start_serving(argv, os.path.join(
+        work, "serve_autoscale.log"))
+    pids: list = []
+    stop = threading.Event()
+    replies: list = []
+    polls: list = []  # /healthz during the burst
+    try:
+        first = healthz(address)
+        pids = [r["pid"] for r in first["replicas"]]
+
+        def client(k: int) -> None:
+            i = k
+            while not stop.is_set():
+                try:
+                    r = http_call(address, "POST", "/v1/flow",
+                                  bodies[i % len(bodies)])
+                except Exception as e:  # noqa: BLE001 - a drop fails
+                    r = (-1, None, f"{type(e).__name__}: {e}", 0.0)
+                replies.append(r)
+                i += FLEET_THREADS
+
+        burst_t0 = time.monotonic()
+        clients = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(FLEET_THREADS)]
+        for c in clients:
+            c.start()
+        try:
+            scaled = wait_health(address, lambda s: s.get("fleet_ready") == 2,
+                                 "scale-up ready", timeout_s=300.0,
+                                 seen=polls)
+            time.sleep(FLEET_AFTER_SCALE_S)  # the new replica serves too
+        finally:
+            stop.set()
+            for c in clients:
+                c.join(timeout=120)
+        burst_s = time.monotonic() - burst_t0
+        pids += [r["pid"] for r in scaled["replicas"]]
+        new = next(r for r in scaled["replicas"] if r["replica"] == 1)
+        calm = wait_health(
+            address, lambda s: s.get("degrade_level") == 0
+            and s.get("fleet_retired") == 1, "L0 and one replica retired",
+            timeout_s=120.0)
+    finally:
+        stop.set()
+        rc, drain_s = stop_serving(proc, pids)
+    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+    records = read_records(fleet_dir)
+    events = [(r.get("event"), r.get("reason")) for r in records
+              if r.get("event")]
+    summary = [r for r in records if r.get("kind") == "serve"
+               and "fleet_replicas" in r][-1]
+    recs = {i: r[-1] for i, r in replica_records(fleet_dir).items()}
+    row = {"burst_requests": len(replies), "burst_s": burst_s,
+           "burst_statuses": dict(collections.Counter(r[0]
+                                                      for r in replies)),
+           "burst_client": p50_p99([r[3] for r in replies if r[0] == 200]),
+           "levels_seen": sorted({p.get("degrade_level", 0)
+                                  for p in polls}),
+           "max_level": max(p.get("degrade_level", 0) for p in polls),
+           "scale_up_ready_s": new["ready_s"],
+           "first_replica_ready_s": first["replicas"][0]["ready_s"],
+           "events": events, "rc": rc, "drain_s": drain_s,
+           "replicas_left": left,
+           "calm": {k: calm.get(k) for k in (
+               "degrade_level", "fleet_retired", "fleet_replicas",
+               "fleet_evictions")},
+           **{k: summary.get(k) for k in (
+               "fleet_autoscale_up", "fleet_autoscale_down",
+               "fleet_autoscale_blocked_max", "fleet_retired",
+               "fleet_evictions", "degrade_escalations",
+               "degrade_recoveries", "degrade_transitions")},
+           "replicas": {i: {k: r.get(k) for k in (
+               "kernel_launches", "serve_batches", "serve_responses",
+               "serve_responses_by_tier", "degrade_tier_downgrades",
+               "degrade_bucket_downgrades")} for i, r in recs.items()},
+           "seconds": time.monotonic() - t0}
+    emit("serve_autoscale", **row)
+    bf16 = sum(r["serve_responses_by_tier"].get("bf16", 0)
+               for r in recs.values())
+    checks = {
+        "burst": all(r[0] > 0 for r in replies)
+        and row["burst_statuses"].get(200, 0) >= 0.99 * len(replies),
+        "scale_up": any(e == "scale_up" for e, _ in events),
+        "brownout": row["max_level"] >= 1 and bf16 > 0
+        and sum(r["degrade_tier_downgrades"] for r in recs.values()) > 0,
+        "recovery": calm["degrade_level"] == 0
+        and any(e == "degrade_recover" for e, _ in events),
+        "retired": summary["fleet_retired"] == 1
+        and summary["fleet_evictions"] == 0
+        and any(e == "scale_down" for e, _ in events),
+        "launches": sorted(recs) == [0, 1]
+        and all(launches_match_dispatches(r)
+                and r["kernel_launches"]["corr"] > 0
+                for r in recs.values()),
+        "drain": rc == 0 and drain_s <= 10.0 and not left}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_autoscale: {checks}")
+    return row
+
+
 def corr_counters() -> list:
     """The launch counters of the correlation kernels: the forward and the
     two backward kernels, float32 and bf16."""
@@ -2754,12 +3287,10 @@ CLI_PREEMPT = ["--model", "flownet_c", "--synthetic",
                "--set", "resilience.faults.ckpt_corrupt_at=[3]"]
 PREEMPT_SKIPPED = 4  # the poisoned step
 PREEMPT_CORRUPT = 3  # the corrupted checkpoint
-# the command line in a process of its own, with main()'s settings: TF32
-# off and cuDNN's deterministic algorithms
+# the command line in a process of its own with cuDNN's deterministic
+# algorithms (cli.main turns TF32 off itself, as it does for every user)
 CLI_SUBPROCESS = (
     "import sys, torch\n"
-    "torch.backends.cudnn.allow_tf32 = False\n"
-    "torch.backends.cuda.matmul.allow_tf32 = False\n"
     "torch.backends.cudnn.deterministic = True\n"
     "from deepof_tpu_torch import cli\n"
     "sys.exit(cli.main(sys.argv[1:]))\n")
@@ -3718,6 +4249,9 @@ def main() -> int:
         preempt_row = cli_preempt_faults(work)
         serve_cli_row = cli_serve(work, os.path.join(work,
                                                      "cli_train_job_k2"))
+        fleet_row = serve_fleet(work, os.path.join(work, "cli_train_job_k2"))
+        autoscale_row = serve_autoscale(work, os.path.join(
+            work, "cli_train_job_k2"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -3757,6 +4291,18 @@ def main() -> int:
     # this slice's serving path: POST /v1/flow and /v1/flow/stream
     corr_by_path["corr"]["serve_http"] = http_row["launches"]["corr"]
     by_path["fwd"]["serve_http"] = http_row["launches"]["warp_fwd"]
+    # this slice's path: the fleet's replica processes, from their final
+    # records (launches after engine.warm(); a SIGKILLed one writes none)
+    fleet_launches = {
+        "serve_single": fleet_row["single"]["kernel_launches"],
+        **{f"serve_fleet_replica_{i}": r["kernel_launches"]
+           for i, r in fleet_row["fleet"]["replicas"].items()},
+        **{f"serve_autoscale_replica_{i}": r["kernel_launches"]
+           for i, r in autoscale_row["replicas"].items()}}
+    for p, k in fleet_launches.items():
+        corr_by_path["corr"][p] = k["corr"]
+        corr_by_path["corr_bf16"][p] = k["corr_bf16"]
+        by_path["fwd"][p] = k["warp_fwd"]
     # this slice's path: the Sintel volumes from the command line
     for route, r in sintel_row["routes"].items():
         by_path["fwd"][f"cli_sintel_{route}"] = r["warp_fwd_launches"]
@@ -3822,6 +4368,10 @@ def main() -> int:
                 "launches_over_http": {
                     "launches": http_row["launches"]["corr"],
                     "dispatches": http_row["dispatches"]},
+                "launches_in_fleet_replicas": {
+                    p: n for p, n in corr_by_path["corr"].items()
+                    if p.startswith(("serve_single", "serve_fleet",
+                                     "serve_autoscale"))},
                 **{k: full[k] for k in ("shape", "max_abs_err", "ms",
                                         "call_ms", "plain_ms", "bound_ms",
                                         "bound_by")}}
@@ -3868,6 +4418,10 @@ def main() -> int:
                 "launches": stream_row["warp_fwd_launches"],
                 "warm_dispatches": stream_row["dispatches"]["warm"],
                 "launches_over_http": http_row["launches"]["warp_fwd"],
+                "launches_in_fleet_replicas": {
+                    p: n for p, n in by_path["fwd"].items()
+                    if p.startswith(("serve_single", "serve_fleet",
+                                     "serve_autoscale"))},
                 "bitwise_equal": serve_warp["fwd"]["bitwise_equal"],
                 **{k: serve_warp["fwd"][k] for k in (
                     "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",
@@ -3880,7 +4434,9 @@ def main() -> int:
          phase_seconds={"cli_train_job": job_row["seconds"],
                         "cli_preempt_faults": preempt_row["seconds"],
                         "serve_http": http_row["seconds"],
-                        "cli_serve": serve_cli_row["seconds"]})
+                        "cli_serve": serve_cli_row["seconds"],
+                        "serve_fleet": fleet_row["seconds"],
+                        "serve_autoscale": autoscale_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),

@@ -14,6 +14,10 @@ Usage:
     python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1
     python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
         --input /data/frames --out /tmp/flows     # offline: a directory
+    python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
+        --replicas 2                # a supervised fleet behind a router
+    python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
+        --autoscale --min-replicas 1 --max-replicas 3
     python -m deepof_tpu_torch config --preset sintel
 
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
@@ -28,14 +32,24 @@ timeline in <log-dir>/trace.json), `--profile` and `--profile-steps a:b`
 consecutive pairs of a directory of frames, written to `--out`; without
 it, the HTTP server of `serve/server.py` on serve.host:serve.port),
 `--session-ttl` and `--session-max` (`serve.session.ttl_s` and
-`max_sessions`). `serve` restores the newest checkpoint of `--log-dir`
-(none under `--set serve.fake_exec_ms=...`). A train run in a log dir
+`max_sessions`), `--replicas N` (N > 1: the fleet of `serve/fleet.py`,
+N replica processes behind a router), `--autoscale` (the fleet sized by
+`serve/autoscale.py` between `--min-replicas` and `--max-replicas`;
+fleet mode even at one replica). `serve` restores the newest checkpoint
+of `--log-dir` (none under `--set serve.fake_exec_ms=...`); a fleet's
+replica restores the newest one of `<log-dir>/replica-<i>`. A train run in a log dir
 that holds checkpoints resumes from the newest one; `train` latches a
 SIGTERM from its start, and a SIGTERM stops it after a clean final
 checkpoint. `--device {cuda,cpu}` (default cuda) is this package's own;
 it takes the place of JAX_PLATFORMS. Without a card, cuda raises:
 nothing falls back to the CPU. The JAX package's other flags raise,
 naming the ROADMAP item that ports them.
+
+`main` turns TF32 off (`torch.backends.cudnn.allow_tf32` and
+`torch.backends.cuda.matmul.allow_tf32`) before it builds anything, so
+float32 means float32 on the card, as in the JAX reference; library
+callers of `Trainer` and `InferenceEngine` keep PyTorch's switches as
+they set them.
 """
 
 from __future__ import annotations
@@ -45,8 +59,8 @@ import ast
 import dataclasses
 import json
 
-from .core.config import (PRESETS, ExperimentConfig, get_config,
-                          raise_unported)
+from .core.config import (PRESETS, ExperimentConfig, config_from_dict,
+                          get_config, raise_unported)
 
 #: The JAX package's flags this package does not take yet -> the ROADMAP
 #: Queue A item that ports them.
@@ -54,10 +68,6 @@ _UNPORTED_FLAGS = {
     "--recipe": "9 (recipes)",
     "--elastic": "10 (elastic training)",
     "--multihost": "10 (parallelism)",
-    "--replicas": "8 (the fleet)",
-    "--autoscale": "8 (the fleet)",
-    "--min-replicas": "8 (the fleet)",
-    "--max-replicas": "8 (the fleet)",
     "--artifacts": "8 (artifacts)",
 }
 
@@ -98,7 +108,13 @@ def _apply_override(cfg: ExperimentConfig, dotted: str,
 
 
 def _build_cfg(args) -> ExperimentConfig:
-    cfg = get_config(args.preset)
+    if getattr(args, "config_json", None):
+        # the fleet's parent -> replica handoff: the exact serialized
+        # config tree, not a preset re-derivation (--set still wins)
+        with open(args.config_json) as f:
+            cfg = config_from_dict(json.load(f))
+    else:
+        cfg = get_config(args.preset)
     if args.model:
         cfg = cfg.replace(model=args.model)
     if args.data_path:
@@ -114,6 +130,16 @@ def _build_cfg(args) -> ExperimentConfig:
             gt_size=(64, 64), batch_size=8, crop_size=None, time_step=2),
             train=dataclasses.replace(cfg.train, eval_batch_size=8,
                                       eval_amplifier=1.0))
+    # the serve sugar flags, before --set so an explicit --set wins
+    for flag, dotted in (("session_ttl", "serve.session.ttl_s"),
+                         ("session_max", "serve.session.max_sessions"),
+                         ("min_replicas", "serve.fleet.min_replicas"),
+                         ("max_replicas", "serve.fleet.max_replicas")):
+        value = getattr(args, flag, None)
+        if value is not None:
+            cfg = _apply_override(cfg, dotted, repr(value))
+    if getattr(args, "autoscale", False):
+        cfg = _apply_override(cfg, "serve.fleet.autoscale", "true")
     for item in args.set or []:
         if "=" not in item:
             raise SystemExit(f"bad --set {item!r}: use section.field=value")
@@ -148,6 +174,8 @@ def main(argv=None) -> int:
                          type=int, default=None)
     for flag in ("--recipe", "--elastic"):
         _add_unported(p_train, flag, takes_value=True)
+    p_train.add_argument("--config-json", default=None,
+                         help=argparse.SUPPRESS)  # a config tree as JSON
     p_train.add_argument("--profile", action="store_true",
                          help="torch.profiler trace of the whole run")
     p_train.add_argument("--profile-steps", default=None, metavar="A:B",
@@ -196,15 +224,36 @@ def main(argv=None) -> int:
     p_srv.add_argument("--session-max", type=int, default=None,
                        metavar="N",
                        help="--set serve.session.max_sessions=N")
-    for flag in ("--replicas", "--min-replicas", "--max-replicas",
-                 "--artifacts"):
-        _add_unported(p_srv, flag, takes_value=True)
-    _add_unported(p_srv, "--autoscale")
+    p_srv.add_argument("--replicas", type=int, default=None,
+                       help="N > 1: a supervised fleet of N replica "
+                            "processes behind a health-gated router "
+                            "(serve.fleet.*); overrides "
+                            "serve.fleet.replicas")
+    p_srv.add_argument("--autoscale", action="store_true",
+                       help="size the fleet from its load between "
+                            "--min-replicas and --max-replicas "
+                            "(--set serve.fleet.autoscale=true); fleet "
+                            "mode even without --replicas")
+    p_srv.add_argument("--min-replicas", type=int, default=None,
+                       metavar="N",
+                       help="--set serve.fleet.min_replicas=N")
+    p_srv.add_argument("--max-replicas", type=int, default=None,
+                       metavar="N",
+                       help="--set serve.fleet.max_replicas=N")
+    _add_unported(p_srv, "--artifacts", takes_value=True)
+    p_srv.add_argument("--config-json", default=None,
+                       help=argparse.SUPPRESS)  # a fleet replica's config
 
     p_cfg = sub.add_parser("config", help="print the resolved config")
     _add_common(p_cfg)
 
     args = parser.parse_args(argv)
+    import torch
+
+    # float32 means float32: cuDNN and cuBLAS would otherwise compute
+    # float32 convolutions and matmuls in TF32 on the card
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
                      if getattr(args, flag[2:].replace("-", "_"), None)])
     cfg = _build_cfg(args)
@@ -269,26 +318,35 @@ def main(argv=None) -> int:
 
 def _serve(cfg: ExperimentConfig, args) -> int:
     """The `serve` verb: offline mode with --input and --out, else the
-    HTTP server until SIGTERM."""
+    fleet (--replicas N > 1 or --autoscale), else the HTTP server, each
+    until SIGTERM."""
     from .core.config import check_servable
 
-    session = cfg.serve.session
-    if args.session_ttl is not None:
-        session = dataclasses.replace(session, ttl_s=args.session_ttl)
-    if args.session_max is not None:
-        session = dataclasses.replace(session, max_sessions=args.session_max)
-    cfg = cfg.replace(serve=dataclasses.replace(cfg.serve, session=session))
     check_servable(cfg)
     if (args.input is None) != (args.out is None):
         raise SystemExit("serve: offline mode needs both --input and --out "
                          "(neither = the HTTP server)")
+    replicas = (args.replicas if args.replicas is not None
+                else cfg.serve.fleet.replicas)
+    fleet = (replicas is not None and replicas > 1) \
+        or cfg.serve.fleet.autoscale
     if args.input is not None:
+        if fleet:
+            raise SystemExit("serve: --replicas/--autoscale are "
+                             "HTTP-fleet only (offline mode already "
+                             "parallelizes via serve.workers)")
         from .serve.server import run_offline
 
         print(json.dumps(run_offline(cfg, args.input, args.out,
                                      write_png=not args.no_png,
                                      device=args.device)))
         return 0
+    if fleet:
+        # --autoscale is fleet mode even at --replicas 1: the pool needs
+        # the supervisor and the router to grow from its floor
+        from .serve.fleet import run_fleet
+
+        return run_fleet(cfg, replicas, device=args.device)
     from .serve.server import run_server
 
     return run_server(cfg, device=args.device)

@@ -6,8 +6,8 @@ written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
 Those are settings of the mesh, elastic training, the compile cache, the
-ledger, incident and quality observability, and the serving fleet's
-router and brownout controller: none of them changes a result. Settings
+ledger, incident and quality observability, and the artifact store's
+garbage collection: none of them changes a result. Settings
 that change what the training path computes are carried, and where this
 package cannot honour a value yet, `check_trainable` raises on it,
 naming the ROADMAP item that ports it (`train.vgg16_npz` and `recipe`
@@ -170,18 +170,169 @@ class SessionConfig:
 
 @dataclass(frozen=True)
 class FleetConfig:
-    """The serving fleet's settings that this package reads (the JAX
-    package's `FleetConfig`; its other keys are dropped with the
-    warning). The fleet itself is not ported: `check_servable` refuses
-    `replicas > 1` and `autoscale`."""
+    """The serving fleet (`serve/fleet.py`, `serve/router.py`,
+    `serve/autoscale.py`): N supervised replica processes behind a
+    health-gated router, the JAX package's `FleetConfig` with every key
+    but `artifacts_gc_days` (the artifact store is not ported; the key
+    is dropped with the warning). The supervisor evicts stale or wedged
+    replicas (SIGTERM then SIGKILL), respawns with exponential backoff,
+    and stops respawning a crash-looping replica (circuit breaker); the
+    router keeps each (bucket, tier) on one replica, replays failed
+    requests on healthy siblings, and sheds load with structured 503s
+    when every replica is saturated; the autoscaler sizes the pool."""
 
-    # replica processes behind a router; 0 / 1 = one serving process
+    # replica count behind the router; 0/1 = single-process serve (the
+    # `serve --replicas N` flag overrides this)
     replicas: int = 0
-    # scale the replica pool from live load (not ported)
-    autoscale: bool = False
-    # graceful stop: after SIGTERM stops admission, wait this long for
-    # the requests in flight to be answered
+    # supervisor health-poll cadence
+    poll_s: float = 1.0
+    # a READY replica whose heartbeat.json is older than this is evicted
+    # (the serve heartbeat rewrites every obs.heartbeat_period_s, so
+    # size this to several periods)
+    stale_after_s: float = 15.0
+    # supervisor-side stall detector, independent of the replica's OWN
+    # wedge watchdog (which arms only after 3 completed flushes — a
+    # dispatch that hangs on flush 1 or 2 would otherwise keep a fresh,
+    # never-wedged heartbeat forever): evict a replica whose heartbeat
+    # shows requests in flight but no completion for this long. Safe
+    # against cold-start false positives because engine.warm() runs
+    # every (bucket, tier) pair BEFORE the replica announces (the
+    # kernels built, cuDNN's first calls made), so a dispatch slower
+    # than this is a hang, not a warm-up. Must exceed the worst-case
+    # honest dispatch time; 0 disables.
+    stall_after_s: float = 60.0
+    # how long an announced replica may take to start listening before
+    # the spawn is declared failed (covers the torch import, the CUDA
+    # context, the checkpoint restore and engine.warm())
+    spawn_timeout_s: float = 180.0
+    # eviction: SIGTERM first (graceful drain), SIGKILL after this grace
+    term_grace_s: float = 5.0
+    # respawn backoff: backoff_s * 2^(consecutive fast failures), capped
+    backoff_s: float = 0.5
+    backoff_max_s: float = 30.0
+    # circuit breaker: this many CONSECUTIVE fast failures (died within
+    # healthy_after_s of becoming ready, or never became ready) stops
+    # respawning the replica — a crash loop burns backoff forever and
+    # masks the real defect; surviving replicas keep serving
+    crash_loop_threshold: int = 3
+    # alive this long after ready resets the fast-failure counter
+    healthy_after_s: float = 5.0
+    # failover: how many times ONE request may be replayed on a
+    # different replica after a transport error / replica 5xx (requests
+    # are pure, so replay is idempotent by construction)
+    failover_retries: int = 2
+    # router-side per-replica in-flight cap: when EVERY healthy replica
+    # is at this bound the request is shed with a structured 503
+    # instead of queuing unboundedly at the router
+    max_in_flight: int = 32
+    # per-replica in-flight level above which the router spills a
+    # request past its affinity replica to the next healthy one.
+    # 0 = auto (serve.max_batch): below one full batch the affinity
+    # replica keeps its executables hot; above it, spreading wins.
+    spill_in_flight: int = 0
+    # per-attempt proxy timeout (a wedged replica's request times out
+    # here and replays on a sibling; the watchdog/evictor handles the
+    # replica itself)
+    proxy_timeout_s: float = 30.0
+    # graceful shutdown: stop admission, wait this long for in-flight
+    # requests to flush before reaping replicas
     drain_timeout_s: float = 10.0
+    # --- SLO-driven autoscaler (serve/autoscale.py): the fixed
+    # `--replicas N` pool becomes a load-follower between min_replicas
+    # and max_replicas, scaling up on sustained shed/overload, SLO
+    # breach burn, or near-saturation occupancy, and down on sustained
+    # idle — always via graceful drain (retire, never evict: evictions
+    # stay about sickness). Hysteresis lives in the threshold gap (up_occupancy >>
+    # down_occupancy) + the sustain windows; the cooldowns keep the
+    # boot cost of a fresh replica from flapping the pool.
+    autoscale: bool = False
+    # pool bounds: the autoscaler owns the size between these
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # control-loop evaluation cadence
+    autoscale_period_s: float = 1.0
+    # scale up only after pressure (shed/overload delta, SLO breach
+    # burn, occupancy >= up threshold) persists this long
+    autoscale_up_after_s: float = 2.0
+    # scale down only after idleness (occupancy <= down threshold AND
+    # zero shed) persists this long — much longer than the up window:
+    # adding capacity late sheds traffic, removing it late wastes a
+    # replica
+    autoscale_down_after_s: float = 20.0
+    # pool occupancy (router in-flight / (ready * max_in_flight)) at or
+    # above which a tick counts as pressure
+    autoscale_up_occupancy: float = 0.75
+    # occupancy at or below which a tick counts as idle; the wide gap
+    # to up_occupancy is the hysteresis band where the pool holds steady
+    autoscale_down_occupancy: float = 0.15
+    # SLO budget-burn fraction (obs.slo_latency_ms must be set) at or
+    # above which NEW latency breaches count as pressure — capacity is
+    # added while the budget still has headroom, not after exhaustion
+    autoscale_up_slo_burn: float = 0.5
+    # Predictive pressure: requests/s GROWTH (req/s per
+    # second, least-squares slope over the router's per-second
+    # completion buckets) at or above this counts a tick as pressure —
+    # the pool scales on the load *trend*, before occupancy saturates
+    # or the first shed lands. The same up_after_s sustain window and
+    # cooldowns apply, so one noisy second never spawns a replica.
+    # <= 0 disables the slope signal (reactive only).
+    autoscale_up_slope: float = 0.0
+    # no second scale-up within this window of the previous one: a
+    # burst must not spawn the whole ladder before the first new
+    # replica has even booted
+    autoscale_up_cooldown_s: float = 5.0
+    # no scale-down within this window of ANY scale event: a fresh
+    # replica's warm-up idle must not immediately retire its sibling
+    autoscale_down_cooldown_s: float = 30.0
+
+
+@dataclass(frozen=True)
+class DegradeConfig:
+    """The brownout controller (`serve/degrade.py`), the JAX package's
+    `DegradeConfig`, every field and default: under overload the fleet
+    walks L0 normal -> L1 the default tier served at the cheapest tier
+    of `serve.precisions` -> L2 also one bucket down the ladder -> L3
+    also low-priority requests shed at the router, and walks back when
+    the load is calm. `engine.warm()` runs every (bucket, tier) pair
+    before a replica announces, so no level change builds anything."""
+
+    # master switch: off runs no controller thread (level pinned 0)
+    enabled: bool = False
+    # control-loop cadence — deliberately faster than
+    # fleet.autoscale_period_s: degradation is the instant response,
+    # capacity the slow one
+    period_s: float = 0.25
+    # escalate one level only after pressure (new shed/unavailable
+    # rejections, occupancy >= up_occupancy, or SLO burn >=
+    # up_slo_burn) persists this long
+    escalate_after_s: float = 0.5
+    # recover one level only after calm (zero new rejections AND
+    # occupancy <= down_occupancy AND burn < up_slo_burn) persists
+    # this long — much longer than the escalate window: degrading too
+    # late sheds work, recovering too early flaps quality
+    recover_after_s: float = 3.0
+    # no second escalation within this window of the previous one (a
+    # burst must not slam L0 -> L3 before L1's relief is even visible)
+    escalate_cooldown_s: float = 0.5
+    # no recovery within this window of ANY level transition
+    recover_cooldown_s: float = 2.0
+    # pool occupancy (router in-flight / (ready * fleet.max_in_flight))
+    # at or above which a tick counts as pressure — the queue-depth
+    # face of the verdict (router in-flight IS the fleet-wide queue)
+    up_occupancy: float = 0.85
+    # occupancy at or below which a tick can count as calm; the gap to
+    # up_occupancy is the hysteresis band where the level holds
+    down_occupancy: float = 0.5
+    # SLO error-budget burn fraction (obs.slo_latency_ms must be set
+    # for the signal to exist) at or above which a tick is pressure
+    up_slo_burn: float = 0.7
+    # highest level the controller may reach (3 = full ladder; 2 keeps
+    # low-priority traffic admitted however hot the fleet runs)
+    max_level: int = 3
+    # the stats' degrade_l3_sustained turns true once the fleet has sat
+    # at L3 continuously for at least this long — brownout as a steady
+    # state means capacity never arrived
+    l3_sustained_s: float = 30.0
 
 
 @dataclass(frozen=True)
@@ -209,10 +360,11 @@ class ServeConfig:
     # make_fake_forward`), in ms a dispatch: None serves the model
     fake_exec_ms: float | None = None
     # the JAX package's executable artifact store (not ported; must stay
-    # empty)
+    # empty: `check_servable` refuses it)
     artifacts_dir: str = ""
     session: SessionConfig = field(default_factory=SessionConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    degrade: DegradeConfig = field(default_factory=DegradeConfig)
 
 
 @dataclass(frozen=True)
@@ -426,11 +578,6 @@ def check_servable(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, on serving
     settings that would change what runs and are not ported."""
     todo = []
-    if cfg.serve.fleet.replicas > 1:
-        todo.append((f"serve.fleet.replicas={cfg.serve.fleet.replicas}",
-                     "8 (the fleet)"))
-    if cfg.serve.fleet.autoscale:
-        todo.append(("serve.fleet.autoscale=True", "8 (the fleet)"))
     if cfg.serve.artifacts_dir:
         todo.append(("serve.artifacts_dir", "8 (artifacts)"))
     raise_unported(todo)

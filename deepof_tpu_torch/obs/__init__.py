@@ -9,7 +9,10 @@
   telemetry.py  process RSS, CUDA memory, and FLOPs per optimizer step
                 counted by `torch.utils.flop_counter.FlopCounterMode`;
   export.py     fixed-bucket latency histograms, Prometheus text and the
-                SLO arithmetic of the serving engine (a copy).
+                SLO arithmetic of the serving engine (a copy);
+  registry.py   the merge kind of each serve, fleet, autoscale and
+                degrade key, by which the fleet's router merges its
+                replicas' stats (a copy, trimmed).
 
 The ledger, the incident recorder, aggregate and quality are not ported
 (ROADMAP Queue A item 11).

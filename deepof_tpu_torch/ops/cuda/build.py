@@ -99,12 +99,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class LaunchCounter:
-    """Launches of one kernel: a wrapper adds one where it launches."""
+    """Launches of one kernel: a wrapper adds one where it launches.
+    Every counter joins `COUNTERS` (read by `launch_counts`)."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self._lock = threading.Lock()
+        COUNTERS.append(self)
 
     def add(self) -> None:
         with self._lock:
@@ -113,6 +115,18 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+
+
+#: every LaunchCounter of the process, in creation order
+COUNTERS: list[LaunchCounter] = []
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel's launches in this process so far, by counter name
+    (the serve summary of a replica carries them)."""
+    from . import corr, warp  # noqa: F401 - their counters register
+
+    return {c.name: c.count for c in COUNTERS}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

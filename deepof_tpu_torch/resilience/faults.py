@@ -32,9 +32,11 @@ disabled config and every call site guards with ``if inj is not None``.
 
 The training loop wires the sites ``decode`` (`resilience/healing.py`),
 ``assemble`` and ``dispatch`` (`train/loop.py`), ``fetch``
-(`train/metrics_log.py::MetricsReader`) and the checkpoint sites
-(`train/checkpoint.py`). The replica and host sites belong to the
-serving fleet and elastic training, which this package has not ported.
+(`train/metrics_log.py`, both fetchers) and the checkpoint sites
+(`train/checkpoint.py`); a serving replica of the fleet wires the
+replica sites (`serve/server.py::install_replica_faults`). The host
+sites belong to elastic training, which this package has not ported
+(ROADMAP Queue A item 10).
 
 Stdlib-only: `core/config.py` imports `FaultConfig` without a cycle.
 """

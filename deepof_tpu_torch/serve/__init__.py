@@ -1,2 +1,4 @@
 """Micro-batching inference engine, shape buckets, precision tiers,
-video sessions, and the HTTP server and offline mode over them."""
+video sessions, the HTTP server and offline mode over them, and the
+fleet: supervised replicas of that server behind a router, with the
+autoscaler and the brownout controller."""

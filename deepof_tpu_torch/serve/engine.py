@@ -56,9 +56,9 @@ The models run under `torch.inference_mode()` on the engine's device
 (CUDA unless the caller passes another). Spans `serve_enqueue`,
 `serve_batch`, `serve_dispatch` and `serve_postprocess` (and
 `session_prime` / `session_step` / `session_warm`) go to the installed
-tracer (`obs/trace.py`). Still to port (ROADMAP): quality scoring, the
-executable ledger and artifacts, the brownout controller that sets the
-level, and the fleet.
+tracer (`obs/trace.py`). The brownout controller that sets the level
+is `serve/degrade.py`, in the fleet. Still to port (ROADMAP): quality
+scoring, the executable ledger and artifacts.
 """
 
 from __future__ import annotations

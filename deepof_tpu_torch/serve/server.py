@@ -48,9 +48,17 @@ API (the JAX package's):
 Images are decoded from the request's bytes by
 `data/datasets.py::decode_image_bytes` (the native decoder, or the
 Python PNG and PPM readers): a codec the build lacks is a 400
-`bad_input` naming the codecs it has. Not ported (ROADMAP item 8): a
-video file as offline input (the JAX package reads it with
-cv2.VideoCapture), the fleet's replica faults and the incident plane.
+`bad_input` naming the codecs it has.
+
+As a replica of the fleet (`serve/fleet.py` spawns it with
+`DEEPOF_TPU_REPLICA=<index>` and `--config-json`), the server traces and
+beats as role "replica", arms the replica fault sites
+(`install_replica_faults`), and its final kind="serve" record carries
+the kernels' launches while it served (`kernel_launches`, counted from
+the end of `engine.warm()`). Its announce line stays the first line on
+stdout: the fleet reads the bound port from it. Not ported (ROADMAP
+item 8): a video file as offline input (the JAX package reads it with
+cv2.VideoCapture); nor the incident plane (item 11).
 """
 
 from __future__ import annotations
@@ -76,6 +84,66 @@ from .engine import InferenceEngine, ServeError
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".ppm", ".bmp")
 _VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
+
+#: Replica identity exported by the fleet supervisor (serve/fleet.py) to
+#: each spawned serving subprocess — the index the replica-level fault
+#: sites key on, and the tag in the replica's announce line.
+REPLICA_ENV = "DEEPOF_TPU_REPLICA"
+
+
+def replica_index() -> int:
+    """This serving process's replica index (0 outside a fleet)."""
+    try:
+        return int(os.environ.get(REPLICA_ENV, "0"))
+    except ValueError:
+        return 0
+
+
+def _role() -> str:
+    return "replica" if os.environ.get(REPLICA_ENV) else "serve"
+
+
+def install_replica_faults(engine: InferenceEngine,
+                           cfg: ExperimentConfig) -> None:
+    """Arm the replica-level chaos sites (resilience/faults.py) inside
+    THIS serving process: once the engine has completed
+    `replica_fault_after` responses, a scheduled `replica_crash` SIGKILLs
+    the process mid-load and a scheduled `replica_wedge` blocks the next
+    dispatch forever (a hung device call — the serve watchdog's target);
+    a scheduled `replica_degrade` adds 25.0 to every later flow (damaged
+    weights as a steady state). The site index is the replica index, so
+    one fleet-wide fault config deterministically picks which replicas
+    get sick; a respawned replica rebuilds the injector and re-arms the
+    same schedule. No-op when injection is disabled."""
+    from ..resilience.faults import build_injector
+
+    inj = build_injector(cfg.resilience.faults)
+    if inj is None:
+        return
+    idx = replica_index()
+    after = max(int(cfg.resilience.faults.replica_fault_after), 0)
+    # replica_degrade is a PERSISTENT condition, not a one-shot event:
+    # scheduled-ness is read once (pure in config); the consume-once
+    # hit() only counts the arming
+    degrade = inj.scheduled("replica_degrade", idx)
+    inner = engine._forward
+
+    def forward(key, x, *args, **kw):
+        # signature-transparent: the engine calls _forward(key, x, prior)
+        with engine._stats_lock:
+            done = engine._responses
+        if done >= after:
+            if inj.hit("replica_crash", idx):
+                os.kill(os.getpid(), signal.SIGKILL)
+            if inj.hit("replica_wedge", idx):
+                threading.Event().wait()  # never returns: wedged dispatch
+        out = inner(key, x, *args, **kw)
+        if degrade and done >= after:
+            inj.hit("replica_degrade", idx)  # count the arming, once
+            out = np.asarray(out) + np.float32(25.0)
+        return out
+
+    engine._forward = forward
 
 
 def _decode_b64_image(b64, field: str) -> np.ndarray:
@@ -306,27 +374,32 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
     "http://host:port", ...} once it listens, and appends a kind="serve"
     record of the final stats to `<log_dir>/metrics.jsonl`."""
     from ..obs.heartbeat import Heartbeat
+    from ..ops.cuda.build import launch_counts
 
     tracer = None
     if cfg.obs.trace:
         tracer = obs_trace.Tracer(
             path=os.path.join(cfg.train.log_dir, "trace.json"),
-            ring_size=cfg.obs.trace_ring, role="serve", index=0)
+            ring_size=cfg.obs.trace_ring, role=_role(),
+            index=replica_index())
     own_engine = engine is None
     with obs_trace.installed(tracer):
         if own_engine:
             engine = _engine_for(cfg, model, device)
+        install_replica_faults(engine, cfg)
         warm = engine.warm()
+        warm_launches = launch_counts()
         # the heartbeat's steps are flushes; with no work in flight the
         # clock is touched, so an idle endpoint is never a wedge
         hb_ref: dict = {}
+        role = {"role": _role(), "replica": replica_index()}
 
         def sample() -> dict:
             s = engine.heartbeat_sample()
             if (s["serve_requests"] - s["serve_responses"]
                     - s["serve_errors"]) <= 0 and "hb" in hb_ref:
                 hb_ref["hb"].touch()
-            return s
+            return {**role, **s}
 
         hb = Heartbeat(os.path.join(cfg.train.log_dir, "heartbeat.json"),
                        period_s=cfg.obs.heartbeat_period_s,
@@ -353,6 +426,7 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
             signal.signal(signal.SIGTERM, _on_term)
         print(json.dumps({"serving": f"http://{host}:{port}",
                           "pid": os.getpid(),
+                          "replica": replica_index(),
                           "buckets": [list(b) for b in engine.buckets],
                           "precisions": list(engine.tiers),
                           "max_batch": engine.max_batch,
@@ -368,18 +442,21 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
             drain_engine(engine, cfg.serve.fleet.drain_timeout_s)
             if own_engine:
                 engine.close()
-            _log_serve_summary(cfg, engine)
+            now = launch_counts()
+            _log_serve_summary(cfg, engine, kernel_launches={
+                k: n - warm_launches.get(k, 0) for k, n in now.items()})
             hb.close()
     return 0
 
 
-def _log_serve_summary(cfg: ExperimentConfig,
-                       engine: InferenceEngine) -> None:
-    """Append one kind="serve" record (the final stats) to the run's
-    metrics.jsonl."""
+def _log_serve_summary(cfg: ExperimentConfig, engine: InferenceEngine,
+                       **extra) -> None:
+    """Append one kind="serve" record (the final stats, and `extra`) to
+    the run's metrics.jsonl."""
     try:
         os.makedirs(cfg.train.log_dir, exist_ok=True)
-        rec = {"kind": "serve", "step": 0, "time": time.time()}
+        rec = {"kind": "serve", "step": 0, "time": time.time(),
+               "replica": replica_index(), **extra}
         rec.update(engine.stats())
         with open(os.path.join(cfg.train.log_dir, "metrics.jsonl"),
                   "a") as f:

@@ -1,7 +1,8 @@
 """The PyTorch port's command line, on the CPU at width 0.25 and batch 2
 (the --synthetic smoke size otherwise): train, resume, eval, predict and
-config, FlowNet-C at a correlation geometry set on the command line, and
-the JAX package's flags that the port does not take yet."""
+config, FlowNet-C at a correlation geometry set on the command line, the
+JAX package's flags that the port does not take yet, and TF32 turned off
+by every verb."""
 
 import dataclasses
 import json
@@ -174,14 +175,36 @@ def test_config_prints_a_dict_that_reads_back(capsys):
       "loss.occlusion=true"], "item 9"),
     (["train", "--synthetic", "--model", "flownet_s", "--set",
       "data.augment_photo=true"], "item 9"),
-    (["serve", "--replicas", "2"], "item 8"),
-    (["serve", "--autoscale"], "item 8"),
-    (["serve", "--min-replicas", "1", "--max-replicas", "3"], "item 8"),
+    # the fleet is ported: with it, the artifact store stays refused
+    (["serve", "--replicas", "2", "--artifacts", "/x"], "item 8"),
+    (["serve", "--autoscale", "--artifacts", "/x"], "item 8"),
+    (["serve", "--set", "serve.artifacts_dir=/x"], "item 8"),
     (["serve", "--artifacts", "/x"], "item 8"),
-    (["serve", "--set", "serve.fleet.replicas=2"], "item 8")])
+    (["serve", "--set", "serve.fleet.replicas=2", "--set",
+      "serve.artifacts_dir=/x"], "item 8")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv + ["--device", "cpu"])
+
+
+def test_the_command_line_computes_float32_in_float32(capsys):
+    """`cli.main` turns TF32 off for cuDNN and cuBLAS before it builds
+    anything (PyTorch's default lets cuDNN compute float32 convolutions
+    in TF32 on the card); the cheapest verb shows it."""
+    import torch
+
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert cli.main(["config"]) == 0
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+    capsys.readouterr()
 
 
 def test_unported_model_raises_naming_its_item(tmp_path):

@@ -427,10 +427,12 @@ def test_a_codec_the_build_lacks_is_a_400_naming_its_codecs(
 
 
 def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
-    """F7 for the serving keys: the server's, the SLO's and the drain
-    timeout are carried with the JAX defaults; the brownout controller's
-    and `obs.metrics_port` stay dropped, named; settings that would run
-    the fleet or the artifact store raise, naming ROADMAP item 8."""
+    """F7 for the serving keys: the server's, the SLO's, the fleet's and
+    the brownout controller's are carried with the JAX defaults (the
+    fleet is ported); `obs.metrics_port` and the artifact store's GC age
+    stay dropped, named; of the fleet's settings only the artifact store
+    is still refused, naming ROADMAP item 8, by `check_servable` and the
+    engine."""
     from deepof_tpu_torch.core.config import check_servable
 
     jcfg = _jax_cfg(tmp_path)
@@ -439,9 +441,11 @@ def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
     ignored = str(rec[0].message)
     for key in ("serve.host", "serve.port", "serve.request_timeout_s",
                 "serve.workers", "serve.fake_exec_ms", "obs.slo_latency_ms",
-                "obs.slo_error_budget", "serve.fleet.drain_timeout_s"):
-        assert f"'{key}'" not in ignored, key
-    for key in ("serve.degrade", "obs.metrics_port"):
+                "obs.slo_error_budget", "serve.fleet.drain_timeout_s",
+                "serve.fleet.replicas", "serve.fleet.autoscale",
+                "serve.fleet.max_in_flight", "serve.degrade"):
+        assert f"'{key}" not in ignored, key
+    for key in ("obs.metrics_port", "serve.fleet.artifacts_gc_days"):
         assert f"'{key}'" in ignored, key
     want = JaxConfig()
     assert (cfg.serve.host, cfg.serve.port, cfg.serve.request_timeout_s,
@@ -452,14 +456,19 @@ def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
             cfg.serve.fleet.drain_timeout_s) == (
         want.obs.slo_latency_ms, want.obs.slo_error_budget,
         want.serve.fleet.drain_timeout_s)
-    for fleet_kw, serve_kw in (({"replicas": 2}, {}),
-                               ({"autoscale": True}, {}),
-                               ({}, {"artifacts_dir": "/x"})):
-        bad = _port_cfg(jcfg.replace(serve=dataclasses.replace(
+    assert dataclasses.asdict(cfg.serve.degrade) \
+        == dataclasses.asdict(want.serve.degrade)
+    for fleet_kw, serve_kw, refused in (({"replicas": 2}, {}, False),
+                                        ({"autoscale": True}, {}, False),
+                                        ({}, {"artifacts_dir": "/x"}, True)):
+        cfg = _port_cfg(jcfg.replace(serve=dataclasses.replace(
             jcfg.serve, fleet=dataclasses.replace(jcfg.serve.fleet,
                                                   **fleet_kw),
             **serve_kw)))
+        if not refused:
+            check_servable(cfg)
+            continue
         with pytest.raises(NotImplementedError, match="item 8"):
-            check_servable(bad)
+            check_servable(cfg)
         with pytest.raises(NotImplementedError, match="item 8"):
-            InferenceEngine(bad, forward_fn=jax_fake(0.0), device="cpu")
+            InferenceEngine(cfg, forward_fn=jax_fake(0.0), device="cpu")
