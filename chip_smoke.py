@@ -80,12 +80,15 @@ read after it):
     on the card: `serve_fleet` (`serve` alone, then `serve --replicas
     2` under the same load: requests/s and client p50/p99, warm-start
     streams, every flow against `engine.submit` in this process, the
-    replicas' own launch counts, no CUDA context in the supervisor, a
-    SIGTERM drain; then a crash drill: a replica SIGKILLed mid-load,
+    replicas' own launch counts, no CUDA context in the supervisor; on
+    the same fleet a crash drill: a replica SIGKILLed mid-load,
     failover, one eviction and one respawn, its spawn-to-ready seconds
-    and the card's memory) and `serve_autoscale` (`--autoscale` with two
-    buckets and two tiers and the brownout controller: a burst, the
-    level up to >= L1, a scale-up, calm, L0 and one retirement).
+    and the card's memory; then streams on the respawned fleet and a
+    SIGTERM drain that leaves no replica running) and `serve_autoscale`
+    (`--autoscale` with two buckets and two tiers and the brownout
+    controller: a burst, the level up to >= L1, a scale-up, calm, L0 and
+    one retirement; every flow against `engine.submit` at the tier and
+    bucket its reply names).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -1921,7 +1924,9 @@ FLEET_PAIRS = 16      # distinct PNG pairs, cycled
 FLEET_SESSIONS = 2
 FLEET_FRAMES = 6
 FLEET_SPILL = 2       # serve.fleet.spill_in_flight: the load spreads
-FLEET_FAULT_AFTER = 8  # replica_fault_after of the crash drill
+FLEET_FAULT_AFTER = 8  # the drill's crash: responses past the clean load
+FLEET_DRILL_ROUNDS = 6  # loads of FLEET_REQUESTS at most until it crashes
+FLEET_AFTER_REQUESTS = 32  # on the respawned fleet, with the streams
 FLEET_SLOTS = 4       # replica-<i>/ckpt links made for i < this
 FLEET_AFTER_SCALE_S = 2.0  # the burst goes on this long past scale-up
 FLEET_FLAGS = ("--set", "serve.port=0",
@@ -1981,9 +1986,20 @@ def start_serving(argv: list, log_path: str):
     return proc, line, (host, int(port))
 
 
-def stop_serving(proc, pids=()) -> tuple[int, float]:
-    """SIGTERM, the exit code and the seconds to it; then SIGKILL
-    whatever of it, or of `pids`, is still alive."""
+def running(pid: int) -> bool:
+    """Whether `pid` is a process that has not exited (a zombie, exited
+    and not yet reaped by its new parent, runs no more)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False
+
+
+def stop_serving(proc, pids=(), grace_s: float = 2.0):
+    """SIGTERM, the exit code and the seconds to it, and the `pids` still
+    running `grace_s` after the server exited: what it left behind. Only
+    once that is read are they, and the server if it hung, SIGKILLed."""
     import signal
 
     t0 = time.monotonic()
@@ -1995,10 +2011,15 @@ def stop_serving(proc, pids=()) -> tuple[int, float]:
             proc.kill()
             proc.wait()
     seconds = time.monotonic() - t0
-    for pid in pids:
+    deadline = time.monotonic() + grace_s
+    left = [p for p in pids if running(p)]
+    while left and time.monotonic() < deadline:
+        time.sleep(0.1)
+        left = [p for p in left if running(p)]
+    for pid in left:
         with contextlib.suppress(ProcessLookupError):
             os.kill(pid, signal.SIGKILL)
-    return rc, seconds
+    return rc, seconds, left
 
 
 def healthz(address) -> dict:
@@ -2078,20 +2099,28 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     (F16), against `serve` alone under the same load:
       - `serve` alone: FLEET_REQUESTS POST /v1/flow from FLEET_THREADS
         client threads (requests/s, client p50/p99), SIGTERM, exit 0;
-      - the fleet (spill at FLEET_SPILL in flight, so the load spreads):
-        the same load, then FLEET_SESSIONS streams of FLEET_FRAMES frames
-        through /v1/flow/stream; nvidia-smi counts one more CUDA context
-        a replica and none for the supervisor;
-        SIGTERM: exit 0 within serve.fleet.drain_timeout_s and no replica
-        left; each replica's final record: it served, and its correlation
-        and warp launches add up to its dispatches, the warps at most the
-        warm steps (a warm dispatch may carry both sessions'); every flow within HTTP_TOL of `engine.submit` /
-        `submit_next` in this process on the same weights;
-      - the crash drill, a fleet with `replica_crash` at replica 1 after
-        FLEET_FAULT_AFTER responses: the same load answered >= 99% (every
-        failure structured), one eviction and one respawn, the respawn's
-        spawn-to-ready seconds, and the card's memory before the kill and
-        after the respawn."""
+      - one fleet (spill at FLEET_SPILL in flight, so the load spreads)
+        with `replica_crash` armed at replica 1 FLEET_FAULT_AFTER
+        responses past the most the clean load can give it:
+        - the clean load, the same as `serve` alone's, with no eviction;
+          nvidia-smi counts one more CUDA context a replica and none for
+          the supervisor;
+        - the crash drill: rounds of the same load until replica 1 has
+          crashed, answered >= 99% (every failure structured), then its
+          respawn: its spawn-to-ready seconds, and the card's memory
+          before the kill and after the respawn;
+        - on the respawned fleet, FLEET_SESSIONS streams of FLEET_FRAMES
+          frames through /v1/flow/stream and FLEET_AFTER_REQUESTS more
+          pairs (fewer than re-arm the respawn's crash);
+        - SIGTERM: exit 0 within serve.fleet.drain_timeout_s and no
+          replica process running after the supervisor's exit; one
+          eviction, one crash and one respawn in all;
+      - each replica's final record (replica 1's from its respawn): it
+        served, and its correlation and warp launches add up to its
+        dispatches, the warps at most the warm steps (a warm dispatch may
+        carry both sessions'); every flow of every load and stream
+        within HTTP_TOL of `engine.submit` / `submit_next` in this
+        process on the same weights."""
     import base64
 
     import numpy as np
@@ -2122,7 +2151,7 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     try:
         single = fleet_load(address, bodies)
     finally:
-        rc, drain_s = stop_serving(proc)
+        rc, drain_s, _ = stop_serving(proc)
     single_rec = [r for r in read_records(run_dir)
                   if r.get("kind") == "serve"][-1]
     row["single"] = {k: single[k] for k in (
@@ -2131,21 +2160,36 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
                          kernel_launches=single_rec["kernel_launches"],
                          serve_batches=single_rec["serve_batches"])
 
-    # -- the fleet
+    # -- the fleet: the clean load, the crash drill, the streams
     fleet_dir = os.path.join(work, "serve_fleet")
     link_checkpoints(fleet_dir, run_dir)
     argv = ["serve", "--replicas", "2", *base, "--set",
             f"serve.fleet.spill_in_flight={FLEET_SPILL}",
+            "--set", "resilience.faults.enabled=true",
+            "--set", "resilience.faults.replica_crash_at=[1]",
+            "--set", f"resilience.faults.replica_fault_after="
+                     f"{FLEET_REQUESTS + FLEET_FAULT_AFTER}",
             "--log-dir", fleet_dir]
     proc, line, address = start_serving(argv, os.path.join(
         work, "serve_fleet.log"))
     pids: list = []
+    rounds: list = []
     try:
         ready = wait_health(address, lambda s: s.get("fleet_ready") == 2,
                             "two replicas ready")
         pids = [r["pid"] for r in ready["replicas"]]
         apps = gpu_compute_pids() if device == "cuda" else []
         load = fleet_load(address, bodies)
+        clean = healthz(address)
+        mem_before = gpu_memory_mib() if device == "cuda" else None
+        while (len(rounds) < FLEET_DRILL_ROUNDS
+               and healthz(address)["fleet_crashes"] == 0):
+            rounds.append(fleet_load(address, bodies))
+        back = wait_health(
+            address, lambda s: s.get("fleet_ready") == 2
+            and s.get("fleet_respawns", 0) >= 1, "respawn ready")
+        pids += [r["pid"] for r in back["replicas"]]
+        mem_after = gpu_memory_mib() if device == "cuda" else None
         streams: list = [None] * FLEET_SESSIONS
 
         def stream(k: int) -> None:
@@ -2154,10 +2198,9 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
                           for f in clip_frames[k]]
 
         run_clients(FLEET_SESSIONS, stream)
-        health = healthz(address)
+        after = fleet_load(address, bodies, n=FLEET_AFTER_REQUESTS)
     finally:
-        rc, drain_s = stop_serving(proc, pids)
-    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+        rc, drain_s, left = stop_serving(proc, pids)
     recs = {i: r[-1] for i, r in replica_records(fleet_dir).items()}
     summary = [r for r in read_records(fleet_dir)
                if r.get("kind") == "serve"][-1]
@@ -2177,88 +2220,67 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         return float(np.abs(got - ref).max()
                      / max(np.abs(ref).max(), 1e-30))
 
+    drill = [r for d in rounds for r in d["replies"]]
     diffs = [rel(r, want[i % FLEET_PAIRS])
-             for i, r in enumerate(load["replies"]) if r[0] == 200]
+             for d in (load, *rounds, after)
+             for i, r in enumerate(d["replies"]) if r[0] == 200]
     stream_diffs = [rel(r, ref["flow"]) for s, ws in zip(streams,
                                                           want_stream)
                     for r, ref in zip(s, ws) if r[0] == 200]
     warm_steps = sum(bool(r[2].get("warm")) for s in streams for r in s
                      if r[0] == 200)
+    failures = [r for r in drill if r[0] != 200]
+    respawned = next(r for r in back["replicas"] if r["replica"] == 1)
     row["fleet"] = {k: load[k] for k in ("requests_per_s", "client",
                                          "statuses", "wall_s")}
     row["fleet"].update(
-        rc=rc, drain_s=drain_s, replicas_left=left,
         spawn_to_ready_s=[r["ready_s"] for r in ready["replicas"]],
-        routed=health["fleet_routed"],
+        routed=clean["fleet_routed"],
+        evictions=clean["fleet_evictions"],
         nvidia_smi_compute_pids={"before": apps_before, "fleet": apps},
-        parent_pid=proc.pid, replica_pids=pids,
+        parent_pid=proc.pid, replica_pids=pids)
+    row["drill"] = {
+        "rounds": len(rounds), "requests": len(drill),
+        "ok": len(drill) - len(failures),
+        "statuses": dict(collections.Counter(r[0] for r in drill)),
+        "requests_per_s": [d["requests_per_s"] for d in rounds],
+        "failures": [[r[0], str(r[2])[:120]] for r in failures],
+        "respawn_ready_s": respawned["ready_s"],
+        "respawn_incarnation": respawned["incarnation"],
+        "memory_mib_before_kill": mem_before,
+        "memory_mib_after_respawn": mem_after}
+    row["after_respawn"] = {
+        "statuses": after["statuses"], "requests_per_s":
+        after["requests_per_s"],
+        "stream_statuses": [[r[0] for r in s] for s in streams],
+        "warm_steps": warm_steps}
+    row.update(
+        rc=rc, drain_s=drain_s, replicas_left=left,
+        max_rel_diff_vs_submit=max(diffs),
+        max_rel_diff_vs_submit_next=max(stream_diffs),
         replicas={i: {k: r.get(k) for k in (
             "kernel_launches", "serve_batches", "serve_responses",
             "serve_sessions_warm_steps", "serve_latency_p50_ms",
             "serve_latency_p99_ms")} for i, r in recs.items()},
-        stream_statuses=[[r[0] for r in s] for s in streams],
-        warm_steps=warm_steps,
-        max_rel_diff_vs_submit=max(diffs),
-        max_rel_diff_vs_submit_next=max(stream_diffs),
-        evictions=summary["fleet_evictions"])
-    row["speedup_requests_per_s"] = (load["requests_per_s"]
-                                     / single["requests_per_s"])
-
-    # -- the crash drill
-    drill_dir = os.path.join(work, "serve_fleet_drill")
-    link_checkpoints(drill_dir, run_dir)
-    argv = ["serve", "--replicas", "2", *base, "--set",
-            f"serve.fleet.spill_in_flight={FLEET_SPILL}",
-            "--set", "resilience.faults.enabled=true",
-            "--set", "resilience.faults.replica_crash_at=[1]",
-            "--set", f"resilience.faults.replica_fault_after="
-                     f"{FLEET_FAULT_AFTER}", "--log-dir", drill_dir]
-    proc, line, address = start_serving(argv, os.path.join(
-        work, "serve_fleet_drill.log"))
-    pids = []
-    try:
-        ready = wait_health(address, lambda s: s.get("fleet_ready") == 2,
-                            "two replicas ready")
-        pids = [r["pid"] for r in ready["replicas"]]
-        mem_before = gpu_memory_mib() if device == "cuda" else None
-        drill = fleet_load(address, bodies)
-        back = wait_health(
-            address, lambda s: s.get("fleet_ready") == 2
-            and s.get("fleet_respawns", 0) >= 1, "respawn ready")
-        pids += [r["pid"] for r in back["replicas"]]
-        mem_after = gpu_memory_mib() if device == "cuda" else None
-    finally:
-        rc, drain_s = stop_serving(proc, pids)
-    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
-    summary = [r for r in read_records(drill_dir)
-               if r.get("kind") == "serve"][-1]
-    failures = [r for r in drill["replies"] if r[0] != 200]
-    respawned = next(r for r in back["replicas"] if r["replica"] == 1)
-    row["drill"] = {k: drill[k] for k in ("requests_per_s", "client",
-                                          "statuses", "ok")}
-    row["drill"].update(
-        rc=rc, drain_s=drain_s, replicas_left=left,
-        failures=[[r[0], str(r[2])[:120]] for r in failures],
-        respawn_ready_s=respawned["ready_s"],
-        respawn_incarnation=respawned["incarnation"],
-        memory_mib_before_kill=mem_before,
-        memory_mib_after_respawn=mem_after,
         **{k: summary[k] for k in (
             "fleet_evictions", "fleet_crashes", "fleet_respawns",
             "fleet_failovers", "fleet_retries", "fleet_broken")})
+    row["speedup_requests_per_s"] = (load["requests_per_s"]
+                                     / single["requests_per_s"])
     row["seconds"] = time.monotonic() - t0
     emit("serve_fleet", **row)
     served = {i: r for i, r in recs.items() if r["serve_responses"]}
-    f = row["fleet"]
     checks = {
         "single": single["ok"] == FLEET_REQUESTS and row["single"]["rc"] == 0
         and launches_match_dispatches(single_rec),
         "fleet_flows": load["ok"] == FLEET_REQUESTS
-        and f["max_rel_diff_vs_submit"] <= HTTP_TOL,
+        and clean["fleet_evictions"] == 0
+        and after["ok"] == FLEET_AFTER_REQUESTS
+        and row["max_rel_diff_vs_submit"] <= HTTP_TOL,
         "streams": all([r[0] for r in s] == [202] + [200] * (
             FLEET_FRAMES - 1) for s in streams)
         and warm_steps == FLEET_SESSIONS * (FLEET_FRAMES - 2)
-        and f["max_rel_diff_vs_submit_next"] <= HTTP_TOL,
+        and row["max_rel_diff_vs_submit_next"] <= HTTP_TOL,
         "replicas_served": sorted(served) == [0, 1],
         # a warm dispatch may carry both sessions' steps
         "launches": all(launches_match_dispatches(r) and r[
@@ -2271,16 +2293,14 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         "no_cuda_in_parent": device != "cuda"
         or (len(apps) == len(apps_before) + 2
             and proc.pid not in apps),
-        "drain": f["rc"] == 0 and f["drain_s"] <= 10.0 and not f[
-            "replicas_left"] and f["evictions"] == 0,
-        "drill": drill["ok"] >= math.ceil(0.99 * FLEET_REQUESTS)
+        "drill": bool(rounds) and summary["fleet_crashes"] == 1
+        and len(drill) - len(failures) >= math.ceil(0.99 * len(drill))
         and all(r[0] > 0 and isinstance(r[2], dict) and "error" in r[2]
                 for r in failures)
         and summary["fleet_evictions"] == 1
-        and summary["fleet_crashes"] == 1
         and summary["fleet_respawns"] == 1
-        and row["drill"]["rc"] == 0 and not row["drill"]["replicas_left"]
-        and (mem_before is None or abs(mem_after - mem_before) <= 512)}
+        and (mem_before is None or abs(mem_after - mem_before) <= 512),
+        "drain": rc == 0 and drain_s <= 10.0 and not left}
     if not all(checks.values()):
         raise AssertionError(f"serve_fleet: {checks}")
     return row
@@ -2299,20 +2319,29 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
         FLEET_AFTER_SCALE_S past it;
       - calm: the level walks back to L0 and the autoscaler retires one
         replica (counted as retired, not as an eviction);
-      - SIGTERM: exit 0, no replica left; each replica's final record: its
-        correlation and warp launches add up to its dispatches, the bf16
-        tier's dispatches ran the float32 correlation kernel (the tier
-        computes in float32 with rounded weights) and no bf16 kernel."""
+      - SIGTERM: exit 0, no replica process running after the
+        supervisor's exit; each replica's final record: its correlation
+        and warp launches add up to its dispatches, the bf16 tier's
+        dispatches ran the float32 correlation kernel (the tier computes
+        in float32 with rounded weights) and no bf16 kernel;
+      - every flow of the burst within HTTP_TOL of `engine.submit` in
+        this process on the same weights, at the tier and the bucket its
+        reply names (f32 or bf16; the bucket or, from L2, the smaller)."""
+    import base64
+
     import numpy as np
+
+    from deepof_tpu_torch.core.config import config_from_dict
+    from deepof_tpu_torch.predict import restore_params
+    from deepof_tpu_torch.serve.engine import InferenceEngine
 
     t0 = time.monotonic()
     h, w = SERVE_HW
     rs = np.random.RandomState(60)
-    bodies = [{"prev": b64_png(rs.randint(0, 256, (h, w, 3),
-                                          dtype=np.uint8)),
-               "next": b64_png(rs.randint(0, 256, (h, w, 3),
-                                          dtype=np.uint8))}
-              for _ in range(4)]
+    pairs = [(rs.randint(0, 256, (h, w, 3), dtype=np.uint8),
+              rs.randint(0, 256, (h, w, 3), dtype=np.uint8))
+             for _ in range(4)]
+    bodies = [{"prev": b64_png(a), "next": b64_png(b)} for a, b in pairs]
     fleet_dir = os.path.join(work, "serve_autoscale")
     link_checkpoints(fleet_dir, run_dir)
     windows = {"serve.fleet.max_in_flight": 8,
@@ -2337,7 +2366,7 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
         work, "serve_autoscale.log"))
     pids: list = []
     stop = threading.Event()
-    replies: list = []
+    replies: list = []  # (the body's index, the reply)
     polls: list = []  # /healthz during the burst
     try:
         first = healthz(address)
@@ -2351,7 +2380,7 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
                                   bodies[i % len(bodies)])
                 except Exception as e:  # noqa: BLE001 - a drop fails
                     r = (-1, None, f"{type(e).__name__}: {e}", 0.0)
-                replies.append(r)
+                replies.append((i % len(bodies), r))
                 i += FLEET_THREADS
 
         burst_t0 = time.monotonic()
@@ -2377,18 +2406,52 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
             timeout_s=120.0)
     finally:
         stop.set()
-        rc, drain_s = stop_serving(proc, pids)
-    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+        rc, drain_s, left = stop_serving(proc, pids)
     records = read_records(fleet_dir)
     events = [(r.get("event"), r.get("reason")) for r in records
               if r.get("event")]
     summary = [r for r in records if r.get("kind") == "serve"
                and "fleet_replicas" in r][-1]
     recs = {i: r[-1] for i, r in replica_records(fleet_dir).items()}
+    # the in-process reference, one a (pair, tier, bucket) the burst's
+    # replies name, on the replicas' weights and configuration
+    with open(os.path.join(fleet_dir, "replica-0", "config.json")) as f:
+        rcfg = config_from_dict(json.load(f))
+    keys = sorted({(k, r[2]["precision"], tuple(r[2]["bucket"]))
+                   for k, r in replies if r[0] == 200})
+    with InferenceEngine(rcfg, model=restore_params(rcfg, device=device),
+                         device=device) as eng:
+        futs = {key: eng.submit(*pairs[key[0]], precision=key[1],
+                                degrade_level=0 if key[2] == (h, w) else 2)
+                for key in keys}
+        want = {key: f.result(timeout=600) for key, f in futs.items()}
+
+    def label(reply) -> str:
+        return (f"{reply['precision']} "
+                f"{reply['bucket'][0]}x{reply['bucket'][1]}")
+
+    def rel(k: int, reply) -> float:
+        ref = want[(k, reply["precision"], tuple(reply["bucket"]))]
+        if list(ref["bucket"]) != reply["bucket"]:
+            return math.inf
+        got = np.frombuffer(base64.b64decode(reply["flow_b64"]),
+                            "<f4").reshape(reply["shape"])
+        return float(np.abs(got - ref["flow"]).max()
+                     / max(np.abs(ref["flow"]).max(), 1e-30))
+
+    diffs: dict = {}
+    for k, r in replies:
+        if r[0] == 200:
+            diffs[label(r[2])] = max(diffs.get(label(r[2]), 0.0),
+                                     rel(k, r[2]))
+    replies = [r for _, r in replies]
     row = {"burst_requests": len(replies), "burst_s": burst_s,
            "burst_statuses": dict(collections.Counter(r[0]
                                                       for r in replies)),
            "burst_client": p50_p99([r[3] for r in replies if r[0] == 200]),
+           "max_rel_diff_vs_submit": diffs,
+           "burst_by_tier_and_bucket": dict(collections.Counter(
+               label(r[2]) for r in replies if r[0] == 200)),
            "levels_seen": sorted({p.get("degrade_level", 0)
                                   for p in polls}),
            "max_level": max(p.get("degrade_level", 0) for p in polls),
@@ -2414,7 +2477,8 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
                for r in recs.values())
     checks = {
         "burst": all(r[0] > 0 for r in replies)
-        and row["burst_statuses"].get(200, 0) >= 0.99 * len(replies),
+        and row["burst_statuses"].get(200, 0) >= 0.99 * len(replies)
+        and max(diffs.values(), default=math.inf) <= HTTP_TOL,
         "scale_up": any(e == "scale_up" for e, _ in events),
         "brownout": row["max_level"] >= 1 and bf16 > 0
         and sum(r["degrade_tier_downgrades"] for r in recs.values()) > 0,
@@ -4182,6 +4246,10 @@ def main() -> int:
     b, (h, w) = cfg.serve.max_batch, cfg.data.image_size
     full = check_corr((b, 256, h // 8, w // 8), cfg.corr_max_disp,
                       cfg.corr_stride, seed=0, bitwise=True)
+    # the smaller bucket that brownout L2 folds requests into
+    # (serve_autoscale)
+    half = check_corr((b, 256, h // 16, w // 16), cfg.corr_max_disp,
+                      cfg.corr_stride, seed=23, bitwise=True)
     check_corr((3, 40, 13, 17), 4, 1, seed=1)  # ragged
     # the forward and backward at the training shape (batch 4); the
     # backward also ragged, at stride 4 and at max_disp 0
@@ -4296,7 +4364,7 @@ def main() -> int:
     fleet_launches = {
         "serve_single": fleet_row["single"]["kernel_launches"],
         **{f"serve_fleet_replica_{i}": r["kernel_launches"]
-           for i, r in fleet_row["fleet"]["replicas"].items()},
+           for i, r in fleet_row["replicas"].items()},
         **{f"serve_autoscale_replica_{i}": r["kernel_launches"]
            for i, r in autoscale_row["replicas"].items()}}
     for p, k in fleet_launches.items():
@@ -4372,6 +4440,9 @@ def main() -> int:
                     p: n for p, n in corr_by_path["corr"].items()
                     if p.startswith(("serve_single", "serve_fleet",
                                      "serve_autoscale"))},
+                "serve_half_bucket": {k: half[k] for k in (
+                    "shape", "max_abs_err", "bitwise_equal", "ms",
+                    "plain_ms", "bound_ms")},
                 **{k: full[k] for k in ("shape", "max_abs_err", "ms",
                                         "call_ms", "plain_ms", "bound_ms",
                                         "bound_by")}}
@@ -4422,6 +4493,9 @@ def main() -> int:
                     p: n for p, n in by_path["fwd"].items()
                     if p.startswith(("serve_single", "serve_fleet",
                                      "serve_autoscale"))},
+                "serve_half_bucket": {k: half[k] for k in (
+                    "shape", "max_abs_err", "bitwise_equal", "ms",
+                    "plain_ms", "bound_ms")},
                 "bitwise_equal": serve_warp["fwd"]["bitwise_equal"],
                 **{k: serve_warp["fwd"][k] for k in (
                     "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",

@@ -175,13 +175,8 @@ def test_config_prints_a_dict_that_reads_back(capsys):
       "loss.occlusion=true"], "item 9"),
     (["train", "--synthetic", "--model", "flownet_s", "--set",
       "data.augment_photo=true"], "item 9"),
-    # the fleet is ported: with it, the artifact store stays refused
-    (["serve", "--replicas", "2", "--artifacts", "/x"], "item 8"),
-    (["serve", "--autoscale", "--artifacts", "/x"], "item 8"),
-    (["serve", "--set", "serve.artifacts_dir=/x"], "item 8"),
     (["serve", "--artifacts", "/x"], "item 8"),
-    (["serve", "--set", "serve.fleet.replicas=2", "--set",
-      "serve.artifacts_dir=/x"], "item 8")])
+    (["serve", "--set", "serve.artifacts_dir=/x"], "item 8")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv + ["--device", "cpu"])
