@@ -89,6 +89,19 @@ read after it):
     controller: a burst, the level up to >= L1, a scale-up, calm, L0 and
     one retirement; every flow against `engine.submit` at the tier and
     bucket its reply names).
+  - the paper's flagship model, Inception-v3 at full width (44.55 M
+    parameters): `cli_train_inception` (`train --preset flyingchairs
+    --synthetic` at 320x448, batch 4, for 6 steps with the fit's step,
+    busy time and idle share; `eval`; `predict` on two pairs; both warp
+    kernels at its six levels bit for bit against the plain versions;
+    one step with the kernels against the plain warps in float32 and in
+    bf16 compute; and F17: an `InferenceEngine` in a fresh process with
+    PyTorch's TF32 defaults, whose flow equals `predict`'s),
+    `cli_sintel_inception` (`train --preset sintel` on the Sintel tree,
+    T = 10, and the warps at that volume's shapes bit for bit) and
+    `cli_bench` (`python -m deepof_tpu_torch bench` at its defaults, the
+    JAX headline: batch 16, bf16, 4 steps a call; and the warps at the
+    bench's shapes bit for bit).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -104,6 +117,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs, tempfile; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_job(w); cs.cli_preempt_faults(w)"
     python3 -c "import chip_smoke as cs; from deepof_tpu_torch.core.config import ExperimentConfig; cs.serve_http(ExperimentConfig(model='flownet_c'))"
     python3 -c "import os, tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = os.path.join(w, 'run'); cs.run_cli(['train', *cs.SERVE_RUN, '--steps', '2', '--log-dir', r], os.path.join(w, 't.log')); cs.serve_fleet(w, r); cs.serve_autoscale(w, r)"
+    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_inception(w); cs.cli_sintel_inception(w); cs.cli_bench(w)"
 """
 
 from __future__ import annotations
@@ -623,22 +637,23 @@ def check_warp_nonfinite(shape=(2, 3, 16, 20), seed=10):
                              "on non-finite flows")
 
 
-def check_warp_levels(mag=5.0, seed=20):
-    """The six main-path levels through one launch per direction, in the
-    loss's layouts (images and cotangents as views of NHWC memory, planar
-    flows), on normal flows of `mag` px: `warp_levels_row`."""
+def check_warp_levels(mag=5.0, seed=20, levels=None, kernel="warp_levels"):
+    """Six levels (default the main path's, WARP_LEVELS) through one
+    launch per direction, in the loss's layouts (images and cotangents
+    as views of NHWC memory, planar flows), on normal flows of `mag` px:
+    `warp_levels_row`."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     images, flows, cts = [], [], []
-    for b, c, h, w in WARP_LEVELS:
+    for b, c, h, w in levels or WARP_LEVELS:
         images.append(torch.rand((b, h, w, c), device="cuda", generator=g)
                       .permute(0, 3, 1, 2))
         flows.append(torch.randn((b, 2, h, w), device="cuda", generator=g)
                      * mag)
         cts.append(torch.randn((b, h, w, c), device="cuda", generator=g)
                    .permute(0, 3, 1, 2))
-    return warp_levels_row("warp_levels", images, flows, cts, g)
+    return warp_levels_row(kernel, images, flows, cts, g)
 
 
 def warp_levels_row(kernel, images, flows, cts, g):
@@ -723,12 +738,31 @@ def warp_levels_row(kernel, images, flows, cts, g):
             runs[k].append(device_ms(fn, WARP_ITERS))
 
     fs = [f.detach().requires_grad_(True) for f in flows]
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        o = BackwardWarpLevels.apply(len(images), *images, *fs)
-        torch.autograd.grad(o, fs, cts)
-        torch.cuda.synchronize()
-    autograd_kernels = device_kernel_counts(prof)
+    # one autograd forward and backward: its launches by the wrappers'
+    # counters, the ops inside its autograd ops (no copy) from the CPU
+    # trace, and its device kernels where CUPTI recorded them. On the
+    # H100 machine a short session after other profiled work (a fit's
+    # StepWindow) has recorded no device event, or only the second of
+    # the two, in 5 tries of 5; such a session is redone, 3 times at
+    # most, and the row says whether the device kernels were seen
+    from deepof_tpu_torch.ops.cuda import warp as cw
+
+    for _ in range(3):
+        before = (cw.fwd_launches.count, cw.grad_launches.count)
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           acc_events=True) as prof:
+            o = BackwardWarpLevels.apply(len(images), *images, *fs)
+            torch.autograd.grad(o, fs, cts)
+            torch.cuda.synchronize()
+        autograd_launches = (cw.fwd_launches.count - before[0],
+                             cw.grad_launches.count - before[1])
+        autograd_kernels = device_kernel_counts(prof)
+        if sum(autograd_kernels.values()) >= 2:
+            break
+    seen = sum(autograd_kernels.values()) >= 2
+    autograd_copies = sorted({n for names in warp_op_children(prof).values()
+                              for n in names if n in COPY_OPS})
 
     def direction(key, kernel_fn, plain_fn, lib_key, grad):
         bound, bound_by = warp_bound_ms(shapes, grad)
@@ -756,26 +790,34 @@ def warp_levels_row(kernel, images, flows, cts, g):
                       "the grids",
            "plain": "backward_warp_reference and warp_flow_grad_reference "
                     "level by level",
-           "autograd_device_kernels": autograd_kernels}
+           "autograd_launches": list(autograd_launches),
+           "autograd_copy_ops": autograd_copies,
+           "autograd_device_kernels": autograd_kernels,
+           "autograd_device_kernels_seen": seen}
     emit("kernels", kernel=kernel, **row)
     if not (row["fwd"]["bitwise_equal"] and row["flow_grad"]["bitwise_equal"]):
         raise AssertionError(f"{kernel}: fused warp launch disagrees with "
                              f"the plain versions: {levels}")
-    if (len(autograd_kernels) != 2 or sum(autograd_kernels.values()) != 2
-            or not all("warp_" in k for k in autograd_kernels)):
+    if autograd_launches != (1, 1) or autograd_copies or (seen and (
+            len(autograd_kernels) != 2 or sum(autograd_kernels.values()) != 2
+            or not all("warp_" in k for k in autograd_kernels))):
         raise AssertionError(f"{kernel}: one autograd forward and backward "
-                             f"of the levels ran {autograd_kernels}; want "
-                             f"one warp kernel each way and no copy")
+                             f"of the levels launched {autograd_launches}, "
+                             f"ran the ops {autograd_copies} and the device "
+                             f"kernels {autograd_kernels}; want one warp "
+                             f"kernel each way and no copy")
     return row
 
 
-def check_warp_volume(seed=21):
+def check_warp_volume(seed=21, model_name="flownet_s"):
     """Both warp kernels at the Sintel volume loss's shape: the `sintel`
     preset's crop (224x480, batch 4, T = 10), six levels of B(T-1) = 36
     folded pairs, one launch per direction (`warp_levels_row`). The
     images are a random volume, LRN-normalised, resized to each level and
     folded as the loss folds them; the flows are an untrained full-width
-    FlowNet-S's on that volume, scaled; the cotangents normal."""
+    `model_name`'s on that volume, scaled (FlowNet-S: 112x240 down to
+    4x8; Inception-v3: 112x240 down to 7x15, 28x60 twice); the
+    cotangents normal."""
     import torch
 
     from deepof_tpu_torch.core.config import get_config
@@ -788,7 +830,7 @@ def check_warp_volume(seed=21):
     h, w = cfg.data.crop_size
     g = torch.Generator(device="cuda").manual_seed(seed)
     vol = torch.rand((b, h, w, 3 * t), device="cuda", generator=g) - 0.35
-    model = build_model("flownet_s", flow_channels=2 * (t - 1), seed=seed,
+    model = build_model(model_name, flow_channels=2 * (t - 1), seed=seed,
                         device="cuda")
     with torch.no_grad():
         flows = [f.permute(0, 2, 3, 1) * s for f, s in zip(
@@ -801,8 +843,11 @@ def check_warp_volume(seed=21):
         images.append(nxt.permute(0, 3, 1, 2))
         fl.append(flw.permute(0, 3, 1, 2))
     cts = [torch.randn(i.shape, device="cuda", generator=g) for i in images]
-    row = warp_levels_row("warp_volume", images, fl, cts, g)
-    row["volume"] = {"batch": b, "time_step": t, "crop": [h, w],
+    row = warp_levels_row("warp_volume" + ("" if model_name == "flownet_s"
+                                           else f"_{model_name}"),
+                          images, fl, cts, g)
+    row["volume"] = {"model": model_name, "batch": b, "time_step": t,
+                     "crop": [h, w],
                      "folded_pairs": b * (t - 1)}
     return row
 
@@ -1388,23 +1433,47 @@ def loss_and_grads(model, batch, mean, loss_cfg, compute_dtype=None):
                           for p in model.parameters()]
 
 
-def plain_warp_loss_and_grads(model, batch, mean, loss_cfg):
+def plain_warp_loss_and_grads(model, batch, mean, loss_cfg,
+                              compute_dtype=None, flow_grad="autograd"):
     """`loss_and_grads` with the loss's warp swapped for its plain
-    version (autograd of `backward_warp_reference`) for this one call, as
-    `serve` swaps the correlation: no setting of the package routes a
-    card tensor around the kernels."""
+    version for this one call, as `serve` swaps the correlation: no
+    setting of the package routes a card tensor around the kernels. The
+    forward is `backward_warp_reference`; the flow gradient autograd of it
+    (`flow_grad="autograd"`) or `warp_flow_grad_reference`
+    ("reference": the gradient kernel's plain version, its bits). The
+    loss's warped images are data: no image gradient."""
+    import torch
+
     from deepof_tpu_torch.losses import pyramid
-    from deepof_tpu_torch.ops.warp import backward_warp_reference
+    from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           warp_flow_grad_reference)
+
+    class PlainWarp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, image, flow):
+            ctx.save_for_backward(image, flow)
+            return backward_warp_reference(image, flow)
+
+        @staticmethod
+        def backward(ctx, g):
+            image, flow = ctx.saved_tensors
+            return None, warp_flow_grad_reference(image, flow, g)
 
     def plain_warp_levels(images, flows, impl="auto"):
-        return [backward_warp_reference(i.permute(0, 3, 1, 2),
-                                        f.permute(0, 3, 1, 2))
-                .permute(0, 2, 3, 1) for i, f in zip(images, flows)]
+        if flow_grad == "autograd":
+            return [backward_warp_reference(i.permute(0, 3, 1, 2),
+                                            f.permute(0, 3, 1, 2))
+                    .permute(0, 2, 3, 1) for i, f in zip(images, flows)]
+        # NHWC memory, as the kernel writes its output in its input's
+        # layout: the loss's reductions then sum in the same order
+        return [PlainWarp.apply(i.permute(0, 3, 1, 2), f.permute(0, 3, 1, 2))
+                .permute(0, 2, 3, 1).contiguous()
+                for i, f in zip(images, flows)]
 
     kernel_warp = pyramid.backward_warp_levels
     pyramid.backward_warp_levels = plain_warp_levels
     try:
-        return loss_and_grads(model, batch, mean, loss_cfg)
+        return loss_and_grads(model, batch, mean, loss_cfg, compute_dtype)
     finally:
         pyramid.backward_warp_levels = kernel_warp
 
@@ -4209,6 +4278,409 @@ def cli_eval_predict(work: str) -> dict:
     return row
 
 
+# Inception-v3, the flyingchairs and sintel presets' model, at full width
+# (44.55 M parameters): the warp's six levels of the flyingchairs
+# preset's 320x448, batch 4 (finest at H/2; Mixed_5d and MaxPool_5a
+# share H/8), and of the bench's batch 16
+INCEPTION_LEVELS = [(4, 3, 160 >> k, 224 >> k) for k in (0, 1, 2, 2, 3, 4)]
+BENCH_LEVELS = [(16, 3, h, w) for _, _, h, w in INCEPTION_LEVELS]
+# `train --preset flyingchairs --synthetic` at the preset's geometry
+# (320x448, batch 4): a train record every 2 steps, an eval (the 16
+# synthetic val pairs, 4 a forward) and a checkpoint at the last step;
+# the steps of the fit under torch.profiler (StepWindow) are 3-5
+INCEPTION_STEPS = 6
+INCEPTION_WINDOW = (2, 5)
+CLI_INCEPTION = ["--preset", "flyingchairs", "--synthetic",
+                 "--set", "data.image_size=[320,448]",
+                 "--set", "data.gt_size=[320,448]",
+                 "--set", "data.batch_size=4",
+                 "--set", "train.eval_batch_size=4",
+                 "--set", "train.log_every=2",
+                 "--set", f"train.eval_every={INCEPTION_STEPS}",
+                 "--set", f"train.ckpt_every_steps={INCEPTION_STEPS}"]
+# F17: an InferenceEngine in a process of its own that leaves PyTorch's
+# TF32 switches as it starts them, on the flyingchairs run's checkpoint;
+# then the same request with cuDNN's TF32 switched back on, the error
+# the rule keeps out: argv = config JSON, prev .npy, next .npy, output
+# .npy (the two flows stacked)
+ENGINE_SUBPROCESS = (
+    "import json, sys, numpy as np, torch\n"
+    "before = [torch.backends.cudnn.allow_tf32,\n"
+    "          torch.backends.cuda.matmul.allow_tf32]\n"
+    "from deepof_tpu_torch.core.config import config_from_dict\n"
+    "from deepof_tpu_torch.predict import restore_params\n"
+    "from deepof_tpu_torch.serve.engine import InferenceEngine\n"
+    "with open(sys.argv[1]) as f:\n"
+    "    cfg = config_from_dict(json.load(f))\n"
+    "with InferenceEngine(cfg, model=restore_params(cfg)) as eng:\n"
+    "    after = [torch.backends.cudnn.allow_tf32,\n"
+    "             torch.backends.cuda.matmul.allow_tf32]\n"
+    "    flow = eng.submit(sys.argv[2], sys.argv[3]).result()['flow']\n"
+    "    torch.backends.cudnn.allow_tf32 = True\n"
+    "    tf32 = eng.submit(sys.argv[2], sys.argv[3]).result()['flow']\n"
+    "np.save(sys.argv[4], np.stack([flow, tf32]))\n"
+    "print(json.dumps({'before': before, 'after': after}))\n")
+# the engine's flow against predict's, of the largest entry: cuDNN may
+# choose another float32 algorithm in another process (1.2e-6 of a
+# 4.8 px flow on the H100), and TF32 moves it by orders more
+F17_RTOL = 1e-5
+
+
+def run_windowed(argv: list, log_path: str, window: tuple[int, int]):
+    """`run_cli(argv)` with the fit's train step wrapped in a StepWindow
+    over `window`: (summary, the window)."""
+    from deepof_tpu_torch.train import loop
+
+    make_step = loop.make_train_step
+    windows = []
+
+    def windowed(*a, **kw):
+        windows.append(StepWindow(make_step(*a, **kw), *window))
+        return windows[-1]
+
+    loop.make_train_step = windowed
+    try:
+        summary = run_cli(argv, log_path)
+    finally:
+        loop.make_train_step = make_step
+    return summary, windows[0]
+
+
+def inception_trainer(work: str, compute_dtype: str):
+    """A full-width Inception-v3 Trainer on the card with the
+    flyingchairs preset's loss and geometry (320x448, batch 4) on
+    synthetic data, in `compute_dtype`."""
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.train.loop import Trainer
+
+    preset = get_config("flyingchairs")
+    cfg = preset.replace(
+        data=dataclasses.replace(preset.data, dataset="synthetic",
+                                 gt_size=preset.data.image_size),
+        train=dataclasses.replace(
+            preset.train, compute_dtype=compute_dtype,
+            log_dir=os.path.join(work, f"inception{DTYPES[compute_dtype]}")))
+    return Trainer(cfg, device="cuda")
+
+
+def plain_warp_comparison(trainer, batch) -> dict:
+    """One forward and backward of `trainer`'s model on `batch` in its
+    compute dtype, cuDNN deterministic, with the warp kernels (`kernel`:
+    each launched once), twice with the kernels' plain versions (`plain`,
+    `plain_again`: `backward_warp_reference` and
+    `warp_flow_grad_reference`, no kernel launched) and once with
+    autograd of the plain forward as the flow gradient
+    (`plain_autograd`, the `train` phase's plain step): the loss's
+    relative difference and the largest difference of one parameter's
+    gradient over that tensor's largest entry, kernel vs plain, plain vs
+    plain (the step's own spread) and autograd vs plain."""
+    import torch
+
+    from deepof_tpu_torch.train.step import compute_dtype
+
+    args = (trainer.model, batch, trainer.dataset.mean, trainer.cfg.loss,
+            compute_dtype(trainer.cfg))
+    names = [n for n, _ in trainer.model.named_parameters()]
+    runs, launched = {}, {}
+
+    def plain(*a):
+        return plain_warp_loss_and_grads(*a, flow_grad="reference")
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, fn in (("kernel", loss_and_grads), ("plain", plain),
+                         ("plain_again", plain),
+                         ("plain_autograd", plain_warp_loss_and_grads)):
+            before = warp_counts()
+            runs[name] = fn(*args)
+            launched[name] = [a - b for a, b in zip(warp_counts(), before)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if launched != {"kernel": [1, 1], "plain": [0, 0],
+                    "plain_again": [0, 0], "plain_autograd": [0, 0]}:
+        raise AssertionError(f"warp kernel launches {launched} in the "
+                             "kernel and plain-warp steps")
+
+    def compare(a, b):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        rel = [((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+               .item() for x, y in zip(ga, gb)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        return {"loss_rel": abs(la - lb) / abs(lb),
+                "grad_max_rel": rel[worst], "grad_max_rel_at": names[worst]}
+
+    return {"loss": runs["kernel"][0],
+            "kernel_vs_plain_warp": compare("kernel", "plain"),
+            "plain_repeat": compare("plain_again", "plain"),
+            "autograd_flow_grad_vs_plain": compare("plain_autograd",
+                                                   "plain")}
+
+
+def inception_step_vs_plain(work: str, compute_dtype: str) -> dict:
+    """A full-width Inception-v3 training step (`inception_trainer`) with
+    the warp kernels against the same step with the kernels' plain
+    versions, after one warm-up step: loss equal, each gradient within
+    TRAIN_GRAD_RTOL of its largest entry (`plain_warp_comparison`). The
+    step with autograd of the plain forward as the flow gradient is
+    reported beside it; in float32 it is held to the same limit, as the
+    `train` phase holds it. In bf16 compute it is not: its flow gradient
+    differs from the reference's in the last float32 bit, and the bf16
+    backward rounds that to whole bf16 steps (a CPU run of a thin model
+    measured 7e-3 of a tensor's largest entry)."""
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    trainer = inception_trainer(work, compute_dtype)
+    first = steps_in_sequence(trainer, 1)[0]
+    batch = batch_to_device(next(draw_batches(trainer, 1))[0],
+                            trainer.device)
+    row = {"compute_dtype": compute_dtype,
+           "params": sum(p.numel() for p in trainer.model.parameters()),
+           "first_step_loss": first["total"],
+           **plain_warp_comparison(trainer, batch)}
+    pairs = ["kernel_vs_plain_warp", "plain_repeat"]
+    if compute_dtype == "float32":
+        pairs.append("autograd_flow_grad_vs_plain")
+    for pair in pairs:
+        gap = row[pair]
+        if not (gap["loss_rel"] == 0
+                and gap["grad_max_rel"] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(
+                f"inception {compute_dtype} train step, {pair}: {gap} "
+                f"(limits: loss equal, each gradient {TRAIN_GRAD_RTOL} of "
+                "its largest entry)")
+    return row
+
+
+def engine_in_fresh_process(work: str, log_dir: str, pair: list,
+                            want) -> dict:
+    """F17: a fresh process with PyTorch's TF32 defaults builds an
+    InferenceEngine on the run's checkpoint (`ENGINE_SUBPROCESS`) and
+    serves `pair`; its flow against `want`, `predict`'s on the same pair
+    from the command line: within F17_RTOL of its largest entry, and at
+    least 10x closer than the same request served with cuDNN's TF32 on
+    (the rule's gate sees what it keeps out)."""
+    import io
+
+    import numpy as np
+
+    from deepof_tpu_torch import cli
+
+    cfg_path = os.path.join(work, "f17_config.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(["config", *CLI_INCEPTION, "--log-dir", log_dir]) != 0:
+            raise AssertionError("cli config failed")
+    with open(cfg_path, "w") as f:
+        f.write(buf.getvalue())
+    out = os.path.join(work, "f17_flow.npy")
+    proc = subprocess.run(
+        [sys.executable, "-c", ENGINE_SUBPROCESS, cfg_path, *pair, out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"F17 engine process failed: {proc.stderr}")
+    switches = json.loads(proc.stdout.strip().splitlines()[-1])
+    got, tf32 = np.load(out)
+    row = {**switches, "shape": list(got.shape),
+           "bitwise_equal_to_predict": bool(np.array_equal(got, want)),
+           "max_abs_diff": float(np.abs(got - want).max()),
+           "tf32_max_abs_diff": float(np.abs(tf32 - want).max()),
+           "predict_abs_max": float(np.abs(want).max())}
+    if (switches["after"] != [False, False]
+            or row["max_abs_diff"] > F17_RTOL * row["predict_abs_max"]
+            or row["tf32_max_abs_diff"] <= 10 * row["max_abs_diff"]):
+        raise AssertionError(f"F17: an engine built outside the command "
+                             f"line: {row}")
+    return row
+
+
+def cli_train_inception(work: str) -> dict:
+    """The paper's flagship model from the command line at full width:
+    `train --preset flyingchairs --synthetic` for INCEPTION_STEPS steps at
+    the preset's 320x448, batch 4 (Inception-v3, 44.55 M parameters;
+    the fit's steps 3-5 under torch.profiler: step, device busy, idle
+    share), then `eval` and `predict` on two .npy pairs from its
+    checkpoint, and F17's engine in a fresh process on the same
+    checkpoint (`engine_in_fresh_process`). Each path's warp launches
+    are counted from 0: in `train` each kernel once per step and the
+    forward once per eval forward, in `eval` the forward once per eval
+    forward, in `predict` none. Then both warp kernels at the six
+    Inception levels bit for bit against the plain versions, with their
+    time, bound and grid_sample's (`check_warp_levels`), and one training
+    step with the kernels against the plain warps, in float32 and in
+    bf16 compute (`inception_step_vs_plain`)."""
+    import numpy as np
+
+    from deepof_tpu_torch.io.flo import read_flo
+
+    t0 = time.monotonic()
+    log_dir = os.path.join(work, "cli_train_inception")
+    reset_kernel_counts()
+    summary, window = run_windowed(
+        ["train", *CLI_INCEPTION, "--steps", str(INCEPTION_STEPS),
+         "--log-dir", log_dir], os.path.join(work, "cli_train_inception.log"),
+        INCEPTION_WINDOW)
+    train = kernel_counts()
+    records = check_run(log_dir, list(range(2, INCEPTION_STEPS + 1, 2)),
+                        [INCEPTION_STEPS], [INCEPTION_STEPS])
+    evals = eval_calls(SYNTHETIC_VAL, 4)
+    reset_kernel_counts()
+    ev = run_cli(["eval", *CLI_INCEPTION, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval_inception.log"))
+    evaluate = kernel_counts()
+    rs = np.random.RandomState(4)
+    pairs = []
+    for i in range(2):
+        paths = [os.path.join(work, f"inc_pair{i}_{k}.npy") for k in "ab"]
+        for p in paths:
+            np.save(p, rs.randint(0, 256, (320, 448, 3), np.uint8))
+        pairs.append(paths)
+    reset_kernel_counts()
+    out = run_cli(["predict", *CLI_INCEPTION, "--log-dir", log_dir, "--out",
+                   os.path.join(work, "flows_inception"), "--pairs",
+                   *(":".join(p) for p in pairs)],
+                  os.path.join(work, "cli_predict_inception.log"))
+    predict = kernel_counts()
+    flows = [read_flo(p) for p in out["written"] if p.endswith(".flo")]
+    f17 = engine_in_fresh_process(work, log_dir, pairs[0], flows[0])
+    levels = check_warp_levels(seed=40, levels=INCEPTION_LEVELS,
+                               kernel="warp_levels_inception")
+    vs_plain = {d: inception_step_vs_plain(work, d) for d in DTYPES}
+    row = {"model": "inception_v3", "steps": INCEPTION_STEPS,
+           "image_size": [320, 448], "batch": 4,
+           **fit_row(summary, 4), "profiled": window.row(4),
+           "flops_per_step": [r.get("flops_per_step") for r in records
+                              if r["kind"] == "info"
+                              and "flops_per_step" in r],
+           "launches": {"train": train, "eval": evaluate,
+                        "predict": predict},
+           "eval_forwards": evals,
+           "losses": [r["loss"] for r in records if r["kind"] == "train"],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"],
+           "eval_cli": {k: ev[k] for k in ("aee", "aae", "val_loss")},
+           "predicted": [list(f.shape) for f in flows],
+           "f17_engine": f17,
+           "warp_levels": {k: {q: levels[k][q] for q in (
+               "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "call_ms")}
+               for k in ("fwd", "flow_grad")},
+           "vs_plain": vs_plain, "seconds": time.monotonic() - t0}
+    emit("cli_train_inception", **row)
+    want_train = want_counts(warp_fwd=INCEPTION_STEPS + evals,
+                             warp_flow_grad=INCEPTION_STEPS)
+    if train != want_train:
+        raise AssertionError(f"cli train inception: launches {train}; want "
+                             f"{want_train}")
+    if evaluate != want_counts(warp_fwd=evals) or predict != want_counts():
+        raise AssertionError(f"cli eval/predict inception: launches "
+                             f"{evaluate} / {predict}")
+    if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
+        raise AssertionError(f"eval inception: non-finite metrics {ev}")
+    if [f.shape for f in flows] != [(320, 448, 2)] * 2 or not all(
+            np.isfinite(f).all() for f in flows):
+        raise AssertionError(f"predict inception wrote "
+                             f"{[f.shape for f in flows]}")
+    return row
+
+
+def cli_sintel_inception(work: str) -> dict:
+    """`train --preset sintel` (Inception-v3 at full width, T = 10,
+    224x480 crops of 256x512 frames, batch 4) for SINTEL_STEPS steps on
+    the Sintel tree of `cli_sintel` (written here if absent), the fit's
+    steps 2-4 under torch.profiler: the step, busy time and idle share,
+    finite losses and AEE at 436x1024, each warp kernel once a step (the
+    forward once more per eval forward); then both warp kernels at this
+    volume's shapes bit for bit against the plain versions
+    (`check_warp_volume` on Inception's flows)."""
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.data.datasets import SintelData
+
+    t0 = time.monotonic()
+    data_dir = os.path.join(work, "sintel")
+    if not os.path.isdir(data_dir):
+        write_sintel(data_dir)
+    preset = get_config("sintel")
+    batch = preset.data.batch_size
+    log_dir = os.path.join(work, "cli_sintel_inception")
+    ds = SintelData(dataclasses.replace(preset.data, data_path=data_dir))
+    reset_kernel_counts()
+    summary, window = run_windowed(
+        ["train", "--preset", "sintel", "--data-path", data_dir,
+         "--log-dir", log_dir, "--max-steps", str(SINTEL_STEPS)],
+        os.path.join(work, "cli_sintel_inception.log"), SINTEL_WINDOW)
+    launches = kernel_counts()
+    spe = ds.num_train // batch
+    ends = list(range(spe, SINTEL_STEPS + 1, spe))
+    records = check_run(log_dir, ends, ends, [SINTEL_STEPS])
+    evals = len(ends) * eval_calls(ds.num_val, preset.train.eval_batch_size)
+    volume = check_warp_volume(seed=42, model_name="inception_v3")
+    row = {"model": preset.model, "time_step": preset.data.time_step,
+           "crop": list(preset.data.crop_size), "batch": batch,
+           "steps": SINTEL_STEPS, **fit_row(summary, batch),
+           "profiled": window.row(batch),
+           "warp_fwd_launches": launches["warp_fwd"],
+           "warp_flow_grad_launches": launches["warp_flow_grad"],
+           "eval_forwards": evals,
+           "losses": [r["loss"] for r in records if r["kind"] == "train"],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"],
+           "warp_volume": {
+               "shape": [r["shape"] for r in volume["levels"]],
+               **{k: {q: volume[k][q] for q in (
+                   "bitwise_equal", "max_abs_err", "ms", "ms_runs",
+                   "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "call_ms")} for k in ("fwd", "flow_grad")}},
+           "seconds": time.monotonic() - t0}
+    emit("cli_sintel_inception", **row)
+    if launches != want_counts(warp_fwd=SINTEL_STEPS + evals,
+                               warp_flow_grad=SINTEL_STEPS):
+        raise AssertionError(f"cli_sintel_inception: launches {launches} in "
+                             f"{SINTEL_STEPS} steps and {evals} eval "
+                             "forwards")
+    if not np.isfinite(row["losses"] + [e["aee"] for e in row["evals"]]).all():
+        raise AssertionError(f"cli_sintel_inception: {row['losses']} "
+                             f"{row['evals']}")
+    return row
+
+
+def cli_bench(work: str) -> dict:
+    """`python -m deepof_tpu_torch bench` at its defaults (the JAX
+    headline: Inception-v3 at 320x448, batch 16, bf16 compute, 4 steps a
+    call) through `cli.main`: its one JSON line, each warp kernel once a
+    step it ran; then both warp kernels at the bench's six levels bit
+    for bit against the plain versions (`check_warp_levels`)."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    reset_kernel_counts()
+    line = run_cli(["bench"], os.path.join(work, "cli_bench.log"))
+    launches = kernel_counts()
+    levels = check_warp_levels(seed=43, levels=BENCH_LEVELS,
+                               kernel="warp_levels_bench")
+    row = {"line": line, "launches": launches,
+           "warp_levels": {k: {q: levels[k][q] for q in (
+               "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "call_ms")}
+               for k in ("fwd", "flow_grad")},
+           "seconds": time.monotonic() - t0}
+    emit("cli_bench", **row)
+    keys = ("pairs_per_sec", "pairs_per_sec_per_chip", "n_chips", "batch",
+            "steps_per_sec", "steps_per_call", "warp_impl", "matmul_tflops",
+            "dev_mem_bytes_in_use", "dev_mem_peak_bytes", "flops_per_step",
+            "model_tflops", "mfu_nominal")
+    missing = [k for k in keys if k not in line]
+    if missing or not np.isfinite(line["pairs_per_sec"]):
+        raise AssertionError(f"bench line lacks {missing}: {line}")
+    n = launches["warp_fwd"]
+    if (n == 0 or n % line["steps_per_call"]
+            or launches != want_counts(warp_fwd=n, warp_flow_grad=n)):
+        raise AssertionError(f"bench: launches {launches}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -4320,6 +4792,9 @@ def main() -> int:
         fleet_row = serve_fleet(work, os.path.join(work, "cli_train_job_k2"))
         autoscale_row = serve_autoscale(work, os.path.join(
             work, "cli_train_job_k2"))
+        inception_row = cli_train_inception(work)
+        sintel_inc_row = cli_sintel_inception(work)
+        bench_row = cli_bench(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -4328,6 +4803,19 @@ def main() -> int:
              "cli_resume": resume_row, "cli_flyingchairs": chairs_row}
     by_path = {key: {p: r[f"warp_{key}_launches"] for p, r in paths.items()}
                for key in ("fwd", "flow_grad")}
+    # this slice's paths: Inception-v3 from the command line (train, eval
+    # and predict at the flyingchairs preset, train at the sintel preset)
+    # and the bench verb; no correlation kernel runs on them
+    inception_paths = {
+        **{f"cli_{k}_inception": v
+           for k, v in inception_row["launches"].items()},
+        "cli_sintel_inception": {
+            "warp_fwd": sintel_inc_row["warp_fwd_launches"],
+            "warp_flow_grad": sintel_inc_row["warp_flow_grad_launches"]},
+        "cli_bench": bench_row["launches"]}
+    for p, k in inception_paths.items():
+        by_path["fwd"][p] = k["warp_fwd"]
+        by_path["flow_grad"][p] = k["warp_flow_grad"]
     by_path["fwd"]["cli_eval"] = eval_row["eval_warp_fwd_launches"]
     # and of the correlation kernels (with the warps on FlowNet-C/CS
     # training): the serving run, the FlowNet-C and FlowNet-CS training
@@ -4346,7 +4834,8 @@ def main() -> int:
     for key, counter in (("fwd", "warp_fwd"),
                          ("flow_grad", "warp_flow_grad")):
         by_path[key].update({p: c[counter] for p, c in corr_paths.items()})
-    corr_by_path = {c.name: {p: n[c.name] for p, n in corr_paths.items()}
+    corr_by_path = {c.name: {p: n.get(c.name, 0) for p, n in
+                             {**corr_paths, **inception_paths}.items()}
                     for c in corr_counters()}
     corr_by_path["corr"]["serve"] = corr_launches
     corr_by_path["corr"].update({f"serve_tiers_{t}": r["corr_launches"]
@@ -4484,6 +4973,20 @@ def main() -> int:
                     "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by",
                     "smooth_flow_ms")}},
+            "inception_shape": {
+                "shape": [list(s) for s in INCEPTION_LEVELS],
+                "launches": by_path[key]["cli_train_inception"],
+                "steps": INCEPTION_STEPS,
+                **inception_row["warp_levels"][key]},
+            "sintel_inception_shape": {
+                "launches": by_path[key]["cli_sintel_inception"],
+                "steps": SINTEL_STEPS,
+                **sintel_inc_row["warp_volume"][key],
+                "shape": sintel_inc_row["warp_volume"]["shape"]},
+            "bench_shape": {
+                "shape": [list(s) for s in BENCH_LEVELS],
+                "launches": by_path[key]["cli_bench"],
+                **bench_row["warp_levels"][key]},
             **({"serve_shape": {
                 "shape": serve_warp["shape"],
                 "launches": stream_row["warp_fwd_launches"],
@@ -4510,7 +5013,10 @@ def main() -> int:
                         "serve_http": http_row["seconds"],
                         "cli_serve": serve_cli_row["seconds"],
                         "serve_fleet": fleet_row["seconds"],
-                        "serve_autoscale": autoscale_row["seconds"]})
+                        "serve_autoscale": autoscale_row["seconds"],
+                        "cli_train_inception": inception_row["seconds"],
+                        "cli_sintel_inception": sintel_inc_row["seconds"],
+                        "cli_bench": bench_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),

@@ -1,5 +1,6 @@
 """Command-line entry point (port of the `train`, `eval`, `predict`,
-`serve` and `config` verbs of `deepof_tpu/cli.py`).
+`serve`, `config`, `bench` and `verify-ckpt` verbs of
+`deepof_tpu/cli.py`).
 
 Usage:
     python -m deepof_tpu_torch train --preset flyingchairs --model flownet_s \
@@ -19,6 +20,10 @@ Usage:
     python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
         --autoscale --min-replicas 1 --max-replicas 3
     python -m deepof_tpu_torch config --preset sintel
+    python -m deepof_tpu_torch train --preset flyingchairs --synthetic
+    python -m deepof_tpu_torch bench            # the headline train step
+    python -m deepof_tpu_torch bench --data-only --workers 4
+    python -m deepof_tpu_torch verify-ckpt /runs/fc1
 
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
 `--data-path`, `--log-dir`, `--set section.field=value` (any config
@@ -35,8 +40,12 @@ it, the HTTP server of `serve/server.py` on serve.host:serve.port),
 `max_sessions`), `--replicas N` (N > 1: the fleet of `serve/fleet.py`,
 N replica processes behind a router), `--autoscale` (the fleet sized by
 `serve/autoscale.py` between `--min-replicas` and `--max-replicas`;
-fleet mode even at one replica). `serve` restores the newest checkpoint
-of `--log-dir` (none under `--set serve.fake_exec_ms=...`); a fleet's
+fleet mode even at one replica). `bench` takes the JAX verb's flags
+(`--model`, `--batch`, `--steps`, `--data-only`, `--workers`,
+`--batches`, `--image-size`, `--dataset`, `--data-path`) and
+`--device`; `verify-ckpt DIR` prints the run's checkpoint report and
+exits 1 on a corrupt checkpoint, 2 when there is none. `serve`
+restores the newest checkpoint of `--log-dir` (none under `--set serve.fake_exec_ms=...`); a fleet's
 replica restores the newest one of `<log-dir>/replica-<i>`. A train run in a log dir
 that holds checkpoints resumes from the newest one; `train` latches a
 SIGTERM from its start, and a SIGTERM stops it after a clean final
@@ -45,11 +54,13 @@ it takes the place of JAX_PLATFORMS. Without a card, cuda raises:
 nothing falls back to the CPU. The JAX package's other flags raise,
 naming the ROADMAP item that ports them.
 
-`main` turns TF32 off (`torch.backends.cudnn.allow_tf32` and
-`torch.backends.cuda.matmul.allow_tf32`) before it builds anything, so
-float32 means float32 on the card, as in the JAX reference; library
-callers of `Trainer` and `InferenceEngine` keep PyTorch's switches as
-they set them.
+Float32 means float32, as the JAX reference computes: the package's
+entry points turn TF32 off (`core.device.disable_tf32`:
+`torch.backends.cudnn.allow_tf32` and
+`torch.backends.cuda.matmul.allow_tf32`). `main` does so before it
+builds anything, `Trainer` for a float32 config and `InferenceEngine`
+for every config (its bf16 tier computes in float32 too), so a library
+caller gets the command line's numbers. Nothing turns TF32 back on.
 """
 
 from __future__ import annotations
@@ -247,13 +258,47 @@ def main(argv=None) -> int:
     p_cfg = sub.add_parser("config", help="print the resolved config")
     _add_common(p_cfg)
 
-    args = parser.parse_args(argv)
-    import torch
+    p_bench = sub.add_parser(
+        "bench", help="throughput benchmark: the headline train step, or "
+                      "with --data-only the host input pipeline alone")
+    p_bench.add_argument("--model", default="inception_v3")
+    p_bench.add_argument("--batch", type=int, default=16)
+    p_bench.add_argument("--steps", type=int, default=20)
+    p_bench.add_argument("--data-only", action="store_true",
+                         help="time the host input pipeline alone "
+                              "(batches/s, MB/s; no model, no device)")
+    p_bench.add_argument("--workers", type=int, default=0,
+                         help="data-only mode: pipeline worker threads")
+    p_bench.add_argument("--batches", type=int, default=32,
+                         help="data-only mode: batches to time")
+    p_bench.add_argument("--image-size", default="64x64", metavar="HxW",
+                         help="data-only mode: decoded image size")
+    p_bench.add_argument("--dataset", default="synthetic",
+                         help="data-only mode: synthetic, flyingchairs or "
+                              "sintel")
+    p_bench.add_argument("--data-path", default="",
+                         help="data-only mode: dataset root on disk")
+    p_bench.add_argument("--recipe", default=None, metavar="FILE",
+                         help="not ported (ROADMAP Queue A item 9.5)")
+    p_bench.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                         help="train mode: where the step runs (default "
+                              "cuda, which raises without a card)")
 
-    # float32 means float32: cuDNN and cuBLAS would otherwise compute
-    # float32 convolutions and matmuls in TF32 on the card
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    p_vck = sub.add_parser(
+        "verify-ckpt",
+        help="check every checkpoint of a run against its manifest "
+             "(nonzero exit on corruption)")
+    p_vck.add_argument("dir",
+                       help="a run's --log-dir or its ckpt/ subdirectory")
+
+    args = parser.parse_args(argv)
+    from .core.device import disable_tf32
+
+    disable_tf32()
+    if args.cmd == "verify-ckpt":
+        return _verify_ckpt(args.dir)
+    if args.cmd == "bench":
+        return _bench(args)
     raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
                      if getattr(args, flag[2:].replace("-", "_"), None)])
     cfg = _build_cfg(args)
@@ -313,6 +358,43 @@ def main(argv=None) -> int:
     else:  # eval
         out = trainer.evaluate(dump=args.dump_visuals)
     print(json.dumps({k: float(v) for k, v in out.items()}))
+    return 0
+
+
+def _verify_ckpt(path: str) -> int:
+    """The `verify-ckpt` verb: `verify_run`'s report as JSON; 1 when a
+    checkpoint is corrupt, 2 (with a note on stderr) when there is
+    none."""
+    import sys
+
+    from .resilience.verify import verify_run
+
+    report = verify_run(path)
+    print(json.dumps(report, indent=2))
+    if report["corrupt_steps"]:
+        return 1
+    if not report["checkpoints"]:
+        print(f"verify-ckpt: no checkpoints under {path!r}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _bench(args) -> int:
+    """The `bench` verb: one JSON line (`bench.py`)."""
+    from . import bench
+
+    if args.data_only or args.recipe:
+        res = bench.data_bench(num_workers=args.workers, batch=args.batch,
+                               batches=args.batches,
+                               image_size=bench.parse_image_size(
+                                   args.image_size),
+                               dataset=args.dataset,
+                               data_path=args.data_path,
+                               recipe_path=args.recipe or "")
+    else:
+        res = bench.bench(model_name=args.model, batch=args.batch,
+                          steps=args.steps, device=args.device)
+    print(json.dumps(res))
     return 0
 
 

@@ -614,7 +614,8 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, on every
     setting that the training path cannot honour yet."""
     todo = []
-    if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs"):
+    if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs",
+                         "inception_v3"):
         todo.append((f"model={cfg.model!r}", "9 (other backbones)"))
     if cfg.data.augment_geo or cfg.data.augment_photo:
         todo.append(("data.augment_geo/augment_photo", "9 (augmentation)"))
@@ -631,7 +632,7 @@ def check_trainable(cfg: ExperimentConfig) -> None:
             f"model {cfg.model!r} is a two-frame model (one 3-channel frame "
             f"a branch); data.time_step={cfg.data.time_step} gives a "
             f"{3 * cfg.data.time_step}-channel volume. Multi-frame volumes "
-            "train flownet_s")
+            "train flownet_s or inception_v3")
     if cfg.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown train.compute_dtype "
                          f"{cfg.train.compute_dtype!r}; one of "

@@ -6,7 +6,8 @@ Conventions, as in the JAX package:
     2 rows above and 3 below. `ConvELU` computes that pad per call, so a
     symmetric `padding=3` never shifts the output by a pixel;
   - encoder/decoder convs use ELU, except prediction (`pr*`) and
-    flow-upsampling (`up_pr*`) layers, which are linear;
+    flow-upsampling (`up_pr*`) layers, which are linear (the Inception
+    base's convs use ReLU: `inception_v3_flow.py`);
   - conv weights init glorot-uniform, zero biases; feature deconvs init to
     bilinear upsampling with an identity channel map;
   - `dtype` (`train.compute_dtype`): each conv and deconv casts its
@@ -56,7 +57,7 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
 
 class ConvELU(nn.Module):
     """Conv with SAME padding (flax's asymmetric rule) + optional ELU, in
-    `dtype`."""
+    `dtype`. A subclass changes the activation through `activation`."""
 
     def __init__(self, cin: int, features: int,
                  kernel: tuple[int, int] = (3, 3), stride: int = 1,
@@ -79,14 +80,21 @@ class ConvELU(nn.Module):
             x = F.conv2d(x, weight, bias, s, (ph[0], pw[0]))
         else:
             x = F.conv2d(F.pad(x, (*pw, *ph)), weight, bias, s)
-        return F.elu(x) if self.act else x
+        return self.activation(x) if self.act else x
+
+    @staticmethod
+    def activation(x: torch.Tensor) -> torch.Tensor:
+        return F.elu(x)
 
 
 class Deconv(nn.Module):
-    """Transposed conv, kernel (2*scale, 2*scale), stride=scale, output
-    exactly scale x the input; initialised to bilinear upsampling; in
-    `dtype`. Flax's ConvTranspose kernel is the spatially flipped torch
-    weight (see `convert.py`)."""
+    """Transposed conv, kernel (2*scale, 2*scale), stride=scale;
+    initialised to bilinear upsampling; in `dtype`. Flax's ConvTranspose
+    kernel is the spatially flipped torch weight (see `convert.py`). At
+    an even scale the output is exactly scale x the input, as flax's
+    SAME. At scale 1 (k = 2, stride 1, no padding) it is one row and one
+    column longer: flax's SAME pads that kernel (1, 0), so its output is
+    this one's first H x W, and `FlowDecoder` crops it there."""
 
     def __init__(self, cin: int, features: int, scale: int = 2,
                  act: bool = True, dtype: torch.dtype = torch.float32):
@@ -109,27 +117,33 @@ class FlowDecoder(nn.Module):
     at each level k:
         pr_k = 3x3 linear conv -> flow_channels
         feat = concat(skip_{k-1}, Deconv(feat), Deconv_linear(pr_k))
-    Returns flows coarsest-first.
+    `scales` are the deconvs' scales a transition (default 2; the
+    Inception head passes 1 between its two same-size taps). Returns
+    flows coarsest-first.
     """
 
     def __init__(self, in_channels: Sequence[int],
                  upconv_features: Sequence[int], flow_channels: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 scales: Sequence[int] | None = None):
         super().__init__()
         n = len(in_channels)
-        if len(upconv_features) != n - 1:
+        scales = tuple(scales or (2,) * (n - 1))
+        if len(upconv_features) != n - 1 or len(scales) != n - 1:
             raise ValueError(f"{n} feature levels need {n - 1} upconv "
-                             f"widths, got {len(upconv_features)}")
+                             f"widths and scales, got "
+                             f"{len(upconv_features)} and {len(scales)}")
         self.n = n
         feat = in_channels[0]
         for k in range(n - 1):
             setattr(self, f"pr{n - k}", ConvELU(feat, flow_channels,
                                                 act=False, dtype=dtype))
             setattr(self, f"upconv{n - k - 1}",
-                    Deconv(feat, upconv_features[k], dtype=dtype))
-            setattr(self, f"up_pr{n - k}to{n - k - 1}",
-                    Deconv(flow_channels, flow_channels, act=False,
+                    Deconv(feat, upconv_features[k], scales[k],
                            dtype=dtype))
+            setattr(self, f"up_pr{n - k}to{n - k - 1}",
+                    Deconv(flow_channels, flow_channels, scales[k],
+                           act=False, dtype=dtype))
             feat = in_channels[k + 1] + upconv_features[k] + flow_channels
         self.pr1 = ConvELU(feat, flow_channels, act=False, dtype=dtype)
 
@@ -143,7 +157,8 @@ class FlowDecoder(nn.Module):
             flows.append(pr)
             up_feat = getattr(self, f"upconv{n - k - 1}")(feat)
             up_pr = getattr(self, f"up_pr{n - k}to{n - k - 1}")(pr)
-            # odd skip sizes: stride-2 deconvs overshoot by one; crop
+            # odd skip sizes: stride-2 deconvs overshoot by one, and a
+            # scale-1 deconv always does; crop
             skip = feats_coarse_first[k + 1]
             sh, sw = skip.shape[-2:]
             feat = torch.cat([skip, up_feat[..., :sh, :sw],

@@ -1,8 +1,8 @@
 """Model registry (port of `deepof_tpu/models/registry.py`).
 
-Ported so far: flownet_s, flownet_c and flownet_cs. The other names of
-the JAX registry raise NotImplementedError naming the ROADMAP queue that
-ports them.
+Ported so far: flownet_s, flownet_c, flownet_cs and inception_v3. The
+other names of the JAX registry raise NotImplementedError naming the
+ROADMAP queue that ports them.
 """
 
 from __future__ import annotations
@@ -17,17 +17,18 @@ from .common import init_weights
 from .flownet2 import FlowNetCS
 from .flownet_c import FlowNetC
 from .flownet_s import FlowNetS
+from .inception_v3_flow import InceptionV3Flow
 
 MODELS = {
     "flownet_s": FlowNetS,
     "flownet_c": FlowNetC,
     "flownet_cs": FlowNetCS,
+    "inception_v3": InceptionV3Flow,
 }
 
 #: JAX registry names not ported yet -> where ROADMAP.md plans them.
 NOT_PORTED = {
     "vgg16": "ROADMAP Queue A item 9 (other backbones)",
-    "inception_v3": "ROADMAP Queue A item 9 (other backbones)",
     "st_single": "ROADMAP Queue A item 9 (other backbones)",
     "st_baseline": "ROADMAP Queue A item 9 (other backbones)",
     "ucf101_spatial": "ROADMAP Queue A item 9 (other backbones)",

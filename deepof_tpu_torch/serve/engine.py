@@ -53,7 +53,10 @@ Design decisions kept from the JAX engine:
     the server and their tests run without a model.
 
 The models run under `torch.inference_mode()` on the engine's device
-(CUDA unless the caller passes another). Spans `serve_enqueue`,
+(CUDA unless the caller passes another). Every tier computes in float32
+(the bf16 tier upcasts its weights), so the engine turns TF32 off
+(`core.device.disable_tf32`) whatever the config, as the command line
+does. Spans `serve_enqueue`,
 `serve_batch`, `serve_dispatch` and `serve_postprocess` (and
 `session_prime` / `session_step` / `session_warm`) go to the installed
 tracer (`obs/trace.py`). The brownout controller that sets the level
@@ -77,7 +80,7 @@ from torch import nn
 
 from .. import native
 from ..core.config import ExperimentConfig, check_servable
-from ..core.device import resolve_device
+from ..core.device import disable_tf32, resolve_device
 from ..data.datasets import DATASET_MEANS, _imread_bgr
 from ..obs import trace as obs_trace
 from ..obs.export import (LatencyHistogram, percentile_ms, slo_state,
@@ -268,6 +271,7 @@ class InferenceEngine:
                  forward_fn: Callable | None = None):
         check_servable(cfg)
         self.device = resolve_device(device)
+        disable_tf32()
         self.cfg = cfg
         self.max_batch = max(int(cfg.serve.max_batch), 1)
         self.timeout_s = max(float(cfg.serve.batch_timeout_ms), 0.0) / 1e3

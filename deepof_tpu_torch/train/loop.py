@@ -66,7 +66,9 @@ the time the host waits differs. Not ported (ROADMAP): the recipe
 engine, elastic training, multi-host meshes, and the ledger and
 incident recorder.
 
-The Trainer leaves the global TF32 switches of PyTorch as it finds them.
+A float32 Trainer turns TF32 off (`core.device.disable_tf32`), so its
+convolutions compute in float32 on the card as the command line's do; a
+bf16 one leaves PyTorch's switches as it finds them.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ import numpy as np
 import torch
 
 from ..core.config import ExperimentConfig, check_trainable
-from ..core.device import resolve_device
+from ..core.device import disable_tf32, resolve_device
 from ..data.datasets import build_dataset
 from ..data.pipeline import InputPipeline, derive_batch_rng
 from ..data.prefetch import Prefetcher
@@ -197,6 +199,8 @@ class Trainer:
                  profile_steps: tuple[int, int] | None = None):
         check_trainable(cfg)
         self.device = resolve_device(device)
+        if cfg.train.compute_dtype == "float32":
+            disable_tf32()
         self.cfg = cfg
         self.dataset = (dataset if dataset is not None
                         else build_dataset(cfg.data))

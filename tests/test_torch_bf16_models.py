@@ -46,7 +46,10 @@ CASES = {
     "flownet_c": ({"width_mult": 0.125, "corr_max_disp": 4,
                    "corr_stride": 1}, (2, 64, 96)),
     "flownet_cs": ({"corr_max_disp": 4, "corr_stride": 1}, (1, 64, 64)),
+    "inception_v3": ({"width_mult": 0.125}, (2, 64, 96)),
 }
+#: the models with a cost volume
+CORR_MODELS = ("flownet_c", "flownet_cs")
 
 
 def _random_params(shapes, seed=0):
@@ -104,7 +107,7 @@ def test_bf16_pyramid_matches_jax(name, monkeypatch):
     blocks = sum(isinstance(m, (ConvELU, Deconv)) for m in model.modules())
     assert len(seen) >= blocks
     assert {dt for _, dt in seen} == {torch.bfloat16}, seen
-    assert (("cost volume", torch.bfloat16) in seen) == (name != "flownet_s")
+    assert (("cost volume", torch.bfloat16) in seen) == (name in CORR_MODELS)
     assert len(got) == len(want) == 6
     for level, (g, wl) in enumerate(zip(got, want)):
         assert g.dtype == torch.bfloat16 and wl.dtype == jnp.bfloat16

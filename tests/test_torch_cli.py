@@ -204,5 +204,6 @@ def test_the_command_line_computes_float32_in_float32(capsys):
 
 def test_unported_model_raises_naming_its_item(tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["train", "--synthetic", "--device", "cpu",
-                  "--log-dir", str(tmp_path)])  # the preset's inception_v3
+        cli.main(["train", "--preset", "flyingchairs_vgg", "--synthetic",
+                  "--device", "cpu",
+                  "--log-dir", str(tmp_path)])  # the preset's vgg16

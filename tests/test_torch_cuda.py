@@ -12,7 +12,9 @@ it runs on a machine that has only PyTorch:
 
 Add `-k corr`, `-k corr_bwd`, `-k bf16` or `-k warp` for one kernel's
 cases, `-k "warm or int8"` for the serving cases, `-k "pinned_ring or
-device_side_skip"` for the metric fetch and the skip on the card.
+device_side_skip"` for the metric fetch and the skip on the card,
+`-k "inception or tf32"` for Inception-v3's train step and the float32
+rule (F17).
 """
 
 import time
@@ -352,8 +354,12 @@ def _levels(cuda, shapes, c, layout, mag, seed):
 # (W = 1, 3, 70, 129; H = 1), eight levels, C = 1 and 5, and flows that
 # saturate at the border
 MAIN_LEVELS = [(4, 192 >> k, 256 >> k) for k in range(6)]
+# Inception-v3's at the flyingchairs preset's 320x448: finest at H/2, two
+# levels of one size
+INCEPTION_LEVELS = [(4, 160 >> k, 224 >> k) for k in (0, 1, 2, 2, 3, 4)]
 LEVEL_CASES = [
     (MAIN_LEVELS, 3, "nhwc", 5.0), (MAIN_LEVELS, 3, "nchw", 5.0),
+    (INCEPTION_LEVELS, 3, "nhwc", 5.0),
     ([(2, 1, 1), (2, 1, 3), (2, 5, 70), (2, 1, 129)], 3, "nhwc", 3.0),
     ([(3, 13, 70), (3, 7, 35), (3, 4, 17)], 5, "nhwc", 3.0),
     ([(2, 9, 300 - 37 * k) for k in range(8)], 1, "nchw", 3.0),
@@ -777,3 +783,106 @@ def test_the_device_side_skip_leaves_the_state_as_it_was(cuda):
     for a, b in zip(after, before):
         assert torch.equal(a, b)
     assert (state.step, state.updates, state.mini_step) == (1, 0, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_inception_step_launches_each_warp_kernel_once(cuda, deterministic,
+                                                      dtype, monkeypatch):
+    """A thin Inception-v3 (width 0.25) forward and backward on the card
+    with the flyingchairs preset's loss: each warp kernel once for its six
+    levels, and the loss and gradients equal to the same step with the
+    kernels' plain versions swapped in (the forward
+    `backward_warp_reference`, the flow gradient
+    `warp_flow_grad_reference`)."""
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.data.datasets import DATASET_MEANS
+    from deepof_tpu_torch.losses import pyramid
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           warp_flow_grad_reference)
+    from deepof_tpu_torch.train.step import batch_to_device, model_losses
+
+    model = build_model("inception_v3", width_mult=0.25, seed=5,
+                        device=cuda, dtype=getattr(torch, dtype))
+    batch = batch_to_device(_train_pairs(1, (128, 160))[0], cuda)
+    loss_cfg = get_config("flyingchairs").loss
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        total, aux = model_losses(model, batch,
+                                  DATASET_MEANS["flyingchairs"], loss_cfg,
+                                  compute_dtype=getattr(torch, dtype))
+        total.backward()
+        return total.item(), [p.grad.clone() for p in model.parameters()], aux
+
+    before = (cw.fwd_launches.count, cw.grad_launches.count)
+    loss, grads, aux = run()
+    assert (cw.fwd_launches.count, cw.grad_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    assert [tuple(d["total"].shape) for d in aux["losses"]] == [()] * 6
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, image, flow):
+            ctx.save_for_backward(image, flow)
+            return backward_warp_reference(image, flow)
+
+        @staticmethod
+        def backward(ctx, g):
+            image, flow = ctx.saved_tensors
+            return None, warp_flow_grad_reference(image, flow, g)
+
+    # NHWC memory, as the kernel writes its output in its input's layout:
+    # the loss's reductions then sum in the same order
+    monkeypatch.setattr(pyramid, "backward_warp_levels", lambda im, fl, impl:
+                        [Plain.apply(i.permute(0, 3, 1, 2),
+                                     f.permute(0, 3, 1, 2))
+                         .permute(0, 2, 3, 1).contiguous()
+                         for i, f in zip(im, fl)])
+    plain_loss, plain_grads, _ = run()
+    assert (cw.fwd_launches.count, cw.grad_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    assert loss == plain_loss
+    for g, w in zip(grads, plain_grads):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_an_engine_computes_float32_whatever_the_tf32_switches(cuda):
+    """F17: an InferenceEngine built with both TF32 switches on turns them
+    off, and its flow is the same model's forward computed in float32:
+    within 1e-5 of its largest entry (cuDNN may choose another float32
+    algorithm: 4.6e-5 relative, 1.4e-6 absolute measured on the H100),
+    and at least 10x closer than the forward with cuDNN's TF32 on."""
+    from deepof_tpu_torch.core.config import DataConfig, ExperimentConfig
+    from deepof_tpu_torch.serve.engine import (InferenceEngine,
+                                               build_serve_model,
+                                               make_raw_forward)
+
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    cfg = ExperimentConfig(model="inception_v3", width_mult=0.25,
+                           data=DataConfig(image_size=(128, 160)))
+    x = np.random.RandomState(3).rand(1, 128, 160, 6).astype(np.float32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with InferenceEngine(cfg, device=cuda) as eng:
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == (False, False)
+            got = eng._forward(((128, 160), "f32", "cold"),
+                               np.repeat(x, eng.max_batch, 0))[:1]
+        fwd = make_raw_forward(build_serve_model(cfg, cuda).eval())
+        want = fwd(np.repeat(x, eng.max_batch, 0))[:1]
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = fwd(np.repeat(x, eng.max_batch, 0))[:1]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+    assert np.isfinite(got).all()
+    gap = np.abs(got - want).max()
+    assert gap <= 1e-5 * np.abs(want).max()
+    assert np.abs(tf32 - want).max() > 10 * gap

@@ -1,5 +1,6 @@
-"""The PyTorch port's FlowNet-S and FlowNet-C against the flax models,
-through the weight converter, and FlowNet-CS's parameter count.
+"""The PyTorch port's FlowNet-S, FlowNet-C and Inception-v3 against the
+flax models, through the weight converter, and FlowNet-CS's parameter
+count.
 
 Every flax parameter is replaced with RandomState normals first: the
 bilinear deconv init is symmetric and would hide a missing kernel flip.
@@ -19,7 +20,8 @@ from deepof_tpu_torch.convert import load_flax_params, state_dict_from_flax
 from deepof_tpu_torch.models.common import bilinear_upsample_kernel
 from deepof_tpu_torch.models.registry import build_model
 
-SMALL = {"flownet_s": {}, "flownet_c": {"corr_max_disp": 4, "corr_stride": 1}}
+SMALL = {"flownet_s": {}, "flownet_c": {"corr_max_disp": 4, "corr_stride": 1},
+         "inception_v3": {}}
 
 
 def _random_params(params, rs):
@@ -39,9 +41,12 @@ def test_pyramid_matches_flax(name):
     rs = np.random.RandomState(0)
     x = rs.randn(2, 64, 128, 6).astype(np.float32)
     jm = jax_build_model(name, width_mult=0.25, **SMALL[name])
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]))["params"]
+    # the tree's shapes only: every value is drawn below
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x[:1]))["params"]
     params = _random_params(params, rs)
-    want = jm.apply({"params": params}, jnp.asarray(x))
+    want = jax.jit(lambda p, v: jm.apply({"params": p}, v))(
+        params, jnp.asarray(x))
 
     model = build_model(name, width_mult=0.25, device="cpu", **SMALL[name])
     load_flax_params(model, params)

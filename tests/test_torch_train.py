@@ -286,7 +286,7 @@ def test_trainer_fits_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"model": "vgg16"}, {"loss": LossConfig(gather_dtype="bfloat16")},
-    {"model": "inception_v3"},
+    {"model": "st_single"},
     {"loss": LossConfig(photometric="census")},
     {"data": DataConfig(augment_geo=True)}])
 def test_unported_settings_raise(kw):

@@ -23,11 +23,16 @@ from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
                                        warp_flow_grad_reference)
 
 # (B, H, W) level sets, finest first: the training loss at 384x512,
-# batch 4; ragged widths and one-row levels; eight levels, the most one
+# batch 4; Inception-v3's at 320x448, batch 4 (finest at H/2, two equal
+# levels) and on the Sintel preset's volume (36 folded pairs of 224x480
+# crops); ragged widths and one-row levels; eight levels, the most one
 # launch takes
 MAIN_PATH = [(4, 192 >> k, 256 >> k) for k in range(6)]
+INCEPTION = [(4, 160 >> k, 224 >> k) for k in (0, 1, 2, 2, 3, 4)]
+INCEPTION_VOLUME = [(36, 112, 240), (36, 56, 120), (36, 28, 60),
+                    (36, 28, 60), (36, 14, 30), (36, 7, 15)]
 PLAN_CASES = [
-    MAIN_PATH,
+    MAIN_PATH, INCEPTION, INCEPTION_VOLUME,
     [(2, 1, 1), (2, 1, 3), (2, 5, 70), (2, 1, 129)],
     [(3, 13, 70), (3, 7, 35), (3, 4, 17), (3, 2, 9), (3, 1, 4)],
     [(1, 9, 300 - 37 * k) for k in range(8)],
