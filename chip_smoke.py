@@ -102,6 +102,16 @@ read after it):
     `cli_bench` (`python -m deepof_tpu_torch bench` at its defaults, the
     JAX headline: batch 16, bf16, 4 steps a call; and the warps at the
     bench's shapes bit for bit).
+  - the paper's VGG16 flow model at full width (18.92 M parameters):
+    `cli_train_vgg` (`train --preset flyingchairs_vgg` on a FlyingChairs
+    tree at 320x448, batch 8, f32, with geometric and photometric
+    augmentation on the card, depthwise smoothness and the trunk from a
+    random npz of the public `vgg16_weights.npz`'s names and shapes; the
+    fit's step, busy time, idle share, TFLOP/s and peak memory; `eval`
+    and `predict`; a short run with `loss.occlusion`; the augmentation's
+    warp, the warps at VGG's five levels and the occlusion warp (C = 2)
+    bit for bit against the plain versions; one step with the kernels
+    against the plain warps).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -118,6 +128,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; from deepof_tpu_torch.core.config import ExperimentConfig; cs.serve_http(ExperimentConfig(model='flownet_c'))"
     python3 -c "import os, tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = os.path.join(w, 'run'); cs.run_cli(['train', *cs.SERVE_RUN, '--steps', '2', '--log-dir', r], os.path.join(w, 't.log')); cs.serve_fleet(w, r); cs.serve_autoscale(w, r)"
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_inception(w); cs.cli_sintel_inception(w); cs.cli_bench(w)"
+    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_vgg(w)"
 """
 
 from __future__ import annotations
@@ -1460,13 +1471,13 @@ def plain_warp_loss_and_grads(model, batch, mean, loss_cfg,
             return None, warp_flow_grad_reference(image, flow, g)
 
     def plain_warp_levels(images, flows, impl="auto"):
-        if flow_grad == "autograd":
-            return [backward_warp_reference(i.permute(0, 3, 1, 2),
-                                            f.permute(0, 3, 1, 2))
-                    .permute(0, 2, 3, 1) for i, f in zip(images, flows)]
-        # NHWC memory, as the kernel writes its output in its input's
-        # layout: the loss's reductions then sum in the same order
-        return [PlainWarp.apply(i.permute(0, 3, 1, 2), f.permute(0, 3, 1, 2))
+        # NHWC memory in both variants: the loss's reductions then sum in
+        # the same order, so the two plain steps' forwards and losses are
+        # the same bits (the kernel writes its output in its input's
+        # layout); only the flow gradient's route differs
+        warp = (backward_warp_reference if flow_grad == "autograd"
+                else PlainWarp.apply)
+        return [warp(i.permute(0, 3, 1, 2), f.permute(0, 3, 1, 2))
                 .permute(0, 2, 3, 1).contiguous()
                 for i, f in zip(images, flows)]
 
@@ -1539,8 +1550,9 @@ def train(cfg):
 
     trainer = Trainer(cfg, device="cuda")
     steps_in_sequence(trainer, 1)  # cuDNN algorithm choice, allocator
-    cw.fwd_launches.reset()
-    cw.grad_launches.reset()
+    for c in (cw.fwd_launches, cw.grad_launches, cw.augment_launches,
+              cw.occlusion_launches):
+        c.reset()
     steps = steps_in_sequence(trainer, TRAIN_STEPS)
     launches = (cw.fwd_launches.count, cw.grad_launches.count)
     levels = len(steps[0]["scale_total"])
@@ -2578,11 +2590,14 @@ def corr_counters() -> list:
 
 def kernel_counts() -> dict[str, int]:
     """The launch counts of the correlation kernels (forward and the two
-    backward kernels, float32 and bf16) and of the two warp kernels."""
+    backward kernels, float32 and bf16) and of the two warp kernels (the
+    forward's by call site: the loss, the augmentation, the occlusion
+    mask)."""
     from deepof_tpu_torch.ops.cuda import warp as cw
 
     return {c.name: c.count for c in (
-        *corr_counters(), cw.fwd_launches, cw.grad_launches)}
+        *corr_counters(), cw.fwd_launches, cw.grad_launches,
+        cw.augment_launches, cw.occlusion_launches)}
 
 
 def want_counts(**counts) -> dict[str, int]:
@@ -3651,8 +3666,9 @@ def warp_counts() -> tuple[int, int]:
 def reset_warp_counts() -> None:
     from deepof_tpu_torch.ops.cuda import warp as cw
 
-    cw.fwd_launches.reset()
-    cw.grad_launches.reset()
+    for c in (cw.fwd_launches, cw.grad_launches, cw.augment_launches,
+              cw.occlusion_launches):
+        c.reset()
 
 
 def fit_row(summary: dict, batch: int) -> dict:
@@ -3945,10 +3961,11 @@ SINTEL_CLIPS = {"alley_1": 14, "bamboo_2": 20, "market_2": 14}
 SINTEL_HW = (436, 1024)
 
 
-def write_chairs(root: str, seed: int = 0) -> None:
-    """CHAIRS_PAIRS FlyingChairs pairs in the dataset's layout: 384x512
-    binary PPM frames (the second a shifted copy of a smooth first) and
-    their .flo flows, with a split file marking the last CHAIRS_VAL val."""
+def write_chairs(root: str, seed: int = 0, pairs: int = CHAIRS_PAIRS,
+                 val: int = CHAIRS_VAL) -> None:
+    """`pairs` FlyingChairs pairs in the dataset's layout: 384x512 binary
+    PPM frames (the second a shifted copy of a smooth first) and their
+    .flo flows, with a split file marking the last `val` val."""
     import numpy as np
 
     from deepof_tpu_torch.io.flo import write_flo
@@ -3957,7 +3974,7 @@ def write_chairs(root: str, seed: int = 0) -> None:
     os.makedirs(root, exist_ok=True)
     rs = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:384, 0:512].astype(np.float32)
-    for i in range(1, CHAIRS_PAIRS + 1):
+    for i in range(1, pairs + 1):
         sid = os.path.join(root, f"{i:05d}")
         fy, fx, ph = rs.rand(3) * [0.05, 0.05, 6.28]
         img = 127 + 100 * np.sin(fy * yy + fx * xx + ph)[..., None] * \
@@ -3969,8 +3986,7 @@ def write_chairs(root: str, seed: int = 0) -> None:
         write_flo(sid + "_flow.flo", np.broadcast_to(
             np.asarray([u, v], np.float32), (384, 512, 2)))
     with open(os.path.join(root, "FlyingChairs_train_val.txt"), "w") as f:
-        f.write("\n".join(["1"] * (CHAIRS_PAIRS - CHAIRS_VAL)
-                          + ["2"] * CHAIRS_VAL) + "\n")
+        f.write("\n".join(["1"] * (pairs - val) + ["2"] * val) + "\n")
 
 
 def write_sintel(root: str, clips=SINTEL_CLIPS, hw=SINTEL_HW,
@@ -4681,6 +4697,386 @@ def cli_bench(work: str) -> dict:
     return row
 
 
+# (B, C, H, W) of the five loss levels of VGG16Flow at the
+# flyingchairs_vgg preset's 320x448, batch 8: finest at H/2
+VGG_LEVELS = [(8, 3, 160 >> k, 224 >> k) for k in range(5)]
+# the augmentation's resample: source and target frames (2 levels of
+# batch 8, raw 0-255, NHWC memory) under one flow, one launch
+AUGMENT_SHAPE = (8, 3, 320, 448)
+# `train --preset flyingchairs_vgg` on a FlyingChairs tree of VGG_PAIRS
+# pairs (VGG_VAL val): 7 steps an epoch at batch 8, so VGG_STEPS steps
+# stay in the first epoch; a train record every 2 steps, an eval (the
+# VGG_VAL val pairs, one forward) and a checkpoint at the last step; the
+# steps of the fit under torch.profiler (StepWindow) are 3-5
+VGG_PAIRS, VGG_VAL = 60, 4
+VGG_STEPS = 6
+VGG_WINDOW = (2, 5)
+VGG_OCC_STEPS = 2
+CLI_VGG = ["--preset", "flyingchairs_vgg",
+           "--set", "train.log_every=2",
+           "--set", f"train.eval_every={VGG_STEPS}",
+           "--set", f"train.ckpt_every_steps={VGG_STEPS}"]
+
+
+def write_vgg16_npz(path: str, seed: int = 0) -> dict:
+    """A random npz with the public `vgg16_weights.npz`'s names and
+    shapes: conv{b}_{i}_W (3, 3, in, out) and _b for the 13 convs, and
+    the fc layers (fc6_W (25088, 4096), fc7_W, fc8_W, their biases;
+    zeros), which the loader skips. Returns the convs' arrays."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    arrays, cin = {}, 3
+    for b, (feat, n) in enumerate(((64, 2), (128, 2), (256, 3), (512, 3),
+                                   (512, 3)), start=1):
+        for i in range(1, n + 1):
+            arrays[f"conv{b}_{i}_W"] = (rs.randn(3, 3, cin, feat)
+                                        * np.sqrt(2.0 / (9 * cin))
+                                        ).astype(np.float32)
+            arrays[f"conv{b}_{i}_b"] = (rs.randn(feat) * 0.01).astype(
+                np.float32)
+            cin = feat
+    fc = {"fc6_W": (25088, 4096), "fc6_b": (4096,), "fc7_W": (4096, 4096),
+          "fc7_b": (4096,), "fc8_W": (4096, 1000), "fc8_b": (1000,)}
+    np.savez(path, **arrays,
+             **{k: np.zeros(v, np.float32) for k, v in fc.items()})
+    return arrays
+
+
+def warp_fwd_row(kernel, images, flows, bound, lib_images=None):
+    """A forward-only set of levels (NCHW views) through one launch of the
+    forward kernel (`site`-free: the caller's counters are reset around
+    the path, not here): each level bit for bit its plain version; the
+    launch's device time (WARP_ROUNDS readings of WARP_ITERS calls), in
+    turns with one grid_sample call a level; the plain version's time;
+    one call on the host clock; and `bound` = (ms, "bytes" or
+    "operations")."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepof_tpu_torch.ops.cuda.warp import warp_fwd_levels_cuda
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    outs = warp_fwd_levels_cuda(images, flows)
+    levels = []
+    for img, fl, out in zip(images, flows, outs):
+        want = backward_warp_reference(img, fl)
+        levels.append({"shape": list(img.shape),
+                       "bitwise_equal": bool(torch.equal(out, want)),
+                       "max_abs_err": (out - want).abs().max().item(),
+                       "flow_abs_max": fl.abs().max().item()})
+    grids = [grid_sample_grid(fl)[0].detach() for fl in flows]
+
+    def fwd():
+        return warp_fwd_levels_cuda(images, flows)
+
+    def plain():
+        return [backward_warp_reference(i, f) for i, f in zip(images, flows)]
+
+    def library():
+        return [F.grid_sample(i, gr, mode="bilinear", padding_mode="border",
+                              align_corners=True)
+                for i, gr in zip(images, grids)]
+
+    runs = {"fwd": [], "library": []}
+    for _ in range(WARP_ROUNDS):
+        runs["fwd"].append(device_ms(fwd, WARP_ITERS))
+        runs["library"].append(device_ms(library, WARP_ITERS))
+    row = {"levels": levels,
+           "bitwise_equal": all(r["bitwise_equal"] for r in levels),
+           "max_abs_err": max(r["max_abs_err"] for r in levels),
+           "ms": statistics.median(runs["fwd"]), "ms_runs": runs["fwd"],
+           "library_ms": statistics.median(runs["library"]),
+           "library_ms_runs": runs["library"],
+           "plain_ms": device_ms(plain), "call_ms": time_ms(fwd),
+           "bound_ms": bound[0], "bound_by": bound[1],
+           "library": f"{len(images)} F.grid_sample(bilinear, border, "
+                      "align_corners=True) calls",
+           "plain": "backward_warp_reference level by level"}
+    emit("kernels", kernel=kernel, **row)
+    if not row["bitwise_equal"]:
+        raise AssertionError(f"{kernel}: the forward warp launch disagrees "
+                             f"with the plain version: {levels}")
+    return row
+
+
+def check_warp_augment(seed=50):
+    """The augmentation's resample at the flyingchairs_vgg preset's shape:
+    source and target (AUGMENT_SHAPE, raw 0-255 NHWC memory as the
+    prefetcher stages them) as two levels of one launch under the flow of
+    parameters drawn by `sample_geo_params` on the card, with sample 0's
+    scale set to the range's 2.0, sample 1 flipped and sample 2 at the
+    full 17 degrees: flows of hundreds of pixels, much of them clipped at
+    the border. Bit for bit the plain version (`warp_fwd_row`); the bound
+    counts the shared flow once. Also `apply_geo` itself, once, against
+    the plain version."""
+    import math as _math
+
+    import torch
+
+    from deepof_tpu_torch.data import augmentation as aug
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    b, c, h, w = AUGMENT_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = [torch.rand((b, h, w, c), device="cuda", generator=g) * 255
+              for _ in range(2)]
+    params = aug.sample_geo_params(aug.generator(seed, 0, "cuda"), b)
+    params["scale"][0] = aug.SCALE_RANGE[1]
+    params["flip"][1] = True
+    params["angle"][2] = _math.radians(aug.ROTATION_DEG)
+    flow = aug.geo_flow(params, h, w).permute(0, 3, 1, 2)
+    px = b * h * w
+    nbytes = 4.0 * px * (2 * 2 * c + 2)  # 2 images + 2 outputs, 1 flow
+    flops = 2.0 * px * (6 + 11 * c)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    bound = (1e3 * max(t_ops, t_bytes),
+             "operations" if t_ops >= t_bytes else "bytes")
+    row = warp_fwd_row("warp_augment", [f.permute(0, 3, 1, 2)
+                                        for f in frames], [flow, flow],
+                       bound)
+    got = aug.apply_geo(frames, params)
+    same = all(torch.equal(o.permute(0, 3, 1, 2), backward_warp_reference(
+        f.permute(0, 3, 1, 2), flow)) for o, f in zip(got, frames))
+    row.update(params={k: v.tolist() for k, v in params.items()},
+               apply_geo_bitwise_equal=same,
+               clipped_share=float(
+                   ((flow[:, 0] + torch.arange(w, device="cuda") < 0)
+                    | (flow[:, 0] + torch.arange(w, device="cuda") > w - 1)
+                    | (flow[:, 1] + torch.arange(h, device="cuda")[:, None]
+                       < 0)
+                    | (flow[:, 1] + torch.arange(h, device="cuda")[:, None]
+                       > h - 1)).float().mean()))
+    if not same:
+        raise AssertionError("apply_geo on the card disagrees with the "
+                             "plain warp")
+    return row
+
+
+def check_warp_occlusion(mag=5.0, seed=51):
+    """The occlusion mask's warp at VGG's five levels (VGG_LEVELS, batch
+    8): the backward flows (C = 2, the generic `kC = 0` instance of
+    `csrc/warp.cu`) warped by the forward flows, both NHWC memory as the
+    loss holds them, one launch; bit for bit the plain version
+    (`warp_fwd_row`)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images, flows, shapes = [], [], []
+    for b, _, h, w in VGG_LEVELS:
+        images.append((torch.randn((b, h, w, 2), device="cuda", generator=g)
+                       * mag).permute(0, 3, 1, 2))
+        flows.append((torch.randn((b, h, w, 2), device="cuda", generator=g)
+                      * mag).permute(0, 3, 1, 2))
+        shapes.append((b, 2, h, w))
+    return warp_fwd_row("warp_occlusion", images, flows,
+                        warp_bound_ms(shapes, grad=False))
+
+
+def vgg_trainer(work: str):
+    """A full-width VGG16Flow Trainer on the card with the
+    flyingchairs_vgg preset's loss and geometry (320x448, batch 8) on
+    synthetic data."""
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.train.loop import Trainer
+
+    preset = get_config("flyingchairs_vgg")
+    cfg = preset.replace(
+        data=dataclasses.replace(preset.data, dataset="synthetic",
+                                 gt_size=preset.data.image_size),
+        train=dataclasses.replace(preset.train,
+                                  log_dir=os.path.join(work, "vgg_step")))
+    return Trainer(cfg, device="cuda")
+
+
+def vgg_step_vs_plain(work: str) -> dict:
+    """A full-width VGG16Flow training step on an augmented batch (the
+    port's augmentation on the card, from the loop's seed draw) with the
+    warp kernels against the same step with the kernels' plain versions,
+    after one warm-up step: loss equal, each gradient within
+    TRAIN_GRAD_RTOL of its largest entry (`plain_warp_comparison`)."""
+    import numpy as np
+
+    from deepof_tpu_torch.data.augmentation import augment_batch
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    trainer = vgg_trainer(work)
+    first = steps_in_sequence(trainer, 1)[0]
+    host = next(draw_batches(trainer, 1))[0]
+    batch = augment_batch(batch_to_device(host, trainer.device),
+                          np.random.RandomState(0).randint(0, 2 ** 31))
+    row = {"params": sum(p.numel() for p in trainer.model.parameters()),
+           "first_step_loss": first["total"],
+           "batch_keys": sorted(batch),
+           **plain_warp_comparison(trainer, batch)}
+    for pair in ("kernel_vs_plain_warp", "plain_repeat",
+                 "autograd_flow_grad_vs_plain"):
+        gap = row[pair]
+        if not (gap["loss_rel"] == 0
+                and gap["grad_max_rel"] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(
+                f"vgg16 train step, {pair}: {gap} (limits: loss equal, "
+                f"each gradient {TRAIN_GRAD_RTOL} of its largest entry)")
+    return row
+
+
+def cli_train_vgg(work: str) -> dict:
+    """The paper's VGG16 flow model from the command line at full width:
+    `train --preset flyingchairs_vgg` on a FlyingChairs tree of VGG_PAIRS
+    pairs (320x448, batch 8, f32; geometric and photometric augmentation
+    on the card; depthwise smoothness; the trunk from a random npz of the
+    public file's names and shapes) for VGG_STEPS steps, the fit's steps
+    3-5 under torch.profiler; then `eval` and `predict` of that run, and
+    a VGG_OCC_STEPS-step run with `loss.occlusion=true`. Checked: the
+    trunk in the step-0 checkpoint equals the npz (conv1_1 tiled twice),
+    each path's launches counted from 0 (in `train` the loss forward once
+    a step and once an eval forward, the flow gradient once a step, the
+    augmentation once a staged batch: one a step, and at most
+    data.prefetch + 1 staged ahead; `eval` the forward once an eval
+    forward; `predict` none; the occlusion run's occlusion warp once a
+    step), finite losses and AEE. Then the augmentation's warp, the
+    warps at VGG's five levels and the occlusion warp bit for bit against
+    the plain versions, and one step with the kernels against the plain
+    warps (`vgg_step_vs_plain`)."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.io.flo import read_flo
+    from deepof_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.monotonic()
+    data_dir = os.path.join(work, "chairs_vgg")
+    write_chairs(data_dir, seed=7, pairs=VGG_PAIRS, val=VGG_VAL)
+    npz = os.path.join(work, "vgg16_weights.npz")
+    trunk = write_vgg16_npz(npz)
+    log_dir = os.path.join(work, "cli_train_vgg")
+    argv = [*CLI_VGG, "--data-path", data_dir]
+    setup_s = time.monotonic() - t0
+    reset_kernel_counts()
+    summary, window = run_windowed(
+        ["train", *argv, "--set", f"train.vgg16_npz={npz}",
+         "--steps", str(VGG_STEPS), "--log-dir", log_dir],
+        os.path.join(work, "cli_train_vgg.log"), VGG_WINDOW)
+    train = kernel_counts()
+    records = check_run(log_dir, list(range(2, VGG_STEPS + 1, 2)),
+                        [VGG_STEPS], [VGG_STEPS])
+    init = CheckpointManager(os.path.join(log_dir, "ckpt"),
+                             create=False)._load(0, "cpu")["model"]
+    trunk_equal = {}
+    for k in trunk:
+        if not k.endswith("_W"):
+            continue
+        name = k[:-2]
+        w = torch.from_numpy(trunk[k].transpose(3, 2, 0, 1))
+        if name == "conv1_1":
+            w = torch.cat([w, w], dim=1)
+        trunk_equal[name] = bool(
+            torch.equal(init[f"encoder.{name}.conv.weight"], w)
+            and torch.equal(init[f"encoder.{name}.conv.bias"],
+                            torch.from_numpy(trunk[name + "_b"])))
+    init_logged = any("VGG16 trunk init from" in r.get("message", "")
+                      for r in records if r["kind"] == "info")
+    evals = eval_calls(VGG_VAL, 8)
+    reset_kernel_counts()
+    ev = run_cli(["eval", *argv, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval_vgg.log"))
+    evaluate = kernel_counts()
+    rs = np.random.RandomState(5)
+    pairs = []
+    for i in range(2):
+        paths = [os.path.join(work, f"vgg_pair{i}_{k}.npy") for k in "ab"]
+        for p in paths:
+            np.save(p, rs.randint(0, 256, (384, 512, 3), np.uint8))
+        pairs.append(paths)
+    reset_kernel_counts()
+    out = run_cli(["predict", *argv, "--log-dir", log_dir, "--out",
+                   os.path.join(work, "flows_vgg"), "--pairs",
+                   *(":".join(p) for p in pairs)],
+                  os.path.join(work, "cli_predict_vgg.log"))
+    predict = kernel_counts()
+    flows = [read_flo(p) for p in out["written"] if p.endswith(".flo")]
+    occ_dir = os.path.join(work, "cli_train_vgg_occlusion")
+    reset_kernel_counts()
+    occ_summary = run_cli(["train", *argv, "--set", "loss.occlusion=true",
+                           "--steps", str(VGG_OCC_STEPS), "--log-dir",
+                           occ_dir],
+                          os.path.join(work, "cli_train_vgg_occ.log"))
+    occlusion = kernel_counts()
+    occ_records = read_records(occ_dir)
+    augment = check_warp_augment()
+    levels = check_warp_levels(seed=52, levels=VGG_LEVELS,
+                               kernel="warp_levels_vgg")
+    occ = check_warp_occlusion()
+    vs_plain = vgg_step_vs_plain(work)
+    train_records = [r for r in records if r["kind"] == "train"]
+    row = {"model": "vgg16", "steps": VGG_STEPS, "image_size": [320, 448],
+           "batch": 8, "pairs": VGG_PAIRS, "setup_s": setup_s,
+           **fit_row(summary, 8), "profiled": window.row(8),
+           "augment_ms_median": summary.get("phase_augment_ms_median"),
+           "flops_per_step": [r.get("flops_per_step") for r in records
+                              if r["kind"] == "info"
+                              and "flops_per_step" in r],
+           "model_tflops": [r.get("model_tflops") for r in train_records],
+           "dev_mem_peak_bytes": max(r.get("dev_mem_peak_bytes") or 0
+                                     for r in train_records),
+           "trunk_init_equal": trunk_equal, "trunk_init_logged": init_logged,
+           "launches": {"train": train, "eval": evaluate,
+                        "predict": predict, "train_occlusion": occlusion},
+           "eval_forwards": evals,
+           "losses": [r["loss"] for r in train_records],
+           "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
+                     for r in records if r["kind"] == "eval"],
+           "eval_cli": {k: ev[k] for k in ("aee", "aae", "val_loss")},
+           "predicted": [list(f.shape) for f in flows],
+           "occlusion_losses": [r["loss"] for r in occ_records
+                                if r["kind"] == "train"],
+           "occlusion_step_ms_median": occ_summary["step_ms_median"],
+           "warp_augment": {q: augment[q] for q in (
+               "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "call_ms",
+               "apply_geo_bitwise_equal", "clipped_share")},
+           "warp_levels": {k: {q: levels[k][q] for q in (
+               "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "call_ms")}
+               for k in ("fwd", "flow_grad")},
+           "warp_occlusion": {q: occ[q] for q in (
+               "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "call_ms")},
+           "vs_plain": vs_plain, "seconds": time.monotonic() - t0}
+    emit("cli_train_vgg", **row)
+    n_aug = train["warp_fwd_augment"]
+    prefetch = 2  # the preset's data.prefetch
+    want = want_counts(warp_fwd=VGG_STEPS + evals,
+                       warp_flow_grad=VGG_STEPS, warp_fwd_augment=n_aug)
+    if train != want or not VGG_STEPS <= n_aug <= VGG_STEPS + prefetch + 1:
+        raise AssertionError(f"cli train vgg: launches {train}; want {want} "
+                             f"with {VGG_STEPS}-{VGG_STEPS + prefetch + 1} "
+                             "augmentation launches")
+    if evaluate != want_counts(warp_fwd=evals) or predict != want_counts():
+        raise AssertionError(f"cli eval/predict vgg: launches {evaluate} / "
+                             f"{predict}")
+    n_occ_aug = occlusion["warp_fwd_augment"]
+    if occlusion != want_counts(
+            warp_fwd=VGG_OCC_STEPS, warp_flow_grad=VGG_OCC_STEPS,
+            warp_fwd_occlusion=VGG_OCC_STEPS, warp_fwd_augment=n_occ_aug):
+        raise AssertionError(f"cli train vgg occlusion: launches "
+                             f"{occlusion}")
+    if not (all(trunk_equal.values()) and len(trunk_equal) == 13
+            and init_logged):
+        raise AssertionError(f"vgg16_npz init: {trunk_equal}, logged "
+                             f"{init_logged}")
+    if not all(np.isfinite(ev[k]) for k in ("aee", "aae", "val_loss")):
+        raise AssertionError(f"eval vgg: non-finite metrics {ev}")
+    if not np.isfinite(row["occlusion_losses"]).all() or len(
+            row["occlusion_losses"]) != 1:
+        raise AssertionError(f"occlusion run: {row['occlusion_losses']}")
+    if [f.shape for f in flows] != [(384, 512, 2)] * 2 or not all(
+            np.isfinite(f).all() for f in flows):
+        raise AssertionError(f"predict vgg wrote "
+                             f"{[f.shape for f in flows]}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -4795,6 +5191,7 @@ def main() -> int:
         inception_row = cli_train_inception(work)
         sintel_inc_row = cli_sintel_inception(work)
         bench_row = cli_bench(work)
+        vgg_row = cli_train_vgg(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -4813,6 +5210,10 @@ def main() -> int:
             "warp_fwd": sintel_inc_row["warp_fwd_launches"],
             "warp_flow_grad": sintel_inc_row["warp_flow_grad_launches"]},
         "cli_bench": bench_row["launches"]}
+    # the VGG16 paths: VGG16Flow's train, eval and predict at the
+    # flyingchairs_vgg preset, and its train under loss.occlusion
+    inception_paths.update({f"cli_{k}_vgg": v
+                            for k, v in vgg_row["launches"].items()})
     for p, k in inception_paths.items():
         by_path["fwd"][p] = k["warp_fwd"]
         by_path["flow_grad"][p] = k["warp_flow_grad"]
@@ -4987,6 +5388,12 @@ def main() -> int:
                 "shape": [list(s) for s in BENCH_LEVELS],
                 "launches": by_path[key]["cli_bench"],
                 **bench_row["warp_levels"][key]},
+            "vgg_shape": {
+                "shape": [list(s) for s in VGG_LEVELS],
+                "launches": by_path[key]["cli_train_vgg"],
+                "steps": VGG_STEPS,
+                "launches_eval": by_path[key]["cli_eval_vgg"],
+                **vgg_row["warp_levels"][key]},
             **({"serve_shape": {
                 "shape": serve_warp["shape"],
                 "launches": stream_row["warp_fwd_launches"],
@@ -5007,6 +5414,23 @@ def main() -> int:
 
     replaces = {"warp_fwd": "deepof_tpu/ops/pallas/warp.py:85",
                 "warp_flow_grad": "deepof_tpu/ops/pallas/warp.py:111"}
+
+    def site_entry(name, row_key, launches, path, shape, note):
+        # the forward kernel at a data site (augmentation, occlusion),
+        # its launches on that site's own counter
+        # (ops/cuda/warp.py::SITE_COUNTERS)
+        one = vgg_row[row_key]
+        return {"name": name, "route": "cuda", "kernel": "warp_fwd",
+                "source": "deepof_tpu_torch/csrc/warp.cu",
+                "replaces": replaces["warp_fwd"],
+                "launches": launches, "path": path,
+                "shape": shape, "note": note,
+                **{k: one[k] for k in (
+                    "max_abs_err", "bitwise_equal", "ms", "ms_runs",
+                    "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "library": f"{len(shape)} F.grid_sample(bilinear, border, "
+                           "align_corners=True) calls"}
     emit("total", seconds=time.monotonic() - START,
          phase_seconds={"cli_train_job": job_row["seconds"],
                         "cli_preempt_faults": preempt_row["seconds"],
@@ -5016,11 +5440,27 @@ def main() -> int:
                         "serve_autoscale": autoscale_row["seconds"],
                         "cli_train_inception": inception_row["seconds"],
                         "cli_sintel_inception": sintel_inc_row["seconds"],
-                        "cli_bench": bench_row["seconds"]})
+                        "cli_bench": bench_row["seconds"],
+                        "cli_train_vgg": vgg_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),
-        warp_entry("warp_flow_grad", "flow_grad")]}), flush=True)
+        warp_entry("warp_flow_grad", "flow_grad"),
+        site_entry("warp_fwd_augment", "warp_augment",
+                   vgg_row["launches"]["train"]["warp_fwd_augment"],
+                   "cli_train_vgg", [list(AUGMENT_SHAPE)] * 2,
+                   "the augmentation's resample of the source and target "
+                   "frames, one launch a staged batch; flows of the "
+                   "preset's sampled parameters (scale 2.0, flip, 17 "
+                   "degrees included)"),
+        site_entry("warp_fwd_occlusion", "warp_occlusion",
+                   vgg_row["launches"]["train_occlusion"][
+                       "warp_fwd_occlusion"],
+                   "cli_train_vgg (--set loss.occlusion=true)",
+                   [[b, 2, h, w] for b, _, h, w in VGG_LEVELS],
+                   "the occlusion mask's warp of the backward flows (C = "
+                   "2, the generic instance) by the forward ones, VGG's "
+                   "five levels in one launch")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -10,8 +10,8 @@ ledger, incident and quality observability, and the artifact store's
 garbage collection: none of them changes a result. Settings
 that change what the training path computes are carried, and where this
 package cannot honour a value yet, `check_trainable` raises on it,
-naming the ROADMAP item that ports it (`train.vgg16_npz` and `recipe`
-among them).
+naming the ROADMAP item that ports it (`recipe` and
+`loss.gather_dtype="bfloat16"` among them).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class LossConfig:
     lambda_smooth: float = 1.0
     # per-scale loss weights, finest (pr1) first
     weights: tuple[float, ...] = (16.0, 8.0, 4.0, 2.0, 1.0, 1.0)
-    smoothness: str = "canonical"  # canonical | depthwise (not ported)
+    smoothness: str = "canonical"  # canonical | depthwise
     smoothness_order: int = 1  # 1: first differences, 2: second
     edge_aware: bool = False
     edge_aware_photo: bool = False
@@ -47,7 +47,7 @@ class LossConfig:
     # CUDA tensor (or raises) and the plain version for a CPU tensor.
     warp_impl: str = "auto"
     gather_dtype: str = "float32"  # float32 | bfloat16 (bfloat16 not ported, F11)
-    photometric: str = "charbonnier"  # charbonnier | census (not ported)
+    photometric: str = "charbonnier"  # charbonnier | census
     census_window: int = 7
     occlusion: bool = False
     occ_alpha: float = 0.01
@@ -86,7 +86,8 @@ class DataConfig:
     # ("1" = train, "2" = val). Requires time_step=2; None keeps the
     # window-membership split.
     sintel_pair_split_file: str | None = None
-    # host-side augmentation streams (not ported)
+    # dual-stream augmentation on the device (data/augmentation.py): the
+    # geometric pair feeds the loss, the photometric one the network
     augment_geo: bool = False
     augment_photo: bool = False
     crop_size: tuple[int, int] | None = None
@@ -127,7 +128,8 @@ class TrainConfig:
     # another run's log_dir: on a fresh start, copy its parameters of
     # matching name and shape
     init_from: str = ""
-    vgg16_npz: str = ""  # VGG16 trunk init (not ported)
+    # the public vgg16_weights.npz: VGG16 trunk init on a fresh start
+    vgg16_npz: str = ""
     # float32 | bfloat16: the model's convs, deconvs and cost volume
     # compute in it; parameters, gradients, Adam and checkpoints stay f32
     compute_dtype: str = "float32"
@@ -584,24 +586,18 @@ def check_servable(cfg: ExperimentConfig) -> None:
 
 
 def check_loss(cfg: LossConfig) -> None:
-    """Raise on loss settings this package does not honour yet."""
-    todo = []
+    """Raise on loss settings this package does not honour yet: of the
+    JAX package's loss, only `gather_dtype="bfloat16"`."""
+    if cfg.gather_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown loss.gather_dtype {cfg.gather_dtype!r}; "
+                         "use 'float32' or 'bfloat16'")
     if cfg.gather_dtype != "float32":
         # a loss option, not a kernel: the warp kernels take float32
-        # only, in the JAX package too; its routes round differently
-        # (ROADMAP F11)
-        todo.append((f"loss.gather_dtype={cfg.gather_dtype!r}",
-                     "9 (loss variants)"))
-    if cfg.photometric != "charbonnier":
-        todo.append((f"loss.photometric={cfg.photometric!r}",
-                     "9 (loss variants)"))
-    if cfg.smoothness != "canonical":
-        todo.append((f"loss.smoothness={cfg.smoothness!r}",
-                     "9 (loss variants)"))
-    for name in ("edge_aware", "edge_aware_photo", "occlusion"):
-        if getattr(cfg, name):
-            todo.append((f"loss.{name}=True", "9 (loss variants)"))
-    raise_unported(todo)
+        # only, in the JAX package too; its two routes round differently
+        # and the port must choose between them (ROADMAP F11)
+        raise_unported([(f"loss.gather_dtype={cfg.gather_dtype!r} "
+                         "(F11, the remainder of item 9.3)",
+                         "9 (loss variants)")])
     if cfg.warp_impl not in WARP_IMPLS:
         raise ValueError(f"unknown loss.warp_impl {cfg.warp_impl!r}; "
                          f"one of {WARP_IMPLS}")
@@ -615,14 +611,11 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     setting that the training path cannot honour yet."""
     todo = []
     if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs",
-                         "inception_v3"):
-        todo.append((f"model={cfg.model!r}", "9 (other backbones)"))
-    if cfg.data.augment_geo or cfg.data.augment_photo:
-        todo.append(("data.augment_geo/augment_photo", "9 (augmentation)"))
-    if cfg.train.vgg16_npz:
-        todo.append(("train.vgg16_npz", "9 (other backbones)"))
+                         "inception_v3", "vgg16"):
+        todo.append((f"model={cfg.model!r}",
+                     "9.4 (UCF-101 two-stream models)"))
     if cfg.recipe != RecipeConfig():
-        todo.append(("recipe", "9 (recipes)"))
+        todo.append(("recipe", "9.5 (recipes)"))
     raise_unported(todo)
     if cfg.data.time_step != 2 and cfg.model in ("flownet_c", "flownet_cs"):
         # the JAX package breaks there too: FlowNetC's siamese conv1 is

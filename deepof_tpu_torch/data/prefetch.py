@@ -17,7 +17,10 @@ On a CUDA device each batch is staged in PyTorch's terms of what
      stream, and an event is recorded behind the copies.
 Steps 1-2 are the `put` phase (`phase_cb("put", seconds)`, a ``put``
 span of `obs/trace.py`); the copy itself runs on while the producer
-draws the next batch. `get()` makes
+draws the next batch. A `transform` (the train loop's augmentation,
+`data/augmentation.py`) then runs on the staged tensors on the same side
+stream, in the producer thread, before the event is recorded: the
+`augment` phase and span. `get()` makes
 the caller's current stream wait on the batch's event and calls
 `record_stream` on each device tensor, so the caching allocator does not
 hand its memory to another tensor while the step that reads it is still
@@ -25,7 +28,7 @@ queued. Other entries stay host arrays.
 
 On the CPU the `put` phase makes the entries the step reads float32
 tensors over the same memory (`torch.as_tensor`, no copy for float32
-arrays): no pinning, no stream.
+arrays): no pinning, no stream; the transform runs after it.
 """
 
 from __future__ import annotations
@@ -63,14 +66,18 @@ class Prefetcher:
     depth: staged batches held ahead of `get()`.
     device: where the batches go; a CUDA device stages the batch's
         `IMAGE_KEYS` on it.
-    phase_cb: optional (name, seconds) sink for the `put` phase time
-        (StepTimer.phase).
+    phase_cb: optional (name, seconds) sink for the `put` and `augment`
+        phase times (StepTimer.phase).
+    transform: optional (staged batch) -> batch, run in the producer
+        thread on the device tensors (on the side stream on a card).
     """
 
     def __init__(self, next_batch: Callable[[], dict], depth: int = 2,
                  device: str | torch.device = "cpu",
-                 phase_cb: Callable[[str, float], None] | None = None):
+                 phase_cb: Callable[[str, float], None] | None = None,
+                 transform: Callable[[dict], dict] | None = None):
         self._next = next_batch
+        self._transform = transform
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
         if self._cuda and self._device.index is None:
@@ -85,10 +92,10 @@ class Prefetcher:
         self._thread.start()
 
     # ------------------------------------------------------------ producer
-    def _stage(self, batch: dict, ring: list, stream) -> tuple[dict, object]:
+    def _stage(self, batch: dict, ring: list, stream) -> tuple[dict, dict]:
         """Copy the batch's IMAGE_KEYS to the device through pinned slot
-        ring[0] (then rotate the ring); returns (batch with device
-        tensors, the copies' event)."""
+        ring[0] (then rotate the ring) on `stream`; returns (batch with
+        device tensors, the slot, whose event the caller records)."""
         slot = ring[0]
         ring.append(ring.pop(0))
         if slot["event"] is not None:
@@ -106,10 +113,7 @@ class Prefetcher:
                     slot["bufs"][k] = buf
                 np.copyto(buf.numpy(), a)
                 out[k] = buf.to(self._device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        slot["event"] = event
-        return out, event
+        return out, slot
 
     def _run(self) -> None:
         try:
@@ -124,10 +128,29 @@ class Prefetcher:
                 item = self._next()
                 t0 = time.perf_counter()
                 with obs_trace.span("put"):
-                    item = (self._stage(item, ring, stream) if self._cuda
-                            else _as_tensors(item))
+                    if self._cuda:
+                        item, slot = self._stage(item, ring, stream)
+                    else:
+                        item = _as_tensors(item)
                 if self._phase_cb is not None:
                     self._phase_cb("put", time.perf_counter() - t0)
+                if self._transform is not None:
+                    t0 = time.perf_counter()
+                    with obs_trace.span("augment"):
+                        if self._cuda:
+                            with torch.cuda.stream(stream):
+                                item = self._transform(item)
+                        else:
+                            item = self._transform(item)
+                    if self._phase_cb is not None:
+                        self._phase_cb("augment", time.perf_counter() - t0)
+                if self._cuda:
+                    # behind the copies and the transform; the slot is
+                    # refilled only after it
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                    slot["event"] = event
+                    item = (item, event)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.1)

@@ -1,6 +1,6 @@
-"""Multi-scale pyramid loss (port of `deepof_tpu/losses/pyramid.py`,
-without the backward-flow pyramid of the occlusion option): the
-two-frame `pyramid_loss` and the T-frame volume `pyramid_loss_multi`.
+"""Multi-scale pyramid loss (port of `deepof_tpu/losses/pyramid.py`): the
+two-frame `pyramid_loss`, with the backward-flow pyramid of the
+occlusion option, and the T-frame volume `pyramid_loss_multi`.
 
   - preprocessing: BGR dataset-mean subtraction and /255 scaling, and the
     LRN copy used only inside the photometric loss;
@@ -9,6 +9,9 @@ two-frame `pyramid_loss` and the T-frame volume `pyramid_loss_multi`.
     one call (`backward_warp_levels`: one launch of each kernel on the
     card); for a volume, of every level's T-1 next frames, folded into
     the batch (`ops/warp.py::fold_pairs`), in that same one call;
+  - under `loss.occlusion`, the backward flows of every level warped by
+    the forward ones in one more launch of the forward kernel (C = 2,
+    no gradient: the mask ends in a comparison), for `occlusion_mask`;
   - per-level `loss_interp` and the weighted total, weights finest first.
 
 The resize is `jax.image.resize(..., "bilinear")`, whose default is
@@ -25,9 +28,10 @@ import torch.nn.functional as F
 
 from ..core.config import LossConfig, check_loss
 from ..ops.lrn import local_response_normalization
-from ..ops.warp import backward_warp_levels, fold_pairs, unfold_pairs
+from ..ops.warp import (backward_warp_levels, fold_pairs, unfold_pairs,
+                        warp_levels_forward)
 from .photometric import (LossDict, check_loss_multi, loss_interp,
-                          loss_interp_multi)
+                          loss_interp_multi, occlusion_mask)
 
 
 def preprocess(images: torch.Tensor, mean) -> torch.Tensor:
@@ -50,18 +54,43 @@ def _resize(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
+def occlusion_masks(scaled: list[torch.Tensor],
+                    flow_pyramid_bw: list[torch.Tensor],
+                    scales: list[float], cfg: LossConfig
+                    ) -> list[torch.Tensor]:
+    """The occlusion mask of every level (`occlusion_mask`): scaled
+    forward flows, raw backward flows and their scales; the backward
+    flows of all levels are warped in one launch."""
+    with torch.no_grad():
+        fw = [f.detach() for f in scaled]
+        bw = [f.detach() * s for f, s in zip(flow_pyramid_bw, scales)]
+        warped = warp_levels_forward(bw, fw, cfg.warp_impl,
+                                     site="occlusion")
+        return [occlusion_mask(f, b, cfg, bw_at_fw=w)
+                for f, b, w in zip(fw, bw, warped)]
+
+
 def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
                  inputs_norm: torch.Tensor, outputs_norm: torch.Tensor,
-                 cfg: LossConfig, smooth_border_mask: bool = False
+                 cfg: LossConfig, smooth_border_mask: bool = False,
+                 flow_pyramid_bw: list[torch.Tensor] | None = None
                  ) -> tuple[torch.Tensor, list[LossDict], torch.Tensor]:
     """flow_pyramid: [(flow_k (B, h, w, 2), flow_scale_k)] finest first.
+    flow_pyramid_bw: optional matching backward flows (raw head outputs
+    of the swapped pair, same scales), which turn on the per-level
+    occlusion masking of the photometric term.
 
     Returns (weighted total, per-level loss dicts finest first, finest
-    reconstruction). Raises on loss settings not ported yet."""
+    reconstruction). Raises on loss settings not ported yet and on the
+    JAX package's bad pairings."""
     check_loss(cfg)
     sizes = [flow.shape[1:3] for flow, _ in flow_pyramid]
     scaled = [flow * scale for flow, scale in flow_pyramid]
     targets = [_resize(outputs_norm, h, w) for h, w in sizes]
+    occ = [None] * len(sizes)
+    if flow_pyramid_bw is not None:
+        occ = occlusion_masks(scaled, flow_pyramid_bw,
+                              [s for _, s in flow_pyramid], cfg)
     # every level in one launch of each warp kernel
     recons = backward_warp_levels(targets, scaled, impl=cfg.warp_impl)
     losses: list[LossDict] = []
@@ -69,8 +98,8 @@ def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
     for k, (flow, scale) in enumerate(flow_pyramid):
         h, w = sizes[k]
         ld, _ = loss_interp(flow, _resize(inputs_norm, h, w), targets[k],
-                            scale, cfg, smooth_border_mask, scaled=scaled[k],
-                            recon=recons[k])
+                            scale, cfg, smooth_border_mask, occ_mask=occ[k],
+                            scaled=scaled[k], recon=recons[k])
         losses.append(ld)
         weight = cfg.weights[k] if k < len(cfg.weights) else cfg.weights[-1]
         total = total + weight * ld["total"]

@@ -242,3 +242,42 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             bilinear_kernel_init(m.deconv.weight)
             nn.init.zeros_(m.deconv.bias)
     return model
+
+
+def load_vgg16_npz(model: nn.Module, npz_path: str,
+                   trunk_path: Sequence[str] = ("encoder",),
+                   duplicate_input: bool = True) -> nn.Module:
+    """Initialise a VGG16 trunk of `model` in place from the public
+    `vgg16_weights.npz` (port of the JAX package's `load_vgg16_npz`):
+    the 13 convs `conv{b}_{i}` in order, `_W` in HWIO going to OIHW and
+    `_b` as it is, under the submodule `trunk_path` ("encoder" for
+    VGG16Flow); the fc layers are skipped. With `duplicate_input`, a
+    first conv that takes twice the file's input channels (the 6-channel
+    pair) gets the file's filters tiled twice along them. A shape that
+    does not match raises ValueError naming the layer. Nothing is
+    downloaded: the caller provides the file."""
+    data = np.load(npz_path)
+    sub = model
+    for p in trunk_path:
+        sub = getattr(sub, p)
+    names = [f"conv{b}_{i}" for b, n in zip(range(1, 6), (2, 2, 3, 3, 3))
+             for i in range(1, n + 1)]
+    for name in names:
+        w = np.asarray(data[f"{name}_W"], np.float32).transpose(3, 2, 0, 1)
+        bias = np.asarray(data[f"{name}_b"], np.float32)
+        layer = getattr(sub, name)
+        conv = getattr(layer, "conv", layer)  # a ConvELU or a bare Conv2d
+        if (name == "conv1_1" and duplicate_input
+                and conv.weight.shape[1] == 2 * w.shape[1]):
+            w = np.concatenate([w, w], axis=1)
+        if tuple(conv.weight.shape) != w.shape or \
+                tuple(conv.bias.shape) != bias.shape:
+            raise ValueError(
+                f"load_vgg16_npz: {name}: the model's weight "
+                f"{tuple(conv.weight.shape)} and bias "
+                f"{tuple(conv.bias.shape)} (OIHW) vs the file's "
+                f"{w.shape} and {bias.shape}")
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(w))
+            conv.bias.copy_(torch.from_numpy(bias))
+    return model

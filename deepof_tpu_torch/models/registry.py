@@ -1,8 +1,9 @@
 """Model registry (port of `deepof_tpu/models/registry.py`).
 
-Ported so far: flownet_s, flownet_c, flownet_cs and inception_v3. The
-other names of the JAX registry raise NotImplementedError naming the
-ROADMAP queue that ports them.
+Ported so far: flownet_s, flownet_c, flownet_cs, inception_v3 and
+vgg16. The other names of the JAX registry (the UCF-101 two-stream
+models) raise NotImplementedError naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -18,20 +19,21 @@ from .flownet2 import FlowNetCS
 from .flownet_c import FlowNetC
 from .flownet_s import FlowNetS
 from .inception_v3_flow import InceptionV3Flow
+from .vgg16_flow import VGG16Flow
 
 MODELS = {
     "flownet_s": FlowNetS,
     "flownet_c": FlowNetC,
     "flownet_cs": FlowNetCS,
     "inception_v3": InceptionV3Flow,
+    "vgg16": VGG16Flow,
 }
 
 #: JAX registry names not ported yet -> where ROADMAP.md plans them.
 NOT_PORTED = {
-    "vgg16": "ROADMAP Queue A item 9 (other backbones)",
-    "st_single": "ROADMAP Queue A item 9 (other backbones)",
-    "st_baseline": "ROADMAP Queue A item 9 (other backbones)",
-    "ucf101_spatial": "ROADMAP Queue A item 9 (other backbones)",
+    "st_single": "ROADMAP Queue A item 9.4 (UCF-101 two-stream models)",
+    "st_baseline": "ROADMAP Queue A item 9.4 (UCF-101 two-stream models)",
+    "ucf101_spatial": "ROADMAP Queue A item 9.4 (UCF-101 two-stream models)",
 }
 
 #: (config-surface name, model-field name, model-family default): knobs

@@ -43,6 +43,14 @@ TILE_W = THREADS_X * PIX
 
 fwd_launches = LaunchCounter("warp_fwd")
 grad_launches = LaunchCounter("warp_flow_grad")
+# the forward kernel's launches on data, by its caller
+# (ops/warp.py::warp_levels_forward): the augmentation's resample, and
+# the occlusion mask's warp of the backward flows (C = 2)
+augment_launches = LaunchCounter("warp_fwd_augment")
+occlusion_launches = LaunchCounter("warp_fwd_occlusion")
+#: the forward kernel's counter by call site
+SITE_COUNTERS = {"loss": fwd_launches, "augment": augment_launches,
+                 "occlusion": occlusion_launches}
 
 
 class _View(ctypes.Structure):
@@ -193,13 +201,15 @@ def _launch(what: str, fn: str, counter: LaunchCounter,
 
 
 def warp_fwd_levels_cuda(images: Sequence[torch.Tensor],
-                         flows: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+                         flows: Sequence[torch.Tensor],
+                         site: str = "loss") -> list[torch.Tensor]:
     """images [(B, C, H_k, W_k)], flows [(B, 2, H_k, W_k)], float32 on one
     CUDA device, any strides, 1 to 8 levels -> each image warped backward
-    by its flow, in the image's layout. One launch."""
+    by its flow, in the image's layout. One launch, counted on
+    `SITE_COUNTERS[site]`."""
     _check("warp_fwd_levels_cuda", images, flows)
     return _launch("warp forward kernel", "deepof_warp_fwd_levels_f32",
-                   fwd_launches, images, flows, None,
+                   SITE_COUNTERS[site], images, flows, None,
                    [torch.empty_like(i) for i in images])
 
 

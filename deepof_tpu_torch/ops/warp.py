@@ -19,7 +19,10 @@ flow-gradient kernel once (`ops/cuda/warp.py`), on strided views without
 a layout copy; on CPU tensors both run the plain versions,
 `backward_warp_reference` and `warp_flow_grad_reference`, level by level.
 `backward_warp_volume` folds the T-1 frame pairs of a volume into the
-batch, so a volume of any length is one level.
+batch, so a volume of any length is one level. `warp_levels_forward` is
+the forward alone, without autograd, for warps of data (the
+augmentation's resample, the occlusion mask's warp of the backward
+flows): one launch on a card, counted by call site.
 
 Neighbours are named as in the kernel source (`csrc/warp.cu`):
 Ia = (y0, x0), Ib = (y0, x1), Ic = (y1, x0), Id = (y1, x1).
@@ -211,6 +214,27 @@ def backward_warp_levels(images: list[torch.Tensor],
     outs = BackwardWarpLevels.apply(
         len(images), *(i.permute(0, 3, 1, 2) for i in images),
         *(f.permute(0, 3, 1, 2) for f in flows))
+    return [o.permute(0, 2, 3, 1) for o in outs]
+
+
+def warp_levels_forward(images: list[torch.Tensor],
+                        flows: list[torch.Tensor], impl: str = "auto",
+                        site: str = "loss") -> list[torch.Tensor]:
+    """`backward_warp_levels` without a gradient, for warps of data: the
+    augmentation's resample and the occlusion mask's warp of the
+    backward flow. On CUDA tensors one launch of the forward kernel for
+    all levels, counted on the launch counter of `site` ("loss",
+    "augment" or "occlusion": `ops/cuda/warp.py::SITE_COUNTERS`); on
+    CPU tensors the plain version level by level."""
+    _check_impl(impl)
+    imgs = [i.detach().permute(0, 3, 1, 2) for i in images]
+    flws = [f.detach().permute(0, 3, 1, 2) for f in flows]
+    if _on_cpu(imgs + flws):
+        outs = [backward_warp_reference(i, f) for i, f in zip(imgs, flws)]
+    else:
+        from .cuda.warp import warp_fwd_levels_cuda
+
+        outs = warp_fwd_levels_cuda(imgs, flws, site=site)
     return [o.permute(0, 2, 3, 1) for o in outs]
 
 

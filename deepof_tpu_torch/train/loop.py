@@ -3,8 +3,8 @@
 
 `Trainer(cfg)` builds the model, the dataset, the schedule and the Adam
 state, the metrics log and the checkpoint manager; it then starts from
-`train.init_from` (fresh starts only) or resumes from the newest
-checkpoint that verifies, and refuses to start from scratch when
+`train.vgg16_npz` and `train.init_from` (fresh starts only) or resumes
+from the newest checkpoint that verifies, and refuses to start from scratch when
 checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
 
   - batches come through the self-healing sampler, the input pipeline
@@ -12,6 +12,10 @@ checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
     `dataset.sample_train(batch_size, rng=derive_batch_rng([seed, s],
     i))`, the JAX loop's stream on one process, bit-identical for any
     `data.num_workers`, `data.prefetch` and `train.steps_per_call`;
+    under `data.augment_geo`/`augment_photo` its augmentation seed is
+    drawn next from the same rng, and the prefetch thread augments the
+    staged batch on the device (`data/augmentation.py`), so the
+    augmented stream is as bit-identical;
   - one call of the train step runs K = `train.steps_per_call` steps
     over K stacked micro-batches (call c draws micro-batches cK ..
     cK+K-1, a pure function of c). The cadences are tested once per
@@ -51,8 +55,8 @@ checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
     scheduled), ``fetch`` in the metrics fetch, and the checkpoint
     sites; its counters join the records and the summary as `fault_*`;
   - observability (`obs/`): spans `input_wait`, `dispatch`, `eval`,
-    `ckpt` and `rollback` on the main thread, `put` on the prefetch
-    thread, `assemble` on the pipeline workers and `fetch` on the fetcher
+    `ckpt` and `rollback` on the main thread, `put` and `augment` on
+    the prefetch thread, `assemble` on the pipeline workers and `fetch` on the fetcher
     (`obs.trace` -> `<log_dir>/trace.json`); `heartbeat.json` with the
     wedge watchdog (`obs.heartbeat`); device memory, RSS, and with
     `obs.flops` the model TFLOP/s and `mfu_nominal` in train records;
@@ -84,9 +88,11 @@ import torch
 
 from ..core.config import ExperimentConfig, check_trainable
 from ..core.device import disable_tf32, resolve_device
+from ..data.augmentation import SEED_KEY, make_augment_fn
 from ..data.datasets import build_dataset
 from ..data.pipeline import InputPipeline, derive_batch_rng
 from ..data.prefetch import Prefetcher
+from ..models.common import load_vgg16_npz
 from ..models.registry import build_model
 from ..obs import trace as obs_trace
 from ..obs.heartbeat import Heartbeat
@@ -110,6 +116,9 @@ from .step import compute_dtype, make_eval_fn, make_train_step
 # into a save-and-stop before its first step. A second signal restores
 # the default action and re-raises, so a wedged start stays killable.
 _EARLY_SIGTERM: dict = {"sig": None, "handler": None}
+
+#: models with a VGG16 trunk -> its submodule (`train.vgg16_npz`)
+VGG_TRUNKS = {"vgg16": ("encoder",)}
 
 # A prefetch.get() wait above this counts as a `starved` step (the card
 # had no staged batch); below it is queue hand-off noise.
@@ -237,6 +246,16 @@ class Trainer:
             config_digest=config_digest(dataclasses.asdict(cfg)),
             injector=self._inj)
 
+        # VGG16 trunk init from the public npz; fresh starts only: a
+        # checkpoint to resume from takes precedence
+        if (cfg.train.vgg16_npz and cfg.model in VGG_TRUNKS
+                and self.ckpt.latest_step() is None):
+            load_vgg16_npz(self.model, cfg.train.vgg16_npz,
+                           trunk_path=VGG_TRUNKS[cfg.model])
+            self.logger.log(
+                "info", 0,
+                message=f"VGG16 trunk init from {cfg.train.vgg16_npz}")
+
         # cross-config transfer init; fresh starts only
         if cfg.train.init_from and self.ckpt.latest_step() is None:
             src = CheckpointManager(
@@ -271,9 +290,19 @@ class Trainer:
         self.train_step = make_train_step(self.model, cfg,
                                           self.dataset.mean)
         self.eval_fn = make_eval_fn(cfg, self.dataset.mean)
+        # the augmentation of a staged batch (prefetch thread); None
+        # when neither family is on
+        self.augment = make_augment_fn(cfg.data.augment_geo,
+                                       cfg.data.augment_photo)
 
     def _next_train_batch(self, it: int, rng: np.random.RandomState) -> dict:
-        return self.dataset.sample_train(self.cfg.data.batch_size, rng=rng)
+        """The host batch of micro-step `it` from its own rng; with
+        augmentation, its seed is drawn next from that rng, where the
+        JAX loop draws it, and travels with the batch (`SEED_KEY`)."""
+        batch = self.dataset.sample_train(self.cfg.data.batch_size, rng=rng)
+        if self.augment is not None:
+            batch[SEED_KEY] = np.int64(rng.randint(0, 2 ** 31))
+        return batch
 
     def evaluate(self, dump: bool = False) -> dict[str, float]:
         """The AEE protocol; with `dump`, the first val batch's visuals
@@ -374,7 +403,8 @@ class Trainer:
                                  backoff_s=cfg.resilience.data_backoff_s)
         stack.callback(pipeline.close)  # its workers started already
         prefetch = Prefetcher(pipeline.get, depth=cfg.data.prefetch,
-                              device=self.device, phase_cb=timer.phase)
+                              device=self.device, phase_cb=timer.phase,
+                              transform=self.augment)
         # pipeline BEFORE prefetch: the prefetch thread may be blocked in
         # pipeline.get(), which only closing the pipeline releases
         # (closing it twice is harmless)

@@ -18,6 +18,11 @@ the model forward runs under `torch.utils.checkpoint` (non-reentrant),
 where the JAX step puts `jax.checkpoint`: the loss and its warps stay
 outside, and the forward runs again in backward (the correlation kernel
 twice a step).
+Under `loss.occlusion` the model runs a second time, on the swapped
+network pair, for the backward flows of the occlusion masks; that
+forward runs under `torch.no_grad()`, since the masks end in a
+comparison and pass no gradient (the JAX step differentiates through it
+and gets zeros).
 `make_eval_fn` builds `eval_fn(model, batch)`: the same objective
 without gradients, with the finest flow and reconstruction.
 
@@ -36,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ExperimentConfig, LossConfig, check_trainable
+from ..losses.photometric import check_loss_multi, check_loss_two_frame
 from ..losses.pyramid import (lrn_normalize, preprocess, pyramid_loss,
                               pyramid_loss_multi)
 from .state import TrainState, global_norm
@@ -94,9 +100,17 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
     pair = torch.cat([net_src, net_tgt], dim=-1).permute(0, 3, 1, 2)
     flows = [f.float().permute(0, 2, 3, 1)
              for f in fwd(pair.to(compute_dtype).contiguous())]
+    flows_bw = None
+    if loss_cfg.occlusion:
+        # the backward flows, for the occlusion masks only
+        swapped = torch.cat([net_tgt, net_src], dim=-1).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            flows_bw = [f.float().permute(0, 2, 3, 1) for f in model(
+                swapped.to(compute_dtype).contiguous())]
     total, losses, recon = pyramid_loss(
         list(zip(flows, model.flow_scales)), lrn_normalize(src),
-        lrn_normalize(tgt), loss_cfg, smooth_border_mask)
+        lrn_normalize(tgt), loss_cfg, smooth_border_mask,
+        flow_pyramid_bw=flows_bw)
     return total, {"losses": losses, "recon": recon,
                    "flow": flows[0] * model.flow_scales[0]}
 
@@ -122,6 +136,9 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     host when a record is due. The batch may hold numpy arrays or
     tensors; it moves to the model's device."""
     check_trainable(cfg)
+    # the loss's own ValueErrors on bad pairings, before the first step
+    (check_loss_multi if cfg.data.time_step > 2
+     else check_loss_two_frame)(cfg.loss)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg)
     skip = cfg.resilience.skip_nonfinite

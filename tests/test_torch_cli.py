@@ -171,10 +171,10 @@ def test_config_prints_a_dict_that_reads_back(capsys):
       "r.json"], "item 9"),
     (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2"],
      "item 10"),
+    # loss.occlusion and data.augment_photo run
     (["train", "--synthetic", "--model", "flownet_s", "--set",
-      "loss.occlusion=true"], "item 9"),
-    (["train", "--synthetic", "--model", "flownet_s", "--set",
-      "data.augment_photo=true"], "item 9"),
+      "loss.gather_dtype=bfloat16"], "item 9"),
+    (["train", "--synthetic", "--model", "st_baseline"], "item 9"),
     (["serve", "--artifacts", "/x"], "item 8"),
     (["serve", "--set", "serve.artifacts_dir=/x"], "item 8")])
 def test_jax_only_flags_raise(argv, item):
@@ -203,7 +203,8 @@ def test_the_command_line_computes_float32_in_float32(capsys):
 
 
 def test_unported_model_raises_naming_its_item(tmp_path):
+    # flyingchairs_vgg trains; ucf101's st_single not
     with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["train", "--preset", "flyingchairs_vgg", "--synthetic",
+        cli.main(["train", "--preset", "ucf101", "--synthetic",
                   "--device", "cpu",
-                  "--log-dir", str(tmp_path)])  # the preset's vgg16
+                  "--log-dir", str(tmp_path)])  # the preset's st_single

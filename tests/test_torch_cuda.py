@@ -14,7 +14,8 @@ Add `-k corr`, `-k corr_bwd`, `-k bf16` or `-k warp` for one kernel's
 cases, `-k "warm or int8"` for the serving cases, `-k "pinned_ring or
 device_side_skip"` for the metric fetch and the skip on the card,
 `-k "inception or tf32"` for Inception-v3's train step and the float32
-rule (F17).
+rule (F17), `-k "vgg or augmentation or occlusion"` for VGG16Flow's step,
+the augmentation's warp and the occlusion warp (C = 2).
 """
 
 import time
@@ -886,3 +887,137 @@ def test_an_engine_computes_float32_whatever_the_tf32_switches(cuda):
     gap = np.abs(got - want).max()
     assert gap <= 1e-5 * np.abs(want).max()
     assert np.abs(tf32 - want).max() > 10 * gap
+
+
+@pytest.mark.cuda
+def test_augmentation_warp_is_one_launch_and_bitwise(cuda):
+    """The augmentation's resample on the card: source and target in one
+    launch of the forward kernel, counted on the augmentation's counter,
+    each bit for bit the plain version under the flow of sampled
+    parameters (scale 2.0, a flip and the full 17 degrees among them);
+    and `augment_batch` a pure function of its seed on the card, one
+    augmentation launch for two stacked micro-batches."""
+    import math
+
+    from deepof_tpu_torch.data import augmentation as aug
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import backward_warp_reference
+
+    rs = np.random.RandomState(11)
+    frames = [torch.from_numpy(rs.rand(4, 40, 56, 3).astype(np.float32)
+                               * 255).to(cuda) for _ in range(2)]
+    params = aug.sample_geo_params(aug.generator(3, 0, cuda), 4)
+    params["scale"][0] = aug.SCALE_RANGE[1]
+    params["flip"][1] = True
+    params["angle"][2] = math.radians(aug.ROTATION_DEG)
+    before = (cw.fwd_launches.count, cw.augment_launches.count)
+    got = aug.apply_geo(frames, params)
+    assert (cw.fwd_launches.count, cw.augment_launches.count) == (
+        before[0], before[1] + 1)
+    flow = aug.geo_flow(params, 40, 56).permute(0, 3, 1, 2)
+    for o, f in zip(got, frames):
+        assert torch.equal(o.permute(0, 3, 1, 2), backward_warp_reference(
+            f.permute(0, 3, 1, 2), flow))
+    batch = {"source": torch.stack(frames), "target": torch.stack(frames[::-1])}
+    a = aug.augment_batch(batch, [5, 9])
+    b = aug.augment_batch(batch, [5, 9])
+    assert cw.augment_launches.count == before[1] + 3
+    for k in ("source", "target", "net_source", "net_target"):
+        assert a[k].shape == (2, 4, 40, 56, 3)
+        assert torch.equal(a[k], b[k])
+    one = aug.augment_batch({k: v[1] for k, v in batch.items()}, 9)
+    assert torch.equal(one["net_source"], a["net_source"][1])
+
+
+@pytest.mark.cuda
+def test_occlusion_warp_of_two_channels_is_one_launch_and_bitwise(cuda):
+    """The occlusion mask's warp at VGG's five levels: backward flows
+    (C = 2, the kernel's generic instance) warped by the forward flows,
+    both NHWC memory, in one launch on the occlusion counter; each level
+    bit for bit the plain version."""
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           warp_levels_forward)
+
+    rs = np.random.RandomState(12)
+    levels = [(2, 32 >> k, 48 >> k) for k in range(5)]
+    bw = [torch.from_numpy((rs.randn(b, h, w, 2) * 4).astype(np.float32))
+          .to(cuda) for b, h, w in levels]
+    fw = [torch.from_numpy((rs.randn(b, h, w, 2) * 4).astype(np.float32))
+          .to(cuda) for b, h, w in levels]
+    before = (cw.fwd_launches.count, cw.occlusion_launches.count)
+    outs = warp_levels_forward(bw, fw, site="occlusion")
+    assert (cw.fwd_launches.count, cw.occlusion_launches.count) == (
+        before[0], before[1] + 1)
+    for o, i, f in zip(outs, bw, fw):
+        want = backward_warp_reference(i.permute(0, 3, 1, 2),
+                                       f.permute(0, 3, 1, 2))
+        assert torch.equal(o.permute(0, 3, 1, 2), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_vgg_step_launches_each_warp_kernel_once(cuda, deterministic,
+                                                 occlusion, monkeypatch):
+    """VGG16Flow (full width, 64x96) forward and backward on the card
+    with the flyingchairs_vgg preset's loss (depthwise smoothness) on an
+    augmented batch: each warp kernel once for the five levels (and the
+    occlusion warp once under loss.occlusion), and the loss and
+    gradients equal to the same step with the kernels' plain versions
+    swapped in."""
+    import dataclasses
+
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.data.augmentation import augment_batch
+    from deepof_tpu_torch.data.datasets import DATASET_MEANS
+    from deepof_tpu_torch.losses import pyramid
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           warp_flow_grad_reference)
+    from deepof_tpu_torch.train.step import batch_to_device, model_losses
+
+    model = build_model("vgg16", seed=5, device=cuda)
+    batch = augment_batch(batch_to_device(_train_pairs(1, (64, 96))[0], cuda),
+                          17)
+    loss_cfg = dataclasses.replace(get_config("flyingchairs_vgg").loss,
+                                   occlusion=occlusion)
+
+    def counts():
+        return (cw.fwd_launches.count, cw.grad_launches.count,
+                cw.occlusion_launches.count)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        total, aux = model_losses(model, batch,
+                                  DATASET_MEANS["flyingchairs"], loss_cfg)
+        total.backward()
+        return total.item(), [p.grad.clone() for p in model.parameters()], aux
+
+    before = counts()
+    loss, grads, aux = run()
+    assert counts() == (before[0] + 1, before[1] + 1,
+                        before[2] + int(occlusion))
+    assert [tuple(d["total"].shape) for d in aux["losses"]] == [()] * 5
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, image, flow):
+            ctx.save_for_backward(image, flow)
+            return backward_warp_reference(image, flow)
+
+        @staticmethod
+        def backward(ctx, g):
+            image, flow = ctx.saved_tensors
+            return None, warp_flow_grad_reference(image, flow, g)
+
+    monkeypatch.setattr(pyramid, "backward_warp_levels", lambda im, fl, impl:
+                        [Plain.apply(i.permute(0, 3, 1, 2),
+                                     f.permute(0, 3, 1, 2))
+                         .permute(0, 2, 3, 1).contiguous()
+                         for i, f in zip(im, fl)])
+    plain_loss, plain_grads, _ = run()
+    assert loss == plain_loss
+    for g, w in zip(grads, plain_grads):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))

@@ -164,8 +164,9 @@ def test_fit_checkpoints_match_jax(runs):
 @pytest.mark.parametrize("section,value,item", [
     ("recipe", {"enabled": True, "stages": [{"name": "a", "steps": 2}]},
      "item 9"),
-    ("loss", {"occlusion": True}, "item 9"),
-    ("train", {"vgg16_npz": "vgg16_weights.npz"}, "item 9")])
+    # occlusion and vgg16_npz are honoured
+    ("loss", {"gather_dtype": "bfloat16"}, "item 9"),
+    ("data", {"dataset": "ucf101"}, "item 9")])
 def test_jax_settings_the_port_cannot_honour_raise(tmp_path, section,
                                                    value, item):
     d = dataclasses.asdict(_jax_cfg(tmp_path))

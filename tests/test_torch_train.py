@@ -50,7 +50,7 @@ from deepof_tpu.train.step import model_losses as jax_model_losses
 from deepof_tpu_torch.convert import load_flax_params, state_dict_from_flax
 from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
                                           LossConfig, OptimConfig,
-                                          ResilienceConfig,
+                                          RecipeConfig, ResilienceConfig,
                                           TrainConfig, check_trainable)
 from deepof_tpu_torch.data.datasets import (FlyingChairsData, SyntheticData,
                                             build_dataset)
@@ -284,11 +284,13 @@ def test_trainer_fits_on_cpu(tmp_path):
     np.testing.assert_array_equal(drawn[1]["source"], want["source"])
 
 
+# vgg16, census and augment_geo are ported: their cases became the
+# settings still refused
 @pytest.mark.parametrize("kw", [
-    {"model": "vgg16"}, {"loss": LossConfig(gather_dtype="bfloat16")},
+    {"model": "st_baseline"}, {"loss": LossConfig(gather_dtype="bfloat16")},
     {"model": "st_single"},
-    {"loss": LossConfig(photometric="census")},
-    {"data": DataConfig(augment_geo=True)}])
+    {"model": "ucf101_spatial"},
+    {"recipe": RecipeConfig(enabled=True)}])
 def test_unported_settings_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         check_trainable(ExperimentConfig(**kw))

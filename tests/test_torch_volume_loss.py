@@ -201,6 +201,11 @@ def test_volume_loss_refuses_what_the_jax_package_refuses():
             jph.loss_interp_multi(jnp.asarray(flows[0]),
                                   jnp.zeros((1, 8, 8, 9)), 1.0,
                                   JaxLossConfig(**kw))
+    # census runs in the volume loss (test_torch_loss_variants.py holds
+    # it to JAX); gather_dtype is still refused
+    tot, _, _ = tpy.pyramid_loss_multi(pyr, _t(vol),
+                                       LossConfig(photometric="census"))
+    assert torch.isfinite(tot)
     with pytest.raises(NotImplementedError, match="item 9"):
         tpy.pyramid_loss_multi(pyr, _t(vol),
-                               LossConfig(photometric="census"))
+                               LossConfig(gather_dtype="bfloat16"))
