@@ -112,6 +112,16 @@ read after it):
     warp, the warps at VGG's five levels and the occlusion warp (C = 2)
     bit for bit against the plain versions; one step with the kernels
     against the plain warps).
+  - the UCF-101 two-stream action models at full width (320x384, batch
+    8, 101 classes): `cli_train_ucf101` (`train --preset ucf101`,
+    st_single, on a PPM tree with UCF-101's layout, the trunk from the
+    random npz; the fit's step, busy time, idle share, TFLOP/s, peak
+    memory, the one checkpoint's bytes and its save's and verification's
+    seconds; `eval` (accuracy) and `predict --action`; a step each of
+    st_baseline and ucf101_spatial; `bench --data-only --dataset
+    ucf101`; the warps at the five and six levels of the two-stream
+    models bit for bit; one st_single step with its dropout masks with
+    the kernels against the plain warps).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -129,6 +139,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import os, tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = os.path.join(w, 'run'); cs.run_cli(['train', *cs.SERVE_RUN, '--steps', '2', '--log-dir', r], os.path.join(w, 't.log')); cs.serve_fleet(w, r); cs.serve_autoscale(w, r)"
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_inception(w); cs.cli_sintel_inception(w); cs.cli_bench(w)"
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_vgg(w)"
+    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_ucf101(w)"
 """
 
 from __future__ import annotations
@@ -1428,24 +1439,29 @@ def serve_stream(cfg, sessions: int = STREAM_SESSIONS,
     return row
 
 
-def loss_and_grads(model, batch, mean, loss_cfg, compute_dtype=None):
+def loss_and_grads(model, batch, mean, loss_cfg, compute_dtype=None,
+                   dropout=None, smooth_border_mask=False):
     """One forward and backward at the model's current weights, no
     update, with the network's pair in `compute_dtype` (default float32)
-    as the train step casts it: (loss, [gradient of each parameter])."""
+    as the train step casts it, an action model's dropout `masks` and the
+    loss's border mask as given: (loss, [gradient of each parameter])."""
     import torch
 
     from deepof_tpu_torch.train.step import model_losses
 
     model.zero_grad(set_to_none=True)
     total, _ = model_losses(model, batch, mean, loss_cfg,
-                            compute_dtype=compute_dtype or torch.float32)
+                            smooth_border_mask=smooth_border_mask,
+                            compute_dtype=compute_dtype or torch.float32,
+                            dropout=dropout)
     total.backward()
     return total.item(), [p.grad.detach().clone()
                           for p in model.parameters()]
 
 
 def plain_warp_loss_and_grads(model, batch, mean, loss_cfg,
-                              compute_dtype=None, flow_grad="autograd"):
+                              compute_dtype=None, flow_grad="autograd",
+                              **kw):
     """`loss_and_grads` with the loss's warp swapped for its plain
     version for this one call, as `serve` swaps the correlation: no
     setting of the package routes a card tensor around the kernels. The
@@ -1484,7 +1500,8 @@ def plain_warp_loss_and_grads(model, batch, mean, loss_cfg,
     kernel_warp = pyramid.backward_warp_levels
     pyramid.backward_warp_levels = plain_warp_levels
     try:
-        return loss_and_grads(model, batch, mean, loss_cfg, compute_dtype)
+        return loss_and_grads(model, batch, mean, loss_cfg, compute_dtype,
+                              **kw)
     finally:
         pyramid.backward_warp_levels = kernel_warp
 
@@ -4031,6 +4048,57 @@ def write_sintel(root: str, clips=SINTEL_CLIPS, hw=SINTEL_HW,
     return shifts
 
 
+# the first classes of UCF-101's list, in its order (sorted, as the
+# loader sorts them)
+UCF101_CLASSES = ("ApplyEyeMakeup", "ApplyLipstick", "Archery",
+                  "BabyCrawling", "BalanceBeam", "BandMarching",
+                  "BaseballPitch", "Basketball")
+
+
+def write_ucf101(root: str, classes: int = len(UCF101_CLASSES),
+                 frames: int = 3, hw=(240, 320), fmt: str = "ppm",
+                 seed: int = 0, train_clips: int = 1) -> dict:
+    """A UCF-101 tree in the dataset's layout: `frames/<class>/<clip>/
+    frame_XXXX.<fmt>` ("ppm" or "png", written by `io/`), each class
+    `train_clips` train clips `v_<class>_gNN_c01` (groups 8, 9, ...) and
+    one val clip `v_<class>_g01_c01` (group 1) of `frames` frames at
+    `hw` (UCF-101's own 240x320 by default). A clip is a texture of its class's colours
+    moving by a whole (u, v) pixels a frame. Returns {clip dir: (u, v)}."""
+    import numpy as np
+
+    from deepof_tpu_torch.io.png import write_png
+    from deepof_tpu_torch.io.ppm import write_ppm_bgr
+
+    write = {"ppm": write_ppm_bgr, "png": write_png}[fmt]
+    names = [UCF101_CLASSES[i] if i < len(UCF101_CLASSES) else f"Class{i:03d}"
+             for i in range(classes)]
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    pad = 3 * frames
+    yy, xx = np.mgrid[0:h + 2 * pad, 0:w + 2 * pad].astype(np.float32)
+    shifts = {}
+    for ci, name in enumerate(names):
+        tint = rs.rand(3)
+        for group in (*range(8, 8 + train_clips), 1):
+            clip = os.path.join(root, "frames", name,
+                                f"v_{name}_g{group:02d}_c01")
+            os.makedirs(clip)
+            canvas = np.full(yy.shape + (3,), 60.0 + 120.0 * tint,
+                             np.float32)
+            for _ in range(3):
+                fy, fx, ph = rs.rand(3) * [0.08, 0.08, 6.28]
+                canvas += 40 * np.sin(fy * yy + fx * xx + ph)[..., None] \
+                    * rs.rand(3)
+            canvas = np.clip(canvas, 0, 255).astype(np.uint8)
+            u, v = (int(x) for x in rs.randint(-3, 4, 2))
+            shifts[clip] = (u, v)
+            for t in range(frames):
+                y0, x0 = pad + t * v, pad + t * u
+                write(os.path.join(clip, f"frame_{t + 1:04d}.{fmt}"),
+                      canvas[y0:y0 + h, x0:x0 + w])
+    return shifts
+
+
 def cli_flyingchairs(work: str) -> dict:
     """`train --preset flyingchairs` on a FlyingChairs tree, 4 steps at
     384x512: two epochs of 2 steps, so a train and an eval record at
@@ -4379,7 +4447,7 @@ def inception_trainer(work: str, compute_dtype: str):
     return Trainer(cfg, device="cuda")
 
 
-def plain_warp_comparison(trainer, batch) -> dict:
+def plain_warp_comparison(trainer, batch, **kw) -> dict:
     """One forward and backward of `trainer`'s model on `batch` in its
     compute dtype, cuDNN deterministic, with the warp kernels (`kernel`:
     each launched once), twice with the kernels' plain versions (`plain`,
@@ -4389,7 +4457,8 @@ def plain_warp_comparison(trainer, batch) -> dict:
     (`plain_autograd`, the `train` phase's plain step): the loss's
     relative difference and the largest difference of one parameter's
     gradient over that tensor's largest entry, kernel vs plain, plain vs
-    plain (the step's own spread) and autograd vs plain."""
+    plain (the step's own spread) and autograd vs plain. `kw` (an action
+    model's `dropout` masks, `smooth_border_mask`) goes to each run."""
     import torch
 
     from deepof_tpu_torch.train.step import compute_dtype
@@ -4399,8 +4468,8 @@ def plain_warp_comparison(trainer, batch) -> dict:
     names = [n for n, _ in trainer.model.named_parameters()]
     runs, launched = {}, {}
 
-    def plain(*a):
-        return plain_warp_loss_and_grads(*a, flow_grad="reference")
+    def plain(*a, **k):
+        return plain_warp_loss_and_grads(*a, flow_grad="reference", **k)
 
     torch.backends.cudnn.deterministic = True
     try:
@@ -4408,7 +4477,7 @@ def plain_warp_comparison(trainer, batch) -> dict:
                          ("plain_again", plain),
                          ("plain_autograd", plain_warp_loss_and_grads)):
             before = warp_counts()
-            runs[name] = fn(*args)
+            runs[name] = fn(*args, **kw)
             launched[name] = [a - b for a, b in zip(warp_counts(), before)]
     finally:
         torch.backends.cudnn.deterministic = False
@@ -5077,6 +5146,283 @@ def cli_train_vgg(work: str) -> dict:
     return row
 
 
+# (B, C, H, W) of the loss levels at the ucf101 preset's 320x384, batch
+# 8: st_single's five VGG levels and st_baseline's six FlowNet-S levels,
+# finest at H/2
+UCF_LEVELS = [(8, 3, 160 >> k, 192 >> k) for k in range(5)]
+UCF_BASELINE_LEVELS = [(8, 3, 160 >> k, 192 >> k) for k in range(6)]
+# `train --preset ucf101` on a UCF-101 tree of UCF_CLASSES classes, each
+# UCF_TRAIN_CLIPS train clips and one val clip of 3 frames at 240x320: 7
+# steps an epoch at batch 8, so UCF_STEPS steps stay in the first epoch;
+# a train record every 2 steps, an eval (a batch a class) at the last
+# step; one checkpoint, the final one (nan_guard off: no step-0 save);
+# the fit's steps 3-5 under torch.profiler
+UCF_CLASSES, UCF_TRAIN_CLIPS = 8, 7
+UCF_STEPS = 6
+UCF_WINDOW = (2, 5)
+CLI_UCF = ["--preset", "ucf101",
+           "--set", "train.log_every=2",
+           "--set", f"train.eval_every={UCF_STEPS}",
+           "--set", "train.ckpt_every_steps=0",
+           "--set", "train.nan_guard=false"]
+
+
+def ucf101_trainer(work: str, model: str = "st_single"):
+    """A full-width action-model Trainer on the card with the ucf101
+    preset's loss and geometry (320x384, batch 8) on synthetic data (its
+    labels are classes too)."""
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.train.loop import Trainer
+
+    preset = get_config("ucf101")
+    cfg = preset.replace(
+        model=model,
+        data=dataclasses.replace(preset.data, dataset="synthetic"),
+        train=dataclasses.replace(preset.train,
+                                  log_dir=os.path.join(work, "ucf_step")))
+    return Trainer(cfg, device="cuda")
+
+
+def ucf101_step_vs_plain(work: str) -> dict:
+    """A full-width st_single training step (the loop's dropout masks of
+    step 1 drawn on the card, the smoothness border mask on) with the warp
+    kernels against the same step with the kernels' plain versions, after
+    one warm-up step: the loss equal and each gradient no further from
+    the plain step's than the plain step is from its own repeat
+    (`plain_warp_comparison`, cuDNN deterministic; the kernels give the
+    plain versions' bits). Also the masks: drawn twice from (seed, step)
+    on the card, the same bits; and not the CPU generator's (F19)."""
+    import torch
+
+    from deepof_tpu_torch.models.two_stream import dropout_masks
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    trainer = ucf101_trainer(work)
+    first = steps_in_sequence(trainer, 1)[0]
+    host = next(draw_batches(trainer, 1))[0]
+    batch = batch_to_device(host, trainer.device)
+    seed, b = trainer.cfg.train.seed, trainer.cfg.data.batch_size
+    masks = dropout_masks(b, seed, 1, trainer.device)
+    again = dropout_masks(b, seed, 1, trainer.device)
+    cpu = dropout_masks(b, seed, 1, "cpu")
+    row = {"params": sum(p.numel() for p in trainer.model.parameters()),
+           "first_step_loss": first["total"],
+           "first_step_action_loss": first["action_loss"],
+           "batch_keys": sorted(batch),
+           "masks_repeat_equal": all(torch.equal(x, y)
+                                     for x, y in zip(masks, again)),
+           "masks_equal_cpu_generator": all(
+               torch.equal(x.cpu(), y) for x, y in zip(masks, cpu)),
+           "keep_share": torch.stack(masks).float().mean().item(),
+           **plain_warp_comparison(trainer, batch, dropout=masks,
+                                   smooth_border_mask=True)}
+    emit("ucf101_step_vs_plain", **row)
+    gap, spread = row["kernel_vs_plain_warp"], row["plain_repeat"]
+    if not (gap["loss_rel"] == 0 and spread["loss_rel"] == 0
+            and gap["grad_max_rel"] <= spread["grad_max_rel"]
+            <= TRAIN_GRAD_RTOL):
+        raise AssertionError(
+            f"st_single train step: kernel vs plain {gap}, plain repeat "
+            f"{spread} (limits: losses equal, the kernel step no further "
+            "from the plain one than the plain step's own repeat)")
+    if not row["masks_repeat_equal"]:
+        raise AssertionError("dropout masks drawn twice from one (seed, "
+                             "step) on the card differ")
+    return row
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def cli_train_ucf101(work: str) -> dict:
+    """The UCF-101 two-stream action models from the command line at full
+    width (320x384, batch 8, 101 classes, f32): `train --preset ucf101`
+    (st_single, the trunk from a random npz of the public file's names
+    and shapes) on a PPM tree with UCF-101's layout for UCF_STEPS steps,
+    the fit's steps 3-5 under torch.profiler, one checkpoint (its bytes,
+    its save's and its verification's seconds); `eval` (the accuracy,
+    one batch a class) and `predict --action` of that run; one step each
+    of `--model st_baseline` and `--model ucf101_spatial`; and `bench
+    --data-only --dataset ucf101` on the tree. Checked: each path's warp
+    launches counted from 0 (train: the loss forward once a step and
+    once an eval forward, the flow gradient once a step; eval the
+    forward once an eval forward; predict none; st_baseline one of each
+    for its six levels; ucf101_spatial none), finite losses, action
+    losses and accuracies, actions.json's rows. Then the warps at the
+    five and six levels of the two-stream models bit for bit against the
+    plain versions, and one st_single step with the kernels against the
+    plain warps (`ucf101_step_vs_plain`)."""
+    import json as _json
+
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import get_config
+    from deepof_tpu_torch.resilience.verify import verify_run
+
+    t0 = time.monotonic()
+    data_dir = os.path.join(work, "ucf101")
+    write_ucf101(data_dir, classes=UCF_CLASSES, seed=11,
+                 train_clips=UCF_TRAIN_CLIPS)
+    npz = os.path.join(work, "vgg16_weights.npz")
+    if not os.path.exists(npz):
+        write_vgg16_npz(npz)
+    log_dir = os.path.join(work, "cli_train_ucf101")
+    argv = [*CLI_UCF, "--data-path", data_dir]
+    setup_s = time.monotonic() - t0
+    reset_kernel_counts()
+    summary, window = run_windowed(
+        ["train", *argv, "--set", f"train.vgg16_npz={npz}",
+         "--steps", str(UCF_STEPS), "--log-dir", log_dir],
+        os.path.join(work, "cli_train_ucf101.log"), UCF_WINDOW)
+    train = kernel_counts()
+    records = read_records(log_dir)
+    train_records = [r for r in records if r["kind"] == "train"]
+    eval_records = [r for r in records if r["kind"] == "eval"]
+    t1 = time.monotonic()
+    report = verify_run(log_dir)
+    verify_s = time.monotonic() - t1
+    ckpt_bytes = dir_bytes(os.path.join(log_dir, "ckpt"))
+    evals = min(UCF_CLASSES, 101)  # a batch a class
+    reset_kernel_counts()
+    ev = run_cli(["eval", *argv, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval_ucf101.log"))
+    evaluate = kernel_counts()
+    names = os.path.join(work, "ucf101_classes.txt")
+    with open(names, "w") as f:
+        f.write("\n".join(sorted(UCF101_CLASSES[:UCF_CLASSES])) + "\n")
+    pairs = []
+    for cls in sorted(UCF101_CLASSES[:UCF_CLASSES])[:2]:
+        clip = os.path.join(data_dir, "frames", cls, f"v_{cls}_g01_c01")
+        pairs.append(f"{clip}/frame_0001.ppm:{clip}/frame_0002.ppm")
+    out_dir = os.path.join(work, "actions_ucf101")
+    reset_kernel_counts()
+    t1 = time.monotonic()
+    pred = run_cli(["predict", *argv, "--log-dir", log_dir, "--action",
+                    "--labels", names, "--out", out_dir, "--pairs", *pairs],
+                   os.path.join(work, "cli_predict_ucf101.log"))
+    predict_s = time.monotonic() - t1
+    predict = kernel_counts()
+    with open(os.path.join(out_dir, "actions.json")) as f:
+        actions = _json.load(f)
+    others, other_launches = {}, {}
+    for model in ("st_baseline", "ucf101_spatial"):
+        run = os.path.join(work, f"cli_train_{model}")
+        reset_kernel_counts()
+        t1 = time.monotonic()
+        sm = run_cli(["train", *argv, "--model", model, "--steps", "1",
+                      "--set", "train.log_every=1", "--set",
+                      "train.eval_every=0", "--log-dir", run],
+                     os.path.join(work, f"cli_train_{model}.log"))
+        other_launches[model] = kernel_counts()
+        (rec,) = [r for r in read_records(run) if r["kind"] == "train"]
+        others[model] = {
+            "seconds": time.monotonic() - t1,
+            "first_step_s": [float(r["message"].split()[-1][:-1])
+                             for r in read_records(run)
+                             if r.get("message", "").startswith(
+                                 "first step")],
+            "loss": rec["loss"], "action_loss": rec["action_loss"],
+            "accuracy": rec.get("accuracy"),
+            "dev_mem_peak_bytes": rec.get("dev_mem_peak_bytes"),
+            "ckpt_save_s_total": sm["ckpt_save_s_total"],
+            "ckpt_bytes": dir_bytes(os.path.join(run, "ckpt"))}
+        shutil.rmtree(run, ignore_errors=True)
+    reset_kernel_counts()
+    bench_line = run_cli(["bench", "--data-only", "--dataset", "ucf101",
+                          "--data-path", data_dir, "--batch", "8",
+                          "--batches", "16", "--image-size", "320x384",
+                          "--workers", "2"],
+                         os.path.join(work, "cli_bench_ucf101.log"))
+    bench_launches = kernel_counts()
+    levels = check_warp_levels(seed=53, levels=UCF_LEVELS,
+                               kernel="warp_levels_ucf101")
+    base_levels = check_warp_levels(seed=54, levels=UCF_BASELINE_LEVELS,
+                                    kernel="warp_levels_ucf101_baseline")
+    vs_plain = ucf101_step_vs_plain(work)
+    preset = get_config("ucf101")
+
+    def warp_q(r):
+        return {k: {q: r[k][q] for q in (
+            "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "call_ms")}
+            for k in ("fwd", "flow_grad")}
+
+    row = {"model": "st_single", "steps": UCF_STEPS,
+           "image_size": list(preset.data.image_size),
+           "batch": preset.data.batch_size, "classes": UCF_CLASSES,
+           "train_clips": UCF_CLASSES * UCF_TRAIN_CLIPS,
+           "setup_s": setup_s, **fit_row(summary, 8),
+           "profiled": window.row(8),
+           "flops_per_step": [r.get("flops_per_step") for r in records
+                              if r["kind"] == "info"
+                              and "flops_per_step" in r],
+           "model_tflops": [r.get("model_tflops") for r in train_records],
+           "dev_mem_peak_bytes": max(r.get("dev_mem_peak_bytes") or 0
+                                     for r in train_records),
+           "trunk_init_logged": any(
+               "VGG16 trunk init from" in r.get("message", "")
+               for r in records if r["kind"] == "info"),
+           "ckpt_bytes": ckpt_bytes, "ckpt_verify_s": verify_s,
+           "ckpt_valid_steps": report["valid_steps"],
+           "launches": {"train": train, "eval": evaluate,
+                        "predict": predict, **{f"train_{m}": n for m, n in
+                                               other_launches.items()},
+                        "bench": bench_launches},
+           "eval_forwards": evals,
+           "losses": [r["loss"] for r in train_records],
+           "action_losses": [r["action_loss"] for r in train_records],
+           "accuracies": [r["accuracy"] for r in train_records],
+           "evals": [{k: r[k] for k in ("step", "accuracy", "val_loss")}
+                     for r in eval_records],
+           "eval_cli": ev, "predict_s": predict_s,
+           "actions": [{k: a[k] for k in ("class", "label", "prob")
+                        if k in a} for a in actions],
+           "other_models": others,
+           "bench_data": {k: bench_line[k] for k in (
+               "value", "unit", "mb_per_sec", "bytes_per_batch",
+               "worker_util", "decode_cache_hits", "decode_cache_misses")},
+           "warp_levels": warp_q(levels),
+           "warp_levels_baseline": warp_q(base_levels),
+           "vs_plain": vs_plain, "seconds": time.monotonic() - t0}
+    emit("cli_train_ucf101", **row)
+    want = want_counts(warp_fwd=UCF_STEPS + evals, warp_flow_grad=UCF_STEPS)
+    if train != want:
+        raise AssertionError(f"cli train ucf101: launches {train}; want "
+                             f"{want}")
+    if evaluate != want_counts(warp_fwd=evals) or predict != want_counts():
+        raise AssertionError(f"cli eval/predict ucf101: launches {evaluate}"
+                             f" / {predict}")
+    if (other_launches["st_baseline"] != want_counts(warp_fwd=1,
+                                                     warp_flow_grad=1)
+            or other_launches["ucf101_spatial"] != want_counts()
+            or bench_launches != want_counts()):
+        raise AssertionError(f"st_baseline / ucf101_spatial / bench "
+                             f"launches {other_launches} {bench_launches}")
+    if [r["step"] for r in train_records] != list(range(2, UCF_STEPS + 1, 2)) \
+            or [r["step"] for r in eval_records] != [UCF_STEPS]:
+        raise AssertionError(f"records at {[r['step'] for r in records]}")
+    values = (row["losses"] + row["action_losses"] + row["accuracies"]
+              + [ev["accuracy"], ev["val_loss"]]
+              + [o[k] for o in others.values()
+                 for k in ("loss", "action_loss")])
+    if not all(v is not None and np.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite ucf101 metrics: {values}")
+    if not (report["ok"] and report["valid_steps"] == [UCF_STEPS]
+            and row["ckpt_saves"] == 1 and row["trunk_init_logged"]):
+        raise AssertionError(f"ucf101 checkpoint / init: {report}, saves "
+                             f"{row['ckpt_saves']}")
+    if len(actions) != 2 or not all(
+            len(a["top"]) == 5 and a["class"] == a["top"][0]["class"]
+            and ("label" in a) == (a["class"] < UCF_CLASSES)
+            for a in actions):
+        raise AssertionError(f"predict --action wrote {actions}")
+    if bench_line["dataset"] != "ucf101" or not bench_line["value"] > 0:
+        raise AssertionError(f"bench --data-only ucf101: {bench_line}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -5192,6 +5538,7 @@ def main() -> int:
         sintel_inc_row = cli_sintel_inception(work)
         bench_row = cli_bench(work)
         vgg_row = cli_train_vgg(work)
+        ucf_row = cli_train_ucf101(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -5214,6 +5561,11 @@ def main() -> int:
     # flyingchairs_vgg preset, and its train under loss.occlusion
     inception_paths.update({f"cli_{k}_vgg": v
                             for k, v in vgg_row["launches"].items()})
+    # the UCF-101 action models: st_single's train, eval and predict at
+    # the ucf101 preset, a step of st_baseline and of ucf101_spatial, and
+    # the UCF-101 loader's bench
+    inception_paths.update({f"cli_{k}_ucf101": v
+                            for k, v in ucf_row["launches"].items()})
     for p, k in inception_paths.items():
         by_path["fwd"][p] = k["warp_fwd"]
         by_path["flow_grad"][p] = k["warp_flow_grad"]
@@ -5394,6 +5746,17 @@ def main() -> int:
                 "steps": VGG_STEPS,
                 "launches_eval": by_path[key]["cli_eval_vgg"],
                 **vgg_row["warp_levels"][key]},
+            "ucf101_shape": {
+                "shape": [list(s) for s in UCF_LEVELS],
+                "launches": by_path[key]["cli_train_ucf101"],
+                "steps": UCF_STEPS,
+                "launches_eval": by_path[key]["cli_eval_ucf101"],
+                **ucf_row["warp_levels"][key]},
+            "ucf101_baseline_shape": {
+                "shape": [list(s) for s in UCF_BASELINE_LEVELS],
+                "launches": by_path[key]["cli_train_st_baseline_ucf101"],
+                "steps": 1,
+                **ucf_row["warp_levels_baseline"][key]},
             **({"serve_shape": {
                 "shape": serve_warp["shape"],
                 "launches": stream_row["warp_fwd_launches"],
@@ -5441,7 +5804,8 @@ def main() -> int:
                         "cli_train_inception": inception_row["seconds"],
                         "cli_sintel_inception": sintel_inc_row["seconds"],
                         "cli_bench": bench_row["seconds"],
-                        "cli_train_vgg": vgg_row["seconds"]})
+                        "cli_train_vgg": vgg_row["seconds"],
+                        "cli_train_ucf101": ucf_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),

@@ -12,6 +12,10 @@ Usage:
         --set "serve.precisions=('f32','int8')" --precision int8
     python -m deepof_tpu_torch train --preset sintel --model flownet_s \
         --data-path /data/MPI-Sintel --set train.dump_visuals=true
+    python -m deepof_tpu_torch train --preset ucf101 --data-path /data/ucf \
+        --log-dir /runs/u1          # st_single; --model st_baseline, ...
+    python -m deepof_tpu_torch predict --preset ucf101 --log-dir /runs/u1 \
+        --action --pairs a.ppm:b.ppm --out /tmp/act --labels classes.txt
     python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1
     python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
         --input /data/frames --out /tmp/flows     # offline: a directory
@@ -33,7 +37,11 @@ timeline in <log-dir>/trace.json), `--profile` and `--profile-steps a:b`
 (a `torch.profiler` Chrome trace of the run or of steps [a, b) under
 <log-dir>/profile/), `--dump-visuals` (eval), `--pairs prev:next`,
 `--out`, `--no-png` (predict, serve), `--precision` (a tier of
-`serve.precisions`), and for `serve` `--input` (offline mode: the
+`serve.precisions`), `--action` (predict: classify each pair with an
+action model's head into `<out>/actions.json`, top-5 classes and their
+softmax probabilities), `--labels FILE` (class names, one a line) and
+`--ckpt-dir DIR` (the checkpoint directory, default `<log-dir>/ckpt`),
+and for `serve` `--input` (offline mode: the
 consecutive pairs of a directory of frames, written to `--out`; without
 it, the HTTP server of `serve/server.py` on serve.host:serve.port),
 `--session-ttl` and `--session-max` (`serve.session.ttl_s` and
@@ -69,6 +77,7 @@ import argparse
 import ast
 import dataclasses
 import json
+import os
 
 from .core.config import (PRESETS, ExperimentConfig, config_from_dict,
                           get_config, raise_unported)
@@ -216,6 +225,19 @@ def main(argv=None) -> int:
                         choices=("f32", "bf16", "int8"),
                         help="serving precision tier, one of "
                              "serve.precisions (default: its first)")
+    p_pred.add_argument("--action", action="store_true",
+                        help="classify each pair with a trained action "
+                             "model (st_single, st_baseline, "
+                             "ucf101_spatial) instead of predicting flow: "
+                             "writes <out>/actions.json with the top-5 "
+                             "classes and softmax probabilities a pair")
+    p_pred.add_argument("--labels", default=None, metavar="FILE",
+                        help="--action: class names, one a line in index "
+                             "order, attached to the predictions")
+    p_pred.add_argument("--ckpt-dir", "--ckpt", dest="ckpt_dir",
+                        default=None, metavar="DIR",
+                        help="--action: the checkpoint directory (default "
+                             "<log-dir>/ckpt)")
 
     p_srv = sub.add_parser(
         "serve", help="serve the newest checkpoint: an HTTP server (POST "
@@ -274,7 +296,8 @@ def main(argv=None) -> int:
     p_bench.add_argument("--image-size", default="64x64", metavar="HxW",
                          help="data-only mode: decoded image size")
     p_bench.add_argument("--dataset", default="synthetic",
-                         help="data-only mode: synthetic, flyingchairs or "
+                         help="data-only mode: synthetic, flyingchairs, "
+                              "ucf101 or "
                               "sintel")
     p_bench.add_argument("--data-path", default="",
                          help="data-only mode: dataset root on disk")
@@ -312,19 +335,30 @@ def main(argv=None) -> int:
         return _serve(cfg, args)
 
     if args.cmd == "predict":
-        from .predict import predict_pairs, restore_params
+        from .predict import predict_action, predict_pairs, restore_params
 
         from .serve.quant import resolve_precisions
 
-        tiers = resolve_precisions(cfg)
-        if args.precision is not None and args.precision not in tiers:
-            raise SystemExit(f"--precision {args.precision} is not in "
-                             f"serve.precisions {list(tiers)}")
         pairs = []
         for item in args.pairs:
             if ":" not in item:
                 raise SystemExit(f"bad --pairs {item!r}: use prev.ppm:next.ppm")
             pairs.append(tuple(item.split(":", 1)))
+        if args.action:
+            labels = None
+            if args.labels:
+                with open(args.labels) as f:
+                    labels = [ln.strip() for ln in f if ln.strip()]
+            rows = predict_action(cfg, pairs, args.out, labels=labels,
+                                  ckpt_dir=args.ckpt_dir, device=args.device)
+            print(json.dumps(
+                {"written": [os.path.join(args.out, "actions.json")],
+                 "actions": rows}))
+            return 0
+        tiers = resolve_precisions(cfg)
+        if args.precision is not None and args.precision not in tiers:
+            raise SystemExit(f"--precision {args.precision} is not in "
+                             f"serve.precisions {list(tiers)}")
         model = restore_params(cfg, device=args.device)
         written = predict_pairs(cfg, pairs, args.out, model=model,
                                 device=args.device,

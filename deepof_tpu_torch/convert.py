@@ -11,7 +11,14 @@ torch `X.conv.{weight,bias}`, a flax `X/ConvTranspose_0/{kernel,bias}` is
     the torch ConvTranspose2d with the spatially flipped weight;
   - biases pass through unchanged;
   - a scalar parameter of a module's own (`FlowNetRefine`'s `gate`) keeps
-    its flax path as its torch name (`gate`, `<scope>.gate`).
+    its flax path as its torch name (`gate`, `<scope>.gate`);
+  - a bare `nn.Conv` or `nn.Dense` leaf `<scope>/<name>/{kernel,bias}`
+    (the action models' `spatial/conv1_1`, `fuse_1x1`, `head/fc6`) is
+    `<scope>.<name>.{weight,bias}`, placed by the kernel's rank: a 4-D
+    kernel goes HWIO -> OIHW, a 2-D one (in, out) is transposed to
+    torch's (out, in). fc6 reads pool5 flattened in flax's (h, w, c)
+    order on both sides (`models/two_stream.py`), so its rows need no
+    permutation.
 
 A FlowNet-CS tree's `refine` subtree, `{"refine": params["refine"]}`,
 loads into `FlowNetRefine(residual=False)` unchanged.
@@ -50,21 +57,26 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             bad.append("/".join(path))
             continue
         *scope, layer, kind = path
-        if layer not in _LAYERS or kind not in ("kernel", "bias"):
+        a = np.asarray(leaf, np.float32)
+        bare = layer not in _LAYERS  # a bare nn.Conv or nn.Dense
+        if kind not in ("kernel", "bias") or (
+                bare and a.ndim not in ((2, 4) if kind == "kernel" else (1,))):
             bad.append("/".join(path))
             continue
-        a = np.asarray(leaf, np.float32)
-        if kind == "kernel" and layer == "Conv_0":
-            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        elif kind == "kernel":
+        if kind == "kernel" and layer == "ConvTranspose_0":
             a = a[::-1, ::-1].transpose(2, 3, 0, 1)  # flip, (in, out, kh, kw)
-        key = ".".join([*scope, _LAYERS[layer],
-                        "weight" if kind == "kernel" else "bias"])
+        elif kind == "kernel":
+            # HWIO -> OIHW; a dense (in, out) -> (out, in)
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        module = [*scope, layer if bare else _LAYERS[layer]]
+        key = ".".join([*module, "weight" if kind == "kernel" else "bias"])
         out[key] = torch.from_numpy(a.copy())  # owned, writable, contiguous
     if bad:
         raise ValueError(f"state_dict_from_flax: unrecognised flax params "
                          f"(expected <scope>/Conv_0|ConvTranspose_0/"
-                         f"kernel|bias, or a scalar {_SCALARS}): {bad}")
+                         f"kernel|bias, a bare conv's 4-D or dense's 2-D "
+                         f"kernel and 1-D bias, or a scalar {_SCALARS}): "
+                         f"{bad}")
     return out
 
 

@@ -562,6 +562,9 @@ def config_from_dict(d: dict) -> ExperimentConfig:
     return cfg
 
 
+#: the UCF-101 action models: trained with their class, evaluated by
+#: accuracy (`train/evaluate.py::evaluate_ucf101`), not served
+ACTION_MODELS = ("st_single", "st_baseline", "ucf101_spatial")
 #: values of `LossConfig.warp_impl` (see the field's comment)
 WARP_IMPLS = ("auto", "xla", "pallas")
 #: values of `TrainConfig.compute_dtype`
@@ -577,8 +580,16 @@ def raise_unported(todo: list[tuple[str, str]]) -> None:
 
 
 def check_servable(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, on serving
-    settings that would change what runs and are not ported."""
+    """Raise ValueError on an action model (the engine serves flow, and
+    the JAX engine fails on their (flows, logits) output with a
+    TypeError; `predict --action` classifies), and NotImplementedError,
+    naming the ROADMAP item, on serving settings that would change what
+    runs and are not ported."""
+    if cfg.model in ACTION_MODELS:
+        raise ValueError(
+            f"model {cfg.model!r} has an action head: the serving engine "
+            "serves flow models only; classify frame pairs with "
+            "`predict --action`")
     todo = []
     if cfg.serve.artifacts_dir:
         todo.append(("serve.artifacts_dir", "8 (artifacts)"))
@@ -610,10 +621,6 @@ def check_trainable(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, on every
     setting that the training path cannot honour yet."""
     todo = []
-    if cfg.model not in ("flownet_s", "flownet_c", "flownet_cs",
-                         "inception_v3", "vgg16"):
-        todo.append((f"model={cfg.model!r}",
-                     "9.4 (UCF-101 two-stream models)"))
     if cfg.recipe != RecipeConfig():
         todo.append(("recipe", "9.5 (recipes)"))
     raise_unported(todo)

@@ -1,5 +1,5 @@
-"""Dataset constants, the host-side resize, the FlyingChairs and
-MPI-Sintel loaders and the procedural dataset (subset of
+"""Dataset constants, the host-side resize, the FlyingChairs, MPI-Sintel
+and UCF-101 loaders and the procedural dataset (port of
 `deepof_tpu/data/datasets.py`).
 
 The JAX package resizes with cv2's INTER_LINEAR. This package has no
@@ -20,9 +20,11 @@ Decoding, two routes as in the JAX package:
   - streaming (`data.cache_decoded=False`): a whole batch is decoded by
     the native decoder's thread pool with its fused bilinear resize
     (`resize_bilinear_bgr`), and the `.flo` files read there too.
-A failed decode raises. Flows are `.flo` files (`io/flo.py`). Still to
-port: the UCF-101 loader (ROADMAP Queue A item 9, with the two-stream
-models that read it); `build_dataset` raises for it.
+A failed decode raises. Flows are `.flo` files (`io/flo.py`). UCF-101's
+frames (`UCF101Data`) go the same two routes: cached through
+`_imread_bgr`, or streaming through the native decoder when its build
+has the frames' codec (the card's machine links PPM only: PNG frames
+there take the cached route's `io/png.py`, JPEG frames are refused).
 """
 
 from __future__ import annotations
@@ -414,6 +416,95 @@ class SintelData:
         return self._cache.stats()
 
 
+class UCF101Data:
+    """UCF-101 frame pairs for joint flow and action learning (port of the
+    JAX package's `UCF101Data`).
+
+    Layout: `frames/<class>/<clip>/<frame>` under `cfg.data_path`,
+    classes, clips and frames sorted; a clip name's `_gNN_` group above 7
+    is train, at most 7 val, and a name without one is group 99 (train).
+    A clip with fewer than two frames is skipped. A train batch is one
+    random consecutive pair from each of B random classes (drawn with
+    replacement only when B exceeds the classes), labelled with the
+    class index; a val batch is B pairs of one class, `batch_id`'s, drawn
+    from `RandomState(batch_id)`. Clip, frame and label come from one
+    draw order for both decode routes. Batches are {"source", "target":
+    (B, H, W, 3) float32 BGR at `cfg.image_size`, "label": (B,) int32}.
+    """
+
+    mean = UCF101_MEAN
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        root = os.path.join(cfg.data_path, "frames")
+        self.classes = sorted(os.listdir(root))
+        self.train_clips: dict[int, list[list[str]]] = {}
+        self.val_clips: dict[int, list[list[str]]] = {}
+        for ci, cls in enumerate(self.classes):
+            for clip in sorted(os.listdir(os.path.join(root, cls))):
+                frames = sorted(
+                    os.path.join(root, cls, clip, f)
+                    for f in os.listdir(os.path.join(root, cls, clip)))
+                if len(frames) < 2:
+                    continue
+                m = re.search(r"_g(\d+)_", clip)
+                group = int(m.group(1)) if m else 99
+                (self.train_clips if group > 7 else self.val_clips
+                 ).setdefault(ci, []).append(frames)
+        self.num_train = sum(len(v) for v in self.train_clips.values())
+        self.num_val = sum(len(v) for v in self.val_clips.values())
+        self._cache = _DecodedCache(cfg.cache_decoded, _imread_bgr,
+                                    max_bytes=cfg.cache_bytes)
+        self._native_ok: bool | None = None  # streaming codec probe, once
+
+    def _batch_from(self, clips: dict[int, list[list[str]]], class_ids,
+                    rng: np.random.RandomState) -> dict:
+        # every path is drawn first (one draw order for both routes), then
+        # the batch is decoded in one call
+        paths, labels = [], []
+        for ci in class_ids:
+            pool = clips[ci]
+            frames = pool[rng.randint(0, len(pool))]
+            i = rng.randint(0, len(frames) - 1)
+            paths += [frames[i], frames[i + 1]]
+            labels.append(ci)
+        imgs = self._decode_many(paths)
+        return {"source": imgs[0::2], "target": imgs[1::2],
+                "label": np.asarray(labels, np.int32)}
+
+    def _decode_many(self, paths: list[str]) -> np.ndarray:
+        """(N, H, W, 3) float32 BGR: the native decoder's thread pool with
+        its fused resize in streaming mode when it has the codec, the
+        cached route otherwise."""
+        if not self.cfg.cache_decoded:
+            if self._native_ok is None:
+                self._native_ok = native.image_supported(paths[0])
+            if self._native_ok:
+                return native.decode_image_batch(paths, self.cfg.image_size)
+        return np.stack([_resize(self._cache(p), self.cfg.image_size)
+                         for p in paths]).astype(np.float32)
+
+    def sample_train(self, batch_size, iteration=None, rng=None) -> dict:
+        # sequential callers: `iteration` seeds the draw
+        if rng is None:
+            rng = np.random.RandomState(iteration)  # None: OS entropy
+        avail = list(self.train_clips)
+        class_ids = rng.choice(avail, size=batch_size,
+                               replace=batch_size > len(avail))
+        return self._batch_from(self.train_clips, class_ids, rng)
+
+    def sample_val(self, batch_size, batch_id) -> dict:
+        """B pairs of one class: the reference evaluates the classes one
+        batch each, in turn."""
+        rng = np.random.RandomState(batch_id)
+        avail = sorted(self.val_clips)
+        ci = avail[batch_id % len(avail)]
+        return self._batch_from(self.val_clips, [ci] * batch_size, rng)
+
+    def cache_stats(self) -> dict:
+        return self._cache.stats()
+
+
 class SyntheticData:
     """Procedural dataset with exact ground-truth flow (port of the JAX
     package's `SyntheticData`, styles "noise" and "blobs"). The numpy
@@ -519,8 +610,8 @@ class SyntheticData:
 
 
 def build_dataset(cfg: DataConfig):
-    """The dataset `cfg.dataset` names ("synthetic", "flyingchairs" or
-    "sintel")."""
+    """The dataset `cfg.dataset` names ("synthetic", "flyingchairs",
+    "sintel" or "ucf101")."""
     if cfg.dataset == "synthetic":
         return SyntheticData(cfg)
     if cfg.dataset == "flyingchairs":
@@ -528,8 +619,5 @@ def build_dataset(cfg: DataConfig):
     if cfg.dataset == "sintel":
         return SintelData(cfg)
     if cfg.dataset == "ucf101":
-        raise NotImplementedError(
-            "dataset 'ucf101' is not ported to deepof_tpu_torch yet: "
-            "ROADMAP Queue A item 9 (the UCF-101 loader, with the "
-            "two-stream models and evaluate_ucf101 that read it)")
+        return UCF101Data(cfg)
     raise KeyError(f"unknown dataset {cfg.dataset!r}")

@@ -8,7 +8,8 @@ a pageable copy.
 
 On a CUDA device each batch is staged in PyTorch's terms of what
 `jax.device_put` does in the JAX package:
-  1. the entries the step reads (`train.step.IMAGE_KEYS`) are copied
+  1. the entries the step reads (`train.step.DEVICE_KEYS`: the images
+     as float32, an action batch's label as int64) are copied
      into a ring of pinned host buffers, reused from batch to batch
      (allocating ~9.4 MB of pinned memory a batch would cost
      milliseconds of `cudaHostAlloc`); before a slot is overwritten,
@@ -26,9 +27,13 @@ the caller's current stream wait on the batch's event and calls
 hand its memory to another tensor while the step that reads it is still
 queued. Other entries stay host arrays.
 
-On the CPU the `put` phase makes the entries the step reads float32
-tensors over the same memory (`torch.as_tensor`, no copy for float32
-arrays): no pinning, no stream; the transform runs after it.
+The label rides the same slot, side stream and event as its images, so
+it is ready exactly when they are; stacked calls (train.steps_per_call)
+stage it [K, B] as they stage the images [K, B, ...].
+
+On the CPU the `put` phase makes the entries the step reads tensors of
+their dtypes over the same memory (`torch.as_tensor`, no copy for
+float32 images): no pinning, no stream; the transform runs after it.
 """
 
 from __future__ import annotations
@@ -42,20 +47,27 @@ import numpy as np
 import torch
 
 from ..obs import trace as obs_trace
-from ..train.step import IMAGE_KEYS
+from ..train.step import DEVICE_KEYS, device_dtype
 
 #: Pinned host slots in the ring: the slot being filled and the one whose
 #: copy may still be in flight.
 PINNED_SLOTS = 2
 
 
+def _host_array(batch: dict, key: str) -> np.ndarray:
+    """A DEVICE_KEYS entry as a contiguous numpy array of its dtype."""
+    return np.ascontiguousarray(
+        batch[key], np.int64 if device_dtype(key) == torch.int64
+        else np.float32)
+
+
 def _as_tensors(batch: dict) -> dict:
-    """The CPU `put`: the batch's IMAGE_KEYS as float32 tensors."""
+    """The CPU `put`: the batch's DEVICE_KEYS as tensors of their
+    dtypes."""
     out = dict(batch)
-    for k in IMAGE_KEYS:
+    for k in DEVICE_KEYS:
         if k in batch:
-            out[k] = torch.as_tensor(np.ascontiguousarray(batch[k],
-                                                          np.float32))
+            out[k] = torch.as_tensor(_host_array(batch, k))
     return out
 
 
@@ -65,7 +77,7 @@ class Prefetcher:
     next_batch: () -> dict of host numpy arrays.
     depth: staged batches held ahead of `get()`.
     device: where the batches go; a CUDA device stages the batch's
-        `IMAGE_KEYS` on it.
+        `DEVICE_KEYS` on it.
     phase_cb: optional (name, seconds) sink for the `put` and `augment`
         phase times (StepTimer.phase).
     transform: optional (staged batch) -> batch, run in the producer
@@ -93,7 +105,7 @@ class Prefetcher:
 
     # ------------------------------------------------------------ producer
     def _stage(self, batch: dict, ring: list, stream) -> tuple[dict, dict]:
-        """Copy the batch's IMAGE_KEYS to the device through pinned slot
+        """Copy the batch's DEVICE_KEYS to the device through pinned slot
         ring[0] (then rotate the ring) on `stream`; returns (batch with
         device tensors, the slot, whose event the caller records)."""
         slot = ring[0]
@@ -102,13 +114,13 @@ class Prefetcher:
             slot["event"].synchronize()  # its last copy has read it
         out = dict(batch)
         with torch.cuda.stream(stream):
-            for k in IMAGE_KEYS:
+            for k in DEVICE_KEYS:
                 if k not in batch:
                     continue
-                a = np.ascontiguousarray(batch[k], np.float32)
+                a = _host_array(batch, k)
                 buf = slot["bufs"].get(k)
                 if buf is None or tuple(buf.shape) != a.shape:
-                    buf = torch.empty(a.shape, dtype=torch.float32,
+                    buf = torch.empty(a.shape, dtype=device_dtype(k),
                                       pin_memory=True)
                     slot["bufs"][k] = buf
                 np.copyto(buf.numpy(), a)
@@ -178,7 +190,7 @@ class Prefetcher:
         batch, event = item
         current = torch.cuda.current_stream(self._device)
         current.wait_event(event)
-        for k in IMAGE_KEYS:
+        for k in DEVICE_KEYS:
             if k in batch:
                 batch[k].record_stream(current)
         return batch

@@ -229,10 +229,34 @@ def flownet_trunk(module: nn.Module, x: torch.Tensor,
     return [c1, c2, c3_2, *flownet_tail(module, c3_2, prefix)]
 
 
+def truncated_normal_(w: torch.Tensor, stddev: float,
+                      generator: torch.Generator) -> torch.Tensor:
+    """flax's `initializers.truncated_normal(stddev)` (jax's): a standard
+    normal truncated to [-2, 2], times `stddev`, with no correction for
+    the truncation (F21): standard deviation 0.8796 `stddev`, values
+    within +-2 `stddev`. Drawn by rejection (normals outside [-2, 2]
+    drawn again), ten times faster on the CPU than torch's inverse-CDF
+    `trunc_normal_` at fc6's 250 M entries."""
+    with torch.no_grad():
+        flat = w.view(-1)
+        flat.normal_(generator=generator)
+        redo = (flat.abs() > 2.0).nonzero().squeeze(1)
+        while redo.numel():
+            fresh = torch.randn(redo.numel(), generator=generator,
+                                dtype=w.dtype)
+            flat[redo] = fresh
+            redo = redo[fresh.abs() > 2.0]
+        return w.mul_(stddev)
+
+
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """The JAX package's init: glorot-uniform conv weights, zero biases,
-    bilinear feature deconvs. Draws from a torch.Generator seeded with
+    bilinear feature deconvs; the action models' bare convs and ReLU
+    head's dense layers truncated normal 0.01, their ELU head's dense
+    layers glorot-uniform. Draws from a torch.Generator seeded with
     `seed` in module order (the numbers differ from jax.random's)."""
+    from .two_stream import Conv, Dense
+
     g = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
         if isinstance(m, ConvELU):
@@ -241,6 +265,12 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, Deconv):
             bilinear_kernel_init(m.deconv.weight)
             nn.init.zeros_(m.deconv.bias)
+        elif isinstance(m, Dense) and m.glorot:
+            nn.init.xavier_uniform_(m.weight, generator=g)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, (Conv, Dense)):
+            truncated_normal_(m.weight, 0.01, g)
+            nn.init.zeros_(m.bias)
     return model
 
 

@@ -1,9 +1,9 @@
 """Model registry (port of `deepof_tpu/models/registry.py`).
 
-Ported so far: flownet_s, flownet_c, flownet_cs, inception_v3 and
-vgg16. The other names of the JAX registry (the UCF-101 two-stream
-models) raise NotImplementedError naming the ROADMAP item that ports
-them.
+Every name of the JAX registry: the flow models flownet_s, flownet_c,
+flownet_cs, inception_v3 and vgg16, and the UCF-101 action models
+st_single, st_baseline and ucf101_spatial, whose fc6 width follows from
+`image_size` (the JAX model infers it from the init input).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from .flownet2 import FlowNetCS
 from .flownet_c import FlowNetC
 from .flownet_s import FlowNetS
 from .inception_v3_flow import InceptionV3Flow
+from .two_stream import STBaseline, STSingle, UCF101Spatial
 from .vgg16_flow import VGG16Flow
 
 MODELS = {
@@ -27,13 +28,9 @@ MODELS = {
     "flownet_cs": FlowNetCS,
     "inception_v3": InceptionV3Flow,
     "vgg16": VGG16Flow,
-}
-
-#: JAX registry names not ported yet -> where ROADMAP.md plans them.
-NOT_PORTED = {
-    "st_single": "ROADMAP Queue A item 9.4 (UCF-101 two-stream models)",
-    "st_baseline": "ROADMAP Queue A item 9.4 (UCF-101 two-stream models)",
-    "ucf101_spatial": "ROADMAP Queue A item 9.4 (UCF-101 two-stream models)",
+    "st_single": STSingle,
+    "st_baseline": STBaseline,
+    "ucf101_spatial": UCF101Spatial,
 }
 
 #: (config-surface name, model-field name, model-family default): knobs
@@ -53,15 +50,15 @@ def _fields(cls) -> set[str]:
 def build_model(name: str, flow_channels: int = 2, width_mult: float = 1.0,
                 corr_max_disp: int = 20, corr_stride: int = 2,
                 seed: int = 0, device: str | torch.device = "cuda",
-                dtype: torch.dtype = torch.float32, **kw) -> nn.Module:
+                dtype: torch.dtype = torch.float32,
+                image_size: tuple[int, int] | None = None,
+                **kw) -> nn.Module:
     """The named model, initialised from `seed` as the JAX package
     initialises it, on `device` (default CUDA; raises without a card).
     Its convolutions and cost volume compute in `dtype`; its parameters
-    are float32 whatever `dtype` is."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to deepof_tpu_torch yet: "
-            f"{NOT_PORTED[name]}")
+    are float32 whatever `dtype` is. `image_size`, the network input's
+    (H, W), sizes an action model's fc6 (None: the ucf101 preset's);
+    the flow models take any size."""
     if name not in MODELS:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODELS)}")
     dev = resolve_device(device)
@@ -79,5 +76,9 @@ def build_model(name: str, flow_channels: int = 2, width_mult: float = 1.0,
             raise ValueError(
                 f"model {name!r} does not support {knob} (={value}); "
                 f"models honoring it: {supported}")
-    model = cls(flow_channels=flow_channels, dtype=dtype, **kw)
+    if "image_size" in fields and image_size is not None:
+        kw["image_size"] = tuple(image_size)
+    if "flow_channels" in fields:
+        kw["flow_channels"] = flow_channels
+    model = cls(dtype=dtype, **kw)
     return init_weights(model, seed).to(dev)

@@ -1,5 +1,6 @@
-"""Evaluation protocol (subset of `deepof_tpu/train/evaluate.py`: the
-AEE protocol and the visual dumps; the UCF-101 accuracy is not ported).
+"""Evaluation protocols (port of `deepof_tpu/train/evaluate.py`): the
+AEE protocol with its visual dumps, and the UCF-101 action accuracy
+(`evaluate_ucf101`).
 
 The finest prediction (already multiplied by its flow scale) is
 multiplied by `train.eval_amplifier`, clipped to `train.eval_clip` and
@@ -138,3 +139,29 @@ def evaluate_aee(eval_fn, model, dataset, cfg: ExperimentConfig,
         "gt_abs_mean": g_sum / max(g_n, 1),
         "gt_abs_max": g_max,
     }
+
+
+def evaluate_ucf101(eval_fn, model, dataset, cfg: ExperimentConfig,
+                    n_classes: int = 101) -> dict[str, float]:
+    """Action accuracy over one val batch a class, min(n_classes, val
+    classes) batches (`dataset.sample_val` gives batch i the i-th
+    class); a dataset without classes (synthetic) covers its val split
+    once, its last batch's wrapped rows unscored. `val_loss` is the
+    batches' objective weighted by their scored rows."""
+    bs = cfg.train.eval_batch_size
+    correct, seen, totals = 0, 0, []
+    per_class = hasattr(dataset, "val_clips")
+    if per_class:
+        n = min(n_classes, max(len(dataset.val_clips), 1))
+    else:
+        n = -(-max(dataset.num_val, 1) // bs)
+    for bid in range(n):
+        batch = dataset.sample_val(bs, bid)
+        valid = bs if per_class else min(bs, dataset.num_val - bid * bs)
+        out = eval_fn(model, batch)
+        logits = np.asarray(out["logits"])[:valid]
+        correct += int(np.sum(np.argmax(logits, -1)
+                              == np.asarray(batch["label"])[:valid]))
+        seen += logits.shape[0]
+        totals.append((float(out["total"]), valid))
+    return {"accuracy": correct / max(seen, 1), "val_loss": _wmean(totals)}

@@ -16,6 +16,12 @@ checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
     drawn next from the same rng, and the prefetch thread augments the
     staged batch on the device (`data/augmentation.py`), so the
     augmented stream is as bit-identical;
+  - the UCF-101 action models (st_single, st_baseline, ucf101_spatial)
+    train with their class (`train/step.py`): each call's batch carries
+    the loop's global step (`STEP_KEY`), from which the step draws its
+    dropout masks; their train records add `action_loss` and
+    `accuracy`, their evals are `evaluate_ucf101`'s accuracy, and the
+    two-stream ones mask the smoothness border, as in JAX;
   - one call of the train step runs K = `train.steps_per_call` steps
     over K stacked micro-batches (call c draws micro-batches cK ..
     cK+K-1, a pure function of c). The cadences are tested once per
@@ -86,7 +92,7 @@ import time
 import numpy as np
 import torch
 
-from ..core.config import ExperimentConfig, check_trainable
+from ..core.config import ACTION_MODELS, ExperimentConfig, check_trainable
 from ..core.device import disable_tf32, resolve_device
 from ..data.augmentation import SEED_KEY, make_augment_fn
 from ..data.datasets import build_dataset
@@ -102,12 +108,12 @@ from ..resilience.faults import build_injector
 from ..resilience.healing import HealingSampler
 from ..resilience.verify import config_digest
 from .checkpoint import CheckpointManager, transfer_params
-from .evaluate import evaluate_aee
+from .evaluate import evaluate_aee, evaluate_ucf101
 from .metrics_log import (AsyncFetcher, MetricsLogger, ProfilerSession,
                           StepTimer, SyncFetcher)
 from .schedule import step_decay_schedule
 from .state import create_train_state
-from .step import compute_dtype, make_eval_fn, make_train_step
+from .step import STEP_KEY, compute_dtype, make_eval_fn, make_train_step
 
 # Early-preemption latch: building the model and the kernels can take a
 # while, and a SIGTERM landing before fit() installs its own handler would
@@ -118,7 +124,10 @@ from .step import compute_dtype, make_eval_fn, make_train_step
 _EARLY_SIGTERM: dict = {"sig": None, "handler": None}
 
 #: models with a VGG16 trunk -> its submodule (`train.vgg16_npz`)
-VGG_TRUNKS = {"vgg16": ("encoder",)}
+VGG_TRUNKS = {"vgg16": ("encoder",), "st_single": ("encoder",),
+              "ucf101_spatial": ("encoder",), "st_baseline": ("spatial",)}
+#: models whose loss masks the smoothness border (`pyramid_loss`)
+SMOOTH_BORDER_MODELS = ("st_single", "st_baseline")
 
 # A prefetch.get() wait above this counts as a `starved` step (the card
 # had no staged batch); below it is queue hand-off noise.
@@ -217,7 +226,8 @@ class Trainer:
             cfg.model, flow_channels=2 * (cfg.data.time_step - 1),
             width_mult=cfg.width_mult, corr_max_disp=cfg.corr_max_disp,
             corr_stride=cfg.corr_stride, seed=cfg.train.seed,
-            device=self.device, dtype=compute_dtype(cfg))
+            device=self.device, dtype=compute_dtype(cfg),
+            image_size=cfg.data.crop_size or cfg.data.image_size)
         self.logger = MetricsLogger(cfg.train.log_dir)
         self.profiler = ProfilerSession(cfg.train.log_dir, enabled=profile,
                                         steps=profile_steps,
@@ -287,9 +297,10 @@ class Trainer:
                 f"({cfg.train.log_dir!r})` gives per-checkpoint status; move "
                 "the ckpt directory aside to start fresh")
 
+        smooth_border = cfg.model in SMOOTH_BORDER_MODELS
         self.train_step = make_train_step(self.model, cfg,
-                                          self.dataset.mean)
-        self.eval_fn = make_eval_fn(cfg, self.dataset.mean)
+                                          self.dataset.mean, smooth_border)
+        self.eval_fn = make_eval_fn(cfg, self.dataset.mean, smooth_border)
         # the augmentation of a staged batch (prefetch thread); None
         # when neither family is on
         self.augment = make_augment_fn(cfg.data.augment_geo,
@@ -306,7 +317,10 @@ class Trainer:
 
     def evaluate(self, dump: bool = False) -> dict[str, float]:
         """The AEE protocol; with `dump`, the first val batch's visuals
-        go to <log_dir>/visuals."""
+        go to <log_dir>/visuals. An action model's accuracy protocol."""
+        if self.cfg.model in ACTION_MODELS:
+            return evaluate_ucf101(self.eval_fn, self.model, self.dataset,
+                                   self.cfg)
         dump_dir = (os.path.join(self.cfg.train.log_dir, "visuals")
                     if dump else None)
         return evaluate_aee(self.eval_fn, self.model, self.dataset, self.cfg,
@@ -495,8 +509,11 @@ class Trainer:
                 "train", gs, epoch=ep, loss=_scalar_last(m["total"]),
                 lr=float(self.schedule(gs - 1)),
                 grad_norm=_scalar_last(m["grad_norm"]),
+                **{key: _scalar_last(m[key]) for key in ("action_loss",
+                                                         "accuracy")
+                   if key in m},
                 **{f: per_scale_last(m[src])
-                   for f, src in SCALE_RECORD_FIELDS},
+                   for f, src in SCALE_RECORD_FIELDS if src in m},
                 **timer.rates(), **timer.phases(), **timer.counters(),
                 **resilience_stats(),
                 **({f"decode_cache_{k}": v for k, v in cache().items()
@@ -525,6 +542,8 @@ class Trainer:
             t0 = time.perf_counter()
             with obs_trace.span("input_wait"):
                 batch = prefetch.get()
+            # the call's first global step: its dropout masks'
+            batch[STEP_KEY] = gstep
             wait = time.perf_counter() - t0
             timer.phase("assemble", wait)
             if wait > STARVED_WAIT_S:

@@ -358,9 +358,14 @@ MAIN_LEVELS = [(4, 192 >> k, 256 >> k) for k in range(6)]
 # Inception-v3's at the flyingchairs preset's 320x448: finest at H/2, two
 # levels of one size
 INCEPTION_LEVELS = [(4, 160 >> k, 224 >> k) for k in (0, 1, 2, 2, 3, 4)]
+# the ucf101 preset's 320x384 at batch 8: st_single's five VGG levels
+# and st_baseline's six FlowNet-S levels, finest at H/2
+UCF101_LEVELS = [(8, 160 >> k, 192 >> k) for k in range(5)]
+UCF101_BASELINE_LEVELS = [(8, 160 >> k, 192 >> k) for k in range(6)]
 LEVEL_CASES = [
     (MAIN_LEVELS, 3, "nhwc", 5.0), (MAIN_LEVELS, 3, "nchw", 5.0),
     (INCEPTION_LEVELS, 3, "nhwc", 5.0),
+    (UCF101_LEVELS, 3, "nhwc", 5.0), (UCF101_BASELINE_LEVELS, 3, "nhwc", 5.0),
     ([(2, 1, 1), (2, 1, 3), (2, 5, 70), (2, 1, 129)], 3, "nhwc", 3.0),
     ([(3, 13, 70), (3, 7, 35), (3, 4, 17)], 5, "nhwc", 3.0),
     ([(2, 9, 300 - 37 * k) for k in range(8)], 1, "nchw", 3.0),
@@ -1021,3 +1026,72 @@ def test_vgg_step_launches_each_warp_kernel_once(cuda, deterministic,
     for g, w in zip(grads, plain_grads):
         torch.testing.assert_close(g, w, rtol=0,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+def _action_steps(cuda, name, hw, **train):
+    """An action model's train step on the card (the ucf101 preset's
+    loss, batch 2), with its state, from fixed weights."""
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              TrainConfig, get_config)
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    cfg = ExperimentConfig(model=name, loss=get_config("ucf101").loss,
+                           data=DataConfig(image_size=hw, batch_size=2),
+                           train=TrainConfig(seed=3, **train))
+    model = build_model(name, device=cuda, image_size=hw, seed=0)
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    return state, make_train_step(model, cfg, (104.0, 117.0, 123.0),
+                                  smooth_border_mask=name != "ucf101_spatial")
+
+
+def _action_batches(n, hw):
+    rs = np.random.RandomState(11)
+    return [{"source": rs.rand(2, *hw, 3).astype(np.float32) * 255,
+             "target": rs.rand(2, *hw, 3).astype(np.float32) * 255,
+             "label": rs.randint(0, 101, 2).astype(np.int32)}
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_dropout_masks_are_a_function_of_seed_and_step_on_the_card(
+        cuda, deterministic):
+    """The masks drawn on the card by torch's CUDA generator (F19: not
+    threefry's, nor the CPU generator's): the same (seed, step) gives the
+    same bits, another step others, keep 0.9; two steps a call give the
+    bits of two single calls, and st_single under remat those without."""
+    from deepof_tpu_torch.models.two_stream import KEEP_PROB, dropout_masks
+    from deepof_tpu_torch.train.step import STEP_KEY
+
+    a = dropout_masks(8, 0, 5, cuda)
+    b = dropout_masks(8, 0, 5, cuda, torch.Generator(cuda))
+    c = dropout_masks(8, 0, 6, cuda)
+    assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+    assert abs(torch.stack([*a, *c]).float().mean().item() - KEEP_PROB) \
+        < 0.01
+    hw = (32, 32)
+    batches = _action_batches(2, hw)
+    one, one_step = _action_steps(cuda, "ucf101_spatial", hw)
+    want = [_host(one_step(one, {**p, STEP_KEY: 7 + i}))
+            for i, p in enumerate(batches)]
+    two, two_step = _action_steps(cuda, "ucf101_spatial", hw,
+                                  steps_per_call=2)
+    got = _host(two_step(two, {**{k: np.stack([p[k] for p in batches])
+                                  for k in batches[0]}, STEP_KEY: 7}))
+    for key in want[0]:
+        assert got[key] == [w[key] for w in want], key
+    for name, t in two.model.state_dict().items():
+        assert torch.equal(t, one.model.state_dict()[name]), name
+    runs = []
+    for remat in (False, True):
+        state, step = _action_steps(cuda, "st_single", hw, remat=remat)
+        runs.append((_host(step(state, {**batches[0], STEP_KEY: 3})),
+                     state.model.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for name, t in runs[0][1].items():
+        assert torch.equal(t, runs[1][1][name]), name
+

@@ -166,12 +166,25 @@ def test_fit_checkpoints_match_jax(runs):
      "item 9"),
     # occlusion and vgg16_npz are honoured
     ("loss", {"gather_dtype": "bfloat16"}, "item 9"),
-    ("data", {"dataset": "ucf101"}, "item 9")])
+    # the UCF-101 loader is ported (item 9.4): the case now builds it
+    ("data", {"dataset": "ucf101"}, None)])
 def test_jax_settings_the_port_cannot_honour_raise(tmp_path, section,
                                                    value, item):
     d = dataclasses.asdict(_jax_cfg(tmp_path))
     d[section].update(value)
+    if item is None:
+        import chip_smoke
+        from deepof_tpu_torch.data.datasets import UCF101Data
+
+        d["data"]["data_path"] = str(tmp_path / "ucf101")
+        chip_smoke.write_ucf101(d["data"]["data_path"], classes=2,
+                                hw=(16, 20))
     with pytest.warns(UserWarning, match="ignored keys"):
         cfg = config_from_dict(d)
+    if item is None:
+        trainer = Trainer(cfg, device="cpu")
+        assert isinstance(trainer.dataset, UCF101Data)
+        assert trainer.dataset.num_train == trainer.dataset.num_val == 2
+        return
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")

@@ -159,10 +159,13 @@ def test_bench_data_only_prints_one_line(capsys):
     assert line["metric"] == bench.DATA_METRIC and line["value"] > 0
     assert line["bytes_per_batch"] == 4 * 32 * 48 * 3 * 4 * 2 + 4 * 32 * 48 \
         * 2 * 4 + 4 * 4
-    for flag, item in ((["--recipe", "r.json"], "9.5"),
-                       (["--dataset", "ucf101"], "9.4")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["bench", "--data-only", *flag])
+    with pytest.raises(NotImplementedError, match="9.5"):
+        cli.main(["bench", "--data-only", "--recipe", "r.json"])
+    # the UCF-101 loader is ported (item 9.4): it is timed, and a missing
+    # tree is a missing file, not an unported feature
+    with pytest.raises(FileNotFoundError):
+        cli.main(["bench", "--data-only", "--dataset", "ucf101",
+                  "--data-path", "/nonexistent-ucf101"])
 
 
 def test_bench_times_the_headline_step_at_a_tiny_size():

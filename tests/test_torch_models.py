@@ -123,8 +123,14 @@ def test_converter_flips_transpose_kernels():
 
 
 def test_unported_models_name_their_queue():
-    # vgg16 is ported; the UCF-101 two-stream models are not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("st_baseline", device="cpu")
+    # every model of the JAX registry is ported: the two-stream models
+    # build (item 9.4), an unknown name is a KeyError naming them all,
+    # and a knob a model does not take still raises
+    model = build_model("st_baseline", device="cpu", image_size=(64, 64))
+    assert model.has_action_head and len(model.flow_scales) == 6
+    with pytest.raises(KeyError, match="ucf101_spatial"):
+        build_model("st_triple", device="cpu")
     with pytest.raises(ValueError, match="corr_max_disp"):
         build_model("flownet_s", corr_max_disp=4, device="cpu")
+    with pytest.raises(ValueError, match="width_mult"):
+        build_model("st_single", width_mult=0.5, device="cpu")
