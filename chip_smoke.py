@@ -122,6 +122,21 @@ read after it):
     ucf101`; the warps at the five and six levels of the two-stream
     models bit for bit; one st_single step with its dropout masks with
     the kernels against the plain warps).
+  - `loss.gather_dtype=bfloat16`: the warps' bf16 instances on every
+    route (xla, pallas, auto) bit for bit the plain versions at
+    FlowNet-S's six full-width loss levels and at the Sintel volume's
+    (`check_warp_levels_bf16`, timed beside their byte bound and
+    grid_sample on bf16), and `train --set loss.gather_dtype=bfloat16`
+    at full width under warp_impl auto and xla (`cli_train_gather_bf16`:
+    the bf16 instances once a step and an eval forward, the float32
+    ones never; a kernel step against a plain one);
+  - label-free quality scoring and the incident plane on `serve_http`:
+    half its requests scored through the float32 warp on the head grid
+    (its launches on their own counter, equal to the scored count), the
+    triples against the numpy reference, then the `replica_degrade`
+    fault driving the drift verdict to exhaustion, one committed
+    `quality_drift` bundle, and `python -m deepof_tpu_torch incidents`
+    list (rc 1), ack, list (rc 0).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -140,6 +155,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_inception(w); cs.cli_sintel_inception(w); cs.cli_bench(w)"
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_vgg(w)"
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_ucf101(w)"
+    python3 -c "import tempfile, chip_smoke as cs; cs.check_warp_levels_bf16(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_gather_bf16(w)"
 """
 
 from __future__ import annotations
@@ -147,6 +163,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -181,9 +198,10 @@ TRAIN_STEPS = 6
 # 384x512, batch 4: the warp's shapes on the main path
 WARP_LEVELS = [(4, 3, 192 >> k, 256 >> k) for k in range(6)]
 # calls per device-time reading of a warp kernel (2-7 us each), and
-# readings per kernel, taken in turns with the library call
+# readings per kernel, taken in turns with the library call (3 until the
+# bf16 warp and quality checks came; 2 keeps the script under 800 s)
 WARP_ITERS = 200
-WARP_ROUNDS = 3
+WARP_ROUNDS = 2
 # aten ops that make a copy; none may run inside the warp's autograd ops
 COPY_OPS = ("aten::copy_", "aten::contiguous", "aten::clone")
 
@@ -874,6 +892,248 @@ def check_warp_volume(seed=21, model_name="flownet_s"):
     return row
 
 
+# the Sintel volume loss's six levels of B(T-1) = 36 folded pairs
+# (FlowNet-S at the sintel preset's 224x480 crop)
+VOLUME_LEVELS = [(36, 3, 112, 240), (36, 3, 56, 120), (36, 3, 28, 60),
+                 (36, 3, 14, 30), (36, 3, 7, 15), (36, 3, 4, 8)]
+# the routes of a bf16 warp operand (loss.warp_impl)
+GATHER_IMPLS = ("auto", "xla", "pallas")
+
+
+def warp_bf16_bound_ms(levels, routes, grad: bool) -> tuple[float, str]:
+    """`warp_bound_ms` of the bf16 instances: the image read at 2 bytes a
+    value; the output (forward) or the cotangent (gradient) at 2 bytes on
+    a Pallas-route level and 4 on an XLA-route one; the flow and the flow
+    cotangent float32; the same float32 operations."""
+    nbytes = flops = 0.0
+    for (b, c, h, w), pallas in zip(levels, routes):
+        px = b * h * w
+        nbytes += px * (2 * c + 8 + (2 if pallas else 4) * c
+                        + (8 if grad else 0))
+        flops += px * ((6 + 14 * c) if grad else (6 + 11 * c))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_warp_levels_bf16(levels=None, mag=5.0, seed=60,
+                           kernel="warp_levels_bf16",
+                           timed=("auto", "xla")) -> dict:
+    """The bf16-image instances of both warp kernels over six levels in
+    one launch per direction (default FlowNet-S's full-width loss levels,
+    WARP_LEVELS), the images bf16 views of NHWC memory as the loss hands
+    them, the flows float32, on every route of GATHER_IMPLS: each level's
+    output (float32 on the XLA route, bf16 on the Pallas route) and flow
+    gradient (from a cotangent of the output's dtype) bit for bit the
+    plain versions'. The routes of `timed` are timed (device time, the
+    median of WARP_ROUNDS readings, in turns with the library yardstick:
+    F.grid_sample on the bf16 image and a bf16 grid, and its gradient
+    with respect to the grid), beside the plain versions and the byte
+    bound with the image at 2 bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepof_tpu_torch.ops.cuda.warp import (warp_flow_grad_levels_cuda,
+                                                warp_fwd_levels_cuda)
+    from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           pallas_route,
+                                           warp_flow_grad_reference)
+
+    levels = levels or WARP_LEVELS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images, flows, cts32 = [], [], []
+    for b, c, h, w in levels:
+        images.append(torch.rand((b, h, w, c), device="cuda", generator=g)
+                      .bfloat16().permute(0, 3, 1, 2))
+        flows.append(torch.randn((b, 2, h, w), device="cuda", generator=g)
+                     * mag)
+        cts32.append(torch.randn((b, h, w, c), device="cuda", generator=g)
+                     .permute(0, 3, 1, 2))
+    grids = [grid_sample_grid(fl)[0].detach().bfloat16().requires_grad_(True)
+             for fl in flows]
+    lib_outs = [F.grid_sample(i, gr, mode="bilinear", padding_mode="border",
+                              align_corners=True)
+                for i, gr in zip(images, grids)]
+    lib_cts = [c.bfloat16() for c in cts32]
+
+    def library():
+        return [F.grid_sample(i, gr, mode="bilinear", padding_mode="border",
+                              align_corners=True)
+                for i, gr in zip(images, grids)]
+
+    def library_grad():
+        return torch.autograd.grad(lib_outs, grids, lib_cts,
+                                   retain_graph=True)
+
+    row = {"shape": [list(s) for s in levels], "image_dtype": "bfloat16",
+           "routes": {}}
+    for impl in GATHER_IMPLS:
+        routes = [pallas_route(impl, i.shape[2], i.shape[3]) for i in images]
+        cts = [c.bfloat16() if p else c for c, p in zip(cts32, routes)]
+        outs = warp_fwd_levels_cuda(images, flows, pallas=routes)
+        grads = warp_flow_grad_levels_cuda(images, flows, cts)
+        per = []
+        for img, fl, ct, out, grad, p in zip(images, flows, cts, outs,
+                                             grads, routes):
+            want = backward_warp_reference(img, fl, p)
+            gwant = warp_flow_grad_reference(img, fl, ct)
+            per.append({
+                "out_dtype": str(out.dtype).replace("torch.", ""),
+                "bitwise_equal": bool(torch.equal(out, want)),
+                "max_abs_err": (out.float() - want.float()).abs().max()
+                .item(),
+                "flow_grad_bitwise_equal": bool(torch.equal(grad, gwant)),
+                "flow_grad_max_abs_err": (grad - gwant).abs().max().item()})
+        entry = {"pallas_levels": routes, "levels": per,
+                 "bitwise_equal": all(r["bitwise_equal"]
+                                      and r["flow_grad_bitwise_equal"]
+                                      for r in per),
+                 "fwd": {"max_abs_err": max(r["max_abs_err"] for r in per)},
+                 "flow_grad": {"max_abs_err": max(
+                     r["flow_grad_max_abs_err"] for r in per)}}
+        if impl in timed:
+            rounds = WARP_ROUNDS if impl == timed[0] else 1
+
+            def fwd(routes=routes):
+                return warp_fwd_levels_cuda(images, flows, pallas=routes)
+
+            def bwd(cts=cts):
+                return warp_flow_grad_levels_cuda(images, flows, cts)
+
+            def plain(routes=routes):
+                return [backward_warp_reference(i, f, p)
+                        for i, f, p in zip(images, flows, routes)]
+
+            def plain_grad(cts=cts):
+                return [warp_flow_grad_reference(i, f, c)
+                        for i, f, c in zip(images, flows, cts)]
+
+            for key, kern, pl, lib, grad in (
+                    ("fwd", fwd, plain, library, False),
+                    ("flow_grad", bwd, plain_grad, library_grad, True)):
+                runs, lib_runs = [], []
+                for _ in range(rounds):
+                    runs.append(device_ms(kern, WARP_ITERS))
+                    lib_runs.append(device_ms(lib, WARP_ITERS))
+                bound, bound_by = warp_bf16_bound_ms(levels, routes, grad)
+                entry[key].update({
+                    "ms": statistics.median(runs), "ms_runs": runs,
+                    "library_ms": statistics.median(lib_runs),
+                    "library_ms_runs": lib_runs,
+                    "plain_ms": device_ms(pl), "call_ms": time_ms(kern),
+                    "bound_ms": bound, "bound_by": bound_by})
+        row["routes"][impl] = entry
+    row["library"] = (f"{len(levels)} F.grid_sample(bilinear, border, "
+                      "align_corners=True) calls on the bf16 images and "
+                      "bf16 grids; their autograd.grad wrt the grids")
+    row["plain"] = ("backward_warp_reference and warp_flow_grad_reference "
+                    "level by level, on the level's route")
+    emit("kernels", kernel=kernel, **row)
+    bad = [impl for impl, e in row["routes"].items()
+           if not e["bitwise_equal"]]
+    if bad:
+        raise AssertionError(f"{kernel}: the bf16 warp instances disagree "
+                             f"with the plain versions on the routes {bad}: "
+                             f"{row['routes']}")
+    return row
+
+
+GATHER_STEPS = 4
+GATHER_IMPLS_TRAINED = ("auto", "xla")
+
+
+def cli_train_gather_bf16(work: str) -> dict:
+    """`train --set loss.gather_dtype=bfloat16` at full width (FlowNet-S,
+    384x512, batch 4, the CLI_TRAIN configuration) for GATHER_STEPS steps
+    with an eval and a checkpoint at the last, under
+    `loss.warp_impl=auto` (the default; FlowNet-S's finest level takes
+    the XLA route, the five others the Pallas route, as the JAX package
+    routes them on a TPU) and `xla` (every level float32 out): the loss's
+    warps launch the bf16 instances, once a step and once an eval forward
+    forward, once a step backward, and the float32 warp instances never.
+    Then one step of the trained weights with the kernels against one
+    with the plain versions (cuDNN deterministic): loss and gradients
+    within TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL."""
+    import torch
+
+    from deepof_tpu_torch import cli
+    from deepof_tpu_torch.core.config import config_from_dict
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.train.loop import Trainer
+    from deepof_tpu_torch.train.step import batch_to_device
+
+    evals = eval_calls(SYNTHETIC_VAL, 4)
+    t0 = time.monotonic()
+    runs = {}
+
+    def argv(impl):
+        return [*CLI_TRAIN, "--set", f"train.eval_every={GATHER_STEPS}",
+                "--set", f"train.ckpt_every_steps={GATHER_STEPS}",
+                "--set", "loss.gather_dtype=bfloat16",
+                "--set", f"loss.warp_impl={impl}", "--log-dir",
+                os.path.join(work, f"cli_train_gather_bf16_{impl}")]
+
+    for impl in GATHER_IMPLS_TRAINED:
+        log_dir = os.path.join(work, f"cli_train_gather_bf16_{impl}")
+        reset_kernel_counts()
+        summary = run_cli(
+            ["train", *argv(impl), "--steps", str(GATHER_STEPS)],
+            os.path.join(work, f"cli_train_gather_bf16_{impl}.log"))
+        launches = kernel_counts()
+        records = check_run(log_dir, [2, 4], [GATHER_STEPS], [GATHER_STEPS])
+        runs[impl] = {"launches": launches, **fit_row(summary, 4),
+                      "losses": [r["loss"] for r in records
+                                 if r["kind"] == "train"],
+                      "eval": {k: records[-1][k]
+                               for k in ("aee", "aae", "val_loss")}}
+    # one step on the auto run's restored weights: the kernels against
+    # the plain versions on the same batch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["config", *argv("auto")])
+    cfg = config_from_dict(json.loads(buf.getvalue()))
+    trainer = Trainer(cfg, device="cuda")
+    batch = batch_to_device(next(draw_batches(trainer, 1))[0],
+                            trainer.device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = (cw.fwd_bf16_launches.count, cw.grad_bf16_launches.count)
+        lk, gk = loss_and_grads(trainer.model, batch, trainer.dataset.mean,
+                                cfg.loss)
+        step_launches = (cw.fwd_bf16_launches.count - before[0],
+                         cw.grad_bf16_launches.count - before[1])
+        lp, gp = plain_warp_loss_and_grads(
+            trainer.model, batch, trainer.dataset.mean, cfg.loss,
+            flow_grad="reference")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(gk, gp))
+    del trainer
+    row = {"steps": GATHER_STEPS, "eval_forwards": evals, "runs": runs,
+           "kernel_vs_plain_loss_rel": loss_rel,
+           "kernel_vs_plain_grad_max_rel": grad_rel,
+           "kernel_step_launches": list(step_launches),
+           "seconds": time.monotonic() - t0}
+    emit("cli_train_gather_bf16", **row)
+    want = want_counts(warp_fwd_bf16=GATHER_STEPS + evals,
+                       warp_flow_grad_bf16=GATHER_STEPS)
+    bad = {impl: r["launches"] for impl, r in runs.items()
+           if r["launches"] != want}
+    if bad:
+        raise AssertionError(f"cli_train_gather_bf16: launches {bad}; want "
+                             f"{want}")
+    if step_launches != (1, 1) or not (loss_rel <= TRAIN_LOSS_RTOL
+                                       and grad_rel <= TRAIN_GRAD_RTOL):
+        raise AssertionError(
+            f"cli_train_gather_bf16: a step with the bf16 warp kernels "
+            f"({step_launches} launches) vs the plain versions: loss rel "
+            f"{loss_rel} (limit {TRAIN_LOSS_RTOL}), gradient max rel "
+            f"{grad_rel} (limit {TRAIN_GRAD_RTOL})")
+    return row
+
+
 def plain_corr_forward(fwd, x):
     """`fwd(x)` with FlowNet-C's correlation swapped for its plain version
     (`correlation_reference`) for this one call, as
@@ -1473,27 +1733,30 @@ def plain_warp_loss_and_grads(model, batch, mean, loss_cfg,
 
     from deepof_tpu_torch.losses import pyramid
     from deepof_tpu_torch.ops.warp import (backward_warp_reference,
+                                           pallas_route,
                                            warp_flow_grad_reference)
 
     class PlainWarp(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, image, flow):
+        def forward(ctx, image, flow, pallas):
             ctx.save_for_backward(image, flow)
-            return backward_warp_reference(image, flow)
+            return backward_warp_reference(image, flow, pallas)
 
         @staticmethod
         def backward(ctx, g):
             image, flow = ctx.saved_tensors
-            return None, warp_flow_grad_reference(image, flow, g)
+            return None, warp_flow_grad_reference(image, flow, g), None
 
     def plain_warp_levels(images, flows, impl="auto"):
         # NHWC memory in both variants: the loss's reductions then sum in
         # the same order, so the two plain steps' forwards and losses are
         # the same bits (the kernel writes its output in its input's
-        # layout); only the flow gradient's route differs
+        # layout); only the flow gradient's route differs. A bf16 image
+        # takes each level's route as the kernels' wrapper does
         warp = (backward_warp_reference if flow_grad == "autograd"
                 else PlainWarp.apply)
-        return [warp(i.permute(0, 3, 1, 2), f.permute(0, 3, 1, 2))
+        return [warp(i.permute(0, 3, 1, 2), f.permute(0, 3, 1, 2),
+                     pallas_route(impl, i.shape[1], i.shape[2]))
                 .permute(0, 2, 3, 1).contiguous()
                 for i, f in zip(images, flows)]
 
@@ -1567,9 +1830,7 @@ def train(cfg):
 
     trainer = Trainer(cfg, device="cuda")
     steps_in_sequence(trainer, 1)  # cuDNN algorithm choice, allocator
-    for c in (cw.fwd_launches, cw.grad_launches, cw.augment_launches,
-              cw.occlusion_launches):
-        c.reset()
+    reset_warp_counts()
     steps = steps_in_sequence(trainer, TRAIN_STEPS)
     launches = (cw.fwd_launches.count, cw.grad_launches.count)
     levels = len(steps[0]["scale_total"])
@@ -1722,6 +1983,18 @@ HTTP_DEADLINED = 4
 HTTP_DEGRADED = 2
 HTTP_STREAM_FRAMES = 12
 HTTP_TOL = 1e-5  # of the largest entry: a row's bits may follow its slot
+# label-free quality scoring on serve_http (obs.quality_*): the sampled
+# share and its seed, the reference's size, the drift factor and budget
+# of the verdict; the drift stage's requests a round and its rounds at most
+HTTP_QUALITY = {"quality_sample_rate": 0.5, "quality_seed": 3,
+                "quality_ref_samples": 8, "quality_drift_factor": 1.5,
+                "quality_budget": 0.25}
+HTTP_DRIFT_REQUESTS = 8
+HTTP_DRIFT_ROUNDS = 6
+# the score triple on the card vs the numpy reference on the same row:
+# float32 sums in another order (the warp kernel gives the plain
+# version's bits)
+QUALITY_RTOL = 1e-4
 
 
 def http_call(address, method: str, path: str, body=None,
@@ -1755,11 +2028,15 @@ def b64_png(img) -> str:
 def serve_http(cfg) -> dict:
     """The HTTP server of `serve/server.py` in this process (on a thread,
     port 0) over full-width FlowNet-C at the 384x512 bucket, batch 8, in
-    the f32 and bf16 tiers, with warm-start sessions:
+    the f32 and bf16 tiers, with warm-start sessions, label-free quality
+    scoring (HTTP_QUALITY: half the requests sampled) and the incident
+    plane (`obs.incidents`, the recorder installed on the engine as
+    `run_server` installs it):
       - HTTP_REQUESTS `POST /v1/flow` from HTTP_THREADS client threads,
-        PNG pairs at the bucket's size (base64, written by `io/png.py`):
-        each flow equal to `engine.submit` of the same arrays, or within
-        HTTP_TOL of its largest entry (cuDNN deterministic);
+        PNG pairs of consecutive frames of a synthetic video at the
+        bucket's size (base64, written by `io/png.py`): each flow equal
+        to `engine.submit` of the same arrays, or within HTTP_TOL of its
+        largest entry (cuDNN deterministic);
       - one request in `flo` format and one in `png`;
       - HTTP_DEADLINED requests with `X-Deadline-Ms: 1`: 504, counted in
         deadline_* and not in serve_server_errors;
@@ -1768,32 +2045,61 @@ def serve_http(cfg) -> dict:
       - a stream of HTTP_STREAM_FRAMES frames on `/v1/flow/stream`: 202,
         then 200s, warm from the second pair; then its DELETE;
       - `/healthz`, and `/metrics` through `parse_prometheus`;
+      - quality: every sampled request scored once, by one launch of the
+        float32 warp kernel on the head's grid (`warp_fwd_quality`), none
+        dropped; scored triples equal to the numpy reference's on the
+        same rows within QUALITY_RTOL;
+      - the drift: the `replica_degrade` fault (`resilience/faults.py`,
+        armed by `serve/server.py::install_replica_faults`) then adds 25
+        px to every flow; rounds of HTTP_DRIFT_REQUESTS requests until
+        the quality verdict is exhausted, the sampler's picks in that
+        stage equal to the scored count; `/healthz` commits one critical
+        `quality_drift` bundle; then `python -m deepof_tpu_torch
+        incidents list` exits 1, `ack` 0, `list` 0;
     with the client-clock p50/p99 beside the engine's histogram p50/p99,
     and the launches counted from 0 over the requests: the correlation
     once a cold dispatch (f32 and bf16: the float32 kernel), the warp
-    once a warm dispatch."""
+    once a warm dispatch and once a scored request."""
     import base64
 
     import numpy as np
     import torch
 
     from deepof_tpu_torch.io.flo import FLO_TAG
+    from deepof_tpu_torch.obs import incident
     from deepof_tpu_torch.obs.export import parse_prometheus
+    from deepof_tpu_torch.obs.quality import QualitySampler, score_pair_np
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.resilience.faults import FaultConfig
     from deepof_tpu_torch.serve.engine import InferenceEngine
-    from deepof_tpu_torch.serve.server import build_server
+    from deepof_tpu_torch.serve.server import (build_server,
+                                               install_replica_faults)
 
-    cfg = dataclasses.replace(cfg, serve=dataclasses.replace(
-        cfg.serve, precisions=("f32", "bf16"), host="127.0.0.1", port=0,
-        session=dataclasses.replace(cfg.serve.session, warm_start=True)))
+    log_dir = tempfile.mkdtemp(prefix="serve_http-", dir=work_root())
+    cfg = dataclasses.replace(
+        cfg, serve=dataclasses.replace(
+            cfg.serve, precisions=("f32", "bf16"), host="127.0.0.1", port=0,
+            session=dataclasses.replace(cfg.serve.session, warm_start=True)),
+        obs=dataclasses.replace(cfg.obs, incidents=True, **HTTP_QUALITY),
+        train=dataclasses.replace(cfg.train, log_dir=log_dir))
     h, w = cfg.data.image_size
-    rs = np.random.RandomState(40)
-    pairs = [(rs.randint(0, 256, (h, w, 3), dtype=np.uint8),
-              rs.randint(0, 256, (h, w, 3), dtype=np.uint8))
-             for _ in range(HTTP_REQUESTS)]
+    clip = video(40, HTTP_REQUESTS + 1, (h, w))
+    pairs = list(zip(clip[:-1], clip[1:]))
     bodies = [{"prev": b64_png(a), "next": b64_png(b)} for a, b in pairs]
     frames = video(41, HTTP_STREAM_FRAMES, (h, w))
     t0 = time.monotonic()
+    scored_rows: list = []
     with InferenceEngine(cfg, device="cuda") as eng, cudnn_deterministic():
+        eng.incidents = incident.install(cfg, log_dir, "serve")
+        inner_score = eng._quality._score_fn
+
+        def recording(bucket, x, flow):
+            out = inner_score(bucket, x, flow)
+            if len(scored_rows) < 4:
+                scored_rows.append((x[0].copy(), flow[0].copy(), out))
+            return out
+
+        eng._quality._score_fn = recording
         eng.warm()
         dispatches = count_dispatches(eng)
         httpd = build_server(cfg, eng)
@@ -1824,6 +2130,7 @@ def serve_http(cfg) -> dict:
                                 {"session": "clip", "frame": b64_png(f)})
                       for f in frames]
             deleted = http_call(address, "DELETE", "/v1/flow/stream/clip")
+            drained = eng._quality.drain(120.0)
             counts = kernel_counts()
             dispatches = dict(dispatches)  # the reference's go uncounted
             health = http_call(address, "GET", "/healthz")
@@ -1832,9 +2139,46 @@ def serve_http(cfg) -> dict:
             # the in-process reference: the same arrays through submit
             want = [f.result(timeout=600)["flow"] for f in
                     [eng.submit(a, b) for a, b in pairs]]
+            # the drift: from here every dispatch's flow is 25 px off
+            install_replica_faults(eng, dataclasses.replace(
+                cfg, resilience=dataclasses.replace(
+                    cfg.resilience, faults=FaultConfig(
+                        enabled=True, replica_degrade_at=(0,),
+                        replica_fault_after=eng.stats()[
+                            "serve_responses"]))))
+            eng._quality.drain(120.0)
+            index0, scored0 = (eng._quality_index,
+                               eng._quality.stats()["serve_quality_scored"])
+            drift = []
+            for _ in range(HTTP_DRIFT_ROUNDS):
+                drift += [http_call(address, "POST", "/v1/flow", bodies[i])
+                          for i in range(HTTP_DRIFT_REQUESTS)]
+                eng._quality.drain(120.0)
+                verdict = http_call(address, "GET", "/healthz")[2]
+                if verdict["serve_quality"]["exhausted"]:
+                    break
+            drift_stats = eng.stats()
+            index1 = eng._quality_index
+            quality_launches = cw.quality_launches.count
         finally:
             httpd.shutdown()
             httpd.server_close()
+    sampler = QualitySampler(cfg.obs.quality_sample_rate,
+                             cfg.obs.quality_seed)
+    drift_picks = sum(sampler.sample(i) for i in range(index0, index1))
+    triple_rel = max(
+        float(np.max(np.abs(np.array(t) - np.array(score_pair_np(x, f)))
+                     / np.abs(np.array(score_pair_np(x, f)))))
+        for x, f, t in scored_rows)
+    bundles = incident.list_incidents(log_dir)
+    verbs = {}
+    for name, verb in (("list", "list"), ("ack", "ack"),
+                       ("list again", "list")):
+        verbs[name] = subprocess.run(
+            [sys.executable, "-m", "deepof_tpu_torch", "incidents", verb,
+             "--log-dir", log_dir], capture_output=True, text=True,
+            timeout=120,
+            cwd=os.path.dirname(os.path.abspath(__file__))).returncode
     got = [np.frombuffer(base64.b64decode(r[2]["flow_b64"]), "<f4")
            .reshape(r[2]["shape"]) for r in results]
     diffs = [float(np.abs(g - x).max() / max(np.abs(x).max(), 1e-30))
@@ -1844,6 +2188,7 @@ def serve_http(cfg) -> dict:
     n_cold = sum(v for (t, m), v in dispatches.items() if m == "cold")
     n_warm = sum(v for (t, m), v in dispatches.items() if m == "warm")
     flo = fmt["flo"][2]
+    q = drift_stats["serve_quality"]
     row = {"requests": HTTP_REQUESTS, "threads": HTTP_THREADS,
            "wall_s": wall, "requests_per_s": HTTP_REQUESTS / wall,
            "client": p50_p99(client_ms),
@@ -1869,12 +2214,40 @@ def serve_http(cfg) -> dict:
                "serve_errors", "serve_responses_by_tier",
                "serve_session_latency_p50_ms",
                "serve_session_latency_p99_ms")},
+           "quality": {
+               **{k: stats[k] for k in (
+                   "serve_quality_sampled", "serve_quality_scored",
+                   "serve_quality_dropped", "serve_quality_errors",
+                   "serve_quality_photo_p50", "serve_quality_census_p50",
+                   "serve_quality_smooth_p50")},
+               "scorer_drained": drained,
+               "warp_fwd_quality_launches": counts["warp_fwd_quality"],
+               "triple_max_rel_vs_numpy": triple_rel,
+               "ref_p50": q["ref_p50"], "current_p50": q["current_p50"],
+               "drift_ratio": q["drift_ratio"], "breaches": q["breaches"],
+               "burn": q["burn"], "exhausted": q["exhausted"],
+               "drift_requests": len(drift),
+               "drift_statuses": sorted({r[0] for r in drift}),
+               "drift_scored": (drift_stats["serve_quality_scored"]
+                                - scored0),
+               "drift_sampler_picks": drift_picks,
+               "scored_total": drift_stats["serve_quality_scored"],
+               "warp_fwd_quality_launches_total": quality_launches},
+           "incidents": {
+               "bundles": [{k: m.get(k) for k in ("id", "kind", "severity",
+                                                   "role")}
+                           for m in bundles],
+               "incident_captured": drift_stats["incident_captured"],
+               "incident_deduped": drift_stats["incident_deduped"],
+               "verb_rcs": verbs},
            "seconds": time.monotonic() - t0,
            "card": torch.cuda.get_device_name(0)}
+    shutil.rmtree(log_dir, ignore_errors=True)
     emit("serve_http", **row)
     expired = sum(stats[k] for k in ("deadline_enqueue_expired",
                                      "deadline_flush_expired",
                                      "deadline_wait_expired"))
+    rq = row["quality"]
     checks = {
         "flows": all(r[0] == 200 for r in results)
         and max(diffs) <= HTTP_TOL,
@@ -1895,9 +2268,26 @@ def serve_http(cfg) -> dict:
         and deleted[0] == 200,
         "health": health[0] == 200 and metrics[0] == 200
         and parsed.get("deepof_serve_responses")
-        == stats["serve_responses"],
+        == stats["serve_responses"]
+        and parsed.get("deepof_serve_quality_scored")
+        == stats["serve_quality_scored"],
         "launches": n_cold > 0 and n_warm == HTTP_STREAM_FRAMES - 2
-        and counts == want_counts(corr=n_cold, warp_fwd=n_warm)}
+        and counts == want_counts(
+            corr=n_cold, warp_fwd=n_warm,
+            warp_fwd_quality=stats["serve_quality_scored"]),
+        "quality": drained and rq["serve_quality_scored"] > 0
+        and rq["serve_quality_scored"] == rq["serve_quality_sampled"]
+        == rq["warp_fwd_quality_launches"]
+        and rq["serve_quality_dropped"] == rq["serve_quality_errors"] == 0
+        and rq["warp_fwd_quality_launches_total"] == rq["scored_total"]
+        and triple_rel <= QUALITY_RTOL,
+        "drift": not stats["serve_quality"]["exhausted"]
+        and rq["exhausted"] and rq["drift_statuses"] == [200]
+        and rq["drift_scored"] == drift_picks > 0,
+        "incidents": [b["kind"] for b in row["incidents"]["bundles"]]
+        == ["quality_drift"]
+        and row["incidents"]["bundles"][0]["severity"] == "critical"
+        and verbs == {"list": 1, "ack": 0, "list again": 0}}
     if not all(checks.values()):
         raise AssertionError(f"serve_http: {checks}")
     return row
@@ -2607,14 +2997,9 @@ def corr_counters() -> list:
 
 def kernel_counts() -> dict[str, int]:
     """The launch counts of the correlation kernels (forward and the two
-    backward kernels, float32 and bf16) and of the two warp kernels (the
-    forward's by call site: the loss, the augmentation, the occlusion
-    mask)."""
-    from deepof_tpu_torch.ops.cuda import warp as cw
-
-    return {c.name: c.count for c in (
-        *corr_counters(), cw.fwd_launches, cw.grad_launches,
-        cw.augment_launches, cw.occlusion_launches)}
+    backward kernels, float32 and bf16) and of the two warp kernels
+    (`warp_counters`)."""
+    return {c.name: c.count for c in (*corr_counters(), *warp_counters())}
 
 
 def want_counts(**counts) -> dict[str, int]:
@@ -3680,11 +4065,20 @@ def warp_counts() -> tuple[int, int]:
     return cw.fwd_launches.count, cw.grad_launches.count
 
 
-def reset_warp_counts() -> None:
+def warp_counters() -> list:
+    """The launch counters of the warp kernels: the forward's by call
+    site (the loss, the augmentation, the occlusion mask, the quality
+    scorer), the flow gradient's, and the bf16 instances' (the loss under
+    loss.gather_dtype=bfloat16)."""
     from deepof_tpu_torch.ops.cuda import warp as cw
 
-    for c in (cw.fwd_launches, cw.grad_launches, cw.augment_launches,
-              cw.occlusion_launches):
+    return [cw.fwd_launches, cw.grad_launches, cw.augment_launches,
+            cw.occlusion_launches, cw.quality_launches,
+            cw.fwd_bf16_launches, cw.grad_bf16_launches]
+
+
+def reset_warp_counts() -> None:
+    for c in warp_counters():
         c.reset()
 
 
@@ -5491,7 +5885,9 @@ def main() -> int:
         check_corr_bwd(shape, disp, stride, seed=18 + i, timed=False,
                        dtype="bfloat16")
 
-    warp_rows = [check_warp(shape, 5.0, seed=2 + i)
+    # one reading each: the six levels' time is read off their one
+    # launch (check_warp_levels); these rows give the per-level split
+    warp_rows = [check_warp(shape, 5.0, seed=2 + i, rounds=1)
                  for i, shape in enumerate(WARP_LEVELS)]
     check_warp((3, 5, 13, 70), 3.0, seed=8, rounds=1)  # ragged
     # saturates at the border
@@ -5500,6 +5896,11 @@ def main() -> int:
     fused = check_warp_levels()
     # the six levels of the Sintel volume loss: 36 folded pairs
     volume = check_warp_volume()
+    # the bf16-image instances (loss.gather_dtype=bfloat16) on every route
+    # at FlowNet-S's six loss levels and at the Sintel volume's
+    warp_bf16 = check_warp_levels_bf16()
+    warp_bf16_volume = check_warp_levels_bf16(
+        VOLUME_LEVELS, seed=61, kernel="warp_volume_bf16", timed=("auto",))
 
     serve_row, corr_launches = serve(cfg)
     # the warm start's warp: one level at input resolution, batch 8, on
@@ -5507,6 +5908,10 @@ def main() -> int:
     serve_warp = check_warp((b, 3, h, w), 4.0, seed=30, bitwise=True,
                             smooth=True)
     check_warp((b, 3, h, w), 200.0, seed=31, rounds=1, bitwise=True)
+    # the quality scorer's warp: frame 2 by one served flow on FlowNet-C's
+    # head grid (h/4, w/4)
+    quality_warp = check_warp((1, 3, h // 4, w // 4), 4.0, seed=32,
+                              rounds=1, bitwise=True)
     tiers_row = serve_tiers(cfg)
     stream_row = serve_stream(cfg)
     http_row = serve_http(cfg)
@@ -5525,6 +5930,7 @@ def main() -> int:
         cli_c_row = cli_train_flownet_c(work)
         bf16_train = train_corr_model("flownet_c", work, "bfloat16")
         cli_bf16_row = cli_train_flownet_c_bf16(work)
+        gather_row = cli_train_gather_bf16(work)
         repeat_flownet_cs(work)
         sintel_row = cli_sintel(work)
         job_row = cli_train_job(work)
@@ -5794,10 +6200,45 @@ def main() -> int:
                     "library_ms")},
                 "library": f"{len(shape)} F.grid_sample(bilinear, border, "
                            "align_corners=True) calls"}
+    def bf16_entry(name, key):
+        # the bf16 instances: the main path `train --set
+        # loss.gather_dtype=bfloat16` (warp_impl auto), timed at
+        # FlowNet-S's six levels on that route; the XLA route and the
+        # Sintel volume's levels beside it
+        auto = warp_bf16["routes"]["auto"][key]
+        return {
+            "name": name, "route": "cuda",
+            "source": "deepof_tpu_torch/csrc/warp.cu",
+            "replaces": replaces[name.replace("_bf16", "")],
+            "dtype": "bfloat16",
+            "launches": gather_row["runs"]["auto"]["launches"][name],
+            "launches_by_path": {
+                f"cli_train_gather_bf16_{impl}": r["launches"][name]
+                for impl, r in gather_row["runs"].items()},
+            "launches_per_step": 1,
+            "shape": warp_bf16["shape"],
+            "pallas_levels": warp_bf16["routes"]["auto"]["pallas_levels"],
+            "bitwise_equal": all(e["bitwise_equal"] for e in
+                                 warp_bf16["routes"].values()),
+            **{k: auto[k] for k in (
+                "max_abs_err", "ms", "ms_runs", "call_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_ms_runs")},
+            "library": warp_bf16["library"],
+            "xla_route": {k: warp_bf16["routes"]["xla"][key][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "volume_shape": {
+                "shape": warp_bf16_volume["shape"],
+                "bitwise_equal": all(e["bitwise_equal"] for e in
+                                     warp_bf16_volume["routes"].values()),
+                **{k: warp_bf16_volume["routes"]["auto"][key][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}}}
+
     emit("total", seconds=time.monotonic() - START,
          phase_seconds={"cli_train_job": job_row["seconds"],
                         "cli_preempt_faults": preempt_row["seconds"],
                         "serve_http": http_row["seconds"],
+                        "cli_train_gather_bf16": gather_row["seconds"],
                         "cli_serve": serve_cli_row["seconds"],
                         "serve_fleet": fleet_row["seconds"],
                         "serve_autoscale": autoscale_row["seconds"],
@@ -5810,6 +6251,23 @@ def main() -> int:
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),
         warp_entry("warp_flow_grad", "flow_grad"),
+        bf16_entry("warp_fwd_bf16", "fwd"),
+        bf16_entry("warp_flow_grad_bf16", "flow_grad"),
+        {"name": "warp_fwd_quality", "route": "cuda", "kernel": "warp_fwd",
+         "source": "deepof_tpu_torch/csrc/warp.cu",
+         "replaces": replaces["warp_fwd"],
+         "launches": http_row["quality"]["warp_fwd_quality_launches"],
+         "path": "serve_http (obs.quality_sample_rate=0.5): one launch a "
+                 "scored request",
+         "launches_total": http_row["quality"][
+             "warp_fwd_quality_launches_total"],
+         "shape": quality_warp["shape"],
+         "bitwise_equal": quality_warp["fwd"]["bitwise_equal"],
+         **{k: quality_warp["fwd"][k] for k in (
+             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")},
+         "library": "one F.grid_sample(bilinear, border, "
+                    "align_corners=True) call"},
         site_entry("warp_fwd_augment", "warp_augment",
                    vgg_row["launches"]["train"]["warp_fwd_augment"],
                    "cli_train_vgg", [list(AUGMENT_SHAPE)] * 2,

@@ -1,5 +1,5 @@
 """Command-line entry point (port of the `train`, `eval`, `predict`,
-`serve`, `config`, `bench` and `verify-ckpt` verbs of
+`serve`, `config`, `bench`, `verify-ckpt` and `incidents` verbs of
 `deepof_tpu/cli.py`).
 
 Usage:
@@ -28,6 +28,8 @@ Usage:
     python -m deepof_tpu_torch bench            # the headline train step
     python -m deepof_tpu_torch bench --data-only --workers 4
     python -m deepof_tpu_torch verify-ckpt /runs/fc1
+    python -m deepof_tpu_torch incidents list --log-dir /runs/c1
+    python -m deepof_tpu_torch incidents ack --log-dir /runs/c1 [--id ID]
 
 The flags mean what they mean in the JAX package: `--preset`, `--model`,
 `--data-path`, `--log-dir`, `--set section.field=value` (any config
@@ -52,7 +54,12 @@ fleet mode even at one replica). `bench` takes the JAX verb's flags
 (`--model`, `--batch`, `--steps`, `--data-only`, `--workers`,
 `--batches`, `--image-size`, `--dataset`, `--data-path`) and
 `--device`; `verify-ckpt DIR` prints the run's checkpoint report and
-exits 1 on a corrupt checkpoint, 2 when there is none. `serve`
+exits 1 on a corrupt checkpoint, 2 when there is none. `incidents
+{list,show,ack,gc} --log-dir DIR` triages the incident bundles of a run
+(`obs/incident.py`; `--id`, `--older-than-days`, `--acked`, `--keep`,
+`--json-indent`): `list` exits 1 while a critical bundle is
+unacknowledged and 2 when none is recorded; `show` and a named `ack`
+exit 1 on an unknown bundle. `serve`
 restores the newest checkpoint of `--log-dir` (none under `--set serve.fake_exec_ms=...`); a fleet's
 replica restores the newest one of `<log-dir>/replica-<i>`. A train run in a log dir
 that holds checkpoints resumes from the newest one; `train` latches a
@@ -314,7 +321,33 @@ def main(argv=None) -> int:
     p_vck.add_argument("dir",
                        help="a run's --log-dir or its ckpt/ subdirectory")
 
+    p_inc = sub.add_parser(
+        "incidents",
+        help="incident triage: list / show / ack / gc the bundles under "
+             "<log-dir>/incidents/ (rc 1 = unacknowledged critical "
+             "incidents, rc 2 = none recorded)")
+    p_inc.add_argument("action", choices=("list", "show", "ack", "gc"),
+                       help="list: a line a committed bundle and the "
+                            "summary; show: one bundle's manifest and "
+                            "files; ack: acknowledge bundle(s); gc: remove "
+                            "old or acknowledged bundles and orphaned "
+                            "staging dirs")
+    p_inc.add_argument("--log-dir", required=True)
+    p_inc.add_argument("--id", default=None, metavar="ID",
+                       help="show: required; ack: one bundle (default: "
+                            "all)")
+    p_inc.add_argument("--older-than-days", type=float, default=None,
+                       metavar="DAYS",
+                       help="gc: remove bundles older than this")
+    p_inc.add_argument("--acked", action="store_true",
+                       help="gc: also remove acknowledged bundles")
+    p_inc.add_argument("--keep", type=int, default=None, metavar="N",
+                       help="gc: keep at most the newest N bundles")
+    p_inc.add_argument("--json-indent", type=int, default=2)
+
     args = parser.parse_args(argv)
+    if args.cmd == "incidents":
+        return _incidents(args)
     from .core.device import disable_tf32
 
     disable_tf32()
@@ -393,6 +426,57 @@ def main(argv=None) -> int:
         out = trainer.evaluate(dump=args.dump_visuals)
     print(json.dumps({k: float(v) for k, v in out.items()}))
     return 0
+
+
+def _incidents(args) -> int:
+    """The `incidents` verb, as the JAX package's: stdout the JSON
+    report; rc 1 = attention (unacknowledged critical bundles, or an
+    unknown id), rc 2 = no bundle recorded."""
+    import sys
+
+    from .obs import incident
+
+    if args.action == "show":
+        if not args.id:
+            print("incidents show: --id required", file=sys.stderr)
+            return 1
+        try:
+            detail = incident.show_incident(args.log_dir, args.id)
+        except FileNotFoundError:
+            print(f"incidents: no committed bundle {args.id!r} under "
+                  f"{args.log_dir!r}", file=sys.stderr)
+            return 1
+        print(json.dumps(detail, indent=args.json_indent))
+        return 0
+    if args.action == "ack":
+        acked = incident.ack_incidents(args.log_dir, incident_id=args.id)
+        print(json.dumps({"acked": acked}, indent=args.json_indent))
+        if args.id is not None and not acked:
+            print(f"incidents: no unacknowledged bundle {args.id!r} under "
+                  f"{args.log_dir!r}", file=sys.stderr)
+            return 1
+        return 0
+    if args.action == "gc":
+        report = incident.gc_incidents(
+            args.log_dir, older_than_days=args.older_than_days,
+            acked=args.acked, keep=args.keep)
+        print(json.dumps(report, indent=args.json_indent))
+        return 0
+    rows = incident.list_incidents(args.log_dir)
+    summary = incident.incident_summary(args.log_dir)
+    print(json.dumps(
+        {"dir": incident.incidents_dir(args.log_dir), "summary": summary,
+         "incidents": [
+             {"id": r.get("id"), "kind": r.get("kind"),
+              "severity": r.get("severity"), "role": r.get("role"),
+              "time": r.get("iso_time"), "acked": r.get("acked"),
+              "origin": r.get("origin")} for r in rows]},
+        indent=args.json_indent))
+    if summary is None:
+        print(f"incidents: none recorded under {args.log_dir!r}",
+              file=sys.stderr)
+        return 2
+    return 1 if summary["unacked_critical"] else 0
 
 
 def _verify_ckpt(path: str) -> int:

@@ -6,12 +6,11 @@ written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
 Those are settings of the mesh, elastic training, the compile cache, the
-ledger, incident and quality observability, and the artifact store's
-garbage collection: none of them changes a result. Settings
+executable ledger, the metrics port and the artifact store's garbage
+collection: none of them changes a result. Settings
 that change what the training path computes are carried, and where this
 package cannot honour a value yet, `check_trainable` raises on it,
-naming the ROADMAP item that ports it (`recipe` and
-`loss.gather_dtype="bfloat16"` among them).
+naming the ROADMAP item that ports it (`recipe`).
 """
 
 from __future__ import annotations
@@ -44,9 +43,11 @@ class LossConfig:
     border_ratio: float = 0.1
     # A TPU routing switch in the JAX package ("xla" | "pallas" |
     # "auto"). Here every one of the three takes the CUDA kernel for a
-    # CUDA tensor (or raises) and the plain version for a CPU tensor.
+    # CUDA tensor (or raises) and the plain version for a CPU tensor; for
+    # a bf16 warp operand it picks the JAX route's rounding per level
+    # (ops/warp.py::pallas_route; "auto" as on a TPU).
     warp_impl: str = "auto"
-    gather_dtype: str = "float32"  # float32 | bfloat16 (bfloat16 not ported, F11)
+    gather_dtype: str = "float32"  # float32 | bfloat16 (the warped image)
     photometric: str = "charbonnier"  # charbonnier | census
     census_window: int = 7
     occlusion: bool = False
@@ -393,11 +394,11 @@ class ResilienceConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """The training half of the JAX package's `ObsConfig` (`obs/`): the
-    span trace, the heartbeat with its wedge watchdog, and the FLOPs
-    telemetry. Its ledger, incident, SLO, quality and metrics-port keys
-    are not read (ROADMAP Queue A items 8 and 11); its SLO keys are
-    (`serve/engine.py`)."""
+    """The JAX package's `ObsConfig` (`obs/`) but its ledger and
+    metrics-port keys (ROADMAP Queue A items 8 and 11): the span trace,
+    the heartbeat with its wedge watchdog, the FLOPs telemetry, the
+    serving SLO (`serve/engine.py`), label-free quality scoring
+    (`obs/quality.py`) and the incident plane (`obs/incident.py`)."""
 
     # write a Chrome trace-event timeline to <log_dir>/trace.json
     trace: bool = False
@@ -419,6 +420,36 @@ class ObsConfig:
     slo_latency_ms: float = 0.0
     # the allowed bad fraction; burn = bad fraction / budget
     slo_error_budget: float = 0.01
+    # label-free quality scoring of served requests (obs/quality.py):
+    # the sampled fraction (0: off, nothing built), the sampler's seed,
+    # the scorer queue's bound (full: the sample is dropped and counted)
+    quality_sample_rate: float = 0.0
+    quality_seed: int = 0
+    quality_queue_depth: int = 128
+    # the drift verdict: the first quality_ref_samples scores freeze a
+    # reference median photo proxy; later, a sample above ref_p50 *
+    # quality_drift_factor is a breach, and breaches over post-reference
+    # samples burn quality_budget; quality_window bounds the current p50
+    quality_ref_samples: int = 64
+    quality_window: int = 256
+    quality_drift_factor: float = 2.0
+    quality_budget: float = 0.1
+    # the incident plane (obs/incident.py): bundles of evidence under
+    # <log_dir>/incidents/ when a verdict fires; false: no recorder
+    incidents: bool = False
+    # a token bucket over all kinds: burst, refilled at rate_per_min
+    incident_rate_per_min: float = 6.0
+    incident_burst: int = 3
+    # a kind that captured within this window is counted, not captured
+    incident_dedup_window_s: float = 300.0
+    # a bundle's metrics lines, heartbeat samples, and the committed
+    # bundles kept (the oldest pruned at capture)
+    incident_metrics_tail: int = 200
+    incident_heartbeats: int = 8
+    incident_keep: int = 32
+    # declarative alert rules on the heartbeat's cadence over registered
+    # keys: "[name:] [rate(]counter[)] OP value [warn|critical]"
+    alerts: tuple[str, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -597,18 +628,10 @@ def check_servable(cfg: ExperimentConfig) -> None:
 
 
 def check_loss(cfg: LossConfig) -> None:
-    """Raise on loss settings this package does not honour yet: of the
-    JAX package's loss, only `gather_dtype="bfloat16"`."""
+    """Raise ValueError on a loss setting of no known value."""
     if cfg.gather_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown loss.gather_dtype {cfg.gather_dtype!r}; "
                          "use 'float32' or 'bfloat16'")
-    if cfg.gather_dtype != "float32":
-        # a loss option, not a kernel: the warp kernels take float32
-        # only, in the JAX package too; its two routes round differently
-        # and the port must choose between them (ROADMAP F11)
-        raise_unported([(f"loss.gather_dtype={cfg.gather_dtype!r} "
-                         "(F11, the remainder of item 9.3)",
-                         "9 (loss variants)")])
     if cfg.warp_impl not in WARP_IMPLS:
         raise ValueError(f"unknown loss.warp_impl {cfg.warp_impl!r}; "
                          f"one of {WARP_IMPLS}")

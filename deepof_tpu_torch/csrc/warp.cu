@@ -1,5 +1,5 @@
-// Bilinear backward warp and its flow gradient, float32, for sm_90a,
-// over up to eight pyramid levels in one launch.
+// Bilinear backward warp and its flow gradient, for sm_90a, over up to
+// eight pyramid levels in one launch; the image float32 or bf16.
 //
 // Replaces deepof_tpu/ops/pallas/warp.py::_warp_kernel (the forward,
 // behind backward_warp_pallas) and ::_warp_flow_grad_kernel (the flow
@@ -81,8 +81,31 @@
 // Giving each thread 4 consecutive pixels (float4 flow loads) made a
 // warp's gathers span 128 pixels, and took 7.9 us; 4 pixels 32 apart in
 // 4-row blocks, 7.1 us (PERF.md, Findings).
+//
+// bf16 images (loss.gather_dtype="bfloat16"). Both kernels are also
+// templates on the image's element type TI, float or __nv_bfloat16: a
+// bf16 image is gathered at 2 bytes a value, which is the point of the
+// option, and each value is converted exactly to float before the same
+// float32 blend and accumulate, in the same order. The JAX package has
+// two routes for such an image, and a level's entry in the table says
+// which one it takes:
+//   - out_bf16 = 0, its XLA route (deepof_tpu/ops/warp.py:84-124): the
+//     bf16 values blended with float32 weights, a float32 output;
+//   - out_bf16 = 1, its Pallas route (ops/pallas/warp.py:80,198): the
+//     same float32 value rounded once to bf16, to nearest even (torch's
+//     .to(torch.bfloat16)), so the cotangent that comes back for that
+//     level is bf16 too: ct_bf16 = 1 makes the flow-gradient kernel read
+//     it as bf16 and convert it exactly, as the Pallas VJP's float32
+//     cast does (ops/pallas/warp.py:274). The flow gradient is float32.
+// One launch covers levels of both routes; no cast kernel runs. The
+// float32-image instances take no flag: their output and cotangent are
+// float32 on both routes.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -93,7 +116,7 @@ constexpr int kPix = 2;        // pixels per thread, kThreadsX apart
 constexpr int kTileW = kThreadsX * kPix;
 
 struct View {
-  float* p;
+  void* p;
   int sb, sc, sy, sx;  // element strides
 };
 
@@ -102,7 +125,38 @@ struct Level {
   int H, W;
   int tiles_x, tiles_y;  // kTileW-column tiles per row, kRows-row tiles
   int first_block;       // blocks of earlier (finer) levels
+  int out_bf16;          // bf16-image instances: the forward writes bf16
+  int ct_bf16;           // bf16-image instances: the cotangent is bf16
 };
+
+// One value of an image or cotangent, converted to float (exact for
+// bf16); a bf16 value is read as its 16 bits through the read-only path.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+template <typename TI>
+constexpr bool kFloatImage = std::is_same<TI, float>::value;
+
+// The forward's output at element offset o: float32, or, for a level of
+// a bf16-image launch that asks for it, bf16 rounded to nearest even.
+template <typename TI>
+__device__ __forceinline__ void store_out(const Level& L, int o, float v) {
+  if (!kFloatImage<TI> && L.out_bf16)
+    deepof::store1(static_cast<__nv_bfloat16*>(L.out.p) + o, v);
+  else
+    static_cast<float*>(L.out.p)[o] = v;
+}
+
+// The cotangent at element offset o, as float.
+template <typename TI>
+__device__ __forceinline__ float load_ct(const Level& L, int o) {
+  if (!kFloatImage<TI> && L.ct_bf16)
+    return ld(static_cast<const __nv_bfloat16*>(L.ct.p) + o);
+  return ld(static_cast<const float*>(L.ct.p) + o);
+}
 
 struct Table {
   Level lv[kMaxLevels];
@@ -174,7 +228,8 @@ __device__ __forceinline__ bool locate(const Table& t, Where& w) {
 __device__ __forceinline__ void taps(const Level& L, const Where& w,
                                      Tap (&tp)[kPix]) {
   const View& F = L.flow;
-  const float* fl = F.p + w.b * F.sb + w.y * F.sy + w.x * F.sx;
+  const float* fl = static_cast<const float*>(F.p) + w.b * F.sb +
+                    w.y * F.sy + w.x * F.sx;
   float u[kPix], v[kPix];
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
@@ -223,7 +278,7 @@ __device__ __forceinline__ void accumulate(const float (&q)[4], float g,
 
 // kC = 3: the training loss's images, every gather of the thread loaded
 // before the first blend; kC = 0: any channel count, pixel by pixel
-template <int kC>
+template <int kC, typename TI>
 __global__ void __launch_bounds__(kThreadsX * kRows)
 warp_fwd_levels_kernel(const __grid_constant__ Table t) {
   Where w;
@@ -233,8 +288,8 @@ warp_fwd_levels_kernel(const __grid_constant__ Table t) {
   taps(L, w, tp);
   const View& I = L.image;
   const View& O = L.out;
-  const float* img = I.p + w.b * I.sb;
-  float* out = O.p + w.b * O.sb + w.y * O.sy + w.x * O.sx;
+  const TI* img = static_cast<const TI*>(I.p) + w.b * I.sb;
+  const int out = w.b * O.sb + w.y * O.sy + w.x * O.sx;
   if constexpr (kC > 0) {
     float q[kPix][kC][4];
 #pragma unroll
@@ -244,30 +299,32 @@ warp_fwd_levels_kernel(const __grid_constant__ Table t) {
 #pragma unroll
       for (int c = 0; c < kC; ++c)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) q[i][c][k] = __ldg(img + c * I.sc + o[k]);
+        for (int k = 0; k < 4; ++k) q[i][c][k] = ld(img + c * I.sc + o[k]);
     }
 #pragma unroll
     for (int i = 0; i < kPix; ++i)
       if (i < w.n) {
 #pragma unroll
         for (int c = 0; c < kC; ++c)
-          out[i * kThreadsX * O.sx + c * O.sc] = blend(q[i][c], tp[i]);
+          store_out<TI>(L, out + i * kThreadsX * O.sx + c * O.sc,
+                        blend(q[i][c], tp[i]));
       }
   } else {
     for (int i = 0; i < w.n; ++i) {
       int o[4];
       corners(I, tp[i], o);
       for (int c = 0; c < t.C; ++c) {
-        const float* p = img + c * I.sc;
-        const float q[4] = {__ldg(p + o[0]), __ldg(p + o[1]), __ldg(p + o[2]),
-                            __ldg(p + o[3])};
-        out[i * kThreadsX * O.sx + c * O.sc] = blend(q, tp[i]);
+        const TI* p = img + c * I.sc;
+        const float q[4] = {ld(p + o[0]), ld(p + o[1]), ld(p + o[2]),
+                            ld(p + o[3])};
+        store_out<TI>(L, out + i * kThreadsX * O.sx + c * O.sc,
+                      blend(q, tp[i]));
       }
     }
   }
 }
 
-template <int kC>
+template <int kC, typename TI>
 __global__ void __launch_bounds__(kThreadsX * kRows)
 warp_flow_grad_levels_kernel(const __grid_constant__ Table t) {
   Where w;
@@ -278,8 +335,8 @@ warp_flow_grad_levels_kernel(const __grid_constant__ Table t) {
   const View& I = L.image;
   const View& G = L.ct;
   const View& O = L.out;
-  const float* img = I.p + w.b * I.sb;
-  const float* ct = G.p + w.b * G.sb + w.y * G.sy + w.x * G.sx;
+  const TI* img = static_cast<const TI*>(I.p) + w.b * I.sb;
+  const int ct = w.b * G.sb + w.y * G.sy + w.x * G.sx;
   float du[kPix], dv[kPix];
   if constexpr (kC > 0) {
     float q[kPix][kC][4], g[kPix][kC];
@@ -289,9 +346,11 @@ warp_flow_grad_levels_kernel(const __grid_constant__ Table t) {
       corners(I, tp[i], o);
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
-        g[i][c] = i < w.n ? __ldg(ct + i * kThreadsX * G.sx + c * G.sc) : 0.f;
+        g[i][c] = i < w.n
+            ? load_ct<TI>(L, ct + i * kThreadsX * G.sx + c * G.sc)
+            : 0.f;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) q[i][c][k] = __ldg(img + c * I.sc + o[k]);
+        for (int k = 0; k < 4; ++k) q[i][c][k] = ld(img + c * I.sc + o[k]);
       }
     }
 #pragma unroll
@@ -309,15 +368,16 @@ warp_flow_grad_levels_kernel(const __grid_constant__ Table t) {
       int o[4];
       corners(I, tp[i], o);
       for (int c = 0; c < t.C; ++c) {
-        const float* p = img + c * I.sc;
-        const float q[4] = {__ldg(p + o[0]), __ldg(p + o[1]), __ldg(p + o[2]),
-                            __ldg(p + o[3])};
-        accumulate(q, __ldg(ct + i * kThreadsX * G.sx + c * G.sc), tp[i],
-                   du[i], dv[i]);
+        const TI* p = img + c * I.sc;
+        const float q[4] = {ld(p + o[0]), ld(p + o[1]), ld(p + o[2]),
+                            ld(p + o[3])};
+        accumulate(q, load_ct<TI>(L, ct + i * kThreadsX * G.sx + c * G.sc),
+                   tp[i], du[i], dv[i]);
       }
     }
   }
-  float* out = O.p + w.b * O.sb + w.y * O.sy + w.x * O.sx;
+  float* out = static_cast<float*>(O.p) + w.b * O.sb + w.y * O.sy +
+               w.x * O.sx;
 #pragma unroll
   for (int i = 0; i < kPix; ++i)
     if (i < w.n) {
@@ -329,6 +389,7 @@ warp_flow_grad_levels_kernel(const __grid_constant__ Table t) {
     }
 }
 
+template <typename TI>
 int launch(const void* table, int blocks, void* stream, bool grad) {
   const Table& t = *static_cast<const Table*>(table);
   if (t.n_levels < 1 || t.n_levels > kMaxLevels || t.C < 1 || blocks < 1)
@@ -337,14 +398,14 @@ int launch(const void* table, int blocks, void* stream, bool grad) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grad) {
     if (t.C == 3)
-      warp_flow_grad_levels_kernel<3><<<blocks, block, 0, s>>>(t);
+      warp_flow_grad_levels_kernel<3, TI><<<blocks, block, 0, s>>>(t);
     else
-      warp_flow_grad_levels_kernel<0><<<blocks, block, 0, s>>>(t);
+      warp_flow_grad_levels_kernel<0, TI><<<blocks, block, 0, s>>>(t);
   } else {
     if (t.C == 3)
-      warp_fwd_levels_kernel<3><<<blocks, block, 0, s>>>(t);
+      warp_fwd_levels_kernel<3, TI><<<blocks, block, 0, s>>>(t);
     else
-      warp_fwd_levels_kernel<0><<<blocks, block, 0, s>>>(t);
+      warp_fwd_levels_kernel<0, TI><<<blocks, block, 0, s>>>(t);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -369,14 +430,27 @@ void deepof_warp_geometry(int* out) {
 // tiles_x. Launches on `stream` and returns cudaGetLastError() (0 on
 // success); it does not synchronise.
 int deepof_warp_fwd_levels_f32(const void* table, int blocks, void* stream) {
-  return launch(table, blocks, stream, false);
+  return launch<float>(table, blocks, stream, false);
 }
 
 // As above, with ct (the output cotangent, shaped as the image) and out
 // (the flow cotangent, shaped as the flow) = (dL/du, dL/dv).
 int deepof_warp_flow_grad_levels_f32(const void* table, int blocks,
                                      void* stream) {
-  return launch(table, blocks, stream, true);
+  return launch<float>(table, blocks, stream, true);
+}
+
+// The same two kernels on bf16 images: each level's out_bf16 and ct_bf16
+// say whether its output and its cotangent are bf16 or float32; the
+// flow and the flow cotangent are float32.
+int deepof_warp_fwd_levels_bf16(const void* table, int blocks,
+                                void* stream) {
+  return launch<__nv_bfloat16>(table, blocks, stream, false);
+}
+
+int deepof_warp_flow_grad_levels_bf16(const void* table, int blocks,
+                                      void* stream) {
+  return launch<__nv_bfloat16>(table, blocks, stream, true);
 }
 
 const char* deepof_cuda_error_string(int code) {

@@ -9,7 +9,9 @@ float32 where cv2 rounds a uint8 image back to uint8, so the two differ
 by at most a grey level. `SyntheticData`'s "noise" canvas upsamples with
 PyTorch's bicubic filter in place of cv2's INTER_CUBIC (the same
 a = -0.75 kernel with half-pixel centres; they agree to ~1e-4 grey
-levels).
+levels); its "affine" source, cv2.remap in the JAX package, is
+`remap_linear_replicate`, OpenCV 5's remap arithmetic in numpy (equal
+bit for bit to the installed cv2 5.0.0).
 
 Decoding, two routes as in the JAX package:
   - cached (`data.cache_decoded=True`): each frame is decoded at its own
@@ -505,18 +507,51 @@ class UCF101Data:
         return self._cache.stats()
 
 
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """a * b + c rounded once to float32 (a fused multiply-add): the
+    float32 product is exact in float64, so only the sum rounds there."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def remap_linear_replicate(img: np.ndarray, map_x: np.ndarray,
+                           map_y: np.ndarray) -> np.ndarray:
+    """`cv2.remap(img, map_x, map_y, INTER_LINEAR, BORDER_REPLICATE)` on a
+    float32 (H, W, C) image with float32 maps (H', W'), in numpy, as
+    OpenCV 5 computes it: the coordinate split into floor(x) and its
+    float32 fraction (no fixed-point table), the four taps each clamped
+    to the image, and two lerps along x then one along y, each a fused
+    multiply-add in float32: a + fx (b - a)."""
+    h, w = img.shape[:2]
+    mx, my = map_x.astype(np.float32), map_y.astype(np.float32)
+    x0f, y0f = np.floor(mx), np.floor(my)
+    fx = (mx - x0f)[..., None]
+    fy = (my - y0f)[..., None]
+    x0, y0 = x0f.astype(np.int64), y0f.astype(np.int64)
+    xa, xb = np.clip(x0, 0, w - 1), np.clip(x0 + 1, 0, w - 1)
+    ya, yb = np.clip(y0, 0, h - 1), np.clip(y0 + 1, 0, h - 1)
+    img = img.astype(np.float32, copy=False)
+    v0, v1, v2, v3 = img[ya, xa], img[ya, xb], img[yb, xa], img[yb, xb]
+    top = _fma(fx, v1 - v0, v0)
+    bottom = _fma(fx, v3 - v2, v2)
+    return _fma(fy, bottom - top, top)
+
+
 class SyntheticData:
     """Procedural dataset with exact ground-truth flow (port of the JAX
-    package's `SyntheticData`, styles "noise" and "blobs"). The numpy
-    draws are made in the same order, so a batch for a given seed is the
-    JAX batch.
+    package's `SyntheticData`, styles "noise", "blobs" and "affine"). The
+    numpy draws are made in the same order, so a batch for a given seed
+    is the JAX batch.
 
     Each sample: a smooth random canvas; the target is the source
     translated by a per-sample integer (u, v), so the ground-truth flow
     is uniform, (-u, -v), and minimises the unsupervised loss. "noise"
     upsamples random noise by `feature_scale`; "blobs" draws multi-octave
-    Gaussian blobs on a linear-gradient background. The "affine" style
-    needs cv2.remap and has no route here yet.
+    Gaussian blobs on a linear-gradient background. "affine" takes the
+    blob canvas as the target and a spatially varying affine field as
+    the flow, and builds the source as the target warped by it
+    (`remap_linear_replicate`, OpenCV's remap in numpy): the flow and the
+    target are the JAX package's bit for bit, the source within the
+    bound that `tests/test_torch_gather_bf16.py` measures against cv2.
     """
 
     mean = (0.0, 0.0, 0.0)
@@ -525,11 +560,7 @@ class SyntheticData:
                  num_val: int = 16, max_shift: float = 4.0,
                  feature_scale: int = 8, style: str = "noise",
                  n_blobs: int = 8):
-        if style == "affine":
-            raise NotImplementedError(
-                "SyntheticData style 'affine' needs cv2.remap, which this "
-                "package does not have: ROADMAP Queue A item 5")
-        if style not in ("noise", "blobs"):
+        if style not in ("noise", "blobs", "affine"):
             raise ValueError(f"unknown SyntheticData style {style!r}")
         self.cfg = cfg
         self.num_train, self.num_val = num_train, num_val
@@ -542,6 +573,8 @@ class SyntheticData:
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         rng = np.random.RandomState(seed)
         h, w = self.cfg.image_size
+        if self._style == "affine":
+            return self._sample_affine(rng, h, w, shift_bound)
         if self._style == "blobs":
             img = self._blob_canvas(rng, h + 16, w + 16)
         else:
@@ -557,6 +590,38 @@ class SyntheticData:
         # tgt[y, x] == src[y+v, x+u]: the ground-truth flow is (-u, -v)
         flow = np.broadcast_to(
             np.asarray([-u, -v], np.float32), (h, w, 2)).copy()
+        return src, tgt, flow
+
+    def _sample_affine(self, rng, h: int, w: int,
+                       shift_bound: float | None = None):
+        """The JAX package's `_sample_affine`
+        (`deepof_tpu/data/datasets.py:607-642`), draw for draw: the
+        target is the blob canvas; the flow g = A (p - c) + t, a small
+        rotation, log-scale and shear about a random centre plus a
+        translation, rescaled so max |g| <= the bound; the source is the
+        target warped backward by g, src[p] = tgt[p + g(p)]."""
+        bound = self._max_shift if shift_bound is None else shift_bound
+        tgt = self._blob_canvas(rng, h, w)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        cy, cx = rng.rand(2) * [h - 1, w - 1]
+        ang = (rng.rand() - 0.5) * 0.2
+        scale = 1.0 + (rng.rand() - 0.5) * 0.1
+        shear = (rng.rand() - 0.5) * 0.1
+        a = np.asarray([[np.cos(ang), -np.sin(ang)],
+                        [np.sin(ang), np.cos(ang)]], np.float32)
+        a = a @ np.asarray([[scale, shear], [0.0, 1.0 / scale]], np.float32)
+        a -= np.eye(2, dtype=np.float32)
+        tu, tv = (rng.rand(2) * 2 - 1) * bound * 0.5
+        gu = a[0, 0] * (xx - cx) + a[0, 1] * (yy - cy) + tu
+        gv = a[1, 0] * (xx - cx) + a[1, 1] * (yy - cy) + tv
+        mag = float(np.sqrt(gu**2 + gv**2).max())
+        if mag > bound:
+            gu *= bound / mag
+            gv *= bound / mag
+        gu = gu.astype(np.float32)  # tu, tv are Python floats: float64
+        gv = gv.astype(np.float32)
+        src = remap_linear_replicate(tgt, xx + gu, yy + gv)
+        flow = np.stack([gu, gv], axis=-1)
         return src, tgt, flow
 
     def _blob_canvas(self, rng, ch: int, cw: int) -> np.ndarray:

@@ -42,6 +42,21 @@ def charbonnier(x: torch.Tensor, eps: float, alpha: float) -> torch.Tensor:
     return torch.pow(x.square() + eps * eps, alpha)
 
 
+def warp_operand(x: torch.Tensor, cfg: LossConfig) -> torch.Tensor:
+    """The warped image's dtype policy, `loss.gather_dtype` (the JAX
+    package's `_warp_operand`, `deepof_tpu/losses/photometric.py:
+    140-151`): "bfloat16" casts the image to bf16, which halves the bytes
+    the warp gathers; "float32" keeps it. The warp returns float32 or
+    bf16 by its route (`ops/warp.py::pallas_route`), and the losses cast
+    the result back to the input dtype."""
+    if cfg.gather_dtype == "bfloat16":
+        return x.to(torch.bfloat16)
+    if cfg.gather_dtype != "float32":
+        raise ValueError(f"unknown loss.gather_dtype {cfg.gather_dtype!r}; "
+                         "use 'float32' or 'bfloat16'")
+    return x
+
+
 def _border_width(h: int, ratio: float, min_width: int = 0) -> int:
     return max(int(math.ceil(h * ratio)), min_width)
 
@@ -201,7 +216,8 @@ def loss_interp(flow: torch.Tensor, inputs: torch.Tensor,
     if scaled is None:
         scaled = flow * flow_scale
     if recon is None:
-        recon = backward_warp(outputs, scaled, impl=cfg.warp_impl)
+        recon = backward_warp(warp_operand(outputs, cfg), scaled,
+                              impl=cfg.warp_impl).to(inputs.dtype)
     gmask = _photo_gradient_mask(inputs) if cfg.edge_aware_photo else None
 
     bmask = border_mask(h, w, cfg.border_ratio, device=inputs.device)
@@ -346,7 +362,8 @@ def loss_interp_multi(flows: torch.Tensor, volume: torch.Tensor,
     if scaled is None:
         scaled = flows * flow_scale
     if recon is None:
-        recon = backward_warp_volume(volume, scaled, impl=cfg.warp_impl)
+        recon = backward_warp_volume(warp_operand(volume, cfg), scaled,
+                                     impl=cfg.warp_impl).to(volume.dtype)
 
     bmask = border_mask(h, w, cfg.border_ratio, device=volume.device)
     bw = _border_width(h, cfg.border_ratio)

@@ -8,7 +8,10 @@ occlusion option, and the T-frame volume `pyramid_loss_multi`.
   - the warp of every level's resized next frame by its scaled flow, in
     one call (`backward_warp_levels`: one launch of each kernel on the
     card); for a volume, of every level's T-1 next frames, folded into
-    the batch (`ops/warp.py::fold_pairs`), in that same one call;
+    the batch (`ops/warp.py::fold_pairs`), in that same one call; under
+    `loss.gather_dtype="bfloat16"` the warped images are bf16 and each
+    level takes the JAX package's route for it (`ops/warp.py`), the
+    result cast back to the input dtype;
   - under `loss.occlusion`, the backward flows of every level warped by
     the forward ones in one more launch of the forward kernel (C = 2,
     no gradient: the mask ends in a comparison), for `occlusion_mask`;
@@ -31,7 +34,7 @@ from ..ops.lrn import local_response_normalization
 from ..ops.warp import (backward_warp_levels, fold_pairs, unfold_pairs,
                         warp_levels_forward)
 from .photometric import (LossDict, check_loss_multi, loss_interp,
-                          loss_interp_multi, occlusion_mask)
+                          loss_interp_multi, occlusion_mask, warp_operand)
 
 
 def preprocess(images: torch.Tensor, mean) -> torch.Tensor:
@@ -81,8 +84,8 @@ def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
     occlusion masking of the photometric term.
 
     Returns (weighted total, per-level loss dicts finest first, finest
-    reconstruction). Raises on loss settings not ported yet and on the
-    JAX package's bad pairings."""
+    reconstruction). Raises on a loss setting of no known value and on
+    the JAX package's bad pairings."""
     check_loss(cfg)
     sizes = [flow.shape[1:3] for flow, _ in flow_pyramid]
     scaled = [flow * scale for flow, scale in flow_pyramid]
@@ -91,8 +94,10 @@ def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
     if flow_pyramid_bw is not None:
         occ = occlusion_masks(scaled, flow_pyramid_bw,
                               [s for _, s in flow_pyramid], cfg)
-    # every level in one launch of each warp kernel
-    recons = backward_warp_levels(targets, scaled, impl=cfg.warp_impl)
+    # every level in one launch of each warp kernel, of the loss's
+    # gather dtype; the warped images come back in the input dtype
+    recons = [r.to(inputs_norm.dtype) for r in backward_warp_levels(
+        [warp_operand(t, cfg) for t in targets], scaled, impl=cfg.warp_impl)]
     losses: list[LossDict] = []
     total = torch.zeros((), device=inputs_norm.device)
     for k, (flow, scale) in enumerate(flow_pyramid):
@@ -121,10 +126,11 @@ def pyramid_loss_multi(flow_pyramid: list[tuple[torch.Tensor, float]],
     vols = [_resize(volume_norm, *flow.shape[1:3])
             for flow, _ in flow_pyramid]
     scaled = [flow * scale for flow, scale in flow_pyramid]
-    folded = [fold_pairs(v, s) for v, s in zip(vols, scaled)]
-    recons = backward_warp_levels([nxt for nxt, _ in folded],
-                                  [flw for _, flw in folded],
-                                  impl=cfg.warp_impl)
+    folded = [fold_pairs(warp_operand(v, cfg), s)
+              for v, s in zip(vols, scaled)]
+    recons = [r.to(volume_norm.dtype) for r in backward_warp_levels(
+        [nxt for nxt, _ in folded], [flw for _, flw in folded],
+        impl=cfg.warp_impl)]
     losses: list[LossDict] = []
     total = torch.zeros((), device=volume_norm.device)
     recon_finest = None

@@ -1,5 +1,4 @@
-"""Observability of the training loop (port of the training half of
-`deepof_tpu/obs/`):
+"""Observability of training and serving (port of `deepof_tpu/obs/`):
 
   trace.py      ring-buffered span tracer writing a Chrome trace-event
                 timeline (a copy; stdlib-only);
@@ -10,10 +9,16 @@
                 counted by `torch.utils.flop_counter.FlopCounterMode`;
   export.py     fixed-bucket latency histograms, Prometheus text and the
                 SLO arithmetic of the serving engine (a copy);
-  registry.py   the merge kind of each serve, fleet, autoscale and
-                degrade key, by which the fleet's router merges its
-                replicas' stats (a copy, trimmed).
+  registry.py   the merge kind of each serve, quality, fleet,
+                autoscale, degrade and incident key, by which the
+                fleet's router merges its replicas' stats (a copy,
+                trimmed);
+  quality.py    label-free quality scoring of sampled served requests
+                (warp, census, smoothness proxies; the drift verdict);
+  incident.py   the incident plane: evidence bundles committed when a
+                verdict fires, alert rules, and the `incidents` verb's
+                triage (a copy; stdlib-only).
 
-The ledger, the incident recorder, aggregate and quality are not ported
-(ROADMAP Queue A item 11).
+The executable ledger and aggregate/analyze are not ported (ROADMAP
+Queue A items 8 and 11).
 """

@@ -10,10 +10,11 @@ processes' values combine into one fleet-wide value) and its **owner**
 (which subsystem writes it). `Router.scrape_replicas` merges the
 replicas' `/healthz` blocks by these kinds (`merge_stats_blocks`), so
 a registered counter joins the fleet's `/metrics` with no edit there.
-The JAX package's quality, executable-ledger, incident, elastic,
-recipe and training-resilience keys are not declared: this package
-writes none of them to a stats block the fleet merges (ROADMAP Queue A
-items 9-11 port those planes). This package's keys are the JAX
+The quality (`serve_quality_*`) and incident (`incident_*`, `alert_*`)
+keys are declared too. The JAX package's executable-ledger, elastic,
+recipe and training-resilience keys are not: this package writes none
+of them to a stats block the fleet merges (ROADMAP Queue A items 8-10
+port those planes). This package's keys are the JAX
 package's: none of its serve, fleet, autoscale or degrade keys is its
 own.
 
@@ -53,7 +54,7 @@ class Key:
     name: the full key as written into stats dicts ("serve_requests").
     kind: merge kind (see module docstring).
     owner: the subsystem that writes it — engine | session | router |
-        fleet | degrade.
+        fleet | degrade | quality | incident.
     """
 
     name: str
@@ -98,6 +99,23 @@ _ENTRIES: list[Key] = [
     Key("serve_session_latency_hist", "hist", "session"),
     *_keys("session", "derived",
            "serve_session_latency_p50_ms", "serve_session_latency_p99_ms"),
+    # --------------------- serve_quality_* (label-free flow quality,
+    # obs/quality.py: sampled photometric/census/smoothness proxies)
+    *_keys("quality", "sum",
+           "serve_quality_sampled", "serve_quality_dropped",
+           "serve_quality_scored", "serve_quality_errors",
+           "serve_quality_breaches"),
+    Key("serve_quality_sample_rate", "gauge", "quality"),
+    *_keys("quality", "map",
+           "serve_quality_scored_by_key", "serve_quality_photo_sum_by_key",
+           "serve_quality_smooth_sum_by_key",
+           "serve_quality_census_sum_by_key"),
+    *_keys("quality", "hist",
+           "serve_quality_photo_hist", "serve_quality_smooth_hist",
+           "serve_quality_census_hist"),
+    *_keys("quality", "derived",
+           "serve_quality", "serve_quality_photo_p50",
+           "serve_quality_smooth_p50", "serve_quality_census_p50"),
     # ------------------------------ serve_* written by the fleet scrape
     *_keys("router", "sum",
            "serve_replicas_scraped", "serve_replicas_scrape_failed"),
@@ -175,6 +193,18 @@ _ENTRIES: list[Key] = [
     # sustained-L3 verdict (L3 held past degrade.l3_sustained_s)
     Key("degrade_l3_sustained", "bool", "degrade"),
     Key("degrade_last_reason", "state", "degrade"),
+    # --------------- incident_*/alert_* (obs/incident.py, the flight
+    # recorder): capture, dedup and rate-limit accounting and the alert
+    # rules
+    *_keys("incident", "sum",
+           "incident_captured", "incident_collected",
+           "incident_deduped", "incident_rate_limited",
+           "incident_capture_errors"),
+    Key("incident_by_kind", "map", "incident"),
+    Key("incident_last_kind", "state", "incident"),
+    Key("alert_rules", "gauge", "incident"),
+    Key("alert_firings", "sum", "incident"),
+    Key("alert_errors", "sum", "incident"),
 ]
 
 #: name -> Key (validated no-duplicate below).

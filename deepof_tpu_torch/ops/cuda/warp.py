@@ -10,15 +10,19 @@ of the image for the forward, of the flow for the gradient).
 `warp_fwd_cuda` and `warp_flow_grad_cuda` are the one-level case of the
 same launch.
 
-They take float32 only, as the Pallas kernels do: the JAX wrapper casts
-every operand to float32 before the call (`ops/pallas/warp.py:80`), both
-kernels write float32 (`:166,195`), and the VJP hands the flow-gradient
-kernel a float32 cotangent (`:274`). Under `loss.gather_dtype=
-"bfloat16"` a bf16 image reaches only that wrapper's final cast (`:198`)
-and XLA's gather, so that setting is a loss option (ROADMAP F11), not a
-kernel path; a bf16 CUDA tensor raises here rather than being converted.
-Training under `train.compute_dtype="bfloat16"` warps in float32, as the
-JAX package does: the flows are cast back to float32 before the loss.
+The image is float32 or bf16 (all levels of a launch alike); the flow is
+float32. A bf16 image is what `loss.gather_dtype="bfloat16"` hands the
+warp (the JAX loss casts it, `deepof_tpu/losses/photometric.py:140-151`):
+the kernels read it at 2 bytes a value and blend in float32. Each level
+takes one of the JAX package's two routes for it, by `pallas` (see
+`ops/warp.py::pallas_route`): its XLA route returns float32, its Pallas
+route rounds the float32 result to bf16 (`ops/pallas/warp.py:198`), and
+the cotangent that comes back for such a level is bf16, which the
+flow-gradient kernel reads as it is (the Pallas VJP casts it to float32,
+`:274`: the same values). The flow gradient is float32. No tensor is
+converted on its way to a kernel. A float32 image gives float32 on both
+routes. The bf16 instances count their launches on their own counters,
+`warp_fwd_bf16` and `warp_flow_grad_bf16`.
 
 The wrappers never fall back to the plain version: a failed build or
 launch raises.
@@ -31,6 +35,7 @@ from collections.abc import Sequence
 
 import torch
 
+from ..warp import warped_dtype
 from .build import LaunchCounter, check, load
 
 # The kernels' tile geometry (csrc/warp.cu; checked against the build at
@@ -44,13 +49,19 @@ TILE_W = THREADS_X * PIX
 fwd_launches = LaunchCounter("warp_fwd")
 grad_launches = LaunchCounter("warp_flow_grad")
 # the forward kernel's launches on data, by its caller
-# (ops/warp.py::warp_levels_forward): the augmentation's resample, and
-# the occlusion mask's warp of the backward flows (C = 2)
+# (ops/warp.py::warp_levels_forward): the augmentation's resample, the
+# occlusion mask's warp of the backward flows (C = 2), and the serving
+# engine's quality scorer (obs/quality.py: frame 2 by a served flow)
 augment_launches = LaunchCounter("warp_fwd_augment")
 occlusion_launches = LaunchCounter("warp_fwd_occlusion")
+quality_launches = LaunchCounter("warp_fwd_quality")
 #: the forward kernel's counter by call site
 SITE_COUNTERS = {"loss": fwd_launches, "augment": augment_launches,
-                 "occlusion": occlusion_launches}
+                 "occlusion": occlusion_launches,
+                 "quality": quality_launches}
+# the bf16-image instances (the loss under loss.gather_dtype="bfloat16")
+fwd_bf16_launches = LaunchCounter("warp_fwd_bf16")
+grad_bf16_launches = LaunchCounter("warp_flow_grad_bf16")
 
 
 class _View(ctypes.Structure):
@@ -63,7 +74,8 @@ class _Level(ctypes.Structure):
     _fields_ = [("image", _View), ("flow", _View), ("ct", _View),
                 ("out", _View), ("H", ctypes.c_int), ("W", ctypes.c_int),
                 ("tiles_x", ctypes.c_int), ("tiles_y", ctypes.c_int),
-                ("first_block", ctypes.c_int)]
+                ("first_block", ctypes.c_int), ("out_bf16", ctypes.c_int),
+                ("ct_bf16", ctypes.c_int)]
 
 
 class _Table(ctypes.Structure):
@@ -73,7 +85,10 @@ class _Table(ctypes.Structure):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCHERS = ("deepof_warp_fwd_levels_f32",
-              "deepof_warp_flow_grad_levels_f32")
+              "deepof_warp_flow_grad_levels_f32",
+              "deepof_warp_fwd_levels_bf16",
+              "deepof_warp_flow_grad_levels_bf16")
+_IMAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _lib() -> ctypes.CDLL:
@@ -126,7 +141,9 @@ def _overlapping(t: torch.Tensor) -> bool:
 def _check(what: str, images: Sequence[torch.Tensor],
            flows: Sequence[torch.Tensor],
            cts: Sequence[torch.Tensor] | None = None) -> None:
-    """Device, dtype, shape and offset checks of a level list."""
+    """Device, dtype, shape and offset checks of a level list: images of
+    one dtype, float32 or bf16; float32 flows; each cotangent float32,
+    or bf16 where the image is."""
     n = len(images)
     if not 1 <= n <= MAX_LEVELS:
         raise ValueError(f"{what}: {n} levels; one launch takes 1 to "
@@ -145,9 +162,14 @@ def _check(what: str, images: Sequence[torch.Tensor],
             if t.device != dev:
                 raise ValueError(f"{what}: level {k} {name} is on "
                                  f"{t.device}, not {dev}")
-            if t.dtype != torch.float32:
+            allowed = {"flow": (torch.float32,),
+                       "image": (images[0].dtype,)}.get(
+                           name, (torch.float32, images[0].dtype))
+            if t.dtype not in allowed or images[0].dtype not in _IMAGE_DTYPES:
                 raise TypeError(f"{what}: level {k} {name} is {t.dtype}; "
-                                "this kernel takes float32 only")
+                                "the image takes float32 or bfloat16 (one "
+                                "dtype for all levels), the flow float32, "
+                                "the cotangent float32 or the image's")
             if t.dim() != 4 or t.numel() == 0:
                 raise ValueError(f"{what}: level {k} {name} must be a "
                                  f"non-empty 4-D tensor, got "
@@ -178,6 +200,9 @@ def _launch(what: str, fn: str, counter: LaunchCounter,
             images: Sequence[torch.Tensor], flows: Sequence[torch.Tensor],
             cts: Sequence[torch.Tensor] | None,
             outs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """One launch of `fn` + "_f32" or "_bf16" (by the images' dtype) over
+    the levels; a level's out_bf16 / ct_bf16 flag is its output's /
+    cotangent's dtype."""
     for k, o in enumerate(outs):
         if _overlapping(o):
             raise ValueError(f"{what}: level {k} output {tuple(o.shape)} with "
@@ -190,8 +215,11 @@ def _launch(what: str, fn: str, counter: LaunchCounter,
             image=_view(images[k]), flow=_view(flows[k]),
             ct=_view(cts[k]) if cts is not None else _View(),
             out=_view(outs[k]), H=images[k].shape[2], W=images[k].shape[3],
-            tiles_x=tiles_x, tiles_y=tiles_y, first_block=first)
+            tiles_x=tiles_x, tiles_y=tiles_y, first_block=first,
+            out_bf16=int(outs[k].dtype == torch.bfloat16),
+            ct_bf16=int(cts is not None and cts[k].dtype == torch.bfloat16))
     lib = _lib()
+    fn = f"{fn}_{_IMAGE_DTYPES[images[0].dtype]}"
     with torch.cuda.device(images[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(ctypes.addressof(table), blocks, stream)
@@ -202,15 +230,30 @@ def _launch(what: str, fn: str, counter: LaunchCounter,
 
 def warp_fwd_levels_cuda(images: Sequence[torch.Tensor],
                          flows: Sequence[torch.Tensor],
-                         site: str = "loss") -> list[torch.Tensor]:
-    """images [(B, C, H_k, W_k)], flows [(B, 2, H_k, W_k)], float32 on one
-    CUDA device, any strides, 1 to 8 levels -> each image warped backward
-    by its flow, in the image's layout. One launch, counted on
-    `SITE_COUNTERS[site]`."""
+                         site: str = "loss",
+                         pallas: Sequence[bool] | None = None
+                         ) -> list[torch.Tensor]:
+    """images [(B, C, H_k, W_k)] float32 or bf16, flows [(B, 2, H_k, W_k)]
+    float32, on one CUDA device, any strides, 1 to 8 levels -> each image
+    warped backward by its flow, in the image's layout. One launch,
+    counted on `SITE_COUNTERS[site]`, or for bf16 images (the loss only)
+    on `warp_fwd_bf16`. A bf16 level's output is bf16 where `pallas[k]`
+    (the JAX Pallas route) and float32 otherwise; a float32 image's is
+    float32."""
     _check("warp_fwd_levels_cuda", images, flows)
-    return _launch("warp forward kernel", "deepof_warp_fwd_levels_f32",
-                   SITE_COUNTERS[site], images, flows, None,
-                   [torch.empty_like(i) for i in images])
+    bf16 = images[0].dtype == torch.bfloat16
+    if bf16 and site != "loss":
+        raise ValueError(f"warp_fwd_levels_cuda: bf16 images at site "
+                         f"{site!r}; only the loss warps bf16")
+    routes = list(pallas) if pallas is not None else [False] * len(images)
+    if len(routes) != len(images):
+        raise ValueError(f"warp_fwd_levels_cuda: {len(routes)} routes for "
+                         f"{len(images)} levels")
+    outs = [torch.empty_like(i, dtype=warped_dtype(i.dtype, p))
+            for i, p in zip(images, routes)]
+    return _launch("warp forward kernel", "deepof_warp_fwd_levels",
+                   fwd_bf16_launches if bf16 else SITE_COUNTERS[site],
+                   images, flows, None, outs)
 
 
 def warp_flow_grad_levels_cuda(images: Sequence[torch.Tensor],
@@ -218,12 +261,16 @@ def warp_flow_grad_levels_cuda(images: Sequence[torch.Tensor],
                                cts: Sequence[torch.Tensor]
                                ) -> list[torch.Tensor]:
     """The flow cotangents of `warp_fwd_levels_cuda`: images, flows as
-    there, output cotangents cts [(B, C, H_k, W_k)] -> [(B, 2, H_k, W_k)]
-    float32 = (dL/du, dL/dv) summed over channels, in the flow's layout.
-    One launch."""
+    there, output cotangents cts [(B, C, H_k, W_k)] (float32, or bf16
+    for a bf16 image's Pallas-route level) -> [(B, 2, H_k, W_k)] float32
+    = (dL/du, dL/dv) summed over channels, in the flow's layout. One
+    launch, counted on `warp_flow_grad` or, for bf16 images,
+    `warp_flow_grad_bf16`."""
     _check("warp_flow_grad_levels_cuda", images, flows, cts)
+    bf16 = images[0].dtype == torch.bfloat16
     return _launch("warp flow-gradient kernel",
-                   "deepof_warp_flow_grad_levels_f32", grad_launches, images,
+                   "deepof_warp_flow_grad_levels",
+                   grad_bf16_launches if bf16 else grad_launches, images,
                    flows, cts, [torch.empty_like(f) for f in flows])
 
 

@@ -26,6 +26,17 @@ flows): one launch on a card, counted by call site.
 
 Neighbours are named as in the kernel source (`csrc/warp.cu`):
 Ia = (y0, x0), Ib = (y0, x1), Ic = (y1, x0), Id = (y1, x1).
+
+A bf16 image (the loss under `loss.gather_dtype="bfloat16"`) is
+gathered as bf16 and blended in float32, and each level takes one of
+the JAX package's two routes for it (F11), chosen by `impl` as the JAX
+package chooses on a TPU (`pallas_route`): "xla" returns float32
+(`deepof_tpu/ops/warp.py:84-124`), "pallas" rounds the float32 result
+to bf16 (`ops/pallas/warp.py:198`), and "auto" takes the Pallas route
+for a level of W <= 128 and H <= 128 and the XLA route otherwise
+(`ops/warp.py:54-55,78-80`). A float32 image gives float32 on every
+route, and the route changes nothing else: the kernels and the plain
+versions compute one value for all three.
 """
 
 from __future__ import annotations
@@ -33,6 +44,29 @@ from __future__ import annotations
 import torch
 
 from ..core.config import WARP_IMPLS
+
+#: impl="auto" takes the JAX package's Pallas route for a level of
+#: W <= 128 and H <= 128 (`deepof_tpu/ops/warp.py:54-55`), as it does on
+#: a TPU, where the package was meant to run
+PALLAS_AUTO_MAX_W = 128
+PALLAS_AUTO_MAX_H = 128
+
+
+def pallas_route(impl: str, h: int, w: int) -> bool:
+    """True where the JAX package warps an (h, w) level on its Pallas
+    route on a TPU: impl "pallas", or "auto" at W <= 128 and H <= 128."""
+    _check_impl(impl)
+    return impl == "pallas" or (impl == "auto" and w <= PALLAS_AUTO_MAX_W
+                                and h <= PALLAS_AUTO_MAX_H)
+
+
+def warped_dtype(image_dtype: torch.dtype, pallas: bool) -> torch.dtype:
+    """The warped image's dtype: float32 for a bf16 image on the XLA
+    route (bf16 values blended with float32 weights), the image's dtype
+    otherwise (the Pallas route rounds to it)."""
+    if image_dtype == torch.bfloat16 and not pallas:
+        return torch.float32
+    return image_dtype
 
 
 def _taps(image: torch.Tensor, flow: torch.Tensor):
@@ -67,10 +101,12 @@ def _taps(image: torch.Tensor, flow: torch.Tensor):
     return (ia, ib, ic, id_), wx, wy, left, top
 
 
-def backward_warp_reference(image: torch.Tensor,
-                            flow: torch.Tensor) -> torch.Tensor:
+def backward_warp_reference(image: torch.Tensor, flow: torch.Tensor,
+                            pallas: bool = False) -> torch.Tensor:
     """Plain PyTorch version: image (B, C, H, W), flow (B, 2, H, W) ->
-    (B, C, H, W) in the image dtype.
+    (B, C, H, W) in `warped_dtype(image.dtype, pallas)`: blended in
+    float32 from the image's values, and rounded once to bf16 for a
+    bf16 image on the Pallas route.
 
     The JAX package's XLA formulation (`deepof_tpu/ops/warp.py:86-122`):
     the 2x2 neighbourhood is packed into channels by edge-clamped shifts
@@ -81,13 +117,14 @@ def backward_warp_reference(image: torch.Tensor,
     (ia, ib, ic, id_), wx, wy, _, _ = _taps(image, flow)
     out = (ia * (1 - wx) * (1 - wy) + ic * (1 - wx) * wy
            + ib * wx * (1 - wy) + id_ * wx * wy)
-    return out.to(image.dtype)
+    return out.to(warped_dtype(image.dtype, pallas))
 
 
 def warp_flow_grad_reference(image: torch.Tensor, flow: torch.Tensor,
                              g: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the flow cotangent: image and cotangent
-    g (B, C, H, W), flow (B, 2, H, W) -> (B, 2, H, W) float32,
+    g (B, C, H, W) (each float32 or bf16, read as float32), flow
+    (B, 2, H, W) -> (B, 2, H, W) float32,
 
       du = sum_c g_c ((1-wy)(Ib-Ia) + wy(Id-Ic))
       dv = sum_c g_c ((1-wx)(Ic-Ia) + wx(Id-Ib)),
@@ -113,11 +150,11 @@ def warp_flow_grad_reference(image: torch.Tensor, flow: torch.Tensor,
                         torch.where(top, zero, dv)], dim=1)
 
 
-def _image_grad(image, flow, g):
+def _image_grad(image, flow, g, pallas):
     """The image cotangent of `backward_warp_reference`, by autograd."""
     with torch.enable_grad():
         im = image.detach().requires_grad_(True)
-        out = backward_warp_reference(im, flow.detach())
+        out = backward_warp_reference(im, flow.detach(), pallas)
         return torch.autograd.grad(out, im, g)[0]
 
 
@@ -128,10 +165,13 @@ class BackwardWarpLevels(torch.autograd.Function):
     `warp_flow_grad_reference`).
 
     `apply(n, image_1, ..., image_n, flow_1, ..., flow_n)` -> the n warped
-    images, each (B, C, H_k, W_k) in its image's layout. The tensors are
-    saved and handed to the kernels as given, strided views included: no
-    layout copy. A level whose output gets no cotangent is given zeros,
-    and its flow gradient still comes back.
+    images, each (B, C, H_k, W_k) in its image's layout. `n` is the level
+    count, or a tuple of n flags, True for a level on the JAX package's
+    Pallas route (`pallas_route`; an int means the XLA route for all),
+    which sets a bf16 image's output dtype (`warped_dtype`). The tensors
+    are saved and handed to the kernels as given, strided views
+    included: no layout copy. A level whose output gets no cotangent is
+    given zeros, and its flow gradient still comes back.
 
     The image cotangent, when asked for, is autograd of the plain version
     on any device: the JAX package computes it in XLA, not in Pallas
@@ -139,32 +179,36 @@ class BackwardWarpLevels(torch.autograd.Function):
     never asked for."""
 
     @staticmethod
-    def forward(ctx, n: int, *tensors: torch.Tensor):
+    def forward(ctx, n, *tensors: torch.Tensor):
+        routes = (False,) * n if isinstance(n, int) else tuple(n)
+        n = len(routes)
         images, flows = tensors[:n], tensors[n:]
-        ctx.n = n
+        ctx.routes = routes
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(*tensors)
         if _on_cpu(tensors):
-            return tuple(backward_warp_reference(i, f)
-                         for i, f in zip(images, flows))
+            return tuple(backward_warp_reference(i, f, p)
+                         for i, f, p in zip(images, flows, routes))
         from .cuda.warp import warp_fwd_levels_cuda
 
-        return tuple(warp_fwd_levels_cuda(images, flows))
+        return tuple(warp_fwd_levels_cuda(images, flows, pallas=routes))
 
     @staticmethod
     def backward(ctx, *gs):
-        n = ctx.n
+        routes = ctx.routes
+        n = len(routes)
         saved = ctx.saved_tensors
         images, flows = saved[:n], saved[n:]
         want_image = ctx.needs_input_grad[1:n + 1]
         want_flow = ctx.needs_input_grad[n + 1:]
-        gs = [torch.zeros_like(i) if g is None else g
-              for g, i in zip(gs, images)]
+        gs = [torch.zeros_like(i, dtype=warped_dtype(i.dtype, p))
+              if g is None else g for g, i, p in zip(gs, images, routes)]
         cpu = _on_cpu(saved)
         d_image, d_flow = [None] * n, [None] * n
         for k in range(n):
             if want_image[k]:
-                d_image[k] = _image_grad(images[k], flows[k], gs[k])
+                d_image[k] = _image_grad(images[k], flows[k], gs[k],
+                                         routes[k])
             if cpu and want_flow[k]:
                 d_flow[k] = warp_flow_grad_reference(images[k], flows[k],
                                                      gs[k])
@@ -196,9 +240,10 @@ def backward_warp_nchw(image: torch.Tensor, flow: torch.Tensor,
 
     impl: "auto", "xla" or "pallas" (the JAX package's TPU routes) all
     launch the CUDA kernels for a CUDA tensor (or raise) and run the
-    plain version for a CPU tensor."""
-    _check_impl(impl)
-    return BackwardWarpLevels.apply(1, image, flow)[0]
+    plain version for a CPU tensor; for a bf16 image they choose the
+    output dtype (`pallas_route`, `warped_dtype`)."""
+    route = pallas_route(impl, image.shape[2], image.shape[3])
+    return BackwardWarpLevels.apply((route,), image, flow)[0]
 
 
 def backward_warp_levels(images: list[torch.Tensor],
@@ -209,10 +254,11 @@ def backward_warp_levels(images: list[torch.Tensor],
     warped images, (B, H_k, W_k, C) each. On CUDA tensors all levels (at
     most 8, sharing B and C) take one launch of each kernel, and they
     reach it as permuted views, without a copy. `impl` as in
-    `backward_warp_nchw`."""
-    _check_impl(impl)
+    `backward_warp_nchw`, level by level."""
+    routes = tuple(pallas_route(impl, i.shape[1], i.shape[2])
+                   for i in images)
     outs = BackwardWarpLevels.apply(
-        len(images), *(i.permute(0, 3, 1, 2) for i in images),
+        routes, *(i.permute(0, 3, 1, 2) for i in images),
         *(f.permute(0, 3, 1, 2) for f in flows))
     return [o.permute(0, 2, 3, 1) for o in outs]
 

@@ -46,8 +46,9 @@ capacity arrives. Every transition is first-class observability: the
 `degrade_*` counter block rides router.stats() -> /healthz, /metrics
 and the fleet heartbeat; each transition appends one kind="serve"
 record to the fleet's metrics.jsonl. Sustained L3 (`l3_sustained_s`)
-sets `degrade_l3_sustained`. The JAX controller's `brownout_l3`
-incident bundle is not ported (ROADMAP Queue A item 11).
+sets `degrade_l3_sustained`. Entering L3 commits a critical
+`brownout_l3` incident bundle when the fleet has a recorder
+(`obs/incident.py`; `incidents`, set by `serve/fleet.py::run_fleet`).
 
 No torch, no device: the supervisor runs it (core/supervise.py).
 """
@@ -95,6 +96,9 @@ class DegradeController:
         # monotonic time the fleet entered L3 (None below L3): the
         # l3_sustained_s clock
         self._l3_since: float | None = None
+        # the supervisor's incident recorder (run_fleet sets it under
+        # obs.incidents): L3 entry -> a critical brownout_l3 bundle
+        self.incidents = None
         # previous tick's cumulative rejection count — the delta is the
         # "NEW refused work this tick" pressure signal (deliberately
         # EXCLUDES the L3 low-priority sheds this controller causes:
@@ -220,6 +224,15 @@ class DegradeController:
         event = ("degrade_escalate" if action == "escalate"
                  else "degrade_recover")
         self._record(event, reason, sig, before, after)
+        if action == "escalate" and after == 3 and self.incidents is not None:
+            # the fleet now refuses work (low-priority sheds): the bundle
+            # keeps the verdict and the signals that drove it; the dedup
+            # window absorbs re-entries
+            self.incidents.record(
+                "brownout_l3", "critical",
+                trigger={"reason": reason, "level": after,
+                         "occupancy": round(sig["occupancy"], 4),
+                         "slo_burn": round(sig["slo_burn"], 4)})
 
     def _record(self, event: str, reason: str, sig: dict,
                 before: int, after: int) -> None:

@@ -60,8 +60,20 @@ does. Spans `serve_enqueue`,
 `serve_batch`, `serve_dispatch` and `serve_postprocess` (and
 `session_prime` / `session_step` / `session_warm`) go to the installed
 tracer (`obs/trace.py`). The brownout controller that sets the level
-is `serve/degrade.py`, in the fleet. Still to port (ROADMAP): quality
-scoring, the executable ledger and artifacts.
+is `serve/degrade.py`, in the fleet.
+
+Label-free quality scoring (`obs/quality.py`), with
+`obs.quality_sample_rate` > 0: the sampling decision is made at
+acceptance from the accepted-request index, and a sampled request's
+input row and raw flow go to the scorer thread after its dispatch
+(`serve_quality*` keys in `stats()`); a model engine scores with torch
+on its device (the warp kernel, counted on `warp_fwd_quality`), a
+stand-in executor with the numpy reference. At rate 0 nothing is built
+and the stats keep their schema. `incidents` is the process's incident
+recorder (`obs/incident.py`), set by the server when `obs.incidents` is
+on: `stats()` records `slo_exhausted` and `quality_drift` bundles from
+the verdicts it computes and carries the `incident_*` block. Still to
+port (ROADMAP item 8): the executable ledger and artifacts.
 """
 
 from __future__ import annotations
@@ -85,6 +97,7 @@ from ..data.datasets import DATASET_MEANS, _imread_bgr
 from ..obs import trace as obs_trace
 from ..obs.export import (LatencyHistogram, percentile_ms, slo_state,
                           validate_slo)
+from ..obs.quality import QualityScorer, make_score_fn, score_pair_np
 from .buckets import (flow_to_native, next_smaller_bucket, pick_bucket,
                       prepare_frame, prepare_pair, resolve_buckets)
 from .quant import quantize_model, resolve_precisions
@@ -131,7 +144,7 @@ CLIENT_CODES = ("bad_input", "bad_request", "session_expired",
 class _Request:
     __slots__ = ("x", "bucket", "tier", "native_hw", "future", "t_enq",
                  "rid", "mode", "prior", "session", "frame_index", "epoch",
-                 "deadline")
+                 "deadline", "score")
 
     def __init__(self, x, bucket, tier, native_hw, future, t_enq, rid,
                  mode="cold", prior=None, session=None, frame_index=None,
@@ -149,6 +162,7 @@ class _Request:
         self.frame_index = frame_index
         self.epoch = epoch              # the session's prime generation
         self.deadline = deadline        # absolute monotonic expiry, or None
+        self.score = False              # sampled for quality scoring
 
     @property
     def key(self) -> tuple[tuple[int, int], str, str]:
@@ -346,6 +360,28 @@ class InferenceEngine:
         sc = cfg.serve.session
         self.sessions = SessionStore(max_sessions=sc.max_sessions,
                                      ttl_s=sc.ttl_s, sweep_s=sc.sweep_s)
+        # the process's incident recorder (obs/incident.py), set by the
+        # server under obs.incidents; None: no trigger, no incident_* key
+        self.incidents = None
+        # label-free quality scoring (obs/quality.py): at rate 0 nothing
+        # is built and the stats keep their schema
+        self._quality: QualityScorer | None = None
+        self._quality_index = 0  # the sampler's accepted-request index
+        obs = cfg.obs
+        if float(obs.quality_sample_rate) > 0:
+            if self._forward_custom:
+                score_fn = (lambda bucket, x, flow:
+                            score_pair_np(x[0], flow[0]))
+            else:
+                torch_score = make_score_fn(self.device)
+                score_fn = (lambda bucket, x, flow: torch_score(x, flow))
+            self._quality = QualityScorer(
+                score_fn, obs.quality_sample_rate, seed=obs.quality_seed,
+                queue_depth=obs.quality_queue_depth,
+                ref_samples=obs.quality_ref_samples,
+                window=obs.quality_window,
+                drift_factor=obs.quality_drift_factor,
+                budget=obs.quality_budget)
 
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-batcher")
@@ -611,6 +647,11 @@ class InferenceEngine:
                 raise ServeError("engine_closed", "engine is shut down",
                                  req.rid)
             self._submitting += 1
+            if self._quality is not None:
+                # a pure function of the accepted-request index: the
+                # sampled set depends on the submission order only
+                req.score = self._quality.should_sample(self._quality_index)
+                self._quality_index += 1
         try:
             # bounded put = backpressure, polled so that a submitter
             # blocked on a full queue observes close() and its own
@@ -766,6 +807,13 @@ class InferenceEngine:
                     self.sessions.set_flow(r.session,
                                            np.ascontiguousarray(out[i]),
                                            bucket, r.epoch)
+                if r.score and self._quality is not None:
+                    # the input row and a copy of the raw output to the
+                    # scorer thread; a full queue drops the sample, never
+                    # this response
+                    self._quality.submit(
+                        r.x, np.array(out[i], np.float32, copy=True),
+                        bucket, r.tier, r.mode)
                 done = time.monotonic()
                 self._hist.observe(done - r.t_enq)
                 if r.session is not None:
@@ -834,9 +882,13 @@ class InferenceEngine:
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
         """The serve_* counter block (the JAX engine's keys, less those of
-        its quality, ledger and incident planes), with the session
-        store's serve_sessions_* block, the latency histograms, their
-        p50/p99, and `serve_slo` when `obs.slo_latency_ms` > 0."""
+        its ledger plane), with the session store's serve_sessions_*
+        block, the latency histograms, their p50/p99, `serve_slo` when
+        `obs.slo_latency_ms` > 0, the serve_quality* block when
+        sampling is on, and the incident_* block when a recorder is set,
+        which records `slo_exhausted` / `quality_drift` bundles from the
+        verdicts computed here (its dedup window makes the heartbeat's
+        re-evaluation safe)."""
         now = time.monotonic()
         with self._stats_lock:
             recent = sum(c for t, c in self._done_per_s.items()
@@ -886,6 +938,19 @@ class InferenceEngine:
             out["serve_slo"] = slo_state(
                 out["serve_latency_hist"], requests, failures,
                 self.cfg.obs.slo_latency_ms, self.cfg.obs.slo_error_budget)
+        if self._quality is not None:
+            out.update(self._quality.stats())
+        rec = self.incidents
+        if rec is not None:
+            slo = out.get("serve_slo")
+            if slo and slo.get("exhausted"):
+                rec.record("slo_exhausted", "critical",
+                           trigger={"slo": slo})
+            q = out.get("serve_quality")
+            if q and q.get("exhausted"):
+                rec.record("quality_drift", "critical",
+                           trigger={"quality": q})
+            out.update(rec.stats())
         return out
 
     def heartbeat_sample(self) -> dict:
@@ -903,6 +968,10 @@ class InferenceEngine:
         self.sessions.close()  # stop the TTL sweeper
         self._q.put(_STOP)
         self._thread.join(timeout=60.0)
+        if self._quality is not None:
+            # after the batcher's join: the drained flushes' samples are
+            # queued ahead of the scorer's exit
+            self._quality.close()
         # submitters that passed the closed check before it flipped may
         # still complete a put; wait them out, then fail what is left
         deadline = time.monotonic() + 5.0

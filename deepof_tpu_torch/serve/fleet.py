@@ -54,8 +54,17 @@ heartbeat whose `fleet_*` counter block (evictions, respawns,
 failovers, shed, per-replica states) lands in `heartbeat.json` and the
 shutdown metrics record. Shutdown and SIGTERM drain gracefully: stop
 admission at the router, flush in-flight requests, then SIGTERM (and if
-needed SIGKILL) the replicas. The JAX fleet's incident plane (item 11)
-and its artifact-store GC (item 8's artifacts) are not ported.
+needed SIGKILL) the replicas.
+
+Under `obs.incidents` the supervisor installs its own incident recorder
+(`obs/incident.py`, role "fleet", the run root's incidents/): an
+eviction (`fleet_eviction`), a crash (`fleet_replica_crash`), a tripped
+circuit breaker (`fleet_broken`), the router's exhausted fleet SLO, the
+brownout controller's L3 entry (`brownout_l3`) and a wedge of the
+supervisor itself commit critical bundles, and every poll (and the
+close) collects the replicas' own bundles from `replica-<i>/incidents`
+into the run root. The JAX fleet's artifact-store GC (item 8's
+artifacts) is not ported.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from types import SimpleNamespace
 
 from ..core import supervise
 from ..core.config import ExperimentConfig
+from ..obs import incident
 from .server import REPLICA_ENV
 
 #: Replica lifecycle states (Fleet._check is the transition table).
@@ -151,6 +161,12 @@ class Fleet:
         # scale-down hook (run_fleet wires the router's map aging):
         # called with the retired slot's idx AFTER the replica is gone
         self.on_retired = None
+        # the supervisor's incident recorder (run_fleet installs it under
+        # obs.incidents). Triggers fire inside the locked state machine,
+        # so they queue here and _drain_incidents captures them after
+        # the lock is released (a capture writes to disk)
+        self.incidents = None
+        self._pending_incidents: list[tuple[str, str, dict]] = []
         self._monitor = threading.Thread(target=self._run, daemon=True,
                                          name="fleet-monitor")
 
@@ -312,6 +328,7 @@ class Fleet:
         with self._lock:
             to_spawn = [r for r in self._replicas
                         if self._check(r, now, listening, heartbeats)]
+        self._drain_incidents()
         for r in to_spawn:
             self._spawn(r)
 
@@ -373,6 +390,10 @@ class Fleet:
                                           self.fc.crash_loop_threshold):
                     r.state = "broken"
                     self._counters["broken"] += 1
+                    self._queue_incident(
+                        "fleet_broken", "critical",
+                        {"replica": r.idx,
+                         "fast_failures": r.fast_failures})
                     self._log_event(r, "circuit breaker OPEN: "
                                        f"{r.fast_failures} consecutive fast "
                                        "failures, not respawning")
@@ -386,9 +407,32 @@ class Fleet:
         return supervise.read_heartbeat(self._replica_dir(r))
 
     # --------------------------------------------------- state changes
+    def _queue_incident(self, kind: str, severity: str,
+                        trigger: dict) -> None:
+        """Stage a trigger while the fleet lock is held; `_poll_all` and
+        `close` capture it unlocked."""
+        if self.incidents is not None:
+            self._pending_incidents.append((kind, severity, trigger))
+
+    def _drain_incidents(self) -> None:
+        """Capture the staged triggers (fleet lock not held), then move
+        the replicas' committed bundles into the run root, so one
+        `incidents list` there sees the whole fleet, bundles a SIGKILLed
+        replica left behind included."""
+        rec = self.incidents
+        if rec is None:
+            return
+        with self._lock:
+            pending, self._pending_incidents = self._pending_incidents, []
+        for kind, severity, trigger in pending:
+            rec.record(kind, severity, trigger=trigger)
+        rec.note_collected(incident.collect_from_children(self.dir))
+
     def _evict(self, r: _Replica, reason: str, now: float) -> None:
         """Sick replica out of rotation: SIGTERM (graceful drain),
         SIGKILL after term_grace_s (the terminating-state poll)."""
+        self._queue_incident("fleet_eviction", "critical",
+                             {"replica": r.idx, "reason": reason})
         self._counters["evictions"] += 1
         if reason in ("wedged", "stalled"):  # both are stuck dispatches
             self._counters["wedge_evictions"] += 1
@@ -422,6 +466,8 @@ class Fleet:
         else:
             self._counters["crashes"] += 1
             self._counters["evictions"] += 1
+            self._queue_incident("fleet_replica_crash", "critical",
+                                 {"replica": r.idx, "rc": rc})
         r.last_reason = reason
         self._log_event(r, f"died ({reason}, rc={rc}); scheduling respawn")
         self._schedule_backoff(r, clean=clean)
@@ -633,6 +679,9 @@ class Fleet:
                 if r.state != "retired":
                     r.state = "stopped"
                 r.port = None
+        # the final pass: staged triggers captured and every replica's
+        # bundles collected before the run dir is read
+        self._drain_incidents()
 
     def __enter__(self) -> "Fleet":
         return self
@@ -677,6 +726,10 @@ def _run_fleet(cfg: ExperimentConfig, replicas: int | None, device: str,
 
         build_all()  # once, before N replicas would each run nvcc
     fleet = Fleet(cfg, replicas, device=device)
+    # the supervisor's incident recorder, in the run root (None unless
+    # obs.incidents): the fleet's, the router's and the brownout
+    # controller's verdicts, and the replicas' bundles collected there
+    fleet.incidents = incident.install(cfg, cfg.train.log_dir, "fleet")
     router = None
     httpd = None
     hb = None
@@ -697,6 +750,7 @@ def _run_fleet(cfg: ExperimentConfig, replicas: int | None, device: str,
             print(f"fleet: no replica became ready: {e}", file=sys.stderr)
             return 1
         router = Router(cfg, fleet)
+        router.incidents = fleet.incidents
         # scale-down aging: a retired slot leaves the router's
         # per-replica maps; its pinned sessions demote to session_lost
         fleet.on_retired = router.retire_slot
@@ -720,6 +774,7 @@ def _run_fleet(cfg: ExperimentConfig, replicas: int | None, device: str,
             # capacity over a replica's boot — the two watch the same
             # signals, so the level walks back down when capacity lands
             degr = DegradeController(cfg, fleet, router)
+            degr.incidents = fleet.incidents  # L3 entry -> a bundle
             router.degrade_stats = degr.stats
             router.degrade_level = degr.level
             degr.start()
@@ -733,13 +788,22 @@ def _run_fleet(cfg: ExperimentConfig, replicas: int | None, device: str,
                 hb_ref["hb"].touch()
             return s
 
+        sample_fn = sample
+        if fleet.incidents is not None:
+            # the samples feed the recorder's ring and alert rules; a
+            # wedged supervisor is itself a critical incident
+            sample_fn = fleet.incidents.wrap_sample(sample)
         # device=None: the supervisor samples no device memory (it has
         # no CUDA context, and must not make one)
         hb = Heartbeat(os.path.join(cfg.train.log_dir, "heartbeat.json"),
                        period_s=cfg.obs.heartbeat_period_s,
                        watchdog_factor=cfg.obs.watchdog_factor,
                        watchdog_min_s=cfg.obs.watchdog_min_s,
-                       sample=sample, tracer=tracer, device=None)
+                       sample=sample_fn, tracer=tracer, device=None,
+                       on_wedge=(None if fleet.incidents is None else
+                                 lambda dump: fleet.incidents.record(
+                                     "watchdog_wedge", "critical",
+                                     text_files={"stacks.txt": dump})))
         hb_ref["hb"] = hb
         router.beat_hook = hb.beat
 

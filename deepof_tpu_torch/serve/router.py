@@ -58,8 +58,12 @@ policies, in order:
 The live brownout level (serve/degrade.py) rides every proxied request
 as `X-Degrade-Level` and folds into the affinity key the same way the
 replica's engine folds it; at L3 the router itself sheds `X-Priority:
-low` requests. The incident plane of the JAX router is not ported
-(ROADMAP Queue A item 11).
+low` requests. With the supervisor's incident recorder set
+(`incidents`, `obs/incident.py`), an exhausted fleet SLO commits a
+critical `slo_exhausted` bundle and the `incident_*` block joins
+`stats()`. The replicas' `serve_quality_*` blocks merge in the scrape by
+their registered kinds: histograms bucket-wise, the per-key maps
+key-wise.
 """
 
 from __future__ import annotations
@@ -238,6 +242,9 @@ class Router:
         # client actually experiences, distinct from the per-replica
         # engine histograms /metrics aggregates alongside it
         self._hist = LatencyHistogram()
+        # the supervisor's incident recorder (run_fleet sets it under
+        # obs.incidents): the fleet-SLO exhaustion trigger
+        self.incidents = None
         # X-Request-Id sequence: globally unique enough (router pid +
         # counter) to chain one request's spans across processes in the
         # merged fleet trace
@@ -905,6 +912,15 @@ class Router:
             out["fleet_slo"] = slo_state(hist, requests, failures,
                                          self.cfg.obs.slo_latency_ms,
                                          self.cfg.obs.slo_error_budget)
+        rec = self.incidents
+        if rec is not None:
+            slo = out.get("fleet_slo")
+            if slo and slo.get("exhausted"):
+                # the fleet's contract: a supervisor-level incident (the
+                # dedup window absorbs the heartbeat's re-checks)
+                rec.record("slo_exhausted", "critical",
+                           trigger={"slo": slo})
+            out.update(rec.stats())
         return out
 
     # ---------------------------------------------------------- /metrics

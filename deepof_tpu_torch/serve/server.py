@@ -56,9 +56,15 @@ beats as role "replica", arms the replica fault sites
 (`install_replica_faults`), and its final kind="serve" record carries
 the kernels' launches while it served (`kernel_launches`, counted from
 the end of `engine.warm()`). Its announce line stays the first line on
-stdout: the fleet reads the bound port from it. Not ported (ROADMAP
-item 8): a video file as offline input (the JAX package reads it with
-cv2.VideoCapture); nor the incident plane (item 11).
+stdout: the fleet reads the bound port from it.
+
+Under `obs.incidents` the server installs the process's incident
+recorder (`obs/incident.py`, role "serve" or "replica") on the engine,
+which records `slo_exhausted` and `quality_drift` bundles from its
+verdicts; the heartbeat's samples feed the recorder's ring and alert
+rules, and a watchdog wedge commits a critical `watchdog_wedge` bundle
+with the stack dump. Not ported (ROADMAP item 8): a video file as
+offline input (the JAX package reads it with cv2.VideoCapture).
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ import numpy as np
 from ..core.config import ExperimentConfig, raise_unported
 from ..io.flo import flo_bytes
 from ..io.png import png_bytes
+from ..obs import incident
 from ..obs import trace as obs_trace
 from ..obs.export import PROM_CONTENT_TYPE, render_prometheus
 from ..utils.flowviz import flow_to_color
@@ -387,6 +394,10 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
         if own_engine:
             engine = _engine_for(cfg, model, device)
         install_replica_faults(engine, cfg)
+        # the process's incident recorder (None unless obs.incidents):
+        # the engine records its SLO and quality verdicts through it
+        incidents = incident.install(cfg, cfg.train.log_dir, _role())
+        engine.incidents = incidents
         warm = engine.warm()
         warm_launches = launch_counts()
         # the heartbeat's steps are flushes; with no work in flight the
@@ -401,11 +412,19 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
                 hb_ref["hb"].touch()
             return {**role, **s}
 
+        if incidents is not None:
+            # the samples feed the recorder's ring and alert rules; a
+            # wedge becomes a critical bundle with the stack dump
+            sample = incidents.wrap_sample(sample)
         hb = Heartbeat(os.path.join(cfg.train.log_dir, "heartbeat.json"),
                        period_s=cfg.obs.heartbeat_period_s,
                        watchdog_factor=cfg.obs.watchdog_factor,
                        watchdog_min_s=cfg.obs.watchdog_min_s,
                        sample=sample, tracer=tracer,
+                       on_wedge=(None if incidents is None else
+                                 lambda dump: incidents.record(
+                                     "watchdog_wedge", "critical",
+                                     text_files={"stacks.txt": dump})),
                        device=None if engine._forward_custom
                        else engine.device)
         hb_ref["hb"] = hb

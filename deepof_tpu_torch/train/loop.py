@@ -72,9 +72,13 @@ phase totals and counters, the checkpoint saves' seconds, the telemetry,
 the fetcher's `pipeline_*` counters (fetches, fetch seconds, retries,
 the most in flight) and `pipeline_depth`, the depth the loop ran at.
 Depth 0 and depth d > 0 run the same step and give the same bits; only
-the time the host waits differs. Not ported (ROADMAP): the recipe
-engine, elastic training, multi-host meshes, and the ledger and
-incident recorder.
+the time the host waits differs. Under `obs.incidents` the loop installs
+the incident recorder (`obs/incident.py`, role "trainer"): a NaN
+rollback commits a `nan_rollback` bundle, the third in a row a critical
+`nan_quarantine_exhausted` one before the abort, and a watchdog wedge a
+critical `watchdog_wedge` one with the stack dump; the heartbeat's
+samples feed its ring and alert rules. Not ported (ROADMAP): the recipe
+engine, elastic training, multi-host meshes, and the ledger.
 
 A float32 Trainer turns TF32 off (`core.device.disable_tf32`), so its
 convolutions compute in float32 on the card as the command line's do; a
@@ -100,6 +104,7 @@ from ..data.pipeline import InputPipeline, derive_batch_rng
 from ..data.prefetch import Prefetcher
 from ..models.common import load_vgg16_npz
 from ..models.registry import build_model
+from ..obs import incident as obs_incident
 from ..obs import trace as obs_trace
 from ..obs.heartbeat import Heartbeat
 from ..obs.telemetry import (NOMINAL_BF16_TFLOPS, count_flops,
@@ -446,17 +451,27 @@ class Trainer:
                     **({f"fault_{k}": v for k, v in inj.stats().items()}
                        if inj is not None else {})}
 
+        # the incident recorder (None unless obs.incidents)
+        incidents = obs_incident.install(cfg, cfg.train.log_dir, "trainer")
         heartbeat = None
         if cfg.obs.heartbeat:
+            def hb_sample() -> dict:
+                return {**timer.rates(), **timer.counters(),
+                        **resilience_stats()}
+
             heartbeat = Heartbeat(
                 os.path.join(cfg.train.log_dir, "heartbeat.json"),
                 period_s=cfg.obs.heartbeat_period_s,
                 watchdog_factor=cfg.obs.watchdog_factor,
                 watchdog_min_s=cfg.obs.watchdog_min_s,
-                sample=lambda: {**timer.rates(), **timer.counters(),
-                                **resilience_stats()},
+                sample=(hb_sample if incidents is None
+                        else incidents.wrap_sample(hb_sample)),
                 log=lambda s, m: self.logger.log("warn", s, message=m),
-                tracer=tracer, device=self.device)
+                tracer=tracer, device=self.device,
+                on_wedge=(None if incidents is None else
+                          lambda dump: incidents.record(
+                              "watchdog_wedge", "critical",
+                              text_files={"stacks.txt": dump})))
             stack.callback(heartbeat.close)  # writes the final state
 
         def touch(flush: bool = False) -> None:
@@ -612,6 +627,11 @@ class Trainer:
                 streak["ok"] = False
                 skip_state["streak"] = 0  # the rollback rewinds the run
                 timer.count("rollbacks")
+                if incidents is not None:
+                    incidents.record(
+                        "nan_rollback",
+                        trigger={"nan_step": nan_step,
+                                 "consecutive": consecutive_rollbacks + 1})
                 self._rollback(nan_step)
                 gstep = self.state.step
                 # discarded steps do not count toward throughput;
@@ -621,6 +641,11 @@ class Trainer:
                 touch()  # the restore took time
                 consecutive_rollbacks += 1
                 if consecutive_rollbacks >= 3:
+                    if incidents is not None:
+                        incidents.record(
+                            "nan_quarantine_exhausted", "critical",
+                            trigger={"step": gstep,
+                                     "consecutive": consecutive_rollbacks})
                     raise FloatingPointError(
                         f"loss diverged to NaN {consecutive_rollbacks} "
                         f"consecutive times around step {gstep}; "

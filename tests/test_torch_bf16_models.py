@@ -132,12 +132,12 @@ def test_unknown_compute_dtype_raises():
 
 
 def test_bf16_gather_still_raises_naming_the_next_slice():
-    # a loss option, queued with the loss variants (ROADMAP Queue A
-    # item 9, F11): the warp kernels take float32 only
-    with pytest.raises(NotImplementedError,
-                       match=r"gather_dtype='bfloat16'.*9 \(loss variants\)"):
+    # the bf16 warp operand is ported (the warp kernels' bf16 instances,
+    # F11): it trains; a gather dtype of no known value still raises
+    check_trainable(ExperimentConfig(loss=LossConfig(gather_dtype="bfloat16")))
+    with pytest.raises(ValueError, match="gather_dtype 'float16'"):
         check_trainable(ExperimentConfig(
-            loss=LossConfig(gather_dtype="bfloat16")))
+            loss=LossConfig(gather_dtype="float16")))
 
 
 def test_serving_builds_a_float32_model_whatever_compute_dtype_says():

@@ -171,9 +171,10 @@ def test_config_prints_a_dict_that_reads_back(capsys):
       "r.json"], "item 9"),
     (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2"],
      "item 10"),
-    # loss.occlusion and data.augment_photo run
+    # loss.occlusion, data.augment_photo and loss.gather_dtype=bfloat16
+    # run: the recipe set by --set is refused as --recipe is
     (["train", "--synthetic", "--model", "flownet_s", "--set",
-      "loss.gather_dtype=bfloat16"], "item 9"),
+      "recipe.enabled=true"], "item 9"),
     # st_baseline is ported (item 9.4) and trains: its case refuses the
     # recipe that it would run under
     (["train", "--synthetic", "--model", "st_baseline", "--set",

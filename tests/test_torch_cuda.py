@@ -15,7 +15,9 @@ cases, `-k "warm or int8"` for the serving cases, `-k "pinned_ring or
 device_side_skip"` for the metric fetch and the skip on the card,
 `-k "inception or tf32"` for Inception-v3's train step and the float32
 rule (F17), `-k "vgg or augmentation or occlusion"` for VGG16Flow's step,
-the augmentation's warp and the occlusion warp (C = 2).
+the augmentation's warp and the occlusion warp (C = 2), `-k "bf16_warp
+or quality"` for the warps' bf16 instances (loss.gather_dtype=bfloat16)
+and the quality scorer's warp.
 """
 
 import time
@@ -304,9 +306,15 @@ def test_warp_kernels_refuse_what_they_do_not_take(cuda):
     img = torch.zeros(1, 3, 5, 6, device=cuda)
     flow = torch.zeros(1, 2, 5, 6, device=cuda)
     with pytest.raises(TypeError, match="float32"):
-        warp_fwd_cuda(img.bfloat16(), flow)
+        warp_fwd_cuda(img.half(), flow)
+    with pytest.raises(TypeError, match="float32"):
+        warp_fwd_cuda(img.bfloat16(), flow.bfloat16())
     with pytest.raises(TypeError, match="float32"):
         warp_flow_grad_cuda(img, flow, img.bfloat16())
+    with pytest.raises(TypeError, match="one dtype"):
+        warp_fwd_levels_cuda([img, img.bfloat16()], [flow, flow])
+    with pytest.raises(ValueError, match="only the loss"):
+        warp_fwd_levels_cuda([img.bfloat16()], [flow], site="augment")
     with pytest.raises(ValueError, match="does not match"):
         warp_fwd_cuda(img.transpose(2, 3), flow)
     with pytest.raises(ValueError, match="is on cpu"):
@@ -406,6 +414,70 @@ def test_warp_levels_match_reference(cuda, shapes, c, layout, mag):
             f"level {k} {tuple(img.shape)}"
         torch.testing.assert_close(fused[k].grad, ref.grad, atol=1e-4,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas"])
+@pytest.mark.parametrize("shapes,c,layout,mag", [LEVEL_CASES[0],
+                                                 LEVEL_CASES[5],
+                                                 LEVEL_CASES[6],
+                                                 LEVEL_CASES[7]])
+def test_bf16_warp_levels_match_reference(cuda, impl, shapes, c, layout,
+                                          mag):
+    """The bf16-image instances (loss.gather_dtype=bfloat16): one launch
+    per direction on every route, each level's output (bf16 on a Pallas
+    -route level, float32 on an XLA-route one) and flow gradient (from a
+    cotangent of the output's dtype, as autograd hands it) bitwise equal
+    to the plain versions, counted on the bf16 counters."""
+    from deepof_tpu_torch.ops.cuda import warp as cw
+    from deepof_tpu_torch.ops.warp import (BackwardWarpLevels,
+                                           backward_warp_reference,
+                                           pallas_route,
+                                           warp_flow_grad_reference)
+
+    images, flows, cts = _levels(cuda, shapes, c, layout, mag,
+                                 seed=len(shapes) + 40)
+    images = [i.bfloat16() if layout == "nchw"
+              else i.permute(0, 2, 3, 1).bfloat16().permute(0, 3, 1, 2)
+              for i in images]
+    routes = tuple(pallas_route(impl, i.shape[2], i.shape[3])
+                   for i in images)
+    fused = [f.clone().requires_grad_(True) for f in flows]
+    counters = (cw.fwd_launches, cw.grad_launches, cw.fwd_bf16_launches,
+                cw.grad_bf16_launches)
+    before = [c_.count for c_ in counters]
+    outs = BackwardWarpLevels.apply(routes, *images, *fused)
+    cts = [ct.to(o.dtype) for ct, o in zip(cts, outs)]
+    sum((o * g).float().sum() for o, g in zip(outs, cts)).backward()
+    assert [c_.count - b for c_, b in zip(counters, before)] == [0, 0, 1, 1]
+    for k, (img, flow, ct, p) in enumerate(zip(images, flows, cts, routes)):
+        assert outs[k].dtype == (torch.bfloat16 if p else torch.float32)
+        assert torch.equal(outs[k], backward_warp_reference(img, flow, p)), \
+            f"level {k} {tuple(img.shape)}"
+        assert torch.equal(fused[k].grad,
+                           warp_flow_grad_reference(img, flow, ct)), \
+            f"level {k} {tuple(img.shape)}"
+
+
+@pytest.mark.cuda
+def test_quality_scorer_warps_on_the_card(cuda):
+    """The torch quality scorer on the card: one launch of the float32
+    warp kernel a call, on its own counter, and the triple within 1e-4
+    of the numpy reference's (float32 sums in another order)."""
+    from deepof_tpu_torch.obs.quality import make_score_fn, score_pair_np
+    from deepof_tpu_torch.ops.cuda import warp as cw
+
+    rs = np.random.RandomState(70)
+    x = rs.rand(2, 96, 128, 6).astype(np.float32) - 0.5
+    flow = ((rs.rand(2, 24, 32, 2) - 0.5) * 8).astype(np.float32)
+    before = (cw.quality_launches.count, cw.fwd_launches.count)
+    score = make_score_fn(cuda)
+    for i in range(2):
+        got = score(x[i:i + 1], flow[i:i + 1])
+        np.testing.assert_allclose(got, score_pair_np(x[i], flow[i]),
+                                   rtol=1e-4)
+    assert (cw.quality_launches.count - before[0],
+            cw.fwd_launches.count - before[1]) == (2, 0)
 
 
 @pytest.mark.cuda

@@ -181,19 +181,17 @@ def test_loss_resize_is_antialiased_like_jax(hw):
 
 
 def test_unported_loss_settings_raise():
-    """Of the loss settings, only gather_dtype='bfloat16' is refused
-    (F11); the others run (test_torch_loss_variants.py holds them to
-    JAX), or raise the JAX package's ValueError on a bad
-    pairing (edge_aware with canonical smoothness)."""
+    """No loss setting is refused any more: since the bf16 warp
+    instances, gather_dtype='bfloat16' runs too (F11;
+    test_torch_gather_bf16.py holds it to JAX), as the others do
+    (test_torch_loss_variants.py), or raise the JAX package's ValueError
+    on a bad pairing (edge_aware with canonical smoothness)."""
     flow, prev, nxt = _level_inputs(np.random.RandomState(5), 1, 8, 8)
     for kw in ({"photometric": "census"}, {"smoothness": "depthwise"},
                {"gather_dtype": "bfloat16"}, {"edge_aware": True},
                {"edge_aware_photo": True}, {"occlusion": True}):
         cfg = dataclasses.replace(LossConfig(), **kw)
-        if "gather_dtype" in kw:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tpy.pyramid_loss([(_t(flow), 1.0)], _t(prev), _t(nxt), cfg)
-        elif "edge_aware" in kw:
+        if "edge_aware" in kw:
             with pytest.raises(ValueError, match="depthwise"):
                 tpy.pyramid_loss([(_t(flow), 1.0)], _t(prev), _t(nxt), cfg)
         else:

@@ -270,11 +270,13 @@ def test_the_carried_obs_and_train_keys_are_no_longer_dropped():
                 "train.pipeline_depth", "resilience.fetch_retries",
                 "obs.trace'", "obs.trace_ring", "obs.heartbeat'",
                 "obs.heartbeat_period_s", "obs.watchdog_factor",
-                "obs.watchdog_min_s", "obs.flops"):
+                "obs.watchdog_min_s", "obs.flops",
+                # the quality and incident planes are ported
+                "obs.quality_sample_rate", "obs.incidents'",
+                "obs.incident_keep", "obs.alerts"):
         assert key not in ignored, key
     # what changes no training result stays dropped, named
-    for key in ("obs.ledger", "obs.metrics_port", "obs.incidents",
-                "train.compile_cache"):
+    for key in ("obs.ledger", "obs.metrics_port", "train.compile_cache"):
         assert key in ignored, key
     assert cfg.obs == ObsConfig() and cfg.train.pipeline_depth == 2
 

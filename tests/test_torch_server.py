@@ -46,8 +46,8 @@ from deepof_tpu_torch.serve import server
 from deepof_tpu_torch.serve.engine import InferenceEngine, ServeError
 
 BUCKET = (64, 128)
-#: the stats blocks of JAX planes the port does not have
-ABSENT = ("exec_", "serve_quality", "incident_", "alert_")
+#: the stats block of the JAX plane the port does not have (the ledger)
+ABSENT = ("exec_",)
 
 
 def _jax_cfg(log_dir, fake=None, max_batch=4, timeout_ms=50.0, **serve_kw):
