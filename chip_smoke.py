@@ -136,7 +136,22 @@ read after it):
     triples against the numpy reference, then the `replica_degrade`
     fault driving the drift verdict to exhaustion, one committed
     `quality_drift` bundle, and `python -m deepof_tpu_torch incidents`
-    list (rc 1), ack, list (rc 0).
+    list (rc 1), `tail` (rc 9: the unacknowledged critical bundle), ack,
+    `tail` (rc 7: the exhausted quality verdict), list (rc 0).
+  - the staged recipe at full width (`cli_recipe`: `train --recipe`
+    from the flyingchairs preset over three stages, "chairs"
+    (Inception-v3 on a FlyingChairs + Sintel-pairs mixture), "sintel"
+    (T = 10 volumes, advancing on its eval plateau or a step backstop)
+    and "ucf101" (st_single); a run cut inside the first stage and its
+    resume there; the warps counted from 0 over each stage's fit; the
+    prebuild and no library built after it; `bench --data-only
+    --recipe`; `predict --action` from the last stage's checkpoints;
+    `analyze` and `tail`), and the verbs that read a run on the earlier
+    phases' directories: `tail` of the training job's traced run (rc 0,
+    its heartbeat at the fit's end), and `tail --fleet` (rc 4: the
+    eviction), `analyze` and `obs/aggregate.py::aggregate_run` (one
+    merged trace, requests chained from the router into the replicas) of
+    the fleet drill.
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -156,6 +171,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_vgg(w)"
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_ucf101(w)"
     python3 -c "import tempfile, chip_smoke as cs; cs.check_warp_levels_bf16(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_gather_bf16(w)"
+    python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_recipe(w)"
 """
 
 from __future__ import annotations
@@ -2072,7 +2088,8 @@ def serve_http(cfg) -> dict:
     from deepof_tpu_torch.ops.cuda import warp as cw
     from deepof_tpu_torch.resilience.faults import FaultConfig
     from deepof_tpu_torch.serve.engine import InferenceEngine
-    from deepof_tpu_torch.serve.server import (build_server,
+    from deepof_tpu_torch.serve.server import (_log_serve_summary,
+                                               build_server,
                                                install_replica_faults)
 
     log_dir = tempfile.mkdtemp(prefix="serve_http-", dir=work_root())
@@ -2158,6 +2175,9 @@ def serve_http(cfg) -> dict:
                 if verdict["serve_quality"]["exhausted"]:
                     break
             drift_stats = eng.stats()
+            # the final stats record `run_server` appends at its exit,
+            # which `tail` reads
+            _log_serve_summary(cfg, eng)
             index1 = eng._quality_index
             quality_launches = cw.quality_launches.count
         finally:
@@ -2171,14 +2191,21 @@ def serve_http(cfg) -> dict:
                      / np.abs(np.array(score_pair_np(x, f)))))
         for x, f, t in scored_rows)
     bundles = incident.list_incidents(log_dir)
-    verbs = {}
-    for name, verb in (("list", "list"), ("ack", "ack"),
-                       ("list again", "list")):
-        verbs[name] = subprocess.run(
-            [sys.executable, "-m", "deepof_tpu_torch", "incidents", verb,
+    verbs, tails = {}, {}
+    for name, verb in (("list", ["incidents", "list"]), ("tail", ["tail"]),
+                       ("ack", ["incidents", "ack"]),
+                       ("tail after ack", ["tail"]),
+                       ("list again", ["incidents", "list"])):
+        res = subprocess.run(
+            [sys.executable, "-m", "deepof_tpu_torch", *verb,
              "--log-dir", log_dir], capture_output=True, text=True,
-            timeout=120,
-            cwd=os.path.dirname(os.path.abspath(__file__))).returncode
+            timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+        verbs[name] = res.returncode
+        if verb == ["tail"]:
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            tails[name] = {
+                "unacked_critical": line["incidents"]["unacked_critical"],
+                "quality_exhausted": line["serve"]["quality"]["exhausted"]}
     got = [np.frombuffer(base64.b64decode(r[2]["flow_b64"]), "<f4")
            .reshape(r[2]["shape"]) for r in results]
     diffs = [float(np.abs(g - x).max() / max(np.abs(x).max(), 1e-30))
@@ -2239,7 +2266,7 @@ def serve_http(cfg) -> dict:
                            for m in bundles],
                "incident_captured": drift_stats["incident_captured"],
                "incident_deduped": drift_stats["incident_deduped"],
-               "verb_rcs": verbs},
+               "verb_rcs": verbs, "tail": tails},
            "seconds": time.monotonic() - t0,
            "card": torch.cuda.get_device_name(0)}
     shutil.rmtree(log_dir, ignore_errors=True)
@@ -2287,7 +2314,8 @@ def serve_http(cfg) -> dict:
         "incidents": [b["kind"] for b in row["incidents"]["bundles"]]
         == ["quality_drift"]
         and row["incidents"]["bundles"][0]["severity"] == "critical"
-        and verbs == {"list": 1, "ack": 0, "list again": 0}}
+        and verbs == {"list": 1, "tail": 9, "ack": 0, "tail after ack": 7,
+                      "list again": 0}}
     if not all(checks.values()):
         raise AssertionError(f"serve_http: {checks}")
     return row
@@ -2653,6 +2681,7 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     link_checkpoints(fleet_dir, run_dir)
     argv = ["serve", "--replicas", "2", *base, "--set",
             f"serve.fleet.spill_in_flight={FLEET_SPILL}",
+            "--set", "obs.trace=true",
             "--set", "resilience.faults.enabled=true",
             "--set", "resilience.faults.replica_crash_at=[1]",
             "--set", f"resilience.faults.replica_fault_after="
@@ -2755,6 +2784,27 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
             "fleet_failovers", "fleet_retries", "fleet_broken")})
     row["speedup_requests_per_s"] = (load["requests_per_s"]
                                      / single["requests_per_s"])
+    # the verbs that read a run, on the drill's tree: `tail --fleet`
+    # (rc 4 from the eviction), `analyze` (the replicas aggregated) and
+    # one merged trace of the router and the replicas
+    from deepof_tpu_torch.obs.aggregate import aggregate_run
+
+    tail_rc, tail = run_verb(["tail", "--log-dir", fleet_dir, "--fleet"],
+                             os.path.join(work, "serve_fleet_tail.log"))
+    an_rc, an = run_verb(["analyze", "--log-dir", fleet_dir, "--no-plot"],
+                         os.path.join(work, "serve_fleet_analyze.log"))
+    merged = aggregate_run(fleet_dir)
+    row["verbs"] = {
+        "tail_rc": tail_rc,
+        "tail_fleet": {k: (tail.get("fleet") or {}).get(k) for k in (
+            "evictions", "crashes", "respawns", "broken")},
+        "tail_incidents": tail.get("incidents"),
+        "analyze_rc": an_rc,
+        "analyze_processes": sorted(an.get("processes") or {}),
+        "analyze_merged_requests": (an.get("merged") or {}).get("requests"),
+        "merged_trace": {k: merged[k] for k in (
+            "spans", "flows", "request_ids", "requests_correlated")},
+        "merged_processes": [p["name"] for p in merged["processes"]]}
     row["seconds"] = time.monotonic() - t0
     emit("serve_fleet", **row)
     served = {i: r for i, r in recs.items() if r["serve_responses"]}
@@ -2788,7 +2838,15 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         and summary["fleet_evictions"] == 1
         and summary["fleet_respawns"] == 1
         and (mem_before is None or abs(mem_after - mem_before) <= 512),
-        "drain": rc == 0 and drain_s <= 10.0 and not left}
+        "drain": rc == 0 and drain_s <= 10.0 and not left,
+        # no incident plane here (obs.incidents off): the eviction gives
+        # the code
+        "verbs": tail_rc == 4 and row["verbs"]["tail_fleet"]["evictions"]
+        == 1 and an_rc == 0
+        and row["verbs"]["analyze_processes"] == ["replica-0", "replica-1"]
+        and row["verbs"]["merged_processes"][1:] == ["replica-0",
+                                                     "replica-1"]
+        and merged["requests_correlated"] >= 1}
     if not all(checks.values()):
         raise AssertionError(f"serve_fleet: {checks}")
     return row
@@ -3656,6 +3714,9 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
                                                    "val_loss")}
                           for r in records if r["kind"] == "eval"]}
     k2, k1, remat = runs["k2"], runs["k1"], runs["k2_remat"]
+    # `tail` of the traced K = 2 run: rc 0, its heartbeat at the fit's end
+    tail_rc, tail = run_verb(["tail", "--log-dir", k2["log_dir"]],
+                             os.path.join(work, "cli_train_job_tail.log"))
     common = sorted(k2["losses"])
     tensors = {name: checkpoint_tensors(r["log_dir"])
                for name, r in runs.items()}
@@ -3689,8 +3750,17 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
            "optimizer": optimizer_ms() if not extra else None,
            "checkpoint_tensors": len(tensors["k2"]),
            "checkpoint_differs": ckpt_diff,
-           "evals_k2": k2["evals"]}
+           "evals_k2": k2["evals"],
+           "tail_k2": {"rc": tail_rc, "step": tail.get("step"),
+                       "heartbeat_step": tail["heartbeat"]["step"],
+                       "wedged": tail["heartbeat"]["wedged"],
+                       "recent_steps_per_sec":
+                           tail.get("recent_steps_per_sec"),
+                       "phase_share": tail.get("phase_share")}}
     emit("cli_train_job", **row)
+    if (tail_rc, tail.get("step"), tail["heartbeat"]["step"]) != (
+            0, JOB_STEPS, k2["heartbeat"]["step"]):
+        raise AssertionError(f"cli_train_job: tail {row['tail_k2']}")
     steps = JOB_STEPS
     for name, r in runs.items():
         corr = steps * (2 if name == "k2_remat" else 1) + evals
@@ -5817,6 +5887,304 @@ def cli_train_ucf101(work: str) -> dict:
     return row
 
 
+# `train --recipe` (train/recipe.py) at full width: the paper's three
+# trainers as the stages of one run on the fixture trees, from the
+# flyingchairs preset (Inception-v3, 320x448, batch 4). Stage "chairs"
+# mixes the FlyingChairs tree (0.75) with T = 2 windows of a Sintel tree
+# at the Chairs size (0.25: synthetic pairs, the first choice, disagree
+# with Chairs pairs in structure, which the build reports); stage
+# "sintel" is the sintel preset's geometry (T = 10, 224x480 crops of
+# 256x512, AEE at 436x1024) on the Sintel tree, advancing on the plateau
+# of its evals with a step backstop; stage "ucf101" is st_single at
+# 320x384, batch 8, on the UCF-101 tree. An eval every step (the plateau
+# reads them), checkpoints only at a fit's end (nan_guard off: no step-0
+# save of the 3.45 GB st_single state), the span trace (the step in
+# `fit` is read off it: `fit_step_ms`).
+RECIPE_STEPS = {"chairs": 4, "sintel": 4, "ucf101": 3}
+RECIPE_CUT = 1  # the first run's --max-steps: it stops inside "chairs"
+RECIPE_SINTEL_PAIRS = {"alley_1": 4, "bamboo_2": 8, "market_2": 4}
+CLI_RECIPE = ["--preset", "flyingchairs", "--set", "train.log_every=1",
+              "--set", "train.eval_every=1",
+              "--set", "train.ckpt_every_steps=0",
+              "--set", "train.nan_guard=false", "--trace"]
+
+
+def recipe_stages(chairs_sintel: str, sintel: str, ucf101: str) -> dict:
+    """The recipe JSON of `cli_recipe` (a RecipeConfig dict)."""
+    return {"stages": [
+        {"name": "chairs", "advance": "steps",
+         "steps": RECIPE_STEPS["chairs"],
+         "mixture": [{"dataset": "flyingchairs", "weight": 0.75},
+                     {"dataset": "sintel", "weight": 0.25,
+                      "data_path": chairs_sintel, "time_step": 2}]},
+        {"name": "sintel", "advance": "plateau",
+         "steps": RECIPE_STEPS["sintel"], "plateau_window": 3,
+         "min_evals": 3, "time_step": 10, "image_size": [256, 512],
+         "crop_size": [224, 480], "gt_size": [436, 1024],
+         "loss_weights": [16, 8, 4, 4, 2, 1],
+         "mixture": [{"dataset": "sintel", "weight": 1.0,
+                      "data_path": sintel}]},
+        {"name": "ucf101", "advance": "steps",
+         "steps": RECIPE_STEPS["ucf101"], "model": "st_single",
+         "image_size": [320, 384], "gt_size": [320, 384], "batch_size": 8,
+         "loss_weights": [16, 8, 4, 2, 1], "learning_rate": 1.6e-4,
+         "mixture": [{"dataset": "ucf101", "weight": 1.0,
+                      "data_path": ucf101}]}]}
+
+
+def run_verb(argv: list, log_path: str) -> tuple[int, dict]:
+    """`cli.main(argv)` of a verb that reads a run (`tail`, `analyze`)
+    with its standard output sent to `log_path`: (exit code, its JSON:
+    `analyze`'s whole document, `tail`'s last line)."""
+    from deepof_tpu_torch import cli
+
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(argv)
+    with open(log_path) as f:
+        text = f.read().strip()
+    try:
+        return rc, json.loads(text)
+    except ValueError:
+        return rc, json.loads(text.splitlines()[-1])
+
+
+def fit_step_ms(log_dir: str) -> list[float]:
+    """The host milliseconds from one train-step call to the next in the
+    newest fit's span trace (`--trace`), less the eval and checkpoint
+    spans between them; the first call's interval (it syncs, and
+    PyTorch and cuDNN set up there) left out. It is the step in `fit`
+    where every step evals: `StepTimer` leaves eval time out by pausing
+    its clock, so it then times no step."""
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    calls = sorted((e for e in spans if e["name"] == "dispatch"),
+                   key=lambda e: e["ts"])
+    out = []
+    for a, b in zip(calls[1:], calls[2:]):
+        paused = sum(e["dur"] for e in spans if e["name"] in ("eval", "ckpt")
+                     and a["ts"] <= e["ts"] < b["ts"])
+        out.append((b["ts"] - a["ts"] - paused) / 1e3)
+    return out
+
+
+def eval_forwards(trainer) -> int:
+    """The eval forwards of one `Trainer.evaluate` sweep: the AEE
+    protocol's batches (`eval_calls`), or the accuracy protocol's
+    (`evaluate_ucf101`: a batch a class of a dataset with classes, else
+    its val split once)."""
+    from deepof_tpu_torch.core.config import ACTION_MODELS
+
+    ds, bs = trainer.dataset, trainer.cfg.train.eval_batch_size
+    if trainer.cfg.model not in ACTION_MODELS:
+        return eval_calls(ds.num_val, bs)
+    if hasattr(ds, "val_clips"):
+        return min(101, max(len(ds.val_clips), 1))
+    return -(-max(ds.num_val, 1) // bs)
+
+
+def cli_recipe(work: str) -> dict:
+    """`train --recipe` at full width (CLI_RECIPE, `recipe_stages`): a
+    first run cut by `--max-steps RECIPE_CUT` inside stage "chairs", then
+    the same command with a larger --max-steps, which lands in the stage
+    the newest manifest names and goes on from its stage_start_step
+    through "sintel" and "ucf101". Each stage's `fit` is wrapped to count
+    the kernels' launches from 0 over it: the warp forward once a step
+    and once an eval forward, its flow gradient once a step, nothing
+    else. Per stage: start and end step, the advance cause, the grafted
+    and re-initialised tensors, the step in `fit`, the checkpoint
+    seconds. The prebuild (every stage's dataset, every library built
+    and loaded before step 1) and 0 libraries built after it; `bench
+    --data-only --recipe` on the first stage's mixture; `predict --action
+    --ckpt-dir <log-dir>/ckpt-stage2` on one pair; `analyze` of the run
+    (its recipe block, the eval curve across the stages) and `tail` rc
+    0. The build-time refusal of a mixture whose members disagree
+    (FlyingChairs with synthetic pairs) is recorded first."""
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import (DataConfig, MixtureMemberConfig,
+                                              StageConfig, get_config,
+                                              recipe_from_dict)
+    from deepof_tpu_torch.data.mixture import build_mixture
+    from deepof_tpu_torch.ops.cuda import build
+    from deepof_tpu_torch.train import loop, recipe
+
+    t0 = time.monotonic()
+    chairs = os.path.join(work, "chairs")
+    if not os.path.isdir(chairs):
+        write_chairs(chairs)
+    sintel = os.path.join(work, "sintel")
+    if not os.path.isdir(sintel):
+        write_sintel(sintel)
+    ucf = os.path.join(work, "ucf101")
+    if not os.path.isdir(ucf):
+        write_ucf101(ucf, classes=UCF_CLASSES, seed=11,
+                     train_clips=UCF_TRAIN_CLIPS)
+    chairs_sintel = os.path.join(work, "sintel_chairs_size")
+    write_sintel(chairs_sintel, RECIPE_SINTEL_PAIRS, (384, 512), seed=12)
+    preset = get_config("flyingchairs")
+    try:
+        build_mixture(dataclasses.replace(preset.data, data_path=chairs),
+                      StageConfig(name="chairs", mixture=(
+                          MixtureMemberConfig("flyingchairs", 0.75),
+                          MixtureMemberConfig("synthetic", 0.25))))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    path = os.path.join(work, "recipe.json")
+    with open(path, "w") as f:
+        json.dump(recipe_stages(chairs_sintel, sintel, ucf), f)
+    log_dir = os.path.join(work, "cli_recipe")
+    argv = ["train", *CLI_RECIPE, "--data-path", chairs, "--recipe", path,
+            "--log-dir", log_dir]
+    fits: list = []
+    fit = loop.Trainer.fit
+
+    def counted(self, *a, **kw):
+        start = self.state.step
+        n_records = len(read_records(self.cfg.train.log_dir)) if \
+            os.path.exists(os.path.join(self.cfg.train.log_dir,
+                                        "metrics.jsonl")) else 0
+        reset_kernel_counts()
+        out = fit(self, *a, **kw)
+        launches = kernel_counts()
+        recs = read_records(self.cfg.train.log_dir)[n_records:]
+        fits.append({"stage": self.ckpt.read_manifest_extra()[
+            "recipe_stage"], "start": start, "end": self.state.step,
+            "model": self.cfg.model, "summary": out, "launches": launches,
+            "evals": [r for r in recs if r["kind"] == "eval"],
+            "forwards_per_eval": eval_forwards(self),
+            "step_ms": fit_step_ms(self.cfg.train.log_dir)})
+        return out
+
+    built_before = build.built_count()
+    loop.Trainer.fit = counted
+    try:
+        cut = run_cli([*argv, "--max-steps", str(RECIPE_CUT)],
+                      os.path.join(work, "cli_recipe_cut.log"))
+        cfg = dataclasses.replace(preset, recipe=recipe_from_dict(
+            recipe_stages(chairs_sintel, sintel, ucf)), train=dataclasses
+            .replace(preset.train, log_dir=log_dir))
+        resume_at = recipe.find_resume_stage(cfg)
+        done = run_cli([*argv, "--max-steps", "100"],
+                       os.path.join(work, "cli_recipe.log"))
+    finally:
+        loop.Trainer.fit = fit
+    built_after = build.built_count() - built_before
+    bench_line = run_cli(["bench", "--data-only", "--recipe", path,
+                          "--data-path", chairs, "--batch", "4",
+                          "--batches", "4", "--image-size", "320x448"],
+                         os.path.join(work, "cli_bench_recipe.log"))
+    pair_dir = os.path.join(ucf, "frames", UCF101_CLASSES[0],
+                            f"v_{UCF101_CLASSES[0]}_g01_c01")
+    reset_kernel_counts()
+    pred = run_cli(["predict", "--preset", "ucf101", "--action",
+                    "--data-path", ucf,
+                    "--ckpt-dir", os.path.join(log_dir, "ckpt-stage2"),
+                    "--out", os.path.join(work, "actions_recipe"),
+                    "--pairs", f"{pair_dir}/frame_0001.ppm:"
+                               f"{pair_dir}/frame_0002.ppm"],
+                   os.path.join(work, "cli_predict_recipe.log"))
+    predict = kernel_counts()
+    an_rc, an = run_verb(["analyze", "--log-dir", log_dir, "--no-plot"],
+                         os.path.join(work, "cli_analyze_recipe.log"))
+    tail_rc, tail = run_verb(["tail", "--log-dir", log_dir],
+                             os.path.join(work, "cli_tail_recipe.log"))
+    names = [s["name"] for s in recipe_stages("", "", "")["stages"]]
+    evals = [{"step": r["step"], "stage": names[f["stage"]],
+              **{k: r[k] for k in ("aee", "accuracy") if k in r}}
+             for f in fits[1:] for r in f["evals"]]
+    stages = []
+    for f, ps in zip(fits[1:], done["per_stage"]):
+        graft = next((g for g in done["grafts"]
+                      if g["stage"] == f["stage"]), None)
+        stages.append({
+            "stage": names[f["stage"]], "model": f["model"],
+            "start_step": ps["start_step"], "fit_from": f["start"],
+            "end_step": ps["end_step"], "advance": ps["advance"],
+            "grafted": graft and graft["copied"],
+            "reinitialized": graft and graft["reinitialized"],
+            "steps": f["end"] - f["start"], "evals": len(f["evals"]),
+            "eval_forwards": len(f["evals"]) * f["forwards_per_eval"],
+            "launches": {k: v for k, v in f["launches"].items() if v},
+            "step_ms": f["step_ms"],
+            "step_ms_median": (float(np.median(f["step_ms"]))
+                               if f["step_ms"] else None),
+            **{k: f["summary"].get(k) for k in (
+                "phase_dispatch_ms_median", "ckpt_saves",
+                "ckpt_save_s_total", "dev_mem_peak_bytes")}})
+    row = {"stages": stages,
+           "cut": {"per_stage": cut["per_stage"],
+                   "launches": {k: v for k, v in fits[0]["launches"].items()
+                                if v}},
+           "resume": {"stage": resume_at[0], "extra": resume_at[1],
+                      "fit_from": fits[1]["start"]},
+           "final_stage": done["final_stage"],
+           "global_step": done["global_step"], "advances": done["advances"],
+           "last_trigger": done["last_trigger"],
+           "prebuild": done["prebuild"],
+           "libraries_built_after_prebuild":
+               done["libraries_built_after_prebuild"],
+           "libraries_built_in_phase": built_after,
+           "mixture_refused": refused and refused[:240],
+           "bench_data": {k: bench_line.get(k) for k in (
+               "value", "unit", "dataset", "image_size", "draws_by_dataset",
+               "decode_cache_hits", "decode_cache_misses")},
+           "predict": {"launches": {k: v for k, v in predict.items() if v},
+                       "actions": [{k: a[k] for k in ("class", "prob")}
+                                   for a in pred["actions"]]},
+           "analyze": {"rc": an_rc, "recipe": an.get("recipe"),
+                       "eval": an.get("eval"),
+                       "accuracy": an.get("accuracy"),
+                       "train_steps": (an.get("train") or {}).get("steps")},
+           "eval_curve": evals,
+           "plateau_fired": done["per_stage"][1]["advance"] == "plateau",
+           "tail": {"rc": tail_rc, "step": tail.get("step"),
+                    "heartbeat_step": (tail.get("heartbeat") or {})
+                    .get("step"), "recipe": tail.get("recipe")},
+           "seconds": time.monotonic() - t0}
+    emit("cli_recipe", **row)
+    checks = {
+        "refused": refused is not None and "disagree" in refused,
+        "cut": cut["per_stage"] == [{"stage": 0, "name": "chairs",
+                                     "start_step": 0, "end_step": RECIPE_CUT,
+                                     "advance": "budget"}],
+        "resume": resume_at[0] == 0 and resume_at[1].get(
+            "stage_start_step") == 0 and fits[1]["start"] == RECIPE_CUT
+        and done["per_stage"][0]["start_step"] == 0,
+        "stages": [s["name"] for s in done["per_stage"]] == names
+        and [s["advance"] for s in done["per_stage"]][::2]
+        == ["steps", "steps"]
+        and done["per_stage"][1]["advance"] in ("steps", "plateau")
+        and done["per_stage"][0]["end_step"] == RECIPE_STEPS["chairs"]
+        and done["per_stage"][2]["end_step"]
+        - done["per_stage"][2]["start_step"] == RECIPE_STEPS["ucf101"]
+        and done["final_stage"] == 2 and done["advances"] == 2,
+        "grafts": [g["stage"] for g in done["grafts"]] == [1, 2],
+        "prebuild": [s["stage"] for s in done["prebuild"]["stages"]]
+        == [0, 1, 2] and set(done["prebuild"]["libraries"])
+        == set(build.SOURCES)
+        and done["libraries_built_after_prebuild"] == 0
+        and cut["libraries_built_after_prebuild"] == 0 and built_after == 0,
+        "step_ms": all(s["step_ms"] for s in stages),
+        "launches": all(
+            f["launches"] == want_counts(
+                warp_fwd=f["end"] - f["start"]
+                + len(f["evals"]) * f["forwards_per_eval"],
+                warp_flow_grad=f["end"] - f["start"])
+            and f["end"] > f["start"] and f["evals"] for f in fits),
+        "finite": all(np.isfinite(e.get("aee", e.get("accuracy")))
+                      for e in evals),
+        "bench": bench_line["dataset"] == "flyingchairs+sintel"
+        and bench_line["value"] > 0,
+        "predict": predict == want_counts() and len(pred["actions"]) == 1,
+        "analyze": an_rc == 0 and an["recipe"]["stage"] == 2
+        and an["recipe"]["stages"] == 3,
+        "tail": tail_rc == 0 and tail["step"] == done["global_step"]}
+    if not all(checks.values()):
+        raise AssertionError(f"cli_recipe: {checks}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -5945,6 +6313,7 @@ def main() -> int:
         bench_row = cli_bench(work)
         vgg_row = cli_train_vgg(work)
         ucf_row = cli_train_ucf101(work)
+        recipe_row = cli_recipe(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
@@ -5972,6 +6341,12 @@ def main() -> int:
     # the UCF-101 loader's bench
     inception_paths.update({f"cli_{k}_ucf101": v
                             for k, v in ucf_row["launches"].items()})
+    # the staged recipe (`train --recipe`): each stage's fit, Inception-v3
+    # on the Chairs mixture and on Sintel volumes, then st_single
+    inception_paths.update({
+        f"cli_recipe_{st['stage']}": {"warp_fwd": 0, "warp_flow_grad": 0,
+                                      **st["launches"]}
+        for st in recipe_row["stages"]})
     for p, k in inception_paths.items():
         by_path["fwd"][p] = k["warp_fwd"]
         by_path["flow_grad"][p] = k["warp_flow_grad"]
@@ -6158,6 +6533,11 @@ def main() -> int:
                 "steps": UCF_STEPS,
                 "launches_eval": by_path[key]["cli_eval_ucf101"],
                 **ucf_row["warp_levels"][key]},
+            "recipe_stages": {
+                st["stage"]: {"launches": by_path[key][
+                    f"cli_recipe_{st['stage']}"], "steps": st["steps"],
+                    "eval_forwards": st["eval_forwards"]}
+                for st in recipe_row["stages"]},
             "ucf101_baseline_shape": {
                 "shape": [list(s) for s in UCF_BASELINE_LEVELS],
                 "launches": by_path[key]["cli_train_st_baseline_ucf101"],
@@ -6246,7 +6626,8 @@ def main() -> int:
                         "cli_sintel_inception": sintel_inc_row["seconds"],
                         "cli_bench": bench_row["seconds"],
                         "cli_train_vgg": vgg_row["seconds"],
-                        "cli_train_ucf101": ucf_row["seconds"]})
+                        "cli_train_ucf101": ucf_row["seconds"],
+                        "cli_recipe": recipe_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),

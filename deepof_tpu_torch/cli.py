@@ -1,6 +1,6 @@
 """Command-line entry point (port of the `train`, `eval`, `predict`,
-`serve`, `config`, `bench`, `verify-ckpt` and `incidents` verbs of
-`deepof_tpu/cli.py`).
+`serve`, `config`, `bench`, `verify-ckpt`, `incidents`, `analyze` and
+`tail` verbs of `deepof_tpu/cli.py`).
 
 Usage:
     python -m deepof_tpu_torch train --preset flyingchairs --model flownet_s \
@@ -27,6 +27,11 @@ Usage:
     python -m deepof_tpu_torch train --preset flyingchairs --synthetic
     python -m deepof_tpu_torch bench            # the headline train step
     python -m deepof_tpu_torch bench --data-only --workers 4
+    python -m deepof_tpu_torch train --preset flyingchairs --data-path /data \
+        --recipe recipe.json --log-dir /runs/r1   # staged: ckpt-stage<i>/
+    python -m deepof_tpu_torch bench --data-only --recipe recipe.json
+    python -m deepof_tpu_torch analyze --log-dir /runs/r1 [--no-plot]
+    python -m deepof_tpu_torch tail --log-dir /runs/c1 [--fleet] [--follow]
     python -m deepof_tpu_torch verify-ckpt /runs/fc1
     python -m deepof_tpu_torch incidents list --log-dir /runs/c1
     python -m deepof_tpu_torch incidents ack --log-dir /runs/c1 [--id ID]
@@ -42,7 +47,10 @@ timeline in <log-dir>/trace.json), `--profile` and `--profile-steps a:b`
 `serve.precisions`), `--action` (predict: classify each pair with an
 action model's head into `<out>/actions.json`, top-5 classes and their
 softmax probabilities), `--labels FILE` (class names, one a line) and
-`--ckpt-dir DIR` (the checkpoint directory, default `<log-dir>/ckpt`),
+`--ckpt-dir DIR` (the checkpoint directory, default `<log-dir>/ckpt`; a
+recipe's stage i is `<log-dir>/ckpt-stage<i>`), `--recipe FILE` (train:
+a staged recipe, `train/recipe.py`; the file implies recipe.enabled and
+`--set recipe.*` overrides it),
 and for `serve` `--input` (offline mode: the
 consecutive pairs of a directory of frames, written to `--out`; without
 it, the HTTP server of `serve/server.py` on serve.host:serve.port),
@@ -52,8 +60,13 @@ N replica processes behind a router), `--autoscale` (the fleet sized by
 `serve/autoscale.py` between `--min-replicas` and `--max-replicas`;
 fleet mode even at one replica). `bench` takes the JAX verb's flags
 (`--model`, `--batch`, `--steps`, `--data-only`, `--workers`,
-`--batches`, `--image-size`, `--dataset`, `--data-path`) and
-`--device`; `verify-ckpt DIR` prints the run's checkpoint report and
+`--batches`, `--image-size`, `--dataset`, `--data-path`, `--recipe`:
+the first stage's mixture) and `--device`; `analyze --log-dir DIR
+[--no-plot]` prints the run's summary (`analyze.py`, the fleet's
+children aggregated); `tail --log-dir DIR [--recent N] [--fleet]
+[--follow] [--interval S]` prints its one-glance health and exits as the
+JAX verb does (`tail_code`: 9, 3, 4, 5, 6, 7, 10, else 0). `analyze`,
+`tail` and `incidents` import no torch; `verify-ckpt DIR` prints the run's checkpoint report and
 exits 1 on a corrupt checkpoint, 2 when there is none. `incidents
 {list,show,ack,gc} --log-dir DIR` triages the incident bundles of a run
 (`obs/incident.py`; `--id`, `--older-than-days`, `--acked`, `--keep`,
@@ -92,10 +105,13 @@ from .core.config import (PRESETS, ExperimentConfig, config_from_dict,
 #: The JAX package's flags this package does not take yet -> the ROADMAP
 #: Queue A item that ports them.
 _UNPORTED_FLAGS = {
-    "--recipe": "9 (recipes)",
     "--elastic": "10 (elastic training)",
     "--multihost": "10 (parallelism)",
     "--artifacts": "8 (artifacts)",
+    "--ledger-baseline": "8 (the executable ledger)",
+    "--ledger-compile-factor": "8 (the executable ledger)",
+    "--ledger-compile-floor-s": "8 (the executable ledger)",
+    "--ledger-memory-factor": "8 (the executable ledger)",
 }
 
 
@@ -134,6 +150,28 @@ def _apply_override(cfg: ExperimentConfig, dotted: str,
     return rec(cfg, dotted.split("."))
 
 
+def _recipe_from_file(cfg: ExperimentConfig, path: str) -> ExperimentConfig:
+    """Load a `--recipe FILE` JSON (a RecipeConfig dict, train/recipe.py)
+    into the config, as the JAX command line does: the file implies
+    recipe.enabled; unknown keys are rejected at every nesting level
+    (stages[i], stages[i].mixture[j])."""
+    from .core.config import recipe_from_dict
+
+    try:
+        with open(path) as f:
+            d = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise SystemExit(f"--recipe {path!r}: {e}")
+    if not isinstance(d, dict):
+        raise SystemExit(f"--recipe {path!r}: expected a JSON object "
+                         '(a RecipeConfig dict with a "stages" list)')
+    d.setdefault("enabled", True)
+    try:
+        return cfg.replace(recipe=recipe_from_dict(d))
+    except (TypeError, ValueError) as e:
+        raise SystemExit(f"--recipe {path!r}: {e}")
+
+
 def _build_cfg(args) -> ExperimentConfig:
     if getattr(args, "config_json", None):
         # the fleet's parent -> replica handoff: the exact serialized
@@ -157,6 +195,9 @@ def _build_cfg(args) -> ExperimentConfig:
             gt_size=(64, 64), batch_size=8, crop_size=None, time_step=2),
             train=dataclasses.replace(cfg.train, eval_batch_size=8,
                                       eval_amplifier=1.0))
+    if getattr(args, "recipe", None):
+        # before --set, so an explicit --set recipe.* wins over the file
+        cfg = _recipe_from_file(cfg, args.recipe)
     # the serve sugar flags, before --set so an explicit --set wins
     for flag, dotted in (("session_ttl", "serve.session.ttl_s"),
                          ("session_max", "serve.session.max_sessions"),
@@ -199,8 +240,11 @@ def main(argv=None) -> int:
     p_train.add_argument("--epochs", type=int, default=None)
     p_train.add_argument("--max-steps", "--steps", dest="max_steps",
                          type=int, default=None)
-    for flag in ("--recipe", "--elastic"):
-        _add_unported(p_train, flag, takes_value=True)
+    p_train.add_argument("--recipe", default=None, metavar="FILE",
+                         help="a staged training recipe (a RecipeConfig "
+                              "JSON, train/recipe.py); implies "
+                              "recipe.enabled, --set recipe.* overrides it")
+    _add_unported(p_train, "--elastic", takes_value=True)
     p_train.add_argument("--config-json", default=None,
                          help=argparse.SUPPRESS)  # a config tree as JSON
     p_train.add_argument("--profile", action="store_true",
@@ -309,7 +353,9 @@ def main(argv=None) -> int:
     p_bench.add_argument("--data-path", default="",
                          help="data-only mode: dataset root on disk")
     p_bench.add_argument("--recipe", default=None, metavar="FILE",
-                         help="not ported (ROADMAP Queue A item 9.5)")
+                         help="data-only mode: time the recipe's first "
+                              "stage's weighted mixture (data/mixture.py) "
+                              "in place of a single --dataset")
     p_bench.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                          help="train mode: where the step runs (default "
                               "cuda, which raises without a card)")
@@ -320,6 +366,39 @@ def main(argv=None) -> int:
              "(nonzero exit on corruption)")
     p_vck.add_argument("dir",
                        help="a run's --log-dir or its ckpt/ subdirectory")
+
+    p_an = sub.add_parser("analyze", help="summarize a run's metrics log")
+    p_an.add_argument("--log-dir", required=True)
+    p_an.add_argument("--no-plot", action="store_true")
+
+    p_tail = sub.add_parser(
+        "tail", help="one-glance health of a live or finished run: step, "
+                     "loss, recent vs overall throughput, phase shares, "
+                     "starvation, resilience counters, heartbeat age; "
+                     "exits 9 while a critical incident bundle is "
+                     "unacknowledged, 3 when the heartbeat reports "
+                     "wedged, 4 when a serving fleet evicted or broke a "
+                     "replica, 5 when an elastic run re-formed, 6 when "
+                     "the SLO error budget is exhausted, 7 when the "
+                     "flow-quality drift verdict is exhausted (with "
+                     "--fleet, any replica's), 10 when the brownout "
+                     "controller held L3 past serve.degrade."
+                     "l3_sustained_s, else 0, checked in that order")
+    p_tail.add_argument("--log-dir", required=True)
+    p_tail.add_argument("--recent", type=int, default=10,
+                        help="train records in the throughput-trend window")
+    p_tail.add_argument("--fleet", action="store_true",
+                        help="also aggregate the run dir's supervised "
+                             "children (fleet replicas) into per-process "
+                             "blocks and an exact merged latency "
+                             "histogram")
+    p_tail.add_argument("--follow", action="store_true",
+                        help="re-print every --interval seconds until ^C "
+                             "or a nonzero code")
+    p_tail.add_argument("--interval", type=float, default=10.0)
+    for flag in ("--ledger-baseline", "--ledger-compile-factor",
+                 "--ledger-compile-floor-s", "--ledger-memory-factor"):
+        _add_unported(p_tail, flag, takes_value=True)
 
     p_inc = sub.add_parser(
         "incidents",
@@ -346,8 +425,14 @@ def main(argv=None) -> int:
     p_inc.add_argument("--json-indent", type=int, default=2)
 
     args = parser.parse_args(argv)
+    # the verbs that read a run import no torch: reading a run must not
+    # create a CUDA context next to a live trainer or server
     if args.cmd == "incidents":
         return _incidents(args)
+    if args.cmd == "tail":
+        return _tail(args)
+    if args.cmd == "analyze":
+        return _analyze(args)
     from .core.device import disable_tf32
 
     disable_tf32()
@@ -417,6 +502,15 @@ def main(argv=None) -> int:
         # before Trainer(): a SIGTERM during the model and kernel build is
         # kept, and fit() turns it into a save-and-stop
         install_preemption_latch()
+        if cfg.recipe.enabled and cfg.recipe.stages:
+            # a staged recipe (train/recipe.py): one Trainer a stage, the
+            # stage index riding the checkpoint manifests
+            from .train.recipe import run_recipe
+
+            print(json.dumps(run_recipe(cfg, max_steps=args.max_steps,
+                                        num_epochs=args.epochs,
+                                        device=args.device)))
+            return 0
     trainer = Trainer(cfg, device=args.device,
                       profile=getattr(args, "profile", False),
                       profile_steps=profile_steps)
@@ -477,6 +571,79 @@ def _incidents(args) -> int:
               file=sys.stderr)
         return 2
     return 1 if summary["unacked_critical"] else 0
+
+
+def _analyze(args) -> int:
+    """The `analyze` verb: `analyze.analyze`'s summary as JSON."""
+    from .analyze import analyze
+
+    try:
+        summary = analyze(args.log_dir, plot=not args.no_plot)
+    except FileNotFoundError:
+        raise SystemExit(f"no metrics.jsonl under {args.log_dir!r} — is "
+                         "this a run's --log-dir?")
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def tail_code(summary: dict) -> int:
+    """The `tail` verb's exit code for one `tail_summary`, as the JAX
+    verb's, checked in this order: 9 an unacknowledged critical incident
+    bundle (it outranks the cumulative counters below, which the same
+    anomaly usually trips too); 3 the heartbeat reports a wedge; 4 a
+    fleet evicted or broke a replica (scale-downs are not sickness); 5
+    an elastic run re-formed or lost hosts; 6 the SLO error budget is
+    exhausted (the engine's or the router's block); 7 the flow-quality
+    drift verdict is exhausted (with --fleet, any replica's); 10 the
+    brownout controller held L3 past its budget; 0 otherwise. The JAX
+    verb's 8 (the executable ledger's drift) is not ported."""
+    if (summary.get("incidents") or {}).get("unacked_critical"):
+        return 9
+    if (summary.get("heartbeat") or {}).get("wedged"):
+        return 3
+    fleet = summary.get("fleet") or {}
+    if fleet.get("broken") or fleet.get("evictions"):
+        return 4
+    elastic = summary.get("elastic") or {}
+    if elastic.get("reforms") or elastic.get("lost_hosts"):
+        return 5
+    slo = ((summary.get("serve") or {}).get("slo")
+           or fleet.get("slo") or {})
+    if slo.get("exhausted"):
+        return 6
+    quality = [(summary.get("serve") or {}).get("quality")]
+    quality += [(child.get("serve") or {}).get("quality")
+                for child in (summary.get("processes") or {}).values()]
+    if any((q or {}).get("exhausted") for q in quality):
+        return 7
+    if (summary.get("degrade") or {}).get("l3_sustained"):
+        return 10
+    return 0
+
+
+def _tail(args) -> int:
+    """The `tail` verb: one `tail_summary` JSON line (a line every
+    --interval seconds with --follow, until a nonzero code); the exit
+    code of `tail_code`."""
+    import time
+
+    from .analyze import tail_summary
+
+    raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
+                    if getattr(args, flag[2:].replace("-", "_"), None)
+                    is not None])
+    while True:
+        try:
+            summary = tail_summary(args.log_dir, recent=args.recent,
+                                   fleet=args.fleet)
+        except FileNotFoundError:
+            raise SystemExit(f"no metrics.jsonl under {args.log_dir!r} — "
+                             "is this a run's --log-dir?")
+        print(json.dumps(summary), flush=True)
+        rc = tail_code(summary)
+        if rc or not args.follow:
+            return rc
+        time.sleep(max(args.interval, 0.1))
 
 
 def _verify_ckpt(path: str) -> int:

@@ -8,9 +8,9 @@ and named in one warning, so a full JAX config JSON loads without error.
 Those are settings of the mesh, elastic training, the compile cache, the
 executable ledger, the metrics port and the artifact store's garbage
 collection: none of them changes a result. Settings
-that change what the training path computes are carried, and where this
-package cannot honour a value yet, `check_trainable` raises on it,
-naming the ROADMAP item that ports it (`recipe`).
+that change what the training path computes are carried; `check_trainable`
+raises on values that no model can honour, and `raise_unported` names
+the ROADMAP item of a setting not ported yet.
 """
 
 from __future__ import annotations
@@ -453,14 +453,75 @@ class ObsConfig:
 
 
 @dataclass(frozen=True)
+class MixtureMemberConfig:
+    """One weighted member of a stage's dataset mixture (data/mixture.py;
+    the JAX package's, every field and default).
+
+    Empty/zero fields inherit the stage-resolved DataConfig, so a member
+    usually names only its dataset and weight. All members of a stage
+    must agree on per-sample structure (shape, dtype, implied
+    time_step), checked when the mixture is built, naming the stage."""
+
+    dataset: str = "synthetic"  # flyingchairs | sintel | ucf101 | synthetic
+    weight: float = 1.0
+    data_path: str = ""  # "" = the stage's data.data_path
+    sintel_pass: str = ""  # "" = the stage's data.sintel_pass
+    time_step: int = 0  # 0 = the stage's data.time_step
+
+
+@dataclass(frozen=True)
+class StageConfig:
+    """One stage of a training recipe (train/recipe.py; the JAX
+    package's): a weighted dataset mixture plus per-stage overrides of
+    the base config and an advance condition. Sentinel values (None / 0
+    / empty) inherit the base ExperimentConfig, so a stage names only
+    what it changes."""
+
+    name: str = "stage"
+    # weighted dataset mixture; () = the base config's single dataset
+    mixture: tuple[MixtureMemberConfig, ...] = ()
+    # --- per-stage config overrides (sentinels inherit the base) ---
+    image_size: tuple[int, int] | None = None
+    gt_size: tuple[int, int] | None = None
+    crop_size: tuple[int, int] | None = None
+    time_step: int = 0
+    batch_size: int = 0
+    model: str = ""  # e.g. the UCF-101 action stage swaps in st_single
+    loss_weights: tuple[float, ...] = ()
+    learning_rate: float = 0.0  # this stage's lr-schedule segment base
+    # --- advance condition ---
+    # "steps": advance after exactly `steps` optimizer steps.
+    # "plateau": advance when the stage's eval-AEE trend (analyze.py
+    #   eval_trend over this stage's evals) has flattened — slope >=
+    #   -plateau_slope AEE per 1000 steps over plateau_window evals —
+    #   with `steps` (when > 0) as a hard step budget backstop.
+    advance: str = "steps"
+    steps: int = 0  # 0 = unbounded (terminal stage / plateau-only)
+    plateau_window: int = 8
+    plateau_slope: float = 0.01  # flat when slope >= -this (AEE/kstep)
+    min_evals: int = 3  # plateau needs at least this many stage evals
+
+
+@dataclass(frozen=True)
 class RecipeConfig:
-    """The staged training recipe of the JAX package (`RecipeConfig`, the
-    fields that make a run staged), carried so that a recipe is refused
-    (`check_trainable`) and not dropped; `stages` holds the JAX stage
-    dicts as they are."""
+    """Staged training recipe (train/recipe.py; the JAX package's): an
+    ordered list of stages, each with a deterministic weighted dataset
+    mixture, per-stage shape/time_step/loss/lr overrides, and a
+    fixed-step or EPE-plateau advance condition. The active stage index
+    rides the checkpoint manifest, so a resume lands in the right stage.
+    `warmup` builds every remaining stage's dataset and every CUDA
+    library before step 1, so a stage switch builds nothing
+    (`train/recipe.py::prebuild_stages`)."""
 
     enabled: bool = False
-    stages: tuple = ()
+    stages: tuple[StageConfig, ...] = ()
+    # build every stage's dataset and the kernels at recipe start;
+    # False = each stage builds its own as it starts
+    warmup: bool = True
+    # eval cadence driving the plateau trigger rides the per-stage
+    # train.eval_every; this caps how many stage evals the trigger
+    # retains (bounded memory on very long stages)
+    max_trigger_evals: int = 512
 
 
 @dataclass(frozen=True)
@@ -564,16 +625,35 @@ def _tupleize(value: Any) -> Any:
     return value
 
 
-def _from_dict(cls: type, d: dict, path: str, ignored: list[str]) -> Any:
+def _from_dict(cls: type, d: dict, path: str,
+               ignored: list[str] | None) -> Any:
+    """dict -> `cls`. Unknown keys are appended to `ignored`, or raise
+    ValueError naming their path when `ignored` is None (strict)."""
     hints = typing.get_type_hints(cls)
     names = {f.name for f in dataclasses.fields(cls)}
-    ignored.extend(f"{path}{k}" for k in sorted(set(d) - names))
+    unknown = sorted(set(d) - names)
+    if unknown and ignored is None:
+        raise ValueError(f"config_from_dict: unknown field(s) {unknown} in "
+                         f"{path.rstrip('.') or cls.__name__}")
+    if unknown:
+        ignored.extend(f"{path}{k}" for k in unknown)
     kwargs: dict[str, Any] = {}
     for name in names & set(d):
         value = d[name]
         hint = hints[name]
         if dataclasses.is_dataclass(hint) and isinstance(value, dict):
             value = _from_dict(hint, value, f"{path}{name}.", ignored)
+        elif (typing.get_origin(hint) is tuple and typing.get_args(hint)
+              and dataclasses.is_dataclass(typing.get_args(hint)[0])
+              and isinstance(value, (list, tuple))):
+            # tuple-of-dataclass fields (recipe.stages, stage.mixture):
+            # each element recurses with an indexed path, so an unknown
+            # key names the exact offending entry
+            elem = typing.get_args(hint)[0]
+            value = tuple(
+                _from_dict(elem, v, f"{path}{name}[{i}].", ignored)
+                if isinstance(v, dict) else _tupleize(v)
+                for i, v in enumerate(value))
         else:
             value = _tupleize(value)
         kwargs[name] = value
@@ -591,6 +671,14 @@ def config_from_dict(d: dict) -> ExperimentConfig:
         warnings.warn(f"config_from_dict: ignored keys not read by "
                       f"deepof_tpu_torch: {ignored}", stacklevel=2)
     return cfg
+
+
+def recipe_from_dict(d: dict) -> RecipeConfig:
+    """Strict dict -> RecipeConfig for the `train --recipe FILE` payload
+    (train/recipe.py), as the JAX package's: an unknown key at any level
+    raises ValueError with its indexed path (`recipe.stages[1]`,
+    `recipe.stages[0].mixture[1]`), never a silently defaulted field."""
+    return _from_dict(RecipeConfig, d, "recipe.", None)
 
 
 #: the UCF-101 action models: trained with their class, evaluated by
@@ -641,12 +729,9 @@ def check_loss(cfg: LossConfig) -> None:
 
 
 def check_trainable(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, on every
-    setting that the training path cannot honour yet."""
-    todo = []
-    if cfg.recipe != RecipeConfig():
-        todo.append(("recipe", "9.5 (recipes)"))
-    raise_unported(todo)
+    """Raise ValueError on a setting that the training path cannot
+    honour (a two-frame model on a volume, an unknown dtype or loss
+    option)."""
     if cfg.data.time_step != 2 and cfg.model in ("flownet_c", "flownet_cs"):
         # the JAX package breaks there too: FlowNetC's siamese conv1 is
         # built for one 3-channel frame (flax ScopeParamShapeError at

@@ -673,6 +673,14 @@ class SyntheticData:
                  for k in range(batch_size)]
         return self._batch(seeds)
 
+    def cache_stats(self) -> dict:
+        """Procedural data decodes nothing; a zeroed record keeps the
+        observability schema uniform across datasets (the JAX package's:
+        train records carry decode_cache_* = 0, and a mixture sums its
+        members' counters)."""
+        return {"hits": 0, "misses": 0, "evictions": 0, "bytes": 0,
+                "entries": 0}
+
 
 def build_dataset(cfg: DataConfig):
     """The dataset `cfg.dataset` names ("synthetic", "flyingchairs",

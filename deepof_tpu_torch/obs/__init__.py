@@ -17,8 +17,11 @@
                 (warp, census, smoothness proxies; the drift verdict);
   incident.py   the incident plane: evidence bundles committed when a
                 verdict fires, alert rules, and the `incidents` verb's
-                triage (a copy; stdlib-only).
+                triage (a copy; stdlib-only);
+  aggregate.py  one merged Chrome trace of a supervised run's process
+                tree, requests chained by id across processes (a copy;
+                stdlib-only; `analyze` and `tail --fleet` read the tree
+                through `discover_processes`).
 
-The executable ledger and aggregate/analyze are not ported (ROADMAP
-Queue A items 8 and 11).
+The executable ledger is not ported (ROADMAP Queue A item 8).
 """

@@ -11,12 +11,13 @@ processes' values combine into one fleet-wide value) and its **owner**
 replicas' `/healthz` blocks by these kinds (`merge_stats_blocks`), so
 a registered counter joins the fleet's `/metrics` with no edit there.
 The quality (`serve_quality_*`) and incident (`incident_*`, `alert_*`)
-keys are declared too. The JAX package's executable-ledger, elastic,
-recipe and training-resilience keys are not: this package writes none
-of them to a stats block the fleet merges (ROADMAP Queue A items 8-10
-port those planes). This package's keys are the JAX
-package's: none of its serve, fleet, autoscale or degrade keys is its
-own.
+keys are declared too, and so are the training-resilience keys (whose
+`resilience` flag makes them the `resilience` block of `analyze` and
+`tail`, in declaration order: `resilience_keys`), the `fault_*` family
+and the staged recipe's `recipe_*` keys. The JAX package's
+executable-ledger and elastic keys are not: this package writes none
+of them (ROADMAP Queue A items 8 and 10 port those planes). This
+package's keys are the JAX package's: none of them is its own.
 
 Merge kinds:
 
@@ -51,19 +52,27 @@ MERGE_KINDS: frozenset[str] = frozenset((
 class Key:
     """One observability key's schema entry.
 
-    name: the full key as written into stats dicts ("serve_requests").
+    name: the full key as written into stats dicts ("serve_requests");
+        for a prefix family, the shared prefix ("fault_").
     kind: merge kind (see module docstring).
     owner: the subsystem that writes it — engine | session | router |
-        fleet | degrade | quality | incident.
+        fleet | degrade | quality | incident | train | data | ckpt |
+        faults | recipe.
+    prefix: True = family entry: every key starting with `name`
+        resolves here (the per-site fault counts). Exact entries win.
+    resilience: True = part of the resilience-counter surface analyze/
+        tail show as the `resilience` block (nonzero values only).
     """
 
     name: str
     kind: str
     owner: str
+    prefix: bool = False
+    resilience: bool = False
 
 
-def _keys(owner: str, kind: str, *names: str) -> list[Key]:
-    return [Key(n, kind, owner) for n in names]
+def _keys(owner: str, kind: str, *names: str, **kw) -> list[Key]:
+    return [Key(n, kind, owner, **kw) for n in names]
 
 
 _ENTRIES: list[Key] = [
@@ -193,6 +202,34 @@ _ENTRIES: list[Key] = [
     # sustained-L3 verdict (L3 held past degrade.l3_sustained_s)
     Key("degrade_l3_sustained", "bool", "degrade"),
     Key("degrade_last_reason", "state", "degrade"),
+    # ------------------------------ fault_* (resilience/faults.py):
+    # per-site injection counts are dynamically named — one family
+    Key("fault_", "sum", "faults", prefix=True, resilience=True),
+    # ------------------- the resilience surface (train records and the
+    # heartbeat; analyze/tail's `resilience` block). Declaration order
+    # is the block's key order (resilience_keys), the JAX package's
+    *_keys("train", "sum", "skipped_updates", "rollbacks",
+           resilience=True),
+    *_keys("data", "sum",
+           "data_sample_retries", "data_quarantined", "data_substituted",
+           "data_retries", resilience=True),
+    Key("pipeline_fetch_retries", "sum", "data", resilience=True),
+    *_keys("ckpt", "sum",
+           "ckpt_save_failures", "ckpt_restore_failures",
+           "ckpt_restore_fallbacks", "ckpt_verify_failures",
+           resilience=True),
+    # non-resilience ckpt counter (rides the same ckpt_ stats prefix)
+    Key("ckpt_saves", "sum", "ckpt"),
+    # ------------------- recipe_* (train/recipe.py, the staged recipe):
+    # the active stage (per-process identity, never merged), advances,
+    # the mixture's draws by member dataset and the newest advance's
+    # cause ("steps" | "plateau"); the Trainer's extra_stats hook puts
+    # them in the heartbeat, the train records and the fit summary
+    *_keys("recipe", "gauge", "recipe_stage", "recipe_stages"),
+    Key("recipe_advances", "sum", "recipe"),
+    Key("recipe_draws_by_dataset", "map", "recipe"),
+    Key("recipe_last_trigger", "state", "recipe"),
+    Key("recipe_stage_name", "state", "recipe"),
     # --------------- incident_*/alert_* (obs/incident.py, the flight
     # recorder): capture, dedup and rate-limit accounting and the alert
     # rules
@@ -207,20 +244,33 @@ _ENTRIES: list[Key] = [
     Key("alert_errors", "sum", "incident"),
 ]
 
-#: name -> Key (validated no-duplicate below).
+#: name -> Key for exact entries (validated no-duplicate below).
 REGISTRY: dict[str, Key] = {}
+#: prefix families, longest prefix first (most specific wins).
+FAMILIES: list[Key] = []
 
 for _k in _ENTRIES:
     if _k.kind not in MERGE_KINDS:
         raise ValueError(f"registry: bad kind {_k.kind!r} for {_k.name!r}")
-    if _k.name in REGISTRY:
-        raise ValueError(f"registry: duplicate key {_k.name!r}")
-    REGISTRY[_k.name] = _k
+    if _k.prefix:
+        FAMILIES.append(_k)
+    else:
+        if _k.name in REGISTRY:
+            raise ValueError(f"registry: duplicate key {_k.name!r}")
+        REGISTRY[_k.name] = _k
+FAMILIES.sort(key=lambda k: -len(k.name))
 
 
 def lookup(name: str) -> Key | None:
-    """The schema entry for a stats key; None = unregistered."""
-    return REGISTRY.get(name)
+    """The schema entry for a stats key: exact match first, then the
+    longest matching prefix family. None = unregistered."""
+    hit = REGISTRY.get(name)
+    if hit is not None:
+        return hit
+    for fam in FAMILIES:
+        if name.startswith(fam.name):
+            return fam
+    return None
 
 
 def merge_kind(name: str) -> str | None:
@@ -229,13 +279,21 @@ def merge_kind(name: str) -> str | None:
     return hit.kind if hit is not None else None
 
 
+def resilience_keys() -> tuple[str, ...]:
+    """The exact-named resilience-surface counters, in declaration order
+    (`analyze`'s `resilience` block; the fault_* family is surfaced by
+    its prefix there)."""
+    return tuple(k.name for k in _ENTRIES
+                 if k.resilience and not k.prefix)
+
+
 # ------------------------------------------------- generic dict merging
 
 
 def merge_stats_blocks(blocks: list[dict], prefix: str = "") -> dict:
     """Registry-driven merge of N processes' flat stats dicts into one
     fleet-wide dict — the aggregation primitive behind
-    `Router.scrape_replicas`.
+    `Router.scrape_replicas` and `analyze.aggregate_processes`.
 
     prefix: keys in `blocks` may be stored stripped of their registry
     prefix; lookups prepend it.

@@ -29,6 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_built_lock = threading.Lock()
+#: `build` calls of this process that compiled a library ("built": True)
+_built = [0]
+
+
+def built_count() -> int:
+    """Libraries this process has compiled so far (`build` calls that
+    returned "built": True): the staged recipe reads it to show that a
+    stage switch builds nothing."""
+    return _built[0]
 
 
 def nvcc() -> str:
@@ -73,6 +83,8 @@ def build(name: str) -> dict:
                            f"\n{proc.stdout}")
     log.write_text(proc.stdout)
     os.replace(tmp, path)
+    with _built_lock:
+        _built[0] += 1
     return {"path": str(path), "built": True,
             "seconds": time.monotonic() - t0, "log": proc.stdout}
 

@@ -78,13 +78,19 @@ class CheckpointManager:
     config_digest: recorded in each manifest; restore warns on a
         mismatch and proceeds (fine-tunes legitimately cross configs).
     injector: optional `resilience.faults.FaultInjector`.
+    manifest_extra: a jsonable block written verbatim as ``extra`` into
+        every manifest (the staged recipe's {recipe_stage,
+        recipe_stage_name, stage_start_step}); `read_manifest_extra`
+        gives it back without loading the payload.
     """
 
     def __init__(self, directory: str, keep: int = 3, create: bool = True,
                  verify: bool = True, log=None, info_log=None,
-                 config_digest: str | None = None, injector=None):
+                 config_digest: str | None = None, injector=None,
+                 manifest_extra: dict | None = None):
         self.directory = os.path.abspath(directory)
         self._inj = injector
+        self._manifest_extra = manifest_extra
         self.keep = keep
         self._verify = verify
         self._log = log
@@ -171,7 +177,7 @@ class CheckpointManager:
             ckpt_verify.write_manifest(path, ckpt_verify.build_manifest(
                 path, step,
                 structure=_structure_digest(model_sd, optim_sd, state.acc),
-                cfg_digest=self._config_digest))
+                cfg_digest=self._config_digest, extra=self._manifest_extra))
         except OSError as e:
             self._warn(step, f"checkpoint manifest write failed at step "
                              f"{step}: {e}; checkpoint restores unverified")
@@ -270,6 +276,18 @@ class CheckpointManager:
                 warnings.warn(msg, RuntimeWarning, stacklevel=2)
             return state
         return None
+
+    def read_manifest_extra(self, step: int | None = None) -> dict | None:
+        """The ``extra`` block of a committed checkpoint's manifest (the
+        newest step when None); None when the checkpoint, its manifest
+        or the block is absent."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        manifest = ckpt_verify.load_manifest(
+            ckpt_verify.manifest_path(self._path(step)))
+        extra = (manifest or {}).get("extra")
+        return dict(extra) if isinstance(extra, dict) else None
 
     def restore_raw(self, subtree: str) -> dict | None:
         """The `subtree` entry (e.g. "model") of the newest checkpoint's

@@ -77,8 +77,10 @@ the incident recorder (`obs/incident.py`, role "trainer"): a NaN
 rollback commits a `nan_rollback` bundle, the third in a row a critical
 `nan_quarantine_exhausted` one before the abort, and a watchdog wedge a
 critical `watchdog_wedge` one with the stack dump; the heartbeat's
-samples feed its ring and alert rules. Not ported (ROADMAP): the recipe
-engine, elastic training, multi-host meshes, and the ledger.
+samples feed its ring and alert rules. The staged recipe
+(train/recipe.py) drives one Trainer a stage through the hooks below.
+Not ported (ROADMAP): elastic training, multi-host meshes, and the
+ledger.
 
 A float32 Trainer turns TF32 off (`core.device.disable_tf32`), so its
 convolutions compute in float32 on the card as the command line's do; a
@@ -216,11 +218,37 @@ def data_stream_seed(seed: int, start_step: int) -> np.ndarray:
 
 
 class Trainer:
+    """cfg, dataset (default `build_dataset(cfg.data)`), device, and the
+    profiler's switches; then the hooks the staged recipe
+    (train/recipe.py) drives, as the JAX Trainer's:
+
+    ckpt_dir: the checkpoint lineage (default <log_dir>/ckpt); a
+        recipe's stage i uses <log_dir>/ckpt-stage<i>.
+    manifest_extra: written as ``extra`` into every checkpoint manifest
+        (the stage's index, name and start step), so a resume finds it.
+    extra_stats: a callable whose dict is merged into the heartbeat,
+        every train record and the fit's summary (`recipe_*`).
+    on_eval: on_eval(step, eval metrics) -> bool, called after each eval
+        record; True ends `fit` there, through its final checkpoint (the
+        plateau trigger).
+
+    The JAX Trainer's `train_step`, `eval_fn` and `tx` hooks inject
+    ahead-of-time compiled XLA executables and the optimizer they were
+    lowered against; this package compiles nothing per stage (its
+    kernels are libraries built once, `ops/cuda/build.py`), so it has
+    no counterpart to them.
+    """
+
     def __init__(self, cfg: ExperimentConfig, dataset=None,
                  device: str | torch.device = "cuda",
                  profile: bool = False,
-                 profile_steps: tuple[int, int] | None = None):
+                 profile_steps: tuple[int, int] | None = None,
+                 ckpt_dir: str | None = None,
+                 manifest_extra: dict | None = None,
+                 extra_stats=None, on_eval=None):
         check_trainable(cfg)
+        self._extra_stats = extra_stats
+        self._on_eval = on_eval
         self.device = resolve_device(device)
         if cfg.train.compute_dtype == "float32":
             disable_tf32()
@@ -253,13 +281,13 @@ class Trainer:
             self.logger.log("warn", 0, message="fault injection ENABLED "
                                                f"({cfg.resilience.faults})")
         self.ckpt = CheckpointManager(
-            os.path.join(cfg.train.log_dir, "ckpt"),
+            ckpt_dir or os.path.join(cfg.train.log_dir, "ckpt"),
             keep=cfg.train.keep_ckpts,
             verify=cfg.resilience.verify_checkpoints,
             log=lambda s, m: self.logger.log("warn", s, message=m),
             info_log=lambda s, m: self.logger.log("info", s, message=m),
             config_digest=config_digest(dataclasses.asdict(cfg)),
-            injector=self._inj)
+            injector=self._inj, manifest_extra=manifest_extra)
 
         # VGG16 trunk init from the public npz; fresh starts only: a
         # checkpoint to resume from takes precedence
@@ -441,15 +469,17 @@ class Trainer:
 
         def resilience_stats() -> dict:
             """One merge of the data-path, metrics-read, checkpoint and
-            fault counters for the heartbeat, the train records and the
-            summary."""
+            fault counters and the `extra_stats` hook's for the
+            heartbeat, the train records and the summary."""
             return {**{f"data_{k}": v for k, v in pipeline.stats().items()},
                     **{f"data_{k}": v for k, v in prefetch.stats().items()},
                     **{f"data_{k}": v for k, v in healer.stats().items()},
                     **{f"pipeline_{k}": v for k, v in fetcher.stats().items()},
                     **{f"ckpt_{k}": v for k, v in self.ckpt.stats().items()},
                     **({f"fault_{k}": v for k, v in inj.stats().items()}
-                       if inj is not None else {})}
+                       if inj is not None else {}),
+                    **(self._extra_stats()
+                       if self._extra_stats is not None else {})}
 
         # the incident recorder (None unless obs.incidents)
         incidents = obs_incident.install(cfg, cfg.train.log_dir, "trainer")
@@ -664,6 +694,16 @@ class Trainer:
                 self.logger.log("eval", gstep, epoch=epoch, **last_eval)
                 timer.pause()  # eval time is not training throughput
                 touch()  # a long sweep is not a wedge
+                if (self._on_eval is not None
+                        and self._on_eval(gstep, dict(last_eval))):
+                    # the recipe's advance trigger: end this fit at the
+                    # eval boundary; the final path below writes the
+                    # checkpoint the next stage starts from
+                    self.logger.log(
+                        "info", gstep,
+                        message="on_eval hook requested stop at step "
+                                f"{gstep} (stage advance trigger)")
+                    break
             if ckpt_due:
                 with obs_trace.span("ckpt", step=gstep):
                     saved = self.ckpt.save(self.state)

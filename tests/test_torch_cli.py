@@ -164,26 +164,23 @@ def test_config_prints_a_dict_that_reads_back(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--recipe", "r.json"], "item 9"),
     (["train", "--elastic", "4"], "item 10"),
     (["train", "--multihost"], "item 10"),
-    (["train", "--synthetic", "--model", "flownet_s", "--recipe",
-      "r.json"], "item 9"),
     (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2"],
      "item 10"),
-    # loss.occlusion, data.augment_photo and loss.gather_dtype=bfloat16
-    # run: the recipe set by --set is refused as --recipe is
-    (["train", "--synthetic", "--model", "flownet_s", "--set",
-      "recipe.enabled=true"], "item 9"),
-    # st_baseline is ported (item 9.4) and trains: its case refuses the
-    # recipe that it would run under
-    (["train", "--synthetic", "--model", "st_baseline", "--set",
-      "recipe.enabled=true"], "item 9"),
+    # the recipe is ported (item 9.5: tests/test_torch_recipe.py): its
+    # cases became the executable ledger's flags of `tail`
+    (["tail", "--log-dir", ".", "--ledger-baseline", "b.jsonl"], "item 8"),
+    (["tail", "--log-dir", ".", "--ledger-compile-factor", "3"], "item 8"),
+    (["tail", "--log-dir", ".", "--ledger-compile-floor-s", "2"],
+     "item 8"),
+    (["tail", "--log-dir", ".", "--ledger-memory-factor", "1.5"],
+     "item 8"),
     (["serve", "--artifacts", "/x"], "item 8"),
     (["serve", "--set", "serve.artifacts_dir=/x"], "item 8")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv + ["--device", "cpu"])
+        cli.main(argv + ([] if argv[0] == "tail" else ["--device", "cpu"]))
 
 
 def test_the_command_line_computes_float32_in_float32(capsys):
@@ -219,7 +216,8 @@ def test_unported_model_raises_naming_its_item(tmp_path, capsys):
                      "--log-dir", str(tmp_path)]) == 0
     assert capsys.readouterr().out.strip()
     shutil.rmtree(tmp_path / "ckpt")  # 0.4 GB: fc7 and the trunk
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # (the recipe is ported, item 9.5: elastic training is not)
+    with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(["train", "--preset", "ucf101", "--synthetic",
-                  "--device", "cpu", "--set", "recipe.enabled=true",
+                  "--device", "cpu", "--elastic", "2",
                   "--log-dir", str(tmp_path / "r")])

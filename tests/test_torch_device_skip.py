@@ -18,6 +18,8 @@ flax weights (FlowNet-S, width 0.25, 64x64, batch 2):
     micro-step.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,10 @@ from deepof_tpu_torch.models.registry import build_model
 from deepof_tpu_torch.train.schedule import step_decay_schedule
 from deepof_tpu_torch.train.state import create_train_state
 from deepof_tpu_torch.train.step import make_train_step
+
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 HW = (64, 64)
 LOSS = {"alpha_c": 0.5, "alpha_s": 0.5}

@@ -14,6 +14,7 @@ import warnings
 import jax
 import numpy as np
 import pytest
+import torch
 
 from deepof_tpu.core.config import DataConfig as JaxDataConfig
 from deepof_tpu.core.config import ExperimentConfig as JaxConfig
@@ -30,6 +31,10 @@ from deepof_tpu_torch.core.config import config_from_dict
 from deepof_tpu_torch.data.datasets import SyntheticData
 from deepof_tpu_torch.resilience import faults
 from deepof_tpu_torch.train.loop import Trainer
+
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 SITES = ("decode", "assemble", "fetch", "ckpt_save", "ckpt_restore",
          "dispatch", "ckpt_truncate", "ckpt_corrupt")

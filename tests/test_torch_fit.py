@@ -25,6 +25,7 @@ import warnings
 import jax
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("cv2")  # the JAX side's eval resize
 
@@ -41,6 +42,10 @@ from deepof_tpu_torch.convert import load_flax_params
 from deepof_tpu_torch.core.config import config_from_dict
 from deepof_tpu_torch.data.datasets import SyntheticData
 from deepof_tpu_torch.train.loop import Trainer
+
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 STEPS = 4
 EVAL_KEYS = ("aee", "aae", "val_loss", "pred_abs_mean", "gt_abs_mean",
@@ -162,8 +167,10 @@ def test_fit_checkpoints_match_jax(runs):
 
 
 @pytest.mark.parametrize("section,value,item", [
+    # the recipe is ported (item 9.5): the case now loads the JAX
+    # recipe block whole and builds the trainer with it carried
     ("recipe", {"enabled": True, "stages": [{"name": "a", "steps": 2}]},
-     "item 9"),
+     None),
     # occlusion, vgg16_npz and the bf16 gather are honoured: the case
     # now builds the trainer with the setting carried
     ("loss", {"gather_dtype": "bfloat16"}, None),
@@ -177,6 +184,16 @@ def test_jax_settings_the_port_cannot_honour_raise(tmp_path, section,
         with pytest.warns(UserWarning, match="ignored keys"):
             cfg = config_from_dict(d)
         assert cfg.loss.gather_dtype == "bfloat16"
+        Trainer(cfg, device="cpu")
+        return
+    if section == "recipe":
+        from deepof_tpu_torch.core.config import RecipeConfig, StageConfig
+
+        with pytest.warns(UserWarning, match="ignored keys") as rec:
+            cfg = config_from_dict(d)
+        assert not [w for w in rec if "recipe" in str(w.message)]
+        assert cfg.recipe == RecipeConfig(
+            enabled=True, stages=(StageConfig(name="a", steps=2),))
         Trainer(cfg, device="cpu")
         return
     if item is None:

@@ -17,6 +17,8 @@ conv3_1.conv.weight, 1.9e-3 at lr 1e-3). The port-only checks are bit
 for bit.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +47,10 @@ from deepof_tpu_torch.train.schedule import step_decay_schedule
 from deepof_tpu_torch.train.state import create_train_state, global_norm
 from deepof_tpu_torch.train.step import (batch_to_device, make_train_step,
                                          model_losses)
+
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 HW = (64, 64)
 ACCUM = 2

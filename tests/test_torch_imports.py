@@ -60,7 +60,9 @@ def test_port_imports_with_jax_and_reference_blocked():
     "deepof_tpu_torch.train.schedule", "deepof_tpu_torch.train.step",
     "deepof_tpu_torch.train.loop", "deepof_tpu_torch.io.png",
     "deepof_tpu_torch.io.ppm", "deepof_tpu_torch.native",
-    "deepof_tpu_torch.core.config", "deepof_tpu_torch.cli"])
+    "deepof_tpu_torch.core.config", "deepof_tpu_torch.cli",
+    "deepof_tpu_torch.analyze", "deepof_tpu_torch.obs.aggregate",
+    "deepof_tpu_torch.data.mixture", "deepof_tpu_torch.train.recipe"])
 def test_the_observability_and_fault_modules_are_covered(module):
     """The training loop's observability and fault modules, the serving
     plane and the fetchers are copies or ports of JAX-package modules:

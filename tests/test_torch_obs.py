@@ -53,6 +53,10 @@ from deepof_tpu_torch.train.schedule import step_decay_schedule
 from deepof_tpu_torch.train.state import create_train_state
 from deepof_tpu_torch.train.step import make_train_step
 
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 HW = (64, 64)
 STEPS = 4
 #: heartbeat keys only the port has: the checkpoint saves' seconds

@@ -41,6 +41,10 @@ from deepof_tpu_torch.train.state import create_train_state
 from deepof_tpu_torch.train.step import (batch_to_device, make_train_step,
                                          model_losses)
 
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 HW = (64, 64)
 MEAN = (0.0, 0.0, 0.0)
 K = 2

@@ -294,8 +294,9 @@ def test_trainer_fits_on_cpu(tmp_path):
     {"model": "ucf101_spatial"},
     {"recipe": RecipeConfig(enabled=True)}])
 def test_unported_settings_raise(kw):
-    # the bf16 gather is ported (F11): its case checks it is admitted
-    if kw.get("model") in ACTION_MODELS or "loss" in kw:
+    # the bf16 gather is ported (F11), the recipe too (item 9.5): their
+    # cases check that they are admitted
+    if kw.get("model") in ACTION_MODELS or "loss" in kw or "recipe" in kw:
         check_trainable(ExperimentConfig(**kw))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):

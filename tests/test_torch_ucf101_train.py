@@ -30,6 +30,8 @@ Tolerances, each with its reason:
     float64 ones (st_single, up_pr4to3's bias), the port's 2.2e-3.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,10 @@ from deepof_tpu_torch.train.state import create_train_state
 from deepof_tpu_torch.train.step import (STEP_KEY, batch_to_device,
                                          make_eval_fn, make_train_step,
                                          model_losses)
+
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 CASES = [("ucf101_spatial", (32, 32)), ("st_single", (64, 64)),
          ("st_baseline", (64, 64))]

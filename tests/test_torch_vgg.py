@@ -23,6 +23,7 @@ eval, predict) and the `bench` step on VGG16, small, on the CPU.
 
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,10 @@ from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
 from deepof_tpu_torch.models.common import load_vgg16_npz
 from deepof_tpu_torch.models.registry import build_model
 from deepof_tpu_torch.models.vgg16_flow import VGG_CONVS, VGG16Flow
+
+# one intra-op pool a pytest-xdist worker: the workers share the cores
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 VGG_WIDTHS = {"conv1": (3, 64), "conv2": (64, 128), "conv3": (128, 256),
               "conv4": (256, 512), "conv5": (512, 512)}
