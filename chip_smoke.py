@@ -152,6 +152,22 @@ read after it):
     eviction), `analyze` and `obs/aggregate.py::aggregate_run` (one
     merged trace, requests chained from the router into the replicas) of
     the fleet drill.
+  - the executable ledger (`obs/ledger.py`): every training phase's
+    trainer and every engine write their rows; `cli_train`'s train and
+    eval steps (each row of the JAX ROW_KEYS, its libraries found
+    built), `tail --ledger-baseline` of the resumed run against
+    `cli_train`'s rows (rc 0: the same fingerprints, no library built),
+    the same gate against the FlowNet-C run's ledger (`ledger_gate`: rc
+    8, `train_step` drifted, a `ledger_drift` bundle), the training
+    job's rows (K = 2, K = 1 and remat three computations), one row per
+    warmed (bucket, tier, mode) and the quality scorer's in
+    `serve_http`, and the fleet replicas' rows read by `tail --fleet`
+    against replica 0's (no fingerprint drift, no rebuild); the line
+    `ledger` gives the FlowNet-C train step's and serving forward's
+    FLOPs, temp bytes and first-call seconds, the trace passes' own
+    seconds, and the replicas' boot split (`boot`: the torch import,
+    the CUDA context, the library load, the restore, the engine,
+    `warm()`, from each replica's final record).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -172,6 +188,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_ucf101(w)"
     python3 -c "import tempfile, chip_smoke as cs; cs.check_warp_levels_bf16(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_gather_bf16(w)"
     python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_recipe(w)"
+    python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train(w); cs.cli_resume(w); cs.cli_train_flownet_c(w); from deepof_tpu_torch.core.config import ExperimentConfig; cs.ledger_gate(w, cs.serve_http(ExperimentConfig(model='flownet_c')))"
 """
 
 from __future__ import annotations
@@ -2106,7 +2123,8 @@ def serve_http(cfg) -> dict:
     frames = video(41, HTTP_STREAM_FRAMES, (h, w))
     t0 = time.monotonic()
     scored_rows: list = []
-    with InferenceEngine(cfg, device="cuda") as eng, cudnn_deterministic():
+    with InferenceEngine(cfg, device="cuda", ledger_dir=log_dir) as eng, \
+            cudnn_deterministic():
         eng.incidents = incident.install(cfg, log_dir, "serve")
         inner_score = eng._quality._score_fn
 
@@ -2117,7 +2135,9 @@ def serve_http(cfg) -> dict:
             return out
 
         eng._quality._score_fn = recording
-        eng.warm()
+        warm = eng.warm()
+        warm_rows = ledger_rows(log_dir)
+        warm_trace_s = eng._ledger.trace_s
         dispatches = count_dispatches(eng)
         httpd = build_server(cfg, eng)
         server_thread = threading.Thread(target=httpd.serve_forever,
@@ -2267,10 +2287,16 @@ def serve_http(cfg) -> dict:
                "incident_captured": drift_stats["incident_captured"],
                "incident_deduped": drift_stats["incident_deduped"],
                "verb_rcs": verbs, "tail": tails},
+           "ledger": ledger_summary(warm_rows),
+           "ledger_trace_s": warm_trace_s,
+           "exec_dispatches": stats["exec_dispatches"],
+           "exec_mfu_nominal": stats["exec_mfu_nominal"],
            "seconds": time.monotonic() - t0,
            "card": torch.cuda.get_device_name(0)}
     shutil.rmtree(log_dir, ignore_errors=True)
     emit("serve_http", **row)
+    warmed = {f"serve:{e['bucket'][0]}x{e['bucket'][1]}:{e['tier']}:"
+              f"{e['mode']}" for e in warm["buckets"]}
     expired = sum(stats[k] for k in ("deadline_enqueue_expired",
                                      "deadline_flush_expired",
                                      "deadline_wait_expired"))
@@ -2315,7 +2341,12 @@ def serve_http(cfg) -> dict:
         == ["quality_drift"]
         and row["incidents"]["bundles"][0]["severity"] == "critical"
         and verbs == {"list": 1, "tail": 9, "ack": 0, "tail after ack": 7,
-                      "list again": 0}}
+                      "list again": 0},
+        # a row per warmed (bucket, tier, mode) and the scorer's, every
+        # library found built; every dispatch timed for the MFU
+        "ledger": len(warmed) == 4 and set(warm_rows) == warmed | {
+            f"quality:{h}x{w}"} and libraries_found(warm_rows)
+        and stats["exec_dispatches"] == stats["serve_batches"]}
     if not all(checks.values()):
         raise AssertionError(f"serve_http: {checks}")
     return row
@@ -2674,7 +2705,8 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         "requests_per_s", "client", "statuses", "wall_s")}
     row["single"].update(rc=rc, drain_s=drain_s,
                          kernel_launches=single_rec["kernel_launches"],
-                         serve_batches=single_rec["serve_batches"])
+                         serve_batches=single_rec["serve_batches"],
+                         boot=single_rec.get("boot"))
 
     # -- the fleet: the clean load, the crash drill, the streams
     fleet_dir = os.path.join(work, "serve_fleet")
@@ -2771,6 +2803,13 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         after["requests_per_s"],
         "stream_statuses": [[r[0] for r in s] for s in streams],
         "warm_steps": warm_steps}
+    # a boot's split (serve/server.py): each replica's final record, the
+    # supervisor's spawn-to-ready beside it (replica 1's from its respawn)
+    spawned = {r["replica"]: r["ready_s"] for r in ready["replicas"]}
+    spawned[1] = respawned["ready_s"]
+    row["boot"] = {i: {**(r.get("boot") or {}),
+                       "supervisor_ready_s": spawned.get(i)}
+                   for i, r in recs.items()}
     row.update(
         rc=rc, drain_s=drain_s, replicas_left=left,
         max_rel_diff_vs_submit=max(diffs),
@@ -2794,6 +2833,19 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     an_rc, an = run_verb(["analyze", "--log-dir", fleet_dir, "--no-plot"],
                          os.path.join(work, "serve_fleet_analyze.log"))
     merged = aggregate_run(fleet_dir)
+    # the replicas' ledgers: a row per warmed (bucket, tier, mode) in each
+    # replica's own dir, and `tail --fleet` diffing every replica against
+    # replica 0's (fingerprints and library builds; first-call seconds
+    # and memory bounded loosely: replicas boot under each other's load)
+    replica_ledgers = {i: ledger_rows(os.path.join(fleet_dir,
+                                                   f"replica-{i}"))
+                       for i in recs}
+    gate_rc, gate = run_verb(
+        ["tail", "--log-dir", fleet_dir, "--fleet", "--ledger-baseline",
+         os.path.join(fleet_dir, "replica-0", "ledger.jsonl"),
+         "--ledger-compile-factor", "1000", "--ledger-memory-factor",
+         "1000"], os.path.join(work, "serve_fleet_ledger_tail.log"))
+    children = (gate.get("ledger_diff") or {}).get("children") or {}
     row["verbs"] = {
         "tail_rc": tail_rc,
         "tail_fleet": {k: (tail.get("fleet") or {}).get(k) for k in (
@@ -2804,7 +2856,10 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         "analyze_merged_requests": (an.get("merged") or {}).get("requests"),
         "merged_trace": {k: merged[k] for k in (
             "spans", "flows", "request_ids", "requests_correlated")},
-        "merged_processes": [p["name"] for p in merged["processes"]]}
+        "merged_processes": [p["name"] for p in merged["processes"]],
+        "ledger_tail_rc": gate_rc, "ledger_children": children,
+        "replica_ledgers": {i: ledger_summary(r)
+                            for i, r in replica_ledgers.items()}}
     row["seconds"] = time.monotonic() - t0
     emit("serve_fleet", **row)
     served = {i: r for i, r in recs.items() if r["serve_responses"]}
@@ -2846,7 +2901,19 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         and row["verbs"]["analyze_processes"] == ["replica-0", "replica-1"]
         and row["verbs"]["merged_processes"][1:] == ["replica-0",
                                                      "replica-1"]
-        and merged["requests_correlated"] >= 1}
+        and merged["requests_correlated"] >= 1,
+        "ledger": gate_rc == 4 and sorted(children) == ["replica-0",
+                                                        "replica-1"]
+        and not any(c["fingerprint_drift"] or c["unexpected_recompiles"]
+                    for c in children.values())
+        and all(set(r) == {"serve:384x512:f32:cold", "serve:384x512:f32:warm"}
+                and libraries_found(r, needed=device == "cuda")
+                for r in replica_ledgers.values()),
+        "boot": all(b.get("warm_s") is not None
+                    and b.get("ready_s") is not None
+                    and (device != "cuda"
+                         or b.get("cuda_context_s") is not None)
+                    for b in row["boot"].values())}
     if not all(checks.values()):
         raise AssertionError(f"serve_fleet: {checks}")
     return row
@@ -3542,6 +3609,41 @@ def cli_train_flownet_c(work: str) -> dict:
     return row
 
 
+def ledger_gate(work: str, serve_row: dict) -> dict:
+    """The executable ledger's gate across models: `tail --ledger-baseline`
+    of the resumed FlowNet-S run (`cli_train`, `cli_resume`) against the
+    FlowNet-C run's ledger (`cli_train_flownet_c`): rc 8, with the
+    `train_step` in its fingerprint drift, and the `ledger_drift` bundle
+    it keeps. Beside it, the full-width rows of FlowNet-C's train step
+    and of its serving forward (`serve_http`'s f32 cold row): FLOPs,
+    temp bytes and first-call seconds. Adds `tail` calls only."""
+    from deepof_tpu_torch.obs import incident
+
+    run = os.path.join(work, "cli_train")
+    base = os.path.join(work, "cli_train_flownet_c")
+    rc, line = run_verb(["tail", "--log-dir", run, "--ledger-baseline", base],
+                        os.path.join(work, "ledger_gate_tail.log"))
+    diff = line.get("ledger_diff") or {}
+    drift = [e["name"] for e in diff.get("fingerprint_drift") or []]
+    train_c = ledger_rows(base)["train_step"]
+    serve_c = serve_row["ledger"]["serve:384x512:f32:cold"]
+    row = {"rc": rc, "fingerprint_drift": drift,
+           "compared": diff.get("compared"),
+           "bundles": [b["kind"] for b in incident.list_incidents(run)],
+           "flownet_c_train_step": {k: train_c[k] for k in (
+               "flops", "temp_bytes", "compile_s", "argument_bytes",
+               "bytes_accessed", "fingerprint")},
+           "flownet_c_trace_s": first_step_trace_s(base),
+           "flownet_c_serve_f32_cold": {k: serve_c[k] for k in (
+               "flops", "temp_bytes", "compile_s", "argument_bytes",
+               "bytes_accessed", "fingerprint")}}
+    emit("ledger_gate", **row)
+    if (rc != 8 or "train_step" not in drift
+            or row["bundles"] != ["ledger_drift"]):
+        raise AssertionError(f"ledger_gate: {row}")
+    return row
+
+
 # `train --model flownet_c --set train.compute_dtype=bfloat16` at full
 # width: CLI_TRAIN_C with an eval and a checkpoint at step CLI_C_BF16_STEPS
 CLI_C_BF16_STEPS = 4
@@ -3707,6 +3809,7 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
             runs[name] = {
                 "k": k, "log_dir": log_dir, "summary": summary,
                 "launches": launches, "heartbeat": hb,
+                "ledger": ledger_summary(ledger_rows(log_dir)),
                 "spans": span_counts(log_dir),
                 "losses": {r["step"]: r["loss"] for r in records
                            if r["kind"] == "train"},
@@ -3738,7 +3841,8 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
                "mfu_nominal": r["summary"].get("mfu_nominal"),
                **{k: r["summary"][k] for k in (
                    "pipeline_depth", "pipeline_max_in_flight",
-                   "pipeline_fetches", "pipeline_fetch_s")}}
+                   "pipeline_fetches", "pipeline_fetch_s")},
+               "ledger": r["ledger"]}
                for name, r in runs.items()},
            "spans_k2": k2["spans"],
            "heartbeat_k2": {key: k2["heartbeat"].get(key) for key in (
@@ -3761,6 +3865,16 @@ def cli_train_job(work: str, extra: tuple = ()) -> dict:
     if (tail_rc, tail.get("step"), tail["heartbeat"]["step"]) != (
             0, JOB_STEPS, k2["heartbeat"]["step"]):
         raise AssertionError(f"cli_train_job: tail {row['tail_k2']}")
+    # each run's ledger: its train and eval steps' rows, libraries found
+    # built; K = 2 and K = 1 are other computations, remat another again
+    fps = {name: r["ledger"]["train_step"]["fingerprint"]
+           for name, r in runs.items() if "train_step" in r["ledger"]}
+    if (any(sorted(r["ledger"]) != ["eval_step", "train_step"]
+            or not libraries_found(r["ledger"], needed=not extra)
+            for r in runs.values())
+            or len({fps["k2"], fps["k1"], fps["k2_remat"]}) != 3):
+        raise AssertionError(f"cli_train_job: ledger rows "
+                             f"{ {n: r['ledger'] for n, r in runs.items()} }")
     steps = JOB_STEPS
     for name, r in runs.items():
         corr = steps * (2 if name == "k2_remat" else 1) + evals
@@ -4122,6 +4236,51 @@ def read_records(log_dir: str) -> list[dict]:
         return [json.loads(ln) for ln in f]
 
 
+#: a ledger row's fields shown beside each executable
+LEDGER_FIELDS = ("fingerprint", "hlo_chars", "compile_s", "cache_requests",
+                 "cache_hits", "cache_misses", "cache_verdict", "flops",
+                 "bytes_accessed", "roofline_s", "argument_bytes",
+                 "output_bytes", "temp_bytes", "code_bytes", "num_args")
+
+
+def ledger_rows(log_dir: str) -> dict[str, dict]:
+    """The newest executable-ledger row of each name in `log_dir`'s
+    ledger.jsonl (`obs/ledger.py`), each checked to hold exactly the JAX
+    ROW_KEYS."""
+    from deepof_tpu_torch.obs.ledger import (ROW_KEYS, latest_by_name,
+                                             load_ledger)
+
+    rows = latest_by_name(load_ledger(log_dir))
+    bad = {n: sorted(set(r) ^ set(ROW_KEYS)) for n, r in rows.items()
+           if tuple(r) != ROW_KEYS}
+    if bad:
+        raise AssertionError(f"{log_dir}: ledger rows off ROW_KEYS: {bad}")
+    return rows
+
+
+def ledger_summary(rows: dict[str, dict]) -> dict:
+    """{name: the row's LEDGER_FIELDS}."""
+    return {n: {k: r[k] for k in LEDGER_FIELDS} for n, r in rows.items()}
+
+
+def libraries_found(rows: dict[str, dict], needed: bool = True) -> bool:
+    """Every row found its libraries built (all were built at the
+    script's start): cache_hits = cache_requests and no miss, and on
+    the card (`needed`) at least one library a row."""
+    return all((r["cache_requests"] or 0) == (r["cache_hits"] or 0)
+               and not r["cache_misses"]
+               and (not needed or (r["cache_requests"] or 0) >= 1)
+               for r in rows.values())
+
+
+def first_step_trace_s(log_dir: str) -> float | None:
+    """The ledger trace's seconds at the newest fit's first step (its
+    "first step" info record)."""
+    recs = [r for r in read_records(log_dir) if r.get("kind") == "info"
+            and str(r.get("message", "")).startswith("first step")]
+    return recs[-1].get("ledger_trace_s") if recs else None
+
+
 def eval_calls(num_val: int, bs: int) -> int:
     """Batched forwards of one `evaluate_aee` sweep: the full batches, and
     valid / gcd(valid, bs) tiles for a short last one."""
@@ -4215,13 +4374,19 @@ def cli_train(work: str) -> dict:
     records = check_run(log_dir, list(range(2, CLI_STEPS + 1, 2)), [6, 12],
                         [6, 12])
     evals = 2 * eval_calls(SYNTHETIC_VAL, 4)
+    ledger = ledger_rows(log_dir)
     row = {"steps": CLI_STEPS, **fit_row(summary, 4),
+           "ledger": ledger_summary(ledger),
+           "ledger_trace_s": first_step_trace_s(log_dir),
            "warp_fwd_launches": launches[0],
            "warp_flow_grad_launches": launches[1], "eval_forwards": evals,
            "losses": [r["loss"] for r in records if r["kind"] == "train"],
            "evals": [{k: r[k] for k in ("step", "aee", "aae", "val_loss")}
                      for r in records if r["kind"] == "eval"]}
     emit("cli_train", **row)
+    if sorted(ledger) != ["eval_step", "train_step"] or not libraries_found(
+            ledger):
+        raise AssertionError(f"cli train: ledger rows {row['ledger']}")
     if launches != (CLI_STEPS + evals, CLI_STEPS):
         raise AssertionError(f"cli train: warp kernels launched {launches} "
                              f"times in {CLI_STEPS} steps and {evals} eval "
@@ -4265,6 +4430,9 @@ def cli_resume(work: str) -> dict:
     import numpy as np
 
     log_dir = os.path.join(work, "cli_train")
+    # cli_train's ledger, aside: the resume appends its own rows
+    baseline = os.path.join(work, "cli_train_ledger_baseline.jsonl")
+    shutil.copy(os.path.join(log_dir, "ledger.jsonl"), baseline)
     want = replay_resume(log_dir, RESUME_STEPS)
     reset_warp_counts()
     summary = run_cli(["train", *CLI_TRAIN, "--steps", str(RESUME_STEPS),
@@ -4283,12 +4451,27 @@ def cli_resume(work: str) -> dict:
     replayed = {CLI_STEPS + 1 + i: v for i, v in enumerate(want)
                 if CLI_STEPS + 1 + i in logged}
     rel = {s: abs(logged[s] - v) / abs(v) for s, v in replayed.items()}
+    # the executable ledger's gate: the resumed run against cli_train's
+    # rows, the same fingerprints and no library built
+    gate_rc, gate = run_verb(["tail", "--log-dir", log_dir,
+                              "--ledger-baseline", baseline],
+                             os.path.join(work, "cli_resume_tail.log"))
+    diff = gate.get("ledger_diff") or {}
     row = {"resumed_from": CLI_STEPS if resumed else None, "end_step": end,
            **fit_row(summary, 4), "warp_fwd_launches": launches[0],
            "warp_flow_grad_launches": launches[1],
            "logged_losses": logged, "replayed_losses": replayed,
-           "replay_loss_rel": rel}
+           "replay_loss_rel": rel,
+           "ledger": ledger_summary(ledger_rows(log_dir)),
+           "ledger_gate": {"rc": gate_rc, **{k: diff.get(k) for k in (
+               "compared", "failed", "fingerprint_drift",
+               "unexpected_recompiles", "compile_blowups",
+               "memory_growth")}}}
     emit("cli_resume", **row)
+    if (gate_rc, diff.get("compared"), diff.get("failed")) != (0, 2, False):
+        raise AssertionError(f"resume: tail --ledger-baseline gave "
+                             f"{row['ledger_gate']}; want rc 0, 2 "
+                             "executables compared, no failure")
     if not (resumed and len(rel) == RESUME_STEPS // 2
             and all(np.isfinite(v) and v <= RESUME_RTOL
                     for v in rel.values())):
@@ -6296,6 +6479,7 @@ def main() -> int:
         corr_train = {m: train_corr_model(m, work)
                       for m in ("flownet_c", "flownet_cs")}
         cli_c_row = cli_train_flownet_c(work)
+        ledger_row = ledger_gate(work, http_row)
         bf16_train = train_corr_model("flownet_c", work, "bfloat16")
         cli_bf16_row = cli_train_flownet_c_bf16(work)
         gather_row = cli_train_gather_bf16(work)
@@ -6614,6 +6798,12 @@ def main() -> int:
                     "ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")}}}
 
+    emit("ledger", flownet_c_train_step=ledger_row["flownet_c_train_step"],
+         flownet_c_serve_f32_cold=ledger_row["flownet_c_serve_f32_cold"],
+         trace_s={"cli_train": cli_row["ledger_trace_s"],
+                  "cli_train_flownet_c": ledger_row["flownet_c_trace_s"],
+                  "serve_http_warm": http_row["ledger_trace_s"]},
+         boot=fleet_row["boot"], boot_single=fleet_row["single"]["boot"])
     emit("total", seconds=time.monotonic() - START,
          phase_seconds={"cli_train_job": job_row["seconds"],
                         "cli_preempt_faults": preempt_row["seconds"],

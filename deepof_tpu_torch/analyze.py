@@ -12,11 +12,13 @@ analyzing a log must not create a CUDA context next to a live trainer
 or server. The whole chain (`obs/aggregate.py`, `obs/registry.py`,
 `obs/export.py`, `obs/incident.py`) is stdlib-only.
 
-Not ported (ROADMAP Queue A item 8, the executable ledger): the JAX
-module's `ledger` and `ledger_diff` blocks and the `exec_*` counters. A
-run directory (or a fleet child's) that holds a `ledger.jsonl` or a
-`ledger_baseline.jsonl` makes `analyze` and `tail_summary` raise
-SystemExit naming item 8: a ledger gate never passes silently.
+The executable ledger (`obs/ledger.py`, stdlib-only too): `analyze` and
+`tail_summary` carry the run's condensed `ledger` block and, when a
+baseline exists (`--ledger-baseline`, or `<log_dir>/ledger_baseline.jsonl`),
+the `ledger_diff` verdict that `tail` turns into exit code 8; with
+`fleet`, every supervised child's ledger is diffed against the same
+baseline. The `exec_*` counters of a heartbeat or a serve record make
+the `exec` block.
 """
 
 from __future__ import annotations
@@ -29,9 +31,6 @@ import time
 from collections import defaultdict
 
 from .obs.registry import merge_stats_blocks, resilience_keys
-
-#: the executable ledger's files (ROADMAP Queue A item 8)
-LEDGER_FILES = ("ledger.jsonl", "ledger_baseline.jsonl")
 
 
 def _finite(records: list[dict], key: str) -> list[dict]:
@@ -164,6 +163,15 @@ def _elastic_counters(rec: dict) -> dict:
             if k.startswith("elastic_") and v is not None}
 
 
+def _exec_counters(rec: dict) -> dict:
+    """`exec_*` counters from one record or heartbeat sample (the
+    executable-ledger block, obs/ledger.py: lowerings, recompiles,
+    compile seconds, cache hits/misses, per-executable fingerprints,
+    nominal-roofline MFU)."""
+    return {k[len("exec_"):]: v for k, v in rec.items()
+            if k.startswith("exec_") and v is not None}
+
+
 def _recipe_counters(rec: dict) -> dict:
     """`recipe_*` counters from one record or heartbeat sample (the
     staged-recipe engine, train/recipe.py: active stage index/count,
@@ -173,22 +181,70 @@ def _recipe_counters(rec: dict) -> dict:
             if k.startswith("recipe_") and v is not None}
 
 
-def refuse_ledger(log_dir: str, fleet: bool = True) -> None:
-    """SystemExit when the run dir (or, with `fleet`, a supervised
-    child's dir) holds an executable-ledger file: its verdict (the JAX
-    `tail`'s rc 8) is not ported, and a ledger gate must never pass
-    silently."""
-    dirs = [log_dir]
+def _ledger_rows(log_dir: str) -> list[dict]:
+    """The run dir's ledger.jsonl rows, [] when it recorded none —
+    loaded ONCE per tail/analyze pass and shared by the condensed
+    summary and the drift verdict (a `tail --follow` tick must not
+    parse the same file twice forever)."""
+    from .obs.ledger import load_ledger
+
+    try:
+        return load_ledger(log_dir)
+    except OSError:
+        return []
+
+
+def ledger_drift(log_dir: str, baseline: str | None = None,
+                 fleet: bool = False, run_rows: list | None = None,
+                 **bounds) -> dict | None:
+    """The perf-regression sentinel's verdict for a run dir: the run's
+    ledger.jsonl diffed against its baseline ledger (an explicit path,
+    or the committed-by-convention <log_dir>/ledger_baseline.jsonl).
+    With fleet=True, every supervised child dir's ledger is diffed
+    against the SAME baseline (a fleet's replicas share one lattice)
+    and condensed per child; `failed` then covers root and children —
+    `tail` maps it to exit code 8. None when there is no baseline or no
+    ledger to compare."""
+    from .obs.ledger import diff_ledgers, find_baseline, ledger_verdict
+
+    base_path = find_baseline(log_dir, baseline)
+    if base_path is None:
+        return None
+    # the baseline is shared by the root and every fleet child — load
+    # it ONCE per pass, not once per process per --follow tick
+    from .obs.ledger import load_ledger
+
+    try:
+        base_rows = load_ledger(base_path)
+    except OSError:
+        base_rows = None
+    out = ledger_verdict(log_dir, base_path, run_rows=run_rows,
+                         base_rows=base_rows, **bounds)
     if fleet:
-        dirs += list(discover_process_dirs(log_dir).values())
-    for d in dirs:
-        for name in LEDGER_FILES:
-            path = os.path.join(d, name)
-            if os.path.isfile(path):
-                raise SystemExit(
-                    f"{path}: the executable ledger (its summary, drift "
-                    "verdict and rc 8) is not ported to deepof_tpu_torch "
-                    "yet: ROADMAP Queue A item 8")
+        children: dict[str, dict] = {}
+        for name, d in discover_process_dirs(log_dir).items():
+            v = ledger_verdict(d, base_path, base_rows=base_rows,
+                               **bounds)
+            if v is None:
+                continue
+            children[name] = {
+                "failed": v["failed"],
+                **{k: len(v[k]) for k in
+                   ("fingerprint_drift", "unexpected_recompiles",
+                    "compile_blowups", "memory_growth")}}
+        if children:
+            if out is None:
+                # the root process lowered nothing but its children
+                # did: a zero-comparison diff keeps the full documented
+                # verdict schema (failure-class lists, bounds, new/
+                # missing) instead of a bare {"failed": ...} whose
+                # shape depends on whether the root had a ledger
+                out = diff_ledgers([], [], **bounds)
+            out["children"] = children
+            out["failed"] = bool(out["failed"]
+                                 or any(c["failed"]
+                                        for c in children.values()))
+    return out
 
 
 #: Per-pyramid-scale loss-decomposition record fields (train/loop.py
@@ -328,6 +384,9 @@ def summarize(records: list[dict]) -> dict:
         deadline = _deadline_counters(serves[-1])
         if deadline:
             out["deadline"] = deadline
+        execs = _exec_counters(serves[-1])
+        if execs:
+            out["exec"] = execs
 
     scales = by_kind.get("fleet", [])
     if scales:
@@ -409,6 +468,7 @@ def _process_summary(d: str, now: float) -> dict:
                           ("degrade", _degrade_counters),
                           ("deadline", _deadline_counters),
                           ("elastic", _elastic_counters),
+                          ("exec", _exec_counters),
                           ("recipe", _recipe_counters)):
         block = extract(newest)
         if block:
@@ -447,11 +507,21 @@ def aggregate_processes(log_dir: str, now: float | None = None) -> dict | None:
     out = {"processes": children}
     if merged:
         out["merged"] = merged
+    # the fleet-wide executable-ledger view: per-replica exec_* blocks
+    # merged by their registry kinds (compile seconds and cache counters
+    # sum; fingerprints and MFU stay per-process — state/derived)
+    merged_exec = merge_stats_blocks(
+        [child.get("exec") or {} for child in children.values()],
+        prefix="exec_")
+    if merged_exec:
+        out["merged_exec"] = merged_exec
     return out
 
 
 def tail_summary(log_dir: str, recent: int = 10,
-                 now: float | None = None, fleet: bool = False) -> dict:
+                 now: float | None = None, fleet: bool = False,
+                 ledger_baseline: str | None = None,
+                 ledger_bounds: dict | None = None) -> dict:
     """One-glance health of a LIVE or finished run (`deepof_tpu tail`):
     where it is, whether it is moving, how fast recently vs overall,
     where host time goes, and how stale the heartbeat is.
@@ -466,7 +536,6 @@ def tail_summary(log_dir: str, recent: int = 10,
     (`tail --fleet`) — the whole drill in one read.
     """
     records = load_records(log_dir)
-    refuse_ledger(log_dir, fleet=fleet)
     now = time.time() if now is None else now
     out: dict = {"log_dir": log_dir, "records": len(records)}
     if records:
@@ -572,6 +641,12 @@ def tail_summary(log_dir: str, recent: int = 10,
         elastic = _elastic_counters(hb)
         if elastic:
             out["elastic"] = elastic
+        # a ledgered process's heartbeat carries the live exec_* block
+        # (lowerings, recompiles, compile seconds, cache hit/miss,
+        # fingerprints, roofline MFU — obs/ledger.py)
+        execs = _exec_counters(hb)
+        if execs:
+            out["exec"] = execs
         # a recipe-driven trainer's heartbeat carries the live recipe_*
         # block (stage, advances, mixture draws) — fresher than the
         # newest train record, wins per block
@@ -597,6 +672,10 @@ def tail_summary(log_dir: str, recent: int = 10,
             deadline = _deadline_counters(serves[-1])
             if deadline:
                 out["deadline"] = deadline
+        if "exec" not in out:
+            execs = _exec_counters(serves[-1])
+            if execs:
+                out["exec"] = execs
     scales = [r for r in records if r.get("kind") == "fleet"]
     if scales:
         # autoscale pool-size timeline (one kind="fleet" record per
@@ -613,6 +692,21 @@ def tail_summary(log_dir: str, recent: int = 10,
         agg = aggregate_processes(log_dir, now=now)
         if agg:
             out.update(agg)
+    # executable-ledger surfaces (obs/ledger.py): the run's condensed
+    # ledger.jsonl, and — when a baseline ledger exists (explicit path
+    # or the committed <log_dir>/ledger_baseline.jsonl) — the drift
+    # verdict the CLI maps to exit code 8
+    from .obs.ledger import summarize_ledger
+
+    rows = _ledger_rows(log_dir)
+    if rows:
+        ledger = summarize_ledger(rows)
+        if ledger:
+            out["ledger"] = ledger
+    drift = ledger_drift(log_dir, ledger_baseline, fleet=fleet,
+                         run_rows=rows, **(ledger_bounds or {}))
+    if drift is not None:
+        out["ledger_diff"] = drift
     # incident-plane surface (obs/incident.py): the committed bundle
     # summary the CLI maps to exit code 9 (unacked critical) — absent
     # entirely when the run recorded no incidents
@@ -659,13 +753,22 @@ def plot_curves(records: list[dict], out_dir: str) -> list[str]:
 
 def analyze(log_dir: str, plot: bool = True) -> dict:
     records = load_records(log_dir)
-    refuse_ledger(log_dir)
     summary = summarize(records)
     # a supervised run dir (fleet replicas / elastic hosts) aggregates
     # its children too: one `analyze` summarizes the whole drill
     agg = aggregate_processes(log_dir)
     if agg:
         summary.update(agg)
+    from .obs.ledger import summarize_ledger
+
+    rows = _ledger_rows(log_dir)
+    if rows:
+        ledger = summarize_ledger(rows)
+        if ledger:
+            summary["ledger"] = ledger
+    drift = ledger_drift(log_dir, fleet=True, run_rows=rows)
+    if drift is not None:
+        summary["ledger_diff"] = drift
     from .obs.incident import incident_summary
 
     inc = incident_summary(log_dir)

@@ -64,8 +64,11 @@ fleet mode even at one replica). `bench` takes the JAX verb's flags
 the first stage's mixture) and `--device`; `analyze --log-dir DIR
 [--no-plot]` prints the run's summary (`analyze.py`, the fleet's
 children aggregated); `tail --log-dir DIR [--recent N] [--fleet]
-[--follow] [--interval S]` prints its one-glance health and exits as the
-JAX verb does (`tail_code`: 9, 3, 4, 5, 6, 7, 10, else 0). `analyze`,
+[--follow] [--interval S] [--ledger-baseline PATH] [--ledger-compile-factor
+X] [--ledger-compile-floor-s S] [--ledger-memory-factor X]` prints its
+one-glance health and exits as the JAX verb does (`tail_code`: 8, 9, 3,
+4, 5, 6, 7, 10, else 0; a missing or empty baseline is an error, never
+rc 0). `analyze`,
 `tail` and `incidents` import no torch; `verify-ckpt DIR` prints the run's checkpoint report and
 exits 1 on a corrupt checkpoint, 2 when there is none. `incidents
 {list,show,ack,gc} --log-dir DIR` triages the incident bundles of a run
@@ -98,6 +101,7 @@ import ast
 import dataclasses
 import json
 import os
+import time
 
 from .core.config import (PRESETS, ExperimentConfig, config_from_dict,
                           get_config, raise_unported)
@@ -108,10 +112,6 @@ _UNPORTED_FLAGS = {
     "--elastic": "10 (elastic training)",
     "--multihost": "10 (parallelism)",
     "--artifacts": "8 (artifacts)",
-    "--ledger-baseline": "8 (the executable ledger)",
-    "--ledger-compile-factor": "8 (the executable ledger)",
-    "--ledger-compile-floor-s": "8 (the executable ledger)",
-    "--ledger-memory-factor": "8 (the executable ledger)",
 }
 
 
@@ -375,12 +375,16 @@ def main(argv=None) -> int:
         "tail", help="one-glance health of a live or finished run: step, "
                      "loss, recent vs overall throughput, phase shares, "
                      "starvation, resilience counters, heartbeat age; "
-                     "exits 9 while a critical incident bundle is "
-                     "unacknowledged, 3 when the heartbeat reports "
-                     "wedged, 4 when a serving fleet evicted or broke a "
-                     "replica, 5 when an elastic run re-formed, 6 when "
-                     "the SLO error budget is exhausted, 7 when the "
-                     "flow-quality drift verdict is exhausted (with "
+                     "exits 8 when the executable ledger drifted "
+                     "against its baseline (fingerprint drift, a "
+                     "library rebuilt that the baseline found built, a "
+                     "first-call blowup, memory growth; with --fleet, "
+                     "any replica's ledger), 9 while a critical incident "
+                     "bundle is unacknowledged, 3 when the heartbeat "
+                     "reports wedged, 4 when a serving fleet evicted or "
+                     "broke a replica, 5 when an elastic run re-formed, "
+                     "6 when the SLO error budget is exhausted, 7 when "
+                     "the flow-quality drift verdict is exhausted (with "
                      "--fleet, any replica's), 10 when the brownout "
                      "controller held L3 past serve.degrade."
                      "l3_sustained_s, else 0, checked in that order")
@@ -396,9 +400,26 @@ def main(argv=None) -> int:
                         help="re-print every --interval seconds until ^C "
                              "or a nonzero code")
     p_tail.add_argument("--interval", type=float, default=10.0)
-    for flag in ("--ledger-baseline", "--ledger-compile-factor",
-                 "--ledger-compile-floor-s", "--ledger-memory-factor"):
-        _add_unported(p_tail, flag, takes_value=True)
+    p_tail.add_argument("--ledger-baseline", default=None, metavar="PATH",
+                        help="baseline ledger.jsonl (or a run dir holding "
+                             "one) for the executable ledger's drift "
+                             "verdict (exit 8). Default: <log-dir>/"
+                             "ledger_baseline.jsonl when present; no "
+                             "baseline = no verdict")
+    p_tail.add_argument("--ledger-compile-factor", type=float,
+                        default=None, metavar="X",
+                        help="first-call blowup bound: fail when an "
+                             "executable's compile_s exceeds max(floor, "
+                             "baseline * X) (default 2.0)")
+    p_tail.add_argument("--ledger-compile-floor-s", type=float,
+                        default=None, metavar="S",
+                        help="the blowup floor in seconds: below it no "
+                             "first-call time fails (default 1.0)")
+    p_tail.add_argument("--ledger-memory-factor", type=float,
+                        default=None, metavar="X",
+                        help="memory-growth bound: fail when argument + "
+                             "output + temp bytes exceed baseline * X "
+                             "(default 1.2)")
 
     p_inc = sub.add_parser(
         "incidents",
@@ -433,8 +454,16 @@ def main(argv=None) -> int:
         return _tail(args)
     if args.cmd == "analyze":
         return _analyze(args)
+    from .core.supervise import process_age_s
+
+    # a server's boot split (serve/server.py): what came before main,
+    # and the torch import the next line makes
+    age = process_age_s()
+    boot = {"process_to_main_s": None if age is None else round(age, 4)}
+    t_torch = time.monotonic()
     from .core.device import disable_tf32
 
+    boot["torch_import_s"] = round(time.monotonic() - t_torch, 4)
     disable_tf32()
     if args.cmd == "verify-ckpt":
         return _verify_ckpt(args.dir)
@@ -450,7 +479,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "serve":
-        return _serve(cfg, args)
+        return _serve(cfg, args, boot)
 
     if args.cmd == "predict":
         from .predict import predict_action, predict_pairs, restore_params
@@ -588,15 +617,19 @@ def _analyze(args) -> int:
 
 def tail_code(summary: dict) -> int:
     """The `tail` verb's exit code for one `tail_summary`, as the JAX
-    verb's, checked in this order: 9 an unacknowledged critical incident
-    bundle (it outranks the cumulative counters below, which the same
-    anomaly usually trips too); 3 the heartbeat reports a wedge; 4 a
+    verb's, checked in this order: 8 the executable ledger drifted
+    against its baseline (a live verdict, re-derived on every call, so
+    it keeps its code ahead of the bundle it records); 9 an
+    unacknowledged critical incident bundle (it outranks the cumulative
+    counters below, which the same anomaly usually trips too); 3 the
+    heartbeat reports a wedge; 4 a
     fleet evicted or broke a replica (scale-downs are not sickness); 5
     an elastic run re-formed or lost hosts; 6 the SLO error budget is
     exhausted (the engine's or the router's block); 7 the flow-quality
     drift verdict is exhausted (with --fleet, any replica's); 10 the
-    brownout controller held L3 past its budget; 0 otherwise. The JAX
-    verb's 8 (the executable ledger's drift) is not ported."""
+    brownout controller held L3 past its budget; 0 otherwise."""
+    if (summary.get("ledger_diff") or {}).get("failed"):
+        return 8
     if (summary.get("incidents") or {}).get("unacked_critical"):
         return 9
     if (summary.get("heartbeat") or {}).get("wedged"):
@@ -621,26 +654,80 @@ def tail_code(summary: dict) -> int:
     return 0
 
 
+def _check_ledger_baseline(args) -> None:
+    """A requested ledger gate never passes silently, as in the JAX
+    verb: SystemExit when `--ledger-baseline` names no ledger file (or
+    run dir holding one), or when the baseline found (that one, or the
+    convention file <log-dir>/ledger_baseline.jsonl) holds no rows. A
+    baseline cannot become valid later, so even --follow fails it up
+    front."""
+    from .obs.ledger import find_baseline, load_ledger, resolve_ledger_path
+
+    base = args.ledger_baseline
+    if base is not None:
+        path = resolve_ledger_path(base)
+        if not os.path.isfile(path):
+            raise SystemExit(f"tail: --ledger-baseline {base!r} does not "
+                             "exist (expected a ledger.jsonl or a run dir "
+                             "holding one)")
+    else:
+        path = find_baseline(args.log_dir)
+    if path is not None:
+        try:
+            rows = load_ledger(path)
+        except OSError as e:
+            raise SystemExit(f"tail: ledger baseline {path!r} unreadable: "
+                             f"{e}")
+        if not rows:
+            raise SystemExit(f"tail: ledger baseline {path!r} contains no "
+                             "ledger rows")
+
+
 def _tail(args) -> int:
     """The `tail` verb: one `tail_summary` JSON line (a line every
     --interval seconds with --follow, until a nonzero code); the exit
-    code of `tail_code`."""
+    code of `tail_code`. On rc 8 the verdict is kept as a `ledger_drift`
+    incident bundle (one a distinct verdict)."""
     import time
 
     from .analyze import tail_summary
 
-    raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
-                    if getattr(args, flag[2:].replace("-", "_"), None)
-                    is not None])
+    bounds = {k: v for k, v in (
+        ("compile_factor", args.ledger_compile_factor),
+        ("compile_floor_s", args.ledger_compile_floor_s),
+        ("memory_factor", args.ledger_memory_factor)) if v is not None}
+    _check_ledger_baseline(args)
     while True:
         try:
             summary = tail_summary(args.log_dir, recent=args.recent,
-                                   fleet=args.fleet)
+                                   fleet=args.fleet,
+                                   ledger_baseline=args.ledger_baseline,
+                                   ledger_bounds=bounds)
         except FileNotFoundError:
             raise SystemExit(f"no metrics.jsonl under {args.log_dir!r} — "
                              "is this a run's --log-dir?")
         print(json.dumps(summary), flush=True)
+        if (args.ledger_baseline is not None
+                and "ledger_diff" not in summary and not args.follow):
+            # the explicit gate could not run (the run recorded no
+            # ledger): loud, never rc 0; --follow waits for the first row
+            raise SystemExit(f"tail: --ledger-baseline given but no verdict "
+                             f"could be computed: is {args.ledger_baseline!r}"
+                             f" a ledger and does {args.log_dir!r} hold a "
+                             "ledger.jsonl (obs.ledger on)?")
         rc = tail_code(summary)
+        if rc == 8:
+            from .obs import incident
+
+            verdict = summary["ledger_diff"]
+            condensed = {cls: sorted(e.get("name", "?")
+                                     for e in (verdict.get(cls) or []))
+                         for cls in ("fingerprint_drift",
+                                     "unexpected_recompiles",
+                                     "compile_blowups", "memory_growth")}
+            incident.record_offline(
+                args.log_dir, "ledger_drift", "critical", trigger=condensed,
+                dedup_key=json.dumps(condensed, sort_keys=True))
         if rc or not args.follow:
             return rc
         time.sleep(max(args.interval, 0.1))
@@ -683,10 +770,10 @@ def _bench(args) -> int:
     return 0
 
 
-def _serve(cfg: ExperimentConfig, args) -> int:
+def _serve(cfg: ExperimentConfig, args, boot: dict | None = None) -> int:
     """The `serve` verb: offline mode with --input and --out, else the
     fleet (--replicas N > 1 or --autoscale), else the HTTP server, each
-    until SIGTERM."""
+    until SIGTERM; `boot` goes to the server's boot split."""
     from .core.config import check_servable
 
     check_servable(cfg)
@@ -716,4 +803,4 @@ def _serve(cfg: ExperimentConfig, args) -> int:
         return run_fleet(cfg, replicas, device=args.device)
     from .serve.server import run_server
 
-    return run_server(cfg, device=args.device)
+    return run_server(cfg, device=args.device, boot=boot)

@@ -5,9 +5,10 @@ Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
-Those are settings of the mesh, elastic training, the compile cache, the
-executable ledger, the metrics port and the artifact store's garbage
-collection: none of them changes a result. Settings
+Those are settings of the mesh, elastic training, the compile cache,
+the metrics port and the artifact store's garbage collection: none of
+them changes a result, but `elastic.hosts` > 1, which makes the JAX
+`train` an elastic run of that many trainers, raises. Settings
 that change what the training path computes are carried; `check_trainable`
 raises on values that no model can honour, and `raise_unported` names
 the ROADMAP item of a setting not ported yet.
@@ -394,11 +395,12 @@ class ResilienceConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """The JAX package's `ObsConfig` (`obs/`) but its ledger and
-    metrics-port keys (ROADMAP Queue A items 8 and 11): the span trace,
-    the heartbeat with its wedge watchdog, the FLOPs telemetry, the
-    serving SLO (`serve/engine.py`), label-free quality scoring
-    (`obs/quality.py`) and the incident plane (`obs/incident.py`)."""
+    """The JAX package's `ObsConfig` (`obs/`) but its metrics-port key
+    (ROADMAP Queue A item 10): the span trace, the heartbeat with its
+    wedge watchdog, the FLOPs telemetry, the executable ledger
+    (`obs/ledger.py`), the serving SLO (`serve/engine.py`), label-free
+    quality scoring (`obs/quality.py`) and the incident plane
+    (`obs/incident.py`)."""
 
     # write a Chrome trace-event timeline to <log_dir>/trace.json
     trace: bool = False
@@ -414,6 +416,13 @@ class ObsConfig:
     # count the FLOPs of the first step (FlopCounterMode): train records
     # then carry model_tflops and mfu_nominal
     flops: bool = True
+    # the executable ledger (obs/ledger.py): the first call of each
+    # executable (train step, eval step, each served bucket x tier x
+    # mode, the quality scorer) appends a row (op-trace fingerprint,
+    # first-call seconds, libraries built or found, FLOPs, bytes, memory)
+    # to <log_dir>/ledger.jsonl, and the exec_* block rides the heartbeat
+    # and the stats; `tail --ledger-baseline` turns the rows into rc 8
+    ledger: bool = True
     # the serving SLO (obs/export.py): requests slower than this (rounded
     # up to a histogram bucket bound) breach it, and breaches plus
     # server-side failures burn the error budget; 0 disables it
@@ -664,7 +673,17 @@ def config_from_dict(d: dict) -> ExperimentConfig:
     """Nested dict (e.g. a `deepof_tpu` config JSON) -> ExperimentConfig.
 
     Missing keys keep their defaults; keys this package does not read are
-    dropped and listed in one UserWarning."""
+    dropped and listed in one UserWarning. `elastic.hosts` > 1 raises
+    NotImplementedError naming ROADMAP item 10 (the JAX `train` would
+    run that many trainers)."""
+    elastic = d.get("elastic")
+    hosts = elastic.get("hosts", 0) if isinstance(elastic, dict) else 0
+    if isinstance(hosts, int) and hosts > 1:
+        # the JAX `train` runs an elastic coordinator over `hosts`
+        # trainers when `--elastic` is absent: dropping the key would
+        # train one process
+        raise_unported([(f"elastic.hosts={hosts} (an elastic run of "
+                         f"{hosts} trainers)", "10 (elastic training)")])
     ignored: list[str] = []
     cfg = _from_dict(ExperimentConfig, d, "", ignored)
     if ignored:

@@ -34,6 +34,19 @@ REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
 
 
+def process_age_s() -> float | None:
+    """Seconds since this process started (Linux /proc: its start time
+    in clock ticks since boot, against the uptime); None elsewhere."""
+    try:
+        with open("/proc/self/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return uptime - start / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
 # ----------------------------------------------------------- TCP probes
 
 

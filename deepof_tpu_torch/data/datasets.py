@@ -555,6 +555,9 @@ class SyntheticData:
     """
 
     mean = (0.0, 0.0, 0.0)
+    #: the canvas generator's version, as the JAX package numbers it (2:
+    #: the multi-octave blobs); a synthetic-fit lineage records it
+    CANVAS_VERSION = 2
 
     def __init__(self, cfg: DataConfig, num_train: int = 64,
                  num_val: int = 16, max_shift: float = 4.0,

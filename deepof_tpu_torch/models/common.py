@@ -41,9 +41,14 @@ def bilinear_upsample_kernel(kh: int, kw: int) -> np.ndarray:
 
 def bilinear_kernel_init(weight: torch.Tensor) -> None:
     """Fill a ConvTranspose2d weight (in, out, kh, kw) with bilinear
-    upsampling, identity across channels (zero between different ones)."""
+    upsampling, identity across channels (zero between different ones):
+    the flax init's kernel, flipped as `convert.py` flips it, so the
+    deconv computes what the flax one does. The flip matters where the
+    kernel is not symmetric: the scale-1 deconv's (2, 2) kernel, one
+    pixel's shift, not the identity."""
     cin, cout, kh, kw = weight.shape
-    up = torch.as_tensor(bilinear_upsample_kernel(kh, kw), dtype=weight.dtype)
+    up = torch.as_tensor(bilinear_upsample_kernel(kh, kw)[::-1, ::-1].copy(),
+                         dtype=weight.dtype)
     with torch.no_grad():
         weight.zero_()
         for c in range(min(cin, cout)):

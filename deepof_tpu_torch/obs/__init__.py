@@ -21,7 +21,10 @@
   aggregate.py  one merged Chrome trace of a supervised run's process
                 tree, requests chained by id across processes (a copy;
                 stdlib-only; `analyze` and `tail --fleet` read the tree
-                through `discover_processes`).
-
-The executable ledger is not ported (ROADMAP Queue A item 8).
+                through `discover_processes`);
+  ledger.py     the executable ledger: a row of op-trace fingerprint,
+                first-call seconds, library builds, FLOPs, bytes and
+                memory for each executable's first call, and the drift
+                verdict against a baseline (`tail` rc 8); stdlib-only
+                at import.
 """

@@ -12,9 +12,8 @@ snapshotted into `<log_dir>/incidents/<ts>-<kind>-<pid>-<seq>/`:
     heartbeats.jsonl    the last observed heartbeat samples
     heartbeat.json      the live heartbeat file, verbatim
     metrics_tail.jsonl  the newest lines of metrics.jsonl
-    ledger_tail.jsonl   the newest executable-ledger rows, if there are
-                        any (this package writes no ledger yet: ROADMAP
-                        item 8)
+    ledger_tail.jsonl   the newest executable-ledger rows of the run's
+                        ledger.jsonl (`obs/ledger.py`), if it has any
     trace.json          the flushed span ring, if a tracer is installed
 
 Capture is rare, bounded and harmless to the process it diagnoses:
@@ -499,7 +498,7 @@ def record_offline(log_dir: str, kind: str, severity: str,
                    dedup_key: str | None = None,
                    role: str = "offline") -> str | None:
     """One-shot bundle writer for verdicts computed outside the live
-    process (the JAX package's `tail` ledger-drift gate). Dedup is
+    process (`tail`'s rc-8 ledger-drift gate). Dedup is
     structural: a committed bundle with the same kind and dedup key
     suppresses the capture, so a polling caller writes one bundle per
     distinct verdict. Best-effort and silent: a read-only run dir does

@@ -13,11 +13,13 @@ a registered counter joins the fleet's `/metrics` with no edit there.
 The quality (`serve_quality_*`) and incident (`incident_*`, `alert_*`)
 keys are declared too, and so are the training-resilience keys (whose
 `resilience` flag makes them the `resilience` block of `analyze` and
-`tail`, in declaration order: `resilience_keys`), the `fault_*` family
-and the staged recipe's `recipe_*` keys. The JAX package's
-executable-ledger and elastic keys are not: this package writes none
-of them (ROADMAP Queue A items 8 and 10 port those planes). This
-package's keys are the JAX package's: none of them is its own.
+`tail`, in declaration order: `resilience_keys`), the `fault_*` family,
+the executable ledger's `exec_*` keys (`obs/ledger.py`; its artifact,
+index and deep-verify counters stay 0 until the artifact plane is
+ported) and the staged recipe's `recipe_*` keys. The JAX package's
+elastic keys are not: this package writes none of them (ROADMAP Queue
+A item 10 ports that plane). This package's keys are the JAX
+package's: none of them is its own.
 
 Merge kinds:
 
@@ -57,7 +59,7 @@ class Key:
     kind: merge kind (see module docstring).
     owner: the subsystem that writes it — engine | session | router |
         fleet | degrade | quality | incident | train | data | ckpt |
-        faults | recipe.
+        faults | ledger | recipe.
     prefix: True = family entry: every key starting with `name`
         resolves here (the per-site fault counts). Exact entries win.
     resilience: True = part of the resilience-counter surface analyze/
@@ -220,6 +222,42 @@ _ENTRIES: list[Key] = [
            resilience=True),
     # non-resilience ckpt counter (rides the same ckpt_ stats prefix)
     Key("ckpt_saves", "sum", "ckpt"),
+    # ------------------- exec_* (obs/ledger.py, the executable ledger:
+    # the op-trace fingerprint, first-call seconds, library builds and
+    # memory of each executable's first call). Counters ride every
+    # stats surface that
+    # carries the engine block (heartbeat, /metrics, the fleet scrape,
+    # analyze/tail); the fingerprint map is per-process identity and the
+    # MFU is re-derived, never merged.
+    *_keys("ledger", "sum",
+           "exec_lowerings", "exec_recompiles", "exec_compile_s",
+           "exec_cache_hits", "exec_cache_misses", "exec_dispatches",
+           "exec_dispatch_s",
+           # artifact plane (serve/artifacts.py): executables
+           # deserialized from the store instead of compiled (hits) vs
+           # compiled because no entry matched the local fingerprint
+           # (misses) vs compiled because an entry failed an integrity
+           # gate (rejects — always loud)
+           "exec_artifact_hits", "exec_artifact_misses",
+           "exec_artifact_rejects",
+           # executable index (trace-free boot): executables resolved
+           # by jax-free key with zero trace/lower calls (hits) vs no
+           # index entry for the key (misses — lowering path taken) vs
+           # entry failed a trust gate: forged, cross-wired, stale
+           # target, version skew (rejects — always loud)
+           "exec_index_hits", "exec_index_misses", "exec_index_rejects",
+           # deferred deep-verify plane: background re-lowerings that
+           # confirmed an index-resolved executable (ok) vs loudly
+           # demoted it — fingerprint mismatch, fresh compile swapped
+           # in (demoted). Summing across a fleet stays honest: each
+           # replica verifies its own boots exactly once.
+           "exec_deep_verify_ok", "exec_deep_verify_demoted"),
+    # index-resolved executables still awaiting their background
+    # re-lowering; a fleet sum is the pool's total unverified count
+    Key("exec_deep_verify_pending", "sum", "ledger"),
+    Key("exec_executables", "gauge", "ledger"),
+    Key("exec_fingerprints", "state", "ledger"),
+    Key("exec_mfu_nominal", "derived", "ledger"),
     # ------------------- recipe_* (train/recipe.py, the staged recipe):
     # the active stage (per-process identity, never merged), advances,
     # the mixture's draws by member dataset and the newest advance's

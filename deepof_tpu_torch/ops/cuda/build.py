@@ -9,6 +9,7 @@ library is never loaded.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -30,15 +32,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _built_lock = threading.Lock()
-#: `build` calls of this process that compiled a library ("built": True)
-_built = [0]
+#: the names of the libraries this process compiled ("built": True), in
+#: order
+_built_names: list[str] = []
+#: the executable ledger's traces open in this process (obs/ledger.py):
+#: while any is, a launch is also noted to the trace on its thread
+_traces = [0]
 
 
 def built_count() -> int:
     """Libraries this process has compiled so far (`build` calls that
     returned "built": True): the staged recipe reads it to show that a
     stage switch builds nothing."""
-    return _built[0]
+    with _built_lock:
+        return len(_built_names)
 
 
 def nvcc() -> str:
@@ -84,7 +91,7 @@ def build(name: str) -> dict:
     log.write_text(proc.stdout)
     os.replace(tmp, path)
     with _built_lock:
-        _built[0] += 1
+        _built_names.append(name)
     return {"path": str(path), "built": True,
             "seconds": time.monotonic() - t0, "log": proc.stdout}
 
@@ -110,19 +117,45 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-class LaunchCounter:
-    """Launches of one kernel: a wrapper adds one where it launches.
-    Every counter joins `COUNTERS` (read by `launch_counts`)."""
+@contextlib.contextmanager
+def tracing():
+    """Marks an executable-ledger trace open (`obs/ledger.py`): while one
+    is, `LaunchCounter.add` notes each launch to the trace of its
+    thread."""
+    with _built_lock:
+        _traces[0] += 1
+    try:
+        yield
+    finally:
+        with _built_lock:
+            _traces[0] -= 1
 
-    def __init__(self, name: str):
+
+def built_names() -> list[str]:
+    """The libraries this process has compiled so far, in order."""
+    with _built_lock:
+        return list(_built_names)
+
+
+class LaunchCounter:
+    """Launches of one kernel of library `source` (`csrc/<source>.cu`): a
+    wrapper adds one where it launches, with a callable that gives the
+    launch's plan (its shapes and parameters), called only while a
+    ledger trace is open. Every counter joins `COUNTERS` (read by
+    `launch_counts`)."""
+
+    def __init__(self, name: str, source: str):
         self.name = name
+        self.source = source
         self.count = 0
         self._lock = threading.Lock()
         COUNTERS.append(self)
 
-    def add(self) -> None:
+    def add(self, plan: Callable[[], tuple] | None = None) -> None:
         with self._lock:
             self.count += 1
+        if _traces[0]:
+            _note_launch(self, () if plan is None else plan())
 
     def reset(self) -> None:
         with self._lock:
@@ -131,6 +164,19 @@ class LaunchCounter:
 
 #: every LaunchCounter of the process, in creation order
 COUNTERS: list[LaunchCounter] = []
+
+
+def _note_launch(counter: LaunchCounter, plan: tuple) -> None:
+    """Hand a launch to the ledger trace active on this thread, if any.
+    The trace is a dispatch mode, so it is found on the mode stack,
+    which autograd carries to its device threads: a kernel launched in
+    a backward pass is noted too; another thread's launch is not."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        note = getattr(mode, "note_launch", None)
+        if note is not None:
+            note(counter.name, counter.source, plan)
 
 
 def launch_counts() -> dict[str, int]:

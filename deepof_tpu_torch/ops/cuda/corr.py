@@ -45,12 +45,12 @@ import torch
 
 from .build import LaunchCounter, check, load
 
-launches = LaunchCounter("corr")
-bwd_f1_launches = LaunchCounter("corr_bwd_f1")
-bwd_f2_launches = LaunchCounter("corr_bwd_f2")
-bf16_launches = LaunchCounter("corr_bf16")
-bwd_f1_bf16_launches = LaunchCounter("corr_bwd_f1_bf16")
-bwd_f2_bf16_launches = LaunchCounter("corr_bwd_f2_bf16")
+launches = LaunchCounter("corr", "corr")
+bwd_f1_launches = LaunchCounter("corr_bwd_f1", "corr_bwd")
+bwd_f2_launches = LaunchCounter("corr_bwd_f2", "corr_bwd")
+bf16_launches = LaunchCounter("corr_bf16", "corr")
+bwd_f1_bf16_launches = LaunchCounter("corr_bwd_f1_bf16", "corr_bwd")
+bwd_f2_bf16_launches = LaunchCounter("corr_bwd_f2_bf16", "corr_bwd")
 
 #: dtype -> (entry-point suffix, forward, corr_bwd_f1, corr_bwd_f2 counters)
 _BY_DTYPE = {
@@ -125,7 +125,7 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w,
             max_disp, stride, stream)
     check(lib, rc, f"{counter.name} kernel launch")
-    counter.add()
+    counter.add(lambda: (b, c, h, w, max_disp, stride))
     return out
 
 
@@ -158,5 +158,5 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
                 feat.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, h, w,
                 max_disp, stride, stream)
             check(lib, rc, f"{counter.name} kernel launch")
-            counter.add()
+            counter.add(lambda: (b, c, h, w, max_disp, stride))
     return df1, df2

@@ -46,22 +46,22 @@ MAX_LEVELS = 8
 THREADS_X, ROWS, PIX = 32, 8, 2
 TILE_W = THREADS_X * PIX
 
-fwd_launches = LaunchCounter("warp_fwd")
-grad_launches = LaunchCounter("warp_flow_grad")
+fwd_launches = LaunchCounter("warp_fwd", "warp")
+grad_launches = LaunchCounter("warp_flow_grad", "warp")
 # the forward kernel's launches on data, by its caller
 # (ops/warp.py::warp_levels_forward): the augmentation's resample, the
 # occlusion mask's warp of the backward flows (C = 2), and the serving
 # engine's quality scorer (obs/quality.py: frame 2 by a served flow)
-augment_launches = LaunchCounter("warp_fwd_augment")
-occlusion_launches = LaunchCounter("warp_fwd_occlusion")
-quality_launches = LaunchCounter("warp_fwd_quality")
+augment_launches = LaunchCounter("warp_fwd_augment", "warp")
+occlusion_launches = LaunchCounter("warp_fwd_occlusion", "warp")
+quality_launches = LaunchCounter("warp_fwd_quality", "warp")
 #: the forward kernel's counter by call site
 SITE_COUNTERS = {"loss": fwd_launches, "augment": augment_launches,
                  "occlusion": occlusion_launches,
                  "quality": quality_launches}
 # the bf16-image instances (the loss under loss.gather_dtype="bfloat16")
-fwd_bf16_launches = LaunchCounter("warp_fwd_bf16")
-grad_bf16_launches = LaunchCounter("warp_flow_grad_bf16")
+fwd_bf16_launches = LaunchCounter("warp_fwd_bf16", "warp")
+grad_bf16_launches = LaunchCounter("warp_flow_grad_bf16", "warp")
 
 
 class _View(ctypes.Structure):
@@ -224,7 +224,9 @@ def _launch(what: str, fn: str, counter: LaunchCounter,
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(ctypes.addressof(table), blocks, stream)
     check(lib, rc, f"{what} launch")
-    counter.add()
+    counter.add(lambda: tuple(
+        (tuple(i.shape), tuple(i.stride()), lv.out_bf16, lv.ct_bf16)
+        for i, lv in zip(images, table.lv)))
     return outs
 
 

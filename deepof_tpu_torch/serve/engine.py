@@ -72,8 +72,18 @@ stand-in executor with the numpy reference. At rate 0 nothing is built
 and the stats keep their schema. `incidents` is the process's incident
 recorder (`obs/incident.py`), set by the server when `obs.incidents` is
 on: `stats()` records `slo_exhausted` and `quality_drift` bundles from
-the verdicts it computes and carries the `incident_*` block. Still to
-port (ROADMAP item 8): the executable ledger and artifacts.
+the verdicts it computes and carries the `incident_*` block.
+
+The executable ledger (`obs/ledger.py`), with `obs.ledger` on and a
+model (not a stand-in): `warm()` writes one row per (bucket, tier,
+mode) under `exec_name` and, when scoring, one per bucket under
+`quality_exec_name`; each dispatch's seconds go to `note_exec`,
+`stats()` carries the `exec_*` block, and `close()` writes the
+`exec_timing` rows. The rows go to `<ledger_dir>/ledger.jsonl` where
+the caller names the run directory it owns: the `serve` verb passes
+`train.log_dir` (a fleet replica its own `replica-<i>`). An engine
+given none keeps its rows in memory and writes no file. Still to port
+(ROADMAP item 8): artifacts.
 """
 
 from __future__ import annotations
@@ -95,6 +105,7 @@ from ..core.config import ExperimentConfig, check_servable
 from ..core.device import disable_tf32, resolve_device
 from ..data.datasets import DATASET_MEANS, _imread_bgr
 from ..obs import trace as obs_trace
+from ..obs.ledger import ExecutableLedger, exec_name, quality_exec_name
 from ..obs.export import (LatencyHistogram, percentile_ms, slo_state,
                           validate_slo)
 from ..obs.quality import QualityScorer, make_score_fn, score_pair_np
@@ -282,7 +293,8 @@ class InferenceEngine:
     def __init__(self, cfg: ExperimentConfig, model: nn.Module | None = None,
                  mean=None, device: str | torch.device = "cuda",
                  refine: nn.Module | None = None,
-                 forward_fn: Callable | None = None):
+                 forward_fn: Callable | None = None,
+                 ledger_dir: str | None = None):
         check_servable(cfg)
         self.device = resolve_device(device)
         disable_tf32()
@@ -367,13 +379,15 @@ class InferenceEngine:
         # is built and the stats keep their schema
         self._quality: QualityScorer | None = None
         self._quality_index = 0  # the sampler's accepted-request index
+        # the torch scorer of a model engine (warm() records its row)
+        self._torch_score: Callable | None = None
         obs = cfg.obs
         if float(obs.quality_sample_rate) > 0:
             if self._forward_custom:
                 score_fn = (lambda bucket, x, flow:
                             score_pair_np(x[0], flow[0]))
             else:
-                torch_score = make_score_fn(self.device)
+                torch_score = self._torch_score = make_score_fn(self.device)
                 score_fn = (lambda bucket, x, flow: torch_score(x, flow))
             self._quality = QualityScorer(
                 score_fn, obs.quality_sample_rate, seed=obs.quality_seed,
@@ -382,6 +396,14 @@ class InferenceEngine:
                 window=obs.quality_window,
                 drift_factor=obs.quality_drift_factor,
                 budget=obs.quality_budget)
+
+        # the executable ledger: a model engine's rows at warm(), its
+        # dispatch seconds, its exec_* block; a file only under the
+        # ledger_dir its caller owns
+        self._ledger: ExecutableLedger | None = None
+        if not self._forward_custom and bool(obs.ledger):
+            self._ledger = ExecutableLedger(ledger_dir,
+                                            backend=self.device.type)
 
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-batcher")
@@ -780,6 +802,7 @@ class InferenceEngine:
                                  np.float32)
                 for i, r in enumerate(batch):
                     prior[i] = r.prior
+            t_fwd = time.perf_counter()
             try:
                 out = np.asarray(self._forward(key, x, prior))
             except Exception as e:  # noqa: BLE001 - the flush fails, not the engine
@@ -789,6 +812,11 @@ class InferenceEngine:
                     self._fail(r.future, ServeError(
                         "dispatch_failed", f"{type(e).__name__}: {e}", r.rid))
                 return
+            if self._ledger is not None:
+                # the dispatch's seconds (its copy out is a host sync):
+                # the ledger's MFU denominator, one update a flush
+                self._ledger.note_exec(exec_name(bucket, tier, mode),
+                                       time.perf_counter() - t_fwd)
         with obs_trace.span("serve_postprocess", occupancy=n, bucket=tag,
                             request_ids=rids):
             for i, r in enumerate(batch):
@@ -853,8 +881,10 @@ class InferenceEngine:
         """The postprocess path once on a dummy flow, then one padded
         dispatch of zeros for each (bucket, tier, mode) of the engine, so
         the kernels are built and cuDNN has chosen its algorithms before
-        the first request (no dispatch for a stand-in executor). Returns
-        {"buckets": [{"bucket", "tier", "mode", "seconds"}]}."""
+        the first request (no dispatch for a stand-in executor). With
+        the ledger on, each dispatch is traced into its row, and so is
+        one call of the quality scorer a bucket. Returns {"buckets":
+        [{"bucket", "tier", "mode", "seconds"}]}."""
         # the first request would otherwise pay the postprocess path's
         # first call (the resize's kernels, its imports) in the batcher,
         # and the native decoder's build (at its first use) in a handler
@@ -873,16 +903,39 @@ class InferenceEngine:
                                        *self._head_hw[bucket], 2),
                                       np.float32) if mode == "warm" else None)
                     t0 = time.perf_counter()
-                    self._forward((bucket, tier, mode), x, prior)
+                    flow = self._warm_dispatch((bucket, tier, mode), x,
+                                               prior)
                     out.append({"bucket": list(bucket), "tier": tier,
                                 "mode": mode,
                                 "seconds": time.perf_counter() - t0})
+            if self._torch_score is not None and self._ledger is not None:
+                head = np.zeros((1, *flow.shape[1:3], 2), np.float32)
+                self._ledger.record_call(
+                    quality_exec_name(bucket),
+                    lambda: self._torch_score(x[:1], head), self.device,
+                    inputs=(x[:1], head))
         return {"buckets": out}
+
+    def _warm_dispatch(self, key: tuple[tuple[int, int], str, str],
+                       x: np.ndarray, prior: np.ndarray | None
+                       ) -> np.ndarray:
+        """One warm() dispatch; with the ledger on, traced into the row
+        of `exec_name(*key)`."""
+        if self._ledger is None:
+            return self._forward(key, x, prior)
+        _, tier, mode = key
+        module = (self.refine_models if mode == "warm"
+                  else self.tier_models)[tier]
+        flow, _ = self._ledger.record_call(
+            exec_name(*key), lambda: self._forward(key, x, prior),
+            self.device, inputs=(list(module.parameters()),
+                                 list(module.buffers()), x, prior))
+        return flow
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
-        """The serve_* counter block (the JAX engine's keys, less those of
-        its ledger plane), with the session store's serve_sessions_*
+        """The serve_* counter block (the JAX engine's keys), with the
+        ledger's exec_* block, the session store's serve_sessions_*
         block, the latency histograms, their p50/p99, `serve_slo` when
         `obs.slo_latency_ms` > 0, the serve_quality* block when
         sampling is on, and the incident_* block when a recorder is set,
@@ -940,6 +993,8 @@ class InferenceEngine:
                 self.cfg.obs.slo_latency_ms, self.cfg.obs.slo_error_budget)
         if self._quality is not None:
             out.update(self._quality.stats())
+        if self._ledger is not None:
+            out.update(self._ledger.stats())
         rec = self.incidents
         if rec is not None:
             slo = out.get("serve_slo")
@@ -972,6 +1027,8 @@ class InferenceEngine:
             # after the batcher's join: the drained flushes' samples are
             # queued ahead of the scorer's exit
             self._quality.close()
+        if self._ledger is not None:
+            self._ledger.flush()  # after the last dispatch
         # submitters that passed the closed check before it flipped may
         # still complete a put; wait them out, then fail what is left
         deadline = time.monotonic() + 5.0

@@ -58,6 +58,18 @@ the kernels' launches while it served (`kernel_launches`, counted from
 the end of `engine.warm()`). Its announce line stays the first line on
 stdout: the fleet reads the bound port from it.
 
+A server that builds its own engine splits its boot (`boot`, in the
+announce line and the final record; seconds, None where a part does
+not apply): `process_to_main_s` (the interpreter's start and the
+package's imports, from the process's start time in /proc),
+`torch_import_s` (timed by `cli.main`), `cuda_context_s` (the first
+allocation on the card), `library_load_s` (the CUDA libraries the
+engine launches, `_libraries`, loaded and built first if absent),
+`restore_s` (the model built and the newest checkpoint verified and
+read), `engine_s` (the engine's tiers and stages), `warm_s`
+(`engine.warm()`, the ledger's traces included) and `ready_s` (the
+process's age at the announce line).
+
 Under `obs.incidents` the server installs the process's incident
 recorder (`obs/incident.py`, role "serve" or "replica") on the engine,
 which records `slo_exhausted` and `quality_drift` bundles from its
@@ -81,6 +93,7 @@ from concurrent.futures import TimeoutError as FuturesTimeout
 import numpy as np
 
 from ..core.config import ExperimentConfig, raise_unported
+from ..core.supervise import process_age_s
 from ..io.flo import flo_bytes
 from ..io.png import png_bytes
 from ..obs import incident
@@ -360,26 +373,74 @@ def drain_engine(engine: InferenceEngine, timeout_s: float) -> bool:
         time.sleep(0.05)
 
 
-def _engine_for(cfg: ExperimentConfig, model, device) -> InferenceEngine:
+def _timed(fn) -> tuple[object, float]:
+    t0 = time.monotonic()
+    out = fn()
+    return out, round(time.monotonic() - t0, 4)
+
+
+def _libraries(cfg: ExperimentConfig) -> tuple[str, ...]:
+    """The CUDA libraries a serving engine of `cfg` launches: the
+    correlation's for a model with a cost volume, the warp's for
+    FlowNet-CS's refinement, the warm start's stage and the quality
+    scorer. Never the correlation's backward: serving takes no
+    gradient, and a library it never launches is not built at boot."""
+    from ..models.registry import MODELS, _fields
+
+    cls = MODELS.get(cfg.model)
+    names = ["corr"] if cls is not None and "max_disp" in _fields(cls) else []
+    if (cfg.model == "flownet_cs" or cfg.serve.session.warm_start
+            or float(cfg.obs.quality_sample_rate) > 0):
+        names.append("warp")
+    return tuple(names)
+
+
+def _engine_for(cfg: ExperimentConfig, model, device,
+                boot: dict | None = None) -> InferenceEngine:
     """The serving engine of `cfg`: the model given, else the newest
     checkpoint under `train.log_dir` that verifies; none with
-    `serve.fake_exec_ms`."""
+    `serve.fake_exec_ms`. The boot's parts are timed into `boot`: the
+    CUDA context and the libraries the engine launches first (on the
+    card, for a model), then the restore and the engine."""
+    import torch
+
+    boot = {} if boot is None else boot
+    cuda = (torch.device(device).type == "cuda"
+            and cfg.serve.fake_exec_ms is None)
+    boot["cuda_context_s"] = boot["library_load_s"] = None
+    if cuda:
+        from ..ops.cuda import build
+
+        def context():
+            torch.empty(1, device=device)
+            torch.cuda.synchronize(device)
+
+        _, boot["cuda_context_s"] = _timed(context)
+        _, boot["library_load_s"] = _timed(
+            lambda: [build.load(n) for n in _libraries(cfg)])
+    boot["restore_s"] = None
     if model is None and cfg.serve.fake_exec_ms is None:
         from ..predict import restore_params
 
-        model = restore_params(cfg, device=device)
-    return InferenceEngine(cfg, model=model, device=device)
+        model, boot["restore_s"] = _timed(
+            lambda: restore_params(cfg, device=device))
+    engine, boot["engine_s"] = _timed(
+        lambda: InferenceEngine(cfg, model=model, device=device,
+                                ledger_dir=cfg.train.log_dir))
+    return engine
 
 
 def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
-               model=None, device="cuda") -> int:
+               model=None, device="cuda", boot: dict | None = None) -> int:
     """`serve` in HTTP mode: engine, heartbeat, and serve_forever until
     SIGTERM (or ^C); returns the exit code. The first SIGTERM stops
     admission and drains the requests in flight within
     `serve.fleet.drain_timeout_s`; a second takes the default action, so
     a wedged drain stays killable. Prints one JSON line {"serving":
     "http://host:port", ...} once it listens, and appends a kind="serve"
-    record of the final stats to `<log_dir>/metrics.jsonl`."""
+    record of the final stats to `<log_dir>/metrics.jsonl`. `boot` holds
+    the boot's parts timed before the call (`cli.main`'s torch import);
+    a server that builds its engine adds the rest (module docstring)."""
     from ..obs.heartbeat import Heartbeat
     from ..ops.cuda.build import launch_counts
 
@@ -390,15 +451,18 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
             ring_size=cfg.obs.trace_ring, role=_role(),
             index=replica_index())
     own_engine = engine is None
+    boot = dict(boot or {}) if own_engine else None
     with obs_trace.installed(tracer):
         if own_engine:
-            engine = _engine_for(cfg, model, device)
+            engine = _engine_for(cfg, model, device, boot)
         install_replica_faults(engine, cfg)
         # the process's incident recorder (None unless obs.incidents):
         # the engine records its SLO and quality verdicts through it
         incidents = incident.install(cfg, cfg.train.log_dir, _role())
         engine.incidents = incidents
-        warm = engine.warm()
+        warm, warm_s = _timed(engine.warm)
+        if boot is not None:
+            boot["warm_s"] = warm_s
         warm_launches = launch_counts()
         # the heartbeat's steps are flushes; with no work in flight the
         # clock is touched, so an idle endpoint is never a wedge
@@ -443,6 +507,9 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
                                  name="serve-drain").start()
 
             signal.signal(signal.SIGTERM, _on_term)
+        if boot is not None:
+            age = process_age_s()
+            boot["ready_s"] = None if age is None else round(age, 4)
         print(json.dumps({"serving": f"http://{host}:{port}",
                           "pid": os.getpid(),
                           "replica": replica_index(),
@@ -450,7 +517,8 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
                           "precisions": list(engine.tiers),
                           "max_batch": engine.max_batch,
                           "warm_s": round(sum(w["seconds"]
-                                              for w in warm["buckets"]), 3)}),
+                                              for w in warm["buckets"]), 3),
+                          **({"boot": boot} if boot is not None else {})}),
               flush=True)
         try:
             httpd.serve_forever()
@@ -463,7 +531,8 @@ def run_server(cfg: ExperimentConfig, engine: InferenceEngine | None = None,
                 engine.close()
             now = launch_counts()
             _log_serve_summary(cfg, engine, kernel_launches={
-                k: n - warm_launches.get(k, 0) for k, n in now.items()})
+                k: n - warm_launches.get(k, 0) for k, n in now.items()},
+                **({"boot": boot} if boot is not None else {}))
             hb.close()
     return 0
 

@@ -109,6 +109,7 @@ from ..models.registry import build_model
 from ..obs import incident as obs_incident
 from ..obs import trace as obs_trace
 from ..obs.heartbeat import Heartbeat
+from ..obs.ledger import ExecutableLedger
 from ..obs.telemetry import (NOMINAL_BF16_TFLOPS, count_flops,
                              device_memory_summary, process_rss_bytes)
 from ..resilience.faults import build_injector
@@ -231,6 +232,14 @@ class Trainer:
     on_eval: on_eval(step, eval metrics) -> bool, called after each eval
         record; True ends `fit` there, through its final checkpoint (the
         plateau trigger).
+    exec_names: the executable ledger's names of the train step and the
+        eval step (`obs/ledger.py`); a recipe's stage i writes
+        train_step_stage<i> and eval_step_stage<i>.
+
+    Under `obs.ledger`, `fit` appends the train step's row to
+    <log_dir>/ledger.jsonl at its first call, in the same pass that
+    counts its FLOPs, and the eval step's row at the first eval forward;
+    the ledger's exec_* block rides the heartbeat and the train records.
 
     The JAX Trainer's `train_step`, `eval_fn` and `tx` hooks inject
     ahead-of-time compiled XLA executables and the optimizer they were
@@ -245,8 +254,14 @@ class Trainer:
                  profile_steps: tuple[int, int] | None = None,
                  ckpt_dir: str | None = None,
                  manifest_extra: dict | None = None,
-                 extra_stats=None, on_eval=None):
+                 extra_stats=None, on_eval=None,
+                 exec_names: tuple[str, str] = ("train_step", "eval_step")):
         check_trainable(cfg)
+        self._exec_names = exec_names
+        # the fit's executable ledger (None outside a fit or when off),
+        # and whether the eval step's row is still to be written
+        self._ledger: ExecutableLedger | None = None
+        self._eval_unrecorded = False
         self._extra_stats = extra_stats
         self._on_eval = on_eval
         self.device = resolve_device(device)
@@ -351,13 +366,31 @@ class Trainer:
     def evaluate(self, dump: bool = False) -> dict[str, float]:
         """The AEE protocol; with `dump`, the first val batch's visuals
         go to <log_dir>/visuals. An action model's accuracy protocol."""
+        eval_fn = self.eval_fn
+        if self._ledger is not None and self._eval_unrecorded:
+            eval_fn = self._recording_eval_fn()
         if self.cfg.model in ACTION_MODELS:
-            return evaluate_ucf101(self.eval_fn, self.model, self.dataset,
+            return evaluate_ucf101(eval_fn, self.model, self.dataset,
                                    self.cfg)
         dump_dir = (os.path.join(self.cfg.train.log_dir, "visuals")
                     if dump else None)
-        return evaluate_aee(self.eval_fn, self.model, self.dataset, self.cfg,
+        return evaluate_aee(eval_fn, self.model, self.dataset, self.cfg,
                             dump_dir)
+
+    def _recording_eval_fn(self):
+        """`eval_fn` whose first call writes the eval step's ledger row."""
+        ledger, name = self._ledger, self._exec_names[1]
+
+        def eval_fn(model, batch):
+            if not self._eval_unrecorded:
+                return self.eval_fn(model, batch)
+            self._eval_unrecorded = False
+            out, _ = ledger.record_call(
+                name, lambda: self.eval_fn(model, batch), self.device,
+                inputs=(list(model.parameters()), batch))
+            return out
+
+        return eval_fn
 
     def fit(self, num_epochs: int | None = None,
             max_steps: int | None = None) -> dict[str, float]:
@@ -467,6 +500,19 @@ class Trainer:
                    else SyncFetcher(**fetch_kw))
         stack.callback(fetcher.close)
 
+        # the executable ledger: rows at the first train call and the
+        # first eval forward; dropped at the end of the fit
+        ledger = (ExecutableLedger(cfg.train.log_dir,
+                                   backend=self.device.type)
+                  if cfg.obs.ledger else None)
+        self._ledger, self._eval_unrecorded = ledger, ledger is not None
+        stack.callback(setattr, self, "_ledger", None)
+
+        def ledger_stats() -> dict:
+            """The ledger's exec_* block, for the heartbeat and the train
+            records (the summary's values are numbers: not there)."""
+            return ledger.stats() if ledger is not None else {}
+
         def resilience_stats() -> dict:
             """One merge of the data-path, metrics-read, checkpoint and
             fault counters and the `extra_stats` hook's for the
@@ -487,7 +533,7 @@ class Trainer:
         if cfg.obs.heartbeat:
             def hb_sample() -> dict:
                 return {**timer.rates(), **timer.counters(),
-                        **resilience_stats()}
+                        **resilience_stats(), **ledger_stats()}
 
             heartbeat = Heartbeat(
                 os.path.join(cfg.train.log_dir, "heartbeat.json"),
@@ -560,7 +606,7 @@ class Trainer:
                 **{f: per_scale_last(m[src])
                    for f, src in SCALE_RECORD_FIELDS if src in m},
                 **timer.rates(), **timer.phases(), **timer.counters(),
-                **resilience_stats(),
+                **resilience_stats(), **ledger_stats(),
                 **({f"decode_cache_{k}": v for k, v in cache().items()
                     if k in ("hits", "misses", "evictions")}
                    if cache is not None else {}),
@@ -605,10 +651,23 @@ class Trainer:
                         message=f"fault injection: dispatch batch at "
                                 f"step(s) {hits} poisoned with NaN")
             t0 = time.perf_counter()
+            trace_s = None
             with obs_trace.span("dispatch", step=gstep + k):
-                if first_call and cfg.obs.flops:
-                    # counted around this call itself: no extra step,
-                    # update or random draw
+                if first_call and ledger is not None:
+                    # the ledger's row and the FLOP count in one pass
+                    # around this call itself: no extra step, update or
+                    # random draw
+                    metrics, row = ledger.record_call(
+                        self._exec_names[0],
+                        lambda: self.train_step(self.state, batch),
+                        self.device, count_flops=cfg.obs.flops,
+                        inputs=(list(self.model.parameters()),
+                                [st for st in self.state.optimizer.state
+                                 .values()], self.state.acc, batch))
+                    trace_s = round(ledger.trace_s, 4)
+                    if cfg.obs.flops:
+                        self._flops_per_step = (row["flops"] or 0) / k or None
+                elif first_call and cfg.obs.flops:
                     metrics, flops = count_flops(
                         lambda: self.train_step(self.state, batch))
                     self._flops_per_step = flops / k or None
@@ -622,7 +681,8 @@ class Trainer:
                 self.logger.log(
                     "info", gstep + k,
                     message=f"first step: {time.perf_counter() - t0:.1f}s",
-                    flops_per_step=self._flops_per_step)
+                    flops_per_step=self._flops_per_step,
+                    ledger_trace_s=trace_s)
                 first_call = False
             timer.tick(k)
             prev, gstep = gstep, gstep + k

@@ -31,9 +31,14 @@ sustained-AEE-plateau signal (analyze.py).
   builds and loads every CUDA library. This package compiles nothing
   per stage, so a stage switch then builds nothing, which
   `run_recipe`'s ``libraries_built_after_prebuild`` shows (the count of
-  libraries compiled after the prebuild). The JAX module's executable-
-  ledger rows that prove the same for XLA executables wait for the
-  ledger (ROADMAP Queue A item 8).
+  libraries compiled after the prebuild). It records no ledger row: the
+  JAX module's prebuild rows describe XLA executables compiled ahead of
+  time, and this package runs nothing ahead of time.
+- Each stage's Trainer writes the executable ledger's rows under the
+  JAX names, `train_step_stage<i>` at the stage's first step and
+  `eval_step_stage<i>` at its first eval forward, into the run's one
+  `<log_dir>/ledger.jsonl` (`obs/ledger.py`); a row's `cache_misses`
+  counts the libraries built during that call (0 after the prebuild).
 """
 
 from __future__ import annotations
@@ -247,7 +252,8 @@ def run_recipe(cfg: ExperimentConfig, max_steps: int | None = None,
             manifest_extra={"recipe_stage": i,
                             "recipe_stage_name": stage.name,
                             "stage_start_step": stage_start},
-            extra_stats=recipe_stats, on_eval=on_eval)
+            extra_stats=recipe_stats, on_eval=on_eval,
+            exec_names=(f"train_step_stage{i}", f"eval_step_stage{i}"))
         if int(trainer.state.step) == 0 and prev_params is not None:
             # fresh stage: graft the previous stage's weights (the trunk
             # transfers, shape-mismatched heads keep their fresh init)

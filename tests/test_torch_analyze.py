@@ -283,25 +283,91 @@ def test_tail_exit_codes_match_jax(tmp_path, capsys, code):
         capsys.readouterr()
 
 
-def test_the_verbs_refuse_the_ledger_naming_item_8(runs, tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["tail", "--log-dir", runs["train"], "--ledger-baseline",
-                  str(tmp_path / "b.jsonl")])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["tail", "--log-dir", runs["train"],
-                  "--ledger-memory-factor", "1.5"])
-    for where in ("", "replica-0"):
-        d = _fleet_tree(str(tmp_path / f"ledger{where}"))
-        with open(os.path.join(d, where, "ledger.jsonl"), "w") as f:
-            f.write("{}\n")
-        for argv in (["tail", "--log-dir", d, "--fleet"],
-                     ["analyze", "--log-dir", d, "--no-plot"]):
-            with pytest.raises(SystemExit, match="item 8"):
-                cli.main(argv)
-    d = _write(str(tmp_path / "base"), _train_records())
-    open(os.path.join(d, "ledger_baseline.jsonl"), "w").close()
-    with pytest.raises(SystemExit, match="item 8"):
-        cli.main(["tail", "--log-dir", d])
+def _ledger_rows(fp="0123456789abcdef", temp=20, names=("train_step",)):
+    """Port-written rows: `ledger.exec_row` over fixed measured fields."""
+    from deepof_tpu_torch.obs.ledger import exec_row
+
+    fields = {"fingerprint": fp, "hlo_chars": 4000, "compile_s": 2.5,
+              "cache": {"requests": 2, "hits": 2, "misses": 0},
+              "flops": 3e9, "bytes_accessed": 6e8, "argument_bytes": 60,
+              "output_bytes": 20, "temp_bytes": temp, "code_bytes": 9000,
+              "num_args": 3}
+    rows = [exec_row(n, fields, "cuda") for n in names]
+    rows.append({"kind": "exec_timing", "schema": 1, "name": names[0],
+                 "time": T0, "count": 3, "total_s": 0.3, "mean_s": 0.1,
+                 "mfu_nominal": 0.0003})
+    return rows
+
+
+def _put_ledger(d, rows, name="ledger.jsonl"):
+    with open(os.path.join(d, name), "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
+def test_the_verbs_read_the_ledger_as_the_jax_verbs(tmp_path, capsys):
+    """`analyze` and `tail` carry the ledger's `ledger` and `ledger_diff`
+    blocks as the JAX verbs do on the same files (a fleet tree whose
+    root and replica-0 hold ledgers, against the convention baseline
+    and an explicit one); `tail` exits 8 on the drift, with a
+    `ledger_drift` bundle that holds the run's `ledger_tail.jsonl`, and
+    0 on the baseline's own rows."""
+    import shutil
+
+    d = _fleet_tree(str(tmp_path / "fleet"))
+    _put_ledger(d, _ledger_rows())
+    _put_ledger(os.path.join(d, "replica-0"),
+                _ledger_rows(fp="fedcba9876543210", temp=90,
+                             names=("serve:384x512:f32:cold",
+                                    "quality:384x512")))
+    base = str(tmp_path / "base.jsonl")
+    with open(base, "w") as f:
+        for r in _ledger_rows(names=("train_step",
+                                     "serve:384x512:f32:cold")):
+            f.write(json.dumps(r) + "\n")
+    shutil.copy(base, os.path.join(d, "ledger_baseline.jsonl"))
+    got = analyze.analyze(d, plot=False)
+    want = jax_analyze.analyze(d, plot=False)
+    assert _drop(_json(got)) == _drop(_json(want))
+    assert got["ledger"]["executables"] == 1
+    assert got["ledger"]["mfu_nominal_max"] == 0.0003
+    diff = got["ledger_diff"]
+    assert diff["failed"] and diff["children"]["replica-0"] == {
+        "failed": True, "fingerprint_drift": 1, "unexpected_recompiles": 0,
+        "compile_blowups": 0, "memory_growth": 1}
+    for fleet in (False, True):
+        assert _json(analyze.tail_summary(
+            d, now=NOW, fleet=fleet, ledger_baseline=base,
+            ledger_bounds={"memory_factor": 5.0})) == _json(
+            jax_analyze.tail_summary(
+                d, now=NOW, fleet=fleet, ledger_baseline=base,
+                ledger_bounds={"memory_factor": 5.0}))
+    # tail through both command lines, each on its own copy (the rc-8
+    # call commits its bundle into the run dir)
+    jd = shutil.copytree(d, str(tmp_path / "fleet_jax"))
+    # without --fleet the root's own ledger matches: the bundle of the
+    # first call's rc 8 then holds rc 9; the live verdict keeps 8 ahead
+    # of it, and the same verdict records no second bundle
+    for argv, rc in ((["--fleet"], 8), ([], 9),
+                     (["--fleet", "--ledger-baseline", base], 8)):
+        assert cli.main(["tail", "--log-dir", d, *argv]) == rc
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert jax_cli.main(["tail", "--log-dir", jd, *argv]) == rc
+        want_line = json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])
+        assert _drop(line, CLOCK + ("log_dir", "incidents", "last")) == \
+            _drop(want_line, CLOCK + ("log_dir", "incidents", "last"))
+    bundles = incident.list_incidents(d)
+    assert [b["kind"] for b in bundles] == ["ledger_drift"]
+    detail = incident.show_incident(d, bundles[0]["id"])
+    assert "ledger_tail.jsonl" in detail["files_on_disk"]
+    # the gate's errors: a missing or empty baseline, as the JAX verb's
+    open(tmp_path / "empty.jsonl", "w").close()
+    for bad, match in ((str(tmp_path / "none.jsonl"), "does not exist"),
+                       (str(tmp_path / "empty.jsonl"), "no ledger rows")):
+        for main in (cli.main, jax_cli.main):
+            with pytest.raises(SystemExit, match=match):
+                main(["tail", "--log-dir", d, "--ledger-baseline", bad])
     with pytest.raises(SystemExit, match="no metrics.jsonl"):
         cli.main(["analyze", "--log-dir", str(tmp_path / "none")])
 

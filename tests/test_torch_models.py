@@ -90,6 +90,43 @@ def test_init_matches_jax_scheme():
     assert torch.count_nonzero(up[0, 1]) == 0
 
 
+def test_inception_init_matches_flax_layer_by_layer():
+    """F25. The thin Inception-v3's seeded init against the flax init,
+    through the converter, tensor by tensor: the biases and the bilinear
+    deconvs equal (the scale-1 deconvs' (2, 2) kernel is not symmetric,
+    so an unflipped one would compute another function), and every conv
+    kernel is glorot-uniform with flax's fans in both draws: its std
+    within 5 sigma of the formula's (a uniform's sample std has relative
+    sd 0.447/sqrt(n)), its bound reached and not passed, its mean near
+    0, and the port's std ratios unbiased over all layers together."""
+    jm = jax_build_model("inception_v3", width_mult=0.25)
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 64, 64, 6)))["params"]
+    want = state_dict_from_flax(jax.device_get(params))
+    got = build_model("inception_v3", width_mult=0.25, seed=0,
+                      device="cpu").state_dict()
+    assert got.keys() == want.keys()
+    deconvs = [k for k in got if ".deconv." in k]
+    assert len(deconvs) == 20
+    zs = []
+    for name, g in got.items():
+        g, w = g.numpy(), want[name].numpy()
+        assert g.shape == w.shape, name
+        if g.ndim == 1 or name in deconvs:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+            continue
+        o, i, kh, kw = g.shape
+        bound = np.sqrt(6.0 / ((i + o) * kh * kw))
+        sd = 0.447 / np.sqrt(g.size)
+        for a in (g, w):
+            assert abs(a.std() / (bound / np.sqrt(3.0)) - 1) < 5 * sd, name
+            assert 0.9 * bound < np.abs(a).max() <= bound, name
+            assert abs(a.mean()) < 5 * bound / np.sqrt(3.0 * g.size), name
+        zs.append((g.std() / (bound / np.sqrt(3.0)) - 1) / sd)
+    assert len(zs) == 100
+    assert abs(np.sum(zs) / np.sqrt(len(zs))) < 5
+
+
 def test_converter_rejects_extra_key_and_wrong_shape():
     rs = np.random.RandomState(0)
     jm = jax_build_model("flownet_s", width_mult=0.25)

@@ -277,11 +277,14 @@ def test_the_carried_obs_and_train_keys_are_no_longer_dropped():
                 "obs.watchdog_min_s", "obs.flops",
                 # the quality and incident planes are ported
                 "obs.quality_sample_rate", "obs.incidents'",
-                "obs.incident_keep", "obs.alerts"):
+                "obs.incident_keep", "obs.alerts",
+                # and the executable ledger (obs/ledger.py)
+                "obs.ledger"):
         assert key not in ignored, key
     # what changes no training result stays dropped, named
-    for key in ("obs.ledger", "obs.metrics_port", "train.compile_cache"):
+    for key in ("obs.metrics_port", "train.compile_cache"):
         assert key in ignored, key
+    assert cfg.obs.ledger is True  # the JAX default
     assert cfg.obs == ObsConfig() and cfg.train.pipeline_depth == 2
 
 

@@ -549,6 +549,13 @@ def test_train_recipe_grafts_records_and_resumes_mid_stage(tmp_path, capsys):
     assert trains[2]["lr"] == pytest.approx(3e-5)
     assert any("52 tensors grafted from stage 0, 0 re-initialized"
                in r.get("message", "") for r in records)
+    # each stage's Trainer wrote its train step's ledger row under the
+    # JAX name, into the run's one ledger
+    from deepof_tpu_torch.obs.ledger import load_ledger
+
+    assert [r["name"] for r in load_ledger(log_dir)
+            if r["name"].startswith("train_step")] == [
+        "train_step_stage0", "train_step_stage1"]
 
     again = _train(capsys, log_dir, path)
     assert again["per_stage"] == [
