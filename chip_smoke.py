@@ -2627,23 +2627,261 @@ def replica_records(fleet_dir: str) -> dict[int, list[dict]]:
     return out
 
 
-def launches_match_dispatches(rec: dict) -> bool:
+def launches_match_dispatches(rec: dict, verified: int = 0) -> bool:
     """FlowNet-C serving: one correlation launch a cold dispatch and one
     warp launch a warm one, so the two add up to the replica's
-    dispatches; no bf16 correlation (the bf16 tier computes in float32)
-    and no backward kernel."""
+    dispatches and the `verified` re-runs of its deep verify; no bf16
+    correlation (the bf16 tier computes in float32) and no backward
+    kernel."""
     k = rec["kernel_launches"]
-    return (k["corr"] + k["warp_fwd"] == rec["serve_batches"]
+    return (k["corr"] + k["warp_fwd"] == rec["serve_batches"] + verified
             and all(v == 0 for n, v in k.items()
                     if n not in ("corr", "warp_fwd")))
 
 
+#: the fleet's serving lattice (SERVE_RUN under FLEET_FLAGS: the 384x512
+#: bucket, f32, cold and warm), as `warmup --serve` publishes it
+FLEET_LATTICE = ("serve:384x512:f32:cold", "serve:384x512:f32:warm")
+
+
+def start_warmup_serve(work: str, extra: tuple = ()) -> tuple:
+    """`warmup --serve --serve-only --artifacts <work>/exec` on the
+    fleet's config (SERVE_RUN, FLEET_FLAGS, `extra`) in a process of its
+    own, the single writer, started and left running: main starts it
+    ahead of cli_serve, so the two overlap. Returns (the process, its
+    start on the monotonic clock, its stderr path, the flags)."""
+    flags = [*SERVE_RUN, *FLEET_FLAGS, *extra]
+    err = os.path.join(work, "warmup_serve.err")
+    with open(err, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepof_tpu_torch", "warmup", "--serve",
+             "--serve-only", "--artifacts", os.path.join(work, "exec"),
+             *flags, "--log-dir", os.path.join(work, "warmup_serve")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=f, text=True)
+    return proc, time.monotonic(), err, flags
+
+
+def publish_artifacts(work: str, extra: tuple = (), device: str = "cuda",
+                      warmup=None) -> dict:
+    """The artifact plane (`serve/artifacts.py`) on the fleet's config,
+    before serve_fleet boots its replicas from the store:
+      - the `warmup --serve` process of `start_warmup_serve` (`warmup`,
+        else started here) ends rc 0: each FLEET_LATTICE entry
+        published with the libraries its call launched (corr for the
+        cold one, warp for the warm one) and indexed;
+      - `artifacts list` and `artifacts verify` rc 0, `artifacts verify
+        --deep` rc 0 with no drift (the lattice traced in this process,
+        each fingerprint the index's);
+      - a copy of the store with one byte of its corr library flipped:
+        `artifacts verify` rc 1 naming crc_mismatch, and an engine on
+        the copy over an empty build directory (the fleet's config
+        without the warm start, whose construction would run the
+        forward before `warm()`; so another config digest, an index
+        miss) rejects corr loudly (stderr, exec_artifact_rejects: the
+        library and the entry) and builds it from source in its first
+        call (the row's cache_verdict "miss", one library built).
+    Returns the row; row["store"] is the store serve_fleet boots from."""
+    t0 = time.monotonic()
+    store = os.path.join(work, "exec")
+    proc, started, err, flags = warmup or start_warmup_serve(work, extra)
+    out, _ = proc.communicate(timeout=600)
+    warmup_s = time.monotonic() - started  # to its exit
+    if proc.returncode != 0:
+        raise AssertionError(f"warmup --serve: rc {proc.returncode}; see "
+                             f"{err}")
+    rep = json.loads(out.strip().splitlines()[-1])
+    verbs = {}
+    # the deep verify takes the publishing config's flags (--synthetic
+    # only resets what --set sets again here)
+    deep = [f for f in flags if f != "--synthetic"]
+    for key, argv in (("list", ["list"]), ("verify", ["verify"]),
+                      ("deep", ["verify", "--deep", *deep])):
+        verbs[key] = run_verb(["artifacts", *argv, "--dir", store],
+                              os.path.join(work, f"artifacts_{key}.log"))
+    row = {
+        "store": store, "warmup_s": warmup_s,
+        "published": rep["artifacts"],
+        "entries": {b["mode"]: {"fingerprint": b["fingerprint"],
+                                "libraries": b["libraries"],
+                                "artifact": b["artifact"]}
+                    for b in rep["buckets"]},
+        "verbs": {k: {"rc": rc, **({"total": v.get("total"),
+                                    "ok": v.get("ok"),
+                                    "drift": v.get("drift"),
+                                    "unindexed": v.get("unindexed")}
+                                   if isinstance(v, dict) else {})}
+                  for k, (rc, v) in verbs.items()},
+        "corrupt": (corrupt_store(work, store, rep, flags, device)
+                    if device == "cuda" else None)}
+    row["seconds"] = time.monotonic() - t0
+    emit("publish_artifacts", **row)
+    cold = FLEET_LATTICE[0]
+    c = row["corrupt"]
+    checks = {
+        "published": rep["artifacts"]["published"]
+        == rep["artifacts"]["index_entries"] == len(FLEET_LATTICE)
+        and [b["libraries"] for b in rep["buckets"]] == (
+            [["corr"], ["warp"]] if device == "cuda" else [[], []]),
+        "verbs": verbs["list"][0] == verbs["verify"][0] == 0
+        and verbs["deep"][0] == 0
+        and verbs["deep"][1]["ok"] == len(FLEET_LATTICE)
+        and not verbs["deep"][1]["drift"],
+        "corrupt": c is None or (
+            c["verify_rc"] == 1 and c["corrupt"] == [c["fingerprint"]]
+            and c["why"].startswith("crc_mismatch")
+            and c["library_fetch"] == {"corr": "reject:crc_mismatch"}
+            and c["built_from_source"] == ["corr"] and c["warned"]
+            and c["exec_artifact_rejects"] == 2
+            and c["exec_index_misses"] == 1
+            and c["rows"] == {cold: {"compile_kind": "first_step",
+                                     "cache_verdict": "miss"}})}
+    if not all(checks.values()):
+        raise AssertionError(f"publish_artifacts: {checks}")
+    return row
+
+
+def corrupt_store(work: str, store: str, rep: dict, flags: list,
+                  device: str = "cuda") -> dict:
+    """publish_artifacts' corrupted copy (its docstring): `artifacts
+    verify` on it, then an engine on it over an empty build directory
+    (this process's BUILD_DIR and loaded libraries swapped for the call,
+    and put back), warmed."""
+    from pathlib import Path
+
+    from deepof_tpu_torch.core.config import config_from_dict
+    from deepof_tpu_torch.obs.ledger import load_ledger
+    from deepof_tpu_torch.ops.cuda import build
+    from deepof_tpu_torch.serve.artifacts import MANIFEST, verify_entry
+    from deepof_tpu_torch.serve.engine import InferenceEngine
+
+    # one byte of the cold entry's corr library
+    copy = os.path.join(work, "exec_corrupt")
+    shutil.copytree(store, copy)
+    fp = next(b["fingerprint"] for b in rep["buckets"]
+              if b["mode"] == "cold")
+    with open(os.path.join(copy, fp, MANIFEST)) as f:
+        lib = os.path.join(copy, fp, json.load(f)["libraries"][0]["file"])
+    with open(lib, "r+b") as f:
+        f.seek(os.path.getsize(lib) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    bad_rc, bad = run_verb(["artifacts", "verify", "--dir", copy],
+                           os.path.join(work, "artifacts_corrupt.log"))
+    _, cfg_dict = run_verb(["config", *flags, "--set",
+                            "serve.session.warm_start=false", "--set",
+                            f"serve.artifacts_dir={copy}"],
+                           os.path.join(work, "config.log"))
+    cfg = config_from_dict(cfg_dict)
+    saved = (build.BUILD_DIR, build._libs)
+    built_before = len(build.built_names())
+    t = time.monotonic()
+    stderr = io.StringIO()
+    try:
+        build.BUILD_DIR = Path(work) / "build_cold"
+        build._libs = {}
+        with contextlib.redirect_stderr(stderr), InferenceEngine(
+                cfg, device=device,
+                ledger_dir=os.path.join(work, "corrupt")) as eng:
+            warm = eng.warm()
+            stats = eng.stats()
+    finally:
+        build.BUILD_DIR, build._libs = saved
+    rows = {r["name"]: r for r in load_ledger(os.path.join(work, "corrupt"))
+            if r["kind"] == "exec"}
+    out = {"fingerprint": fp, "verify_rc": bad_rc,
+           "corrupt": bad.get("corrupt"),
+           "why": verify_entry(copy, fp)["why"],
+           "library_fetch": warm.get("libraries"),
+           "built_from_source": build.built_names()[built_before:],
+           "rows": {n: {"compile_kind": r["compile_kind"],
+                        "cache_verdict": r["cache_verdict"]}
+                    for n, r in rows.items()},
+           "warned": "REJECT" in stderr.getvalue(),
+           **{k: stats[k] for k in (
+               "exec_artifact_rejects", "exec_index_hits",
+               "exec_index_misses", "exec_index_rejects")},
+           "seconds": time.monotonic() - t}
+    shutil.rmtree(copy, ignore_errors=True)
+    return out
+
+
+def cold_tree_boots(work: str, extra: tuple = ()) -> dict:
+    """On demand (not in `main`): what the artifact store saves a replica
+    on a cold tree. A 2-step full-width FlowNet-C run (SERVE_RUN) and a
+    store published from this checkout (`warmup --serve --serve-only`,
+    FLEET_FLAGS: warm start, so corr and warp), then `serve` booted
+    twice from a copy of `deepof_tpu_torch/` in an empty root (its
+    `build/` cold): without `--artifacts` (each library built by nvcc
+    under the build lock), and, the copy's `build/` emptied again, with
+    it (each library installed from the store). Each boot's split (the
+    announce line's `boot`: `library_load_s`, `library_fetch`, ...),
+    its spawn-to-ready seconds (the Popen to the announce line) and its
+    ledger rows' verdicts, in one emitted line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    flags = [*SERVE_RUN, *FLEET_FLAGS, *extra]
+    run = os.path.join(work, "run")
+    run_cli(["train", *SERVE_RUN, *extra, "--steps", "2", "--log-dir", run],
+            os.path.join(work, "cold_train.log"))
+    store = os.path.join(work, "exec")
+    subprocess.run([sys.executable, "-m", "deepof_tpu_torch", "warmup",
+                    "--serve", "--serve-only", "--artifacts", store, *flags,
+                    "--log-dir", os.path.join(work, "warmup")], cwd=root,
+                   check=True, stdout=subprocess.DEVNULL, timeout=600)
+    cold = os.path.join(work, "cold_root")
+    shutil.copytree(os.path.join(root, "deepof_tpu_torch"),
+                    os.path.join(cold, "deepof_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    boots = {}
+    for name, more in (("without_store", ()),
+                       ("with_store", ("--artifacts", store))):
+        shutil.rmtree(os.path.join(cold, "build"), ignore_errors=True)
+        d = os.path.join(work, f"boot_{name}")
+        os.makedirs(d)
+        os.symlink(os.path.join(run, "ckpt"), os.path.join(d, "ckpt"))
+        t0 = time.monotonic()
+        with open(os.path.join(d, "stderr.log"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "deepof_tpu_torch", "serve", *flags,
+                 *more, "--log-dir", d], cwd=cold, stdout=subprocess.PIPE,
+                stderr=err, text=True)
+        line: dict = {}
+        while "serving" not in line:
+            text = proc.stdout.readline()
+            if not text:
+                raise AssertionError(f"cold_tree_boots {name}: exited (rc "
+                                     f"{proc.wait()}) before serving")
+            if text.startswith("{"):
+                line = json.loads(text)
+        ready_s = time.monotonic() - t0
+        rc, _, _ = stop_serving(proc)
+        from deepof_tpu_torch.obs.ledger import load_ledger
+
+        boots[name] = {
+            "spawn_to_ready_s": ready_s, "rc": rc, "boot": line["boot"],
+            "built": sorted(os.listdir(os.path.join(
+                cold, "build", "deepof_tpu_torch"))),
+            "rows": {r["name"]: {k: r[k] for k in (
+                "compile_kind", "cache_verdict", "cache_hits",
+                "cache_misses", "compile_s", "resolve_s")}
+                for r in load_ledger(d) if r["kind"] == "exec"
+                and r["compile_kind"] != "deep_verify"}}
+    row = {"boots": boots}
+    emit("cold_tree_boots", **row)
+    return row
+
+
 def serve_fleet(work: str, run_dir: str, extra: tuple = (),
-                device: str = "cuda") -> dict:
+                device: str = "cuda", artifacts: str | None = None) -> dict:
     """`serve --replicas 2 --model flownet_c` on the served run's
     checkpoint (SERVE_RUN: full width, the 384x512 bucket, max_batch 8,
     f32, warm-start sessions), each replica-<i>/ckpt linked to the run's
-    (F16), against `serve` alone under the same load:
+    (F16), booting from the artifact store `artifacts` when given
+    (`publish_artifacts`: each replica's final record shows every
+    FLEET_LATTICE entry resolved through the index, no reject, and
+    every entry deep-verified ok), against `serve` alone under the same
+    load:
       - `serve` alone: FLEET_REQUESTS POST /v1/flow from FLEET_THREADS
         client threads (requests/s, client p50/p99), SIGTERM, exit 0;
       - one fleet (spill at FLEET_SPILL in flight, so the load spreads)
@@ -2718,6 +2956,7 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
             "--set", "resilience.faults.replica_crash_at=[1]",
             "--set", f"resilience.faults.replica_fault_after="
                      f"{FLEET_REQUESTS + FLEET_FAULT_AFTER}",
+            *(("--artifacts", artifacts) if artifacts else ()),
             "--log-dir", fleet_dir]
     proc, line, address = start_serving(argv, os.path.join(
         work, "serve_fleet.log"))
@@ -2810,6 +3049,12 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     row["boot"] = {i: {**(r.get("boot") or {}),
                        "supervisor_ready_s": spawned.get(i)}
                    for i, r in recs.items()}
+    # the artifact plane's counters of each replica's final record
+    art_keys = ("exec_index_hits", "exec_index_misses", "exec_index_rejects",
+                "exec_artifact_rejects", "exec_deep_verify_ok",
+                "exec_deep_verify_demoted", "exec_deep_verify_pending")
+    row["artifacts"] = {i: {k: r.get(k) for k in art_keys}
+                        for i, r in recs.items()}
     row.update(
         rc=rc, drain_s=drain_s, replicas_left=left,
         max_rel_diff_vs_submit=max(diffs),
@@ -2863,6 +3108,12 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     row["seconds"] = time.monotonic() - t0
     emit("serve_fleet", **row)
     served = {i: r for i, r in recs.items() if r["serve_responses"]}
+    # a store's deep verify re-runs each lattice entry once after warm():
+    # one corr launch (the cold entry) and one warp launch (the warm one)
+    rounds_verified = {
+        i: ((r.get("exec_deep_verify_ok") or 0)
+            + (r.get("exec_deep_verify_demoted") or 0)) // len(FLEET_LATTICE)
+        for i, r in recs.items()}
     checks = {
         "single": single["ok"] == FLEET_REQUESTS and row["single"]["rc"] == 0
         and launches_match_dispatches(single_rec),
@@ -2876,9 +3127,11 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         and row["max_rel_diff_vs_submit_next"] <= HTTP_TOL,
         "replicas_served": sorted(served) == [0, 1],
         # a warm dispatch may carry both sessions' steps
-        "launches": all(launches_match_dispatches(r) and r[
-            "kernel_launches"]["corr"] > 0 for r in served.values())
-        and 0 < sum(r["kernel_launches"]["warp_fwd"] for r in recs.values())
+        "launches": all(launches_match_dispatches(
+            r, 2 * rounds_verified[i]) and r["kernel_launches"]["corr"] > 0
+            for i, r in served.items())
+        and 0 < sum(r["kernel_launches"]["warp_fwd"] - rounds_verified[i]
+                    for i, r in recs.items())
         <= sum(r["serve_sessions_warm_steps"] for r in recs.values())
         == warm_steps,
         # one context a replica, none in the supervisor (nvidia-smi's
@@ -2913,7 +3166,13 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
                     and b.get("ready_s") is not None
                     and (device != "cuda"
                          or b.get("cuda_context_s") is not None)
-                    for b in row["boot"].values())}
+                    for b in row["boot"].values()),
+        "artifacts": artifacts is None or all(
+            (a["exec_index_hits"], a["exec_index_rejects"],
+             a["exec_artifact_rejects"], a["exec_deep_verify_ok"],
+             a["exec_deep_verify_demoted"])
+            == (len(FLEET_LATTICE), 0, 0, len(FLEET_LATTICE), 0)
+            for a in row["artifacts"].values())}
     if not all(checks.values()):
         raise AssertionError(f"serve_fleet: {checks}")
     return row
@@ -3524,6 +3783,97 @@ def repeat_flownet_cs(work: str) -> dict:
     if not (got["loss_equal"] and got["grads_bitwise_equal"]):
         raise AssertionError(f"repeat_flownet_cs: FlowNet-CS steps are not "
                              f"bitwise repeatable: {row}")
+    return row
+
+
+def repeat_learning_flownet_c(steps: int = 20) -> dict:
+    """F26, on demand (not in `main`): the FlowNet-C learning test's model
+    and config (`tests/test_torch_learning.py`: width 0.25, max_disp 3,
+    stride 1, 64x64, batch 8, blobs at 8 px), `steps` of its training
+    first, then REPEAT_STEPS forward-and-backward passes on one batch at
+    the same weights, each gradient against the first's bit for bit,
+    under three settings: PyTorch's defaults, cuDNN deterministic, and
+    `torch.use_deterministic_algorithms(True)` with cuDNN deterministic.
+    Names the parameters whose gradients differ in backward order (the
+    first is the layer nearest the loss whose backward varies) and the
+    module class that owns each."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              LossConfig, OptimConfig,
+                                              TrainConfig)
+    from deepof_tpu_torch.core.device import disable_tf32
+    from deepof_tpu_torch.data.datasets import SyntheticData
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import batch_to_device, make_train_step
+
+    disable_tf32()
+    cfg = ExperimentConfig(
+        model="flownet_c", width_mult=0.25, corr_max_disp=3, corr_stride=1,
+        loss=LossConfig(weights=(16, 8, 4, 2, 1, 1)),
+        optim=OptimConfig(learning_rate=1e-4, epochs_per_decay=2),
+        data=DataConfig(dataset="synthetic", image_size=(64, 64),
+                        gt_size=(64, 64), batch_size=8),
+        train=TrainConfig(seed=0, log_dir=os.path.join(work_root(), "f26")))
+    ds = SyntheticData(cfg.data, num_train=512, max_shift=8.0,
+                       style="blobs", n_blobs=40)
+    model = build_model("flownet_c", width_mult=0.25, corr_max_disp=3,
+                        corr_stride=1, device="cuda")
+    state = create_train_state(model, cfg.optim, lambda s: 3e-4)
+    step = make_train_step(model, cfg, ds.mean)
+    rng = np.random.RandomState(0)
+    for _ in range(steps):
+        step(state, ds.sample_train(8, rng=rng))
+    batch = batch_to_device(ds.sample_train(8, rng=rng), torch.device("cuda"))
+    owner = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            owner[f"{mname}.{pname}" if mname else pname] = type(mod).__name__
+    names = [n for n, _ in model.named_parameters()]
+
+    def repeat() -> dict:
+        (l0, g0), *rest = [loss_and_grads(model, batch, ds.mean, cfg.loss)
+                           for _ in range(REPEAT_STEPS)]
+        diff = {}
+        for _, gs in rest:
+            for n, a, b in zip(names, g0, gs):
+                d = (a - b).abs().max().item()
+                if d > 0:
+                    diff[n] = max(d, diff.get(n, 0.0))
+        backward_order = [n for n in reversed(names) if n in diff]
+        return {"loss_equal": all(lk == l0 for lk, _ in rest),
+                "grads_bitwise_equal": not diff,
+                "grads_differing": len(diff), "of": len(names),
+                "first_in_backward_order": (
+                    {"param": backward_order[0],
+                     "module": owner[backward_order[0]],
+                     "max_abs_diff": diff[backward_order[0]]}
+                    if backward_order else None),
+                "modules_differing": sorted({owner[n] for n in diff}),
+                "largest_diffs": dict(sorted(diff.items(),
+                                             key=lambda kv: -kv[1])[:5])}
+
+    row = {"steps_before": steps, "repeats": REPEAT_STEPS}
+    settings = (("defaults", False, False), ("cudnn_deterministic", True,
+                                             False),
+                ("deterministic_algorithms", True, True))
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled())
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    try:
+        for key, cudnn_det, algos in settings:
+            torch.backends.cudnn.deterministic = cudnn_det
+            torch.use_deterministic_algorithms(algos)
+            try:
+                row[key] = repeat()
+            except RuntimeError as e:  # an op with no deterministic kernel
+                row[key] = {"error": str(e)[:300]}
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1])
+    emit("repeat_learning_flownet_c", **row)
     return row
 
 
@@ -6467,6 +6817,7 @@ def main() -> int:
     stream_row = serve_stream(cfg)
     http_row = serve_http(cfg)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=work_root())
+    warmup = None
     try:
         train_row = train(ExperimentConfig(
             data=DataConfig(dataset="synthetic"),
@@ -6487,9 +6838,13 @@ def main() -> int:
         sintel_row = cli_sintel(work)
         job_row = cli_train_job(work)
         preempt_row = cli_preempt_faults(work)
+        # the artifact store's single writer runs beside cli_serve
+        warmup = start_warmup_serve(work)
         serve_cli_row = cli_serve(work, os.path.join(work,
                                                      "cli_train_job_k2"))
-        fleet_row = serve_fleet(work, os.path.join(work, "cli_train_job_k2"))
+        artifacts_row = publish_artifacts(work, warmup=warmup)
+        fleet_row = serve_fleet(work, os.path.join(work, "cli_train_job_k2"),
+                                artifacts=artifacts_row["store"])
         autoscale_row = serve_autoscale(work, os.path.join(
             work, "cli_train_job_k2"))
         inception_row = cli_train_inception(work)
@@ -6499,6 +6854,9 @@ def main() -> int:
         ucf_row = cli_train_ucf101(work)
         recipe_row = cli_recipe(work)
     finally:
+        if warmup is not None and warmup[0].poll() is None:
+            warmup[0].kill()  # a phase before publish_artifacts failed
+            warmup[0].wait()
         shutil.rmtree(work, ignore_errors=True)
     # launches of each warp kernel on each training path, counted from 0
     # just before it; the final line's `launches` are the command line's

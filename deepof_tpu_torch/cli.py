@@ -1,6 +1,7 @@
 """Command-line entry point (port of the `train`, `eval`, `predict`,
-`serve`, `config`, `bench`, `verify-ckpt`, `incidents`, `analyze` and
-`tail` verbs of `deepof_tpu/cli.py`).
+`serve`, `config`, `warmup`, `bench`, `verify-ckpt`, `artifacts`,
+`incidents`, `analyze` and `tail` verbs of `deepof_tpu/cli.py`; its
+`lint` verb checks the JAX package and needs no port).
 
 Usage:
     python -m deepof_tpu_torch train --preset flyingchairs --model flownet_s \
@@ -33,6 +34,11 @@ Usage:
     python -m deepof_tpu_torch analyze --log-dir /runs/r1 [--no-plot]
     python -m deepof_tpu_torch tail --log-dir /runs/c1 [--fleet] [--follow]
     python -m deepof_tpu_torch verify-ckpt /runs/fc1
+    python -m deepof_tpu_torch warmup --model flownet_c --serve-only \
+        --artifacts /stores/exec     # publish the serving lattice
+    python -m deepof_tpu_torch serve --model flownet_c --log-dir /runs/c1 \
+        --artifacts /stores/exec     # boot from it (index, no trace)
+    python -m deepof_tpu_torch artifacts verify --dir /stores/exec [--deep]
     python -m deepof_tpu_torch incidents list --log-dir /runs/c1
     python -m deepof_tpu_torch incidents ack --log-dir /runs/c1 [--id ID]
 
@@ -58,7 +64,18 @@ it, the HTTP server of `serve/server.py` on serve.host:serve.port),
 `max_sessions`), `--replicas N` (N > 1: the fleet of `serve/fleet.py`,
 N replica processes behind a router), `--autoscale` (the fleet sized by
 `serve/autoscale.py` between `--min-replicas` and `--max-replicas`;
-fleet mode even at one replica). `bench` takes the JAX verb's flags
+fleet mode even at one replica), `--artifacts DIR`
+(`serve.artifacts_dir`: the artifact store, `serve/artifacts.py`).
+`warmup` (`train/warmup.py`) builds the libraries of the train and
+eval steps and traces one call of each on zero inputs into the ledger
+(`--no-eval`, `--recipe FILE`: every stage), and with `--serve` or
+`--serve-only` the serving lattice, published to `--artifacts DIR` with
+its index. `artifacts {list,verify,gc}` reads a store without torch
+(`--dir`, default `artifacts/exec_torch`; `--older-than-days`,
+`--json-indent`): rc 1 when an entry is corrupt, 2 when the store is
+empty; `verify --deep` (with the publishing config's `--preset`,
+`--model`, `--set` and `--device`) traces the lattice and exits 1 on
+drift, 2 when nothing is indexed. `bench` takes the JAX verb's flags
 (`--model`, `--batch`, `--steps`, `--data-only`, `--workers`,
 `--batches`, `--image-size`, `--dataset`, `--data-path`, `--recipe`:
 the first stage's mixture) and `--device`; `analyze --log-dir DIR
@@ -68,9 +85,9 @@ children aggregated); `tail --log-dir DIR [--recent N] [--fleet]
 X] [--ledger-compile-floor-s S] [--ledger-memory-factor X]` prints its
 one-glance health and exits as the JAX verb does (`tail_code`: 8, 9, 3,
 4, 5, 6, 7, 10, else 0; a missing or empty baseline is an error, never
-rc 0). `analyze`,
-`tail` and `incidents` import no torch; `verify-ckpt DIR` prints the run's checkpoint report and
-exits 1 on a corrupt checkpoint, 2 when there is none. `incidents
+rc 0). `analyze`, `tail`, `incidents` and `artifacts` (but `--deep`)
+import no torch; `verify-ckpt DIR` prints the run's checkpoint report
+and exits 1 on a corrupt checkpoint, 2 when there is none. `incidents
 {list,show,ack,gc} --log-dir DIR` triages the incident bundles of a run
 (`obs/incident.py`; `--id`, `--older-than-days`, `--acked`, `--keep`,
 `--json-indent`): `list` exits 1 while a critical bundle is
@@ -111,7 +128,6 @@ from .core.config import (PRESETS, ExperimentConfig, config_from_dict,
 _UNPORTED_FLAGS = {
     "--elastic": "10 (elastic training)",
     "--multihost": "10 (parallelism)",
-    "--artifacts": "8 (artifacts)",
 }
 
 
@@ -202,7 +218,8 @@ def _build_cfg(args) -> ExperimentConfig:
     for flag, dotted in (("session_ttl", "serve.session.ttl_s"),
                          ("session_max", "serve.session.max_sessions"),
                          ("min_replicas", "serve.fleet.min_replicas"),
-                         ("max_replicas", "serve.fleet.max_replicas")):
+                         ("max_replicas", "serve.fleet.max_replicas"),
+                         ("artifacts", "serve.artifacts_dir")):
         value = getattr(args, flag, None)
         if value is not None:
             cfg = _apply_override(cfg, dotted, repr(value))
@@ -324,12 +341,40 @@ def main(argv=None) -> int:
     p_srv.add_argument("--max-replicas", type=int, default=None,
                        metavar="N",
                        help="--set serve.fleet.max_replicas=N")
-    _add_unported(p_srv, "--artifacts", takes_value=True)
+    p_srv.add_argument("--artifacts", default=None, metavar="DIR",
+                       help="boot from this artifact store (`warmup "
+                            "--serve --artifacts DIR` publishes it): the "
+                            "libraries fetched instead of built, the "
+                            "lattice resolved through its index with no "
+                            "trace; --set serve.artifacts_dir=DIR")
     p_srv.add_argument("--config-json", default=None,
                        help=argparse.SUPPRESS)  # a fleet replica's config
 
     p_cfg = sub.add_parser("config", help="print the resolved config")
     _add_common(p_cfg)
+
+    p_warm = sub.add_parser(
+        "warmup", help="build the CUDA libraries a config's train and eval "
+                       "steps launch and trace one call of each into the "
+                       "executable ledger (with --serve, the serving "
+                       "lattice, published to an artifact store)")
+    _add_common(p_warm)
+    p_warm.add_argument("--no-eval", action="store_true",
+                        help="skip the eval step")
+    p_warm.add_argument("--recipe", default=None, metavar="FILE",
+                        help="every stage of this training recipe: its "
+                             "dataset and libraries, and one traced train "
+                             "and eval call a stage")
+    p_warm.add_argument("--serve", action="store_true",
+                        help="also the serving lattice (serve.buckets x "
+                             "serve.precisions x the modes, and the "
+                             "quality scorer) at serve.max_batch")
+    p_warm.add_argument("--serve-only", action="store_true",
+                        help="only the serving lattice")
+    p_warm.add_argument("--artifacts", default=None, metavar="DIR",
+                        help="publish each serving entry (its libraries "
+                             "under its fingerprint) and the index into "
+                             "this store; --set serve.artifacts_dir=DIR")
 
     p_bench = sub.add_parser(
         "bench", help="throughput benchmark: the headline train step, or "
@@ -421,6 +466,41 @@ def main(argv=None) -> int:
                              "output + temp bytes exceed baseline * X "
                              "(default 1.2)")
 
+    p_art = sub.add_parser(
+        "artifacts",
+        help="the artifact store (serve/artifacts.py): list / verify / gc "
+             "the entries `warmup --serve` publishes (no torch; rc 1 = "
+             "corrupt entries or drift, rc 2 = empty or unindexed store)")
+    p_art.add_argument("action", choices=("list", "verify", "gc"),
+                       help="list: one line an entry; verify: each entry's "
+                            "manifest, fingerprint and library sizes and "
+                            "crc32s; gc: remove corrupt entries and "
+                            "orphaned staging")
+    p_art.add_argument("--deep", action="store_true",
+                       help="verify only: trace every serving entry of the "
+                            "config (--preset/--model/--set, as published) "
+                            "and hold its fingerprint to the index's; rc 1 "
+                            "on drift, 2 on an empty or unindexed store")
+    p_art.add_argument("--preset", default="flyingchairs",
+                       choices=sorted(PRESETS),
+                       help="--deep only: the publishing config's preset")
+    p_art.add_argument("--model", default=None,
+                       help="--deep only: model override")
+    p_art.add_argument("--set", action="append",
+                       metavar="SECTION.FIELD=VALUE",
+                       help="--deep only: config overrides (the publishing "
+                            "warmup's)")
+    p_art.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="--deep only: where the entries are traced")
+    p_art.add_argument("--dir", default=None,
+                       help="store root (default <repo>/artifacts/"
+                            "exec_torch)")
+    p_art.add_argument("--older-than-days", type=float, default=None,
+                       metavar="DAYS",
+                       help="gc: also remove valid entries older than this "
+                            "(the index's targets stay)")
+    p_art.add_argument("--json-indent", type=int, default=2)
+
     p_inc = sub.add_parser(
         "incidents",
         help="incident triage: list / show / ack / gc the bundles under "
@@ -450,6 +530,8 @@ def main(argv=None) -> int:
     # create a CUDA context next to a live trainer or server
     if args.cmd == "incidents":
         return _incidents(args)
+    if args.cmd == "artifacts" and not args.deep:
+        return _artifacts(args)
     if args.cmd == "tail":
         return _tail(args)
     if args.cmd == "analyze":
@@ -469,6 +551,8 @@ def main(argv=None) -> int:
         return _verify_ckpt(args.dir)
     if args.cmd == "bench":
         return _bench(args)
+    if args.cmd == "artifacts":
+        return _artifacts_deep(args)
     raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
                      if getattr(args, flag[2:].replace("-", "_"), None)])
     cfg = _build_cfg(args)
@@ -480,6 +564,8 @@ def main(argv=None) -> int:
 
     if args.cmd == "serve":
         return _serve(cfg, args, boot)
+    if args.cmd == "warmup":
+        return _warmup(cfg, args)
 
     if args.cmd == "predict":
         from .predict import predict_action, predict_pairs, restore_params
@@ -548,6 +634,84 @@ def main(argv=None) -> int:
     else:  # eval
         out = trainer.evaluate(dump=args.dump_visuals)
     print(json.dumps({k: float(v) for k, v in out.items()}))
+    return 0
+
+
+def _warmup(cfg: ExperimentConfig, args) -> int:
+    """The `warmup` verb: one JSON line (`train/warmup.py`); rc 0 when it
+    completed (a warm tree is the goal, not a failure)."""
+    from .train import warmup
+
+    if args.serve_only:
+        res = warmup.warmup_serve(cfg, device=args.device)
+    else:
+        if cfg.recipe.enabled and cfg.recipe.stages:
+            res = warmup.warmup_recipe(cfg, device=args.device)
+        else:
+            res = warmup.warmup_compile(cfg, include_eval=not args.no_eval,
+                                        device=args.device)
+        if args.serve:
+            res["serve"] = warmup.warmup_serve(cfg, device=args.device)
+    print(json.dumps(res))
+    return 0
+
+
+def _artifacts(args) -> int:
+    """The `artifacts` verb (no torch), as the JAX verb: stdout the JSON
+    report; rc 1 when an entry is corrupt, 2 (a note on stderr) when the
+    store is empty; gc 0."""
+    import sys
+
+    from .serve.artifacts import DEFAULT_STORE_DIR, gc_store, verify_store
+
+    root = args.dir or DEFAULT_STORE_DIR
+    if args.action == "gc":
+        print(json.dumps(gc_store(root, older_than_days=args.older_than_days),
+                         indent=args.json_indent))
+        return 0
+    report = verify_store(root)
+    if args.action == "list":
+        print(json.dumps(
+            {"dir": report["dir"], "total": report["total"],
+             "ok": report["ok"], "corrupt": report["corrupt"],
+             "entries": [{"fingerprint": e["fingerprint"],
+                          "name": e["name"], "ok": e["ok"],
+                          "size": e["size"], "created": e["created"]}
+                         for e in report["entries"]]},
+            indent=args.json_indent))
+    else:
+        print(json.dumps(report, indent=args.json_indent))
+    if report["corrupt"]:
+        return 1
+    if not report["entries"]:
+        print(f"artifacts: empty store at {root!r}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _artifacts_deep(args) -> int:
+    """`artifacts verify --deep`: `deep_verify_serve`'s report; rc 1 on
+    drift, 2 on an empty or unindexed store, as the JAX verb."""
+    import sys
+
+    from .serve.artifacts import DEFAULT_STORE_DIR
+    from .train.warmup import deep_verify_serve
+
+    if args.action != "verify":
+        raise SystemExit("artifacts: --deep goes with verify")
+    root = args.dir or DEFAULT_STORE_DIR
+    args.data_path = args.log_dir = None  # _build_cfg's common args
+    args.synthetic = False
+    cfg = _apply_override(_build_cfg(args), "serve.artifacts_dir",
+                          repr(root))
+    report = deep_verify_serve(cfg, device=args.device)
+    print(json.dumps(report, indent=args.json_indent))
+    if report["drift"]:
+        return 1
+    if not report["entries"] or report["ok"] == 0:
+        print(f"artifacts: nothing indexed to deep-verify at {root!r}",
+              file=sys.stderr)
+        return 2
     return 0
 
 

@@ -5,9 +5,8 @@ Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
 and named in one warning, so a full JAX config JSON loads without error.
-Those are settings of the mesh, elastic training, the compile cache,
-the metrics port and the artifact store's garbage collection: none of
-them changes a result, but `elastic.hosts` > 1, which makes the JAX
+Those are settings of the mesh, elastic training, the compile cache
+and the metrics port: none of them changes a result, but `elastic.hosts` > 1, which makes the JAX
 `train` an elastic run of that many trainers, raises. Settings
 that change what the training path computes are carried; `check_trainable`
 raises on values that no model can honour, and `raise_unported` names
@@ -176,9 +175,8 @@ class SessionConfig:
 class FleetConfig:
     """The serving fleet (`serve/fleet.py`, `serve/router.py`,
     `serve/autoscale.py`): N supervised replica processes behind a
-    health-gated router, the JAX package's `FleetConfig` with every key
-    but `artifacts_gc_days` (the artifact store is not ported; the key
-    is dropped with the warning). The supervisor evicts stale or wedged
+    health-gated router, the JAX package's `FleetConfig` with every
+    key. The supervisor evicts stale or wedged
     replicas (SIGTERM then SIGKILL), respawns with exponential backoff,
     and stops respawning a crash-looping replica (circuit breaker); the
     router keeps each (bucket, tier) on one replica, replays failed
@@ -288,6 +286,12 @@ class FleetConfig:
     # no scale-down within this window of ANY scale event: a fresh
     # replica's warm-up idle must not immediately retire its sibling
     autoscale_down_cooldown_s: float = 30.0
+    # the artifact store's sweep at a replica's retirement and at the
+    # fleet's close (`serve/artifacts.py::gc_store`): corrupt entries and
+    # orphaned staging always go; entries older than this many days go
+    # too unless pinned (the index's targets and every fingerprint of a
+    # replica's ledger). <= 0: no age sweep
+    artifacts_gc_days: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -363,9 +367,25 @@ class ServeConfig:
     # a timed stand-in for the model (`serve/engine.py::
     # make_fake_forward`), in ms a dispatch: None serves the model
     fake_exec_ms: float | None = None
-    # the JAX package's executable artifact store (not ported; must stay
-    # empty: `check_servable` refuses it)
+    # the artifact store (`serve/artifacts.py`): the CUDA libraries of
+    # each lattice executable under its ledger fingerprint, and the
+    # trace-free index. `warmup --serve` publishes into it (the single
+    # writer); an engine fetches its libraries from it before building
+    # and resolves its lattice through the index. "" = off (every
+    # process builds and traces). The path rides a fleet replica's
+    # config, made absolute by the supervisor.
     artifacts_dir: str = ""
+    # resolve each lattice entry through the store's index.json, with no
+    # trace (a miss or reject takes the traced path). No effect when
+    # artifacts_dir is empty.
+    artifacts_index: bool = True
+    # after serving starts, re-trace each index-resolved entry and compare
+    # its fingerprint with the index's; a mismatch is demoted
+    # (exec_deep_verify_demoted, a warning and a warn record)
+    artifacts_deep_verify: bool = True
+    # the deep verify's pacing: one entry a tick of this many seconds,
+    # run on the batcher between batches. 0 = no stagger
+    deep_verify_interval_s: float = 0.05
     session: SessionConfig = field(default_factory=SessionConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
     degrade: DegradeConfig = field(default_factory=DegradeConfig)
@@ -720,18 +740,13 @@ def raise_unported(todo: list[tuple[str, str]]) -> None:
 def check_servable(cfg: ExperimentConfig) -> None:
     """Raise ValueError on an action model (the engine serves flow, and
     the JAX engine fails on their (flows, logits) output with a
-    TypeError; `predict --action` classifies), and NotImplementedError,
-    naming the ROADMAP item, on serving settings that would change what
-    runs and are not ported."""
+    TypeError; `predict --action` classifies). Every serving setting is
+    ported."""
     if cfg.model in ACTION_MODELS:
         raise ValueError(
             f"model {cfg.model!r} has an action head: the serving engine "
             "serves flow models only; classify frame pairs with "
             "`predict --action`")
-    todo = []
-    if cfg.serve.artifacts_dir:
-        todo.append(("serve.artifacts_dir", "8 (artifacts)"))
-    raise_unported(todo)
 
 
 def check_loss(cfg: LossConfig) -> None:

@@ -52,8 +52,34 @@ this package. The fields:
       allocated before it (the peak statistic is reset at the call's
       start); None on the CPU.
   code_bytes  the sizes of the libraries' `.so` files; None without one.
-  alias_bytes, donated_args, resolve_s  None: PyTorch donates no buffer,
-      and nothing is resolved apart from running.
+  alias_bytes, donated_args  None: PyTorch donates no buffer.
+  resolve_s  None on a traced first call; the artifact plane's rows
+      below carry the seconds of their store lookup.
+
+The artifact plane (`serve/artifacts.py`) writes three more kinds of
+row, with JAX's `compile_kind` and `cache_verdict` values:
+
+  record_aot  "aot": `warmup`'s traced first call of an executable, the
+      row a store entry is published from. With a store it also looks
+      the traced fingerprint up there (`ArtifactStore.fetch`): a hit is
+      compile_kind "artifact", cache_verdict "artifact_hit" (the store
+      holds this computation, with libraries built from this checkout's
+      sources), and `exec_artifact_*` count hits, misses and rejects. A
+      fetch by fingerprint loads nothing here: the libraries a call
+      launches were installed before it (`fetch_libraries`), since a
+      call cannot be traced without them.
+  record_index  compile_kind "artifact", cache_verdict "index_hit": an
+      entry resolved through the store's index with no trace; its
+      fingerprint is the index's, and the call runs untraced
+      (`exec_index_*`, and one `exec_deep_verify_pending` a hit).
+  note_deep_verify  the engine's re-trace of an index-resolved entry,
+      compile_kind "deep_verify", cache_verdict "deep_verify_ok" or
+      "deep_verify_demoted" (`exec_deep_verify_ok`/`_demoted`).
+
+`diff_ledgers` never counts an "artifact" or "deep_verify" row as a
+recompile, on either side. A library fetch that rejects (`serve/
+artifacts.py::ArtifactStore.fetch_libraries`) counts in
+`exec_artifact_rejects` too (`note_library_fetch`).
 
 What the ledger does not see: cuDNN's choice of algorithms (below the
 aten level), and a kernel whose launch plan is equal but whose source
@@ -62,8 +88,6 @@ changed only where the hash of its library shows it.
 Import discipline: stdlib-only at import (`analyze`, `tail` and
 `tools/ledger_diff.py` import this without torch); torch is imported
 inside the recording helpers, which run beside a call on the device.
-The artifact plane's `record_aot`, `record_index` and
-`note_deep_verify` are not here (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -289,6 +313,7 @@ def trace_call(fn: Callable[[], Any], device, inputs=(),
         "code_bytes": code,
         "num_args": len(ins),
         "trace_s": mode.self_s,
+        "sources": sorted(sources),
     }
     return out, fields
 
@@ -327,10 +352,11 @@ class ExecutableLedger:
     """A process's executable ledger: appends one row per executable to
     ``<log_dir>/ledger.jsonl`` (none when `enabled` is false or there is
     no log dir) and keeps the ``exec_*`` block of the stats surfaces
-    (heartbeat, /healthz, /metrics, analyze and tail). The artifact,
-    index and deep-verify counters are those of the JAX block, zero
-    here. Thread-safe; the hot path is `note_exec`, one dict update a
-    dispatch."""
+    (heartbeat, /healthz, /metrics, analyze and tail), the artifact,
+    index and deep-verify counters included. `libraries` maps each
+    recorded executable to the libraries its call launched (what
+    `warmup --serve` publishes with it). Thread-safe; the hot path is
+    `note_exec`, one dict update a dispatch."""
 
     def __init__(self, log_dir: str | None, enabled: bool = True,
                  backend: str | None = None):
@@ -348,6 +374,11 @@ class ExecutableLedger:
         self.trace_s = 0.0
         # name -> [count, total_s, roofline_s]
         self._exec: dict[str, list] = {}
+        #: executable name -> the libraries its recorded call launched
+        self.libraries: dict[str, list[str]] = {}
+        self._artifact = {"hits": 0, "misses": 0, "rejects": 0}
+        self._index = {"hits": 0, "misses": 0, "rejects": 0}
+        self._deep_verify = {"pending": 0, "ok": 0, "demoted": 0}
 
     @property
     def enabled(self) -> bool:
@@ -390,7 +421,102 @@ class ExecutableLedger:
         out, fields = trace_call(fn, device, inputs, count_flops)
         with self._lock:
             self.trace_s += fields["trace_s"]
+            self.libraries[name] = fields["sources"]
         return out, self.record(exec_row(name, fields, self.backend))
+
+    def record_aot(self, name: str, fn: Callable[[], Any], device,
+                   inputs=(), artifacts=None, kind: str = "aot"
+                   ) -> tuple[Any, dict]:
+        """`record_call` with compile_kind `kind` ("aot" for `warmup`,
+        "first_step" for a serving engine's first call) and, with a
+        store (`serve/artifacts.py::ArtifactStore`), the traced
+        fingerprint looked up there: a hit is recorded as compile_kind
+        "artifact", cache_verdict "artifact_hit", with the lookup's
+        seconds in resolve_s. Returns (fn's result, the row)."""
+        out, fields = trace_call(fn, device, inputs)
+        row = exec_row(name, fields, self.backend)
+        row["compile_kind"] = kind
+        if artifacts is not None:
+            t0 = time.perf_counter()
+            try:
+                _, verdict = artifacts.fetch(fields["fingerprint"])
+            except Exception:  # noqa: BLE001 - the store is best-effort
+                verdict = "reject:fetch_failed"
+            kind_ = {"hit": "hits", "miss": "misses"}.get(verdict,
+                                                          "rejects")
+            with self._lock:
+                self._artifact[kind_] += 1
+            if verdict == "hit":
+                row.update(compile_kind="artifact",
+                           cache_verdict="artifact_hit",
+                           resolve_s=round(time.perf_counter() - t0, 4))
+        with self._lock:
+            self.trace_s += fields["trace_s"]
+            self.libraries[name] = fields["sources"]
+        return out, self.record(row)
+
+    def record_index(self, name: str, artifacts, key: str,
+                     fn: Callable[[], Any], device
+                     ) -> tuple[Any, dict | None, str]:
+        """Resolve `key` through the store's index (no trace) and, on a
+        hit, run `fn()` untraced and record the row: compile_kind
+        "artifact", cache_verdict "index_hit", the index's fingerprint,
+        compile_s the lookup and the call to its end on the device,
+        resolve_s the lookup alone, code_bytes the libraries' bytes. A
+        miss or a reject runs nothing and records nothing: (None, None,
+        verdict), and the caller takes the traced path. Returns (fn's
+        result, the row, the verdict)."""
+        import torch
+
+        t0 = time.perf_counter()
+        try:
+            libs, fp, verdict = artifacts.resolve(key)
+        except Exception:  # noqa: BLE001 - the index is best-effort
+            libs, fp, verdict = None, None, "index_reject:resolve_failed"
+        t_res = time.perf_counter()
+        kind = {"index_hit": "hits", "index_miss": "misses"}.get(verdict,
+                                                                "rejects")
+        with self._lock:
+            self._index[kind] += 1
+            if verdict == "index_hit":
+                self._deep_verify["pending"] += 1
+        if libs is None:
+            return None, None, verdict
+        device = torch.device(device)
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        row: dict[str, Any] = {k: None for k in ROW_KEYS}
+        row.update({"kind": "exec", "schema": LEDGER_SCHEMA, "name": name,
+                    "time": round(time.time(), 3), "backend": self.backend,
+                    "fingerprint": fp,
+                    "compile_s": round(time.perf_counter() - t0, 4),
+                    "resolve_s": round(t_res - t0, 4),
+                    "compile_kind": "artifact",
+                    "cache_verdict": "index_hit",
+                    "code_bytes": (sum(os.path.getsize(p)
+                                       for p in libs.values())
+                                   if libs else None)})
+        with self._lock:
+            self.libraries[name] = sorted(libs)
+        return out, self.record(row), verdict
+
+    def note_deep_verify(self, ok: bool) -> None:
+        """One deep-verify outcome: the re-traced fingerprint equals the
+        index's (ok) or not (demoted). Either way one pending slot
+        drains."""
+        with self._lock:
+            self._deep_verify["pending"] = max(
+                0, self._deep_verify["pending"] - 1)
+            self._deep_verify["ok" if ok else "demoted"] += 1
+
+    def note_library_fetch(self, verdicts: dict[str, str]) -> None:
+        """Count each rejected library fetch (`ArtifactStore.
+        fetch_libraries`) in `exec_artifact_rejects`: the library is then
+        built from source, loudly."""
+        n = sum(1 for v in verdicts.values() if v.startswith("reject"))
+        with self._lock:
+            self._artifact["rejects"] += n
 
     def note_exec(self, name: str, seconds: float) -> None:
         """One measured execution of `name` (the engine's dispatch): the
@@ -409,15 +535,11 @@ class ExecutableLedger:
                 "exec_compile_s": round(self._compile_s, 3),
                 "exec_cache_hits": self._cache_hits,
                 "exec_cache_misses": self._cache_misses,
-                "exec_artifact_hits": 0,
-                "exec_artifact_misses": 0,
-                "exec_artifact_rejects": 0,
-                "exec_index_hits": 0,
-                "exec_index_misses": 0,
-                "exec_index_rejects": 0,
-                "exec_deep_verify_pending": 0,
-                "exec_deep_verify_ok": 0,
-                "exec_deep_verify_demoted": 0,
+                **{f"exec_artifact_{k}": v
+                   for k, v in self._artifact.items()},
+                **{f"exec_index_{k}": v for k, v in self._index.items()},
+                **{f"exec_deep_verify_{k}": v
+                   for k, v in self._deep_verify.items()},
                 "exec_executables": len(self._fingerprints),
                 "exec_fingerprints": dict(self._fingerprints),
                 "exec_dispatches": sum(e[0] for e in self._exec.values()),

@@ -14,9 +14,9 @@ The quality (`serve_quality_*`) and incident (`incident_*`, `alert_*`)
 keys are declared too, and so are the training-resilience keys (whose
 `resilience` flag makes them the `resilience` block of `analyze` and
 `tail`, in declaration order: `resilience_keys`), the `fault_*` family,
-the executable ledger's `exec_*` keys (`obs/ledger.py`; its artifact,
-index and deep-verify counters stay 0 until the artifact plane is
-ported) and the staged recipe's `recipe_*` keys. The JAX package's
+the executable ledger's `exec_*` keys (`obs/ledger.py`, with the
+artifact plane's artifact, index and deep-verify counters,
+`serve/artifacts.py`) and the staged recipe's `recipe_*` keys. The JAX package's
 elastic keys are not: this package writes none of them (ROADMAP Queue
 A item 10 ports that plane). This package's keys are the JAX
 package's: none of them is its own.
@@ -233,27 +233,25 @@ _ENTRIES: list[Key] = [
            "exec_lowerings", "exec_recompiles", "exec_compile_s",
            "exec_cache_hits", "exec_cache_misses", "exec_dispatches",
            "exec_dispatch_s",
-           # artifact plane (serve/artifacts.py): executables
-           # deserialized from the store instead of compiled (hits) vs
-           # compiled because no entry matched the local fingerprint
-           # (misses) vs compiled because an entry failed an integrity
-           # gate (rejects — always loud)
+           # artifact plane (serve/artifacts.py): traced executables
+           # whose fingerprint the store holds (hits) or not (misses),
+           # and store entries or libraries that failed a gate, the
+           # library then built from source (rejects: always loud)
            "exec_artifact_hits", "exec_artifact_misses",
            "exec_artifact_rejects",
-           # executable index (trace-free boot): executables resolved
-           # by jax-free key with zero trace/lower calls (hits) vs no
-           # index entry for the key (misses — lowering path taken) vs
-           # entry failed a trust gate: forged, cross-wired, stale
-           # target, version skew (rejects — always loud)
+           # the index (trace-free boot): executables resolved by key
+           # with no trace (hits), no entry for the key (misses: the
+           # traced path), an entry that failed a trust gate: forged,
+           # cross-wired, stale target, version skew, a target failing
+           # the store's gates (rejects: always loud)
            "exec_index_hits", "exec_index_misses", "exec_index_rejects",
-           # deferred deep-verify plane: background re-lowerings that
-           # confirmed an index-resolved executable (ok) vs loudly
-           # demoted it — fingerprint mismatch, fresh compile swapped
-           # in (demoted). Summing across a fleet stays honest: each
-           # replica verifies its own boots exactly once.
+           # deep verify: re-traces after serving starts that confirmed
+           # an index-resolved executable's fingerprint (ok) or not
+           # (demoted, loudly). Each replica verifies its own boot once,
+           # so the fleet's sum stays honest.
            "exec_deep_verify_ok", "exec_deep_verify_demoted"),
-    # index-resolved executables still awaiting their background
-    # re-lowering; a fleet sum is the pool's total unverified count
+    # index-resolved executables still awaiting their re-trace; a
+    # fleet sum is the pool's unverified count
     Key("exec_deep_verify_pending", "sum", "ledger"),
     Key("exec_executables", "gauge", "ledger"),
     Key("exec_fingerprints", "state", "ledger"),

@@ -105,6 +105,24 @@ def build_all() -> dict[str, dict]:
         return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
+def install(name: str, src: str | os.PathLike) -> bool:
+    """Copy a library built elsewhere (the artifact store's,
+    `serve/artifacts.py`, which has checked that it was built from this
+    checkout's source) into BUILD_DIR under `library_path(name)`'s name:
+    a temporary sibling, then os.rename, under the build lock. A later
+    `load` finds it built, and `built_names()` does not count it.
+    Returns False when the library is there already (nothing copied)."""
+    path = library_path(name)
+    with _lock:
+        if path.exists():
+            return False
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.install")
+        shutil.copyfile(src, tmp)
+        os.rename(tmp, path)
+    return True
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     with _lock:

@@ -82,15 +82,34 @@ mode) under `exec_name` and, when scoring, one per bucket under
 `exec_timing` rows. The rows go to `<ledger_dir>/ledger.jsonl` where
 the caller names the run directory it owns: the `serve` verb passes
 `train.log_dir` (a fleet replica its own `replica-<i>`). An engine
-given none keeps its rows in memory and writes no file. Still to port
-(ROADMAP item 8): artifacts.
+given none keeps its rows in memory and writes no file.
+
+The artifact plane (`serve/artifacts.py`), with `serve.artifacts_dir`
+set and a model: the engine first fetches from the store the libraries
+it launches (`serve_libraries`) that this checkout has not built,
+before its models' first forwards (a reject is loud and counted by
+`warm()`, and the library is then built from its source); `warm()`
+resolves each lattice entry through the store's index when
+`serve.artifacts_index` is on: a hit runs the entry's warm-up
+dispatch untraced and records the index's fingerprint
+(`ExecutableLedger.record_index`); a miss or a reject takes the traced
+path, whose fingerprint is then looked up in the store
+(`record_aot`). With `serve.artifacts_deep_verify`, a pacing thread
+hands each index-resolved entry, one a `serve.deep_verify_interval_s`,
+to the batcher, which re-traces it on its zero batch between batches
+and compares the fingerprint with the index's: a mismatch is demoted
+(`exec_deep_verify_demoted`, a warning on stderr, a kind="warn" record
+in `<ledger_dir>/metrics.jsonl` and a `deep_verify_demote` incident
+when a recorder is set). `deep_verify_join()` waits for the queue.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import queue
+import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -105,12 +124,15 @@ from ..core.config import ExperimentConfig, check_servable
 from ..core.device import disable_tf32, resolve_device
 from ..data.datasets import DATASET_MEANS, _imread_bgr
 from ..obs import trace as obs_trace
-from ..obs.ledger import ExecutableLedger, exec_name, quality_exec_name
+from ..obs.ledger import (ExecutableLedger, exec_name, exec_row,
+                          quality_exec_name, trace_call)
 from ..obs.export import (LatencyHistogram, percentile_ms, slo_state,
                           validate_slo)
 from ..obs.quality import QualityScorer, make_score_fn, score_pair_np
 from .buckets import (flow_to_native, next_smaller_bucket, pick_bucket,
                       prepare_frame, prepare_pair, resolve_buckets)
+from .artifacts import (params_signature, resolution_key,
+                        serve_config_digest, store_for_config)
 from .quant import quantize_model, resolve_precisions
 from .session import SessionExpired, SessionStore
 
@@ -121,6 +143,50 @@ _RATE_WINDOW_S = 10.0
 
 #: Serving is pair-based: every dispatch takes 6 input channels.
 PAIR_CHANNELS = 6
+
+
+def serve_libraries(cfg: ExperimentConfig) -> tuple[str, ...]:
+    """The CUDA libraries a serving engine of `cfg` launches: the
+    correlation's for a model with a cost volume, the warp's for
+    FlowNet-CS's refinement, the warm start's stage and the quality
+    scorer. Never the correlation's backward: serving takes no
+    gradient, and a library it never launches is not built at boot."""
+    from ..models.registry import MODELS, _fields
+
+    cls = MODELS.get(cfg.model)
+    names = ["corr"] if cls is not None and "max_disp" in _fields(cls) else []
+    if (cfg.model == "flownet_cs" or cfg.serve.session.warm_start
+            or float(cfg.obs.quality_sample_rate) > 0):
+        names.append("warp")
+    return tuple(names)
+
+
+class _Entry:
+    """One executable of the serving lattice as `warm()` runs it: its
+    ledger name, its zero-input call, the call's tensor inputs, and the
+    module whose state dict signs its index key."""
+
+    __slots__ = ("name", "key", "bucket", "fn", "inputs", "module")
+
+    def __init__(self, name, key, bucket, fn, inputs, module):
+        self.name = name
+        self.key = key          # (bucket, tier, mode); None: the scorer
+        self.bucket = bucket
+        self.fn = fn
+        self.inputs = inputs
+        self.module = module
+
+
+class _Verify:
+    """A deep verification handed to the batcher (it runs between
+    batches); `done` is set once it has run or been dropped."""
+
+    __slots__ = ("entry", "expected", "done")
+
+    def __init__(self, entry: _Entry, expected: str):
+        self.entry = entry
+        self.expected = expected
+        self.done = threading.Event()
 
 
 class ServeError(RuntimeError):
@@ -288,13 +354,21 @@ class InferenceEngine:
         built); `serve.fake_exec_ms` gives `make_fake_forward`'s. It is
         blind to the tier and the mode: every key batches apart but runs
         this one function.
+    ledger_dir: the run directory the ledger's rows (and a deep verify's
+        warn record) go to; None writes no file.
+    library_fetch: the store's verdicts of a library fetch the caller
+        made (the server fetches before its restore,
+        `ArtifactStore.fetch_libraries`); None: with a store, on the
+        card, the engine fetches before it builds its models. `warm()`
+        counts them.
     """
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module | None = None,
                  mean=None, device: str | torch.device = "cuda",
                  refine: nn.Module | None = None,
                  forward_fn: Callable | None = None,
-                 ledger_dir: str | None = None):
+                 ledger_dir: str | None = None,
+                 library_fetch: dict[str, str] | None = None):
         check_servable(cfg)
         self.device = resolve_device(device)
         disable_tf32()
@@ -322,6 +396,24 @@ class InferenceEngine:
         self._warm: dict[str, Callable] = {}
         # the cold output grid of each bucket: the prior's grid
         self._head_hw: dict[tuple[int, int], tuple[int, int]] = {}
+        # the artifact plane: the store (None when off or for a stand-in),
+        # its libraries fetched before the models are built (a warm-start
+        # engine runs both forwards at its construction), the index boot
+        # and the deep verify of what it resolved
+        self._artifacts = (None if self._forward_custom
+                           else store_for_config(cfg, self.device))
+        if (self._artifacts is not None and library_fetch is None
+                and self.device.type == "cuda"):
+            library_fetch = self._artifacts.fetch_libraries(
+                serve_libraries(cfg))
+        self._library_fetch = library_fetch or {}
+        self._index_enabled = (self._artifacts is not None
+                               and bool(cfg.serve.artifacts_index))
+        self._deep_verify_enabled = (self._index_enabled
+                                     and bool(cfg.serve.artifacts_deep_verify))
+        self._deep_verify_q: queue.Queue = queue.Queue()
+        self._deep_verify_thread: threading.Thread | None = None
+        self._deep_verify_stop = threading.Event()
         if self._forward_custom:
             self._forward = (lambda key, x, prior=None, _fn=forward_fn:
                              _fn(key[0], x))
@@ -401,6 +493,7 @@ class InferenceEngine:
         # dispatch seconds, its exec_* block; a file only under the
         # ledger_dir its caller owns
         self._ledger: ExecutableLedger | None = None
+        self._ledger_dir = ledger_dir
         if not self._forward_custom and bool(obs.ledger):
             self._ledger = ExecutableLedger(ledger_dir,
                                             backend=self.device.type)
@@ -727,6 +820,9 @@ class InferenceEngine:
                 req = self._q.get()
             if req is _STOP:
                 break
+            if isinstance(req, _Verify):
+                self._run_verify(req)
+                continue
             batch = [req]
             timed_out = False
             with obs_trace.span("serve_batch") as batch_span:
@@ -740,6 +836,9 @@ class InferenceEngine:
                         break
                     if nxt is _STOP:
                         stop = True
+                        break
+                    if isinstance(nxt, _Verify):
+                        pending = nxt  # runs after this flush
                         break
                     if nxt.key != batch[0].key:
                         pending = nxt  # flush now; it opens the next batch
@@ -759,12 +858,19 @@ class InferenceEngine:
                     self._timeout_flushes += 1
             self._flush(batch)
         # anything still queued after _STOP was submitted post-close
+        self._drop_queued()
+
+    def _drop_queued(self) -> None:
+        """Fail every request still queued (a deep verification is
+        dropped)."""
         while True:
             try:
                 req = self._q.get_nowait()
             except queue.Empty:
                 break
-            if req is not _STOP:
+            if isinstance(req, _Verify):
+                req.done.set()
+            elif req is not _STOP:
                 self._fail(req.future, ServeError(
                     "engine_closed", "engine shut down before dispatch",
                     req.rid))
@@ -878,59 +984,217 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ warm
     def warm(self) -> dict:
-        """The postprocess path once on a dummy flow, then one padded
-        dispatch of zeros for each (bucket, tier, mode) of the engine, so
-        the kernels are built and cuDNN has chosen its algorithms before
-        the first request (no dispatch for a stand-in executor). With
-        the ledger on, each dispatch is traced into its row, and so is
-        one call of the quality scorer a bucket. Returns {"buckets":
-        [{"bucket", "tier", "mode", "seconds"}]}."""
+        """The postprocess path once on a dummy flow, then each lattice
+        entry once (`lattice`: one padded dispatch of zeros for each
+        (bucket, tier, mode), and one call of the quality scorer a
+        bucket), so the kernels are built and cuDNN has chosen its
+        algorithms before the first request (nothing for a stand-in
+        executor). With the ledger on, each entry is traced into its
+        row; with a store, each is resolved through the index (module
+        docstring), and the library fetch's rejects are counted. Returns
+        {"buckets": [{"bucket", "tier", "mode", "seconds"}], and with a
+        store "libraries": the fetch's verdicts}."""
         # the first request would otherwise pay the postprocess path's
         # first call (the resize's kernels, its imports) in the batcher,
         # and the native decoder's build (at its first use) in a handler
         flow_to_native(np.zeros((2, 2, 2), np.float32), self.cfg, (2, 2),
                        (2, 2))
         native.codecs()
-        out = []
+        out: dict = {"buckets": []}
         if self._forward_custom:
-            return {"buckets": out}
+            return out
+        if self._artifacts is not None:
+            if self._ledger is not None:
+                self._ledger.note_library_fetch(self._library_fetch)
+            out["libraries"] = dict(self._library_fetch)
+        for entry in self.lattice():
+            t0 = time.perf_counter()
+            self._warm_entry(entry)
+            if entry.key is not None:
+                out["buckets"].append({
+                    "bucket": list(entry.bucket), "tier": entry.key[1],
+                    "mode": entry.key[2],
+                    "seconds": time.perf_counter() - t0})
+        self._start_deep_verify()
+        return out
+
+    def lattice(self):
+        """The engine's executables in `warm()`'s order, as `_Entry`s: for
+        each bucket, its (tier, mode) dispatches of max_batch zero rows
+        (a warm one with a zero prior on the cold head grid), then the
+        quality scorer on one row and a zero flow (when scoring). A
+        generator whose caller runs each entry before it takes the next
+        (`warm()`, `train/warmup.py`): the scorer's entry reads the
+        bucket's cold head grid, which its first cold dispatch records."""
         modes = ("cold", "warm") if self.warm_start else ("cold",)
         for bucket in self.buckets:
             x = np.zeros((self.max_batch, *bucket, PAIR_CHANNELS), np.float32)
             for tier in self.tiers:
                 for mode in modes:
+                    key = (bucket, tier, mode)
                     prior = (np.zeros((self.max_batch,
                                        *self._head_hw[bucket], 2),
                                       np.float32) if mode == "warm" else None)
-                    t0 = time.perf_counter()
-                    flow = self._warm_dispatch((bucket, tier, mode), x,
-                                               prior)
-                    out.append({"bucket": list(bucket), "tier": tier,
-                                "mode": mode,
-                                "seconds": time.perf_counter() - t0})
-            if self._torch_score is not None and self._ledger is not None:
-                head = np.zeros((1, *flow.shape[1:3], 2), np.float32)
-                self._ledger.record_call(
-                    quality_exec_name(bucket),
-                    lambda: self._torch_score(x[:1], head), self.device,
-                    inputs=(x[:1], head))
-        return {"buckets": out}
+                    module = (self.refine_models if mode == "warm"
+                              else self.tier_models)[tier]
+                    yield _Entry(
+                        exec_name(*key), key, bucket,
+                        lambda _k=key, _p=prior: self._head(
+                            _k, self._forward(_k, x, _p)),
+                        (list(module.parameters()), list(module.buffers()),
+                         x, prior), module)
+            if self._torch_score is not None:
+                head = np.zeros((1, *self._head_hw[bucket], 2), np.float32)
+                yield _Entry(quality_exec_name(bucket), None, bucket,
+                             lambda _h=head: self._torch_score(x[:1], _h),
+                             (x[:1], head), self.model)
 
-    def _warm_dispatch(self, key: tuple[tuple[int, int], str, str],
-                       x: np.ndarray, prior: np.ndarray | None
-                       ) -> np.ndarray:
-        """One warm() dispatch; with the ledger on, traced into the row
-        of `exec_name(*key)`."""
-        if self._ledger is None:
-            return self._forward(key, x, prior)
-        _, tier, mode = key
-        module = (self.refine_models if mode == "warm"
-                  else self.tier_models)[tier]
-        flow, _ = self._ledger.record_call(
-            exec_name(*key), lambda: self._forward(key, x, prior),
-            self.device, inputs=(list(module.parameters()),
-                                 list(module.buffers()), x, prior))
+    def _head(self, key, flow: np.ndarray) -> np.ndarray:
+        """Record a cold dispatch's output grid as its bucket's head grid
+        (the scorer's flow and the warm prior are on it); returns
+        `flow`."""
+        if key[2] == "cold":
+            self._head_hw.setdefault(key[0], tuple(flow.shape[1:3]))
         return flow
+
+    def signature(self, entry: _Entry) -> str:
+        """The parameter signature of the entry's index key: its
+        module's state dict and the zero batch's shape."""
+        return params_signature(
+            entry.module.state_dict(),
+            (self.max_batch, *entry.bucket, PAIR_CHANNELS))
+
+    def index_key(self, entry: _Entry) -> str:
+        """The entry's resolution key (`serve/artifacts.py`): no trace."""
+        return resolution_key(entry.name, serve_config_digest(self.cfg),
+                              self.signature(entry), self.device.type,
+                              torch.__version__)
+
+    def _warm_entry(self, entry: _Entry):
+        """Run one lattice entry for `warm()`: through the index when it
+        resolves there (untraced; queued for deep verify), else traced
+        into its ledger row (looked up in the store by fingerprint when
+        one is set), else bare."""
+        if self._index_enabled:
+            key = self.index_key(entry)
+            if self._ledger is not None:
+                res, _, verdict = self._ledger.record_index(
+                    entry.name, self._artifacts, key, entry.fn, self.device)
+            else:
+                libs, _, verdict = self._artifacts.resolve(key)
+                res = entry.fn() if libs is not None else None
+            if verdict == "index_hit":
+                if self._deep_verify_enabled:
+                    self._schedule_deep_verify(
+                        entry, self._artifacts.index_entry(key)["fingerprint"])
+                return res
+        if self._ledger is None:
+            return entry.fn()
+        if self._artifacts is not None:
+            res, _ = self._ledger.record_aot(
+                entry.name, entry.fn, self.device, entry.inputs,
+                artifacts=self._artifacts, kind="first_step")
+            return res
+        res, _ = self._ledger.record_call(entry.name, entry.fn, self.device,
+                                          inputs=entry.inputs)
+        return res
+
+    # ----------------------------------------------------- deep verify
+    def _schedule_deep_verify(self, entry: _Entry, expected: str) -> None:
+        """Queue an index-resolved entry for its re-trace (the pacing
+        thread starts at the end of `warm()`: nothing is re-traced while
+        the lattice warms)."""
+        self._deep_verify_q.put((entry, expected))
+
+    def _start_deep_verify(self) -> None:
+        if (self._deep_verify_thread is None
+                and self._deep_verify_q.unfinished_tasks):
+            t = threading.Thread(target=self._deep_verify_loop, daemon=True,
+                                 name="serve-deep-verify")
+            self._deep_verify_thread = t
+            t.start()
+
+    def _deep_verify_loop(self) -> None:
+        """The pacer: hands one queued entry at a time to the batcher (the
+        re-trace runs there, between batches, so it never shares the card
+        with a dispatch), waits for it, then `deep_verify_interval_s`."""
+        interval = max(float(self.cfg.serve.deep_verify_interval_s), 0.0)
+        stop = self._deep_verify_stop
+        while True:
+            item = self._deep_verify_q.get()
+            if item is None or stop.is_set():
+                self._deep_verify_q.task_done()
+                return
+            v = _Verify(*item)
+            try:
+                while not stop.is_set():
+                    try:
+                        self._q.put(v, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                while not stop.is_set() and not v.done.wait(0.1):
+                    pass
+            finally:
+                self._deep_verify_q.task_done()
+            if interval > 0:
+                stop.wait(interval)
+
+    def _run_verify(self, v: _Verify) -> None:
+        """On the batcher: re-trace `v`'s entry on its zero batch and hold
+        its fingerprint to the index's (module docstring)."""
+        try:
+            self._deep_verify_one(v.entry, v.expected)
+        except Exception as e:  # noqa: BLE001 - never stops serving
+            print(f"serve: deep verify of {v.entry.name} failed: {e}",
+                  file=sys.stderr)
+            if self._ledger is not None:
+                self._ledger.note_deep_verify(True)
+        finally:
+            v.done.set()
+
+    def _deep_verify_one(self, entry: _Entry, expected: str) -> None:
+        _, fields = trace_call(entry.fn, self.device, entry.inputs)
+        fp = fields["fingerprint"]
+        ok = fp == expected
+        if self._ledger is not None:
+            self._ledger.note_deep_verify(ok)
+            row = exec_row(entry.name, fields, self.device.type)
+            row.update(compile_kind="deep_verify",
+                       cache_verdict=("deep_verify_ok" if ok
+                                      else "deep_verify_demoted"))
+            self._ledger.record(row)
+        if ok:
+            return
+        message = (f"deep verify DEMOTE {entry.name}: the index claims "
+                   f"{expected}, this code runs {fp}")
+        print(f"serve: {message}", file=sys.stderr)
+        if self._ledger_dir:
+            try:
+                os.makedirs(self._ledger_dir, exist_ok=True)
+                with open(os.path.join(self._ledger_dir, "metrics.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps({"kind": "warn", "step": 0,
+                                        "time": time.time(),
+                                        "message": message}) + "\n")
+            except OSError:
+                pass
+        if self.incidents is not None:
+            self.incidents.record(
+                "deep_verify_demote", "critical",
+                trigger={"exec": entry.name, "expected_fp": expected,
+                         "actual_fp": fp})
+
+    def deep_verify_join(self, timeout_s: float = 60.0) -> bool:
+        """Wait until every queued deep verification has run (tests and
+        drills; serving never calls it). True when the queue drained
+        within the timeout."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if self._deep_verify_q.unfinished_tasks == 0:
+                return True
+            time.sleep(0.01)
+        return self._deep_verify_q.unfinished_tasks == 0
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
@@ -1021,6 +1285,13 @@ class InferenceEngine:
                 return
             self._closed = True
         self.sessions.close()  # stop the TTL sweeper
+        if self._deep_verify_thread is not None:
+            # the pacer first: a verification it handed over still runs
+            # (the batcher takes it ahead of _STOP); the ones it has not
+            # handed over stay pending (exec_deep_verify_pending)
+            self._deep_verify_stop.set()
+            self._deep_verify_q.put(None)
+            self._deep_verify_thread.join(timeout=30.0)
         self._q.put(_STOP)
         self._thread.join(timeout=60.0)
         if self._quality is not None:
@@ -1037,15 +1308,7 @@ class InferenceEngine:
                 if self._submitting == 0:
                     break
             time.sleep(0.01)
-        while True:
-            try:
-                req = self._q.get_nowait()
-            except queue.Empty:
-                break
-            if req is not _STOP:
-                self._fail(req.future, ServeError(
-                    "engine_closed", "engine shut down before dispatch",
-                    req.rid))
+        self._drop_queued()
 
     def __enter__(self) -> "InferenceEngine":
         return self

@@ -43,9 +43,17 @@ those to structured `session_lost` replies.
 
 On the card: every replica is a process with a CUDA context of its own
 (the card time-slices between them), and the supervisor creates none.
-Before it spawns model replicas it builds the kernels once
-(`ops/cuda/build.py::build_all`, nvcc only), so N replicas booting at
-once load libraries that are already built.
+Before it spawns model replicas it readies the libraries they launch
+once (`prebuild_libraries`: `engine.serve_libraries`, fetched from the
+artifact store under `serve.artifacts_dir`, else built by nvcc), so N
+replicas booting at once load libraries that are already there.
+
+The artifact store (`serve/artifacts.py`) rides each replica's config
+as an absolute path, so every replica, a respawn and an autoscaler's
+spawn boot from the same store. A graceful retirement and the fleet's
+close sweep it (`gc_store`): corrupt entries and orphaned staging, and
+with `serve.fleet.artifacts_gc_days` > 0 entries older than that,
+except the index's targets and every fingerprint of a replica's ledger.
 
 `run_fleet` is the `serve --replicas N` (and `--autoscale`) entry: fleet
 + front router (serve/router.py) + the autoscaler (serve/autoscale.py)
@@ -63,8 +71,7 @@ circuit breaker (`fleet_broken`), the router's exhausted fleet SLO, the
 brownout controller's L3 entry (`brownout_l3`) and a wedge of the
 supervisor itself commit critical bundles, and every poll (and the
 close) collects the replicas' own bundles from `replica-<i>/incidents`
-into the run root. The JAX fleet's artifact-store GC (item 8's
-artifacts) is not ported.
+into the run root.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ from types import SimpleNamespace
 from ..core import supervise
 from ..core.config import ExperimentConfig
 from ..obs import incident
+from .artifacts import store_root
 from .server import REPLICA_ENV
 
 #: Replica lifecycle states (Fleet._check is the transition table).
@@ -229,6 +237,8 @@ class Fleet:
             train=dataclasses.replace(self.cfg.train, log_dir=rdir),
             serve=dataclasses.replace(
                 self.cfg.serve, port=0,
+                # absolute: a replica's cwd never decides its store
+                artifacts_dir=store_root(self.cfg) or "",
                 fleet=dataclasses.replace(self.fc, replicas=0,
                                           autoscale=False)))
         try:
@@ -596,6 +606,7 @@ class Fleet:
                 # way, but the escalation stays visible
                 self._counters["kill_escalations"] += 1
         self._log_event(r, f"retired (scale-down, rc={rc})")
+        self._artifacts_gc("retire")
         hook = self.on_retired
         if hook is not None:
             try:
@@ -682,6 +693,52 @@ class Fleet:
         # the final pass: staged triggers captured and every replica's
         # bundles collected before the run dir is read
         self._drain_incidents()
+        self._artifacts_gc("close")
+
+    # -------------------------------------------------- artifact gc
+    def _live_fingerprints(self) -> set[str]:
+        """Every fingerprint a replica's ledger recorded in this run (the
+        live lattice), read off the replica dirs without torch."""
+        from ..obs.ledger import load_ledger
+
+        with self._lock:
+            dirs = [self._replica_dir(r) for r in self._replicas]
+        fps: set[str] = set()
+        for d in dirs:
+            try:
+                rows = load_ledger(d)
+            except OSError:
+                continue
+            fps.update(row["fingerprint"] for row in rows
+                       if isinstance(row.get("fingerprint"), str)
+                       and row["fingerprint"])
+        return fps
+
+    def _artifacts_gc(self, trigger: str) -> None:
+        """Sweep the artifact store at a retirement or the close (module
+        docstring), the live fingerprints and the index's targets
+        pinned; one kind="warn" line into the fleet's metrics.jsonl when
+        it removed anything. Best-effort: it never blocks the caller."""
+        root = store_root(self.cfg)
+        if root is None:
+            return
+        try:
+            from .artifacts import gc_store
+
+            days = float(self.fc.artifacts_gc_days)
+            rep = gc_store(root, older_than_days=days if days > 0 else None,
+                           roots=self._live_fingerprints())
+            if rep["removed"] or rep["tmp_removed"]:
+                rec = {"kind": "warn", "step": 0, "time": time.time(),
+                       "message": (f"fleet artifacts gc ({trigger}): "
+                                   f"removed {len(rep['removed'])} "
+                                   f"entries, {len(rep['tmp_removed'])} "
+                                   f"tmp, kept {len(rep['kept'])}")}
+                with open(os.path.join(self.dir, "metrics.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+        except Exception:  # noqa: BLE001 - gc must not block retirement
+            pass
 
     def __enter__(self) -> "Fleet":
         return self
@@ -691,6 +748,32 @@ class Fleet:
 
 
 # ------------------------------------------------------------ CLI entry
+
+
+def prebuild_libraries(cfg: ExperimentConfig) -> dict[str, str]:
+    """Ready the CUDA libraries the replicas of `cfg` launch
+    (`engine.serve_libraries`, never one they do not), once, before
+    they boot: each is fetched from the artifact store when one is set
+    and holds it at this checkout's source hash, else built by nvcc (one
+    process a library, at once). No CUDA context. Returns {name:
+    verdict}: the store's ("hit", "present", or a miss or reject that
+    was then built) or, built here, "built"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..ops.cuda import build
+    from .artifacts import store_for_config
+    from .engine import serve_libraries
+
+    names = serve_libraries(cfg)
+    store = store_for_config(cfg, "cuda", context=False)
+    out = store.fetch_libraries(names) if store is not None else {}
+    todo = [n for n in names if out.get(n) not in ("hit", "present")]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            for n, r in zip(todo, pool.map(build.build, todo)):
+                out[n] = "built" if r["built"] else "present"
+    return out
+
 
 
 def run_fleet(cfg: ExperimentConfig, replicas: int | None = None,
@@ -722,9 +805,7 @@ def _run_fleet(cfg: ExperimentConfig, replicas: int | None, device: str,
     from .router import Router, build_router_server
 
     if str(device) == "cuda" and cfg.serve.fake_exec_ms is None:
-        from ..ops.cuda.build import build_all
-
-        build_all()  # once, before N replicas would each run nvcc
+        prebuild_libraries(cfg)  # once, before N replicas would each
     fleet = Fleet(cfg, replicas, device=device)
     # the supervisor's incident recorder, in the run root (None unless
     # obs.incidents): the fleet's, the router's and the brownout

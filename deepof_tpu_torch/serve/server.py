@@ -64,7 +64,9 @@ not apply): `process_to_main_s` (the interpreter's start and the
 package's imports, from the process's start time in /proc),
 `torch_import_s` (timed by `cli.main`), `cuda_context_s` (the first
 allocation on the card), `library_load_s` (the CUDA libraries the
-engine launches, `_libraries`, loaded and built first if absent),
+engine launches, `engine.serve_libraries`, fetched from the artifact
+store under `serve.artifacts_dir` and loaded, built first where
+absent; the fetch's verdicts in `library_fetch`),
 `restore_s` (the model built and the newest checkpoint verified and
 read), `engine_s` (the engine's tiers and stages), `warm_s`
 (`engine.warm()`, the ledger's traces included) and `ready_s` (the
@@ -75,7 +77,7 @@ recorder (`obs/incident.py`, role "serve" or "replica") on the engine,
 which records `slo_exhausted` and `quality_drift` bundles from its
 verdicts; the heartbeat's samples feed the recorder's ring and alert
 rules, and a watchdog wedge commits a critical `watchdog_wedge` bundle
-with the stack dump. Not ported (ROADMAP item 8): a video file as
+with the stack dump. Not ported (ROADMAP item 8.4): a video file as
 offline input (the JAX package reads it with cv2.VideoCapture).
 """
 
@@ -100,7 +102,8 @@ from ..obs import incident
 from ..obs import trace as obs_trace
 from ..obs.export import PROM_CONTENT_TYPE, render_prometheus
 from ..utils.flowviz import flow_to_color
-from .engine import InferenceEngine, ServeError
+from .artifacts import store_for_config
+from .engine import InferenceEngine, ServeError, serve_libraries
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".ppm", ".bmp")
 _VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
@@ -379,22 +382,6 @@ def _timed(fn) -> tuple[object, float]:
     return out, round(time.monotonic() - t0, 4)
 
 
-def _libraries(cfg: ExperimentConfig) -> tuple[str, ...]:
-    """The CUDA libraries a serving engine of `cfg` launches: the
-    correlation's for a model with a cost volume, the warp's for
-    FlowNet-CS's refinement, the warm start's stage and the quality
-    scorer. Never the correlation's backward: serving takes no
-    gradient, and a library it never launches is not built at boot."""
-    from ..models.registry import MODELS, _fields
-
-    cls = MODELS.get(cfg.model)
-    names = ["corr"] if cls is not None and "max_disp" in _fields(cls) else []
-    if (cfg.model == "flownet_cs" or cfg.serve.session.warm_start
-            or float(cfg.obs.quality_sample_rate) > 0):
-        names.append("warp")
-    return tuple(names)
-
-
 def _engine_for(cfg: ExperimentConfig, model, device,
                 boot: dict | None = None) -> InferenceEngine:
     """The serving engine of `cfg`: the model given, else the newest
@@ -408,6 +395,7 @@ def _engine_for(cfg: ExperimentConfig, model, device,
     cuda = (torch.device(device).type == "cuda"
             and cfg.serve.fake_exec_ms is None)
     boot["cuda_context_s"] = boot["library_load_s"] = None
+    fetched = None
     if cuda:
         from ..ops.cuda import build
 
@@ -415,9 +403,20 @@ def _engine_for(cfg: ExperimentConfig, model, device,
             torch.empty(1, device=device)
             torch.cuda.synchronize(device)
 
+        def libraries():
+            # from the artifact store first (serve.artifacts_dir), then
+            # built from source where it has none that passes its gates
+            store = store_for_config(cfg, device)
+            got = (store.fetch_libraries(serve_libraries(cfg))
+                   if store is not None else None)
+            for n in serve_libraries(cfg):
+                build.load(n)
+            return got
+
         _, boot["cuda_context_s"] = _timed(context)
-        _, boot["library_load_s"] = _timed(
-            lambda: [build.load(n) for n in _libraries(cfg)])
+        fetched, boot["library_load_s"] = _timed(libraries)
+        if fetched is not None:
+            boot["library_fetch"] = fetched
     boot["restore_s"] = None
     if model is None and cfg.serve.fake_exec_ms is None:
         from ..predict import restore_params
@@ -426,7 +425,8 @@ def _engine_for(cfg: ExperimentConfig, model, device,
             lambda: restore_params(cfg, device=device))
     engine, boot["engine_s"] = _timed(
         lambda: InferenceEngine(cfg, model=model, device=device,
-                                ledger_dir=cfg.train.log_dir))
+                                ledger_dir=cfg.train.log_dir,
+                                library_fetch=fetched))
     return engine
 
 
@@ -580,7 +580,7 @@ def run_offline(cfg: ExperimentConfig, input_path: str, out_dir: str,
             and input_path.lower().endswith(_VIDEO_EXTS):
         raise_unported([(f"serve --input {input_path!r} (a video file: "
                          "the JAX package decodes it with cv2."
-                         "VideoCapture)", "8 (serving)")])
+                         "VideoCapture)", "8.4 (serving)")])
     pairs = _enumerate_pairs(input_path)
     os.makedirs(out_dir, exist_ok=True)
     own_engine = engine is None

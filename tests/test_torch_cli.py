@@ -168,10 +168,11 @@ def test_config_prints_a_dict_that_reads_back(capsys):
     (["train", "--multihost"], "item 10"),
     (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2"],
      "item 10"),
-    # the recipe (item 9.5) and the executable ledger's `tail` flags
-    # (item 8: test_tail_ledger_flags_bound_the_verdict) are ported
-    (["serve", "--artifacts", "/x"], "item 8"),
-    (["serve", "--set", "serve.artifacts_dir=/x"], "item 8")])
+    # the recipe (item 9.5), the executable ledger's `tail` flags
+    # (test_tail_ledger_flags_bound_the_verdict) and the artifact store
+    # (`serve --artifacts`, test_torch_artifacts.py) are ported
+    (["serve", "--multihost"], "item 10"),
+    (["eval", "--synthetic", "--multihost"], "item 10")])
 def test_jax_only_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv + ["--device", "cpu"])

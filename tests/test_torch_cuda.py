@@ -17,7 +17,8 @@ device_side_skip"` for the metric fetch and the skip on the card,
 rule (F17), `-k "vgg or augmentation or occlusion"` for VGG16Flow's step,
 the augmentation's warp and the occlusion warp (C = 2), `-k "bf16_warp
 or quality"` for the warps' bf16 instances (loss.gather_dtype=bfloat16)
-and the quality scorer's warp.
+and the quality scorer's warp, `-k library` for the artifact store's
+library install.
 """
 
 import time
@@ -1167,3 +1168,98 @@ def test_dropout_masks_are_a_function_of_seed_and_step_on_the_card(
     for name, t in runs[0][1].items():
         assert torch.equal(t, runs[1][1][name]), name
 
+
+
+@pytest.fixture
+def corr_store(cuda, tmp_path):
+    """An artifact store holding one entry with this checkout's corr
+    library (built here first): (store, its fingerprint)."""
+    from deepof_tpu_torch.ops.cuda import build
+    from deepof_tpu_torch.serve.artifacts import ArtifactStore
+
+    build.build("corr")
+    store = ArtifactStore(str(tmp_path / "exec"), "cuda")
+    fp = "0123456789abcdef"
+    assert store.publish(fp, ["corr"], name="serve:384x512:f32:cold") \
+        == "published"
+    return store, fp
+
+
+@pytest.fixture
+def cold_build_dir(tmp_path, monkeypatch):
+    """An empty BUILD_DIR, no library loaded, and nvcc refused: a library
+    that loads came from the store."""
+    from deepof_tpu_torch.ops.cuda import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "cold")
+    monkeypatch.setattr(build, "_libs", {})
+
+    def no_nvcc():
+        raise AssertionError("nvcc ran")
+
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    return build
+
+
+@pytest.mark.cuda
+def test_a_library_installed_from_the_store_loads_without_nvcc(
+        cuda, corr_store, cold_build_dir):
+    """The artifact plane's one saving: a library fetched from the store
+    (at this checkout's source hash) into an empty build directory loads
+    with no nvcc run and is not counted as built; the corr kernel it
+    holds gives the plain version's bits at the serving shape."""
+    from deepof_tpu_torch.ops.cuda.corr import launches
+
+    build = cold_build_dir
+    store, _ = corr_store
+    built = build.built_count()
+    assert not build.library_path("corr").exists()
+    assert store.fetch_libraries(["corr"]) == {"corr": "hit"}
+    assert build.library_path("corr").exists()
+    assert store.fetch_libraries(["corr"]) == {"corr": "present"}
+    build.load("corr")
+    assert build.built_count() == built
+    rs = np.random.RandomState(3)
+    f1, f2 = (torch.from_numpy(rs.randn(8, 256, 48, 64).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    before = launches.count
+    got = correlation_nchw(f1, f2, 20, 2)
+    assert launches.count == before + 1
+    assert torch.equal(got, correlation_reference(f1, f2, 20, 2))
+
+
+@pytest.mark.cuda
+def test_a_library_of_another_source_hash_is_rejected(
+        cuda, corr_store, cold_build_dir, capsys):
+    """A store library whose manifest hash is not this checkout's source
+    hash never loads: its entry rejects loudly (source_hash_mismatch),
+    the library fetch takes nothing (a miss: built from source), and a
+    corrupted copy rejects on its crc."""
+    import json
+    import os
+
+    from deepof_tpu_torch.serve.artifacts import MANIFEST
+
+    store, fp = corr_store
+    path = os.path.join(store.root, fp, MANIFEST)
+    with open(path) as f:
+        man = json.load(f)
+    man["libraries"][0]["hash"] = "f" * 16
+    with open(path, "w") as f:
+        json.dump(man, f)
+    assert store.fetch(fp) == (None, "reject:source_hash_mismatch")
+    assert "REJECT" in capsys.readouterr().err
+    build = cold_build_dir
+    assert store.fetch_libraries(["corr"]) == {"corr": "miss"}
+    assert not build.library_path("corr").exists()
+    man["libraries"][0]["hash"] = build.library_path("corr").stem[-16:]
+    with open(path, "w") as f:
+        json.dump(man, f)
+    lib = os.path.join(store.root, fp, man["libraries"][0]["file"])
+    with open(lib, "r+b") as f:
+        f.seek(4096)
+        byte = f.read(1)
+        f.seek(4096)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    assert store.fetch_libraries(["corr"]) == {"corr": "reject:crc_mismatch"}
+    assert not build.library_path("corr").exists()

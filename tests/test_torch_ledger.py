@@ -332,9 +332,10 @@ def test_a_boot_loads_the_libraries_its_engine_launches(model, over, want):
     """A server's boot times the load of the CUDA libraries its engine
     launches, and never the correlation's backward."""
     from deepof_tpu_torch.core.config import config_from_dict
-    from deepof_tpu_torch.serve.server import _libraries
+    from deepof_tpu_torch.serve.engine import serve_libraries
 
-    assert _libraries(config_from_dict({"model": model, **over})) == want
+    assert serve_libraries(config_from_dict({"model": model, **over})) \
+        == want
 
 
 def test_a_kernel_launch_enters_the_trace_and_the_cache_counts():

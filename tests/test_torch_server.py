@@ -427,12 +427,11 @@ def test_a_codec_the_build_lacks_is_a_400_naming_its_codecs(
 
 
 def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
-    """F7 for the serving keys: the server's, the SLO's, the fleet's and
-    the brownout controller's are carried with the JAX defaults (the
-    fleet is ported); `obs.metrics_port` and the artifact store's GC age
-    stay dropped, named; of the fleet's settings only the artifact store
-    is still refused, naming ROADMAP item 8, by `check_servable` and the
-    engine."""
+    """F7 for the serving keys: the server's, the SLO's, the fleet's,
+    the brownout controller's and the artifact store's are carried with
+    the JAX defaults (the fleet and the store are ported);
+    `obs.metrics_port` stays dropped, named; no fleet or store setting is
+    refused by `check_servable` or the engine."""
     from deepof_tpu_torch.core.config import check_servable
 
     jcfg = _jax_cfg(tmp_path)
@@ -443,11 +442,19 @@ def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
                 "serve.workers", "serve.fake_exec_ms", "obs.slo_latency_ms",
                 "obs.slo_error_budget", "serve.fleet.drain_timeout_s",
                 "serve.fleet.replicas", "serve.fleet.autoscale",
-                "serve.fleet.max_in_flight", "serve.degrade"):
+                "serve.fleet.max_in_flight", "serve.degrade",
+                "serve.artifacts_dir", "serve.artifacts_index",
+                "serve.artifacts_deep_verify", "serve.deep_verify_interval_s",
+                "serve.fleet.artifacts_gc_days"):
         assert f"'{key}" not in ignored, key
-    for key in ("obs.metrics_port", "serve.fleet.artifacts_gc_days"):
-        assert f"'{key}'" in ignored, key
+    assert "'obs.metrics_port'" in ignored
     want = JaxConfig()
+    assert (cfg.serve.artifacts_dir, cfg.serve.artifacts_index,
+            cfg.serve.artifacts_deep_verify, cfg.serve.deep_verify_interval_s,
+            cfg.serve.fleet.artifacts_gc_days) == (
+        want.serve.artifacts_dir, want.serve.artifacts_index,
+        want.serve.artifacts_deep_verify, want.serve.deep_verify_interval_s,
+        want.serve.fleet.artifacts_gc_days)
     assert (cfg.serve.host, cfg.serve.port, cfg.serve.request_timeout_s,
             cfg.serve.workers, cfg.serve.fake_exec_ms) == (
         want.serve.host, want.serve.port, want.serve.request_timeout_s,
@@ -458,17 +465,13 @@ def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
         want.serve.fleet.drain_timeout_s)
     assert dataclasses.asdict(cfg.serve.degrade) \
         == dataclasses.asdict(want.serve.degrade)
-    for fleet_kw, serve_kw, refused in (({"replicas": 2}, {}, False),
-                                        ({"autoscale": True}, {}, False),
-                                        ({}, {"artifacts_dir": "/x"}, True)):
+    for fleet_kw, serve_kw in (({"replicas": 2}, {}),
+                               ({"autoscale": True}, {}),
+                               ({"artifacts_gc_days": 3.0},
+                                {"artifacts_dir": str(tmp_path / "exec")})):
         cfg = _port_cfg(jcfg.replace(serve=dataclasses.replace(
             jcfg.serve, fleet=dataclasses.replace(jcfg.serve.fleet,
                                                   **fleet_kw),
             **serve_kw)))
-        if not refused:
-            check_servable(cfg)
-            continue
-        with pytest.raises(NotImplementedError, match="item 8"):
-            check_servable(cfg)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            InferenceEngine(cfg, forward_fn=jax_fake(0.0), device="cpu")
+        check_servable(cfg)
+        InferenceEngine(cfg, forward_fn=jax_fake(0.0), device="cpu").close()
