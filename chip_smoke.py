@@ -168,6 +168,19 @@ read after it):
     seconds, and the replicas' boot split (`boot`: the torch import,
     the CUDA context, the library load, the restore, the engine,
     `warm()`, from each replica's final record).
+  - data parallelism over ranks (`parallel/mesh.py`) and the elastic
+    pool (`train/elastic.py`), every rank and host a process of its own
+    on the one card: `ddp_flownet_c` (`torchrun --nproc_per_node 2 -m
+    deepof_tpu_torch train --multihost` and each rank's summary; then,
+    with nothing else running, two ranks over gloo: their averaged
+    gradient of full-width FlowNet-C's global batch 8 against this
+    process's one-process step, each rank's launches, step and
+    all-reduce milliseconds),
+    `ddp_nccl_world1` (one rank over NCCL against the plain `train`, both
+    under cuDNN's deterministic algorithms: every loss the same bits) and `elastic_drill` (`python -m
+    deepof_tpu_torch.tools.elastic_drill` with 3 full-width FlowNet-C
+    hosts, host 1 SIGKILLed at step 4: its verdict and each surviving
+    host's launches).
 Runs live in a temporary directory under `build/`, removed at the end.
 Each phase prints one JSON line; the last three lines are the kernel
 summary, the card's name and power limit, and {"ok": true, "device":
@@ -189,6 +202,7 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import tempfile, chip_smoke as cs; cs.check_warp_levels_bf16(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_gather_bf16(w)"
     python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_recipe(w)"
     python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train(w); cs.cli_resume(w); cs.cli_train_flownet_c(w); from deepof_tpu_torch.core.config import ExperimentConfig; cs.ledger_gate(w, cs.serve_http(ExperimentConfig(model='flownet_c')))"
+    python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.ddp_phases(w); cs.elastic_drill_card(w)"
 """
 
 from __future__ import annotations
@@ -5182,10 +5196,11 @@ def sintel_draw_breakdown(ds, batch: int) -> dict:
                                        for p in ds.flow_windows[i])}
 
 
-def cli_sintel(work: str) -> dict:
+def cli_sintel(work: str, fixture_s: float | None = None) -> dict:
     """This slice's main path: `train --preset sintel --model flownet_s
     --data-path <tree> --max-steps 4 --set train.dump_visuals=true` on a
-    Sintel tree written here (`write_sintel`), with the frames decoded in
+    Sintel tree written here (`write_sintel`; `main` writes it beside
+    the kernels' build, `fixture_s` its seconds), with the frames decoded in
     the cached route and, when the native decoder has a PNG codec, again
     in the streaming route (`data.cache_decoded=false`); then `eval
     --dump-visuals` on the cached run. Each route: the step in `fit`,
@@ -5203,9 +5218,10 @@ def cli_sintel(work: str) -> dict:
     from deepof_tpu_torch.train import loop
 
     data_dir = os.path.join(work, "sintel")
-    t0 = time.monotonic()
-    write_sintel(data_dir)
-    fixture_s = time.monotonic() - t0
+    if not os.path.isdir(data_dir):
+        t0 = time.monotonic()
+        write_sintel(data_dir)
+        fixture_s = time.monotonic() - t0
     codecs = sorted(native.codecs())
     preset = get_config("sintel")
     batch, gt_hw = preset.data.batch_size, preset.data.gt_size
@@ -6718,6 +6734,581 @@ def cli_recipe(work: str) -> dict:
     return row
 
 
+# --- data parallelism over ranks and the elastic pool on the card ---
+
+#: the data-parallel check: FlowNet-C at full width, 384x512, global
+#: batch 8, four rows a rank (the main path's (4,256,48,64) at the
+#: correlation), under test_torch_train.py's L1-like loss (alpha 0.5),
+#: whose gradient does not amplify rounding (F6), in float32 (TF32 off
+#: in every process). Against the one-process step of all 8 rows each
+#: gradient tensor within DDP_TOL of its largest entry and the loss
+#: within DDP_LOSS_RTOL (the batch's sum in another order: cuDNN may
+#: pick other algorithms for 4 rows than for 8; the limit of
+#: test_torch_train.py's L1-like step). Against the mean of the
+#: one-process steps of the two halves (the ranks' own computations,
+#: averaged as the all-reduce does) within DDP_HALVES_TOL: only the
+#: all-reduce lies between them.
+DDP_BATCH = 8
+DDP_TOL = 1e-4
+DDP_LOSS_RTOL = 1e-5
+DDP_HALVES_TOL = 1e-6
+DDP_TIMED = 3  # steps and all-reduces timed a rank after the check
+DDP_STEPS = 3  # `train --multihost` under torchrun
+DDP_RUN = ["--model", "flownet_c", "--synthetic",
+           "--set", "data.image_size=[384,512]",
+           "--set", "data.gt_size=[384,512]",
+           "--set", "train.log_every=1", "--set", "train.eval_every=0",
+           "--set", "train.ckpt_every_epochs=1000000"]
+#: the elastic drill on the card: 3 hosts of full-width FlowNet-C
+#: (384x512, batch 4), host 1 SIGKILLed at step 4, target 10
+DRILL_ARGS = ["--device", "cuda", "--hosts", "3", "--target", "10",
+              "--kill-host", "1", "--kill-step", "4", "--ckpt-every", "3",
+              "--timeout", "600", "--set", "model=flownet_c",
+              "--set", "width_mult=1.0",
+              "--set", "data.image_size=[384,512]",
+              "--set", "data.gt_size=[384,512]"]
+
+
+#: the check's geometry (a CPU rehearsal passes a smaller one); the
+#: parent writes it to work/ddp_check.json for the ranks
+DDP_CHECK = {"device": "cuda", "hw": [384, 512], "model": {}}
+
+
+def ddp_check_parts(check: dict, device, world, batch: dict | None = None):
+    """The check's model (seed 0; `check["model"]`'s overrides, none at
+    full width), train step over `world`, and global batch (`batch`, or
+    a fixed draw of the synthetic dataset)."""
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              LossConfig)
+    from deepof_tpu_torch.core.device import disable_tf32
+    from deepof_tpu_torch.data.datasets import SyntheticData
+    from deepof_tpu_torch.data.pipeline import derive_batch_rng
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    disable_tf32()  # float32 convolutions, as a float32 Trainer's
+    hw = tuple(check["hw"])
+    cfg = ExperimentConfig(
+        model="flownet_c", loss=LossConfig(alpha_c=0.5, alpha_s=0.5),
+        data=DataConfig(dataset="synthetic", image_size=hw, gt_size=hw,
+                        batch_size=DDP_BATCH), **check["model"])
+    ds = SyntheticData(cfg.data)
+    model = build_model("flownet_c", device=device, seed=0, image_size=hw,
+                        width_mult=cfg.width_mult,
+                        corr_max_disp=cfg.corr_max_disp,
+                        corr_stride=cfg.corr_stride)
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    step = make_train_step(model, cfg, ds.mean, world=world)
+    if batch is None:
+        batch = ds.sample_train(DDP_BATCH, rng=derive_batch_rng(
+            np.array([7, 0], np.uint32), 0))
+    return model, state, step, batch
+
+
+def ddp_rank(work: str) -> int:
+    """One rank of `ddp_flownet_c`'s check (run under torchrun): joins the
+    world on the card, steps on its rows of the global batch, and writes
+    to work/ddp_rank<r>.json its kernel launches in that step, its
+    largest gradient difference from each one-process reference in
+    work/ddp_ref.pt ("whole": the step of all rows; "halves": the mean
+    of the two halves' steps; each tensor's, over its largest entry)
+    and whether it equals the halves' bit for bit, a CRC of its averaged
+    gradients, then DDP_TIMED more steps' and all-reduces' milliseconds
+    (host clock to a synchronize)."""
+    import zlib
+
+    import torch
+    import torch.distributed as dist
+
+    from deepof_tpu_torch.parallel.mesh import (init_distributed,
+                                                local_batch_rows,
+                                                shutdown_distributed)
+
+    with open(os.path.join(work, "ddp_check.json")) as f:
+        check = json.load(f)
+    torch.backends.cudnn.deterministic = True  # this rank's own process
+    world = init_distributed(check["device"])
+    import numpy as np
+
+    with np.load(os.path.join(work, "ddp_batch.npz")) as z:
+        batch = {k: z[k] for k in ("source", "target")}
+    model, state, step, batch = ddp_check_parts(check, world.device, world,
+                                                batch)
+    rows = local_batch_rows(world, DDP_BATCH)[1]
+    local = {k: batch[k][rows] for k in ("source", "target")}
+    reset_kernel_counts()
+    m = step(state, local)
+    counts = kernel_counts()
+    ref = torch.load(os.path.join(work, "ddp_ref.pt"))
+    errs = {k: {} for k in ref}
+    crc, equal = 0, float(m["total"]) == float(ref["halves"]["total"])
+    for name, p in model.named_parameters():
+        g = p.grad.detach().cpu()
+        for k, r in ref.items():
+            want = r["grads"][name]
+            errs[k][name] = float((g - want).abs().max()
+                                  / max(float(want.abs().max()), 1e-30))
+        equal = equal and torch.equal(g, ref["halves"]["grads"][name])
+        crc = zlib.crc32(g.numpy().tobytes(), crc)
+    worst = {k: max(e, key=e.get) for k, e in errs.items()}
+    total = float(m["total"])
+
+    def sync():
+        if world.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn) -> list[float]:
+        out = []
+        for _ in range(DDP_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    step_ms = timed(lambda: step(state, local))
+    n_params = sum(p.numel() for p in model.parameters())
+    buf = torch.zeros(n_params, device=world.device)
+    reduce_ms = timed(lambda: dist.all_reduce(buf))
+    row = {"rank": world.rank, "backend": world.backend, "size": world.size,
+           "device": str(world.device), "launches": counts,
+           "total": total,
+           **{f"total_{k}": float(r["total"]) for k, r in ref.items()},
+           **{f"max_rel_err_{k}": errs[k][w] for k, w in worst.items()},
+           **{f"worst_tensor_{k}": w for k, w in worst.items()},
+           "bitwise_equal_halves": equal,
+           "grad_crc32": crc, "step_ms": step_ms,
+           "all_reduce_ms": reduce_ms, "all_reduce_bytes": 4 * n_params}
+    with open(os.path.join(work, f"ddp_rank{world.rank}.json"), "w") as f:
+        json.dump(row, f)
+    shutdown_distributed()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_logs(logs: str, nproc: int) -> dict:
+    """{rank: stdout text, "err<rank>": stderr text} of the ranks' log
+    files under `logs` (torchrun's `--redirects 3` layout:
+    `<run>/attempt_<k>/<rank>/stdout.log`)."""
+    out = {}
+    for dirpath, _, files in os.walk(logs):
+        if "stdout.log" in files and os.path.basename(dirpath).isdigit():
+            rank = int(os.path.basename(dirpath))
+            for stream, key in (("stdout", rank), ("stderr", f"err{rank}")):
+                with open(os.path.join(dirpath, f"{stream}.log")) as f:
+                    out[key] = f.read()
+    return out
+
+
+def _ranks_done(procs: list, logs: str, nproc: int, name: str,
+                timeout_s: float) -> list[str]:
+    """Wait for `procs`; each rank's stdout in rank order; fails on a
+    nonzero exit (naming the ranks' stderr tails)."""
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise AssertionError(f"{name}: ranks still running after "
+                                 f"{timeout_s} s")
+    out = _rank_logs(logs, nproc)
+    bad = [p.returncode for p in procs if p.returncode != 0]
+    if bad:
+        agent = os.path.join(logs, "agent.log")
+        tail = ""
+        if os.path.exists(agent):
+            with open(agent) as f:
+                tail = f.read()[-2000:]
+        raise AssertionError(
+            f"{name}: rc {bad}: {tail} "
+            + " ".join(out.get(f"err{r}", "")[-2000:] for r in range(nproc)))
+    return [out[r] for r in range(nproc)]
+
+
+def _rank_env() -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=root + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def start_torchrun(nproc: int, argv: list, work: str, name: str,
+                   threads: int | None = None) -> tuple:
+    """Start `python -m torch.distributed.run --nproc_per_node nproc
+    argv` from the checkout, each rank's output in its own files
+    (`--redirects 3`); `(procs, logs, nproc, name)` for `finish`.
+    `threads`: each rank's OMP_NUM_THREADS (torchrun's default is 1)."""
+    logs = os.path.join(work, f"{name}_ranks")
+    os.makedirs(logs)
+    env = _rank_env()
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
+    with open(os.path.join(logs, "agent.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+             "--master_port", str(free_port()), "--redirects", "3",
+             "--log-dir", logs, *argv], stdout=out,
+            stderr=subprocess.STDOUT, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return [proc], logs, nproc, name
+
+
+def finish(started: tuple, timeout_s: float = 600) -> list[str]:
+    procs, logs, nproc, name = started
+    return _ranks_done(procs, logs, nproc, name, timeout_s)
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def train_launches(steps: int) -> dict:
+    """A FlowNet-C training run's launches with no eval: each of the five
+    float32 kernels once a step."""
+    return want_counts(corr=steps, corr_bwd_f1=steps, corr_bwd_f2=steps,
+                       warp_fwd=steps, warp_flow_grad=steps)
+
+
+def ddp_reference(work: str, check: dict) -> list[float]:
+    """The check's one-process references in work/ddp_ref.pt, at the
+    seed's weights: the step of all DDP_BATCH rows ("whole") and the mean
+    of the two halves' steps ("halves"), each the loss and every
+    gradient; returns the whole batch's step, timed DDP_TIMED times (ms,
+    host clock to a synchronize)."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.parallel.mesh import World
+
+    device = torch.device(check["device"])
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    refs, one_ms, halves = {}, [], []
+    with cudnn_deterministic():
+        model, state, step, batch = ddp_check_parts(
+            check, device, World(np.zeros((1, 1, 1))))
+        np.savez(os.path.join(work, "ddp_batch.npz"),  # the ranks' rows
+                 **{k: batch[k] for k in ("source", "target")})
+        weights = {k: v.clone() for k, v in model.state_dict().items()}
+        for lo, hi in ((0, DDP_BATCH), (0, DDP_BATCH // 2),
+                       (DDP_BATCH // 2, DDP_BATCH)):
+            # each gradient at the seed's weights (a step updates them;
+            # the Adam state moves no gradient)
+            model.load_state_dict(weights)
+            rows = {k: batch[k][lo:hi] for k in ("source", "target")}
+            m = step(state, rows)
+            got = {"total": m["total"].cpu(),
+                   "grads": {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()}}
+            if hi - lo < DDP_BATCH:
+                halves.append(got)
+                continue
+            refs["whole"] = got
+            for _ in range(DDP_TIMED):
+                sync()
+                t1 = time.perf_counter()
+                step(state, rows)
+                sync()
+                one_ms.append(1e3 * (time.perf_counter() - t1))
+        a, b = halves
+        # the all-reduce's arithmetic: the sum of two, halved
+        refs["halves"] = {"total": (a["total"] + b["total"]) / 2,
+                          "grads": {n: (a["grads"][n] + b["grads"][n]) / 2
+                                    for n in a["grads"]}}
+        torch.save(refs, os.path.join(work, "ddp_ref.pt"))
+    del model, state, step, m
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return one_ms
+
+
+def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
+               clearing: threading.Thread | None = None
+               ) -> tuple[dict, dict]:
+    """Data parallelism on the card: two phases, `ddp_flownet_c` and
+    `ddp_nccl_world1`.
+
+    First, at once, beside each other on the card and beside `clearing`
+    (the earlier runs' removal; their step times read so): `torchrun
+    --nproc_per_node 2 -m deepof_tpu_torch train --multihost` for
+    DDP_STEPS steps at global batch 8 (each rank's launches from its
+    summary's `kernel_launches`, its step, `dist_backend`, finite
+    losses in rank 0's records); `torchrun --nproc_per_node 1 ...
+    --multihost` over NCCL (its step's all_reduce runs, an identity at
+    world one); and the plain `train` in this process at the NCCL
+    rank's settings and seed. The NCCL rank and the plain run use
+    cuDNN's deterministic algorithms (`deterministic_cli`), so every
+    loss must be the same bits: a reduction that moved the gradient (a
+    wrong divisor, a zeroed or shifted buffer) shows from step 2 on.
+
+    Then, with nothing else running (`clearing` joined), the check: the
+    one-process references (`ddp_reference`), then `ddp_rank` in two
+    ranks under torchrun on the one card, so over gloo (NCCL refuses two
+    ranks on one device), each on its 4 rows: the averaged gradient
+    within DDP_TOL of each tensor's largest entry of the whole batch's
+    and the loss within DDP_LOSS_RTOL, within DDP_HALVES_TOL of the mean
+    of the two halves' steps, both ranks' gradients the same bits, each
+    kernel launched once in each rank's step; each rank's step and
+    all-reduce milliseconds.
+
+    `check` and `extra` (the command line's flags) set a CPU
+    rehearsal's size and device."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    log_dir = os.path.join(work, "ddp_cli")
+    cli = start_torchrun(2, [
+        "-m", "deepof_tpu_torch", "train", "--multihost", *DDP_RUN,
+        "--set", f"data.batch_size={DDP_BATCH}",
+        "--set", f"train.eval_batch_size={DDP_BATCH}",
+        "--steps", str(DDP_STEPS), "--log-dir", log_dir, *extra],
+        work, "ddp_cli")
+    args = [*DDP_RUN, "--set", "data.batch_size=4", "--set",
+            "train.eval_batch_size=4", "--steps", str(DDP_STEPS), *extra]
+    rank_dir = os.path.join(work, "nccl_world1")
+    nccl = start_torchrun(1, [os.path.abspath(__file__), "deterministic_cli",
+                              "train", "--multihost", *args,
+                              "--log-dir", rank_dir], work, "nccl")
+    plain_dir = os.path.join(work, "nccl_plain")
+    with cudnn_deterministic():
+        plain = run_cli(["train", *args, "--log-dir", plain_dir],
+                        os.path.join(work, "nccl_plain.log"))
+    summaries = [last_json(o) for o in finish(cli)]
+    (nccl_out,) = finish(nccl)
+    runs_s = time.monotonic() - t0
+
+    t_wait = time.monotonic()
+    if clearing is not None:
+        clearing.join()  # the check's timings run alone
+    clearing_wait_s = time.monotonic() - t_wait
+    t_check = time.monotonic()
+    with open(os.path.join(work, "ddp_check.json"), "w") as f:
+        json.dump(check, f)
+    one_ms = ddp_reference(work, check)
+    t_ranks = time.monotonic()
+    import torch
+
+    # the ranks' CPU threads as this process's: a CPU rehearsal's
+    # convolutions then sum as the references did
+    finish(start_torchrun(2, [os.path.abspath(__file__), "ddp_rank", work],
+                          work, "ddp_check", threads=torch.get_num_threads()))
+    check_s = time.monotonic() - t_ranks
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"ddp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    os.remove(os.path.join(work, "ddp_ref.pt"))
+
+    records = read_records(log_dir)
+    first = records[0]
+    losses = [r["loss"] for r in records if r["kind"] == "train"]
+    # the check's seconds; the command line's are ddp_nccl_world1's
+    ddp_row = {"seconds": time.monotonic() - t_check,
+               "check_ranks_s": check_s, "clearing_wait_s": clearing_wait_s,
+               "check": {"ranks": ranks, "tol": DDP_TOL,
+                         "loss_rtol": DDP_LOSS_RTOL,
+                         "halves_tol": DDP_HALVES_TOL,
+                         "beside": "nothing",
+                         "one_process_step_ms": one_ms},
+               "cli": {"steps": DDP_STEPS, "global_batch": DDP_BATCH,
+                       "seconds": runs_s,
+                       "beside": "ddp_nccl_world1 and the earlier runs' "
+                                 "removal",
+                       "losses": losses,
+                       "first_record": {k: first.get(k) for k in (
+                           "message", "dist_backend", "world_size")},
+                       "ranks": [{k: s.get(k) for k in (
+                           "dist_backend", "world_size", "step_ms_median",
+                           "phase_dispatch_ms_median",
+                           "items_per_sec_per_chip", "pipeline_depth",
+                           "kernel_launches")} for s in summaries]}}
+    emit("ddp_flownet_c", **ddp_row)
+    summary = last_json(nccl_out)
+    # each step's loss and gradient norm (Adam's update hardly moves
+    # under a gradient off by a constant factor; the norm does)
+    got, want = ([(r["loss"], r["grad_norm"]) for r in read_records(d)
+                  if r["kind"] == "train"] for d in (rank_dir, plain_dir))
+    differ = [i + 1 for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    nccl_row = {
+        "seconds": runs_s,
+        "beside": "ddp_flownet_c's command line and the earlier runs' "
+                  "removal",
+        "cudnn_deterministic": True,
+        "dist_backend": summary.get("dist_backend"),
+        "world_size": summary.get("world_size"),
+        "losses": [a for a, _ in got], "plain_losses": [a for a, _ in want],
+        "grad_norms": [g for _, g in got],
+        "plain_grad_norms": [g for _, g in want],
+        "bitwise_equal": not differ and len(got) == len(want),
+        "first_differing_step": differ[0] if differ else None,
+        "max_rel_diff": max((abs(a - b) / abs(b) for x, y in zip(got, want)
+                             for a, b in zip(x, y)), default=None),
+        "step_ms_median": summary["step_ms_median"],
+        "plain_step_ms_median": plain["step_ms_median"],
+        "kernel_launches": summary["kernel_launches"]}
+    emit("ddp_nccl_world1", **nccl_row)
+    checks = {
+        "backend": all((r["backend"], r["size"], r["device"])
+                       == ("gloo", 2, "cuda:0") for r in ranks),
+        "launches": all(r["launches"] == train_launches(1) for r in ranks),
+        "grads": all(r["max_rel_err_whole"] <= DDP_TOL
+                     and r["max_rel_err_halves"] <= DDP_HALVES_TOL
+                     for r in ranks),
+        "loss": all(abs(r["total"] - r["total_whole"])
+                    <= DDP_LOSS_RTOL * abs(r["total_whole"])
+                    and abs(r["total"] - r["total_halves"])
+                    <= DDP_HALVES_TOL * abs(r["total_halves"])
+                    for r in ranks),
+        "same_bits": ranks[0]["grad_crc32"] == ranks[1]["grad_crc32"]
+        and ranks[0]["total"] == ranks[1]["total"],
+        "cli_backend": all((s["dist_backend"], s["world_size"])
+                           == ("gloo", 2) for s in summaries)
+        and (first["dist_backend"], first["world_size"]) == ("gloo", 2),
+        "cli_launches": all(s["kernel_launches"] == train_launches(DDP_STEPS)
+                            for s in summaries),
+        "cli_losses": len(losses) == DDP_STEPS
+        and all(np.isfinite(losses)),
+        "nccl_backend": (nccl_row["dist_backend"], nccl_row["world_size"])
+        == ("nccl", 1),
+        "nccl_launches": summary["kernel_launches"]
+        == train_launches(DDP_STEPS) == plain["kernel_launches"],
+        # every step's loss and gradient norm the same bits as the
+        # plain run's
+        "nccl_losses": len(got) == DDP_STEPS and nccl_row["bitwise_equal"]
+        and bool(np.isfinite(np.asarray(got, float)).all())}
+    if not all(checks.values()):
+        raise AssertionError(f"ddp_flownet_c / ddp_nccl_world1: {checks}")
+    return ddp_row, nccl_row
+
+
+def elastic_drill_card(work: str, args: list = DRILL_ARGS) -> dict:
+    """`python -m deepof_tpu_torch.tools.elastic_drill` on the card
+    (DRILL_ARGS): its JSON verdict must read completed, one re-form, one
+    lost host, the final checkpoint verified and `tail` rc 5. Each
+    host's launches are the sum of its incarnations' summaries
+    (host-<i>/stdout.log; the SIGKILLed one writes none): the five
+    float32 kernels once a step, nothing else."""
+    t0 = time.monotonic()
+    log_dir = os.path.join(work, "elastic")
+    res = subprocess.run(
+        [sys.executable, "-m", "deepof_tpu_torch.tools.elastic_drill",
+         *args, "--log-dir", log_dir], capture_output=True,
+        text=True, timeout=660,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    verdict = json.loads(res.stdout) if res.stdout.strip() else {}
+    hosts = {}
+    for i in range(3):
+        path = os.path.join(log_dir, f"host-{i}", "stdout.log")
+        runs = []
+        if os.path.exists(path):
+            with open(path) as f:
+                for ln in f:
+                    if ln.startswith("{\"") and "kernel_launches" in ln:
+                        runs.append(json.loads(ln)["kernel_launches"])
+        hosts[f"host-{i}"] = {
+            "incarnations": len(runs),
+            "launches": {k: sum(r[k] for r in runs) for k in
+                         (runs[0] if runs else {})}}
+    keys = ("completed", "rc", "generation", "reforms", "lost_hosts",
+            "steps_lost", "resumed_step", "max_step", "recovery_wall_s",
+            "wall_s", "ckpt_ok", "tail_rc")
+    row = {"seconds": time.monotonic() - t0,
+           "verdict": {k: verdict.get(k) for k in keys},
+           "hosts": hosts}
+    emit("elastic_drill", **row)
+    survivors = [hosts["host-0"], hosts["host-2"]]
+    checks = {
+        "verdict": res.returncode == 0 and verdict.get("completed") is True
+        and verdict.get("reforms") == 1 and verdict.get("lost_hosts") == 1
+        and verdict.get("max_step") == 10 and verdict.get("ckpt_ok") is True
+        and verdict.get("tail_rc") == 5,
+        "launches": all(
+            h["incarnations"] == 2 and h["launches"]
+            == train_launches(h["launches"]["corr"])
+            and h["launches"]["corr"] > 0 for h in survivors)}
+    if not all(checks.values()):
+        raise AssertionError(f"elastic_drill: {checks} "
+                             f"{res.stderr[-2000:]}")
+    return row
+
+
+class Prewrite:
+    """Write the Sintel tree (`write_sintel`) on a thread while the main
+    thread waits on the kernels' nvcc build, into a directory under
+    `build/`; `move_into(work)` hands it to the run's directory for
+    `cli_sintel` (and the later Sintel phases), `cleanup` removes what is
+    left. Joined before any timing starts."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_fixtures-",
+                                    dir=work_root())
+        self.seconds = None
+        self.error = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        t0 = time.monotonic()
+        try:
+            write_sintel(os.path.join(self.dir, "sintel"))
+        except BaseException as e:  # re-raised on the main thread
+            self.error = e
+        self.seconds = time.monotonic() - t0
+
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+
+    def move_into(self, work: str) -> None:
+        os.rename(os.path.join(self.dir, "sintel"),
+                  os.path.join(work, "sintel"))
+
+    def cleanup(self):
+        self._thread.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def clear_in_background(work: str) -> threading.Thread:
+    """Remove what `work` holds now (the earlier phases' runs: GBs of
+    checkpoints) on a thread, while the subprocess phases that follow
+    run; the final cleanup then has only their own directories left."""
+    names = [os.path.join(work, n) for n in os.listdir(work)]
+
+    def run():
+        for path in names:
+            if os.path.isdir(path) and not os.path.islink(path):
+                shutil.rmtree(path, ignore_errors=True)
+            else:
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread
+
+
 def main() -> int:
     import torch
 
@@ -6742,8 +7333,15 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     t0 = time.monotonic()
-    info = build.build_all()
+    prewrite = Prewrite()  # the Sintel tree, beside the nvcc build
+    try:
+        info = build.build_all()
+        prewrite.join()  # before any timing
+    except BaseException:
+        prewrite.cleanup()
+        raise
     emit("build", seconds=time.monotonic() - t0,
+         sintel_fixture_s=prewrite.seconds,
          seconds_by_source={k: v["seconds"] for k, v in info.items()},
          libraries={k: v["path"] for k, v in info.items()},
          ptxas={k: [ln.strip() for ln in v["log"].splitlines()
@@ -6817,7 +7415,9 @@ def main() -> int:
     stream_row = serve_stream(cfg)
     http_row = serve_http(cfg)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=work_root())
+    prewrite.move_into(work)
     warmup = None
+    clearing = None
     try:
         train_row = train(ExperimentConfig(
             data=DataConfig(dataset="synthetic"),
@@ -6835,7 +7435,7 @@ def main() -> int:
         cli_bf16_row = cli_train_flownet_c_bf16(work)
         gather_row = cli_train_gather_bf16(work)
         repeat_flownet_cs(work)
-        sintel_row = cli_sintel(work)
+        sintel_row = cli_sintel(work, prewrite.seconds)
         job_row = cli_train_job(work)
         preempt_row = cli_preempt_faults(work)
         # the artifact store's single writer runs beside cli_serve
@@ -6853,11 +7453,20 @@ def main() -> int:
         vgg_row = cli_train_vgg(work)
         ucf_row = cli_train_ucf101(work)
         recipe_row = cli_recipe(work)
+        # this slice's paths: ranks on the card, and the elastic pool;
+        # the earlier runs are removed meanwhile
+        torch.cuda.empty_cache()  # the subprocesses share the card
+        clearing = clear_in_background(work)
+        ddp_row, nccl_row = ddp_phases(work, clearing=clearing)
+        drill_row = elastic_drill_card(work)
     finally:
         if warmup is not None and warmup[0].poll() is None:
             warmup[0].kill()  # a phase before publish_artifacts failed
             warmup[0].wait()
+        if clearing is not None:
+            clearing.join()
         shutil.rmtree(work, ignore_errors=True)
+        prewrite.cleanup()
     # launches of each warp kernel on each training path, counted from 0
     # just before it; the final line's `launches` are the command line's
     paths = {"train": train_row, "cli_train": cli_row,
@@ -6907,6 +7516,16 @@ def main() -> int:
     corr_paths.update({f"cli_train_job_{name}": r["launches"]
                        for name, r in job_row["runs"].items()})
     corr_paths["cli_preempt_faults"] = preempt_row["launches"]
+    # data parallelism and the elastic pool, each process's own counts:
+    # the two ranks' check step, their `train --multihost` run, the NCCL
+    # rank, and each surviving elastic host's incarnations summed
+    for r in ddp_row["check"]["ranks"]:
+        corr_paths[f"ddp_flownet_c_check_rank{r['rank']}"] = r["launches"]
+    for r, s in enumerate(ddp_row["cli"]["ranks"]):
+        corr_paths[f"ddp_flownet_c_rank{r}"] = s["kernel_launches"]
+    corr_paths["ddp_nccl_world1"] = nccl_row["kernel_launches"]
+    for h in ("host-0", "host-2"):
+        corr_paths[f"elastic_drill_{h}"] = drill_row["hosts"][h]["launches"]
     for key, counter in (("fwd", "warp_fwd"),
                          ("flow_grad", "warp_flow_grad")):
         by_path[key].update({p: c[counter] for p, c in corr_paths.items()})
@@ -7175,7 +7794,10 @@ def main() -> int:
                         "cli_bench": bench_row["seconds"],
                         "cli_train_vgg": vgg_row["seconds"],
                         "cli_train_ucf101": ucf_row["seconds"],
-                        "cli_recipe": recipe_row["seconds"]})
+                        "cli_recipe": recipe_row["seconds"],
+                        "ddp_flownet_c": ddp_row["seconds"],
+                        "ddp_nccl_world1": nccl_row["seconds"],
+                        "elastic_drill": drill_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
         warp_entry("warp_fwd", "fwd"),
@@ -7219,5 +7841,21 @@ def main() -> int:
     return 0
 
 
+def deterministic_cli(argv: list[str]) -> int:
+    """`deepof_tpu_torch.cli.main(argv)` under cuDNN's deterministic
+    algorithms (`ddp_nccl_world1`'s NCCL rank, beside a plain run in the
+    same mode)."""
+    import torch
+
+    from deepof_tpu_torch import cli
+
+    torch.backends.cudnn.deterministic = True
+    return cli.main(argv)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ddp_rank"]:  # one rank of ddp_flownet_c's check
+        sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["deterministic_cli"]:
+        sys.exit(deterministic_cli(sys.argv[2:]))
     sys.exit(main())

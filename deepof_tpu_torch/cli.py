@@ -31,6 +31,10 @@ Usage:
     python -m deepof_tpu_torch train --preset flyingchairs --data-path /data \
         --recipe recipe.json --log-dir /runs/r1   # staged: ckpt-stage<i>/
     python -m deepof_tpu_torch bench --data-only --recipe recipe.json
+    torchrun --nproc_per_node 2 -m deepof_tpu_torch train --multihost \
+        --model flownet_c --synthetic --log-dir /runs/ddp   # two ranks
+    python -m deepof_tpu_torch train --model flownet_c --synthetic \
+        --elastic 3 --max-steps 100 --log-dir /runs/el  # an elastic pool
     python -m deepof_tpu_torch analyze --log-dir /runs/r1 [--no-plot]
     python -m deepof_tpu_torch tail --log-dir /runs/c1 [--fleet] [--follow]
     python -m deepof_tpu_torch verify-ckpt /runs/fc1
@@ -99,8 +103,16 @@ that holds checkpoints resumes from the newest one; `train` latches a
 SIGTERM from its start, and a SIGTERM stops it after a clean final
 checkpoint. `--device {cuda,cpu}` (default cuda) is this package's own;
 it takes the place of JAX_PLATFORMS. Without a card, cuda raises:
-nothing falls back to the CPU. The JAX package's other flags raise,
-naming the ROADMAP item that ports them.
+nothing falls back to the CPU. `--multihost` (any verb but the readers)
+joins the `torch.distributed` world that torchrun describes before any
+model is built (`parallel/mesh.py::init_distributed`: NCCL when each
+rank has a card, gloo when ranks share one or run on the CPU); `train
+--elastic N --max-steps T` (or `elastic.hosts` > 1) runs the elastic
+coordinator (`train/elastic.py`) before anything makes a CUDA context,
+and refuses `--multihost`, `--epochs` and a recipe, as the JAX command
+line does; its children come back as `train --config-json ...
+--host-index <i> --device <the coordinator's --device>`. Every JAX flag is taken; `mesh.spatial` or
+`mesh.time` > 1 raises, naming ROADMAP item 10.
 
 Float32 means float32, as the JAX reference computes: the package's
 entry points turn TF32 off (`core.device.disable_tf32`:
@@ -121,22 +133,7 @@ import os
 import time
 
 from .core.config import (PRESETS, ExperimentConfig, config_from_dict,
-                          get_config, raise_unported)
-
-#: The JAX package's flags this package does not take yet -> the ROADMAP
-#: Queue A item that ports them.
-_UNPORTED_FLAGS = {
-    "--elastic": "10 (elastic training)",
-    "--multihost": "10 (parallelism)",
-}
-
-
-def _add_unported(p: argparse.ArgumentParser, flag: str,
-                  takes_value: bool = False) -> None:
-    kw = {} if takes_value else {"action": "store_true"}
-    p.add_argument(flag, default=None, **kw,
-                   help=f"not ported (ROADMAP Queue A item "
-                        f"{_UNPORTED_FLAGS[flag]})")
+                          get_config)
 
 
 def _parse_value(raw: str):
@@ -245,7 +242,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the model runs (default cuda, which raises "
                         "without a card)")
-    _add_unported(p, "--multihost")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torch.distributed world that torchrun "
+                        "describes (parallel/mesh.py::init_distributed): "
+                        "NCCL when each rank has a card, gloo when ranks "
+                        "share one or run on the CPU; --set "
+                        "data.batch_size is the global batch")
 
 
 def main(argv=None) -> int:
@@ -261,7 +263,17 @@ def main(argv=None) -> int:
                          help="a staged training recipe (a RecipeConfig "
                               "JSON, train/recipe.py); implies "
                               "recipe.enabled, --set recipe.* overrides it")
-    _add_unported(p_train, "--elastic", takes_value=True)
+    p_train.add_argument("--elastic", type=int, default=None, metavar="N",
+                         help="the elastic trainer pool (train/elastic.py): "
+                              "supervise N single-host trainer processes "
+                              "that survive the loss or preemption of a "
+                              "host (barrier, re-form on the survivors, "
+                              "resume from the newest verified checkpoint). "
+                              "Needs --max-steps (the absolute target "
+                              "step); overrides elastic.hosts; <= 1 trains "
+                              "one process")
+    p_train.add_argument("--host-index", type=int, default=None,
+                         help=argparse.SUPPRESS)  # an elastic child's index
     p_train.add_argument("--config-json", default=None,
                          help=argparse.SUPPRESS)  # a config tree as JSON
     p_train.add_argument("--profile", action="store_true",
@@ -536,6 +548,15 @@ def main(argv=None) -> int:
         return _tail(args)
     if args.cmd == "analyze":
         return _analyze(args)
+    cfg = None
+    if args.cmd == "train":
+        # the elastic coordinator makes no CUDA context and trains
+        # nothing: dispatched before the torch import, so its children
+        # start at once (it refuses --multihost)
+        cfg = _build_cfg(args)
+        rc = _maybe_elastic(cfg, args)
+        if rc is not None:
+            return rc
     from .core.supervise import process_age_s
 
     # a server's boot split (serve/server.py): what came before main,
@@ -553,14 +574,30 @@ def main(argv=None) -> int:
         return _bench(args)
     if args.cmd == "artifacts":
         return _artifacts_deep(args)
-    raise_unported([(flag, item) for flag, item in _UNPORTED_FLAGS.items()
-                     if getattr(args, flag[2:].replace("-", "_"), None)])
-    cfg = _build_cfg(args)
+    if args.multihost:
+        # before any model: the trainer's world is the process group's
+        from .parallel.mesh import init_distributed, shutdown_distributed
+
+        init_distributed(device=args.device)
+        try:
+            return _main(args, boot, cfg)
+        finally:
+            shutdown_distributed()
+    return _main(args, boot, cfg)
+
+
+def _main(args, boot: dict, cfg: ExperimentConfig | None) -> int:
+    """`main` after the process group (if any) is joined; `cfg` the
+    config `train` built for its elastic dispatch (None: build it)."""
+    from .parallel.mesh import check_mesh
+
+    cfg = cfg if cfg is not None else _build_cfg(args)
     if getattr(args, "trace", False):
         cfg = cfg.replace(obs=dataclasses.replace(cfg.obs, trace=True))
     if args.cmd == "config":
         print(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
         return 0
+    check_mesh(cfg.mesh)  # spatial or time > 1: item 10's last slice
 
     if args.cmd == "serve":
         return _serve(cfg, args, boot)
@@ -600,6 +637,11 @@ def main(argv=None) -> int:
         print(json.dumps({"written": written}))
         return 0
 
+    if args.cmd == "train":
+        if args.host_index is not None:  # an elastic child's identity
+            cfg = cfg.replace(elastic=dataclasses.replace(
+                cfg.elastic, host_index=args.host_index))
+
     from .train.loop import Trainer, install_preemption_latch
 
     profile_steps = None
@@ -633,8 +675,40 @@ def main(argv=None) -> int:
         out = trainer.fit(num_epochs=args.epochs, max_steps=args.max_steps)
     else:  # eval
         out = trainer.evaluate(dump=args.dump_visuals)
-    print(json.dumps({k: float(v) for k, v in out.items()}))
+    print(json.dumps({k: (float(v) if isinstance(v, (int, float)) else v)
+                      for k, v in out.items()}))
     return 0
+
+
+def _maybe_elastic(cfg: ExperimentConfig, args) -> int | None:
+    """`train --elastic N` (or `elastic.hosts` > 1) outside an elastic
+    child (`--host-index`): run the coordinator (train/elastic.py) and
+    return its rc, before anything makes a CUDA context; None for a
+    plain run."""
+    if args.host_index is not None:
+        return None
+    hosts = args.elastic if args.elastic is not None else cfg.elastic.hosts
+    if not (hosts and hosts > 1 and cfg.elastic.host_index < 0):
+        return None
+    if args.multihost:
+        raise SystemExit(
+            "train: --elastic and --multihost are exclusive: the elastic "
+            "pool supervises one single-host trainer process a host itself")
+    if args.epochs is not None:
+        raise SystemExit("train: elastic mode needs an absolute target step "
+                         "(--max-steps), not --epochs")
+    if cfg.recipe.enabled and cfg.recipe.stages:
+        raise SystemExit(
+            "train: --elastic and --recipe are exclusive: the recipe engine "
+            "drives staged single-pool runs (train/recipe.py); run each "
+            "stage elastically from a config of its own instead")
+    from .train.elastic import run_elastic
+
+    try:
+        return run_elastic(cfg, hosts=hosts, max_steps=args.max_steps,
+                           device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"train --elastic: {e}")
 
 
 def _warmup(cfg: ExperimentConfig, args) -> int:

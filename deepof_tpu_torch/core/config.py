@@ -4,13 +4,14 @@ that the PyTorch serving and training paths read, with its presets.
 Field names and defaults are those of the JAX package, so a config dict
 written by `dataclasses.asdict` of a `deepof_tpu` config loads here
 through `config_from_dict`. Keys this package does not read are ignored
-and named in one warning, so a full JAX config JSON loads without error.
-Those are settings of the mesh, elastic training, the compile cache
-and the metrics port: none of them changes a result, but `elastic.hosts` > 1, which makes the JAX
-`train` an elastic run of that many trainers, raises. Settings
-that change what the training path computes are carried; `check_trainable`
-raises on values that no model can honour, and `raise_unported` names
-the ROADMAP item of a setting not ported yet.
+and named in one warning, so a full JAX config JSON loads without error:
+the compile cache's two keys, which drive XLA's persistent cache (the
+port's kernels are libraries built once under a hash of their sources).
+The mesh (`parallel/mesh.py`), the elastic pool (`train/elastic.py`) and
+the metrics port are carried. Settings that change what the training
+path computes are carried; `check_trainable` raises on values that no
+model can honour, and `raise_unported` names the ROADMAP item of a
+setting not ported yet (`mesh.spatial` or `mesh.time` > 1).
 """
 
 from __future__ import annotations
@@ -103,6 +104,17 @@ class DataConfig:
     # byte-bounded LRU of decoded native-resolution images
     cache_decoded: bool = True
     cache_bytes: int = 4 << 30
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's axes (`parallel/mesh.py`): a `torch.distributed`
+    world of one device a rank, every rank on the data axis. spatial or
+    time > 1 raises (ROADMAP Queue A item 10)."""
+
+    data: int = -1  # -1: every rank on the data axis
+    spatial: int = 1  # spatial context-parallel shards of H
+    time: int = 1  # temporal pair-parallel shards (Sintel T-1 pairs)
 
 
 @dataclass(frozen=True)
@@ -415,12 +427,12 @@ class ResilienceConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """The JAX package's `ObsConfig` (`obs/`) but its metrics-port key
-    (ROADMAP Queue A item 10): the span trace, the heartbeat with its
-    wedge watchdog, the FLOPs telemetry, the executable ledger
-    (`obs/ledger.py`), the serving SLO (`serve/engine.py`), label-free
-    quality scoring (`obs/quality.py`) and the incident plane
-    (`obs/incident.py`)."""
+    """The JAX package's `ObsConfig` (`obs/`): the span trace, the
+    heartbeat with its wedge watchdog, the FLOPs telemetry, the
+    executable ledger (`obs/ledger.py`), the serving SLO
+    (`serve/engine.py`), label-free quality scoring (`obs/quality.py`),
+    the incident plane (`obs/incident.py`) and the elastic
+    coordinator's metrics port."""
 
     # write a Chrome trace-event timeline to <log_dir>/trace.json
     trace: bool = False
@@ -449,6 +461,10 @@ class ObsConfig:
     slo_latency_ms: float = 0.0
     # the allowed bad fraction; burn = bad fraction / budget
     slo_error_budget: float = 0.01
+    # a GET /metrics + /healthz endpoint (obs/export.py) on the elastic
+    # coordinator (train/elastic.py): None = off, 0 = an ephemeral port
+    # (announced on stdout), > 0 = that port
+    metrics_port: int | None = None
     # label-free quality scoring of served requests (obs/quality.py):
     # the sampled fraction (0: off, nothing built), the sampler's seed,
     # the scorer queue's bound (full: the sample is dropped and counted)
@@ -554,6 +570,65 @@ class RecipeConfig:
 
 
 @dataclass(frozen=True)
+class ElasticConfig:
+    """The elastic trainer pool (`train/elastic.py`), the JAX package's
+    fields and defaults: a stdlib coordinator supervises N single-host
+    trainer processes and survives the loss or preemption of a host. On
+    a lost or wedged host it bumps the generation: the survivors stop at
+    a barrier (SIGTERM: a verified checkpoint and exit 0), the world
+    re-forms on them (each host's data stream re-seeded with the world
+    size and the generation), and each resumes from the newest valid
+    checkpoint of the shared directory.
+
+    Two roles share it: the coordinator (`train --elastic N`, or
+    ``hosts`` > 1 with ``host_index`` < 0) and the trainer children it
+    spawns (``host_index`` >= 0), whose config the coordinator writes to
+    <log_dir>/host-<i>/config.json."""
+
+    # coordinator world size; 0/1 = plain single-process training (the
+    # `train --elastic N` flag overrides it)
+    hosts: int = 0
+    # abort instead of re-forming below this many surviving hosts
+    min_hosts: int = 1
+    # --- a child's identity (written by the coordinator) ---
+    host_index: int = -1
+    num_hosts: int = 0  # the generation's world size
+    generation: int = 0
+    # the host that writes the shared checkpoints this generation (the
+    # lowest survivor); every host restores from them
+    primary_host: int = 0
+    # the absolute global step the run trains to (`--max-steps` of
+    # `train --elastic N`): a respawned trainer stops where the run ends
+    target_step: int = 0
+    # the shared checkpoint directory ("" = <log_dir>/ckpt)
+    ckpt_dir: str = ""
+    # step-skew limiter: a host waits (touching its heartbeat) while it
+    # is more than this many steps ahead of the slowest live host, the
+    # floor the coordinator publishes to `world_file`; 0 disables
+    sync_ahead: int = 4
+    world_file: str = ""
+    # JAX's count of virtual CPU devices a CPU child shards its batch
+    # over (which changes no result): carried, read nowhere. The
+    # children train on the coordinator's `--device`
+    virtual_devices: int = 1
+    # --- the coordinator's supervision ---
+    poll_s: float = 0.5
+    # a heartbeat.json older than this is a lost host
+    stale_after_s: float = 15.0
+    # a fresh heartbeat with >= 1 step and no progress for this long is
+    # a wedged host (0 disables)
+    wedge_after_s: float = 45.0
+    # seconds a spawned trainer may take to its first heartbeat
+    spawn_timeout_s: float = 300.0
+    # seconds the survivors get to save and exit after the barrier's
+    # SIGTERM before SIGKILL
+    barrier_timeout_s: float = 120.0
+    term_grace_s: float = 10.0
+    # give up after this many re-forms
+    max_reforms: int = 16
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "flyingchairs_flownet_s"
     model: str = "flownet_s"  # flownet_s | flownet_c | flownet_cs here
@@ -569,6 +644,8 @@ class ExperimentConfig:
     serve: ServeConfig = field(default_factory=ServeConfig)
     recipe: RecipeConfig = field(default_factory=RecipeConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -693,17 +770,7 @@ def config_from_dict(d: dict) -> ExperimentConfig:
     """Nested dict (e.g. a `deepof_tpu` config JSON) -> ExperimentConfig.
 
     Missing keys keep their defaults; keys this package does not read are
-    dropped and listed in one UserWarning. `elastic.hosts` > 1 raises
-    NotImplementedError naming ROADMAP item 10 (the JAX `train` would
-    run that many trainers)."""
-    elastic = d.get("elastic")
-    hosts = elastic.get("hosts", 0) if isinstance(elastic, dict) else 0
-    if isinstance(hosts, int) and hosts > 1:
-        # the JAX `train` runs an elastic coordinator over `hosts`
-        # trainers when `--elastic` is absent: dropping the key would
-        # train one process
-        raise_unported([(f"elastic.hosts={hosts} (an elastic run of "
-                         f"{hosts} trainers)", "10 (elastic training)")])
+    dropped and listed in one UserWarning."""
     ignored: list[str] = []
     cfg = _from_dict(ExperimentConfig, d, "", ignored)
     if ignored:

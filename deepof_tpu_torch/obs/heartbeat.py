@@ -29,6 +29,11 @@ The watchdog only observes and reports — it never kills the process
 (eval sweeps, checkpoint saves, compiles) are handled by `touch()`,
 which resets the activity clock without polluting the step-time
 estimate, plus the arm threshold of `MIN_BEATS_TO_ARM` completed steps.
+
+Its writers: the trainer (rank 0 of a world, `dist_backend` and
+`world_size` in its sample), each replica and the supervisor of the
+serving fleet, and the elastic coordinator (`train/elastic.py`: its
+`elastic_*` block, `device=None`), whose file `tail` reads for rc 5.
 """
 
 from __future__ import annotations

@@ -34,9 +34,10 @@ The training loop wires the sites ``decode`` (`resilience/healing.py`),
 ``assemble`` and ``dispatch`` (`train/loop.py`), ``fetch``
 (`train/metrics_log.py`, both fetchers) and the checkpoint sites
 (`train/checkpoint.py`); a serving replica of the fleet wires the
-replica sites (`serve/server.py::install_replica_faults`). The host
-sites belong to elastic training, which this package has not ported
-(ROADMAP Queue A item 10).
+replica sites (`serve/server.py::install_replica_faults`); an elastic
+pool's trainer child wires the host sites ``host_loss``, ``host_wedge``
+and ``preempt_notice`` (`train/elastic.py::maybe_host_fault`, called
+from `train/loop.py` after each call's heartbeat beat).
 
 Stdlib-only: `core/config.py` imports `FaultConfig` without a cycle.
 """

@@ -82,13 +82,19 @@ class CheckpointManager:
         every manifest (the staged recipe's {recipe_stage,
         recipe_stage_name, stage_start_step}); `read_manifest_extra`
         gives it back without loading the payload.
+    writer: False opens the directory restore-only: `save` is a no-op
+        returning None. The ranks of a world but rank 0, and an elastic
+        pool's hosts but the generation's primary, share the writer's
+        directory this way: one writer, so no prune races another's
+        write, and every reader restores the writer's commits.
     """
 
     def __init__(self, directory: str, keep: int = 3, create: bool = True,
                  verify: bool = True, log=None, info_log=None,
                  config_digest: str | None = None, injector=None,
-                 manifest_extra: dict | None = None):
+                 manifest_extra: dict | None = None, writer: bool = True):
         self.directory = os.path.abspath(directory)
+        self._writer = writer
         self._inj = injector
         self._manifest_extra = manifest_extra
         self.keep = keep
@@ -103,8 +109,13 @@ class CheckpointManager:
         self._restore_failures = 0
         self._restore_fallbacks = 0
         self._verify_failures = 0
-        if create:
+        if create and writer:
             os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def writer(self) -> bool:
+        """False on a restore-only manager."""
+        return self._writer
 
     def _warn(self, step: int, message: str) -> None:
         if self._log is not None:
@@ -142,7 +153,10 @@ class CheckpointManager:
 
     def save(self, state: TrainState) -> str | None:
         """Write a checkpoint of `state` at `state.step`; on failure (disk
-        full, ...) warn and return None, keeping the previous one."""
+        full, ...) warn and return None, keeping the previous one; None
+        on a restore-only manager (`writer=False`)."""
+        if not self._writer:
+            return None
         t0 = time.perf_counter()
         step = int(state.step)
         path = self._path(step)

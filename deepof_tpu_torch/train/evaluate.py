@@ -13,6 +13,11 @@ scored pair by pair, over all T-1 pairs, at the native size.
 `dump_visuals` writes what the JAX package writes with cv2.imwrite, under
 the same names: flow colours (`utils/flowviz.py`), the reconstruction and
 the ground truth's colours, as PNGs (`io/png.py`).
+
+Over a world of ranks (`parallel/mesh.py`) every rank loads the same
+full val batch, evaluates its own rows, and `gathered_eval_fn` gathers
+the outputs in rank order, so both protocols see the whole batch on
+every rank, as the JAX loop's allgathered eval does.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch.nn.functional as F
 
 from ..core.config import ExperimentConfig
 from ..io.png import write_png
+from ..parallel.mesh import (World, gather_rows, local_rows_of,
+                             mean_over_ranks)
 from ..utils.flowviz import flow_to_color
 from ..utils.metrics import flow_aae, flow_epe
 
@@ -62,6 +69,24 @@ def dump_visuals(out_dir: str, tag: str, flow: np.ndarray,
         if recon is not None:
             img = np.clip(recon[i, :, :, :3] * 255.0, 0, 255).astype(np.uint8)
             write_png(os.path.join(out_dir, f"{tag}_s{i}_recon.png"), img)
+
+
+def gathered_eval_fn(eval_fn, world: World):
+    """`eval_fn` over a world of ranks: each rank evaluates its rows of
+    the full batch it is given, and the outputs (flow, recon, logits) are
+    gathered in rank order and the objective averaged over the ranks
+    (equal rows a rank, so the mean of the means is the batch's mean).
+    `eval_fn` itself on a world of one."""
+    if not world.distributed:
+        return eval_fn
+
+    def run(model, batch: dict) -> dict:
+        out = eval_fn(model, local_rows_of(batch, world))
+        return {k: (mean_over_ranks(v, world) if k == "total"
+                    else gather_rows(np.asarray(v), world))
+                for k, v in out.items()}
+
+    return run
 
 
 def _wmean(pairs: list[tuple[float, int]]) -> float:

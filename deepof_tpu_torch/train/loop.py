@@ -70,7 +70,10 @@ checkpoints exist but none restores. `fit(num_epochs, max_steps)` trains:
 The summary holds the eval metrics, rates, median step and phase times,
 phase totals and counters, the checkpoint saves' seconds, the telemetry,
 the fetcher's `pipeline_*` counters (fetches, fetch seconds, retries,
-the most in flight) and `pipeline_depth`, the depth the loop ran at.
+the most in flight), `pipeline_depth`, the depth the loop ran at, and
+`kernel_launches`, each CUDA kernel's launches in this process over
+the fit (by counter, `ops/cuda/build.py::launch_counts`; a process of
+its own, a rank or an elastic host, reports its kernels this way).
 Depth 0 and depth d > 0 run the same step and give the same bits; only
 the time the host waits differs. Under `obs.incidents` the loop installs
 the incident recorder (`obs/incident.py`, role "trainer"): a NaN
@@ -79,8 +82,35 @@ rollback commits a `nan_rollback` bundle, the third in a row a critical
 critical `watchdog_wedge` one with the stack dump; the heartbeat's
 samples feed its ring and alert rules. The staged recipe
 (train/recipe.py) drives one Trainer a stage through the hooks below.
-Not ported (ROADMAP): elastic training, multi-host meshes, and the
-ledger.
+
+Over a world of ranks (`parallel/mesh.py`; `train --multihost` under
+`torchrun`), as the JAX loop over processes: each rank draws only its
+rows of the global batch (`local_batch_rows`) from its own stream
+(`data_stream_seed` over `process_seed`: seed + the rank's data
+coordinate), the step averages the gradients and metrics over the ranks
+(`train/step.py`), the parameters are broadcast from rank 0 after the
+build and the restore, rank 0 alone writes checkpoints, records, the
+trace, the heartbeat, the ledger, incidents, the profile and the
+visuals, every rank restores, and each rank evaluates its rows of the
+same val batch with the outputs gathered (`train/evaluate.py`). Two
+things differ from the JAX loop, where a rank that decides alone would
+leave the others waiting in a collective: the ranks agree on a SIGTERM
+stop at each call boundary (one host-group all_reduce), and the loop
+reads metrics inline (pipeline depth 0, the summary's
+`pipeline_depth`), so the divergence ladder's rollbacks fall at the same
+step on every rank. `StepTimer` counts the world's devices. The backend
+is named in the first record, the heartbeat and the summary
+(`dist_backend`, `world_size`).
+
+An elastic pool's trainer child (`train/elastic.py`; `elastic.host_index`
+>= 0) takes its hooks from the config the coordinator wrote: the shared
+checkpoint directory (`elastic.ckpt_dir`), written by the generation's
+primary only; its stream from `elastic_stream_seed` (seed, host, world
+size, generation, start step); the absolute `elastic.target_step`; the
+step-skew limiter before each call (`pace_to_world`); the host fault
+sites after each call's heartbeat beat (`maybe_host_fault`); and a
+config digest without its elastic identity or log dir, one for the
+whole pool.
 
 A float32 Trainer turns TF32 off (`core.device.disable_tf32`), so its
 convolutions compute in float32 on the card as the command line's do; a
@@ -98,7 +128,8 @@ import time
 import numpy as np
 import torch
 
-from ..core.config import ACTION_MODELS, ExperimentConfig, check_trainable
+from ..core.config import (ACTION_MODELS, ElasticConfig, ExperimentConfig,
+                           MeshConfig, check_trainable)
 from ..core.device import disable_tf32, resolve_device
 from ..data.augmentation import SEED_KEY, make_augment_fn
 from ..data.datasets import build_dataset
@@ -112,11 +143,16 @@ from ..obs.heartbeat import Heartbeat
 from ..obs.ledger import ExecutableLedger
 from ..obs.telemetry import (NOMINAL_BF16_TFLOPS, count_flops,
                              device_memory_summary, process_rss_bytes)
+from ..ops.cuda.build import launch_counts
+from ..parallel.mesh import (World, any_rank, broadcast_, build_mesh,
+                             elastic_stream_seed, host_barrier,
+                             local_batch_rows, process_seed)
 from ..resilience.faults import build_injector
 from ..resilience.healing import HealingSampler
 from ..resilience.verify import config_digest
 from .checkpoint import CheckpointManager, transfer_params
-from .evaluate import evaluate_aee, evaluate_ucf101
+from .elastic import maybe_host_fault, pace_to_world
+from .evaluate import evaluate_aee, evaluate_ucf101, gathered_eval_fn
 from .metrics_log import (AsyncFetcher, MetricsLogger, ProfilerSession,
                           StepTimer, SyncFetcher)
 from .schedule import step_decay_schedule
@@ -211,10 +247,16 @@ def install_preemption_latch() -> None:
         pass
 
 
-def data_stream_seed(seed: int, start_step: int) -> np.ndarray:
+def data_stream_seed(seed: int, start_step: int,
+                     world: World | None = None) -> np.ndarray:
     """Base seed of the data stream of a fit that begins at start_step:
-    (seed, start_step), so each resume draws a fresh stream (the data rng
-    is not part of the checkpoint)."""
+    (process_seed, start_step), as the JAX loop's. The process seed is
+    seed + the rank's data coordinate (`parallel/mesh.py`; seed itself
+    on a world of one), so ranks draw decorrelated rows; start_step
+    gives each resume a fresh stream (the data rng is not part of the
+    checkpoint)."""
+    if world is not None:
+        seed = process_seed(world, seed)
     return np.array([seed, start_step], dtype=np.uint32)
 
 
@@ -235,6 +277,10 @@ class Trainer:
     exec_names: the executable ledger's names of the train step and the
         eval step (`obs/ledger.py`); a recipe's stage i writes
         train_step_stage<i> and eval_step_stage<i>.
+    world: the ranks this trainer is one of (`parallel/mesh.py`; default
+        `build_mesh(cfg.mesh)` over the process group, a world of one
+        without one; an elastic child is a world of one). Over several
+        ranks `cfg.data.batch_size` is the global batch.
 
     Under `obs.ledger`, `fit` appends the train step's row to
     <log_dir>/ledger.jsonl at its first call, in the same pass that
@@ -255,8 +301,20 @@ class Trainer:
                  ckpt_dir: str | None = None,
                  manifest_extra: dict | None = None,
                  extra_stats=None, on_eval=None,
-                 exec_names: tuple[str, str] = ("train_step", "eval_step")):
+                 exec_names: tuple[str, str] = ("train_step", "eval_step"),
+                 world: World | None = None):
         check_trainable(cfg)
+        el = cfg.elastic
+        # an elastic pool's trainer child (train/elastic.py): a world of
+        # one, its hooks from the coordinator's config
+        self._elastic_child = el.host_index >= 0 and el.num_hosts > 0
+        if world is None:
+            world = (build_mesh(MeshConfig(), 1, 0) if self._elastic_child
+                     else build_mesh(cfg.mesh))
+        self.world = world
+        if world.device is not None and world.backend is not None:
+            device = world.device  # init_distributed placed this rank
+        primary = world.primary
         self._exec_names = exec_names
         # the fit's executable ledger (None outside a fit or when off),
         # and whether the eval step's row is still to be written
@@ -276,8 +334,9 @@ class Trainer:
             corr_stride=cfg.corr_stride, seed=cfg.train.seed,
             device=self.device, dtype=compute_dtype(cfg),
             image_size=cfg.data.crop_size or cfg.data.image_size)
-        self.logger = MetricsLogger(cfg.train.log_dir)
-        self.profiler = ProfilerSession(cfg.train.log_dir, enabled=profile,
+        self.logger = MetricsLogger(cfg.train.log_dir, primary=primary)
+        self.profiler = ProfilerSession(cfg.train.log_dir,
+                                        enabled=profile and primary,
                                         steps=profile_steps,
                                         device=self.device)
         # FLOPs of one optimizer step, counted at the first call of a fit
@@ -285,24 +344,39 @@ class Trainer:
         self._flops_per_step: float | None = None
         self.steps_per_epoch = max(
             self.dataset.num_train // cfg.data.batch_size, 1)
+        # the rows this rank draws a step (the global batch on one rank)
+        self.local_batch = local_batch_rows(world, cfg.data.batch_size)[0]
         self.schedule = step_decay_schedule(cfg.optim, self.steps_per_epoch)
         self.state = create_train_state(self.model, cfg.optim, self.schedule)
         n_params = sum(p.numel() for p in self.model.parameters())
-        self.logger.log("info", 0, message=f"model parameters: {n_params:,}")
+        self.logger.log("info", 0, message=f"model parameters: {n_params:,}",
+                        **self._world_stats())
         # one injector for the data path, the metrics read and the
         # checkpoints; None when injection is off
         self._inj = build_injector(cfg.resilience.faults)
         if self._inj is not None:
             self.logger.log("warn", 0, message="fault injection ENABLED "
                                                f"({cfg.resilience.faults})")
+        # an elastic pool shares one checkpoint directory, which the
+        # generation's primary host writes; over ranks, rank 0 writes
+        if not ckpt_dir and self._elastic_child and el.ckpt_dir:
+            ckpt_dir = el.ckpt_dir
+        writer = primary and (not self._elastic_child
+                              or el.host_index == el.primary_host)
+        # the digest is the pool's: without a host's identity or log dir,
+        # or each re-form would warn of a cross-config restore
+        digest_src = cfg if not self._elastic_child else cfg.replace(
+            train=dataclasses.replace(cfg.train, log_dir=""),
+            elastic=ElasticConfig())
         self.ckpt = CheckpointManager(
             ckpt_dir or os.path.join(cfg.train.log_dir, "ckpt"),
             keep=cfg.train.keep_ckpts,
             verify=cfg.resilience.verify_checkpoints,
             log=lambda s, m: self.logger.log("warn", s, message=m),
             info_log=lambda s, m: self.logger.log("info", s, message=m),
-            config_digest=config_digest(dataclasses.asdict(cfg)),
-            injector=self._inj, manifest_extra=manifest_extra)
+            config_digest=config_digest(dataclasses.asdict(digest_src)),
+            injector=self._inj, manifest_extra=manifest_extra,
+            writer=writer)
 
         # VGG16 trunk init from the public npz; fresh starts only: a
         # checkpoint to resume from takes precedence
@@ -344,11 +418,32 @@ class Trainer:
                 "scratch — `deepof_tpu_torch.resilience.verify.verify_run"
                 f"({cfg.train.log_dir!r})` gives per-checkpoint status; move "
                 "the ckpt directory aside to start fresh")
+        # one set of weights on every rank: rank 0's, after the build and
+        # the restore; no rank leaves before every restore is done (rank
+        # 0's first save must not race a reader)
+        broadcast_(list(self.model.parameters()), world)
+        host_barrier(world)
+
+        # a sharded eval takes equal rows a rank: the eval batch rounds
+        # to a multiple of the data axis (at least one row a shard)
+        shards = world.shape["data"]
+        eval_bs = max(cfg.train.eval_batch_size // shards, 1) * shards
+        if eval_bs != cfg.train.eval_batch_size:
+            self.logger.log(
+                "warn", 0,
+                message=f"eval_batch_size {cfg.train.eval_batch_size} not "
+                        f"divisible by data axis ({shards}); adjusted to "
+                        f"{eval_bs}")
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, eval_batch_size=eval_bs))
+            self.cfg = cfg
 
         smooth_border = cfg.model in SMOOTH_BORDER_MODELS
         self.train_step = make_train_step(self.model, cfg,
-                                          self.dataset.mean, smooth_border)
-        self.eval_fn = make_eval_fn(cfg, self.dataset.mean, smooth_border)
+                                          self.dataset.mean, smooth_border,
+                                          world=world)
+        self.eval_fn = gathered_eval_fn(
+            make_eval_fn(cfg, self.dataset.mean, smooth_border), world)
         # the augmentation of a staged batch (prefetch thread); None
         # when neither family is on
         self.augment = make_augment_fn(cfg.data.augment_geo,
@@ -358,14 +453,24 @@ class Trainer:
         """The host batch of micro-step `it` from its own rng; with
         augmentation, its seed is drawn next from that rng, where the
         JAX loop draws it, and travels with the batch (`SEED_KEY`)."""
-        batch = self.dataset.sample_train(self.cfg.data.batch_size, rng=rng)
+        batch = self.dataset.sample_train(self.local_batch, rng=rng)
         if self.augment is not None:
             batch[SEED_KEY] = np.int64(rng.randint(0, 2 ** 31))
         return batch
 
+    def _world_stats(self) -> dict:
+        """`dist_backend` and `world_size` under a process group (the
+        first record, the heartbeat, the summary), else nothing."""
+        if self.world.backend is None:
+            return {}
+        return {"dist_backend": self.world.backend,
+                "world_size": self.world.size}
+
     def evaluate(self, dump: bool = False) -> dict[str, float]:
         """The AEE protocol; with `dump`, the first val batch's visuals
-        go to <log_dir>/visuals. An action model's accuracy protocol."""
+        go to <log_dir>/visuals (rank 0's). An action model's accuracy
+        protocol."""
+        dump = dump and self.world.primary
         eval_fn = self.eval_fn
         if self._ledger is not None and self._eval_unrecorded:
             eval_fn = self._recording_eval_fn()
@@ -403,9 +508,21 @@ class Trainer:
         the heartbeat, the input pipeline and prefetcher, the tracer, and
         last the SIGTERM handler."""
         cfg = self.cfg
+        world = self.world
+        primary = world.primary
+        el = cfg.elastic
+        launches_before = launch_counts()
         self.model.train()
         start_step = self.state.step
-        seed_arr = data_stream_seed(cfg.train.seed, start_step)
+        if self._elastic_child:
+            # the host, the generation's world size and the generation
+            # folded in: each re-form re-shards every survivor onto a
+            # stream no earlier generation drew
+            seed_arr = elastic_stream_seed(cfg.train.seed, el.host_index,
+                                           el.num_hosts, el.generation,
+                                           start_step)
+        else:
+            seed_arr = data_stream_seed(cfg.train.seed, start_step, world)
         inj = self._inj
         k = max(cfg.train.steps_per_call, 1)
 
@@ -444,10 +561,13 @@ class Trainer:
         # assembling at construction, and those spans belong on the
         # timeline; uninstalled and flushed on the way out
         tracer = None
-        if cfg.obs.trace:
+        if cfg.obs.trace and primary:
+            # (role, index) let obs/aggregate.py merge an elastic pool's
+            # per-host timelines
             tracer = obs_trace.Tracer(
                 path=os.path.join(cfg.train.log_dir, "trace.json"),
-                ring_size=cfg.obs.trace_ring, role="trainer", index=0)
+                ring_size=cfg.obs.trace_ring, role="trainer",
+                index=max(el.host_index, 0))
             stack.enter_context(obs_trace.installed(tracer))
 
         # warn records from the healer (worker threads) stamp the loop's
@@ -476,7 +596,7 @@ class Trainer:
             return {key: np.stack([np.asarray(b[key]) for b in bs])
                     for key in bs[0]}
 
-        timer = StepTimer(cfg.data.batch_size)
+        timer = StepTimer(cfg.data.batch_size, world.num_devices)
         pipeline = InputPipeline(assemble, num_workers=cfg.data.num_workers,
                                  reorder_depth=cfg.data.reorder_depth,
                                  retries=cfg.resilience.pipeline_retries,
@@ -491,8 +611,10 @@ class Trainer:
         stack.callback(prefetch.close)
         stack.callback(pipeline.close)
         # metric fetches: at depth > 0 drained on a consumer thread, up to
-        # `depth` calls behind the dispatch; at 0 inline
-        depth = max(cfg.train.pipeline_depth, 0)
+        # `depth` calls behind the dispatch; at 0 inline, always over
+        # several ranks (the ladder's decisions at one step on each)
+        depth = (0 if world.distributed
+                 else max(cfg.train.pipeline_depth, 0))
         fetch_kw = dict(timer=timer, retries=cfg.resilience.fetch_retries,
                         backoff_s=cfg.resilience.data_backoff_s,
                         injector=inj)
@@ -504,7 +626,7 @@ class Trainer:
         # first eval forward; dropped at the end of the fit
         ledger = (ExecutableLedger(cfg.train.log_dir,
                                    backend=self.device.type)
-                  if cfg.obs.ledger else None)
+                  if cfg.obs.ledger and primary else None)
         self._ledger, self._eval_unrecorded = ledger, ledger is not None
         stack.callback(setattr, self, "_ledger", None)
 
@@ -528,12 +650,14 @@ class Trainer:
                        if self._extra_stats is not None else {})}
 
         # the incident recorder (None unless obs.incidents)
-        incidents = obs_incident.install(cfg, cfg.train.log_dir, "trainer")
+        incidents = (obs_incident.install(cfg, cfg.train.log_dir, "trainer")
+                     if primary else None)
         heartbeat = None
-        if cfg.obs.heartbeat:
+        if cfg.obs.heartbeat and primary:
             def hb_sample() -> dict:
                 return {**timer.rates(), **timer.counters(),
-                        **resilience_stats(), **ledger_stats()}
+                        **resilience_stats(), **ledger_stats(),
+                        **self._world_stats()}
 
             heartbeat = Heartbeat(
                 os.path.join(cfg.train.log_dir, "heartbeat.json"),
@@ -619,6 +743,9 @@ class Trainer:
                        * self.steps_per_epoch)
         if max_steps is not None:
             total_steps = min(total_steps, start_step + max_steps)
+        if self._elastic_child and el.target_step > 0:
+            # an absolute step: a respawned host stops where the run ends
+            total_steps = int(el.target_step)
         if cfg.train.nan_guard and self.ckpt.latest_step() is None:
             self.ckpt.save(self.state)  # rollback target before step 1
         ckpt_mark = timer.mark()
@@ -628,7 +755,24 @@ class Trainer:
         consecutive_rollbacks = 0
         metrics = None
         first_call = True
-        while gstep < total_steps and stop_sig["sig"] is None:
+        # the floor of the pool's slowest host last seen (pace_to_world):
+        # it only advances within a generation, so the file is read only
+        # once this host is sync_ahead steps past it
+        world_floor = start_step
+        while (gstep < total_steps
+               and not any_rank(stop_sig["sig"] is not None, world)):
+            if (self._elastic_child and el.sync_ahead > 0 and el.world_file
+                    and gstep - world_floor > el.sync_ahead):
+                floor = pace_to_world(
+                    el.world_file, el.generation, gstep, el.sync_ahead,
+                    should_stop=lambda: stop_sig["sig"] is not None,
+                    touch=touch,
+                    # a coordinator silent past its own verdict horizon
+                    # is gone: finish as an orphan, do not block
+                    stale_s=max(3 * el.poll_s, el.stale_after_s))
+                world_floor = floor if floor is not None else gstep
+                if stop_sig["sig"] is not None:
+                    break
             self.profiler.observe(gstep, k)  # --profile-steps window
             t0 = time.perf_counter()
             with obs_trace.span("input_wait"):
@@ -689,6 +833,13 @@ class Trainer:
             cur_step["s"] = gstep
             if heartbeat is not None:
                 heartbeat.beat(gstep)
+            if inj is not None and self._elastic_child:
+                # the host sites (train/elastic.py), after the beat: a
+                # killed host's last heartbeat is the step it finished
+                maybe_host_fault(
+                    inj, el.host_index, gstep,
+                    cfg.resilience.faults.host_fault_step,
+                    log=lambda m: self.logger.log("warn", gstep, message=m))
             epoch = gstep // self.steps_per_epoch
             end_of_epoch = crossed(prev, gstep, self.steps_per_epoch)
             log_due = (crossed(prev, gstep, cfg.train.log_every)
@@ -767,7 +918,7 @@ class Trainer:
             if ckpt_due:
                 with obs_trace.span("ckpt", step=gstep):
                     saved = self.ckpt.save(self.state)
-                if saved is not None:
+                if saved is not None or not self.ckpt.writer:
                     # a failed save keeps the previous mark: a rollback
                     # restores the last checkpoint written
                     ckpt_mark = timer.mark()
@@ -820,7 +971,10 @@ class Trainer:
                 **timer.phases(), **timer.counters(), **resilience_stats(),
                 **{k: v for k, v in self._telemetry(timer).items()
                    if v is not None},
-                "pipeline_depth": depth}
+                "pipeline_depth": depth, **self._world_stats(),
+                "kernel_launches": {
+                    k: n - launches_before.get(k, 0)
+                    for k, n in launch_counts().items()}}
 
     def _telemetry(self, timer: StepTimer) -> dict:
         """Device memory, RSS and model FLOP rate for a train record

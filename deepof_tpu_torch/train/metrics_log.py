@@ -58,15 +58,23 @@ def _json_safe(v):
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str):
+    """`primary`: False on every rank of a world but rank 0, which alone
+    writes the records (they are the same on every rank): a no-op
+    logger, no file opened."""
+
+    def __init__(self, log_dir: str, primary: bool = True):
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        os.makedirs(log_dir, exist_ok=True)
-        self._f = open(self.path, "a", buffering=1)
+        self._f = None
+        if primary:
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(self.path, "a", buffering=1)
         # records come from the main loop and from pipeline workers
         # (healer warnings): one line at a time
         self._lock = threading.Lock()
 
     def log(self, kind: str, step: int, **metrics) -> None:
+        if self._f is None:
+            return
         rec = {"kind": kind, "step": int(step), "time": time.time()}
         rec.update({k: _json_safe(_scalarize(v)) for k, v in metrics.items()})
         with self._lock:
@@ -75,12 +83,14 @@ class MetricsLogger:
                    for k, v in rec.items() if k != "time"}, flush=True)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class StepTimer:
-    """Cumulative steps/s and items/s over *training* time only, on one
-    device (the JAX record's `items_per_sec_per_chip`).
+    """Cumulative steps/s and items/s over *training* time only, and
+    items/s a device over `n_chips` devices (the world's; the JAX
+    record's `items_per_sec_per_chip`).
 
     The first tick after construction or `pause()` only arms the timer,
     so the first step and paused-over work (eval, checkpoint saves) are
@@ -103,8 +113,9 @@ class StepTimer:
     #: samples per median (the latest ones)
     RECENT = 1000
 
-    def __init__(self, items_per_step: int):
+    def __init__(self, items_per_step: int, n_chips: int = 1):
         self.items_per_step = items_per_step
+        self.n_chips = max(int(n_chips), 1)
         self._last: float | None = None
         self._elapsed = 0.0
         self._steps = 0
@@ -163,7 +174,8 @@ class StepTimer:
         sps = self._steps / self._elapsed
         return {
             "steps_per_sec": sps,
-            "items_per_sec_per_chip": sps * self.items_per_step,
+            "items_per_sec_per_chip": sps * self.items_per_step
+            / self.n_chips,
         }
 
     def mark(self) -> tuple[float, int]:

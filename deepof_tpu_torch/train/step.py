@@ -38,6 +38,23 @@ and gets zeros).
 `make_eval_fn` builds `eval_fn(model, batch)`: the same objective
 without gradients, with the finest flow and reconstruction.
 
+Over a world of ranks (`parallel/mesh.py`, `train --multihost`) each
+rank steps on its own rows of the global batch, and after the backward
+the ranks average their gradients and the step's metrics (`total`, the
+`scale_*` stacks, `action_loss`, `accuracy`) with one `all_reduce` of a
+flat buffer, where the JAX step takes the gradient of the global mean
+under pjit. So the gradient norm, the non-finite skip and the Adam
+update see the global gradient, and every rank takes the same decision
+and the same update. The reduction is written out rather than left to
+`DistributedDataParallel`: the skip and the norm need the averaged
+gradient before the update, on every micro-step (gradient accumulation
+is the optimizer's, `train/state.py`, so each micro-step reduces, as in
+JAX), and one flat buffer is one collective a step with no hooks on the
+remat or occlusion forwards. Dropout masks are drawn for the global
+batch from (seed, step) and each rank takes its rows (F19), so a step of
+two ranks is the step of one process on the whole batch, up to the
+order of the sums.
+
 The model works in NCHW; the loss keeps the JAX package's NHWC, through
 permuted views of the same memory. Under `train.compute_dtype=
 "bfloat16"` the train step casts the network's input pair to bf16 and
@@ -58,6 +75,8 @@ from ..losses.photometric import check_loss_multi, check_loss_two_frame
 from ..losses.pyramid import (lrn_normalize, preprocess, pyramid_loss,
                               pyramid_loss_multi)
 from ..models.two_stream import dropout_masks
+from ..parallel.mesh import (World, all_reduce_mean_, current_world,
+                             global_rows, local_batch_rows)
 from .state import TrainState, global_norm
 
 Mean = tuple[float, float, float]
@@ -181,7 +200,8 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
-                    smooth_border_mask: bool = False
+                    smooth_border_mask: bool = False,
+                    world: World | None = None
                     ) -> Callable[[TrainState, dict], dict]:
     """(state, batch) -> metrics: total, grad_norm, update_skipped, the
     five scale_* stacks (one value a pyramid level, finest first; not for
@@ -192,7 +212,9 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     update are decided on the device (`TrainState.apply_gradients`), and
     the loop's fetcher (`train/metrics_log.py`) takes the metrics to the
     host when a record is due. The batch may hold numpy arrays or
-    tensors; it moves to the model's device."""
+    tensors; it moves to the model's device. `world` (default the
+    process group's): over several ranks the batch is this rank's rows,
+    and the gradients and metrics are averaged over the ranks."""
     check_trainable(cfg)
     if cfg.loss.occlusion and has_dropout(model):
         raise ValueError(
@@ -204,6 +226,7 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg)
     skip = cfg.resilience.skip_nonfinite
+    world = world if world is not None else current_world()
     drops = has_dropout(model)
     gen = torch.Generator(device) if drops else None
     # the step of a batch without STEP_KEY: the one after the last
@@ -213,16 +236,34 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
         at = batch.get(STEP_KEY, next_at["step"])
         next_at["step"] = int(at) + 1
         dev_batch = batch_to_device(batch, device)
-        masks = (dropout_masks(len(dev_batch["source"]), cfg.train.seed, at,
-                               device, gen) if drops else None)
+        masks = None
+        if drops:
+            local = len(dev_batch["source"])
+            masks = dropout_masks(global_rows(world, local), cfg.train.seed,
+                                  at, device, gen)
+            if world.distributed:
+                # the global batch's masks, this rank's rows (F19)
+                rows = torch.tensor(local_batch_rows(
+                    world, global_rows(world, local))[1], device=device)
+                masks = tuple(m.index_select(0, rows) for m in masks)
         state.optimizer.zero_grad(set_to_none=True)
         total, aux = model_losses(model, dev_batch, mean, cfg.loss,
                                   smooth_border_mask, dtype,
                                   remat=cfg.train.remat, dropout=masks)
         total.backward()
         total = total.detach()
-        grad_norm = global_norm([p.grad for p in model.parameters()
-                                 if p.grad is not None])
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        scales = ({k: torch.stack([d[k] for d in aux["losses"]]).detach()
+                   for k in SCALE_KEYS} if "losses" in aux else {})
+        extra = {k: aux[k].detach() for k in ("action_loss", "accuracy")
+                 if k in aux}
+        if world.backend is not None:
+            # the global gradient and the global batch's metrics, on
+            # every rank, before the norm and the skip
+            total = total.clone()
+            all_reduce_mean_([*grads, total, *scales.values(),
+                              *extra.values()], world)
+        grad_norm = global_norm(grads)
         finite = (torch.isfinite(total) & torch.isfinite(grad_norm)
                   if skip else None)
         state.apply_gradients(grad_norm, finite)
@@ -230,11 +271,8 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
                    "update_skipped": (torch.zeros_like(total)
                                       if finite is None
                                       else (~finite).float())}
-        if "losses" in aux:
-            metrics.update({f"scale_{k}": torch.stack(
-                [d[k] for d in aux["losses"]]).detach() for k in SCALE_KEYS})
-        metrics.update({k: aux[k].detach() for k in ("action_loss",
-                                                     "accuracy") if k in aux})
+        metrics.update({f"scale_{k}": v for k, v in scales.items()})
+        metrics.update(extra)
         return metrics
 
     k = max(cfg.train.steps_per_call, 1)

@@ -1,8 +1,9 @@
 """The PyTorch port's command line, on the CPU at width 0.25 and batch 2
 (the --synthetic smoke size otherwise): train, resume, eval, predict and
 config, FlowNet-C at a correlation geometry set on the command line, the
-JAX package's flags that the port does not take yet, `tail`'s executable
-ledger gate, and TF32 turned off by every verb."""
+flag combinations and mesh axes the port refuses, the elastic pool's
+dispatch, `tail`'s executable ledger gate, and TF32 turned off by every
+verb."""
 
 import dataclasses
 import json
@@ -163,18 +164,22 @@ def test_config_prints_a_dict_that_reads_back(capsys):
                                                          log_every=7))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["train", "--elastic", "4"], "item 10"),
-    (["train", "--multihost"], "item 10"),
-    (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2"],
+@pytest.mark.parametrize("argv,error,match", [
+    # every flag is ported (item 10: --elastic, --multihost); what the
+    # JAX command line refuses, the port refuses: an elastic run without
+    # an absolute target, or with --multihost or --epochs
+    (["train", "--elastic", "4"], SystemExit, "absolute target step"),
+    (["train", "--multihost", "--elastic", "2", "--max-steps", "3"],
+     SystemExit, "exclusive"),
+    (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2",
+      "--epochs", "1", "--max-steps", "3"], SystemExit, "--max-steps"),
+    # and the mesh's spatial and time axes, item 10's last slice
+    (["serve", "--set", "mesh.spatial=2"], NotImplementedError,
      "item 10"),
-    # the recipe (item 9.5), the executable ledger's `tail` flags
-    # (test_tail_ledger_flags_bound_the_verdict) and the artifact store
-    # (`serve --artifacts`, test_torch_artifacts.py) are ported
-    (["serve", "--multihost"], "item 10"),
-    (["eval", "--synthetic", "--multihost"], "item 10")])
-def test_jax_only_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    (["eval", "--synthetic", "--set", "mesh.time=2"], NotImplementedError,
+     "item 10")])
+def test_jax_only_flags_raise(argv, error, match):
+    with pytest.raises(error, match=match):
         cli.main(argv + ["--device", "cpu"])
 
 
@@ -278,27 +283,69 @@ def test_unported_model_raises_naming_its_item(tmp_path, capsys):
                      "--log-dir", str(tmp_path)]) == 0
     assert capsys.readouterr().out.strip()
     shutil.rmtree(tmp_path / "ckpt")  # 0.4 GB: fc7 and the trunk
-    # (the recipe is ported, item 9.5: elastic training is not)
+    # (the recipe is ported, item 9.5, and the elastic pool, item 10:
+    # spatial context parallelism is not)
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(["train", "--preset", "ucf101", "--synthetic",
-                  "--device", "cpu", "--elastic", "2",
+                  "--device", "cpu", "--set", "mesh.spatial=2",
                   "--log-dir", str(tmp_path / "r")])
 
 
-def test_an_elastic_config_raises_naming_item_10(tmp_path):
-    """F24: the JAX `train` reads `elastic.hosts` as the world size when
-    `--elastic` is absent, so a config of 4 hosts is an elastic run of
-    4 trainers; the port raises on it (item 10) where it dropped the
-    section with a warning. The default `hosts: 0` (and 1) loads."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        config_from_dict({"elastic": {"hosts": 4}})
+@pytest.mark.parametrize("flags,device", [
+    ([], "cuda"), (["--device", "cuda"], "cuda"),
+    (["--device", "cpu"], "cpu")])
+def test_train_elastic_hands_its_device_to_the_pool(tmp_path, monkeypatch,
+                                                    flags, device):
+    """`train --elastic N` gives the coordinator its own --device (cuda
+    by default, as every entry point), whatever elastic.virtual_devices
+    says (1 by default)."""
+    from deepof_tpu_torch.train import elastic
+
+    calls = []
+    monkeypatch.setattr(elastic, "run_elastic",
+                        lambda cfg, hosts, max_steps, device:
+                        calls.append(device) or 0)
+    assert cli.main(["train", "--synthetic", "--model", "flownet_c",
+                     "--elastic", "3", "--max-steps", "100", *flags,
+                     "--set", "elastic.virtual_devices=1",
+                     "--log-dir", str(tmp_path / "el")]) == 0
+    assert calls == [device]
+
+
+def test_an_elastic_config_raises_naming_item_10(tmp_path, monkeypatch):
+    """F24, closed by the elastic pool's port (item 10): the JAX `train`
+    reads `elastic.hosts` as the world size when `--elastic` is absent,
+    and so does the port's: a config of 2 hosts starts the coordinator
+    (`train/elastic.py::run_elastic`, stubbed here), hosts 0 and 1 load
+    and train one process, and the section is carried, not dropped."""
+    from deepof_tpu_torch.train import elastic
+
+    calls = []
+    monkeypatch.setattr(elastic, "run_elastic",
+                        lambda cfg, hosts, max_steps, device: calls.append(
+                            (cfg.elastic.hosts, hosts, max_steps, device))
+                        or 0)
+    assert config_from_dict({"elastic": {"hosts": 4}}).elastic.hosts == 4
     path = tmp_path / "elastic.json"
     path.write_text(json.dumps({"model": "flownet_s",
                                 "elastic": {"hosts": 2}}))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["train", "--config-json", str(path), "--synthetic",
-                  "--device", "cpu", "--log-dir", str(tmp_path / "r")])
+    assert cli.main(["train", "--config-json", str(path), "--synthetic",
+                     "--device", "cpu", "--max-steps", "5",
+                     "--log-dir", str(tmp_path / "r")]) == 0
+    assert calls == [(2, 2, 5, "cpu")]
     for hosts in (0, 1):
-        with pytest.warns(UserWarning, match="elastic"):
-            assert config_from_dict(
-                {"elastic": {"hosts": hosts}}) == config_from_dict({})
+        assert config_from_dict(
+            {"elastic": {"hosts": hosts}}).elastic.hosts == hosts
+    # an elastic child (--host-index) trains itself, on its --device,
+    # to its absolute target step; it never coordinates
+    path.write_text(json.dumps({
+        "model": "flownet_s", "width_mult": 0.25,
+        "elastic": {"hosts": 2, "num_hosts": 2, "target_step": 1,
+                    "virtual_devices": 1}}))
+    assert cli.main(["train", "--config-json", str(path), "--synthetic",
+                     "--host-index", "0", "--device", "cpu",
+                     "--set", "data.batch_size=2",
+                     "--set", "obs.heartbeat=false",
+                     "--log-dir", str(tmp_path / "c")]) == 0
+    assert calls == [(2, 2, 5, "cpu")]
+    assert verify_run(str(tmp_path / "c"))["valid_steps"][-1] == 1

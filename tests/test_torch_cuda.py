@@ -18,7 +18,8 @@ rule (F17), `-k "vgg or augmentation or occlusion"` for VGG16Flow's step,
 the augmentation's warp and the occlusion warp (C = 2), `-k "bf16_warp
 or quality"` for the warps' bf16 instances (loss.gather_dtype=bfloat16)
 and the quality scorer's warp, `-k library` for the artifact store's
-library install.
+library install, `-k "ranks or nccl"` for data parallelism on the card
+(two gloo ranks sharing it, one NCCL rank).
 """
 
 import time
@@ -1263,3 +1264,102 @@ def test_a_library_of_another_source_hash_is_rejected(
         f.write(bytes([byte[0] ^ 0xFF]))
     assert store.fetch_libraries(["corr"]) == {"corr": "reject:crc_mismatch"}
     assert not build.library_path("corr").exists()
+
+
+def _rank_run(tmp_path, world_size: int) -> tuple[list[dict], dict]:
+    """`tests/_torch_ddp_worker.py`'s grad phase in `world_size` ranks on
+    this card (thin FlowNet-C through the correlation and warp kernels,
+    global batch 4), and the same step in this process on the whole
+    batch (cuDNN deterministic, TF32 off, as the worker)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_ddp_worker as W
+
+    from deepof_tpu_torch.core.config import DataConfig
+    from deepof_tpu_torch.data.datasets import SyntheticData
+    from deepof_tpu_torch.data.pipeline import derive_batch_rng
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.parallel.mesh import World
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    work = str(tmp_path)
+    model = build_model("flownet_c", width_mult=0.25, device="cuda", seed=4,
+                        **W.GEOMETRY)
+    torch.save(model.state_dict(), os.path.join(work, "weights.pt"))
+    batch = SyntheticData(DataConfig(dataset="synthetic", image_size=W.HW)
+                          ).sample_train(W.BATCH, rng=derive_batch_rng(
+                              np.array([5, 0], np.uint32), 0))
+    np.savez(os.path.join(work, "batch.npz"), **batch)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests", "_torch_ddp_worker.py"),
+         work, port, str(r), str(world_size), "cuda", "grad"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=repo)
+        for r in range(world_size)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+             for r in range(world_size)]
+    cfg = W.config(os.path.join(work, "one"))
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    m = make_train_step(model, cfg, (0.0, 0.0, 0.0),
+                        world=World(np.zeros((1, 1, 1))))(state, batch)
+    return ranks, {"metrics": {k: v.cpu() for k, v in m.items()},
+                   "grads": {n: p.grad.cpu()
+                             for n, p in model.named_parameters()}}
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_step_as_one_process_over_gloo(
+        cuda, deterministic, tmp_path):
+    """Two ranks share the one card, so `init_distributed` picks gloo
+    (NCCL refuses two ranks on one device); their averaged gradient is
+    the one-process gradient of the global batch up to the order of the
+    batch sum (1e-5 of each tensor's largest entry, 1e-5 relative on
+    the metrics), the same bits on both ranks."""
+    ranks, one = _rank_run(tmp_path, 2)
+    for r in ranks:
+        assert (r["backend"], r["size"], r["device"]) == ("gloo", 2,
+                                                          "cuda:0")
+    r0, r1 = (r["grad"] for r in ranks)
+    for k, v in one["metrics"].items():
+        np.testing.assert_allclose(r0["metrics"][k].numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+        assert torch.equal(r0["metrics"][k], r1["metrics"][k]), k
+    for name, g in one["grads"].items():
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(r0["grads"][name].numpy(), g.numpy(),
+                                   rtol=0, atol=1e-5 * scale, err_msg=name)
+        assert torch.equal(r0["grads"][name], r1["grads"][name]), name
+
+
+@pytest.mark.cuda
+def test_init_distributed_over_nccl_at_world_one(cuda, deterministic,
+                                                 tmp_path):
+    """One rank with a card of its own joins over NCCL, and its step
+    (the all_reduce included: an identity at world one) gives the plain
+    step's bits."""
+    ranks, one = _rank_run(tmp_path, 1)
+    assert (ranks[0]["backend"], ranks[0]["size"]) == ("nccl", 1)
+    got = ranks[0]["grad"]
+    for k, v in one["metrics"].items():
+        assert torch.equal(got["metrics"][k], v), k
+    for name, g in one["grads"].items():
+        assert torch.equal(got["grads"][name], g), name

@@ -63,7 +63,10 @@ def test_port_imports_with_jax_and_reference_blocked():
     "deepof_tpu_torch.core.config", "deepof_tpu_torch.cli",
     "deepof_tpu_torch.analyze", "deepof_tpu_torch.obs.aggregate",
     "deepof_tpu_torch.data.mixture", "deepof_tpu_torch.train.recipe",
-    "deepof_tpu_torch.serve.artifacts", "deepof_tpu_torch.train.warmup"])
+    "deepof_tpu_torch.serve.artifacts", "deepof_tpu_torch.train.warmup",
+    "deepof_tpu_torch.parallel", "deepof_tpu_torch.parallel.mesh",
+    "deepof_tpu_torch.train.elastic",
+    "deepof_tpu_torch.tools.elastic_drill"])
 def test_the_observability_and_fault_modules_are_covered(module):
     """The training loop's observability and fault modules, the serving
     plane and the fetchers are copies or ports of JAX-package modules:

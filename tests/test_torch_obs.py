@@ -281,9 +281,16 @@ def test_the_carried_obs_and_train_keys_are_no_longer_dropped():
                 # and the executable ledger (obs/ledger.py)
                 "obs.ledger"):
         assert key not in ignored, key
-    # what changes no training result stays dropped, named
-    for key in ("obs.metrics_port", "train.compile_cache"):
-        assert key in ignored, key
+    # the mesh, the elastic pool and the metrics port are carried (item
+    # 10); the XLA compile cache, which changes no result, stays
+    # dropped, named
+    for key in ("'mesh", "'elastic", "obs.metrics_port"):
+        assert key not in ignored, key
+    assert "train.compile_cache" in ignored
+    want = JaxConfig()
+    assert dataclasses.asdict(cfg.elastic) == dataclasses.asdict(
+        want.elastic)
+    assert dataclasses.asdict(cfg.mesh) == dataclasses.asdict(want.mesh)
     assert cfg.obs.ledger is True  # the JAX default
     assert cfg.obs == ObsConfig() and cfg.train.pipeline_depth == 2
 

@@ -429,9 +429,9 @@ def test_a_codec_the_build_lacks_is_a_400_naming_its_codecs(
 def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
     """F7 for the serving keys: the server's, the SLO's, the fleet's,
     the brownout controller's and the artifact store's are carried with
-    the JAX defaults (the fleet and the store are ported);
-    `obs.metrics_port` stays dropped, named; no fleet or store setting is
-    refused by `check_servable` or the engine."""
+    the JAX defaults (the fleet and the store are ported), and so is
+    `obs.metrics_port` (the elastic coordinator's); no fleet or store
+    setting is refused by `check_servable` or the engine."""
     from deepof_tpu_torch.core.config import check_servable
 
     jcfg = _jax_cfg(tmp_path)
@@ -447,7 +447,8 @@ def test_the_serving_keys_are_carried_and_the_fleet_refused(tmp_path):
                 "serve.artifacts_deep_verify", "serve.deep_verify_interval_s",
                 "serve.fleet.artifacts_gc_days"):
         assert f"'{key}" not in ignored, key
-    assert "'obs.metrics_port'" in ignored
+    assert "'obs.metrics_port'" not in ignored
+    assert cfg.obs.metrics_port is None
     want = JaxConfig()
     assert (cfg.serve.artifacts_dir, cfg.serve.artifacts_index,
             cfg.serve.artifacts_deep_verify, cfg.serve.deep_verify_interval_s,
