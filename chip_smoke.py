@@ -6769,9 +6769,26 @@ DRILL_ARGS = ["--device", "cuda", "--hosts", "3", "--target", "10",
               "--set", "data.gt_size=[384,512]"]
 
 
+#: spatial and temporal context parallelism inside ddp_rank's two ranks
+#: (no new boot): full-width FlowNet-C at 384x512 over mesh.spatial=2
+#: (global batch 4, every row on both ranks, each rank its rows of every
+#: level; 384 -> ... -> 6 rows at the deepest level, 3 a shard), and
+#: the sintel preset's full-width FlowNet-S volume step (T = 10 frames,
+#: 224x480 crops, batch 4: 36 folded pairs, 18 a rank) over
+#: mesh.time=2; each against its one-process step with the DDP check's
+#: tolerances (DDP_TOL of each gradient's largest entry, the loss
+#: DDP_LOSS_RTOL)
+CONTEXT = {"spatial_hw": [384, 512], "spatial_batch": 4,
+           "volume_hw": [224, 480], "volume_t": 10, "volume_batch": 4,
+           "model": {}}
+#: `train --multihost --set mesh.spatial=2` beside ddp_cli
+SPATIAL_CLI_STEPS = 3
+SPATIAL_CLI_BATCH = 4
+
 #: the check's geometry (a CPU rehearsal passes a smaller one); the
 #: parent writes it to work/ddp_check.json for the ranks
-DDP_CHECK = {"device": "cuda", "hw": [384, 512], "model": {}}
+DDP_CHECK = {"device": "cuda", "hw": [384, 512], "model": {},
+             "context": CONTEXT}
 
 
 def ddp_check_parts(check: dict, device, world, batch: dict | None = None):
@@ -6876,6 +6893,12 @@ def ddp_rank(work: str) -> int:
     n_params = sum(p.numel() for p in model.parameters())
     buf = torch.zeros(n_params, device=world.device)
     reduce_ms = timed(lambda: dist.all_reduce(buf))
+    del model, state, step, buf
+    if world.device.type == "cuda":
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"context_rank{world.rank}.json"),
+              "w") as f:
+        json.dump(context_rank(work, check, world.rank), f)
     row = {"rank": world.rank, "backend": world.backend, "size": world.size,
            "device": str(world.device), "launches": counts,
            "total": total,
@@ -6888,6 +6911,186 @@ def ddp_rank(work: str) -> int:
     with open(os.path.join(work, f"ddp_rank{world.rank}.json"), "w") as f:
         json.dump(row, f)
     shutdown_distributed()
+    return 0
+
+
+def context_parts(check: dict, kind: str, device, world):
+    """The context check's model (seed 0), train step over `world` and
+    global batch (a fixed synthetic draw): "spatial", full-width
+    FlowNet-C at ctx["spatial_hw"] under mesh.spatial = world's; or
+    "volume", FlowNet-S over ctx["volume_t"]-frame volumes (the sintel
+    preset's geometry) under mesh.time = world's."""
+    import numpy as np
+
+    from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
+                                              LossConfig, MeshConfig)
+    from deepof_tpu_torch.core.device import disable_tf32
+    from deepof_tpu_torch.data.datasets import SyntheticData
+    from deepof_tpu_torch.data.pipeline import derive_batch_rng
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    disable_tf32()
+    ctx = check["context"]
+    spatial = kind == "spatial"
+    hw = tuple(ctx["spatial_hw" if spatial else "volume_hw"])
+    t = 2 if spatial else ctx["volume_t"]
+    batch = ctx["spatial_batch" if spatial else "volume_batch"]
+    name = "flownet_c" if spatial else "flownet_s"
+    shape = world.shape
+    cfg = ExperimentConfig(
+        model=name, loss=LossConfig(alpha_c=0.5, alpha_s=0.5),
+        mesh=MeshConfig(data=shape["data"], spatial=shape["spatial"],
+                        time=shape["time"]),
+        data=DataConfig(dataset="synthetic", image_size=hw, gt_size=hw,
+                        batch_size=batch, time_step=t), **ctx["model"])
+    kw = ({"corr_max_disp": cfg.corr_max_disp,
+           "corr_stride": cfg.corr_stride} if spatial else {})
+    model = build_model(name, flow_channels=2 * (t - 1), device=device,
+                        seed=0, image_size=hw, width_mult=cfg.width_mult,
+                        **kw)
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    step = make_train_step(model, cfg, (0.0, 0.0, 0.0), world=world)
+    draw = SyntheticData(cfg.data).sample_train(batch, rng=derive_batch_rng(
+        np.array([9, 0], np.uint32), 0))
+    keys = ("source", "target") if spatial else ("volume",)
+    return model, state, step, {k: draw[k] for k in keys}
+
+
+def context_reference(work: str, check: dict) -> dict:
+    """The one-process steps of the context checks at the seed's weights
+    (work/context_ref.pt: loss and every gradient, each kind), each
+    timed DDP_TIMED times (ms, host clock to a synchronize)."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.parallel.mesh import World
+
+    device = torch.device(check["device"])
+    refs, ms = {}, {}
+    with cudnn_deterministic():
+        for kind in ("spatial", "volume"):
+            model, state, step, batch = context_parts(
+                check, kind, device, World(np.zeros((1, 1, 1))))
+            m = step(state, batch)
+            refs[kind] = {"total": m["total"].cpu(),
+                          "grads": {n: p.grad.detach().cpu()
+                                    for n, p in model.named_parameters()}}
+            ms[kind] = []
+            for _ in range(DDP_TIMED):
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(state, batch)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                ms[kind].append(1e3 * (time.perf_counter() - t1))
+            del model, state, step, m
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    torch.save(refs, os.path.join(work, "context_ref.pt"))
+    return ms
+
+
+def context_rank(work: str, check: dict, rank: int) -> dict:
+    """ddp_rank's context checks in its two ranks, on the world they
+    joined (the axes' groups made here, no new boot): each kind's step
+    on the whole global batch (the ranks of one data shard hold the
+    same rows), its kernel launches, its largest gradient difference
+    from the one-process step (each tensor's, over its largest entry),
+    a CRC of its gradients, the bytes, messages and milliseconds of its
+    exchanges (host clock to a synchronize around each), then DDP_TIMED
+    more steps' milliseconds with the exchanges untimed."""
+    import zlib
+
+    import torch
+
+    from deepof_tpu_torch.core.config import MeshConfig
+    from deepof_tpu_torch.parallel import spatial
+    from deepof_tpu_torch.parallel.mesh import build_mesh
+
+    ref = torch.load(os.path.join(work, "context_ref.pt"))
+    out = {}
+    for kind, mesh in (("spatial", MeshConfig(spatial=2)),
+                       ("volume", MeshConfig(time=2))):
+        world = build_mesh(mesh)
+        model, state, step, batch = context_parts(check, kind, world.device,
+                                                  world)
+        reset_kernel_counts()
+        spatial.reset_stats()
+        spatial.STATS["timed"] = True
+        m = step(state, batch)
+        spatial.STATS["timed"] = False
+        counts = kernel_counts()
+        stats = dict(spatial.STATS)
+        errs, crc = {}, 0
+        for name, p in model.named_parameters():
+            g = p.grad.detach().cpu()
+            want = ref[kind]["grads"][name]
+            errs[name] = float((g - want).abs().max()
+                               / max(float(want.abs().max()), 1e-30))
+            crc = zlib.crc32(g.numpy().tobytes(), crc)
+        worst = max(errs, key=errs.get)
+        step_ms = []
+        for _ in range(DDP_TIMED):
+            if world.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            if world.device.type == "cuda":
+                torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        out[kind] = {
+            "rank": rank, "mesh": world.shape, "coords": world.coords,
+            "launches": counts, "total": float(m["total"]),
+            "total_one_process": float(ref[kind]["total"]),
+            "max_rel_err": errs[worst], "worst_tensor": worst,
+            "grad_crc32": crc, "step_ms": step_ms,
+            "exchange": {k: v for k, v in stats.items() if k != "timed"}}
+        del model, state, step, m
+        if world.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_probe() -> int:
+    """Which `torch.distributed` collectives gloo takes for CUDA tensors,
+    in a gloo world of one (no peer to wait on): each op called once on
+    a card tensor, "ok" or the error it raised, as one JSON line. Point
+    to point is not called (gloo's send reads the tensor's pointer as
+    host memory); the exchange stages it (`parallel/spatial.py`)."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    x = torch.ones(4, device="cuda")
+    ops = {
+        "broadcast": lambda: dist.broadcast(x, 0),
+        "all_reduce": lambda: dist.all_reduce(x),
+        "reduce": lambda: dist.reduce(x, 0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty_like(x), x),
+        "gather": lambda: dist.gather(x, [torch.empty_like(x)], 0),
+        "scatter": lambda: dist.scatter(x, [torch.ones_like(x)], 0),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty_like(x), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x)}
+    found = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            found[name] = "ok"
+        except Exception as e:  # the finding: what gloo refuses
+            found[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    dist.destroy_process_group()
+    print(json.dumps(found), flush=True)
     return 0
 
 
@@ -7043,9 +7246,11 @@ def ddp_reference(work: str, check: dict) -> list[float]:
 
 def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
                clearing: threading.Thread | None = None
-               ) -> tuple[dict, dict]:
-    """Data parallelism on the card: two phases, `ddp_flownet_c` and
-    `ddp_nccl_world1`.
+               ) -> tuple[dict, dict, dict]:
+    """Data parallelism and spatial and temporal context parallelism on
+    the card: the phases `ddp_flownet_c`, `ddp_nccl_world1`,
+    `spatial_flownet_c`, `time_volume`, `spatial_cli` and
+    `gloo_cuda_collectives`.
 
     First, at once, beside each other on the card and beside `clearing`
     (the earlier runs' removal; their step times read so): `torchrun
@@ -7070,6 +7275,20 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     kernel launched once in each rank's step; each rank's step and
     all-reduce milliseconds.
 
+    Beside the first group also runs `train --multihost --set
+    mesh.spatial=2` (`spatial_cli`: SPATIAL_CLI_STEPS steps of full-width
+    FlowNet-C at 384x512, global batch SPATIAL_CLI_BATCH on both ranks;
+    each rank's launches, finite losses, rank 0's records, no "spatial
+    CP inactive" warning) and the gloo probe (`gloo_cuda_probe`). After
+    the DDP check the same two ranks run the context checks
+    (`context_rank`, against `context_reference`): `spatial_flownet_c`
+    (mesh.spatial=2) and `time_volume` (mesh.time=2), each rank's
+    gradients within DDP_TOL of the one-process step's and the loss
+    within DDP_LOSS_RTOL, both ranks the same bits, the correlation
+    forward, both backward kernels and both warps once in each spatial
+    rank's step (on full-height operands), both warps once in each time
+    rank's (on its half of the pairs).
+
     `check` and `extra` (the command line's flags) set a CPU
     rehearsal's size and device."""
     import numpy as np
@@ -7082,6 +7301,19 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
         "--set", f"train.eval_batch_size={DDP_BATCH}",
         "--steps", str(DDP_STEPS), "--log-dir", log_dir, *extra],
         work, "ddp_cli")
+    spatial_dir = os.path.join(work, "spatial_cli")
+    spatial_cli = start_torchrun(2, [
+        "-m", "deepof_tpu_torch", "train", "--multihost", *DDP_RUN,
+        "--set", "mesh.spatial=2",
+        "--set", f"data.batch_size={SPATIAL_CLI_BATCH}",
+        "--set", f"train.eval_batch_size={SPATIAL_CLI_BATCH}",
+        "--steps", str(SPATIAL_CLI_STEPS), "--log-dir", spatial_dir,
+        *extra], work, "spatial_cli")
+    probe = (subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "gloo_probe"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_rank_env(), cwd=os.path.dirname(os.path.abspath(__file__)))
+        if check["device"] == "cuda" else None)
     args = [*DDP_RUN, "--set", "data.batch_size=4", "--set",
             "train.eval_batch_size=4", "--steps", str(DDP_STEPS), *extra]
     rank_dir = os.path.join(work, "nccl_world1")
@@ -7094,7 +7326,15 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
                         os.path.join(work, "nccl_plain.log"))
     summaries = [last_json(o) for o in finish(cli)]
     (nccl_out,) = finish(nccl)
+    spatial_summaries = [last_json(o) for o in finish(spatial_cli)]
     runs_s = time.monotonic() - t0
+    gloo = None
+    if probe is not None:
+        out, err = probe.communicate(timeout=300)
+        if probe.returncode != 0:
+            raise AssertionError(f"gloo_probe: rc {probe.returncode} "
+                                 f"{err[-2000:]}")
+        gloo = json.loads(out.strip().splitlines()[-1])
 
     t_wait = time.monotonic()
     if clearing is not None:
@@ -7104,6 +7344,7 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     with open(os.path.join(work, "ddp_check.json"), "w") as f:
         json.dump(check, f)
     one_ms = ddp_reference(work, check)
+    context_ms = context_reference(work, check)
     t_ranks = time.monotonic()
     import torch
 
@@ -7117,6 +7358,11 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
         with open(os.path.join(work, f"ddp_rank{r}.json")) as f:
             ranks.append(json.load(f))
     os.remove(os.path.join(work, "ddp_ref.pt"))
+    contexts = []
+    for r in range(2):
+        with open(os.path.join(work, f"context_rank{r}.json")) as f:
+            contexts.append(json.load(f))
+    os.remove(os.path.join(work, "context_ref.pt"))
 
     records = read_records(log_dir)
     first = records[0]
@@ -7195,9 +7441,69 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
         # plain run's
         "nccl_losses": len(got) == DDP_STEPS and nccl_row["bitwise_equal"]
         and bool(np.isfinite(np.asarray(got, float)).all())}
+    ctx = check["context"]
+    rows = {}
+    for kind, phase in (("spatial", "spatial_flownet_c"),
+                        ("volume", "time_volume")):
+        ranks = [c[kind] for c in contexts]
+        rows[phase] = {
+            "geometry": {k: v for k, v in ctx.items()
+                         if k.startswith(kind)},
+            "ranks": ranks, "tol": DDP_TOL, "loss_rtol": DDP_LOSS_RTOL,
+            "one_process_step_ms": context_ms[kind],
+            "beside": "nothing (after ddp_flownet_c's check, in its ranks)",
+            "backend": ddp_row["check"]["ranks"][0]["backend"]}
+        emit(phase, **rows[phase])
+    spatial_records = read_records(spatial_dir)
+    spatial_losses = [r["loss"] for r in spatial_records
+                      if r["kind"] == "train"]
+    rows["spatial_cli"] = {
+        "steps": SPATIAL_CLI_STEPS, "global_batch": SPATIAL_CLI_BATCH,
+        "seconds": runs_s, "beside": "ddp_flownet_c's and "
+        "ddp_nccl_world1's runs and the earlier runs' removal",
+        "losses": spatial_losses,
+        "warnings": [r["message"] for r in spatial_records
+                     if r["kind"] == "warn"],
+        "ranks": [{k: s.get(k) for k in (
+            "dist_backend", "world_size", "step_ms_median",
+            "kernel_launches")} for s in spatial_summaries]}
+    emit("spatial_cli", **rows["spatial_cli"])
+    rows["gloo_cuda_collectives"] = gloo
+    if gloo is not None:
+        emit("gloo_cuda_collectives", ops=gloo)
+
+    def held(r):
+        return (r["max_rel_err"] <= DDP_TOL
+                and abs(r["total"] - r["total_one_process"])
+                <= DDP_LOSS_RTOL * abs(r["total_one_process"]))
+
+    sp = rows["spatial_flownet_c"]["ranks"]
+    vol = rows["time_volume"]["ranks"]
+    checks.update({
+        "spatial_grads": all(held(r) for r in sp),
+        "spatial_launches": all(r["launches"] == train_launches(1)
+                                for r in sp),
+        "spatial_same_bits": sp[0]["grad_crc32"] == sp[1]["grad_crc32"]
+        and sp[0]["total"] == sp[1]["total"],
+        "spatial_exchanged": all(r["exchange"]["halo_bytes"] > 0
+                                 and r["exchange"]["gather_bytes"] > 0
+                                 for r in sp),
+        "volume_grads": all(held(r) for r in vol),
+        "volume_launches": all(r["launches"] == want_counts(
+            warp_fwd=1, warp_flow_grad=1) for r in vol),
+        "volume_same_bits": vol[0]["grad_crc32"] == vol[1]["grad_crc32"],
+        "spatial_cli_losses": len(spatial_losses) == SPATIAL_CLI_STEPS
+        and all(np.isfinite(spatial_losses)),
+        "spatial_cli_launches": all(
+            s["kernel_launches"] == train_launches(SPATIAL_CLI_STEPS)
+            for s in spatial_summaries),
+        "spatial_cli_active": not any("spatial CP inactive" in m for m in
+                                      rows["spatial_cli"]["warnings"])})
     if not all(checks.values()):
-        raise AssertionError(f"ddp_flownet_c / ddp_nccl_world1: {checks}")
-    return ddp_row, nccl_row
+        raise AssertionError(f"ddp_flownet_c / ddp_nccl_world1 / "
+                             f"spatial_flownet_c / time_volume / "
+                             f"spatial_cli: {checks}")
+    return ddp_row, nccl_row, rows
 
 
 def elastic_drill_card(work: str, args: list = DRILL_ARGS) -> dict:
@@ -7457,7 +7763,7 @@ def main() -> int:
         # the earlier runs are removed meanwhile
         torch.cuda.empty_cache()  # the subprocesses share the card
         clearing = clear_in_background(work)
-        ddp_row, nccl_row = ddp_phases(work, clearing=clearing)
+        ddp_row, nccl_row, context_rows = ddp_phases(work, clearing=clearing)
         drill_row = elastic_drill_card(work)
     finally:
         if warmup is not None and warmup[0].poll() is None:
@@ -7524,6 +7830,15 @@ def main() -> int:
     for r, s in enumerate(ddp_row["cli"]["ranks"]):
         corr_paths[f"ddp_flownet_c_rank{r}"] = s["kernel_launches"]
     corr_paths["ddp_nccl_world1"] = nccl_row["kernel_launches"]
+    # spatial and temporal context parallelism, in the same two ranks:
+    # each spatial rank's step (the correlation on full-height operands),
+    # each time rank's (the warps on its half of the pairs), and the
+    # ranks of `train --multihost --set mesh.spatial=2`
+    for phase in ("spatial_flownet_c", "time_volume"):
+        for r in context_rows[phase]["ranks"]:
+            corr_paths[f"{phase}_rank{r['rank']}"] = r["launches"]
+    for r, s in enumerate(context_rows["spatial_cli"]["ranks"]):
+        corr_paths[f"spatial_cli_rank{r}"] = s["kernel_launches"]
     for h in ("host-0", "host-2"):
         corr_paths[f"elastic_drill_{h}"] = drill_row["hosts"][h]["launches"]
     for key, counter in (("fwd", "warp_fwd"),
@@ -7797,6 +8112,8 @@ def main() -> int:
                         "cli_recipe": recipe_row["seconds"],
                         "ddp_flownet_c": ddp_row["seconds"],
                         "ddp_nccl_world1": nccl_row["seconds"],
+                        "spatial_cli": context_rows["spatial_cli"][
+                            "seconds"],
                         "elastic_drill": drill_row["seconds"]})
     print(json.dumps({"kernels": [
         *(corr_entry(k, dtype) for dtype in DTYPES for k in CORR_KERNELS),
@@ -7856,6 +8173,8 @@ def deterministic_cli(argv: list[str]) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ddp_rank"]:  # one rank of ddp_flownet_c's check
         sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["gloo_probe"]:  # gloo's collectives on the card
+        sys.exit(gloo_cuda_probe())
     if sys.argv[1:2] == ["deterministic_cli"]:
         sys.exit(deterministic_cli(sys.argv[2:]))
     sys.exit(main())

@@ -111,8 +111,14 @@ rank has a card, gloo when ranks share one or run on the CPU); `train
 coordinator (`train/elastic.py`) before anything makes a CUDA context,
 and refuses `--multihost`, `--epochs` and a recipe, as the JAX command
 line does; its children come back as `train --config-json ...
---host-index <i> --device <the coordinator's --device>`. Every JAX flag is taken; `mesh.spatial` or
-`mesh.time` > 1 raises, naming ROADMAP item 10.
+--host-index <i> --device <the coordinator's --device>`. Every JAX flag
+is taken. `mesh.spatial` and `mesh.time` do what they do in the JAX
+verbs: `train`, `eval`, `train --recipe` and `warmup` build the mesh (a
+world whose size is not data x spatial x time raises ValueError) and
+shard rows or pairs (`parallel/spatial.py`); `serve` reads no mesh.
+What would shard on a path not ported yet (a model without row-sharded
+layers, bf16 compute, the elastic pool) raises, naming ROADMAP item
+10.
 
 Float32 means float32, as the JAX reference computes: the package's
 entry points turn TF32 off (`core.device.disable_tf32`:
@@ -589,15 +595,12 @@ def main(argv=None) -> int:
 def _main(args, boot: dict, cfg: ExperimentConfig | None) -> int:
     """`main` after the process group (if any) is joined; `cfg` the
     config `train` built for its elastic dispatch (None: build it)."""
-    from .parallel.mesh import check_mesh
-
     cfg = cfg if cfg is not None else _build_cfg(args)
     if getattr(args, "trace", False):
         cfg = cfg.replace(obs=dataclasses.replace(cfg.obs, trace=True))
     if args.cmd == "config":
         print(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
         return 0
-    check_mesh(cfg.mesh)  # spatial or time > 1: item 10's last slice
 
     if args.cmd == "serve":
         return _serve(cfg, args, boot)
@@ -702,6 +705,11 @@ def _maybe_elastic(cfg: ExperimentConfig, args) -> int | None:
             "train: --elastic and --recipe are exclusive: the recipe engine "
             "drives staged single-pool runs (train/recipe.py); run each "
             "stage elastically from a config of its own instead")
+    if cfg.mesh.spatial > 1 or cfg.mesh.time > 1:
+        # each host is a world of one: rows or pairs to shard refuse
+        from .parallel.spatial import check_context_parallel
+
+        check_context_parallel(cfg, elastic=True)
     from .train.elastic import run_elastic
 
     try:

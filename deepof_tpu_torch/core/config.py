@@ -11,7 +11,9 @@ The mesh (`parallel/mesh.py`), the elastic pool (`train/elastic.py`) and
 the metrics port are carried. Settings that change what the training
 path computes are carried; `check_trainable` raises on values that no
 model can honour, and `raise_unported` names the ROADMAP item of a
-setting not ported yet (`mesh.spatial` or `mesh.time` > 1).
+setting not ported yet (`mesh.spatial` or `mesh.time` > 1 where they
+would shard a model without row-sharded layers, bf16 compute or the
+elastic pool: `parallel/spatial.py::check_context_parallel`).
 """
 
 from __future__ import annotations
@@ -109,8 +111,10 @@ class DataConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The device mesh's axes (`parallel/mesh.py`): a `torch.distributed`
-    world of one device a rank, every rank on the data axis. spatial or
-    time > 1 raises (ROADMAP Queue A item 10)."""
+    world of one device a rank laid out (data, spatial, time) as the JAX
+    mesh; spatial shards each level's rows of FlowNet-S and FlowNet-C
+    above the gate, time a volume's folded pairs (`parallel/
+    spatial.py`)."""
 
     data: int = -1  # -1: every rank on the data axis
     spatial: int = 1  # spatial context-parallel shards of H

@@ -339,7 +339,8 @@ def check_loss_multi(cfg: LossConfig) -> None:
 def loss_interp_multi(flows: torch.Tensor, volume: torch.Tensor,
                       flow_scale: float, cfg: LossConfig,
                       scaled: torch.Tensor | None = None,
-                      recon: torch.Tensor | None = None
+                      recon: torch.Tensor | None = None,
+                      pairs: tuple[int, int] | None = None
                       ) -> tuple[LossDict, torch.Tensor]:
     """T-frame volume loss at one scale. flows: (B, h, w, 2(T-1)) raw
     head output, (u, v) per pair; volume: (B, h, w, 3T) LRN-normalised
@@ -355,12 +356,24 @@ def loss_interp_multi(flows: torch.Tensor, volume: torch.Tensor,
 
     `scaled` (flows * flow_scale) and `recon` (the volume warped by it)
     are computed here unless given: `pyramid_loss_multi` warps every
-    level in one launch and passes both."""
+    level in one launch and passes both.
+
+    `pairs` (temporal pair parallelism, `parallel/spatial.py::
+    pair_block`): this rank's block [lo, hi) of the folded pair axis
+    (`ops/warp.py::fold_pairs`), `recon` the block's warped frames
+    folded (hi - lo, h, w, 3). The photometric term then sums over the
+    block's pairs against the whole volume's normaliser (F5), and the
+    smoothness, computed whole, enters with the block's share (hi - lo)
+    / (B (T-1)): the time ranks' losses add up to the volume's."""
     check_loss_multi(cfg)
     b, h, w, c3t = volume.shape
     t = c3t // 3
     if scaled is None:
         scaled = flows * flow_scale
+    share = 1.0
+    if pairs is not None:
+        lo, hi = pairs
+        share = (hi - lo) / (b * (t - 1))
     if recon is None:
         recon = backward_warp_volume(warp_operand(volume, cfg), scaled,
                                      impl=cfg.warp_impl).to(volume.dtype)
@@ -376,14 +389,24 @@ def loss_interp_multi(flows: torch.Tensor, volume: torch.Tensor,
         cmask = border_mask(h, w, cfg.border_ratio,
                             min_width=cfg.census_window // 2,
                             device=volume.device)[None, :, :, None]
-        rec_f = (recon.reshape(b, h, w, t - 1, 3).permute(0, 3, 1, 2, 4)
-                 .reshape(b * (t - 1), h, w, 3))
         src_f = (volume[..., :3 * (t - 1)].reshape(b, h, w, t - 1, 3)
                  .permute(0, 3, 1, 2, 4).reshape(b * (t - 1), h, w, 3))
+        if pairs is None:
+            rec_f = (recon.reshape(b, h, w, t - 1, 3).permute(0, 3, 1, 2, 4)
+                     .reshape(b * (t - 1), h, w, 3))
+        else:
+            rec_f, src_f = recon, src_f[pairs[0]:pairs[1]]
         dist = census_distance(census_transform(rec_f, cfg.census_window),
                                census_transform(src_f, cfg.census_window))
         vis = cmask.expand(dist.shape)
-        photo = (dist * vis).sum() / torch.clamp(vis.sum(), min=1.0)
+        # the whole volume's count of visible entries
+        photo = (dist * vis).sum() / torch.clamp(vis.sum() / share, min=1.0)
+    elif pairs is not None:
+        src_f = (volume[..., :3 * (t - 1)].reshape(b, h, w, t - 1, 3)
+                 .permute(0, 3, 1, 2, 4).reshape(b * (t - 1), h, w, 3))
+        diff = 255.0 * (recon - src_f[pairs[0]:pairs[1]])
+        photo = (charbonnier(diff, cfg.epsilon, cfg.alpha_c) * bflow).sum() \
+            / num_valid
     else:
         diff = 255.0 * (recon - volume[..., :3 * (t - 1)])
         photo = (charbonnier(diff, cfg.epsilon, cfg.alpha_c) * bflow).sum() \
@@ -397,6 +420,8 @@ def loss_interp_multi(flows: torch.Tensor, volume: torch.Tensor,
         * level_on
     v_loss = charbonnier(dv, cfg.epsilon, cfg.alpha_s).sum() / num_valid \
         * level_on
+    if pairs is not None:
+        u_loss, v_loss = u_loss * share, v_loss * share
     total = photo + cfg.lambda_smooth * (u_loss + v_loss)
     return ({"total": total, "Charbonnier_reconstruct": photo,
              "U_loss": u_loss, "V_loss": v_loss, "smooth": u_loss + v_loss},

@@ -112,14 +112,21 @@ def pyramid_loss(flow_pyramid: list[tuple[torch.Tensor, float]],
 
 
 def pyramid_loss_multi(flow_pyramid: list[tuple[torch.Tensor, float]],
-                       volume_norm: torch.Tensor, cfg: LossConfig
+                       volume_norm: torch.Tensor, cfg: LossConfig,
+                       pairs: tuple[int, int] | None = None
                        ) -> tuple[torch.Tensor, list[LossDict], torch.Tensor]:
     """The T-frame volume pyramid loss. flow_pyramid: [(flows_k
     (B, h, w, 2(T-1)), flow_scale_k)] finest first; volume_norm:
     (B, H, W, 3T) LRN-normalised frames, resized (with antialiasing) to
     each level. Every level's T-1 frame pairs are warped in one call of
     `backward_warp_levels`. Returns (weighted total, per-level loss
-    dicts finest first, finest reconstructions (B, h, w, 3(T-1)))."""
+    dicts finest first, finest reconstructions (B, h, w, 3(T-1))).
+
+    `pairs` (temporal pair parallelism over `mesh.time`): this rank's
+    block [lo, hi) of the folded pair axis. Only the block's pairs are
+    warped (one launch of each kernel over the block at every level) and
+    the loss is this rank's share (`loss_interp_multi`); the finest
+    reconstructions are then the block's, folded (hi - lo, h, w, 3)."""
     check_loss_multi(cfg)  # the JAX package's ValueErrors first
     check_loss(cfg)
     b = volume_norm.shape[0]
@@ -128,6 +135,9 @@ def pyramid_loss_multi(flow_pyramid: list[tuple[torch.Tensor, float]],
     scaled = [flow * scale for flow, scale in flow_pyramid]
     folded = [fold_pairs(warp_operand(v, cfg), s)
               for v, s in zip(vols, scaled)]
+    if pairs is not None:
+        folded = [(nxt[pairs[0]:pairs[1]], flw[pairs[0]:pairs[1]])
+                  for nxt, flw in folded]
     recons = [r.to(volume_norm.dtype) for r in backward_warp_levels(
         [nxt for nxt, _ in folded], [flw for _, flw in folded],
         impl=cfg.warp_impl)]
@@ -135,9 +145,9 @@ def pyramid_loss_multi(flow_pyramid: list[tuple[torch.Tensor, float]],
     total = torch.zeros((), device=volume_norm.device)
     recon_finest = None
     for k, (flow, scale) in enumerate(flow_pyramid):
-        recon = unfold_pairs(recons[k], b)
+        recon = recons[k] if pairs is not None else unfold_pairs(recons[k], b)
         ld, _ = loss_interp_multi(flow, vols[k], scale, cfg,
-                                  scaled=scaled[k], recon=recon)
+                                  scaled=scaled[k], recon=recon, pairs=pairs)
         losses.append(ld)
         if k == 0:
             recon_finest = recon

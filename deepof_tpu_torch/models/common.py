@@ -16,6 +16,18 @@ Conventions, as in the JAX package:
     gradients come back float32 through the cast.
 
 Tensors are NCHW inside the models.
+
+Row sharding (spatial context parallelism, `parallel/spatial.py`): a
+`ConvELU`, `Deconv` or `FlowDecoder` handed `rows` (a
+`parallel.spatial.Rows`: the level's global height and its split over
+the spatial group) holds this rank's block of the level's rows. Each
+conv and deconv then computes this rank's block of its output level:
+it pads rows by flax's SAME rule of the *global* height (F1), reads the
+input rows its block needs through the exchange (zeros outside the
+image stand for the padding), and pads columns as without sharding;
+the decoder crops a deconv's overshoot at the global bottom only,
+since each deconv makes exactly its block of the skip's level. Without
+`rows` nothing changes: the same ops as before.
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.spatial import Rows, levels, take_window
 
 
 def bilinear_upsample_kernel(kh: int, kw: int) -> np.ndarray:
@@ -74,10 +88,29 @@ class ConvELU(nn.Module):
         self.act = act
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        """`rows`: x is this rank's block of that level; the result is
+        this rank's block of `rows.down(stride)`."""
         (kh, kw), s = self.kernel, self.stride
-        ph = _same_pad(x.shape[-2], kh, s)
         pw = _same_pad(x.shape[-1], kw, s)
+        if rows is not None:
+            # the rows each rank's output block reads, under flax's SAME
+            # pad of the global height
+            top = _same_pad(rows.n, kh, s)[0]
+            out = rows.down(s)
+            x = take_window(x, rows, [
+                (c * s - top, (d - 1) * s - top + kh) if d > c else (0, 0)
+                for c, d in out.group.blocks(out.n)])
+            if not x.shape[-2]:
+                # an empty block (below the gate only): no rows, but the
+                # exchanges before it stay in the graph, so their
+                # adjoints run on this rank too
+                return x.new_zeros((x.shape[0], self.conv.out_channels, 0,
+                                    -(-x.shape[-1] // s))) + 0 * x.sum()
+            ph = (0, 0)
+        else:
+            ph = _same_pad(x.shape[-2], kh, s)
         x = x.to(self.dtype)
         weight = self.conv.weight.to(self.dtype)
         bias = self.conv.bias.to(self.dtype)
@@ -110,10 +143,27 @@ class Deconv(nn.Module):
         self.act = act
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Rows | None = None,
+                out: Rows | None = None) -> torch.Tensor:
+        """`rows`: x is this rank's block of that level, and the result
+        this rank's block of the level `out` (the skip's: rows past its
+        global bottom are never made)."""
         d = self.deconv
+        if rows is None:
+            x = F.conv_transpose2d(x.to(self.dtype), d.weight.to(self.dtype),
+                                   d.bias.to(self.dtype), d.stride, d.padding)
+            return F.elu(x) if self.act else x
+        k, s, (p, pc) = d.weight.shape[-2], d.stride[0], d.padding
+        # output row o = i s - p + j (j < k): the input rows of each
+        # rank's output block [c, e)
+        wins = [(-(-(c + p - k + 1) // s), (e - 1 + p) // s + 1)
+                for c, e in out.group.blocks(out.n)]
+        lo = wins[out.group.index][0]
+        x = take_window(x, rows, wins)
         x = F.conv_transpose2d(x.to(self.dtype), d.weight.to(self.dtype),
-                               d.bias.to(self.dtype), d.stride, d.padding)
+                               d.bias.to(self.dtype), d.stride, (0, pc))
+        c, e = out.block
+        x = x[..., c - (lo * s - p):e - (lo * s - p), :]
         return F.elu(x) if self.act else x
 
 
@@ -152,23 +202,29 @@ class FlowDecoder(nn.Module):
             feat = in_channels[k + 1] + upconv_features[k] + flow_channels
         self.pr1 = ConvELU(feat, flow_channels, act=False, dtype=dtype)
 
-    def forward(self, feats_coarse_first: Sequence[torch.Tensor]
-                ) -> list[torch.Tensor]:
+    def forward(self, feats_coarse_first: Sequence[torch.Tensor],
+                rows: Sequence[Rows] | None = None) -> list[torch.Tensor]:
+        """`rows`: each feature's level (coarsest first), the features
+        this rank's blocks of them; the flows are then this rank's
+        blocks too."""
         n = self.n
+        at = (lambda k: None) if rows is None else rows.__getitem__
         flows = []
         feat = feats_coarse_first[0]
         for k in range(n - 1):
-            pr = getattr(self, f"pr{n - k}")(feat)
+            pr = getattr(self, f"pr{n - k}")(feat, at(k))
             flows.append(pr)
-            up_feat = getattr(self, f"upconv{n - k - 1}")(feat)
-            up_pr = getattr(self, f"up_pr{n - k}to{n - k - 1}")(pr)
+            up = ({} if rows is None else {"rows": at(k), "out": at(k + 1)})
+            up_feat = getattr(self, f"upconv{n - k - 1}")(feat, **up)
+            up_pr = getattr(self, f"up_pr{n - k}to{n - k - 1}")(pr, **up)
             # odd skip sizes: stride-2 deconvs overshoot by one, and a
-            # scale-1 deconv always does; crop
+            # scale-1 deconv always does; crop (a row-sharded deconv
+            # made exactly the skip's rows)
             skip = feats_coarse_first[k + 1]
             sh, sw = skip.shape[-2:]
             feat = torch.cat([skip, up_feat[..., :sh, :sw],
                               up_pr[..., :sh, :sw]], dim=1)
-        flows.append(self.pr1(feat))
+        flows.append(self.pr1(feat, at(n - 1)))
         return flows
 
 
@@ -195,13 +251,17 @@ def add_flownet_tail(module: nn.Module, cin: int, width_mult: float = 1.0,
     return ch(512), ch(512), ch(1024)
 
 
-def flownet_tail(module: nn.Module, x: torch.Tensor, prefix: str = "conv"):
+def flownet_tail(module: nn.Module, x: torch.Tensor, prefix: str = "conv",
+                 rows: Rows | None = None):
     """Run the tail registered by `add_flownet_tail`; returns
-    (conv4_2, conv5_2, conv6_2)."""
-    c = lambda name, t: getattr(module, f"{prefix}{name}")(t)  # noqa: E731
-    c4_2 = c("4_2", c("4_1", x))
-    c5_2 = c("5_2", c("5_1", c4_2))
-    c6_2 = c("6_2", c("6_1", c5_2))
+    (conv4_2, conv5_2, conv6_2). `rows`: x's level, row-sharded."""
+    def c(name, t, r):
+        return getattr(module, f"{prefix}{name}")(t, r)
+
+    r4, r5, r6 = (None,) * 3 if rows is None else levels(rows, 3)
+    c4_2 = c("4_2", c("4_1", x, rows), r4)
+    c5_2 = c("5_2", c("5_1", c4_2, r4), r5)
+    c6_2 = c("6_2", c("6_1", c5_2, r5), r6)
     return c4_2, c5_2, c6_2
 
 
@@ -224,14 +284,19 @@ def add_flownet_trunk(module: nn.Module, cin: int, width_mult: float = 1.0,
 
 
 def flownet_trunk(module: nn.Module, x: torch.Tensor,
-                  prefix: str = "conv") -> list[torch.Tensor]:
+                  prefix: str = "conv",
+                  rows: Rows | None = None) -> list[torch.Tensor]:
     """Run the trunk registered by `add_flownet_trunk`; returns decoder
-    taps coarsest-last: [conv1, conv2, conv3_2, conv4_2, conv5_2, conv6_2]."""
-    c = lambda name, t: getattr(module, f"{prefix}{name}")(t)  # noqa: E731
-    c1 = c("1", x)
-    c2 = c("2", c1)
-    c3_2 = c("3_2", c("3_1", c2))
-    return [c1, c2, c3_2, *flownet_tail(module, c3_2, prefix)]
+    taps coarsest-last: [conv1, conv2, conv3_2, conv4_2, conv5_2, conv6_2].
+    `rows`: x's level (the whole input), the taps row-sharded."""
+    def c(name, t, r):
+        return getattr(module, f"{prefix}{name}")(t, r)
+
+    r1, r2, r3 = (None,) * 3 if rows is None else levels(rows, 3)
+    c1 = c("1", x, rows)
+    c2 = c("2", c1, r1)
+    c3_2 = c("3_2", c("3_1", c2, r2), r3)
+    return [c1, c2, c3_2, *flownet_tail(module, c3_2, prefix, r3)]
 
 
 def truncated_normal_(w: torch.Tensor, stddev: float,

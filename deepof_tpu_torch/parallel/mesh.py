@@ -4,11 +4,22 @@ world (port of `deepof_tpu/parallel/mesh.py`).
 Axes, as in the JAX package:
   - "data":    batch data parallelism: each rank computes the gradient
                of its rows and the ranks average them (`train/step.py`);
-  - "spatial": context parallelism over image height (not ported:
-               ROADMAP Queue A item 10);
-  - "time":    Sintel temporal pair parallelism (not ported: the same).
+  - "spatial": context parallelism over image height: the ranks of one
+               data shard's spatial axis split each level's rows
+               (`parallel/spatial.py`);
+  - "time":    Sintel temporal pair parallelism: they split a volume's
+               folded pairs (`losses/pyramid.py`).
 
-Each rank owns one device. A `World` holds the grid of ranks that own
+Each rank owns one device. `build_mesh` lays the ranks out as the JAX
+mesh lays out devices, `arange(n).reshape(data, spatial, time)`, so
+rank = d S T + s T + t, and ranks that share a data coordinate are
+replicas of one batch shard (they load the same rows). Over a process
+group the world also holds a process group for each axis (`group`:
+"spatial", the ranks of procs[d, :, t]; "time", procs[d, s, :];
+"shard", procs[d] whole), made once a process, every rank making every
+group in one order (`new_group` is collective).
+
+A `World` holds the grid of ranks that own
 each (data, spatial, time) slot (`procs`) and this process's rank, so
 the JAX functions that read `jax.local_devices()` read "the slots whose
 rank is mine" here, with the same results on the same layouts:
@@ -45,7 +56,8 @@ import numpy as np
 AXES = ("data", "spatial", "time")
 
 #: the process's distributed state (set by `init_distributed`)
-_STATE: dict = {"backend": None, "device": None, "host_group": None}
+_STATE: dict = {"backend": None, "device": None, "host_group": None,
+                "groups": {}}
 
 
 class World:
@@ -76,6 +88,20 @@ class World:
         return dict(zip(AXES, self.procs.shape))
 
     @property
+    def coords(self) -> tuple[int, int, int]:
+        """(data, spatial, time) of this rank's first slot."""
+        return tuple(int(i) for i in np.argwhere(self.procs == self.rank)[0])
+
+    def group(self, axis: str):
+        """The process group of this rank's line along `axis` ("spatial",
+        "time") or of its data shard ("shard"); None without a process
+        group (`build_mesh` makes them)."""
+        d, s, t = self.coords
+        ranks = {"spatial": self.procs[d, :, t], "time": self.procs[d, s, :],
+                 "shard": self.procs[d].reshape(-1)}[axis]
+        return _STATE["groups"].get(tuple(int(r) for r in ranks))
+
+    @property
     def size(self) -> int:
         """Processes in the world."""
         return int(np.unique(self.procs).size)
@@ -98,35 +124,51 @@ class World:
                 f"backend={self.backend!r}, device={self.device!r})")
 
 
-def check_mesh(cfg) -> None:
-    """Raise on a spatial or time axis > 1: GSPMD's partitioning of the
-    convolutions has no PyTorch counterpart, and the halo exchange that
-    replaces it is ROADMAP Queue A item 10's last slice."""
-    from ..core.config import raise_unported
-
-    raise_unported([(f"mesh.{ax}={getattr(cfg, ax)} (spatial and temporal "
-                     "context parallelism, parallel/spatial.py with its "
-                     "halo exchange)", "10")
-                    for ax in ("spatial", "time") if getattr(cfg, ax) > 1])
-
-
 def build_mesh(cfg=None, world_size: int | None = None,
                rank: int | None = None) -> World:
     """The (data, spatial, time) world over `world_size` ranks, one
-    device each (default: the process group's, else a world of one).
-    cfg.data == -1 means every rank; spatial or time > 1 raises
-    (`check_mesh`)."""
+    device each (default: the process group's, else a world of one), as
+    the JAX `build_mesh` lays out devices: cfg.data == -1 means every
+    rank left after spatial x time, and a world whose size is not data x
+    spatial x time raises ValueError. Over a process group (and
+    `world_size` its own) the axes' groups are made (`World.group`)."""
     from ..core.config import MeshConfig
 
     cfg = cfg or MeshConfig()
-    check_mesh(cfg)
     group_size, group_rank = _group()
     n = group_size if world_size is None else int(world_size)
     r = group_rank if rank is None else int(rank)
-    data = n if cfg.data == -1 else cfg.data
-    if data != n:
-        raise ValueError(f"mesh {data}x1x1 != {n} devices")
-    return World(np.arange(n).reshape(data, 1, 1), r)
+    spatial, time = max(cfg.spatial, 1), max(cfg.time, 1)
+    if n % (spatial * time):
+        raise ValueError(
+            f"{n} devices not divisible by spatial*time={spatial * time}")
+    data = n // (spatial * time) if cfg.data == -1 else cfg.data
+    if data * spatial * time != n:
+        raise ValueError(f"mesh {data}x{spatial}x{time} != {n} devices")
+    procs = np.arange(n).reshape(data, spatial, time)
+    if _STATE["backend"] is not None and n == group_size and n > 1:
+        _make_groups(procs)
+    return World(procs, r)
+
+
+def _make_groups(procs: np.ndarray) -> None:
+    """Every axis line's process group and every data shard's, each made
+    once a process, all ranks in one order (`new_group` is collective:
+    every rank makes every group, its own or not)."""
+    import torch.distributed as dist
+
+    data, spatial, time = procs.shape
+    lines = []
+    if spatial > 1:
+        lines += [procs[d, :, t] for d in range(data) for t in range(time)]
+    if time > 1:
+        lines += [procs[d, s, :] for d in range(data) for s in range(spatial)]
+    if spatial * time > 1:
+        lines += [procs[d].reshape(-1) for d in range(data)]
+    for line in lines:
+        key = tuple(int(r) for r in line)
+        if key not in _STATE["groups"]:
+            _STATE["groups"][key] = dist.new_group(list(key))
 
 
 def current_world() -> World:
@@ -291,14 +333,18 @@ def shutdown_distributed() -> None:
 
     if dist.is_initialized():
         dist.destroy_process_group()
-    _STATE.update(backend=None, device=None, host_group=None)
+    _STATE.update(backend=None, device=None, host_group=None, groups={})
 
 
 def all_reduce_mean_(tensors: list, world: World) -> None:
-    """Average `tensors` (one dtype, on the rank's device) over the
-    world's ranks in place, with one all_reduce of a flat buffer. It
-    runs whenever there is a process group, a world of one included (an
-    identity there: the route is exercised, the bits kept)."""
+    """Sum `tensors` (one dtype, on the rank's device) over each data
+    shard's spatial x time ranks and average the shards, in place, with
+    one all_reduce of a flat buffer over the world divided by the data
+    axis (`train/step.py`'s invariant: a shard's ranks hold shares of
+    its loss that add up to it). With spatial and time 1 that is the
+    mean over the ranks. It runs whenever there is a process group, a
+    world of one included (an identity there: the route is exercised,
+    the bits kept)."""
     if world.backend is None or not tensors:
         return
     import torch
@@ -306,7 +352,7 @@ def all_reduce_mean_(tensors: list, world: World) -> None:
 
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat)
-    flat.div_(world.size)
+    flat.div_(world.shape["data"])
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -353,9 +399,16 @@ def any_rank(flag: bool, world: World) -> bool:
     return bool(t.item())
 
 
+def shard_leaders(world: World) -> list[int]:
+    """The first rank of each data shard, in data order (a shard's
+    spatial x time ranks are replicas of its rows)."""
+    return [int(world.procs[d, 0, 0]) for d in range(world.shape["data"])]
+
+
 def gather_rows(x: np.ndarray, world: World) -> np.ndarray:
-    """Every rank's `x` (one shape on every rank) concatenated in rank
-    order along the leading axis, on every rank (the host group)."""
+    """Every data shard's `x` (one shape on every rank; its leader's)
+    concatenated in data order along the leading axis, on every rank
+    (the host group)."""
     if not world.distributed:
         return x
     import torch
@@ -364,16 +417,18 @@ def gather_rows(x: np.ndarray, world: World) -> np.ndarray:
     t = torch.from_numpy(np.ascontiguousarray(x))
     parts = [torch.empty_like(t) for _ in range(world.size)]
     dist.all_gather(parts, t, group=_STATE["host_group"])
-    return torch.cat(parts).numpy()
+    return torch.cat([parts[r] for r in shard_leaders(world)]).numpy()
 
 
 def mean_over_ranks(value: float, world: World) -> float:
-    """The mean of a host float over the ranks (the host group)."""
+    """The mean of a host float over the data shards (each shard's
+    leader's value; the host group)."""
     if not world.distributed:
         return float(value)
     import torch
     import torch.distributed as dist
 
-    t = torch.tensor([float(value)], dtype=torch.float64)
+    lead = world.rank in shard_leaders(world)
+    t = torch.tensor([float(value) if lead else 0.0], dtype=torch.float64)
     dist.all_reduce(t, group=_STATE["host_group"])
-    return float(t.item()) / world.size
+    return float(t.item()) / world.shape["data"]

@@ -15,9 +15,12 @@ the same names: flow colours (`utils/flowviz.py`), the reconstruction and
 the ground truth's colours, as PNGs (`io/png.py`).
 
 Over a world of ranks (`parallel/mesh.py`) every rank loads the same
-full val batch, evaluates its own rows, and `gathered_eval_fn` gathers
-the outputs in rank order, so both protocols see the whole batch on
-every rank, as the JAX loop's allgathered eval does.
+full val batch, evaluates its data shard's rows, and `gathered_eval_fn`
+gathers the outputs in data order (one rank a shard: a shard's spatial
+x time ranks hold the same rows, and a row-sharded forward hands each of
+them its flows gathered to full height over the spatial group), so both
+protocols see the whole batch on every rank, as the JAX loop's
+allgathered eval does.
 """
 
 from __future__ import annotations
@@ -72,11 +75,12 @@ def dump_visuals(out_dir: str, tag: str, flow: np.ndarray,
 
 
 def gathered_eval_fn(eval_fn, world: World):
-    """`eval_fn` over a world of ranks: each rank evaluates its rows of
-    the full batch it is given, and the outputs (flow, recon, logits) are
-    gathered in rank order and the objective averaged over the ranks
-    (equal rows a rank, so the mean of the means is the batch's mean).
-    `eval_fn` itself on a world of one."""
+    """`eval_fn` over a world of ranks: each rank evaluates its data
+    shard's rows of the full batch it is given, and the outputs (flow,
+    recon, logits) of each shard's first rank are gathered in data order
+    and the objective averaged over the shards (equal rows a shard, so
+    the mean of the means is the batch's mean). `eval_fn` itself on a
+    world of one."""
     if not world.distributed:
         return eval_fn
 

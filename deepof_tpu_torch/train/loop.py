@@ -100,7 +100,11 @@ reads metrics inline (pipeline depth 0, the summary's
 `pipeline_depth`), so the divergence ladder's rollbacks fall at the same
 step on every rank. `StepTimer` counts the world's devices. The backend
 is named in the first record, the heartbeat and the summary
-(`dist_backend`, `world_size`).
+(`dist_backend`, `world_size`). With `mesh.spatial` or `mesh.time` > 1
+the ranks of one data shard load the same rows and the step shards the
+rows or the volume's pairs between them (`parallel/spatial.py`,
+`train/step.py`); below the spatial gate the Trainer logs the JAX
+loop's "spatial CP inactive" warning and those ranks replicate work.
 
 An elastic pool's trainer child (`train/elastic.py`; `elastic.host_index`
 >= 0) takes its hooks from the config the coordinator wrote: the shared
@@ -151,6 +155,8 @@ from ..resilience.faults import build_injector
 from ..resilience.healing import HealingSampler
 from ..resilience.verify import config_digest
 from .checkpoint import CheckpointManager, transfer_params
+from ..parallel.spatial import (check_context_parallel, min_spatial_height,
+                                spatial_cp_active)
 from .elastic import maybe_host_fault, pace_to_world
 from .evaluate import evaluate_aee, evaluate_ucf101, gathered_eval_fn
 from .metrics_log import (AsyncFetcher, MetricsLogger, ProfilerSession,
@@ -314,6 +320,8 @@ class Trainer:
         self.world = world
         if world.device is not None and world.backend is not None:
             device = world.device  # init_distributed placed this rank
+        if self._elastic_child:
+            check_context_parallel(cfg, elastic=True)
         primary = world.primary
         self._exec_names = exec_names
         # the fit's executable ledger (None outside a fit or when off),
@@ -438,12 +446,28 @@ class Trainer:
                 cfg.train, eval_batch_size=eval_bs))
             self.cfg = cfg
 
+        spatial = world.shape["spatial"]
+        if spatial > 1:
+            h = (cfg.data.crop_size or cfg.data.image_size)[0]
+            down = getattr(self.model, "max_downsample", 64)
+            if not spatial_cp_active(h, down, spatial):
+                self.logger.log(
+                    "warn", 0,
+                    message=f"spatial CP inactive: H={h} fails the "
+                            f"gradient-safety gate for {cfg.model} at "
+                            f"spatial={spatial} (need H >= "
+                            f"{min_spatial_height(down, spatial)}, H % "
+                            f"{spatial} == 0, and no empty deepest-level "
+                            "shard — parallel/spatial.py); those devices "
+                            "only replicate work")
+
         smooth_border = cfg.model in SMOOTH_BORDER_MODELS
         self.train_step = make_train_step(self.model, cfg,
                                           self.dataset.mean, smooth_border,
                                           world=world)
         self.eval_fn = gathered_eval_fn(
-            make_eval_fn(cfg, self.dataset.mean, smooth_border), world)
+            make_eval_fn(cfg, self.dataset.mean, smooth_border, world),
+            world)
         # the augmentation of a staged batch (prefetch thread); None
         # when neither family is on
         self.augment = make_augment_fn(cfg.data.augment_geo,

@@ -55,6 +55,30 @@ batch from (seed, step) and each rank takes its rows (F19), so a step of
 two ranks is the step of one process on the whole batch, up to the
 order of the sums.
 
+Over a world with a spatial or time axis > 1 (spatial and temporal
+context parallelism, `parallel/spatial.py`) the ranks of one data shard
+(its spatial x time ranks) load the same rows, and the step holds one
+invariant: **the losses of a data shard's spatial x time ranks add up to
+that shard's loss**. Where H is sharded (`spatial_cp_active`) the model
+runs row-sharded and hands every rank the flows gathered to full height,
+so the loss is computed whole on each spatial rank; where the volume's
+pairs are split (`pair_block`) each time rank warps its block and takes
+its share of the terms computed whole (`losses/photometric.py::
+loss_interp_multi`). So every term that each rank of a group computes in
+full (the loss on gathered flows, the smoothness on the time axis, the
+whole step where the gate is off and the ranks are replicas) enters the
+rank's loss divided by the group's size: the step scales the loss and
+its metrics by 1 / (spatial x (time unless the pairs are split)) before
+the backward. The reduction is then one flat `all_reduce` (sum) over
+the world divided by the data axis: the sum over each shard's group,
+averaged over shards (`parallel/mesh.py::all_reduce_mean_`). The row
+gather's adjoint sums each rank's cotangent back to the owner
+(`parallel/spatial.py::all_rows`), which is exact under this invariant;
+a term counted whole on every rank would come back multiplied by the
+group's size (the x2 and x4 of the JAX package's GSPMD repro are that
+kind of error). `total`, the `scale_*` stacks and `grad_norm` are the
+global ones on every rank.
+
 The model works in NCHW; the loss keeps the JAX package's NHWC, through
 permuted views of the same memory. Under `train.compute_dtype=
 "bfloat16"` the train step casts the network's input pair to bf16 and
@@ -64,19 +88,23 @@ the loss, the gradients, their norm and Adam stay float32.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..core.config import ExperimentConfig, LossConfig, check_trainable
+from ..core.config import (ExperimentConfig, LossConfig, check_trainable,
+                           raise_unported)
 from ..losses.photometric import check_loss_multi, check_loss_two_frame
 from ..losses.pyramid import (lrn_normalize, preprocess, pyramid_loss,
                               pyramid_loss_multi)
 from ..models.two_stream import dropout_masks
 from ..parallel.mesh import (World, all_reduce_mean_, current_world,
                              global_rows, local_batch_rows)
+from ..parallel.spatial import (SpatialGroup, check_context_parallel,
+                                pair_block, spatial_cp_active, spatial_group)
 from .state import TrainState, global_norm
 
 Mean = tuple[float, float, float]
@@ -115,7 +143,9 @@ def compute_dtype(cfg: ExperimentConfig) -> torch.dtype:
 def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
                  loss_cfg: LossConfig, smooth_border_mask: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False, dropout=None
+                 remat: bool = False, dropout=None,
+                 spatial: SpatialGroup | None = None,
+                 pairs: tuple[int, int] | None = None
                  ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Forward + objective. batch: NHWC float images "source" and
     "target" (and optionally the augmented "net_source"/"net_target"
@@ -126,12 +156,20 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
     action model's two keep masks (None: no dropout). Returns (total,
     aux with the per-level loss dicts, finest scaled flow, finest
     reconstruction, and an action model's logits, action_loss and, for
-    a two-stream one, accuracy)."""
+    a two-stream one, accuracy).
+
+    `spatial`: run the model row-sharded over that group (the caller
+    checked the gate); `pairs`: this rank's block of a volume's folded
+    pairs (`pyramid_loss_multi`). Both give this rank's share of the
+    loss only as `make_train_step` scales it."""
+
+    net = model if spatial is None else functools.partial(model,
+                                                           spatial=spatial)
 
     def fwd(x, *extra):
         if remat:
-            return checkpoint(model, x, *extra, use_reentrant=False)
-        return model(x, *extra)
+            return checkpoint(net, x, *extra, use_reentrant=False)
+        return net(x, *extra)
 
     def net_input(x):
         return x.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
@@ -144,7 +182,7 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
             scaled.permute(0, 3, 1, 2).to(compute_dtype).contiguous())]
         total, losses, recon = pyramid_loss_multi(
             list(zip(flows, model.flow_scales)), lrn_normalize(scaled),
-            loss_cfg)
+            loss_cfg, pairs=pairs)
         return total, {"losses": losses, "recon": recon,
                        "flow": flows[0] * model.flow_scales[0]}
     src = preprocess(batch["source"], mean)
@@ -171,7 +209,7 @@ def model_losses(model, batch: dict[str, torch.Tensor], mean: Mean,
         # the backward flows, for the occlusion masks only
         swapped = torch.cat([net_tgt, net_src], dim=-1).permute(0, 3, 1, 2)
         with torch.no_grad():
-            flows_bw = [f.float().permute(0, 2, 3, 1) for f in model(
+            flows_bw = [f.float().permute(0, 2, 3, 1) for f in net(
                 swapped.to(compute_dtype).contiguous())]
     total, losses, recon = pyramid_loss(
         list(zip(flows, model.flow_scales)), lrn_normalize(src),
@@ -213,8 +251,12 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     the loop's fetcher (`train/metrics_log.py`) takes the metrics to the
     host when a record is due. The batch may hold numpy arrays or
     tensors; it moves to the model's device. `world` (default the
-    process group's): over several ranks the batch is this rank's rows,
-    and the gradients and metrics are averaged over the ranks."""
+    process group's): over several ranks the batch is this rank's rows
+    (the same rows on each rank of a data shard), and the gradients and
+    metrics are summed over each shard's spatial x time ranks and
+    averaged over the shards (the module docstring's invariant). A
+    setting that would shard rows or pairs on a path not ported yet
+    raises NotImplementedError (`check_context_parallel`)."""
     check_trainable(cfg)
     if cfg.loss.occlusion and has_dropout(model):
         raise ValueError(
@@ -227,10 +269,30 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
     dtype = compute_dtype(cfg)
     skip = cfg.resilience.skip_nonfinite
     world = world if world is not None else current_world()
+    check_context_parallel(cfg, model, world.shape["data"])
+    group = spatial_group(world)
+    n_spatial, n_time = world.shape["spatial"], world.shape["time"]
     drops = has_dropout(model)
     gen = torch.Generator(device) if drops else None
     # the step of a batch without STEP_KEY: the one after the last
     next_at = {"step": 0}
+
+    def _context(dev_batch: dict) -> tuple[bool, tuple[int, int] | None]:
+        """(rows sharded, this rank's pair block) for this batch."""
+        img = dev_batch.get("volume", dev_batch.get("source"))
+        shard = group is not None and spatial_cp_active(
+            img.shape[1], getattr(model, "max_downsample", 64), n_spatial)
+        if shard and not getattr(model, "row_sharded", False):
+            raise_unported([(f"mesh.spatial={n_spatial} for model "
+                             f"{cfg.model!r} (its row-sharded layers)",
+                             "10")])
+        pairs = None
+        if "volume" in dev_batch and n_time > 1:
+            local = img.shape[0]
+            pairs = pair_block(global_rows(world, local), img.shape[-1] // 3,
+                               world.shape["data"], n_time,
+                               world.coords[2], local)
+        return shard, pairs
 
     def step(state: TrainState, batch: dict) -> dict:
         at = batch.get(STEP_KEY, next_at["step"])
@@ -246,10 +308,18 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
                 rows = torch.tensor(local_batch_rows(
                     world, global_rows(world, local))[1], device=device)
                 masks = tuple(m.index_select(0, rows) for m in masks)
+        shard, pairs = _context(dev_batch)
         state.optimizer.zero_grad(set_to_none=True)
         total, aux = model_losses(model, dev_batch, mean, cfg.loss,
                                   smooth_border_mask, dtype,
-                                  remat=cfg.train.remat, dropout=masks)
+                                  remat=cfg.train.remat, dropout=masks,
+                                  spatial=group if shard else None,
+                                  pairs=pairs)
+        # this rank's share of its data shard's loss (the invariant):
+        # what every rank of a group computes whole, divided by its size
+        share = 1.0 / (n_spatial * (1 if pairs is not None else n_time))
+        if share != 1.0:
+            total = total * share
         total.backward()
         total = total.detach()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -257,6 +327,9 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
                    for k in SCALE_KEYS} if "losses" in aux else {})
         extra = {k: aux[k].detach() for k in ("action_loss", "accuracy")
                  if k in aux}
+        if share != 1.0:
+            scales = {k: v * share for k, v in scales.items()}
+            extra = {k: v * share for k, v in extra.items()}
         if world.backend is not None:
             # the global gradient and the global batch's metrics, on
             # every rank, before the norm and the skip
@@ -291,7 +364,7 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
 
 
 def make_eval_fn(cfg: ExperimentConfig, mean: Mean,
-                 smooth_border_mask: bool = False
+                 smooth_border_mask: bool = False, world: World | None = None
                  ) -> Callable[[Any, dict], dict]:
     """(model, batch) -> {"total": float, "flow": (B, h, w, 2) numpy,
     "recon": (B, h, w, 3) numpy, and an action model's "logits": (B,
@@ -300,17 +373,26 @@ def make_eval_fn(cfg: ExperimentConfig, mean: Mean,
     finest reconstruction, under `torch.no_grad()` with the model in
     eval mode (its mode is restored after), without dropout. The pair
     goes in float32, as in the JAX package's eval; a bf16 model's
-    convolutions cast it."""
+    convolutions cast it. Over a `world` with a spatial axis the forward
+    is row-sharded where the train step's is (the flows come back whole
+    on every spatial rank); the loss is computed whole on every rank,
+    the pairs unsplit: each rank holds its data shard's objective."""
+    group = spatial_group(world) if world is not None else None
 
     def eval_fn(model, batch: dict) -> dict:
         device = next(model.parameters()).device
         was_training = model.training
         model.eval()
+        dev_batch = batch_to_device(batch, device)
+        img = dev_batch.get("volume", dev_batch.get("source"))
+        shard = (group is not None and getattr(model, "row_sharded", False)
+                 and spatial_cp_active(img.shape[1], model.max_downsample,
+                                       group.size))
         try:
             with torch.no_grad():
-                total, aux = model_losses(model,
-                                          batch_to_device(batch, device),
-                                          mean, cfg.loss, smooth_border_mask)
+                total, aux = model_losses(model, dev_batch, mean, cfg.loss,
+                                          smooth_border_mask,
+                                          spatial=group if shard else None)
                 return {"total": total.item(),
                         **{k: aux[k].cpu().numpy()
                            for k in ("flow", "recon", "logits") if k in aux}}

@@ -1,0 +1,208 @@
+"""One rank of the spatial and temporal context-parallel tests
+(`tests/test_torch_spatial*.py`; the port only: torch, no JAX).
+
+    python tests/_torch_spatial_worker.py WORKDIR PORT RANK WORLD [DEVICE]
+
+Joins a gloo world (`parallel/mesh.py::init_distributed`) on DEVICE
+(default cpu; on the card the ranks share it over gloo, the exchange
+staged through host memory), cuDNN deterministic and TF32 off, and runs the cases of WORKDIR/cases.json in turn, writing what this rank
+saw to WORKDIR/rank<r>.pt, a dict by case name. A case is
+{"name", "kind", ...}:
+  halo    `halo_exchange(x, halo, axis=1)` of this rank's block of the
+          array WORKDIR/<name>.npz["x"] over a spatial axis of all
+          ranks, and the gradient of sum(out * w) for w the rank's block
+          of "w": {"out", "grad"};
+  step    one train step of cfg (`config(case)`) over mesh (data,
+          spatial, time) = case["mesh"] from WORKDIR/<name>.pt's weights
+          on this rank's rows of the global batch WORKDIR/<name>.npz:
+          {"metrics", "grads"};
+  eval    `Trainer.evaluate()` under case["mesh"] from those weights:
+          the AEE protocol's numbers, and the Trainer's warn records;
+  gate    a Trainer built under case["mesh"] (no step): its warn
+          records (rank 0's metrics.jsonl).
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from deepof_tpu_torch.core.config import (  # noqa: E402
+    DataConfig, ExperimentConfig, LossConfig, MeshConfig, TrainConfig)
+from deepof_tpu_torch.data.datasets import SyntheticData  # noqa: E402
+from deepof_tpu_torch.models.registry import build_model  # noqa: E402
+from deepof_tpu_torch.parallel import spatial  # noqa: E402
+from deepof_tpu_torch.parallel.mesh import (  # noqa: E402
+    build_mesh, init_distributed, local_batch_rows, shutdown_distributed)
+from deepof_tpu_torch.train.loop import Trainer  # noqa: E402
+from deepof_tpu_torch.train.schedule import step_decay_schedule  # noqa: E402
+from deepof_tpu_torch.train.state import create_train_state  # noqa: E402
+from deepof_tpu_torch.train.step import make_train_step  # noqa: E402
+
+# alpha 0.5: a loss whose gradient does not amplify rounding (F6)
+LOSS = {"alpha_c": 0.5, "alpha_s": 0.5}
+#: FlowNet-C's thin geometry (tests/test_torch_ddp.py's)
+CORR = {"corr_max_disp": 2, "corr_stride": 1}
+
+
+def config(case: dict, log_dir: str = "") -> ExperimentConfig:
+    """The case's config: thin FlowNet-S or -C at case["hw"], global
+    batch case["batch"], T = case.get("time_step", 2) frames, the mesh
+    of case["mesh"]."""
+    hw = tuple(case["hw"])
+    d, s, t = case.get("mesh", (1, 1, 1))
+    return ExperimentConfig(
+        model=case["model"], width_mult=0.25,
+        **(CORR if case["model"] == "flownet_c" else {}),
+        loss=LossConfig(**LOSS),
+        mesh=MeshConfig(data=d, spatial=s, time=t),
+        data=DataConfig(dataset="synthetic", image_size=hw, gt_size=hw,
+                        batch_size=case["batch"],
+                        time_step=case.get("time_step", 2)),
+        train=TrainConfig(log_dir=log_dir, log_every=1, eval_every=0,
+                          eval_batch_size=case["batch"],
+                          eval_amplifier=1.0, ckpt_every_epochs=1000,
+                          seed=3))
+
+
+def model_for(case: dict, device="cpu"):
+    cfg = config(case)
+    return build_model(case["model"],
+                       flow_channels=2 * (cfg.data.time_step - 1),
+                       width_mult=0.25, device=device,
+                       **(CORR if case["model"] == "flownet_c" else {}))
+
+
+def run_halo(work: str, case: dict, world) -> dict:
+    sg = spatial.spatial_group(world)
+    with np.load(os.path.join(work, f"{case['name']}.npz")) as z:
+        x, w = z["x"], z["w"]
+    c = x.shape[1] // sg.size
+    xb = torch.tensor(x[:, sg.index * c:(sg.index + 1) * c],
+                      device=world.device, requires_grad=True)
+    out = spatial.halo_exchange(xb, case["halo"], sg, axis=1)
+    n = out.shape[1]
+    wb = torch.tensor(w[:, sg.index * n:(sg.index + 1) * n],
+                      device=world.device)
+    (out * wb).sum().backward()
+    return {"out": out.detach().cpu(), "grad": xb.grad.cpu(),
+            "staged": sg.staged(world.device)}
+
+
+def run_step(work: str, case: dict, world) -> dict:
+    cfg = config(case)
+    model = model_for(case, world.device)
+    model.load_state_dict(torch.load(os.path.join(
+        work, f"{case['name']}.pt")))
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    step = make_train_step(model, cfg, (0.0, 0.0, 0.0), world=world)
+    rows = local_batch_rows(world, case["batch"])[1]
+    with np.load(os.path.join(work, f"{case['name']}.npz")) as z:
+        batch = {k: z[k][rows] for k in z.files}
+    spatial.reset_stats()
+    m = step(state, batch)
+    return {"metrics": {k: v.detach().cpu() for k, v in m.items()},
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": dict(spatial.STATS)}
+
+
+def _warnings(log_dir: str) -> list[str]:
+    path = os.path.join(log_dir, "metrics.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [r["message"] for r in map(json.loads, f)
+                if r.get("kind") == "warn"]
+
+
+def trainer(work: str, case: dict, world) -> Trainer:
+    log_dir = os.path.join(work, case["name"])
+    cfg = config(case, log_dir)
+    t = Trainer(cfg, dataset=SyntheticData(cfg.data), device="cpu",
+                world=world)
+    weights = os.path.join(work, f"{case['name']}.pt")
+    if os.path.exists(weights):
+        t.model.load_state_dict(torch.load(weights))
+    return t
+
+
+def main(work: str, port: str, rank: str, size: str,
+         device: str = "cpu") -> None:
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    with open(os.path.join(work, "cases.json")) as f:
+        cases = json.load(f)
+    init_distributed(device, env={
+        "RANK": rank, "WORLD_SIZE": size, "LOCAL_RANK": rank,
+        "LOCAL_WORLD_SIZE": size, "MASTER_ADDR": "127.0.0.1",
+        "MASTER_PORT": port}, timeout_s=120)
+    out = {}
+    for case in cases:
+        d, s, t = case.get("mesh", (1, int(size), 1))
+        world = build_mesh(MeshConfig(data=d, spatial=s, time=t))
+        if case["kind"] == "halo":
+            out[case["name"]] = run_halo(work, case, world)
+        elif case["kind"] == "step":
+            out[case["name"]] = run_step(work, case, world)
+        elif case["kind"] == "eval":
+            tr = trainer(work, case, world)
+            out[case["name"]] = {"eval": tr.evaluate(),
+                                 "warnings": _warnings(tr.cfg.train.log_dir)}
+        elif case["kind"] == "gate":
+            tr = trainer(work, case, world)
+            out[case["name"]] = {"warnings":
+                                 _warnings(tr.cfg.train.log_dir)}
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    shutdown_distributed()
+    print(json.dumps({"rank": int(rank), "ok": True}), flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch(work: str, cases: list, nproc: int, timeout_s: float = 300,
+           device: str = "cpu") -> list[dict]:
+    """Write `cases` to work/cases.json, run `nproc` ranks of this
+    worker as subprocesses (one thread each) on `device` and return each
+    rank's outputs, in rank order; fails naming a rank's stderr."""
+    import subprocess
+
+    with open(os.path.join(work, "cases.json"), "w") as f:
+        json.dump(cases, f)
+    port = str(free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), work, port, str(r),
+         str(nproc), device], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=root) for r in range(nproc)]
+    try:
+        outs = [p.communicate(timeout=timeout_s) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return [torch.load(os.path.join(work, f"rank{r}.pt"))
+            for r in range(nproc)]
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:6])

@@ -173,14 +173,16 @@ def test_config_prints_a_dict_that_reads_back(capsys):
      SystemExit, "exclusive"),
     (["train", "--synthetic", "--model", "flownet_s", "--elastic", "2",
       "--epochs", "1", "--max-steps", "3"], SystemExit, "--max-steps"),
-    # and the mesh's spatial and time axes, item 10's last slice
-    (["serve", "--set", "mesh.spatial=2"], NotImplementedError,
-     "item 10"),
-    (["eval", "--synthetic", "--set", "mesh.time=2"], NotImplementedError,
-     "item 10")])
-def test_jax_only_flags_raise(argv, error, match):
+    # and the mesh's spatial and time axes as the JAX verbs take them:
+    # serve reads no mesh (it goes on to its missing checkpoint), eval
+    # builds one, and one process is no world of spatial x time ranks
+    (["serve", "--set", "mesh.spatial=2"], FileNotFoundError,
+     "no checkpoint"),
+    (["eval", "--synthetic", "--set", "mesh.time=2"], ValueError,
+     "not divisible by spatial\\*time=2")])
+def test_jax_only_flags_raise(argv, error, match, tmp_path):
     with pytest.raises(error, match=match):
-        cli.main(argv + ["--device", "cpu"])
+        cli.main(argv + ["--device", "cpu", "--log-dir", str(tmp_path)])
 
 
 def _ledger_dir(d, **row):
@@ -283,9 +285,9 @@ def test_unported_model_raises_naming_its_item(tmp_path, capsys):
                      "--log-dir", str(tmp_path)]) == 0
     assert capsys.readouterr().out.strip()
     shutil.rmtree(tmp_path / "ckpt")  # 0.4 GB: fc7 and the trunk
-    # (the recipe is ported, item 9.5, and the elastic pool, item 10:
-    # spatial context parallelism is not)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # (the recipe is ported, item 9.5, and the mesh, item 10: as the JAX
+    # Trainer, one process is no world of two spatial ranks)
+    with pytest.raises(ValueError, match="not divisible by spatial"):
         cli.main(["train", "--preset", "ucf101", "--synthetic",
                   "--device", "cpu", "--set", "mesh.spatial=2",
                   "--log-dir", str(tmp_path / "r")])

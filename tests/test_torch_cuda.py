@@ -19,7 +19,9 @@ the augmentation's warp and the occlusion warp (C = 2), `-k "bf16_warp
 or quality"` for the warps' bf16 instances (loss.gather_dtype=bfloat16)
 and the quality scorer's warp, `-k library` for the artifact store's
 library install, `-k "ranks or nccl"` for data parallelism on the card
-(two gloo ranks sharing it, one NCCL rank).
+(two gloo ranks sharing it, one NCCL rank), `-k exchange` for spatial
+context parallelism's halo exchange and a row-sharded step on the card
+(two gloo ranks, the exchange staged through host memory).
 """
 
 import time
@@ -1363,3 +1365,87 @@ def test_init_distributed_over_nccl_at_world_one(cuda, deterministic,
         assert torch.equal(got["metrics"][k], v), k
     for name, g in one["grads"].items():
         assert torch.equal(got["grads"][name], g), name
+
+
+def _spatial_run(tmp_path, cases: list) -> list[dict]:
+    """`tests/_torch_spatial_worker.py` in two gloo ranks on this card."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_spatial_worker as W
+
+    return W.launch(str(tmp_path), cases, 2, device="cuda")
+
+
+@pytest.mark.cuda
+def test_halo_exchange_on_the_card_is_the_pad_and_slice(cuda, tmp_path):
+    """The exchange's forward and its adjoint between two ranks that
+    share the card (gloo: each message staged through host memory)
+    against one process's pad-and-slice and its autograd, exactly."""
+    import os
+
+    x = np.arange(4 * 16 * 3, dtype=np.float32).reshape(4, 16, 3)
+    w = np.random.RandomState(1).randn(4, 24, 3).astype(np.float32)
+    np.savez(os.path.join(str(tmp_path), "halo.npz"), x=x, w=w)
+    ranks = _spatial_run(tmp_path, [{"name": "halo", "kind": "halo",
+                                     "halo": 2, "mesh": [1, 2, 1]}])
+    xt = torch.tensor(x, requires_grad=True)
+    padded = torch.nn.functional.pad(xt, (0, 0, 2, 2))
+    out = torch.cat([padded[:, 8 * s:8 * s + 12] for s in range(2)], dim=1)
+    (out * torch.tensor(w)).sum().backward()
+    assert all(r["halo"]["staged"] for r in ranks)
+    assert torch.equal(torch.cat([r["halo"]["out"] for r in ranks], 1),
+                       out.detach())
+    assert torch.equal(torch.cat([r["halo"]["grad"] for r in ranks], 1),
+                       xt.grad)
+
+
+@pytest.mark.cuda
+def test_row_sharded_exchange_step_on_the_card(cuda, deterministic,
+                                               tmp_path):
+    """Thin FlowNet-C at 256x96 over mesh.spatial=2 on the card (the
+    correlation and warp kernels on full-height operands) against the
+    one-process step on the card: the loss 1e-5 relative, each gradient
+    1e-5 of its largest entry, both ranks the same bits."""
+    import os
+
+    from deepof_tpu_torch.core.config import DataConfig
+    from deepof_tpu_torch.data.datasets import SyntheticData
+    from deepof_tpu_torch.data.pipeline import derive_batch_rng
+    from deepof_tpu_torch.parallel.mesh import World
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_spatial_worker as W
+
+    case = {"name": "c256", "kind": "step", "model": "flownet_c",
+            "hw": [256, 96], "batch": 2, "mesh": [1, 2, 1]}
+    work = str(tmp_path)
+    model = W.model_for(case, cuda)
+    torch.save(model.state_dict(), os.path.join(work, "c256.pt"))
+    batch = SyntheticData(DataConfig(dataset="synthetic", image_size=(
+        256, 96))).sample_train(2, rng=derive_batch_rng(
+            np.array([5, 0], np.uint32), 0))
+    batch = {k: batch[k] for k in ("source", "target")}
+    np.savez(os.path.join(work, "c256.npz"), **batch)
+    ranks = _spatial_run(tmp_path, [case])
+    cfg = W.config({**case, "mesh": [1, 1, 1]})
+    state = create_train_state(model, cfg.optim,
+                               step_decay_schedule(cfg.optim, 1))
+    m = make_train_step(model, cfg, (0.0, 0.0, 0.0),
+                        world=World(np.zeros((1, 1, 1))))(state, batch)
+    r0, r1 = (r["c256"] for r in ranks)
+    np.testing.assert_allclose(float(r0["metrics"]["total"]),
+                               float(m["total"]), rtol=1e-5)
+    for name, p in model.named_parameters():
+        g = p.grad.cpu()
+        np.testing.assert_allclose(r0["grads"][name].numpy(), g.numpy(),
+                                   rtol=0, atol=1e-5 * float(g.abs().max()),
+                                   err_msg=name)
+        assert torch.equal(r0["grads"][name], r1["grads"][name]), name
+    assert r0["stats"]["halo_bytes"] > 0

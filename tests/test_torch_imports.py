@@ -66,7 +66,9 @@ def test_port_imports_with_jax_and_reference_blocked():
     "deepof_tpu_torch.serve.artifacts", "deepof_tpu_torch.train.warmup",
     "deepof_tpu_torch.parallel", "deepof_tpu_torch.parallel.mesh",
     "deepof_tpu_torch.train.elastic",
-    "deepof_tpu_torch.tools.elastic_drill"])
+    "deepof_tpu_torch.tools.elastic_drill",
+    "deepof_tpu_torch.parallel.spatial",
+    "deepof_tpu_torch.tools.halo_grad_repro"])
 def test_the_observability_and_fault_modules_are_covered(module):
     """The training loop's observability and fault modules, the serving
     plane and the fetchers are copies or ports of JAX-package modules:

@@ -8,8 +8,9 @@ device owned by one of H simulated processes (blocks or round robin).
 The JAX side sees process h through a monkeypatched
 `jax.local_devices`, as `tests/test_parallel.py` simulates multi-host;
 the port's side is a `World` whose `procs` grid holds each slot's
-owner, and rank h. The port's `build_mesh` itself raises on a spatial
-or time axis > 1 (ROADMAP Queue A item 10's last slice).
+owner, and rank h. The port's `build_mesh` lays ranks out as the JAX
+`build_mesh` lays out devices, (data, spatial, time), with its two
+ValueErrors.
 """
 
 import itertools
@@ -136,10 +137,30 @@ def test_build_mesh_spans_the_world_and_refuses_spatial_and_time():
     one = TM.build_mesh()  # no process group: a world of one
     assert (one.size, one.rank, one.backend, one.distributed) == (
         1, 0, None, False)
-    for cfg in (MeshConfig(spatial=2), MeshConfig(time=2),
-                MeshConfig(data=2, spatial=2, time=2)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TM.build_mesh(cfg, world_size=8)
+    # the spatial and time axes as the JAX mesh lays them out: rank =
+    # d S T + s T + t, and a world that is not data x spatial x time
+    # raises the JAX ValueErrors
+    for cfg, n, shape in ((MeshConfig(spatial=2), 2, (1, 2, 1)),
+                          (MeshConfig(time=2), 2, (1, 1, 2)),
+                          (MeshConfig(data=2, spatial=2, time=2), 8,
+                           (2, 2, 2))):
+        world = TM.build_mesh(cfg, world_size=n, rank=n - 1)
+        assert tuple(world.shape.values()) == shape
+        jm = JM.build_mesh(JaxMeshConfig(data=cfg.data, spatial=cfg.spatial,
+                                         time=cfg.time),
+                           devices=jax.devices()[:n])
+        ids = np.vectorize(lambda d: jax.devices().index(d))(jm.devices)
+        np.testing.assert_array_equal(world.procs, ids)
+        assert world.coords == tuple(int(i) for i in
+                                     np.argwhere(ids == n - 1)[0])
+    for cfg, n in ((MeshConfig(spatial=2), 3), (MeshConfig(time=2), 1),
+                   (MeshConfig(data=2, spatial=2, time=2), 4)):
+        with pytest.raises(ValueError, match="devices"):
+            JM.build_mesh(JaxMeshConfig(data=cfg.data, spatial=cfg.spatial,
+                                        time=cfg.time),
+                          devices=jax.devices()[:n])
+        with pytest.raises(ValueError, match="devices"):
+            TM.build_mesh(cfg, world_size=n)
 
 
 def test_local_rows_of_takes_the_ranks_rows_of_a_full_batch():
