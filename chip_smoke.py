@@ -177,7 +177,17 @@ read after it):
     process's one-process step, each rank's launches, step and
     all-reduce milliseconds),
     `ddp_nccl_world1` (one rank over NCCL against the plain `train`, both
-    under cuDNN's deterministic algorithms: every loss the same bits) and `elastic_drill` (`python -m
+    under cuDNN's deterministic algorithms: every loss the same bits);
+    in the same two ranks after their DDP check, spatial and temporal
+    context parallelism: full-width FlowNet-C over mesh.spatial=2
+    (`spatial_flownet_c`), the sintel preset's FlowNet-S volume over
+    mesh.time=2 (`time_volume`), and every other family over
+    mesh.spatial=2 at full width at its preset's geometry
+    (`spatial_inception_volume`, `spatial_vgg16`, `spatial_flownet_cs`,
+    `spatial_st_single`, `spatial_st_baseline`,
+    `spatial_ucf101_spatial`), each against this process's one-process
+    step; `spatial_cli`, `train --multihost --set mesh.spatial=2`; and
+    `elastic_drill` (`python -m
     deepof_tpu_torch.tools.elastic_drill` with 3 full-width FlowNet-C
     hosts, host 1 SIGKILLed at step 4: its verdict and each surviving
     host's launches).
@@ -210,6 +220,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import math
@@ -6781,6 +6792,36 @@ DRILL_ARGS = ["--device", "cuda", "--hosts", "3", "--target", "10",
 CONTEXT = {"spatial_hw": [384, 512], "spatial_batch": 4,
            "volume_hw": [224, 480], "volume_t": 10, "volume_batch": 4,
            "model": {}}
+#: every other family over mesh.spatial=2 (ROADMAP item 10.1) in the
+#: same two ranks, full width at its preset's geometry: the sintel
+#: preset's Inception-v3 volume (224x480 crops, T = 10: 30 channels in,
+#: 18 flow channels out), VGG16Flow at flyingchairs_vgg's 320x448,
+#: FlowNet-CS at 384x512, and the three UCF-101 models at the ucf101
+#: preset's 320x384 (the synthetic draw's labels). Each is held in
+#: float64 (`checked_steps`) and its float32 step against FLOAT32_SPREAD.
+CONTEXT["families"] = {
+    "inception_volume": {"model": "inception_v3", "hw": [224, 480],
+                         "batch": 4, "frames": 10},
+    "vgg16": {"model": "vgg16", "hw": [320, 448], "batch": 8, "frames": 2},
+    "flownet_cs": {"model": "flownet_cs", "hw": [384, 512], "batch": 4,
+                   "frames": 2},
+    "st_single": {"model": "st_single", "hw": [320, 384], "batch": 8,
+                  "frames": 2},
+    "st_baseline": {"model": "st_baseline", "hw": [320, 384], "batch": 8,
+                    "frames": 2},
+    "ucf101_spatial": {"model": "ucf101_spatial", "hw": [320, 384],
+                       "batch": 8, "frames": 2}}
+#: a family's float32 step (the main path) from its float64 step, each
+#: tensor's largest difference over its largest entry: the spatial
+#: ranks' at most FLOAT32_SPREAD times the one-process float32 step's,
+#: on the worst tensor and on the median one. Both are float32's
+#: rounding of one computation summed in two orders (on the H100 the
+#: worst tensor's read 0.9-2.5x; PERF.md); a cast or a lower-precision
+#: stage on the split path shows above it.
+FLOAT32_SPREAD = 4.0
+#: timed steps of each family, a rank and in the reference: one fewer
+#: than DDP_TIMED (the script's time limit)
+FAMILY_TIMED = DDP_TIMED - 1
 #: `train --multihost --set mesh.spatial=2` beside ddp_cli
 SPATIAL_CLI_STEPS = 3
 SPATIAL_CLI_BATCH = 4
@@ -6914,12 +6955,35 @@ def ddp_rank(work: str) -> int:
     return 0
 
 
-def context_parts(check: dict, kind: str, device, world):
+def context_kinds(check: dict) -> list[str]:
+    """The context checks in their order: "spatial", "volume", then the
+    families of ctx["families"]."""
+    return ["spatial", "volume", *check["context"].get("families", {})]
+
+
+def family_launches(model: str, steps: int = 1) -> dict:
+    """A family's float32 kernel launches in `steps` train steps: the
+    two warps once a step (the loss), FlowNet-CS's twice (its
+    refinement input too) and its base stage's correlation forward and
+    backward kernels once; the classifier none."""
+    if model == "ucf101_spatial":
+        return want_counts()
+    if model == "flownet_cs":
+        return want_counts(corr=steps, corr_bwd_f1=steps,
+                           corr_bwd_f2=steps, warp_fwd=2 * steps,
+                           warp_flow_grad=2 * steps)
+    return want_counts(warp_fwd=steps, warp_flow_grad=steps)
+
+
+def context_parts(check: dict, kind: str, device, world, dtype=None):
     """The context check's model (seed 0), train step over `world` and
     global batch (a fixed synthetic draw): "spatial", full-width
-    FlowNet-C at ctx["spatial_hw"] under mesh.spatial = world's; or
+    FlowNet-C at ctx["spatial_hw"] under mesh.spatial = world's;
     "volume", FlowNet-S over ctx["volume_t"]-frame volumes (the sintel
-    preset's geometry) under mesh.time = world's."""
+    preset's geometry) under mesh.time = world's; or a family of
+    ctx["families"] (its model, size, batch and frames) under
+    mesh.spatial = world's. `dtype`: the model's compute dtype (float64:
+    the exact reference of `context_reference`), default float32."""
     import numpy as np
 
     from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
@@ -6927,27 +6991,39 @@ def context_parts(check: dict, kind: str, device, world):
     from deepof_tpu_torch.core.device import disable_tf32
     from deepof_tpu_torch.data.datasets import SyntheticData
     from deepof_tpu_torch.data.pipeline import derive_batch_rng
-    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.models.registry import MODELS, build_model
     from deepof_tpu_torch.train.schedule import step_decay_schedule
     from deepof_tpu_torch.train.state import create_train_state
     from deepof_tpu_torch.train.step import make_train_step
 
     disable_tf32()
     ctx = check["context"]
-    spatial = kind == "spatial"
-    hw = tuple(ctx["spatial_hw" if spatial else "volume_hw"])
-    t = 2 if spatial else ctx["volume_t"]
-    batch = ctx["spatial_batch" if spatial else "volume_batch"]
-    name = "flownet_c" if spatial else "flownet_s"
+    if kind in ("spatial", "volume"):
+        spatial = kind == "spatial"
+        name = "flownet_c" if spatial else "flownet_s"
+        hw = tuple(ctx["spatial_hw" if spatial else "volume_hw"])
+        t = 2 if spatial else ctx["volume_t"]
+        batch = ctx["spatial_batch" if spatial else "volume_batch"]
+    else:
+        fam = ctx["families"][kind]
+        name, hw, batch, t = (fam["model"], tuple(fam["hw"]), fam["batch"],
+                              fam["frames"])
+    # ctx["model"]: a CPU rehearsal's knobs, the width only where the
+    # model has one
+    knobs = {k: v for k, v in ctx["model"].items() if k != "width_mult"
+             or "width_mult" in inspect.signature(MODELS[name]).parameters}
     shape = world.shape
     cfg = ExperimentConfig(
         model=name, loss=LossConfig(alpha_c=0.5, alpha_s=0.5),
         mesh=MeshConfig(data=shape["data"], spatial=shape["spatial"],
                         time=shape["time"]),
         data=DataConfig(dataset="synthetic", image_size=hw, gt_size=hw,
-                        batch_size=batch, time_step=t), **ctx["model"])
+                        batch_size=batch, time_step=t), **knobs)
     kw = ({"corr_max_disp": cfg.corr_max_disp,
-           "corr_stride": cfg.corr_stride} if spatial else {})
+           "corr_stride": cfg.corr_stride}
+          if name in ("flownet_c", "flownet_cs") else {})
+    if dtype is not None:
+        kw["dtype"] = dtype
     model = build_model(name, flow_channels=2 * (t - 1), device=device,
                         seed=0, image_size=hw, width_mult=cfg.width_mult,
                         **kw)
@@ -6956,31 +7032,123 @@ def context_parts(check: dict, kind: str, device, world):
     step = make_train_step(model, cfg, (0.0, 0.0, 0.0), world=world)
     draw = SyntheticData(cfg.data).sample_train(batch, rng=derive_batch_rng(
         np.array([9, 0], np.uint32), 0))
-    keys = ("source", "target") if spatial else ("volume",)
+    keys = (("volume",) if t > 2 else ("source", "target", "label")
+            if name in ("st_single", "st_baseline", "ucf101_spatial")
+            else ("source", "target"))
     return model, state, step, {k: draw[k] for k in keys}
+
+
+def max_rel_errs(got: dict, want: dict) -> dict:
+    """{name: max |got - want| / max |want|} over two gradient dicts, on
+    `got`'s device."""
+    out = {}
+    for n, w in want.items():
+        g = got[n]
+        w = w.to(g.device)
+        out[n] = float((g.double() - w.double()).abs().max()
+                       / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def set_compute_dtype(model, dtype) -> None:
+    """Every layer's compute dtype: the `dtype` each conv, deconv and
+    dense layer casts its input, weight and bias to (`models/common.py`,
+    `models/two_stream.py`); the parameters stay float32 and their
+    gradients come back float32 through the cast. The losses read the
+    flows cast to float32 whatever it is."""
+    import torch
+
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
+@contextlib.contextmanager
+def float32_correlation():
+    """FlowNet-C's correlation with its operands cast to float32 and its
+    volume cast back: the kernel takes float32 or bf16, so a float64 step
+    of FlowNet-CS is float64 but for it (and for the upsample and warp of
+    its refinement input, float32 in the model)."""
+    from deepof_tpu_torch.models import flownet_c
+
+    corr = flownet_c.correlation_nchw
+
+    def cast(f1, f2, *args, **kw):
+        return corr(f1.float(), f2.float(), *args, **kw).to(f1.dtype)
+
+    flownet_c.correlation_nchw = cast
+    try:
+        yield
+    finally:
+        flownet_c.correlation_nchw = corr
+
+
+def checked_steps(model, state, step, batch, exact: bool):
+    """The context check's steps at the seed's weights, each yielded as
+    (loss, gradients on the device): the float32 step (the main path),
+    then, where `exact`, the same step with every layer in float64 from
+    the same weights and at the same global step (an action model's
+    dropout masks; the correlation in float32, `float32_correlation`).
+    A caller reads the float32 step's exchanges and launches before it
+    asks for the next."""
+    import torch
+
+    from deepof_tpu_torch.train.step import STEP_KEY
+
+    batch = {**batch, STEP_KEY: 0}
+    weights = ({k: v.clone() for k, v in model.state_dict().items()}
+               if exact else None)
+    for dtype in ((torch.float32, torch.float64) if exact
+                  else (torch.float32,)):
+        if dtype == torch.float64:
+            model.load_state_dict(weights)
+            set_compute_dtype(model, dtype)
+        try:
+            with (float32_correlation() if dtype == torch.float64
+                  else contextlib.nullcontext()):
+                m = step(state, batch)
+        finally:
+            set_compute_dtype(model, torch.float32)
+        yield m["total"].detach(), {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters()}
 
 
 def context_reference(work: str, check: dict) -> dict:
     """The one-process steps of the context checks at the seed's weights
-    (work/context_ref.pt: loss and every gradient, each kind), each
-    timed DDP_TIMED times (ms, host clock to a synchronize)."""
+    (work/context_ref_<kind>.pt: the loss and every gradient of the
+    float32 step, and of a family's float64 step; a file a
+    kind, so a rank loads one kind's at a time: the UCF-101 models' fc6
+    gradient alone is 251.7 M floats), each then timed DDP_TIMED times
+    in float32 (FAMILY_TIMED for a family; ms, host clock to a
+    synchronize)."""
     import numpy as np
     import torch
 
     from deepof_tpu_torch.parallel.mesh import World
 
     device = torch.device(check["device"])
-    refs, ms = {}, {}
+    ms = {}
     with cudnn_deterministic():
-        for kind in ("spatial", "volume"):
+        for kind in context_kinds(check):
             model, state, step, batch = context_parts(
                 check, kind, device, World(np.zeros((1, 1, 1))))
-            m = step(state, batch)
-            refs[kind] = {"total": m["total"].cpu(),
-                          "grads": {n: p.grad.detach().cpu()
-                                    for n, p in model.named_parameters()}}
+            steps = list(checked_steps(
+                model, state, step, batch,
+                kind in check["context"].get("families", {})))
+            ref = {key: {"total": total.cpu(),
+                         "grads": {n: g.cpu() for n, g in grads.items()}}
+                   for key, (total, grads) in zip(("float32", "float64"),
+                                                  steps)}
+            if len(steps) == 2:
+                ref["float32_vs_float64"] = max_rel_errs(steps[0][1],
+                                                         steps[1][1])
+            del steps
+            torch.save(ref, os.path.join(work, f"context_ref_{kind}.pt"))
+            del ref
             ms[kind] = []
-            for _ in range(DDP_TIMED):
+            timed = (DDP_TIMED if kind in ("spatial", "volume")
+                     else FAMILY_TIMED)
+            for _ in range(timed):
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 t1 = time.perf_counter()
@@ -6988,22 +7156,29 @@ def context_reference(work: str, check: dict) -> dict:
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 ms[kind].append(1e3 * (time.perf_counter() - t1))
-            del model, state, step, m
+            del model, state, step
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-    torch.save(refs, os.path.join(work, "context_ref.pt"))
     return ms
 
 
 def context_rank(work: str, check: dict, rank: int) -> dict:
     """ddp_rank's context checks in its two ranks, on the world they
-    joined (the axes' groups made here, no new boot): each kind's step
-    on the whole global batch (the ranks of one data shard hold the
-    same rows), its kernel launches, its largest gradient difference
-    from the one-process step (each tensor's, over its largest entry),
-    a CRC of its gradients, the bytes, messages and milliseconds of its
-    exchanges (host clock to a synchronize around each), then DDP_TIMED
-    more steps' milliseconds with the exchanges untimed."""
+    joined (the axes' groups made here, no new boot): each kind's
+    float32 step on the whole global batch (the ranks of one data shard
+    hold the same rows), its kernel launches and the bytes, messages and
+    milliseconds of its exchanges (host clock to a synchronize around
+    each); then, for a family, the same step in float64 from the same
+    weights. The checked step (a family's float64 one, else float32)
+    gives the row's largest gradient difference from the one-process
+    step of its dtype (each tensor's, over its largest entry, on the
+    rank's device), its loss and a CRC of its gradients; a family's
+    float32 step is reported beside it (`float32`: against the
+    one-process float32 step, and its distance from the float64 step
+    on the worst and the median tensor beside the one-process float32
+    step's, which FLOAT32_SPREAD bounds). Then
+    DDP_TIMED (a family: FAMILY_TIMED) more float32 steps'
+    milliseconds with the exchanges untimed."""
     import zlib
 
     import torch
@@ -7012,30 +7187,56 @@ def context_rank(work: str, check: dict, rank: int) -> dict:
     from deepof_tpu_torch.parallel import spatial
     from deepof_tpu_torch.parallel.mesh import build_mesh
 
-    ref = torch.load(os.path.join(work, "context_ref.pt"))
+    def held(total, grads, want):
+        errs = max_rel_errs(grads, want["grads"])
+        worst = max(errs, key=errs.get)
+        crc = 0
+        for name in sorted(grads):
+            crc = zlib.crc32(grads[name].cpu().numpy().tobytes(), crc)
+        return {"max_rel_err": errs[worst], "worst_tensor": worst,
+                "total": float(total),
+                "total_one_process": float(want["total"]),
+                "grad_crc32": crc}
+
     out = {}
-    for kind, mesh in (("spatial", MeshConfig(spatial=2)),
-                       ("volume", MeshConfig(time=2))):
+    for kind in context_kinds(check):
+        mesh = MeshConfig(time=2) if kind == "volume" else MeshConfig(
+            spatial=2)
+        ref = torch.load(os.path.join(work, f"context_ref_{kind}.pt"))
         world = build_mesh(mesh)
         model, state, step, batch = context_parts(check, kind, world.device,
                                                   world)
+        exact = kind in check["context"].get("families", {})
         reset_kernel_counts()
         spatial.reset_stats()
         spatial.STATS["timed"] = True
-        m = step(state, batch)
-        spatial.STATS["timed"] = False
-        counts = kernel_counts()
-        stats = dict(spatial.STATS)
-        errs, crc = {}, 0
-        for name, p in model.named_parameters():
-            g = p.grad.detach().cpu()
-            want = ref[kind]["grads"][name]
-            errs[name] = float((g - want).abs().max()
-                               / max(float(want.abs().max()), 1e-30))
-            crc = zlib.crc32(g.numpy().tobytes(), crc)
-        worst = max(errs, key=errs.get)
+        rows = []
+        for i, (total, grads) in enumerate(checked_steps(
+                model, state, step, batch, exact)):
+            if i == 0:  # the float32 step: the main path's counts
+                spatial.STATS["timed"] = False
+                counts = kernel_counts()
+                stats = dict(spatial.STATS)
+                rows.append(held(total, grads, ref["float32"]))
+                if exact:
+                    d = max_rel_errs(grads, ref["float64"]["grads"])
+                    one = ref["float32_vs_float64"]
+                    rows[0].update(
+                        vs_float64=max(d.values()),
+                        one_process_vs_float64=max(one.values()),
+                        vs_float64_median=statistics.median(d.values()),
+                        one_process_vs_float64_median=statistics.median(
+                            one.values()))
+            else:
+                rows.append(held(total, grads, ref["float64"]))
+            del grads
+        row = {**rows[-1],
+               "checked_dtype": "float64" if exact else "float32"}
+        if exact:
+            row["float32"] = rows[0]
         step_ms = []
-        for _ in range(DDP_TIMED):
+        timed = DDP_TIMED if kind in ("spatial", "volume") else FAMILY_TIMED
+        for _ in range(timed):
             if world.device.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -7045,12 +7246,9 @@ def context_rank(work: str, check: dict, rank: int) -> dict:
             step_ms.append(1e3 * (time.perf_counter() - t0))
         out[kind] = {
             "rank": rank, "mesh": world.shape, "coords": world.coords,
-            "launches": counts, "total": float(m["total"]),
-            "total_one_process": float(ref[kind]["total"]),
-            "max_rel_err": errs[worst], "worst_tensor": worst,
-            "grad_crc32": crc, "step_ms": step_ms,
+            "launches": counts, **row, "step_ms": step_ms,
             "exchange": {k: v for k, v in stats.items() if k != "timed"}}
-        del model, state, step, m
+        del model, state, step, ref
         if world.device.type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -7249,7 +7447,8 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
                ) -> tuple[dict, dict, dict]:
     """Data parallelism and spatial and temporal context parallelism on
     the card: the phases `ddp_flownet_c`, `ddp_nccl_world1`,
-    `spatial_flownet_c`, `time_volume`, `spatial_cli` and
+    `spatial_flownet_c`, `time_volume`, `spatial_<family>` for each
+    family of CONTEXT["families"], `spatial_cli` and
     `gloo_cuda_collectives`.
 
     First, at once, beside each other on the card and beside `clearing`
@@ -7287,7 +7486,14 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     within DDP_LOSS_RTOL, both ranks the same bits, the correlation
     forward, both backward kernels and both warps once in each spatial
     rank's step (on full-height operands), both warps once in each time
-    rank's (on its half of the pairs).
+    rank's (on its half of the pairs); then each family of
+    CONTEXT["families"] over mesh.spatial=2 (`spatial_<family>`): its
+    float32 step (the main path: launches, `family_launches`, rows
+    exchanged, the loss within DDP_LOSS_RTOL, one CRC, its gradients'
+    distance from the float64 step within FLOAT32_SPREAD times the
+    one-process float32 step's), then the same step with every layer in
+    float64 but the correlation (in float32 these gradients' own rounding
+    at full size exceeds DDP_TOL), held as `spatial_flownet_c` is.
 
     `check` and `extra` (the command line's flags) set a CPU
     rehearsal's size and device."""
@@ -7362,7 +7568,8 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     for r in range(2):
         with open(os.path.join(work, f"context_rank{r}.json")) as f:
             contexts.append(json.load(f))
-    os.remove(os.path.join(work, "context_ref.pt"))
+    for kind in context_kinds(check):
+        os.remove(os.path.join(work, f"context_ref_{kind}.pt"))
 
     records = read_records(log_dir)
     first = records[0]
@@ -7442,14 +7649,19 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
         "nccl_losses": len(got) == DDP_STEPS and nccl_row["bitwise_equal"]
         and bool(np.isfinite(np.asarray(got, float)).all())}
     ctx = check["context"]
+    families = ctx.get("families", {})
     rows = {}
-    for kind, phase in (("spatial", "spatial_flownet_c"),
-                        ("volume", "time_volume")):
+    phases = {"spatial": "spatial_flownet_c", "volume": "time_volume",
+              **{k: f"spatial_{k}" for k in families}}
+    for kind, phase in phases.items():
         ranks = [c[kind] for c in contexts]
         rows[phase] = {
-            "geometry": {k: v for k, v in ctx.items()
-                         if k.startswith(kind)},
+            "geometry": (families[kind] if kind in families else
+                         {k: v for k, v in ctx.items()
+                          if k.startswith(kind)}),
             "ranks": ranks, "tol": DDP_TOL, "loss_rtol": DDP_LOSS_RTOL,
+            **({"float32_spread": FLOAT32_SPREAD} if kind in families
+               else {}),
             "one_process_step_ms": context_ms[kind],
             "beside": "nothing (after ddp_flownet_c's check, in its ranks)",
             "backend": ddp_row["check"]["ranks"][0]["backend"]}
@@ -7499,10 +7711,38 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
             for s in spatial_summaries),
         "spatial_cli_active": not any("spatial CP inactive" in m for m in
                                       rows["spatial_cli"]["warnings"])})
+
+    def spread(r):
+        return (r["vs_float64"]
+                <= FLOAT32_SPREAD * r["one_process_vs_float64"]
+                and r["vs_float64_median"]
+                <= FLOAT32_SPREAD * r["one_process_vs_float64_median"])
+
+    for kind, fam in families.items():
+        # the float64 step held as spatial_flownet_c is; the float32
+        # step, the main path, its loss, its distance from float64 and
+        # one CRC
+        fr = rows[f"spatial_{kind}"]["ranks"]
+        f32 = [r["float32"] for r in fr]
+        checks.update({
+            f"{kind}_grads": all(held(r) for r in fr),
+            f"{kind}_float32_grads": all(spread(r) for r in f32),
+            f"{kind}_float32_loss": all(
+                abs(r["total"] - r["total_one_process"])
+                <= DDP_LOSS_RTOL * abs(r["total_one_process"]) for r in f32),
+            f"{kind}_launches": all(
+                r["launches"] == family_launches(fam["model"]) for r in fr),
+            f"{kind}_same_bits": fr[0]["grad_crc32"] == fr[1]["grad_crc32"]
+            and fr[0]["total"] == fr[1]["total"]
+            and f32[0]["grad_crc32"] == f32[1]["grad_crc32"],
+            f"{kind}_exchanged": all(r["exchange"]["halo_bytes"] > 0
+                                     and r["exchange"]["gather_bytes"] > 0
+                                     for r in fr)})
     if not all(checks.values()):
         raise AssertionError(f"ddp_flownet_c / ddp_nccl_world1 / "
                              f"spatial_flownet_c / time_volume / "
-                             f"spatial_cli: {checks}")
+                             f"spatial_cli / the spatial families: "
+                             f"{checks}")
     return ddp_row, nccl_row, rows
 
 
@@ -7834,7 +8074,9 @@ def main() -> int:
     # each spatial rank's step (the correlation on full-height operands),
     # each time rank's (the warps on its half of the pairs), and the
     # ranks of `train --multihost --set mesh.spatial=2`
-    for phase in ("spatial_flownet_c", "time_volume"):
+    # (and, since item 10.1, every other family's spatial ranks)
+    for phase in ("spatial_flownet_c", "time_volume",
+                  *(f"spatial_{k}" for k in CONTEXT["families"])):
         for r in context_rows[phase]["ranks"]:
             corr_paths[f"{phase}_rank{r['rank']}"] = r["launches"]
     for r, s in enumerate(context_rows["spatial_cli"]["ranks"]):

@@ -18,15 +18,17 @@ Conventions, as in the JAX package:
 Tensors are NCHW inside the models.
 
 Row sharding (spatial context parallelism, `parallel/spatial.py`): a
-`ConvELU`, `Deconv` or `FlowDecoder` handed `rows` (a
-`parallel.spatial.Rows`: the level's global height and its split over
-the spatial group) holds this rank's block of the level's rows. Each
-conv and deconv then computes this rank's block of its output level:
-it pads rows by flax's SAME rule of the *global* height (F1), reads the
-input rows its block needs through the exchange (zeros outside the
-image stand for the padding), and pads columns as without sharding;
-the decoder crops a deconv's overshoot at the global bottom only,
-since each deconv makes exactly its block of the skip's level. Without
+`ConvELU`, `Deconv`, `FlowDecoder`, `max_pool` or `avg_pool` handed
+`rows` (a `parallel.spatial.Rows`: the level's global height and its
+split over the spatial group) holds this rank's block of the level's
+rows. Each conv, deconv and pool then computes this rank's block of its
+output level: it pads rows by flax's SAME rule of the *global* height
+(F1), reads the input rows its block needs through the exchange (zeros
+outside the image stand for a conv's padding and for the average
+pool's counted padding; the max-pool turns those rows, and only those,
+into -inf), and pads columns as without sharding; the decoder crops a
+deconv's overshoot at the global bottom only, since each deconv makes
+exactly its block of the skip's level (the scale-1 deconv too). Without
 `rows` nothing changes: the same ops as before.
 """
 
@@ -74,6 +76,64 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _row_windows(rows: Rows, k: int, s: int) -> list[tuple[int, int]]:
+    """The input rows [lo, hi) each rank's block of `rows.down(s)` reads
+    through a SAME window of k rows and stride s, under flax's pad of
+    the *global* height ((0, 0) for an empty block)."""
+    top = _same_pad(rows.n, k, s)[0]
+    out = rows.down(s)
+    return [(c * s - top, (d - 1) * s - top + k) if d > c else (0, 0)
+            for c, d in out.group.blocks(out.n)]
+
+
+def _empty_block(x: torch.Tensor, channels: int, s: int) -> torch.Tensor:
+    """An empty block of output rows (below the gate only). The
+    exchanges before it stay in the graph, so their adjoints run on this
+    rank too."""
+    return x.new_zeros((x.shape[0], channels, 0,
+                        -(-x.shape[-1] // s))) + 0 * x.sum()
+
+
+def max_pool(x: torch.Tensor, k: int, s: int,
+             rows: Rows | None = None) -> torch.Tensor:
+    """k x k max-pool, stride s, SAME: flax's asymmetric pad (low
+    total // 2, the rest high), with -inf. `rows`: x is this rank's
+    block of that level, the result this rank's block of
+    `rows.down(s)`, the block a stride-s `ConvELU` makes (a Reduction
+    block concatenates the two). The window comes through the exchange,
+    whose rows outside the image are zeros; those, and only those, are
+    set to -inf (a neighbour's row is image): a zero would win the
+    windows of negative rows (VGG16Flow's ELU trunk)."""
+    pw = _same_pad(x.shape[-1], k, s)
+    if rows is None:
+        ph = _same_pad(x.shape[-2], k, s)
+    else:
+        wins = _row_windows(rows, k, s)
+        lo, hi = wins[rows.group.index]
+        x = take_window(x, rows, wins)
+        if not x.shape[-2]:
+            return _empty_block(x, x.shape[1], s)
+        ph = (max(-lo, 0), max(hi - rows.n, 0))
+        x = x[..., ph[0]:x.shape[-2] - ph[1], :]
+    if any(ph) or any(pw):
+        x = F.pad(x, (*pw, *ph), value=float("-inf"))
+    return F.max_pool2d(x, k, s)
+
+
+def avg_pool(x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """3x3 average pool, stride 1, SAME, the zero padding counted
+    (flax's `count_include_pad=True`: every window divides by 9).
+    `rows`: x is this rank's block of that level, and so is the result;
+    the exchange's zero rows outside the image are that padding."""
+    if rows is None:
+        return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+    wins = _row_windows(rows, 3, 1)
+    x = take_window(x, rows, wins)
+    if not x.shape[-2]:
+        return _empty_block(x, x.shape[1], 1)
+    return F.avg_pool2d(x, 3, 1, (0, 1), count_include_pad=True)
+
+
 class ConvELU(nn.Module):
     """Conv with SAME padding (flax's asymmetric rule) + optional ELU, in
     `dtype`. A subclass changes the activation through `activation`."""
@@ -95,19 +155,10 @@ class ConvELU(nn.Module):
         (kh, kw), s = self.kernel, self.stride
         pw = _same_pad(x.shape[-1], kw, s)
         if rows is not None:
-            # the rows each rank's output block reads, under flax's SAME
-            # pad of the global height
-            top = _same_pad(rows.n, kh, s)[0]
-            out = rows.down(s)
-            x = take_window(x, rows, [
-                (c * s - top, (d - 1) * s - top + kh) if d > c else (0, 0)
-                for c, d in out.group.blocks(out.n)])
+            # the rows each rank's output block reads
+            x = take_window(x, rows, _row_windows(rows, kh, s))
             if not x.shape[-2]:
-                # an empty block (below the gate only): no rows, but the
-                # exchanges before it stay in the graph, so their
-                # adjoints run on this rank too
-                return x.new_zeros((x.shape[0], self.conv.out_channels, 0,
-                                    -(-x.shape[-1] // s))) + 0 * x.sum()
+                return _empty_block(x, self.conv.out_channels, s)
             ph = (0, 0)
         else:
             ph = _same_pad(x.shape[-2], kh, s)

@@ -13,6 +13,17 @@ Parameters are scoped `base` (the FlowNetC) and `refine` (the
 FlowNetS), as in the flax module, so `convert.load_flax_params` loads a
 JAX FlowNetCS tree unchanged.
 
+`forward(pair, spatial)` with a `parallel.spatial.SpatialGroup` runs
+FlowNet-CS row-sharded (spatial context parallelism; the caller has
+checked the gate): the base FlowNet-C runs row-sharded and hands back
+its flows gathered to full height; the x2 upsample and the refinement
+input (the warp kernel) are computed on those full-height operands on
+every spatial rank, as the correlation is on gathered rows; the
+refinement FlowNet-S then runs row-sharded from that whole input, each
+rank's first convs reading only their rows of it, so each rank's
+cotangent of the refinement input is its own rows' part and the base
+stage's gather sums them back to the owners.
+
 `FlowNetRefine` is the refinement stage standalone: it takes a prior flow
 from the caller instead of running a base network. Serving's temporal
 warm start (`serve/engine.py::submit_next`) feeds it the previous video
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.warp import backward_warp_nchw
+from ..parallel.spatial import SpatialGroup
 from .flownet_c import FlowNetC
 from .flownet_s import FLOW_SCALES, FlowNetS
 
@@ -97,16 +109,17 @@ class FlowNetCS(nn.Module):
                              corr_stride=corr_stride, dtype=dtype)
         self.refine = FlowNetS(flow_channels=2, in_channels=12, dtype=dtype)
 
-    def forward(self, pair: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, pair: torch.Tensor,
+                spatial: SpatialGroup | None = None) -> list[torch.Tensor]:
         if pair.shape[1] != 6:
             raise ValueError("FlowNetCS is a 2-frame model (6 input "
                              f"channels); got input {pair.shape[1]}ch")
         # the finest base level lives at half resolution; it is upsampled
-        # in float32
-        flow = self.base(pair)[0].float() * self.flow_scales[0]
+        # in float32 (gathered to full height under `spatial`)
+        flow = self.base(pair, spatial)[0].float() * self.flow_scales[0]
         flow = upsample_flow(flow, tuple(pair.shape[-2:]))
         return self.refine(refinement_inputs(pair[:, :3], pair[:, 3:], flow,
-                                             self.dtype))
+                                             self.dtype), spatial)
 
 
 class FlowNetRefine(nn.Module):

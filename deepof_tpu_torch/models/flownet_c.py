@@ -32,7 +32,6 @@ from .flownet_s import FLOW_SCALES
 class FlowNetC(nn.Module):
     flow_scales = FLOW_SCALES
     max_downsample = 64
-    row_sharded = True  # takes a SpatialGroup (spatial CP)
 
     def __init__(self, flow_channels: int = 2, max_disp: int = 20,
                  corr_stride: int = 2, width_mult: float = 1.0,

@@ -29,7 +29,6 @@ FLOW_SCALES = (10.0, 5.0, 2.5, 1.25, 0.625, 0.3125)  # finest (pr1) first
 class FlowNetS(nn.Module):
     flow_scales = FLOW_SCALES
     max_downsample = 64  # six stride-2 stages
-    row_sharded = True  # takes a SpatialGroup (spatial CP)
 
     def __init__(self, flow_channels: int = 2, width_mult: float = 1.0,
                  in_channels: int | None = None,

@@ -24,6 +24,15 @@ symmetrically (F1):
 
 Tensors are NCHW; the input is the pair (B, 6, H, W), or a T-frame
 volume (B, 3T, H, W) with `flow_channels = 2(T-1)`.
+
+`forward(x, spatial)` with a `parallel.spatial.SpatialGroup` runs it
+row-sharded (spatial context parallelism; the caller has checked the
+gate): every rank holds the whole input, and each conv, pool and block
+computes this rank's rows of its level (`common.py`'s row-sharded
+layers), the levels H/2, H/4, H/8, H/16 and H/32 of the stride-2 stem
+convs, the stem's two max-pools and the Reduction blocks; each level's
+flow leaves gathered to full height. The decoder's scale-1 deconv
+between the two H/8 taps makes exactly the skip's block.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ConvELU, FlowDecoder, _same_pad, scaled_width
+from ..parallel.spatial import Rows, SpatialGroup, all_rows, levels
+from .common import ConvELU, FlowDecoder, avg_pool, max_pool, scaled_width
 
 FLOW_SCALES = (10.0, 5.0, 2.5, 2.5, 1.25, 0.625)  # finest (pr1) first
 
@@ -54,17 +64,17 @@ class _Conv(ConvELU):
         return F.relu(x)
 
 
-def _avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """3x3, stride 1, SAME, the zero padding counted (flax's default)."""
-    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+def _avg_pool(x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """3x3, stride 1, SAME, the zero padding counted (flax's default).
+    `rows`: row-sharded (`common.avg_pool`)."""
+    return avg_pool(x, rows)
 
 
-def _max_pool(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
-    """3x3, SAME: flax's asymmetric pad, with -inf."""
-    ph = _same_pad(x.shape[-2], 3, stride)
-    pw = _same_pad(x.shape[-1], 3, stride)
-    return F.max_pool2d(F.pad(x, (*pw, *ph), value=float("-inf")), 3,
-                        stride)
+def _max_pool(x: torch.Tensor, stride: int = 2,
+              rows: Rows | None = None) -> torch.Tensor:
+    """3x3, SAME: flax's asymmetric pad, with -inf. `rows`: row-sharded
+    (`common.max_pool`)."""
+    return max_pool(x, 3, stride, rows)
 
 
 class _Block(nn.Module):
@@ -98,12 +108,14 @@ class _InceptionA(_Block):
         b3 = self._conv("b3_proj", cin, pool_features)
         self.out = b0 + b1 + b2 + b3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        r = rows
         return torch.cat([
-            self.b0_1x1(x),
-            self.b1_5x5(self.b1_1x1(x)),
-            self.b2_3x3b(self.b2_3x3a(self.b2_1x1(x))),
-            self.b3_proj(_avg_pool(x))], dim=1)
+            self.b0_1x1(x, r),
+            self.b1_5x5(self.b1_1x1(x, r), r),
+            self.b2_3x3b(self.b2_3x3a(self.b2_1x1(x, r), r), r),
+            self.b3_proj(_avg_pool(x, r), r)], dim=1)
 
 
 class _ReductionA(_Block):
@@ -118,10 +130,14 @@ class _ReductionA(_Block):
         b1 = self._conv("b1_3x3b", b1, 96, (3, 3), 2)
         self.out = b0 + b1 + cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self.b0_3x3(x),
-                          self.b1_3x3b(self.b1_3x3a(self.b1_1x1(x))),
-                          _max_pool(x)], dim=1)
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        """`rows`: the result is this rank's block of `rows.down(2)`."""
+        r = rows
+        return torch.cat([self.b0_3x3(x, r),
+                          self.b1_3x3b(self.b1_3x3a(self.b1_1x1(x, r), r),
+                                       r),
+                          _max_pool(x, rows=r)], dim=1)
 
 
 class _InceptionB(_Block):
@@ -143,12 +159,14 @@ class _InceptionB(_Block):
         b3 = self._conv("b3_proj", cin, 192)
         self.out = b0 + b1 + b2 + b3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b2 = self.b2_7x1a(self.b2_1x1(x))
-        b2 = self.b2_1x7b(self.b2_7x1b(self.b2_1x7a(b2)))
-        return torch.cat([self.b0_1x1(x),
-                          self.b1_7x1(self.b1_1x7(self.b1_1x1(x))),
-                          b2, self.b3_proj(_avg_pool(x))], dim=1)
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        r = rows
+        b2 = self.b2_7x1a(self.b2_1x1(x, r), r)
+        b2 = self.b2_1x7b(self.b2_7x1b(self.b2_1x7a(b2, r), r), r)
+        return torch.cat([self.b0_1x1(x, r),
+                          self.b1_7x1(self.b1_1x7(self.b1_1x1(x, r), r), r),
+                          b2, self.b3_proj(_avg_pool(x, r), r)], dim=1)
 
 
 class _ReductionB(_Block):
@@ -165,10 +183,13 @@ class _ReductionB(_Block):
         b1 = self._conv("b1_3x3", b1, 192, (3, 3), 2)
         self.out = b0 + b1 + cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b1 = self.b1_7x1(self.b1_1x7(self.b1_1x1(x)))
-        return torch.cat([self.b0_3x3(self.b0_1x1(x)), self.b1_3x3(b1),
-                          _max_pool(x)], dim=1)
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        """`rows`: the result is this rank's block of `rows.down(2)`."""
+        r = rows
+        b1 = self.b1_7x1(self.b1_1x7(self.b1_1x1(x, r), r), r)
+        return torch.cat([self.b0_3x3(self.b0_1x1(x, r), r),
+                          self.b1_3x3(b1, r), _max_pool(x, rows=r)], dim=1)
 
 
 class _InceptionC(_Block):
@@ -188,17 +209,28 @@ class _InceptionC(_Block):
         b3 = self._conv("b3_proj", cin, 192)
         self.out = b0 + b1 + b2 + b3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b1 = self.b1_1x1(x)
-        b2 = self.b2_3x3(self.b2_1x1(x))
-        return torch.cat([self.b0_1x1(x), self.b1_1x3(b1), self.b1_3x1(b1),
-                          self.b2_1x3(b2), self.b2_3x1(b2),
-                          self.b3_proj(_avg_pool(x))], dim=1)
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        r = rows
+        b1 = self.b1_1x1(x, r)
+        b2 = self.b2_3x3(self.b2_1x1(x, r), r)
+        return torch.cat([self.b0_1x1(x, r), self.b1_1x3(b1, r),
+                          self.b1_3x1(b1, r), self.b2_1x3(b2, r),
+                          self.b2_3x1(b2, r),
+                          self.b3_proj(_avg_pool(x, r), r)], dim=1)
 
 
 #: the decoder's taps, coarsest first
 TAPS = ("Mixed_7c", "Mixed_6e", "Mixed_5d", "MaxPool_5a_3x3",
         "MaxPool_3a_3x3", "Conv2d_1a_3x3")
+#: each tap's level: its index in `levels(input, 5)` (H/2 ... H/32)
+TAP_LEVELS = (4, 3, 2, 2, 1, 0)
+#: the Mixed blocks in order, each with its input's level (the same
+#: index); a Reduction block's output is one level down
+_BLOCKS = (("Mixed_5b", 2), ("Mixed_5c", 2), ("Mixed_5d", 2),
+           ("Mixed_6a", 2), ("Mixed_6b", 3), ("Mixed_6c", 3),
+           ("Mixed_6d", 3), ("Mixed_6e", 3), ("Mixed_7a", 3),
+           ("Mixed_7b", 4), ("Mixed_7c", 4))
 
 
 class InceptionV3Base(_Block):
@@ -238,17 +270,19 @@ class InceptionV3Base(_Block):
         taps["Mixed_7c"] = c
         self.taps = taps
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> dict[str, torch.Tensor]:
+        """The taps by name. `rows`: x's level (the whole input), the
+        taps this rank's blocks of their levels (`TAP_LEVELS`)."""
+        lv = [None] * 5 if rows is None else levels(rows, 5)
         taps = {}
-        net = taps["Conv2d_1a_3x3"] = self.Conv2d_1a_3x3(x)
-        net = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(net))
-        net = taps["MaxPool_3a_3x3"] = _max_pool(net)
-        net = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(net))
-        net = taps["MaxPool_5a_3x3"] = _max_pool(net)
-        for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
-                     "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e",
-                     "Mixed_7a", "Mixed_7b", "Mixed_7c"):
-            net = getattr(self, name)(net)
+        net = taps["Conv2d_1a_3x3"] = self.Conv2d_1a_3x3(x, rows)
+        net = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(net, lv[0]), lv[0])
+        net = taps["MaxPool_3a_3x3"] = _max_pool(net, rows=lv[0])
+        net = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(net, lv[1]), lv[1])
+        net = taps["MaxPool_5a_3x3"] = _max_pool(net, rows=lv[1])
+        for name, level in _BLOCKS:
+            net = getattr(self, name)(net, lv[level])
             if name in TAPS:
                 taps[name] = net
         return taps
@@ -274,6 +308,14 @@ class InceptionV3Flow(nn.Module):
             flow_channels, dtype,
             scales=(2, 2, 1, 2, 2))  # Mixed_5d and MaxPool_5a share a size
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        taps = self.encoder(x)
-        return self.decoder([taps[t] for t in TAPS])[::-1]  # finest first
+    def forward(self, x: torch.Tensor,
+                spatial: SpatialGroup | None = None) -> list[torch.Tensor]:
+        if spatial is None:
+            taps = self.encoder(x)
+            return self.decoder([taps[t] for t in TAPS])[::-1]  # finest 1st
+        rows = Rows(spatial, x.shape[-2], whole=True)
+        taps = self.encoder(x, rows)
+        lv = levels(rows, 5)
+        lv = [lv[i] for i in TAP_LEVELS]
+        flows = self.decoder([taps[t] for t in TAPS], lv)
+        return [all_rows(f, r) for f, r in zip(flows, lv)][::-1]

@@ -28,6 +28,21 @@ passed in as arguments so that a forward recomputed under
 Layer names are flax's: a bare `nn.Conv` is `Conv` (`spatial.conv1_1.
 weight` is `spatial/conv1_1/kernel`), an `nn.Dense` is `Dense`
 (`head.fc6.weight` is `head/fc6/kernel`, transposed). Tensors are NCHW.
+
+`forward(..., spatial=...)` with a `parallel.spatial.SpatialGroup` runs a
+model row-sharded (spatial context parallelism; the caller has checked
+the gate): every rank holds the whole input, the trunks' convs and
+pools compute this rank's rows of each level, the flows leave gathered
+to full height, and the fc head reads its input gathered to full height
+(`all_rows`) on every rank, so its flatten is the one-process flatten
+and its gradients enter each rank's loss under the step's 1/S share
+(`train/step.py`). The dropout masks are the global batch's, the same
+on every spatial rank (F19). STBaseline's fusion (concat(pool5,
+Tconv5_2), the 2x2 pool, concat(., Tconv6_2), the 1x1 conv) runs
+row-sharded and is gathered once, before the head: its output at H/64
+is the smallest tensor on that path, and its pool is the row-sharded
+max-pool whose input blocks (H/32) and output blocks (H/64) need not
+line up.
 """
 
 from __future__ import annotations
@@ -37,10 +52,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import FlowDecoder, add_flownet_trunk, flownet_trunk
+from ..parallel.spatial import (Rows, SpatialGroup, all_rows, levels,
+                                take_window)
+from .common import (FlowDecoder, _empty_block, _row_windows,
+                     add_flownet_trunk, flownet_trunk)
 from .flownet_s import FLOW_SCALES as FLOWNET_SCALES
 from .vgg16_flow import _VGG_CFG, FLOW_SCALES as VGG_SCALES
-from .vgg16_flow import VGG16Trunk, _max_pool
+from .vgg16_flow import VGG16Trunk, _max_pool, vgg_pools
 
 FC_WIDTH = 4096
 KEEP_PROB = 0.9  # slim keep_prob; flax Dropout(rate=0.1)
@@ -57,10 +75,19 @@ class Conv(nn.Conv2d):
         super().__init__(cin, features, kernel, padding=kernel // 2)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
+        """`rows`: x is this rank's block of that level, and so is the
+        result (its halo of kernel // 2 rows through the exchange)."""
+        dt, pad = self.dtype, self.padding
+        if rows is not None:
+            x = take_window(x, rows, _row_windows(rows, self.kernel_size[0],
+                                                  1))
+            if not x.shape[-2]:
+                return _empty_block(x, self.out_channels, 1)
+            pad = (0, pad[1])
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), 1,
-                        self.padding)
+                        pad)
 
 
 class Dense(nn.Linear):
@@ -121,14 +148,10 @@ class VGGReLUTrunk(nn.Module):
                 setattr(self, f"conv{block}_{i}", Conv(cin, feat, dtype=dtype))
                 cin = feat
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        pools = []
-        for block, (_, n) in enumerate(_VGG_CFG, start=1):
-            for i in range(1, n + 1):
-                x = F.relu(getattr(self, f"conv{block}_{i}")(x))
-            x = _max_pool(x)
-            pools.append(x)
-        return pools
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> list[torch.Tensor]:
+        """`rows`: row-sharded (`vgg16_flow.vgg_pools`)."""
+        return vgg_pools(self, x, rows, F.relu)
 
 
 class FCHead(nn.Module):
@@ -162,6 +185,21 @@ def _down(size: int, times: int) -> int:
     return size
 
 
+def _whole(x: torch.Tensor, rows: Rows | None) -> torch.Tensor:
+    """x gathered to full height where it is row-sharded."""
+    return x if rows is None else all_rows(x, rows)
+
+
+def _input_rows(x: torch.Tensor, spatial: SpatialGroup | None
+                ) -> tuple[Rows | None, list]:
+    """(the whole input's Rows, its stride-2 levels H/2 ... H/64), or
+    (None, Nones) without a spatial group."""
+    if spatial is None:
+        return None, [None] * 6
+    rows = Rows(spatial, x.shape[-2], whole=True)
+    return rows, levels(rows, 6)
+
+
 class UCF101Spatial(nn.Module):
     classifier_only = True  # the step's branch: logits, no flow pyramid
     max_downsample = 32
@@ -174,8 +212,11 @@ class UCF101Spatial(nn.Module):
         self.encoder = VGGReLUTrunk(3, dtype)
         self.head = FCHead(h * w * 512, num_classes, dtype=dtype)
 
-    def forward(self, frame: torch.Tensor, dropout=None) -> torch.Tensor:
-        return self.head(self.encoder(frame)[-1], dropout)
+    def forward(self, frame: torch.Tensor, dropout=None,
+                spatial: SpatialGroup | None = None) -> torch.Tensor:
+        rows, lv = _input_rows(frame, spatial)
+        return self.head(_whole(self.encoder(frame, rows)[-1], lv[4]),
+                         dropout)
 
 
 class STSingle(nn.Module):
@@ -196,10 +237,15 @@ class STSingle(nn.Module):
         self.decoder = FlowDecoder(self.encoder.widths[::-1],
                                    (256, 128, 64, 32), flow_channels, dtype)
 
-    def forward(self, pair: torch.Tensor, dropout=None):
-        pools = self.encoder(pair)
-        logits = self.head(pools[-1], dropout)
-        return self.decoder(pools[::-1])[::-1], logits
+    def forward(self, pair: torch.Tensor, dropout=None,
+                spatial: SpatialGroup | None = None):
+        rows, lv = _input_rows(pair, spatial)
+        pools = self.encoder(pair, rows)
+        logits = self.head(_whole(pools[-1], lv[4]), dropout)
+        if spatial is None:
+            return self.decoder(pools[::-1])[::-1], logits
+        flows = self.decoder(pools[::-1], lv[4::-1])[::-1]
+        return [all_rows(f, r) for f, r in zip(flows, lv)], logits
 
 
 class STBaseline(nn.Module):
@@ -225,11 +271,18 @@ class STBaseline(nn.Module):
         h, w = (_down(s, 6) for s in image_size)
         self.head = FCHead(h * w * 512, num_classes, dtype=dtype)
 
-    def forward(self, pair: torch.Tensor, dropout=None):
-        taps = flownet_trunk(self, pair, prefix="Tconv")
-        flows = self.decoder(taps[::-1])[::-1]
-        pool5 = self.spatial(pair[:, :3])[-1]
-        st = _max_pool(torch.cat([pool5, taps[4]], dim=1))
-        st = torch.cat([st, taps[5]], dim=1)
-        logits = self.head(F.relu(self.fuse_1x1(st)), dropout)
+    def forward(self, pair: torch.Tensor, dropout=None,
+                spatial: SpatialGroup | None = None):
+        rows, lv = _input_rows(pair, spatial)
+        taps = flownet_trunk(self, pair, prefix="Tconv", rows=rows)
+        if spatial is None:
+            flows = self.decoder(taps[::-1])[::-1]
+        else:
+            flows = [all_rows(f, r) for f, r in zip(
+                self.decoder(taps[::-1], lv[::-1])[::-1], lv)]
+        pool5 = self.spatial(pair[:, :3], rows)[-1]  # H/32, as Tconv5_2
+        st = _max_pool(torch.cat([pool5, taps[4]], dim=1), lv[4])
+        st = torch.cat([st, taps[5]], dim=1)  # H/64, as Tconv6_2
+        st = F.relu(self.fuse_1x1(st, lv[5]))
+        logits = self.head(_whole(st, lv[5]), dropout)
         return flows, logits

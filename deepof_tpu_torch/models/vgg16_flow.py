@@ -14,15 +14,21 @@ under `encoder`. flax's `max_pool(2x2, stride 2, SAME)` pads an odd size
 high by one with -inf (F1): `_max_pool`.
 
 Tensors are NCHW; the input is the pair (B, 6, H, W).
+
+`forward(x, spatial)` with a `parallel.spatial.SpatialGroup` runs it
+row-sharded (spatial context parallelism; the caller has checked the
+gate): every rank holds the whole input, each conv and pool computes
+this rank's rows of its level (H, then H/2 ... H/32 after each pool),
+and each level's flow leaves gathered to full height.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .common import ConvELU, FlowDecoder, _same_pad
+from ..parallel.spatial import Rows, SpatialGroup, all_rows, levels
+from .common import ConvELU, FlowDecoder, max_pool
 
 FLOW_SCALES = (10.0, 5.0, 2.5, 1.25, 0.625)  # finest (pr1) first
 
@@ -34,14 +40,30 @@ VGG_CONVS = tuple(f"conv{b}_{i}" for b, (_, n) in enumerate(_VGG_CFG, 1)
                   for i in range(1, n + 1))
 
 
-def _max_pool(x: torch.Tensor) -> torch.Tensor:
+def _max_pool(x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
     """2x2, stride 2, SAME: flax's pad (low 0, high 1 at an odd size),
-    with -inf."""
-    ph = _same_pad(x.shape[-2], 2, 2)
-    pw = _same_pad(x.shape[-1], 2, 2)
-    if any(ph) or any(pw):
-        x = F.pad(x, (*pw, *ph), value=float("-inf"))
-    return F.max_pool2d(x, 2, 2)
+    with -inf. `rows`: row-sharded (`common.max_pool`)."""
+    return max_pool(x, 2, 2, rows)
+
+
+def vgg_pools(trunk: nn.Module, x: torch.Tensor, rows: Rows | None = None,
+              act=None) -> list[torch.Tensor]:
+    """[pool1..pool5] of a VGG16 trunk: its convs `conv{block}_{i}`
+    (`_VGG_CFG`), each followed by `act` where given, each block ended by
+    `_max_pool`. `rows`: x's level (the whole input); the pools are then
+    this rank's blocks of `levels(rows, 5)`."""
+    pools = []
+    lv = [None] * 5 if rows is None else levels(rows, 5)
+    for block, (_, n) in enumerate(_VGG_CFG, start=1):
+        for i in range(1, n + 1):
+            x = getattr(trunk, f"conv{block}_{i}")(x, rows)
+            if act is not None:
+                x = act(x)
+            rows = rows and rows.down(1)  # this rank's block
+        x = _max_pool(x, rows)
+        pools.append(x)
+        rows = lv[block - 1]
+    return pools
 
 
 class VGG16Trunk(nn.Module):
@@ -57,14 +79,10 @@ class VGG16Trunk(nn.Module):
                 cin = feat
             self.widths.append(feat)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        pools = []
-        for block, (_, n) in enumerate(_VGG_CFG, start=1):
-            for i in range(1, n + 1):
-                x = getattr(self, f"conv{block}_{i}")(x)
-            x = _max_pool(x)
-            pools.append(x)
-        return pools
+    def forward(self, x: torch.Tensor,
+                rows: Rows | None = None) -> list[torch.Tensor]:
+        """`rows`: row-sharded (`vgg_pools`)."""
+        return vgg_pools(self, x, rows)
 
 
 class VGG16Flow(nn.Module):
@@ -80,5 +98,11 @@ class VGG16Flow(nn.Module):
         self.decoder = FlowDecoder(self.encoder.widths[::-1],
                                    (256, 128, 64, 32), flow_channels, dtype)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        return self.decoder(self.encoder(x)[::-1])[::-1]
+    def forward(self, x: torch.Tensor,
+                spatial: SpatialGroup | None = None) -> list[torch.Tensor]:
+        if spatial is None:
+            return self.decoder(self.encoder(x)[::-1])[::-1]
+        rows = Rows(spatial, x.shape[-2], whole=True)
+        lv = levels(rows, 5)  # the pools' levels, finest first
+        flows = self.decoder(self.encoder(x, rows)[::-1], lv[::-1])[::-1]
+        return [all_rows(f, r) for f, r in zip(flows, lv)]

@@ -331,6 +331,8 @@ def take_window(x: torch.Tensor, rows: Rows, windows,
     """Rows windows[me] of the level `rows` describes: a local slice,
     zero-padded, of a whole tensor; else the exchange."""
     if not rows.whole:
+        if list(windows) == rows.group.blocks(rows.n):
+            return x  # every rank reads its own block: nothing to move
         return exchange_rows(x, rows.n, windows, rows.group, -2, kind)
     lo, hi = windows[rows.group.index]
     a, b = max(lo, 0), min(hi, rows.n)
@@ -405,11 +407,12 @@ def check_context_parallel(cfg, model=None, data: int = 1,
                            elastic: bool = False) -> None:
     """Raise NotImplementedError, naming ROADMAP item 10, where `cfg`
     would shard rows or pairs (`context_parallel`) on a path not ported
-    yet: a model without a row-sharded forward (Inception-v3, VGG16Flow,
-    the two-stream models, FlowNet-CS), `train.compute_dtype=bfloat16`,
-    or the elastic pool. With the gate off the ranks are replicas and
-    nothing is refused. `model`: the built model, or None to look its
-    class up by `cfg.model`."""
+    yet: `train.compute_dtype=bfloat16` (item 10.2) or the elastic pool
+    (item 10.3), for every model (every family of the registry shards
+    its rows in float32: FlowNet-S and -C, FlowNet-CS, Inception-v3,
+    VGG16Flow and the three UCF-101 models). With the gate off the ranks
+    are replicas and nothing is refused. `model`: the built model, or
+    None to look its class up by `cfg.model`."""
     if cfg.mesh.spatial <= 1 and cfg.mesh.time <= 1:
         return
     from ..core.config import raise_unported
@@ -423,12 +426,9 @@ def check_context_parallel(cfg, model=None, data: int = 1,
     todo = []
     what = (f"mesh.spatial={cfg.mesh.spatial}" if spatial
             else f"mesh.time={cfg.mesh.time}")
-    if spatial and not getattr(model, "row_sharded", False):
-        todo.append((f"{what} for model {cfg.model!r} (its row-sharded "
-                     "layers)", "10"))
     if (spatial or pairs) and cfg.train.compute_dtype != "float32":
         todo.append((f"{what} with train.compute_dtype="
-                     f"{cfg.train.compute_dtype}", "10"))
+                     f"{cfg.train.compute_dtype}", "10.2"))
     if (spatial or pairs) and elastic:
-        todo.append((f"{what} in the elastic pool", "10"))
+        todo.append((f"{what} in the elastic pool", "10.3"))
     raise_unported(todo)

@@ -95,8 +95,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..core.config import (ExperimentConfig, LossConfig, check_trainable,
-                           raise_unported)
+from ..core.config import ExperimentConfig, LossConfig, check_trainable
 from ..losses.photometric import check_loss_multi, check_loss_two_frame
 from ..losses.pyramid import (lrn_normalize, preprocess, pyramid_loss,
                               pyramid_loss_multi)
@@ -282,10 +281,6 @@ def make_train_step(model, cfg: ExperimentConfig, mean: Mean,
         img = dev_batch.get("volume", dev_batch.get("source"))
         shard = group is not None and spatial_cp_active(
             img.shape[1], getattr(model, "max_downsample", 64), n_spatial)
-        if shard and not getattr(model, "row_sharded", False):
-            raise_unported([(f"mesh.spatial={n_spatial} for model "
-                             f"{cfg.model!r} (its row-sharded layers)",
-                             "10")])
         pairs = None
         if "volume" in dev_batch and n_time > 1:
             local = img.shape[0]
@@ -385,9 +380,8 @@ def make_eval_fn(cfg: ExperimentConfig, mean: Mean,
         model.eval()
         dev_batch = batch_to_device(batch, device)
         img = dev_batch.get("volume", dev_batch.get("source"))
-        shard = (group is not None and getattr(model, "row_sharded", False)
-                 and spatial_cp_active(img.shape[1], model.max_downsample,
-                                       group.size))
+        shard = group is not None and spatial_cp_active(
+            img.shape[1], model.max_downsample, group.size)
         try:
             with torch.no_grad():
                 total, aux = model_losses(model, dev_batch, mean, cfg.loss,

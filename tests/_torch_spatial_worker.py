@@ -13,13 +13,22 @@ saw to WORKDIR/rank<r>.pt, a dict by case name. A case is
           ranks, and the gradient of sum(out * w) for w the rank's block
           of "w": {"out", "grad"};
   step    one train step of cfg (`config(case)`) over mesh (data,
-          spatial, time) = case["mesh"] from WORKDIR/<name>.pt's weights
-          on this rank's rows of the global batch WORKDIR/<name>.npz:
-          {"metrics", "grads"};
+          spatial, time) = case["mesh"] from WORKDIR/<weights>.pt's
+          weights (case["weights"], default its name) on this rank's
+          rows of the global batch WORKDIR/<name>.npz, an action model's
+          dropout off where case["dropout"] is false:
+          {"metrics", "grads", "stats"};
   eval    `Trainer.evaluate()` under case["mesh"] from those weights:
           the AEE protocol's numbers, and the Trainer's warn records;
   gate    a Trainer built under case["mesh"] (no step): its warn
-          records (rank 0's metrics.jsonl).
+          records (rank 0's metrics.jsonl);
+  pool    a row-sharded layer (`layer_fn`: case["op"] = "max3" or
+          "max2", the SAME max-pools; "avg3", the counted 3x3 average;
+          "deconv1", the decoder's scale-1 deconv) on this rank's row
+          block of WORKDIR/<name>.npz["x"] (B, C, n, W), over a spatial
+          axis of all ranks, and the gradient of sum(out * w) for w
+          this rank's block of "w" (the whole output's shape):
+          {"out", "grad"}.
 """
 
 import json
@@ -48,17 +57,25 @@ from deepof_tpu_torch.train.step import make_train_step  # noqa: E402
 LOSS = {"alpha_c": 0.5, "alpha_s": 0.5}
 #: FlowNet-C's thin geometry (tests/test_torch_ddp.py's)
 CORR = {"corr_max_disp": 2, "corr_stride": 1}
+#: the models with a width knob (the others are always full width)
+THIN = ("flownet_s", "flownet_c", "inception_v3")
+
+
+def knobs(model: str) -> dict:
+    """The model's size knobs: width 0.25 where it has one, FlowNet-C's
+    thin correlation (FlowNet-CS's base stage too)."""
+    return {**({"width_mult": 0.25} if model in THIN else {}),
+            **(CORR if model in ("flownet_c", "flownet_cs") else {})}
 
 
 def config(case: dict, log_dir: str = "") -> ExperimentConfig:
-    """The case's config: thin FlowNet-S or -C at case["hw"], global
-    batch case["batch"], T = case.get("time_step", 2) frames, the mesh
-    of case["mesh"]."""
+    """The case's config: case["model"] thin (`knobs`) at case["hw"],
+    global batch case["batch"], T = case.get("time_step", 2) frames,
+    the mesh of case["mesh"]."""
     hw = tuple(case["hw"])
     d, s, t = case.get("mesh", (1, 1, 1))
     return ExperimentConfig(
-        model=case["model"], width_mult=0.25,
-        **(CORR if case["model"] == "flownet_c" else {}),
+        model=case["model"], **knobs(case["model"]),
         loss=LossConfig(**LOSS),
         mesh=MeshConfig(data=d, spatial=s, time=t),
         data=DataConfig(dataset="synthetic", image_size=hw, gt_size=hw,
@@ -74,8 +91,46 @@ def model_for(case: dict, device="cpu"):
     cfg = config(case)
     return build_model(case["model"],
                        flow_channels=2 * (cfg.data.time_step - 1),
-                       width_mult=0.25, device=device,
-                       **(CORR if case["model"] == "flownet_c" else {}))
+                       device=device, image_size=tuple(case["hw"]),
+                       **knobs(case["model"]))
+
+
+def layer_fn(op: str, n: int, channels: int, device="cpu"):
+    """(layer, output rows) of a pool case: fn(x, rows) -> this rank's
+    block of the output level (rows None: the whole-height op). The
+    scale-1 deconv's weights are fixed from seed 0; its whole-height
+    op is the decoder's crop of the first n rows and W columns."""
+    from deepof_tpu_torch.models.common import Deconv, avg_pool, max_pool
+
+    if op == "deconv1":
+        torch.manual_seed(0)
+        d = Deconv(channels, channels, scale=1)
+        torch.nn.init.normal_(d.deconv.weight)
+        torch.nn.init.normal_(d.deconv.bias)
+        d.to(device)
+        # one row and one column past flax's SAME: `FlowDecoder` crops
+        # them; row-sharded, the last block stops at row n itself
+        return (lambda x, rows: (d(x)[..., :n, :] if rows is None else d(
+            x, rows, rows.down(1)))[..., :x.shape[-1]]), n
+    if op == "avg3":
+        return avg_pool, n
+    k = int(op[-1])
+    return (lambda x, rows: max_pool(x, k, 2, rows)), -(-n // 2)
+
+
+def run_pool(work: str, case: dict, world) -> dict:
+    sg = spatial.spatial_group(world)
+    with np.load(os.path.join(work, f"{case['name']}.npz")) as z:
+        x, w = z["x"], z["w"]
+    n = x.shape[-2]
+    fn, n_out = layer_fn(case["op"], n, x.shape[1], world.device)
+    lo, hi = sg.block(n)
+    xb = torch.tensor(x[..., lo:hi, :], device=world.device,
+                      requires_grad=True)
+    out = fn(xb, spatial.Rows(sg, n))
+    a, b = sg.block(n_out)
+    (out * torch.tensor(w[..., a:b, :], device=world.device)).sum().backward()
+    return {"out": out.detach().cpu(), "grad": xb.grad.cpu()}
 
 
 def run_halo(work: str, case: dict, world) -> dict:
@@ -94,14 +149,28 @@ def run_halo(work: str, case: dict, world) -> dict:
             "staged": sg.staged(world.device)}
 
 
+def train_step(model, cfg, world, dropout: bool = True):
+    """`make_train_step` of the case; `dropout=False`: an action model's
+    step without its dropout (the JAX `model_losses` at train=False)."""
+    from deepof_tpu_torch.train import step as step_mod
+
+    drops = step_mod.has_dropout
+    if not dropout:
+        step_mod.has_dropout = lambda m: False
+    try:
+        return make_train_step(model, cfg, (0.0, 0.0, 0.0), world=world)
+    finally:
+        step_mod.has_dropout = drops
+
+
 def run_step(work: str, case: dict, world) -> dict:
     cfg = config(case)
     model = model_for(case, world.device)
     model.load_state_dict(torch.load(os.path.join(
-        work, f"{case['name']}.pt")))
+        work, f"{case.get('weights', case['name'])}.pt")))
     state = create_train_state(model, cfg.optim,
                                step_decay_schedule(cfg.optim, 1))
-    step = make_train_step(model, cfg, (0.0, 0.0, 0.0), world=world)
+    step = train_step(model, cfg, world, case.get("dropout", True))
     rows = local_batch_rows(world, case["batch"])[1]
     with np.load(os.path.join(work, f"{case['name']}.npz")) as z:
         batch = {k: z[k][rows] for k in z.files}
@@ -125,8 +194,9 @@ def _warnings(log_dir: str) -> list[str]:
 def trainer(work: str, case: dict, world) -> Trainer:
     log_dir = os.path.join(work, case["name"])
     cfg = config(case, log_dir)
-    t = Trainer(cfg, dataset=SyntheticData(cfg.data), device="cpu",
-                world=world)
+    t = Trainer(cfg, dataset=SyntheticData(
+        cfg.data, num_val=case.get("num_val", 16)), device="cpu",
+        world=world)
     weights = os.path.join(work, f"{case['name']}.pt")
     if os.path.exists(weights):
         t.model.load_state_dict(torch.load(weights))
@@ -151,6 +221,8 @@ def main(work: str, port: str, rank: str, size: str,
         world = build_mesh(MeshConfig(data=d, spatial=s, time=t))
         if case["kind"] == "halo":
             out[case["name"]] = run_halo(work, case, world)
+        elif case["kind"] == "pool":
+            out[case["name"]] = run_pool(work, case, world)
         elif case["kind"] == "step":
             out[case["name"]] = run_step(work, case, world)
         elif case["kind"] == "eval":
@@ -200,8 +272,12 @@ def launch(work: str, cases: list, nproc: int, timeout_s: float = 300,
                 p.communicate()
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
-    return [torch.load(os.path.join(work, f"rank{r}.pt"))
-            for r in range(nproc)]
+    out = []
+    for r in range(nproc):
+        path = os.path.join(work, f"rank{r}.pt")
+        out.append(torch.load(path))
+        os.remove(path)  # read once; the gradients of every case
+    return out
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ and the quality scorer's warp, `-k library` for the artifact store's
 library install, `-k "ranks or nccl"` for data parallelism on the card
 (two gloo ranks sharing it, one NCCL rank), `-k exchange` for spatial
 context parallelism's halo exchange and a row-sharded step on the card
-(two gloo ranks, the exchange staged through host memory).
+(two gloo ranks, the exchange staged through host memory), `-k
+row_sharded` for those and the row-sharded pools.
 """
 
 import time
@@ -1399,6 +1400,43 @@ def test_halo_exchange_on_the_card_is_the_pad_and_slice(cuda, tmp_path):
                        out.detach())
     assert torch.equal(torch.cat([r["halo"]["grad"] for r in ranks], 1),
                        xt.grad)
+
+
+@pytest.mark.cuda
+def test_row_sharded_pools_on_the_card(cuda, deterministic, tmp_path):
+    """The row-sharded pools and the scale-1 deconv (`models/common.py`)
+    on row blocks of two ranks that share the card, at 10, 9 and 3 rows
+    (uneven ceil blocks, a block of one real row), on inputs mostly
+    below zero, against the whole-height op on the card: the pools'
+    outputs bit for bit, the deconv's and every input gradient within
+    1e-6 of their largest entry
+    (`tests/test_torch_spatial_families.py`'s tolerances)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_spatial_worker as W
+    from test_torch_spatial_families import (assert_layer_equal, pool_cases,
+                                             write_pool)
+
+    cases = pool_cases(2)
+    for case in cases:
+        write_pool(str(tmp_path), case)
+    ranks = _spatial_run(tmp_path, cases)
+    for case in cases:
+        with np.load(os.path.join(str(tmp_path),
+                                  f"{case['name']}.npz")) as z:
+            x, w = z["x"], z["w"]
+        fn, _ = W.layer_fn(case["op"], case["n"], 3, cuda)
+        xt = torch.tensor(x, device=cuda, requires_grad=True)
+        want = fn(xt, None)
+        (want * torch.tensor(w, device=cuda)).sum().backward()
+        got = torch.cat([r[case["name"]]["out"] for r in ranks], dim=-2)
+        assert_layer_equal(case["op"], got, want.detach().cpu())
+        grad = torch.cat([r[case["name"]]["grad"] for r in ranks], dim=-2)
+        np.testing.assert_allclose(
+            grad.numpy(), xt.grad.cpu().numpy(), rtol=0,
+            atol=1e-6 * float(xt.grad.abs().max()), err_msg=case["name"])
 
 
 @pytest.mark.cuda

@@ -13,15 +13,18 @@ holds them equal and would show a difference if a build changed.
 """
 
 import os
+import sys
 
 import cv2
 import numpy as np
 import pytest
 
-from deepof_tpu import native as jax_native
 from deepof_tpu_torch import native
 from deepof_tpu_torch.io.flo import write_flo
 from deepof_tpu_torch.io.png import png_bytes, read_png_bgr, write_png
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_native import jax_native, jax_native_loaded  # noqa: E402
 
 BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "deepof_tpu_torch")
@@ -42,6 +45,8 @@ def _texture(rs, h, w):
 def files(tmp_path_factory):
     """Frames of three sizes in PPM, PNG and JPEG (two subsamplings),
     and .flo files of one size."""
+    # the JAX library whole in this process (`tests/_jax_native.py`)
+    assert jax_native_loaded(), "deepof_tpu.native does not load"
     root = tmp_path_factory.mktemp("native")
     rs = np.random.RandomState(0)
     out = {"img": [], "flo": []}

@@ -18,6 +18,9 @@ file and the random draws (window indices, then each crop's y, x) are
 compared exactly.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -32,8 +35,19 @@ from deepof_tpu_torch.data.datasets import (FlyingChairsData, SintelData,
 from deepof_tpu_torch.io.flo import write_flo
 from deepof_tpu_torch.io.ppm import write_ppm_bgr
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_native import jax_native_loaded  # noqa: E402
+
 CLIPS = {"alley_1": 5, "bamboo_2": 8, "market_2": 6}
 NATIVE_HW = (36, 60)
+
+
+@pytest.fixture(scope="module")
+def jax_decoder():
+    """The JAX package's native library loaded in this process (its
+    datasets' streaming route; `tests/_jax_native.py`)."""
+    assert jax_native_loaded(), "deepof_tpu.native does not load: the " \
+        "JAX datasets would decode with cv2"
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +127,7 @@ def _assert_draws(got, want, atol):
     (True, NATIVE_HW, (28, 44), 0.0),    # cached, native size
     (True, (24, 48), (16, 40), 1.0)])    # cached, resized
 @pytest.mark.parametrize("t", [2, 3])
-def test_batches_match_jax(tree, t, cache, size, crop, atol):
+def test_batches_match_jax(tree, jax_decoder, t, cache, size, crop, atol):
     port, jax_ = (cls(c) for cls, c in zip(
         (SintelData, JaxSintel),
         _cfgs(tree, time_step=t, image_size=size, crop_size=crop,
@@ -166,7 +180,8 @@ def chairs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("size", [(30, 40), (24, 32)])
-def test_flyingchairs_streaming_is_the_jax_native_batch(chairs, size):
+def test_flyingchairs_streaming_is_the_jax_native_batch(chairs, jax_decoder,
+                                                        size):
     cfg = dict(dataset="flyingchairs", data_path=chairs, image_size=size,
                cache_decoded=False)
     port = FlyingChairsData(DataConfig(**cfg))

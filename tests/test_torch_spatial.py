@@ -25,7 +25,9 @@ of `tests/test_torch_ddp.py` (alpha 0.5, F6). Tolerances:
     once on each replica and summed would come back doubled;
   - the gathered eval's AEE, AAE and val_loss under spatial=2 within
     1e-5 relative of one process's.
-Each model family left refuses, naming ROADMAP item 10.
+Every model family passes the gate in float32 (each family's own steps:
+`tests/test_torch_spatial_families*.py`); bf16 compute and the elastic
+pool refuse, naming ROADMAP item 10.
 """
 
 import itertools
@@ -82,8 +84,8 @@ def write_case(work: str, case: dict, seed: int = 0) -> None:
         case["batch"], rng=derive_batch_rng(np.array([5, seed], np.uint32),
                                             0))
     np.savez(os.path.join(work, f"{case['name']}.npz"),
-             **{k: batch[k] for k in ("source", "target", "volume")
-                if k in batch})
+             **{k: batch[k] for k in ("source", "target", "volume",
+                                      "label") if k in batch})
 
 
 def one_process_step(work: str, case: dict) -> tuple[dict, dict]:
@@ -207,12 +209,16 @@ def test_gathered_eval_matches_one_process(world_run, tmp_path):
     ("vgg16", (256, 256), {}),
     ("st_single", (256, 256), {}),
     ("flownet_cs", (384, 512), {}),
+    ("st_baseline", (384, 512), {}),
+    ("ucf101_spatial", (256, 256), {}),
     ("flownet_c", (384, 512), {"compute_dtype": "bfloat16"}),
 ])
 def test_unported_families_refuse_naming_item_10(model, hw, setting):
-    """Where the gate would shard rows, a family without row-sharded
-    layers, bf16 compute and the elastic pool raise; below the gate
-    they train as replicas."""
+    """Where the gate would shard rows, every family trains row-sharded
+    in float32 (each has its row-sharded layers since item 10.1); bf16
+    compute (item 10.2) and the elastic pool (item 10.3) still raise,
+    naming item 10, for every family; below the gate they train as
+    replicas and nothing raises."""
     import dataclasses
 
     from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
@@ -221,15 +227,25 @@ def test_unported_families_refuse_naming_item_10(model, hw, setting):
     cfg = ExperimentConfig(model=model, mesh=MeshConfig(spatial=2),
                            data=DataConfig(image_size=hw),
                            train=TrainConfig(**setting))
+
+    def dtype(c, name):
+        return c.replace(train=dataclasses.replace(c.train,
+                                                   compute_dtype=name))
+
+    f32, bf16 = dtype(cfg, "float32"), dtype(cfg, "bfloat16")
+    if setting:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            TS.check_context_parallel(cfg)
+    TS.check_context_parallel(f32)  # row-sharded
     with pytest.raises(NotImplementedError, match="item 10"):
-        TS.check_context_parallel(cfg)
+        TS.check_context_parallel(bf16)
     with pytest.raises(NotImplementedError, match="item 10"):
-        TS.check_context_parallel(cfg.replace(model="flownet_s", train=(
-            dataclasses.replace(cfg.train, compute_dtype="float32"))),
-            elastic=True)
+        TS.check_context_parallel(f32, elastic=True)
     small = cfg.replace(data=dataclasses.replace(cfg.data,
                                                  image_size=(64, 64)))
-    TS.check_context_parallel(small)  # the gate is off: replicas
+    for c in (small, dtype(small, "bfloat16")):
+        TS.check_context_parallel(c)  # the gate is off: replicas
+    TS.check_context_parallel(small, elastic=True)
 
 
 def test_halo_grad_repro_finds_the_exchange_exact():

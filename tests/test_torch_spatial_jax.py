@@ -1,19 +1,20 @@
-"""A spatial=2 step of the port (`parallel/spatial.py`; two gloo ranks
-on the CPU, `tests/_torch_spatial_worker.py`) against the JAX package's
-single-process `model_losses` gradient of the same global batch from
-the same weights (the flax init through `convert.py`).
+"""A spatial=2 step of the port (`parallel/spatial.py`; two gloo ranks on
+the CPU, `tests/_torch_spatial_worker.py`) against the JAX package's
+single-process `model_losses` gradient of the same global batch from the
+same weights (the flax init through `convert.py`).
 
 Thin FlowNet-C (width 0.25, max_disp 2, stride 1) and FlowNet-S at
-256x96, the gate's bound at downsample 64 over 2 shards, global batch
-2, the L1-like loss (alpha 0.5, F6). Tolerance: 1e-4 of each gradient
+256x96, the gate's bound at downsample 64 over 2 shards, global batch 2,
+the L1-like loss (alpha 0.5, F6). Tolerance: 1e-4 of each gradient
 tensor's largest entry and the loss 1e-4 relative, as
 `tests/test_torch_ddp.py` holds the data-parallel step. The JAX side
 runs in float64 (`jax.enable_x64` inside the test only, as
-`tests/test_torch_ucf101_train.py` does) from the float32 weights and
-batch: at 256x96 two float32 sums of a flow bias's gradient over the
-whole image (XLA's order and PyTorch's) already differ by up to
-1.8e-4 of its largest entry, the one-process port step's as much as the
-spatial step's, so the exact reference measures the port alone.
+`tests/test_torch_ucf101_train.py` does, every flax layer's `dtype`
+float64) from the float32 weights and batch: at 256x96 two float32 sums
+of a flow bias's gradient over the whole image (XLA's order and
+PyTorch's) already differ by up to 1.8e-4 of its largest entry, the
+one-process port step's as much as the spatial step's, so the exact
+reference measures the port alone.
 """
 
 import os
@@ -42,8 +43,11 @@ CASES = [{"name": m, "kind": "step", "model": m, "hw": list(HW),
           "batch": 2, "mesh": [1, 2, 1]} for m in ("flownet_c", "flownet_s")]
 
 
-def jax_model(case):
-    return jax_build_model(case["model"], width_mult=0.25,
+def jax_model(case, dtype=jnp.float32):
+    """The JAX model, its layers computing in `dtype` (the gradient
+    reference's float64: a layer left at float32 casts to float32 inside
+    `jax.enable_x64`)."""
+    return jax_build_model(case["model"], width_mult=0.25, dtype=dtype,
                            **(W.CORR if case["model"] == "flownet_c"
                               else {}))
 
@@ -68,7 +72,7 @@ def world_run(tmp_path_factory):
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])
 def test_spatial_gradient_matches_the_jax_step(world_run, name):
     case = next(c for c in CASES if c["name"] == name)
-    jm = jax_model(case)
+    jm = jax_model(case, jnp.float64)
     with jax.enable_x64(True):
         with np.load(os.path.join(world_run["work"], f"{name}.npz")) as z:
             batch = {k: jnp.asarray(z[k], jnp.float64)

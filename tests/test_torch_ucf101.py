@@ -28,6 +28,7 @@ side; the card's machine decodes PPM only, so `chip_smoke.py` writes PPM):
 import json
 import os
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +57,9 @@ from deepof_tpu_torch.models.registry import build_model
 from deepof_tpu_torch.predict import predict_action
 from deepof_tpu_torch.train.evaluate import evaluate_ucf101
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_native import jax_native, jax_native_loaded  # noqa: E402
+
 CLASSES = 5
 NATIVE_HW = (36, 60)
 
@@ -77,6 +81,14 @@ def tree(tmp_path_factory):
                                    f"frame_{t + 1:04d}.png"),
                       rs.randint(0, 256, (*NATIVE_HW, 3), np.uint8))
     return root
+
+
+@pytest.fixture(scope="module")
+def jax_decoder():
+    """The JAX package's native library loaded in this process (a fresh
+    tree's first build may be in flight in another xdist worker:
+    `tests/_jax_native.py`)."""
+    return jax_native_loaded()
 
 
 def _pair(root, **kw):
@@ -121,7 +133,12 @@ def _paths(ds, monkeypatch):
 @pytest.mark.parametrize("cache,size,atol", [
     (True, NATIVE_HW, 0.0), (True, (24, 40), 0.78),
     (False, NATIVE_HW, 0.0), (False, (24, 40), 0.0)])
-def test_draws_match_jax(tree, monkeypatch, cache, size, atol):
+def test_draws_match_jax(tree, jax_decoder, monkeypatch, cache, size,
+                         atol):
+    # the streaming route is the same C++ on both sides; without the JAX
+    # library the JAX dataset decodes with cv2, off by its rounding
+    assert jax_decoder and jax_native.available(), \
+        "deepof_tpu.native.available() is False: JAX would decode with cv2"
     port, jax_ = _pair(tree, image_size=size, cache_decoded=cache)
     paths = [_paths(ds, monkeypatch) for ds in (port, jax_)]
     (got, g_next), (want, w_next) = _draws(port, 7), _draws(jax_, 7)
