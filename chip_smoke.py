@@ -1757,6 +1757,115 @@ def serve_stream(cfg, sessions: int = STREAM_SESSIONS,
     return row
 
 
+SERVE_BENCH_REAL = {"overrides": ("model=flownet_c", "width_mult=1.0"),
+                    "bucket": (384, 512), "native_hw": (384, 512),
+                    "max_batch": 8, "requests": 32}
+SERVE_BENCH_STREAM = {"frames": 32, "warm_frames": 12}
+SERVE_BENCH_QUALITY = {"tiers": ("f32",), "requests": 8, "sample_rate": 0.5}
+
+
+def serve_bench_phase(device: str = "cuda", real: dict = SERVE_BENCH_REAL,
+                      stream: dict = SERVE_BENCH_STREAM,
+                      quality: dict = SERVE_BENCH_QUALITY) -> dict:
+    """The port's serving benchmark (`deepof_tpu_torch/tools/
+    serve_bench.py`) in this process, three of its modes through their
+    functions, the kernel counts set to 0 just before each:
+
+      flownet_c  `serve_bench` on the real model, FlowNet-C at full width
+                 and the paper geometry at 384x512, batch 8, with the
+                 serial (max_batch=1) engine after it: one correlation
+                 launch a cold dispatch, each engine's warm-up dispatch
+                 included (its lattice is one f32 cold entry; the serial
+                 engine dispatches each request alone); every flow of
+                 both runs finite.
+      stream     `stream_bench`: the fake-executor walks (no kernel) and
+                 the warm walk of FlowNet-S at width 0.5: one warp launch
+                 a warm step, plus two of the warm engine before it
+                 serves (its construction's one-row check of the
+                 refinement stage's grid, and its warm-up dispatch).
+      quality    `quality_bench` on FlowNet-S at width 0.25: one launch of
+                 the scorer's warp a scored request (the scores phase's,
+                 then those the cost phase's sampling engine scored, as
+                 its stats count them), plus one warm-up call of the
+                 scorer in each engine that scores.
+
+    Every other kernel's count stays 0. Fails on any error or mismatch."""
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.tools import serve_bench as sb
+
+    t0 = time.monotonic()
+    results = []
+    run = sb.run_workload
+
+    def recording(engine, requests, gap_ms, precision=None):
+        out = run(engine, requests, gap_ms, precision)
+        results.extend(out[2])
+        return out
+
+    reset_kernel_counts()
+    sb.run_workload = recording
+    try:
+        real_row = sb.serve_bench(fake=False, device=device, serial=True,
+                                  **real)
+    finally:
+        sb.run_workload = run
+    counts = {"flownet_c": kernel_counts()}
+    n = real_row["requests"]
+    cold = real_row["dispatches"] + n + 2
+    flows_ok = (len(results) == 2 * n and all(
+        r is not None and r["flow"].shape == (*real["native_hw"], 2)
+        and np.isfinite(r["flow"]).all() for r in results))
+
+    reset_kernel_counts()
+    stream_row = sb.stream_bench(device=device, **stream)
+    counts["stream"] = kernel_counts()
+
+    reset_kernel_counts()
+    quality_row = sb.quality_bench(device=device, **quality)
+    counts["quality"] = kernel_counts()
+    sampled = quality_row["scored_quality_on"]
+    scored = quality_row["tiers"]["f32"]["scored"]
+
+    row = {"flownet_c": real_row, "stream": stream_row,
+           "quality": quality_row, "launches": counts,
+           "want": {"flownet_c": want_counts(corr=cold),
+                    "stream": want_counts(
+                        warp_fwd=(stream_row["warm_steps"] or 0) + 2),
+                    "quality": want_counts(
+                        warp_fwd_quality=scored + sampled + 2)},
+           "cold_dispatches": cold, "quality_sampled": sampled,
+           "flows_finite": flows_ok,
+           # what the phase leaves behind for the phases after it
+           "threads_after": sorted(t.name for t in threading.enumerate()),
+           "card_reserved_gib_after": torch.cuda.memory_reserved() / 2**30,
+           "seconds": time.monotonic() - t0}
+    emit("serve_bench", p50_ms=real_row["latency_p50_ms"],
+         p99_ms=real_row["latency_p99_ms"], **row)
+    gates = {
+        "errors": (real_row["errors"], stream_row["errors"],
+                   stream_row["pairwise_errors"], stream_row["warm_errors"],
+                   stream_row["warm_cold_errors"]) == (0,) * 5,
+        "launches": counts == row["want"],
+        "warm": (stream_row["warm_steps"], stream_row["warm_cold_fallbacks"])
+        == (stream["warm_frames"] - 2, 1),
+        "decodes": (stream_row["flow_bitwise_equal"],
+                    stream_row["stream_decodes"],
+                    stream_row["pairwise_decodes"],
+                    stream_row["decode_saved"])
+        == (True, stream["frames"], 2 * (stream["frames"] - 1),
+            stream["frames"] - 1),
+        "epe_vs_cold": stream_row["epe_vs_cold"] is not None
+        and stream_row["epe_vs_cold"] <= 0.5,
+        "scored": scored == quality_row["requests"],
+        "flows_finite": flows_ok,
+    }
+    if not all(gates.values()):
+        raise AssertionError(f"serve_bench gates {gates}")
+    return row
+
+
 def loss_and_grads(model, batch, mean, loss_cfg, compute_dtype=None,
                    dropout=None, smooth_border_mask=False):
     """One forward and backward at the model's current weights, no
@@ -7959,6 +8068,7 @@ def main() -> int:
                               rounds=1, bitwise=True)
     tiers_row = serve_tiers(cfg)
     stream_row = serve_stream(cfg)
+    serve_bench_row = serve_bench_phase()
     http_row = serve_http(cfg)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=work_root())
     prewrite.move_into(work)
@@ -8097,6 +8207,13 @@ def main() -> int:
         for t, r in tiers_row["tiers"].items()})
     corr_by_path["corr"]["serve_stream"] = stream_row["corr_launches"]
     by_path["fwd"]["serve_stream"] = stream_row["warp_fwd_launches"]
+    # this slice's paths: the serving benchmark's modes
+    # (tools/serve_bench.py), each counted from 0 just before it
+    for mode, k in serve_bench_row["launches"].items():
+        for c in corr_by_path:
+            corr_by_path[c][f"serve_bench_{mode}"] = k[c]
+        by_path["fwd"][f"serve_bench_{mode}"] = k["warp_fwd"]
+        by_path["flow_grad"][f"serve_bench_{mode}"] = k["warp_flow_grad"]
     # this slice's serving path: POST /v1/flow and /v1/flow/stream
     corr_by_path["corr"]["serve_http"] = http_row["launches"]["corr"]
     by_path["fwd"]["serve_http"] = http_row["launches"]["warp_fwd"]
@@ -8339,7 +8456,8 @@ def main() -> int:
                   "serve_http_warm": http_row["ledger_trace_s"]},
          boot=fleet_row["boot"], boot_single=fleet_row["single"]["boot"])
     emit("total", seconds=time.monotonic() - START,
-         phase_seconds={"cli_train_job": job_row["seconds"],
+         phase_seconds={"serve_bench": serve_bench_row["seconds"],
+                        "cli_train_job": job_row["seconds"],
                         "cli_preempt_faults": preempt_row["seconds"],
                         "serve_http": http_row["seconds"],
                         "cli_train_gather_bf16": gather_row["seconds"],
@@ -8369,6 +8487,10 @@ def main() -> int:
          "launches": http_row["quality"]["warp_fwd_quality_launches"],
          "path": "serve_http (obs.quality_sample_rate=0.5): one launch a "
                  "scored request",
+         "launches_by_path": {
+             "serve_http": http_row["quality"]["warp_fwd_quality_launches"],
+             **{f"serve_bench_{m}": k["warp_fwd_quality"]
+                for m, k in serve_bench_row["launches"].items()}},
          "launches_total": http_row["quality"][
              "warp_fwd_quality_launches_total"],
          "shape": quality_warp["shape"],

@@ -228,7 +228,13 @@ def _build_cfg(args) -> ExperimentConfig:
             cfg = _apply_override(cfg, dotted, repr(value))
     if getattr(args, "autoscale", False):
         cfg = _apply_override(cfg, "serve.fleet.autoscale", "true")
-    for item in args.set or []:
+    return apply_sets(cfg, args.set or [])
+
+
+def apply_sets(cfg: ExperimentConfig, items) -> ExperimentConfig:
+    """`cfg` with each `SECTION.FIELD=VALUE` of `items` (the `--set`
+    flags) applied in order."""
+    for item in items:
         if "=" not in item:
             raise SystemExit(f"bad --set {item!r}: use section.field=value")
         dotted, raw = item.split("=", 1)

@@ -16,10 +16,11 @@ keys are declared too, and so are the training-resilience keys (whose
 `tail`, in declaration order: `resilience_keys`), the `fault_*` family,
 the executable ledger's `exec_*` keys (`obs/ledger.py`, with the
 artifact plane's artifact, index and deep-verify counters,
-`serve/artifacts.py`) and the staged recipe's `recipe_*` keys. The JAX package's
-elastic keys are not: this package writes none of them (ROADMAP Queue
-A item 10 ports that plane). This package's keys are the JAX
-package's: none of them is its own.
+`serve/artifacts.py`), the elastic coordinator's `elastic_*` block
+(`train/elastic.py`), the input pipeline's `data_*` keys
+(`train/loop.py::resilience_stats`) and the staged recipe's `recipe_*`
+keys. This package's keys are the JAX package's, one for one: none of
+them is its own and none is missing.
 
 Merge kinds:
 
@@ -59,7 +60,7 @@ class Key:
     kind: merge kind (see module docstring).
     owner: the subsystem that writes it — engine | session | router |
         fleet | degrade | quality | incident | train | data | ckpt |
-        faults | ledger | recipe.
+        faults | ledger | elastic | recipe.
     prefix: True = family entry: every key starting with `name`
         resolves here (the per-site fault counts). Exact entries win.
     resilience: True = part of the resilience-counter surface analyze/
@@ -256,6 +257,28 @@ _ENTRIES: list[Key] = [
     Key("exec_executables", "gauge", "ledger"),
     Key("exec_fingerprints", "state", "ledger"),
     Key("exec_mfu_nominal", "derived", "ledger"),
+    # ------------------ elastic_* (train/elastic.py, the coordinator's
+    # stats block)
+    *_keys("elastic", "gauge",
+           "elastic_hosts", "elastic_live", "elastic_done",
+           "elastic_generation", "elastic_resumed_step",
+           "elastic_target_step", "elastic_last_reform_s"),
+    *_keys("elastic", "sum",
+           "elastic_reforms", "elastic_lost_hosts", "elastic_preemptions",
+           "elastic_steps_lost", "elastic_spawns", "elastic_respawns",
+           "elastic_kill_escalations"),
+    Key("elastic_max_step", "max", "elastic"),
+    Key("elastic_states", "state", "elastic"),
+    # --------------------- data_* (the pipeline, prefetch and healer
+    # blocks, prefixed by train/loop.py::resilience_stats)
+    Key("data_num_workers", "gauge", "data"),
+    *_keys("data", "sum",
+           "data_batches", "data_assemble_s", "data_waits", "data_wait_s"),
+    *_keys("data", "derived", "data_assemble_s_mean", "data_worker_util"),
+    *_keys("data", "gauge", "data_queue_depth", "data_staged_depth"),
+    *_keys("data", "max", "data_max_queue_depth", "data_max_staged_depth"),
+    # the decoded-image cache's counters, under the same data_ prefix
+    Key("data_decode_cache_", "sum", "data", prefix=True),
     # ------------------- recipe_* (train/recipe.py, the staged recipe):
     # the active stage (per-process identity, never merged), advances,
     # the mixture's draws by member dataset and the newest advance's
