@@ -205,10 +205,10 @@ One check alone, on the card (each builds what it needs):
     python3 -c "import chip_smoke as cs; cs.fit_variants()"
     python3 -c "import chip_smoke as cs, tempfile; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_job(w); cs.cli_preempt_faults(w)"
     python3 -c "import chip_smoke as cs; from deepof_tpu_torch.core.config import ExperimentConfig; cs.serve_http(ExperimentConfig(model='flownet_c'))"
-    python3 -c "import os, tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = os.path.join(w, 'run'); cs.run_cli(['train', *cs.SERVE_RUN, '--steps', '2', '--log-dir', r], os.path.join(w, 't.log')); cs.serve_fleet(w, r); cs.serve_autoscale(w, r)"
-    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_inception(w); cs.cli_sintel_inception(w); cs.cli_bench(w)"
-    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_vgg(w)"
-    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_ucf101(w)"
+    python3 -c "import os, tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = os.path.join(w, 'run'); cs.run_cli(['train', *cs.SERVE_RUN, '--steps', '2', '--log-dir', r], os.path.join(w, 't.log')); cs.serve_fleet(w, r); cs.serve_autoscale(w, r, cs.spawn_autoscale(w, r))"
+    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); r = cs.cli_train_inception(w); cs.f17_engine(w, r)(); cs.inception_vs_plain(w); cs.cli_sintel_inception(w); cs.cli_bench(w)"
+    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_vgg(w); cs.vgg_step_vs_plain(w)"
+    python3 -c "import tempfile, chip_smoke as cs; w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_ucf101(w); cs.ucf101_step_vs_plain(w)"
     python3 -c "import tempfile, chip_smoke as cs; cs.check_warp_levels_bf16(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train_gather_bf16(w)"
     python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_recipe(w)"
     python3 -c "import tempfile, chip_smoke as cs; from deepof_tpu_torch.ops.cuda import build; build.build_all(); w = tempfile.mkdtemp(dir=cs.work_root()); cs.cli_train(w); cs.cli_resume(w); cs.cli_train_flownet_c(w); from deepof_tpu_torch.core.config import ExperimentConfig; cs.ledger_gate(w, cs.serve_http(ExperimentConfig(model='flownet_c')))"
@@ -271,6 +271,23 @@ START = time.monotonic()
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, "at_s": time.monotonic() - START,
                       **kw}), flush=True)
+
+
+#: [label, start (seconds since START), seconds] of each command-line
+#: call, verb and serving process of the run, in order (`spanned`); the
+#: `timeline` line prints them
+TIMELINE: list = []
+
+
+@contextlib.contextmanager
+def spanned(label: str):
+    """Time the block into TIMELINE under `label`."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        TIMELINE.append([label, round(t0 - START, 2),
+                         round(time.monotonic() - t0, 2)])
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -2502,7 +2519,8 @@ def serve_argv(log_dir: str, extra: tuple = ()) -> list:
     return ["serve", *SERVE_RUN, *extra, "--log-dir", log_dir]
 
 
-def cli_serve(work: str, log_dir: str, extra: tuple = ()) -> dict:
+def cli_serve(work: str, log_dir: str, extra: tuple = (),
+              while_booting=None) -> dict:
     """`python -m deepof_tpu_torch serve --model flownet_c` on the
     checkpoint of a run in `log_dir` (full width): in a process of its
     own, its "serving" line awaited, one pair posted, a SIGTERM, and exit
@@ -2510,7 +2528,9 @@ def cli_serve(work: str, log_dir: str, extra: tuple = ()) -> dict:
     serve_* keys in its heartbeat.json. Then offline mode in this
     process: `serve --input` over a directory of SERVE_FRAMES PNG frames
     at the bucket's size writes SERVE_FRAMES - 1 `.flo` files, each equal
-    to `predict`'s for the same pair (cuDNN deterministic)."""
+    to `predict`'s for the same pair (cuDNN deterministic).
+    `while_booting()` runs while the server boots (its `started_s` is
+    then reported as overlapped, beside its own `boot.ready_s`)."""
     import signal
 
     import numpy as np
@@ -2530,6 +2550,8 @@ def cli_serve(work: str, log_dir: str, extra: tuple = ()) -> dict:
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=subprocess.PIPE, stderr=err, text=True)
         try:
+            if while_booting is not None:
+                while_booting()
             line = {}
             while "serving" not in line:
                 text = proc.stdout.readline()
@@ -2578,6 +2600,8 @@ def cli_serve(work: str, log_dir: str, extra: tuple = ()) -> dict:
                                     read_flo(os.path.join(out_pred, n)))
                      for n in flos))
     row = {"serving_line": line, "started_s": started_s,
+           "started_beside": ("untimed checks of later phases"
+                              if while_booting is not None else "nothing"),
            "status": reply[0], "client_ms": reply[3], "rc": rc,
            "drain_s": drain_s,
            "heartbeat": {k: hb.get(k) for k in (
@@ -2646,25 +2670,43 @@ def link_checkpoints(fleet_dir: str, run_dir: str) -> None:
                    os.path.join(d, "ckpt"))
 
 
-def start_serving(argv: list, log_path: str):
-    """`python -m deepof_tpu_torch <argv>` in a process of its own, as a
-    user runs it; returns it with its parsed "serving" line."""
+def spawn_serving(argv: list, log_path: str):
+    """`python -m deepof_tpu_torch <argv>` started in a process of its
+    own, as a user runs it, and not waited for (`await_serving`)."""
     err = open(log_path + ".err", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "deepof_tpu_torch", *argv],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, stderr=err, text=True)
     err.close()
+    proc.argv, proc.log_path = argv, log_path
+    proc.started_at = time.monotonic()
+    return proc
+
+
+def await_serving(proc):
+    """A `spawn_serving` process with its parsed "serving" line and its
+    address, once it has announced itself."""
     line: dict = {}
     while "serving" not in line:
         text = proc.stdout.readline()
         if not text:
-            raise AssertionError(f"{argv[:2]}: exited (rc {proc.wait()}) "
-                                 f"before serving; see {log_path}.err")
+            raise AssertionError(
+                f"{proc.argv[:2]}: exited (rc {proc.wait()}) before "
+                f"serving; see {proc.log_path}.err")
         if text.startswith("{"):
             line = json.loads(text)
+    TIMELINE.append([f"{os.path.basename(proc.log_path)} ready",
+                     round(proc.started_at - START, 2),
+                     round(time.monotonic() - proc.started_at, 2)])
     host, port = line["serving"][len("http://"):].split(":")
     return proc, line, (host, int(port))
+
+
+def start_serving(argv: list, log_path: str):
+    """`python -m deepof_tpu_torch <argv>` in a process of its own, as a
+    user runs it; returns it with its parsed "serving" line."""
+    return await_serving(spawn_serving(argv, log_path))
 
 
 def running(pid: int) -> bool:
@@ -2806,16 +2848,10 @@ def publish_artifacts(work: str, extra: tuple = (), device: str = "cuda",
         cold one, warp for the warm one) and indexed;
       - `artifacts list` and `artifacts verify` rc 0, `artifacts verify
         --deep` rc 0 with no drift (the lattice traced in this process,
-        each fingerprint the index's);
-      - a copy of the store with one byte of its corr library flipped:
-        `artifacts verify` rc 1 naming crc_mismatch, and an engine on
-        the copy over an empty build directory (the fleet's config
-        without the warm start, whose construction would run the
-        forward before `warm()`; so another config digest, an index
-        miss) rejects corr loudly (stderr, exec_artifact_rejects: the
-        library and the entry) and builds it from source in its first
-        call (the row's cache_verdict "miss", one library built).
-    Returns the row; row["store"] is the store serve_fleet boots from."""
+        each fingerprint the index's).
+    Returns the row; row["store"] is the store serve_fleet boots from,
+    and row["flags"] the publishing config's (`artifacts_corrupt` checks
+    a corrupted copy of the store on them)."""
     t0 = time.monotonic()
     store = os.path.join(work, "exec")
     proc, started, err, flags = warmup or start_warmup_serve(work, extra)
@@ -2846,12 +2882,9 @@ def publish_artifacts(work: str, extra: tuple = (), device: str = "cuda",
                                     "unindexed": v.get("unindexed")}
                                    if isinstance(v, dict) else {})}
                   for k, (rc, v) in verbs.items()},
-        "corrupt": (corrupt_store(work, store, rep, flags, device)
-                    if device == "cuda" else None)}
+        "flags": flags}
     row["seconds"] = time.monotonic() - t0
     emit("publish_artifacts", **row)
-    cold = FLEET_LATTICE[0]
-    c = row["corrupt"]
     checks = {
         "published": rep["artifacts"]["published"]
         == rep["artifacts"]["index_entries"] == len(FLEET_LATTICE)
@@ -2860,27 +2893,25 @@ def publish_artifacts(work: str, extra: tuple = (), device: str = "cuda",
         "verbs": verbs["list"][0] == verbs["verify"][0] == 0
         and verbs["deep"][0] == 0
         and verbs["deep"][1]["ok"] == len(FLEET_LATTICE)
-        and not verbs["deep"][1]["drift"],
-        "corrupt": c is None or (
-            c["verify_rc"] == 1 and c["corrupt"] == [c["fingerprint"]]
-            and c["why"].startswith("crc_mismatch")
-            and c["library_fetch"] == {"corr": "reject:crc_mismatch"}
-            and c["built_from_source"] == ["corr"] and c["warned"]
-            and c["exec_artifact_rejects"] == 2
-            and c["exec_index_misses"] == 1
-            and c["rows"] == {cold: {"compile_kind": "first_step",
-                                     "cache_verdict": "miss"}})}
+        and not verbs["deep"][1]["drift"]}
     if not all(checks.values()):
         raise AssertionError(f"publish_artifacts: {checks}")
     return row
 
 
-def corrupt_store(work: str, store: str, rep: dict, flags: list,
-                  device: str = "cuda") -> dict:
-    """publish_artifacts' corrupted copy (its docstring): `artifacts
-    verify` on it, then an engine on it over an empty build directory
-    (this process's BUILD_DIR and loaded libraries swapped for the call,
-    and put back), warmed."""
+def artifacts_corrupt(work: str, published: dict) -> dict:
+    """The artifact plane's reject path, on the card, after
+    `publish_artifacts` (`published`, its row): a copy of the store with
+    one byte of its cold entry's corr library flipped. `artifacts
+    verify` on it rc 1 naming crc_mismatch, and an engine on the copy
+    over an empty build directory (this process's BUILD_DIR and loaded
+    libraries swapped for the call, and put back; the fleet's config
+    without the warm start, whose construction would run the forward
+    before `warm()`; so another config digest, an index miss) rejects
+    corr loudly (stderr, exec_artifact_rejects: the library and the
+    entry) and builds it from source in its first call (the row's
+    cache_verdict "miss", one library built). Nothing in it is timed:
+    main runs it while serve_fleet's replicas boot."""
     from pathlib import Path
 
     from deepof_tpu_torch.core.config import config_from_dict
@@ -2891,9 +2922,9 @@ def corrupt_store(work: str, store: str, rep: dict, flags: list,
 
     # one byte of the cold entry's corr library
     copy = os.path.join(work, "exec_corrupt")
-    shutil.copytree(store, copy)
-    fp = next(b["fingerprint"] for b in rep["buckets"]
-              if b["mode"] == "cold")
+    shutil.copytree(published["store"], copy)
+    fp = published["entries"]["cold"]["fingerprint"]
+    flags = published["flags"]
     with open(os.path.join(copy, fp, MANIFEST)) as f:
         lib = os.path.join(copy, fp, json.load(f)["libraries"][0]["file"])
     with open(lib, "r+b") as f:
@@ -2916,7 +2947,7 @@ def corrupt_store(work: str, store: str, rep: dict, flags: list,
         build.BUILD_DIR = Path(work) / "build_cold"
         build._libs = {}
         with contextlib.redirect_stderr(stderr), InferenceEngine(
-                cfg, device=device,
+                cfg, device="cuda",
                 ledger_dir=os.path.join(work, "corrupt")) as eng:
             warm = eng.warm()
             stats = eng.stats()
@@ -2938,6 +2969,16 @@ def corrupt_store(work: str, store: str, rep: dict, flags: list,
                "exec_index_misses", "exec_index_rejects")},
            "seconds": time.monotonic() - t}
     shutil.rmtree(copy, ignore_errors=True)
+    emit("artifacts_corrupt", **out)
+    if not (out["verify_rc"] == 1 and out["corrupt"] == [fp]
+            and out["why"].startswith("crc_mismatch")
+            and out["library_fetch"] == {"corr": "reject:crc_mismatch"}
+            and out["built_from_source"] == ["corr"] and out["warned"]
+            and out["exec_artifact_rejects"] == 2
+            and out["exec_index_misses"] == 1
+            and out["rows"] == {FLEET_LATTICE[0]: {
+                "compile_kind": "first_step", "cache_verdict": "miss"}}):
+        raise AssertionError(f"artifacts_corrupt: {out}")
     return out
 
 
@@ -3007,7 +3048,8 @@ def cold_tree_boots(work: str, extra: tuple = ()) -> dict:
 
 
 def serve_fleet(work: str, run_dir: str, extra: tuple = (),
-                device: str = "cuda", artifacts: str | None = None) -> dict:
+                device: str = "cuda", artifacts: str | None = None,
+                while_booting=None, after_drain=None) -> dict:
     """`serve --replicas 2 --model flownet_c` on the served run's
     checkpoint (SERVE_RUN: full width, the 384x512 bucket, max_batch 8,
     f32, warm-start sessions), each replica-<i>/ckpt linked to the run's
@@ -3039,7 +3081,14 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         dispatches, the warps at most the warm steps (a warm dispatch may
         carry both sessions'); every flow of every load and stream
         within HTTP_TOL of `engine.submit` / `submit_next` in this
-        process on the same weights."""
+        process on the same weights, computed once the fleet has drained.
+    `while_booting()` runs while the fleet's replicas boot (main runs
+    untimed checks there: F17's engine process, the store's corrupted
+    copy, a kernel step against a plain one), so their
+    spawn-to-ready seconds are reported as overlapped; `serve` alone's
+    boot runs alone. `after_drain()` runs once the fleet has drained,
+    before this phase's reference, verbs and checks (main starts
+    serve_autoscale's fleet there)."""
     import base64
 
     import numpy as np
@@ -3092,11 +3141,18 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
                      f"{FLEET_REQUESTS + FLEET_FAULT_AFTER}",
             *(("--artifacts", artifacts) if artifacts else ()),
             "--log-dir", fleet_dir]
-    proc, line, address = start_serving(argv, os.path.join(
-        work, "serve_fleet.log"))
+    proc = spawn_serving(argv, os.path.join(work, "serve_fleet.log"))
     pids: list = []
     rounds: list = []
     try:
+        if while_booting is not None:
+            with spanned("serve_fleet while_booting"):
+                while_booting()
+            if device == "cuda":
+                import torch
+
+                torch.cuda.empty_cache()  # the card's memory, read below
+        proc, line, address = await_serving(proc)
         ready = wait_health(address, lambda s: s.get("fleet_ready") == 2,
                             "two replicas ready")
         pids = [r["pid"] for r in ready["replicas"]]
@@ -3123,14 +3179,17 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
         after = fleet_load(address, bodies, n=FLEET_AFTER_REQUESTS)
     finally:
         rc, drain_s, left = stop_serving(proc, pids)
+    if after_drain is not None:
+        after_drain()
     recs = {i: r[-1] for i, r in replica_records(fleet_dir).items()}
     summary = [r for r in read_records(fleet_dir)
                if r.get("kind") == "serve"][-1]
     # the in-process reference on the same weights and configuration
     with open(os.path.join(fleet_dir, "replica-0", "config.json")) as f:
         rcfg = config_from_dict(json.load(f))
-    with InferenceEngine(rcfg, model=restore_params(rcfg, device=device),
-                         device=device) as eng:
+    with spanned("serve_fleet reference"), InferenceEngine(
+            rcfg, model=restore_params(rcfg, device=device),
+            device=device) as eng:
         want = [f.result(timeout=600)["flow"] for f in
                 [eng.submit(a, b) for a, b in pairs]]
         want_stream = [[eng.submit_next(f"clip{k}", fr).result(timeout=600)
@@ -3157,6 +3216,9 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
                                          "statuses", "wall_s")}
     row["fleet"].update(
         spawn_to_ready_s=[r["ready_s"] for r in ready["replicas"]],
+        boot_beside=("untimed checks (F17's engine process, the store's "
+                     "corrupted copy, a kernel step against a plain "
+                     "one)" if while_booting is not None else "nothing"),
         routed=clean["fleet_routed"],
         evictions=clean["fleet_evictions"],
         nvidia_smi_compute_pids={"before": apps_before, "fleet": apps},
@@ -3312,7 +3374,39 @@ def serve_fleet(work: str, run_dir: str, extra: tuple = (),
     return row
 
 
-def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
+AUTOSCALE_WINDOWS = {"serve.fleet.max_in_flight": 8,
+                     "serve.fleet.autoscale_period_s": 0.25,
+                     "serve.fleet.autoscale_up_after_s": 1.0,
+                     "serve.fleet.autoscale_up_cooldown_s": 60.0,
+                     "serve.fleet.autoscale_down_after_s": 2.0,
+                     "serve.fleet.autoscale_down_cooldown_s": 3.0,
+                     "serve.degrade.enabled": "true",
+                     "serve.degrade.period_s": 0.1,
+                     "serve.degrade.escalate_after_s": 0.3,
+                     "serve.degrade.escalate_cooldown_s": 0.5,
+                     "serve.degrade.recover_after_s": 1.0,
+                     "serve.degrade.recover_cooldown_s": 0.5}
+
+
+def spawn_autoscale(work: str, run_dir: str, extra: tuple = ()):
+    """serve_autoscale's `serve --autoscale` started (its replica-<i>/ckpt
+    links made first) and not waited for: main starts it once
+    serve_fleet has drained, so its first replica boots beside
+    serve_fleet's verbs and checks."""
+    h, w = SERVE_HW
+    fleet_dir = os.path.join(work, "serve_autoscale")
+    link_checkpoints(fleet_dir, run_dir)
+    argv = ["serve", "--autoscale", "--min-replicas", "1",
+            "--max-replicas", "2", *SERVE_RUN, *FLEET_FLAGS,
+            "--set", "serve.precisions=('f32','bf16')",
+            "--set", f"serve.buckets=[[{h},{w}],[{h // 2},{w // 2}]]",
+            *[x for k, v in AUTOSCALE_WINDOWS.items()
+              for x in ("--set", f"{k}={v}")],
+            *extra, "--log-dir", fleet_dir]
+    return spawn_serving(argv, os.path.join(work, "serve_autoscale.log"))
+
+
+def serve_autoscale(work: str, run_dir: str, proc, extra: tuple = (),
                     device: str = "cuda") -> dict:
     """`serve --autoscale --min-replicas 1 --max-replicas 2` on the served
     run's checkpoint with the tiers (f32, bf16), the buckets 384x512 and
@@ -3332,7 +3426,12 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
         in float32 with rounded weights) and no bf16 kernel;
       - every flow of the burst within HTTP_TOL of `engine.submit` in
         this process on the same weights, at the tier and the bucket its
-        reply names (f32 or bf16; the bucket or, from L2, the smaller)."""
+        reply names (f32 or bf16; the bucket or, from L2, the smaller),
+        computed while the level walks back and the pool scales down.
+    `proc`: its fleet as `spawn_autoscale` started it (main starts it
+    when serve_fleet's fleet has drained, so its first replica boots
+    beside untimed work: the row's `spawned_before_phase_s` says for how
+    long)."""
     import base64
 
     import numpy as np
@@ -3349,27 +3448,8 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
              for _ in range(4)]
     bodies = [{"prev": b64_png(a), "next": b64_png(b)} for a, b in pairs]
     fleet_dir = os.path.join(work, "serve_autoscale")
-    link_checkpoints(fleet_dir, run_dir)
-    windows = {"serve.fleet.max_in_flight": 8,
-               "serve.fleet.autoscale_period_s": 0.25,
-               "serve.fleet.autoscale_up_after_s": 1.0,
-               "serve.fleet.autoscale_up_cooldown_s": 60.0,
-               "serve.fleet.autoscale_down_after_s": 2.0,
-               "serve.fleet.autoscale_down_cooldown_s": 3.0,
-               "serve.degrade.enabled": "true",
-               "serve.degrade.period_s": 0.1,
-               "serve.degrade.escalate_after_s": 0.3,
-               "serve.degrade.escalate_cooldown_s": 0.5,
-               "serve.degrade.recover_after_s": 1.0,
-               "serve.degrade.recover_cooldown_s": 0.5}
-    argv = ["serve", "--autoscale", "--min-replicas", "1",
-            "--max-replicas", "2", *SERVE_RUN, *FLEET_FLAGS,
-            "--set", "serve.precisions=('f32','bf16')",
-            "--set", f"serve.buckets=[[{h},{w}],[{h // 2},{w // 2}]]",
-            *[x for k, v in windows.items() for x in ("--set", f"{k}={v}")],
-            *extra, "--log-dir", fleet_dir]
-    proc, line, address = start_serving(argv, os.path.join(
-        work, "serve_autoscale.log"))
+    spawned_before_phase_s = t0 - proc.started_at
+    proc, line, address = await_serving(proc)
     pids: list = []
     stop = threading.Event()
     replies: list = []  # (the body's index, the reply)
@@ -3406,6 +3486,22 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
         burst_s = time.monotonic() - burst_t0
         pids += [r["pid"] for r in scaled["replicas"]]
         new = next(r for r in scaled["replicas"] if r["replica"] == 1)
+        # the in-process reference, one a (pair, tier, bucket) the
+        # burst's replies name, on the replicas' weights and
+        # configuration, while the pool calms
+        with open(os.path.join(fleet_dir, "replica-0",
+                               "config.json")) as f:
+            rcfg = config_from_dict(json.load(f))
+        keys = sorted({(k, r[2]["precision"], tuple(r[2]["bucket"]))
+                       for k, r in replies if r[0] == 200})
+        with spanned("serve_autoscale reference"), InferenceEngine(
+                rcfg, model=restore_params(rcfg, device=device),
+                device=device) as eng:
+            futs = {key: eng.submit(*pairs[key[0]], precision=key[1],
+                                    degrade_level=0 if key[2] == (h, w)
+                                    else 2)
+                    for key in keys}
+            want = {key: f.result(timeout=600) for key, f in futs.items()}
         calm = wait_health(
             address, lambda s: s.get("degrade_level") == 0
             and s.get("fleet_retired") == 1, "L0 and one replica retired",
@@ -3419,18 +3515,6 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
     summary = [r for r in records if r.get("kind") == "serve"
                and "fleet_replicas" in r][-1]
     recs = {i: r[-1] for i, r in replica_records(fleet_dir).items()}
-    # the in-process reference, one a (pair, tier, bucket) the burst's
-    # replies name, on the replicas' weights and configuration
-    with open(os.path.join(fleet_dir, "replica-0", "config.json")) as f:
-        rcfg = config_from_dict(json.load(f))
-    keys = sorted({(k, r[2]["precision"], tuple(r[2]["bucket"]))
-                   for k, r in replies if r[0] == 200})
-    with InferenceEngine(rcfg, model=restore_params(rcfg, device=device),
-                         device=device) as eng:
-        futs = {key: eng.submit(*pairs[key[0]], precision=key[1],
-                                degrade_level=0 if key[2] == (h, w) else 2)
-                for key in keys}
-        want = {key: f.result(timeout=600) for key, f in futs.items()}
 
     def label(reply) -> str:
         return (f"{reply['precision']} "
@@ -3463,6 +3547,7 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
            "max_level": max(p.get("degrade_level", 0) for p in polls),
            "scale_up_ready_s": new["ready_s"],
            "first_replica_ready_s": first["replicas"][0]["ready_s"],
+           "spawned_before_phase_s": spawned_before_phase_s,
            "events": events, "rc": rc, "drain_s": drain_s,
            "replicas_left": left,
            "calm": {k: calm.get(k) for k in (
@@ -3477,7 +3562,8 @@ def serve_autoscale(work: str, run_dir: str, extra: tuple = (),
                "kernel_launches", "serve_batches", "serve_responses",
                "serve_responses_by_tier", "degrade_tier_downgrades",
                "degrade_bucket_downgrades")} for i, r in recs.items()},
-           "seconds": time.monotonic() - t0}
+           "seconds": time.monotonic() - t0,
+           "seconds_from_spawn": time.monotonic() - proc.started_at}
     emit("serve_autoscale", **row)
     bf16 = sum(r["serve_responses_by_tier"].get("bf16", 0)
                for r in recs.values())
@@ -4707,7 +4793,8 @@ def run_cli(argv: list[str], log_path: str) -> dict:
     summary, parsed."""
     from deepof_tpu_torch import cli
 
-    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f), \
+            spanned(os.path.basename(log_path)):
         rc = cli.main(argv)
     if rc != 0:
         raise AssertionError(f"cli {argv[0]} returned {rc}")
@@ -5634,6 +5721,15 @@ def plain_warp_comparison(trainer, batch, **kw) -> dict:
                                                    "plain")}
 
 
+def inception_vs_plain(work: str) -> dict:
+    """`inception_step_vs_plain` in float32 and in bf16 compute, a phase
+    of its own (nothing in it is timed: main runs it while
+    serve_autoscale's first replica boots)."""
+    row = {d: inception_step_vs_plain(work, d) for d in DTYPES}
+    emit("inception_vs_plain", **row)
+    return row
+
+
 def inception_step_vs_plain(work: str, compute_dtype: str) -> dict:
     """A full-width Inception-v3 training step (`inception_trainer`) with
     the warp kernels against the same step with the kernels' plain
@@ -5669,14 +5765,15 @@ def inception_step_vs_plain(work: str, compute_dtype: str) -> dict:
     return row
 
 
-def engine_in_fresh_process(work: str, log_dir: str, pair: list,
-                            want) -> dict:
+def engine_in_fresh_process(work: str, log_dir: str, pair: list):
     """F17: a fresh process with PyTorch's TF32 defaults builds an
     InferenceEngine on the run's checkpoint (`ENGINE_SUBPROCESS`) and
     serves `pair`; its flow against `want`, `predict`'s on the same pair
     from the command line: within F17_RTOL of its largest entry, and at
     least 10x closer than the same request served with cuDNN's TF32 on
-    (the rule's gate sees what it keeps out)."""
+    (the rule's gate sees what it keeps out). Returns a function of
+    `want` that waits for the process and gives the row (the caller runs
+    untimed work meanwhile)."""
     import io
 
     import numpy as np
@@ -5691,13 +5788,53 @@ def engine_in_fresh_process(work: str, log_dir: str, pair: list,
     with open(cfg_path, "w") as f:
         f.write(buf.getvalue())
     out = os.path.join(work, "f17_flow.npy")
-    proc = subprocess.run(
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
         [sys.executable, "-c", ENGINE_SUBPROCESS, cfg_path, *pair, out],
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"F17 engine process failed: {proc.stderr}")
-    switches = json.loads(proc.stdout.strip().splitlines()[-1])
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(want) -> dict:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        TIMELINE.append(["f17 engine process", round(t0 - START, 2),
+                         round(time.monotonic() - t0, 2)])
+        if proc.returncode != 0:
+            raise AssertionError(f"F17 engine process failed: {stderr}")
+        return f17_row(json.loads(stdout.strip().splitlines()[-1]), out,
+                       want)
+
+    return result
+
+
+def f17_engine(work: str, inception: dict):
+    """F17 on cli_train_inception's run (`inception`, its row): starts
+    `engine_in_fresh_process` on the run's checkpoint and its first
+    predicted pair and returns a function that waits for it, holds its
+    flow against `predict`'s, emits its row and returns it (main starts
+    it while serve_fleet's replicas boot and runs other untimed checks
+    meanwhile)."""
+    from deepof_tpu_torch.io.flo import read_flo
+
+    want = read_flo(inception["predicted_flo"][0])
+    result = engine_in_fresh_process(work, inception["log_dir"],
+                                     inception["pairs"][0])
+
+    def finish() -> dict:
+        row = result(want)
+        emit("f17_engine", **row)
+        return row
+
+    return finish
+
+
+def f17_row(switches: dict, out: str, want) -> dict:
+    import numpy as np
+
     got, tf32 = np.load(out)
     row = {**switches, "shape": list(got.shape),
            "bitwise_equal_to_predict": bool(np.array_equal(got, want)),
@@ -5718,15 +5855,14 @@ def cli_train_inception(work: str) -> dict:
     the preset's 320x448, batch 4 (Inception-v3, 44.55 M parameters;
     the fit's steps 3-5 under torch.profiler: step, device busy, idle
     share), then `eval` and `predict` on two .npy pairs from its
-    checkpoint, and F17's engine in a fresh process on the same
-    checkpoint (`engine_in_fresh_process`). Each path's warp launches
+    checkpoint. Each path's warp launches
     are counted from 0: in `train` each kernel once per step and the
     forward once per eval forward, in `eval` the forward once per eval
     forward, in `predict` none. Then both warp kernels at the six
     Inception levels bit for bit against the plain versions, with their
-    time, bound and grid_sample's (`check_warp_levels`), and one training
-    step with the kernels against the plain warps, in float32 and in
-    bf16 compute (`inception_step_vs_plain`)."""
+    time, bound and grid_sample's (`check_warp_levels`). The row's
+    `log_dir`, `pairs` and `predicted_flo` are what `f17_engine` checks
+    F17 on."""
     import numpy as np
 
     from deepof_tpu_torch.io.flo import read_flo
@@ -5742,10 +5878,6 @@ def cli_train_inception(work: str) -> dict:
     records = check_run(log_dir, list(range(2, INCEPTION_STEPS + 1, 2)),
                         [INCEPTION_STEPS], [INCEPTION_STEPS])
     evals = eval_calls(SYNTHETIC_VAL, 4)
-    reset_kernel_counts()
-    ev = run_cli(["eval", *CLI_INCEPTION, "--log-dir", log_dir],
-                 os.path.join(work, "cli_eval_inception.log"))
-    evaluate = kernel_counts()
     rs = np.random.RandomState(4)
     pairs = []
     for i in range(2):
@@ -5754,16 +5886,19 @@ def cli_train_inception(work: str) -> dict:
             np.save(p, rs.randint(0, 256, (320, 448, 3), np.uint8))
         pairs.append(paths)
     reset_kernel_counts()
+    ev = run_cli(["eval", *CLI_INCEPTION, "--log-dir", log_dir],
+                 os.path.join(work, "cli_eval_inception.log"))
+    evaluate = kernel_counts()
+    reset_kernel_counts()
     out = run_cli(["predict", *CLI_INCEPTION, "--log-dir", log_dir, "--out",
                    os.path.join(work, "flows_inception"), "--pairs",
                    *(":".join(p) for p in pairs)],
                   os.path.join(work, "cli_predict_inception.log"))
     predict = kernel_counts()
-    flows = [read_flo(p) for p in out["written"] if p.endswith(".flo")]
-    f17 = engine_in_fresh_process(work, log_dir, pairs[0], flows[0])
+    predicted_flo = [p for p in out["written"] if p.endswith(".flo")]
+    flows = [read_flo(p) for p in predicted_flo]
     levels = check_warp_levels(seed=40, levels=INCEPTION_LEVELS,
                                kernel="warp_levels_inception")
-    vs_plain = {d: inception_step_vs_plain(work, d) for d in DTYPES}
     row = {"model": "inception_v3", "steps": INCEPTION_STEPS,
            "image_size": [320, 448], "batch": 4,
            **fit_row(summary, 4), "profiled": window.row(4),
@@ -5778,12 +5913,13 @@ def cli_train_inception(work: str) -> dict:
                      for r in records if r["kind"] == "eval"],
            "eval_cli": {k: ev[k] for k in ("aee", "aae", "val_loss")},
            "predicted": [list(f.shape) for f in flows],
-           "f17_engine": f17,
+           "log_dir": log_dir, "pairs": pairs,
+           "predicted_flo": predicted_flo,
            "warp_levels": {k: {q: levels[k][q] for q in (
                "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
                "library_ms", "bound_ms", "bound_by", "call_ms")}
                for k in ("fwd", "flow_grad")},
-           "vs_plain": vs_plain, "seconds": time.monotonic() - t0}
+           "seconds": time.monotonic() - t0}
     emit("cli_train_inception", **row)
     want_train = want_counts(warp_fwd=INCEPTION_STEPS + evals,
                              warp_flow_grad=INCEPTION_STEPS)
@@ -6096,7 +6232,9 @@ def vgg_step_vs_plain(work: str) -> dict:
     port's augmentation on the card, from the loop's seed draw) with the
     warp kernels against the same step with the kernels' plain versions,
     after one warm-up step: loss equal, each gradient within
-    TRAIN_GRAD_RTOL of its largest entry (`plain_warp_comparison`)."""
+    TRAIN_GRAD_RTOL of its largest entry (`plain_warp_comparison`). A
+    phase of its own, nothing in it timed: main runs it while
+    serve_fleet's replicas boot."""
     import numpy as np
 
     from deepof_tpu_torch.data.augmentation import augment_batch
@@ -6111,6 +6249,7 @@ def vgg_step_vs_plain(work: str) -> dict:
            "first_step_loss": first["total"],
            "batch_keys": sorted(batch),
            **plain_warp_comparison(trainer, batch)}
+    emit("vgg_step_vs_plain", **row)
     for pair in ("kernel_vs_plain_warp", "plain_repeat",
                  "autograd_flow_grad_vs_plain"):
         gap = row[pair]
@@ -6138,8 +6277,8 @@ def cli_train_vgg(work: str) -> dict:
     forward; `predict` none; the occlusion run's occlusion warp once a
     step), finite losses and AEE. Then the augmentation's warp, the
     warps at VGG's five levels and the occlusion warp bit for bit against
-    the plain versions, and one step with the kernels against the plain
-    warps (`vgg_step_vs_plain`)."""
+    the plain versions (one step with the kernels against the plain
+    warps is the `vgg_step_vs_plain` phase)."""
     import numpy as np
     import torch
 
@@ -6209,7 +6348,6 @@ def cli_train_vgg(work: str) -> dict:
     levels = check_warp_levels(seed=52, levels=VGG_LEVELS,
                                kernel="warp_levels_vgg")
     occ = check_warp_occlusion()
-    vs_plain = vgg_step_vs_plain(work)
     train_records = [r for r in records if r["kind"] == "train"]
     row = {"model": "vgg16", "steps": VGG_STEPS, "image_size": [320, 448],
            "batch": 8, "pairs": VGG_PAIRS, "setup_s": setup_s,
@@ -6244,7 +6382,7 @@ def cli_train_vgg(work: str) -> dict:
            "warp_occlusion": {q: occ[q] for q in (
                "bitwise_equal", "max_abs_err", "ms", "ms_runs", "plain_ms",
                "library_ms", "bound_ms", "bound_by", "call_ms")},
-           "vs_plain": vs_plain, "seconds": time.monotonic() - t0}
+           "seconds": time.monotonic() - t0}
     emit("cli_train_vgg", **row)
     n_aug = train["warp_fwd_augment"]
     prefetch = 2  # the preset's data.prefetch
@@ -6324,7 +6462,9 @@ def ucf101_step_vs_plain(work: str) -> dict:
     the plain step's than the plain step is from its own repeat
     (`plain_warp_comparison`, cuDNN deterministic; the kernels give the
     plain versions' bits). Also the masks: drawn twice from (seed, step)
-    on the card, the same bits; and not the CPU generator's (F19)."""
+    on the card, the same bits; and not the CPU generator's (F19). A
+    phase of its own, nothing in it timed: main runs it while cli_serve's
+    server boots."""
     import torch
 
     from deepof_tpu_torch.models.two_stream import dropout_masks
@@ -6385,8 +6525,8 @@ def cli_train_ucf101(work: str) -> dict:
     for its six levels; ucf101_spatial none), finite losses, action
     losses and accuracies, actions.json's rows. Then the warps at the
     five and six levels of the two-stream models bit for bit against the
-    plain versions, and one st_single step with the kernels against the
-    plain warps (`ucf101_step_vs_plain`)."""
+    plain versions (one st_single step with the kernels against the
+    plain warps is the `ucf101_step_vs_plain` phase)."""
     import json as _json
 
     import numpy as np
@@ -6473,7 +6613,6 @@ def cli_train_ucf101(work: str) -> dict:
                                kernel="warp_levels_ucf101")
     base_levels = check_warp_levels(seed=54, levels=UCF_BASELINE_LEVELS,
                                     kernel="warp_levels_ucf101_baseline")
-    vs_plain = ucf101_step_vs_plain(work)
     preset = get_config("ucf101")
 
     def warp_q(r):
@@ -6518,7 +6657,7 @@ def cli_train_ucf101(work: str) -> dict:
                "worker_util", "decode_cache_hits", "decode_cache_misses")},
            "warp_levels": warp_q(levels),
            "warp_levels_baseline": warp_q(base_levels),
-           "vs_plain": vs_plain, "seconds": time.monotonic() - t0}
+           "seconds": time.monotonic() - t0}
     emit("cli_train_ucf101", **row)
     want = want_counts(warp_fwd=UCF_STEPS + evals, warp_flow_grad=UCF_STEPS)
     if train != want:
@@ -6607,7 +6746,8 @@ def run_verb(argv: list, log_path: str) -> tuple[int, dict]:
     `analyze`'s whole document, `tail`'s last line)."""
     from deepof_tpu_torch import cli
 
-    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f), \
+            spanned(os.path.basename(log_path)):
         rc = cli.main(argv)
     with open(log_path) as f:
         text = f.read().strip()
@@ -6651,7 +6791,7 @@ def eval_forwards(trainer) -> int:
     return -(-max(ds.num_val, 1) // bs)
 
 
-def cli_recipe(work: str) -> dict:
+def cli_recipe(work: str, before_tail=None) -> dict:
     """`train --recipe` at full width (CLI_RECIPE, `recipe_stages`): a
     first run cut by `--max-steps RECIPE_CUT` inside stage "chairs", then
     the same command with a larger --max-steps, which lands in the stage
@@ -6667,7 +6807,9 @@ def cli_recipe(work: str) -> dict:
     --ckpt-dir <log-dir>/ckpt-stage2` on one pair; `analyze` of the run
     (its recipe block, the eval curve across the stages) and `tail` rc
     0. The build-time refusal of a mixture whose members disagree
-    (FlyingChairs with synthetic pairs) is recorded first."""
+    (FlyingChairs with synthetic pairs) is recorded first. `before_tail()` runs before
+    the untimed `predict` and verbs (main starts ddp_phases' first group
+    there)."""
     import numpy as np
 
     from deepof_tpu_torch.core.config import (DataConfig, MixtureMemberConfig,
@@ -6743,6 +6885,8 @@ def cli_recipe(work: str) -> dict:
                           "--data-path", chairs, "--batch", "4",
                           "--batches", "4", "--image-size", "320x448"],
                          os.path.join(work, "cli_bench_recipe.log"))
+    if before_tail is not None:
+        before_tail()  # nothing below is timed
     pair_dir = os.path.join(ucf, "frames", UCF101_CLASSES[0],
                             f"v_{UCF101_CLASSES[0]}_g01_c01")
     reset_kernel_counts()
@@ -6928,9 +7072,25 @@ CONTEXT["families"] = {
 #: worst tensor's read 0.9-2.5x; PERF.md); a cast or a lower-precision
 #: stage on the split path shows above it.
 FLOAT32_SPREAD = 4.0
-#: timed steps of each family, a rank and in the reference: one fewer
-#: than DDP_TIMED (the script's time limit)
-FAMILY_TIMED = DDP_TIMED - 1
+#: every context kind's step in bf16 compute (`train.compute_dtype=
+#: bfloat16`, ROADMAP item 10.2) from the same weights and batch: its
+#: distance from the float64 step (each tensor's largest difference
+#: over its largest entry) at most BF16_SPREAD times the one-process
+#: bf16 step's on the worst and the median tensor, and its loss within
+#: BF16_LOSS_RTOL of the one-process bf16 loss (tests/
+#: _torch_spatial_families.py holds the CPU's at the same two). Bit
+#: equality is not expected: the row-sharded convolutions sum their bf16
+#: products in another order. FLOAT32_SPREAD's 4. The same factor bounds
+#: it from below (at least 1/BF16_SPREAD of the one-process bf16 step's
+#: distance), and every exchange carries exactly half the float32
+#: step's bytes: a step that computes or exchanges in float32 sits far
+#: closer to float64, or moves twice the bytes.
+BF16_SPREAD = 4.0
+BF16_LOSS_RTOL = 5e-3
+#: timed steps of each family, a rank and in the reference (the
+#: script's time limit), and of each kind's bf16 step
+FAMILY_TIMED = 1
+BF16_TIMED = 1
 #: `train --multihost --set mesh.spatial=2` beside ddp_cli
 SPATIAL_CLI_STEPS = 3
 SPATIAL_CLI_BATCH = 4
@@ -7000,6 +7160,14 @@ def ddp_rank(work: str) -> int:
         check = json.load(f)
     torch.backends.cudnn.deterministic = True  # this rank's own process
     world = init_distributed(check["device"])
+    # booted while the parent computed the references: nothing here runs
+    # until they are all written
+    ready = os.path.join(work, "refs_ready")
+    deadline = time.monotonic() + 1800
+    while not os.path.exists(ready):
+        if time.monotonic() > deadline:
+            raise AssertionError("ddp_rank: no references within 1800 s")
+        time.sleep(0.1)
     import numpy as np
 
     with np.load(os.path.join(work, "ddp_batch.npz")) as z:
@@ -7024,25 +7192,12 @@ def ddp_rank(work: str) -> int:
         crc = zlib.crc32(g.numpy().tobytes(), crc)
     worst = {k: max(e, key=e.get) for k, e in errs.items()}
     total = float(m["total"])
-
-    def sync():
-        if world.device.type == "cuda":
-            torch.cuda.synchronize()
-
-    def timed(fn) -> list[float]:
-        out = []
-        for _ in range(DDP_TIMED):
-            sync()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            out.append(1e3 * (time.perf_counter() - t0))
-        return out
-
-    step_ms = timed(lambda: step(state, local))
+    step_ms = timed_steps(lambda: step(state, local), DDP_TIMED,
+                          world.device)
     n_params = sum(p.numel() for p in model.parameters())
     buf = torch.zeros(n_params, device=world.device)
-    reduce_ms = timed(lambda: dist.all_reduce(buf))
+    reduce_ms = timed_steps(lambda: dist.all_reduce(buf), DDP_TIMED,
+                            world.device)
     del model, state, step, buf
     if world.device.type == "cuda":
         torch.cuda.empty_cache()
@@ -7070,42 +7225,41 @@ def context_kinds(check: dict) -> list[str]:
     return ["spatial", "volume", *check["context"].get("families", {})]
 
 
-def family_launches(model: str, steps: int = 1) -> dict:
-    """A family's float32 kernel launches in `steps` train steps: the
-    two warps once a step (the loss), FlowNet-CS's twice (its
-    refinement input too) and its base stage's correlation forward and
-    backward kernels once; the classifier none."""
+def family_launches(model: str, steps: int = 1,
+                    dtype: str = "float32") -> dict:
+    """A model's kernel launches in `steps` train steps computing in
+    `dtype`: the two float32 warps once a step (the loss, on the flows
+    cast to float32), FlowNet-CS's twice (its refinement input too);
+    FlowNet-C's correlation forward and backward kernels, and FlowNet-CS
+    base stage's, once a step in `dtype`'s instance; the classifier
+    none."""
     if model == "ucf101_spatial":
         return want_counts()
-    if model == "flownet_cs":
-        return want_counts(corr=steps, corr_bwd_f1=steps,
-                           corr_bwd_f2=steps, warp_fwd=2 * steps,
-                           warp_flow_grad=2 * steps)
-    return want_counts(warp_fwd=steps, warp_flow_grad=steps)
+    sfx = DTYPES[dtype]
+    corr = steps if model in ("flownet_c", "flownet_cs") else 0
+    warps = 2 * steps if model == "flownet_cs" else steps
+    return want_counts(**{f"{k}{sfx}": corr for k in CORR_KERNELS},
+                       warp_fwd=warps, warp_flow_grad=warps)
 
 
-def context_parts(check: dict, kind: str, device, world, dtype=None):
-    """The context check's model (seed 0), train step over `world` and
-    global batch (a fixed synthetic draw): "spatial", full-width
-    FlowNet-C at ctx["spatial_hw"] under mesh.spatial = world's;
-    "volume", FlowNet-S over ctx["volume_t"]-frame volumes (the sintel
-    preset's geometry) under mesh.time = world's; or a family of
-    ctx["families"] (its model, size, batch and frames) under
-    mesh.spatial = world's. `dtype`: the model's compute dtype (float64:
-    the exact reference of `context_reference`), default float32."""
-    import numpy as np
+def context_model(check: dict, kind: str) -> str:
+    """The model a context check of `kind` trains."""
+    if kind in ("spatial", "volume"):
+        return "flownet_c" if kind == "spatial" else "flownet_s"
+    return check["context"]["families"][kind]["model"]
 
+
+def context_cfg(check: dict, kind: str, world, compute: str = "float32"):
+    """The context check's config: "spatial", full-width FlowNet-C at
+    ctx["spatial_hw"] under mesh.spatial = world's; "volume", FlowNet-S
+    over ctx["volume_t"]-frame volumes (the sintel preset's geometry)
+    under mesh.time = world's; or a family of ctx["families"] (its model,
+    size, batch and frames) under mesh.spatial = world's; computing in
+    `compute` (`train.compute_dtype`)."""
     from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
                                               LossConfig, MeshConfig)
-    from deepof_tpu_torch.core.device import disable_tf32
-    from deepof_tpu_torch.data.datasets import SyntheticData
-    from deepof_tpu_torch.data.pipeline import derive_batch_rng
-    from deepof_tpu_torch.models.registry import MODELS, build_model
-    from deepof_tpu_torch.train.schedule import step_decay_schedule
-    from deepof_tpu_torch.train.state import create_train_state
-    from deepof_tpu_torch.train.step import make_train_step
+    from deepof_tpu_torch.models.registry import MODELS
 
-    disable_tf32()
     ctx = check["context"]
     if kind in ("spatial", "volume"):
         spatial = kind == "spatial"
@@ -7128,6 +7282,30 @@ def context_parts(check: dict, kind: str, device, world, dtype=None):
                         time=shape["time"]),
         data=DataConfig(dataset="synthetic", image_size=hw, gt_size=hw,
                         batch_size=batch, time_step=t), **knobs)
+    return cfg.replace(train=dataclasses.replace(cfg.train,
+                                                 compute_dtype=compute))
+
+
+def context_parts(check: dict, kind: str, device, world, dtype=None):
+    """The context check of `kind` (`context_cfg`, float32): its model
+    (seed 0), train step over `world` and global batch (a fixed
+    synthetic draw). `dtype`: the model's compute dtype (float64: the
+    exact reference of `context_reference`), default float32."""
+    import numpy as np
+
+    from deepof_tpu_torch.core.device import disable_tf32
+    from deepof_tpu_torch.data.datasets import SyntheticData
+    from deepof_tpu_torch.data.pipeline import derive_batch_rng
+    from deepof_tpu_torch.models.registry import build_model
+    from deepof_tpu_torch.train.schedule import step_decay_schedule
+    from deepof_tpu_torch.train.state import create_train_state
+    from deepof_tpu_torch.train.step import make_train_step
+
+    disable_tf32()
+    cfg = context_cfg(check, kind, world)
+    name, hw, t = (cfg.model, tuple(cfg.data.image_size),
+                   cfg.data.time_step)
+    batch = cfg.data.batch_size
     kw = ({"corr_max_disp": cfg.corr_max_disp,
            "corr_stride": cfg.corr_stride}
           if name in ("flownet_c", "flownet_cs") else {})
@@ -7145,6 +7323,19 @@ def context_parts(check: dict, kind: str, device, world, dtype=None):
             if name in ("st_single", "st_baseline", "ucf101_spatial")
             else ("source", "target"))
     return model, state, step, {k: draw[k] for k in keys}
+
+
+def context_bf16_step(check: dict, kind: str, model, world):
+    """The train step of the context check's config in bf16 compute
+    (`train.compute_dtype=bfloat16`: the step casts the network's input
+    to bf16, the flows back to float32; `checked_steps` sets the layers'
+    compute dtype) over the same model: its sharding passes
+    `check_context_parallel` on the world's mesh."""
+    from deepof_tpu_torch.train.step import make_train_step
+
+    return make_train_step(model, context_cfg(check, kind, world,
+                                              "bfloat16"),
+                           (0.0, 0.0, 0.0), world=world)
 
 
 def max_rel_errs(got: dict, want: dict) -> dict:
@@ -7192,82 +7383,136 @@ def float32_correlation():
         flownet_c.correlation_nchw = corr
 
 
-def checked_steps(model, state, step, batch, exact: bool):
+def checked_steps(model, state, step, batch, exact: bool,
+                  bf16_step=None, before=None):
     """The context check's steps at the seed's weights, each yielded as
-    (loss, gradients on the device): the float32 step (the main path),
-    then, where `exact`, the same step with every layer in float64 from
-    the same weights and at the same global step (an action model's
-    dropout masks; the correlation in float32, `float32_correlation`).
-    A caller reads the float32 step's exchanges and launches before it
-    asks for the next."""
+    (tag, loss, gradients on the device): "float32", the float32 step
+    (the main path); where `exact`, "float64", the same step with every
+    layer in float64 from the same weights and at the same global step
+    (an action model's dropout masks; the correlation in float32,
+    `float32_correlation`); with `bf16_step` (`context_bf16_step`),
+    "bfloat16", that step from the same weights with every layer in
+    bf16. `before(tag)` runs before each step: a caller resets the
+    launch counters and the exchanges' stats there, and reads them at
+    the step's yield."""
     import torch
 
     from deepof_tpu_torch.train.step import STEP_KEY
 
     batch = {**batch, STEP_KEY: 0}
+    plan = [("float32", torch.float32, step)]
+    if exact:
+        plan.append(("float64", torch.float64, step))
+    if bf16_step is not None:
+        plan.append(("bfloat16", torch.bfloat16, bf16_step))
     weights = ({k: v.clone() for k, v in model.state_dict().items()}
-               if exact else None)
-    for dtype in ((torch.float32, torch.float64) if exact
-                  else (torch.float32,)):
-        if dtype == torch.float64:
+               if len(plan) > 1 else None)
+    for i, (tag, dtype, fn) in enumerate(plan):
+        if i:
             model.load_state_dict(weights)
-            set_compute_dtype(model, dtype)
+        set_compute_dtype(model, dtype)
+        if before is not None:
+            before(tag)
         try:
             with (float32_correlation() if dtype == torch.float64
                   else contextlib.nullcontext()):
-                m = step(state, batch)
+                m = fn(state, batch)
         finally:
             set_compute_dtype(model, torch.float32)
-        yield m["total"].detach(), {n: p.grad.detach().clone()
-                                    for n, p in model.named_parameters()}
+        yield tag, m["total"].detach(), {
+            n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def context_reference(work: str, check: dict) -> dict:
-    """The one-process steps of the context checks at the seed's weights
-    (work/context_ref_<kind>.pt: the loss and every gradient of the
-    float32 step, and of a family's float64 step; a file a
-    kind, so a rank loads one kind's at a time: the UCF-101 models' fc6
-    gradient alone is 251.7 M floats), each then timed DDP_TIMED times
-    in float32 (FAMILY_TIMED for a family; ms, host clock to a
+def timed_steps(fn, n: int, device) -> list[float]:
+    """`n` calls of `fn()`, each one's milliseconds (host clock to a
     synchronize)."""
+    import torch
+
+    device = torch.device(device)
+    out = []
+    for _ in range(n):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def bf16_timed(model, state, step, batch, device) -> list[float]:
+    """BF16_TIMED more bf16 steps' milliseconds (`timed_steps`), every
+    layer in bf16 for them."""
+    import torch
+
+    set_compute_dtype(model, torch.bfloat16)
+    try:
+        return timed_steps(lambda: step(state, batch), BF16_TIMED, device)
+    finally:
+        set_compute_dtype(model, torch.float32)
+
+
+def context_reference(work: str, check: dict, between) -> dict:
+    """The one-process steps of the context checks at the seed's
+    weights, in two passes over the kinds. First each kind's timed
+    steps: its float32 step DDP_TIMED times (FAMILY_TIMED for a family)
+    and its bf16 step BF16_TIMED times (ms, host clock to a
+    synchronize), every kind's model, state and seed weights kept. Then
+    `between()` (ddp_phases starts the check's ranks there: they boot
+    while nothing timed runs here, and wait for work/refs_ready), then
+    each kind's checked steps from its seed weights into
+    work/context_ref_<kind>.pt (the loss and every gradient of the
+    float32 and the float64 step, each one's distance from float64, and
+    the bf16 step's loss and distance; a file a kind, so a rank loads
+    one kind's at a time: the UCF-101 models' fc6 gradient alone is
+    251.7 M floats), the kind freed after it; then work/refs_ready.
+    Returns {"float32": {kind: ms}, "bfloat16": {kind: ms}}."""
     import numpy as np
     import torch
 
     from deepof_tpu_torch.parallel.mesh import World
 
     device = torch.device(check["device"])
-    ms = {}
+    one = World(np.zeros((1, 1, 1)))
+    ms = {"float32": {}, "bfloat16": {}}
+    kept = {}
     with cudnn_deterministic():
         for kind in context_kinds(check):
-            model, state, step, batch = context_parts(
-                check, kind, device, World(np.zeros((1, 1, 1))))
-            steps = list(checked_steps(
-                model, state, step, batch,
-                kind in check["context"].get("families", {})))
-            ref = {key: {"total": total.cpu(),
-                         "grads": {n: g.cpu() for n, g in grads.items()}}
-                   for key, (total, grads) in zip(("float32", "float64"),
-                                                  steps)}
-            if len(steps) == 2:
-                ref["float32_vs_float64"] = max_rel_errs(steps[0][1],
-                                                         steps[1][1])
-            del steps
-            torch.save(ref, os.path.join(work, f"context_ref_{kind}.pt"))
-            del ref
-            ms[kind] = []
+            model, state, step, batch = context_parts(check, kind, device,
+                                                      one)
+            bf16 = context_bf16_step(check, kind, model, one)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
             timed = (DDP_TIMED if kind in ("spatial", "volume")
                      else FAMILY_TIMED)
-            for _ in range(timed):
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                step(state, batch)
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                ms[kind].append(1e3 * (time.perf_counter() - t1))
-            del model, state, step
+            ms["float32"][kind] = timed_steps(lambda: step(state, batch),
+                                              timed, device)
+            ms["bfloat16"][kind] = bf16_timed(model, state, bf16, batch,
+                                              device)
+            model.load_state_dict(weights)
+            del weights
+            kept[kind] = (model, state, step, bf16, batch)
+        between()
+        for kind in context_kinds(check):
+            model, state, step, bf16, batch = kept.pop(kind)
+            steps = {tag: (total, grads) for tag, total, grads in
+                     checked_steps(model, state, step, batch, True, bf16)}
+            exact = steps["float64"][1]
+            ref = {key: {"total": steps[key][0].cpu(),
+                         "grads": {n: g.cpu()
+                                   for n, g in steps[key][1].items()}}
+                   for key in ("float32", "float64")}
+            ref["float32_vs_float64"] = max_rel_errs(steps["float32"][1],
+                                                     exact)
+            ref["bfloat16"] = {
+                "total": steps["bfloat16"][0].cpu(),
+                "vs_float64": max_rel_errs(steps["bfloat16"][1], exact)}
+            del steps, exact
+            torch.save(ref, os.path.join(work, f"context_ref_{kind}.pt"))
+            del ref, model, state, step, bf16
             if device.type == "cuda":
                 torch.cuda.empty_cache()
+    open(os.path.join(work, "refs_ready"), "w").close()
     return ms
 
 
@@ -7277,17 +7522,20 @@ def context_rank(work: str, check: dict, rank: int) -> dict:
     float32 step on the whole global batch (the ranks of one data shard
     hold the same rows), its kernel launches and the bytes, messages and
     milliseconds of its exchanges (host clock to a synchronize around
-    each); then, for a family, the same step in float64 from the same
-    weights. The checked step (a family's float64 one, else float32)
-    gives the row's largest gradient difference from the one-process
-    step of its dtype (each tensor's, over its largest entry, on the
-    rank's device), its loss and a CRC of its gradients; a family's
-    float32 step is reported beside it (`float32`: against the
-    one-process float32 step, and its distance from the float64 step
-    on the worst and the median tensor beside the one-process float32
-    step's, which FLOAT32_SPREAD bounds). Then
-    DDP_TIMED (a family: FAMILY_TIMED) more float32 steps'
-    milliseconds with the exchanges untimed."""
+    each); then the same step in float64 from the same weights, and in
+    bf16 compute (`context_bf16_step`). Each dtype's row: its largest
+    gradient difference from the one-process step of its dtype (each
+    tensor's, over its largest entry, on the rank's device; the bf16
+    step's from the float64 one, beside the one-process bf16 step's,
+    which BF16_SPREAD bounds), its loss and a CRC of its gradients. The
+    checked row is a family's float64 step (its float32 step beside it,
+    with its distance from the float64 step on the worst and the median
+    tensor beside the one-process float32 step's, which FLOAT32_SPREAD
+    bounds), and "spatial"'s and "volume"'s float32 step (their float64
+    step beside it); every kind's "bfloat16" row carries its own
+    launches and exchanges. Then DDP_TIMED (a family: FAMILY_TIMED) more
+    float32 steps' milliseconds and BF16_TIMED bf16 steps', the
+    exchanges untimed."""
     import zlib
 
     import torch
@@ -7307,7 +7555,21 @@ def context_rank(work: str, check: dict, rank: int) -> dict:
                 "total_one_process": float(want["total"]),
                 "grad_crc32": crc}
 
+    def spread(grads, exact, one):
+        d = max_rel_errs(grads, exact)
+        return {"vs_float64": max(d.values()),
+                "one_process_vs_float64": max(one.values()),
+                "vs_float64_median": statistics.median(d.values()),
+                "one_process_vs_float64_median": statistics.median(
+                    one.values())}
+
+    def before(tag):
+        reset_kernel_counts()
+        spatial.reset_stats()
+        spatial.STATS["timed"] = tag != "float64"
+
     out = {}
+    families = check["context"].get("families", {})
     for kind in context_kinds(check):
         mesh = MeshConfig(time=2) if kind == "volume" else MeshConfig(
             spatial=2)
@@ -7315,49 +7577,52 @@ def context_rank(work: str, check: dict, rank: int) -> dict:
         world = build_mesh(mesh)
         model, state, step, batch = context_parts(check, kind, world.device,
                                                   world)
-        exact = kind in check["context"].get("families", {})
-        reset_kernel_counts()
-        spatial.reset_stats()
-        spatial.STATS["timed"] = True
-        rows = []
-        for i, (total, grads) in enumerate(checked_steps(
-                model, state, step, batch, exact)):
-            if i == 0:  # the float32 step: the main path's counts
-                spatial.STATS["timed"] = False
-                counts = kernel_counts()
-                stats = dict(spatial.STATS)
-                rows.append(held(total, grads, ref["float32"]))
-                if exact:
-                    d = max_rel_errs(grads, ref["float64"]["grads"])
-                    one = ref["float32_vs_float64"]
-                    rows[0].update(
-                        vs_float64=max(d.values()),
-                        one_process_vs_float64=max(one.values()),
-                        vs_float64_median=statistics.median(d.values()),
-                        one_process_vs_float64_median=statistics.median(
-                            one.values()))
+        bf16 = context_bf16_step(check, kind, model, world)
+        exact = {n: g.to(world.device)
+                 for n, g in ref["float64"]["grads"].items()}
+        rows, counts, stats = {}, {}, {}
+        for tag, total, grads in checked_steps(model, state, step, batch,
+                                               True, bf16, before):
+            spatial.STATS["timed"] = False
+            counts[tag] = kernel_counts()
+            stats[tag] = {k: v for k, v in spatial.STATS.items()
+                          if k != "timed"}
+            if tag == "bfloat16":
+                one = ref["bfloat16"]
+                crc = 0
+                for name in sorted(grads):
+                    crc = zlib.crc32(grads[name].cpu().numpy().tobytes(),
+                                     crc)
+                rows[tag] = {
+                    "total": float(total),
+                    "total_one_process": float(one["total"]),
+                    "grad_crc32": crc,
+                    **spread(grads, exact, one["vs_float64"])}
             else:
-                rows.append(held(total, grads, ref["float64"]))
+                rows[tag] = held(total, grads, ref[tag])
+                if tag == "float32":
+                    rows[tag].update(spread(grads, exact,
+                                            ref["float32_vs_float64"]))
             del grads
-        row = {**rows[-1],
-               "checked_dtype": "float64" if exact else "float32"}
-        if exact:
-            row["float32"] = rows[0]
-        step_ms = []
+        del exact
+        if kind in families:
+            row = {**rows["float64"], "checked_dtype": "float64",
+                   "float32": rows["float32"]}
+        else:
+            row = {**rows["float32"], "checked_dtype": "float32",
+                   "float64": rows["float64"]}
         timed = DDP_TIMED if kind in ("spatial", "volume") else FAMILY_TIMED
-        for _ in range(timed):
-            if world.device.type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(state, batch)
-            if world.device.type == "cuda":
-                torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
+        step_ms = timed_steps(lambda: step(state, batch), timed,
+                              world.device)
+        row["bfloat16"] = {
+            **rows["bfloat16"], "launches": counts["bfloat16"],
+            "exchange": stats["bfloat16"],
+            "step_ms": bf16_timed(model, state, bf16, batch, world.device)}
         out[kind] = {
             "rank": rank, "mesh": world.shape, "coords": world.coords,
-            "launches": counts, **row, "step_ms": step_ms,
-            "exchange": {k: v for k, v in stats.items() if k != "timed"}}
-        del model, state, step, ref
+            "launches": counts["float32"], **row, "step_ms": step_ms,
+            "exchange": stats["float32"]}
+        del model, state, step, bf16, ref
         if world.device.type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -7476,12 +7741,30 @@ def start_torchrun(nproc: int, argv: list, work: str, name: str,
              "--log-dir", logs, *argv], stdout=out,
             stderr=subprocess.STDOUT, env=env,
             cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc.started_at, proc.ended = time.monotonic(), threading.Event()
+
+    def watch():
+        proc.wait()
+        proc.ended_at = time.monotonic()
+        proc.ended.set()
+
+    threading.Thread(target=watch, daemon=True).start()
     return [proc], logs, nproc, name
 
 
-def finish(started: tuple, timeout_s: float = 600) -> list[str]:
+def finish(started: tuple, done_at: dict | None = None,
+           timeout_s: float = 600) -> list[str]:
+    """Wait for a `start_torchrun` run; each rank's stdout. `done_at`:
+    the run's seconds from its start to its exit (its watcher's clock,
+    so a run that ended before this call reads its own end) go there
+    under its name."""
     procs, logs, nproc, name = started
-    return _ranks_done(procs, logs, nproc, name, timeout_s)
+    out = _ranks_done(procs, logs, nproc, name, timeout_s)
+    if done_at is not None:
+        (proc,) = procs
+        proc.ended.wait(10)
+        done_at[name] = proc.ended_at - proc.started_at
+    return out
 
 
 def last_json(text: str) -> dict:
@@ -7507,11 +7790,6 @@ def ddp_reference(work: str, check: dict) -> list[float]:
     from deepof_tpu_torch.parallel.mesh import World
 
     device = torch.device(check["device"])
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
     refs, one_ms, halves = {}, [], []
     with cudnn_deterministic():
         model, state, step, batch = ddp_check_parts(
@@ -7533,12 +7811,8 @@ def ddp_reference(work: str, check: dict) -> list[float]:
                 halves.append(got)
                 continue
             refs["whole"] = got
-            for _ in range(DDP_TIMED):
-                sync()
-                t1 = time.perf_counter()
-                step(state, rows)
-                sync()
-                one_ms.append(1e3 * (time.perf_counter() - t1))
+            one_ms = timed_steps(lambda: step(state, rows), DDP_TIMED,
+                                 device)
         a, b = halves
         # the all-reduce's arithmetic: the sum of two, halved
         refs["halves"] = {"total": (a["total"] + b["total"]) / 2,
@@ -7551,9 +7825,51 @@ def ddp_reference(work: str, check: dict) -> list[float]:
     return one_ms
 
 
+#: the run directories and rank logs of `start_ddp_group`'s processes
+#: (the earlier runs' removal leaves them)
+DDP_GROUP_DIRS = ("ddp_cli", "ddp_cli_ranks", "spatial_cli",
+                  "spatial_cli_ranks", "nccl_world1", "nccl_ranks")
+
+
+def start_ddp_group(work: str, check: dict = DDP_CHECK,
+                    extra: tuple = ()) -> dict:
+    """ddp_phases' first group of processes, started and not waited for:
+    `train --multihost` over two ranks (ddp_cli), the same with
+    mesh.spatial=2 (spatial_cli), one NCCL rank (nccl) and, on the card,
+    the gloo probe. Returns {"t0", "cli", "spatial_cli", "probe",
+    "nccl"}."""
+    t0 = time.monotonic()
+    cli = start_torchrun(2, [
+        "-m", "deepof_tpu_torch", "train", "--multihost", *DDP_RUN,
+        "--set", f"data.batch_size={DDP_BATCH}",
+        "--set", f"train.eval_batch_size={DDP_BATCH}",
+        "--steps", str(DDP_STEPS), "--log-dir",
+        os.path.join(work, "ddp_cli"), *extra], work, "ddp_cli")
+    spatial_cli = start_torchrun(2, [
+        "-m", "deepof_tpu_torch", "train", "--multihost", *DDP_RUN,
+        "--set", "mesh.spatial=2",
+        "--set", f"data.batch_size={SPATIAL_CLI_BATCH}",
+        "--set", f"train.eval_batch_size={SPATIAL_CLI_BATCH}",
+        "--steps", str(SPATIAL_CLI_STEPS), "--log-dir",
+        os.path.join(work, "spatial_cli"), *extra], work, "spatial_cli")
+    probe = (subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "gloo_probe"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_rank_env(), cwd=os.path.dirname(os.path.abspath(__file__)))
+        if check["device"] == "cuda" else None)
+    args = [*DDP_RUN, "--set", "data.batch_size=4", "--set",
+            "train.eval_batch_size=4", "--steps", str(DDP_STEPS), *extra]
+    nccl = start_torchrun(1, [os.path.abspath(__file__), "deterministic_cli",
+                              "train", "--multihost", *args, "--log-dir",
+                              os.path.join(work, "nccl_world1")],
+                          work, "nccl")
+    return {"t0": t0, "cli": cli, "spatial_cli": spatial_cli,
+            "probe": probe, "nccl": nccl}
+
+
 def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
-               clearing: threading.Thread | None = None
-               ) -> tuple[dict, dict, dict]:
+               clearing: threading.Thread | None = None,
+               group: dict | None = None) -> tuple[dict, dict, dict]:
     """Data parallelism and spatial and temporal context parallelism on
     the card: the phases `ddp_flownet_c`, `ddp_nccl_world1`,
     `spatial_flownet_c`, `time_volume`, `spatial_<family>` for each
@@ -7605,44 +7921,33 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     at full size exceeds DDP_TOL), held as `spatial_flownet_c` is.
 
     `check` and `extra` (the command line's flags) set a CPU
-    rehearsal's size and device."""
+    rehearsal's size and device. `group`: the first group's processes
+    as `start_ddp_group` started them earlier (main starts them before
+    cli_recipe's untimed tail: they boot beside it), else started
+    here."""
     import numpy as np
 
-    t0 = time.monotonic()
+    group = group or start_ddp_group(work, check, extra)
+    t0, cli, spatial_cli, probe, nccl = (group[k] for k in (
+        "t0", "cli", "spatial_cli", "probe", "nccl"))
     log_dir = os.path.join(work, "ddp_cli")
-    cli = start_torchrun(2, [
-        "-m", "deepof_tpu_torch", "train", "--multihost", *DDP_RUN,
-        "--set", f"data.batch_size={DDP_BATCH}",
-        "--set", f"train.eval_batch_size={DDP_BATCH}",
-        "--steps", str(DDP_STEPS), "--log-dir", log_dir, *extra],
-        work, "ddp_cli")
     spatial_dir = os.path.join(work, "spatial_cli")
-    spatial_cli = start_torchrun(2, [
-        "-m", "deepof_tpu_torch", "train", "--multihost", *DDP_RUN,
-        "--set", "mesh.spatial=2",
-        "--set", f"data.batch_size={SPATIAL_CLI_BATCH}",
-        "--set", f"train.eval_batch_size={SPATIAL_CLI_BATCH}",
-        "--steps", str(SPATIAL_CLI_STEPS), "--log-dir", spatial_dir,
-        *extra], work, "spatial_cli")
-    probe = (subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "gloo_probe"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=_rank_env(), cwd=os.path.dirname(os.path.abspath(__file__)))
-        if check["device"] == "cuda" else None)
+    done_at: dict = {}  # seconds from t0 to each run's end
     args = [*DDP_RUN, "--set", "data.batch_size=4", "--set",
             "train.eval_batch_size=4", "--steps", str(DDP_STEPS), *extra]
     rank_dir = os.path.join(work, "nccl_world1")
-    nccl = start_torchrun(1, [os.path.abspath(__file__), "deterministic_cli",
-                              "train", "--multihost", *args,
-                              "--log-dir", rank_dir], work, "nccl")
     plain_dir = os.path.join(work, "nccl_plain")
+    t_plain = time.monotonic()
     with cudnn_deterministic():
         plain = run_cli(["train", *args, "--log-dir", plain_dir],
                         os.path.join(work, "nccl_plain.log"))
-    summaries = [last_json(o) for o in finish(cli)]
-    (nccl_out,) = finish(nccl)
-    spatial_summaries = [last_json(o) for o in finish(spatial_cli)]
-    runs_s = time.monotonic() - t0
+    done_at["nccl_plain"] = time.monotonic() - t_plain
+    # each run's end, as this process sees it: torchrun's exit
+    summaries = [last_json(o) for o in finish(cli, done_at)]
+    (nccl_out,) = finish(nccl, done_at)
+    spatial_summaries = [last_json(o) for o in finish(spatial_cli,
+                                                      done_at)]
+    done_at["group"] = time.monotonic() - t0
     gloo = None
     if probe is not None:
         out, err = probe.communicate(timeout=300)
@@ -7659,15 +7964,32 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     with open(os.path.join(work, "ddp_check.json"), "w") as f:
         json.dump(check, f)
     one_ms = ddp_reference(work, check)
-    context_ms = context_reference(work, check)
-    t_ranks = time.monotonic()
     import torch
 
-    # the ranks' CPU threads as this process's: a CPU rehearsal's
-    # convolutions then sum as the references did
-    finish(start_torchrun(2, [os.path.abspath(__file__), "ddp_rank", work],
-                          work, "ddp_check", threads=torch.get_num_threads()))
+    # the ranks boot between the references' timed steps and their
+    # checked steps (`context_reference`); the ranks' CPU threads as
+    # this process's: a CPU rehearsal's convolutions then sum as the
+    # references did
+    started: list = []
+    try:
+        context_ms = context_reference(
+            work, check, between=lambda: started.append(start_torchrun(
+                2, [os.path.abspath(__file__), "ddp_rank", work], work,
+                "ddp_check", threads=torch.get_num_threads())))
+    except BaseException:
+        for procs, *_ in started:  # they wait for references never written
+            for proc in procs:
+                proc.terminate()  # torchrun passes it to its ranks
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        raise
+    t_ranks = time.monotonic()
+    finish(started[0])
     check_s = time.monotonic() - t_ranks
+    check_from_spawn_s = time.monotonic() - started[0][0][0].started_at
     ranks = []
     for r in range(2):
         with open(os.path.join(work, f"ddp_rank{r}.json")) as f:
@@ -7683,18 +8005,25 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
     records = read_records(log_dir)
     first = records[0]
     losses = [r["loss"] for r in records if r["kind"] == "train"]
-    # the check's seconds; the command line's are ddp_nccl_world1's
+    # the check's seconds; each command-line run's are its own
     ddp_row = {"seconds": time.monotonic() - t_check,
-               "check_ranks_s": check_s, "clearing_wait_s": clearing_wait_s,
+               "runs_seconds": done_at,
+               "check_ranks_s": check_s,
+               "check_ranks_from_spawn_s": check_from_spawn_s,
+               "check_ranks_boot_beside": "the references' checked steps "
+                                          "(context_reference)",
+               "clearing_wait_s": clearing_wait_s,
                "check": {"ranks": ranks, "tol": DDP_TOL,
                          "loss_rtol": DDP_LOSS_RTOL,
                          "halves_tol": DDP_HALVES_TOL,
                          "beside": "nothing",
                          "one_process_step_ms": one_ms},
                "cli": {"steps": DDP_STEPS, "global_batch": DDP_BATCH,
-                       "seconds": runs_s,
+                       "seconds": done_at["ddp_cli"],
                        "beside": "ddp_nccl_world1 and the earlier runs' "
                                  "removal",
+                       "boot_beside": "cli_recipe's untimed predict and "
+                                      "verbs",
                        "losses": losses,
                        "first_record": {k: first.get(k) for k in (
                            "message", "dist_backend", "world_size")},
@@ -7711,7 +8040,7 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
                   if r["kind"] == "train"] for d in (rank_dir, plain_dir))
     differ = [i + 1 for i, (a, b) in enumerate(zip(got, want)) if a != b]
     nccl_row = {
-        "seconds": runs_s,
+        "seconds": done_at["nccl"], "plain_seconds": done_at["nccl_plain"],
         "beside": "ddp_flownet_c's command line and the earlier runs' "
                   "removal",
         "cudnn_deterministic": True,
@@ -7771,7 +8100,9 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
             "ranks": ranks, "tol": DDP_TOL, "loss_rtol": DDP_LOSS_RTOL,
             **({"float32_spread": FLOAT32_SPREAD} if kind in families
                else {}),
-            "one_process_step_ms": context_ms[kind],
+            "bf16_spread": BF16_SPREAD, "bf16_loss_rtol": BF16_LOSS_RTOL,
+            "one_process_step_ms": context_ms["float32"][kind],
+            "one_process_bf16_step_ms": context_ms["bfloat16"][kind],
             "beside": "nothing (after ddp_flownet_c's check, in its ranks)",
             "backend": ddp_row["check"]["ranks"][0]["backend"]}
         emit(phase, **rows[phase])
@@ -7780,7 +8111,7 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
                       if r["kind"] == "train"]
     rows["spatial_cli"] = {
         "steps": SPATIAL_CLI_STEPS, "global_batch": SPATIAL_CLI_BATCH,
-        "seconds": runs_s, "beside": "ddp_flownet_c's and "
+        "seconds": done_at["spatial_cli"], "beside": "ddp_flownet_c's and "
         "ddp_nccl_world1's runs and the earlier runs' removal",
         "losses": spatial_losses,
         "warnings": [r["message"] for r in spatial_records
@@ -7821,11 +8152,49 @@ def ddp_phases(work: str, check: dict = DDP_CHECK, extra: tuple = (),
         "spatial_cli_active": not any("spatial CP inactive" in m for m in
                                       rows["spatial_cli"]["warnings"])})
 
-    def spread(r):
+    def spread(r, factor=FLOAT32_SPREAD):
         return (r["vs_float64"]
-                <= FLOAT32_SPREAD * r["one_process_vs_float64"]
+                <= factor * r["one_process_vs_float64"]
                 and r["vs_float64_median"]
-                <= FLOAT32_SPREAD * r["one_process_vs_float64_median"])
+                <= factor * r["one_process_vs_float64_median"])
+
+    for kind, phase in phases.items():
+        # every kind's bf16 step (ROADMAP item 10.2): its distance from
+        # the float64 step, its loss, its launches (the bf16 correlation
+        # kernels on FlowNet-C's and FlowNet-CS's gathered rows, the
+        # float32 warps), both ranks' bits, its rows exchanged; and the
+        # float64 step of "spatial" and "volume", held as a family's
+        rk = rows[phase]["ranks"]
+        bf = [r["bfloat16"] for r in rk]
+        model = context_model(check, kind)
+        checks.update({
+            f"{kind}_bf16_grads": all(spread(r, BF16_SPREAD) for r in bf),
+            f"{kind}_bf16_rounded": all(
+                BF16_SPREAD * r["vs_float64"] >= r["one_process_vs_float64"]
+                and BF16_SPREAD * r["vs_float64_median"]
+                >= r["one_process_vs_float64_median"] for r in bf),
+            f"{kind}_bf16_loss": all(
+                abs(r["total"] - r["total_one_process"])
+                <= BF16_LOSS_RTOL * abs(r["total_one_process"])
+                for r in bf),
+            f"{kind}_bf16_launches": all(
+                r["launches"] == family_launches(model, dtype="bfloat16")
+                for r in bf),
+            f"{kind}_bf16_same_bits": bf[0]["grad_crc32"]
+            == bf[1]["grad_crc32"] and bf[0]["total"] == bf[1]["total"],
+            f"{kind}_bf16_exchanged": all(
+                2 * r["bfloat16"]["exchange"][f"{k}_bytes"]
+                == r["exchange"][f"{k}_bytes"]
+                and r["bfloat16"]["exchange"][f"{k}_messages"]
+                == r["exchange"][f"{k}_messages"]
+                for r in rk for k in ("halo", "gather"))
+            and (kind == "volume" or all(
+                r["bfloat16"]["exchange"]["halo_bytes"] > 0
+                and r["bfloat16"]["exchange"]["gather_bytes"] > 0
+                for r in rk))})
+        if kind not in families:
+            checks[f"{kind}_float64_grads"] = all(
+                held(r["float64"]) for r in rk)
 
     for kind, fam in families.items():
         # the float64 step held as spatial_flownet_c is; the float32
@@ -7943,11 +8312,28 @@ class Prewrite:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def clear_in_background(work: str) -> threading.Thread:
+def untimed(fn, *args):
+    """`fn(*args)`, an untimed check that main runs while a process
+    boots, spanned in the timeline; then what it held on the card is
+    freed for the booting process."""
+    import gc
+
+    import torch
+
+    with spanned(f"untimed {fn.__name__}"):
+        row = fn(*args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def clear_in_background(work: str, keep: tuple = ()) -> threading.Thread:
     """Remove what `work` holds now (the earlier phases' runs: GBs of
-    checkpoints) on a thread, while the subprocess phases that follow
-    run; the final cleanup then has only their own directories left."""
-    names = [os.path.join(work, n) for n in os.listdir(work)]
+    checkpoints) but the names in `keep` on a thread, while the
+    subprocess phases that follow run; the final cleanup then has only
+    their own directories left."""
+    names = [os.path.join(work, n) for n in os.listdir(work)
+             if n not in keep]
 
     def run():
         for path in names:
@@ -8074,6 +8460,7 @@ def main() -> int:
     prewrite.move_into(work)
     warmup = None
     clearing = None
+    later: list = []  # serving processes started ahead of their phase
     try:
         train_row = train(ExperimentConfig(
             data=DataConfig(dataset="synthetic"),
@@ -8090,35 +8477,67 @@ def main() -> int:
         bf16_train = train_corr_model("flownet_c", work, "bfloat16")
         cli_bf16_row = cli_train_flownet_c_bf16(work)
         gather_row = cli_train_gather_bf16(work)
-        repeat_flownet_cs(work)
         sintel_row = cli_sintel(work, prewrite.seconds)
         job_row = cli_train_job(work)
         preempt_row = cli_preempt_faults(work)
-        # the artifact store's single writer runs beside cli_serve
-        warmup = start_warmup_serve(work)
-        serve_cli_row = cli_serve(work, os.path.join(work,
-                                                     "cli_train_job_k2"))
-        artifacts_row = publish_artifacts(work, warmup=warmup)
-        fleet_row = serve_fleet(work, os.path.join(work, "cli_train_job_k2"),
-                                artifacts=artifacts_row["store"])
-        autoscale_row = serve_autoscale(work, os.path.join(
-            work, "cli_train_job_k2"))
+        # Inception-v3 ahead of the serving phases: its F17 check runs
+        # while serve_fleet's replicas boot
         inception_row = cli_train_inception(work)
+        # the artifact store's single writer runs beside cli_serve, and
+        # st_single's kernel against plain step while it boots
+        warmup = start_warmup_serve(work)
+        serve_cli_row = cli_serve(
+            work, os.path.join(work, "cli_train_job_k2"),
+            while_booting=lambda: untimed(ucf101_step_vs_plain, work))
+        artifacts_row = publish_artifacts(work, warmup=warmup)
+        # F17's fresh process, the store's corrupted-copy checks and
+        # VGG16Flow's kernel against plain step run while serve_fleet's
+        # replicas boot
+        served = os.path.join(work, "cli_train_job_k2")
+
+        def fleet_booting():
+            f17 = f17_engine(work, inception_row)
+            untimed(artifacts_corrupt, work, artifacts_row)
+            untimed(vgg_step_vs_plain, work)
+            f17()
+
+        # serve_autoscale's fleet starts once serve_fleet's has drained:
+        # its first replica boots beside serve_fleet's reference, verbs
+        # and checks, Inception-v3's kernel against plain steps and
+        # FlowNet-CS's repeats
+        fleet_row = serve_fleet(work, served,
+                                artifacts=artifacts_row["store"],
+                                while_booting=fleet_booting,
+                                after_drain=lambda: later.append(
+                                    spawn_autoscale(work, served)))
+        untimed(inception_vs_plain, work)
+        untimed(repeat_flownet_cs, work)
+        autoscale_row = serve_autoscale(work, served, later[0])
         sintel_inc_row = cli_sintel_inception(work)
         bench_row = cli_bench(work)
         vgg_row = cli_train_vgg(work)
         ucf_row = cli_train_ucf101(work)
-        recipe_row = cli_recipe(work)
-        # this slice's paths: ranks on the card, and the elastic pool;
-        # the earlier runs are removed meanwhile
+        # ddp_phases' first group boots beside cli_recipe's untimed
+        # predict and verbs; the earlier runs are removed meanwhile
+        group: dict = {}
+        recipe_row = cli_recipe(work, before_tail=lambda: group.update(
+            start_ddp_group(work)))
+        later += [p for k in ("cli", "spatial_cli", "nccl")
+                  for p in group[k][0]]
+        later += [group["probe"]] if group["probe"] is not None else []
         torch.cuda.empty_cache()  # the subprocesses share the card
-        clearing = clear_in_background(work)
-        ddp_row, nccl_row, context_rows = ddp_phases(work, clearing=clearing)
+        clearing = clear_in_background(work, keep=DDP_GROUP_DIRS)
+        ddp_row, nccl_row, context_rows = ddp_phases(work, clearing=clearing,
+                                                     group=group)
         drill_row = elastic_drill_card(work)
     finally:
         if warmup is not None and warmup[0].poll() is None:
             warmup[0].kill()  # a phase before publish_artifacts failed
             warmup[0].wait()
+        for proc in later:  # a phase between its start and its own failed
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if clearing is not None:
             clearing.join()
         shutil.rmtree(work, ignore_errors=True)
@@ -8185,10 +8604,14 @@ def main() -> int:
     # each time rank's (the warps on its half of the pairs), and the
     # ranks of `train --multihost --set mesh.spatial=2`
     # (and, since item 10.1, every other family's spatial ranks)
+    # (and, since item 10.2, each kind's step in bf16 compute: the bf16
+    # correlation kernels on FlowNet-C's and FlowNet-CS's gathered rows)
     for phase in ("spatial_flownet_c", "time_volume",
                   *(f"spatial_{k}" for k in CONTEXT["families"])):
         for r in context_rows[phase]["ranks"]:
             corr_paths[f"{phase}_rank{r['rank']}"] = r["launches"]
+            corr_paths[f"{phase}_bf16_rank{r['rank']}"] = r["bfloat16"][
+                "launches"]
     for r, s in enumerate(context_rows["spatial_cli"]["ranks"]):
         corr_paths[f"spatial_cli_rank{r}"] = s["kernel_launches"]
     for h in ("host-0", "host-2"):
@@ -8455,6 +8878,7 @@ def main() -> int:
                   "cli_train_flownet_c": ledger_row["flownet_c_trace_s"],
                   "serve_http_warm": http_row["ledger_trace_s"]},
          boot=fleet_row["boot"], boot_single=fleet_row["single"]["boot"])
+    emit("timeline", spans=TIMELINE)
     emit("total", seconds=time.monotonic() - START,
          phase_seconds={"serve_bench": serve_bench_row["seconds"],
                         "cli_train_job": job_row["seconds"],

@@ -116,9 +116,9 @@ is taken. `mesh.spatial` and `mesh.time` do what they do in the JAX
 verbs: `train`, `eval`, `train --recipe` and `warmup` build the mesh (a
 world whose size is not data x spatial x time raises ValueError) and
 shard rows or pairs (`parallel/spatial.py`); `serve` reads no mesh.
-What would shard on a path not ported yet (a model without row-sharded
-layers, bf16 compute, the elastic pool) raises, naming ROADMAP item
-10.
+Every family shards in float32 and in bf16 compute; the elastic pool
+with a spatial or time axis (not ported yet) raises, naming ROADMAP
+item 10.3.
 
 Float32 means float32, as the JAX reference computes: the package's
 entry points turn TF32 off (`core.device.disable_tf32`:

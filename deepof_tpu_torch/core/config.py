@@ -12,7 +12,7 @@ the metrics port are carried. Settings that change what the training
 path computes are carried; `check_trainable` raises on values that no
 model can honour, and `raise_unported` names the ROADMAP item of a
 setting not ported yet (`mesh.spatial` or `mesh.time` > 1 where they
-would shard rows or pairs under bf16 compute or in the elastic pool:
+would shard rows or pairs in the elastic pool:
 `parallel/spatial.py::check_context_parallel`).
 """
 

@@ -36,7 +36,9 @@ card stages each message through host memory (`.cpu()` before the send,
 a host buffer for the receive, copied back to the device). The route is
 decided by the group's backend and the tensor's device, named in
 `SpatialGroup.staged`, and a failed send or receive raises: nothing
-falls back.
+falls back. A message keeps its sender's dtype on either route (bf16
+rows under `train.compute_dtype=bfloat16` travel as bf16, bit for bit,
+and their cotangents in the dtype autograd hands the adjoint).
 
 `STATS` counts what crossed the wire (bytes and messages, by kind:
 "halo" or "gather"), and with `STATS["timed"]` set the host seconds of
@@ -407,12 +409,14 @@ def check_context_parallel(cfg, model=None, data: int = 1,
                            elastic: bool = False) -> None:
     """Raise NotImplementedError, naming ROADMAP item 10, where `cfg`
     would shard rows or pairs (`context_parallel`) on a path not ported
-    yet: `train.compute_dtype=bfloat16` (item 10.2) or the elastic pool
-    (item 10.3), for every model (every family of the registry shards
-    its rows in float32: FlowNet-S and -C, FlowNet-CS, Inception-v3,
-    VGG16Flow and the three UCF-101 models). With the gate off the ranks
-    are replicas and nothing is refused. `model`: the built model, or
-    None to look its class up by `cfg.model`."""
+    yet: the elastic pool (item 10.3). Every family of the registry
+    (FlowNet-S and -C, FlowNet-CS, Inception-v3, VGG16Flow and the three
+    UCF-101 models) shards its rows and pairs in float32 and in bf16
+    compute (`train.compute_dtype=bfloat16`): the exchange and the
+    gathers carry the sender's dtype, bit for bit, and the flows are
+    gathered before the step casts them to float32. With the gate off
+    the ranks are replicas and nothing is refused. `model`: the built
+    model, or None to look its class up by `cfg.model`."""
     if cfg.mesh.spatial <= 1 and cfg.mesh.time <= 1:
         return
     from ..core.config import raise_unported
@@ -423,12 +427,9 @@ def check_context_parallel(cfg, model=None, data: int = 1,
         model = MODELS[cfg.model]
     spatial, pairs = context_parallel(
         cfg, getattr(model, "max_downsample", 64), data)
-    todo = []
     what = (f"mesh.spatial={cfg.mesh.spatial}" if spatial
             else f"mesh.time={cfg.mesh.time}")
-    if (spatial or pairs) and cfg.train.compute_dtype != "float32":
-        todo.append((f"{what} with train.compute_dtype="
-                     f"{cfg.train.compute_dtype}", "10.2"))
+    todo = []
     if (spatial or pairs) and elastic:
         todo.append((f"{what} in the elastic pool", "10.3"))
     raise_unported(todo)

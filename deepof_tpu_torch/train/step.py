@@ -83,7 +83,12 @@ The model works in NCHW; the loss keeps the JAX package's NHWC, through
 permuted views of the same memory. Under `train.compute_dtype=
 "bfloat16"` the train step casts the network's input pair to bf16 and
 the model's flows back to float32 before the loss, as the JAX step does;
-the loss, the gradients, their norm and Adam stay float32.
+the loss, the gradients, their norm and Adam stay float32. Over a
+spatial or time axis a bf16 step shards as a float32 one does: the
+exchanges and row gathers carry the bf16 rows bit for bit (and their
+cotangents in the dtype autograd hands them), and the flows are
+gathered to full height before the cast, as the one-process step casts
+them.
 """
 
 from __future__ import annotations

@@ -21,6 +21,15 @@ bound of its depth, its frames), from the flax init of the JAX model
   - "<name>_dropout" (action models): the spatial=2 train step with its
     dropout, whose masks are the global batch's on every spatial rank
     (F19), against the one-process step with the same masks, as above;
+  - "<name>_bf16": the spatial=2 train step in bf16 compute
+    (`train.compute_dtype=bfloat16`, ROADMAP item 10.2), half as wide
+    as it is high (`bf16_hw`), from the port's init, dropout off: its gradients' distance from the
+    port's one-process float64 step (every layer in float64, the
+    correlation's float32 sum as in the kernel) at most BF16_SPREAD
+    times the one-process bf16 step's, on the worst tensor and on the
+    median one (`assert_bf16_spread`), and the loss within
+    BF16_LOSS_RTOL of the one-process bf16 loss, both ranks bitwise
+    equal;
   - "eval_<name>": the Trainer's eval (`evaluate_aee`, or
     `evaluate_ucf101` for an action model, through `gathered_eval_fn`)
     under spatial=2 against one process's, within 1e-5 relative, on a
@@ -63,6 +72,24 @@ STEP_TOL = 1e-5
 LOSS_RTOL = 1e-6
 JAX_TOL = 1e-4
 EVAL_VAL = 4
+#: a bf16 step's distance from the float64 step (each tensor's largest
+#: difference over its largest entry): the spatial ranks' at most
+#: BF16_SPREAD times the one-process bf16 step's, on the worst and the
+#: median tensor. Bit equality is not expected: the row-sharded
+#: convolutions sum their bf16 products in another order. 4 is the
+#: float32 check's FLOAT32_SPREAD (chip_smoke.py).
+BF16_SPREAD = 4.0
+#: the sharded bf16 loss against the one-process bf16 loss, relative
+BF16_LOSS_RTOL = 5e-3
+#: the bf16 cases' width: half the rows, so the deepest level keeps two
+#: columns. At WIDTH every level's border mask covers the image (the
+#: loss is 0), and PyTorch's CPU `conv_transpose2d` in bf16 returns an
+#: input gradient of uninitialized memory for a 1-column input whose
+#: column padding crops the output (torch 2.13.0+cpu: 224, NaN or 4e20
+#: for a zero cotangent; PERF.md), which a decoder's deepest deconv is
+#: at a 1-column level
+def bf16_hw(rows: int) -> list[int]:
+    return [rows, rows // 2]
 
 
 def step_case(name: str) -> dict:
@@ -78,6 +105,8 @@ def cases(names) -> list[dict]:
     for name in names:
         step = step_case(name)
         out.append(step)
+        out.append({**step, "name": f"{name}_bf16", "dtype": "bfloat16",
+                    "hw": bf16_hw(step["hw"][0])})
         if step["model"] in ACTION:
             out.append({**step, "name": f"{name}_dropout", "dropout": True,
                         "weights": name})
@@ -123,7 +152,8 @@ def run(work: str, names) -> dict:
     params = {}
     for case in cases(names):
         write_case(work, case, seed=1)
-        if case["kind"] == "step" and "weights" not in case:
+        if (case["kind"] == "step" and "weights" not in case
+                and "dtype" not in case):  # a bf16 case: the port's init
             p = jax.jit(jax_model(case).init)(jax.random.PRNGKey(0),
                                              jax_input(case))["params"]
             params[case["name"]] = jax.tree_util.tree_map(np.asarray, p)
@@ -133,13 +163,27 @@ def run(work: str, names) -> dict:
             "ranks": W.launch(work, cases(names), 2, timeout_s=600)}
 
 
-def one_process_step(work: str, case: dict) -> tuple[dict, dict]:
+def set_compute_dtype(model, dtype) -> None:
+    """Every layer's compute dtype (the `dtype` each conv, deconv and
+    dense layer casts its input, weight and bias to); the parameters
+    stay float32."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
+def one_process_step(work: str, case: dict, layers=None
+                     ) -> tuple[dict, dict]:
     """The port's step of the case in one process, on one CPU thread as
-    each rank steps: metrics, gradients."""
+    each rank steps: metrics, gradients. `layers`: every layer's compute
+    dtype instead of the case's (float64: the exact reference; the plain
+    correlation sums in float32 whatever its operands are)."""
     cfg = W.config({**case, "mesh": [1, 1, 1]})
     model = W.model_for(case)
     model.load_state_dict(torch.load(os.path.join(
         work, f"{case.get('weights', case['name'])}.pt")))
+    if layers is not None:
+        set_compute_dtype(model, layers)
     state = create_train_state(model, cfg.optim,
                                step_decay_schedule(cfg.optim, 1))
     with np.load(os.path.join(work, f"{case['name']}.npz")) as z:
@@ -147,7 +191,8 @@ def one_process_step(work: str, case: dict) -> tuple[dict, dict]:
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        m = W.train_step(model, cfg, ONE, case["dropout"])(state, batch)
+        m = W.train_step(model, cfg, ONE, case.get("dropout", True))(state,
+                                                                   batch)
     finally:
         torch.set_num_threads(threads)
     return m, {n: p.grad for n, p in model.named_parameters()}
@@ -175,6 +220,60 @@ def assert_matches_one_process(run_: dict, name: str) -> None:
         assert torch.equal(v, r1["metrics"][k]), k
     # sharded: halos crossed, and the flows or the head's input gathered
     assert r0["stats"]["halo_bytes"] > 0 and r0["stats"]["gather_calls"] > 0
+
+
+def rel_errs(got: dict, want: dict) -> dict:
+    """{name: max |got - want| / max |want|} over two gradient dicts."""
+    return {n: float((got[n].double() - w.double()).abs().max()
+                     / max(float(w.abs().max()), 1e-30))
+            for n, w in want.items()}
+
+
+def spread(got: dict, one: dict, exact: dict) -> dict:
+    """The distances of two gradient dicts from the exact one on the
+    worst and the median tensor: `got` (the sharded step's) and `one`
+    (the one-process step's of the same dtype)."""
+    d, o = rel_errs(got, exact), rel_errs(one, exact)
+    return {"worst": max(d.values()), "one_worst": max(o.values()),
+            "median": float(np.median(list(d.values()))),
+            "one_median": float(np.median(list(o.values())))}
+
+
+def assert_spread(got: dict, one: dict, exact: dict,
+                  factor: float = BF16_SPREAD) -> dict:
+    """A bf16 step's distance from the exact step within `factor` times
+    the one-process bf16 step's, and at least 1/`factor` of it, on the
+    worst and the median tensor: a step that computed in float32 lies
+    far closer."""
+    s = spread(got, one, exact)
+    print("bf16 spread", json.dumps(s))  # shown under pytest -s
+    assert s["worst"] <= factor * s["one_worst"], s
+    assert s["median"] <= factor * s["one_median"], s
+    assert factor * s["worst"] >= s["one_worst"], s
+    assert factor * s["median"] >= s["one_median"], s
+    return s
+
+
+def assert_bf16_spread(run_: dict, name: str) -> None:
+    """The "<name>_bf16" case against the port's one-process bf16 and
+    float64 steps (BF16_SPREAD, BF16_LOSS_RTOL); both ranks the same
+    bits; every message of its exchanges bf16 (the rows cross as they
+    are computed, never upcast)."""
+    case = next(c for c in cases([name]) if c["name"] == f"{name}_bf16")
+    want_m, want_g = one_process_step(run_["work"], case)
+    _, exact = one_process_step(
+        run_["work"], {k: v for k, v in case.items() if k != "dtype"},
+        torch.float64)
+    r0, r1 = (r[case["name"]] for r in run_["ranks"])
+    np.testing.assert_allclose(float(r0["metrics"]["total"]),
+                               float(want_m["total"]), rtol=BF16_LOSS_RTOL)
+    assert set(r0["grads"]) == set(want_g)
+    assert all(g.dtype == torch.float32 for g in r0["grads"].values())
+    assert_spread(r0["grads"], want_g, exact)
+    for n, g in r0["grads"].items():
+        assert torch.equal(g, r1["grads"][n]), n
+    assert r0["stats"]["halo_bytes"] > 0 and r0["stats"]["gather_calls"] > 0
+    assert r0["wire_dtypes"] == r1["wire_dtypes"] == ["torch.bfloat16"]
 
 
 def assert_matches_jax(run_: dict, name: str) -> None:

@@ -16,8 +16,10 @@ saw to WORKDIR/rank<r>.pt, a dict by case name. A case is
           spatial, time) = case["mesh"] from WORKDIR/<weights>.pt's
           weights (case["weights"], default its name) on this rank's
           rows of the global batch WORKDIR/<name>.npz, an action model's
-          dropout off where case["dropout"] is false:
-          {"metrics", "grads", "stats"};
+          dropout off where case["dropout"] is false, in
+          case.get("dtype", "float32") compute:
+          {"metrics", "grads", "stats", "wire_dtypes"} (the dtypes of
+          every message its exchanges sent or received);
   eval    `Trainer.evaluate()` under case["mesh"] from those weights:
           the AEE protocol's numbers, and the Trainer's warn records;
   gate    a Trainer built under case["mesh"] (no step): its warn
@@ -57,6 +59,25 @@ from deepof_tpu_torch.train.step import make_train_step  # noqa: E402
 LOSS = {"alpha_c": 0.5, "alpha_s": 0.5}
 #: FlowNet-C's thin geometry (tests/test_torch_ddp.py's)
 CORR = {"corr_max_disp": 2, "corr_stride": 1}
+#: the dtypes of the messages the exchanges sent and received since the
+#: last clear (`record_wire`, installed by `main`)
+WIRE: set = set()
+
+
+def record_wire() -> None:
+    """Wrap `torch.distributed.batch_isend_irecv`, which every exchange
+    and gather of `parallel/spatial.py` hands its point-to-point ops
+    to, to add each op's tensor's dtype to WIRE: what crosses the wire,
+    after any cast on the way."""
+    import torch.distributed as dist
+
+    batch = dist.batch_isend_irecv
+
+    def recorded(ops):
+        WIRE.update(str(op.tensor.dtype) for op in ops)
+        return batch(ops)
+
+    dist.batch_isend_irecv = recorded
 #: the models with a width knob (the others are always full width)
 THIN = ("flownet_s", "flownet_c", "inception_v3")
 
@@ -71,7 +92,8 @@ def knobs(model: str) -> dict:
 def config(case: dict, log_dir: str = "") -> ExperimentConfig:
     """The case's config: case["model"] thin (`knobs`) at case["hw"],
     global batch case["batch"], T = case.get("time_step", 2) frames,
-    the mesh of case["mesh"]."""
+    the mesh of case["mesh"], computing in case.get("dtype", "float32")
+    (`train.compute_dtype`)."""
     hw = tuple(case["hw"])
     d, s, t = case.get("mesh", (1, 1, 1))
     return ExperimentConfig(
@@ -84,7 +106,8 @@ def config(case: dict, log_dir: str = "") -> ExperimentConfig:
         train=TrainConfig(log_dir=log_dir, log_every=1, eval_every=0,
                           eval_batch_size=case["batch"],
                           eval_amplifier=1.0, ckpt_every_epochs=1000,
-                          seed=3))
+                          seed=3, compute_dtype=case.get("dtype",
+                                                         "float32")))
 
 
 def model_for(case: dict, device="cpu"):
@@ -92,6 +115,7 @@ def model_for(case: dict, device="cpu"):
     return build_model(case["model"],
                        flow_channels=2 * (cfg.data.time_step - 1),
                        device=device, image_size=tuple(case["hw"]),
+                       dtype=getattr(torch, cfg.train.compute_dtype),
                        **knobs(case["model"]))
 
 
@@ -175,11 +199,12 @@ def run_step(work: str, case: dict, world) -> dict:
     with np.load(os.path.join(work, f"{case['name']}.npz")) as z:
         batch = {k: z[k][rows] for k in z.files}
     spatial.reset_stats()
+    WIRE.clear()
     m = step(state, batch)
     return {"metrics": {k: v.detach().cpu() for k, v in m.items()},
             "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None},
-            "stats": dict(spatial.STATS)}
+            "stats": dict(spatial.STATS), "wire_dtypes": sorted(WIRE)}
 
 
 def _warnings(log_dir: str) -> list[str]:
@@ -209,6 +234,7 @@ def main(work: str, port: str, rank: str, size: str,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    record_wire()
     with open(os.path.join(work, "cases.json")) as f:
         cases = json.load(f)
     init_distributed(device, env={

@@ -68,7 +68,9 @@ def test_port_imports_with_jax_and_reference_blocked():
     "deepof_tpu_torch.train.elastic",
     "deepof_tpu_torch.tools.elastic_drill",
     "deepof_tpu_torch.parallel.spatial",
-    "deepof_tpu_torch.tools.halo_grad_repro"])
+    "deepof_tpu_torch.tools.halo_grad_repro",
+    "deepof_tpu_torch.tools.serve_bench",
+    "deepof_tpu_torch.tools.autoscale_drill"])
 def test_the_observability_and_fault_modules_are_covered(module):
     """The training loop's observability and fault modules, the serving
     plane and the fetchers are copies or ports of JAX-package modules:

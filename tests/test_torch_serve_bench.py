@@ -6,9 +6,11 @@ the engine modes) on the CPU: the JAX package's schema tests of
 `test_session.py::test_serve_bench_stream_speedup_and_schema`,
 `test_quality.py::test_serve_bench_quality_schema`,
 `test_ledger.py::test_serve_bench_ledger_required_keys_schema`), the
-incident mode's schema, the command line (one JSON line; the process
-modes and their settings exit 2), and a small FlowNet-C real run through
-the plain correlation.
+incident mode's schema, the command line (one JSON line; each process
+mode and each setting only those modes read reaches its mode's function
+with the JAX tool's defaults), and a small FlowNet-C real run through
+the plain correlation. The process modes themselves run in
+`tests/test_torch_serve_bench_{fleet,ramp,brownout}.py`.
 
 The stream test keeps the JAX test's one bounded retry, on the two
 timing ratios only (`stream_speedup` >= 1.5, `warm_speedup` >= 1.3);
@@ -167,18 +169,56 @@ def test_main_prints_one_json_line_for_a_fake_run(capsys):
     assert res["max_batch"] == 8 and res["timeout_ms"] == 10.0
 
 
-@pytest.mark.parametrize("argv", [
-    ["--fleet", "2"], ["--ramp"], ["--brownout"], ["--artifact-cold"],
-    # the settings only the process modes read: refused, never ignored
-    ["--real", "--width-mult", "1.0"], ["--clients", "4"],
-    ["--max-replicas", "3"], ["--burst-s", "1"], ["--idle-s", "1"],
-    ["--slope", "0.5"], ["--window-s", "2"]])
-def test_process_modes_exit_2_naming_item_14(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        sb.main(["--device", "cpu", *argv])
-    assert e.value.code == 2
-    err = capsys.readouterr()
-    assert "item 14" in err.err and err.out == ""
+#: (argv, the mode's function, the argument it must receive, its value)
+PROCESS_FLAGS = [
+    (["--fleet", "3"], "fleet_bench", "replicas", 3),
+    (["--ramp"], "ramp_bench", "max_replicas", 3),
+    (["--brownout"], "brownout_bench", "window_s", 3.0),
+    (["--artifact-cold"], "artifact_cold_bench", "width_mult", 1.0),
+    # the settings only the process modes read
+    (["--fleet", "2", "--clients", "4"], "fleet_bench", "clients", 4),
+    (["--ramp", "--clients", "5"], "ramp_bench", "burst_clients", 5),
+    (["--ramp", "--max-replicas", "4"], "ramp_bench", "max_replicas", 4),
+    (["--ramp", "--burst-s", "1.5"], "ramp_bench", "burst_s", 1.5),
+    (["--ramp", "--idle-s", "3"], "ramp_bench", "idle_s", 3.0),
+    (["--ramp", "--slope", "0.5"], "ramp_bench", "slope_threshold", 0.5),
+    (["--brownout", "--window-s", "2"], "brownout_bench", "window_s", 2.0),
+    (["--artifact-cold", "--width-mult", "0.5"], "artifact_cold_bench",
+     "width_mult", 0.5),
+]
+
+
+@pytest.mark.parametrize("argv,fn,key,value", PROCESS_FLAGS,
+                         ids=[" ".join(c[0]) for c in PROCESS_FLAGS])
+def test_process_flags_reach_their_mode(argv, fn, key, value, monkeypatch,
+                                        capsys):
+    """Each process mode's flag runs its function, and each setting only
+    those modes read reaches it; the other arguments are the JAX tool's
+    command-line defaults (--fleet: its batcher's 8 / 10 ms / 10 ms;
+    --ramp and --brownout: batch 2, exec 30 ms, flush 2 ms; the bucket
+    64x64, the requests 48x96), with --device and the --set overrides."""
+    seen = {}
+
+    def fake(**kw):
+        seen.update(kw)
+        return {"mode": fn}
+
+    monkeypatch.setattr(sb, fn, fake)
+    assert sb.main(["--device", "cpu", "--set", "serve.max_batch=4",
+                    *argv]) == 0
+    assert json.loads(capsys.readouterr().out) == {"mode": fn}
+    assert seen[key] == value
+    assert seen["device"] == "cpu"
+    assert seen["overrides"] == ("serve.max_batch=4",)
+    assert seen["bucket"] == (64, 64)
+    shaped = {"max_batch": 2, "exec_ms": 30.0, "timeout_ms": 2.0,
+              "native_hw": (48, 96)}
+    want = {"fleet_bench": {"max_batch": 8, "exec_ms": 10.0,
+                            "timeout_ms": 10.0, "requests": 64,
+                            "native_hw": (48, 96)},
+            "ramp_bench": shaped, "brownout_bench": shaped,
+            "artifact_cold_bench": {"tiers": ("f32",)}}[fn]
+    assert {k: seen[k] for k in want} == want
 
 
 def test_set_flownet_c_real_run_through_the_plain_correlation():

@@ -212,13 +212,14 @@ def test_gathered_eval_matches_one_process(world_run, tmp_path):
     ("st_baseline", (384, 512), {}),
     ("ucf101_spatial", (256, 256), {}),
     ("flownet_c", (384, 512), {"compute_dtype": "bfloat16"}),
+    ("flownet_s", (384, 512), {"compute_dtype": "bfloat16"}),
 ])
 def test_unported_families_refuse_naming_item_10(model, hw, setting):
-    """Where the gate would shard rows, every family trains row-sharded
-    in float32 (each has its row-sharded layers since item 10.1); bf16
-    compute (item 10.2) and the elastic pool (item 10.3) still raise,
-    naming item 10, for every family; below the gate they train as
-    replicas and nothing raises."""
+    """Where the gate would shard rows (mesh.spatial=2) or split a
+    volume's pairs (mesh.time=2), every family trains sharded in float32
+    (item 10.1) and in bf16 compute (item 10.2); the elastic pool (item
+    10.3) still raises, naming item 10, in either dtype; below the gate
+    the ranks are replicas and nothing raises."""
     import dataclasses
 
     from deepof_tpu_torch.core.config import (DataConfig, ExperimentConfig,
@@ -233,19 +234,19 @@ def test_unported_families_refuse_naming_item_10(model, hw, setting):
                                                    compute_dtype=name))
 
     f32, bf16 = dtype(cfg, "float32"), dtype(cfg, "bfloat16")
-    if setting:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TS.check_context_parallel(cfg)
-    TS.check_context_parallel(f32)  # row-sharded
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TS.check_context_parallel(bf16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TS.check_context_parallel(f32, elastic=True)
+    # the volume's pairs split over time=2 ((T-1) x batch divides by 2)
+    vol = cfg.replace(mesh=MeshConfig(time=2), data=dataclasses.replace(
+        cfg.data, time_step=3, batch_size=2))
+    assert TS.context_parallel(vol, 64)[1]
+    for c in (cfg, f32, bf16, vol, dtype(vol, "bfloat16")):
+        TS.check_context_parallel(c)  # sharded, in either dtype
+        with pytest.raises(NotImplementedError, match="item 10.3"):
+            TS.check_context_parallel(c, elastic=True)
     small = cfg.replace(data=dataclasses.replace(cfg.data,
                                                  image_size=(64, 64)))
     for c in (small, dtype(small, "bfloat16")):
         TS.check_context_parallel(c)  # the gate is off: replicas
-    TS.check_context_parallel(small, elastic=True)
+        TS.check_context_parallel(c, elastic=True)
 
 
 def test_halo_grad_repro_finds_the_exchange_exact():

@@ -29,9 +29,15 @@ def world_run(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES
-                                  if c["kind"] == "step"])
+                                  if c["kind"] == "step"
+                                  and "dtype" not in c])
 def test_spatial_step_matches_one_process(world_run, name):
     F.assert_matches_one_process(world_run, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_spatial_bf16_step_within_the_spread(world_run, name):
+    F.assert_bf16_spread(world_run, name)
 
 
 @pytest.mark.parametrize("name", NAMES)

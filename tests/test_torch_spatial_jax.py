@@ -15,6 +15,16 @@ of a flow bias's gradient over the whole image (XLA's order and
 PyTorch's) already differ by up to 1.8e-4 of its largest entry, the
 one-process port step's as much as the spatial step's, so the exact
 reference measures the port alone.
+
+The same spatial=2 step in bf16 compute (`train.compute_dtype=bfloat16`,
+ROADMAP item 10.2; JAX has no test of bf16 under spatial) from the same
+weights and batch: its gradients' distance from JAX's float64 step
+(each tensor's largest difference over its largest entry) at most
+BF16_SPREAD times the distance of JAX's one-process bf16 step
+(`model_losses` with `compute_dtype=bfloat16`, every flax layer's
+`dtype` bf16) from that float64 step, on the worst tensor and on the
+median one, and the loss within BF16_LOSS_RTOL of JAX's one-process
+bf16 loss (`tests/_torch_spatial_families.py` states both).
 """
 
 import os
@@ -32,6 +42,7 @@ from deepof_tpu.train.step import model_losses as jax_model_losses
 from deepof_tpu_torch.convert import state_dict_from_flax
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_spatial_families as F  # noqa: E402
 import _torch_spatial_worker as W  # noqa: E402
 from test_torch_spatial import write_case  # noqa: E402
 
@@ -41,6 +52,8 @@ torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
 HW = (256, 96)
 CASES = [{"name": m, "kind": "step", "model": m, "hw": list(HW),
           "batch": 2, "mesh": [1, 2, 1]} for m in ("flownet_c", "flownet_s")]
+BF16_CASES = [{**c, "name": f"{c['name']}_bf16", "dtype": "bfloat16",
+               "weights": c["name"]} for c in CASES]
 
 
 def jax_model(case, dtype=jnp.float32):
@@ -65,31 +78,41 @@ def world_run(tmp_path_factory):
         params[case["name"]] = jax.tree_util.tree_map(np.asarray, p)
         torch.save(state_dict_from_flax(params[case["name"]]),
                    os.path.join(work, f"{case['name']}.pt"))
+    for case in BF16_CASES:
+        write_case(work, case, seed=1)  # the same batch as its float32's
     return {"work": work, "params": params,
-            "ranks": W.launch(work, CASES, 2)}
+            "ranks": W.launch(work, CASES + BF16_CASES, 2)}
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in CASES])
-def test_spatial_gradient_matches_the_jax_step(world_run, name):
+def jax_step(world_run, name: str, dtype) -> tuple[float, dict]:
+    """JAX's one-process `model_losses` loss and gradients (as the
+    port's state dict) of the float32 case `name`, every layer and the
+    compute in `dtype` (float64: under `jax.enable_x64`)."""
     case = next(c for c in CASES if c["name"] == name)
-    jm = jax_model(case, jnp.float64)
-    with jax.enable_x64(True):
+    jm = jax_model(case, dtype)
+    with jax.enable_x64(dtype == jnp.float64):
+        pdt = jnp.float64 if dtype == jnp.float64 else jnp.float32
         with np.load(os.path.join(world_run["work"], f"{name}.npz")) as z:
-            batch = {k: jnp.asarray(z[k], jnp.float64)
+            batch = {k: jnp.asarray(z[k], pdt)
                      for k in ("source", "target")}
         params = jax.tree_util.tree_map(
-            lambda a: jnp.asarray(a, jnp.float64), world_run["params"][name])
+            lambda a: jnp.asarray(a, pdt), world_run["params"][name])
 
         def objective(p):
             return jax_model_losses(jm, p, batch, (0.0, 0.0, 0.0),
                                     JaxLossConfig(**W.LOSS),
-                                    compute_dtype=jnp.float64)
+                                    compute_dtype=dtype)
 
         (total, _), grads = jax.jit(jax.value_and_grad(
             objective, has_aux=True))(params)
         total = float(total)
         grads = jax.tree_util.tree_map(np.asarray, grads)
-    want = state_dict_from_flax(grads)
+    return total, state_dict_from_flax(grads)
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in CASES])
+def test_spatial_gradient_matches_the_jax_step(world_run, name):
+    total, want = jax_step(world_run, name, jnp.float64)
     r0, r1 = (r[name] for r in world_run["ranks"])
     np.testing.assert_allclose(float(r0["metrics"]["total"]), total,
                                rtol=1e-4)
@@ -99,3 +122,17 @@ def test_spatial_gradient_matches_the_jax_step(world_run, name):
         np.testing.assert_allclose(r0["grads"][n].numpy(), w.numpy(),
                                    rtol=0, atol=1e-4 * scale, err_msg=n)
         assert torch.equal(r0["grads"][n], r1["grads"][n]), n
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in CASES])
+def test_spatial_bf16_gradient_within_the_spread_of_jax(world_run, name):
+    _, exact = jax_step(world_run, name, jnp.float64)
+    total, one = jax_step(world_run, name, jnp.bfloat16)
+    r0, r1 = (r[f"{name}_bf16"] for r in world_run["ranks"])
+    np.testing.assert_allclose(float(r0["metrics"]["total"]), total,
+                               rtol=F.BF16_LOSS_RTOL)
+    assert set(r0["grads"]) == set(exact)
+    F.assert_spread(r0["grads"], one, exact)
+    for n, g in r0["grads"].items():
+        assert torch.equal(g, r1["grads"][n]), n
+    assert r0["wire_dtypes"] == r1["wire_dtypes"] == ["torch.bfloat16"]

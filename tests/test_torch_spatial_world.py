@@ -19,8 +19,15 @@ and torchrun) against JAX and against one process.
     of the four folded pairs a rank) against one process: the loss
     within 1e-5 relative, each gradient within 1e-5 of its largest
     entry;
+  - the same volume step in bf16 compute (`train.compute_dtype=
+    bfloat16`, ROADMAP item 10.2) from the same weights and batch: its
+    gradients' distance from the one-process float64 step within
+    `_torch_spatial_families.BF16_SPREAD` times the one-process bf16
+    step's (worst and median tensor), the loss within BF16_LOSS_RTOL of
+    the one-process bf16 loss, both ranks bitwise equal;
   - `torchrun ... train --multihost --set mesh.spatial=2` for 2 steps
-    on the CPU: finite losses and rank 0's records.
+    on the CPU, in float32 and in bf16 compute: finite losses and rank
+    0's records.
 """
 
 import json
@@ -41,6 +48,7 @@ from deepof_tpu.parallel.mesh import build_mesh as jax_build_mesh
 from deepof_tpu.parallel.spatial import halo_exchange as jax_halo_exchange
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_spatial_families as F  # noqa: E402
 import _torch_spatial_worker as W  # noqa: E402
 from test_torch_spatial import (SHARDED_TOL,  # noqa: E402
                                 assert_step_matches, one_process_step,
@@ -55,6 +63,7 @@ GRID = {"name": "grid", "kind": "step", "model": "flownet_c",
         "hw": [256, 96], "batch": 4, "mesh": [2, 2, 1]}
 VOLUME = {"name": "volume", "kind": "step", "model": "flownet_s",
           "hw": [64, 96], "batch": 2, "time_step": 3, "mesh": [1, 1, 2]}
+VOLUME_BF16 = {**VOLUME, "name": "volume_bf16", "dtype": "bfloat16"}
 
 
 @pytest.fixture(scope="module")
@@ -63,10 +72,10 @@ def runs(tmp_path_factory):
     x = np.arange(8 * 16 * 4, dtype=np.float32).reshape(8, 16, 4)
     w = np.random.RandomState(0).randn(8, 32, 4).astype(np.float32)
     np.savez(os.path.join(work, "halo.npz"), x=x, w=w)
-    for case in (GRID, VOLUME):
+    for case in (GRID, VOLUME, VOLUME_BF16):
         write_case(work, case)
     four = W.launch(work, [HALO, GRID], 4)
-    two = W.launch(work, [VOLUME], 2)
+    two = W.launch(work, [VOLUME, VOLUME_BF16], 2)
     return {"work": work, "x": x, "w": w, "four": four, "two": two}
 
 
@@ -113,8 +122,29 @@ def test_time_axis_volume_step_matches_one_process(runs):
         assert torch.equal(g, r1["grads"][n]), n
 
 
+def test_time_axis_volume_bf16_step_within_the_spread(runs):
+    want_m, want_g = F.one_process_step(runs["work"], VOLUME_BF16)
+    _, exact = F.one_process_step(runs["work"], VOLUME, torch.float64)
+    r0, r1 = (r["volume_bf16"] for r in runs["two"])
+    np.testing.assert_allclose(float(r0["metrics"]["total"]),
+                               float(want_m["total"]),
+                               rtol=F.BF16_LOSS_RTOL)
+    F.assert_spread(r0["grads"], want_g, exact)
+    for n, g in r0["grads"].items():
+        assert torch.equal(g, r1["grads"][n]), n
+
+
 def test_train_multihost_spatial_on_the_cpu(tmp_path):
-    log_dir = str(tmp_path / "run")
+    train_multihost_spatial(str(tmp_path / "run"))
+
+
+def test_train_multihost_spatial_bf16_on_the_cpu(tmp_path):
+    train_multihost_spatial(str(tmp_path / "run"), "bfloat16")
+
+
+def train_multihost_spatial(log_dir: str, dtype: str = "float32") -> None:
+    """`torchrun ... train --multihost --set mesh.spatial=2` for 2 steps
+    of thin FlowNet-C at 256x96 in `dtype` compute."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
     res = subprocess.run(
@@ -129,7 +159,8 @@ def test_train_multihost_spatial_on_the_cpu(tmp_path):
          "--set", "data.gt_size=[256,96]", "--set", "data.batch_size=2",
          "--set", "train.eval_batch_size=2", "--set", "train.log_every=1",
          "--set", "train.eval_every=0",
-         "--set", "train.ckpt_every_epochs=1000000", "--log-dir", log_dir],
+         "--set", "train.ckpt_every_epochs=1000000",
+         "--set", f"train.compute_dtype={dtype}", "--log-dir", log_dir],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
